@@ -8,13 +8,24 @@ result):
 
 1. device:  the card's name and power limit (nvidia-smi); TF32 off for
             matmuls and cuDNN.
-2. build:   nvcc builds the kernel of the serving path from csrc/.
+2. build:   nvcc builds the kernels of the serving and training paths from
+            csrc/ (flash_fwd and flash_bwd, in parallel).
 3. kernels: each kernel against its plain PyTorch version on the card, at
-            the shapes the serving path gives it and at the other shapes the
-            kernel must take; times of the kernel, the plain version and one
-            library call (a yardstick only: the port never calls it), and
-            the least time the card could take.
-4. serve:   `make_server` on configs/catsdogs/classification/base_config.yaml
+            the shapes the serving and training paths give it and at the
+            other shapes the kernels must take: the forward, both backward
+            routes (fused; dkv + dq), and the dropout hash inside both;
+            times of the kernels, the plain versions and one library call
+            (a yardstick only: the port never calls it), the least time the
+            card could take, and both backward routes timed at every shape.
+4. train:   `ucf_vit_tpu_torch.train` on the same config (ViT-B/16 at full
+            width and depth, seeded init, synthetic batches of 16): 10 steps
+            with attention FLASH (the kernels) against 10 with EINSUM (plain
+            autograd) from one init and batch stream; a timed and a traced
+            window of 20 steps; the same config with attn_drop_rate 0.1,
+            3 steps FLASH against EINSUM (the hash mask is the same on both
+            sides); and `train()` itself for a few steps, with every launch
+            count set to 0 before it and read after.
+5. serve:   `make_server` on configs/catsdogs/classification/base_config.yaml
             (ViT-B/16 at full width, seeded weights) answers sequential HTTP
             requests, then sustained load from a client in its own process
             (closed-loop clients, one untraced window and one under the
@@ -34,6 +45,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -48,6 +60,17 @@ LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
 SERVE_TOL = 1e-4  # f32 on both sides, TF32 off: only the order of sums differs
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}  # o, against the f32 plain result
 LSE_TOL = 5e-5  # lse is f32 from the same (bf16-exact) inputs in both versions
+# dq, dk, dv: max |kernel - plain| over max |plain|. f32: other orders of sums,
+# and dq's atomics in a run-dependent order; bf16: against the f32 plain result
+# from the same bf16 inputs, the kernel's outputs rounded to bf16
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_BATCH = 16
+TRAIN_STEPS = 10  # FLASH against EINSUM
+TRAIN_LOSS_TOL = 1e-4  # per-step loss, f32 and TF32 off on both sides
+TRAIN_GRAD_TOL = 1e-4  # first-step gradient, relative to the largest entry
+TIMED_STEPS, WARMUP_STEPS = 20, 3
+DROPOUT_STEPS = 3
+MAIN_PATH_STEPS = 5  # train() itself
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet):
 # f32 on the CUDA cores, bf16 on the tensor cores, and the memory rate. The
@@ -104,17 +127,40 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from ucf_vit_tpu_torch.ops import build
 
+    def one(name):
+        t0 = time.perf_counter()
+        return name, build.build(name), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = build.build("flash_fwd")
-    log(f"[build] flash_fwd in {time.perf_counter() - t0:.2f} s")
-    entry = ""
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
-            log(f"[build] flash_fwd {entry}: {line.replace('ptxas info    :', '').strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        built = list(pool.map(one, ("flash_fwd", "flash_bwd")))
+    log(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+    for name, path, seconds in built:
+        # ptxas reports each template instance: summarise registers and spills
+        entry, regs, spills = "", [], []
+        for line in path.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel)I(\w+?)EEvNS", line)
+            if "Compiling entry function" in line and m:
+                entry = f"{m.group(1)}<{m.group(2)}>"
+            if m := re.search(r"Used (\d+) registers", line):
+                regs.append(int(m.group(1)))
+            if (m := re.search(r"(\d+) bytes spill stores", line)) and int(m.group(1)):
+                spills.append(f"{entry} ({m.group(1)} bytes)")
+        log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
+            f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
+            + (f": {', '.join(spills)}" if spills else ""))
+
+
+def _bound(flops: float, nbytes: float, dtype_name: str):
+    """The least time the card could take: the larger of the operations over
+    the type's peak rate and the bytes over the memory rate (ms), and which."""
+    t_ops = flops / PEAKS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAKS["bytes"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen):
@@ -129,6 +175,22 @@ def _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen):
                  for n in (n_q, n_kv, n_kv))
 
 
+# (b, h, n_q, n_kv, dh, packed): the first is the serving and training shape
+# (ViT-B/16 at batch 16), then the head dims the configs ship, Nq = 1 (the
+# variable-aggregation attention), a trailing partial key tile with Nq >> Nkv,
+# and the long sequences of the MAE decoder and mae_long
+SHAPES = [
+    (16, 12, 257, 257, 64, True),
+    (16, 16, 197, 197, 36, False),
+    (8, 8, 197, 197, 96, False),
+    (8, 4, 197, 197, 128, False),
+    (16, 12, 1, 257, 64, False),
+    (1, 6, 8448, 640, 96, False),
+    (1, 6, 4096, 4096, 96, False),
+]
+LONG_SHAPE = (1, 6, 32768, 32768, 96, False)  # backward only, held one head at a time
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -136,20 +198,10 @@ def phase_kernels():
     from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (b, h, n_q, n_kv, dh, packed); the first is the serving shape
-    shapes = [
-        (16, 12, 257, 257, 64, True),
-        (16, 16, 197, 197, 36, False),
-        (8, 8, 197, 197, 96, False),
-        (8, 4, 197, 197, 128, False),
-        (16, 12, 1, 257, 64, False),
-        (1, 6, 8448, 640, 96, False),
-        (1, 6, 4096, 4096, 96, False),
-    ]
     timed = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for b, h, n_q, n_kv, dh, packed in shapes:
+        for b, h, n_q, n_kv, dh, packed in SHAPES:
             q, k, v = _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen)
             out, lse = flash_attention(q, k, v, return_lse=True)
             torch.cuda.synchronize()
@@ -163,7 +215,7 @@ def phase_kernels():
                 f"(tol {FLASH_TOL[dtype_name]:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
             if not (err <= FLASH_TOL[dtype_name] and lse_err <= LSE_TOL):
                 fail(f"flash_fwd disagrees with its plain version at {shape}")
-            if (b, h, n_q, n_kv, dh) != shapes[0][:5]:
+            if (b, h, n_q, n_kv, dh) != SHAPES[0][:5]:
                 continue
             sm = dh**-0.5
             ms = time_ms(lambda: flash_attention(q, k, v, sm_scale=sm))
@@ -171,19 +223,441 @@ def phase_kernels():
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm))
             flops = 4.0 * b * h * n_q * n_kv * dh
             nbytes = q.element_size() * b * h * dh * (2 * n_q + 2 * n_kv) + 4 * b * h * n_q
-            t_ops = flops / PEAKS[dtype_name] * 1e3
-            t_bytes = nbytes / PEAKS["bytes"] * 1e3
+            bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
             timed[dtype_name] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err": err, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             }
             log(f"[kernel] flash_fwd {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-                f"{max(t_ops, t_bytes):.4f} ms ({timed[dtype_name]['bound_by']}; "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+                f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return timed
+
+
+def _bwd_work(kind, b, h, n_q, n_kv, dh, esize):
+    """(operations, bytes) of one backward kernel: its products of 2 * Nq *
+    Nkv * dh each, and each input read once (q, k, v, do; lse and di in f32)
+    and each output written once."""
+    bh = b * h
+    q_el, kv_el = bh * n_q * dh, bh * n_kv * dh
+    products = {"fused": 5, "dkv": 4, "dq": 3}[kind]
+    outputs = {"fused": q_el + 2 * kv_el, "dkv": 2 * kv_el, "dq": q_el}[kind]
+    nbytes = esize * (2 * q_el + 2 * kv_el + outputs) + 2 * 4 * bh * n_q
+    return 2.0 * products * bh * n_q * n_kv * dh, nbytes
+
+
+def _bwd_case(q, k, v, dh, rate, seed, row0, col0, gen, per_head=False):
+    """Run the forward kernel and both backward routes on one input, and hold
+    dq, dk, dv of each route against the plain backward from the same
+    (o, lse). Returns (o, lse, do, {route: grads}, {route: [rel err x3]},
+    max |ref| x3, {route: [max |err| x3]}), each triple in the order dq, dk, dv."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        BWD_ROUTES,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    b, h, n_q, _ = q.shape
+    sm = dh**-0.5
+    # the output gradient in the layout autograd hands the backward: [B, N, H, dh]
+    do = torch.randn(b, n_q, h, dh, device="cuda", generator=gen).to(q.dtype).transpose(1, 2)
+    o, lse = flash_attention(q, k, v, return_lse=True, dropout_rate=rate, dropout_seed=seed,
+                             dropout_offset=(row0, col0))
+    got = {r: flash_attention_bwd(q, k, v, o, lse, do, sm, rate, seed, row0, col0, route=r)
+           for r in BWD_ROUTES}
+    torch.cuda.synchronize()
+    errs = {r: [0.0] * 3 for r in BWD_ROUTES}
+    ref_max = [0.0] * 3
+    lse4 = lse.view(b, h, n_q)
+    # a head's slice numbers its batch-heads from 0: per-head checks run at rate 0
+    assert not (per_head and rate > 0.0)
+    heads = [slice(i, i + 1) for i in range(h)] if per_head else [slice(None)]
+    for hs in heads:
+        ref = flash_attention_bwd_plain(
+            q[:, hs].float(), k[:, hs].float(), v[:, hs].float(), o[:, hs].float(),
+            lse4[:, hs].reshape(-1, n_q), do[:, hs].float(), sm, rate, seed, row0, col0)
+        for i, want in enumerate(ref):
+            ref_max[i] = max(ref_max[i], want.abs().max().item())
+            for r in BWD_ROUTES:
+                errs[r][i] = max(errs[r][i], (got[r][i][:, hs].float() - want).abs().max().item())
+        del ref
+    rel = {r: [e / m for e, m in zip(errs[r], ref_max)] for r in BWD_ROUTES}
+    return o, lse, do, got, rel, ref_max, errs
+
+
+def _plain_p_dp(q, k, v, o, lse, do, sm):
+    """p = exp(s - lse), dp = do v^T and di = rowsum(do o) in f32 at rate 0,
+    as `flash_attention_bwd_plain` makes them."""
+    import torch
+
+    b, h, n_q, _ = q.shape
+    qf, kf, dof = q.float(), k.float(), do.float()
+    di = (o.float() * dof).sum(-1, keepdim=True)
+    p = torch.einsum("bhqd,bhkd->bhqk", qf, kf).mul_(sm)
+    p.sub_(lse.view(b, h, n_q, 1)).exp_()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    return p, dp.sub_(di), qf, kf, dof
+
+
+def _plain_dkv(q, k, v, o, lse, do, sm):
+    """(dk, dv) alone by the plain backward's formula: the plain version of
+    `flash_bwd_dkv`'s outputs (four products)."""
+    import torch
+
+    p, dp_di, qf, _, dof = _plain_p_dp(q, k, v, o, lse, do, sm)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", p.mul_(dp_di).mul_(sm), qf)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _plain_dq(q, k, v, o, lse, do, sm):
+    """dq alone by the plain backward's formula: the plain version of
+    `flash_bwd_dq`'s output (three products)."""
+    import torch
+
+    p, dp_di, _, kf, _ = _plain_p_dp(q, k, v, o, lse, do, sm)
+    return torch.einsum("bhqk,bhkd->bhqd", p.mul_(dp_di).mul_(sm), kf).to(q.dtype)
+
+
+def phase_bwd_kernels():
+    """Both backward routes at every shape against the plain backward, both
+    routes timed at every shape (the route threshold), and the three kernels
+    timed at the training shape beside their bound, the plain backward and
+    scaled_dot_product_attention's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        BWD_ROUTES,
+        _bwd_launch,
+        _dropout_args,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timed = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for b, h, n_q, n_kv, dh, packed in SHAPES + [LONG_SHAPE]:
+            shape = f"[{b},{h},{n_q}x{n_kv},{dh}] {dtype_name}{' qkv-views' if packed else ''}"
+            q, k, v = _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen)
+            o, lse, do, got, rel, ref_max, abs_err = _bwd_case(
+                q, k, v, dh, 0.0, 0, 0, 0, gen, per_head=(n_q * n_kv > 1e8))
+            for r in BWD_ROUTES:
+                log(f"[kernel] flash_bwd {r:5s} {shape}: max|d-plain|/max|plain| dq "
+                    f"{rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} "
+                    f"(tol {BWD_TOL[dtype_name]:g})")
+                if max(rel[r]) > BWD_TOL[dtype_name] or not all(m > 0 for m in ref_max):
+                    fail(f"flash_bwd route {r} disagrees with its plain version at {shape}")
+                if any(g.dtype != dtype or g.shape != t.shape for g, t in zip(got[r], (q, k, v))):
+                    fail(f"flash_bwd route {r} returned the wrong dtype or shape at {shape}")
+            sm = dh**-0.5
+            iters = 3 if n_q * n_kv > 1e8 else 20
+            route_ms = {r: time_ms(lambda r=r: flash_attention_bwd(q, k, v, o, lse, do, sm,
+                                                                   route=r),
+                                   iters=iters, warmup=1) for r in BWD_ROUTES}
+            faster = min(route_ms, key=route_ms.get)
+            log(f"[route] {shape}: fused {route_ms['fused']:.4f} ms, split (dkv + dq) "
+                f"{route_ms['split']:.4f} ms; faster {faster}, dispatch takes fused")
+            if (b, h, n_q, n_kv, dh) != SHAPES[0][:5]:
+                continue
+            # the training shape: each kernel alone, from buffers made beforehand
+            di = (o.float() * do.float()).sum(-1).reshape(b * h, n_q)
+            ws = torch.zeros(b, n_q, h, dh, device="cuda").transpose(1, 2)
+            dq, dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=dtype).transpose(1, 2)
+                          for n in (n_q, n_kv, n_kv))
+            drop = _dropout_args(0.0, 0, 0, 0)
+            kernel_ms = {
+                "fused": time_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv,
+                                                     sm, drop)),
+                "dkv": time_ms(lambda: _bwd_launch("dkv", q, k, v, do, lse, di, dq, dk, dv,
+                                                   sm, drop)),
+                "dq": time_ms(lambda: _bwd_launch("dq", q, k, v, do, lse, di, dq, dk, dv,
+                                                  sm, drop)),
+            }
+            # each kernel's own outputs in plain PyTorch: the whole backward for
+            # the fused kernel, (dk, dv) for dkv, dq for dq
+            plains = {
+                "fused": lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
+                "dkv": lambda: _plain_dkv(q, k, v, o, lse, do, sm),
+                "dq": lambda: _plain_dq(q, k, v, o, lse, do, sm),
+            }
+            whole = plains["fused"]()
+            parts = (*plains["dkv"](), plains["dq"]())
+            part_err = max((a.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+                           for a, w in zip(parts, whole[1:] + whole[:1]))
+            if part_err > BWD_TOL[dtype_name]:
+                fail(f"the plain dkv / dq parts disagree with the plain backward ({part_err:.3e})")
+            del whole, parts
+            plain_ms = {kind: time_ms(fn) for kind, fn in plains.items()}
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+
+            sdpa_bwd_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
+                           - time_ms(sdpa))
+            log(f"[kernel] flash_bwd {shape}: scaled_dot_product_attention backward "
+                f"(fwd+bwd - fwd) {sdpa_bwd_ms:.4f} ms")
+            # each kernel's own error: the fused route's dq, dk, dv; the split
+            # route's dk, dv for dkv and its dq for dq
+            kernel_err = {"fused": max(abs_err["fused"]), "dkv": max(abs_err["split"][1:]),
+                          "dq": abs_err["split"][0]}
+            timed[dtype_name] = {}
+            for kind, ms in kernel_ms.items():
+                flops, nbytes = _bwd_work(kind, b, h, n_q, n_kv, dh, q.element_size())
+                bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
+                timed[dtype_name][kind] = {
+                    "ms": ms, "plain_ms": plain_ms[kind], "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    # one library call computes what the fused kernel does; none
+                    # computes dk, dv alone or dq alone
+                    "library_ms": sdpa_bwd_ms if kind == "fused" else None,
+                    "max_abs_err": kernel_err[kind],
+                }
+                log(f"[kernel] flash_bwd_{kind} {shape}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms[kind]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                    f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), max|d-plain| "
+                    f"{kernel_err[kind]:.3e}")
+    return timed
+
+
+def phase_dropout(fwd_timed, bwd_timed):
+    """The dropout hash inside the forward and both backward routes at the
+    training shape with a fixed seed and a nonzero (row0, col0), against the
+    plain versions built on `dense_keep_mask`; the times with the hash."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        BWD_ROUTES,
+        _bwd_launch,
+        _dropout_args,
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    rate, seed, row0, col0 = 0.1, 1234, 3, 5
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, n_q, n_kv, dh, packed = SHAPES[0]
+    sm = dh**-0.5
+    record = None
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        shape = f"[{b},{h},{n_q}x{n_kv},{dh}] {dtype_name} rate {rate} seed {seed} " \
+                f"offset ({row0},{col0})"
+        q, k, v = _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen)
+        o, lse, do, got, rel, _, _ = _bwd_case(q, k, v, dh, rate, seed, row0, col0, gen)
+        ref_o, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), sm, rate, seed,
+                                               row0, col0)
+        err = (o.float() - ref_o).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        dropped = (o.float() - flash_attention_plain(q.float(), k.float(), v.float(), sm)[0])
+        log(f"[dropout] flash_fwd {shape}: max|o-plain| {err:.3e} (tol "
+            f"{FLASH_TOL[dtype_name]:g}), max|lse-plain| {lse_err:.3e}; max|o - o(rate 0)| "
+            f"{dropped.abs().max().item():.3e}")
+        if not (err <= FLASH_TOL[dtype_name] and lse_err <= LSE_TOL):
+            fail(f"flash_fwd with dropout disagrees with its plain version at {shape}")
+        if dropped.abs().max().item() < 1e-2:
+            fail("the dropout forward dropped nothing")
+        for r in BWD_ROUTES:
+            log(f"[dropout] flash_bwd {r:5s} {shape}: rel err dq {rel[r][0]:.3e} dk "
+                f"{rel[r][1]:.3e} dv {rel[r][2]:.3e} (tol {BWD_TOL[dtype_name]:g})")
+            if max(rel[r]) > BWD_TOL[dtype_name]:
+                fail(f"flash_bwd route {r} with dropout disagrees with its plain version")
+        if dtype_name != "float32":
+            continue
+        ms = time_ms(lambda: flash_attention(q, k, v, dropout_rate=rate, dropout_seed=seed,
+                                             dropout_offset=(row0, col0)))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, sm, rate, seed, row0, col0))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate,
+                                                                    scale=sm))
+        di = (o.float() * do.float()).sum(-1).reshape(b * h, n_q)
+        ws = torch.zeros(b, n_q, h, dh, device="cuda").transpose(1, 2)
+        dk, dv = (torch.empty(b, n_kv, h, dh, device="cuda").transpose(1, 2) for _ in "kv")
+        drop = _dropout_args(rate, seed, row0, col0)
+        fused_ms = time_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
+                                               drop))
+        log(f"[dropout] f32 times with the hash: flash_fwd {ms:.4f} ms (without "
+            f"{fwd_timed['float32']['ms']:.4f}), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention(dropout_p={rate}) {library_ms:.4f} ms; "
+            f"flash_bwd_fused {fused_ms:.4f} ms (without "
+            f"{bwd_timed['float32']['fused']['ms']:.4f})")
+        record = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": fwd_timed["float32"]["bound_ms"],
+                  "bound_by": fwd_timed["float32"]["bound_by"], "max_abs_err": err}
+    return record
+
+
+def _launch_counts() -> dict:
+    from ucf_vit_tpu_torch.ops.attn_dropout import keep_mask
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+
+    counts = {"flash_fwd": flash_attention.launches, "keep_mask": keep_mask.launches}
+    counts.update({f"flash_bwd_{k}": n for k, n in flash_attention_bwd.by_kernel.items()})
+    return counts
+
+
+def _train_cfg(cfg, impl: str, **init_args):
+    """The config with attention forced to `impl` (and init_args overridden)."""
+    from ucf_vit_tpu_torch.config import Config
+
+    raw = copy.deepcopy(cfg.raw)
+    raw["trainer"]["attn_impl"] = impl
+    raw["model"]["net"]["init_args"].update(init_args)
+    return Config(raw=raw, task=cfg.task)
+
+
+def _run_steps(cfg, batches):
+    """One train step per batch on the card from the seeded init (seed 0):
+    (state, step, per-step losses, first-step gradients by name, the launch
+    counts of these steps)."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import init_train, to_device
+
+    state, step = init_train(cfg, "cuda")
+    reset_launch_counts()
+    losses, grads = [], None
+    for i, batch in enumerate(batches):
+        state, loss, _ = step(state, to_device(batch, torch.device("cuda")))
+        losses.append(loss.item())
+        if i == 0:
+            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    return state, step, losses, grads, _launch_counts()
+
+
+def _expected_counts(depth: int, steps: int, route: str, dropout: bool) -> dict:
+    n = depth * steps
+    bwd = {"fused": n, "dkv": 0, "dq": 0} if route == "fused" else {"fused": 0, "dkv": n, "dq": n}
+    counts = {"flash_fwd": n, **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
+    counts["keep_mask"] = n + sum(bwd.values()) if dropout else 0
+    return counts
+
+
+def phase_train():
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import synthetic_batches, to_device, train
+
+    cfg = load_config(CONFIG)
+    depth = int(cfg.init_args["depth"])
+    route = "fused"  # the backward's dispatch at every shape (PERF.md, route threshold)
+    stream = synthetic_batches(cfg, TRAIN_BATCH, seed=0)
+    batches = [next(stream) for _ in range(WARMUP_STEPS + 2 * TIMED_STEPS)]
+
+    # FLASH (the kernels) against EINSUM (plain autograd), one init and batch stream
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        t0 = time.perf_counter()
+        state, step, losses, grads, counts = _run_steps(_train_cfg(cfg, impl),
+                                                        batches[:TRAIN_STEPS])
+        runs[impl] = (losses, grads, counts)
+        log(f"[train] {impl}: {TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s "
+            f"(init included); losses {' '.join(f'{x:.6f}' for x in losses)}; launches {counts}")
+        if impl == "FLASH":
+            flash_state, flash_step = state, step
+        del state, step
+    (lf, gf, cf), (le, ge, ce) = runs["FLASH"], runs["EINSUM"]
+    loss_diff = max(abs(a - b) for a, b in zip(lf, le))
+    gmax = max(g.abs().max().item() for g in ge.values())
+    gdiff = max((gf[n] - ge[n]).abs().max().item() for n in ge)
+    log(f"[train] FLASH vs EINSUM: max per-step |loss diff| {loss_diff:.3e} (tol "
+        f"{TRAIN_LOSS_TOL:g}); first-step gradients max |diff| {gdiff:.3e} = "
+        f"{gdiff / gmax:.3e} of the largest entry {gmax:.3e} (tol {TRAIN_GRAD_TOL:g})")
+    if not all(np.isfinite(lf)) or loss_diff > TRAIN_LOSS_TOL:
+        fail("FLASH training losses disagree with EINSUM's")
+    if gdiff > TRAIN_GRAD_TOL * gmax:
+        fail("FLASH first-step gradients disagree with EINSUM's")
+    for i in range(depth):
+        g = gf.get(f"blocks.{i}.attn.qkv.weight")
+        if g is None or g.abs().max().item() == 0:
+            fail(f"blocks.{i}.attn.qkv.weight has no gradient under FLASH")
+    want = _expected_counts(depth, TRAIN_STEPS, route, dropout=False)
+    if cf != want or any(ce.values()):
+        fail(f"launches {cf} under FLASH (expected {want}), {ce} under EINSUM (expected none)")
+
+    # the step's time: a warm-up, an untraced window and a window traced on the card
+    dev = torch.device("cuda")
+    state, step = flash_state, flash_step
+
+    def window(bs):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = None
+        for b in bs:
+            state, loss, _ = step(state, to_device(b, dev))
+            if pending is not None:
+                pending.item()  # the trainer's one-step-lagged loss read
+            pending = loss
+        pending.item()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    window(batches[:WARMUP_STEPS])
+    torch.cuda.reset_peak_memory_stats()
+    wall = window(batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    traced = window(batches[WARMUP_STEPS + TIMED_STEPS:])
+    prof.stop()
+    del state, step, flash_state, flash_step
+    kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                      if e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms <= 0:
+        fail("the traced training window saw no work on the card")
+    ms_step = 1e3 * wall / TIMED_STEPS
+    log(f"[train] ViT-B/16 f32 batch {TRAIN_BATCH}, FLASH: {TIMED_STEPS} steps in {wall:.4f} s "
+        f"= {ms_step:.3f} ms/step, {TRAIN_BATCH * TIMED_STEPS / wall:.2f} images/s; peak "
+        f"memory {peak_gb:.2f} GB")
+    log(f"[train] traced window: {TIMED_STEPS} steps in {traced:.4f} s, device busy "
+        f"{busy_ms:.3f} ms = {100 * busy_ms / (1e3 * traced):.2f}%")
+    for t_us, count, key in kernels[:12]:
+        log(f"[train]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy_ms:6.2f}% "
+            f"x{count:<5d} {key[:90]}")
+
+    # the dropout path: attn_drop_rate 0.1, the same hash mask on both sides
+    drop = {}
+    for impl in ("FLASH", "EINSUM"):
+        _, _, losses, _, counts = _run_steps(_train_cfg(cfg, impl, attn_drop_rate=0.1),
+                                             batches[:DROPOUT_STEPS])
+        drop[impl] = (losses, counts)
+    (dlf, dcf), (dle, _) = drop["FLASH"], drop["EINSUM"]
+    drop_diff = max(abs(a - b) for a, b in zip(dlf, dle))
+    log(f"[train] attn_drop_rate 0.1, full depth, {DROPOUT_STEPS} steps: FLASH losses "
+        f"{' '.join(f'{x:.6f}' for x in dlf)}, EINSUM {' '.join(f'{x:.6f}' for x in dle)}; "
+        f"max |diff| {drop_diff:.3e} (tol {TRAIN_LOSS_TOL:g}); without dropout the first "
+        f"loss was {lf[0]:.6f}; launches {dcf}")
+    if not all(np.isfinite(dlf)) or drop_diff > TRAIN_LOSS_TOL:
+        fail("FLASH training losses with dropout disagree with EINSUM's")
+    if abs(dlf[0] - lf[0]) < 1e-5:
+        fail("attention dropout changed nothing")
+    want = _expected_counts(depth, DROPOUT_STEPS, route, dropout=True)
+    if dcf != want:
+        fail(f"launches {dcf} on the dropout path, expected {want}")
+
+    # the main path: train() as the CLI runs it
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train(cfg, max_steps=MAIN_PATH_STEPS, synthetic=True, device="cuda")
+    main_counts = _launch_counts()
+    log(f"[train] train() {MAIN_PATH_STEPS} steps in {time.perf_counter() - t0:.2f} s (init "
+        f"included): epoch losses {out['loss_list']}; launches {main_counts}")
+    want = _expected_counts(depth, MAIN_PATH_STEPS, route, dropout=False)
+    if main_counts != want or not all(np.isfinite(out["loss_list"])):
+        fail(f"train() launched {main_counts} (expected {want}), losses {out['loss_list']}")
+    return {"main": main_counts, "dropout": dcf, "ms_step": ms_step}
 
 
 def _request(port: int, method: str, path: str, body: bytes | None = None) -> bytes:
@@ -405,23 +879,41 @@ def main() -> int:
         fail(f"no published peaks for {torch.cuda.get_device_name(0)!r}; this script "
              f"knows the {CARD}")
     phase_build()
-    timed = phase_kernels()
+    fwd = phase_kernels()
+    bwd = phase_bwd_kernels()
+    dropout = phase_dropout(fwd, bwd)
+    trained = phase_train()
     served = phase_serve()
 
-    main_path = timed["float32"]  # the served config runs f32
-    record = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ucf_vit_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ucf_vit_tpu/ops/flash_attention.py:68",
-        "launches": served["launches"],
-        "max_abs_err": main_path["max_abs_err"],
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"],
-        "library_ms": main_path["library_ms"],
-    }]}
+    # the served and trained config runs f32: each kernel's numbers at its f32
+    # shape on that path; launches from the main paths' runs (serving and
+    # training for the forward, training for the backward, training with
+    # attention dropout for the hash)
+    sources = {
+        "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd.cu",
+                      "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
+                            "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_bwd_dkv": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
+                          "ucf_vit_tpu/ops/flash_attention.py:162"),
+        "flash_bwd_dq": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
+                         "ucf_vit_tpu/ops/flash_attention.py:362"),
+        "keep_mask": ("ucf_vit_tpu_torch/csrc/attn_dropout.cuh",
+                      "ucf_vit_tpu/ops/attn_dropout.py:70"),
+    }
+    numbers = {"flash_fwd": fwd["float32"], "keep_mask": dropout,
+               **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()}}
+    launches = dict(trained["main"])
+    launches["flash_fwd"] += served["launches"]
+    launches["keep_mask"] = trained["dropout"]["keep_mask"]
+    log(f"[record] launches: serve {served['launches']} flash_fwd; train() {trained['main']}; "
+        f"train with attention dropout {trained['dropout']}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    record = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], **{k: numbers[name][k] for k in keys}}
+        for name, (src, rep) in sources.items()
+    ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -130,5 +130,5 @@ def test_dispatch_rules():
     q = torch.zeros(1, 1, 4, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         multi_head_attention(q, q, q, impl="XLA")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         multi_head_attention(q, q, q, impl="FLASH", dropout_rate=0.1)

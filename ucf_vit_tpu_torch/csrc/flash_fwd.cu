@@ -6,6 +6,10 @@
 //   online softmax with the running max m, normaliser l and output accumulator in f32,
 //   o = acc / l (l == 0 guarded), lse = m + log(max(l, 1e-37)).
 // lse is written as [B*H, Nq] f32, not the TPU's 128-lane layout.
+// With dropout (a template flag, so the rate-0 kernel has none of it) the probabilities
+// are dropped AFTER the l update, as `_fwd_kernel` does (:124-136): l and lse stay the
+// pre-dropout values and o = dropout(softmax) . v. The keep mask is the counter hash of
+// attn_dropout.cuh at global (bh, row0 + row, col0 + col).
 //
 // Bound on the H100 at the serving shape [B*H = 192, N = 257, dh = 64]: 3.25 GFLOP.
 // In f32 the inputs and output are 50.5 MB, so the work is bound by the f32 rate of
@@ -29,6 +33,9 @@
 
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+
+#include "attn_dropout.cuh"
 
 namespace {
 
@@ -51,6 +58,10 @@ struct Params {
   long long v_sb, v_sh, v_sn;
   long long o_sb, o_sh, o_sn;
   float scale;
+  // dropout: keep where hash >= threshold, survivors scaled by inv_keep = 1 / (1 - rate)
+  uint32_t seed, threshold;
+  int row0, col0;
+  float inv_keep;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -87,7 +98,7 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src, 
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   constexpr int QS = DH + 1;
   constexpr int NC = DH / 16;  // output columns per thread
@@ -108,6 +119,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const uint32_t slice_key = ucf::dropout_slice_key(p.seed, (uint32_t)bh);
 
   load_tile<T, DH>(sQ, QS, qg, p.q_sn, q0, p.nq, p.dh, BQ);
 
@@ -171,6 +183,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       m_run[i] = m_next;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      if constexpr (DROPOUT) {
+        const int row = p.row0 + q0 + ty * ROWS + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool keep =
+              ucf::dropout_keep(slice_key, row, p.col0 + k0 + tx + 16 * j, p.threshold);
+          s[i][j] = keep ? s[i][j] * p.inv_keep : 0.f;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) sP[(ty * ROWS + i) * PS + tx + 16 * j] = s[i][j];
     }
@@ -204,36 +225,39 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH, DROPOUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.nq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DH><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<T, DH, DROPOUT><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DROPOUT>
 cudaError_t dispatch_dh(const Params& p, int bh, cudaStream_t stream) {
-  if (p.dh <= 48) return launch<T, 48>(p, bh, stream);
-  if (p.dh <= 64) return launch<T, 64>(p, bh, stream);
-  if (p.dh <= 96) return launch<T, 96>(p, bh, stream);
-  if (p.dh <= 128) return launch<T, 128>(p, bh, stream);
+  if (p.dh <= 48) return launch<T, 48, DROPOUT>(p, bh, stream);
+  if (p.dh <= 64) return launch<T, 64, DROPOUT>(p, bh, stream);
+  if (p.dh <= 96) return launch<T, 96, DROPOUT>(p, bh, stream);
+  if (p.dh <= 128) return launch<T, 128, DROPOUT>(p, bh, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. dropout: 0 or 1; with 1 the
+// seed, threshold, (row0, col0) offset and inv_keep describe the mask. Returns a cudaError_t.
 extern "C" int ucf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int batch, int heads, int nq, int nkv, int dh,
                              long long q_sb, long long q_sh, long long q_sn,
                              long long k_sb, long long k_sh, long long k_sn,
                              long long v_sb, long long v_sh, long long v_sn,
                              long long o_sb, long long o_sh, long long o_sn,
-                             float scale, int dtype, void* stream) {
+                             float scale, int dtype, int dropout, unsigned int seed,
+                             unsigned int threshold, int row0, int col0, float inv_keep,
+                             void* stream) {
   if (batch <= 0 || heads <= 0 || nq <= 0 || nkv <= 0 || dh <= 0) return cudaErrorInvalidValue;
   if ((nq + BQ - 1) / BQ > 65535) return cudaErrorInvalidValue;
   Params p;
@@ -251,9 +275,19 @@ extern "C" int ucf_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
   p.scale = scale;
+  p.seed = seed;
+  p.threshold = threshold;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.inv_keep = inv_keep;
   const int bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dh<float>(p, bh, s);
-  if (dtype == 1) return dispatch_dh<__nv_bfloat16>(p, bh, s);
+  if (dtype == 0) {
+    return dropout ? dispatch_dh<float, true>(p, bh, s) : dispatch_dh<float, false>(p, bh, s);
+  }
+  if (dtype == 1) {
+    return dropout ? dispatch_dh<__nv_bfloat16, true>(p, bh, s)
+                   : dispatch_dh<__nv_bfloat16, false>(p, bh, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,10 @@ Module and parameter names are the reference's torch `state_dict` names
 (`ucf_vit_tpu/tools/convert_checkpoint.py:12-30`), so a flax param tree
 maps onto them with `ucf_vit_tpu_torch.convert.load_jax_params`. Dropout and
 stochastic depth follow `self.training` where the JAX modules take
-`deterministic`.
+`deterministic`, and draw their bits from explicit generators that the train
+step hands to the model (`set_generator`), never from torch's global one:
+`Dropout` and `DropPath` from a generator on the activations' device,
+`Attention` its per-call dropout seed from a CPU generator.
 """
 
 from __future__ import annotations
@@ -15,10 +18,52 @@ import torch
 from torch import nn
 
 from ucf_vit_tpu_torch.ops.attention import AttnImpl, multi_head_attention
+from ucf_vit_tpu_torch.ops.attn_dropout import draw_seed
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=1e-6)
+
+
+def set_generator(module: nn.Module, generator: torch.Generator,
+                  host_generator: torch.Generator) -> None:
+    """Hand the train step's generators to every submodule that draws:
+    `generator` (on the activations' device) to `Dropout` and `DropPath`,
+    `host_generator` (on the CPU) to `Attention` for its dropout seeds."""
+    if host_generator.device.type != "cpu":
+        raise ValueError("host_generator must be a CPU generator")
+    for m in module.modules():
+        if isinstance(m, (Dropout, DropPath)):
+            m.generator = generator
+        elif isinstance(m, Attention):
+            m.host_generator = host_generator
+
+
+def _bernoulli_keep(shape, keep: float, x: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    if generator is None:
+        raise RuntimeError(
+            "dropout needs an explicit torch.Generator: call model.set_generator(...) "
+            "(the train step does) before training"
+        )
+    return torch.rand(shape, device=x.device, generator=generator) < keep
+
+
+class Dropout(nn.Module):
+    """Element dropout (flax `nn.Dropout` semantics) drawing from an explicit
+    generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = _bernoulli_keep(x.shape, keep, x, self.generator)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
@@ -27,13 +72,14 @@ class DropPath(nn.Module):
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = _bernoulli_keep(shape, keep, x, self.generator)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -76,9 +122,9 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.act = nn.GELU(approximate="tanh" if gelu_approx else "none")
-        self.drop1 = nn.Dropout(drop)
+        self.drop1 = Dropout(drop)
         self.fc2 = nn.Linear(hidden_features, out_features)
-        self.drop2 = nn.Dropout(drop)
+        self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.drop2(self.fc2(self.drop1(self.act(self.fc1(x)))))
@@ -88,7 +134,9 @@ class Attention(nn.Module):
     """Multi-head self-attention with impl dispatch.
 
     The fused qkv output splits into q, k, v on its last dim, then into
-    heads; q, k and v go to the attention as strided views of it."""
+    heads; q, k and v go to the attention as strided views of it. In training
+    with `attn_drop > 0` each call draws an int32 dropout seed from
+    `host_generator` (the role of `seed_from_key` on the JAX side)."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: AttnImpl = AttnImpl.AUTO,
                  qkv_bias: bool = False, qk_norm: bool = False, attn_drop: float = 0.0,
@@ -105,7 +153,8 @@ class Attention(nn.Module):
         self.q_norm = layer_norm(self.head_dim) if qk_norm else None
         self.k_norm = layer_norm(self.head_dim) if qk_norm else None
         self.proj = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
+        self.host_generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -113,10 +162,12 @@ class Attention(nn.Module):
         q, k, v = qkv.unbind(2)  # [B, N, H, dh] each
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
+        rate = self.attn_drop if self.training else 0.0
         out = multi_head_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             impl=self.attn_impl, sm_scale=self.head_dim**-0.5, seg_len=self.seg_len,
-            dropout_rate=self.attn_drop if self.training else 0.0,
+            dropout_rate=rate,
+            dropout_seed=draw_seed(self.host_generator) if rate > 0.0 else None,
         )
         out = out.transpose(1, 2).reshape(b, n, c)
         return self.proj_drop(self.proj(out))

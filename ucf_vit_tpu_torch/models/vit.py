@@ -1,10 +1,11 @@
 """VIT encoder + classification head (port of `ucf_vit_tpu/models/vit.py`).
 
-This slice ports the non-adaptive model: conv patch embed, class token,
-learned position embedding initialised from the sincos table, pre-norm
-blocks, final norm, class-token pool and head. Adaptive patching, variable
-embeddings, scanned or pipelined blocks, MoE and the bf16 compute policy
-raise NotImplementedError until their slices (ROADMAP.md).
+The port has the non-adaptive model, for serving and training: conv patch
+embed, class token, learned position embedding initialised from the sincos
+table, pre-norm blocks, final norm, class-token pool and head. Adaptive
+patching, variable embeddings, scanned or pipelined blocks, MoE, patch
+dropout in training and the bf16 compute policy raise NotImplementedError
+until their slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,7 +16,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ucf_vit_tpu_torch.models.blocks import Block, LayerScale, PatchEmbed, layer_norm
+from ucf_vit_tpu_torch.models.blocks import (
+    Block,
+    Dropout,
+    LayerScale,
+    PatchEmbed,
+    layer_norm,
+    set_generator,
+)
 from ucf_vit_tpu_torch.ops.attention import AttnImpl
 from ucf_vit_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed, get_3d_sincos_pos_embed
 
@@ -84,7 +92,7 @@ class VIT(nn.Module):
         if moe_num_experts > 1:
             raise _not_ported("MoE blocks", "pipeline + MoE")
         if dtype is not None:
-            raise _not_ported("the bf16 compute policy", "the training slice")
+            raise _not_ported("the bf16 compute policy", "training remainder")
         if pos_embed not in ("", "none", "learn"):
             raise ValueError(f"pos_embed must be '', 'none' or 'learn', got {pos_embed!r}")
 
@@ -104,7 +112,7 @@ class VIT(nn.Module):
             nn.Parameter(torch.zeros(1, self.num_patches + self.num_prefix_tokens, embed_dim))
             if pos_embed == "learn" else None
         )
-        self.pos_drop = nn.Dropout(pos_drop_rate)
+        self.pos_drop = Dropout(pos_drop_rate)
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, attn_impl=attn_impl, mlp_ratio=mlp_ratio,
@@ -114,7 +122,7 @@ class VIT(nn.Module):
             for i in range(depth)
         )
         self.norm = layer_norm(embed_dim)
-        self.head_drop = nn.Dropout(drop_rate)
+        self.head_drop = Dropout(drop_rate)
         self.head = (
             nn.Linear(embed_dim, num_classes) if num_classes is not None and num_classes > 0
             else None
@@ -154,6 +162,13 @@ class VIT(nn.Module):
             self.pos_embed.copy_(table.reshape(self.pos_embed.shape))
         return self
 
+    def set_generator(self, generator: torch.Generator,
+                      host_generator: torch.Generator) -> "VIT":
+        """Hand the train step's generators to every module that draws
+        (`models.blocks.set_generator`)."""
+        set_generator(self, generator, host_generator)
+        return self
+
     # --------------------------------------------------------------- forward
 
     def apply_pos_embed(self, x: torch.Tensor) -> torch.Tensor:
@@ -168,7 +183,7 @@ class VIT(nn.Module):
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         x = self.apply_pos_embed(self.token_embeds(x))
         if self.training and self.patch_drop_rate > 0:
-            raise _not_ported("patch dropout", "the training slice")
+            raise _not_ported("patch dropout", "training remainder")
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)

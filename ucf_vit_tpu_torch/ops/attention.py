@@ -1,7 +1,8 @@
 """Attention implementation dispatch (port of `ucf_vit_tpu/ops/attention.py`).
 
-    AttnImpl.FLASH   the port's flash-attention forward: the Hopper kernel on
-                     a CUDA tensor, its plain version on a CPU tensor
+    AttnImpl.FLASH   the port's flash attention: the Hopper kernels (forward
+                     and, through autograd, backward) on a CUDA tensor, their
+                     plain versions on a CPU tensor
     AttnImpl.EINSUM  plain einsum attention, the numerics oracle
     AttnImpl.XLA     not ported (it named an XLA-fused library call)
     AttnImpl.AUTO    FLASH on CUDA, EINSUM on the CPU
@@ -9,6 +10,12 @@
 All impls take and return [B, H, N, dh]. The JAX package's AUTO picks EINSUM
 below 1024 keys on a TPU; that threshold was measured on a TPU and does not
 carry over.
+
+Attention dropout on EINSUM uses the same hash mask as the flash kernels
+(`ops/attn_dropout.dense_keep_mask` of the same seed), so FLASH and EINSUM
+drop the same elements inside the port. The JAX package's EINSUM draws
+`jax.random.bernoulli` instead (`ucf_vit_tpu/ops/attention.py:129-134`): a
+difference kept on purpose (ROADMAP.md, faults).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask
 from ucf_vit_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention
 
 
@@ -51,16 +59,14 @@ def einsum_attention(
     sm_scale: float,
     seg_len: Optional[int] = None,
     dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Reference attention: full score matrix, f32 softmax. [B, H, N, dh].
 
     seg_len: block-diagonal masking for sequence-packed batches (tokens only
-    attend within their own seg_len-sized segment)."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md, modules to port: "
-            "the training slice)"
-        )
+    attend within their own seg_len-sized segment).
+    dropout_rate/dropout_seed: drop post-softmax probabilities where the hash
+    mask of `dropout_seed` says so and rescale survivors by 1/(1 - rate)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q * sm_scale, k).float()
     if seg_len is not None:
         n_q, n_kv = s.shape[-2], s.shape[-1]
@@ -69,6 +75,13 @@ def einsum_attention(
         same = seg_q[:, None] == seg_k[None, :]
         s = torch.where(same, s, torch.full_like(s, DEFAULT_MASK_VALUE))
     p = torch.softmax(s, dim=-1).to(v.dtype)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("attention dropout_rate > 0 needs a dropout_seed")
+        b, h, n_q, n_kv = p.shape
+        keep = dense_keep_mask(dropout_seed, b * h, n_q, n_kv, dropout_rate,
+                               device=p.device).view(p.shape)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
@@ -81,17 +94,15 @@ def multi_head_attention(
     sm_scale: Optional[float] = None,
     seg_len: Optional[int] = None,
     dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Dispatch scaled-dot-product attention over [B, H, N, dh] inputs.
 
-    seg_len routes FLASH to EINSUM: the kernel has no segment mask. Dropout,
-    the XLA impl and attention sharded over several processes are not ported
-    and raise NotImplementedError."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout needs the keep_mask hash inside the flash "
-            "kernels (ROADMAP.md, modules to port: the training slice)"
-        )
+    seg_len routes FLASH to EINSUM: the kernel has no segment mask.
+    dropout_rate > 0 needs an int32 `dropout_seed`; FLASH drops inside the
+    kernels and EINSUM with the same hash mask. The XLA impl and attention
+    sharded over several processes are not ported and raise
+    NotImplementedError."""
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
@@ -107,5 +118,7 @@ def multi_head_attention(
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if impl == AttnImpl.FLASH and seg_len is None:
-        return flash_attention(q, k, v, sm_scale=sm_scale)
-    return einsum_attention(q, k, v, sm_scale=sm_scale, seg_len=seg_len)
+        return flash_attention(q, k, v, sm_scale=sm_scale, dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed)
+    return einsum_attention(q, k, v, sm_scale=sm_scale, seg_len=seg_len,
+                            dropout_rate=dropout_rate, dropout_seed=dropout_seed)

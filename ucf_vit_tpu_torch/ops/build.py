@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each kernel is one file `ucf_vit_tpu_torch/csrc/<name>.cu` with a plain C
-interface. It is compiled at first use, on the machine with the card, into
+interface and may include the headers beside it (`csrc/*.cuh`). It is
+compiled at first use, on the machine with the card, into
 `build/ucf_vit_tpu_torch/<name>-<hash>.so` at the root of the checkout; the
-hash covers the source and the flags, so an edited source is rebuilt. The
+hash covers the source, the headers and the flags, so an edited source or
+header is rebuilt. The
 compiler's report (registers, shared memory, spills) is kept beside it as
 `<name>-<hash>.log`. Nothing here runs at import time.
 """
@@ -52,8 +54,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the built library for `csrc/<name>.cu` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,22 +1,31 @@
-"""Flash-attention forward: a CUDA kernel for Hopper and its plain version.
+"""Flash attention: Hopper CUDA kernels for the forward and the backward, their
+plain versions, and the autograd Function that joins them.
 
-The kernel (`csrc/flash_fwd.cu`) replaces the Pallas TPU kernel `_fwd_kernel`
+Forward: `csrc/flash_fwd.cu` replaces the Pallas TPU kernel `_fwd_kernel`
 (`ucf_vit_tpu/ops/flash_attention.py:68`, launched by `_flash_fwd_len`
-`:543`). It computes online-softmax attention with the running max,
-normaliser and accumulator in f32, masks keys past the true length with
--0.7 * f32 max, guards the division at l == 0 and returns
-`lse = m + log(max(l, 1e-37))` as f32 `[B*H, Nq]`.
+`:543`). Online-softmax attention with the running max, normaliser and
+accumulator in f32; keys past the true length masked with -0.7 * f32 max;
+`lse = m + log(max(l, 1e-37))` as f32 `[B*H, Nq]`. With a dropout rate the
+probabilities are dropped after the normaliser update (the hash mask of
+`ops/attn_dropout.py`), so `lse` stays the pre-dropout value.
 
-Bound on an H100 at the serving shape `[B*H = 192, N = 257, dh = 64]`:
-3.25 GFLOP. In f32 that is bound by the CUDA cores' f32 rate (about 48 us
-at 67 TFLOP/s); in bf16 the 25 MB of q/k/v/o would make it memory-bound
-(about 7.5 us at 3.35 TB/s). The kernel does its products in f32 FMA for
-both types, one block per (batch*head, 64-row query tile); see the source
-for the design.
+Backward: `csrc/flash_bwd.cu` replaces `_bwd_fused_kernel` (`:249`, the
+route "fused") and the pair `_bwd_dkv_kernel` + `_bwd_dq_kernel`
+(`:162`, `:362`, the route "split"), launched by `_flash_bwd_len` `:651`.
+`di = rowsum(do * o)` stays a plain torch reduction, as it is XLA outside
+the kernel in JAX (`:662`). The fused kernel adds dq with f32 atomics into a
+zeroed f32 workspace, so dq's order of sums changes from run to run.
+
+Bounds on an H100 at the training shape `[B*H = 192, N = 257, dh = 64]`:
+forward 3.25 GFLOP, backward 8.12 GFLOP (five products). In f32 both are
+bound by the CUDA cores' f32 rate (0.048 and 0.121 ms at 67 TFLOP/s); in
+bf16 by bytes (25 and 45 MB: 0.0076 and 0.0133 ms). The kernels do their
+products in f32 FMA for both types; see the sources for the design.
 
 `flash_attention` takes the plain version for a tensor on the CPU and the
-kernel for a tensor on a CUDA device; anything else raises. The forward
-only: no dropout and no autograd until the training slice.
+kernel for a tensor on a CUDA device; anything else raises. On a tensor that
+needs grad it goes through `FlashAttentionFn`, whose backward is the
+backward kernel (or its plain version, on the CPU).
 """
 
 from __future__ import annotations
@@ -26,17 +35,36 @@ from typing import Optional, Tuple
 
 import torch
 
+from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask, keep_mask, keep_threshold
+
 DEFAULT_MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BWD_KINDS = {"fused": 0, "dkv": 1, "dq": 2}
+# The backward's routes: "fused" unless the caller names "split".
+# chip_smoke.py times both at each of its kernel-phase shapes (Nq from 1 to
+# 32768, dh 36 to 128, f32 and bf16); on an H100 the fused kernel was faster
+# at all of them (PERF.md, "route threshold"), so the dkv + dq pair runs only
+# when asked for.
+BWD_ROUTES = ("fused", "split")
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def _keep(q: torch.Tensor, n_kv: int, rate: float, seed: int, row0: int, col0: int):
+    b, h, n_q, _ = q.shape
+    return dense_keep_mask(seed, b * h, n_q, n_kv, rate, row0=row0, col0=col0,
+                           device=q.device).view(b, h, n_q, n_kv)
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+    dropout_rate: float = 0.0, seed: int = 0, row0: int = 0, col0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch: `(o, lse)` for q `[B, H, Nq, dh]`
-    and k, v `[B, H, Nkv, dh]`, computed in f32. o has q's dtype, lse is f32
-    `[B*H, Nq]`.
+    """The forward kernel's function in plain PyTorch: `(o, lse)` for q
+    `[B, H, Nq, dh]` and k, v `[B, H, Nkv, dh]`, computed in f32. o has q's
+    dtype, lse is f32 `[B*H, Nq]` (pre-dropout).
 
     It stays apart from `ops.attention.einsum_attention` on purpose: that one
     is the port of the JAX package's EINSUM impl and keeps its dtype rules
@@ -47,63 +75,244 @@ def flash_attention_plain(
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
+    if dropout_rate > 0.0:
+        keep = _keep(q, k.shape[2], dropout_rate, seed, row0, col0)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     return o, lse.reshape(b * h, n_q)
 
 
-def _library():
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
+    row0: int = 0, col0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch, by their formula, in
+    f32: `di = rowsum(do * o)`, `p = exp(s - lse)`, `p_v = keep ? p / (1 - r)
+    : 0`, `dv = p_v^T do`, `dp = keep ? (do v^T) / (1 - r) : 0`, `ds = p (dp -
+    di) scale`, `dk = ds^T q`, `dq = ds k`. Returns `(dq, dk, dv)` in the
+    inputs' dtype."""
+    b, h, n_q, _ = q.shape
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    di = (o.float() * dof).sum(-1, keepdim=True)
+    p = torch.einsum("bhqd,bhkd->bhqk", qf, kf).mul_(sm_scale)
+    p.sub_(lse.view(b, h, n_q, 1)).exp_()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    if dropout_rate > 0.0:
+        keep = _keep(q, k.shape[2], dropout_rate, seed, row0, col0)
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        dv = torch.einsum("bhqk,bhqd->bhkd", torch.where(keep, p * inv_keep, 0.0), dof)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        del keep
+    else:
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p.mul_(dp.sub_(di)).mul_(sm_scale)
+    del dp
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+_LONG3 = [ctypes.c_longlong] * 3
+_DROPOUT_ARGS = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+
+def _library(name: str):
     from ucf_vit_tpu_torch.ops.build import load
 
-    lib = load("flash_fwd")
-    fn = lib.ucf_flash_fwd
+    lib = load(name)
+    fn = getattr(lib, f"ucf_{name}")
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
+        if name == "flash_fwd":
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _LONG3 * 4 + _DROPOUT_ARGS
+        else:
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + _LONG3 * 7 + _DROPOUT_ARGS)
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_inputs(q, k, v) -> None:
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes [B, H, N, dh] tensors")
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+
+
+def _check_kernel_inputs(q, *others) -> None:
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
+    for t in others:
         if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q's dtype and device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+            raise ValueError("q, k, v (and do) must share one dtype and device")
+    for t in (q,) + others:
         if t.stride(-1) != 1:
-            raise ValueError(f"flash kernel needs {name}'s last dim contiguous")
+            raise ValueError("flash kernel needs the last dim of its inputs contiguous")
     dh = q.shape[-1]
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"flash kernel takes head dims 1..{MAX_HEAD_DIM}, got {dh}")
-    if q.shape[2] == 0 or k.shape[2] == 0:
+    if q.shape[2] == 0 or others[0].shape[2] == 0:
         raise ValueError("flash kernel needs at least one query and one key")
 
 
-def _flash_fwd_cuda(q, k, v, sm_scale: float):
+def _dropout_args(rate: float, seed: int, row0: int, col0: int):
+    if rate <= 0.0:
+        return (0, 0, 0, 0, 0, 1.0)
+    return (1, int(seed) & 0xFFFFFFFF, keep_threshold(rate), int(row0), int(col0),
+            1.0 / (1.0 - rate))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _tokens_major(b, n, h, dh, dtype, device) -> torch.Tensor:
+    """A `[B, H, N, dh]` tensor laid out `[B, N, H, dh]` in memory, so that the
+    caller's transpose back to tokens-major and the merge of the heads (or the
+    stack into the qkv gradient) read it in order."""
+    return torch.empty((b, n, h, dh), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int, col0: int):
     _check_kernel_inputs(q, k, v)
     b, h, n_q, dh = q.shape
     n_kv = k.shape[2]
-    # o is laid out [B, Nq, H, dh] in memory, so the caller's transpose back
-    # to tokens-major and the merge of the heads cost no copy
-    o = torch.empty((b, n_q, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    o = _tokens_major(b, n_q, h, dh, q.dtype, q.device)
     lse = torch.empty((b * h, n_q), dtype=torch.float32, device=q.device)
-    fn = _library()
+    fn = _library("flash_fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, n_q, n_kv, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            float(sm_scale), _KERNEL_DTYPES[q.dtype], stream,
+            float(sm_scale), _KERNEL_DTYPES[q.dtype], *_dropout_args(rate, seed, row0, col0),
+            _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    if rate > 0.0:
+        keep_mask.launches += 1
     return o, lse
+
+
+def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args) -> None:
+    b, h, n_q, dh = q.shape
+    fn = _library("flash_bwd")
+    with torch.cuda.device(q.device):
+        err = fn(
+            _BWD_KINDS[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n_q, k.shape[2], dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            float(sm_scale), _KERNEL_DTYPES[q.dtype], *drop_args, _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd {kind} kernel launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.by_kernel[kind] += 1
+    if drop_args[0]:
+        keep_mask.launches += 1
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route):
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    _check_kernel_inputs(q, k, v, do)
+    b, h, n_q, dh = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape")
+    if lse.shape != (b * h, n_q) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be f32 [B*H, Nq] = [{b * h}, {n_q}] on q's device")
+    n_kv = k.shape[2]
+    di = (o.float() * do.float()).sum(-1).reshape(b * h, n_q)
+    lse = lse.contiguous()
+    dk = _tokens_major(b, n_kv, h, dh, k.dtype, k.device)
+    dv = _tokens_major(b, n_kv, h, dh, v.dtype, v.device)
+    drop = _dropout_args(rate, seed, row0, col0)
+    if route == "fused":
+        # dq's partial sums cross key tiles: f32 atomics into a zeroed workspace
+        dq = torch.zeros((b, n_q, h, dh), dtype=torch.float32, device=q.device).transpose(1, 2)
+        _bwd_launch("fused", q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop)
+        dq = dq.to(q.dtype)
+    else:
+        dq = _tokens_major(b, n_q, h, dh, q.dtype, q.device)
+        _bwd_launch("dkv", q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop)
+        _bwd_launch("dq", q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
+    row0: int = 0, col0: int = 0, route: str = "fused",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`(dq, dk, dv)` of flash attention from the forward's `(o, lse)` and the
+    output gradient `do`, all `[B, H, N, dh]` (lse f32 `[B*H, Nq]`). A CPU
+    tensor takes the plain version; a CUDA tensor launches the backward
+    kernel(s) of `route` ("fused", or "split" for the dkv + dq pair) or
+    raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale, dropout_rate, seed,
+                                         row0, col0)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd runs on cpu or cuda, not {q.device.type}")
+    if route not in BWD_ROUTES:
+        raise ValueError(f"route must be one of {BWD_ROUTES}, got {route!r}")
+    _check_shapes(q, k, v)
+    return _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, dropout_rate, seed, row0, col0,
+                           route)
+
+
+# Backward kernel launches since the counts were last reset (CPU calls do not
+# count): the total and the split by kernel.
+flash_attention_bwd.launches = 0
+flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
+    keep_mask.launches = 0
+
+
+# ---------------------------------------------------------------- autograd + entry
+
+
+def _forward(q, k, v, sm_scale, rate, seed, row0, col0):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, sm_scale, rate, seed, row0, col0)
+    if q.device.type == "cuda":
+        return _flash_fwd_cuda(q, k, v, sm_scale, rate, seed, row0, col0)
+    raise RuntimeError(f"flash_attention runs on cpu or cuda, not {q.device.type}")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the backward kernel as its gradient. Saves
+    `(q, k, v, o, lse)` and the dropout meta; the backward regenerates the
+    forward's dropout mask from the same seed and offsets."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, rate, seed, row0, col0):
+        o, lse = _forward(q, k, v, sm_scale, rate, seed, row0, col0)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.meta = (sm_scale, rate, seed, row0, col0)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.meta)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -112,29 +321,35 @@ def flash_attention(
     v: torch.Tensor,
     *,
     sm_scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    dropout_offset: Tuple[int, int] = (0, 0),
     return_lse: bool = False,
 ):
     """Flash attention over q `[B, H, Nq, dh]`, k and v `[B, H, Nkv, dh]`.
 
     Returns o `[B, H, Nq, dh]` in q's dtype, and with `return_lse` also the
-    f32 log-sum-exp `[B*H, Nq]` that the backward needs. A CPU tensor goes
-    through the plain version; a CUDA tensor launches the kernel (and adds
-    one to `flash_attention.launches`) or raises."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes [B, H, N, dh] tensors")
-    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+    f32 log-sum-exp `[B*H, Nq]` that the backward needs. `dropout_rate` drops
+    attention probabilities inside the kernel by the hash mask of
+    `dropout_seed` (an int32) at global coordinates offset by
+    `dropout_offset` = (row0, col0). A CPU tensor goes through the plain
+    version; a CUDA tensor launches the kernel (and adds one to
+    `flash_attention.launches`) or raises."""
+    _check_shapes(q, k, v)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        o, lse = flash_attention_plain(q, k, v, sm_scale)
-    elif q.device.type == "cuda":
-        o, lse = _flash_fwd_cuda(q, k, v, sm_scale)
+    rate = float(dropout_rate)
+    if rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 needs dropout_seed")
+    keep_threshold(rate)  # validates the rate
+    seed = int(dropout_seed) if rate > 0.0 else 0
+    row0, col0 = (int(x) for x in dropout_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, lse = FlashAttentionFn.apply(q, k, v, float(sm_scale), rate, seed, row0, col0)
     else:
-        raise RuntimeError(f"flash_attention runs on cpu or cuda, not {q.device.type}")
+        o, lse = _forward(q, k, v, sm_scale, rate, seed, row0, col0)
     return (o, lse) if return_lse else o
 
 
-# Kernel launches since the count was last set to 0 (CPU calls do not count).
+# Forward kernel launches since the count was last set to 0 (CPU calls do not count).
 flash_attention.launches = 0

@@ -1,7 +1,7 @@
-"""Task registry: model factory per task (port of `ucf_vit_tpu/tasks.py`).
+"""Task registry: model factory and loss per task (port of `ucf_vit_tpu/tasks.py`).
 
-This slice ports the classification model; its loss comes with training,
-and the other tasks with their own slices (ROADMAP.md).
+The port has the classification task (model and loss); the other tasks come
+with their own slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import VIT
 from ucf_vit_tpu_torch.ops.attention import AttnImpl
+from ucf_vit_tpu_torch.utils.metrics import accuracy, cross_entropy
 
 
 def _attn_impl(cfg: Config) -> AttnImpl:
@@ -67,16 +68,37 @@ def build_classification(cfg: Config) -> VIT:
     )
 
 
+def classification_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+    """`loss_fn` of `build_classification` (`ucf_vit_tpu/tasks.py:180-187`):
+    cross entropy of the logits, with accuracy as aux. The MoE aux term is 0
+    for the dense model the port has."""
+    logits = model(batch["x"])
+    return cross_entropy(logits, batch["label"]), {"accuracy": accuracy(logits, batch["label"])}
+
+
 TASKS: Dict[str, Callable[[Config], torch.nn.Module]] = {
     "classification": build_classification,
 }
+LOSSES: Dict[str, Callable] = {
+    "classification": classification_loss,
+}
+
+
+def _check_ported(cfg: Config) -> None:
+    if cfg.task not in TASKS:
+        raise NotImplementedError(
+            f"task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port)"
+        )
 
 
 def build_task(cfg: Config) -> torch.nn.Module:
     """The task's model, with torch's default init (see
     `inference.init_eval_model` for the seeded init)."""
-    if cfg.task not in TASKS:
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port)"
-        )
+    _check_ported(cfg)
     return TASKS[cfg.task](cfg)
+
+
+def task_loss(cfg: Config) -> Callable:
+    """The task's `loss_fn(model, batch) -> (loss, aux)`."""
+    _check_ported(cfg)
+    return LOSSES[cfg.task]
