@@ -8,8 +8,8 @@ result):
 
 1. device:  the card's name and power limit (nvidia-smi); TF32 off for
             matmuls and cuDNN.
-2. build:   nvcc builds the kernels of the serving and training paths from
-            csrc/ (flash_fwd and flash_bwd, in parallel).
+2. build:   nvcc builds every kernel from csrc/ (flash_fwd, flash_bwd,
+            fused_mlp and int8_gemm, one nvcc each, started together).
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
@@ -17,6 +17,12 @@ result):
             times of the kernels, the plain versions and one library call
             (a yardstick only: the port never calls it), the least time the
             card could take, and both backward routes timed at every shape.
+            Then the two ops that no model is wired to, in either package:
+            `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
+            (bf16 and f32, tanh and erf GELU), and `int8_matmul` at the
+            ViT-B projections (bit-equal to its plain version; within the
+            JAX test's error bands of the exact product); then both through
+            their public API with the launch counts set to 0 before.
 4. train:   `ucf_vit_tpu_torch.train` on the same config (ViT-B/16 at full
             width and depth, seeded init, synthetic batches of 16): 10 steps
             with attention FLASH (the kernels) against 10 with EINSUM (plain
@@ -32,6 +38,17 @@ result):
             profiler); every answer must equal the direct forward of its
             sample with attention forced to EINSUM; the flash kernel must
             have run once per block per batch.
+6. bf16:    the same ViT-B/16 config with `trainer.data_type: bfloat16` set
+            in memory, 10 steps FLASH against EINSUM; then
+            configs/imagenet/classification_vit_l/base_config.yaml (ViT-L/16
+            at full width and depth, bf16 compute on f32 parameters, remat,
+            4 microbatches of 8) through the trainer's CLI entry with
+            `--single-device`, the launch counts set to 0 before it and read
+            after; a timed and a traced window of 10 steps; and a short
+            window with remat off, for what remat costs and saves.
+            It runs last: on an H100 host a server started after it in the
+            same process answered 233 requests/s, against 260-300 for one
+            started before it.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -53,6 +70,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "catsdogs", "classification", "base_config.yaml")
+VIT_L_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification_vit_l",
+                            "base_config.yaml")
 MAX_BATCH = 16
 SEQUENTIAL_REQUESTS = 8
 LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
@@ -71,12 +90,23 @@ TRAIN_GRAD_TOL = 1e-4  # first-step gradient, relative to the largest entry
 TIMED_STEPS, WARMUP_STEPS = 20, 3
 DROPOUT_STEPS = 3
 MAIN_PATH_STEPS = 5  # train() itself
+# fused_mlp against its plain version, max |y - plain|. bf16: the JAX tests' atol (one
+# bf16 ulp of an output below 4 is 1.6e-2, where the two round to neighbouring values);
+# f32: sums in another order over up to 4096 terms
+MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# bf16 training, FLASH against EINSUM, per-step loss: FLASH keeps f32 scores from the
+# bf16 q and k, EINSUM rounds them to bf16 first; the learning rate is still in its
+# warm-up (below 1e-6), so the parameters stay together and only the forward's
+# rounding shows
+BF16_TRAIN_LOSS_TOL = 2e-2
+VIT_L_MAIN_STEPS = 3  # the CLI entry itself
+VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 10, 3, 5
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet):
-# f32 on the CUDA cores, bf16 on the tensor cores, and the memory rate. The
+# f32 on the CUDA cores, bf16 and int8 on the tensor cores, and the memory rate. The
 # card is named so; any other card has no peaks here until it is measured.
 CARD = "NVIDIA H100 80GB HBM3"
-PEAKS = {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12}
+PEAKS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
 
 
 def fail(msg: str) -> None:
@@ -136,14 +166,16 @@ def phase_build():
         return name, build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        built = list(pool.map(one, ("flash_fwd", "flash_bwd")))
-    log(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+    sources = ("flash_fwd", "flash_bwd", "fused_mlp", "int8_gemm")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        built = list(pool.map(one, sources))
+    log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
     for name, path, seconds in built:
         # ptxas reports each template instance: summarise registers and spills
         entry, regs, spills = "", [], []
         for line in path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel)I(\w+?)EEvNS", line)
+            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel|fused_mlp_kernel|int8_gemm_kernel)"
+                          r"I(\w+?)EEvNS", line)
             if "Compiling entry function" in line and m:
                 entry = f"{m.group(1)}<{m.group(2)}>"
             if m := re.search(r"Used (\d+) registers", line):
@@ -176,11 +208,13 @@ def _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen):
 
 
 # (b, h, n_q, n_kv, dh, packed): the first is the serving and training shape
-# (ViT-B/16 at batch 16), then the head dims the configs ship, Nq = 1 (the
+# (ViT-B/16 at batch 16), the second ViT-L/16's microbatch of 8 (both are
+# timed: TIMED_SHAPES), then the head dims the configs ship, Nq = 1 (the
 # variable-aggregation attention), a trailing partial key tile with Nq >> Nkv,
 # and the long sequences of the MAE decoder and mae_long
 SHAPES = [
     (16, 12, 257, 257, 64, True),
+    (8, 16, 257, 257, 64, True),
     (16, 16, 197, 197, 36, False),
     (8, 8, 197, 197, 96, False),
     (8, 4, 197, 197, 128, False),
@@ -189,6 +223,8 @@ SHAPES = [
     (1, 6, 4096, 4096, 96, False),
 ]
 LONG_SHAPE = (1, 6, 32768, 32768, 96, False)  # backward only, held one head at a time
+# timed shapes -> prefix of their key in the phases' results ("" + dtype, "vit_l_" + dtype)
+TIMED_SHAPES = {SHAPES[0][:5]: "", SHAPES[1][:5]: "vit_l_"}
 
 
 def phase_kernels():
@@ -215,7 +251,7 @@ def phase_kernels():
                 f"(tol {FLASH_TOL[dtype_name]:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
             if not (err <= FLASH_TOL[dtype_name] and lse_err <= LSE_TOL):
                 fail(f"flash_fwd disagrees with its plain version at {shape}")
-            if (b, h, n_q, n_kv, dh) != SHAPES[0][:5]:
+            if (b, h, n_q, n_kv, dh) not in TIMED_SHAPES:
                 continue
             sm = dh**-0.5
             ms = time_ms(lambda: flash_attention(q, k, v, sm_scale=sm))
@@ -224,7 +260,7 @@ def phase_kernels():
             flops = 4.0 * b * h * n_q * n_kv * dh
             nbytes = q.element_size() * b * h * dh * (2 * n_q + 2 * n_kv) + 4 * b * h * n_q
             bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
-            timed[dtype_name] = {
+            timed[TIMED_SHAPES[(b, h, n_q, n_kv, dh)] + dtype_name] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             }
@@ -363,9 +399,10 @@ def phase_bwd_kernels():
             faster = min(route_ms, key=route_ms.get)
             log(f"[route] {shape}: fused {route_ms['fused']:.4f} ms, split (dkv + dq) "
                 f"{route_ms['split']:.4f} ms; faster {faster}, dispatch takes fused")
-            if (b, h, n_q, n_kv, dh) != SHAPES[0][:5]:
+            if (b, h, n_q, n_kv, dh) not in TIMED_SHAPES:
                 continue
-            # the training shape: each kernel alone, from buffers made beforehand
+            key = TIMED_SHAPES[(b, h, n_q, n_kv, dh)] + dtype_name
+            # a training shape: each kernel alone, from buffers made beforehand
             di = (o.float() * do.float()).sum(-1).reshape(b * h, n_q)
             ws = torch.zeros(b, n_q, h, dh, device="cuda").transpose(1, 2)
             dq, dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=dtype).transpose(1, 2)
@@ -407,11 +444,11 @@ def phase_bwd_kernels():
             # route's dk, dv for dkv and its dq for dq
             kernel_err = {"fused": max(abs_err["fused"]), "dkv": max(abs_err["split"][1:]),
                           "dq": abs_err["split"][0]}
-            timed[dtype_name] = {}
+            timed[key] = {}
             for kind, ms in kernel_ms.items():
                 flops, nbytes = _bwd_work(kind, b, h, n_q, n_kv, dh, q.element_size())
                 bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
-                timed[dtype_name][kind] = {
+                timed[key][kind] = {
                     "ms": ms, "plain_ms": plain_ms[kind], "bound_ms": bound_ms,
                     "bound_by": bound_by,
                     # one library call computes what the fused kernel does; none
@@ -493,6 +530,192 @@ def phase_dropout(fwd_timed, bwd_timed):
     return record
 
 
+# fused_mlp: (rows, D, H). ViT-B's MLP at batch 16 (the shape the JAX package's
+# study times), ViT-L's at its microbatch of 8, and a shape ragged in M, D and H
+MLP_SHAPES = [(16 * 257, 768, 3072), (8 * 257, 1024, 4096), (300, 200, 300)]
+# int8_matmul: (M, K, N), the qkv, fc1 and fc2 projections of ViT-B at batch 16
+INT8_SHAPES = [(16 * 257, 768, 2304), (16 * 257, 768, 3072), (16 * 257, 3072, 768)]
+RECORD_MLP, RECORD_INT8 = MLP_SHAPES[0], INT8_SHAPES[1]  # the kernels record's rows
+
+
+def _mlp_inputs(m, d, h, dtype, gen):
+    """x ~ N(0, 1) as a LayerNorm gives it, weights at the init's std 0.02."""
+    import torch
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    return (randn(m, d), randn(d, h, std=0.02), randn(h, std=0.01),
+            randn(h, d, std=0.02), randn(d, std=0.01))
+
+
+def phase_mlp_kernels():
+    """`fused_mlp` against `fused_mlp_plain` at every shape, both types and both
+    GELU forms; timed at the two model shapes beside its bound, the plain
+    version and the unfused composition F.linear, F.gelu, F.linear (three
+    library calls: no single call computes the function)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timed = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for m, d, h in MLP_SHAPES:
+            args = _mlp_inputs(m, d, h, dtype, gen)
+            shape = f"[{m},{d}]->{h} {dtype_name}"
+            errs = {}
+            for approx in (True, False):
+                got = fused_mlp(*args, approx=approx)
+                torch.cuda.synchronize()
+                want = fused_mlp_plain(*args, approx=approx)
+                if got.dtype != dtype or got.shape != (m, d):
+                    fail(f"fused_mlp returned {got.dtype} {tuple(got.shape)} at {shape}")
+                errs[approx] = (got.float() - want.float()).abs().max().item()
+            log(f"[kernel] fused_mlp {shape}: max|y-plain| tanh {errs[True]:.3e} erf "
+                f"{errs[False]:.3e} (tol {MLP_TOL[dtype_name]:g}); max|plain| "
+                f"{want.float().abs().max().item():.3f}")
+            if not max(errs.values()) <= MLP_TOL[dtype_name]:
+                fail(f"fused_mlp disagrees with its plain version at {shape}")
+            if d < 768:
+                continue
+            x, w1, b1, w2, b2 = args
+            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear's layout
+            ms = time_ms(lambda: fused_mlp(*args), iters=20, warmup=2)
+            plain_ms = time_ms(lambda: fused_mlp_plain(*args), iters=20, warmup=2)
+            unfused_ms = time_ms(
+                lambda: F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2),
+                iters=20, warmup=2)
+            flops = 4.0 * m * d * h
+            nbytes = x.element_size() * (2 * m * d + 2 * d * h + d + h)
+            bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
+            timed[(m, d, h), dtype_name] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": errs[True], "unfused_ms": unfused_ms,
+            }
+            log(f"[kernel] fused_mlp {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"unfused F.linear + F.gelu + F.linear (three library calls) {unfused_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB)")
+    return timed
+
+
+def _int8_error_bands(y_q, y_exact):
+    """The JAX test's measure (tests/test_int8_gemm.py:44-55): |error| over the
+    mean |exact|; its median must stay below 0.02 and its mean below 0.05."""
+    rel = (y_q - y_exact).abs() / (y_exact.abs().mean() + 1e-6)
+    return rel.median().item(), rel.mean().item()
+
+
+def phase_int8_kernels():
+    """`int8_matmul` against `int8_matmul_plain` (bit for bit: the integer sums
+    are exact and every float step is one IEEE operation in both) and against
+    the exact product (the JAX test's bands); timed beside its bound, the
+    plain version and the bf16 `torch.matmul` of the same product, the
+    yardstick the JAX package's study compares with."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    timed = {}
+    for m, k, n in INT8_SHAPES:
+        w = 0.02 * torch.randn(k, n, device="cuda", generator=gen)
+        w_i8, ws = quantize_weight(w)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+            shape = f"[{m},{k}]x[{k},{n}] x {dtype_name}"
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = int8_matmul(x, w_i8, ws, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                want = int8_matmul_plain(x, w_i8, ws, out_dtype)
+                if got.dtype != out_dtype or got.shape != (m, n):
+                    fail(f"int8_matmul returned {got.dtype} {tuple(got.shape)} at {shape}")
+                if not torch.equal(got, want):
+                    diff = (got.float() - want.float()).abs().max().item()
+                    fail(f"int8_matmul differs from its plain version at {shape} -> "
+                         f"{out_dtype}: max |diff| {diff:.3e} (expected bit-equal)")
+            y_q = int8_matmul(x, w_i8, ws, out_dtype=torch.float32)
+            median, mean = _int8_error_bands(y_q, x.float() @ w)
+            log(f"[kernel] int8_matmul {shape}: bit-equal to plain (f32 and bf16 out); against "
+                f"the exact product: median rel err {median:.4f} (< 0.02), mean {mean:.4f} "
+                f"(< 0.05)")
+            if not (median < 0.02 and mean < 0.05):
+                fail(f"int8_matmul is outside the quantization error bands at {shape}")
+            if dtype_name != "bfloat16":
+                continue
+            w_bf16 = w.to(torch.bfloat16)
+            ms = time_ms(lambda: int8_matmul(x, w_i8, ws), iters=20, warmup=2)
+            plain_ms = time_ms(lambda: int8_matmul_plain(x, w_i8, ws), iters=20, warmup=2)
+            matmul_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters=20, warmup=2)
+            ops = 2.0 * m * k * n
+            nbytes = x.element_size() * (m * k + m * n) + k * n + 4 * n
+            bound_ms, bound_by = _bound(ops, nbytes, "int8")
+            timed[(m, k, n)] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": 0.0, "bf16_matmul_ms": matmul_ms,
+            }
+            log(f"[kernel] int8_matmul {shape} -> bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.3f} GOP, "
+                f"{nbytes / 1e6:.2f} MB); yardstick bf16 torch.matmul of the same product "
+                f"{matmul_ms:.4f} ms (another function: no quantization)")
+    return timed
+
+
+def phase_ops_path():
+    """The two ops through their public API, as a user of the package calls
+    them (no model or server of either package is wired to them): one
+    ViT-B block's projections quantized once and multiplied in int8, and
+    its MLP fused, on a batch of 16 x 257 tokens in bf16. The launch counts
+    are set to 0 before and read after."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp
+    from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m, d, h = RECORD_MLP
+    x, w1, b1, w2, b2 = _mlp_inputs(m, d, h, torch.bfloat16, gen)
+    projections = {"qkv": (d, 3 * d), "proj": (d, d), "fc1": (d, h), "fc2": (h, d)}
+    weights = {name: 0.02 * torch.randn(*shape, device="cuda", generator=gen)
+               for name, shape in projections.items()}
+    hidden = torch.randn(m, h, device="cuda", generator=gen).to(torch.bfloat16)
+
+    fused_mlp.launches = 0
+    int8_matmul.launches = 0
+    y = fused_mlp(x, w1, b1, w2, b2)
+    quantized = {name: quantize_weight(w) for name, w in weights.items()}  # once, offline
+    outs = {name: int8_matmul(hidden if name == "fc2" else x, *quantized[name])
+            for name in projections}
+    torch.cuda.synchronize()
+    counts = {"fused_mlp": fused_mlp.launches, "int8_matmul": int8_matmul.launches}
+
+    want = F.linear(F.gelu(F.linear(x, w1.t(), b1), approximate="tanh"), w2.t(), b2)
+    mlp_err = (y.float() - want.float()).abs().max().item()
+    ok = y.shape == (m, d) and y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    worst = 0.0
+    for name, out in outs.items():
+        inp = hidden if name == "fc2" else x
+        median, mean = _int8_error_bands(out.float(), inp.float() @ weights[name])
+        worst = max(worst, median)
+        ok = ok and out.shape == (m, projections[name][1]) and out.dtype == torch.bfloat16 \
+            and bool(torch.isfinite(out).all()) and median < 0.02 and mean < 0.05
+    log(f"[ops] public API on [{m}, {d}] bf16 tokens (the ops are on no model path, in either "
+        f"package): fused_mlp against the unfused bf16 modules max |diff| {mlp_err:.3e} (tol "
+        f"3e-2: the modules round the pre-activation to bf16, the op keeps it f32); "
+        f"int8_matmul on qkv, proj, fc1, fc2: worst median rel err {worst:.4f}; launches "
+        f"{counts}")
+    if not ok or mlp_err > 3e-2:
+        fail("the ops' public API gave a wrong result")
+    if counts != {"fused_mlp": 1, "int8_matmul": len(projections)}:
+        fail(f"launch counts {counts}, expected 1 fused_mlp and {len(projections)} int8_matmul")
+    return counts
+
+
 def _launch_counts() -> dict:
     from ucf_vit_tpu_torch.ops.attn_dropout import keep_mask
     from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
@@ -540,13 +763,68 @@ def _expected_counts(depth: int, steps: int, route: str, dropout: bool) -> dict:
     return counts
 
 
+def _window(state, step, batches) -> float:
+    """Wall seconds of one train step per batch, with the host->device copy of
+    each batch and the trainer's one-step-lagged loss read inside."""
+    import torch
+
+    from ucf_vit_tpu_torch.train import to_device
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = None
+    for b in batches:
+        state, loss, _ = step(state, to_device(b, dev))
+        if pending is not None:
+            pending.item()  # the trainer's one-step-lagged loss read
+        pending = loss
+    pending.item()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _measure_steps(tag, label, state, step, warmup, timed, traced=None, top=12) -> dict:
+    """A warm-up, an untraced window (ms/step, images/s, peak memory) and, with
+    `traced`, a window traced on the card (device activity only): the busy
+    share and the device time by kernel. Each argument is a list of batches."""
+    import torch
+
+    _window(state, step, warmup)
+    torch.cuda.reset_peak_memory_stats()
+    wall = _window(state, step, timed)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n, batch = len(timed), len(timed[0]["x"])
+    out = {"ms_step": 1e3 * wall / n, "images_s": batch * n / wall, "peak_gb": peak_gb}
+    log(f"[{tag}] {label}: {n} steps in {wall:.4f} s = {out['ms_step']:.3f} ms/step, "
+        f"{out['images_s']:.2f} images/s; peak memory {peak_gb:.2f} GB")
+    if traced is None:
+        return out
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    traced_s = _window(state, step, traced)
+    prof.stop()
+    kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                      if e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms <= 0:
+        fail(f"the traced {label} window saw no work on the card")
+    out.update(busy_share=busy_ms / (1e3 * traced_s), kernels=kernels, busy_ms=busy_ms,
+               traced_steps=len(traced))
+    log(f"[{tag}] traced window: {len(traced)} steps in {traced_s:.4f} s, device busy "
+        f"{busy_ms:.3f} ms = {100 * out['busy_share']:.2f}%")
+    for t_us, count, key in kernels[:top]:
+        log(f"[{tag}]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy_ms:6.2f}% "
+            f"x{count:<5d} {key[:90]}")
+    return out
+
+
 def phase_train():
     import numpy as np
-    import torch
 
     from ucf_vit_tpu_torch.config import load_config
     from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
-    from ucf_vit_tpu_torch.train import synthetic_batches, to_device, train
+    from ucf_vit_tpu_torch.train import synthetic_batches, train
 
     cfg = load_config(CONFIG)
     depth = int(cfg.init_args["depth"])
@@ -586,46 +864,11 @@ def phase_train():
         fail(f"launches {cf} under FLASH (expected {want}), {ce} under EINSUM (expected none)")
 
     # the step's time: a warm-up, an untraced window and a window traced on the card
-    dev = torch.device("cuda")
-    state, step = flash_state, flash_step
-
-    def window(bs):
-        nonlocal state
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pending = None
-        for b in bs:
-            state, loss, _ = step(state, to_device(b, dev))
-            if pending is not None:
-                pending.item()  # the trainer's one-step-lagged loss read
-            pending = loss
-        pending.item()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    window(batches[:WARMUP_STEPS])
-    torch.cuda.reset_peak_memory_stats()
-    wall = window(batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS])
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    prof.start()
-    traced = window(batches[WARMUP_STEPS + TIMED_STEPS:])
-    prof.stop()
-    del state, step, flash_state, flash_step
-    kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                      if e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(k[0] for k in kernels) / 1e3
-    if busy_ms <= 0:
-        fail("the traced training window saw no work on the card")
-    ms_step = 1e3 * wall / TIMED_STEPS
-    log(f"[train] ViT-B/16 f32 batch {TRAIN_BATCH}, FLASH: {TIMED_STEPS} steps in {wall:.4f} s "
-        f"= {ms_step:.3f} ms/step, {TRAIN_BATCH * TIMED_STEPS / wall:.2f} images/s; peak "
-        f"memory {peak_gb:.2f} GB")
-    log(f"[train] traced window: {TIMED_STEPS} steps in {traced:.4f} s, device busy "
-        f"{busy_ms:.3f} ms = {100 * busy_ms / (1e3 * traced):.2f}%")
-    for t_us, count, key in kernels[:12]:
-        log(f"[train]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy_ms:6.2f}% "
-            f"x{count:<5d} {key[:90]}")
+    ms_step = _measure_steps(
+        "train", f"ViT-B/16 f32 batch {TRAIN_BATCH}, FLASH", flash_state, flash_step,
+        batches[:WARMUP_STEPS], batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS],
+        batches[WARMUP_STEPS + TIMED_STEPS:])["ms_step"]
+    del flash_state, flash_step
 
     # the dropout path: attn_drop_rate 0.1, the same hash mask on both sides
     drop = {}
@@ -658,6 +901,119 @@ def phase_train():
     if main_counts != want or not all(np.isfinite(out["loss_list"])):
         fail(f"train() launched {main_counts} (expected {want}), losses {out['loss_list']}")
     return {"main": main_counts, "dropout": dcf, "ms_step": ms_step}
+
+
+def _kernel_groups(kernels, busy_ms: float) -> str:
+    """Device time of a traced window by kind of kernel, from the kernels' names."""
+    groups = {"GEMMs (cuBLAS/CUTLASS)": 0.0, "flash_fwd_kernel": 0.0, "flash_bwd_kv_kernel": 0.0,
+              "AdamW (multi-tensor)": 0.0, "other (LayerNorm, GELU, casts, adds, copies)": 0.0}
+    for t_us, _, key in kernels:
+        name = key.lower()
+        if "flash_fwd_kernel" in name:
+            group = "flash_fwd_kernel"
+        elif "flash_bwd_kv_kernel" in name:
+            group = "flash_bwd_kv_kernel"
+        elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")):
+            group = "GEMMs (cuBLAS/CUTLASS)"
+        elif "multi_tensor" in name or "adam" in name:
+            group = "AdamW (multi-tensor)"
+        else:
+            group = "other (LayerNorm, GELU, casts, adds, copies)"
+        groups[group] += t_us / 1e3
+    return "; ".join(f"{g} {ms:.3f} ms = {100 * ms / busy_ms:.2f}%" for g, ms in groups.items())
+
+
+def phase_train_bf16():
+    """The bf16 compute policy on the card: ViT-B/16 FLASH against EINSUM, then
+    ViT-L/16 with remat through the trainer's CLI entry, timed and traced,
+    and a window with remat off."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import Config, load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import init_train, main as train_main, synthetic_batches
+
+    # (a) ViT-B/16, bf16 set in memory, FLASH against EINSUM from one init and batch stream
+    raw = copy.deepcopy(load_config(CONFIG).raw)
+    raw["trainer"]["data_type"] = "bfloat16"
+    cfg = Config(raw=raw, task="classification")
+    depth = int(cfg.init_args["depth"])
+    stream = synthetic_batches(cfg, TRAIN_BATCH, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        state, _, losses, grads, counts = _run_steps(_train_cfg(cfg, impl), batches)
+        if state.model.dtype != torch.bfloat16 or \
+                any(p.dtype != torch.float32 for p in state.model.parameters()) or \
+                any(g.dtype != torch.float32 for g in grads.values()):
+            fail("the bf16 policy must keep f32 parameters and f32 gradients")
+        runs[impl] = (losses, counts)
+        log(f"[bf16] ViT-B/16 {impl}: losses {' '.join(f'{x:.6f}' for x in losses)}; "
+            f"launches {counts}")
+        del state, grads
+    (lf, cf), (le, ce) = runs["FLASH"], runs["EINSUM"]
+    loss_diff = max(abs(a - b) for a, b in zip(lf, le))
+    log(f"[bf16] ViT-B/16 FLASH vs EINSUM: max per-step |loss diff| {loss_diff:.3e} (tol "
+        f"{BF16_TRAIN_LOSS_TOL:g})")
+    if not all(np.isfinite(lf)) or loss_diff > BF16_TRAIN_LOSS_TOL:
+        fail("bf16 FLASH training losses disagree with EINSUM's")
+    want = _expected_counts(depth, TRAIN_STEPS, "fused", dropout=False)
+    if cf != want or any(ce.values()):
+        fail(f"bf16 launches {cf} under FLASH (expected {want}), {ce} under EINSUM")
+
+    # (b) ViT-L/16 as shipped (bf16, remat, scan_layers, accum_steps 4, batch 32) on one
+    # device: the CLI's entry, with every launch count set to 0 before it and read after
+    argv = [VIT_L_CONFIG, "--synthetic", "--single-device", "--max-steps", str(VIT_L_MAIN_STEPS)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_main(argv)
+    main_counts = _launch_counts()
+    model = out["state"].model
+    depth_l, accum = len(model.blocks), 4
+    log(f"[bf16] ViT-L/16 python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
+        f"{time.perf_counter() - t0:.2f} s (init included); epoch losses {out['loss_list']}; "
+        f"launches {main_counts}")
+    # under remat each block's forward runs twice per microbatch
+    n = depth_l * accum * VIT_L_MAIN_STEPS
+    want = {"flash_fwd": 2 * n, "flash_bwd_fused": n, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+            "keep_mask": 0}
+    if main_counts != want or not all(np.isfinite(out["loss_list"])):
+        fail(f"ViT-L train launched {main_counts} (expected {want}), losses {out['loss_list']}")
+    if not (model.remat and model.dtype == torch.bfloat16 and model.embed_dim == 1024
+            and depth_l == 24 and all(p.dtype == torch.float32 for p in model.parameters())):
+        fail("the ViT-L run was not ViT-L/16 in bf16 with remat on f32 parameters")
+    del out, model
+
+    cfg_l = load_config(VIT_L_CONFIG)
+    cfg_l.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                                "seq_par_size": 1}  # what --single-device sets
+    batch = cfg_l.batch_size
+    stream = synthetic_batches(cfg_l, batch, seed=0)
+    batches = [next(stream) for _ in range(VIT_L_WARMUP_STEPS + 2 * VIT_L_TIMED_STEPS)]
+    state, step = init_train(cfg_l, "cuda")
+    w, t = VIT_L_WARMUP_STEPS, VIT_L_TIMED_STEPS
+    remat = _measure_steps("bf16", f"ViT-L/16 bf16 batch {batch} (4 x 8), remat", state, step,
+                           batches[:w], batches[w:w + t], batches[w + t:], top=14)
+    log(f"[bf16] device time by kind: {_kernel_groups(remat['kernels'], remat['busy_ms'])}")
+    del state, step
+
+    # (c) the same with remat off, for what remat costs in time and saves in memory
+    raw = copy.deepcopy(cfg_l.raw)
+    raw["trainer"]["remat"] = False
+    state, step = init_train(Config(raw=raw, task=cfg_l.task), "cuda")
+    reset_launch_counts()
+    plain = _measure_steps("bf16", f"ViT-L/16 bf16 batch {batch} (4 x 8), remat off", state,
+                           step, batches[:w], batches[w:w + VIT_L_NO_REMAT_STEPS])
+    counts = _launch_counts()
+    n = depth_l * accum * (w + VIT_L_NO_REMAT_STEPS)
+    if counts["flash_fwd"] != n or counts["flash_bwd_fused"] != n:
+        fail(f"remat off launched {counts}, expected {n} forward and {n} backward")
+    del state, step
+    log(f"[bf16] remat on ViT-L/16: {remat['ms_step']:.3f} ms/step against "
+        f"{plain['ms_step']:.3f} without ({remat['ms_step'] / plain['ms_step']:.3f}x); peak "
+        f"memory {remat['peak_gb']:.2f} GB against {plain['peak_gb']:.2f} GB")
+    return {"main": main_counts, "ms_step": remat["ms_step"]}
 
 
 def _request(port: int, method: str, path: str, body: bytes | None = None) -> bytes:
@@ -882,13 +1238,20 @@ def main() -> int:
     fwd = phase_kernels()
     bwd = phase_bwd_kernels()
     dropout = phase_dropout(fwd, bwd)
+    mlp = phase_mlp_kernels()
+    int8 = phase_int8_kernels()
+    ops = phase_ops_path()
     trained = phase_train()
     served = phase_serve()
+    trained_bf16 = phase_train_bf16()
 
-    # the served and trained config runs f32: each kernel's numbers at its f32
-    # shape on that path; launches from the main paths' runs (serving and
-    # training for the forward, training for the backward, training with
-    # attention dropout for the hash)
+    # The flash kernels' numbers are those of the f32 instance at the ViT-B/16 shape
+    # that serving and f32 training give it; the log lines above hold the bf16
+    # instance at ViT-L/16's microbatch shape. Launches are summed over the main
+    # paths' runs: serving and both trainings (f32 ViT-B, bf16 ViT-L) for the
+    # forward, both trainings for the backward, training with attention dropout for
+    # the hash, and the ops' public API for fused_mlp and int8_matmul, which are on no
+    # model path in either package (bf16 at the ViT-B MLP shape).
     sources = {
         "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd.cu",
                       "ucf_vit_tpu/ops/flash_attention.py:68"),
@@ -900,14 +1263,24 @@ def main() -> int:
                          "ucf_vit_tpu/ops/flash_attention.py:362"),
         "keep_mask": ("ucf_vit_tpu_torch/csrc/attn_dropout.cuh",
                       "ucf_vit_tpu/ops/attn_dropout.py:70"),
+        "fused_mlp": ("ucf_vit_tpu_torch/csrc/fused_mlp.cu", "ucf_vit_tpu/ops/fused_mlp.py:55"),
+        "int8_matmul": ("ucf_vit_tpu_torch/csrc/int8_gemm.cu", "ucf_vit_tpu/ops/int8_gemm.py:61"),
     }
     numbers = {"flash_fwd": fwd["float32"], "keep_mask": dropout,
-               **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()}}
-    launches = dict(trained["main"])
+               **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
+               "fused_mlp": mlp[RECORD_MLP, "bfloat16"], "int8_matmul": int8[RECORD_INT8]}
+    launches = {k: n + trained_bf16["main"][k] for k, n in trained["main"].items()}
     launches["flash_fwd"] += served["launches"]
     launches["keep_mask"] = trained["dropout"]["keep_mask"]
-    log(f"[record] launches: serve {served['launches']} flash_fwd; train() {trained['main']}; "
-        f"train with attention dropout {trained['dropout']}")
+    launches.update(ops)
+    log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() "
+        f"{trained['main']}; bf16 ViT-L train (the flash kernels' bf16 instances) "
+        f"{trained_bf16['main']}; train with attention dropout {trained['dropout']}; "
+        f"the ops' public API {ops}")
+    for name in ("flash_fwd", "flash_bwd_fused", "fused_mlp", "int8_matmul"):
+        if launches[name] <= 0 or (name in trained_bf16["main"]
+                                   and trained_bf16["main"][name] <= 0):
+            fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

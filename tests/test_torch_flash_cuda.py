@@ -1,5 +1,5 @@
-"""The port's CUDA flash-attention kernels (forward, both backward routes,
-dropout) against their plain versions, on the card. Marked `cuda`; skips
+"""The port's CUDA kernels (flash attention forward, both backward routes and
+dropout; the fused MLP; the W8A8 int8 GEMM) against their plain versions, on the card. Marked `cuda`; skips
 without a card. This file imports neither JAX nor the JAX package, so it runs
 on a machine without JAX:
 
@@ -18,6 +18,8 @@ from ucf_vit_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
+from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
 
 # (b, h, n_q, n_kv, dh): the training shape at batch 2, dh 36, Nq = 1, a
 # trailing partial key tile with Nq > Nkv, dh 128 with Nq < Nkv
@@ -135,3 +137,88 @@ def test_block_qkv_grad_flash_matches_einsum_on_card():
         grads[impl] = blk.attn.qkv.weight.grad
     assert grads["FLASH"] is not None and grads["FLASH"].abs().max().item() > 0
     assert _rel_err(grads["FLASH"], grads["EINSUM"]) <= 1e-4
+
+
+# (leading dims, D, H): the JAX tests' ragged shape and leading dims, ViT-B and
+# ViT-L widths with a ragged M, and a D and H that are multiples of nothing
+MLP_SHAPES = [((300,), 128, 512), ((2, 70), 128, 512), ((515,), 768, 3072),
+              ((2, 257), 1024, 4096), ((100,), 200, 300)]
+MLP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _mlp_inputs(lead, d, h, dt, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(*shape, device="cuda", generator=g)).to(dt)
+
+    return (randn(*lead, d), randn(d, h, std=0.02), randn(h, std=0.01),
+            randn(h, d, std=0.02), randn(d, std=0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mlp_kernel_matches_plain_on_card(dtype, approx):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    for lead, d, h in MLP_SHAPES:
+        args = _mlp_inputs(lead, d, h, dt)
+        before = fused_mlp.launches
+        got = fused_mlp(*args, approx=approx)
+        torch.cuda.synchronize()
+        assert fused_mlp.launches == before + 1
+        want = fused_mlp_plain(*args, approx=approx)
+        assert got.dtype == dt and got.shape == args[0].shape
+        assert (got.float() - want.float()).abs().max().item() <= MLP_TOL[dt], (lead, d, h)
+
+
+# (M, K, N): the JAX tests' shape with a ragged M, the qkv and fc2 projections of
+# ViT-B with a ragged M, and a K that is no multiple of 4
+INT8_SHAPES = [(50, 256, 256), (300, 768, 2304), (130, 3072, 768), (33, 250, 132)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_kernel_equals_plain_on_card(dtype, out_dtype):
+    """Integer accumulation is exact and every float step is one IEEE
+    operation in both versions, so the two agree bit for bit."""
+    _card()
+    dt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for m, k, n in INT8_SHAPES:
+        x = torch.randn(m, k, device="cuda", generator=g).to(dt)
+        w_i8, ws = quantize_weight(0.02 * torch.randn(k, n, device="cuda", generator=g))
+        before = int8_matmul.launches
+        got = int8_matmul(x, w_i8, ws, out_dtype=odt)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + 1
+        want = int8_matmul_plain(x, w_i8, ws, odt)
+        assert got.dtype == odt and got.shape == (m, n)
+        assert torch.equal(got, want), ((m, k, n), (got.float() - want.float()).abs().max())
+        # every row is quantized alone: the first 33 rows do not depend on M
+        assert torch.equal(int8_matmul(x[:33], w_i8, ws, out_dtype=odt), got[:33])
+
+
+@pytest.mark.cuda
+def test_ops_raise_outside_their_limits_on_card():
+    """A CUDA tensor outside a kernel's limits raises; the plain version is
+    never taken for it."""
+    _card()
+    before = fused_mlp.launches, int8_matmul.launches
+    with pytest.raises(ValueError, match="D <= 1024"):
+        fused_mlp(*_mlp_inputs((8,), 1152, 256, torch.float32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_mlp(*_mlp_inputs((8,), 64, 256, torch.float16))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mlp(*(t.requires_grad_() for t in _mlp_inputs((8,), 64, 256, torch.float32)))
+    x = torch.randn(8, 64, device="cuda")
+    w_i8, ws = quantize_weight(torch.randn(64, 30, device="cuda"))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int8_matmul(x, w_i8, ws)
+    w_i8, ws = quantize_weight(torch.randn(8192, 32, device="cuda"))
+    with pytest.raises(ValueError, match="K <= 6144"):
+        int8_matmul(torch.randn(8, 8192, device="cuda"), w_i8, ws)
+    assert (fused_mlp.launches, int8_matmul.launches) == before

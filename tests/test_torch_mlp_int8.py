@@ -1,0 +1,188 @@
+"""The port's fused-MLP and W8A8 int8 GEMM ops against the JAX package, on the
+CPU: the plain versions (which the wrappers take for CPU tensors) against the
+Pallas kernels in interpret mode and against their plain-XLA references, on
+inputs from numpy seeds. The CUDA kernels are held against the same plain
+versions on the card (`tests/test_torch_flash_cuda.py`, `chip_smoke.py`)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ucf_vit_tpu.ops import fused_mlp as jax_mlp
+from ucf_vit_tpu.ops import int8_gemm as jax_int8
+from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
+
+TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# bf16: the JAX tests' own atol (one bf16 ulp of outputs below 4 is 1.6e-2: the
+# two sides may round an output to neighbouring values). f32: sums in other orders.
+MLP_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+
+
+def _to_torch(a, dtype):
+    return torch.from_numpy(np.array(a, np.float32)).to(TORCH_DTYPES[dtype])
+
+
+def _mlp_inputs(lead, d, h, dtype, seed=0):
+    """The JAX tests' inputs (`tests/test_fused_mlp.py`), rounded to `dtype`."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=lead + (d,)), rng.normal(size=(d, h)) * 0.02,
+              rng.normal(size=(h,)) * 0.01, rng.normal(size=(h, d)) * 0.02,
+              rng.normal(size=(d,)) * 0.01]
+    jax_args = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    return jax_args, [_to_torch(a, dtype) for a in jax_args]
+
+
+# (leading dims, D, H, block_m): the JAX tests' shapes
+MLP_SHAPES = {"512x256x1024": ((512,), 256, 1024, 256), "ragged300x128x512": ((300,), 128, 512, 128),
+              "lead2x70x128": ((2, 70), 128, 512, 128)}
+
+
+@pytest.mark.parametrize("approx", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", sorted(MLP_SHAPES))
+def test_fused_mlp_plain_matches_jax(shape, dtype, approx):
+    lead, d, h, bm = MLP_SHAPES[shape]
+    jax_args, args = _mlp_inputs(lead, d, h, dtype)
+    kernel = jax_mlp.fused_mlp(*jax_args, approx=approx, block_m=bm, interpret=True)
+    reference = jax_mlp.fused_mlp_reference(*jax_args, approx=approx)
+    plain = fused_mlp_plain(*args, approx=approx)
+    wrapped = fused_mlp(*args, approx=approx)  # a CPU tensor takes the plain version
+    assert plain.dtype == TORCH_DTYPES[dtype] and plain.shape == lead + (d,)
+    assert torch.equal(plain, wrapped)
+    for ref in (kernel, reference):
+        np.testing.assert_allclose(plain.float().numpy(), np.asarray(ref, np.float32),
+                                   atol=MLP_TOL[dtype], rtol=0)
+
+
+def test_fused_mlp_rounds_the_hidden_to_the_input_dtype():
+    """The hidden goes to bf16 before fc2, as in the TPU kernel (`:59`): an f32
+    hidden would differ by more than the rounding of the output alone."""
+    _, args = _mlp_inputs((64,), 128, 512, "bfloat16", seed=3)
+    x, w1, b1, w2, b2 = args
+    h = torch.nn.functional.gelu(x.float() @ w1.float() + b1.float(), approximate="tanh")
+    rounded = (h.to(torch.bfloat16).float() @ w2.float() + b2.float()).to(torch.bfloat16)
+    unrounded = (h @ w2.float() + b2.float()).to(torch.bfloat16)
+    assert torch.equal(fused_mlp_plain(*args), rounded)
+    assert not torch.equal(rounded, unrounded)
+
+
+def test_fused_mlp_limits_and_no_backward():
+    _, args = _mlp_inputs((8,), 64, 128, "float32")
+    x, w1, b1, w2, b2 = args
+    with pytest.raises(ValueError, match="D <= 1024"):
+        fused_mlp(torch.zeros(4, 1152), torch.zeros(1152, 8), torch.zeros(8),
+                  torch.zeros(8, 1152), torch.zeros(1152))
+    with pytest.raises(ValueError, match="incompatible shapes"):
+        fused_mlp(x, w1, b1, w2[:-1], b2)
+    with pytest.raises(ValueError, match="x's dtype"):
+        fused_mlp(x.bfloat16(), w1, b1, w2, b2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_mlp(*(t.half() for t in args))
+    with pytest.raises(ValueError, match="at least one row"):
+        fused_mlp(x[:0], w1, b1, w2, b2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mlp(x, w1.clone().requires_grad_(), b1, w2, b2)
+    with torch.no_grad():  # inference on parameters that require grad is fine
+        assert fused_mlp(x, w1.clone().requires_grad_(), b1, w2, b2).shape == x.shape
+    assert fused_mlp.launches == 0  # CPU calls launch no kernel
+
+
+# ---------------------------------------------------------------- int8
+
+
+def _int8_inputs(m=96, k=256, n=256, seed=0, dtype="bfloat16"):
+    """The JAX tests' inputs (`tests/test_int8_gemm.py`)."""
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.normal(size=(m, k)), getattr(jnp, dtype))
+    w = jnp.asarray(rng.normal(size=(k, n)) * 0.02, jnp.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (768, 2304), (3072, 768)], ids=str)
+def test_quantize_weight_matches_jax(shape):
+    _, w = _int8_inputs(k=shape[0], n=shape[1], seed=1)
+    ref_i8, ref_scale = jax_int8.quantize_weight(w)
+    w_i8, scale = quantize_weight(torch.from_numpy(np.asarray(w)))
+    assert w_i8.dtype == torch.int8 and scale.dtype == torch.float32
+    assert w_i8.shape == shape and scale.shape == (shape[1],)
+    np.testing.assert_array_equal(w_i8.numpy(), np.asarray(ref_i8))
+    np.testing.assert_allclose(scale.numpy(), np.asarray(ref_scale), rtol=1e-7, atol=0)
+
+
+def _one_bf16_ulp(ref):
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(96, 256, 256), (50, 256, 512), (130, 768, 512)], ids=str)
+def test_int8_matmul_plain_matches_jax(shape, dtype):
+    """Against the Pallas kernel (interpret mode, which `int8_matmul` takes on
+    the CPU by itself) and the XLA reference. The same xq on all sides shows
+    in the f32 output: integer sums are exact, so the only room is the last
+    bit of `scale` (XLA may multiply by 1/127 where torch divides) and of the
+    two products of the epilogue: 1e-6 relative. One xq element off by one
+    would move an output by a 127th of a typical term, some 1e-3 relative."""
+    m, k, n = shape
+    x, w = _int8_inputs(m, k, n, seed=2, dtype=dtype)
+    w_i8, ws = jax_int8.quantize_weight(w)
+    tx = _to_torch(x, dtype)
+    tw, tws = torch.from_numpy(np.asarray(w_i8)), torch.from_numpy(np.asarray(ws))
+    for out_dtype in ("float32", "bfloat16"):
+        kernel = jax_int8.int8_matmul(x, w_i8, ws, block_m=32, block_n=128,
+                                      out_dtype=getattr(jnp, out_dtype))
+        reference = jax_int8.int8_matmul_reference(x, w_i8, ws, getattr(jnp, out_dtype))
+        plain = int8_matmul_plain(tx, tw, tws, TORCH_DTYPES[out_dtype])
+        wrapped = int8_matmul(tx, tw, tws, out_dtype=TORCH_DTYPES[out_dtype])
+        assert plain.dtype == TORCH_DTYPES[out_dtype] and plain.shape == (m, n)
+        assert torch.equal(plain, wrapped)
+        got = plain.float().numpy()
+        for ref in (np.asarray(kernel, np.float32), np.asarray(reference, np.float32)):
+            if out_dtype == "float32":
+                np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).mean())
+            else:
+                assert np.all(np.abs(got - ref) <= _one_bf16_ulp(ref))
+    assert int8_matmul(tx, tw, tws).dtype == TORCH_DTYPES[dtype]  # default: x's dtype
+
+
+def test_int8_matmul_near_exact_gemm():
+    """The JAX test's bands (`tests/test_int8_gemm.py:44-55`)."""
+    x, w = _int8_inputs()
+    tx, tw = _to_torch(x, "bfloat16"), torch.from_numpy(np.asarray(w))
+    y_q = int8_matmul(tx, *quantize_weight(tw), out_dtype=torch.float32).numpy()
+    y_exact = np.asarray(x, np.float32) @ np.asarray(w, np.float32)
+    rel = np.abs(y_q - y_exact) / (np.abs(y_exact).mean() + 1e-6)
+    assert np.median(rel) < 0.02 and np.mean(rel) < 0.05
+
+
+def test_int8_matmul_rows_are_independent():
+    """Every row is quantized alone over the full K: `y[:33]` does not depend
+    on M (the JAX `test_row_padding`)."""
+    x, w = _int8_inputs(m=50)
+    tx = _to_torch(x, "bfloat16")
+    w_i8, ws = quantize_weight(torch.from_numpy(np.asarray(w)))
+    y = int8_matmul(tx, w_i8, ws)
+    assert y.shape == (50, 256)
+    assert torch.equal(int8_matmul(tx[:33], w_i8, ws), y[:33])
+    assert torch.equal(int8_matmul(tx[32:33], w_i8, ws), y[32:33])
+
+
+def test_int8_matmul_limits():
+    x = torch.zeros(8, 64)
+    w_i8, ws = quantize_weight(torch.ones(64, 32))
+    with pytest.raises(ValueError, match="incompatible shapes"):
+        int8_matmul(x[:, :32], w_i8, ws)  # K mismatch
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int8_matmul(x, w_i8[:, :30], ws[:30])
+    with pytest.raises(ValueError, match="K <= 6144"):
+        int8_matmul(torch.zeros(2, 8192), *quantize_weight(torch.ones(8192, 4)))
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul(x, w_i8.float(), ws)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        int8_matmul(x.half(), w_i8, ws)
+    with pytest.raises(ValueError, match="at least one row"):
+        int8_matmul(x[:0], w_i8, ws)
+    assert int8_matmul(x, w_i8, ws).abs().max() == 0  # an all-zero row: scale 1e-8 / 127
+    assert int8_matmul.launches == 0  # CPU calls launch no kernel

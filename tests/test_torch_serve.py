@@ -252,6 +252,8 @@ def test_port_imports_nothing_of_jax():
     chip_smoke.py's imports from its source."""
     mods = _port_modules()
     assert "ucf_vit_tpu_torch.serve" in mods and "ucf_vit_tpu_torch.ops.flash_attention" in mods
+    assert {"ucf_vit_tpu_torch.ops.fused_mlp", "ucf_vit_tpu_torch.ops.int8_gemm",
+            "ucf_vit_tpu_torch.ops.build"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -263,6 +265,8 @@ def test_port_imports_nothing_of_jax():
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert set(mods) <= set(loaded)
     assert [m for m in loaded if FORBIDDEN.match(m)] == []
+    # importing the port imports no kernel compiler either
+    assert "triton" not in loaded
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]

@@ -249,7 +249,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
-    for key, value in (("resume_from_checkpoint", True), ("val_every", 1), ("remat", True)):
+    for key, value in (("resume_from_checkpoint", True), ("val_every", 1),
+                       ("tensorboard_dir", "tb")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main([_tiny_yaml(tmp_path, **{key: value}), "--synthetic", "--device", "cpu"])
 

@@ -187,13 +187,13 @@ def test_conversion_matches_export_torch_state():
         np.testing.assert_array_equal(state[k].numpy(), ref[k], err_msg=k)
 
 
-def _small_cfg(**init):
+def _small_cfg(parallelism=None, **init):
     ia = {"default_vars": ["red", "green", "blue"], "tile_size": [32, 32],
           "patch_size": 8, "embed_dim": 32, "depth": 2, "num_heads": 4, "mlp_ratio": 2,
           "twoD": True, "adaptive_patching": False}
     ia.update(init)
     raw = {"trainer": {"task": "classification"},
-           "parallelism": {},
+           "parallelism": dict(parallelism or {}),
            "model": {"net": {"init_args": ia}},
            "data": {"batch_size": 2, "num_channels_used": {"d": 3}, "num_classes": 4}}
     return Config(raw=raw, task="classification")
@@ -223,12 +223,13 @@ def test_seeded_init_is_deterministic_and_uses_sincos_table():
     assert torch.count_nonzero(a["blocks.0.attn.qkv.bias"]) == 0
 
 
-@pytest.mark.parametrize("init", [
-    {"adaptive_patching": True, "fixed_length": 16},
-    {"use_varemb": True},
-    {"moe_num_experts": 4},
-    {"scan_layers": True},
+@pytest.mark.parametrize("init, parallelism", [
+    ({"adaptive_patching": True, "fixed_length": 16}, None),
+    ({"use_varemb": True}, None),
+    ({"moe_num_experts": 4}, None),
+    # scan_layers alone is accepted now; the scanned stack under a pipeline is not
+    ({"scan_layers": True}, {"pipe_par_size": 2}),
 ], ids=["adaptive", "varemb", "moe", "scan"])
-def test_unported_features_raise(init):
+def test_unported_features_raise(init, parallelism):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_classification(_small_cfg(**init))
+        build_classification(_small_cfg(parallelism=parallelism, **init))

@@ -11,8 +11,11 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
   token_embed/proj/kernel      token_embeds.proj.weight   [*k,i,o]->[o,i,*k]
   pos_embed, cls_token, gamma  same name                  identity
 
-It covers the modules this slice ports (PatchEmbed, Mlp, Attention, Block,
-VIT), from a whole model or from one of them.
+It covers the ported modules (PatchEmbed, Mlp, Attention, Block, VIT), from
+a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
+the JAX side: `blocks/block/<leaves stacked [depth, ...]>`, recognised as
+`ucf_vit_tpu/tools/convert_checkpoint.py:160-185` does) is unstacked into
+`blocks.{i}.*` first.
 """
 
 from __future__ import annotations
@@ -42,8 +45,31 @@ def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()) -> Iterator[Tuple[
             yield path + (k,), v
 
 
+def _is_scan_blocks(tree: Any) -> bool:
+    return isinstance(tree, dict) and set(tree) == {"block"}
+
+
+def _unstack_scan(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Replace a scan-layers `blocks` container (stacked leaves, leading depth
+    dim) with per-layer `blocks_{i}` subtrees."""
+    stacked = params["blocks"]["block"]
+    depth = int(np.asarray(next(_leaves(stacked))[1]).shape[0])
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for i in range(depth):
+        out[f"blocks_{i}"] = layer(stacked, i)
+    return out
+
+
 def jax_to_torch_state(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """Flax param tree -> `{torch state_dict key: numpy array}`."""
+    if _is_scan_blocks(params.get("blocks")):
+        params = _unstack_scan(params)
     out: Dict[str, np.ndarray] = {}
     for path, leaf in _leaves(params):
         arr = np.asarray(leaf)

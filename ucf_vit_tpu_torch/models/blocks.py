@@ -8,6 +8,13 @@ stochastic depth follow `self.training` where the JAX modules take
 step hands to the model (`set_generator`), never from torch's global one:
 `Dropout` and `DropPath` from a generator on the activations' device,
 `Attention` its per-call dropout seed from a CPU generator.
+
+The bf16 compute policy is flax's `dtype=` argument, module by module
+(`ucf_vit_tpu/models/blocks.py`): parameters stay f32; `Linear` and the
+patch-embed conv cast their input, weight and bias to `dtype` and return it;
+`LayerNorm` computes in f32 and returns `dtype`; GELU, dropout and the
+residual adds run on the `dtype` tensors. With `dtype=None` every module
+computes in the promoted type of its input and parameters, as flax does.
 """
 
 from __future__ import annotations
@@ -15,14 +22,48 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ucf_vit_tpu_torch.ops.attention import AttnImpl, multi_head_attention
 from ucf_vit_tpu_torch.ops.attn_dropout import draw_seed
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=1e-6)
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-6) that takes its statistics in f32 and returns
+    `dtype`, or with `dtype=None` the promoted type of input and parameters
+    (flax `nn.LayerNorm(dtype=...)`)."""
+
+    def __init__(self, dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__(dim, eps=1e-6)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(out)
+
+
+def layer_norm(dim: int, dtype: Optional[torch.dtype] = None) -> LayerNorm:
+    return LayerNorm(dim, dtype=dtype)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` with flax's `Dense(dtype=...)` policy: the f32 parameters
+    are cast to `dtype` with the input on every call, and the output has
+    `dtype` (`dtype=None`: the promoted type of input and parameters). The
+    cast is part of the graph, so the parameters' gradients arrive in f32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def set_generator(module: nn.Module, generator: torch.Generator,
@@ -101,14 +142,21 @@ class PatchEmbed(nn.Module):
     its channels-last conv output gives them."""
 
     def __init__(self, patch_size: int, embed_dim: int, in_chans: int,
-                 twoD: bool = True, use_norm: bool = False, bias: bool = True):
+                 twoD: bool = True, use_norm: bool = False, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         conv = nn.Conv2d if twoD else nn.Conv3d
         self.proj = conv(in_chans, embed_dim, patch_size, stride=patch_size, bias=bias)
         self.norm = layer_norm(embed_dim) if use_norm else None
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.proj(x).flatten(2).transpose(1, 2)
+        proj = self.proj
+        dt = self.dtype or torch.promote_types(x.dtype, proj.weight.dtype)
+        conv = F.conv2d if isinstance(proj, nn.Conv2d) else F.conv3d
+        bias = None if proj.bias is None else proj.bias.to(dt)
+        x = conv(x.to(dt), proj.weight.to(dt), bias, stride=proj.stride)
+        x = x.flatten(2).transpose(1, 2)
         if self.norm is not None:
             x = self.norm(x)
         return x
@@ -118,12 +166,13 @@ class Mlp(nn.Module):
     """fc1 -> GELU (tanh approximation unless gelu_approx=False) -> fc2."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 drop: float = 0.0, gelu_approx: bool = True):
+                 drop: float = 0.0, gelu_approx: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
         self.act = nn.GELU(approximate="tanh" if gelu_approx else "none")
         self.drop1 = Dropout(drop)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc2 = Linear(hidden_features, out_features, dtype=dtype)
         self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +189,8 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, attn_impl: AttnImpl = AttnImpl.AUTO,
                  qkv_bias: bool = False, qk_norm: bool = False, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, seg_len: Optional[int] = None):
+                 proj_drop: float = 0.0, seg_len: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} must divide by num_heads {num_heads}")
@@ -149,10 +199,10 @@ class Attention(nn.Module):
         self.attn_impl = attn_impl
         self.attn_drop = float(attn_drop)
         self.seg_len = seg_len
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.q_norm = layer_norm(self.head_dim) if qk_norm else None
-        self.k_norm = layer_norm(self.head_dim) if qk_norm else None
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
+        self.q_norm = layer_norm(self.head_dim, dtype) if qk_norm else None
+        self.k_norm = layer_norm(self.head_dim, dtype) if qk_norm else None
+        self.proj = Linear(dim, dim, dtype=dtype)
         self.proj_drop = Dropout(proj_drop)
         self.host_generator: Optional[torch.Generator] = None
 
@@ -180,17 +230,18 @@ class Block(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = False, qk_norm: bool = False,
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
                  init_values: Optional[float] = None, drop_path: float = 0.0,
-                 gelu_approx: bool = True, seg_len: Optional[int] = None):
+                 gelu_approx: bool = True, seg_len: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm1 = layer_norm(dim)
+        self.norm1 = layer_norm(dim, dtype)
         self.attn = Attention(dim, num_heads, attn_impl=attn_impl, qkv_bias=qkv_bias,
                               qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop,
-                              seg_len=seg_len)
+                              seg_len=seg_len, dtype=dtype)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path1 = DropPath(drop_path)
-        self.norm2 = layer_norm(dim)
+        self.norm2 = layer_norm(dim, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=proj_drop,
-                       gelu_approx=gelu_approx)
+                       gelu_approx=gelu_approx, dtype=dtype)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path2 = DropPath(drop_path)
 

@@ -2,10 +2,18 @@
 
 The port has the non-adaptive model, for serving and training: conv patch
 embed, class token, learned position embedding initialised from the sincos
-table, pre-norm blocks, final norm, class-token pool and head. Adaptive
-patching, variable embeddings, scanned or pipelined blocks, MoE, patch
-dropout in training and the bf16 compute policy raise NotImplementedError
+table, patch dropout, pre-norm blocks (each under activation checkpointing
+with `remat`), final norm, class-token pool and head, in f32 or under the
+bf16 compute policy (`dtype`, see `models/blocks.py`). Adaptive patching,
+variable embeddings, pipelined blocks and MoE raise NotImplementedError
 until their slices (ROADMAP.md).
+
+`scan_layers` names a parameter layout of the JAX package (block leaves
+stacked `[depth, ...]` under `lax.scan`, which keeps XLA's compile time
+constant in depth). PyTorch runs eagerly and has no compile time in depth,
+so the port runs the same `nn.ModuleList` either way; the flag is accepted
+under the JAX package's conditions, and `convert.load_jax_params` unstacks a
+scanned tree.
 """
 
 from __future__ import annotations
@@ -15,11 +23,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ucf_vit_tpu_torch.models.blocks import (
     Block,
     Dropout,
     LayerScale,
+    Linear,
     PatchEmbed,
     layer_norm,
     set_generator,
@@ -46,6 +56,11 @@ def _not_ported(feature: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported yet (ROADMAP.md, modules to port: {item})"
     )
+
+
+def _checkpoint(fn, x: torch.Tensor) -> torch.Tensor:
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      determinism_check="none")
 
 
 class VIT(nn.Module):
@@ -77,6 +92,7 @@ class VIT(nn.Module):
         gelu_approx: bool = True,
         adaptive_patching: bool = False,
         use_varemb: bool = False,
+        remat: bool = False,
         scan_layers: bool = False,
         pipe_par_size: int = 1,
         moe_num_experts: int = 0,
@@ -87,12 +103,14 @@ class VIT(nn.Module):
             raise _not_ported("adaptive patching", "VIT input variants")
         if use_varemb:
             raise _not_ported("use_varemb", "VIT input variants")
-        if scan_layers or pipe_par_size > 1:
-            raise _not_ported("scan_layers / pipe_par_size", "pipeline + MoE")
+        if pipe_par_size > 1:
+            raise _not_ported("pipe_par_size > 1", "pipeline + MoE")
         if moe_num_experts > 1:
             raise _not_ported("MoE blocks", "pipeline + MoE")
-        if dtype is not None:
-            raise _not_ported("the bf16 compute policy", "training remainder")
+        if scan_layers and drop_path_rate != 0.0:
+            raise ValueError("scan_layers requires drop_path_rate == 0")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
         if pos_embed not in ("", "none", "learn"):
             raise ValueError(f"pos_embed must be '', 'none' or 'learn', got {pos_embed!r}")
 
@@ -103,8 +121,17 @@ class VIT(nn.Module):
         self.num_patches = int(np.prod(self.grid_size))
         self.num_prefix_tokens = 1 if class_token else 0
         self.patch_drop_rate = float(patch_drop_rate)
+        self.remat = bool(remat)
+        self.scan_layers = bool(scan_layers)
+        self.dtype = dtype
+        # the blocks draw (and a recompute under remat must draw again) only
+        # when one of their rates is not 0
+        self._blocks_draw = any(r > 0 for r in (proj_drop_rate, attn_drop_rate,
+                                                drop_path_rate))
+        self.generator: Optional[torch.Generator] = None
+        self.host_generator: Optional[torch.Generator] = None
 
-        self.token_embeds = PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD)
+        self.token_embeds = PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD, dtype=dtype)
         self.cls_token = (
             nn.Parameter(torch.zeros(1, 1, embed_dim)) if class_token else None
         )
@@ -118,13 +145,16 @@ class VIT(nn.Module):
             Block(embed_dim, num_heads, attn_impl=attn_impl, mlp_ratio=mlp_ratio,
                   qkv_bias=qkv_bias, qk_norm=qk_norm, proj_drop=proj_drop_rate,
                   attn_drop=attn_drop_rate, init_values=init_values,
-                  drop_path=float(dpr[i]), gelu_approx=gelu_approx)
+                  drop_path=float(dpr[i]), gelu_approx=gelu_approx, dtype=dtype)
             for i in range(depth)
         )
+        # the final norm and the head take no dtype in the JAX model
+        # (`ucf_vit_tpu/models/vit.py:441,454`): they compute in the promoted
+        # type, so the logits are f32 under the bf16 policy too
         self.norm = layer_norm(embed_dim)
         self.head_drop = Dropout(drop_rate)
         self.head = (
-            nn.Linear(embed_dim, num_classes) if num_classes is not None and num_classes > 0
+            Linear(embed_dim, num_classes) if num_classes is not None and num_classes > 0
             else None
         )
 
@@ -165,8 +195,10 @@ class VIT(nn.Module):
     def set_generator(self, generator: torch.Generator,
                       host_generator: torch.Generator) -> "VIT":
         """Hand the train step's generators to every module that draws
-        (`models.blocks.set_generator`)."""
+        (`models.blocks.set_generator`); the model keeps both for patch
+        dropout and for replaying the blocks' draws under `remat`."""
         set_generator(self, generator, host_generator)
+        self.generator, self.host_generator = generator, host_generator
         return self
 
     # --------------------------------------------------------------- forward
@@ -180,12 +212,70 @@ class VIT(nn.Module):
             x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1).to(x.dtype), x], dim=1)
         return self.pos_drop(x + self.pos_embed.to(x.dtype))
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def patch_drop(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """timm-semantics PatchDropout (`ucf_vit_tpu/models/vit.py:550`): in
+        training keep a random `max(1, int(L * (1 - rate)))` subset of the
+        non-prefix tokens, per sample, in the order of their noise; identity
+        in eval. `noise` `[B, L]` replaces the draw from the model's
+        generator (the tests inject the JAX side's noise)."""
+        if self.patch_drop_rate <= 0 or not self.training:
+            return x
+        npt = self.num_prefix_tokens
+        prefix, tokens = x[:, :npt], x[:, npt:]
+        b, l, d = tokens.shape
+        num_keep = max(1, int(l * (1.0 - self.patch_drop_rate)))
+        if noise is None:
+            if self.generator is None:
+                raise RuntimeError(
+                    "patch dropout needs an explicit torch.Generator: call "
+                    "model.set_generator(...) (the train step does) before training"
+                )
+            noise = torch.rand(b, l, device=x.device, generator=self.generator)
+        keep = torch.argsort(noise, dim=-1, stable=True)[:, :num_keep]
+        tokens = torch.gather(tokens, 1, keep[:, :, None].expand(-1, -1, d))
+        return torch.cat([prefix, tokens], dim=1) if npt else tokens
+
+    def _remat_block(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+        """`blk(x)` under activation checkpointing (flax `nn.remat(Block)`,
+        `ucf_vit_tpu/models/vit.py:359`): the backward runs the block's
+        forward again instead of keeping its activations. `checkpoint`
+        restores only torch's global generator, and the port draws from
+        explicit ones, so when the blocks draw, the recompute puts the
+        generators back to their state at the block's first run, draws the
+        same dropout masks, DropPath masks and attention seeds again, and
+        then returns the generators to where the step had left them. For the
+        same reason `checkpoint` is told not to save and restore the global
+        generators' state around every block (nothing here draws from them),
+        nor to compare every recomputed tensor's metadata with the first
+        run's: both are host work on every block of every microbatch."""
+        if not self._blocks_draw:
+            return _checkpoint(blk, x)
+        gens = [g for g in (self.generator, self.host_generator) if g is not None]
+        at_first_run = [g.get_state() for g in gens]
+        first_run = [True]
+
+        def run(x):
+            if first_run[0]:
+                first_run[0] = False
+                return blk(x)
+            now = [g.get_state() for g in gens]
+            for g, state in zip(gens, at_first_run):
+                g.set_state(state)
+            try:
+                return blk(x)
+            finally:
+                for g, state in zip(gens, now):
+                    g.set_state(state)
+
+        return _checkpoint(run, x)
+
+    def forward_features(self, x: torch.Tensor,
+                         patch_drop_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.apply_pos_embed(self.token_embeds(x))
-        if self.training and self.patch_drop_rate > 0:
-            raise _not_ported("patch dropout", "training remainder")
+        x = self.patch_drop(x, patch_drop_noise)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = self._remat_block(blk, x) if remat else blk(x)
         return self.norm(x)
 
     def pool(self, x: torch.Tensor) -> torch.Tensor:
@@ -198,5 +288,6 @@ class VIT(nn.Module):
         x = self.head_drop(self.pool(x))
         return x if self.head is None else self.head(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_head(self.forward_features(x))
+    def forward(self, x: torch.Tensor,
+                patch_drop_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.forward_head(self.forward_features(x, patch_drop_noise))

@@ -25,6 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ucf_vit_tpu_torch"
 
+# One set of flags for every source. No -use_fast_math: int8_gemm.cu needs IEEE
+# division and round-half-to-even, and the flash kernels their exact expf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -80,8 +80,9 @@ def build_predictor(
 
     ``run_batch({"x": [max_batch, C, *tile]})`` returns the logits
     ``[max_batch, num_classes]`` as a tensor on ``device``, without waiting
-    for the device. ``device`` defaults to CUDA and raises when CUDA is
-    absent; tests pass ``device="cpu"``."""
+    for the device; f32 under ``trainer.data_type: bfloat16`` too, since the
+    model's final norm and head compute in f32. ``device`` defaults to CUDA
+    and raises when CUDA is absent; tests pass ``device="cpu"``."""
     dev = resolve_device(device)
     if checkpoint_dir:
         raise NotImplementedError(_CHECKPOINT_NOT_PORTED)

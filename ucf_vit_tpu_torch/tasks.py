@@ -26,8 +26,8 @@ def _attn_impl(cfg: Config) -> AttnImpl:
 
 def _common_kwargs(cfg: Config) -> dict:
     """VIT keyword arguments from the config, read as the JAX package reads
-    them. Training-only layout knobs (remat, microbatches, sp_mode) leave the
-    forward unchanged and are not read here."""
+    them (`ucf_vit_tpu/tasks.py:40-95`). `remat` defaults to `fsdp_size > 1`
+    as there; the sharding knobs (microbatches, sp_mode) are not read."""
     ia = cfg.init_args
     nd = 2 if cfg.twoD else 3
     return dict(
@@ -49,6 +49,7 @@ def _common_kwargs(cfg: Config) -> dict:
         adaptive_patching=cfg.adaptive_patching,
         attn_impl=_attn_impl(cfg),
         gelu_approx=bool(ia.get("gelu_approx", True)),
+        remat=bool(cfg.trainer.get("remat", cfg.parallelism.get("fsdp_size", 1) > 1)),
         scan_layers=bool(
             cfg.trainer.get("scan_layers", ia.get("scan_layers", False))
             or int(cfg.parallelism.get("pipe_par_size", 1)) > 1

@@ -13,7 +13,10 @@ Not ported yet, and refused with the ROADMAP.md item when the config asks
 for it: the real data pipeline (run with `--synthetic`), checkpoints
 (`trainer.checkpoint_path` is set by the shipped configs, so it is noted and
 no checkpoint is written; resume and warm starts raise), validation,
-preemption, TensorBoard, `profile_dir`, sharding and `remat`.
+preemption, TensorBoard, `profile_dir` and sharding. `trainer.data_type:
+bfloat16` trains under the bf16 compute policy (f32 parameters, gradients
+and optimizer state; `models/blocks.py`), `trainer.remat` checkpoints each
+block's activations, and `trainer.scan_layers` is accepted (`models/vit.py`).
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ _REFUSED_KEYS = {
     "preempt_after_steps": "trainer parity",
     "profile_dir": "trainer parity",
     "sync_check_every": "data/tensor parallel",
-    "remat": "training remainder",
 }
 
 
@@ -91,7 +93,8 @@ def example_batch(cfg: Config, global_batch: int) -> dict:
 
 
 def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's arrays as tensors on `device` (labels as int64)."""
+    """The batch's arrays as tensors on `device` (labels as int64). `x` stays
+    f32 whatever the compute dtype: the model casts it at the patch embed."""
     return {k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
@@ -265,7 +268,8 @@ def train(
     return {"state": state, "loss_list": loss_list}
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict:
+    """The CLI; returns what `train` returns."""
     parser = argparse.ArgumentParser(description="ucf_vit_tpu_torch trainer")
     parser.add_argument("config")
     parser.add_argument("launcher", nargs="?", default=None,
@@ -285,8 +289,8 @@ def main(argv=None) -> None:
     if args.single_device:
         cfg.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1,
                                   "tensor_par_size": 1, "seq_par_size": 1}
-    train(cfg, max_steps=args.max_steps, synthetic=args.synthetic, log_every=args.log_every,
-          device=args.device)
+    return train(cfg, max_steps=args.max_steps, synthetic=args.synthetic,
+                 log_every=args.log_every, device=args.device)
 
 
 if __name__ == "__main__":
