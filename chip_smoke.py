@@ -8,15 +8,20 @@ result):
 
 1. device:  the card's name and power limit (nvidia-smi); TF32 off for
             matmuls and cuDNN.
-2. build:   nvcc builds every kernel from csrc/ (flash_fwd, flash_bwd,
-            fused_mlp and int8_gemm, one nvcc each, started together).
+2. build:   nvcc builds every kernel from csrc/ (flash_fwd, flash_bwd: f32
+            on the CUDA cores, and the bf16 dq kernel; flash_fwd_sm90,
+            flash_bwd_sm90: bf16 on the tensor cores; fused_mlp, int8_gemm),
+            one nvcc each, started together; cuobjdump then shows every
+            entry of the two sm90 libraries holding HGMMA (wgmma) code.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
             routes (fused; dkv + dq), and the dropout hash inside both;
-            times of the kernels, the plain versions and one library call
-            (a yardstick only: the port never calls it), the least time the
-            card could take, and both backward routes timed at every shape.
+            device times (the profiler's, per launch) of the kernels, the
+            plain versions and one library call (a yardstick only: the port
+            never calls it), with the host's time per call beside them, the
+            least time the card could take, and both backward routes timed
+            end to end at every shape.
             Then the two ops that no model is wired to, in either package:
             `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
             (bf16 and f32, tanh and erf GELU), and `int8_matmul` at the
@@ -119,7 +124,9 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls (CUDA events)."""
+    """Mean time of `fn` over `iters` back-to-back calls, between CUDA events
+    recorded around the loop: for calls shorter than their host work, the
+    host's time per call."""
     import torch
 
     for _ in range(warmup):
@@ -133,6 +140,38 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5):
+    """(device ms, host ms) per call of `fn` over `iters` back-to-back calls.
+    Device: the profiler's self device time; with `kernel`, of the kernels
+    whose name holds it over their count; without, every kernel of the window,
+    each by its mean time and its launches per call (what a library call
+    launches). Host: wall time per call, the loop ending in a synchronize."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    prof.stop()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if kernel is not None:
+        events = [e for e in events if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count == 0:
+            fail(f"the profiler saw no kernel named {kernel!r}")
+        return sum(e.self_device_time_total for e in events) / 1e3 / count, host_ms
+    if not events:
+        fail("the profiler saw no work on the card")
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+               for e in events) / 1e3, host_ms
 
 
 # ---------------------------------------------------------------- phases
@@ -156,6 +195,32 @@ def phase_device():
     return card
 
 
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")  # bf16 on the tensor cores (wgmma)
+
+
+def _hgmma_counts(path) -> dict:
+    """HGMMA (wgmma) instructions per entry function of a built library, from
+    cuobjdump's SASS."""
+    import shutil
+
+    from ucf_vit_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump") or fail("cuobjdump not found beside nvcc or on PATH")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass {path.name}: {sass.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -166,7 +231,7 @@ def phase_build():
         return name, build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd", "flash_bwd", "fused_mlp", "int8_gemm")
+    sources = ("flash_fwd", "flash_bwd", *SM90_SOURCES, "fused_mlp", "int8_gemm")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         built = list(pool.map(one, sources))
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -174,8 +239,8 @@ def phase_build():
         # ptxas reports each template instance: summarise registers and spills
         entry, regs, spills = "", [], []
         for line in path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel|fused_mlp_kernel|int8_gemm_kernel)"
-                          r"I(\w+?)EEvNS", line)
+            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq|fwd_sm90|bwd_sm90)_kernel|fused_mlp_kernel|"
+                          r"int8_gemm_kernel)I(\w+?)EEvNS", line)
             if "Compiling entry function" in line and m:
                 entry = f"{m.group(1)}<{m.group(2)}>"
             if m := re.search(r"Used (\d+) registers", line):
@@ -185,6 +250,15 @@ def phase_build():
         log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
             + (f": {', '.join(spills)}" if spills else ""))
+        if name in SM90_SOURCES:  # every instance is bf16: each must run on the tensor cores
+            counts = _hgmma_counts(path)
+            for fn, n in sorted(counts.items()):
+                m = re.search(r"(flash_\w+_sm90_kernel)I(\w+?)EEvNS", fn)
+                instance = f"{m.group(1)}<{m.group(2)}>" if m else fn
+                log(f"[build] {name}: {n:3d} HGMMA in {instance}")
+            if len(counts) != len(regs) or not all(counts.values()):
+                fail(f"{name}: {len(counts)} entry functions in the SASS for {len(regs)} compiled, "
+                     f"and every one must hold HGMMA: {counts}")
 
 
 def _bound(flops: float, nbytes: float, dtype_name: str):
@@ -225,6 +299,14 @@ SHAPES = [
 LONG_SHAPE = (1, 6, 32768, 32768, 96, False)  # backward only, held one head at a time
 # timed shapes -> prefix of their key in the phases' results ("" + dtype, "vit_l_" + dtype)
 TIMED_SHAPES = {SHAPES[0][:5]: "", SHAPES[1][:5]: "vit_l_"}
+# the profiler's kernel names: f32 on the CUDA cores, bf16 on the tensor cores (but for dq)
+FWD_KERNEL = {"float32": "flash_fwd_kernel", "bfloat16": "flash_fwd_sm90_kernel"}
+
+
+def _bwd_kernel(dtype_name: str, kind: str) -> str:
+    if kind == "dq":
+        return "flash_bwd_dq_kernel"
+    return "flash_bwd_sm90_kernel" if dtype_name == "bfloat16" else "flash_bwd_kv_kernel"
 
 
 def phase_kernels():
@@ -254,9 +336,11 @@ def phase_kernels():
             if (b, h, n_q, n_kv, dh) not in TIMED_SHAPES:
                 continue
             sm = dh**-0.5
-            ms = time_ms(lambda: flash_attention(q, k, v, sm_scale=sm))
-            plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, sm))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm))
+            ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm),
+                                 FWD_KERNEL[dtype_name])
+            plain_ms, plain_host = device_ms(lambda: flash_attention_plain(q, k, v, sm))
+            library_ms, library_host = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=sm))
             flops = 4.0 * b * h * n_q * n_kv * dh
             nbytes = q.element_size() * b * h * dh * (2 * n_q + 2 * n_kv) + 4 * b * h * n_q
             bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
@@ -264,9 +348,11 @@ def phase_kernels():
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             }
-            log(f"[kernel] flash_fwd {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            log(f"[kernel] flash_fwd {shape} ({FWD_KERNEL[dtype_name]}), device ms per call "
+                f"(host ms per call): kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f} "
+                f"({plain_host:.4f}), scaled_dot_product_attention {library_ms:.4f} "
+                f"({library_host:.4f}); bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return timed
 
 
@@ -369,6 +455,7 @@ def phase_bwd_kernels():
     from ucf_vit_tpu_torch.ops.flash_attention import (
         BWD_ROUTES,
         _bwd_launch,
+        _dq_workspace,
         _dropout_args,
         flash_attention_bwd,
         flash_attention_bwd_plain,
@@ -404,18 +491,17 @@ def phase_bwd_kernels():
             key = TIMED_SHAPES[(b, h, n_q, n_kv, dh)] + dtype_name
             # a training shape: each kernel alone, from buffers made beforehand
             di = (o.float() * do.float()).sum(-1).reshape(b * h, n_q)
-            ws = torch.zeros(b, n_q, h, dh, device="cuda").transpose(1, 2)
+            ws = _dq_workspace(b, n_q, h, dh, q.device)
             dq, dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=dtype).transpose(1, 2)
                           for n in (n_q, n_kv, n_kv))
             drop = _dropout_args(0.0, 0, 0, 0)
-            kernel_ms = {
-                "fused": time_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv,
-                                                     sm, drop)),
-                "dkv": time_ms(lambda: _bwd_launch("dkv", q, k, v, do, lse, di, dq, dk, dv,
-                                                   sm, drop)),
-                "dq": time_ms(lambda: _bwd_launch("dq", q, k, v, do, lse, di, dq, dk, dv,
-                                                  sm, drop)),
+            launches = {
+                "fused": lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm, drop),
+                "dkv": lambda: _bwd_launch("dkv", q, k, v, do, lse, di, dq, dk, dv, sm, drop),
+                "dq": lambda: _bwd_launch("dq", q, k, v, do, lse, di, dq, dk, dv, sm, drop),
             }
+            kernel_ms = {kind: device_ms(fn, _bwd_kernel(dtype_name, kind))
+                         for kind, fn in launches.items()}
             # each kernel's own outputs in plain PyTorch: the whole backward for
             # the fused kernel, (dk, dv) for dkv, dq for dq
             plains = {
@@ -430,36 +516,37 @@ def phase_bwd_kernels():
             if part_err > BWD_TOL[dtype_name]:
                 fail(f"the plain dkv / dq parts disagree with the plain backward ({part_err:.3e})")
             del whole, parts
-            plain_ms = {kind: time_ms(fn) for kind, fn in plains.items()}
+            plain_ms = {kind: device_ms(fn) for kind, fn in plains.items()}
+            # the library's backward alone: the graph of one forward, its backward 50 times
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-            def sdpa():
-                return F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
-
-            sdpa_bwd_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
-                           - time_ms(sdpa))
-            log(f"[kernel] flash_bwd {shape}: scaled_dot_product_attention backward "
-                f"(fwd+bwd - fwd) {sdpa_bwd_ms:.4f} ms")
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+            sdpa_bwd_ms, sdpa_bwd_host = device_ms(
+                lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+            del out
+            log(f"[kernel] flash_bwd {shape}: scaled_dot_product_attention backward (the "
+                f"kernels its backward launches) {sdpa_bwd_ms:.4f} ms device, "
+                f"{sdpa_bwd_host:.4f} ms host per call")
             # each kernel's own error: the fused route's dq, dk, dv; the split
             # route's dk, dv for dkv and its dq for dq
             kernel_err = {"fused": max(abs_err["fused"]), "dkv": max(abs_err["split"][1:]),
                           "dq": abs_err["split"][0]}
             timed[key] = {}
-            for kind, ms in kernel_ms.items():
+            for kind, (ms, host) in kernel_ms.items():
                 flops, nbytes = _bwd_work(kind, b, h, n_q, n_kv, dh, q.element_size())
                 bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
                 timed[key][kind] = {
-                    "ms": ms, "plain_ms": plain_ms[kind], "bound_ms": bound_ms,
+                    "ms": ms, "plain_ms": plain_ms[kind][0], "bound_ms": bound_ms,
                     "bound_by": bound_by,
                     # one library call computes what the fused kernel does; none
                     # computes dk, dv alone or dq alone
                     "library_ms": sdpa_bwd_ms if kind == "fused" else None,
                     "max_abs_err": kernel_err[kind],
                 }
-                log(f"[kernel] flash_bwd_{kind} {shape}: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms[kind]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                    f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), max|d-plain| "
-                    f"{kernel_err[kind]:.3e}")
+                log(f"[kernel] flash_bwd_{kind} {shape} ({_bwd_kernel(dtype_name, kind)}), "
+                    f"device ms per call (host ms per call): kernel {ms:.4f} ({host:.4f}), plain "
+                    f"{plain_ms[kind][0]:.4f} ({plain_ms[kind][1]:.4f}); bound {bound_ms:.4f} ms "
+                    f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+                    f"max|d-plain| {kernel_err[kind]:.3e}")
     return timed
 
 
@@ -473,6 +560,7 @@ def phase_dropout(fwd_timed, bwd_timed):
     from ucf_vit_tpu_torch.ops.flash_attention import (
         BWD_ROUTES,
         _bwd_launch,
+        _dq_workspace,
         _dropout_args,
         flash_attention,
         flash_attention_plain,
@@ -508,18 +596,19 @@ def phase_dropout(fwd_timed, bwd_timed):
                 fail(f"flash_bwd route {r} with dropout disagrees with its plain version")
         if dtype_name != "float32":
             continue
-        ms = time_ms(lambda: flash_attention(q, k, v, dropout_rate=rate, dropout_seed=seed,
-                                             dropout_offset=(row0, col0)))
-        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, sm, rate, seed, row0, col0))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate,
-                                                                    scale=sm))
+        ms, _ = device_ms(lambda: flash_attention(q, k, v, dropout_rate=rate, dropout_seed=seed,
+                                                  dropout_offset=(row0, col0)),
+                          FWD_KERNEL[dtype_name])
+        plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, sm, rate, seed, row0, col0))
+        library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate,
+                                                                         scale=sm))
         di = (o.float() * do.float()).sum(-1).reshape(b * h, n_q)
-        ws = torch.zeros(b, n_q, h, dh, device="cuda").transpose(1, 2)
+        ws = _dq_workspace(b, n_q, h, dh, q.device)
         dk, dv = (torch.empty(b, n_kv, h, dh, device="cuda").transpose(1, 2) for _ in "kv")
         drop = _dropout_args(rate, seed, row0, col0)
-        fused_ms = time_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
-                                               drop))
-        log(f"[dropout] f32 times with the hash: flash_fwd {ms:.4f} ms (without "
+        fused_ms, _ = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv,
+                                                    sm, drop), _bwd_kernel(dtype_name, "fused"))
+        log(f"[dropout] f32 device times with the hash: flash_fwd {ms:.4f} ms (without "
             f"{fwd_timed['float32']['ms']:.4f}), plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention(dropout_p={rate}) {library_ms:.4f} ms; "
             f"flash_bwd_fused {fused_ms:.4f} ms (without "
@@ -583,9 +672,10 @@ def phase_mlp_kernels():
                 continue
             x, w1, b1, w2, b2 = args
             w1t, w2t = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear's layout
-            ms = time_ms(lambda: fused_mlp(*args), iters=20, warmup=2)
-            plain_ms = time_ms(lambda: fused_mlp_plain(*args), iters=20, warmup=2)
-            unfused_ms = time_ms(
+            ms, host = device_ms(lambda: fused_mlp(*args), "fused_mlp_kernel", iters=20,
+                                 warmup=2)
+            plain_ms, _ = device_ms(lambda: fused_mlp_plain(*args), iters=20, warmup=2)
+            unfused_ms, _ = device_ms(
                 lambda: F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2),
                 iters=20, warmup=2)
             flops = 4.0 * m * d * h
@@ -595,7 +685,8 @@ def phase_mlp_kernels():
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": errs[True], "unfused_ms": unfused_ms,
             }
-            log(f"[kernel] fused_mlp {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"[kernel] fused_mlp {shape}, device ms: kernel {ms:.4f} (host {host:.4f} per "
+                f"call), plain {plain_ms:.4f} ms, "
                 f"unfused F.linear + F.gelu + F.linear (three library calls) {unfused_ms:.4f} "
                 f"ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB)")
@@ -648,9 +739,10 @@ def phase_int8_kernels():
             if dtype_name != "bfloat16":
                 continue
             w_bf16 = w.to(torch.bfloat16)
-            ms = time_ms(lambda: int8_matmul(x, w_i8, ws), iters=20, warmup=2)
-            plain_ms = time_ms(lambda: int8_matmul_plain(x, w_i8, ws), iters=20, warmup=2)
-            matmul_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters=20, warmup=2)
+            ms, host = device_ms(lambda: int8_matmul(x, w_i8, ws), "int8_gemm_kernel", iters=20,
+                                 warmup=2)
+            plain_ms, _ = device_ms(lambda: int8_matmul_plain(x, w_i8, ws), iters=20, warmup=2)
+            matmul_ms, _ = device_ms(lambda: torch.matmul(x, w_bf16), iters=20, warmup=2)
             ops = 2.0 * m * k * n
             nbytes = x.element_size() * (m * k + m * n) + k * n + 4 * n
             bound_ms, bound_by = _bound(ops, nbytes, "int8")
@@ -658,9 +750,9 @@ def phase_int8_kernels():
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": 0.0, "bf16_matmul_ms": matmul_ms,
             }
-            log(f"[kernel] int8_matmul {shape} -> bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, bound {bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.3f} GOP, "
-                f"{nbytes / 1e6:.2f} MB); yardstick bf16 torch.matmul of the same product "
+            log(f"[kernel] int8_matmul {shape} -> bf16, device ms: kernel {ms:.4f} (host "
+                f"{host:.4f} per call), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {ops / 1e9:.3f} GOP, {nbytes / 1e6:.2f} MB); yardstick bf16 torch.matmul of the same product "
                 f"{matmul_ms:.4f} ms (another function: no quantization)")
     return timed
 
@@ -722,6 +814,10 @@ def _launch_counts() -> dict:
 
     counts = {"flash_fwd": flash_attention.launches, "keep_mask": keep_mask.launches}
     counts.update({f"flash_bwd_{k}": n for k, n in flash_attention_bwd.by_kernel.items()})
+    # and by source: flash_fwd.cu / flash_bwd.cu (f32, and the bf16 dq kernel) or the
+    # tensor-core sources
+    counts.update({f"src:{s}": n for s, n in flash_attention.by_source.items()})
+    counts.update({f"src:{s}": n for s, n in flash_attention_bwd.by_source.items()})
     return counts
 
 
@@ -755,11 +851,21 @@ def _run_steps(cfg, batches):
     return state, step, losses, grads, _launch_counts()
 
 
-def _expected_counts(depth: int, steps: int, route: str, dropout: bool) -> dict:
+def _expected_counts(depth: int, steps: int, route: str, dropout: bool,
+                     bf16: bool = False, forwards_per_step: int = 1) -> dict:
+    """The launch counts of `steps` train steps of a model of `depth` blocks:
+    `forwards_per_step` flash forwards (2 under remat) and one backward per
+    block, each counted under the source its dtype runs on."""
     n = depth * steps
     bwd = {"fused": n, "dkv": 0, "dq": 0} if route == "fused" else {"fused": 0, "dkv": n, "dq": n}
-    counts = {"flash_fwd": n, **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
-    counts["keep_mask"] = n + sum(bwd.values()) if dropout else 0
+    counts = {"flash_fwd": forwards_per_step * n, **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
+    counts["keep_mask"] = counts["flash_fwd"] + sum(bwd.values()) if dropout else 0
+    sm90_bwd = bwd["fused"] + bwd["dkv"] if bf16 else 0  # bf16 dq stays in flash_bwd.cu
+    counts.update({
+        "src:flash_fwd": 0 if bf16 else counts["flash_fwd"],
+        "src:flash_fwd_sm90": counts["flash_fwd"] if bf16 else 0,
+        "src:flash_bwd": sum(bwd.values()) - sm90_bwd, "src:flash_bwd_sm90": sm90_bwd,
+    })
     return counts
 
 
@@ -905,14 +1011,14 @@ def phase_train():
 
 def _kernel_groups(kernels, busy_ms: float) -> str:
     """Device time of a traced window by kind of kernel, from the kernels' names."""
-    groups = {"GEMMs (cuBLAS/CUTLASS)": 0.0, "flash_fwd_kernel": 0.0, "flash_bwd_kv_kernel": 0.0,
+    groups = {"GEMMs (cuBLAS/CUTLASS)": 0.0, "flash_fwd_sm90_kernel": 0.0,
+              "flash_bwd_sm90_kernel": 0.0, "flash_fwd_kernel": 0.0, "flash_bwd_kv_kernel": 0.0,
               "AdamW (multi-tensor)": 0.0, "other (LayerNorm, GELU, casts, adds, copies)": 0.0}
     for t_us, _, key in kernels:
         name = key.lower()
-        if "flash_fwd_kernel" in name:
-            group = "flash_fwd_kernel"
-        elif "flash_bwd_kv_kernel" in name:
-            group = "flash_bwd_kv_kernel"
+        flash = [g for g in groups if g.startswith("flash") and g in name]
+        if flash:
+            group = flash[0]
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")):
             group = "GEMMs (cuBLAS/CUTLASS)"
         elif "multi_tensor" in name or "adam" in name:
@@ -958,7 +1064,7 @@ def phase_train_bf16():
         f"{BF16_TRAIN_LOSS_TOL:g})")
     if not all(np.isfinite(lf)) or loss_diff > BF16_TRAIN_LOSS_TOL:
         fail("bf16 FLASH training losses disagree with EINSUM's")
-    want = _expected_counts(depth, TRAIN_STEPS, "fused", dropout=False)
+    want = _expected_counts(depth, TRAIN_STEPS, "fused", dropout=False, bf16=True)
     if cf != want or any(ce.values()):
         fail(f"bf16 launches {cf} under FLASH (expected {want}), {ce} under EINSUM")
 
@@ -974,12 +1080,14 @@ def phase_train_bf16():
     log(f"[bf16] ViT-L/16 python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
         f"{time.perf_counter() - t0:.2f} s (init included); epoch losses {out['loss_list']}; "
         f"launches {main_counts}")
-    # under remat each block's forward runs twice per microbatch
-    n = depth_l * accum * VIT_L_MAIN_STEPS
-    want = {"flash_fwd": 2 * n, "flash_bwd_fused": n, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-            "keep_mask": 0}
+    # under remat each block's forward runs twice per microbatch; every launch is bf16, so
+    # every one goes to the tensor-core kernels
+    want = _expected_counts(depth_l, accum * VIT_L_MAIN_STEPS, "fused", dropout=False,
+                            bf16=True, forwards_per_step=2)
     if main_counts != want or not all(np.isfinite(out["loss_list"])):
         fail(f"ViT-L train launched {main_counts} (expected {want}), losses {out['loss_list']}")
+    per_step = {k: n // VIT_L_MAIN_STEPS for k, n in main_counts.items() if n}
+    log(f"[bf16] ViT-L/16 launches a step: {per_step}")
     if not (model.remat and model.dtype == torch.bfloat16 and model.embed_dim == 1024
             and depth_l == 24 and all(p.dtype == torch.float32 for p in model.parameters())):
         fail("the ViT-L run was not ViT-L/16 in bf16 with remat on f32 parameters")
@@ -1006,9 +1114,10 @@ def phase_train_bf16():
     plain = _measure_steps("bf16", f"ViT-L/16 bf16 batch {batch} (4 x 8), remat off", state,
                            step, batches[:w], batches[w:w + VIT_L_NO_REMAT_STEPS])
     counts = _launch_counts()
-    n = depth_l * accum * (w + VIT_L_NO_REMAT_STEPS)
-    if counts["flash_fwd"] != n or counts["flash_bwd_fused"] != n:
-        fail(f"remat off launched {counts}, expected {n} forward and {n} backward")
+    want = _expected_counts(depth_l, accum * (w + VIT_L_NO_REMAT_STEPS), "fused", dropout=False,
+                            bf16=True)
+    if counts != want:
+        fail(f"remat off launched {counts}, expected {want}")
     del state, step
     log(f"[bf16] remat on ViT-L/16: {remat['ms_step']:.3f} ms/step against "
         f"{plain['ms_step']:.3f} without ({remat['ms_step'] / plain['ms_step']:.3f}x); peak "
@@ -1245,18 +1354,23 @@ def main() -> int:
     served = phase_serve()
     trained_bf16 = phase_train_bf16()
 
-    # The flash kernels' numbers are those of the f32 instance at the ViT-B/16 shape
-    # that serving and f32 training give it; the log lines above hold the bf16
-    # instance at ViT-L/16's microbatch shape. Launches are summed over the main
-    # paths' runs: serving and both trainings (f32 ViT-B, bf16 ViT-L) for the
-    # forward, both trainings for the backward, training with attention dropout for
-    # the hash, and the ops' public API for fused_mlp and int8_matmul, which are on no
-    # model path in either package (bf16 at the ViT-B MLP shape).
+    # Each flash kernel has two rows: the f32 instance (flash_fwd.cu, flash_bwd.cu) at the
+    # ViT-B/16 shape that serving and f32 training give it, with the launches of those
+    # paths, and the bf16 instance on the tensor cores (*_sm90.cu) at ViT-L/16's
+    # microbatch shape, with the launches of the ViT-L training through the CLI entry.
+    # The split route's kernels (dkv, dq) are on no main path; their rows are the f32
+    # instances. The hash counts the training with attention dropout; fused_mlp and
+    # int8_matmul, on no model path in either package, the ops' public API (bf16 at the
+    # ViT-B MLP shape).
     sources = {
         "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd.cu",
                       "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_fwd_bf16": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
+                           "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
                             "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_bwd_fused_bf16": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                 "ucf_vit_tpu/ops/flash_attention.py:249"),
         "flash_bwd_dkv": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
                           "ucf_vit_tpu/ops/flash_attention.py:162"),
         "flash_bwd_dq": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
@@ -1266,20 +1380,26 @@ def main() -> int:
         "fused_mlp": ("ucf_vit_tpu_torch/csrc/fused_mlp.cu", "ucf_vit_tpu/ops/fused_mlp.py:55"),
         "int8_matmul": ("ucf_vit_tpu_torch/csrc/int8_gemm.cu", "ucf_vit_tpu/ops/int8_gemm.py:61"),
     }
-    numbers = {"flash_fwd": fwd["float32"], "keep_mask": dropout,
-               **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
+    numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
+               "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
+               "flash_bwd_fused_bf16": bwd["vit_l_bfloat16"]["fused"],
                "fused_mlp": mlp[RECORD_MLP, "bfloat16"], "int8_matmul": int8[RECORD_INT8]}
-    launches = {k: n + trained_bf16["main"][k] for k, n in trained["main"].items()}
-    launches["flash_fwd"] += served["launches"]
-    launches["keep_mask"] = trained["dropout"]["keep_mask"]
-    launches.update(ops)
-    log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() "
-        f"{trained['main']}; bf16 ViT-L train (the flash kernels' bf16 instances) "
-        f"{trained_bf16['main']}; train with attention dropout {trained['dropout']}; "
-        f"the ops' public API {ops}")
-    for name in ("flash_fwd", "flash_bwd_fused", "fused_mlp", "int8_matmul"):
-        if launches[name] <= 0 or (name in trained_bf16["main"]
-                                   and trained_bf16["main"][name] <= 0):
+    f32, vit_l = trained["main"], trained_bf16["main"]
+    launches = {
+        "flash_fwd": served["launches"] + f32["src:flash_fwd"],
+        "flash_fwd_bf16": vit_l["src:flash_fwd_sm90"],
+        "flash_bwd_fused": f32["flash_bwd_fused"],
+        "flash_bwd_fused_bf16": vit_l["flash_bwd_fused"],
+        "flash_bwd_dkv": f32["flash_bwd_dkv"] + vit_l["flash_bwd_dkv"],
+        "flash_bwd_dq": f32["flash_bwd_dq"] + vit_l["flash_bwd_dq"],
+        "keep_mask": trained["dropout"]["keep_mask"], **ops,
+    }
+    log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
+        f"ViT-L train {vit_l}; train with attention dropout {trained['dropout']}; the ops' "
+        f"public API {ops}")
+    for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
+                 "fused_mlp", "int8_matmul"):
+        if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [

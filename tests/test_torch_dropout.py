@@ -26,6 +26,12 @@ from ucf_vit_tpu_torch.ops.flash_attention import (
 )
 
 TOL = 1e-5  # f32: the same products summed in another order
+# bf16, relative to the largest |entry|: the Pallas kernels round p, p_v and ds to bf16
+# before their products, the port's plain versions keep them f32 until the outputs are
+# rounded, so the two sit a few bf16 half-ulps (2^-9 = 2e-3 relative) apart. Measured at
+# [1, 2, 65, 64]: forward 2.6e-3, gradients 3.0e-3 to 6.1e-3. The card's check of the
+# bf16 kernels against the plain versions (2e-2) is held to the same band.
+BF16_TOL = 1e-2
 
 # (b, h, n_q, n_kv, dh): dh 36, Nq != Nkv with a partial last key block, Nq = 1
 SHAPES = [(1, 2, 100, 100, 36), (2, 1, 70, 150, 32), (1, 3, 1, 130, 32)]
@@ -124,6 +130,37 @@ def test_flash_fn_grads_match_jax_grad(shape, rate):
     o.square().sum().backward()
     for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bf16_fwd_and_grads_match_pallas_bf16(rate):
+    """bf16 in both packages: the port's FLASH forward and the gradients of
+    sum(o^2) through FlashAttentionFn against the Pallas kernels in bf16
+    interpret mode, with attention dropout at `rate`."""
+    q, k, v = _qkv(1, 2, 65, 65, 64, seed=8)
+    seed = 99
+
+    def jax_fwd(q, k, v):
+        return jax_flash_attention(q, k, v, dropout_rate=rate, dropout_seed=seed, interpret=True)
+
+    def jax_loss(q, k, v):
+        o = jax_fwd(q, k, v).astype(jnp.float32)
+        return jnp.sum(o * o)
+
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v))
+    want_o = np.asarray(jax_fwd(jq, jk, jv).astype(jnp.float32))
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in (q, k, v))
+    o = flash_attention(tq, tk, tv, dropout_rate=rate, dropout_seed=seed if rate else None)
+    assert o.dtype == torch.bfloat16
+    o_err = np.abs(o.detach().float().numpy() - want_o).max() / np.abs(want_o).max()
+    assert o_err <= BF16_TOL, o_err
+    o.float().square().sum().backward()
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert got.dtype == torch.bfloat16
+        ref = np.asarray(ref.astype(jnp.float32))
+        err = np.abs(got.float().numpy() - ref).max() / np.abs(ref).max()
+        assert err <= BF16_TOL, (name, err)
 
 
 def test_bwd_plain_is_what_the_cpu_backward_runs():

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash attention forward, both backward routes and
-dropout; the fused MLP; the W8A8 int8 GEMM) against their plain versions, on the card. Marked `cuda`; skips
+dropout, f32 on the CUDA cores and bf16 on the tensor cores; the fused MLP; the
+W8A8 int8 GEMM) against their plain versions, on the card. Marked `cuda`; skips
 without a card. This file imports neither JAX nor the JAX package, so it runs
 on a machine without JAX:
 
@@ -17,6 +18,7 @@ from ucf_vit_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_plain,
+    reset_launch_counts,
 )
 from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
@@ -137,6 +139,99 @@ def test_block_qkv_grad_flash_matches_einsum_on_card():
         grads[impl] = blk.attn.qkv.weight.grad
     assert grads["FLASH"] is not None and grads["FLASH"].abs().max().item() > 0
     assert _rel_err(grads["FLASH"], grads["EINSUM"]) <= 1e-4
+
+
+# The bf16 tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) at what they
+# must take: (b, h, n_q, n_kv, dh, packed). dh 64, 36 (8-byte rows copies), 96 and
+# 128 (padded to 128) as views of one packed qkv; Nq = 1; Nq 8448 x Nkv 640 (the MAE
+# decoder's long queries); dh 33, whose rows are only 2-byte aligned
+SM90_SHAPES = [(2, 4, 257, 257, 64, True), (2, 3, 197, 197, 36, True),
+               (2, 2, 197, 197, 96, True), (1, 2, 197, 197, 128, True),
+               (4, 3, 1, 257, 64, False), (1, 2, 8448, 640, 96, False),
+               (1, 2, 65, 33, 33, False)]
+
+
+def _sm90_inputs(b, h, n_q, n_kv, dh, packed, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(b, n_q, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+    if packed:
+        qkv = torch.randn(b, n_q, 3, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    else:
+        q, k, v = (torch.randn(b, h, n, dh, device="cuda", generator=g).to(torch.bfloat16)
+                   for n in (n_q, n_kv, n_kv))
+    return q, k, v, do.transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_sm90_kernels_match_plain_on_card(route, rate):
+    """The bf16 forward and backward (fused, or dkv + the FMA dq) against the f32
+    plain versions from the same bf16 inputs, with dropout at a nonzero offset."""
+    _card()
+    seed, row0, col0 = 77, 3, 5
+    for b, h, n_q, n_kv, dh, packed in SM90_SHAPES:
+        q, k, v, do = _sm90_inputs(b, h, n_q, n_kv, dh, packed, seed=n_q + dh)
+        sm = dh**-0.5
+        reset_launch_counts()
+        o, lse = flash_attention(q, k, v, return_lse=True, dropout_rate=rate, dropout_seed=seed,
+                                 dropout_offset=(row0, col0))
+        got = flash_attention_bwd(q, k, v, o, lse, do, sm, rate, seed, row0, col0, route=route)
+        torch.cuda.synchronize()
+        assert flash_attention.by_source == {"flash_fwd": 0, "flash_fwd_sm90": 1}
+        want_src = {"flash_bwd": 0, "flash_bwd_sm90": 1} if route == "fused" else \
+            {"flash_bwd": 1, "flash_bwd_sm90": 1}
+        assert flash_attention_bwd.by_source == want_src
+        ref_o, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), sm, rate, seed,
+                                               row0, col0)
+        shape = (b, h, n_q, n_kv, dh, packed)
+        assert o.dtype == torch.bfloat16 and o.shape == q.shape
+        assert (o.float() - ref_o).abs().max().item() <= FWD_TOL[torch.bfloat16], shape
+        assert (lse - ref_lse).abs().max().item() <= 5e-5, shape
+        want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                         do.float(), sm, rate, seed, row0, col0)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape
+            assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16], (name, shape)
+
+
+@pytest.mark.cuda
+def test_bf16_launches_go_to_sm90_kernels_on_card():
+    """bf16 counts under the tensor-core sources, f32 under the FMA ones; the
+    totals and the split by kernel keep their meaning."""
+    _card()
+    for dt, fwd_src, bwd_src in ((torch.bfloat16, "flash_fwd_sm90", "flash_bwd_sm90"),
+                                 (torch.float32, "flash_fwd", "flash_bwd")):
+        q, k, v, do = _inputs(1, 2, 70, 70, 64, dt)
+        reset_launch_counts()
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == 1 and flash_attention.by_source[fwd_src] == 1
+        assert flash_attention_bwd.launches == 1 and flash_attention_bwd.by_kernel["fused"] == 1
+        assert flash_attention_bwd.by_source[bwd_src] == 1
+        assert sum(flash_attention.by_source.values()) == 1
+        assert sum(flash_attention_bwd.by_source.values()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_single_key_on_card(dtype, route):
+    """Nkv = 1: each row's softmax is 1 on its one key, so o = v and dv is the
+    sum of do over the rows, while dq and dk are 0 but for rounding. They are
+    held in absolute terms: relative to their own size both sides are noise."""
+    _card()
+    dt = getattr(torch, dtype)
+    for dh in (36, 64, 128):
+        q, k, v, do = _inputs(1, 2, 65, 1, dh, dt, seed=dh)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dh**-0.5, route=route)
+        torch.cuda.synchronize()
+        assert (o.float() - v.float()).abs().max().item() <= FWD_TOL[dt], dh
+        assert _rel_err(dv, do.float().sum(2, keepdim=True)) <= BWD_TOL[dt], dh
+        assert dq.float().abs().max().item() <= 1e-3 and dk.float().abs().max().item() <= 1e-3
 
 
 # (leading dims, D, H): the JAX tests' ragged shape and leading dims, ViT-B and

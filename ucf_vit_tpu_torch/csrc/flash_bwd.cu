@@ -1,10 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a), f32 or bf16 in, f32 math.
+// Flash-attention backward for Hopper (sm_90a) on the CUDA cores, f32 math.
 //
 // Three kernels, each computing what its Pallas TPU kernel computes
 // (ucf_vit_tpu/ops/flash_attention.py, launched by `_flash_bwd_len` :651):
 //   flash_bwd_fused  <- `_bwd_fused_kernel` :249 (call :676): dq, dk and dv in one sweep;
 //   flash_bwd_dkv    <- `_bwd_dkv_kernel`   :162 (call :719): dk and dv;
 //   flash_bwd_dq     <- `_bwd_dq_kernel`    :362 (call :758): dq.
+// fused and dkv take f32 here; their bf16 instances are the tensor-core kernel of
+// flash_bwd_sm90.cu. dq takes f32 and bf16 (the bf16 split route's second kernel).
 // From (q, k, v, do, lse, di = rowsum(do * o)), for each (query tile, key tile):
 //   s = (q . k^T) * scale, keys >= nkv masked with -0.7 * FLT_MAX,   p = exp(s - lse)
 //   p_v = keep ? p / (1 - rate) : 0          (the forward's dropped probabilities)
@@ -16,10 +18,9 @@
 //
 // Bound on the H100 at the training shape [B*H = 192, N = 257, dh = 64]: the five products
 // are 10 * 192 * 257^2 * 64 = 8.12 GFLOP. In f32 that is bound by the CUDA cores' f32 rate
-// (about 0.121 ms at 67 TFLOP/s; the 89 MB of inputs and outputs take 0.027 ms). In bf16
-// the bytes halve (44.6 MB, 0.0133 ms at 3.35 TB/s) and would bound it on tensor cores.
-// These kernels do every product in f32 FMA out of shared memory for both types, so bf16
-// runs at the f32 compute rate; tensor-core math is later work.
+// (about 0.121 ms at 67 TFLOP/s; the 89 MB of inputs and outputs take 0.027 ms). These
+// kernels do every product in f32 FMA out of shared memory, so the bf16 dq kernel runs at
+// the f32 compute rate too.
 //
 // Design. 256 threads as a 16 x 16 grid (ty, tx); 64-row query tiles and 64-key tiles,
 // each staged in shared memory as f32 with an odd row stride (dh padded to DH + 1) so
@@ -46,6 +47,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "attn_dropout.cuh"
 
@@ -391,13 +393,17 @@ cudaError_t launch_kernel(F kernel, size_t smem, dim3 grid, const Params& p,
 template <typename T, int DH, bool DROPOUT>
 cudaError_t launch(int kind, const Params& p, int bh, cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>(kind);
-  if (kind == FUSED) {
-    return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT, true>, smem,
-                         dim3(bh, (p.nkv + BK - 1) / BK), p, stream);
-  }
-  if (kind == DKV) {
-    return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT, false>, smem,
-                         dim3(bh, (p.nkv + BK - 1) / BK), p, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    if (kind == FUSED) {
+      return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT, true>, smem,
+                           dim3(bh, (p.nkv + BK - 1) / BK), p, stream);
+    }
+    if (kind == DKV) {
+      return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT, false>, smem,
+                           dim3(bh, (p.nkv + BK - 1) / BK), p, stream);
+    }
+  } else if (kind != DQ) {
+    return cudaErrorInvalidValue;  // bf16 fused and dkv: flash_bwd_sm90.cu
   }
   return launch_kernel(flash_bwd_dq_kernel<T, DH, DROPOUT>, smem,
                        dim3(bh, (p.nq + BQ - 1) / BQ), p, stream);
@@ -415,7 +421,7 @@ cudaError_t dispatch_dh(int kind, const Params& p, int bh, cudaStream_t stream) 
 }  // namespace
 
 // kind: 0 = fused (dq is an f32 workspace the caller zeroed), 1 = dkv (dq unused),
-// 2 = dq (dk and dv unused). dtype: 0 = float32, 1 = bfloat16. lse and di are f32
+// 2 = dq (dk and dv unused). dtype: 0 = float32, 1 = bfloat16 (dq only). lse and di are f32
 // [B*H, Nq]. Strides are in elements. dropout: 0 or 1; with 1 the seed, threshold,
 // (row0, col0) offset and inv_keep describe the forward's mask. Returns a cudaError_t.
 extern "C" int ucf_flash_bwd(int kind, const void* q, const void* k, const void* v,

@@ -1,7 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), f32 or bf16 in, f32 math.
+// Flash-attention forward for Hopper (sm_90a) in f32, on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (ucf_vit_tpu/ops/flash_attention.py:68,
-// launched by `_flash_fwd_len` :543). It computes the same function:
+// launched by `_flash_fwd_len` :543) for f32 inputs; bf16 inputs go to the tensor-core
+// kernel of flash_fwd_sm90.cu. It computes the same function:
 //   s = (q . k^T) * scale, keys >= nkv masked with -0.7 * FLT_MAX (not -inf),
 //   online softmax with the running max m, normaliser l and output accumulator in f32,
 //   o = acc / l (l == 0 guarded), lse = m + log(max(l, 1e-37)).
@@ -12,10 +13,9 @@
 // attn_dropout.cuh at global (bh, row0 + row, col0 + col).
 //
 // Bound on the H100 at the serving shape [B*H = 192, N = 257, dh = 64]: 3.25 GFLOP.
-// In f32 the inputs and output are 50.5 MB, so the work is bound by the f32 rate of
-// the CUDA cores (67 TFLOP/s, about 48 us), not by memory. In bf16 the bytes halve
-// and the tensor-core rate would make it memory-bound (about 7.5 us); this kernel
-// still does bf16 in f32 FMA, so bf16 runs at the f32 compute rate.
+// The inputs and output are 50.5 MB, so the work is bound by the f32 rate of the CUDA
+// cores (67 TFLOP/s, about 48 us), not by memory. (The tensor cores' f32 path is TF32,
+// which keeps about three decimal digits: not the f32 that the port holds to JAX.)
 //
 // Design: one block of 256 threads per (batch*head, 64-row query tile). The query
 // tile stays in shared memory; 64-key tiles of K and V are staged in shared memory
@@ -28,7 +28,6 @@
 // nothing. Inputs are read through (batch, head, row) strides, so q, k and v may be
 // views into one packed qkv projection; the last dim must be contiguous.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -47,10 +46,10 @@ constexpr int PS = BK + 4;        // row stride of the probability tile (no bank
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   float* lse;
   int heads, nq, nkv, dh;
   long long q_sb, q_sh, q_sn;
@@ -64,18 +63,6 @@ struct Params {
   float inv_keep;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int DH>
 constexpr size_t smem_bytes() {
   // Q and K tiles use an odd row stride (DH + 1) so that 16 threads reading 16
@@ -84,21 +71,21 @@ constexpr size_t smem_bytes() {
 }
 
 // Copy rows [row0, row0 + rows) of one (batch, head) slice into a shared tile of
-// row stride `stride`, as f32, with zeros past `nrows` and past `dh`.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src, long long sn,
+// row stride `stride`, with zeros past `nrows` and past `dh`.
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, int stride, const float* src, long long sn,
                                           int row0, int nrows, int dh, int rows) {
   for (int idx = threadIdx.x; idx < rows * DH; idx += THREADS) {
     const int r = idx / DH;
     const int d = idx - r * DH;
     const int row = row0 + r;
     float val = 0.f;
-    if (row < nrows && d < dh) val = to_f32(src[(long long)row * sn + d]);
+    if (row < nrows && d < dh) val = src[(long long)row * sn + d];
     dst[r * stride + d] = val;
   }
 }
 
-template <typename T, int DH, bool DROPOUT>
+template <int DH, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   constexpr int QS = DH + 1;
   constexpr int NC = DH / 16;  // output columns per thread
@@ -115,13 +102,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  float* og = p.o + b * p.o_sb + h * p.o_sh;
   const uint32_t slice_key = ucf::dropout_slice_key(p.seed, (uint32_t)bh);
 
-  load_tile<T, DH>(sQ, QS, qg, p.q_sn, q0, p.nq, p.dh, BQ);
+  load_tile<DH>(sQ, QS, qg, p.q_sn, q0, p.nq, p.dh, BQ);
 
   float m_run[ROWS], l_run[ROWS], acc[ROWS][NC];
 #pragma unroll
@@ -134,8 +121,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
 
   for (int k0 = 0; k0 < p.nkv; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done with sK, sV and sP
-    load_tile<T, DH>(sK, QS, kg, p.k_sn, k0, p.nkv, p.dh, BK);
-    load_tile<T, DH>(sV, DH, vg, p.v_sn, k0, p.nkv, p.dh, BK);
+    load_tile<DH>(sK, QS, kg, p.k_sn, k0, p.nkv, p.dh, BK);
+    load_tile<DH>(sV, DH, vg, p.v_sn, k0, p.nkv, p.dh, BK);
     __syncthreads();
 
     float s[ROWS][4];
@@ -219,35 +206,35 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < p.dh) og[(long long)row * p.o_sn + col] = from_f32<T>(acc[i][c] * l_inv);
+      if (col < p.dh) og[(long long)row * p.o_sn + col] = acc[i][c] * l_inv;
     }
     if (tx == 0) p.lse[(long long)bh * p.nq + row] = m_run[i] + logf(fmaxf(l_run[i], 1e-37f));
   }
 }
 
-template <typename T, int DH, bool DROPOUT>
+template <int DH, bool DROPOUT>
 cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH, DROPOUT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, DROPOUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.nq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DH, DROPOUT><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<DH, DROPOUT><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, bool DROPOUT>
+template <bool DROPOUT>
 cudaError_t dispatch_dh(const Params& p, int bh, cudaStream_t stream) {
-  if (p.dh <= 48) return launch<T, 48, DROPOUT>(p, bh, stream);
-  if (p.dh <= 64) return launch<T, 64, DROPOUT>(p, bh, stream);
-  if (p.dh <= 96) return launch<T, 96, DROPOUT>(p, bh, stream);
-  if (p.dh <= 128) return launch<T, 128, DROPOUT>(p, bh, stream);
+  if (p.dh <= 48) return launch<48, DROPOUT>(p, bh, stream);
+  if (p.dh <= 64) return launch<64, DROPOUT>(p, bh, stream);
+  if (p.dh <= 96) return launch<96, DROPOUT>(p, bh, stream);
+  if (p.dh <= 128) return launch<128, DROPOUT>(p, bh, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. dropout: 0 or 1; with 1 the
+// f32 q, k, v, o and lse [B*H, Nq]. Strides are in elements. dropout: 0 or 1; with 1 the
 // seed, threshold, (row0, col0) offset and inv_keep describe the mask. Returns a cudaError_t.
 extern "C" int ucf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int batch, int heads, int nq, int nkv, int dh,
@@ -255,16 +242,16 @@ extern "C" int ucf_flash_fwd(const void* q, const void* k, const void* v, void* 
                              long long k_sb, long long k_sh, long long k_sn,
                              long long v_sb, long long v_sh, long long v_sn,
                              long long o_sb, long long o_sh, long long o_sn,
-                             float scale, int dtype, int dropout, unsigned int seed,
+                             float scale, int dropout, unsigned int seed,
                              unsigned int threshold, int row0, int col0, float inv_keep,
                              void* stream) {
   if (batch <= 0 || heads <= 0 || nq <= 0 || nkv <= 0 || dh <= 0) return cudaErrorInvalidValue;
   if ((nq + BQ - 1) / BQ > 65535) return cudaErrorInvalidValue;
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.lse = static_cast<float*>(lse);
   p.heads = heads;
   p.nq = nq;
@@ -282,12 +269,5 @@ extern "C" int ucf_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.inv_keep = inv_keep;
   const int bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dropout ? dispatch_dh<float, true>(p, bh, s) : dispatch_dh<float, false>(p, bh, s);
-  }
-  if (dtype == 1) {
-    return dropout ? dispatch_dh<__nv_bfloat16, true>(p, bh, s)
-                   : dispatch_dh<__nv_bfloat16, false>(p, bh, s);
-  }
-  return cudaErrorInvalidValue;
+  return dropout ? dispatch_dh<true>(p, bh, s) : dispatch_dh<false>(p, bh, s);
 }

@@ -1,7 +1,7 @@
 """Flash attention: Hopper CUDA kernels for the forward and the backward, their
 plain versions, and the autograd Function that joins them.
 
-Forward: `csrc/flash_fwd.cu` replaces the Pallas TPU kernel `_fwd_kernel`
+Forward: replaces the Pallas TPU kernel `_fwd_kernel`
 (`ucf_vit_tpu/ops/flash_attention.py:68`, launched by `_flash_fwd_len`
 `:543`). Online-softmax attention with the running max, normaliser and
 accumulator in f32; keys past the true length masked with -0.7 * f32 max;
@@ -9,18 +9,21 @@ accumulator in f32; keys past the true length masked with -0.7 * f32 max;
 probabilities are dropped after the normaliser update (the hash mask of
 `ops/attn_dropout.py`), so `lse` stays the pre-dropout value.
 
-Backward: `csrc/flash_bwd.cu` replaces `_bwd_fused_kernel` (`:249`, the
-route "fused") and the pair `_bwd_dkv_kernel` + `_bwd_dq_kernel`
-(`:162`, `:362`, the route "split"), launched by `_flash_bwd_len` `:651`.
-`di = rowsum(do * o)` stays a plain torch reduction, as it is XLA outside
-the kernel in JAX (`:662`). The fused kernel adds dq with f32 atomics into a
-zeroed f32 workspace, so dq's order of sums changes from run to run.
+Backward: replaces `_bwd_fused_kernel` (`:249`, the route "fused") and the
+pair `_bwd_dkv_kernel` + `_bwd_dq_kernel` (`:162`, `:362`, the route
+"split"), launched by `_flash_bwd_len` `:651`. `di = rowsum(do * o)` stays a
+plain torch reduction, as it is XLA outside the kernel in JAX (`:662`). The
+fused kernel adds dq with f32 atomics into a zeroed f32 workspace, so dq's
+order of sums changes from run to run.
 
-Bounds on an H100 at the training shape `[B*H = 192, N = 257, dh = 64]`:
-forward 3.25 GFLOP, backward 8.12 GFLOP (five products). In f32 both are
-bound by the CUDA cores' f32 rate (0.048 and 0.121 ms at 67 TFLOP/s); in
-bf16 by bytes (25 and 45 MB: 0.0076 and 0.0133 ms). The kernels do their
-products in f32 FMA for both types; see the sources for the design.
+The dtype picks the source. bf16 runs on the tensor cores (`wgmma`):
+`csrc/flash_fwd_sm90.cu` (forward) and `csrc/flash_bwd_sm90.cu` (fused and
+dkv); f32 runs on the CUDA cores in f32 FMA: `csrc/flash_fwd.cu` and
+`csrc/flash_bwd.cu`, which also holds the dq kernel of the split route for
+both types. Bounds on an H100 at the training shape `[B*H = 192, N = 257,
+dh = 64]`: forward 3.25 GFLOP, backward 8.12 GFLOP (five products). In f32
+both are bound by the CUDA cores' f32 rate (0.048 and 0.121 ms at 67
+TFLOP/s); in bf16 by bytes (25 and 45 MB: 0.0076 and 0.0133 ms).
 
 `flash_attention` takes the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA device; anything else raises. On a tensor that
@@ -41,11 +44,15 @@ DEFAULT_MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_KINDS = {"fused": 0, "dkv": 1, "dq": 2}
+# The source (csrc/<name>.cu) of each kernel, by dtype
+_FWD_SOURCES = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_sm90"}
+_SM90_BWD_KINDS = ("fused", "dkv")  # bf16 dq stays in flash_bwd.cu
 # The backward's routes: "fused" unless the caller names "split".
 # chip_smoke.py times both at each of its kernel-phase shapes (Nq from 1 to
-# 32768, dh 36 to 128, f32 and bf16); on an H100 the fused kernel was faster
-# at all of them (PERF.md, "route threshold"), so the dkv + dq pair runs only
-# when asked for.
+# 32768, dh 36 to 128, f32 and bf16); on an H100 the fused route was faster at
+# every f32 shape and at every bf16 one of 257 tokens or more, and within the
+# host's noise of the split route at the short bf16 ones (PERF.md, "Routes"),
+# so the dkv + dq pair runs only when asked for.
 BWD_ROUTES = ("fused", "split")
 
 
@@ -117,8 +124,18 @@ def flash_attention_bwd_plain(
 
 
 _LONG3 = [ctypes.c_longlong] * 3
-_DROPOUT_ARGS = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+# dropout, seed, threshold, row0, col0, inv_keep, stream
+_DROPOUT_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_float, ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _LONG3 * 4 + [ctypes.c_float]
+_BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _LONG3 * 7 + [
+    ctypes.c_float]
+_ARGTYPES = {  # each source's C entry `ucf_<name>`; flash_bwd also takes the dtype
+    "flash_fwd": _FWD_ARGS + _DROPOUT_ARGS,
+    "flash_fwd_sm90": _FWD_ARGS + _DROPOUT_ARGS,
+    "flash_bwd": _BWD_ARGS + [ctypes.c_int] + _DROPOUT_ARGS,
+    "flash_bwd_sm90": _BWD_ARGS + _DROPOUT_ARGS,
+}
 
 
 def _library(name: str):
@@ -127,11 +144,7 @@ def _library(name: str):
     lib = load(name)
     fn = getattr(lib, f"ucf_{name}")
     if fn.argtypes is None:
-        if name == "flash_fwd":
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _LONG3 * 4 + _DROPOUT_ARGS
-        else:
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                           + _LONG3 * 7 + _DROPOUT_ARGS)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -184,18 +197,19 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
     n_kv = k.shape[2]
     o = _tokens_major(b, n_q, h, dh, q.dtype, q.device)
     lse = torch.empty((b * h, n_q), dtype=torch.float32, device=q.device)
-    fn = _library("flash_fwd")
+    source = _FWD_SOURCES[q.dtype]
+    fn = _library(source)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, n_q, n_kv, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            float(sm_scale), _KERNEL_DTYPES[q.dtype], *_dropout_args(rate, seed, row0, col0),
-            _stream(q),
+            float(sm_scale), *_dropout_args(rate, seed, row0, col0), _stream(q),
         )
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.by_source[source] += 1
     if rate > 0.0:
         keep_mask.launches += 1
     return o, lse
@@ -203,7 +217,10 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
 
 def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args) -> None:
     b, h, n_q, dh = q.shape
-    fn = _library("flash_bwd")
+    sm90 = q.dtype == torch.bfloat16 and kind in _SM90_BWD_KINDS
+    source = "flash_bwd_sm90" if sm90 else "flash_bwd"
+    fn = _library(source)
+    dtype_arg = () if sm90 else (_KERNEL_DTYPES[q.dtype],)
     with torch.cuda.device(q.device):
         err = fn(
             _BWD_KINDS[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -211,14 +228,24 @@ def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args
             b, h, n_q, k.shape[2], dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            float(sm_scale), _KERNEL_DTYPES[q.dtype], *drop_args, _stream(q),
+            float(sm_scale), *dtype_arg, *drop_args, _stream(q),
         )
     if err != 0:
-        raise RuntimeError(f"flash_bwd {kind} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{source} {kind} kernel launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.by_kernel[kind] += 1
+    flash_attention_bwd.by_source[source] += 1
     if drop_args[0]:
         keep_mask.launches += 1
+
+
+def _dq_workspace(b, n_q, h, dh, device) -> torch.Tensor:
+    """The fused kernels' dq: partial sums cross key tiles, so f32 atomics
+    add into a zeroed f32 `[B, H, Nq, dh]` view, tokens-major, its rows padded
+    to a multiple of 4 floats (the bf16 kernel adds whole float4s)."""
+    dh4 = -(-dh // 4) * 4
+    ws = torch.zeros((b, n_q, h, dh4), dtype=torch.float32, device=device)
+    return ws.transpose(1, 2)[..., :dh]
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route):
@@ -237,8 +264,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route
     dv = _tokens_major(b, n_kv, h, dh, v.dtype, v.device)
     drop = _dropout_args(rate, seed, row0, col0)
     if route == "fused":
-        # dq's partial sums cross key tiles: f32 atomics into a zeroed workspace
-        dq = torch.zeros((b, n_q, h, dh), dtype=torch.float32, device=q.device).transpose(1, 2)
+        dq = _dq_workspace(b, n_q, h, dh, q.device)
         _bwd_launch("fused", q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop)
         dq = dq.to(q.dtype)
     else:
@@ -270,17 +296,22 @@ def flash_attention_bwd(
                            route)
 
 
+_BWD_SOURCES = ("flash_bwd", "flash_bwd_sm90")
+
 # Backward kernel launches since the counts were last reset (CPU calls do not
-# count): the total and the split by kernel.
+# count): the total, the split by kernel and the split by source.
 flash_attention_bwd.launches = 0
 flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
+flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     flash_attention.launches = 0
+    flash_attention.by_source = {source: 0 for source in _FWD_SOURCES.values()}
     flash_attention_bwd.launches = 0
     flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
+    flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES}
     keep_mask.launches = 0
 
 
@@ -351,5 +382,7 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
-# Forward kernel launches since the count was last set to 0 (CPU calls do not count).
+# Forward kernel launches since the count was last set to 0 (CPU calls do not
+# count): the total and the split by source.
 flash_attention.launches = 0
+flash_attention.by_source = {source: 0 for source in _FWD_SOURCES.values()}
