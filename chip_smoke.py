@@ -8,11 +8,15 @@ result):
 
 1. device:  the card's name and power limit (nvidia-smi); TF32 off for
             matmuls and cuDNN.
-2. build:   nvcc builds every kernel from csrc/ (flash_fwd, flash_bwd: f32
-            on the CUDA cores, and the bf16 dq kernel; flash_fwd_sm90,
-            flash_bwd_sm90: bf16 on the tensor cores; fused_mlp, int8_gemm),
+2. build:   nvcc builds every kernel from csrc/ (flash_fwd_tf32,
+            flash_bwd_tf32: f32 on the tensor cores by the 3xTF32 split on
+            mma.sync; flash_fwd_sm90, flash_bwd_sm90: bf16 on the tensor
+            cores by wgmma; flash_bwd: the split route's f32 dkv and the dq
+            kernel of both types, on the CUDA cores; fused_mlp, int8_gemm),
             one nvcc each, started together; cuobjdump then shows every
-            entry of the two sm90 libraries holding HGMMA (wgmma) code.
+            entry of the two sm90 libraries holding HGMMA (wgmma) code and
+            every entry of the two tf32 libraries holding HMMA instructions
+            on TF32 operands.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
@@ -106,12 +110,18 @@ MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BF16_TRAIN_LOSS_TOL = 2e-2
 VIT_L_MAIN_STEPS = 3  # the CLI entry itself
 VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 10, 3, 5
+PROFILE_TRIES = 3  # profiler windows per device time, if one records nothing
 
-# Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet):
-# f32 on the CUDA cores, bf16 and int8 on the tensor cores, and the memory rate. The
-# card is named so; any other card has no peaks here until it is measured.
+# Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
+# and int8 on the tensor cores, and the memory rate. The card is named so; any other
+# card has no peaks here until it is measured.
 CARD = "NVIDIA H100 80GB HBM3"
-PEAKS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
+PEAKS = {"tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
+# The least time of f32-accurate work on this card: three TF32 products for each f32
+# one (the 3xTF32 split) at the TF32 rate, 165 TFLOP/s, above the CUDA cores' f32 FMA
+# rate (67 TFLOP/s). Every f32 row's bound uses it, whatever implements the kernel, so
+# that no kernel can beat its bound.
+F32_PASSES = 3
 
 
 def fail(msg: str) -> None:
@@ -147,21 +157,28 @@ def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5):
     Device: the profiler's self device time; with `kernel`, of the kernels
     whose name holds it over their count; without, every kernel of the window,
     each by its mean time and its launches per call (what a library call
-    launches). Host: wall time per call, the loop ending in a synchronize."""
+    launches). Host: wall time per call, the loop ending in a synchronize.
+    A window in which the profiler recorded no device activity at all is
+    profiled again, up to PROFILE_TRIES windows in all."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    prof.start()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    prof.stop()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        prof.stop()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if events:
+            break
+        log(f"[profiler] window {attempt} of {PROFILE_TRIES} recorded no device activity"
+            + (f" (looking for {kernel!r})" if kernel else ""))
     if kernel is not None:
         events = [e for e in events if kernel in e.key]
         count = sum(e.count for e in events)
@@ -192,15 +209,23 @@ def phase_device():
     log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    log(f"[device] bounds: f32 work as {F32_PASSES} x its operations at the TF32 rate "
+        f"({PEAKS['tf32'] / 1e12:g} TFLOP/s, so {PEAKS['tf32'] / F32_PASSES / 1e12:g} TFLOP/s "
+        f"f32-accurate), bf16 at {PEAKS['bfloat16'] / 1e12:g}, int8 at "
+        f"{PEAKS['int8'] / 1e12:g} TOP/s, bytes at {PEAKS['bytes'] / 1e12:g} TB/s")
     return card
 
 
 SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")  # bf16 on the tensor cores (wgmma)
+TF32_SOURCES = ("flash_fwd_tf32", "flash_bwd_tf32")  # f32 on the tensor cores (3xTF32)
+# the SASS instructions that show each kind of source on the tensor cores
+TENSOR_CORE_SASS = {**{s: "HGMMA" for s in SM90_SOURCES},
+                    **{s: r"HMMA\.\S*TF32" for s in TF32_SOURCES}}
 
 
-def _hgmma_counts(path) -> dict:
-    """HGMMA (wgmma) instructions per entry function of a built library, from
-    cuobjdump's SASS."""
+def _sass_counts(path, pattern: str) -> dict:
+    """Instructions matching `pattern` per entry function of a built library,
+    from cuobjdump's SASS."""
     import shutil
 
     from ucf_vit_tpu_torch.ops import build
@@ -216,7 +241,7 @@ def _hgmma_counts(path) -> dict:
         if m := re.search(r"Function : (\S+)", line):
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and re.search(pattern, line):
             counts[fn] += 1
     return counts
 
@@ -231,7 +256,7 @@ def phase_build():
         return name, build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = ("flash_fwd", "flash_bwd", *SM90_SOURCES, "fused_mlp", "int8_gemm")
+    sources = (*TF32_SOURCES, "flash_bwd", *SM90_SOURCES, "fused_mlp", "int8_gemm")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         built = list(pool.map(one, sources))
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -239,8 +264,8 @@ def phase_build():
         # ptxas reports each template instance: summarise registers and spills
         entry, regs, spills = "", [], []
         for line in path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq|fwd_sm90|bwd_sm90)_kernel|fused_mlp_kernel|"
-                          r"int8_gemm_kernel)I(\w+?)EEvNS", line)
+            m = re.search(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
+                          r"fused_mlp_kernel|int8_gemm_kernel)I(\w+?)EEvNS", line)
             if "Compiling entry function" in line and m:
                 entry = f"{m.group(1)}<{m.group(2)}>"
             if m := re.search(r"Used (\d+) registers", line):
@@ -250,20 +275,26 @@ def phase_build():
         log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
             + (f": {', '.join(spills)}" if spills else ""))
-        if name in SM90_SOURCES:  # every instance is bf16: each must run on the tensor cores
-            counts = _hgmma_counts(path)
+        if name in TF32_SOURCES and any("<Li64E" in sp for sp in spills):
+            fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
+        if name in TENSOR_CORE_SASS:  # every instance must run on the tensor cores
+            pattern = TENSOR_CORE_SASS[name]
+            counts = _sass_counts(path, pattern)
             for fn, n in sorted(counts.items()):
-                m = re.search(r"(flash_\w+_sm90_kernel)I(\w+?)EEvNS", fn)
+                m = re.search(r"\d(flash_\w+?_kernel)I(\w+?)EEvNS", fn)
                 instance = f"{m.group(1)}<{m.group(2)}>" if m else fn
-                log(f"[build] {name}: {n:3d} HGMMA in {instance}")
+                log(f"[build] {name}: {n:4d} {pattern} in {instance}")
             if len(counts) != len(regs) or not all(counts.values()):
                 fail(f"{name}: {len(counts)} entry functions in the SASS for {len(regs)} compiled, "
-                     f"and every one must hold HGMMA: {counts}")
+                     f"and every one must hold {pattern}: {counts}")
 
 
 def _bound(flops: float, nbytes: float, dtype_name: str):
     """The least time the card could take: the larger of the operations over
-    the type's peak rate and the bytes over the memory rate (ms), and which."""
+    the type's peak rate and the bytes over the memory rate (ms), and which.
+    f32 operations count three times at the TF32 rate (F32_PASSES)."""
+    if dtype_name == "float32":
+        flops, dtype_name = F32_PASSES * flops, "tf32"
     t_ops = flops / PEAKS[dtype_name] * 1e3
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -296,17 +327,20 @@ SHAPES = [
     (1, 6, 8448, 640, 96, False),
     (1, 6, 4096, 4096, 96, False),
 ]
-LONG_SHAPE = (1, 6, 32768, 32768, 96, False)  # backward only, held one head at a time
+LONG_SHAPE = (1, 6, 32768, 32768, 96, False)  # backward phase only, held one head at a time
 # timed shapes -> prefix of their key in the phases' results ("" + dtype, "vit_l_" + dtype)
 TIMED_SHAPES = {SHAPES[0][:5]: "", SHAPES[1][:5]: "vit_l_"}
-# the profiler's kernel names: f32 on the CUDA cores, bf16 on the tensor cores (but for dq)
-FWD_KERNEL = {"float32": "flash_fwd_kernel", "bfloat16": "flash_fwd_sm90_kernel"}
+# the profiler's kernel names: f32 by 3xTF32 and bf16 by wgmma on the tensor cores; the
+# split route's f32 dkv and its dq (both types) on the CUDA cores
+FWD_KERNEL = {"float32": "flash_fwd_tf32_kernel", "bfloat16": "flash_fwd_sm90_kernel"}
 
 
 def _bwd_kernel(dtype_name: str, kind: str) -> str:
     if kind == "dq":
         return "flash_bwd_dq_kernel"
-    return "flash_bwd_sm90_kernel" if dtype_name == "bfloat16" else "flash_bwd_kv_kernel"
+    if dtype_name == "bfloat16":
+        return "flash_bwd_sm90_kernel"
+    return "flash_bwd_tf32_kernel" if kind == "fused" else "flash_bwd_kv_kernel"
 
 
 def phase_kernels():
@@ -459,6 +493,7 @@ def phase_bwd_kernels():
         _dropout_args,
         flash_attention_bwd,
         flash_attention_bwd_plain,
+        flash_attention_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -470,6 +505,15 @@ def phase_bwd_kernels():
             q, k, v = _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen)
             o, lse, do, got, rel, ref_max, abs_err = _bwd_case(
                 q, k, v, dh, 0.0, 0, 0, 0, gen, per_head=(n_q * n_kv > 1e8))
+            if n_q * n_kv > 1e8:  # the forward that made o and lse, one head at a time
+                fwd_err = max(
+                    (o[:, i:i + 1].float() - flash_attention_plain(
+                        q[:, i:i + 1].float(), k[:, i:i + 1].float(), v[:, i:i + 1].float(),
+                        dh**-0.5)[0]).abs().max().item() for i in range(h))
+                log(f"[kernel] flash_fwd {shape}: max|o-plain| {fwd_err:.3e} "
+                    f"(tol {FLASH_TOL[dtype_name]:g})")
+                if fwd_err > FLASH_TOL[dtype_name]:
+                    fail(f"flash_fwd disagrees with its plain version at {shape}")
             for r in BWD_ROUTES:
                 log(f"[kernel] flash_bwd {r:5s} {shape}: max|d-plain|/max|plain| dq "
                     f"{rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} "
@@ -814,8 +858,8 @@ def _launch_counts() -> dict:
 
     counts = {"flash_fwd": flash_attention.launches, "keep_mask": keep_mask.launches}
     counts.update({f"flash_bwd_{k}": n for k, n in flash_attention_bwd.by_kernel.items()})
-    # and by source: flash_fwd.cu / flash_bwd.cu (f32, and the bf16 dq kernel) or the
-    # tensor-core sources
+    # and by source: the tf32 sources (f32 forward and fused backward), the sm90 ones
+    # (bf16 forward, fused and dkv) or flash_bwd.cu (f32 dkv, dq of both types)
     counts.update({f"src:{s}": n for s, n in flash_attention.by_source.items()})
     counts.update({f"src:{s}": n for s, n in flash_attention_bwd.by_source.items()})
     return counts
@@ -855,16 +899,19 @@ def _expected_counts(depth: int, steps: int, route: str, dropout: bool,
                      bf16: bool = False, forwards_per_step: int = 1) -> dict:
     """The launch counts of `steps` train steps of a model of `depth` blocks:
     `forwards_per_step` flash forwards (2 under remat) and one backward per
-    block, each counted under the source its dtype runs on."""
+    block, each counted under the source its dtype and kind run on: every f32
+    forward and fused backward under the tf32 sources."""
     n = depth * steps
     bwd = {"fused": n, "dkv": 0, "dq": 0} if route == "fused" else {"fused": 0, "dkv": n, "dq": n}
     counts = {"flash_fwd": forwards_per_step * n, **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
     counts["keep_mask"] = counts["flash_fwd"] + sum(bwd.values()) if dropout else 0
     sm90_bwd = bwd["fused"] + bwd["dkv"] if bf16 else 0  # bf16 dq stays in flash_bwd.cu
+    tf32_bwd = 0 if bf16 else bwd["fused"]  # f32 dkv and dq stay in flash_bwd.cu
     counts.update({
-        "src:flash_fwd": 0 if bf16 else counts["flash_fwd"],
+        "src:flash_fwd_tf32": 0 if bf16 else counts["flash_fwd"],
         "src:flash_fwd_sm90": counts["flash_fwd"] if bf16 else 0,
-        "src:flash_bwd": sum(bwd.values()) - sm90_bwd, "src:flash_bwd_sm90": sm90_bwd,
+        "src:flash_bwd": sum(bwd.values()) - sm90_bwd - tf32_bwd,
+        "src:flash_bwd_sm90": sm90_bwd, "src:flash_bwd_tf32": tf32_bwd,
     })
     return counts
 
@@ -1012,7 +1059,8 @@ def phase_train():
 def _kernel_groups(kernels, busy_ms: float) -> str:
     """Device time of a traced window by kind of kernel, from the kernels' names."""
     groups = {"GEMMs (cuBLAS/CUTLASS)": 0.0, "flash_fwd_sm90_kernel": 0.0,
-              "flash_bwd_sm90_kernel": 0.0, "flash_fwd_kernel": 0.0, "flash_bwd_kv_kernel": 0.0,
+              "flash_bwd_sm90_kernel": 0.0, "flash_fwd_tf32_kernel": 0.0,
+              "flash_bwd_tf32_kernel": 0.0, "flash_bwd_kv_kernel": 0.0,
               "AdamW (multi-tensor)": 0.0, "other (LayerNorm, GELU, casts, adds, copies)": 0.0}
     for t_us, _, key in kernels:
         name = key.lower()
@@ -1211,7 +1259,7 @@ def phase_serve():
 
     from ucf_vit_tpu_torch.config import Config, load_config
     from ucf_vit_tpu_torch.inference import init_eval_model
-    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
     from ucf_vit_tpu_torch.serve import make_server
     from ucf_vit_tpu_torch.train import synthetic_batches
 
@@ -1225,7 +1273,7 @@ def phase_serve():
         bodies.append(buf.getvalue())
     answers = []  # (sample index, answer)
 
-    flash_attention.launches = 0  # the main path starts here (warm-up included)
+    reset_launch_counts()  # the main path starts here (warm-up included)
     t0 = time.perf_counter()
     server = make_server(cfg, host="127.0.0.1", port=0, max_batch=MAX_BATCH, device="cuda")
     startup_s = time.perf_counter() - t0
@@ -1271,6 +1319,7 @@ def phase_serve():
         client.join(timeout=30)
         stats = _get_json(port, "/v1/stats")
         launches = flash_attention.launches  # the main path ends here
+        tf32_launches = flash_attention.by_source["flash_fwd_tf32"]
     finally:
         if client.is_alive():
             client.terminate()
@@ -1297,13 +1346,14 @@ def phase_serve():
         log(f"[serve]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy_ms:6.2f}% "
             f"x{count:<5d} {key[:90]}")
     log(f"[serve] stats {json.dumps(stats, sort_keys=True)}")
-    log(f"[serve] flash_fwd launches {launches} over {stats['batches']} batches")
+    log(f"[serve] flash_fwd launches {launches} over {stats['batches']} batches, "
+        f"{tf32_launches} of them under flash_fwd_tf32")
     if stats["errors"] or stats["requests"] != len(answers) + 1:
         fail(f"server stats {stats}; expected {len(answers) + 1} requests (warm-up "
              f"included), no errors")
-    if launches != depth * stats["batches"] or launches == 0:
-        fail(f"flash_fwd ran {launches} times over {stats['batches']} batches; "
-             f"expected {depth} per batch")
+    if launches != depth * stats["batches"] or launches == 0 or tf32_launches != launches:
+        fail(f"flash_fwd ran {launches} times over {stats['batches']} batches, "
+             f"{tf32_launches} under flash_fwd_tf32; expected {depth} per batch, all f32")
 
     model = server.RequestHandlerClass.weights_holder["model"]
     x16 = torch.from_numpy(samples[:MAX_BATCH]).cuda()
@@ -1354,20 +1404,19 @@ def main() -> int:
     served = phase_serve()
     trained_bf16 = phase_train_bf16()
 
-    # Each flash kernel has two rows: the f32 instance (flash_fwd.cu, flash_bwd.cu) at the
+    # Each flash kernel has two rows: the f32 instance (*_tf32.cu) at the
     # ViT-B/16 shape that serving and f32 training give it, with the launches of those
-    # paths, and the bf16 instance on the tensor cores (*_sm90.cu) at ViT-L/16's
-    # microbatch shape, with the launches of the ViT-L training through the CLI entry.
-    # The split route's kernels (dkv, dq) are on no main path; their rows are the f32
-    # instances. The hash counts the training with attention dropout; fused_mlp and
+    # paths, and the bf16 instance (*_sm90.cu) at ViT-L/16's microbatch shape, with the
+    # launches of the ViT-L training through the CLI entry. The split route's kernels
+    # (dkv, dq) are on no main path; their rows are the f32 instances (flash_bwd.cu). The hash counts the training with attention dropout; fused_mlp and
     # int8_matmul, on no model path in either package, the ops' public API (bf16 at the
     # ViT-B MLP shape).
     sources = {
-        "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd.cu",
+        "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
                       "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_fwd_bf16": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
                            "ucf_vit_tpu/ops/flash_attention.py:68"),
-        "flash_bwd_fused": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
+        "flash_bwd_fused": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                             "ucf_vit_tpu/ops/flash_attention.py:249"),
         "flash_bwd_fused_bf16": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
                                  "ucf_vit_tpu/ops/flash_attention.py:249"),
@@ -1386,9 +1435,9 @@ def main() -> int:
                "fused_mlp": mlp[RECORD_MLP, "bfloat16"], "int8_matmul": int8[RECORD_INT8]}
     f32, vit_l = trained["main"], trained_bf16["main"]
     launches = {
-        "flash_fwd": served["launches"] + f32["src:flash_fwd"],
+        "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"],
         "flash_fwd_bf16": vit_l["src:flash_fwd_sm90"],
-        "flash_bwd_fused": f32["flash_bwd_fused"],
+        "flash_bwd_fused": f32["src:flash_bwd_tf32"],
         "flash_bwd_fused_bf16": vit_l["flash_bwd_fused"],
         "flash_bwd_dkv": f32["flash_bwd_dkv"] + vit_l["flash_bwd_dkv"],
         "flash_bwd_dq": f32["flash_bwd_dq"] + vit_l["flash_bwd_dq"],

@@ -1,7 +1,9 @@
 """The port's flash-attention forward and attention dispatch against the JAX
 package: the plain version (what FLASH runs on a CPU tensor) against the
 Pallas kernel in interpret mode and the einsum oracle, lse against the
-kernel's own, and the dispatch rules. Inputs come from numpy seeds.
+kernel's own, and the dispatch rules. Also the arithmetic of the f32 kernels'
+3xTF32 split, emulated in torch, against the f32 plain versions. Inputs come
+from numpy seeds.
 
 The CUDA kernel itself runs only on the card: see
 tests/test_torch_flash_cuda.py."""
@@ -12,16 +14,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from ucf_vit_tpu.ops.attention import SHORT_SEQ_THRESHOLD as JAX_SHORT_SEQ_THRESHOLD
 from ucf_vit_tpu.ops.attention import einsum_attention as jax_einsum_attention
+from ucf_vit_tpu.ops.attention import multi_head_attention as jax_multi_head_attention
 from ucf_vit_tpu.ops.flash_attention import _flash_fwd_len
 from ucf_vit_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from ucf_vit_tpu_torch.ops.attention import (
+    SHORT_SEQ_THRESHOLD,
     AttnImpl,
     einsum_attention,
     multi_head_attention,
     resolve_impl,
 )
-from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from ucf_vit_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 
 TOL = 1e-5  # f32: both sides sum the same products in another order
 
@@ -132,3 +141,99 @@ def test_dispatch_rules():
         multi_head_attention(q, q, q, impl="XLA")
     with pytest.raises(ValueError, match="dropout_seed"):
         multi_head_attention(q, q, q, impl="FLASH", dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("n_kv", [SHORT_SEQ_THRESHOLD, SHORT_SEQ_THRESHOLD + 1])
+def test_flash_seg_len_length_guard_matches_jax(n_kv):
+    """FLASH with seg_len goes to EINSUM (the kernel has no segment mask) up
+    to SHORT_SEQ_THRESHOLD keys and raises past it, as the JAX package does;
+    EINSUM asked for by name takes any length."""
+    assert SHORT_SEQ_THRESHOLD == JAX_SHORT_SEQ_THRESHOLD == 1024
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 16, n_kv, 8, seed=4))
+    seg = 512
+    ein = multi_head_attention(q, k, v, impl="EINSUM", seg_len=seg)
+    ref = jax_einsum_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                               jnp.asarray(v.numpy()), sm_scale=8**-0.5, seg_len=seg)
+    np.testing.assert_allclose(ein.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+    if n_kv <= SHORT_SEQ_THRESHOLD:
+        out = multi_head_attention(q, k, v, impl="FLASH", seg_len=seg)
+        np.testing.assert_array_equal(out.numpy(), ein.numpy())
+        return
+    with pytest.raises(AssertionError, match="segment-masked attention over 1025 tokens"):
+        multi_head_attention(q, k, v, impl="FLASH", seg_len=seg)
+    with pytest.raises(AssertionError, match="segment-masked attention over 1025 tokens"):
+        jax_multi_head_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                 jnp.asarray(v.numpy()), impl="FLASH", seg_len=seg)
+
+
+# ---------------------------------------------------------------- 3xTF32
+
+# The card's f32 tolerances (tests/test_torch_flash_cuda.py, chip_smoke.py):
+# o absolute, dq, dk and dv relative to their largest entry
+FLASH_TOL, BWD_TOL = 5e-5, 1e-4
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (a 10-bit mantissa), ties away from zero: the
+    rounding of cvt.rna.tf32.f32 and of the kernels' split (half a TF32 ulp
+    added to the magnitude, the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 truncated to TF32: what the tensor cores read of an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels compute it: each operand split as x = hi + lo with
+    hi rounded to TF32 and lo = x - hi read truncated; lo.hi + hi.lo + hi.hi,
+    each TF32 product exact and summed in f32."""
+    a_hi, b_hi = _tf32_round(a), _tf32_round(b)
+    a_lo, b_lo = _tf32_trunc(a - a_hi), _tf32_trunc(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass: what the tensor cores give an f32 product."""
+    return _tf32_round(a) @ _tf32_round(b)
+
+
+def _attention_by(mm, q, k, v, do, scale):
+    """The forward and backward kernels' formulas with every product by `mm`:
+    o, and dq, dk, dv from the plain forward's lse (rate 0)."""
+    s = mm(q, k.transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    o = mm(p, v)
+    di = (o * do).sum(-1, keepdim=True)
+    dv = mm(p.transpose(-1, -2), do)
+    ds = p * (mm(do, v.transpose(-1, -2)) - di) * scale
+    return o, mm(ds, k), mm(ds.transpose(-1, -2), q), dv
+
+
+def test_3xtf32_split_keeps_f32_accuracy():
+    """Why the f32 kernels keep the card's f32 tolerances: at [2 heads, 257,
+    64] the forward's and the backward's products by the 3-pass split land
+    within a tenth of those tolerances of the f32 plain versions, while one
+    TF32 pass misses by ten times as much."""
+    b, h, n, dh = 1, 2, 257, 64
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, h, n, n, dh, seed=5))
+    do = torch.from_numpy(np.random.default_rng(6).normal(size=(b, h, n, dh)).astype(np.float32))
+    scale = dh**-0.5
+    o_ref, lse = flash_attention_plain(q, k, v, scale)
+    ref = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, scale)
+    errs = {}
+    for name, mm in (("3xtf32", _mm_3xtf32), ("tf32", _mm_tf32)):
+        o, dq, dk, dv = _attention_by(mm, q, k, v, do, scale)
+        errs[name] = ((o - o_ref).abs().max().item(),
+                      max(((g - w).abs().max() / w.abs().max()).item()
+                          for g, w in zip((dq, dk, dv), ref)))
+    o3, d3 = errs["3xtf32"]
+    o1, d1 = errs["tf32"]
+    assert o3 <= FLASH_TOL / 10 and d3 <= BWD_TOL / 10, errs
+    assert o1 >= 10 * o3 and d1 >= 10 * d3, errs
+    # the emulated rounding is cvt.rna's: ties go away from zero
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3.0], dtype=torch.float32)
+    assert _tf32_round(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash attention forward, both backward routes and
-dropout, f32 on the CUDA cores and bf16 on the tensor cores; the fused MLP; the
-W8A8 int8 GEMM) against their plain versions, on the card. Marked `cuda`; skips
+dropout: f32 by the 3xTF32 split and bf16 by wgmma on the tensor cores, the
+split route's f32 dkv and its dq on the CUDA cores; the fused MLP; the W8A8
+int8 GEMM) against their plain versions, on the card. Marked `cuda`; skips
 without a card. This file imports neither JAX nor the JAX package, so it runs
 on a machine without JAX:
 
@@ -24,9 +25,10 @@ from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
 
 # (b, h, n_q, n_kv, dh): the training shape at batch 2, dh 36, Nq = 1, a
-# trailing partial key tile with Nq > Nkv, dh 128 with Nq < Nkv
+# trailing partial key tile with Nq > Nkv, dh 128 with Nq < Nkv, and dh 33,
+# whose rows are only 4-byte aligned (the kernels' narrow copy path)
 SHAPES = [(2, 12, 257, 257, 64), (2, 3, 197, 197, 36), (2, 3, 1, 257, 96),
-          (1, 2, 300, 130, 128), (1, 2, 130, 300, 48)]
+          (1, 2, 300, 130, 128), (1, 2, 130, 300, 48), (1, 2, 65, 70, 33)]
 FWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 # backward, relative to max |ref|: f32 sums in other orders (and dq's atomics
 # in a run-dependent order); bf16 rounds the outputs
@@ -179,9 +181,9 @@ def test_sm90_kernels_match_plain_on_card(route, rate):
                                  dropout_offset=(row0, col0))
         got = flash_attention_bwd(q, k, v, o, lse, do, sm, rate, seed, row0, col0, route=route)
         torch.cuda.synchronize()
-        assert flash_attention.by_source == {"flash_fwd": 0, "flash_fwd_sm90": 1}
-        want_src = {"flash_bwd": 0, "flash_bwd_sm90": 1} if route == "fused" else \
-            {"flash_bwd": 1, "flash_bwd_sm90": 1}
+        assert flash_attention.by_source == {"flash_fwd_tf32": 0, "flash_fwd_sm90": 1}
+        want_src = {"flash_bwd": 0, "flash_bwd_sm90": 1, "flash_bwd_tf32": 0} \
+            if route == "fused" else {"flash_bwd": 1, "flash_bwd_sm90": 1, "flash_bwd_tf32": 0}
         assert flash_attention_bwd.by_source == want_src
         ref_o, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), sm, rate, seed,
                                                row0, col0)
@@ -196,23 +198,45 @@ def test_sm90_kernels_match_plain_on_card(route, rate):
             assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16], (name, shape)
 
 
+def _launch_sources(dt, route):
+    """One forward and one backward of `route` on the card from zeroed counts:
+    (forward launches by source, backward launches by source, by kernel)."""
+    q, k, v, do = _inputs(1, 2, 70, 70, 64, dt)
+    reset_launch_counts()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    flash_attention_bwd(q, k, v, o, lse, do, 0.125, route=route)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    assert flash_attention_bwd.launches == (1 if route == "fused" else 2)
+    return (dict(flash_attention.by_source), dict(flash_attention_bwd.by_source),
+            dict(flash_attention_bwd.by_kernel))
+
+
 @pytest.mark.cuda
 def test_bf16_launches_go_to_sm90_kernels_on_card():
-    """bf16 counts under the tensor-core sources, f32 under the FMA ones; the
-    totals and the split by kernel keep their meaning."""
+    """bf16 counts under the wgmma sources; the totals and the split by kernel
+    keep their meaning."""
     _card()
-    for dt, fwd_src, bwd_src in ((torch.bfloat16, "flash_fwd_sm90", "flash_bwd_sm90"),
-                                 (torch.float32, "flash_fwd", "flash_bwd")):
-        q, k, v, do = _inputs(1, 2, 70, 70, 64, dt)
-        reset_launch_counts()
-        o, lse = flash_attention(q, k, v, return_lse=True)
-        flash_attention_bwd(q, k, v, o, lse, do, 0.125)
-        torch.cuda.synchronize()
-        assert flash_attention.launches == 1 and flash_attention.by_source[fwd_src] == 1
-        assert flash_attention_bwd.launches == 1 and flash_attention_bwd.by_kernel["fused"] == 1
-        assert flash_attention_bwd.by_source[bwd_src] == 1
-        assert sum(flash_attention.by_source.values()) == 1
-        assert sum(flash_attention_bwd.by_source.values()) == 1
+    fwd, bwd, kernels = _launch_sources(torch.bfloat16, "fused")
+    assert fwd == {"flash_fwd_tf32": 0, "flash_fwd_sm90": 1}
+    assert bwd == {"flash_bwd": 0, "flash_bwd_sm90": 1, "flash_bwd_tf32": 0}
+    assert kernels == {"fused": 1, "dkv": 0, "dq": 0}
+
+
+@pytest.mark.cuda
+def test_f32_launches_go_to_tf32_kernels_on_card():
+    """f32 counts under the 3xTF32 sources: the forward and the fused backward;
+    nothing reaches an FMA fused kernel. The split route's dkv and dq stay in
+    flash_bwd.cu."""
+    _card()
+    fwd, bwd, kernels = _launch_sources(torch.float32, "fused")
+    assert fwd == {"flash_fwd_tf32": 1, "flash_fwd_sm90": 0}
+    assert bwd == {"flash_bwd": 0, "flash_bwd_sm90": 0, "flash_bwd_tf32": 1}
+    assert kernels == {"fused": 1, "dkv": 0, "dq": 0}
+    fwd, bwd, kernels = _launch_sources(torch.float32, "split")
+    assert fwd == {"flash_fwd_tf32": 1, "flash_fwd_sm90": 0}
+    assert bwd == {"flash_bwd": 2, "flash_bwd_sm90": 0, "flash_bwd_tf32": 0}
+    assert kernels == {"fused": 0, "dkv": 1, "dq": 1}
 
 
 @pytest.mark.cuda

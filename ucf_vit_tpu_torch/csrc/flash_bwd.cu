@@ -1,12 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a) on the CUDA cores, f32 math.
+// Flash-attention backward for Hopper (sm_90a) on the CUDA cores, f32 math: the kernels of
+// the split route.
 //
-// Three kernels, each computing what its Pallas TPU kernel computes
+// Two kernels, each computing what its Pallas TPU kernel computes
 // (ucf_vit_tpu/ops/flash_attention.py, launched by `_flash_bwd_len` :651):
-//   flash_bwd_fused  <- `_bwd_fused_kernel` :249 (call :676): dq, dk and dv in one sweep;
 //   flash_bwd_dkv    <- `_bwd_dkv_kernel`   :162 (call :719): dk and dv;
 //   flash_bwd_dq     <- `_bwd_dq_kernel`    :362 (call :758): dq.
-// fused and dkv take f32 here; their bf16 instances are the tensor-core kernel of
-// flash_bwd_sm90.cu. dq takes f32 and bf16 (the bf16 split route's second kernel).
+// dkv takes f32 here; its bf16 instance is the tensor-core kernel of flash_bwd_sm90.cu.
+// dq takes f32 and bf16 (the bf16 split route's second kernel). The fused route
+// (`_bwd_fused_kernel` :249, call :676) runs on the tensor cores: flash_bwd_tf32.cu for
+// f32, flash_bwd_sm90.cu for bf16.
 // From (q, k, v, do, lse, di = rowsum(do * o)), for each (query tile, key tile):
 //   s = (q . k^T) * scale, keys >= nkv masked with -0.7 * FLT_MAX,   p = exp(s - lse)
 //   p_v = keep ? p / (1 - rate) : 0          (the forward's dropped probabilities)
@@ -28,13 +30,11 @@
 // (ty, tx) computes s and dp for query rows 4ty..4ty+3 and keys tx + 16j, turns them into
 // p_v and ds in registers and writes both to shared memory; the three products that
 // follow read them back transposed or not as each needs.
-// - fused and dkv: one block per (batch*head, key tile). The block loops over all query
-//   tiles, keeping dk and dv for its 64 keys in registers (thread: keys 4ty..4ty+3, head
-//   columns tx + 16c), and writes them once at the end. Blocks share nothing, so the
-//   fused kernel adds its dq partial sums with f32 atomicAdd into a zeroed f32 workspace
-//   [B*H, Nq, dh] (the caller casts it); the order of those sums changes from run to run.
+// - dkv: one block per (batch*head, key tile). The block loops over all query tiles,
+//   keeping dk and dv for its 64 keys in registers (thread: keys 4ty..4ty+3, head
+//   columns tx + 16c), and writes them once at the end.
 // - dq: one block per (batch*head, query tile), looping over the key tiles with dq in
-//   registers; no atomics. With dkv it recomputes s and dp once more than the fused kernel.
+//   registers; no atomics. With dkv it recomputes s and dp once more than a fused kernel.
 // dh is padded inside to DH (48, 64, 96 or 128): loads beyond dh read zero and stores
 // beyond dh are skipped. Rows past Nq get p = 0 and keys past Nkv the mask value, so the
 // caller pads nothing; a trailing partial key tile is handled like any other.
@@ -69,7 +69,7 @@ struct Params {
   const void* dout;
   const float* lse;
   const float* di;
-  void* dq;  // f32 workspace for the fused kernel, the output (type T) for the dq kernel
+  void* dq;  // the dq kernel's output (type T)
   void* dk;
   void* dv;
   int heads, nq, nkv, dh;
@@ -193,8 +193,8 @@ constexpr size_t smem_bytes(int kind) {
          (size_t)(4 * BQ * (DH + 1) + (kind == DQ ? 1 : 2) * BQ * PS);
 }
 
-// fused (WITH_DQ) and dkv: one block per (batch*head, 64-key tile).
-template <typename T, int DH, bool DROPOUT, bool WITH_DQ>
+// dkv: one block per (batch*head, 64-key tile).
+template <typename T, int DH, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const Params p) {
   constexpr int QS = DH + 1;
   constexpr int NC = DH / 16;  // head columns per thread
@@ -254,38 +254,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const Params p) {
         for (int i = 0; i < ROWS; ++i) {
           dv[i][c] = fmaf(pv[i], go, dv[i][c]);
           dk[i][c] = fmaf(ds[i], qq, dk[i][c]);
-        }
-      }
-    }
-
-    if constexpr (WITH_DQ) {
-      // dq partial sums for query rows 4ty + i: ds . k over this block's 64 keys
-      float acc[ROWS][NC];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[ROWS], kv[NC];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) a[i] = sdS[(ty * ROWS + i) * PS + kk];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) kv[c] = sK[kk * QS + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(a[i], kv[c], acc[i][c]);
-      }
-      float* dqg = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int row = q0 + ty * ROWS + i;
-        if (row >= p.nq) continue;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = tx + 16 * c;
-          if (col < p.dh) atomicAdd(&dqg[(long long)row * p.dq_sn + col], acc[i][c]);
         }
       }
     }
@@ -393,17 +361,13 @@ cudaError_t launch_kernel(F kernel, size_t smem, dim3 grid, const Params& p,
 template <typename T, int DH, bool DROPOUT>
 cudaError_t launch(int kind, const Params& p, int bh, cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>(kind);
-  if constexpr (std::is_same<T, float>::value) {
-    if (kind == FUSED) {
-      return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT, true>, smem,
+  if (kind == FUSED) return cudaErrorInvalidValue;  // f32: flash_bwd_tf32.cu; bf16: sm90
+  if (kind == DKV) {
+    if constexpr (std::is_same<T, float>::value) {
+      return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT>, smem,
                            dim3(bh, (p.nkv + BK - 1) / BK), p, stream);
     }
-    if (kind == DKV) {
-      return launch_kernel(flash_bwd_kv_kernel<T, DH, DROPOUT, false>, smem,
-                           dim3(bh, (p.nkv + BK - 1) / BK), p, stream);
-    }
-  } else if (kind != DQ) {
-    return cudaErrorInvalidValue;  // bf16 fused and dkv: flash_bwd_sm90.cu
+    return cudaErrorInvalidValue;  // bf16 dkv: flash_bwd_sm90.cu
   }
   return launch_kernel(flash_bwd_dq_kernel<T, DH, DROPOUT>, smem,
                        dim3(bh, (p.nq + BQ - 1) / BQ), p, stream);
@@ -420,8 +384,8 @@ cudaError_t dispatch_dh(int kind, const Params& p, int bh, cudaStream_t stream) 
 
 }  // namespace
 
-// kind: 0 = fused (dq is an f32 workspace the caller zeroed), 1 = dkv (dq unused),
-// 2 = dq (dk and dv unused). dtype: 0 = float32, 1 = bfloat16 (dq only). lse and di are f32
+// kind: 1 = dkv (dq unused), 2 = dq (dk and dv unused); 0 (fused) is refused: it runs in
+// flash_bwd_tf32.cu and flash_bwd_sm90.cu. dtype: 0 = float32, 1 = bfloat16 (dq only). lse and di are f32
 // [B*H, Nq]. Strides are in elements. dropout: 0 or 1; with 1 the seed, threshold,
 // (row0, col0) offset and inv_keep describe the forward's mask. Returns a cudaError_t.
 extern "C" int ucf_flash_bwd(int kind, const void* q, const void* k, const void* v,

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels `_bwd_fused_kernel` (ucf_vit_tpu/ops/flash_attention.py
 // :249, call :676) and, without dq, `_bwd_dkv_kernel` (:162, call :719) for bf16 inputs;
-// csrc/flash_bwd.cu keeps f32 and the dq kernel of the split route. From (q, k, v, do,
+// f32 goes to csrc/flash_bwd_tf32.cu (fused) and csrc/flash_bwd.cu (dkv), and the dq kernel
+// of the split route stays in csrc/flash_bwd.cu for both types. From (q, k, v, do,
 // lse, di = rowsum(do * o)) it computes, for each (key tile, query tile):
 //   s = (q . k^T) * scale (f32), keys >= nkv masked with -0.7 * FLT_MAX, p = exp(s - lse),
 //   p = 0 for rows >= nq; p_v = keep ? p / (1 - rate) : 0; dp = keep ? (do . v^T) /

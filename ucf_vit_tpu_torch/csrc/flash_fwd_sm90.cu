@@ -1,8 +1,8 @@
 // Flash-attention forward in bf16 on Hopper's tensor cores (sm_90a: wgmma, cp.async).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (ucf_vit_tpu/ops/flash_attention.py:68,
-// launched by `_flash_fwd_len` :543) for bf16 inputs; csrc/flash_fwd.cu keeps f32. It
-// computes the same function:
+// launched by `_flash_fwd_len` :543) for bf16 inputs; csrc/flash_fwd_tf32.cu takes f32.
+// It computes the same function:
 //   s = (q . k^T) * scale in f32 (scale applied to the f32 product, never folded into
 //   the bf16 q), keys >= nkv masked with -0.7 * FLT_MAX (not -inf), online softmax with
 //   the running max m, normaliser l and output accumulator in f32, p rounded to bf16 for

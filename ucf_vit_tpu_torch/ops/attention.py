@@ -9,7 +9,10 @@
 
 All impls take and return [B, H, N, dh]. The JAX package's AUTO picks EINSUM
 below 1024 keys on a TPU; that threshold was measured on a TPU and does not
-carry over.
+carry over. The same number bounds segment-masked attention under FLASH, as
+in the JAX package: the kernel has no segment mask, so such a call goes to
+EINSUM, which materialises the whole score matrix, and is refused past
+`SHORT_SEQ_THRESHOLD` keys.
 
 Attention dropout on EINSUM uses the same hash mask as the flash kernels
 (`ops/attn_dropout.dense_keep_mask` of the same seed), so FLASH and EINSUM
@@ -27,6 +30,10 @@ import torch
 
 from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask
 from ucf_vit_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention
+
+# The most keys that segment-masked attention under FLASH may take (routed to
+# EINSUM, which holds the whole [Nq, Nkv] score matrix).
+SHORT_SEQ_THRESHOLD = 1024
 
 
 class AttnImpl(str, enum.Enum):
@@ -98,7 +105,9 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """Dispatch scaled-dot-product attention over [B, H, N, dh] inputs.
 
-    seg_len routes FLASH to EINSUM: the kernel has no segment mask.
+    seg_len routes FLASH to EINSUM (the kernel has no segment mask) and
+    raises AssertionError past SHORT_SEQ_THRESHOLD keys there; EINSUM asked
+    for by name takes any length.
     dropout_rate > 0 needs an int32 `dropout_seed`; FLASH drops inside the
     kernels and EINSUM with the same hash mask. The XLA impl and attention
     sharded over several processes are not ported and raise
@@ -120,5 +129,12 @@ def multi_head_attention(
     if impl == AttnImpl.FLASH and seg_len is None:
         return flash_attention(q, k, v, sm_scale=sm_scale, dropout_rate=dropout_rate,
                                dropout_seed=dropout_seed)
+    if impl == AttnImpl.FLASH and k.shape[2] > SHORT_SEQ_THRESHOLD:
+        # the JAX package's assertion, raised explicitly so that it holds under -O
+        raise AssertionError(
+            f"segment-masked attention over {k.shape[2]} tokens would "
+            f"materialize the full score matrix; reduce seq_pack so the "
+            f"packed length stays <= {SHORT_SEQ_THRESHOLD}"
+        )
     return einsum_attention(q, k, v, sm_scale=sm_scale, seg_len=seg_len,
                             dropout_rate=dropout_rate, dropout_seed=dropout_seed)

@@ -13,17 +13,22 @@ Backward: replaces `_bwd_fused_kernel` (`:249`, the route "fused") and the
 pair `_bwd_dkv_kernel` + `_bwd_dq_kernel` (`:162`, `:362`, the route
 "split"), launched by `_flash_bwd_len` `:651`. `di = rowsum(do * o)` stays a
 plain torch reduction, as it is XLA outside the kernel in JAX (`:662`). The
-fused kernel adds dq with f32 atomics into a zeroed f32 workspace, so dq's
+fused kernels add dq with f32 atomics into a zeroed f32 workspace, so dq's
 order of sums changes from run to run.
 
-The dtype picks the source. bf16 runs on the tensor cores (`wgmma`):
-`csrc/flash_fwd_sm90.cu` (forward) and `csrc/flash_bwd_sm90.cu` (fused and
-dkv); f32 runs on the CUDA cores in f32 FMA: `csrc/flash_fwd.cu` and
-`csrc/flash_bwd.cu`, which also holds the dq kernel of the split route for
-both types. Bounds on an H100 at the training shape `[B*H = 192, N = 257,
-dh = 64]`: forward 3.25 GFLOP, backward 8.12 GFLOP (five products). In f32
-both are bound by the CUDA cores' f32 rate (0.048 and 0.121 ms at 67
-TFLOP/s); in bf16 by bytes (25 and 45 MB: 0.0076 and 0.0133 ms).
+The dtype, and for the backward the kind, picks the source. bf16 runs on the
+tensor cores by `wgmma`: `csrc/flash_fwd_sm90.cu` (forward) and
+`csrc/flash_bwd_sm90.cu` (fused and dkv). f32 runs on the tensor cores too,
+f32-accurate by the 3xTF32 split on `mma.sync` (`csrc/tf32x3.cuh`: each
+operand split into two TF32 parts, three TF32 products summed in f32):
+`csrc/flash_fwd_tf32.cu` and `csrc/flash_bwd_tf32.cu` (fused).
+`csrc/flash_bwd.cu` keeps the split route on the CUDA cores in f32 FMA: dkv
+for f32 and the dq kernel for both types.
+Bounds on an H100 at the training shape `[B*H = 192, N = 257, dh = 64]`:
+forward 3.25 GFLOP, backward 8.12 GFLOP (five products). In f32 an
+f32-accurate product costs three TF32 ones, so both are bound by operations at
+3 x FLOP over the TF32 rate (0.0197 and 0.0492 ms at 495 TFLOP/s); in bf16 by
+bytes (25 and 45 MB: 0.0076 and 0.0133 ms).
 
 `flash_attention` takes the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA device; anything else raises. On a tensor that
@@ -45,8 +50,11 @@ MAX_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_KINDS = {"fused": 0, "dkv": 1, "dq": 2}
 # The source (csrc/<name>.cu) of each kernel, by dtype
-_FWD_SOURCES = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_sm90"}
-_SM90_BWD_KINDS = ("fused", "dkv")  # bf16 dq stays in flash_bwd.cu
+_FWD_SOURCES = {torch.float32: "flash_fwd_tf32", torch.bfloat16: "flash_fwd_sm90"}
+# The backward source of each (dtype, kind) that does not run in flash_bwd.cu
+_BWD_SOURCES_BY_KIND = {(torch.bfloat16, "fused"): "flash_bwd_sm90",
+                        (torch.bfloat16, "dkv"): "flash_bwd_sm90",
+                        (torch.float32, "fused"): "flash_bwd_tf32"}
 # The backward's routes: "fused" unless the caller names "split".
 # chip_smoke.py times both at each of its kernel-phase shapes (Nq from 1 to
 # 32768, dh 36 to 128, f32 and bf16); on an H100 the fused route was faster at
@@ -131,10 +139,11 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _LONG3 * 4 + [ctypes.c_
 _BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _LONG3 * 7 + [
     ctypes.c_float]
 _ARGTYPES = {  # each source's C entry `ucf_<name>`; flash_bwd also takes the dtype
-    "flash_fwd": _FWD_ARGS + _DROPOUT_ARGS,
+    "flash_fwd_tf32": _FWD_ARGS + _DROPOUT_ARGS,
     "flash_fwd_sm90": _FWD_ARGS + _DROPOUT_ARGS,
     "flash_bwd": _BWD_ARGS + [ctypes.c_int] + _DROPOUT_ARGS,
     "flash_bwd_sm90": _BWD_ARGS + _DROPOUT_ARGS,
+    "flash_bwd_tf32": _BWD_ARGS + _DROPOUT_ARGS,
 }
 
 
@@ -217,10 +226,9 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
 
 def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args) -> None:
     b, h, n_q, dh = q.shape
-    sm90 = q.dtype == torch.bfloat16 and kind in _SM90_BWD_KINDS
-    source = "flash_bwd_sm90" if sm90 else "flash_bwd"
+    source = _BWD_SOURCES_BY_KIND.get((q.dtype, kind), "flash_bwd")
     fn = _library(source)
-    dtype_arg = () if sm90 else (_KERNEL_DTYPES[q.dtype],)
+    dtype_arg = () if source != "flash_bwd" else (_KERNEL_DTYPES[q.dtype],)
     with torch.cuda.device(q.device):
         err = fn(
             _BWD_KINDS[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -296,7 +304,7 @@ def flash_attention_bwd(
                            route)
 
 
-_BWD_SOURCES = ("flash_bwd", "flash_bwd_sm90")
+_BWD_SOURCES = ("flash_bwd", "flash_bwd_sm90", "flash_bwd_tf32")
 
 # Backward kernel launches since the counts were last reset (CPU calls do not
 # count): the total, the split by kernel and the split by source.
