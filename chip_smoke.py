@@ -2,6 +2,12 @@
 """Drive the PyTorch port (`ucf_vit_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py --compare CHECKOUT
+
+With `--compare` it runs only the device phase and times the bf16 forward of
+this checkout's package and of the one in CHECKOUT (another tree of the repo
+unpacked by `git archive`, say the parent) in one process: see
+`compare_forward`.
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result):
@@ -14,9 +20,11 @@ result):
             cores by wgmma; flash_bwd: the split route's f32 dkv and the dq
             kernel of both types, on the CUDA cores; fused_mlp, int8_gemm),
             one nvcc each, started together; cuobjdump then shows every
-            entry of the two sm90 libraries holding HGMMA (wgmma) code and
+            entry of the two sm90 libraries holding HGMMA (wgmma) code, every
+            entry of flash_fwd_sm90 holding UTMALDG (its TMA loads), and
             every entry of the two tf32 libraries holding HMMA instructions
-            on TF32 operands.
+            on TF32 operands; no DH = 64 instance of the forwards (sm90,
+            tf32) may spill.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
@@ -25,7 +33,13 @@ result):
             plain versions and one library call (a yardstick only: the port
             never calls it), with the host's time per call beside them, the
             least time the card could take, and both backward routes timed
-            end to end at every shape.
+            end to end at every shape. The bf16 forward is also held and
+            timed at mae_long's encoder shape [2, 12, 8192^2, 64] (against
+            its plain version one head at a time; with 4096 keys or more
+            bf16 o is held to LONG_FLASH_TOL), must take its TMA route
+            (`flash_attention.by_layout`) at the ViT-B, ViT-L and long
+            shapes, packed or not, and is held and timed on both routes at
+            sap_bf16's decoder shape (SAP_DECODER_SHAPE).
             Then the two ops that no model is wired to, in either package:
             `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
             (bf16 and f32, tanh and erf GELU), and `int8_matmul` at the
@@ -53,8 +67,9 @@ result):
             at full width and depth, bf16 compute on f32 parameters, remat,
             4 microbatches of 8) through the trainer's CLI entry with
             `--single-device`, the launch counts set to 0 before it and read
-            after; a timed and a traced window of 10 steps; and a short
-            window with remat off, for what remat costs and saves.
+            after (every bf16 forward on the TMA route); a timed and a traced
+            window of 10 steps; and a short window with remat off, for what
+            remat costs and saves.
             It runs last: on an H100 host a server started after it in the
             same process answered 233 requests/s, against 260-300 for one
             started before it.
@@ -87,6 +102,10 @@ LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
 LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
 SERVE_TOL = 1e-4  # f32 on both sides, TF32 off: only the order of sums differs
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}  # o, against the f32 plain result
+# bf16 o with LONG_KEYS keys or more: randn inputs give entries of about sqrt(e / Nkv)
+# (0.015 at 8192 keys), under FLASH_TOL's 2e-2, so a wrong tile would pass it; 2e-3 is
+# about four times the error measured at LONG_FWD_SHAPE on an H100 (4.7e-4)
+LONG_FLASH_TOL, LONG_KEYS = 2e-3, 4096
 LSE_TOL = 5e-5  # lse is f32 from the same (bf16-exact) inputs in both versions
 # dq, dk, dv: max |kernel - plain| over max |plain|. f32: other orders of sums,
 # and dq's atomics in a run-dependent order; bf16: against the f32 plain result
@@ -221,6 +240,9 @@ TF32_SOURCES = ("flash_fwd_tf32", "flash_bwd_tf32")  # f32 on the tensor cores (
 # the SASS instructions that show each kind of source on the tensor cores
 TENSOR_CORE_SASS = {**{s: "HGMMA" for s in SM90_SOURCES},
                     **{s: r"HMMA\.\S*TF32" for s in TF32_SOURCES}}
+TMA_SASS = {"flash_fwd_sm90": "UTMALDG"}  # the TMA tensor load
+# sources whose DH = 64 instances (the main paths') must not spill
+NO_SPILL_AT_64 = (*TF32_SOURCES, "flash_fwd_sm90")
 
 
 def _sass_counts(path, pattern: str) -> dict:
@@ -262,26 +284,31 @@ def phase_build():
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
     for name, path, seconds in built:
         # ptxas reports each template instance: summarise registers and spills
-        entry, regs, spills = "", [], []
+        entry, regs, spills, by_entry = "", [], [], []
         for line in path.with_suffix(".log").read_text().splitlines():
             m = re.search(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
-                          r"fused_mlp_kernel|int8_gemm_kernel)I(\w+?)EEvNS", line)
+                          r"fused_mlp_kernel|int8_gemm_kernel)I(\w+?)EEv", line)
             if "Compiling entry function" in line and m:
                 entry = f"{m.group(1)}<{m.group(2)}>"
             if m := re.search(r"Used (\d+) registers", line):
                 regs.append(int(m.group(1)))
+                by_entry.append(f"{entry} {m.group(1)}")
             if (m := re.search(r"(\d+) bytes spill stores", line)) and int(m.group(1)):
                 spills.append(f"{entry} ({m.group(1)} bytes)")
         log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
             + (f": {', '.join(spills)}" if spills else ""))
-        if name in TF32_SOURCES and any("<Li64E" in sp for sp in spills):
+        if name in TMA_SASS:
+            log(f"[build] {name} registers: {', '.join(by_entry)}")
+        if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
             fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
-        if name in TENSOR_CORE_SASS:  # every instance must run on the tensor cores
-            pattern = TENSOR_CORE_SASS[name]
+        # every instance must run on the tensor cores (and the TMA forward load by TMA)
+        for pattern in (TENSOR_CORE_SASS.get(name), TMA_SASS.get(name)):
+            if pattern is None:
+                continue
             counts = _sass_counts(path, pattern)
             for fn, n in sorted(counts.items()):
-                m = re.search(r"\d(flash_\w+?_kernel)I(\w+?)EEvNS", fn)
+                m = re.search(r"\d(flash_\w+?_kernel)I(\w+?)EEv", fn)
                 instance = f"{m.group(1)}<{m.group(2)}>" if m else fn
                 log(f"[build] {name}: {n:4d} {pattern} in {instance}")
             if len(counts) != len(regs) or not all(counts.values()):
@@ -298,6 +325,13 @@ def _bound(flops: float, nbytes: float, dtype_name: str):
     t_ops = flops / PEAKS[dtype_name] * 1e3
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _fwd_tol(dtype_name: str, n_kv: int) -> float:
+    """The limit of max |o - plain| for the forward over n_kv keys."""
+    if n_kv >= LONG_KEYS:
+        return min(FLASH_TOL[dtype_name], LONG_FLASH_TOL)
+    return FLASH_TOL[dtype_name]
 
 
 def _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen):
@@ -328,8 +362,19 @@ SHAPES = [
     (1, 6, 4096, 4096, 96, False),
 ]
 LONG_SHAPE = (1, 6, 32768, 32768, 96, False)  # backward phase only, held one head at a time
-# timed shapes -> prefix of their key in the phases' results ("" + dtype, "vit_l_" + dtype)
-TIMED_SHAPES = {SHAPES[0][:5]: "", SHAPES[1][:5]: "vit_l_"}
+# mae_long's encoder attention on one device (8192 visible tokens, 12 heads of 64, batch
+# 2): the bf16 forward alone, held one head at a time
+LONG_FWD_SHAPE = (2, 12, 8192, 8192, 64, True)
+# timed shapes -> prefix of their key in the phases' results ("" + dtype, "vit_l_" + dtype,
+# "long_bfloat16")
+TIMED_SHAPES = {SHAPES[0][:5]: "", SHAPES[1][:5]: "vit_l_", LONG_FWD_SHAPE[:5]: "long_"}
+# the bf16 forward must take its TMA route at these shapes, packed or not
+TMA_SHAPES = (SHAPES[0][:5], SHAPES[1][:5], LONG_FWD_SHAPE[:5])
+# sap_bf16's decoder attention on one device (batch 16, 512 tokens at its fixed_length,
+# 16 heads of 36): its packed views' heads lie 72 bytes apart, no stride a tensor map
+# takes, so the maps merge the heads into their first dim ("tma"); contiguous copies
+# (72-byte rows) go by a padded copy ("padded"). Both are held and timed.
+SAP_DECODER_SHAPE = (16, 16, 512, 512, 36)
 # the profiler's kernel names: f32 by 3xTF32 and bf16 by wgmma on the tensor cores; the
 # split route's f32 dkv and its dq (both types) on the CUDA cores
 FWD_KERNEL = {"float32": "flash_fwd_tf32_kernel", "bfloat16": "flash_fwd_sm90_kernel"}
@@ -353,20 +398,43 @@ def phase_kernels():
     timed = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for b, h, n_q, n_kv, dh, packed in SHAPES:
+        for b, h, n_q, n_kv, dh, packed in SHAPES + (
+                [LONG_FWD_SHAPE] if dtype_name == "bfloat16" else []):
             q, k, v = _flash_inputs(b, h, n_q, n_kv, dh, dtype, packed, gen)
+            layouts = dict(flash_attention.by_layout)
             out, lse = flash_attention(q, k, v, return_lse=True)
             torch.cuda.synchronize()
-            ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), dh**-0.5)
             if out.dtype != dtype or out.shape != (b, h, n_q, dh) or lse.shape != (b * h, n_q):
                 fail(f"flash_fwd returned {out.dtype} {tuple(out.shape)}, lse {tuple(lse.shape)}")
-            err = (out.float() - ref).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
+            # past 5e7 scores (LONG_FWD_SHAPE) a head at a time, as the backward phase holds
+            # LONG_SHAPE
+            heads = [slice(i, i + 1) for i in range(h)] if n_q * n_kv > 5e7 else [slice(None)]
+            err = lse_err = 0.0
+            for hs in heads:
+                ref, ref_lse = flash_attention_plain(q[:, hs].float(), k[:, hs].float(),
+                                                     v[:, hs].float(), dh**-0.5)
+                err = max(err, (out[:, hs].float() - ref).abs().max().item())
+                lse_err = max(lse_err, (lse.view(b, h, n_q)[:, hs].reshape(-1, n_q)
+                                        - ref_lse).abs().max().item())
+                del ref, ref_lse
             shape = f"[{b},{h},{n_q}x{n_kv},{dh}] {dtype_name}{' qkv-views' if packed else ''}"
+            tol = _fwd_tol(dtype_name, n_kv)
             log(f"[kernel] flash_fwd {shape}: max|o-plain| {err:.3e} "
-                f"(tol {FLASH_TOL[dtype_name]:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
-            if not (err <= FLASH_TOL[dtype_name] and lse_err <= LSE_TOL):
+                f"(tol {tol:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
+            if not (err <= tol and lse_err <= LSE_TOL):
                 fail(f"flash_fwd disagrees with its plain version at {shape}")
+            if dtype_name == "bfloat16" and (b, h, n_q, n_kv, dh) in TMA_SHAPES:
+                # packed, then as contiguous copies: both on the TMA route, the same o
+                views = [(q, k, v), tuple(t.contiguous() for t in (q, k, v))]
+                outs = [out, flash_attention(*views[1])]
+                routes = {r: n - layouts[r] for r, n in flash_attention.by_layout.items()}
+                same = torch.equal(outs[0], outs[1])
+                log(f"[kernel] flash_fwd {shape}: routes of the packed and the contiguous "
+                    f"inputs {routes}; the same o from both: {same}")
+                if routes != {"tma": 2, "padded": 0} or not same:
+                    fail(f"the bf16 forward left its TMA route at {shape}: {routes}, "
+                         f"same o {same}")
+                del views, outs
             if (b, h, n_q, n_kv, dh) not in TIMED_SHAPES:
                 continue
             sm = dh**-0.5
@@ -384,10 +452,47 @@ def phase_kernels():
             }
             log(f"[kernel] flash_fwd {shape} ({FWD_KERNEL[dtype_name]}), device ms per call "
                 f"(host ms per call): kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f} "
-                f"({plain_host:.4f}), scaled_dot_product_attention {library_ms:.4f} "
-                f"({library_host:.4f}); bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+                f"({plain_host:.4f}), "
+                f"scaled_dot_product_attention {library_ms:.4f} ({library_host:.4f}); bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            del q, k, v, out, lse
+    _fwd_routes_at_sap_decoder(gen)
     return timed
+
+
+def _fwd_routes_at_sap_decoder(gen):
+    """The bf16 forward at SAP_DECODER_SHAPE by both routes: packed views (the
+    merged-heads tensor maps) and contiguous copies (the padded copy), each
+    held against the plain version and timed: device ms of every kernel the
+    call launches (the copies too), host ms per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    b, h, n, _, dh = SAP_DECODER_SHAPE
+    packed = _flash_inputs(b, h, n, n, dh, torch.bfloat16, True, gen)
+    sm = dh**-0.5
+    ref, ref_lse = flash_attention_plain(*(t.float() for t in packed), sm)
+    shape = f"[{b},{h},{n}x{n},{dh}] bfloat16"
+    for route, inputs, (q, k, v) in (("tma", "packed", packed),
+                                     ("padded", "contiguous", [t.contiguous() for t in packed])):
+        before = dict(flash_attention.by_layout)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        routes = {r: c - before[r] for r, c in flash_attention.by_layout.items()}
+        err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse.reshape(lse.shape)).abs().max().item()
+        ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm))
+        log(f"[kernel] flash_fwd {shape} (sap_bf16's decoder), {inputs} inputs: routes "
+            f"{routes}; max|o-plain| {err:.3e} (tol {FLASH_TOL['bfloat16']:g}), max|lse-plain| "
+            f"{lse_err:.3e}; device ms per call, every kernel it launches, {ms:.4f} (host "
+            f"{host:.4f})")
+        if routes[route] != 1 or err > FLASH_TOL["bfloat16"] or lse_err > LSE_TOL:
+            fail(f"the bf16 forward at {shape} ({route}): routes {routes}, o error {err:.3e}, "
+                 f"lse error {lse_err:.3e}")
+    library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(*packed, scale=sm))
+    log(f"[kernel] flash_fwd {shape}: scaled_dot_product_attention {library_ms:.4f} ms")
 
 
 def _bwd_work(kind, b, h, n_q, n_kv, dh, esize):
@@ -511,8 +616,8 @@ def phase_bwd_kernels():
                         q[:, i:i + 1].float(), k[:, i:i + 1].float(), v[:, i:i + 1].float(),
                         dh**-0.5)[0]).abs().max().item() for i in range(h))
                 log(f"[kernel] flash_fwd {shape}: max|o-plain| {fwd_err:.3e} "
-                    f"(tol {FLASH_TOL[dtype_name]:g})")
-                if fwd_err > FLASH_TOL[dtype_name]:
+                    f"(tol {_fwd_tol(dtype_name, n_kv):g})")
+                if fwd_err > _fwd_tol(dtype_name, n_kv):
                     fail(f"flash_fwd disagrees with its plain version at {shape}")
             for r in BWD_ROUTES:
                 log(f"[kernel] flash_bwd {r:5s} {shape}: max|d-plain|/max|plain| dq "
@@ -862,6 +967,8 @@ def _launch_counts() -> dict:
     # (bf16 forward, fused and dkv) or flash_bwd.cu (f32 dkv, dq of both types)
     counts.update({f"src:{s}": n for s, n in flash_attention.by_source.items()})
     counts.update({f"src:{s}": n for s, n in flash_attention_bwd.by_source.items()})
+    # the bf16 forward's route: "tma" (q, k, v loaded as they are) or "padded" (copied first)
+    counts.update({f"route:{r}": n for r, n in flash_attention.by_layout.items()})
     return counts
 
 
@@ -900,7 +1007,8 @@ def _expected_counts(depth: int, steps: int, route: str, dropout: bool,
     """The launch counts of `steps` train steps of a model of `depth` blocks:
     `forwards_per_step` flash forwards (2 under remat) and one backward per
     block, each counted under the source its dtype and kind run on: every f32
-    forward and fused backward under the tf32 sources."""
+    forward and fused backward under the tf32 sources, every bf16 forward on
+    the sm90 forward's TMA route."""
     n = depth * steps
     bwd = {"fused": n, "dkv": 0, "dq": 0} if route == "fused" else {"fused": 0, "dkv": n, "dq": n}
     counts = {"flash_fwd": forwards_per_step * n, **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
@@ -912,6 +1020,8 @@ def _expected_counts(depth: int, steps: int, route: str, dropout: bool,
         "src:flash_fwd_sm90": counts["flash_fwd"] if bf16 else 0,
         "src:flash_bwd": sum(bwd.values()) - sm90_bwd - tf32_bwd,
         "src:flash_bwd_sm90": sm90_bwd, "src:flash_bwd_tf32": tf32_bwd,
+        # every bf16 forward of a model path on the TMA route, none copied
+        "route:tma": counts["flash_fwd"] if bf16 else 0, "route:padded": 0,
     })
     return counts
 
@@ -1380,7 +1490,90 @@ def phase_serve():
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------- two checkouts
+
+COMPARE_CALLS, COMPARE_WINDOWS = 2000, 9
+
+
+def _use(modules: dict) -> None:
+    """Make `modules` the process's `ucf_vit_tpu_torch`: the package imports
+    some of its modules when called, and must find its own."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "ucf_vit_tpu_torch"]:
+        del sys.modules[name]
+    sys.modules.update(modules)
+
+
+def _load_forward(checkout: str):
+    """(`flash_attention` of the package in `checkout`, imported afresh, and
+    that package's modules)."""
+    _use({})
+    sys.path.insert(0, checkout)
+    try:
+        from ucf_vit_tpu_torch.ops import build  # noqa: F401  (imported when called)
+        from ucf_vit_tpu_torch.ops.flash_attention import flash_attention
+    finally:
+        sys.path.remove(checkout)
+    return flash_attention, {m: mod for m, mod in sys.modules.items()
+                             if m.split(".")[0] == "ucf_vit_tpu_torch"}
+
+
+def compare_forward(other: str) -> None:
+    """The bf16 forward of this checkout and of `other`, in one process, on
+    the packed qkv views of ViT-B/16's and ViT-L/16's shapes and mae_long's
+    encoder (`TIMED_SHAPES`): device ms per call of `flash_fwd_sm90_kernel`
+    (`device_ms`) beside scaled_dot_product_attention's; and at the ViT
+    shapes, where the kernel is shorter than the host's work for a call, the
+    host's us per call: COMPARE_CALLS back-to-back calls ending in a
+    synchronize, in COMPARE_WINDOWS windows a checkout taken in turns, so
+    that the host's drift falls on both alike (between processes one tree's
+    host time spreads by 10-20 us on an H100 host); the median per checkout
+    and the median of the per-round differences."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    checkouts = [REPO, other]
+    forwards = [_load_forward(c) for c in checkouts]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, n, _, dh in TIMED_SHAPES:
+        q, k, v = _flash_inputs(b, h, n, n, dh, torch.bfloat16, True, gen)
+        sm = dh**-0.5
+        calls = [lambda f=f: f(q, k, v, sm_scale=sm) for f, _ in forwards]
+        device = []
+        for call, (_, modules) in zip(calls, forwards):
+            _use(modules)
+            device.append(device_ms(call, FWD_KERNEL["bfloat16"])[0])
+        sdpa_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm))
+        host = [[] for _ in range(COMPARE_WINDOWS)] if n * n < 5e7 else []
+        for r in range(-1, len(host)):  # round -1 warms up
+            for call, (_, modules) in zip(calls, forwards):
+                _use(modules)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(COMPARE_CALLS):
+                    call()
+                torch.cuda.synchronize()
+                if r >= 0:
+                    host[r].append((time.perf_counter() - t0) / COMPARE_CALLS * 1e6)
+        for i, c in enumerate(checkouts):
+            line = f"[compare] {c} [{b},{h},{n},{dh}] bf16 qkv-views: kernel {device[i]:.4f} ms"
+            if host:
+                line += f", host {statistics.median(r[i] for r in host):.2f} us per call"
+            if host and i:
+                diff = statistics.median(r[i] - r[0] for r in host)
+                line += f" ({diff:+.2f} us against this checkout, median of rounds)"
+            log(line)
+        log(f"[compare] [{b},{h},{n},{dh}] scaled_dot_product_attention {sdpa_ms:.4f} ms")
+    _use({})
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--compare"):
+        fail("usage: chip_smoke.py [--compare CHECKOUT]")
+    if args and not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
+        fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
     if not os.path.isdir(os.path.join(REPO, "ucf_vit_tpu_torch")) or not os.path.isfile(CONFIG):
         fail(f"{REPO} is not a checkout of the repository (no ucf_vit_tpu_torch/ or config)")
     import torch
@@ -1393,6 +1586,10 @@ def main() -> int:
     if torch.cuda.get_device_name(0) != CARD:
         fail(f"no published peaks for {torch.cuda.get_device_name(0)!r}; this script "
              f"knows the {CARD}")
+    if args:
+        compare_forward(os.path.abspath(args[1]))
+        print(card, flush=True)
+        return 0
     phase_build()
     fwd = phase_kernels()
     bwd = phase_bwd_kernels()

@@ -6,11 +6,16 @@ kernel's own, and the dispatch rules. Also the arithmetic of the f32 kernels'
 from numpy seeds.
 
 The CUDA kernel itself runs only on the card: see
-tests/test_torch_flash_cuda.py."""
+tests/test_torch_flash_cuda.py. What decides, on the host, which layouts the
+bf16 forward's TMA loads take (`fwd_layout`) is tested here on CPU tensors."""
+
+import glob
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import yaml
 
 torch = pytest.importorskip("torch")
 
@@ -27,9 +32,14 @@ from ucf_vit_tpu_torch.ops.attention import (
     resolve_impl,
 )
 from ucf_vit_tpu_torch.ops.flash_attention import (
+    TMA_BOX,
+    _padded,
+    _tensor_map,
+    _tokens_major,
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
+    fwd_layout,
 )
 
 TOL = 1e-5  # f32: both sides sum the same products in another order
@@ -237,3 +247,120 @@ def test_3xtf32_split_keeps_f32_accuracy():
     # the emulated rounding is cvt.rna's: ties go away from zero
     x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3.0], dtype=torch.float32)
     assert _tf32_round(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]
+
+
+# ---------------------------------------------------------------- the forward's TMA layouts
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _packed_views(b, n, h, dh):
+    """q, k, v as the model hands them over: `[B, H, N, dh]` views of one
+    `[B, N, 3, H, dh]` qkv projection output (`models/blocks.py`)."""
+    qkv = torch.zeros(b, n, 3, h, dh, dtype=torch.bfloat16)
+    return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
+
+
+def _o(q):
+    b, h, n, dh = q.shape
+    return _tokens_major(b, n, h, dh, q.dtype, q.device)
+
+
+@pytest.mark.parametrize("h", [12, 3], ids=["even_h", "odd_h"])
+@pytest.mark.parametrize("dh", [36, 64, 96, 128])
+def test_fwd_layout_packed_qkv_views(dh, h):
+    """Packed views take the TMA route as they are, but for dh 36 with an odd
+    head count: its rows (3 * H * 72 bytes) and k's and v's offsets (H * 72)
+    are then no multiple of 16 bytes. dh 36's 72-byte head stride merges the
+    heads into dim 0 of the map."""
+    q, k, v = _packed_views(2, 65, h, dh)
+    route, maps = fwd_layout(q, k, v, _o(q))
+    if dh == 36 and h % 2:
+        assert route == "padded" and maps == (None, None, None)
+        return
+    assert route == "tma"
+    row = 3 * h * dh * 2  # bytes between tokens
+    if dh == 36:  # heads merged: dims (all heads' columns, rows, 1, batch), head step 36
+        want = ((h - 1) * 36 + 36, 65, 1, 2, row, 16, 65 * row, 36)
+    else:
+        want = (dh, 65, h, 2, row, 2 * dh, 65 * row, 0)
+    assert maps == (want, want, want)
+    assert TMA_BOX == (64, 64, 1, 1)
+
+
+def test_fwd_layout_contiguous_offset_and_copies():
+    """Contiguous `[B, H, N, dh]` takes TMA when its rows are a multiple of 16
+    bytes (dh 64) and not otherwise (dh 36, 72-byte rows); a base that is not
+    16-byte aligned does not either. The padded copy the wrapper then makes
+    (zeros past dh, rows of ceil8(dh)) is a layout TMA takes."""
+    q = torch.zeros(2, 4, 65, 64, dtype=torch.bfloat16)
+    assert fwd_layout(q, q, q, _o(q)) == ("tma", ((64, 65, 4, 2, 128, 8320, 33280, 0),) * 3)
+    c36 = torch.zeros(2, 4, 65, 36, dtype=torch.bfloat16)
+    assert fwd_layout(c36, c36, c36, _o(c36))[0] == "padded"
+    shifted = torch.zeros(2, 4, 65, 72, dtype=torch.bfloat16)[..., 4:68]  # base + 8 bytes
+    assert shifted.data_ptr() % 16 == 8
+    route, maps = fwd_layout(q, shifted, q, _o(q))
+    assert route == "padded" and maps[0] is not None and maps[1] is None
+    for t in (c36, shifted):
+        pad = _padded(t)
+        assert pad.is_contiguous() and pad.shape[-1] % 8 == 0
+        assert torch.equal(pad[..., :t.shape[-1]], t) and not pad[..., t.shape[-1]:].any()
+        assert _tensor_map(pad) is not None
+
+
+def test_fwd_layout_q_and_k_share_head_offsets():
+    """q and k must place each head at the same column of their boxes: a
+    merged (dh 36 packed) k beside a q that is copied for TMA (offset 0) is
+    copied too; v may differ from both."""
+    q, k, v = _packed_views(2, 65, 12, 36)
+    c36 = q.contiguous()  # 72-byte rows: copied
+    route, maps = fwd_layout(c36, k, v, _o(q))
+    assert route == "padded" and maps[0] is None and maps[1] is None and maps[2][7] == 36
+    # merged q and k with equal head steps stay as they are
+    assert fwd_layout(q, k, v, _o(q))[0] == "tma"
+
+
+def test_fwd_layout_needs_o_rows_contiguous():
+    """o is written by the kernel's own stores: any strides with the last dim
+    contiguous, as `_tokens_major` makes it; another o is refused."""
+    q, k, v = _packed_views(1, 9, 2, 64)
+    o = _o(q)
+    assert o.stride(-1) == 1 and not o.is_contiguous()
+    assert fwd_layout(q, k, v, o)[0] == "tma"
+    with pytest.raises(ValueError, match="last dim contiguous"):
+        fwd_layout(q, k, v, torch.zeros(1, 2, 64, 9, dtype=torch.bfloat16).transpose(2, 3))
+
+
+def _bf16_attention_widths():
+    """(config, embed dim, heads) of every attention in the shipped bf16
+    configs: the encoder's and, where there is one, the decoder's."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(REPO, "configs", "**", "base_config.yaml"),
+                                 recursive=True)):
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        if raw.get("trainer", {}).get("data_type") != "bfloat16":
+            continue
+        args = raw["model"]["net"]["init_args"]
+        name = os.path.relpath(os.path.dirname(path), os.path.join(REPO, "configs"))
+        out.append((name, args["embed_dim"], args["num_heads"]))
+        if args.get("decoder_embed_dim"):
+            out.append((name + " decoder", args["decoder_embed_dim"], args["decoder_num_heads"]))
+    return out
+
+
+BF16_WIDTHS = _bf16_attention_widths()
+
+
+@pytest.mark.parametrize("name,embed,heads", BF16_WIDTHS, ids=[w[0] for w in BF16_WIDTHS])
+def test_fwd_layout_every_bf16_config_takes_tma(name, embed, heads):
+    """Every attention the bf16 configs run (ViT-L dh 64, mae_long dh 64 and
+    96, sap_bf16's decoder dh 36 with 16 heads, ...) loads its packed qkv
+    views by TMA, with q and k normalised (`qk_norm`, new contiguous tensors)
+    as well."""
+    dh = embed // heads
+    q, k, v = _packed_views(2, 65, heads, dh)
+    assert fwd_layout(q, k, v, _o(q))[0] == "tma", (name, dh, heads)
+    qn, kn = (torch.zeros(2, 65, heads, dh, dtype=torch.bfloat16).transpose(1, 2)
+              for _ in "qk")
+    assert fwd_layout(qn, kn, v, _o(q))[0] == "tma", (name, dh, heads)

@@ -15,10 +15,12 @@ torch = pytest.importorskip("torch")
 from ucf_vit_tpu_torch.models.blocks import Block
 from ucf_vit_tpu_torch.ops.attn_dropout import keep_mask
 from ucf_vit_tpu_torch.ops.flash_attention import (
+    _tokens_major,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_plain,
+    fwd_layout,
     reset_launch_counts,
 )
 from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
@@ -30,6 +32,10 @@ from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quan
 SHAPES = [(2, 12, 257, 257, 64), (2, 3, 197, 197, 36), (2, 3, 1, 257, 96),
           (1, 2, 300, 130, 128), (1, 2, 130, 300, 48), (1, 2, 65, 70, 33)]
 FWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# bf16 o with 4096 keys or more: randn inputs give entries of about sqrt(e / Nkv) (0.015
+# at 8192 keys), under FWD_TOL's 2e-2, so a wrong tile would pass it; 2e-3 is about four
+# times the error measured at mae_long's encoder shape on an H100 (4.7e-4)
+LONG_FWD_TOL, LONG_KEYS = 2e-3, 4096
 # backward, relative to max |ref|: f32 sums in other orders (and dq's atomics
 # in a run-dependent order); bf16 rounds the outputs
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -145,12 +151,13 @@ def test_block_qkv_grad_flash_matches_einsum_on_card():
 
 # The bf16 tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) at what they
 # must take: (b, h, n_q, n_kv, dh, packed). dh 64, 36 (8-byte rows copies), 96 and
-# 128 (padded to 128) as views of one packed qkv; Nq = 1; Nq 8448 x Nkv 640 (the MAE
-# decoder's long queries); dh 33, whose rows are only 2-byte aligned
+# 128 (padded to 128) as views of one packed qkv; dh 36 with 16 heads (sap_bf16's
+# decoder: the forward's tensor maps merge the heads into dim 0); Nq = 1; Nq 8448 x
+# Nkv 640 (the MAE decoder's long queries); dh 33, whose rows are only 2-byte aligned
 SM90_SHAPES = [(2, 4, 257, 257, 64, True), (2, 3, 197, 197, 36, True),
                (2, 2, 197, 197, 96, True), (1, 2, 197, 197, 128, True),
-               (4, 3, 1, 257, 64, False), (1, 2, 8448, 640, 96, False),
-               (1, 2, 65, 33, 33, False)]
+               (1, 16, 197, 197, 36, True), (4, 3, 1, 257, 64, False),
+               (1, 2, 8448, 640, 96, False), (1, 2, 65, 33, 33, False)]
 
 
 def _sm90_inputs(b, h, n_q, n_kv, dh, packed, seed):
@@ -196,6 +203,92 @@ def test_sm90_kernels_match_plain_on_card(route, rate):
         for name, g, w in zip("qkv", got, want):
             assert g.dtype == torch.bfloat16 and g.shape == w.shape
             assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16], (name, shape)
+
+
+# The bf16 forward's route into its kernel by layout (`fwd_layout`): (b, h, n_q, n_kv,
+# dh, packed, route). Packed views at dh 64 and at dh 36 with 16 heads load as they
+# are; dh 36 with 3 heads (rows of 648 bytes) and contiguous dh 36 and 33 (rows of 72
+# and 66 bytes) are first copied to rows of ceil8(dh)
+ROUTE_CASES = [(2, 4, 257, 257, 64, True, "tma"), (1, 16, 197, 197, 36, True, "tma"),
+               (2, 3, 197, 197, 36, True, "padded"), (4, 16, 197, 197, 36, False, "padded"),
+               (1, 2, 65, 70, 33, False, "padded")]
+# mae_long's encoder attention on one device, held against the plain version a head
+# at a time
+LONG_FWD = (2, 12, 8192, 8192, 64)
+
+
+def _held_forward(q, k, v, heads=None, **drop):
+    """o of the forward, its o and lse held against the f32 plain version: of
+    the listed heads one at a time (at rate 0: a head's slice numbers its
+    batch-heads from 0, so its dropout mask would differ), else of all."""
+    dh = q.shape[-1]
+    o, lse = flash_attention(q, k, v, return_lse=True, **drop)
+    torch.cuda.synchronize()
+    b, h, n_q, _ = q.shape
+    args = (drop.get("dropout_rate", 0.0), drop.get("dropout_seed") or 0,
+            *drop.get("dropout_offset", (0, 0)))
+    assert heads is None or args[0] == 0.0
+    for hs in [slice(None)] if heads is None else [slice(i, i + 1) for i in heads]:
+        ref_o, ref_lse = flash_attention_plain(q[:, hs].float(), k[:, hs].float(),
+                                               v[:, hs].float(), dh**-0.5, *args)
+        tol = LONG_FWD_TOL if k.shape[2] >= LONG_KEYS else FWD_TOL[torch.bfloat16]
+        assert (o[:, hs].float() - ref_o).abs().max().item() <= tol
+        got_lse = lse.view(b, h, n_q)[:, hs].reshape(-1, n_q)
+        assert (got_lse - ref_lse).abs().max().item() <= 5e-5
+    return o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "x".join(map(str, c[:5])) + c[6])
+def test_sm90_forward_routes_on_card(case):
+    """Each layout takes the route `fwd_layout` gives it, counted in
+    `flash_attention.by_layout`, and either route agrees with the plain version,
+    also with dropout at a nonzero (row0, col0)."""
+    _card()
+    b, h, n_q, n_kv, dh, packed, route = case
+    q, k, v, _ = _sm90_inputs(b, h, n_q, n_kv, dh, packed, seed=dh)
+    assert fwd_layout(q, k, v, _tokens_major(b, n_q, h, dh, q.dtype, q.device))[0] == route
+    for drop in ({}, {"dropout_rate": 0.1, "dropout_seed": 9, "dropout_offset": (3, 5)}):
+        reset_launch_counts()
+        _held_forward(q, k, v, **drop)
+        assert flash_attention.by_layout == {"tma": route == "tma", "padded": route == "padded"}
+        assert flash_attention.by_source == {"flash_fwd_tf32": 0, "flash_fwd_sm90": 1}
+
+
+@pytest.mark.cuda
+def test_sm90_forward_takes_offset_bases_by_copy_on_card():
+    """A base 8 bytes past a 16-byte boundary is no TMA address: that tensor is
+    copied, the others load as they are, and o is the same."""
+    _card()
+    q, k, v, _ = _sm90_inputs(2, 4, 130, 130, 64, False, seed=5)
+    wide = torch.zeros(2, 4, 130, 72, device="cuda", dtype=torch.bfloat16)
+    wide[..., 4:68] = k
+    shifted = wide[..., 4:68]
+    assert shifted.data_ptr() % 16 == 8
+    reset_launch_counts()
+    o = _held_forward(q, shifted, v)
+    assert flash_attention.by_layout == {"tma": 0, "padded": 1}
+    assert torch.equal(o, flash_attention(q, k, v))
+    assert flash_attention.by_layout == {"tma": 1, "padded": 1}
+
+
+@pytest.mark.cuda
+def test_sm90_forward_matches_plain_at_card_shapes_and_long_on_card():
+    """The bf16 forward at every card shape (contiguous inputs: each on the route
+    its layout gives) and at mae_long's encoder shape (packed, on the TMA
+    route; the first and last heads held against the plain version)."""
+    _card()
+    for b, h, n_q, n_kv, dh in SHAPES:
+        q, k, v, _ = _inputs(b, h, n_q, n_kv, dh, torch.bfloat16, seed=3)
+        route = fwd_layout(q, k, v, _tokens_major(b, n_q, h, dh, q.dtype, q.device))[0]
+        reset_launch_counts()
+        _held_forward(q, k, v)
+        assert flash_attention.by_layout[route] == 1, (b, h, n_q, n_kv, dh)
+    b, h, n, _, dh = LONG_FWD
+    q, k, v, _ = _sm90_inputs(b, h, n, n, dh, True, seed=11)
+    reset_launch_counts()
+    _held_forward(q, k, v, heads=[0, h - 1])
+    assert flash_attention.by_layout == {"tma": 1, "padded": 0}
 
 
 def _launch_sources(dt, route):

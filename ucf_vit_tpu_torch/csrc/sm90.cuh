@@ -4,6 +4,8 @@
 // - cp.async copies from device memory straight into the 128-byte-swizzled tile layout
 //   that a wgmma shared-memory descriptor reads, with zero fill through the src-size
 //   operand (rows past the sequence, columns past dh);
+// - TMA tensor loads (cp.async.bulk.tensor) into the same layout, counted on mbarriers,
+//   with the mbarrier operations of a producer/consumer ring (the forward);
 // - warpgroup matrix products `wgmma.mma_async ... m64n64k16.f32.bf16.bf16`, with A
 //   from shared memory or from registers and B from shared memory, K-major or MN-major;
 // - the fences, commits and waits that order them.
@@ -119,6 +121,69 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
     case 8: load_tile_cb<8, NP>(dst, src, sn, row0, nrows, dh); break;
     default: load_tile_cb<2, NP>(dst, src, sn, row0, nrows, dh); break;
   }
+}
+
+// ------------------------------------------------------------------ TMA and mbarriers
+//
+// A tile loaded by `cp.async.bulk.tensor` (TMA) with a tensor map encoded for
+// CU_TENSOR_MAP_SWIZZLE_128B and a box of 64 bf16 columns lands in exactly the panel
+// layout above: the hardware writes row r's 16-byte chunk c at r * 128 + ((c ^ (r % 8))
+// * 16) of a 1024-byte-aligned destination. Completion is counted in bytes on an
+// mbarrier in shared memory (expect_tx by the issuing thread, complete_tx by the copy).
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+
+// Make the initialised barriers visible to the other threads and to the async proxy
+// (TMA); a __syncthreads follows.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival that also announces `bytes` to come from asynchronous copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (the barrier's current phase
+// differs from it): the n-th completion (from 0) is waited for with parity n & 1.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A box of a 4-d tensor map into shared memory at `dst`, counted on `bar`. Coordinates
+// are in elements, innermost first; out-of-range elements arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Barrier among the `threads` threads (a multiple of 32) that use barrier `id` (1..15;
+// 0 is __syncthreads').
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ------------------------------------------------------------------ wgmma

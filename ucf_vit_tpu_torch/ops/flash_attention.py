@@ -17,8 +17,12 @@ fused kernels add dq with f32 atomics into a zeroed f32 workspace, so dq's
 order of sums changes from run to run.
 
 The dtype, and for the backward the kind, picks the source. bf16 runs on the
-tensor cores by `wgmma`: `csrc/flash_fwd_sm90.cu` (forward) and
-`csrc/flash_bwd_sm90.cu` (fused and dkv). f32 runs on the tensor cores too,
+tensor cores by `wgmma`: `csrc/flash_fwd_sm90.cu` (forward: TMA loads into
+an mbarrier ring fed by a producer warp, a persistent grid) and
+`csrc/flash_bwd_sm90.cu` (fused and dkv). The bf16 forward's tensor maps come
+from `fwd_layout`, decided from the strides and pointers before each launch:
+q, k, v load as they are, or a tensor TMA cannot address is first copied
+(the route "padded", counted in `flash_attention.by_layout`). f32 runs on the tensor cores too,
 f32-accurate by the 3xTF32 split on `mma.sync` (`csrc/tf32x3.cuh`: each
 operand split into two TF32 parts, three TF32 products summed in f32):
 `csrc/flash_fwd_tf32.cu` and `csrc/flash_bwd_tf32.cu` (fused).
@@ -39,6 +43,7 @@ backward kernel (or its plain version, on the CPU).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -62,6 +67,8 @@ _BWD_SOURCES_BY_KIND = {(torch.bfloat16, "fused"): "flash_bwd_sm90",
 # host's noise of the split route at the short bf16 ones (PERF.md, "Routes"),
 # so the dkv + dq pair runs only when asked for.
 BWD_ROUTES = ("fused", "split")
+# The bf16 forward's routes into its kernel (`fwd_layout`)
+FWD_LAYOUTS = ("tma", "padded")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -136,25 +143,34 @@ _LONG3 = [ctypes.c_longlong] * 3
 _DROPOUT_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                  ctypes.c_float, ctypes.c_void_p]
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _LONG3 * 4 + [ctypes.c_float]
+# per tensor map: dims d0..d3, byte strides s1..s3, the head's column step
+_MAP_ARGS = [ctypes.c_longlong] * 7 + [ctypes.c_int]
+_FWD_TMA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _MAP_ARGS * 3 + [ctypes.c_int] * 2
+                 + _LONG3 + [ctypes.c_float])
 _BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _LONG3 * 7 + [
     ctypes.c_float]
 _ARGTYPES = {  # each source's C entry `ucf_<name>`; flash_bwd also takes the dtype
     "flash_fwd_tf32": _FWD_ARGS + _DROPOUT_ARGS,
-    "flash_fwd_sm90": _FWD_ARGS + _DROPOUT_ARGS,
+    "flash_fwd_sm90": _FWD_TMA_ARGS + _DROPOUT_ARGS,
     "flash_bwd": _BWD_ARGS + [ctypes.c_int] + _DROPOUT_ARGS,
     "flash_bwd_sm90": _BWD_ARGS + _DROPOUT_ARGS,
     "flash_bwd_tf32": _BWD_ARGS + _DROPOUT_ARGS,
 }
 
 
+_FNS: dict = {}  # source -> its bound C entry, once loaded
+
+
 def _library(name: str):
+    fn = _FNS.get(name)
+    if fn is not None:
+        return fn
     from ucf_vit_tpu_torch.ops.build import load
 
-    lib = load(name)
-    fn = getattr(lib, f"ucf_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+    fn = getattr(load(name), f"ucf_{name}")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    _FNS[name] = fn
     return fn
 
 
@@ -190,7 +206,8 @@ def _dropout_args(rate: float, seed: int, row0: int, col0: int):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card, as the raw handle the C entries take."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _tokens_major(b, n, h, dh, dtype, device) -> torch.Tensor:
@@ -198,6 +215,94 @@ def _tokens_major(b, n, h, dh, dtype, device) -> torch.Tensor:
     caller's transpose back to tokens-major and the merge of the heads (or the
     stack into the qkv gradient) read it in order."""
     return torch.empty((b, n, h, dh), dtype=dtype, device=device).transpose(1, 2)
+
+
+# The bf16 forward's tile as a TMA box: 64 columns (128 bytes, the swizzle's span) by
+# 64 rows, one head, one batch entry.
+TMA_BOX = (64, 64, 1, 1)
+_ENCODE_FAILED = 10000  # csrc/flash_fwd_sm90.cu: ENCODE_FAILED (+ the driver's CUresult)
+
+
+def _tensor_map(t: torch.Tensor):
+    """The TMA tensor map of a bf16 `[B, H, N, dh]` view with its last dim
+    contiguous, as the flat tuple `(d0, d1, d2, d3, s1, s2, s3, hcol)`: dims
+    innermost first (d0 columns, d1 rows, d2 heads, d3 batch) and the byte
+    strides of d1..d3. TMA needs a 16-byte aligned base and strides that are
+    multiples of 16 bytes; a dim of extent 1 is never stepped, so its stride is
+    free (16 is given). Heads whose stride is no such multiple (dh 36 in a
+    packed qkv) merge into dim 0 instead: d2 = 1, and head i's columns start at
+    `i * hcol`. A box must start on a 16-byte boundary, so the kernel starts
+    head i's box at the multiple of 8 at or below that column, and the head
+    then sits up to `8 - gcd(hcol, 8)` columns into the box's 64: the layout
+    serves a dh that fits beside that offset. None where TMA cannot address
+    the view."""
+    b, h, n, dh = t.shape
+    return _map_of(b, h, n, dh, t.stride(), t.data_ptr() & 15)
+
+
+def _map_of(b: int, h: int, n: int, dh: int, stride, misaligned: int):
+    """`_tensor_map` of a `[b, h, n, dh]` view with these strides (in
+    elements) whose base is `misaligned` bytes past a 16-byte boundary."""
+    sb, sh, sn, _ = stride  # elements: a multiple of 8 is 16 bytes
+    if misaligned:
+        return None
+    if sn & 7:
+        if n > 1:
+            return None
+        sn = 8
+    if sb & 7:
+        if b > 1:
+            return None
+        sb = 8
+    if not sh & 7:
+        return (dh, n, h, b, 2 * sn, 2 * sh, 2 * sb, 0)
+    if h == 1:
+        return (dh, n, 1, b, 2 * sn, 16, 2 * sb, 0)
+    if dh + 8 - (sh & -sh) <= 64:
+        return ((h - 1) * sh + dh, n, 1, b, 2 * sn, 16, 2 * sb, sh)
+    return None
+
+
+def fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor):
+    """Which route takes bf16 `q, k, v` into the forward kernel (and writes
+    `o`), decided from their strides and pointers before the launch:
+    `("tma", maps)` when TMA can load all three as they are, else
+    `("padded", maps)`, where a map of None marks a tensor that the wrapper
+    first copies to a contiguous `[B, H, N, ceil8(dh)]` (zeros past dh), which
+    TMA can load. `maps` holds the tensor maps (`_tensor_map`) of q, k and v,
+    each read with the box `TMA_BOX`. q and k must place each head at the same
+    column of their boxes (their `hcol` equal modulo 8), or the merged one of
+    them is copied. o is written by the kernel's own stores and needs only its
+    last dim contiguous."""
+    if o.stride(-1) != 1:
+        raise ValueError("the flash forward writes o with its last dim contiguous")
+    b, h, n_q, dh = q.shape
+    return _layout_of(b, h, n_q, k.shape[2], dh, q.stride(), k.stride(), v.stride(),
+                      q.data_ptr() & 15, k.data_ptr() & 15, v.data_ptr() & 15)
+
+
+# A training step hands the forward a few layouts over and over (ViT-L: one, 192 times
+# a step): each is worked out once.
+@functools.lru_cache(maxsize=256)
+def _layout_of(b, h, n_q, n_kv, dh, q_stride, k_stride, v_stride, q_mis, k_mis, v_mis):
+    """`fwd_layout` of `[b, h, n, dh]` views (n_q rows for q, n_kv for k and v)
+    with these strides, their bases that many bytes past a 16-byte boundary."""
+    qm = _map_of(b, h, n_q, dh, q_stride, q_mis)
+    km = _map_of(b, h, n_kv, dh, k_stride, k_mis)
+    vm = _map_of(b, h, n_kv, dh, v_stride, v_mis)
+    # a copy (None) is laid out [B, H, N, ceil8(dh)]: hcol 0
+    if ((qm[7] if qm else 0) - (km[7] if km else 0)) % 8:
+        qm = qm if qm is None or qm[7] % 8 == 0 else None
+        km = km if km is None or km[7] % 8 == 0 else None
+    maps = (qm, km, vm)
+    return ("padded" if None in maps else "tma"), maps
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` with its last dim padded by zeros to a multiple
+    of 8 (16 bytes): a layout that TMA can load."""
+    dh = t.shape[-1]
+    return torch.nn.functional.pad(t, (0, -dh % 8))
 
 
 def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int, col0: int):
@@ -208,17 +313,38 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
     lse = torch.empty((b * h, n_q), dtype=torch.float32, device=q.device)
     source = _FWD_SOURCES[q.dtype]
     fn = _library(source)
+    drop = _dropout_args(rate, seed, row0, col0)
+    layout = None
     with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, n_q, n_kv, dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            float(sm_scale), *_dropout_args(rate, seed, row0, col0), _stream(q),
-        )
+        if q.dtype == torch.bfloat16:
+            ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+            layout, maps = _layout_of(b, h, n_q, n_kv, dh, q.stride(), k.stride(), v.stride(),
+                                      ptrs[0] & 15, ptrs[1] & 15, ptrs[2] & 15)
+            if layout == "padded":
+                qkv = [t if m is not None else _padded(t) for t, m in zip((q, k, v), maps)]
+                maps = tuple(m if m is not None else _tensor_map(t) for t, m in zip(qkv, maps))
+                ptrs = [t.data_ptr() for t in qkv]
+            err = fn(
+                *ptrs, o.data_ptr(), lse.data_ptr(),
+                b, h, n_q, n_kv, dh, *maps[0], *maps[1], *maps[2],
+                TMA_BOX[0], TMA_BOX[1], *o.stride()[:3], float(sm_scale), *drop, _stream(q),
+            )
+        else:
+            err = fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                b, h, n_q, n_kv, dh,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                float(sm_scale), *drop, _stream(q),
+            )
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{source}: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{err - _ENCODE_FAILED}; 0: the driver entry point was not found)")
     if err != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.by_source[source] += 1
+    if layout is not None:
+        flash_attention.by_layout[layout] += 1
     if rate > 0.0:
         keep_mask.launches += 1
     return o, lse
@@ -317,6 +443,7 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     flash_attention.launches = 0
     flash_attention.by_source = {source: 0 for source in _FWD_SOURCES.values()}
+    flash_attention.by_layout = {layout: 0 for layout in FWD_LAYOUTS}
     flash_attention_bwd.launches = 0
     flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
     flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES}
@@ -391,6 +518,9 @@ def flash_attention(
 
 
 # Forward kernel launches since the count was last set to 0 (CPU calls do not
-# count): the total and the split by source.
+# count): the total, the split by source, and the bf16 launches split by route
+# (`fwd_layout`): "tma" loaded q, k and v as they were, "padded" first copied
+# one of them to a layout that TMA can load.
 flash_attention.launches = 0
 flash_attention.by_source = {source: 0 for source in _FWD_SOURCES.values()}
+flash_attention.by_layout = {layout: 0 for layout in FWD_LAYOUTS}
