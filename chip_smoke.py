@@ -40,6 +40,13 @@ result):
             (`flash_attention.by_layout`) at the ViT-B, ViT-L and long
             shapes, packed or not, and is held and timed on both routes at
             sap_bf16's decoder shape (SAP_DECODER_SHAPE).
+            At mae_long's shapes (MAE_SHAPES, packed views): the bf16 forward
+            at the decoder's [2, 6, 32768^2, 96] (dh 96 in the DH = 128
+            instance) and the fused backward at the encoder's [2, 12, 8192^2,
+            64] and the decoder's, held a head at a time against the plain
+            versions (the forward to MAE_DEC_FWD_TOL, the backward to
+            LONG_BWD_TOL) and timed beside them and
+            scaled_dot_product_attention (forward and backward).
             Then the two ops that no model is wired to, in either package:
             `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
             (bf16 and f32, tanh and erf GELU), and `int8_matmul` at the
@@ -70,9 +77,17 @@ result):
             after (every bf16 forward on the TMA route); a timed and a traced
             window of 10 steps; and a short window with remat off, for what
             remat costs and saves.
-            It runs last: on an H100 host a server started after it in the
-            same process answered 233 requests/s, against 260-300 for one
-            started before it.
+            It runs after serving: on an H100 host a server started after it
+            in the same process answered 233 requests/s, against 260-300 for
+            one started before it.
+7. mae:     configs/basic_ct/mae_long/base_config.yaml (MAE at full width and
+            depth: a 32768-patch 128^3 tile, an 8192-token encoder, a
+            32768-token decoder; bf16, remat, batch 2, maskMSE) through the
+            trainer's CLI entry with `--single-device`, the launch counts set
+            to 0 before it and read after (every bf16 forward on the TMA
+            route); a timed and a traced window; the loss falling on one fixed
+            batch; FLASH against EINSUM on a copy of depth 1 with a 64^3 tile
+            (per-step losses, and the first step's gradients leaf by leaf).
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -96,6 +111,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "catsdogs", "classification", "base_config.yaml")
 VIT_L_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification_vit_l",
                             "base_config.yaml")
+MAE_CONFIG = os.path.join(REPO, "configs", "basic_ct", "mae_long", "base_config.yaml")
 MAX_BATCH = 16
 SEQUENTIAL_REQUESTS = 8
 LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
@@ -129,6 +145,19 @@ MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BF16_TRAIN_LOSS_TOL = 2e-2
 VIT_L_MAIN_STEPS = 3  # the CLI entry itself
 VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 10, 3, 5
+MAE_MAIN_STEPS = 3  # mae_long through the CLI entry
+MAE_WARMUP_STEPS, MAE_TIMED_STEPS = 2, 3  # and the timed and traced windows
+MAE_FALL_STEPS = 5  # on one fixed batch
+MAE_CHECK_STEPS, MAE_CHECK_TILE = 3, 64  # FLASH against EINSUM on the depth-1 copy
+# that check's limits, set from its readings on an H100: the per-step loss, a loss near
+# 1.25 that hardly depends on attention (1.9e-6, so 2e-5), and, leaf by leaf, the first
+# step's gradients as max |g_flash - g_einsum| / max |g_einsum| (3.4e-3 to 3.8e-3 on the
+# attention leaves, 5.8e-3 the largest of all 37 leaves, so 2e-2)
+MAE_CHECK_LOSS_TOL = 2e-5
+MAE_CHECK_GRAD_TOL = 2e-2
+# the leaves whose gradients pass through attention first: the kernels' dq, dk, dv
+MAE_ATTN_LEAVES = ("blocks.0.attn.qkv.weight", "blocks.0.attn.proj.weight",
+                   "decoder_blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.proj.weight")
 PROFILE_TRIES = 3  # profiler windows per device time, if one records nothing
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
@@ -375,6 +404,22 @@ TMA_SHAPES = (SHAPES[0][:5], SHAPES[1][:5], LONG_FWD_SHAPE[:5])
 # takes, so the maps merge the heads into their first dim ("tma"); contiguous copies
 # (72-byte rows) go by a padded copy ("padded"). Both are held and timed.
 SAP_DECODER_SHAPE = (16, 16, 512, 512, 36)
+# mae_long's decoder attention on one device (batch 2, all 32768 tokens, 6 heads of 96):
+# packed views with a 192-byte head stride, so the DH = 128 instance takes columns 96-127
+# from TMA's zero fill past the map's first dim, never from the next head
+MAE_DEC_SHAPE = (2, 6, 32768, 32768, 96, True)
+MAE_SHAPES = {"encoder": LONG_FWD_SHAPE, "decoder": MAE_DEC_SHAPE}  # phase_mae_kernels
+# the bf16 fused backward at MAE_SHAPES, max |d - plain| over max |plain|: the readings
+# on an H100 were 2.5e-3 to 3.6e-3, about what rounding the outputs to bf16 alone gives
+# (2-3e-3 of the largest entry); 1e-2 is about three times the largest (BWD_TOL's 2e-2
+# was set at 257 keys)
+LONG_BWD_TOL = 1e-2
+# the bf16 forward at MAE_DEC_SHAPE, max |o - plain| over max |plain|: 32768 keys give o
+# entries of about sqrt(e / 32768) = 0.009, so an absolute limit set at 8192 keys is loose
+# here. The reading on an H100 was 2.6e-3; leaving one 64-key tile of the 512 out of the
+# plain version moves its o by 1.4e-1 to 1.9e-1 of max |o| (phase_mae_kernels logs it
+# for tile 100 and fails if the limit would not catch it), so 1e-2 sits between the two
+MAE_DEC_FWD_TOL = 1e-2
 # the profiler's kernel names: f32 by 3xTF32 and bf16 by wgmma on the tensor cores; the
 # split route's f32 dkv and its dq (both types) on the CUDA cores
 FWD_KERNEL = {"float32": "flash_fwd_tf32_kernel", "bfloat16": "flash_fwd_sm90_kernel"}
@@ -696,6 +741,154 @@ def phase_bwd_kernels():
                     f"{plain_ms[kind][0]:.4f} ({plain_ms[kind][1]:.4f}); bound {bound_ms:.4f} ms "
                     f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
                     f"max|d-plain| {kernel_err[kind]:.3e}")
+    return timed
+
+
+def _by_head(fn, *tensors):
+    """`fn` on one head's slice of each `[B, H, N, dh]` tensor at a time (lse
+    as `[B*H, Nq]` is sliced alike): the plain versions at shapes whose whole
+    score matrix does not fit on the card. Returns the per-head results."""
+    b, h, n_q = tensors[0].shape[:3]
+    out = []
+    for i in range(h):
+        out.append(fn(*(t.view(b, h, n_q)[:, i].reshape(-1, n_q) if t.dim() == 2
+                        else t[:, i:i + 1] for t in tensors)))
+    return out
+
+
+def phase_mae_kernels():
+    """The bf16 kernels at mae_long's attention shapes (MAE_SHAPES, packed qkv
+    views, as its model gives them). The forward at the decoder's (the
+    encoder's is in phase_kernels): held a head at a time to MAE_DEC_FWD_TOL,
+    on the TMA route packed and as contiguous copies with the same o, timed
+    beside its plain version (a head at a time) and scaled_dot_product_attention.
+    The fused backward at both: dq, dk, dv held a head at a time against the
+    plain backward to LONG_BWD_TOL, timed beside its plain version (a head at
+    a time) and SDPA's backward. Returns {shape name: {"fwd"?, "bwd": numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        _bwd_launch,
+        _dq_workspace,
+        _dropout_args,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    timed = {}
+    for name, (b, h, n, _, dh, packed) in MAE_SHAPES.items():
+        shape = f"[{b},{h},{n}x{n},{dh}] bfloat16 qkv-views (mae_long's {name})"
+        q, k, v = _flash_inputs(b, h, n, n, dh, torch.bfloat16, packed, gen)
+        sm = dh**-0.5
+        before = dict(flash_attention.by_layout)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        routes = {r: c - before[r] for r, c in flash_attention.by_layout.items()}
+        timed[name] = {}
+        if name == "decoder":
+            err = lse_err = ref_max = 0.0
+            for (ref, ref_lse), hs in zip(
+                    _by_head(lambda q, k, v: flash_attention_plain(q.float(), k.float(),
+                                                                   v.float(), sm), q, k, v),
+                    [slice(i, i + 1) for i in range(h)]):
+                err = max(err, (o[:, hs].float() - ref).abs().max().item())
+                ref_max = max(ref_max, ref.abs().max().item())
+                lse_err = max(lse_err, (lse.view(b, h, n)[:, hs].reshape(-1, n)
+                                        - ref_lse).abs().max().item())
+                del ref, ref_lse
+            # what the limit must catch: the plain version with one 64-key tile of 512 left
+            # out, on the first head
+            q0, k0, v0 = (t[:1, :1].float() for t in (q, k, v))
+            keep = torch.ones(n, dtype=torch.bool, device="cuda")
+            keep[64 * 100:64 * 101] = False
+            ref0 = flash_attention_plain(q0, k0, v0, sm)[0]
+            miss = ((flash_attention_plain(q0, k0[:, :, keep], v0[:, :, keep], sm)[0] - ref0)
+                    .abs().max() / ref0.abs().max()).item()
+            del q0, k0, v0, ref0
+            same = torch.equal(o, flash_attention(*(t.contiguous() for t in (q, k, v))))
+            routes = {r: c - before[r] for r, c in flash_attention.by_layout.items()}
+            rel = err / ref_max
+            log(f"[mae] flash_fwd {shape}: max|o-plain|/max|plain| {rel:.3e} (tol "
+                f"{MAE_DEC_FWD_TOL:g}; max|o-plain| {err:.3e}, max|plain| {ref_max:.3e}), "
+                f"max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g}), a head at a time; routes of "
+                f"the packed and the contiguous inputs {routes}; the same o from both: {same}; "
+                f"the plain version without key tile 100 moves by {miss:.3e} of max|plain|")
+            if not (rel <= MAE_DEC_FWD_TOL and lse_err <= LSE_TOL):
+                fail(f"flash_fwd disagrees with its plain version at {shape}")
+            if not miss > MAE_DEC_FWD_TOL:
+                fail("MAE_DEC_FWD_TOL would pass a forward that left one key tile out")
+            if routes != {"tma": 2, "padded": 0} or not same:
+                fail(f"the bf16 forward left its TMA route at {shape}: {routes}, same o {same}")
+            ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm),
+                                 FWD_KERNEL["bfloat16"], iters=10, warmup=2)
+            plain_ms, _ = device_ms(lambda: _by_head(
+                lambda q, k, v: flash_attention_plain(q, k, v, sm), q, k, v), iters=2, warmup=1)
+            library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm),
+                                      iters=10, warmup=2)
+            flops = 4.0 * b * h * n * n * dh
+            nbytes = q.element_size() * b * h * dh * 4 * n + 4 * b * h * n
+            bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
+            timed[name]["fwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            log(f"[mae] flash_fwd {shape} ({FWD_KERNEL['bfloat16']}), device ms per call (host "
+                f"ms): kernel {ms:.4f} ({host:.4f}), plain a head at a time {plain_ms:.4f}, "
+                f"scaled_dot_product_attention {library_ms:.4f}; bound {bound_ms:.4f} ms "
+                f"({bound_by}; {flops / 1e9:.1f} GFLOP at dh {dh}, computed at DH = "
+                f"{-(-dh // 64) * 64} by the kernel)")
+        elif routes != {"tma": 1, "padded": 0}:
+            fail(f"the bf16 forward left its TMA route at {shape}: {routes}")
+
+        # the fused backward, from the layout autograd hands it
+        do = torch.randn(b, n, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
+        do = do.transpose(1, 2)
+        got = flash_attention_bwd(q, k, v, o, lse, do, sm)
+        torch.cuda.synchronize()
+        errs, ref_max = [0.0] * 3, [0.0] * 3
+        for ref, hs in zip(_by_head(lambda *t: flash_attention_bwd_plain(
+                *(x.float() for x in t[:4]), t[4], t[5].float(), sm), q, k, v, o, lse, do),
+                [slice(i, i + 1) for i in range(h)]):
+            for i, want in enumerate(ref):
+                ref_max[i] = max(ref_max[i], want.abs().max().item())
+                errs[i] = max(errs[i], (got[i][:, hs].float() - want).abs().max().item())
+            del ref
+        rel = [e / m for e, m in zip(errs, ref_max)]
+        log(f"[mae] flash_bwd fused {shape}: max|d-plain|/max|plain| dq {rel[0]:.3e} dk "
+            f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {LONG_BWD_TOL:g}), a head at a time; max|plain| "
+            f"{ref_max[0]:.3e} {ref_max[1]:.3e} {ref_max[2]:.3e}")
+        if max(rel) > LONG_BWD_TOL or not all(m > 0 for m in ref_max):
+            fail(f"the fused backward disagrees with its plain version at {shape}")
+        del got
+        di = (o.float() * do.float()).sum(-1).reshape(b * h, n)
+        ws = _dq_workspace(b, n, h, dh, q.device)
+        dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=q.dtype).transpose(1, 2)
+                  for _ in "kv")
+        drop = _dropout_args(0.0, 0, 0, 0)
+        ms, host = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
+                                                 drop),
+                             _bwd_kernel("bfloat16", "fused"), iters=10, warmup=2)
+        plain_ms, _ = device_ms(lambda: _by_head(
+            lambda *t: flash_attention_bwd_plain(*t, sm), q, k, v, o, lse, do), iters=2, warmup=1)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+        library_ms, _ = device_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+            iters=10, warmup=2)
+        del out, qg, kg, vg
+        flops, nbytes = _bwd_work("fused", b, h, n, n, dh, q.element_size())
+        bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
+        timed[name]["bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "max_abs_err": max(errs)}
+        log(f"[mae] flash_bwd_fused {shape} ({_bwd_kernel('bfloat16', 'fused')}), device ms per "
+            f"call (host ms): kernel {ms:.4f} ({host:.4f}), plain a head at a time "
+            f"{plain_ms:.4f}, scaled_dot_product_attention backward {library_ms:.4f}; bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP at dh {dh})")
+        del q, k, v, o, lse, do, di, ws, dk, dv
+        torch.cuda.empty_cache()
     return timed
 
 
@@ -1283,6 +1476,134 @@ def phase_train_bf16():
     return {"main": main_counts, "ms_step": remat["ms_step"]}
 
 
+def _flash_per_step(kernels, steps: int) -> str:
+    """Device ms a step of each flash kernel instance in a traced window."""
+    lines = []
+    for t_us, count, key in kernels:
+        if m := re.search(r"(flash_\w+_kernel)<(\d+)", key):
+            lines.append(f"{m.group(1)}<DH={m.group(2)}> {t_us / 1e3 / steps:.3f} ms "
+                         f"({count // steps} launches)")
+    return "; ".join(lines)
+
+
+def phase_train_mae():
+    """MAE pretraining at configs/basic_ct/mae_long (embed 768, depth 12, 12
+    heads; decoder 576 wide, depth 8, 6 heads; a 128^3 tile at patch 4, so
+    32768 patches, 8192 kept; bf16 compute on f32 parameters, remat, batch
+    2, maskMSE) on one device: the trainer's CLI entry with `--single-device`,
+    the launch counts set to 0 before it and read after (every bf16 forward
+    on the TMA route); a timed and a traced window; the loss falling on one
+    fixed batch; and FLASH against EINSUM on a copy of depth 1 (decoder depth
+    1) with a 64^3 tile, every width as shipped: EINSUM's score matrix at
+    32768 tokens (52 GB in f32 for one decoder block) does not fit."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import Config, load_config
+    from ucf_vit_tpu_torch.models import MAE
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import init_train, main as train_main, synthetic_batches
+
+    torch.cuda.empty_cache()
+    # (a) the main path: the CLI entry as a user runs it
+    argv = [MAE_CONFIG, "--synthetic", "--single-device", "--max-steps", str(MAE_MAIN_STEPS)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_main(argv)
+    main_counts = _launch_counts()
+    model = out["state"].model
+    enc, dec = len(model.blocks), len(model.decoder_blocks)
+    log(f"[mae] python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
+        f"{time.perf_counter() - t0:.2f} s (init included); epoch losses {out['loss_list']}; "
+        f"launches {main_counts}")
+    if not (isinstance(model, MAE) and model.embed_dim == 768 and enc == 12
+            and model.decoder_embed_dim == 576 and dec == 8
+            and model.blocks[0].attn.num_heads == 12
+            and model.decoder_blocks[0].attn.num_heads == 6 and model.num_patches == 32768
+            and model.len_keep == 8192 and model.remat and model.dtype == torch.bfloat16
+            and all(p.dtype == torch.float32 for p in model.parameters())):
+        fail("the MAE run was not mae_long at full width and depth, bf16 with remat on f32 "
+             "parameters")
+    # under remat each block's forward runs twice a step, the decoder's as the encoder's
+    want = _expected_counts(enc + dec, MAE_MAIN_STEPS, "fused", dropout=False, bf16=True,
+                            forwards_per_step=2)
+    if main_counts != want or not all(np.isfinite(out["loss_list"])):
+        fail(f"mae_long train launched {main_counts} (expected {want}), losses "
+             f"{out['loss_list']}")
+    log(f"[mae] launches a step: "
+        f"{ {k: n // MAE_MAIN_STEPS for k, n in main_counts.items() if n} }")
+    del out, model
+
+    # (b) the step's time: a warm-up, an untraced window and a traced one
+    cfg = load_config(MAE_CONFIG)
+    cfg.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                              "seq_par_size": 1}  # what --single-device sets
+    batch = cfg.batch_size
+    stream = synthetic_batches(cfg, batch, seed=0)
+    w, t = MAE_WARMUP_STEPS, MAE_TIMED_STEPS
+    batches = [next(stream) for _ in range(w + 2 * t)]
+    state, step = init_train(cfg, "cuda")
+    res = _measure_steps("mae", f"mae_long bf16 batch {batch}, remat", state, step,
+                         batches[:w], batches[w:w + t], batches[w + t:], top=14)
+    device_step = res["busy_ms"] / res["traced_steps"]
+    log(f"[mae] device time a step {device_step:.3f} ms; by kind: "
+        f"{_kernel_groups(res['kernels'], res['busy_ms'])}")
+    log(f"[mae] flash kernels a step: {_flash_per_step(res['kernels'], res['traced_steps'])}")
+    del state, step
+
+    # (c) the loss falls on one fixed batch (a smooth volume with a mean, which the
+    # model can learn) with the warm-up cut to 0 in memory, the masks still drawn afresh
+    raw = copy.deepcopy(cfg.raw)
+    raw["model"]["warmup_steps"] = 0
+    state, step = init_train(Config(raw=raw, task=cfg.task), "cuda")
+    h, w, d = (torch.arange(n, device="cuda", dtype=torch.float32) * (2 * np.pi / 64)
+               for n in cfg.tile_size[:3])
+    x = 1.0 + 0.5 * (torch.sin(h)[:, None, None] * torch.cos(w)[None, :, None]
+                     + torch.sin(d)[None, None, :])
+    fixed = {"x": x.expand(batch, 1, -1, -1, -1).contiguous()}
+    losses = []
+    for _ in range(MAE_FALL_STEPS):
+        state, loss, _ = step(state, fixed)
+        losses.append(loss.item())
+    log(f"[mae] one fixed batch, warm-up 0: losses {' '.join(f'{x:.6f}' for x in losses)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.9 * losses[0]:
+        fail(f"the mae_long loss did not fall on a fixed batch: {losses}")
+    del state, step, fixed
+
+    # (d) FLASH (the kernels) against EINSUM (plain autograd) from one init, one batch
+    # stream and one mask stream, on the depth-1 copy at a 64^3 tile (4096 patches: a
+    # 1024-token encoder at dh 64 and a 4096-token decoder at dh 96)
+    small = {"depth": 1, "decoder_depth": 1, "tile_size": [MAE_CHECK_TILE] * 3}
+    stream = synthetic_batches(_train_cfg(cfg, "FLASH", **small), batch, seed=0)
+    check = [next(stream) for _ in range(MAE_CHECK_STEPS)]
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        st, _, losses, grads, counts = _run_steps(_train_cfg(cfg, impl, **small), check)
+        runs[impl] = (losses, grads, counts)
+        log(f"[mae] depth 1, tile {MAE_CHECK_TILE}^3, {impl}: losses "
+            f"{' '.join(f'{x:.6f}' for x in losses)}; launches {counts}")
+        del st
+    (lf, gf, cf), (le, ge, ce) = runs["FLASH"], runs["EINSUM"]
+    diff = max(abs(a - b) for a, b in zip(lf, le))
+    rel = {n: ((gf[n] - g).abs().max() / g.abs().max()).item() for n, g in ge.items()}
+    worst = max(rel, key=rel.get)
+    log(f"[mae] FLASH vs EINSUM: max per-step |loss diff| {diff:.3e} (tol "
+        f"{MAE_CHECK_LOSS_TOL:g}); first-step gradients, max|g_flash-g_einsum|/max|g_einsum|: "
+        f"{'; '.join(f'{n} {rel[n]:.3e}' for n in MAE_ATTN_LEAVES)}; the largest of "
+        f"{len(rel)} leaves {rel[worst]:.3e} ({worst}) (tol {MAE_CHECK_GRAD_TOL:g})")
+    if not all(np.isfinite(lf)) or diff > MAE_CHECK_LOSS_TOL:
+        fail("mae_long FLASH training losses disagree with EINSUM's")
+    if not all(ge[n].abs().max() > 0 for n in MAE_ATTN_LEAVES) \
+            or not rel[worst] <= MAE_CHECK_GRAD_TOL:
+        fail("mae_long FLASH first-step gradients disagree with EINSUM's")
+    want = _expected_counts(2, MAE_CHECK_STEPS, "fused", dropout=False, bf16=True,
+                            forwards_per_step=2)
+    if cf != want or any(ce.values()):
+        fail(f"MAE launches {cf} under FLASH (expected {want}), {ce} under EINSUM")
+    return {"main": main_counts, "ms_step": res["ms_step"], "device_step_ms": device_step,
+            "peak_gb": res["peak_gb"]}
+
+
 def _request(port: int, method: str, path: str, body: bytes | None = None) -> bytes:
     """One HTTP request on a connection of its own: the server speaks
     HTTP/1.0 and closes the connection after each answer."""
@@ -1593,6 +1914,7 @@ def main() -> int:
     phase_build()
     fwd = phase_kernels()
     bwd = phase_bwd_kernels()
+    mae = phase_mae_kernels()
     dropout = phase_dropout(fwd, bwd)
     mlp = phase_mlp_kernels()
     int8 = phase_int8_kernels()
@@ -1600,14 +1922,19 @@ def main() -> int:
     trained = phase_train()
     served = phase_serve()
     trained_bf16 = phase_train_bf16()
+    trained_mae = phase_train_mae()
 
     # Each flash kernel has two rows: the f32 instance (*_tf32.cu) at the
     # ViT-B/16 shape that serving and f32 training give it, with the launches of those
     # paths, and the bf16 instance (*_sm90.cu) at ViT-L/16's microbatch shape, with the
-    # launches of the ViT-L training through the CLI entry. The split route's kernels
-    # (dkv, dq) are on no main path; their rows are the f32 instances (flash_bwd.cu). The hash counts the training with attention dropout; fused_mlp and
-    # int8_matmul, on no model path in either package, the ops' public API (bf16 at the
-    # ViT-B MLP shape).
+    # launches of the ViT-L training through the CLI entry. The bf16 instances have a
+    # second row on mae_long's path: its numbers at the decoder's shape (MAE_DEC_SHAPE,
+    # most of that path's attention time), its launches those of the mae_long training
+    # through the CLI entry (the encoder's 8192-token calls and the decoder's together;
+    # PERF.md splits them by the traced window). The split route's kernels (dkv, dq) are
+    # on no main path; their rows are the f32 instances (flash_bwd.cu). The hash counts
+    # the training with attention dropout; fused_mlp and int8_matmul, on no model path in
+    # either package, the ops' public API (bf16 at the ViT-B MLP shape).
     sources = {
         "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
                       "ucf_vit_tpu/ops/flash_attention.py:68"),
@@ -1617,6 +1944,10 @@ def main() -> int:
                             "ucf_vit_tpu/ops/flash_attention.py:249"),
         "flash_bwd_fused_bf16": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
                                  "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_bf16_mae_long": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
+                                    "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_bf16_mae_long": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                          "ucf_vit_tpu/ops/flash_attention.py:249"),
         "flash_bwd_dkv": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
                           "ucf_vit_tpu/ops/flash_attention.py:162"),
         "flash_bwd_dq": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
@@ -1629,22 +1960,27 @@ def main() -> int:
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
                "flash_bwd_fused_bf16": bwd["vit_l_bfloat16"]["fused"],
+               "flash_fwd_bf16_mae_long": mae["decoder"]["fwd"],
+               "flash_bwd_fused_bf16_mae_long": mae["decoder"]["bwd"],
                "fused_mlp": mlp[RECORD_MLP, "bfloat16"], "int8_matmul": int8[RECORD_INT8]}
-    f32, vit_l = trained["main"], trained_bf16["main"]
+    f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"],
         "flash_fwd_bf16": vit_l["src:flash_fwd_sm90"],
         "flash_bwd_fused": f32["src:flash_bwd_tf32"],
         "flash_bwd_fused_bf16": vit_l["flash_bwd_fused"],
-        "flash_bwd_dkv": f32["flash_bwd_dkv"] + vit_l["flash_bwd_dkv"],
-        "flash_bwd_dq": f32["flash_bwd_dq"] + vit_l["flash_bwd_dq"],
+        "flash_fwd_bf16_mae_long": mae_long["src:flash_fwd_sm90"],
+        "flash_bwd_fused_bf16_mae_long": mae_long["flash_bwd_fused"],
+        "flash_bwd_dkv": f32["flash_bwd_dkv"] + vit_l["flash_bwd_dkv"] + mae_long["flash_bwd_dkv"],
+        "flash_bwd_dq": f32["flash_bwd_dq"] + vit_l["flash_bwd_dq"] + mae_long["flash_bwd_dq"],
         "keep_mask": trained["dropout"]["keep_mask"], **ops,
     }
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
-        f"ViT-L train {vit_l}; train with attention dropout {trained['dropout']}; the ops' "
-        f"public API {ops}")
+        f"ViT-L train {vit_l}; mae_long train {mae_long}; train with attention dropout "
+        f"{trained['dropout']}; the ops' public API {ops}")
     for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
-                 "fused_mlp", "int8_matmul"):
+                 "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long", "fused_mlp",
+                 "int8_matmul"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

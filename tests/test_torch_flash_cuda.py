@@ -217,10 +217,11 @@ ROUTE_CASES = [(2, 4, 257, 257, 64, True, "tma"), (1, 16, 197, 197, 36, True, "t
 LONG_FWD = (2, 12, 8192, 8192, 64)
 
 
-def _held_forward(q, k, v, heads=None, **drop):
+def _held_forward(q, k, v, heads=None, rel_tol=None, **drop):
     """o of the forward, its o and lse held against the f32 plain version: of
     the listed heads one at a time (at rate 0: a head's slice numbers its
-    batch-heads from 0, so its dropout mask would differ), else of all."""
+    batch-heads from 0, so its dropout mask would differ), else of all. With
+    `rel_tol`, o is held as max |o - plain| over max |plain|."""
     dh = q.shape[-1]
     o, lse = flash_attention(q, k, v, return_lse=True, **drop)
     torch.cuda.synchronize()
@@ -231,8 +232,11 @@ def _held_forward(q, k, v, heads=None, **drop):
     for hs in [slice(None)] if heads is None else [slice(i, i + 1) for i in heads]:
         ref_o, ref_lse = flash_attention_plain(q[:, hs].float(), k[:, hs].float(),
                                                v[:, hs].float(), dh**-0.5, *args)
-        tol = LONG_FWD_TOL if k.shape[2] >= LONG_KEYS else FWD_TOL[torch.bfloat16]
-        assert (o[:, hs].float() - ref_o).abs().max().item() <= tol
+        if rel_tol is not None:
+            assert _rel_err(o[:, hs], ref_o) <= rel_tol
+        else:
+            tol = LONG_FWD_TOL if k.shape[2] >= LONG_KEYS else FWD_TOL[torch.bfloat16]
+            assert (o[:, hs].float() - ref_o).abs().max().item() <= tol
         got_lse = lse.view(b, h, n_q)[:, hs].reshape(-1, n_q)
         assert (got_lse - ref_lse).abs().max().item() <= 5e-5
     return o
@@ -289,6 +293,55 @@ def test_sm90_forward_matches_plain_at_card_shapes_and_long_on_card():
     reset_launch_counts()
     _held_forward(q, k, v, heads=[0, h - 1])
     assert flash_attention.by_layout == {"tma": 1, "padded": 0}
+
+
+# mae_long's attention: the decoder's packed views at dh 96 (a 192-byte head stride; the
+# DH = 128 instance must take columns 96-127 from TMA's zero fill, never from the next
+# head) and, for the fused backward, one head at each of its two shapes
+MAE_DEC_FWD = (1, 6, 32768, 32768, 96)
+MAE_BWD = [(1, 1, 32768, 32768, 96), (1, 1, 8192, 8192, 64)]
+# the fused backward at MAE_BWD, max |d - plain| over max |plain|: chip_smoke.py's
+# LONG_BWD_TOL, about three times the largest reading on an H100 at mae_long's shapes
+# (3.6e-3; BWD_TOL's 2e-2 was set at 257 keys)
+MAE_BWD_TOL = 1e-2
+# the forward at MAE_DEC_FWD, max |o - plain| over max |plain|: chip_smoke.py's
+# MAE_DEC_FWD_TOL, about four times its reading on an H100 (2.6e-3)
+MAE_DEC_FWD_TOL = 1e-2
+
+
+@pytest.mark.cuda
+def test_sm90_forward_at_mae_decoder_packed_on_card():
+    """The bf16 forward on the decoder's packed dh-96 view at 32768^2: on the
+    TMA route, the first and last heads held to MAE_DEC_FWD_TOL."""
+    _card()
+    b, h, n, _, dh = MAE_DEC_FWD
+    q, k, v, _ = _sm90_inputs(b, h, n, n, dh, True, seed=13)
+    assert q.stride(1) == dh  # the heads lie 192 bytes apart
+    reset_launch_counts()
+    _held_forward(q, k, v, heads=[0, h - 1], rel_tol=MAE_DEC_FWD_TOL)
+    assert flash_attention.by_layout == {"tma": 1, "padded": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MAE_BWD, ids=lambda s: f"{s[2]}x{s[4]}")
+def test_sm90_fused_bwd_at_mae_shapes_on_card(shape):
+    """The bf16 fused backward at mae_long's long shapes (512 and 128 key
+    tiles of dq atomics per query tile) against the plain backward."""
+    _card()
+    b, h, n_q, n_kv, dh = shape
+    q, k, v, do = _sm90_inputs(b, h, n_q, n_kv, dh, True, seed=dh)
+    sm = dh**-0.5
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, o, lse, do, sm)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.by_source == {"flash_bwd": 0, "flash_bwd_sm90": 1,
+                                             "flash_bwd_tf32": 0}
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), sm)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel_err(g, w) <= MAE_BWD_TOL, name
 
 
 def _launch_sources(dt, route):

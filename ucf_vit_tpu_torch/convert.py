@@ -7,15 +7,18 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
   flax                         torch                      transform
   ---------------------------  -------------------------  ----------------
   blocks_3/attn/qkv/kernel     blocks.3.attn.qkv.weight   transpose
+  decoder_blocks_1/mlp/...     decoder_blocks.1.mlp...    (as blocks_i)
   norm/scale                   norm.weight                identity
   token_embed/proj/kernel      token_embeds.proj.weight   [*k,i,o]->[o,i,*k]
   pos_embed, cls_token, gamma  same name                  identity
+  mask_token, decoder_pos_embed same name                 identity
 
-It covers the ported modules (PatchEmbed, Mlp, Attention, Block, VIT), from
-a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
+It covers the ported modules (PatchEmbed, Mlp, Attention, Block, VIT, MAE),
+from a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
 the JAX side: `blocks/block/<leaves stacked [depth, ...]>`, recognised as
 `ucf_vit_tpu/tools/convert_checkpoint.py:160-185` does) is unstacked into
-`blocks.{i}.*` first.
+`blocks.{i}.*` first; MAE's decoder blocks stay per layer in such a tree
+(`decoder_blocks_{i}`), as the JAX model keeps them without a pipeline.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ import torch
 
 
 def _segment(name: str) -> str:
-    m = re.fullmatch(r"blocks_(\d+)", name)
+    m = re.fullmatch(r"(decoder_blocks|blocks)_(\d+)", name)
     if m:
-        return f"blocks.{m.group(1)}"
+        return f"{m.group(1)}.{m.group(2)}"
     if name == "token_embed":
         return "token_embeds"
     return name

@@ -1,5 +1,6 @@
 """Device choice and seeded model init for evaluation and serving (the role
-of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`, on one device)."""
+of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`, on one device), and
+an MAE's reconstruction under a fixed mask."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ from typing import Optional, Union
 import torch
 
 from ucf_vit_tpu_torch.config import Config
+from ucf_vit_tpu_torch.models import MAE
+from ucf_vit_tpu_torch.ops.patchify import unpatchify
 from ucf_vit_tpu_torch.tasks import build_task
 
 Device = Union[str, torch.device, None]
@@ -33,3 +36,19 @@ def init_eval_model(cfg: Config, seed: int = 0, device: Device = None) -> torch.
     model = build_task(cfg)
     model.init_weights(torch.Generator().manual_seed(int(seed)))
     return model.to(dev).eval()
+
+
+@torch.no_grad()
+def reconstruct(model: torch.nn.Module, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """An MAE's reconstruction of images `x` `[B, C, *spatial]` in image
+    space: the prediction of every token, unpatchified, under the mask that
+    noise drawn from `torch.Generator(x.device).manual_seed(seed)` gives, so
+    that the same request always gets the same visible-token subset (the
+    JAX server's MAE branch, `ucf_vit_tpu/serve.py:277-297`). Puts the model
+    in eval mode."""
+    if not isinstance(model, MAE):
+        raise TypeError(f"reconstruct takes an MAE, got {type(model).__name__}")
+    noise = torch.rand(x.shape[0], model.num_patches, device=x.device,
+                       generator=torch.Generator(x.device).manual_seed(int(seed)))
+    pred, _ = model.eval()(x, mask_noise=noise)
+    return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)

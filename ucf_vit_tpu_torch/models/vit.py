@@ -97,6 +97,8 @@ class VIT(nn.Module):
         pipe_par_size: int = 1,
         moe_num_experts: int = 0,
         dtype: Optional[torch.dtype] = None,
+        # the encoder blocks attend within segments of this length (MAE's seq_pack)
+        block_seg_len: Optional[int] = None,
     ):
         super().__init__()
         if adaptive_patching:
@@ -140,12 +142,16 @@ class VIT(nn.Module):
             if pos_embed == "learn" else None
         )
         self.pos_drop = Dropout(pos_drop_rate)
+        self.drop_path_rate = float(drop_path_rate)
+        # what every block of the model shares (MAE's decoder blocks too)
+        self.block_kwargs = dict(attn_impl=attn_impl, qkv_bias=qkv_bias, qk_norm=qk_norm,
+                                 proj_drop=proj_drop_rate, attn_drop=attn_drop_rate,
+                                 init_values=init_values, gelu_approx=gelu_approx,
+                                 dtype=dtype)
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, attn_impl=attn_impl, mlp_ratio=mlp_ratio,
-                  qkv_bias=qkv_bias, qk_norm=qk_norm, proj_drop=proj_drop_rate,
-                  attn_drop=attn_drop_rate, init_values=init_values,
-                  drop_path=float(dpr[i]), gelu_approx=gelu_approx, dtype=dtype)
+            Block(embed_dim, num_heads, mlp_ratio=mlp_ratio, drop_path=float(dpr[i]),
+                  seg_len=block_seg_len, **self.block_kwargs)
             for i in range(depth)
         )
         # the final norm and the head take no dtype in the JAX model
@@ -202,6 +208,10 @@ class VIT(nn.Module):
         return self
 
     # --------------------------------------------------------------- forward
+
+    def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Tokenize the input image: `[B, L, D]`."""
+        return self.token_embeds(x)
 
     def apply_pos_embed(self, x: torch.Tensor) -> torch.Tensor:
         """Prepend the class token and add the position embedding. Without a
@@ -269,14 +279,22 @@ class VIT(nn.Module):
 
         return _checkpoint(run, x)
 
+    def _run_stack(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        """`blocks` in order, each under `remat` in training."""
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for blk in blocks:
+            x = self._remat_block(blk, x) if remat else blk(x)
+        return x
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's blocks."""
+        return self._run_stack(self.blocks, x)
+
     def forward_features(self, x: torch.Tensor,
                          patch_drop_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.apply_pos_embed(self.token_embeds(x))
+        x = self.apply_pos_embed(self.embed_tokens(x))
         x = self.patch_drop(x, patch_drop_noise)
-        remat = self.remat and self.training and torch.is_grad_enabled()
-        for blk in self.blocks:
-            x = self._remat_block(blk, x) if remat else blk(x)
-        return self.norm(x)
+        return self.norm(self.run_blocks(x))
 
     def pool(self, x: torch.Tensor) -> torch.Tensor:
         """Class-token pool (or strip the prefix)."""

@@ -1,7 +1,7 @@
 """Task registry: model factory and loss per task (port of `ucf_vit_tpu/tasks.py`).
 
-The port has the classification task (model and loss); the other tasks come
-with their own slices (ROADMAP.md).
+The port has the classification and MAE tasks (model and loss); the other
+tasks come with their own slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,9 +11,10 @@ from typing import Callable, Dict
 import torch
 
 from ucf_vit_tpu_torch.config import Config
-from ucf_vit_tpu_torch.models import VIT
+from ucf_vit_tpu_torch.models import MAE, VIT
 from ucf_vit_tpu_torch.ops.attention import AttnImpl
-from ucf_vit_tpu_torch.utils.metrics import accuracy, cross_entropy
+from ucf_vit_tpu_torch.ops.patchify import patchify
+from ucf_vit_tpu_torch.utils.metrics import accuracy, cross_entropy, masked_mse, mse
 
 
 def _attn_impl(cfg: Config) -> AttnImpl:
@@ -77,11 +78,48 @@ def classification_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
     return cross_entropy(logits, batch["label"]), {"accuracy": accuracy(logits, batch["label"])}
 
 
+def build_mae(cfg: Config) -> MAE:
+    """`build_mae`'s model (`ucf_vit_tpu/tasks.py:197-208`)."""
+    ia = cfg.init_args
+    return MAE(
+        mask_ratio=float(ia.get("mask_ratio", 0.75)),
+        linear_decoder=bool(ia.get("linear_decoder", False)),
+        decoder_depth=int(ia.get("decoder_depth", 8)),
+        decoder_embed_dim=int(ia.get("decoder_embed_dim", 512)),
+        decoder_num_heads=int(ia.get("decoder_num_heads", 16)),
+        mlp_ratio_decoder=float(ia.get("mlp_ratio_decoder", 4)),
+        seq_pack=int(ia.get("seq_pack", 1)),
+        use_adaptive_pos_emb=bool(ia.get("use_adaptive_pos_emb", False))
+        and cfg.adaptive_patching,
+        **_common_kwargs(cfg),
+    )
+
+
+def mae_loss(cfg: Config) -> Callable:
+    """`loss_fn` of `build_mae`, its non-adaptive branch
+    (`ucf_vit_tpu/tasks.py:213-236`): `model.loss_fn: maskMSE` takes the
+    masked MSE of the prediction against the patchified input, any other
+    name the MSE over every token. The mask is drawn from the model's
+    generator."""
+    masked = cfg.model.get("loss_fn", "MSE") == "maskMSE"
+
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        x = batch["x"]
+        pred, mask = model(x)
+        target = patchify(x, cfg.patch_size, cfg.twoD)
+        return (masked_mse(pred, target, mask) if masked else mse(pred, target)), {}
+
+    return loss_fn
+
+
 TASKS: Dict[str, Callable[[Config], torch.nn.Module]] = {
     "classification": build_classification,
+    "mae": build_mae,
 }
-LOSSES: Dict[str, Callable] = {
-    "classification": classification_loss,
+# each task's loss from its config
+LOSSES: Dict[str, Callable[[Config], Callable]] = {
+    "classification": lambda cfg: classification_loss,
+    "mae": mae_loss,
 }
 
 
@@ -102,4 +140,4 @@ def build_task(cfg: Config) -> torch.nn.Module:
 def task_loss(cfg: Config) -> Callable:
     """The task's `loss_fn(model, batch) -> (loss, aux)`."""
     _check_ported(cfg)
-    return LOSSES[cfg.task]
+    return LOSSES[cfg.task](cfg)

@@ -3,11 +3,12 @@
     python -m ucf_vit_tpu_torch.train <config.yaml> --synthetic [--max-steps N]
         [--log-every K] [--device cuda|cpu]
 
-Seeded model init (the names `load_jax_params` fills), AdamW from the
-config's `model:` keys, one train step per synthetic batch (the JAX
-package's `synthetic_batches` stream, draw for draw), the one-step-lagged
-loss read, the log line, the `trainer.metrics_path` JSONL records and
-`trainer.nan_guard`. Runs on CUDA unless `device="cpu"`.
+Seeded model init (the names `load_jax_params` fills) of the config's task
+(classification or MAE), AdamW from the config's `model:` keys, one train
+step per synthetic batch (the JAX package's `synthetic_batches` stream,
+draw for draw), the one-step-lagged loss read, the log line, the
+`trainer.metrics_path` JSONL records and `trainer.nan_guard`. Runs on CUDA
+unless `device="cpu"`.
 
 Not ported yet, and refused with the ROADMAP.md item when the config asks
 for it: the real data pipeline (run with `--synthetic`), checkpoints
@@ -16,7 +17,9 @@ no checkpoint is written; resume and warm starts raise), validation,
 preemption, TensorBoard, `profile_dir` and sharding. `trainer.data_type:
 bfloat16` trains under the bf16 compute policy (f32 parameters, gradients
 and optimizer state; `models/blocks.py`), `trainer.remat` checkpoints each
-block's activations, and `trainer.scan_layers` is accepted (`models/vit.py`).
+block's activations (MAE's decoder blocks too), and `trainer.scan_layers` is
+accepted (`models/vit.py`). MAE draws its mask noise from the device
+generator that dropout draws from; both are seeded from `trainer.seed`.
 """
 
 from __future__ import annotations

@@ -1,14 +1,28 @@
 """Losses and metrics (port of `ucf_vit_tpu/utils/metrics.py`).
 
-The classification pair only (`cross_entropy` `:46`, `accuracy` `:54`); the
-other losses come with their tasks (ROADMAP.md). Logits are taken as the
-models give them and the results are f32 scalars.
+The classification pair (`cross_entropy` `:46`, `accuracy` `:54`) and MAE's
+two (`mse` `:29`, `masked_mse` `:35`); the other losses come with their tasks
+(ROADMAP.md). Predictions are taken as the models give them and the results
+are f32 scalars.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over every entry, in f32."""
+    return (pred.float() - target.float()).square().mean()
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """MSE over the masked tokens only: pred and target `[B, L, F]`, mask
+    `[B, L]` with 1 where a token is masked (and counted), in f32."""
+    loss = (pred.float() - target.float()).square().mean(dim=-1)
+    mask = mask.float()
+    return (loss * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
