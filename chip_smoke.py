@@ -59,15 +59,20 @@ result):
             autograd) from one init and batch stream; a timed and a traced
             window of 20 steps; the same config with attn_drop_rate 0.1,
             3 steps FLASH against EINSUM (the hash mask is the same on both
-            sides); and `train()` itself for a few steps, with every launch
-            count set to 0 before it and read after.
+            sides); and `train()` itself for two epochs, with every launch
+            count set to 0 before it and read after, each epoch saved to its
+            even/odd checkpoint slot under build/ (the save timed, both slots
+            written, `_latest` resolving to the newer).
 5. serve:   `make_server` on configs/catsdogs/classification/base_config.yaml
-            (ViT-B/16 at full width, seeded weights) answers sequential HTTP
-            requests, then sustained load from a client in its own process
-            (closed-loop clients, one untraced window and one under the
-            profiler); every answer must equal the direct forward of its
-            sample with attention forced to EINSUM; the flash kernel must
-            have run once per block per batch.
+            (ViT-B/16 at full width) with `--checkpoint` on the train phase's
+            directory answers sequential HTTP requests, then sustained load
+            from a client in its own process (closed-loop clients, one
+            untraced window and one under the profiler); every answer must
+            equal the direct forward of its sample with attention forced to
+            EINSUM on the checkpoint's weights; the flash kernel must have run
+            once per block per batch. Then `/v1/reload` to the other slot: the
+            next answers must be that slot's. Then a server with seeded
+            weights under the same load, for its requests/s.
 6. bf16:    the same ViT-B/16 config with `trainer.data_type: bfloat16` set
             in memory, 10 steps FLASH against EINSUM; then
             configs/imagenet/classification_vit_l/base_config.yaml (ViT-L/16
@@ -88,6 +93,21 @@ result):
             route); a timed and a traced window; the loss falling on one fixed
             batch; FLASH against EINSUM on a copy of depth 1 with a 64^3 tile
             (per-step losses, and the first step's gradients leaf by leaf).
+8. disk:    mae_long from NIfTI files: seeded CT-like int16 volumes of 512 x
+            512 x 128 written under build/, and a copy of the shipped config
+            that names them (only data.dict_root_dirs, trainer.checkpoint_path
+            and trainer.max_epochs change): the loader alone (host ms a
+            batch); the CLI entry with `--single-device` for two epochs, the
+            launch counts exactly the synthetic run's a step, both checkpoint
+            slots written and each save timed; a timed and a traced window
+            on the live loader (ms/step, time waiting for data, busy share,
+            peak memory); then, on two volumes of one tile, 2 epochs and a
+            run resumed to 3 against 3 uninterrupted epochs, to limits set
+            from the spread of two uninterrupted runs. Where PIL and cv2 import,
+            catsdogs from JPEG files: 128 photos of 500 x 375, the loader
+            alone and one epoch of the shipped config through the CLI entry;
+            where either does not, that is printed (the JPEG path is then held
+            against the JAX package on the CPU only).
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -95,6 +115,7 @@ limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import http.client
 import io
@@ -102,12 +123,17 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# checkpoints and data files that phases write: under the checkout's build/ (which
+# git ignores), each phase's in a directory of its own, all deleted before exit
+WORK = os.path.join(REPO, "build", "chip_smoke_work")
 CONFIG = os.path.join(REPO, "configs", "catsdogs", "classification", "base_config.yaml")
 VIT_L_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification_vit_l",
                             "base_config.yaml")
@@ -133,7 +159,7 @@ TRAIN_LOSS_TOL = 1e-4  # per-step loss, f32 and TF32 off on both sides
 TRAIN_GRAD_TOL = 1e-4  # first-step gradient, relative to the largest entry
 TIMED_STEPS, WARMUP_STEPS = 20, 3
 DROPOUT_STEPS = 3
-MAIN_PATH_STEPS = 5  # train() itself
+MAIN_PATH_STEPS = 6  # train() itself: two epochs of 3, each saved to its even/odd slot
 # fused_mlp against its plain version, max |y - plain|. bf16: the JAX tests' atol (one
 # bf16 ulp of an output below 4 is 1.6e-2, where the two round to neighbouring values);
 # f32: sums in another order over up to 4096 terms
@@ -159,6 +185,21 @@ MAE_CHECK_GRAD_TOL = 2e-2
 MAE_ATTN_LEAVES = ("blocks.0.attn.qkv.weight", "blocks.0.attn.proj.weight",
                    "decoder_blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.proj.weight")
 PROFILE_TRIES = 3  # profiler windows per device time, if one records nothing
+# mae_long from disk: 2 CT-like volumes of 512 x 512 x 128 (16 tiles of 128^3 each, so
+# 16 batches of 2 an epoch), 2 epochs (both checkpoint slots), then windows on the loader
+DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 2, (512, 512, 128), 2
+DISK_SMALL_SHAPE = (128, 128, 128)  # the resume check's 2 volumes: one tile each
+DISK_WARMUP_STEPS, DISK_TIMED_STEPS, DISK_TRACED_STEPS = 2, 6, 3
+# resumed against uninterrupted after 3 epochs (`_rel_diff`, `_adam_rel`): the
+# parameters relative to the last epoch's update, AdamW's moments relative to their size,
+# and the last epoch's loss. The fused backward adds dq by f32 atomics in a run-dependent
+# order, so two uninterrupted runs already differ: after 2 epochs by 7.8e-3, 3.7e-4 and
+# 2.3e-6 on an H100 (a resumed run 1.1e-2, 3.7e-4, 2.1e-6); resuming without AdamW's
+# state moved the first two to 0.27 and 0.67 in a CPU rehearsal
+RESUME_PARAM_TOL, RESUME_ADAM_TOL, RESUME_LOSS_TOL = 5e-2, 5e-3, 3e-5
+# catsdogs from JPEG files (where PIL and cv2 import): 128 files of 500 x 375, the size
+# of the dataset's photos, so 8 steps of 16 in one epoch of the shipped config
+JPEG_FILES, JPEG_SHAPE = 128, (375, 500)
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
 # and int8 on the tensor cores, and the memory rate. The card is named so; any other
@@ -1278,7 +1319,7 @@ def _measure_steps(tag, label, state, step, warmup, timed, traced=None, top=12) 
 def phase_train():
     import numpy as np
 
-    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.config import Config, load_config
     from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
     from ucf_vit_tpu_torch.train import synthetic_batches, train
 
@@ -1346,17 +1387,73 @@ def phase_train():
     if dcf != want:
         fail(f"launches {dcf} on the dropout path, expected {want}")
 
-    # the main path: train() as the CLI runs it
+    # the main path: train() as the CLI runs it, two epochs, each saved at its end to its
+    # even/odd slot under a temporary directory, which phase_serve serves. In memory: the
+    # epoch's length, and the warm-up cut to 0 so that the two slots' weights differ
+    # enough for the served answers to tell them apart
+    ckpt_dir = tempfile.mkdtemp(prefix="vit_b_", dir=WORK)
+    raw = copy.deepcopy(cfg.raw)
+    raw["trainer"].update(checkpoint_path=ckpt_dir, max_epochs=2)
+    raw["model"]["warmup_steps"] = 0
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"catsdogs": MAIN_PATH_STEPS // 2}}
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = train(cfg, max_steps=MAIN_PATH_STEPS, synthetic=True, device="cuda")
+    with _Tee() as tee:
+        out = train(Config(raw=raw, task=cfg.task), max_steps=MAIN_PATH_STEPS, synthetic=True,
+                    device="cuda")
     main_counts = _launch_counts()
     log(f"[train] train() {MAIN_PATH_STEPS} steps in {time.perf_counter() - t0:.2f} s (init "
-        f"included): epoch losses {out['loss_list']}; launches {main_counts}")
+        f"and saves included): epoch losses {out['loss_list']}; launches {main_counts}")
     want = _expected_counts(depth, MAIN_PATH_STEPS, route, dropout=False)
     if main_counts != want or not all(np.isfinite(out["loss_list"])):
         fail(f"train() launched {main_counts} (expected {want}), losses {out['loss_list']}")
-    return {"main": main_counts, "dropout": dcf, "ms_step": ms_step}
+    saves = _saves(tee.text(), ckpt_dir, ("multi_last_even.ckpt", "multi_last_odd.ckpt"))
+    log(f"[train] checkpoint saves: {', '.join(f'epoch {e} {secs:.3f} s' for e, secs in saves)}"
+        f" ({os.path.getsize(os.path.join(ckpt_dir, 'multi_last_odd.ckpt')) / 1e6:.1f} MB)")
+    del out
+    return {"main": main_counts, "dropout": dcf, "ms_step": ms_step, "ckpt_dir": ckpt_dir}
+
+
+class _Tee:
+    """Within `with _Tee() as tee:`, what is printed goes on to standard output
+    and is kept (`tee.text()`), so that the trainer's log lines can be read."""
+
+    def __enter__(self):
+        self._kept, self._out = io.StringIO(), sys.stdout
+        self._redirect = contextlib.redirect_stdout(self)
+        self._redirect.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._redirect.__exit__(*exc)
+
+    def write(self, s):
+        self._kept.write(s)
+        return self._out.write(s)
+
+    def flush(self):
+        self._out.flush()
+
+    def text(self) -> str:
+        return self._kept.getvalue()
+
+
+def _saves(text: str, ckpt_dir: str, slots) -> list:
+    """(epoch, seconds) of each checkpoint save the trainer logged; fails unless
+    exactly `slots` were written under `ckpt_dir` and `_latest` picks the newest."""
+    from ucf_vit_tpu_torch.checkpoint import resolve_slot, stored_epoch
+
+    saves = [(int(e), float(secs)) for e, _, secs in
+             re.findall(r"epoch (\d+): saved (\S+) in ([\d.]+) s", text)]
+    if tuple(sorted(os.listdir(ckpt_dir))) != tuple(slots) or not saves:
+        fail(f"checkpoints {sorted(os.listdir(ckpt_dir))} under {ckpt_dir} (expected {slots}),"
+             f" saves logged {saves}")
+    latest = resolve_slot(ckpt_dir, "multi_last_latest")
+    if stored_epoch(latest) != saves[-1][0] or not latest.endswith(
+            ("_even.ckpt", "_odd.ckpt")[saves[-1][0] % 2]):
+        fail(f"_latest resolved to {latest} (epoch {stored_epoch(latest)}), the last save "
+             f"was epoch {saves[-1][0]}")
+    return saves
 
 
 def _kernel_groups(kernels, busy_ms: float) -> str:
@@ -1604,6 +1701,349 @@ def phase_train_mae():
             "peak_gb": res["peak_gb"]}
 
 
+def _ct_volume(rng, shape) -> "np.ndarray":
+    """A smooth CT-like int16 volume in Hounsfield units: air (-1000) around an
+    elliptic body of soft tissue with a slow texture, plus noise."""
+    import numpy as np
+
+    x, y, z = (np.linspace(-1, 1, n, dtype=np.float32) for n in shape)
+    x, y, z = x[:, None, None], y[None, :, None], z[None, None, :]
+    a, b = rng.uniform(0.6, 0.9, 2)
+    f, ph = rng.uniform(2, 6, 3).astype(np.float32), rng.uniform(0, 6.28, 3).astype(np.float32)
+    tissue = (40 + 60 * np.sin(f[0] * x + ph[0]) * np.cos(f[1] * y + ph[1])
+              + 30 * np.sin(f[2] * z + ph[2]))
+    vol = np.where((x / a) ** 2 + (y / b) ** 2 < 1, tissue, np.float32(-1000))
+    vol += rng.normal(0, 10, size=shape).astype(np.float32)
+    return vol.astype(np.int16)
+
+
+def _write_volumes(root: str, n: int, shape, seed: int) -> float:
+    """`n` volumes as <root>/imagesTr/image{i}.nii; returns the seconds taken."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch.data import nifti
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "imagesTr"))
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        nifti.save(os.path.join(root, "imagesTr", f"image{i}.nii"), _ct_volume(rng, shape))
+    return time.perf_counter() - t0
+
+
+def _disk_config(work: str, name: str, ct_root: str, epochs: int, model=None,
+                 **trainer) -> str:
+    """A copy of configs/basic_ct/mae_long/base_config.yaml in which only
+    data.dict_root_dirs, trainer.checkpoint_path and trainer.max_epochs change (and
+    the `model` and `trainer` keys given here); returns its path."""
+    import yaml
+
+    raw = yaml.safe_load(open(MAE_CONFIG))
+    raw["data"]["dict_root_dirs"] = {"ct1": ct_root}
+    raw["trainer"].update({"checkpoint_path": os.path.join(work, f"ck_{name}"),
+                           "max_epochs": epochs, **trainer})
+    raw["model"].update(model or {})
+    path = os.path.join(work, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def _disk_window(state, step, it, n: int):
+    """(wall seconds, seconds spent waiting for batches) of `n` train steps on
+    batches pulled from the loader `it` inside the window, with the trainer's
+    host->device copy and one-step-lagged loss read."""
+    import torch
+
+    from ucf_vit_tpu_torch.train import to_device
+
+    dev = next(state.model.parameters()).device
+    torch.cuda.synchronize()
+    t0, waited, pending = time.perf_counter(), 0.0, None
+    for _ in range(n):
+        t1 = time.perf_counter()
+        batch = next(it)
+        waited += time.perf_counter() - t1
+        state, loss, _ = step(state, to_device(batch, dev))
+        if pending is not None:
+            pending.item()
+        pending = loss
+    pending.item()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, waited
+
+
+def _rel_diff(a: dict, b: dict, base: dict) -> float:
+    """||a - b|| / ||a - base|| over every parameter of two checkpoint payloads:
+    how far apart a and b are, relative to the step from `base` to `a`."""
+    def norm(x, y):
+        sx, sy = x["model_state_dict"], y["model_state_dict"]
+        return sum(float((sx[k].double() - sy[k].double()).pow(2).sum()) for k in sx) ** 0.5
+
+    return norm(a, b) / norm(a, base)
+
+
+def _adam_rel(a: dict, b: dict) -> float:
+    """The larger over AdamW's two moments of ||m_a - m_b|| / ||m_a||."""
+    sa, sb = a["optimizer_state_dict"]["state"], b["optimizer_state_dict"]["state"]
+    out = 0.0
+    for k in ("exp_avg", "exp_avg_sq"):
+        num = sum(float((sa[i][k].double() - sb[i][k].double()).pow(2).sum()) for i in sa)
+        den = sum(float(sa[i][k].double().pow(2).sum()) for i in sa)
+        out = max(out, (num / den) ** 0.5)
+    return out
+
+
+def _jpeg_path(work: str, vit_ms_step: float):
+    """catsdogs from JPEG files, where PIL and cv2 both import: JPEG_FILES photos of
+    JPEG_SHAPE written under `work`, the shipped catsdogs config pointed at them;
+    the loader alone (in line, as the map-style loader runs) and one epoch of the
+    CLI entry, with its launch counts. Returns None where either does not import."""
+    try:
+        import cv2
+        import PIL
+        from PIL import Image
+    except ImportError as e:
+        log(f"[jpeg] {e.name} does not import on this machine: the JPEG path (catsdogs, "
+            f"imagenet) is held against the JAX package on the CPU only")
+        return None
+    import numpy as np
+    import yaml
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import build_dataloader, main as train_main
+
+    log(f"[jpeg] cv2 {cv2.__version__} and PIL {PIL.__version__} import on this machine")
+    root = os.path.join(work, "catsdogs")
+    os.makedirs(root)
+    rng = np.random.default_rng(2)
+    h, w = JPEG_SHAPE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    t0 = time.perf_counter()
+    for i in range(JPEG_FILES):
+        f = rng.uniform(0.005, 0.03, size=(3, 2))
+        img = np.stack([128 + 90 * np.sin(f[c, 0] * yy) * np.cos(f[c, 1] * xx)
+                        for c in range(3)], axis=-1)
+        img += rng.normal(0, 12, size=img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, f"{('cat', 'dog')[i % 2]}.{i}.jpg"), quality=90)
+    nbytes = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+    log(f"[jpeg] wrote {JPEG_FILES} JPEGs of {w} x {h} ({nbytes / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    raw = yaml.safe_load(open(CONFIG))
+    raw["data"]["dict_root_dirs"] = {"catsdogs": root}
+    raw["trainer"].update(checkpoint_path=os.path.join(work, "ck_catsdogs"), max_epochs=1)
+    path = os.path.join(work, "catsdogs.yaml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(raw, fh)
+    cfg = load_config(path)
+    dm, _, bpre = build_dataloader(cfg, cfg.batch_size, False)
+    steps = bpre["catsdogs"]
+    times, t0 = [], time.perf_counter()
+    for b in dm.train_dataloader():
+        times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+    if len(times) != steps or b["x"].shape != (cfg.batch_size, 3, *cfg.tile_size):
+        fail(f"the catsdogs loader gave {len(times)} batches (expected {steps}), x "
+             f"{b['x'].shape}")
+    loader_ms = 1e3 * sum(times) / steps
+    log(f"[jpeg] the loader alone, in line: {steps} batches of {cfg.batch_size} = "
+        f"{loader_ms:.1f} ms a batch ({1e3 * min(times):.1f}-{1e3 * max(times):.1f})")
+    reset_launch_counts()
+    with _Tee() as tee:
+        out = train_main([path])
+    counts = _launch_counts()
+    want = _expected_counts(int(cfg.init_args["depth"]), steps, "fused", dropout=False)
+    ms_it = [float(m) for m in re.findall(r"epoch \d+ it \d+ loss \S+ ([\d.]+) ms/it",
+                                          tee.text())]
+    if counts != want or len(ms_it) != steps or not all(np.isfinite(out["loss_list"])):
+        fail(f"catsdogs from JPEG files launched {counts} (expected {want}), {len(ms_it)} "
+             f"steps logged, losses {out['loss_list']}")
+    steady = sorted(ms_it[1:])
+    log(f"[jpeg] python -m ucf_vit_tpu_torch.train <catsdogs copy>: {steps} steps, ms/step "
+        f"mean {sum(ms_it) / steps:.1f} (the first {ms_it[0]:.1f}), median of the rest "
+        f"{steady[len(steady) // 2]:.1f}; synthetic {vit_ms_step:.3f} ms/step in phase "
+        f"train; launches {counts}")
+    return {"loader_ms": loader_ms, "ms_step": steady[len(steady) // 2]}
+
+
+def phase_train_disk(synthetic: dict, vit_ms_step: float):
+    """mae_long from NIfTI files on disk: seeded CT-like int16 volumes of 512 x 512 x
+    128, written to a temporary imagesTr/, and a copy of the shipped config pointed at
+    them (`_disk_config`: the model, the 128^3 tile, batch 2, num_workers, the
+    16-tile shuffle buffer and auto_load_balancing as shipped). (a) The loader alone:
+    its host time per batch. (b) The main path: `python -m ucf_vit_tpu_torch.train
+    <copy> --single-device` through `train.main`, DISK_EPOCHS epochs, the launch
+    counts set to 0 before it and read after (they must equal the synthetic run's a
+    step), both checkpoint slots written, each save timed. (c) A timed and a traced
+    window pulling batches from the live loader: ms/step, the time spent waiting for
+    data, the busy share, peak memory. (d) Resume on a smaller set of files: 2
+    epochs, then a run resumed to 3, against 3 uninterrupted epochs, to limits set
+    from the spread of two uninterrupted runs."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.checkpoint import restore_checkpoint
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.parallel.train_step import make_train_step
+    from ucf_vit_tpu_torch.tasks import task_loss
+    from ucf_vit_tpu_torch.train import build_dataloader, main as train_main
+
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="mae_disk_", dir=WORK)
+    try:
+        ct = os.path.join(work, "ct")
+        secs = _write_volumes(ct, DISK_VOLUMES, DISK_SHAPE, seed=0)
+        nbytes = sum(os.path.getsize(os.path.join(ct, "imagesTr", f))
+                     for f in os.listdir(os.path.join(ct, "imagesTr")))
+        log(f"[disk] wrote {DISK_VOLUMES} int16 NIfTI volumes of {DISK_SHAPE} "
+            f"({nbytes / 1e6:.1f} MB) in {secs:.2f} s")
+        path = _disk_config(work, "main", ct, DISK_EPOCHS)
+        cfg = load_config(path)
+        cfg.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                                  "seq_par_size": 1}  # what --single-device sets
+        batch = cfg.batch_size
+
+        # (a) the loader alone, in line (no prefetch thread): its host time per batch
+        dm, _, bpre = build_dataloader(cfg, batch, False)
+        per_epoch = max(bpre.values())
+        if per_epoch != DISK_VOLUMES * 16 // batch:
+            fail(f"auto_load_balancing gave {bpre}, expected {DISK_VOLUMES * 16 // batch} "
+                 f"batches an epoch (16 tiles of 128^3 a volume)")
+        dm.prefetch = 0
+        it = dm.train_dataloader(loop=True)
+        times = []
+        for _ in range(per_epoch):
+            t0 = time.perf_counter()
+            b = next(it)
+            times.append(time.perf_counter() - t0)
+        it.close()
+        if b["x"].shape != (batch, 1, *cfg.tile_size) or b["x"].dtype != np.float32:
+            fail(f"a batch from disk has x {b['x'].shape} {b['x'].dtype}")
+        loader_ms = 1e3 * sum(times) / len(times)
+        log(f"[disk] the loader alone: {per_epoch} batches of {batch} in {sum(times):.3f} s = "
+            f"{loader_ms:.1f} ms a batch (the first {1e3 * times[0]:.1f} ms, the slowest "
+            f"{1e3 * max(times):.1f}); x {b['x'].shape}, in [{b['x'].min():.3f}, "
+            f"{b['x'].max():.3f}]")
+        del dm, it, b
+
+        # (b) the main path: the CLI entry as a user runs it, on the files
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with _Tee() as tee:
+            out = train_main([path, "--single-device"])
+        counts = _launch_counts()
+        wall = time.perf_counter() - t0
+        model = out["state"].model
+        enc, dec = len(model.blocks), len(model.decoder_blocks)
+        steps = DISK_EPOCHS * per_epoch
+        want = _expected_counts(enc + dec, steps, "fused", dropout=False, bf16=True,
+                                forwards_per_step=2)
+        per_step = {k: n // steps for k, n in counts.items()}
+        synth_per_step = {k: n // MAE_MAIN_STEPS for k, n in synthetic["main"].items()}
+        ms_it = [float(m) for m in re.findall(r"epoch \d+ it \d+ loss \S+ ([\d.]+) ms/it",
+                                              tee.text())]
+        log(f"[disk] python -m ucf_vit_tpu_torch.train <mae_long copy> --single-device: "
+            f"{DISK_EPOCHS} epochs of {per_epoch} steps in {wall:.2f} s (init and saves "
+            f"included); epoch losses {out['loss_list']}; launches {counts}")
+        if counts != want or per_step != synth_per_step or len(ms_it) != steps \
+                or not all(np.isfinite(out["loss_list"])):
+            fail(f"mae_long from disk launched {counts} (expected {want}; a step {per_step}, "
+                 f"the synthetic run's {synth_per_step}), {len(ms_it)} steps logged, losses "
+                 f"{out['loss_list']}")
+        steady = sorted(ms_it[i] for i in range(steps) if i % per_epoch >= 2)
+        saves = _saves(tee.text(), cfg.trainer["checkpoint_path"],
+                       ("multi_last_even.ckpt", "multi_last_odd.ckpt"))
+        size = os.path.getsize(os.path.join(cfg.trainer["checkpoint_path"],
+                                            "multi_last_odd.ckpt"))
+        log(f"[disk] ms/step from disk: mean {sum(ms_it) / steps:.1f} over all {steps} steps "
+            f"(first of each epoch {', '.join(f'{ms_it[i]:.1f}' for i in range(0, steps, per_epoch))}),"
+            f" median of the steady steps {steady[len(steady) // 2]:.1f}; synthetic "
+            f"{synthetic['ms_step']:.3f} ms/step in phase mae; checkpoint saves "
+            f"{', '.join(f'epoch {e} {t:.3f} s' for e, t in saves)} ({size / 1e9:.3f} GB each)")
+        shutil.rmtree(cfg.trainer["checkpoint_path"])
+
+        # (c) windows on the live loader (its prefetch thread running beside the steps)
+        state = out["state"]
+        step = make_train_step(task_loss(cfg), state.optimizer)
+        dm, _, _ = build_dataloader(cfg, batch, False)
+        it = dm.train_dataloader(loop=True)
+        warm_s, warm_wait = _disk_window(state, step, it, DISK_WARMUP_STEPS)
+        log(f"[disk] warm-up window on a fresh loader: {DISK_WARMUP_STEPS} steps in "
+            f"{warm_s:.4f} s, of it waiting for batches {warm_wait:.4f} s (the first batch "
+            f"reads the epoch's first volumes)")
+        torch.cuda.reset_peak_memory_stats()
+        wall_s, waited_s = _disk_window(state, step, it, DISK_TIMED_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        traced_s, traced_wait = _disk_window(state, step, it, DISK_TRACED_STEPS)
+        prof.stop()
+        it.close()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        if busy_ms <= 0:
+            fail("the traced window from disk saw no work on the card")
+        ms_step = 1e3 * wall_s / DISK_TIMED_STEPS
+        busy = busy_ms / (1e3 * traced_s)
+        log(f"[disk] window on the live loader: {DISK_TIMED_STEPS} steps in {wall_s:.4f} s = "
+            f"{ms_step:.3f} ms/step, of it waiting for batches {1e3 * waited_s / DISK_TIMED_STEPS:.3f}"
+            f" ms/step; peak memory {peak_gb:.2f} GB; traced {DISK_TRACED_STEPS} steps in "
+            f"{traced_s:.4f} s (waiting {1e3 * traced_wait:.1f} ms): device busy {busy_ms:.3f} ms "
+            f"= {100 * busy:.2f}%, {busy_ms / DISK_TRACED_STEPS:.3f} ms a step")
+        del out, model, state, step, dm, it
+        torch.cuda.empty_cache()
+
+        # (d) resume equals uninterrupted, on 2 volumes of one 128^3 tile each (one batch
+        # an epoch), with the warm-up cut to 0 in memory so that every step moves the
+        # parameters. Differences are relative to one epoch's update (parameters) or to
+        # the moments' size: a gradient element near 0 whose sign the atomics flip moves
+        # its parameter by 2 lr under AdamW, so a largest difference says nothing. The
+        # spread of two uninterrupted runs comes first.
+        small = os.path.join(work, "ct_small")
+        _write_volumes(small, 2, DISK_SMALL_SHAPE, seed=1)
+        ck = {n: os.path.join(work, f"ck_{n}") for n in ("whole", "part")}
+        runs, spread = {}, None
+        for name, epochs, resume in (("whole", 3, False), ("part", 2, False),
+                                     ("part", 3, True)):
+            p = _disk_config(work, f"{name}_{epochs}", small, epochs, {"warmup_steps": 0},
+                             checkpoint_path=ck[name], resume_from_checkpoint=resume)
+            with _Tee() as tee:
+                res = train_main([p, "--single-device"])
+            runs[name, resume] = (res["loss_list"], tee.text())
+            del res
+            torch.cuda.empty_cache()
+            if name == "part" and not resume:  # two uninterrupted runs after 2 epochs
+                w1, p1, p0 = (restore_checkpoint(ck[n], f"multi_last_{slot}")
+                              for n, slot in (("whole", "odd"), ("part", "odd"),
+                                              ("part", "even")))
+                spread = (_rel_diff(w1, p1, p0), _adam_rel(w1, p1))
+        w2, r2, w1 = (restore_checkpoint(ck[n], f"multi_last_{slot}")
+                      for n, slot in (("whole", "even"), ("part", "even"), ("whole", "odd")))
+        diff = (_rel_diff(w2, r2, w1), _adam_rel(w2, r2))
+        load = [float(x) for x in re.findall(r"checkpoint read in ([\d.]+) s",
+                                             runs["part", True][1])]
+        lw, lp, lr = runs["whole", False][0], runs["part", False][0], runs["part", True][0]
+        loss_spread = max(abs(a - b) for a, b in zip(lw[:2], lp))
+        loss_diff = abs(lw[2] - lr[2])
+        log(f"[disk] resume: 3 epochs {lw}; 2 epochs {lp}; resumed to 3 {lr} (checkpoint "
+            f"read in {load} s). Two uninterrupted runs after 2 epochs: params "
+            f"{spread[0]:.3e} of an epoch's update, AdamW moments {spread[1]:.3e}, losses "
+            f"{loss_spread:.3e}. Resumed against uninterrupted after 3: params {diff[0]:.3e}, "
+            f"moments {diff[1]:.3e}, loss {loss_diff:.3e} (limits {RESUME_PARAM_TOL:g}, "
+            f"{RESUME_ADAM_TOL:g}, {RESUME_LOSS_TOL:g})")
+        if lr[:2] != lp or len(lr) != 3 or not load:
+            fail(f"the resumed run's loss list {lr} does not continue {lp}")
+        if diff[0] > RESUME_PARAM_TOL or diff[1] > RESUME_ADAM_TOL or loss_diff > RESUME_LOSS_TOL:
+            fail("the resumed run differs from the uninterrupted one beyond the limits")
+        jpeg = _jpeg_path(work, vit_ms_step)
+        return {"main": counts, "ms_step": ms_step, "loader_ms": loader_ms,
+                "save_s": [t for _, t in saves], "load_s": load, "busy": busy, "jpeg": jpeg}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _request(port: int, method: str, path: str, body: bytes | None = None) -> bytes:
     """One HTTP request on a connection of its own: the server speaks
     HTTP/1.0 and closes the connection after each answer."""
@@ -1684,12 +2124,12 @@ def _window_line(name: str, res: dict, before: dict, after: dict) -> str:
             f"{lat.max():.2f} ms; in the batcher (queue + batch) mean {in_batcher:.2f} ms")
 
 
-def phase_serve():
+def phase_serve(ckpt_dir: str):
     import numpy as np
     import torch
 
     from ucf_vit_tpu_torch.config import Config, load_config
-    from ucf_vit_tpu_torch.inference import init_eval_model
+    from ucf_vit_tpu_torch.inference import init_eval_model, load_weights
     from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
     from ucf_vit_tpu_torch.serve import make_server
     from ucf_vit_tpu_torch.train import synthetic_batches
@@ -1706,7 +2146,9 @@ def phase_serve():
 
     reset_launch_counts()  # the main path starts here (warm-up included)
     t0 = time.perf_counter()
-    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=MAX_BATCH, device="cuda")
+    # --checkpoint on phase_train's directory: the config's slot, multi_last_odd (epoch 1)
+    server = make_server(cfg, ckpt_dir, host="127.0.0.1", port=0, max_batch=MAX_BATCH,
+                         device="cuda")
     startup_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1751,6 +2193,15 @@ def phase_serve():
         stats = _get_json(port, "/v1/stats")
         launches = flash_attention.launches  # the main path ends here
         tf32_launches = flash_attention.by_source["flash_fwd_tf32"]
+        # /v1/reload to the other slot while serving: the next answers are that slot's
+        even = os.path.join(ckpt_dir, "multi_last_even.ckpt")
+        t1 = time.perf_counter()
+        reloaded = json.loads(_request(port, "POST", "/v1/reload",
+                                       json.dumps({"checkpoint": even}).encode()))
+        reload_s = time.perf_counter() - t1
+        even_answers = [(i, np.load(io.BytesIO(_request(port, "POST", "/v1/predict", bodies[i]))))
+                        for i in range(LOAD_CLIENTS, LOAD_CLIENTS + SEQUENTIAL_REQUESTS)]
+        epoch_after = _get_json(port, "/v1/stats")["checkpoint_epoch"]
     finally:
         if client.is_alive():
             client.terminate()
@@ -1760,7 +2211,8 @@ def phase_serve():
         server.RequestHandlerClass.batcher.close()
         thread.join(timeout=30)
 
-    log(f"[serve] ViT-B/16 {cfg.tile_size} depth {depth}: startup {startup_s:.2f} s; "
+    log(f"[serve] ViT-B/16 {cfg.tile_size} depth {depth} from the checkpoint of epoch "
+        f"{stats['checkpoint_epoch']} ({ckpt_dir}): startup {startup_s:.2f} s; "
         f"sequential latency mean {1e3 * sum(seq_lat) / len(seq_lat):.2f} ms, "
         f"max {1e3 * max(seq_lat):.2f} ms")
     for name, (res, before, after) in windows.items():
@@ -1792,23 +2244,86 @@ def phase_serve():
         fwd_ms = time_ms(lambda: model(x16), iters=10, warmup=2)
     log(f"[serve] forward of one batch of {MAX_BATCH} on the card: {fwd_ms:.3f} ms")
 
+    # the oracle: attention forced to EINSUM, the checkpoint's weights loaded beside it
     raw = copy.deepcopy(cfg.raw)
     raw["trainer"]["attn_impl"] = "EINSUM"
     oracle = init_eval_model(Config(raw=raw, task=cfg.task), seed=0, device="cuda")
-    with torch.inference_mode():
-        want = torch.cat([oracle(torch.from_numpy(samples[i:i + MAX_BATCH]).cuda())
-                          for i in range(0, len(samples), MAX_BATCH)]).cpu().numpy()
-    worst = 0.0
-    for i, got in answers:
-        if got.shape != want[i].shape or not np.all(np.isfinite(got)):
-            fail(f"answer of shape {got.shape} (finite: {np.all(np.isfinite(got))}), "
-                 f"expected {want[i].shape}")
-        worst = max(worst, float(np.abs(got - want[i]).max()))
-    log(f"[serve] {len(answers)} answers vs the direct EINSUM forward: max abs diff "
-        f"{worst:.3e} (tol {SERVE_TOL:g})")
-    if worst > SERVE_TOL:
-        fail("served answers disagree with the direct forward")
+
+    def oracle_answers(path):
+        epoch = load_weights(oracle, cfg, path)
+        with torch.inference_mode():
+            return epoch, torch.cat([oracle(torch.from_numpy(samples[i:i + MAX_BATCH]).cuda())
+                                     for i in range(0, len(samples), MAX_BATCH)]).cpu().numpy()
+
+    def worst_diff(got_answers, want):
+        worst = 0.0
+        for i, got in got_answers:
+            if got.shape != want[i].shape or not np.all(np.isfinite(got)):
+                fail(f"answer of shape {got.shape} (finite: {np.all(np.isfinite(got))}), "
+                     f"expected {want[i].shape}")
+            worst = max(worst, float(np.abs(got - want[i]).max()))
+        return worst
+
+    epoch_odd, want = oracle_answers(ckpt_dir)
+    worst = worst_diff(answers, want)
+    log(f"[serve] {len(answers)} answers vs the direct EINSUM forward on the checkpoint's "
+        f"weights (epoch {epoch_odd}): max abs diff {worst:.3e} (tol {SERVE_TOL:g})")
+    if stats["checkpoint_epoch"] != epoch_odd or worst > SERVE_TOL:
+        fail(f"served answers disagree with the direct forward (server's epoch "
+             f"{stats['checkpoint_epoch']}, the slot's {epoch_odd})")
+    epoch_even, want_even = oracle_answers(even)
+    worst_even = worst_diff(even_answers, want_even)
+    gap = float(np.abs(want_even - want).max())
+    log(f"[serve] /v1/reload to {os.path.basename(even)} in {reload_s:.3f} s: {reloaded}; "
+        f"{len(even_answers)} answers after it vs the EINSUM forward on that slot: max abs "
+        f"diff {worst_even:.3e} (tol {SERVE_TOL:g}); the two slots' answers differ by up to "
+        f"{gap:.3e}")
+    if reloaded != {"status": "reloaded", "epoch": epoch_even} or epoch_after != epoch_even:
+        fail(f"/v1/reload answered {reloaded}, stats then said epoch {epoch_after}")
+    if worst_even > SERVE_TOL or gap < 10 * SERVE_TOL:
+        fail("after /v1/reload the answers are not the other slot's")
+    del oracle
+    seeded_rps = _seeded_load(cfg, bodies[:LOAD_CLIENTS])
+    load_res = windows["load"][0]
+    ckpt_rps = len(load_res["requests"]) / load_res["wall_s"]
+    log(f"[serve] requests/s under load: {ckpt_rps:.2f} from the checkpoint, {seeded_rps:.2f} "
+        f"from seeded weights (a server of its own, after)")
     return {"launches": launches}
+
+
+def _seeded_load(cfg, bodies) -> float:
+    """Requests/s of a server with seeded weights under the same closed-loop load
+    (a warm-up window, then the load window)."""
+    from ucf_vit_tpu_torch.serve import make_server
+
+    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=MAX_BATCH, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_pipe = ctx.Pipe()
+    client = ctx.Process(target=_load_client, args=(server.server_address[1], bodies,
+                                                     child_pipe), daemon=True)
+    client.start()
+    try:
+        for name in ("warm-up", "load"):
+            seconds = LOAD_WINDOWS_S[name]
+            pipe.send(seconds)
+            if not pipe.poll(seconds + 300):
+                fail(f"the load client gave no result for the seeded {name} window")
+            res = pipe.recv()
+            if res["errors"] or not res["requests"]:
+                fail(f"seeded server, {name} window: errors {res['errors'][:3]}")
+        pipe.send(None)
+        client.join(timeout=30)
+    finally:
+        if client.is_alive():
+            client.terminate()
+            client.join()
+        server.shutdown()
+        server.server_close()
+        server.RequestHandlerClass.batcher.close()
+        thread.join(timeout=30)
+    return len(res["requests"]) / res["wall_s"]
 
 
 # ---------------------------------------------------------------- two checkouts
@@ -1919,10 +2434,15 @@ def main() -> int:
     mlp = phase_mlp_kernels()
     int8 = phase_int8_kernels()
     ops = phase_ops_path()
-    trained = phase_train()
-    served = phase_serve()
-    trained_bf16 = phase_train_bf16()
-    trained_mae = phase_train_mae()
+    os.makedirs(WORK, exist_ok=True)
+    try:
+        trained = phase_train()
+        served = phase_serve(trained["ckpt_dir"])
+        trained_bf16 = phase_train_bf16()
+        trained_mae = phase_train_mae()
+        disk = phase_train_disk(trained_mae, trained["ms_step"])
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
 
     # Each flash kernel has two rows: the f32 instance (*_tf32.cu) at the
     # ViT-B/16 shape that serving and f32 training give it, with the launches of those
@@ -1976,8 +2496,12 @@ def main() -> int:
         "keep_mask": trained["dropout"]["keep_mask"], **ops,
     }
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
-        f"ViT-L train {vit_l}; mae_long train {mae_long}; train with attention dropout "
-        f"{trained['dropout']}; the ops' public API {ops}")
+        f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
+        f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")
+    log(f"[record] mae_long from disk: {disk['ms_step']:.3f} ms/step (synthetic "
+        f"{trained_mae['ms_step']:.3f}), the loader alone {disk['loader_ms']:.1f} ms a batch, "
+        f"busy {100 * disk['busy']:.2f}%, checkpoint saves {disk['save_s']} s, load "
+        f"{disk['load_s']} s; catsdogs from JPEG files {disk['jpeg']}")
     for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
                  "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long", "fused_mlp",
                  "int8_matmul"):

@@ -487,3 +487,133 @@ def test_ops_raise_outside_their_limits_on_card():
     with pytest.raises(ValueError, match="K <= 6144"):
         int8_matmul(torch.randn(8, 8192, device="cuda"), w_i8, ws)
     assert (fused_mlp.launches, int8_matmul.launches) == before
+
+
+# ---------------------------------------------------------------- from disk, checkpoints
+
+
+def _mae_disk_config(tmp_path, epochs, resume=False):
+    """A tiny bf16 MAE (remat, FLASH) reading two NIfTI volumes of 32 x 16 x 16 from
+    `tmp_path`: two 16^3 tiles each, two batches of 2 an epoch."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.data import nifti
+
+    root = tmp_path / "ct"
+    if not root.exists():
+        (root / "imagesTr").mkdir(parents=True)
+        rng = np.random.default_rng(0)
+        for i in range(2):
+            nifti.save(str(root / "imagesTr" / f"image{i}.nii"),
+                       (rng.normal(size=(32, 16, 16)) * 300).astype(np.int16))
+    ia = {"default_vars": ["ct"], "tile_size": [16, 16, 16], "patch_size": 4, "twoD": False,
+          "embed_dim": 48, "depth": 1, "num_heads": 2, "decoder_embed_dim": 36,
+          "decoder_depth": 1, "decoder_num_heads": 3, "mlp_ratio": 2, "mask_ratio": 0.75,
+          "adaptive_patching": False}
+    raw = {"trainer": {"task": "mae", "data_type": "bfloat16", "remat": True,
+                       "attn_impl": "FLASH", "max_epochs": epochs,
+                       "checkpoint_path": str(tmp_path / "ck"), "checkpoint_filename": "last",
+                       "checkpoint_filename_for_loading": "last_latest",
+                       "resume_from_checkpoint": resume},
+           "parallelism": {},
+           "model": {"lr": 1e-3, "warmup_steps": 0, "loss_fn": "maskMSE",
+                     "net": {"init_args": ia}},
+           "data": {"dataset": "basic_ct", "dict_root_dirs": {"ct": str(root)},
+                    "dict_start_idx": {"ct": 0}, "dict_end_idx": {"ct": 1},
+                    "dict_buffer_sizes": {"ct": 4}, "num_channels_used": {"ct": 1},
+                    "dict_in_variables": {"ct": ["ct"]}, "batch_size": 2,
+                    "single_channel": True, "tile_overlap": 0.0, "use_all_data": False},
+           "load_balancing": {"auto_load_balancing": True}}
+    return Config(raw=raw, task="mae")
+
+
+@pytest.mark.cuda
+def test_train_from_disk_save_and_resume_on_card(tmp_path):
+    """A tiny bf16 MAE from NIfTI files on the card: the sm90 kernels run every step,
+    both checkpoint slots are written, and a run resumed from the odd slot continues
+    the loss list and trains on."""
+    _card()
+    from ucf_vit_tpu_torch.checkpoint import resolve_slot, stored_epoch
+    from ucf_vit_tpu_torch.train import train
+
+    reset_launch_counts()
+    out = train(_mae_disk_config(tmp_path, 2), device="cuda")
+    steps = 4  # 2 epochs of 2 batches
+    assert flash_attention.by_source["flash_fwd_sm90"] == 2 * 2 * steps  # remat: twice a block
+    assert flash_attention_bwd.by_source["flash_bwd_sm90"] == 2 * steps
+    assert len(out["loss_list"]) == 2 and all(torch.isfinite(torch.tensor(out["loss_list"])))
+    ck = str(tmp_path / "ck")
+    latest = resolve_slot(ck, "last_latest")
+    assert latest.endswith("last_odd.ckpt") and stored_epoch(latest) == 1
+    resumed = train(_mae_disk_config(tmp_path, 3, resume=True), device="cuda")
+    assert resumed["loss_list"][:2] == out["loss_list"] and len(resumed["loss_list"]) == 3
+    assert stored_epoch(resolve_slot(ck, "last_latest")) == 2
+    assert resumed["state"].optimizer.count == 6
+
+
+@pytest.mark.cuda
+def test_serve_from_checkpoint_on_card(tmp_path):
+    """A tiny f32 ViT trained on the card for two epochs; the server started on the
+    checkpoint answers as the direct EINSUM forward on those weights, and /v1/reload
+    to the other slot changes the answers to that slot's."""
+    _card()
+    import copy
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.inference import init_eval_model, load_weights
+    from ucf_vit_tpu_torch.serve import make_server
+    from ucf_vit_tpu_torch.train import train
+
+    ia = {"default_vars": ["v"], "tile_size": [32, 32], "patch_size": 8, "embed_dim": 64,
+          "depth": 2, "num_heads": 2, "mlp_ratio": 2, "twoD": True, "adaptive_patching": False,
+          "num_classes": 3}
+    raw = {"trainer": {"task": "classification", "attn_impl": "FLASH", "max_epochs": 2,
+                       "checkpoint_path": str(tmp_path / "ck"), "checkpoint_filename": "last",
+                       "checkpoint_filename_for_loading": "last_odd"},
+           "parallelism": {}, "model": {"lr": 1e-3, "warmup_steps": 0, "net": {"init_args": ia}},
+           "data": {"batch_size": 4, "num_classes": 3, "single_channel": True},
+           "load_balancing": {"batches_per_rank_epoch": {"d": 3}}}
+    cfg = Config(raw=raw, task="classification")
+    train(cfg, synthetic=True, device="cuda")
+    einsum = copy.deepcopy(raw)
+    einsum["trainer"]["attn_impl"] = "EINSUM"
+    oracle = init_eval_model(Config(raw=einsum, task="classification"), device="cuda")
+    x = np.random.default_rng(1).normal(size=(1, 32, 32)).astype(np.float32)
+
+    def want(path):
+        load_weights(oracle, cfg, path)
+        with torch.no_grad():
+            return oracle(torch.from_numpy(np.stack([x] * 4)).cuda())[0].cpu().numpy()
+
+    def post(url, body):
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.read()
+
+    server = make_server(cfg, str(tmp_path / "ck"), host="127.0.0.1", port=0, max_batch=4,
+                         max_wait_ms=1.0, device="cuda")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    buf = io.BytesIO()
+    np.save(buf, x)
+    try:
+        odd = np.load(io.BytesIO(post(f"{base}/v1/predict", buf.getvalue())))
+        even_path = str(tmp_path / "ck" / "last_even.ckpt")
+        assert json.loads(post(f"{base}/v1/reload", json.dumps(
+            {"checkpoint": even_path}).encode()))["epoch"] == 0
+        even = np.load(io.BytesIO(post(f"{base}/v1/predict", buf.getvalue())))
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.RequestHandlerClass.batcher.close()
+    w_odd, w_even = want(str(tmp_path / "ck")), want(even_path)
+    np.testing.assert_allclose(odd, w_odd, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(even, w_even, atol=1e-4, rtol=0)
+    assert np.abs(w_odd - w_even).max() > 1e-3

@@ -23,8 +23,9 @@ torch = pytest.importorskip("torch")
 from ucf_vit_tpu.serve import build_predictor as jax_build_predictor
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.convert import load_jax_params
+from ucf_vit_tpu_torch.inference import init_eval_model, load_weights
 from ucf_vit_tpu_torch.serve import MicroBatcher, build_predictor, make_server, main
-from ucf_vit_tpu_torch.train import example_batch
+from ucf_vit_tpu_torch.train import example_batch, train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(r"^(jax|flax|optax|orbax|ucf_vit_tpu(?!_torch))(\.|$)")
@@ -72,7 +73,7 @@ def test_predictor_seeded_weights_and_input_checks():
     assert not torch.equal(run_a(batch), run_c(batch))
     with pytest.raises(ValueError, match="expected input shape"):
         pre(np.zeros((2, 16, 16), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         build_predictor(cfg, checkpoint_dir="/nonexistent", device="cpu")
 
 
@@ -222,7 +223,7 @@ def test_serve_http_roundtrip_equals_direct_forward():
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(f"{base}/v1/reload", json.dumps({"checkpoint": "/ckpt"}).encode(),
                   "application/json")
-        assert e.value.code == 501 and "ROADMAP" in json.loads(e.value.read())["error"]
+        assert e.value.code == 400 and "no checkpoint" in json.loads(e.value.read())["error"]
         with pytest.raises(urllib.error.HTTPError) as e:
             _get_json(f"{base}/v1/nothing")
         assert e.value.code == 404
@@ -230,6 +231,105 @@ def test_serve_http_roundtrip_equals_direct_forward():
         server.shutdown()
         server.server_close()
         server.RequestHandlerClass.batcher.close()
+
+
+# ---------------------------------------------------------------- checkpoints
+
+
+def _checkpoints(tmp_path, ema: bool):
+    """Two epochs of two steps of the port's trainer: the even slot holds epoch 0,
+    the odd slot epoch 1 (with `ema`, each with the EMA of the parameters)."""
+    d = str(tmp_path / "ck")
+    cfg = _cfg(checkpoint_path=d, checkpoint_filename="last", max_epochs=2,
+               checkpoint_filename_for_loading="last_latest",
+               **({"ema_decay": 0.5} if ema else {}))
+    cfg.raw["model"]["warmup_steps"] = 1
+    cfg.raw["load_balancing"] = {"batches_per_rank_epoch": {"d": 2}}
+    assert len(train(cfg, synthetic=True, device="cpu")["loss_list"]) == 2
+    return cfg, d
+
+
+def _serving(server):
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _stop(server):
+    server.shutdown()
+    server.server_close()
+    server.RequestHandlerClass.batcher.close()
+
+
+def _predict(base, x):
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return np.load(io.BytesIO(_post(f"{base}/v1/predict", buf.getvalue(), "application/x-npy")))
+
+
+def _reload(base, **body):
+    return json.loads(_post(f"{base}/v1/reload", json.dumps(body).encode(), "application/json"))
+
+
+def test_serve_from_checkpoint_reload_and_ema(tmp_path):
+    """`--checkpoint DIR --ema` serves the newest slot's EMA weights; `/v1/reload` swaps
+    in another slot (EMA by default, as the server started), or its raw parameters;
+    each answer equals the direct forward of a model loaded with those weights."""
+    cfg, d = _checkpoints(tmp_path, ema=True)
+    x = np.random.default_rng(7).normal(size=(1, 16, 16)).astype(np.float32)
+
+    def direct(path, ema):
+        model = init_eval_model(cfg, seed=9, device="cpu")
+        epoch = load_weights(model, cfg, path, use_ema=ema)
+        with torch.no_grad():
+            return epoch, model(torch.from_numpy(np.stack([x] * 4)))[0].numpy()
+
+    even, odd = os.path.join(d, "last_even.ckpt"), os.path.join(d, "last_odd.ckpt")
+    server = make_server(cfg, d, host="127.0.0.1", port=0, max_batch=4, max_wait_ms=1.0,
+                         use_ema=True, device="cpu")
+    try:
+        base = _serving(server)
+        answers = {}
+        answers["odd_ema"] = _predict(base, x)
+        assert _get_json(f"{base}/v1/stats")["checkpoint_epoch"] == 1
+        assert _reload(base, checkpoint=even) == {"status": "reloaded", "epoch": 0}
+        answers["even_ema"] = _predict(base, x)
+        assert _reload(base, checkpoint=d, ema=False)["epoch"] == 1
+        answers["odd"] = _predict(base, x)
+        assert _get_json(f"{base}/v1/stats")["checkpoint_epoch"] == 1
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _reload(base, checkpoint=str(tmp_path / "nothing"))
+        assert e.value.code == 400
+        np.testing.assert_array_equal(_predict(base, x), answers["odd"])  # still served
+    finally:
+        _stop(server)
+    for name, (path, ema, epoch) in {"odd_ema": (odd, True, 1), "even_ema": (even, True, 0),
+                                     "odd": (odd, False, 1)}.items():
+        got_epoch, want = direct(path, ema)
+        assert got_epoch == epoch
+        np.testing.assert_array_equal(answers[name], want, err_msg=name)
+    assert not np.array_equal(answers["odd_ema"], answers["even_ema"])
+    assert not np.array_equal(answers["odd_ema"], answers["odd"])
+
+
+def test_serve_ema_needs_a_checkpoint_with_ema(tmp_path):
+    cfg, d = _checkpoints(tmp_path, ema=False)
+    with pytest.raises(ValueError, match="no EMA state"):
+        make_server(cfg, d, host="127.0.0.1", port=0, max_batch=4, use_ema=True, device="cpu")
+    server = make_server(cfg, d, host="127.0.0.1", port=0, max_batch=4, max_wait_ms=1.0,
+                         device="cpu")
+    try:
+        base = _serving(server)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _reload(base, checkpoint=d, ema=True)
+        assert e.value.code == 400 and "no EMA state" in json.loads(e.value.read())["error"]
+        # the head grouping is checked too
+        other = Config(raw=json.loads(json.dumps(cfg.raw)), task=cfg.task)
+        other.raw["model"]["net"]["init_args"]["num_heads"] = 4
+        with pytest.raises(ValueError, match="regrouping"):
+            load_weights(init_eval_model(other, device="cpu"), other, d)
+    finally:
+        _stop(server)
 
 
 # ---------------------------------------------------------------- import guard
@@ -265,8 +365,12 @@ def test_port_imports_nothing_of_jax():
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert set(mods) <= set(loaded)
     assert [m for m in loaded if FORBIDDEN.match(m)] == []
-    # importing the port imports no kernel compiler either
+    # importing the port imports no kernel compiler either, nor the JPEG decoders
+    # (the data pipeline imports them when it reads its first JPEG)
     assert "triton" not in loaded
+    assert {"ucf_vit_tpu_torch.checkpoint", "ucf_vit_tpu_torch.data.pipeline",
+            "ucf_vit_tpu_torch.data.datamodule", "ucf_vit_tpu_torch.data.catsdogs"} <= set(mods)
+    assert not {"cv2", "PIL"} & set(loaded)
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]

@@ -19,9 +19,18 @@ plain versions) or EINSUM, as a case says. Tolerances: `pred` within 1e-5 in
 f32 (the same sums in other orders, two blocks deep on either side of the
 mask), the mask exact; per-step losses within 1e-4 in f32 and 5e-3 in bf16
 (`tests/test_torch_bf16.py` says why the two frameworks' bf16 roundings
-differ)."""
+differ).
+
+Then the data pipeline, checkpoints and resume, on files written from numpy
+seeds (NIfTI, .npy, JPEG): the port's readers, tiling, shuffle buffer, load
+balancing, DataModule and catsdogs loader against the JAX package's, batch for
+batch; five train steps from JPEGs through both trainers; the checkpoint slots,
+their resolution and the head-grouping guard; resume equal bit for bit to an
+uninterrupted run; and checkpoints through the JAX package's `convert_checkpoint`
+both ways."""
 
 import ast
+import copy
 import json
 import os
 import subprocess
@@ -268,14 +277,24 @@ def test_cli_trains_and_writes_metrics(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg = _tiny_yaml(tmp_path)
-    with pytest.raises(NotImplementedError, match="data pipeline"):
+    # without --synthetic the trainer reads the files the config names: none here
+    with pytest.raises(KeyError, match="dict_root_dirs"):
         main([cfg, "--max-steps", "1", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="last_even"):
+        main([_tiny_yaml(tmp_path, resume_from_checkpoint=True,
+                         checkpoint_path=str(tmp_path / "none"),
+                         checkpoint_filename_for_loading="last_latest"),
+              "--synthetic", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
-    for key, value in (("resume_from_checkpoint", True), ("val_every", 1),
-                       ("tensorboard_dir", "tb")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for key, value, item in (("pretrained_mae_checkpoint", "ck", "item 7: UNETR"),
+                             ("val_every", 1, "item 9: trainer parity"),
+                             ("tensorboard_dir", "tb", "item 9: trainer parity"),
+                             ("preempt_after_steps", 3, "item 9: trainer parity"),
+                             ("profile_dir", "prof", "item 9: trainer parity"),
+                             ("sync_check_every", 2, "item 10: data/tensor parallel")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port, {item}"):
             main([_tiny_yaml(tmp_path, **{key: value}), "--synthetic", "--device", "cpu"])
 
 
@@ -654,3 +673,525 @@ def test_cli_runs_mae_long_config_shrunk(tmp_path, capsys):
     assert model.num_patches == 64 and model.len_keep == 16
     recs = metrics_path.read_text().splitlines()
     assert len(recs) == 4 and all(np.isfinite(out["loss_list"]))
+
+
+# ================================================================ data, checkpoints, resume
+#
+# The port's data pipeline (`ucf_vit_tpu_torch/data/`) against the JAX package's
+# (`ucf_vit_tpu/data/`) on the same files, made here from numpy seeds: NIfTI, .npy and
+# JPEG. Batches must be equal array for array; five train steps from disk within
+# LOSS_TOL a step of `ucf_vit_tpu.train`'s; resume after 2 epochs equal bit for bit to 3
+# uninterrupted epochs (f32 on the CPU); checkpoints through the JAX package's
+# `convert_checkpoint` both ways, the forwards within INTEROP_TOL.
+
+import itertools
+
+from ucf_vit_tpu import checkpoint as jax_ckpt
+from ucf_vit_tpu.data import catsdogs as jax_catsdogs
+from ucf_vit_tpu.data import nifti as jax_nifti
+from ucf_vit_tpu.data import pipeline as jax_pipeline
+from ucf_vit_tpu.data.datamodule import DataModule as JDataModule
+from ucf_vit_tpu.data.load_balance import (
+    calculate_load_balancing_from_config as jax_load_balancing,
+)
+from ucf_vit_tpu.tools.convert_checkpoint import main as convert_main
+from ucf_vit_tpu.train import _init_variables as jax_init_variables
+from ucf_vit_tpu.train import example_batch as jax_example_batch
+from ucf_vit_tpu.train import train as jax_train
+from ucf_vit_tpu_torch import checkpoint as ckpt
+from ucf_vit_tpu_torch.data import catsdogs as port_catsdogs
+from ucf_vit_tpu_torch.data import nifti
+from ucf_vit_tpu_torch.data import pipeline as port_pipeline
+from ucf_vit_tpu_torch.data.datamodule import DataModule
+from ucf_vit_tpu_torch.data.load_balance import calculate_load_balancing_from_config
+from ucf_vit_tpu_torch.inference import load_weights
+from ucf_vit_tpu_torch.train import build_dataloader, init_train, train
+
+INTEROP_TOL = 1e-5  # a forward on converted weights: the same sums in other orders
+
+
+def _volumes(root, n, shape, kind="nii", dtype=np.int16, seed=0, labels=0):
+    """`n` volumes under <root>/imagesTr (and, with `labels` classes, 1-based
+    label volumes under <root>/labelsTr, as CT label files are)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "imagesTr"))
+    if labels:
+        os.makedirs(os.path.join(root, "labelsTr"))
+    for i in range(n):
+        vol = (rng.normal(size=shape) * 300).astype(dtype)
+        if kind == "nii":
+            nifti.save(os.path.join(root, "imagesTr", f"image{i}.nii"), vol)
+        else:
+            np.save(os.path.join(root, "imagesTr", f"image{i}.npy"), vol)
+        if labels:
+            lab = rng.integers(1, labels + 1, size=shape[-3:]).astype(np.int16)
+            if kind == "nii":
+                nifti.save(os.path.join(root, "labelsTr", f"label{i}.nii"), lab)
+            else:
+                np.save(os.path.join(root, "labelsTr", f"image{i}.npy"), lab - 1)
+    return str(root)
+
+
+def _jpegs(root, names, size=(40, 36), seed=0):
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for name in names:
+        Image.fromarray(rng.integers(0, 255, size=size + (3,)).astype(np.uint8)).save(
+            os.path.join(root, name))
+    return str(root)
+
+
+CATSDOGS = [f"{k}.{i}.jpg" for i, k in enumerate(["cat", "dog"] * 3)]
+
+
+def _assert_batches_equal(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            if isinstance(w[k], np.ndarray):
+                assert g[k].dtype == w[k].dtype, k
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            else:
+                assert tuple(g[k]) == tuple(w[k]) if isinstance(w[k], (list, tuple)) \
+                    else g[k] == w[k], k
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+def test_nifti_round_trip_and_matches_jax_load(tmp_path, dtype):
+    vol = (np.random.default_rng(3).normal(size=(7, 5, 3)) * 100).astype(dtype)
+    nifti.save(str(tmp_path / "a.nii"), vol)
+    jax_nifti.save(str(tmp_path / "b.nii"), vol)
+    assert (tmp_path / "a.nii").read_bytes() == (tmp_path / "b.nii").read_bytes()
+    got = nifti.load(str(tmp_path / "a.nii"))
+    assert got.dtype == vol.dtype
+    np.testing.assert_array_equal(got, vol)
+    np.testing.assert_array_equal(got, jax_nifti.load(str(tmp_path / "a.nii")))
+    np.testing.assert_array_equal(port_pipeline.read_nifti_file(str(tmp_path / "a.nii")),
+                                  jax_pipeline.read_nifti_file(str(tmp_path / "a.nii")))
+
+
+def _tiling_items(mod, case):
+    rng = np.random.default_rng(5)
+    if case == "tile_starts":
+        return [mod.tile_starts(length, tile, ov, all_data)
+                for length in (7, 16, 20, 33) for tile in (4, 8) for ov in (0.0, 0.25, 0.5)
+                for all_data in (False, True) if tile <= length]
+    if case == "shuffle":
+        return list(mod.ShuffleBuffer(iter(range(37)), 8, rng=np.random.default_rng(1)))
+    if case == "tiles2d":
+        src = [(rng.normal(size=(3, 20, 18)), int(i), ["r", "g", "b"]) for i in range(2)]
+        return list(mod.TileIterator2D(src, 8, 8, return_label=True, tile_overlap=0.25,
+                                       use_all_data=True, classification=True))
+    src = [(rng.normal(size=(1, 20, 16, 9)), rng.integers(0, 3, size=(20, 16, 9)), ["ct"])
+           for _ in range(2)]
+    return list(mod.TileIterator3D(src, 8, 8, 4, twoD=case == "tiles3d_twoD", return_label=True,
+                                   use_all_data=True))
+
+
+@pytest.mark.parametrize("case", ["tile_starts", "shuffle", "tiles2d", "tiles3d",
+                                  "tiles3d_twoD"])
+def test_tiling_and_shuffle_match_jax(case):
+    got, want = _tiling_items(port_pipeline, case), _tiling_items(jax_pipeline, case)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        if isinstance(w, tuple):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        else:
+            assert g == w
+
+
+def test_load_balancing_matches_jax(tmp_path):
+    roots = {"big": _volumes(tmp_path / "big", 3, (16, 16, 8), seed=1),
+             "small": _volumes(tmp_path / "small", 2, (16, 16, 8), kind="npy", seed=2)}
+    ia = {"tile_size": [16, 8, 4], "twoD": False}
+    conf = {"model": {"net": {"init_args": ia}},
+            "data": {"dataset": "basic_ct", "dict_root_dirs": roots,
+                     "dict_start_idx": {"big": 0, "small": 0},
+                     "dict_end_idx": {"big": 1, "small": 1},
+                     "num_channels_used": {"big": 1, "small": 1}, "single_channel": True,
+                     "batch_size": 2, "tile_overlap": 0.0, "use_all_data": False}}
+    for dp in (2, 3, 4):
+        assert calculate_load_balancing_from_config(conf, dp) == jax_load_balancing(conf, dp)
+    bpre, groups = calculate_load_balancing_from_config(conf, 3)
+    assert groups == "2:1" and bpre == {"big": 2, "small": 4}
+
+
+def _dm_case(tmp_path, case):
+    """(DataModule kwargs both packages take, epochs' batch count)."""
+    kw = dict(dict_buffer_sizes={}, tile_size_x=8, tile_size_y=8, tile_size_z=4, twoD=False,
+              single_channel=True, dataset="basic_ct", batch_size=2, seed=3)
+    if case == "ct3d_nii":
+        roots = {"ct": _volumes(tmp_path / "ct", 3, (16, 16, 8))}
+    elif case == "ct3d_labels":
+        roots = {"ct": _volumes(tmp_path / "ct", 3, (16, 8, 8), labels=3)}
+        kw.update(return_label=True, num_classes=3)
+    elif case == "twoD_npy":
+        roots = {"ct": _volumes(tmp_path / "ct", 2, (16, 16, 6), kind="npy", dtype=np.float32)}
+        kw.update(twoD=True, tile_size_z=2)
+    elif case == "single_channel_2ch":
+        roots = {"ct": _volumes(tmp_path / "ct", 2, (2, 16, 8, 8), kind="npy",
+                                dtype=np.float32)}
+        kw.update(dict_in_variables={"ct": ["a", "b"]}, num_channels_used={"ct": 2})
+    else:  # two datasets, scheduled by the group list over two ranks
+        roots = {"a": _volumes(tmp_path / "a", 3, (16, 8, 8)),
+                 "b": _volumes(tmp_path / "b", 2, (8, 8, 8), kind="npy", seed=4)}
+        kw.update(dataset_group_list="1:1", data_par_size=2,
+                  batches_per_rank_epoch={"a": 6, "b": 1})
+    keys = list(roots)
+    kw["dict_root_dirs"] = roots
+    kw["dict_buffer_sizes"] = {k: 4 for k in keys}
+    kw.setdefault("dict_in_variables", {k: ["ct"] for k in keys})
+    kw.setdefault("num_channels_used", {k: 1 for k in keys})
+    kw.update(dict_start_idx={k: 0.0 for k in keys}, dict_end_idx={k: 1.0 for k in keys})
+    return kw
+
+
+@pytest.mark.parametrize("case", ["ct3d_nii", "ct3d_labels", "twoD_npy", "single_channel_2ch",
+                                  "two_datasets"])
+def test_datamodule_batches_match_jax(tmp_path, case):
+    """Two epochs pinned by `set_epoch`, as the trainer runs them (`loop=True`, past
+    the end of each chain), and a `skip_batches` fast-forward; the port prefetches
+    on its thread, the JAX side reads in line."""
+    kw = _dm_case(tmp_path, case)
+    port = DataModule(**kw, prefetch=2)
+    jdm = JDataModule(**kw, prefetch=0)
+    port.setup()
+    jdm.setup()
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jdm.set_epoch(epoch)
+        n = 7
+        got = list(itertools.islice(port.train_dataloader(loop=True), n))
+        want = list(itertools.islice(jdm.train_dataloader(loop=True), n))
+        _assert_batches_equal(got, want)
+        if case == "single_channel_2ch":  # every batch channel-pure
+            assert {b["variables"] for b in got} == {("a",), ("b",)}
+    # fresh chains (the prefetch thread read ahead of the JAX side on the old ones)
+    port.set_epoch(2)
+    jdm.set_epoch(2)
+    _assert_batches_equal(list(port.train_dataloader(skip_batches=2)),
+                          list(jdm.train_dataloader(skip_batches=2)))
+
+
+def _catsdogs_raw(root, **trainer):
+    ia = {"default_vars": ["red", "green", "blue"], "tile_size": [16, 16], "patch_size": 8,
+          "embed_dim": 32, "depth": 2, "num_heads": 2, "mlp_ratio": 2, "twoD": True,
+          "adaptive_patching": False, "num_classes": 2}
+    return {"trainer": {"task": "classification", "attn_impl": "EINSUM", "max_epochs": 2,
+                        "seed": 0, **trainer},
+            "parallelism": {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                            "seq_par_size": 1},
+            "model": {"lr": 1e-3, "beta_1": 0.9, "beta_2": 0.95, "weight_decay": 1e-2,
+                      "warmup_steps": 2, "max_steps": 20, "warmup_start_lr": 1e-5,
+                      "eta_min": 1e-6, "net": {"init_args": ia}},
+            "data": {"dataset": "catsdogs", "dict_root_dirs": {"catsdogs": root},
+                     "dict_start_idx": {"catsdogs": 0}, "dict_end_idx": {"catsdogs": 1},
+                     "dict_buffer_sizes": {"catsdogs": 4},
+                     "num_channels_used": {"catsdogs": 3},
+                     "dict_in_variables": {"catsdogs": ["red", "green", "blue"]},
+                     "batch_size": 2, "num_classes": 2, "single_channel": False},
+            "load_balancing": {"auto_load_balancing": False}}
+
+
+def test_catsdogs_batches_match_jax(tmp_path):
+    root = _jpegs(tmp_path / "cd", CATSDOGS)
+    files = port_catsdogs.list_file_split(root, 0.0, 1.0)
+    assert files == jax_catsdogs.list_file_split(root, 0.0, 1.0) and len(files) == 6
+    ds = port_catsdogs.CatsDogsDataset(files, ("red", "green", "blue"), (16, 16))
+    jds = jax_catsdogs.CatsDogsDataset(files, ("red", "green", "blue"), (16, 16))
+    for seed, skip in ((0, 0), (1, 1)):
+        _assert_batches_equal(list(port_catsdogs.catsdogs_loader(ds, 2, seed=seed,
+                                                                 skip_batches=skip)),
+                              list(jax_catsdogs.catsdogs_loader(jds, 2, seed=seed,
+                                                                skip_batches=skip)))
+    # through the trainers' build_dataloader: the epochs chained, the second reshuffled
+    raw = _catsdogs_raw(root)
+    dm, _, bpre = build_dataloader(Config(raw=raw, task="classification"), 2, False)
+    assert bpre == {"catsdogs": 3}
+    from ucf_vit_tpu.train import build_dataloader as jax_build_dataloader
+
+    jdm, _, jbpre = jax_build_dataloader(JConfig(raw=raw, task="classification"), 2, False)
+    assert jbpre == bpre
+    _assert_batches_equal(list(itertools.islice(dm.train_dataloader(loop=True), 5)),
+                          list(itertools.islice(jdm.train_dataloader(loop=True), 5)))
+
+
+def test_jpeg_reading_names_a_missing_module(tmp_path, monkeypatch):
+    root = _jpegs(tmp_path / "cd", CATSDOGS[:2])
+    files = sorted(os.path.join(root, f) for f in os.listdir(root))
+    ds = port_catsdogs.CatsDogsDataset(files, ("r", "g", "b"), (16, 16))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
+        ds[0]
+    with pytest.raises(ImportError, match="cv2"):
+        port_pipeline.read_imagenet_file(ds.file_list[0])
+
+
+def test_adaptive_data_raises_with_item_6(tmp_path):
+    kw = _dm_case(tmp_path, "ct3d_nii")
+    dm = DataModule(**kw, adaptive_patching=True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dm.setup()
+    with pytest.raises(NotImplementedError, match="item 6"):
+        port_catsdogs.CatsDogsDataset([], ("r",), (16, 16), adaptive_patching=True)
+
+
+def _jax_init_as_torch_file(raw, path):
+    """The JAX trainer's own init (`ucf_vit_tpu/train.py:340-346`: keys 0, 1, 2) of
+    `raw`, exported under torch names into a `to-torch`-style file."""
+    jcfg = JConfig(raw=raw, task=raw["trainer"]["task"])
+    jmod, _ = (jax_build_classification if jcfg.task == "classification" else jax_build_mae)(jcfg)
+    rngs = {"params": jax.random.key(0), "mask": jax.random.key(1), "dropout": jax.random.key(2)}
+    variables = jax_init_variables(jmod, rngs, jcfg, jax_example_batch(jcfg, jcfg.batch_size), None)
+    params = jax.device_get(meta.unbox(variables["params"]))
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in export_torch_state(params).items()}
+    torch.save({"epoch": 0, "model_state_dict": sd, "loss_list": []}, path)
+    return params
+
+
+def _metrics_losses(path):
+    return [json.loads(line)["loss"] for line in open(path) if '"loss"' in line]
+
+
+def test_train_from_disk_matches_jax(tmp_path):
+    """Five f32 steps of a tiny ViT on catsdogs JPEGs through both trainers: the port
+    warm-started (`init_params_from`) from the JAX trainer's own init, both reading the
+    same files; per-step losses within LOSS_TOL."""
+    root = _jpegs(tmp_path / "cd", CATSDOGS)
+    raw = _catsdogs_raw(root, metrics_path=str(tmp_path / "jax.jsonl"))
+    jax_out = jax_train(JConfig(raw=raw, task="classification"), max_steps=5)
+    init = tmp_path / "init.ckpt"
+    _jax_init_as_torch_file(raw, str(init))
+    raw["trainer"].update(metrics_path=str(tmp_path / "port.jsonl"), init_params_from=str(init))
+    out = train(Config(raw=raw, task="classification"), max_steps=5, device="cpu")
+    got, want = _metrics_losses(tmp_path / "port.jsonl"), _metrics_losses(tmp_path / "jax.jsonl")
+    assert len(got) == len(want) == 5
+    np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=0)
+    np.testing.assert_allclose(out["loss_list"], jax_out["loss_list"], atol=LOSS_TOL, rtol=0)
+    assert len(out["loss_list"]) == 2  # 3 batches an epoch, then 2 of the next
+
+
+def _tiny_state(cfg_raw=None, ema=True):
+    raw = cfg_raw or _raw()
+    if ema:
+        raw["trainer"]["ema_decay"] = 0.9
+    raw["model"]["use_grad_scaler"] = True
+    cfg = Config(raw=raw, task="classification")
+    state, step = init_train(cfg, "cpu")
+    for b in itertools.islice(synthetic_batches(cfg, 4), 2):
+        state, _, _ = step(state, to_device(b, torch.device("cpu")))
+    return cfg, state, step
+
+
+def test_checkpoint_slots_rotate_and_resolve(tmp_path):
+    cfg, state, _ = _tiny_state()
+    d = str(tmp_path / "ck")
+    paths = [ckpt.save_checkpoint(d, "last", e, state, [0.5] * (e + 1)) for e in range(3)]
+    assert [os.path.basename(p) for p in paths] == ["last_even.ckpt", "last_odd.ckpt",
+                                                    "last_even.ckpt"]
+    assert sorted(os.listdir(d)) == ["last_even.ckpt", "last_odd.ckpt"]  # no temporary left
+    assert ckpt.stored_epoch(paths[0]) == 2 and ckpt.stored_epoch(paths[1]) == 1
+    even, odd = paths[0], paths[1]
+    assert ckpt.resolve_slot(d, "last_latest") == even
+    assert ckpt.resolve_slot(d, "") == even
+    assert ckpt.resolve_slot(d, "last_odd") == odd == ckpt.resolve_slot(d, "last_odd.ckpt")
+    assert ckpt.resolve_slot(odd, "last_even") == odd  # a file is itself
+    ckpt.save_checkpoint(d, "last", 3, state)
+    assert ckpt.resolve_slot(d, "last_latest") == odd == ckpt.resolve_slot(d, "")
+    with pytest.raises(FileNotFoundError, match="last_even.ckpt"):
+        ckpt.resolve_slot(d, "nothing")
+    with pytest.raises(FileNotFoundError):
+        ckpt.resolve_slot(str(tmp_path / "none"), "last_latest")
+    orbax = tmp_path / "ck" / "jax_slot"
+    orbax.mkdir()
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="to-torch"):
+        ckpt.resolve_slot(d, "jax_slot")
+
+
+def test_checkpoint_head_meta_guard(tmp_path):
+    cfg, state, _ = _tiny_state()
+    d = str(tmp_path / "ck")
+    ckpt.save_checkpoint(d, "last", 0, state, head_meta=ckpt.head_meta_from_config(cfg))
+    assert ckpt.head_meta_from_config(cfg) == (2, 0)
+    assert jax_ckpt.head_meta_from_config(JConfig(raw=cfg.raw, task=cfg.task)) == (2, 0)
+    ckpt.restore_checkpoint(d, "last_latest", expect_head_meta=(2, 0))
+    ckpt.restore_checkpoint(d, "last_latest", expect_head_meta=(2, None))
+    with pytest.raises(ValueError, match="regrouping"):
+        ckpt.restore_checkpoint(d, "last_latest", expect_head_meta=(4, 0))
+    # a trainer whose heads were regrouped refuses to resume from it
+    raw = _raw(net={"init_args": {**_raw()["model"]["net"]["init_args"], "num_heads": 4}})
+    raw["trainer"].update(checkpoint_path=d, checkpoint_filename_for_loading="last_latest",
+                          resume_from_checkpoint=True)
+    with pytest.raises(ValueError, match="regrouping"):
+        train(Config(raw=raw, task="classification"), synthetic=True, device="cpu")
+
+
+def test_checkpoint_round_trip_of_the_full_state(tmp_path):
+    cfg, state, step = _tiny_state()
+    state.model.host_generator.manual_seed(11)
+    path = ckpt.save_checkpoint(str(tmp_path), "s", 4, state, [1.0, 0.5], head_meta=(2, 0),
+                                total_steps=9)
+    payload = ckpt.restore_checkpoint(path, "")
+    assert payload["epoch"] == 4 and payload["loss_list"] == [1.0, 0.5]
+    assert payload["total_steps"] == 9 and payload["head_meta"] == [2, 0]
+    fresh, _ = init_train(Config(raw=cfg.raw, task=cfg.task), "cpu", init_seed=5)
+    ckpt.restore_train_state(fresh, payload, ema_decay=0.9)
+    for (n, p), (m, q) in zip(state.model.state_dict().items(),
+                              fresh.model.state_dict().items()):
+        assert n == m and torch.equal(p, q)
+    for n in state.ema_params:
+        assert torch.equal(state.ema_params[n], fresh.ema_params[n])
+    a, b = state.optimizer.adamw.state_dict(), fresh.optimizer.adamw.state_dict()
+    for i in a["state"]:
+        for k in a["state"][i]:
+            assert torch.equal(a["state"][i][k], b["state"][i][k])
+    assert fresh.optimizer.count == state.optimizer.count == 2 and fresh.step == state.step
+    assert fresh.loss_scale == state.loss_scale
+    assert torch.equal(fresh.model.host_generator.get_state(),
+                       state.model.host_generator.get_state())
+    assert torch.equal(fresh.model.generator.get_state(), state.model.generator.get_state())
+    # EMA reconciled with the config: off now drops it, on without one on disk seeds it
+    ckpt.restore_train_state(fresh, payload, ema_decay=None)
+    assert fresh.ema_params is None
+    del payload["ema_state_dict"]
+    ckpt.restore_train_state(fresh, {**payload, "ema_state_dict": None}, ema_decay=0.9)
+    assert all(torch.equal(fresh.ema_params[n], p)
+               for n, p in fresh.model.named_parameters())
+    with pytest.raises(ValueError, match="init_params_from"):
+        ckpt.restore_train_state(fresh, {"model_state_dict": payload["model_state_dict"]}, 0.9)
+
+
+def _resume_raw(tmp_path, kind):
+    if kind == "vit":
+        raw = _catsdogs_raw(_jpegs(tmp_path / "cd", CATSDOGS))
+        raw["model"]["net"]["init_args"].update(drop_path=0.1, attn_drop_rate=0.1)
+        raw["trainer"].update(ema_decay=0.9)
+        raw["model"]["use_grad_scaler"] = True
+        return raw, "classification"
+    root = _volumes(tmp_path / "ct", 2, (32, 16, 16))
+    ia = {"default_vars": ["ct"], "tile_size": [16, 16, 16], "twoD": False,
+          "adaptive_patching": False, **MAE_KW, "patch_size": 4, "depth": 1, "decoder_depth": 1}
+    raw = {"trainer": {"task": "mae", "attn_impl": "FLASH", "seed": 1},
+           "parallelism": {},
+           "model": {"lr": 1e-3, "warmup_steps": 1, "max_steps": 20, "loss_fn": "maskMSE",
+                     "net": {"init_args": ia}},
+           "data": {"dataset": "basic_ct", "dict_root_dirs": {"ct": root},
+                    "dict_start_idx": {"ct": 0}, "dict_end_idx": {"ct": 1},
+                    "dict_buffer_sizes": {"ct": 3}, "num_channels_used": {"ct": 1},
+                    "dict_in_variables": {"ct": ["ct"]}, "batch_size": 2,
+                    "single_channel": True, "num_workers": 4, "tile_overlap": 0.0,
+                    "use_all_data": False},
+           "load_balancing": {"auto_load_balancing": True}}
+    return raw, "mae"
+
+
+@pytest.mark.parametrize("kind", ["vit", "mae"])
+def test_resume_equals_uninterrupted_bit_for_bit(tmp_path, kind):
+    """3 epochs in one run against 2 epochs, then a run resumed to 3, from disk:
+    parameters, AdamW's moments, EMA, the loss list and the generators equal bit
+    for bit (the ViT draws dropout, DropPath and the loss scale; the MAE its
+    masks)."""
+    raw, task = _resume_raw(tmp_path, kind)
+
+    def run(name, epochs, resume=False):
+        r = copy.deepcopy(raw)
+        r["trainer"].update(max_epochs=epochs, checkpoint_path=str(tmp_path / name),
+                            checkpoint_filename="last",
+                            checkpoint_filename_for_loading="last_latest",
+                            resume_from_checkpoint=resume)
+        return train(Config(raw=r, task=task), device="cpu")
+
+    whole = run("whole", 3)
+    run("part", 2)
+    assert sorted(os.listdir(tmp_path / "part")) == ["last_even.ckpt", "last_odd.ckpt"]
+    resumed = run("part", 3, resume=True)
+    assert resumed["loss_list"] == whole["loss_list"] and len(whole["loss_list"]) == 3
+    a, b = whole["state"], resumed["state"]
+    for (n, p), (m, q) in zip(a.model.state_dict().items(), b.model.state_dict().items()):
+        assert n == m and torch.equal(p, q), n
+    sa, sb = a.optimizer.adamw.state_dict()["state"], b.optimizer.adamw.state_dict()["state"]
+    assert all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
+    assert a.optimizer.count == b.optimizer.count and a.loss_scale == b.loss_scale
+    assert torch.equal(a.model.generator.get_state(), b.model.generator.get_state())
+    if kind == "vit":
+        assert all(torch.equal(a.ema_params[n], b.ema_params[n]) for n in a.ema_params)
+    # the two runs' last checkpoints are the same file contents
+    pa = ckpt.restore_checkpoint(str(tmp_path / "whole"), "last_latest")
+    pb = ckpt.restore_checkpoint(str(tmp_path / "part"), "last_latest")
+    assert pa["epoch"] == pb["epoch"] == 2 and pa["total_steps"] == pb["total_steps"]
+
+
+def _jax_forward(raw, params, x):
+    jcfg = JConfig(raw=raw, task="classification")
+    jmod, _ = jax_build_classification(jcfg)
+    return np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
+
+
+def test_port_checkpoint_converts_with_to_jax(tmp_path):
+    """A checkpoint the port's trainer wrote goes through `convert_checkpoint to-jax`
+    unchanged; the JAX forward on the result equals the port's."""
+    raw = _catsdogs_raw(_jpegs(tmp_path / "cd", CATSDOGS))
+    raw["trainer"].update(checkpoint_path=str(tmp_path / "ck"), checkpoint_filename="last",
+                          ema_decay=0.9)
+    out = train(Config(raw=raw, task="classification"), max_steps=4, device="cpu")
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    src = tmp_path / "ck" / "last_odd.ckpt"
+    assert convert_main(["to-jax", str(src), str(cfg_path), str(tmp_path / "jax"),
+                         "--filename", "conv"]) == 0
+    payload = jax_ckpt.restore_checkpoint(str(tmp_path / "jax"), "conv_latest",
+                                          expect_head_meta=(2, 0))
+    assert int(payload["epoch"]) == 1
+    assert jax_ckpt.loss_list_from_payload(payload) == out["loss_list"]
+    x = np.random.default_rng(9).normal(size=(3, 3, 16, 16)).astype(np.float32)
+    model = out["state"].model.eval()
+    with torch.no_grad():
+        ours = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(_jax_forward(raw, payload["state"]["params"], x), ours,
+                               atol=INTEROP_TOL, rtol=0)
+
+
+def test_jax_checkpoint_loads_through_init_params_from_and_load_weights(tmp_path):
+    """A JAX checkpoint (`save_checkpoint`, Orbax) exported by `convert_checkpoint
+    to-torch` warm-starts the port's trainer and loads into a served model; both
+    forwards equal the JAX one."""
+    raw = _catsdogs_raw(_jpegs(tmp_path / "cd", CATSDOGS))
+    jcfg = JConfig(raw=raw, task="classification")
+    jmod, _ = jax_build_classification(jcfg)
+    params = meta.unbox(jmod.init(jax.random.key(3), jnp.zeros((1, 3, 16, 16)))["params"])
+    rng = np.random.default_rng(4)
+    params = jax.tree.map(lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape))
+                          .astype(np.float32), params)
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax"), "run", 5, {"params": params},
+                             loss_list=[0.7], head_meta=(2, 0))
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    exported = tmp_path / "exported.ckpt"
+    assert convert_main(["to-torch", str(tmp_path / "jax"), "run_latest", str(cfg_path),
+                         str(exported)]) == 0
+    with pytest.raises(ValueError, match="to-torch"):  # the Orbax directory itself
+        ckpt.resolve_slot(str(tmp_path / "jax"), "run_odd")
+    x = np.random.default_rng(9).normal(size=(2, 3, 16, 16)).astype(np.float32)
+    want = _jax_forward(raw, params, x)
+
+    warm = copy.deepcopy(raw)
+    warm["trainer"]["init_params_from"] = str(exported)
+    warm["model"].update(lr=0.0, warmup_start_lr=0.0, eta_min=0.0, weight_decay=0.0)
+    out = train(Config(raw=warm, task="classification"), max_steps=1, device="cpu")
+    with torch.no_grad():
+        got = out["state"].model.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=INTEROP_TOL, rtol=0)
+
+    served = init_eval_model(Config(raw=raw, task="classification"), seed=1, device="cpu")
+    assert load_weights(served, Config(raw=raw, task="classification"), str(exported)) == 5
+    with torch.no_grad():
+        np.testing.assert_allclose(served(torch.from_numpy(x)).numpy(), want,
+                                   atol=INTEROP_TOL, rtol=0)
+    with pytest.raises(ValueError, match="no EMA"):
+        load_weights(served, Config(raw=raw, task="classification"), str(exported),
+                     use_ema=True)

@@ -1,0 +1,419 @@
+"""Iterator data pipeline: file reading -> tiling -> shuffle -> channel
+processing -> batching. The port's own copy of the non-adaptive parts of
+`ucf_vit_tpu/data/pipeline.py`: the same readers, tile offsets, shuffle
+draws and batch layout, so that the same files and seeds give the same
+batches, array for array.
+
+Batches are dicts of numpy arrays: `{x [B,C,...], (label), variables}`.
+
+Adaptive patching (the quadtree/octree `Patchify`, label serialisation and
+its spawn pool) is not ported: `ProcessChannels` raises for it
+(`ADAPTIVE_NOT_PORTED`).
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import os
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ucf_vit_tpu_torch.data import nifti
+
+READ_THREADS = 4  # FileReader's read threads; it reads twice as many files ahead
+
+ADAPTIVE_NOT_PORTED = (
+    "adaptive_patching data (the quadtree/octree patchify) is not ported yet "
+    "(ROADMAP.md, modules to port, item 6: VIT input variants)"
+)
+
+
+# ---------------------------------------------------------------------------
+# File reading
+# ---------------------------------------------------------------------------
+
+
+def _jpeg_modules():
+    """(PIL.Image, cv2), imported when a JPEG is first read. They are the
+    port's only optional third-party imports; a missing one raises here,
+    named, and nothing stands in for it."""
+    try:
+        from PIL import Image
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"reading JPEG files needs {e.name!r} (PIL and cv2), which is not "
+            "installed"
+        ) from e
+    return Image, cv2
+
+
+def read_imagenet_file(path: str, resize=(256, 256), return_label=False):
+    """JPEG -> [3, H, W] uint8 (+ class index from the parent dir name)."""
+    Image, cv2 = _jpeg_modules()
+    data = np.array(Image.open(path).convert("RGB"))
+    data = cv2.resize(data, dsize=(resize[0], resize[1]))
+    data = np.moveaxis(data, -1, 0)
+    if not return_label:
+        return data
+    p = Path(path)
+    classes = sorted(os.listdir(p.parent.parent))
+    label = {c: i for i, c in enumerate(classes)}[p.parent.stem]
+    return data, label
+
+
+def read_nifti_file(path: str, num_channels: int = 1, return_label=False):
+    """NIfTI volume, min-max normalised -> [C, ...] f32 (+ the label volume
+    from the sibling labelsTr dir, shifted to 0-based)."""
+    data = nifti.load(path).astype(np.float32)
+    data = (data - data.min()) / (data.max() - data.min())
+    if num_channels == 1:
+        data = np.expand_dims(data, axis=0)
+    if not return_label:
+        return data
+    p = Path(path)
+    stem = p.stem.split("image")[-1]
+    label_path = os.path.join(p.parent.parent, "labelsTr", "label" + stem + ".nii")
+    label = nifti.load(label_path).astype(np.int64) - 1
+    return data, label
+
+
+def read_npy_file(path: str, num_channels: int = 1, return_label=False):
+    """Plain .npy volume: image at <root>/imagesTr/x.npy, label at
+    <root>/labelsTr/x.npy."""
+    data = np.load(path).astype(np.float32)
+    mx, mn = data.max(), data.min()
+    if mx > mn:
+        data = (data - mn) / (mx - mn)
+    if data.ndim in (2, 3) and num_channels == 1:
+        data = np.expand_dims(data, axis=0)
+    if not return_label:
+        return data
+    label_path = str(Path(path).parent.parent / "labelsTr" / Path(path).name)
+    label = np.load(label_path).astype(np.int64)
+    return data, label
+
+
+class FileReader:
+    """Rank-sharded file iterator: this shard's files, read by READ_THREADS
+    threads with a read-ahead window of twice as many files, emitted in
+    order."""
+
+    def __init__(
+        self,
+        file_list: Sequence[str],
+        start_idx: float,
+        end_idx: float,
+        variables: Sequence[str],
+        shard_rank: int = 0,
+        data_par_size: int = 1,
+        return_label: bool = False,
+        keys_to_add: int = 1,
+        dataset: str = "imagenet",
+        imagenet_resize=(256, 256),
+    ) -> None:
+        s = int(start_idx * len(file_list))
+        e = int(end_idx * len(file_list))
+        self.file_list = list(file_list[s:e])
+        self.variables = list(variables)
+        self.num_channels_available = len(variables)
+        self.shard_rank = shard_rank
+        self.data_par_size = data_par_size
+        self.return_label = return_label
+        self.keys_to_add = keys_to_add
+        self.dataset = dataset
+        self.imagenet_resize = imagenet_resize
+
+    def read_process_file(self, path: str):
+        if self.dataset in ("imagenet", "catsdogs"):
+            return read_imagenet_file(path, self.imagenet_resize, self.return_label)
+        if path.endswith(".npy"):
+            return read_npy_file(path, self.num_channels_available, self.return_label)
+        return read_nifti_file(path, self.num_channels_available, self.return_label)
+
+    def _shard_bounds(self) -> Tuple[int, int]:
+        """This rank's file range."""
+        num_shards, rank = self.data_par_size, self.shard_rank
+        per_worker = int(
+            math.floor(len(self.file_list) / float(self.keys_to_add) / num_shards)
+        )
+        if per_worker == 0:
+            self.file_list = (
+                self.file_list * math.ceil(num_shards / len(self.file_list))
+            )[:num_shards]
+            per_worker = 1
+        start = rank * per_worker
+        return start, start + per_worker
+
+    def _indices(self):
+        iter_start, iter_end = self._shard_bounds()
+        per_key = int(len(self.file_list) / self.keys_to_add)
+        for m in range(self.keys_to_add):
+            yield from range(iter_start + m * per_key, iter_end + m * per_key)
+
+    def __iter__(self) -> Iterator:
+        window = 2 * READ_THREADS
+        with ThreadPoolExecutor(max_workers=READ_THREADS) as pool:
+            pending = collections.deque()
+            for idx in self._indices():
+                pending.append(pool.submit(self.read_process_file, self.file_list[idx]))
+                while len(pending) >= window:
+                    yield self._emit(pending.popleft().result())
+            while pending:
+                yield self._emit(pending.popleft().result())
+
+    def _emit(self, out):
+        if self.return_label:
+            data, label = out
+            return data, label, self.variables
+        return out, self.variables
+
+
+# ---------------------------------------------------------------------------
+# Tiling
+# ---------------------------------------------------------------------------
+
+
+def tile_starts(length: int, tile: int, overlap: float, use_all_data: bool) -> List[int]:
+    """Start offsets of tiles along one axis: evenly spaced tiles with the
+    overlap's step, plus (use_all_data) end tiles clamped to cover the
+    remainder."""
+    ov = int(tile * overlap)
+    if ov == 0:
+        otp2 = 1
+        step = tile
+    else:
+        otp2 = int(tile / ov)
+        step = tile - ov
+    tte = length // tile
+    num_blocks = (tte - 1) * otp2 + 1
+    if use_all_data:
+        tt = length / tile
+        ltop = math.floor((tt - tte) * otp2)
+        if ov == 0:
+            if length % tile != 0:
+                ltop += 1
+        else:
+            if length % ov != 0:
+                ltop += 1
+        num_blocks = int(num_blocks + ltop)
+    starts = []
+    for i in range(num_blocks):
+        s = i * step
+        if s + tile > length - 1 and use_all_data:
+            s = length - tile  # clamp to the end
+        if not use_all_data or s + tile <= length:
+            starts.append(min(s, length - tile))
+    return starts
+
+
+class TileIterator2D:
+    """Slice [C, X, Y] images into [C, tx, ty] tiles."""
+
+    def __init__(self, source, tile_size_x, tile_size_y, return_label=False,
+                 tile_overlap=0.0, use_all_data=False, classification=False):
+        self.source = source
+        self.tx, self.ty = tile_size_x, tile_size_y
+        self.return_label = return_label
+        self.tile_overlap = tile_overlap
+        self.use_all_data = use_all_data
+        self.classification = classification
+
+    def __iter__(self):
+        for item in self.source:
+            if self.return_label:
+                data, label, variables = item
+            else:
+                data, variables = item
+                label = None
+            xs = tile_starts(data.shape[1], self.tx, self.tile_overlap, self.use_all_data)
+            ys = tile_starts(data.shape[2], self.ty, self.tile_overlap, self.use_all_data)
+            for sx in xs:
+                for sy in ys:
+                    tile = data[:, sx : sx + self.tx, sy : sy + self.ty]
+                    if label is None:
+                        yield tile, variables
+                    elif self.classification:
+                        yield tile, label, variables
+                    else:
+                        yield tile, label[sx : sx + self.tx, sy : sy + self.ty], variables
+
+
+class TileIterator3D:
+    """Slice [C, X, Y, Z] volumes into tiles; twoD=True yields 2-D slices
+    from each z-chunk."""
+
+    def __init__(self, source, tile_size_x, tile_size_y, tile_size_z, twoD=True,
+                 return_label=False, tile_overlap=0.0, use_all_data=False):
+        self.source = source
+        self.tx, self.ty, self.tz = tile_size_x, tile_size_y, tile_size_z
+        self.twoD = twoD
+        self.return_label = return_label
+        self.tile_overlap = tile_overlap
+        self.use_all_data = use_all_data
+
+    def __iter__(self):
+        for item in self.source:
+            if self.return_label:
+                data, label, variables = item
+            else:
+                data, variables = item
+                label = None
+            xs = tile_starts(data.shape[1], self.tx, self.tile_overlap, self.use_all_data)
+            ys = tile_starts(data.shape[2], self.ty, self.tile_overlap, self.use_all_data)
+            if self.twoD:
+                zlen = data.shape[3]
+                zs = range(zlen) if self.use_all_data else range((zlen // self.tz) * self.tz)
+                for sx in xs:
+                    for sy in ys:
+                        for z in zs:
+                            tile = data[:, sx : sx + self.tx, sy : sy + self.ty, z]
+                            if label is None:
+                                yield tile, variables
+                            else:
+                                yield tile, label[sx : sx + self.tx, sy : sy + self.ty, z], \
+                                    variables
+            else:
+                zs = tile_starts(data.shape[3], self.tz, self.tile_overlap, self.use_all_data)
+                for sx in xs:
+                    for sy in ys:
+                        for sz in zs:
+                            sl = (slice(sx, sx + self.tx), slice(sy, sy + self.ty),
+                                  slice(sz, sz + self.tz))
+                            tile = data[(slice(None),) + sl]
+                            if label is None:
+                                yield tile, variables
+                            else:
+                                yield tile, label[sl], variables
+
+
+# ---------------------------------------------------------------------------
+# Shuffle + channel processing + batching
+# ---------------------------------------------------------------------------
+
+
+class ShuffleBuffer:
+    """Reservoir-style shuffle with an explicit seedable Generator."""
+
+    def __init__(self, source, buffer_size: int, rng: Optional[np.random.Generator] = None):
+        if buffer_size <= 0:
+            raise ValueError(f"buffer_size must be positive, got {buffer_size}")
+        self.source = source
+        self.buffer_size = buffer_size
+        self.rng = rng or np.random.default_rng()
+
+    def __iter__(self):
+        buf = []
+        for x in self.source:
+            if len(buf) == self.buffer_size:
+                idx = int(self.rng.integers(0, self.buffer_size))
+                yield buf[idx]
+                buf[idx] = x
+            else:
+                buf.append(x)
+        order = self.rng.permutation(len(buf))
+        for i in order:
+            yield buf[i]
+
+
+class ProcessChannels:
+    """Split channels into per-variable streams (single_channel mode: each
+    variable's stream is buffered and flushed a full batch at a time, so
+    every batch is channel-pure) and make sample dicts; see `collate`.
+
+    `skip_samples` (mid-epoch fast-forward): the upstream chain (read, tile,
+    shuffle) runs as usual so its state stays exact, and a None placeholder
+    is emitted for each skipped sample, which `BatchIterator` collapses into
+    None batches."""
+
+    def __init__(self, source, num_channels: int, single_channel: bool,
+                 return_label: bool, dataset: str, batch_size: int = 1,
+                 adaptive_patching: bool = False):
+        if adaptive_patching:
+            raise NotImplementedError(ADAPTIVE_NOT_PORTED)
+        self.source = source
+        self.num_channels = num_channels
+        self.single_channel = single_channel
+        self.return_label = return_label
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.skip_samples = 0
+
+    @staticmethod
+    def _make_sample(np_image, vars_out, label) -> dict:
+        sample = {"x": np.asarray(np_image, dtype=np.float32), "variables": vars_out}
+        if label is not None:
+            sample["label"] = (np.asarray(label) if np.ndim(label) > 0
+                               else np.asarray(label, dtype=np.int64))
+        return sample
+
+    def __iter__(self):
+        for item in self._raw_samples():
+            if self.skip_samples > 0:
+                self.skip_samples -= 1
+                yield None
+            else:
+                yield self._make_sample(*item)
+
+    def _raw_samples(self):
+        num_buffers = self.num_channels if self.single_channel else 1
+        buffers = [[] for _ in range(num_buffers)]
+        for item in self.source:
+            if self.return_label:
+                data, label, variables = item
+            else:
+                data, variables = item
+                label = None
+            for i in range(num_buffers):
+                if self.single_channel:
+                    buffers[i].append((data[i : i + 1], (variables[i],), label))
+                else:
+                    buffers[i].append((data, tuple(variables), label))
+                if len(buffers[i]) == self.batch_size:
+                    while buffers[i]:
+                        yield buffers[i].pop()
+
+
+def collate(samples: List[dict], dataset: str) -> dict:
+    """Stack sample dicts into a numpy batch: x [B,C,...]; labels stack;
+    basic_ct labels get a leading channel dim."""
+    batch = {"variables": samples[0]["variables"]}
+    batch["x"] = np.stack([s["x"] for s in samples])
+    if "label" in samples[0]:
+        labels = [s["label"] for s in samples]
+        if dataset == "basic_ct" and labels[0].ndim > 0:
+            labels = [np.expand_dims(l, axis=0) for l in labels]
+        batch["label"] = np.stack(labels)
+    return batch
+
+
+class BatchIterator:
+    """Group sample dicts into batches of batch_size (the last partial batch
+    is dropped)."""
+
+    def __init__(self, source, batch_size: int, dataset: str):
+        self.source = source
+        self.batch_size = batch_size
+        self.dataset = dataset
+
+    def __iter__(self):
+        buf, skipped = [], 0
+        for s in self.source:
+            if s is None:  # a skipped sample (mid-epoch fast-forward)
+                if buf:
+                    raise ValueError("skip_samples must be a multiple of batch_size")
+                skipped += 1
+                if skipped == self.batch_size:
+                    yield None
+                    skipped = 0
+                continue
+            if skipped:
+                raise ValueError("skip_samples must be a multiple of batch_size")
+            buf.append(s)
+            if len(buf) == self.batch_size:
+                yield collate(buf, self.dataset)
+                buf = []

@@ -1,6 +1,7 @@
-"""Device choice and seeded model init for evaluation and serving (the role
-of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`, on one device), and
-an MAE's reconstruction under a fixed mask."""
+"""Device choice, seeded model init and checkpoint weights for evaluation
+and serving (the roles of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`,
+and of the server's `load_weights`, `ucf_vit_tpu/serve.py:216-237`, on one
+device), and an MAE's reconstruction under a fixed mask."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Optional, Union
 
 import torch
 
+from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import MAE
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
@@ -36,6 +38,26 @@ def init_eval_model(cfg: Config, seed: int = 0, device: Device = None) -> torch.
     model = build_task(cfg)
     model.init_weights(torch.Generator().manual_seed(int(seed)))
     return model.to(dev).eval()
+
+
+def load_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
+                 use_ema: bool = False) -> int:
+    """Copy a checkpoint's parameters (or, with `use_ema`, its EMA of them)
+    into `model` in place; returns the checkpoint's epoch. `ckpt_dir` is a
+    checkpoint file, or a directory whose slot
+    `trainer.checkpoint_filename_for_loading` names (empty: the newest).
+    The head grouping, every name and every shape are checked first."""
+    payload = ckpt.restore_checkpoint(
+        ckpt_dir, cfg.trainer.get("checkpoint_filename_for_loading", ""),
+        expect_head_meta=ckpt.head_meta_from_config(cfg))
+    sd = payload["model_state_dict"]
+    if use_ema:
+        sd = payload.get("ema_state_dict")
+        if sd is None:
+            raise ValueError("--ema requested but this checkpoint has no EMA state; train "
+                             "with trainer.ema_decay set")
+    ckpt.load_params(model, sd, f"checkpoint {ckpt_dir}")
+    return int(payload["epoch"])
 
 
 @torch.no_grad()

@@ -10,8 +10,15 @@
   thread under ``torch.inference_mode()``; HTTP handler threads only
   decode, preprocess and wait.
 - **stdlib front end.** ``ThreadingHTTPServer`` with raw ``.npy`` bodies:
-  ``POST /v1/predict``, ``GET /healthz``, ``GET /v1/stats``. ``POST
-  /v1/reload`` answers 501 until the port reads orbax checkpoints.
+  ``POST /v1/predict``, ``GET /healthz``, ``GET /v1/stats`` (with the
+  served checkpoint's epoch), and ``POST /v1/reload {"checkpoint": DIR,
+  "ema": bool}``, which swaps in a checkpoint's weights between batches
+  (``ema`` defaults to the server's ``--ema``).
+- **Weights.** Seeded (``--seed``), or a checkpoint of the port's trainer
+  (``--checkpoint``: a checkpoint file, or a directory whose slot
+  ``trainer.checkpoint_filename_for_loading`` names), or that checkpoint's
+  EMA weights (``--ema``); a file that the JAX package's ``convert_checkpoint
+  to-torch`` wrote serves too.
 
 This slice serves classification with non-adaptive inputs (ROADMAP.md).
 """
@@ -19,6 +26,7 @@ This slice serves classification with non-adaptive inputs (ROADMAP.md).
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
 import threading
@@ -31,12 +39,7 @@ import numpy as np
 import torch
 
 from ucf_vit_tpu_torch.config import Config
-from ucf_vit_tpu_torch.inference import Device, init_eval_model, resolve_device
-
-_CHECKPOINT_NOT_PORTED = (
-    "loading orbax checkpoints is not ported yet (ROADMAP.md, modules to "
-    "port: checkpoints); the port serves seeded weights"
-)
+from ucf_vit_tpu_torch.inference import Device, init_eval_model, load_weights, resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +75,7 @@ def make_preprocessor(cfg: Config) -> Callable[[np.ndarray], Dict[str, np.ndarra
 def build_predictor(
     cfg: Config,
     checkpoint_dir: Optional[str] = None,
+    use_ema: bool = False,
     max_batch: Optional[int] = None,
     seed: int = 0,
     device: Device = None,
@@ -82,10 +86,13 @@ def build_predictor(
     ``[max_batch, num_classes]`` as a tensor on ``device``, without waiting
     for the device; f32 under ``trainer.data_type: bfloat16`` too, since the
     model's final norm and head compute in f32. ``device`` defaults to CUDA
-    and raises when CUDA is absent; tests pass ``device="cpu"``."""
+    and raises when CUDA is absent; tests pass ``device="cpu"``.
+
+    ``load_weights(ckpt_dir, ema=False) -> epoch`` loads a checkpoint into a
+    copy of the served model and swaps the copy in: the batcher's thread,
+    the only one that runs forwards, picks it up at its next batch, and a
+    batch in flight finishes on the old weights."""
     dev = resolve_device(device)
-    if checkpoint_dir:
-        raise NotImplementedError(_CHECKPOINT_NOT_PORTED)
     if cfg.task != "classification":
         raise NotImplementedError(
             f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port)"
@@ -95,15 +102,22 @@ def build_predictor(
     max_batch = int(max_batch or cfg.batch_size)
     holder = {"model": model, "epoch": None}
 
-    def load_weights(ckpt_dir: str) -> int:
-        raise NotImplementedError(_CHECKPOINT_NOT_PORTED)
+    def swap_weights(ckpt_dir: str, ema: bool = False) -> int:
+        new = copy.deepcopy(holder["model"])
+        epoch = load_weights(new, cfg, ckpt_dir, use_ema=ema)
+        holder["model"], holder["epoch"] = new, epoch
+        return epoch
+
+    if checkpoint_dir:
+        holder["epoch"] = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
+        print(f"serving checkpoint from epoch {holder['epoch']}", flush=True)
 
     def run_batch(batch: Dict[str, np.ndarray]) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(batch["x"], dtype=np.float32))
         with torch.inference_mode():
             return holder["model"](x.to(dev, non_blocking=True))
 
-    return run_batch, preprocess, max_batch, (model, holder, load_weights)
+    return run_batch, preprocess, max_batch, (model, holder, swap_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +264,9 @@ class _Handler(BaseHTTPRequestHandler):
     # set by make_server():
     batcher: Optional[MicroBatcher] = None
     preprocess = None
-    reload_weights = None  # load_weights(ckpt_dir) -> epoch
+    reload_weights = None  # load_weights(ckpt_dir, ema) -> epoch
     weights_holder: Optional[dict] = None
+    serve_ema = False  # the server's --ema setting, the reload's default
     task = ""
 
     def log_message(self, fmt, *args):  # quiet access log
@@ -297,12 +312,11 @@ class _Handler(BaseHTTPRequestHandler):
                 req = json.loads(body or b"{}")
                 if "checkpoint" not in req:
                     raise KeyError("body must be {'checkpoint': <dir>, ...}")
-                epoch = self.reload_weights(str(req["checkpoint"]))
+                epoch = self.reload_weights(str(req["checkpoint"]),
+                                            bool(req.get("ema", self.serve_ema)))
                 self._send_json(200, {"status": "reloaded", "epoch": epoch})
             else:
                 self._send_json(404, {"error": f"unknown path {self.path}"})
-        except NotImplementedError as e:
-            self._send_json(501, {"error": str(e)})
         except (ValueError, KeyError, json.JSONDecodeError, FileNotFoundError) as e:
             self._send_json(400, {"error": str(e)})
         except TimeoutError as e:
@@ -316,6 +330,7 @@ def make_server(
     port: int = 8000,
     max_batch: Optional[int] = None,
     max_wait_ms: float = 5.0,
+    use_ema: bool = False,
     pipeline_depth: int = 0,
     seed: int = 0,
     device: Device = None,
@@ -329,13 +344,14 @@ def make_server(
     ``server_close()``."""
 
     run_batch, preprocess, mb, (_, holder, load_weights) = build_predictor(
-        cfg, checkpoint_dir, max_batch=max_batch, seed=seed, device=device,
+        cfg, checkpoint_dir, use_ema=use_ema, max_batch=max_batch, seed=seed, device=device,
     )
 
     class Handler(_Handler):
         task = cfg.task
         batcher = MicroBatcher(run_batch, mb, max_wait_ms, pipeline_depth=pipeline_depth)
         weights_holder = holder
+        serve_ema = use_ema
         reload_weights = staticmethod(load_weights)
 
     Handler.preprocess = staticmethod(preprocess)
@@ -362,7 +378,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="ucf_vit_tpu_torch model server")
     parser.add_argument("config")
     parser.add_argument("--checkpoint", default=None,
-                        help="not ported yet: the port serves seeded weights")
+                        help="a checkpoint file, or a directory whose slot "
+                             "trainer.checkpoint_filename_for_loading names")
+    parser.add_argument("--ema", action="store_true",
+                        help="serve the checkpoint's EMA weights")
     parser.add_argument("--task", default=None)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
@@ -373,7 +392,8 @@ def main(argv=None):
     parser.add_argument("--pipeline-depth", type=int, default=0,
                         help="in-flight batches: 1 overlaps batch N+1's upload "
                              "with batch N's compute; 0 serialises")
-    parser.add_argument("--seed", type=int, default=0, help="weight init seed")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="weight init seed (without --checkpoint)")
     parser.add_argument("--device", default="cuda",
                         help="torch device; cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -383,7 +403,7 @@ def main(argv=None):
     cfg = load_config(args.config, task=args.task)
     server = make_server(
         cfg, args.checkpoint, host=args.host, port=args.port,
-        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, use_ema=args.ema,
         pipeline_depth=args.pipeline_depth, seed=args.seed, device=args.device,
     )
     print(
