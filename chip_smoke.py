@@ -4,10 +4,10 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --compare CHECKOUT
 
-With `--compare` it runs only the device phase and times the bf16 forward of
-this checkout's package and of the one in CHECKOUT (another tree of the repo
-unpacked by `git archive`, say the parent) in one process: see
-`compare_forward`.
+With `--compare` it runs only the device phase and times the bf16 flash
+forward and the bf16 `fused_mlp` of this checkout's package and of the one in
+CHECKOUT (another tree of the repo unpacked by `git archive`, say the parent)
+in one process: see `compare_forward`.
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result):
@@ -18,13 +18,18 @@ result):
             flash_bwd_tf32: f32 on the tensor cores by the 3xTF32 split on
             mma.sync; flash_fwd_sm90, flash_bwd_sm90: bf16 on the tensor
             cores by wgmma; flash_bwd: the split route's f32 dkv and the dq
-            kernel of both types, on the CUDA cores; fused_mlp, int8_gemm),
-            one nvcc each, started together; cuobjdump then shows every
-            entry of the two sm90 libraries holding HGMMA (wgmma) code, every
-            entry of flash_fwd_sm90 holding UTMALDG (its TMA loads), and
-            every entry of the two tf32 libraries holding HMMA instructions
-            on TF32 operands; no DH = 64 instance of the forwards (sm90,
-            tf32) may spill.
+            kernel of both types, on the CUDA cores; fused_mlp_sm90: the bf16
+            fused MLP on the tensor cores by wgmma and TMA; fused_mlp: its f32
+            instance on the CUDA cores; int8_gemm), one nvcc each, started
+            together; cuobjdump then shows every entry of the three sm90
+            libraries holding HGMMA (wgmma) code, every entry of
+            flash_fwd_sm90 and fused_mlp_sm90 holding UTMALDG (their TMA
+            loads; fused_mlp_sm90's partial-sum reduction, mlp_reduce_kernel,
+            is the one entry exempt: it multiplies nothing and loads by
+            ordinary loads), and every entry of the two tf32 libraries
+            holding HMMA instructions on TF32 operands; no DH = 64 instance
+            of the forwards (sm90, tf32) and not the D = 768 instance of
+            fused_mlp_sm90 (`<2, 192>`) may spill.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
@@ -49,7 +54,10 @@ result):
             scaled_dot_product_attention (forward and backward).
             Then the two ops that no model is wired to, in either package:
             `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
-            (bf16 and f32, tanh and erf GELU), and `int8_matmul` at the
+            (bf16 and f32, tanh and erf GELU; bf16 through fused_mlp_sm90.cu
+            by its plan, printed: route, blocks of a cluster, output
+            warpgroups, S; a call timed as the device time of all of its
+            kernels, the partial sums' reduction included), and `int8_matmul` at the
             ViT-B projections (bit-equal to its plain version; within the
             JAX test's error bands of the exact product); then both through
             their public API with the launch counts set to 0 before.
@@ -241,12 +249,15 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5):
+def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5,
+              detail: dict | None = None):
     """(device ms, host ms) per call of `fn` over `iters` back-to-back calls.
     Device: the profiler's self device time; with `kernel`, of the kernels
     whose name holds it over their count; without, every kernel of the window,
-    each by its mean time and its launches per call (what a library call
-    launches). Host: wall time per call, the loop ending in a synchronize.
+    each by its mean time and its launches per call (what a library call, or a
+    call of an op that launches more than one kernel, launches). `detail`, if
+    given, receives that per-call time of each kernel by name. Host: wall time
+    per call, the loop ending in a synchronize.
     A window in which the profiler recorded no device activity at all is
     profiled again, up to PROFILE_TRIES windows in all."""
     import torch
@@ -276,8 +287,11 @@ def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5):
         return sum(e.self_device_time_total for e in events) / 1e3 / count, host_ms
     if not events:
         fail("the profiler saw no work on the card")
-    return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-               for e in events) / 1e3, host_ms
+    per_call = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
+                for e in events}
+    if detail is not None:
+        detail.update(per_call)
+    return sum(per_call.values()), host_ms
 
 
 # ---------------------------------------------------------------- phases
@@ -305,14 +319,23 @@ def phase_device():
     return card
 
 
-SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")  # bf16 on the tensor cores (wgmma)
+# bf16 on the tensor cores (wgmma)
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "fused_mlp_sm90")
 TF32_SOURCES = ("flash_fwd_tf32", "flash_bwd_tf32")  # f32 on the tensor cores (3xTF32)
 # the SASS instructions that show each kind of source on the tensor cores
 TENSOR_CORE_SASS = {**{s: "HGMMA" for s in SM90_SOURCES},
                     **{s: r"HMMA\.\S*TF32" for s in TF32_SOURCES}}
-TMA_SASS = {"flash_fwd_sm90": "UTMALDG"}  # the TMA tensor load
-# sources whose DH = 64 instances (the main paths') must not spill
+TMA_SASS = {"flash_fwd_sm90": "UTMALDG", "fused_mlp_sm90": "UTMALDG"}  # the TMA tensor load
+# entries exempt from those checks: fused_mlp_sm90's sum of its S partials (ordinary loads,
+# no product)
+SASS_EXEMPT = {"fused_mlp_sm90": "mlp_reduce_kernel"}
+# sources whose DH = 64 instances (the main paths') must not spill, and the instances of
+# other sources that must not: fused_mlp_sm90's at D = 768 (WN = 192, two output warpgroups)
 NO_SPILL_AT_64 = (*TF32_SOURCES, "flash_fwd_sm90")
+NO_SPILL = {"fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>"}
+KERNEL_NAME = re.compile(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
+                         r"fused_mlp(?:_sm90)?_kernel|mlp_reduce_kernel|int8_gemm_kernel)"
+                         r"(?:I(\w+?)EEv)?")
 
 
 def _sass_counts(path, pattern: str) -> dict:
@@ -356,10 +379,9 @@ def phase_build():
         # ptxas reports each template instance: summarise registers and spills
         entry, regs, spills, by_entry = "", [], [], []
         for line in path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
-                          r"fused_mlp_kernel|int8_gemm_kernel)I(\w+?)EEv", line)
+            m = KERNEL_NAME.search(line)
             if "Compiling entry function" in line and m:
-                entry = f"{m.group(1)}<{m.group(2)}>"
+                entry = f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
             if m := re.search(r"Used (\d+) registers", line):
                 regs.append(int(m.group(1)))
                 by_entry.append(f"{entry} {m.group(1)}")
@@ -372,18 +394,25 @@ def phase_build():
             log(f"[build] {name} registers: {', '.join(by_entry)}")
         if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
             fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
+        if name in NO_SPILL and any(NO_SPILL[name] in sp for sp in spills):
+            fail(f"{name}: {NO_SPILL[name]} spills: {spills}")
         # every instance must run on the tensor cores (and the TMA forward load by TMA)
         for pattern in (TENSOR_CORE_SASS.get(name), TMA_SASS.get(name)):
             if pattern is None:
                 continue
             counts = _sass_counts(path, pattern)
             for fn, n in sorted(counts.items()):
-                m = re.search(r"\d(flash_\w+?_kernel)I(\w+?)EEv", fn)
-                instance = f"{m.group(1)}<{m.group(2)}>" if m else fn
+                m = KERNEL_NAME.search(fn)
+                instance = fn if m is None else (
+                    f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1))
                 log(f"[build] {name}: {n:4d} {pattern} in {instance}")
-            if len(counts) != len(regs) or not all(counts.values()):
-                fail(f"{name}: {len(counts)} entry functions in the SASS for {len(regs)} compiled, "
-                     f"and every one must hold {pattern}: {counts}")
+            if len(counts) != len(regs):
+                fail(f"{name}: {len(counts)} entry functions in the SASS for {len(regs)} compiled")
+            held = {fn: n for fn, n in counts.items()
+                    if name not in SASS_EXEMPT or SASS_EXEMPT[name] not in fn}
+            if not held or not all(held.values()):
+                fail(f"{name}: every entry (but {SASS_EXEMPT.get(name)}) must hold {pattern}: "
+                     f"{counts}")
 
 
 def _bound(flops: float, nbytes: float, dtype_name: str):
@@ -1021,23 +1050,48 @@ def _mlp_inputs(m, d, h, dtype, gen):
             randn(h, d, std=0.02), randn(d, std=0.01))
 
 
+# what a call of fused_mlp launches, by dtype: the kernels a timed call sums
+MLP_KERNELS = {"float32": ("fused_mlp_kernel",),
+               "bfloat16": ("fused_mlp_sm90_kernel", "mlp_reduce_kernel")}
+
+
+def _mlp_call_ms(fn, dtype_name: str):
+    """(device ms of one call, summed over every kernel it launches; host ms per
+    call; those kernels by name), failing if the call launched anything else."""
+    kernels = {}
+    ms, host = device_ms(fn, iters=20, warmup=2, detail=kernels)
+    other = [k for k in kernels if not any(n in k for n in MLP_KERNELS[dtype_name])]
+    if other:
+        fail(f"a {dtype_name} fused_mlp call launched other kernels too: {other}")
+    return ms, host, kernels
+
+
 def phase_mlp_kernels():
     """`fused_mlp` against `fused_mlp_plain` at every shape, both types and both
     GELU forms; timed at the two model shapes beside its bound, the plain
     version and the unfused composition F.linear, F.gelu, F.linear (three
-    library calls: no single call computes the function)."""
+    library calls: no single call computes the function). A call's time is the
+    device time of all of its kernels (bf16: the main kernel and, at S > 1, the
+    reduction of its partials); the bf16 plan (route, blocks of a cluster,
+    output warpgroups, S) is printed beside it."""
     import torch
     import torch.nn.functional as F
 
-    from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+    from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain, mlp_plan
 
     gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     timed = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for m, d, h in MLP_SHAPES:
             args = _mlp_inputs(m, d, h, dtype, gen)
             shape = f"[{m},{d}]->{h} {dtype_name}"
+            plan = mlp_plan(m, d, h, sms)
+            if dtype_name == "bfloat16":
+                log(f"[kernel] fused_mlp {shape}: plan route {plan.route}, {plan.groups} "
+                    f"block(s) a cluster, {plan.warpgroups} output warpgroup(s) a block, S = "
+                    f"{plan.splits}, {plan.blocks} blocks")
             errs = {}
             for approx in (True, False):
                 got = fused_mlp(*args, approx=approx)
@@ -1055,8 +1109,7 @@ def phase_mlp_kernels():
                 continue
             x, w1, b1, w2, b2 = args
             w1t, w2t = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear's layout
-            ms, host = device_ms(lambda: fused_mlp(*args), "fused_mlp_kernel", iters=20,
-                                 warmup=2)
+            ms, host, kernels = _mlp_call_ms(lambda: fused_mlp(*args), dtype_name)
             plain_ms, _ = device_ms(lambda: fused_mlp_plain(*args), iters=20, warmup=2)
             unfused_ms, _ = device_ms(
                 lambda: F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2),
@@ -1068,8 +1121,10 @@ def phase_mlp_kernels():
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": errs[True], "unfused_ms": unfused_ms,
             }
-            log(f"[kernel] fused_mlp {shape}, device ms: kernel {ms:.4f} (host {host:.4f} per "
-                f"call), plain {plain_ms:.4f} ms, "
+            by_kernel = ", ".join(f"{m.group(0) if (m := KERNEL_NAME.search(k)) else k} {v:.4f}"
+                                  for k, v in kernels.items())
+            log(f"[kernel] fused_mlp {shape}, device ms: a call {ms:.4f} ({by_kernel}; host "
+                f"{host:.4f} per call), plain {plain_ms:.4f} ms, "
                 f"unfused F.linear + F.gelu + F.linear (three library calls) {unfused_ms:.4f} "
                 f"ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB)")
@@ -1152,6 +1207,8 @@ def phase_ops_path():
     from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp
     from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, quantize_weight
 
+    from ucf_vit_tpu_torch.ops.fused_mlp import reset_launch_counts
+
     gen = torch.Generator(device="cuda").manual_seed(5)
     m, d, h = RECORD_MLP
     x, w1, b1, w2, b2 = _mlp_inputs(m, d, h, torch.bfloat16, gen)
@@ -1160,7 +1217,7 @@ def phase_ops_path():
                for name, shape in projections.items()}
     hidden = torch.randn(m, h, device="cuda", generator=gen).to(torch.bfloat16)
 
-    fused_mlp.launches = 0
+    reset_launch_counts()
     int8_matmul.launches = 0
     y = fused_mlp(x, w1, b1, w2, b2)
     quantized = {name: quantize_weight(w) for name, w in weights.items()}  # once, offline
@@ -1168,6 +1225,7 @@ def phase_ops_path():
             for name in projections}
     torch.cuda.synchronize()
     counts = {"fused_mlp": fused_mlp.launches, "int8_matmul": int8_matmul.launches}
+    mlp_by = (dict(fused_mlp.by_source), dict(fused_mlp.by_layout))
 
     want = F.linear(F.gelu(F.linear(x, w1.t(), b1), approximate="tanh"), w2.t(), b2)
     mlp_err = (y.float() - want.float()).abs().max().item()
@@ -1183,11 +1241,14 @@ def phase_ops_path():
         f"package): fused_mlp against the unfused bf16 modules max |diff| {mlp_err:.3e} (tol "
         f"3e-2: the modules round the pre-activation to bf16, the op keeps it f32); "
         f"int8_matmul on qkv, proj, fc1, fc2: worst median rel err {worst:.4f}; launches "
-        f"{counts}")
+        f"{counts}; fused_mlp by source {mlp_by[0]}, by route {mlp_by[1]}")
     if not ok or mlp_err > 3e-2:
         fail("the ops' public API gave a wrong result")
     if counts != {"fused_mlp": 1, "int8_matmul": len(projections)}:
         fail(f"launch counts {counts}, expected 1 fused_mlp and {len(projections)} int8_matmul")
+    if mlp_by != ({"fused_mlp_sm90": 1, "fused_mlp": 0}, {"tma": 1, "padded": 0}):
+        fail(f"bf16 fused_mlp at {RECORD_MLP} went by {mlp_by}, expected fused_mlp_sm90 on "
+             f"the tma route")
     return counts
 
 
@@ -2341,11 +2402,12 @@ def _use(modules: dict) -> None:
 
 def _load_forward(checkout: str):
     """(`flash_attention` of the package in `checkout`, imported afresh, and
-    that package's modules)."""
+    that package's modules, `fused_mlp` among them)."""
     _use({})
     sys.path.insert(0, checkout)
     try:
         from ucf_vit_tpu_torch.ops import build  # noqa: F401  (imported when called)
+        from ucf_vit_tpu_torch.ops import fused_mlp  # noqa: F401
         from ucf_vit_tpu_torch.ops.flash_attention import flash_attention
     finally:
         sys.path.remove(checkout)
@@ -2353,8 +2415,34 @@ def _load_forward(checkout: str):
                              if m.split(".")[0] == "ucf_vit_tpu_torch"}
 
 
+def compare_mlp(checkouts, forwards) -> None:
+    """bf16 `fused_mlp` of each checkout at RECORD_MLP, on the same inputs: the
+    device time of a call (all of its kernels, `device_ms`) in the order this
+    checkout, the other, the other, this one, so that a drift of the card falls
+    on both alike; each checkout's results against the first's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m, d, h = RECORD_MLP
+    args = _mlp_inputs(m, d, h, torch.bfloat16, gen)
+    fns = [modules["ucf_vit_tpu_torch.ops.fused_mlp"].fused_mlp for _, modules in forwards]
+    outs, times = [], [[] for _ in checkouts]
+    for fn, (_, modules) in zip(fns, forwards):
+        _use(modules)
+        outs.append(fn(*args).float())
+    for i in (0, 1, 1, 0):
+        _use(forwards[i][1])
+        times[i].append(device_ms(lambda: fns[i](*args), iters=20, warmup=2)[0])
+    for i, c in enumerate(checkouts):
+        diff = (outs[i] - outs[0]).abs().max().item()
+        log(f"[compare] {c} fused_mlp [{m},{d}]->{h} bf16: a call "
+            f"{', '.join(f'{t:.4f}' for t in times[i])} ms (device, all kernels); max |y - "
+            f"this checkout's| {diff:.3e}")
+
+
 def compare_forward(other: str) -> None:
-    """The bf16 forward of this checkout and of `other`, in one process, on
+    """bf16 `fused_mlp` (`compare_mlp`), then the bf16 flash forward of this
+    checkout and of `other`, in one process, on
     the packed qkv views of ViT-B/16's and ViT-L/16's shapes and mae_long's
     encoder (`TIMED_SHAPES`): device ms per call of `flash_fwd_sm90_kernel`
     (`device_ms`) beside scaled_dot_product_attention's; and at the ViT
@@ -2371,6 +2459,7 @@ def compare_forward(other: str) -> None:
 
     checkouts = [REPO, other]
     forwards = [_load_forward(c) for c in checkouts]
+    compare_mlp(checkouts, forwards)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, h, n, _, dh in TIMED_SHAPES:
         q, k, v = _flash_inputs(b, h, n, n, dh, torch.bfloat16, True, gen)
@@ -2474,7 +2563,8 @@ def main() -> int:
                          "ucf_vit_tpu/ops/flash_attention.py:362"),
         "keep_mask": ("ucf_vit_tpu_torch/csrc/attn_dropout.cuh",
                       "ucf_vit_tpu/ops/attn_dropout.py:70"),
-        "fused_mlp": ("ucf_vit_tpu_torch/csrc/fused_mlp.cu", "ucf_vit_tpu/ops/fused_mlp.py:55"),
+        "fused_mlp": ("ucf_vit_tpu_torch/csrc/fused_mlp_sm90.cu",
+                      "ucf_vit_tpu/ops/fused_mlp.py:55"),
         "int8_matmul": ("ucf_vit_tpu_torch/csrc/int8_gemm.cu", "ucf_vit_tpu/ops/int8_gemm.py:61"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],

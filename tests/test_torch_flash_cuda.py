@@ -23,7 +23,12 @@ from ucf_vit_tpu_torch.ops.flash_attention import (
     fwd_layout,
     reset_launch_counts,
 )
-from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from ucf_vit_tpu_torch.ops.fused_mlp import (
+    fused_mlp,
+    fused_mlp_plain,
+    mlp_plan,
+)
+from ucf_vit_tpu_torch.ops.fused_mlp import reset_launch_counts as reset_mlp_counts
 from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
 
 # (b, h, n_q, n_kv, dh): the training shape at batch 2, dh 36, Nq = 1, a
@@ -404,21 +409,27 @@ def test_single_key_on_card(dtype, route):
         assert dq.float().abs().max().item() <= 1e-3 and dk.float().abs().max().item() <= 1e-3
 
 
-# (leading dims, D, H): the JAX tests' ragged shape and leading dims, ViT-B and
-# ViT-L widths with a ragged M, and a D and H that are multiples of nothing
-MLP_SHAPES = [((300,), 128, 512), ((2, 70), 128, 512), ((515,), 768, 3072),
-              ((2, 257), 1024, 4096), ((100,), 200, 300)]
+# (leading dims, D, H, offset): the JAX tests' ragged shape and leading dims, ViT-B and
+# ViT-L widths with a ragged M, a D and H that are multiples of nothing, M below one
+# 64-row tile, a small M whose bf16 plan splits H 22 ways, and an x that is a view one
+# element into its storage (a base TMA cannot address: the padded route)
+MLP_SHAPES = [((300,), 128, 512, 0), ((2, 70), 128, 512, 0), ((515,), 768, 3072, 0),
+              ((2, 257), 1024, 4096, 0), ((100,), 200, 300, 0), ((50,), 768, 3072, 0),
+              ((130,), 1024, 4096, 0), ((300,), 768, 3072, 1)]
 MLP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _mlp_inputs(lead, d, h, dt, seed=0):
+def _mlp_inputs(lead, d, h, dt, seed=0, offset=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, std=1.0):
         return (std * torch.randn(*shape, device="cuda", generator=g)).to(dt)
 
-    return (randn(*lead, d), randn(d, h, std=0.02), randn(h, std=0.01),
-            randn(h, d, std=0.02), randn(d, std=0.01))
+    x = randn(*lead, d)
+    if offset:  # the same values in a view `offset` elements into a larger storage
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+    return (x, randn(d, h, std=0.02), randn(h, std=0.01), randn(h, d, std=0.02),
+            randn(d, std=0.01))
 
 
 @pytest.mark.cuda
@@ -428,12 +439,19 @@ def test_fused_mlp_kernel_matches_plain_on_card(dtype, approx):
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
-    for lead, d, h in MLP_SHAPES:
-        args = _mlp_inputs(lead, d, h, dt)
-        before = fused_mlp.launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for lead, d, h, offset in MLP_SHAPES:
+        args = _mlp_inputs(lead, d, h, dt, offset=offset)
+        reset_mlp_counts()
         got = fused_mlp(*args, approx=approx)
         torch.cuda.synchronize()
-        assert fused_mlp.launches == before + 1
+        # bf16 on the tensor cores (fused_mlp_sm90.cu) by its plan's route; f32 on fused_mlp.cu
+        source = "fused_mlp_sm90" if dt == torch.bfloat16 else "fused_mlp"
+        route = mlp_plan(args[0].numel() // d, d, h, sms, offset == 0).route
+        assert fused_mlp.launches == 1
+        assert fused_mlp.by_source == {s: int(s == source) for s in fused_mlp.by_source}
+        assert fused_mlp.by_layout == {
+            r: int(r == route and dt == torch.bfloat16) for r in fused_mlp.by_layout}
         want = fused_mlp_plain(*args, approx=approx)
         assert got.dtype == dt and got.shape == args[0].shape
         assert (got.float() - want.float()).abs().max().item() <= MLP_TOL[dt], (lead, d, h)

@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 from ucf_vit_tpu.ops import fused_mlp as jax_mlp
 from ucf_vit_tpu.ops import int8_gemm as jax_int8
-from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from ucf_vit_tpu_torch.ops.fused_mlp import _padded_copy, fused_mlp, fused_mlp_plain, mlp_plan
 from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
 
 TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -88,6 +88,65 @@ def test_fused_mlp_limits_and_no_backward():
     with torch.no_grad():  # inference on parameters that require grad is fine
         assert fused_mlp(x, w1.clone().requires_grad_(), b1, w2, b2).shape == x.shape
     assert fused_mlp.launches == 0  # CPU calls launch no kernel
+
+
+# mlp_plan on an H100 (132 SMs): (M, D, H, aligned) -> (route, D', H', blocks of a
+# cluster, output warpgroups a block, S, blocks). ViT-B's MLP at batch 16 and ViT-L's at
+# its microbatch of 8 take clusters of two (each block half of D's columns); ragged D or H,
+# or a misaligned x, takes the padded route; a small M splits H into many slices.
+MLP_PLANS = {
+    "vit_b": ((4112, 768, 3072, True), ("tma", 768, 3072, 2, 2, 1, 130)),
+    "vit_l": ((2056, 1024, 4096, True), ("tma", 1024, 4096, 2, 2, 2, 132)),
+    "ragged": ((100, 200, 300, True), ("padded", 200, 304, 1, 1, 5, 10)),
+    "m_below_64": ((50, 768, 3072, True), ("tma", 768, 3072, 2, 2, 48, 96)),
+    "odd_d": ((300, 201, 512, True), ("padded", 208, 512, 1, 1, 8, 40)),
+    "misaligned_x": ((4112, 768, 3072, False), ("padded", 768, 3072, 2, 2, 1, 130)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLP_PLANS))
+def test_mlp_plan_at_the_cards_shapes(case):
+    (m, d, h, aligned), (route, d_pad, h_pad, groups, warpgroups, splits, blocks) = MLP_PLANS[case]
+    plan = mlp_plan(m, d, h, 132, aligned)
+    assert (plan.route, plan.d_pad, plan.h_pad, plan.groups, plan.warpgroups, plan.splits,
+            plan.blocks) == (route, d_pad, h_pad, groups, warpgroups, splits, blocks)
+    # what the kernel's C entry checks: the warpgroups cover a block's columns, every
+    # slice of H gets at least one 64-unit chunk, one block per SM at most
+    assert plan.group_cols % 64 == 0 and plan.groups * plan.group_cols >= plan.d_pad
+    assert 256 * (plan.warpgroups - 1) < plan.group_cols <= 256 * plan.warpgroups
+    chunks = -(-plan.h_pad // 64)
+    assert (plan.splits - 1) * -(-chunks // plan.splits) < chunks
+    assert plan.blocks == plan.row_tiles * plan.groups * plan.splits <= 132
+
+
+def _padded_args(args, plan):
+    """The padded route's copies (`ops/fused_mlp.py`): D and H zero-padded to D', H'."""
+    x, w1, b1, w2, b2 = args
+    dp, hp = plan.d_pad, plan.h_pad
+    return (_padded_copy(x, (x.shape[0], dp)), _padded_copy(w1, (dp, hp)), _padded_copy(b1, (hp,)),
+            _padded_copy(w2, (hp, dp)), _padded_copy(b2, (dp,)))
+
+
+@pytest.mark.parametrize("approx", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("shape", [(100, 200, 300), (33, 97, 61)], ids=str)
+def test_fused_mlp_padded_route_is_exact(shape, approx):
+    """Zero padding changes nothing: a zero hidden unit is gelu(0 + 0) = 0 and meets zero
+    rows of w2, and the zero columns of x meet zero rows of w1. The padded copies give the
+    plain version the same bf16 result bit for bit, and at the ragged shape that result is
+    held against the Pallas kernel in interpret mode."""
+    m, d, h = shape
+    plan = mlp_plan(m, d, h, 132)
+    assert plan.route == "padded"
+    jax_args, args = _mlp_inputs((m,), d, h, "bfloat16", seed=4)
+    want = fused_mlp_plain(*args, approx=approx)
+    padded = fused_mlp_plain(*_padded_args(args, plan), approx=approx)
+    assert padded.shape == (m, plan.d_pad)
+    assert torch.equal(padded[:, :d], want)
+    assert not padded[:, d:].any()  # columns past D: zero weights and b2's zeros
+    if shape == (100, 200, 300):
+        kernel = jax_mlp.fused_mlp(*jax_args, approx=approx, block_m=128, interpret=True)
+        np.testing.assert_allclose(padded[:, :d].float().numpy(), np.asarray(kernel, np.float32),
+                                   atol=MLP_TOL["bfloat16"], rtol=0)
 
 
 # ---------------------------------------------------------------- int8

@@ -496,52 +496,6 @@ __global__ void __launch_bounds__(THREADS, (DH == 64 && !DROPOUT) ? 3 : 2)
 
 // ------------------------------------------------------------------ host
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point, so that the
-// library links against no more than the CUDA runtime.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Returned for a tensor map that cannot be encoded: ENCODE_FAILED + the driver's CUresult
-// (ENCODE_FAILED alone: no cuTensorMapEncodeTiled).
-constexpr int ENCODE_FAILED = 10000;
-
-// A 4-d bf16 map of dims (d0 columns, d1 rows, d2, d3) with byte strides (s1, s2, s3)
-// and a box of 64 columns by 64 rows, swizzled for the panel layout.
-int encode(CUtensorMap* map, const void* ptr, const long long (&g)[7]) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ENCODE_FAILED;
-  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2],
-                              (cuuint64_t)g[3]};
-  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {64, BK, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
-
 int sm_count() {
   static int counts[64] = {0};
   int dev = 0;
@@ -616,9 +570,9 @@ extern "C" int ucf_flash_fwd_sm90(
   const long long gk[7] = {k_d0, k_d1, k_d2, k_d3, k_s1, k_s2, k_s3};
   const long long gv[7] = {v_d0, v_d1, v_d2, v_d3, v_s1, v_s2, v_s3};
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, gq);
-  if (err == 0) err = encode(&tk, k, gk);
-  if (err == 0) err = encode(&tv, v, gv);
+  int err = encode(&tq, q, gq, BK);
+  if (err == 0) err = encode(&tk, k, gk, BK);
+  if (err == 0) err = encode(&tv, v, gv, BK);
   if (err != 0) return err;
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);

@@ -1,17 +1,19 @@
 // Fused transformer MLP for Hopper (sm_90a): y = gelu(x . W1 + b1) . W2 + b2 in one kernel,
-// f32 or bf16 in and out, f32 math.
+// f32 in and out, f32 math on the CUDA cores. (bf16 takes csrc/fused_mlp_sm90.cu, on the
+// tensor cores; the template below keeps its type parameter, instantiated for f32 only.)
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (ucf_vit_tpu/ops/fused_mlp.py:55, launched by
-// `_fwd_call` :63). It computes the same function: both products accumulate in f32, the
-// bias add and the GELU (tanh form or erf form) run in f32, the hidden activation is
-// rounded to the input type before the second product, and the result is cast to the input
-// type. The hidden [M, H] never reaches device memory. There is no backward.
+// `_fwd_call` :63) for f32 inputs. It computes the same function: both products accumulate
+// in f32, the bias add and the GELU (tanh form or erf form) run in f32, the hidden
+// activation is rounded to the input type before the second product, and the result is
+// cast to the input type. The hidden [M, H] never reaches device memory. There is no
+// backward.
 //
 // Bound on the H100 at the ViT-B shape [M = 4112, D = 768, H = 3072]: 4 * M * D * H =
 // 38.8 GFLOP against 22 MB (bf16) or 44 MB (f32) of inputs and output, so the work is bound
-// by operations in both types: 0.58 ms at the CUDA cores' f32 rate (67 TFLOP/s), 0.039 ms
-// at the bf16 tensor-core rate (989 TFLOP/s). This kernel does both types in f32 FMA, so
-// bf16 runs at the f32 rate.
+// by operations in both types: 0.58 ms at the CUDA cores' f32 rate (67 TFLOP/s), 0.235 ms
+// as three TF32 products at the tensor cores' TF32 rate (495 TFLOP/s). This kernel runs
+// at the f32 FMA rate.
 //
 // Design. The TPU kernel keeps W1 and W2 resident in VMEM and walks M tiles in order; an SM
 // has 227 KB of shared memory, so here the weights are streamed and only the x tile stays:
@@ -33,7 +35,6 @@
 // Cost of the 32-row tile: M = 4112 gives 129 blocks, one wave of the 132 SMs, but a
 // smaller M leaves SMs idle, and each block reads all of W1 and W2 from L2.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -60,16 +61,11 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float gelu(float v, int approx) {
   if (approx) {
@@ -249,8 +245,8 @@ cudaError_t dispatch_d(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w1, w2 and y; b1 and b2 are always f32). All arrays
-// are contiguous row-major. approx: 1 = tanh GELU, 0 = erf GELU. Returns a cudaError_t.
+// dtype: 0 = float32 (x, w1, w2, y, b1 and b2; 1, bfloat16, is refused: it goes to
+// ucf_fused_mlp_sm90). All arrays are contiguous row-major. approx: 1 = tanh GELU, 0 = erf GELU. Returns a cudaError_t.
 extern "C" int ucf_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, void* y, int m, int d, int h, int dtype,
                              int approx, void* stream) {
@@ -268,6 +264,5 @@ extern "C" int ucf_fused_mlp(const void* x, const void* w1, const void* b1, cons
   p.approx = approx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(p, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(p, s);
   return cudaErrorInvalidValue;
 }

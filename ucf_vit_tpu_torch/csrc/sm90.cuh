@@ -1,27 +1,34 @@
-// Hopper (sm_90a) building blocks shared by the bf16 flash-attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu), in inline PTX:
+// Hopper (sm_90a) building blocks shared by the bf16 kernels (flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu, fused_mlp_sm90.cu), in inline PTX:
 //
 // - cp.async copies from device memory straight into the 128-byte-swizzled tile layout
 //   that a wgmma shared-memory descriptor reads, with zero fill through the src-size
 //   operand (rows past the sequence, columns past dh);
 // - TMA tensor loads (cp.async.bulk.tensor) into the same layout, counted on mbarriers,
 //   with the mbarrier operations of a producer/consumer ring (the forward);
-// - warpgroup matrix products `wgmma.mma_async ... m64n64k16.f32.bf16.bf16`, with A
-//   from shared memory or from registers and B from shared memory, K-major or MN-major;
-// - the fences, commits and waits that order them.
+// - warpgroup matrix products `wgmma.mma_async ... m64n64k16.f32.bf16.bf16` (and
+//   m64n16k16, m64n192k16, m64n256k16), with A from shared memory or from registers and
+//   B from shared memory, K-major or MN-major;
+// - the fences, commits and waits that order them;
+// - thread block clusters: a block's rank, remote mbarrier arrivals and bulk copies into
+//   the shared memory of another block of the cluster;
+// - on the host, the tensor maps (cuTensorMapEncodeTiled) that the TMA loads read.
 //
 // Tile layout ("panel"): 64 rows x 64 bf16 (128 bytes a row), 8 KB, 1024-byte aligned.
 // Row r's 16-byte chunk c sits at r * 128 + ((c ^ (r % 8)) * 16): the 128-byte swizzle.
 // A tile of DH columns is DH / 64 panels one after the other (panel p holds the columns
 // 64p .. 64p + 63). The same bytes serve as a K-major operand (rows = M or N, the
 // contiguous 64 = K) and as an MN-major one (rows = K, the contiguous 64 = M or N).
-// Every product issued here spans at most one panel in its contiguous direction, so
-// only the stride between 8-row groups (1024 bytes) enters a descriptor; both of its
-// byte-offset fields hold that value.
+// A product that spans at most one panel in its contiguous direction needs only the
+// stride between 8-row groups (1024 bytes) in its descriptor (`make_desc`); an
+// MN-major B wider than one panel also needs the stride between its panels
+// (`make_desc_mn`).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -186,12 +193,71 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ------------------------------------------------------------------ thread block clusters
+//
+// A block's shared memory seen from its cluster: `mapa` turns a shared::cta address into
+// the shared::cluster address of the same offset in block `rank` of the cluster (every
+// block of a kernel has the same layout), which remote mbarrier arrivals and bulk copies
+// take.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of every block of the cluster (a block barrier as well).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// An arrival on an mbarrier of a block of the cluster (`cluster_addr` from mapa).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx_cluster(uint32_t cluster_addr,
+                                                              uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.release.cluster.shared::cluster.b64 _, [%0], %1;\n" ::"r"(
+          cluster_addr),
+      "r"(bytes)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of this block's shared memory at `src` to `dst` in a
+// block of the cluster, counted in bytes on the mbarrier `bar` of that block (both
+// cluster addresses). The source must be written, and fenced to the async proxy, first.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 
 // Shared-memory matrix descriptor: start address, both byte offsets 1024 (the 8-row
 // group stride), 128-byte swizzle.
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// The same for an MN-major operand whose 64-column panels lie `panel_bytes` apart (the
+// descriptor's leading byte offset): B of a product more than 64 columns wide.
+__device__ __forceinline__ uint64_t make_desc_mn(uint32_t saddr, uint32_t panel_bytes) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)((panel_bytes >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -287,6 +353,101 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a, uin
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+#define UCF_WGMMA_D128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}"
+#define UCF_WGMMA_D128_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+  "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+  "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+  "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+  "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
+  "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+  "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+  "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
+  "+f"(d[126]), "+f"(d[127])
+#define UCF_WGMMA_D96 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+  "}"
+#define UCF_WGMMA_D96_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+  "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+  "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+  "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+  "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+
+// d[64 x N] += A[64 x 16] . B[16 x N] for N = 256 or 192, both in shared memory: the
+// accumulator layout above with c < N / 8. An MN-major B spans N / 64 panels: its
+// descriptor carries their stride (`make_desc_mn`).
+template <int N, int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_wide(float (&d)[N / 2], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  static_assert(N == 256 || N == 192, "wgmma_ss_wide takes N = 256 or 192");
+  if constexpr (N == 256) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " UCF_WGMMA_D128
+        ", %128, %129, p, 1, 1, %131, %132;\n"
+        "}\n"
+        : UCF_WGMMA_D128_OPS(d)
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " UCF_WGMMA_D96
+        ", %96, %97, p, 1, 1, %99, %100;\n"
+        "}\n"
+        : UCF_WGMMA_D96_OPS(d)
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+  }
+}
+
+#undef UCF_WGMMA_D128
+#undef UCF_WGMMA_D128_OPS
+#undef UCF_WGMMA_D96
+#undef UCF_WGMMA_D96_OPS
 #undef UCF_WGMMA_D32
 #undef UCF_WGMMA_D32_OPS
 
@@ -327,6 +488,65 @@ __host__ inline int copy_bytes(const void* const* ptrs, int n_ptrs, const long l
     if (ok) return cb;
   }
   return 2;
+}
+
+// ------------------------------------------------------------------ host: tensor maps
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point, so that a
+// library links against no more than the CUDA runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Returned for a tensor map that cannot be encoded: ENCODE_FAILED + the driver's CUresult
+// (ENCODE_FAILED alone: no cuTensorMapEncodeTiled).
+constexpr int ENCODE_FAILED = 10000;
+
+// A 4-d bf16 map of dims (d0 columns, d1 rows, d2, d3) with byte strides (s1, s2, s3)
+// and a box of 64 columns by `box_rows` rows, swizzled for the panel layout; zeros for
+// elements out of range. g = {d0, d1, d2, d3, s1, s2, s3}.
+inline int encode(CUtensorMap* map, const void* ptr, const long long (&g)[7], int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ENCODE_FAILED;
+  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2],
+                              (cuuint64_t)g[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// A row-major bf16 matrix [rows, cols] (row stride `row_elems`) as such a map (dims 2 and
+// 3 of size 1: load with tma_load_4d(..., column, row, 0, 0)), read in boxes of 64
+// columns by `box_rows` rows (TMA takes rows of a multiple of 16 bytes).
+inline int encode_2d(CUtensorMap* map, const void* ptr, long long rows, long long cols,
+                     long long row_elems, int box_rows) {
+  const long long g[7] = {cols, rows, 1, 1, 2 * row_elems, 2 * row_elems * rows,
+                          2 * row_elems * rows};
+  return encode(map, ptr, g, box_rows);
 }
 
 }  // namespace sm90

@@ -1,32 +1,95 @@
 """Fused transformer MLP: fc1 -> GELU -> fc2 in one Hopper CUDA kernel, and
 its plain version (port of `ucf_vit_tpu/ops/fused_mlp.py`).
 
-`csrc/fused_mlp.cu` replaces the Pallas TPU kernel `_fwd_kernel`
+The kernels replace the Pallas TPU kernel `_fwd_kernel`
 (`ucf_vit_tpu/ops/fused_mlp.py:55`, launched by `_fwd_call` `:63`): per tile
-of rows it computes `gelu(x @ w1 + b1) @ w2 + b2` with both products
+of rows they compute `gelu(x @ w1 + b1) @ w2 + b2` with both products
 accumulated in f32, the GELU in f32 (tanh form or erf form), and the hidden
 rounded to `x.dtype` before the second product, so the hidden `[M, H]` never
 reaches device memory. As in the JAX package it is an op of its own, wired
 into no model, and it has no backward.
 
-The kernel's limits (its own, not the TPU kernel's VMEM rules): f32 or bf16,
-`D <= 1024` (the 32 x D output tile lives in the registers of one block),
-any M and H (ragged edges are masked inside). See the source for the design
-and its bound on the card.
+The dtype picks the source (`fused_mlp.by_source` counts them):
+- bf16: `csrc/fused_mlp_sm90.cu`, both products on the tensor cores by
+  `wgmma`, fed by TMA. A cluster of one or two blocks owns 64 rows: each block
+  a half of D's columns and every other 64-unit chunk of the hidden, which it
+  copies to the other block's shared memory. `mlp_plan` decides the blocks of
+  a cluster, their output warpgroups, how H is split across clusters (S), and
+  the route (`fused_mlp.by_layout`): "tma" loads x, w1 and w2 as they are;
+  "padded" first makes zero-padded copies with D and H rounded up to
+  multiples of 8 (TMA's rows are multiples of 16 bytes) and a 16-byte aligned
+  base, and slices y back. At S > 1 each block writes an f32 partial into a
+  workspace `[S, M, D]` that a second kernel sums in a fixed order.
+- f32: `csrc/fused_mlp.cu`, f32 FMA on the CUDA cores (ragged edges masked
+  inside; nothing padded).
 
-`fused_mlp` takes the plain version for a tensor on the CPU and the kernel
-for a tensor on a CUDA device; anything else raises.
+The limits, held on every device so that a shape the card would refuse does
+not pass on the CPU: f32 or bf16, `D <= 1024` (the output tile of a block
+lives in its registers), any M and H. See the sources for the designs and
+their bounds on the card.
+
+`fused_mlp` takes the plain version for a tensor on the CPU and a kernel for
+a tensor on a CUDA device; anything else raises. There is no fallback: a bf16
+call that cannot build, encode its tensor maps or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 MAX_D = 1024
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SOURCES = ("fused_mlp_sm90", "fused_mlp")  # bf16, f32
+ROUTES = ("tma", "padded")
+# csrc/fused_mlp_sm90.cu: rows a block, hidden units a chunk, the most output columns a
+# warpgroup holds, and the widest D one block takes alone (two output warpgroups: the
+# registers' limit); wider D splits over a cluster of two
+MLP_ROWS, MLP_CHUNK, MLP_WG_COLS, MLP_BLOCK_COLS = 64, 64, 256, 512
+_ENCODE_FAILED = 10000  # csrc/sm90.cuh: ENCODE_FAILED (+ the driver's CUresult)
+
+
+class MlpPlan(NamedTuple):
+    """How `csrc/fused_mlp_sm90.cu` takes one call (`mlp_plan`)."""
+    route: str       # "tma": x, w1, w2 as they are; "padded": zero-padded copies first
+    d_pad: int       # D' = ceil8(D), the width the kernel sees
+    h_pad: int       # H' = ceil8(H)
+    groups: int      # blocks of a cluster: each owns group_cols of D, the hidden is shared
+    group_cols: int  # columns a block: ceil(D' / groups) rounded up to 64
+    warpgroups: int  # output warpgroups a block, up to 256 columns each
+    splits: int      # S: H split across clusters, each adding an f32 partial
+    row_tiles: int   # ceil(M / 64)
+    blocks: int      # row_tiles * groups * splits
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_plan(m: int, d: int, h: int, sms: int, aligned: bool = True) -> MlpPlan:
+    """The bf16 kernel's plan for x `[m, d]`, w1 `[d, h]` on a card of `sms`
+    SMs (pure Python, decided before the launch). `aligned`: x, w1 and w2 are
+    contiguous with 16-byte aligned bases; where they are not, or where D or H
+    is no multiple of 8, the route is "padded". One block takes up to 512
+    columns; wider D takes a cluster of two blocks, each with half of the
+    columns. H is split into S slices of whole 64-unit chunks, as many as fill
+    the SMs with one block each (at least one chunk a slice)."""
+    d_pad, h_pad = _ceil(d, 8) * 8, _ceil(h, 8) * 8
+    route = "tma" if aligned and d_pad == d and h_pad == h else "padded"
+    groups = 1 if d_pad <= MLP_BLOCK_COLS else 2
+    group_cols = _ceil(_ceil(d_pad, groups), 64) * 64
+    warpgroups = _ceil(group_cols, MLP_WG_COLS)
+    row_tiles = _ceil(m, MLP_ROWS)
+    chunks = _ceil(h_pad, MLP_CHUNK)
+    splits = max(1, min(chunks, sms // (row_tiles * groups)))
+    splits = _ceil(chunks, _ceil(chunks, splits))  # no empty slice
+    return MlpPlan(route, d_pad, h_pad, groups, group_cols, warpgroups, splits, row_tiles,
+                   row_tiles * splits * groups)
 
 
 def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -67,32 +130,102 @@ def _check(x, w1, b1, w2, b2) -> None:
             "torch.no_grad() or on tensors that do not require grad")
 
 
-def _library():
+_ARGTYPES = {
+    "fused_mlp": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "fused_mlp_sm90": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+}
+
+
+def _library(source: str):
     from ucf_vit_tpu_torch.ops.build import load
 
-    fn = load("fused_mlp").ucf_fused_mlp
+    fn = getattr(load(source), f"ucf_{source}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[source]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _fused_mlp_cuda(x, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
-    d, h = w1.shape
-    m = x.numel() // d
-    x2 = x.reshape(m, d).contiguous()
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _padded_copy(t: torch.Tensor, shape) -> torch.Tensor:
+    """A fresh contiguous zero tensor of `shape` with `t` in its leading corner:
+    rows of a multiple of 16 bytes on a 16-byte aligned base."""
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fused_mlp_fma(x2, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
+    """f32: csrc/fused_mlp.cu."""
+    m, d = x2.shape
     w1, w2 = w1.contiguous(), w2.contiguous()
     b1, b2 = b1.float().contiguous(), b2.float().contiguous()
     y = torch.empty_like(x2)
-    fn = _library()
-    with torch.cuda.device(x.device):
-        err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 y.data_ptr(), m, d, h, _KERNEL_DTYPES[x.dtype], int(bool(approx)),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = _library("fused_mlp")(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        y.data_ptr(), m, d, w1.shape[1], _KERNEL_DTYPES[x2.dtype], int(bool(approx)),
+        _stream(x2))
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
+    return y
+
+
+def _fused_mlp_sm90(x2, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
+    """bf16: csrc/fused_mlp_sm90.cu, by the plan of `mlp_plan`."""
+    m, d = x2.shape
+    h = w1.shape[1]
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, w1, w2))
+    plan = mlp_plan(m, d, h, _sm_count(x2.device.index), aligned)
+    dp, hp = plan.d_pad, plan.h_pad
+    if plan.route == "padded":
+        x2 = _padded_copy(x2, (m, dp))
+        w1, w2 = _padded_copy(w1, (dp, hp)), _padded_copy(w2, (hp, dp))
+    # the biases are read as they are when both are bf16 (or both f32), else in f32
+    bias_bf16 = b1.dtype == b2.dtype == torch.bfloat16
+    b1, b2 = (b1, b2) if bias_bf16 else (b1.float(), b2.float())
+    b1 = b1.contiguous() if hp == h else _padded_copy(b1, (hp,))
+    b2 = b2.contiguous() if dp == d else _padded_copy(b2, (dp,))
+    y = torch.empty((m, dp), dtype=x2.dtype, device=x2.device)
+    ws = (torch.empty((plan.splits, m, dp), dtype=torch.float32, device=x2.device)
+          if plan.splits > 1 else None)
+    err = _library("fused_mlp_sm90")(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        y.data_ptr(), ws.data_ptr() if ws is not None else None, m, dp, hp,
+        plan.warpgroups, plan.groups, plan.splits, int(bias_bf16), int(bool(approx)),
+        _stream(x2))
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"fused_mlp_sm90: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{err - _ENCODE_FAILED}; 0: the driver entry point was not found)")
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_sm90 kernel launch failed: CUDA error {err}")
+    fused_mlp.by_layout[plan.route] += 1
+    return y if dp == d else y[:, :d]
+
+
+def _fused_mlp_cuda(x, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
+    d = w1.shape[0]
+    m = x.numel() // d
+    x2 = x.reshape(m, d)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    source = SOURCES[0] if x.dtype == torch.bfloat16 else SOURCES[1]
+    with torch.cuda.device(x.device):
+        if source == "fused_mlp_sm90":
+            y = _fused_mlp_sm90(x2, w1, b1, w2, b2, approx)
+        else:
+            y = _fused_mlp_fma(x2, w1, b1, w2, b2, approx)
     fused_mlp.launches += 1
-    return y.view(x.shape)
+    fused_mlp.by_source[source] += 1
+    return y.reshape(x.shape)
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -102,8 +235,9 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     x `[..., D]`; w1 `[D, H]`; w2 `[H, D]` (the JAX layouts: this is an op,
     not an `nn.Linear`); b1 `[H]`, b2 `[D]`. Returns `[..., D]` in x's dtype.
     A CPU tensor goes through the plain version; a CUDA tensor launches the
-    kernel (and adds one to `fused_mlp.launches`) or raises. Tensors that
-    require grad raise: there is no backward."""
+    kernel of its dtype (and adds one to `fused_mlp.launches`, to
+    `fused_mlp.by_source` and, in bf16, to `fused_mlp.by_layout`) or raises.
+    Tensors that require grad raise: there is no backward."""
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2, approx=approx)
@@ -112,5 +246,11 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     return _fused_mlp_cuda(x, w1, b1, w2, b2, approx)
 
 
-# Kernel launches since the count was last set to 0 (CPU calls do not count).
-fused_mlp.launches = 0
+def reset_launch_counts() -> None:
+    """Set `fused_mlp`'s launch counts to 0 (CPU calls never count)."""
+    fused_mlp.launches = 0
+    fused_mlp.by_source = {source: 0 for source in SOURCES}
+    fused_mlp.by_layout = {route: 0 for route in ROUTES}
+
+
+reset_launch_counts()
