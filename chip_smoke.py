@@ -5,9 +5,9 @@
     python3 chip_smoke.py --compare CHECKOUT
 
 With `--compare` it runs only the device phase and times the bf16 flash
-forward and the bf16 `fused_mlp` of this checkout's package and of the one in
-CHECKOUT (another tree of the repo unpacked by `git archive`, say the parent)
-in one process: see `compare_forward`.
+forward, the bf16 `fused_mlp` and `int8_matmul` of this checkout's package and
+of the one in CHECKOUT (another tree of the repo unpacked by `git archive`,
+say the parent) in one process: see `compare_forward`.
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result):
@@ -20,16 +20,20 @@ result):
             cores by wgmma; flash_bwd: the split route's f32 dkv and the dq
             kernel of both types, on the CUDA cores; fused_mlp_sm90: the bf16
             fused MLP on the tensor cores by wgmma and TMA; fused_mlp: its f32
-            instance on the CUDA cores; int8_gemm), one nvcc each, started
-            together; cuobjdump then shows every entry of the three sm90
-            libraries holding HGMMA (wgmma) code, every entry of
-            flash_fwd_sm90 and fused_mlp_sm90 holding UTMALDG (their TMA
-            loads; fused_mlp_sm90's partial-sum reduction, mlp_reduce_kernel,
-            is the one entry exempt: it multiplies nothing and loads by
-            ordinary loads), and every entry of the two tf32 libraries
-            holding HMMA instructions on TF32 operands; no DH = 64 instance
-            of the forwards (sm90, tf32) and not the D = 768 instance of
-            fused_mlp_sm90 (`<2, 192>`) may spill.
+            instance on the CUDA cores; int8_gemm: the W8A8 product on the
+            int8 tensor cores by wgmma s32.s8.s8 and TMA, after a pass that
+            quantizes x and turns the weights K-major), one nvcc each,
+            started together; cuobjdump then shows every entry of the three
+            sm90 libraries holding HGMMA (wgmma) code and every GEMM entry of
+            int8_gemm holding IGMMA (the integer wgmma), every entry of
+            flash_fwd_sm90, fused_mlp_sm90 and int8_gemm holding UTMALDG
+            (their TMA loads; fused_mlp_sm90's partial-sum reduction,
+            mlp_reduce_kernel, and int8_gemm's first pass, int8_prepare, are
+            the entries exempt: they multiply nothing and load by ordinary
+            loads), and every entry of the two tf32 libraries holding HMMA
+            instructions on TF32 operands; no DH = 64 instance of the
+            forwards (sm90, tf32), not the D = 768 instance of fused_mlp_sm90
+            (`<2, 192>`) and no int8_gemm_kernel may spill.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
@@ -58,9 +62,13 @@ result):
             by its plan, printed: route, blocks of a cluster, output
             warpgroups, S; a call timed as the device time of all of its
             kernels, the partial sums' reduction included), and `int8_matmul` at the
-            ViT-B projections (bit-equal to its plain version; within the
-            JAX test's error bands of the exact product); then both through
-            their public API with the launch counts set to 0 before.
+            ViT-B projections (bit-equal to its plain version, and its
+            quantization to `quantize_rows_plain`; within the JAX test's
+            error bands of the exact product; a call timed as the device time
+            of both of its kernels, printed apart, beside the bf16
+            `torch.matmul` of the same product and `torch._int_mm` on the
+            pre-quantized operands); then both through their public API with
+            the launch counts set to 0 before.
 4. train:   `ucf_vit_tpu_torch.train` on the same config (ViT-B/16 at full
             width and depth, seeded init, synthetic batches of 16): 10 steps
             with attention FLASH (the kernels) against 10 with EINSUM (plain
@@ -325,17 +333,20 @@ TF32_SOURCES = ("flash_fwd_tf32", "flash_bwd_tf32")  # f32 on the tensor cores (
 # the SASS instructions that show each kind of source on the tensor cores
 TENSOR_CORE_SASS = {**{s: "HGMMA" for s in SM90_SOURCES},
                     **{s: r"HMMA\.\S*TF32" for s in TF32_SOURCES}}
-TMA_SASS = {"flash_fwd_sm90": "UTMALDG", "fused_mlp_sm90": "UTMALDG"}  # the TMA tensor load
-# entries exempt from those checks: fused_mlp_sm90's sum of its S partials (ordinary loads,
-# no product)
-SASS_EXEMPT = {"fused_mlp_sm90": "mlp_reduce_kernel"}
+TENSOR_CORE_SASS["int8_gemm"] = "IGMMA"  # the integer wgmma (s32.s8.s8)
+# the TMA tensor load
+TMA_SASS = {"flash_fwd_sm90": "UTMALDG", "fused_mlp_sm90": "UTMALDG", "int8_gemm": "UTMALDG"}
+# entries exempt from those checks: fused_mlp_sm90's sum of its S partials and int8_gemm's
+# first pass, quantizing x and turning the weights K-major (ordinary loads, no product)
+SASS_EXEMPT = {"fused_mlp_sm90": "mlp_reduce_kernel", "int8_gemm": "int8_prepare"}
 # sources whose DH = 64 instances (the main paths') must not spill, and the instances of
-# other sources that must not: fused_mlp_sm90's at D = 768 (WN = 192, two output warpgroups)
+# other sources that must not: fused_mlp_sm90's at D = 768 (WN = 192, two output
+# warpgroups) and every instance of the int8 GEMM
 NO_SPILL_AT_64 = (*TF32_SOURCES, "flash_fwd_sm90")
-NO_SPILL = {"fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>"}
+NO_SPILL = {"fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>", "int8_gemm": "int8_gemm_kernel"}
 KERNEL_NAME = re.compile(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
-                         r"fused_mlp(?:_sm90)?_kernel|mlp_reduce_kernel|int8_gemm_kernel)"
-                         r"(?:I(\w+?)EEv)?")
+                         r"fused_mlp(?:_sm90)?_kernel|mlp_reduce_kernel|int8_gemm_kernel|"
+                         r"int8_prepare)(?:I(\w+?)EEv)?")
 
 
 def _sass_counts(path, pattern: str) -> dict:
@@ -1050,20 +1061,23 @@ def _mlp_inputs(m, d, h, dtype, gen):
             randn(h, d, std=0.02), randn(d, std=0.01))
 
 
-# what a call of fused_mlp launches, by dtype: the kernels a timed call sums
+# what a call of fused_mlp launches, by dtype, and of int8_matmul: the kernels a timed
+# call sums
 MLP_KERNELS = {"float32": ("fused_mlp_kernel",),
                "bfloat16": ("fused_mlp_sm90_kernel", "mlp_reduce_kernel")}
+INT8_KERNELS = ("int8_prepare", "int8_gemm_kernel")
 
 
-def _mlp_call_ms(fn, dtype_name: str):
+def _call_ms(fn, kernels, what: str):
     """(device ms of one call, summed over every kernel it launches; host ms per
-    call; those kernels by name), failing if the call launched anything else."""
-    kernels = {}
-    ms, host = device_ms(fn, iters=20, warmup=2, detail=kernels)
-    other = [k for k in kernels if not any(n in k for n in MLP_KERNELS[dtype_name])]
+    call; those kernels by name), failing if the call launched anything but
+    `kernels` (names, each no part of another)."""
+    by_name = {}
+    ms, host = device_ms(fn, iters=20, warmup=2, detail=by_name)
+    other = [k for k in by_name if not any(n in k for n in kernels)]
     if other:
-        fail(f"a {dtype_name} fused_mlp call launched other kernels too: {other}")
-    return ms, host, kernels
+        fail(f"{what} launched other kernels too: {other}")
+    return ms, host, by_name
 
 
 def phase_mlp_kernels():
@@ -1109,7 +1123,8 @@ def phase_mlp_kernels():
                 continue
             x, w1, b1, w2, b2 = args
             w1t, w2t = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear's layout
-            ms, host, kernels = _mlp_call_ms(lambda: fused_mlp(*args), dtype_name)
+            ms, host, kernels = _call_ms(lambda: fused_mlp(*args), MLP_KERNELS[dtype_name],
+                                         f"a {dtype_name} fused_mlp call")
             plain_ms, _ = device_ms(lambda: fused_mlp_plain(*args), iters=20, warmup=2)
             unfused_ms, _ = device_ms(
                 lambda: F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2),
@@ -1140,23 +1155,40 @@ def _int8_error_bands(y_q, y_exact):
 
 def phase_int8_kernels():
     """`int8_matmul` against `int8_matmul_plain` (bit for bit: the integer sums
-    are exact and every float step is one IEEE operation in both) and against
-    the exact product (the JAX test's bands); timed beside its bound, the
-    plain version and the bf16 `torch.matmul` of the same product, the
-    yardstick the JAX package's study compares with."""
+    are exact and every float step is one IEEE operation in both), its
+    quantization (`quantize_rows`) against `quantize_rows_plain` (bit for
+    bit), and the product against the exact one (the JAX test's bands); a call
+    timed as the device time of both of its kernels (`INT8_KERNELS`, each
+    printed apart) beside its bound, the plain version, the bf16
+    `torch.matmul` of the same product (the yardstick the JAX package's study
+    compares with) and `torch._int_mm` on the pre-quantized operands (the
+    library's int8 product alone): yardsticks only, the port calls neither."""
     import torch
 
-    from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
+    from ucf_vit_tpu_torch.ops.int8_gemm import (int8_matmul, int8_matmul_plain, int8_plan,
+                                                 quantize_rows, quantize_rows_plain,
+                                                 quantize_weight)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     timed = {}
     for m, k, n in INT8_SHAPES:
         w = 0.02 * torch.randn(k, n, device="cuda", generator=gen)
         w_i8, ws = quantize_weight(w)
+        plan = int8_plan(m, k, n, sms)
+        log(f"[kernel] int8_matmul [{m},{k}]x[{k},{n}]: plan Kp {plan.kp}, {plan.m_tiles} x "
+            f"{plan.n_tiles} tiles of 128 x 256 on {plan.grid} persistent blocks, bf16 y "
+            f"stored by route {plan.route}")
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
             shape = f"[{m},{k}]x[{k},{n}] x {dtype_name}"
+            xq, scale = quantize_rows(x)
+            torch.cuda.synchronize()
+            want_q, want_scale = quantize_rows_plain(x)
+            if not (torch.equal(xq[:, :k], want_q) and torch.equal(scale, want_scale)
+                    and not xq[:, k:].any()):
+                fail(f"int8_prepare's xq or scale differs from quantize_rows_plain at {shape}")
             for out_dtype in (torch.float32, torch.bfloat16):
                 got = int8_matmul(x, w_i8, ws, out_dtype=out_dtype)
                 torch.cuda.synchronize()
@@ -1169,29 +1201,43 @@ def phase_int8_kernels():
                          f"{out_dtype}: max |diff| {diff:.3e} (expected bit-equal)")
             y_q = int8_matmul(x, w_i8, ws, out_dtype=torch.float32)
             median, mean = _int8_error_bands(y_q, x.float() @ w)
-            log(f"[kernel] int8_matmul {shape}: bit-equal to plain (f32 and bf16 out); against "
-                f"the exact product: median rel err {median:.4f} (< 0.02), mean {mean:.4f} "
-                f"(< 0.05)")
+            log(f"[kernel] int8_matmul {shape}: bit-equal to plain (f32 and bf16 out), the "
+                f"quantization to quantize_rows_plain; against the exact product: median "
+                f"rel err {median:.4f} (< 0.02), mean {mean:.4f} (< 0.05)")
             if not (median < 0.02 and mean < 0.05):
                 fail(f"int8_matmul is outside the quantization error bands at {shape}")
             if dtype_name != "bfloat16":
                 continue
             w_bf16 = w.to(torch.bfloat16)
-            ms, host = device_ms(lambda: int8_matmul(x, w_i8, ws), "int8_gemm_kernel", iters=20,
-                                 warmup=2)
+            ms, host, by_kernel = _call_ms(lambda: int8_matmul(x, w_i8, ws), INT8_KERNELS,
+                                           "an int8_matmul call")
+            split = {name: sum(v for key, v in by_kernel.items() if name in key)
+                     for name in INT8_KERNELS}
+            if not all(split.values()):
+                fail(f"an int8_matmul call launched {by_kernel}, not both of {INT8_KERNELS}")
             plain_ms, _ = device_ms(lambda: int8_matmul_plain(x, w_i8, ws), iters=20, warmup=2)
             matmul_ms, _ = device_ms(lambda: torch.matmul(x, w_bf16), iters=20, warmup=2)
+            try:
+                int_mm_ms, _ = device_ms(lambda: torch._int_mm(want_q, w_i8), iters=20, warmup=2)
+                int_mm = f"{int_mm_ms:.4f} ms"
+            except RuntimeError as e:  # printed, not hidden: the yardstick is then missing
+                int_mm_ms, int_mm = None, f"refused by this torch build ({e})"
             ops = 2.0 * m * k * n
             nbytes = x.element_size() * (m * k + m * n) + k * n + 4 * n
             bound_ms, bound_by = _bound(ops, nbytes, "int8")
             timed[(m, k, n)] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": 0.0, "bf16_matmul_ms": matmul_ms,
+                "int_mm_ms": int_mm_ms, "prepare_ms": split["int8_prepare"],
+                "gemm_ms": split["int8_gemm_kernel"],
             }
-            log(f"[kernel] int8_matmul {shape} -> bf16, device ms: kernel {ms:.4f} (host "
-                f"{host:.4f} per call), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {ops / 1e9:.3f} GOP, {nbytes / 1e6:.2f} MB); yardstick bf16 torch.matmul of the same product "
-                f"{matmul_ms:.4f} ms (another function: no quantization)")
+            log(f"[kernel] int8_matmul {shape} -> bf16, device ms: a call {ms:.4f} "
+                f"(int8_prepare {split['int8_prepare']:.4f} + int8_gemm_kernel "
+                f"{split['int8_gemm_kernel']:.4f}; host {host:.4f} per call), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.3f} GOP, "
+                f"{nbytes / 1e6:.2f} MB); yardsticks: bf16 torch.matmul of the same product "
+                f"{matmul_ms:.4f} ms (another function: no quantization), torch._int_mm on the "
+                f"pre-quantized operands {int_mm} (the integer product alone)")
     return timed
 
 
@@ -1205,7 +1251,7 @@ def phase_ops_path():
     import torch.nn.functional as F
 
     from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp
-    from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, quantize_weight
+    from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
 
     from ucf_vit_tpu_torch.ops.fused_mlp import reset_launch_counts
 
@@ -1230,20 +1276,26 @@ def phase_ops_path():
     want = F.linear(F.gelu(F.linear(x, w1.t(), b1), approximate="tanh"), w2.t(), b2)
     mlp_err = (y.float() - want.float()).abs().max().item()
     ok = y.shape == (m, d) and y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
-    worst = 0.0
+    worst, unequal = 0.0, []
     for name, out in outs.items():
         inp = hidden if name == "fc2" else x
         median, mean = _int8_error_bands(out.float(), inp.float() @ weights[name])
         worst = max(worst, median)
         ok = ok and out.shape == (m, projections[name][1]) and out.dtype == torch.bfloat16 \
             and bool(torch.isfinite(out).all()) and median < 0.02 and mean < 0.05
+        # the kernels are bit-equal to their plain version by design, at every shape
+        if not torch.equal(out, int8_matmul_plain(inp, *quantized[name])):
+            unequal.append(name)
     log(f"[ops] public API on [{m}, {d}] bf16 tokens (the ops are on no model path, in either "
         f"package): fused_mlp against the unfused bf16 modules max |diff| {mlp_err:.3e} (tol "
         f"3e-2: the modules round the pre-activation to bf16, the op keeps it f32); "
-        f"int8_matmul on qkv, proj, fc1, fc2: worst median rel err {worst:.4f}; launches "
+        f"int8_matmul on qkv, proj, fc1, fc2: worst median rel err {worst:.4f}, bit-equal to "
+        f"int8_matmul_plain but on {unequal or 'none'}; launches "
         f"{counts}; fused_mlp by source {mlp_by[0]}, by route {mlp_by[1]}")
     if not ok or mlp_err > 3e-2:
         fail("the ops' public API gave a wrong result")
+    if unequal:
+        fail(f"int8_matmul differs from int8_matmul_plain on {unequal} (expected bit-equal)")
     if counts != {"fused_mlp": 1, "int8_matmul": len(projections)}:
         fail(f"launch counts {counts}, expected 1 fused_mlp and {len(projections)} int8_matmul")
     if mlp_by != ({"fused_mlp_sm90": 1, "fused_mlp": 0}, {"tma": 1, "padded": 0}):
@@ -2402,12 +2454,13 @@ def _use(modules: dict) -> None:
 
 def _load_forward(checkout: str):
     """(`flash_attention` of the package in `checkout`, imported afresh, and
-    that package's modules, `fused_mlp` among them)."""
+    that package's modules, `fused_mlp` and `int8_gemm` among them)."""
     _use({})
     sys.path.insert(0, checkout)
     try:
         from ucf_vit_tpu_torch.ops import build  # noqa: F401  (imported when called)
         from ucf_vit_tpu_torch.ops import fused_mlp  # noqa: F401
+        from ucf_vit_tpu_torch.ops import int8_gemm  # noqa: F401
         from ucf_vit_tpu_torch.ops.flash_attention import flash_attention
     finally:
         sys.path.remove(checkout)
@@ -2415,17 +2468,12 @@ def _load_forward(checkout: str):
                              if m.split(".")[0] == "ucf_vit_tpu_torch"}
 
 
-def compare_mlp(checkouts, forwards) -> None:
-    """bf16 `fused_mlp` of each checkout at RECORD_MLP, on the same inputs: the
-    device time of a call (all of its kernels, `device_ms`) in the order this
-    checkout, the other, the other, this one, so that a drift of the card falls
-    on both alike; each checkout's results against the first's."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    m, d, h = RECORD_MLP
-    args = _mlp_inputs(m, d, h, torch.bfloat16, gen)
-    fns = [modules["ucf_vit_tpu_torch.ops.fused_mlp"].fused_mlp for _, modules in forwards]
+def _compare_op(checkouts, forwards, module: str, name: str, args, label: str) -> None:
+    """`name` of `module` in each checkout on the same `args`: the device time of a
+    call (all of its kernels, `device_ms`) in the order this checkout, the other,
+    the other, this one, so that a drift of the card falls on both alike; each
+    checkout's results against the first's."""
+    fns = [getattr(modules[module], name) for _, modules in forwards]
     outs, times = [], [[] for _ in checkouts]
     for fn, (_, modules) in zip(fns, forwards):
         _use(modules)
@@ -2435,16 +2483,32 @@ def compare_mlp(checkouts, forwards) -> None:
         times[i].append(device_ms(lambda: fns[i](*args), iters=20, warmup=2)[0])
     for i, c in enumerate(checkouts):
         diff = (outs[i] - outs[0]).abs().max().item()
-        log(f"[compare] {c} fused_mlp [{m},{d}]->{h} bf16: a call "
-            f"{', '.join(f'{t:.4f}' for t in times[i])} ms (device, all kernels); max |y - "
-            f"this checkout's| {diff:.3e}")
+        log(f"[compare] {c} {label}: a call {', '.join(f'{t:.4f}' for t in times[i])} ms "
+            f"(device, all kernels); max |y - this checkout's| {diff:.3e}")
+
+
+def compare_mlp(checkouts, forwards) -> None:
+    """bf16 `fused_mlp` at RECORD_MLP and `int8_matmul` (bf16 in and out) at
+    RECORD_INT8 of each checkout (`_compare_op`)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m, d, h = RECORD_MLP
+    _compare_op(checkouts, forwards, "ucf_vit_tpu_torch.ops.fused_mlp", "fused_mlp",
+                _mlp_inputs(m, d, h, torch.bfloat16, gen), f"fused_mlp [{m},{d}]->{h} bf16")
+    m, k, n = RECORD_INT8
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    quantize_weight = forwards[0][1]["ucf_vit_tpu_torch.ops.int8_gemm"].quantize_weight
+    _compare_op(checkouts, forwards, "ucf_vit_tpu_torch.ops.int8_gemm", "int8_matmul",
+                (x, *quantize_weight(0.02 * torch.randn(k, n, device="cuda", generator=gen))),
+                f"int8_matmul [{m},{k}]x[{k},{n}] bf16")
 
 
 def compare_forward(other: str) -> None:
-    """bf16 `fused_mlp` (`compare_mlp`), then the bf16 flash forward of this
-    checkout and of `other`, in one process, on
-    the packed qkv views of ViT-B/16's and ViT-L/16's shapes and mae_long's
-    encoder (`TIMED_SHAPES`): device ms per call of `flash_fwd_sm90_kernel`
+    """bf16 `fused_mlp` and `int8_matmul` (`compare_mlp`), then the bf16 flash
+    forward of this checkout and of `other`, in one process, on the packed qkv
+    views of ViT-B/16's and ViT-L/16's shapes and mae_long's encoder
+    (`TIMED_SHAPES`): device ms per call of `flash_fwd_sm90_kernel`
     (`device_ms`) beside scaled_dot_product_attention's; and at the ViT
     shapes, where the kernel is shorter than the host's work for a call, the
     host's us per call: COMPARE_CALLS back-to-back calls ending in a

@@ -29,7 +29,13 @@ from ucf_vit_tpu_torch.ops.fused_mlp import (
     mlp_plan,
 )
 from ucf_vit_tpu_torch.ops.fused_mlp import reset_launch_counts as reset_mlp_counts
-from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
+from ucf_vit_tpu_torch.ops.int8_gemm import (
+    int8_matmul,
+    int8_matmul_plain,
+    quantize_rows,
+    quantize_rows_plain,
+    quantize_weight,
+)
 
 # (b, h, n_q, n_kv, dh): the training shape at batch 2, dh 36, Nq = 1, a
 # trailing partial key tile with Nq > Nkv, dh 128 with Nq < Nkv, and dh 33,
@@ -458,8 +464,14 @@ def test_fused_mlp_kernel_matches_plain_on_card(dtype, approx):
 
 
 # (M, K, N): the JAX tests' shape with a ragged M, the qkv and fc2 projections of
-# ViT-B with a ragged M, and a K that is no multiple of 4
-INT8_SHAPES = [(50, 256, 256), (300, 768, 2304), (130, 3072, 768), (33, 250, 132)]
+# ViT-B with a ragged M, a K that is no multiple of 4 with N = 132 (no multiple of 16 or
+# 256: 4-byte weight loads, and bf16 rows of y that TMA cannot store), one row, ViT-B's fc1
+# at batch 16 (396 tiles: three waves of the persistent grid), its proj (99 tiles) and
+# fc2's K = 3072 at M = 4112, and K = 6144 (48 K slices) with an N of the same kind over
+# two column tiles
+INT8_SHAPES = [(50, 256, 256), (300, 768, 2304), (130, 3072, 768), (33, 250, 132),
+               (1, 768, 2304), (4112, 768, 3072), (4112, 768, 768), (4112, 3072, 768),
+               (200, 6144, 260)]
 
 
 @pytest.mark.cuda
@@ -483,6 +495,32 @@ def test_int8_matmul_kernel_equals_plain_on_card(dtype, out_dtype):
         assert torch.equal(got, want), ((m, k, n), (got.float() - want.float()).abs().max())
         # every row is quantized alone: the first 33 rows do not depend on M
         assert torch.equal(int8_matmul(x[:33], w_i8, ws, out_dtype=odt), got[:33])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quantization_equals_plain_on_card(dtype):
+    """The quantization alone (`int8_prepare` without weights): xq's first K columns and
+    the scales equal `quantize_rows_plain`'s bit for bit (round half to even of the IEEE
+    quotient on both sides), xq is zero past K, and a zero row gives zeros at 1e-8 / 127;
+    rows of 16-byte loads (K = 768, 3072) and of element loads (K = 250, 6143), one warp
+    a row and several, held in registers between the max and the quantization (every K
+    in bf16, K <= 4096 in f32) and read again (f32 at K = 6143)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for m, k in [(1, 768), (33, 250), (4112, 768), (130, 3072), (7, 6143)]:
+        x = torch.randn(m, k, device="cuda", generator=g).to(getattr(torch, dtype))
+        x[m // 2] = 0
+        before = quantize_rows.launches
+        xq, scale = quantize_rows(x)
+        torch.cuda.synchronize()
+        assert quantize_rows.launches == before + 1
+        want_q, want_scale = quantize_rows_plain(x)
+        kp = -(-k // 128) * 128
+        assert xq.shape == (m, kp) and xq.dtype == torch.int8 and scale.shape == (m,)
+        assert torch.equal(xq[:, :k], want_q), (m, k)
+        assert not xq[:, k:].any() and not xq[m // 2].any()
+        assert torch.equal(scale, want_scale), (m, k)
 
 
 @pytest.mark.cuda

@@ -13,7 +13,14 @@ torch = pytest.importorskip("torch")
 from ucf_vit_tpu.ops import fused_mlp as jax_mlp
 from ucf_vit_tpu.ops import int8_gemm as jax_int8
 from ucf_vit_tpu_torch.ops.fused_mlp import _padded_copy, fused_mlp, fused_mlp_plain, mlp_plan
-from ucf_vit_tpu_torch.ops.int8_gemm import int8_matmul, int8_matmul_plain, quantize_weight
+from ucf_vit_tpu_torch.ops.int8_gemm import (
+    int8_matmul,
+    int8_matmul_plain,
+    int8_plan,
+    quantize_rows,
+    quantize_rows_plain,
+    quantize_weight,
+)
 
 TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # bf16: the JAX tests' own atol (one bf16 ulp of outputs below 4 is 1.6e-2: the
@@ -130,10 +137,18 @@ def _padded_args(args, plan):
 @pytest.mark.parametrize("approx", [True, False], ids=["tanh", "erf"])
 @pytest.mark.parametrize("shape", [(100, 200, 300), (33, 97, 61)], ids=str)
 def test_fused_mlp_padded_route_is_exact(shape, approx):
-    """Zero padding changes nothing: a zero hidden unit is gelu(0 + 0) = 0 and meets zero
-    rows of w2, and the zero columns of x meet zero rows of w1. The padded copies give the
-    plain version the same bf16 result bit for bit, and at the ragged shape that result is
-    held against the Pallas kernel in interpret mode."""
+    """Zero padding adds only zero terms: a zero hidden unit is gelu(0 + 0) = 0 and meets
+    zero rows of w2, and the zero columns of x meet zero rows of w1. Bit-equal results
+    cannot be asked: the CPU BLAS blocks its f32 sum over K by K's length, so a padded K
+    (H 300 -> 304) adds the same terms in another order (1 and 3 of 20,000 bf16 outputs
+    differ at (100, 200, 300) on one machine, none on another). So each output is held to
+    what two roundings to bf16 of two f32 sums of the same terms can differ by: the larger
+    of the two outputs' bf16 ulps, plus 2 (H' + 1) 2^-24 sum |terms| (each order's f32
+    error bound, the bias add included), which matters only where the sum cancels to far
+    below its terms (one erf output of 9.1e-7 moves by 2 of its ulps, 7.5e-9). A wrong
+    padding would move outputs by whole products of a hidden unit and a weight, some
+    1e-3. The columns past D are exactly zero, and at the ragged shape the result is held
+    against the Pallas kernel in interpret mode."""
     m, d, h = shape
     plan = mlp_plan(m, d, h, 132)
     assert plan.route == "padded"
@@ -141,7 +156,12 @@ def test_fused_mlp_padded_route_is_exact(shape, approx):
     want = fused_mlp_plain(*args, approx=approx)
     padded = fused_mlp_plain(*_padded_args(args, plan), approx=approx)
     assert padded.shape == (m, plan.d_pad)
-    assert torch.equal(padded[:, :d], want)
+    x, w1, b1, w2, b2 = (t.float() for t in args)
+    hidden = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh" if approx else "none")
+    terms = (hidden.to(torch.bfloat16).float().abs() @ w2.abs() + b2.abs()).numpy()
+    ref, got = want.float().numpy(), padded[:, :d].float().numpy()
+    reorder = 2 * (plan.h_pad + 1) * 2.0**-24 * terms
+    assert np.all(np.abs(got - ref) <= np.maximum(_one_bf16_ulp(ref), _one_bf16_ulp(got)) + reorder)
     assert not padded[:, d:].any()  # columns past D: zero weights and b2's zeros
     if shape == (100, 200, 300):
         kernel = jax_mlp.fused_mlp(*jax_args, approx=approx, block_m=128, interpret=True)
@@ -204,6 +224,94 @@ def test_int8_matmul_plain_matches_jax(shape, dtype):
             else:
                 assert np.all(np.abs(got - ref) <= _one_bf16_ulp(ref))
     assert int8_matmul(tx, tw, tws).dtype == TORCH_DTYPES[dtype]  # default: x's dtype
+
+
+def _int8_matmul_plain_before_the_split(x, w_i8, wscale, out_dtype):
+    """`int8_matmul_plain` as it was before `quantize_rows_plain` was split out of it."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    row_scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+    xq = torch.round(xf / row_scale).clamp_(-127, 127)
+    acc = (xq.to(torch.int32) @ w_i8.to(torch.int32)).float()
+    return (acc * row_scale * wscale.float()[None, :]).to(out_dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(96, 256, 256), (50, 256, 512), (130, 768, 512)], ids=str)
+def test_int8_matmul_plain_unchanged_by_the_split(shape, dtype):
+    """Splitting the quantization out of the plain version moved no bit of its results, in
+    either output type."""
+    m, k, n = shape
+    x, w = _int8_inputs(m, k, n, seed=2, dtype=dtype)
+    tx = _to_torch(x, dtype)
+    w_i8, ws = quantize_weight(torch.from_numpy(np.asarray(w)))
+    for out_dtype in TORCH_DTYPES.values():
+        assert torch.equal(int8_matmul_plain(tx, w_i8, ws, out_dtype),
+                           _int8_matmul_plain_before_the_split(tx, w_i8, ws, out_dtype))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(96, 256), (130, 768)], ids=str)
+def test_quantize_rows_plain_matches_jax(shape, dtype):
+    """Against the JAX package's own quantization steps (the `jnp` expressions of
+    `int8_matmul_reference`, `ucf_vit_tpu/ops/int8_gemm.py:127-131`). xq is equal; the
+    scale within 1e-7 relative, since XLA may take `/ 127.0` as a product by the rounded
+    reciprocal where torch and the kernel divide (one f32 ulp is 6e-8 to 1.2e-7 relative)."""
+    x, _ = _int8_inputs(m=shape[0], k=shape[1], seed=5, dtype=dtype)
+    xf = jnp.asarray(x, jnp.float32)
+    row_scale = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True), 1e-8) / 127.0
+    ref_q = jnp.clip(jnp.round(xf / row_scale), -127, 127).astype(jnp.int8)
+    xq, scale = quantize_rows_plain(_to_torch(x, dtype))
+    assert xq.dtype == torch.int8 and xq.shape == shape
+    assert scale.dtype == torch.float32 and scale.shape == (shape[0],)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(ref_q))
+    np.testing.assert_allclose(scale.numpy(), np.asarray(row_scale)[:, 0], rtol=1e-7, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quantize_rows_pads_k_and_takes_a_zero_row(dtype):
+    """`quantize_rows` (the kernel's workspace layout; the plain version on the CPU) pads
+    K = 250 to the 128-byte K slice with zeros, and its first K columns are
+    `quantize_rows_plain`'s. A zero row quantizes to zeros with the scale 1e-8 / 127."""
+    x, _ = _int8_inputs(m=9, k=250, seed=6, dtype=dtype)
+    tx = _to_torch(x, dtype)
+    tx[4] = 0
+    xq, scale = quantize_rows(tx)
+    want_q, want_scale = quantize_rows_plain(tx)
+    assert xq.shape == (9, 256) and xq.dtype == torch.int8
+    assert torch.equal(xq[:, :250], want_q) and not xq[:, 250:].any()
+    assert torch.equal(scale, want_scale)
+    assert not xq[4].any() and scale[4] == torch.tensor(1e-8) / torch.tensor(127.0)
+    assert quantize_rows(tx[:, :128])[0].shape == (9, 128)  # a whole slice: no padding
+    assert quantize_rows.launches == 0  # CPU calls launch no kernel
+
+
+# int8_plan on an H100 (132 SMs): (M, K, N, bytes of a y element) -> (Kp, M tiles, N
+# tiles, tiles, persistent blocks, route of y). ViT-B's qkv, proj, fc1 and fc2 at batch 16
+# (proj and fc2 fill 99 SMs of 132), and the card tests' M = 1 and ragged K and N shapes: a
+# bf16 row of 132 or 260 columns is no multiple of 16 bytes, an f32 row of 132 is.
+INT8_PLANS = {
+    "vit_b_qkv": ((4112, 768, 2304, 2), (768, 33, 9, 297, 132, "tma")),
+    "vit_b_proj": ((4112, 768, 768, 2), (768, 33, 3, 99, 99, "tma")),
+    "vit_b_fc1": ((4112, 768, 3072, 2), (768, 33, 12, 396, 132, "tma")),
+    "vit_b_fc2": ((4112, 3072, 768, 2), (3072, 33, 3, 99, 99, "tma")),
+    "one_row": ((1, 768, 2304, 2), (768, 1, 9, 9, 9, "tma")),
+    "ragged_k_n132_bf16": ((33, 250, 132, 2), (256, 1, 1, 1, 1, "direct")),
+    "ragged_k_n132_f32": ((33, 250, 132, 4), (256, 1, 1, 1, 1, "tma")),
+    "k6144_n260": ((200, 6144, 260, 2), (6144, 2, 2, 4, 4, "direct")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INT8_PLANS))
+def test_int8_plan_at_the_cards_shapes(case):
+    (m, k, n, out_bytes), want = INT8_PLANS[case]
+    plan = int8_plan(m, k, n, 132, out_bytes)
+    assert (plan.kp, plan.m_tiles, plan.n_tiles, plan.tiles, plan.grid, plan.route) == want
+    # what the kernels' C entries check: xq and wt rows of whole 128-byte slices, every
+    # block has a tile, TMA stores only for rows of y of whole 16-byte units
+    assert plan.kp % 128 == 0 and k <= plan.kp < k + 128
+    assert 1 <= plan.grid <= min(plan.tiles, 132)
+    assert plan.route == "direct" or n * out_bytes % 16 == 0
 
 
 def test_int8_matmul_near_exact_gemm():

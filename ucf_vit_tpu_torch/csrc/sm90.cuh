@@ -5,10 +5,13 @@
 //   that a wgmma shared-memory descriptor reads, with zero fill through the src-size
 //   operand (rows past the sequence, columns past dh);
 // - TMA tensor loads (cp.async.bulk.tensor) into the same layout, counted on mbarriers,
-//   with the mbarrier operations of a producer/consumer ring (the forward);
+//   with the mbarrier operations of a producer/consumer ring (the forward), and TMA
+//   tensor stores from shared memory in bulk async-groups;
 // - warpgroup matrix products `wgmma.mma_async ... m64n64k16.f32.bf16.bf16` (and
 //   m64n16k16, m64n192k16, m64n256k16), with A from shared memory or from registers and
-//   B from shared memory, K-major or MN-major;
+//   B from shared memory, K-major or MN-major; and the integer product
+//   `m64n256k32.s32.s8.s8`, both operands K-major in shared memory (the only layout
+//   wgmma takes for 8-bit operands);
 // - the fences, commits and waits that order them;
 // - thread block clusters: a block's rank, remote mbarrier arrivals and bulk copies into
 //   the shared memory of another block of the cluster;
@@ -22,7 +25,8 @@
 // A product that spans at most one panel in its contiguous direction needs only the
 // stride between 8-row groups (1024 bytes) in its descriptor (`make_desc`); an
 // MN-major B wider than one panel also needs the stride between its panels
-// (`make_desc_mn`).
+// (`make_desc_mn`). An int8 panel is the same 64 x 128 bytes: 128 int8 of K a row, and a
+// k32 step of an s8 product is the same 32 bytes as a k16 step of a bf16 one.
 
 #pragma once
 
@@ -187,6 +191,34 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// The box of a 4-d tensor map at coordinates (c0, c1, c2, c3) written from shared memory at
+// `src` (laid out as a load of that box would leave it), as a bulk async-group of this
+// thread: out-of-range elements are not written. The source must be written, and fenced to
+// the async proxy, first.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups are pending: READ, have read their shared
+// memory source (which may then be rewritten); else, are complete.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ) {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+  }
+}
+
 // Barrier among the `threads` threads (a multiple of 32) that use barrier `id` (1..15;
 // 0 is __syncthreads').
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -284,6 +316,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -444,8 +482,50 @@ __device__ __forceinline__ void wgmma_ss_wide(float (&d)[N / 2], uint64_t desc_a
   }
 }
 
+#define UCF_WGMMA_D128_S32_OPS(d) \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), \
+  "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), \
+  "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), \
+  "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+  "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), \
+  "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), \
+  "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), \
+  "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+  "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), \
+  "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), \
+  "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), \
+  "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), \
+  "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), \
+  "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), \
+  "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), \
+  "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), \
+  "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), \
+  "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), \
+  "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), \
+  "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), \
+  "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), \
+  "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), \
+  "+r"(d[127])
+
+// d[64 x 256] += A[64 x 32] . B[32 x 256] in int8 with int32 sums (exact: no saturation
+// below 2^31), A and B in shared memory, both K-major (8-bit operands have no transposed
+// form): the accumulator layout above with c < 32.
+__device__ __forceinline__ void wgmma_ss_wide_s8(int (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " UCF_WGMMA_D128
+      ", %128, %129, p;\n"
+      "}\n"
+      : UCF_WGMMA_D128_S32_OPS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 #undef UCF_WGMMA_D128
 #undef UCF_WGMMA_D128_OPS
+#undef UCF_WGMMA_D128_S32_OPS
 #undef UCF_WGMMA_D96
 #undef UCF_WGMMA_D96_OPS
 #undef UCF_WGMMA_D32
@@ -523,16 +603,19 @@ constexpr int ENCODE_FAILED = 10000;
 
 // A 4-d bf16 map of dims (d0 columns, d1 rows, d2, d3) with byte strides (s1, s2, s3)
 // and a box of 64 columns by `box_rows` rows, swizzled for the panel layout; zeros for
-// elements out of range. g = {d0, d1, d2, d3, s1, s2, s3}.
-inline int encode(CUtensorMap* map, const void* ptr, const long long (&g)[7], int box_rows) {
+// elements out of range. g = {d0, d1, d2, d3, s1, s2, s3}. `type` and `box_cols` take
+// another element type: a box row must be 128 bytes (64 bf16, 128 int8).
+inline int encode(CUtensorMap* map, const void* ptr, const long long (&g)[7], int box_rows,
+                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  int box_cols = 64) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ENCODE_FAILED;
   const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2],
                               (cuuint64_t)g[3]};
   const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -547,6 +630,14 @@ inline int encode_2d(CUtensorMap* map, const void* ptr, long long rows, long lon
   const long long g[7] = {cols, rows, 1, 1, 2 * row_elems, 2 * row_elems * rows,
                           2 * row_elems * rows};
   return encode(map, ptr, g, box_rows);
+}
+
+// A row-major int8 matrix [rows, cols] (row stride `row_bytes`, a multiple of 16) as such a
+// map, read in boxes of 128 columns (bytes) by `box_rows` rows: the panel layout again.
+inline int encode_2d_s8(CUtensorMap* map, const void* ptr, long long rows, long long cols,
+                        long long row_bytes, int box_rows) {
+  const long long g[7] = {cols, rows, 1, 1, row_bytes, row_bytes * rows, row_bytes * rows};
+  return encode(map, ptr, g, box_rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 128);
 }
 
 }  // namespace sm90

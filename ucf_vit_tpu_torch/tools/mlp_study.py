@@ -24,20 +24,19 @@ when the script runs.
 from __future__ import annotations
 
 import ctypes
-import re
 import statistics
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ucf_vit_tpu_torch.ops import build
 from ucf_vit_tpu_torch.ops import fused_mlp as fm
+from ucf_vit_tpu_torch.tools.variants import Study, device_line, event_ms
 
-STUDY_DIR = build.BUILD_DIR.parent / "mlp_study"
-SOURCE = build.CSRC_DIR / "fused_mlp_sm90.cu"
+STUDY = Study("mlp_study", "fused_mlp_sm90.cu", "ucf_fused_mlp_sm90",
+              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 # ------------------------------------------------------------------ the variants
 
@@ -192,34 +191,6 @@ int main() {
 """
 
 
-def _edited(edits) -> str:
-    text = SOURCE.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"edit does not match the source once: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def _build(name: str, text: str):
-    d = STUDY_DIR / name
-    d.mkdir(parents=True, exist_ok=True)
-    for header in build.CSRC_DIR.glob("*.cuh"):
-        (d / header.name).write_text(header.read_text())
-    (d / "v.cu").write_text(text)
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "v.so"),
-                           str(d / "v.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stdout}{proc.stderr}")
-    regs = re.findall(r"Used (\d+) registers", proc.stdout + proc.stderr)
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", proc.stdout + proc.stderr)]
-    lib = ctypes.CDLL(str(d / "v.so"))
-    fn = lib.ucf_fused_mlp_sm90
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return name, lib, fn, regs, sum(spills)
-
-
 def _inputs(m, d, h, gen):
     def randn(*shape, std=1.0):
         return (std * torch.randn(*shape, device="cuda", generator=gen)).to(torch.bfloat16)
@@ -250,47 +221,35 @@ def _call(fn, args, splits=None):
     return run, plan.groups * plan.row_tiles * splits
 
 
-def _event_ms(run, iters=30) -> float:
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def time_variants(built, shapes) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for m, d, h, splits in shapes:
         args = _inputs(m, d, h, gen)
         want = fm.fused_mlp_plain(*args).float()
         runs = {}
-        for name, _, fn, _, _ in built:
-            runs[name], blocks = _call(fn, args, splits)
+        for v in built:
+            name = v.name
+            runs[name], blocks = _call(v.fn, args, splits)
             err = (runs[name]().float() - want).abs().max().item()
             print(f"[variant] [{m},{d}]->{h} ({blocks} blocks) {name}: max|y-plain| {err:.3e}",
                   flush=True)
         times = {name: [] for name in runs}
         for name in list(runs) + list(runs)[::-1]:
-            times[name].append(_event_ms(runs[name]))
+            times[name].append(event_ms(runs[name]))
         for name, t in times.items():
             print(f"[variant] [{m},{d}]->{h} ({blocks} blocks) {name}: "
                   f"{', '.join(f'{v:.4f}' for v in t)} ms a call (CUDA events)", flush=True)
 
 
 def trace() -> None:
-    _, lib, fn, _, _ = _build("trace", _edited(_TRACE_EDITS) + _TRACE_DUMP)
+    traced = STUDY.build("trace", STUDY.edited(_TRACE_EDITS) + _TRACE_DUMP)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    run, _ = _call(fn, _inputs(4112, 768, 3072, gen))
+    run, _ = _call(traced.fn, _inputs(4112, 768, 3072, gen))
     for _ in range(3):
         run()
     torch.cuda.synchronize()
     buf = np.zeros((2, 8, 64), dtype=np.int64)
-    lib.dump_trace(ctypes.c_void_p(buf.ctypes.data))
+    traced.lib.dump_trace(ctypes.c_void_p(buf.ctypes.data))
     ev = {name: buf[0, i] for i, name in enumerate(EVENTS)}
     npx, q = 12, np.arange(64)
     # W1 tiles past the first of each chunk's ring fill, where the consumer waits on the load
@@ -312,7 +271,7 @@ def trace() -> None:
 
 
 def occupancy() -> None:
-    d = STUDY_DIR / "occupancy"
+    d = STUDY.dir / "occupancy"
     d.mkdir(parents=True, exist_ok=True)
     (d / "occ.cu").write_text(_OCCUPANCY)
     subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-o",
@@ -322,20 +281,12 @@ def occupancy() -> None:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("mlp_study: needs a CUDA card", file=sys.stderr)
+    if not device_line("mlp_study"):
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(f"[device] {smi.stdout.strip()}; torch {torch.__version__}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(lambda kv: _build(kv[0], _edited(kv[1])), VARIANTS.items()))
-    for name, _, _, regs, spills in built:
-        print(f"[build] {name}: registers {', '.join(regs)}; spill stores {spills} bytes",
-              flush=True)
+    built = STUDY.build_all(VARIANTS)
     time_variants(built, SHAPES)
-    time_variants([b for b in built if b[0] == "as_built"], FEWER_BLOCKS)
+    time_variants([v for v in built if v.name == "as_built"], FEWER_BLOCKS)
     trace()
     occupancy()
     return 0
