@@ -5,7 +5,7 @@
     python3 chip_smoke.py --compare CHECKOUT
 
 With `--compare` it runs only the device phase and times the bf16 flash
-forward, the bf16 `fused_mlp` and `int8_matmul` of this checkout's package and
+forward, `fused_mlp` (bf16 and f32) and `int8_matmul` of this checkout's package and
 of the one in CHECKOUT (another tree of the repo unpacked by `git archive`,
 say the parent) in one process: see `compare_forward`.
 
@@ -19,8 +19,9 @@ result):
             mma.sync; flash_fwd_sm90, flash_bwd_sm90: bf16 on the tensor
             cores by wgmma; flash_bwd: the split route's f32 dkv and the dq
             kernel of both types, on the CUDA cores; fused_mlp_sm90: the bf16
-            fused MLP on the tensor cores by wgmma and TMA; fused_mlp: its f32
-            instance on the CUDA cores; int8_gemm: the W8A8 product on the
+            fused MLP on the tensor cores by wgmma and TMA; fused_mlp_tf32: the
+            f32 fused MLP on the tensor cores by the 3xTF32 split on mma.sync,
+            clusters of blocks sharing a 64-row tile; int8_gemm: the W8A8 product on the
             int8 tensor cores by wgmma s32.s8.s8 and TMA, after a pass that
             quantizes x and turns the weights K-major), one nvcc each,
             started together; cuobjdump then shows every entry of the three
@@ -30,10 +31,12 @@ result):
             (their TMA loads; fused_mlp_sm90's partial-sum reduction,
             mlp_reduce_kernel, and int8_gemm's first pass, int8_prepare, are
             the entries exempt: they multiply nothing and load by ordinary
-            loads), and every entry of the two tf32 libraries holding HMMA
-            instructions on TF32 operands; no DH = 64 instance of the
-            forwards (sm90, tf32), not the D = 768 instance of fused_mlp_sm90
-            (`<2, 192>`) and no int8_gemm_kernel may spill.
+            loads), and every entry of the three tf32 libraries holding HMMA
+            instructions on TF32 operands (fused_mlp_tf32's sum of its S
+            partials, mlp_reduce_tf32_kernel, exempt); no DH = 64 instance of
+            the forwards (sm90, tf32), not the D = 768 instances of
+            fused_mlp_sm90 (`<2, 192>`) and fused_mlp_tf32 (`<3, 2>`) and no
+            int8_gemm_kernel may spill.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the shapes the serving and training paths give it and at the
             other shapes the kernels must take: the forward, both backward
@@ -60,15 +63,20 @@ result):
             `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
             (bf16 and f32, tanh and erf GELU; bf16 through fused_mlp_sm90.cu
             by its plan, printed: route, blocks of a cluster, output
-            warpgroups, S; a call timed as the device time of all of its
-            kernels, the partial sums' reduction included), and `int8_matmul` at the
+            warpgroups, S; f32 through fused_mlp_tf32.cu by its plan, printed
+            (blocks of a cluster, columns a block, ring stages, shared memory,
+            S) and held against the C entry's blocks, columns and shared
+            memory; a call timed as the device
+            time of all of its kernels, the partial sums' reduction included,
+            in both types at both model shapes), and `int8_matmul` at the
             ViT-B projections (bit-equal to its plain version, and its
             quantization to `quantize_rows_plain`; within the JAX test's
             error bands of the exact product; a call timed as the device time
             of both of its kernels, printed apart, beside the bf16
             `torch.matmul` of the same product and `torch._int_mm` on the
-            pre-quantized operands); then both through their public API with
-            the launch counts set to 0 before.
+            pre-quantized operands); then both through their public API
+            (fused_mlp in bf16 and in f32) with the launch counts set to 0
+            before.
 4. train:   `ucf_vit_tpu_torch.train` on the same config (ViT-B/16 at full
             width and depth, seeded init, synthetic batches of 16): 10 steps
             with attention FLASH (the kernels) against 10 with EINSUM (plain
@@ -329,24 +337,28 @@ def phase_device():
 
 # bf16 on the tensor cores (wgmma)
 SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "fused_mlp_sm90")
-TF32_SOURCES = ("flash_fwd_tf32", "flash_bwd_tf32")  # f32 on the tensor cores (3xTF32)
+# f32 on the tensor cores (3xTF32 on mma.sync)
+TF32_SOURCES = ("flash_fwd_tf32", "flash_bwd_tf32", "fused_mlp_tf32")
 # the SASS instructions that show each kind of source on the tensor cores
 TENSOR_CORE_SASS = {**{s: "HGMMA" for s in SM90_SOURCES},
                     **{s: r"HMMA\.\S*TF32" for s in TF32_SOURCES}}
 TENSOR_CORE_SASS["int8_gemm"] = "IGMMA"  # the integer wgmma (s32.s8.s8)
 # the TMA tensor load
 TMA_SASS = {"flash_fwd_sm90": "UTMALDG", "fused_mlp_sm90": "UTMALDG", "int8_gemm": "UTMALDG"}
-# entries exempt from those checks: fused_mlp_sm90's sum of its S partials and int8_gemm's
+# entries exempt from those checks: the fused MLPs' sums of their S partials and int8_gemm's
 # first pass, quantizing x and turning the weights K-major (ordinary loads, no product)
-SASS_EXEMPT = {"fused_mlp_sm90": "mlp_reduce_kernel", "int8_gemm": "int8_prepare"}
+SASS_EXEMPT = {"fused_mlp_sm90": "mlp_reduce_kernel", "fused_mlp_tf32": "mlp_reduce_tf32_kernel",
+               "int8_gemm": "int8_prepare"}
 # sources whose DH = 64 instances (the main paths') must not spill, and the instances of
-# other sources that must not: fused_mlp_sm90's at D = 768 (WN = 192, two output
-# warpgroups) and every instance of the int8 GEMM
-NO_SPILL_AT_64 = (*TF32_SOURCES, "flash_fwd_sm90")
-NO_SPILL = {"fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>", "int8_gemm": "int8_gemm_kernel"}
+# other sources that must not: the fused MLPs' at D = 768 (fused_mlp_sm90's WN = 192, two
+# output warpgroups; fused_mlp_tf32's three 128-column groups in clusters of two) and
+# every instance of the int8 GEMM
+NO_SPILL_AT_64 = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_fwd_sm90")
+NO_SPILL = {"fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>",
+            "fused_mlp_tf32": "fused_mlp_tf32_kernel<Li3ELi2E>", "int8_gemm": "int8_gemm_kernel"}
 KERNEL_NAME = re.compile(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
-                         r"fused_mlp(?:_sm90)?_kernel|mlp_reduce_kernel|int8_gemm_kernel|"
-                         r"int8_prepare)(?:I(\w+?)EEv)?")
+                         r"fused_mlp(?:_sm90|_tf32)?_kernel|mlp_reduce(?:_tf32)?_kernel|"
+                         r"int8_gemm_kernel|int8_prepare)(?:I(\w+?)EEv)?")
 
 
 def _sass_counts(path, pattern: str) -> dict:
@@ -382,7 +394,7 @@ def phase_build():
         return name, build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (*TF32_SOURCES, "flash_bwd", *SM90_SOURCES, "fused_mlp", "int8_gemm")
+    sources = (*TF32_SOURCES, "flash_bwd", *SM90_SOURCES, "int8_gemm")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         built = list(pool.map(one, sources))
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -401,7 +413,7 @@ def phase_build():
         log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
             + (f": {', '.join(spills)}" if spills else ""))
-        if name in TMA_SASS:
+        if name in TMA_SASS or name in NO_SPILL:
             log(f"[build] {name} registers: {', '.join(by_entry)}")
         if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
             fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
@@ -1063,7 +1075,7 @@ def _mlp_inputs(m, d, h, dtype, gen):
 
 # what a call of fused_mlp launches, by dtype, and of int8_matmul: the kernels a timed
 # call sums
-MLP_KERNELS = {"float32": ("fused_mlp_kernel",),
+MLP_KERNELS = {"float32": ("fused_mlp_tf32_kernel", "mlp_reduce_tf32_kernel"),
                "bfloat16": ("fused_mlp_sm90_kernel", "mlp_reduce_kernel")}
 INT8_KERNELS = ("int8_prepare", "int8_gemm_kernel")
 
@@ -1085,13 +1097,23 @@ def phase_mlp_kernels():
     GELU forms; timed at the two model shapes beside its bound, the plain
     version and the unfused composition F.linear, F.gelu, F.linear (three
     library calls: no single call computes the function). A call's time is the
-    device time of all of its kernels (bf16: the main kernel and, at S > 1, the
-    reduction of its partials); the bf16 plan (route, blocks of a cluster,
-    output warpgroups, S) is printed beside it."""
+    device time of all of its kernels (the main kernel and, at S > 1, the
+    reduction of its partials); the plan is printed beside it (bf16: route,
+    blocks of a cluster, output warpgroups, S; f32: blocks of a cluster,
+    columns a block, ring stages, shared memory, S, the blocks, columns and
+    shared memory held against what the C entry computes for the same D)."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
-    from ucf_vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain, mlp_plan
+    from ucf_vit_tpu_torch.ops import build
+    from ucf_vit_tpu_torch.ops.fused_mlp import (
+        fused_mlp,
+        fused_mlp_plain,
+        mlp_plan,
+        mlp_plan_f32,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1101,11 +1123,24 @@ def phase_mlp_kernels():
         for m, d, h in MLP_SHAPES:
             args = _mlp_inputs(m, d, h, dtype, gen)
             shape = f"[{m},{d}]->{h} {dtype_name}"
-            plan = mlp_plan(m, d, h, sms)
             if dtype_name == "bfloat16":
+                plan = mlp_plan(m, d, h, sms)
                 log(f"[kernel] fused_mlp {shape}: plan route {plan.route}, {plan.groups} "
                     f"block(s) a cluster, {plan.warpgroups} output warpgroup(s) a block, S = "
                     f"{plan.splits}, {plan.blocks} blocks")
+            else:
+                plan = mlp_plan_f32(m, d, h, sms)
+                c_shape = [ctypes.c_int() for _ in range(3)]
+                if build.load("fused_mlp_tf32").ucf_fused_mlp_tf32_shape(
+                        d, *(ctypes.byref(v) for v in c_shape)) != 0:
+                    fail(f"the f32 kernel's C entry refuses D = {d}")
+                c_shape = tuple(v.value for v in c_shape)
+                log(f"[kernel] fused_mlp {shape}: plan {plan.groups} block(s) a cluster, "
+                    f"{plan.group_cols} columns a block, {plan.stages} ring stages, "
+                    f"{plan.smem} bytes of shared memory a block, S = {plan.splits}, "
+                    f"{plan.blocks} blocks; the C entry's (blocks, columns, bytes) {c_shape}")
+                if c_shape != (plan.groups, plan.group_cols, plan.smem):
+                    fail(f"mlp_plan_f32 and the C entry differ at D = {d}")
             errs = {}
             for approx in (True, False):
                 got = fused_mlp(*args, approx=approx)
@@ -1245,8 +1280,8 @@ def phase_ops_path():
     """The two ops through their public API, as a user of the package calls
     them (no model or server of either package is wired to them): one
     ViT-B block's projections quantized once and multiplied in int8, and
-    its MLP fused, on a batch of 16 x 257 tokens in bf16. The launch counts
-    are set to 0 before and read after."""
+    its MLP fused, on a batch of 16 x 257 tokens in bf16, then the same MLP
+    fused in f32. The launch counts are set to 0 before and read after."""
     import torch
     import torch.nn.functional as F
 
@@ -1262,6 +1297,7 @@ def phase_ops_path():
     weights = {name: 0.02 * torch.randn(*shape, device="cuda", generator=gen)
                for name, shape in projections.items()}
     hidden = torch.randn(m, h, device="cuda", generator=gen).to(torch.bfloat16)
+    f32_args = _mlp_inputs(m, d, h, torch.float32, gen)
 
     reset_launch_counts()
     int8_matmul.launches = 0
@@ -1272,10 +1308,20 @@ def phase_ops_path():
     torch.cuda.synchronize()
     counts = {"fused_mlp": fused_mlp.launches, "int8_matmul": int8_matmul.launches}
     mlp_by = (dict(fused_mlp.by_source), dict(fused_mlp.by_layout))
+    y32 = fused_mlp(*f32_args)
+    torch.cuda.synchronize()
+    counts["fused_mlp_f32"] = fused_mlp.launches - counts["fused_mlp"]
+    f32_by = {s: n - mlp_by[0][s] for s, n in fused_mlp.by_source.items()}
 
     want = F.linear(F.gelu(F.linear(x, w1.t(), b1), approximate="tanh"), w2.t(), b2)
     mlp_err = (y.float() - want.float()).abs().max().item()
+    x32, w1_32, b1_32, w2_32, b2_32 = f32_args
+    want32 = F.linear(F.gelu(F.linear(x32, w1_32.t(), b1_32), approximate="tanh"), w2_32.t(),
+                      b2_32)
+    f32_err = (y32 - want32).abs().max().item()
     ok = y.shape == (m, d) and y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    ok = ok and y32.shape == (m, d) and y32.dtype == torch.float32 \
+        and bool(torch.isfinite(y32).all())
     worst, unequal = 0.0, []
     for name, out in outs.items():
         inp = hidden if name == "fc2" else x
@@ -1288,19 +1334,24 @@ def phase_ops_path():
             unequal.append(name)
     log(f"[ops] public API on [{m}, {d}] bf16 tokens (the ops are on no model path, in either "
         f"package): fused_mlp against the unfused bf16 modules max |diff| {mlp_err:.3e} (tol "
-        f"3e-2: the modules round the pre-activation to bf16, the op keeps it f32); "
-        f"int8_matmul on qkv, proj, fc1, fc2: worst median rel err {worst:.4f}, bit-equal to "
-        f"int8_matmul_plain but on {unequal or 'none'}; launches "
-        f"{counts}; fused_mlp by source {mlp_by[0]}, by route {mlp_by[1]}")
-    if not ok or mlp_err > 3e-2:
+        f"3e-2: the modules round the pre-activation to bf16, the op keeps it f32); in f32 "
+        f"against the unfused f32 modules (TF32 off) {f32_err:.3e} (tol "
+        f"{MLP_TOL['float32']:g}); int8_matmul on qkv, proj, fc1, fc2: worst median rel err "
+        f"{worst:.4f}, bit-equal to int8_matmul_plain but on {unequal or 'none'}; launches "
+        f"{counts}; fused_mlp by source {mlp_by[0]} (bf16), {f32_by} (f32), by route "
+        f"{mlp_by[1]}")
+    if not ok or mlp_err > 3e-2 or not f32_err <= MLP_TOL["float32"]:
         fail("the ops' public API gave a wrong result")
     if unequal:
         fail(f"int8_matmul differs from int8_matmul_plain on {unequal} (expected bit-equal)")
-    if counts != {"fused_mlp": 1, "int8_matmul": len(projections)}:
-        fail(f"launch counts {counts}, expected 1 fused_mlp and {len(projections)} int8_matmul")
-    if mlp_by != ({"fused_mlp_sm90": 1, "fused_mlp": 0}, {"tma": 1, "padded": 0}):
+    if counts != {"fused_mlp": 1, "int8_matmul": len(projections), "fused_mlp_f32": 1}:
+        fail(f"launch counts {counts}, expected 1 fused_mlp in each type and "
+             f"{len(projections)} int8_matmul")
+    if mlp_by != ({"fused_mlp_sm90": 1, "fused_mlp_tf32": 0}, {"tma": 1, "padded": 0}):
         fail(f"bf16 fused_mlp at {RECORD_MLP} went by {mlp_by}, expected fused_mlp_sm90 on "
              f"the tma route")
+    if f32_by != {"fused_mlp_sm90": 0, "fused_mlp_tf32": 1}:
+        fail(f"f32 fused_mlp at {RECORD_MLP} went by {f32_by}, expected fused_mlp_tf32")
     return counts
 
 
@@ -2488,14 +2539,16 @@ def _compare_op(checkouts, forwards, module: str, name: str, args, label: str) -
 
 
 def compare_mlp(checkouts, forwards) -> None:
-    """bf16 `fused_mlp` at RECORD_MLP and `int8_matmul` (bf16 in and out) at
-    RECORD_INT8 of each checkout (`_compare_op`)."""
+    """`fused_mlp` at RECORD_MLP in bf16 and in f32, and `int8_matmul` (bf16 in
+    and out) at RECORD_INT8 of each checkout (`_compare_op`)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     m, d, h = RECORD_MLP
-    _compare_op(checkouts, forwards, "ucf_vit_tpu_torch.ops.fused_mlp", "fused_mlp",
-                _mlp_inputs(m, d, h, torch.bfloat16, gen), f"fused_mlp [{m},{d}]->{h} bf16")
+    for dtype in (torch.bfloat16, torch.float32):
+        _compare_op(checkouts, forwards, "ucf_vit_tpu_torch.ops.fused_mlp", "fused_mlp",
+                    _mlp_inputs(m, d, h, dtype, gen),
+                    f"fused_mlp [{m},{d}]->{h} {str(dtype).split('.')[-1]}")
     m, k, n = RECORD_INT8
     x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
     quantize_weight = forwards[0][1]["ucf_vit_tpu_torch.ops.int8_gemm"].quantize_weight
@@ -2505,7 +2558,7 @@ def compare_mlp(checkouts, forwards) -> None:
 
 
 def compare_forward(other: str) -> None:
-    """bf16 `fused_mlp` and `int8_matmul` (`compare_mlp`), then the bf16 flash
+    """`fused_mlp` and `int8_matmul` (`compare_mlp`), then the bf16 flash
     forward of this checkout and of `other`, in one process, on the packed qkv
     views of ViT-B/16's and ViT-L/16's shapes and mae_long's encoder
     (`TIMED_SHAPES`): device ms per call of `flash_fwd_sm90_kernel`
@@ -2607,7 +2660,8 @@ def main() -> int:
     # PERF.md splits them by the traced window). The split route's kernels (dkv, dq) are
     # on no main path; their rows are the f32 instances (flash_bwd.cu). The hash counts
     # the training with attention dropout; fused_mlp and int8_matmul, on no model path in
-    # either package, the ops' public API (bf16 at the ViT-B MLP shape).
+    # either package, the ops' public API (at the ViT-B MLP shape: fused_mlp and
+    # int8_matmul in bf16, fused_mlp_f32 the f32 call of fused_mlp).
     sources = {
         "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
                       "ucf_vit_tpu/ops/flash_attention.py:68"),
@@ -2629,6 +2683,8 @@ def main() -> int:
                       "ucf_vit_tpu/ops/attn_dropout.py:70"),
         "fused_mlp": ("ucf_vit_tpu_torch/csrc/fused_mlp_sm90.cu",
                       "ucf_vit_tpu/ops/fused_mlp.py:55"),
+        "fused_mlp_f32": ("ucf_vit_tpu_torch/csrc/fused_mlp_tf32.cu",
+                          "ucf_vit_tpu/ops/fused_mlp.py:55"),
         "int8_matmul": ("ucf_vit_tpu_torch/csrc/int8_gemm.cu", "ucf_vit_tpu/ops/int8_gemm.py:61"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
@@ -2636,7 +2692,8 @@ def main() -> int:
                "flash_bwd_fused_bf16": bwd["vit_l_bfloat16"]["fused"],
                "flash_fwd_bf16_mae_long": mae["decoder"]["fwd"],
                "flash_bwd_fused_bf16_mae_long": mae["decoder"]["bwd"],
-               "fused_mlp": mlp[RECORD_MLP, "bfloat16"], "int8_matmul": int8[RECORD_INT8]}
+               "fused_mlp": mlp[RECORD_MLP, "bfloat16"],
+               "fused_mlp_f32": mlp[RECORD_MLP, "float32"], "int8_matmul": int8[RECORD_INT8]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"],
@@ -2658,6 +2715,7 @@ def main() -> int:
         f"{disk['load_s']} s; catsdogs from JPEG files {disk['jpeg']}")
     for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
                  "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long", "fused_mlp",
+                 "fused_mlp_f32",
                  "int8_matmul"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")

@@ -418,10 +418,14 @@ def test_single_key_on_card(dtype, route):
 # (leading dims, D, H, offset): the JAX tests' ragged shape and leading dims, ViT-B and
 # ViT-L widths with a ragged M, a D and H that are multiples of nothing, M below one
 # 64-row tile, a small M whose bf16 plan splits H 22 ways, and an x that is a view one
-# element into its storage (a base TMA cannot address: the padded route)
+# element into its storage (a base TMA cannot address: the padded route). For the f32
+# plan: ViT-L's width at M = 514 (clusters of three, S = 4), a D that is no multiple of
+# 4 with an odd H (4-byte weight copies, scalar stores; S = 8), ViT-B's width at M = 515
+# (S = 7), and D = 1024 with the offset-1 x
 MLP_SHAPES = [((300,), 128, 512, 0), ((2, 70), 128, 512, 0), ((515,), 768, 3072, 0),
               ((2, 257), 1024, 4096, 0), ((100,), 200, 300, 0), ((50,), 768, 3072, 0),
-              ((130,), 1024, 4096, 0), ((300,), 768, 3072, 1)]
+              ((130,), 1024, 4096, 0), ((300,), 768, 3072, 1), ((514,), 1024, 4096, 0),
+              ((300,), 201, 509, 0), ((130,), 1024, 4096, 1)]
 MLP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -451,8 +455,9 @@ def test_fused_mlp_kernel_matches_plain_on_card(dtype, approx):
         reset_mlp_counts()
         got = fused_mlp(*args, approx=approx)
         torch.cuda.synchronize()
-        # bf16 on the tensor cores (fused_mlp_sm90.cu) by its plan's route; f32 on fused_mlp.cu
-        source = "fused_mlp_sm90" if dt == torch.bfloat16 else "fused_mlp"
+        # bf16 by wgmma (fused_mlp_sm90.cu) on its plan's route; f32 by 3xTF32 on
+        # fused_mlp_tf32.cu, which has no route (every shape and alignment as it is)
+        source = "fused_mlp_sm90" if dt == torch.bfloat16 else "fused_mlp_tf32"
         route = mlp_plan(args[0].numel() // d, d, h, sms, offset == 0).route
         assert fused_mlp.launches == 1
         assert fused_mlp.by_source == {s: int(s == source) for s in fused_mlp.by_source}

@@ -12,7 +12,13 @@ torch = pytest.importorskip("torch")
 
 from ucf_vit_tpu.ops import fused_mlp as jax_mlp
 from ucf_vit_tpu.ops import int8_gemm as jax_int8
-from ucf_vit_tpu_torch.ops.fused_mlp import _padded_copy, fused_mlp, fused_mlp_plain, mlp_plan
+from ucf_vit_tpu_torch.ops.fused_mlp import (
+    _padded_copy,
+    fused_mlp,
+    fused_mlp_plain,
+    mlp_plan,
+    mlp_plan_f32,
+)
 from ucf_vit_tpu_torch.ops.int8_gemm import (
     int8_matmul,
     int8_matmul_plain,
@@ -167,6 +173,107 @@ def test_fused_mlp_padded_route_is_exact(shape, approx):
         kernel = jax_mlp.fused_mlp(*jax_args, approx=approx, block_m=128, interpret=True)
         np.testing.assert_allclose(padded[:, :d].float().numpy(), np.asarray(kernel, np.float32),
                                    atol=MLP_TOL["bfloat16"], rtol=0)
+
+
+# mlp_plan_f32 on an H100 (132 SMs): (M, D, H) -> (blocks of a cluster, columns a block,
+# ring stages, shared memory bytes, S, row tiles, blocks). A block takes at most 384 of D's
+# columns, so ViT-B's D = 768 takes clusters of two and ViT-L's D = 1024 clusters of three
+# (99 blocks: 33 clusters of three fit at once, where 33 of four would not); ragged D and
+# H, M below one tile and D no multiple of 4 take a small cluster and split H. The f32
+# kernel reads every shape and alignment as it is (4-byte copies where 16-byte ones do not
+# fit), so a misaligned x has the aligned plan: the case shows there is no padded route.
+MLP_PLANS_F32 = {
+    "vit_b": ((4112, 768, 3072), (2, 384, 2, 227840, 1, 65, 130)),
+    "vit_l": ((2056, 1024, 4096), (3, 384, 2, 227840, 1, 33, 99)),
+    "ragged": ((100, 200, 300), (1, 256, 6, 217600, 5, 2, 10)),
+    "m_below_64": ((50, 768, 3072), (2, 384, 2, 227840, 48, 1, 96)),
+    "odd_d": ((300, 201, 509), (1, 256, 6, 217600, 8, 5, 40)),
+    "misaligned_x": ((4112, 768, 3072), (2, 384, 2, 227840, 1, 65, 130)),
+    "d1024_small_m": ((130, 1024, 4096), (3, 384, 2, 227840, 13, 3, 117)),
+    "d512": ((4112, 512, 2048), (2, 256, 5, 231936, 1, 65, 130)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLP_PLANS_F32))
+def test_mlp_plan_f32_at_the_cards_shapes(case):
+    (m, d, h), want = MLP_PLANS_F32[case]
+    plan = mlp_plan_f32(m, d, h, 132)
+    assert tuple(plan) == want
+    # what the kernel's C entry checks: G = ceil(D / 384) blocks of a cluster, whose
+    # slices of 128-column steps cover D; every slice of H gets at least one 64-unit
+    # chunk; one block per SM at most; the shared memory within the 227 KB a block may
+    # have, with at least two ring stages
+    assert plan.groups == -(-d // 384) and plan.group_cols % 128 == 0
+    assert plan.groups * plan.group_cols >= d and plan.group_cols <= 384
+    assert (plan.groups - 1) * plan.group_cols < d  # no block without columns
+    chunks = -(-h // 64)
+    assert (plan.splits - 1) * -(-chunks // plan.splits) < chunks
+    assert plan.blocks == plan.row_tiles * plan.groups * plan.splits <= 132
+    assert plan.smem <= 232448 and plan.stages >= 2
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32, ties away from zero (tf32x3.cuh's `to_tf32`)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 truncated to TF32: what the tensor cores read of an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as csrc/fused_mlp_tf32.cu computes it: each operand split as hi (rounded) +
+    lo (read truncated), lo.hi + hi.lo + hi.hi, each TF32 product exact in f32."""
+    a_hi, b_hi = _tf32_round(a), _tf32_round(b)
+    a_lo, b_lo = _tf32_trunc(a - a_hi), _tf32_trunc(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _fused_mlp_tf32_emulated(x, w1, b1, w2, b2, approx, mm=_mm_3xtf32):
+    """The f32 kernel's arithmetic in plain PyTorch: D split into the plan's slices; in
+    each block the first product's 16-column k-groups taken alternately by two k-groups
+    of warps whose partials are summed, the blocks' partials summed in rank order; + b1
+    and the GELU; then the second product 16 hidden units at a time, each group's
+    product summed from zero and added to y (the kernel's `product2_add`), + b2."""
+    d, h = w1.shape
+    plan = mlp_plan_f32(x.shape[0], d, h, 132)
+    dk = plan.group_cols
+    pre = None
+    for r in range(plan.groups):
+        k16 = [list(range(c, c + 16)) for c in range(r * dk, (r + 1) * dk, 16)]
+        halves = [[c for group in k16[kg::2] for c in group if c < d] for kg in (0, 1)]
+        part = mm(x[:, halves[0]], w1[halves[0]]) + mm(x[:, halves[1]], w1[halves[1]])
+        pre = part if pre is None else pre + part
+    hidden = torch.nn.functional.gelu(pre + b1, approximate="tanh" if approx else "none")
+    y = torch.zeros(x.shape[0], d)
+    for k0 in range(0, h, 16):
+        y = y + mm(hidden[:, k0:k0 + 16], w2[k0:k0 + 16])
+    return y + b2
+
+
+# the card's limit for f32 fused_mlp against its plain version (chip_smoke.py,
+# tests/test_torch_flash_cuda.py): sums in other orders over up to 4096 terms
+CARD_F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("approx", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("shape", [(64, 768, 3072), (40, 1024, 4096)], ids=str)
+def test_fused_mlp_3xtf32_split_keeps_f32_accuracy(shape, approx):
+    """Why the f32 kernel keeps the card's f32 limit: at ViT-B's and ViT-L's widths (D
+    split over clusters of two and three blocks) both products by the 3xTF32 split land
+    within a tenth of CARD_F32_TOL of fused_mlp_plain and of the JAX package's
+    fused_mlp_reference, while one TF32 pass a product misses the limit itself."""
+    m, d, h = shape
+    jax_args, args = _mlp_inputs((m,), d, h, "float32", seed=5)
+    got = _fused_mlp_tf32_emulated(*args, approx)
+    plain = fused_mlp_plain(*args, approx=approx)
+    reference = np.asarray(jax_mlp.fused_mlp_reference(*jax_args, approx=approx), np.float32)
+    assert (got - plain).abs().max().item() <= CARD_F32_TOL / 10
+    np.testing.assert_allclose(got.numpy(), reference, atol=CARD_F32_TOL / 10, rtol=0)
+    one_pass = _fused_mlp_tf32_emulated(
+        *args, approx, mm=lambda a, b: _tf32_round(a) @ _tf32_round(b))
+    assert (one_pass - plain).abs().max().item() > CARD_F32_TOL
 
 
 # ---------------------------------------------------------------- int8

@@ -3,7 +3,7 @@
 // through shared memory, and between the two blocks of a cluster by bulk copies.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (ucf_vit_tpu/ops/fused_mlp.py:55, launched
-// by `_fwd_call` :63) for bf16 inputs; csrc/fused_mlp.cu takes f32. It computes the same
+// by `_fwd_call` :63) for bf16 inputs; csrc/fused_mlp_tf32.cu takes f32. It computes the same
 // function: both products accumulate in f32, the bias add and the GELU (tanh form or erf
 // form, exact tanhf / erff) run in f32, the hidden is rounded to bf16 before the second
 // product and never reaches device memory, and y comes out in bf16. There is no backward.

@@ -20,8 +20,22 @@ The dtype picks the source (`fused_mlp.by_source` counts them):
   multiples of 8 (TMA's rows are multiples of 16 bytes) and a 16-byte aligned
   base, and slices y back. At S > 1 each block writes an f32 partial into a
   workspace `[S, M, D]` that a second kernel sums in a fixed order.
-- f32: `csrc/fused_mlp.cu`, f32 FMA on the CUDA cores (ragged edges masked
-  inside; nothing padded).
+- f32: `csrc/fused_mlp_tf32.cu`, both products f32-accurate on the tensor
+  cores by the 3xTF32 split on `mma.sync`. A cluster of G = ceil(D / 384)
+  blocks owns 64 rows, each block a slice of D's columns (at most 384): its
+  slice of x stays in shared memory, it multiplies it by its rows of W1 for
+  each 64-unit chunk of the hidden, the G partial chunks are summed through
+  distributed shared memory, and each block adds the chunk's product with
+  its columns of W2 into its slice of y. Weights stream in by `cp.async`
+  (4-byte copies where D or H is no multiple of 4 or a base is not 16-byte
+  aligned), so every shape and alignment runs as it is: there is no padded
+  copy and no route. `mlp_plan_f32` decides G, the columns a block and S
+  (as in bf16, with a workspace and a fixed-order sum at S > 1).
+
+Both are timed by `python3 chip_smoke.py` (the kernels phase: device ms of a
+call beside its bound, the plain version and the unfused library calls) and
+`python3 chip_smoke.py --compare CHECKOUT` (both types at ViT-B's shape, in
+this tree and another).
 
 The limits, held on every device so that a shape the card would refuse does
 not pass on the CPU: f32 or bf16, `D <= 1024` (the output tile of a block
@@ -29,8 +43,8 @@ lives in its registers), any M and H. See the sources for the designs and
 their bounds on the card.
 
 `fused_mlp` takes the plain version for a tensor on the CPU and a kernel for
-a tensor on a CUDA device; anything else raises. There is no fallback: a bf16
-call that cannot build, encode its tensor maps or launch raises.
+a tensor on a CUDA device; anything else raises. There is no fallback: a call
+that cannot build, launch or (bf16) encode its tensor maps raises.
 """
 
 from __future__ import annotations
@@ -44,13 +58,18 @@ import torch.nn.functional as F
 
 MAX_D = 1024
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SOURCES = ("fused_mlp_sm90", "fused_mlp")  # bf16, f32
+SOURCES = ("fused_mlp_sm90", "fused_mlp_tf32")  # bf16, f32
 ROUTES = ("tma", "padded")
 # csrc/fused_mlp_sm90.cu: rows a block, hidden units a chunk, the most output columns a
 # warpgroup holds, and the widest D one block takes alone (two output warpgroups: the
 # registers' limit); wider D splits over a cluster of two
 MLP_ROWS, MLP_CHUNK, MLP_WG_COLS, MLP_BLOCK_COLS = 64, 64, 256, 512
 _ENCODE_FAILED = 10000  # csrc/sm90.cuh: ENCODE_FAILED (+ the driver's CUresult)
+# csrc/fused_mlp_tf32.cu: the widest slice of D a block takes, the columns of a slice
+# come in multiples of 128, and the shared memory a block may have (232,448 bytes on an
+# H100); the ring of weight pieces takes what x, h and the receive slots leave, up to 8
+F32_BLOCK_COLS, F32_COL_STEP, SMEM_LIMIT, F32_MAX_STAGES = 384, 128, 232448, 8
+F32_PIECES = 4  # pieces a 64-unit chunk of each weight streams in
 
 
 class MlpPlan(NamedTuple):
@@ -66,8 +85,34 @@ class MlpPlan(NamedTuple):
     blocks: int      # row_tiles * groups * splits
 
 
+class MlpPlanF32(NamedTuple):
+    """How `csrc/fused_mlp_tf32.cu` takes one call (`mlp_plan_f32`)."""
+    groups: int      # G: blocks of a cluster, each with group_cols of D's columns
+    group_cols: int  # ceil(D / G) rounded up to 128: the block's slice of x and of y
+    stages: int      # weight pieces in flight: the ring's stages
+    smem: int        # bytes of shared memory a block
+    splits: int      # S: H split across clusters, each adding an f32 partial
+    row_tiles: int   # ceil(M / 64)
+    blocks: int      # row_tiles * groups * splits
+
+
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _f32_smem(group_cols: int, groups: int):
+    """(ring stages, bytes) of a block of csrc/fused_mlp_tf32.cu: x [64, DK + 16], h
+    [64, 80], slots of 64 x 64 for its own partial and the peers' (two for the other
+    block of a cluster of two, one for each other block of a cluster of three), b1 [2,
+    64], and stages of max(W1 piece, W2 piece) (f32, rows padded 8 floats past the data;
+    4 pieces of each a chunk)."""
+    stage = 4 * max(group_cols // F32_PIECES * (MLP_CHUNK + 8),
+                    MLP_CHUNK // F32_PIECES * (group_cols + 8))
+    fixed = 4 * (MLP_ROWS * (group_cols + 16) + MLP_ROWS * (MLP_CHUNK + 16)
+                 + (1 + (2 if groups == 2 else 1) * (groups - 1)) * MLP_ROWS * MLP_CHUNK
+                 + 2 * MLP_CHUNK)
+    stages = min(F32_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return stages, fixed + stages * stage
 
 
 @functools.lru_cache(maxsize=256)
@@ -90,6 +135,26 @@ def mlp_plan(m: int, d: int, h: int, sms: int, aligned: bool = True) -> MlpPlan:
     splits = _ceil(chunks, _ceil(chunks, splits))  # no empty slice
     return MlpPlan(route, d_pad, h_pad, groups, group_cols, warpgroups, splits, row_tiles,
                    row_tiles * splits * groups)
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_plan_f32(m: int, d: int, h: int, sms: int) -> MlpPlanF32:
+    """The f32 kernel's plan for x `[m, d]`, w1 `[d, h]` on a card of `sms`
+    SMs (pure Python, decided before the launch; the C entry refuses another
+    G, and its `ucf_fused_mlp_tf32_shape` gives the columns and the shared
+    memory that `chip_smoke.py` holds these against). A block takes up to
+    384 of D's columns, so D > 384 takes a cluster of two blocks and D > 768
+    of three. H is split into S slices of whole 64-unit chunks, as many as
+    fill the SMs with one block each."""
+    groups = _ceil(d, F32_BLOCK_COLS)
+    group_cols = _ceil(_ceil(d, groups), F32_COL_STEP) * F32_COL_STEP
+    stages, smem = _f32_smem(group_cols, groups)
+    row_tiles = _ceil(m, MLP_ROWS)
+    chunks = _ceil(h, MLP_CHUNK)
+    splits = max(1, min(chunks, sms // (row_tiles * groups)))
+    splits = _ceil(chunks, _ceil(chunks, splits))  # no empty slice
+    return MlpPlanF32(groups, group_cols, stages, smem, splits, row_tiles,
+                      row_tiles * splits * groups)
 
 
 def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -131,7 +196,7 @@ def _check(x, w1, b1, w2, b2) -> None:
 
 
 _ARGTYPES = {
-    "fused_mlp": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "fused_mlp_tf32": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "fused_mlp_sm90": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
@@ -163,18 +228,22 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fused_mlp_fma(x2, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
-    """f32: csrc/fused_mlp.cu."""
+def _fused_mlp_tf32(x2, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
+    """f32: csrc/fused_mlp_tf32.cu, by the plan of `mlp_plan_f32`."""
     m, d = x2.shape
+    h = w1.shape[1]
     w1, w2 = w1.contiguous(), w2.contiguous()
     b1, b2 = b1.float().contiguous(), b2.float().contiguous()
+    plan = mlp_plan_f32(m, d, h, _sm_count(x2.device.index))
     y = torch.empty_like(x2)
-    err = _library("fused_mlp")(
+    ws = (torch.empty((plan.splits, m, d), dtype=torch.float32, device=x2.device)
+          if plan.splits > 1 else None)
+    err = _library("fused_mlp_tf32")(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), m, d, w1.shape[1], _KERNEL_DTYPES[x2.dtype], int(bool(approx)),
-        _stream(x2))
+        y.data_ptr(), ws.data_ptr() if ws is not None else None, m, d, h, plan.groups,
+        plan.splits, int(bool(approx)), _stream(x2))
     if err != 0:
-        raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_mlp_tf32 kernel launch failed: CUDA error {err}")
     return y
 
 
@@ -222,7 +291,7 @@ def _fused_mlp_cuda(x, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
         if source == "fused_mlp_sm90":
             y = _fused_mlp_sm90(x2, w1, b1, w2, b2, approx)
         else:
-            y = _fused_mlp_fma(x2, w1, b1, w2, b2, approx)
+            y = _fused_mlp_tf32(x2, w1, b1, w2, b2, approx)
     fused_mlp.launches += 1
     fused_mlp.by_source[source] += 1
     return y.reshape(x.shape)
