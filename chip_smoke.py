@@ -5,7 +5,8 @@
     python3 chip_smoke.py --compare CHECKOUT
 
 With `--compare` it runs only the device phase and times the bf16 flash
-forward, `fused_mlp` (bf16 and f32) and `int8_matmul` of this checkout's package and
+forward, the split backward route's kernels (dkv and dq, f32 and bf16),
+`fused_mlp` (bf16 and f32) and `int8_matmul` of this checkout's package and
 of the one in CHECKOUT (another tree of the repo unpacked by `git archive`,
 say the parent) in one process: see `compare_forward`.
 
@@ -17,8 +18,8 @@ result):
 2. build:   nvcc builds every kernel from csrc/ (flash_fwd_tf32,
             flash_bwd_tf32: f32 on the tensor cores by the 3xTF32 split on
             mma.sync; flash_fwd_sm90, flash_bwd_sm90: bf16 on the tensor
-            cores by wgmma; flash_bwd: the split route's f32 dkv and the dq
-            kernel of both types, on the CUDA cores; fused_mlp_sm90: the bf16
+            cores by wgmma; each backward source with its fused, dkv and dq
+            kernels; fused_mlp_sm90: the bf16
             fused MLP on the tensor cores by wgmma and TMA; fused_mlp_tf32: the
             f32 fused MLP on the tensor cores by the 3xTF32 split on mma.sync,
             clusters of blocks sharing a 64-row tile; int8_gemm: the W8A8 product on the
@@ -34,7 +35,8 @@ result):
             loads), and every entry of the three tf32 libraries holding HMMA
             instructions on TF32 operands (fused_mlp_tf32's sum of its S
             partials, mlp_reduce_tf32_kernel, exempt); no DH = 64 instance of
-            the forwards (sm90, tf32), not the D = 768 instances of
+            the forwards (sm90, tf32), of the tf32 backward or of the bf16
+            dq kernel, not the D = 768 instances of
             fused_mlp_sm90 (`<2, 192>`) and fused_mlp_tf32 (`<3, 2>`) and no
             int8_gemm_kernel may spill.
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -45,7 +47,10 @@ result):
             plain versions and one library call (a yardstick only: the port
             never calls it), with the host's time per call beside them, the
             least time the card could take, and both backward routes timed
-            end to end at every shape. The bf16 forward is also held and
+            at every shape in turns (fused, split, split, fused: device ms of
+            every kernel a call launches, with the spread of the two windows,
+            and host ms a call), beside the route `bwd_route` takes there.
+            The bf16 forward is also held and
             timed at mae_long's encoder shape [2, 12, 8192^2, 64] (against
             its plain version one head at a time; with 4096 keys or more
             bf16 o is held to LONG_FLASH_TOL), must take its TMA route
@@ -54,11 +59,14 @@ result):
             sap_bf16's decoder shape (SAP_DECODER_SHAPE).
             At mae_long's shapes (MAE_SHAPES, packed views): the bf16 forward
             at the decoder's [2, 6, 32768^2, 96] (dh 96 in the DH = 128
-            instance) and the fused backward at the encoder's [2, 12, 8192^2,
-            64] and the decoder's, held a head at a time against the plain
-            versions (the forward to MAE_DEC_FWD_TOL, the backward to
-            LONG_BWD_TOL) and timed beside them and
-            scaled_dot_product_attention (forward and backward).
+            instance) and both backward routes at the encoder's [2, 12,
+            8192^2, 64] and the decoder's, held a head at a time against the
+            plain versions (the forward to MAE_DEC_FWD_TOL, the backward to
+            LONG_BWD_TOL); the forward, the fused kernel, dkv and dq timed
+            beside their plain versions and scaled_dot_product_attention
+            (forward and backward); both routes timed in turns there and at
+            ROUTE_SHAPES (the decoder's at batch 1, contiguous, and at half
+            its length).
             Then the two ops that no model is wired to, in either package:
             `fused_mlp` at the ViT-B and ViT-L MLP shapes and a ragged one
             (bf16 and f32, tanh and erf GELU; bf16 through fused_mlp_sm90.cu
@@ -114,8 +122,10 @@ result):
             32768-token decoder; bf16, remat, batch 2, maskMSE) through the
             trainer's CLI entry with `--single-device`, the launch counts set
             to 0 before it and read after (every bf16 forward on the TMA
-            route); a timed and a traced window; the loss falling on one fixed
-            batch; FLASH against EINSUM on a copy of depth 1 with a 64^3 tile
+            route; each block's backward on the route `bwd_route` gives its
+            shape: the encoder's fused, the decoder's split); a timed and a
+            traced window; the loss falling on one fixed batch; FLASH against
+            EINSUM on a copy of depth 1 with a 64^3 tile
             (per-step losses, and the first step's gradients leaf by leaf).
 8. disk:    mae_long from NIfTI files: seeded CT-like int16 volumes of 512 x
             512 x 128 written under build/, and a copy of the shipped config
@@ -350,13 +360,15 @@ TMA_SASS = {"flash_fwd_sm90": "UTMALDG", "fused_mlp_sm90": "UTMALDG", "int8_gemm
 SASS_EXEMPT = {"fused_mlp_sm90": "mlp_reduce_kernel", "fused_mlp_tf32": "mlp_reduce_tf32_kernel",
                "int8_gemm": "int8_prepare"}
 # sources whose DH = 64 instances (the main paths') must not spill, and the instances of
-# other sources that must not: the fused MLPs' at D = 768 (fused_mlp_sm90's WN = 192, two
-# output warpgroups; fused_mlp_tf32's three 128-column groups in clusters of two) and
-# every instance of the int8 GEMM
+# other sources that must not: the bf16 dq kernel's at DH = 64, the fused MLPs' at D = 768
+# (fused_mlp_sm90's WN = 192, two output warpgroups; fused_mlp_tf32's three 128-column
+# groups in clusters of two) and every instance of the int8 GEMM
 NO_SPILL_AT_64 = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_fwd_sm90")
-NO_SPILL = {"fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>",
+NO_SPILL = {"flash_bwd_sm90": "flash_bwd_dq_sm90_kernel<Li64E",
+            "fused_mlp_sm90": "fused_mlp_sm90_kernel<Li2ELi192E>",
             "fused_mlp_tf32": "fused_mlp_tf32_kernel<Li3ELi2E>", "int8_gemm": "int8_gemm_kernel"}
-KERNEL_NAME = re.compile(r"(flash_(?:bwd_kv|bwd_dq|fwd_sm90|bwd_sm90|fwd_tf32|bwd_tf32)_kernel|"
+KERNEL_NAME = re.compile(r"(flash_(?:bwd_dq_sm90|bwd_dq_tf32|fwd_sm90|bwd_sm90|fwd_tf32|"
+                         r"bwd_tf32)_kernel|"
                          r"fused_mlp(?:_sm90|_tf32)?_kernel|mlp_reduce(?:_tf32)?_kernel|"
                          r"int8_gemm_kernel|int8_prepare)(?:I(\w+?)EEv)?")
 
@@ -394,7 +406,7 @@ def phase_build():
         return name, build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (*TF32_SOURCES, "flash_bwd", *SM90_SOURCES, "int8_gemm")
+    sources = (*TF32_SOURCES, *SM90_SOURCES, "int8_gemm")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         built = list(pool.map(one, sources))
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -413,8 +425,7 @@ def phase_build():
         log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
             + (f": {', '.join(spills)}" if spills else ""))
-        if name in TMA_SASS or name in NO_SPILL:
-            log(f"[build] {name} registers: {', '.join(by_entry)}")
+        log(f"[build] {name} registers: {', '.join(by_entry)}")
         if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
             fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
         if name in NO_SPILL and any(NO_SPILL[name] in sp for sp in spills):
@@ -502,6 +513,11 @@ SAP_DECODER_SHAPE = (16, 16, 512, 512, 36)
 # from TMA's zero fill past the map's first dim, never from the next head
 MAE_DEC_SHAPE = (2, 6, 32768, 32768, 96, True)
 MAE_SHAPES = {"encoder": LONG_FWD_SHAPE, "decoder": MAE_DEC_SHAPE}  # phase_mae_kernels
+# bf16 shapes timed for the backward's route alone (phase_mae_kernels): the decoder's at
+# batch 1 as packed views and at batch 2 as contiguous tensors (LONG_SHAPE is batch 1,
+# contiguous), and half its length in the decoder's and the encoder's widths
+ROUTE_SHAPES = [(1, 6, 32768, 32768, 96, True), (2, 6, 32768, 32768, 96, False),
+                (2, 6, 16384, 16384, 96, True), (2, 12, 16384, 16384, 64, True)]
 # the bf16 fused backward at MAE_SHAPES, max |d - plain| over max |plain|: the readings
 # on an H100 were 2.5e-3 to 3.6e-3, about what rounding the outputs to bf16 alone gives
 # (2-3e-3 of the largest entry); 1e-2 is about three times the largest (BWD_TOL's 2e-2
@@ -513,17 +529,15 @@ LONG_BWD_TOL = 1e-2
 # plain version moves its o by 1.4e-1 to 1.9e-1 of max |o| (phase_mae_kernels logs it
 # for tile 100 and fails if the limit would not catch it), so 1e-2 sits between the two
 MAE_DEC_FWD_TOL = 1e-2
-# the profiler's kernel names: f32 by 3xTF32 and bf16 by wgmma on the tensor cores; the
-# split route's f32 dkv and its dq (both types) on the CUDA cores
+# the profiler's kernel names: f32 by 3xTF32 and bf16 by wgmma on the tensor cores
 FWD_KERNEL = {"float32": "flash_fwd_tf32_kernel", "bfloat16": "flash_fwd_sm90_kernel"}
 
 
 def _bwd_kernel(dtype_name: str, kind: str) -> str:
-    if kind == "dq":
-        return "flash_bwd_dq_kernel"
-    if dtype_name == "bfloat16":
-        return "flash_bwd_sm90_kernel"
-    return "flash_bwd_tf32_kernel" if kind == "fused" else "flash_bwd_kv_kernel"
+    """The profiler's name of a backward kernel: the fused and the dkv kernel are
+    instances of one template (flash_bwd_<sm90|tf32>_kernel), dq has its own."""
+    src = "sm90" if dtype_name == "bfloat16" else "tf32"
+    return f"flash_bwd_dq_{src}_kernel" if kind == "dq" else f"flash_bwd_{src}_kernel"
 
 
 def phase_kernels():
@@ -687,38 +701,35 @@ def _bwd_case(q, k, v, dh, rate, seed, row0, col0, gen, per_head=False):
     return o, lse, do, got, rel, ref_max, errs
 
 
-def _plain_p_dp(q, k, v, o, lse, do, sm):
-    """p = exp(s - lse), dp = do v^T and di = rowsum(do o) in f32 at rate 0,
-    as `flash_attention_bwd_plain` makes them."""
-    import torch
+def _route_ms(shape: str, dtype, q, k, v, o, lse, do, iters: int) -> None:
+    """Both backward routes of `flash_attention_bwd` on these inputs, timed in
+    turns (fused, split, split, fused), logged as the `[route]` line: per
+    route its device ms a call (every kernel the call launches, `device_ms`)
+    and its host ms a call (`time_ms`), each the mean of its two windows, the
+    spread of the device ms (the difference of the two windows), the faster
+    by device time and whether its lead exceeds both spreads, and the route
+    `bwd_route` takes at this shape."""
+    from ucf_vit_tpu_torch.ops.flash_attention import BWD_ROUTES, bwd_route, flash_attention_bwd
 
-    b, h, n_q, _ = q.shape
-    qf, kf, dof = q.float(), k.float(), do.float()
-    di = (o.float() * dof).sum(-1, keepdim=True)
-    p = torch.einsum("bhqd,bhkd->bhqk", qf, kf).mul_(sm)
-    p.sub_(lse.view(b, h, n_q, 1)).exp_()
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
-    return p, dp.sub_(di), qf, kf, dof
-
-
-def _plain_dkv(q, k, v, o, lse, do, sm):
-    """(dk, dv) alone by the plain backward's formula: the plain version of
-    `flash_bwd_dkv`'s outputs (four products)."""
-    import torch
-
-    p, dp_di, qf, _, dof = _plain_p_dp(q, k, v, o, lse, do, sm)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    dk = torch.einsum("bhqk,bhqd->bhkd", p.mul_(dp_di).mul_(sm), qf)
-    return dk.to(k.dtype), dv.to(v.dtype)
-
-
-def _plain_dq(q, k, v, o, lse, do, sm):
-    """dq alone by the plain backward's formula: the plain version of
-    `flash_bwd_dq`'s output (three products)."""
-    import torch
-
-    p, dp_di, _, kf, _ = _plain_p_dp(q, k, v, o, lse, do, sm)
-    return torch.einsum("bhqk,bhkd->bhqd", p.mul_(dp_di).mul_(sm), kf).to(q.dtype)
+    sm = q.shape[-1] ** -0.5
+    dev, host = {r: [] for r in BWD_ROUTES}, {r: [] for r in BWD_ROUTES}
+    for r in ("fused", "split", "split", "fused"):
+        def call(r=r):
+            return flash_attention_bwd(q, k, v, o, lse, do, sm, route=r)
+        dev[r].append(device_ms(call, iters=iters, warmup=1)[0])
+        host[r].append(time_ms(call, iters=iters, warmup=1))
+    out = {r: {"device_ms": sum(dev[r]) / 2, "host_ms": sum(host[r]) / 2,
+               "spread_ms": abs(dev[r][0] - dev[r][1])} for r in BWD_ROUTES}
+    faster, slower = sorted(BWD_ROUTES, key=lambda r: out[r]["device_ms"])
+    lead = out[slower]["device_ms"] - out[faster]["device_ms"]
+    clear = lead > max(out[r]["spread_ms"] for r in BWD_ROUTES)
+    _, _, n_q, dh = q.shape
+    taken = bwd_route(dtype, n_q, k.shape[2], dh)
+    log(f"[route] {shape}: device ms a call (spread) fused {out['fused']['device_ms']:.4f} "
+        f"({out['fused']['spread_ms']:.4f}), split (dkv + dq) {out['split']['device_ms']:.4f} "
+        f"({out['split']['spread_ms']:.4f}); host ms a call fused "
+        f"{out['fused']['host_ms']:.4f}, split {out['split']['host_ms']:.4f}; faster {faster}"
+        f"{'' if clear else ' (within the spread)'}; bwd_route takes {taken}")
 
 
 def phase_bwd_kernels():
@@ -734,8 +745,9 @@ def phase_bwd_kernels():
         _bwd_launch,
         _dq_workspace,
         _dropout_args,
-        flash_attention_bwd,
         flash_attention_bwd_plain,
+        flash_attention_dkv_plain,
+        flash_attention_dq_plain,
         flash_attention_plain,
     )
 
@@ -766,13 +778,7 @@ def phase_bwd_kernels():
                 if any(g.dtype != dtype or g.shape != t.shape for g, t in zip(got[r], (q, k, v))):
                     fail(f"flash_bwd route {r} returned the wrong dtype or shape at {shape}")
             sm = dh**-0.5
-            iters = 3 if n_q * n_kv > 1e8 else 20
-            route_ms = {r: time_ms(lambda r=r: flash_attention_bwd(q, k, v, o, lse, do, sm,
-                                                                   route=r),
-                                   iters=iters, warmup=1) for r in BWD_ROUTES}
-            faster = min(route_ms, key=route_ms.get)
-            log(f"[route] {shape}: fused {route_ms['fused']:.4f} ms, split (dkv + dq) "
-                f"{route_ms['split']:.4f} ms; faster {faster}, dispatch takes fused")
+            _route_ms(shape, dtype, q, k, v, o, lse, do, iters=3 if n_q * n_kv > 1e8 else 20)
             if (b, h, n_q, n_kv, dh) not in TIMED_SHAPES:
                 continue
             key = TIMED_SHAPES[(b, h, n_q, n_kv, dh)] + dtype_name
@@ -793,8 +799,8 @@ def phase_bwd_kernels():
             # the fused kernel, (dk, dv) for dkv, dq for dq
             plains = {
                 "fused": lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
-                "dkv": lambda: _plain_dkv(q, k, v, o, lse, do, sm),
-                "dq": lambda: _plain_dq(q, k, v, o, lse, do, sm),
+                "dkv": lambda: flash_attention_dkv_plain(q, k, v, o, lse, do, sm),
+                "dq": lambda: flash_attention_dq_plain(q, k, v, o, lse, do, sm),
             }
             whole = plains["fused"]()
             parts = (*plains["dkv"](), plains["dq"]())
@@ -855,19 +861,25 @@ def phase_mae_kernels():
     encoder's is in phase_kernels): held a head at a time to MAE_DEC_FWD_TOL,
     on the TMA route packed and as contiguous copies with the same o, timed
     beside its plain version (a head at a time) and scaled_dot_product_attention.
-    The fused backward at both: dq, dk, dv held a head at a time against the
-    plain backward to LONG_BWD_TOL, timed beside its plain version (a head at
-    a time) and SDPA's backward. Returns {shape name: {"fwd"?, "bwd": numbers}}."""
+    Both backward routes at both: dq, dk, dv held a head at a time against the
+    plain backward to LONG_BWD_TOL, both routes timed in turns (`_route_ms`),
+    each kernel (fused, dkv, dq) timed beside its plain version (a head at a
+    time), the fused one beside SDPA's backward too; then both routes timed
+    alone at ROUTE_SHAPES. Returns {shape name: {"fwd"?, "bwd": {kind:
+    numbers}}}."""
     import torch
     import torch.nn.functional as F
 
     from ucf_vit_tpu_torch.ops.flash_attention import (
+        BWD_ROUTES,
         _bwd_launch,
         _dq_workspace,
         _dropout_args,
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_plain,
+        flash_attention_dkv_plain,
+        flash_attention_dq_plain,
         flash_attention_plain,
     )
 
@@ -935,53 +947,78 @@ def phase_mae_kernels():
         elif routes != {"tma": 1, "padded": 0}:
             fail(f"the bf16 forward left its TMA route at {shape}: {routes}")
 
-        # the fused backward, from the layout autograd hands it
+        # both backward routes, from the layout autograd hands them
         do = torch.randn(b, n, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
         do = do.transpose(1, 2)
-        got = flash_attention_bwd(q, k, v, o, lse, do, sm)
+        got = {r: flash_attention_bwd(q, k, v, o, lse, do, sm, route=r) for r in BWD_ROUTES}
         torch.cuda.synchronize()
-        errs, ref_max = [0.0] * 3, [0.0] * 3
+        errs = {r: [0.0] * 3 for r in BWD_ROUTES}
+        ref_max = [0.0] * 3
         for ref, hs in zip(_by_head(lambda *t: flash_attention_bwd_plain(
                 *(x.float() for x in t[:4]), t[4], t[5].float(), sm), q, k, v, o, lse, do),
                 [slice(i, i + 1) for i in range(h)]):
             for i, want in enumerate(ref):
                 ref_max[i] = max(ref_max[i], want.abs().max().item())
-                errs[i] = max(errs[i], (got[i][:, hs].float() - want).abs().max().item())
+                for r in BWD_ROUTES:
+                    errs[r][i] = max(errs[r][i],
+                                     (got[r][i][:, hs].float() - want).abs().max().item())
             del ref
-        rel = [e / m for e, m in zip(errs, ref_max)]
-        log(f"[mae] flash_bwd fused {shape}: max|d-plain|/max|plain| dq {rel[0]:.3e} dk "
-            f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {LONG_BWD_TOL:g}), a head at a time; max|plain| "
-            f"{ref_max[0]:.3e} {ref_max[1]:.3e} {ref_max[2]:.3e}")
-        if max(rel) > LONG_BWD_TOL or not all(m > 0 for m in ref_max):
-            fail(f"the fused backward disagrees with its plain version at {shape}")
+        for r in BWD_ROUTES:
+            rel = [e / m for e, m in zip(errs[r], ref_max)]
+            log(f"[mae] flash_bwd {r:5s} {shape}: max|d-plain|/max|plain| dq {rel[0]:.3e} dk "
+                f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {LONG_BWD_TOL:g}), a head at a time; "
+                f"max|plain| {ref_max[0]:.3e} {ref_max[1]:.3e} {ref_max[2]:.3e}")
+            if max(rel) > LONG_BWD_TOL or not all(m > 0 for m in ref_max):
+                fail(f"the {r} backward disagrees with its plain version at {shape}")
         del got
+        _route_ms(shape, torch.bfloat16, q, k, v, o, lse, do, iters=3)
+        # each kernel alone, from buffers made beforehand: device ms beside its plain
+        # version (a head at a time), and for the fused kernel SDPA's backward
         di = (o.float() * do.float()).sum(-1).reshape(b * h, n)
         ws = _dq_workspace(b, n, h, dh, q.device)
-        dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=q.dtype).transpose(1, 2)
-                  for _ in "kv")
+        dq, dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=q.dtype).transpose(1, 2)
+                      for _ in "qkv")
         drop = _dropout_args(0.0, 0, 0, 0)
-        ms, host = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
-                                                 drop),
-                             _bwd_kernel("bfloat16", "fused"), iters=10, warmup=2)
-        plain_ms, _ = device_ms(lambda: _by_head(
-            lambda *t: flash_attention_bwd_plain(*t, sm), q, k, v, o, lse, do), iters=2, warmup=1)
+        plains = {"fused": flash_attention_bwd_plain, "dkv": flash_attention_dkv_plain,
+                  "dq": flash_attention_dq_plain}
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
         library_ms, _ = device_ms(
             lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
             iters=10, warmup=2)
         del out, qg, kg, vg
-        flops, nbytes = _bwd_work("fused", b, h, n, n, dh, q.element_size())
-        bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
-        timed[name]["bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by,
-                              "max_abs_err": max(errs)}
-        log(f"[mae] flash_bwd_fused {shape} ({_bwd_kernel('bfloat16', 'fused')}), device ms per "
-            f"call (host ms): kernel {ms:.4f} ({host:.4f}), plain a head at a time "
-            f"{plain_ms:.4f}, scaled_dot_product_attention backward {library_ms:.4f}; bound "
-            f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP at dh {dh})")
-        del q, k, v, o, lse, do, di, ws, dk, dv
+        # each kernel's own error: the fused route's dq, dk, dv; the split route's dk, dv
+        # for dkv and its dq for dq
+        kernel_err = {"fused": max(errs["fused"]), "dkv": max(errs["split"][1:]),
+                      "dq": errs["split"][0]}
+        timed[name]["bwd"] = {}
+        for kind, plain in plains.items():
+            ms, host = device_ms(lambda: _bwd_launch(kind, q, k, v, do, lse, di,
+                                                     ws if kind == "fused" else dq, dk, dv, sm,
+                                                     drop),
+                                 _bwd_kernel("bfloat16", kind), iters=10, warmup=2)
+            plain_ms, _ = device_ms(lambda: _by_head(
+                lambda *t: plain(*t, sm), q, k, v, o, lse, do), iters=2, warmup=1)
+            flops, nbytes = _bwd_work(kind, b, h, n, n, dh, q.element_size())
+            bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
+            timed[name]["bwd"][kind] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms if kind == "fused" else None,
+                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": kernel_err[kind]}
+            log(f"[mae] flash_bwd_{kind} {shape} ({_bwd_kernel('bfloat16', kind)}), device ms "
+                f"per call (host ms): kernel {ms:.4f} ({host:.4f}), plain a head at a time "
+                f"{plain_ms:.4f}" + (f", scaled_dot_product_attention backward {library_ms:.4f}"
+                                     if kind == "fused" else "")
+                + f"; bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP at dh {dh})")
+        del q, k, v, o, lse, do, di, ws, dq, dk, dv
         torch.cuda.empty_cache()
+    for b, h, n, _, dh, packed in ROUTE_SHAPES:
+        q, k, v = _flash_inputs(b, h, n, n, dh, torch.bfloat16, packed, gen)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        do = torch.randn(b, n, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
+        shape = f"[{b},{h},{n}x{n},{dh}] bfloat16{' qkv-views' if packed else ''}"
+        _route_ms(shape, torch.bfloat16, q, k, v, o, lse, do.transpose(1, 2), iters=3)
+        del q, k, v, o, lse, do
     return timed
 
 
@@ -1361,8 +1398,7 @@ def _launch_counts() -> dict:
 
     counts = {"flash_fwd": flash_attention.launches, "keep_mask": keep_mask.launches}
     counts.update({f"flash_bwd_{k}": n for k, n in flash_attention_bwd.by_kernel.items()})
-    # and by source: the tf32 sources (f32 forward and fused backward), the sm90 ones
-    # (bf16 forward, fused and dkv) or flash_bwd.cu (f32 dkv, dq of both types)
+    # and by source: the tf32 sources (f32) or the sm90 ones (bf16)
     counts.update({f"src:{s}": n for s, n in flash_attention.by_source.items()})
     counts.update({f"src:{s}": n for s, n in flash_attention_bwd.by_source.items()})
     # the bf16 forward's route: "tma" (q, k, v loaded as they are) or "padded" (copied first)
@@ -1400,24 +1436,50 @@ def _run_steps(cfg, batches):
     return state, step, losses, grads, _launch_counts()
 
 
-def _expected_counts(depth: int, steps: int, route: str, dropout: bool,
-                     bf16: bool = False, forwards_per_step: int = 1) -> dict:
-    """The launch counts of `steps` train steps of a model of `depth` blocks:
-    `forwards_per_step` flash forwards (2 under remat) and one backward per
-    block, each counted under the source its dtype and kind run on: every f32
-    forward and fused backward under the tf32 sources, every bf16 forward on
-    the sm90 forward's TMA route."""
-    n = depth * steps
-    bwd = {"fused": n, "dkv": 0, "dq": 0} if route == "fused" else {"fused": 0, "dkv": n, "dq": n}
-    counts = {"flash_fwd": forwards_per_step * n, **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
+# (Nq, Nkv, dh) of the attention of ViT-B/16 and ViT-L/16 as shipped: 256 patches of a
+# 256 x 256 image and the cls token, dh 64
+VIT_ATTN = (257, 257, 64)
+
+
+def _attn_shapes(model) -> list:
+    """(Nq, Nkv, dh) of each attention block's flash call in `model` (a VIT,
+    or an MAE: its encoder on the kept tokens, then its decoder on all)."""
+    from ucf_vit_tpu_torch.models import MAE
+
+    def shapes(blocks, n):
+        return [(n, n, blk.attn.head_dim) for blk in blocks]
+
+    if isinstance(model, MAE):
+        return (shapes(model.blocks, model.len_keep)
+                + shapes(model.decoder_blocks, model.num_patches))
+    return shapes(model.blocks, model.num_patches + model.num_prefix_tokens)
+
+
+def _expected_counts(shapes: list, steps: int, dropout: bool, bf16: bool = False,
+                     forwards_per_step: int = 1) -> dict:
+    """The launch counts of `steps` train steps of a model whose attention
+    blocks take these (Nq, Nkv, dh): `forwards_per_step` flash forwards (2
+    under remat) and one backward per block, on the route `bwd_route` gives
+    its shape (the fused kernel, or dkv and dq), each counted under the source
+    of its dtype: f32 under the tf32 sources, bf16 under the sm90 ones, every
+    bf16 forward on the sm90 forward's TMA route."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import bwd_route
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    bwd = {"fused": 0, "dkv": 0, "dq": 0}
+    for shape in shapes:
+        for kind in ("fused",) if bwd_route(dtype, *shape) == "fused" else ("dkv", "dq"):
+            bwd[kind] += steps
+    counts = {"flash_fwd": forwards_per_step * len(shapes) * steps,
+              **{f"flash_bwd_{k}": c for k, c in bwd.items()}}
     counts["keep_mask"] = counts["flash_fwd"] + sum(bwd.values()) if dropout else 0
-    sm90_bwd = bwd["fused"] + bwd["dkv"] if bf16 else 0  # bf16 dq stays in flash_bwd.cu
-    tf32_bwd = 0 if bf16 else bwd["fused"]  # f32 dkv and dq stay in flash_bwd.cu
     counts.update({
         "src:flash_fwd_tf32": 0 if bf16 else counts["flash_fwd"],
         "src:flash_fwd_sm90": counts["flash_fwd"] if bf16 else 0,
-        "src:flash_bwd": sum(bwd.values()) - sm90_bwd - tf32_bwd,
-        "src:flash_bwd_sm90": sm90_bwd, "src:flash_bwd_tf32": tf32_bwd,
+        "src:flash_bwd_tf32": 0 if bf16 else sum(bwd.values()),
+        "src:flash_bwd_sm90": sum(bwd.values()) if bf16 else 0,
         # every bf16 forward of a model path on the TMA route, none copied
         "route:tma": counts["flash_fwd"] if bf16 else 0, "route:padded": 0,
     })
@@ -1489,7 +1551,6 @@ def phase_train():
 
     cfg = load_config(CONFIG)
     depth = int(cfg.init_args["depth"])
-    route = "fused"  # the backward's dispatch at every shape (PERF.md, route threshold)
     stream = synthetic_batches(cfg, TRAIN_BATCH, seed=0)
     batches = [next(stream) for _ in range(WARMUP_STEPS + 2 * TIMED_STEPS)]
 
@@ -1520,7 +1581,7 @@ def phase_train():
         g = gf.get(f"blocks.{i}.attn.qkv.weight")
         if g is None or g.abs().max().item() == 0:
             fail(f"blocks.{i}.attn.qkv.weight has no gradient under FLASH")
-    want = _expected_counts(depth, TRAIN_STEPS, route, dropout=False)
+    want = _expected_counts([VIT_ATTN] * depth, TRAIN_STEPS, dropout=False)
     if cf != want or any(ce.values()):
         fail(f"launches {cf} under FLASH (expected {want}), {ce} under EINSUM (expected none)")
 
@@ -1547,7 +1608,7 @@ def phase_train():
         fail("FLASH training losses with dropout disagree with EINSUM's")
     if abs(dlf[0] - lf[0]) < 1e-5:
         fail("attention dropout changed nothing")
-    want = _expected_counts(depth, DROPOUT_STEPS, route, dropout=True)
+    want = _expected_counts([VIT_ATTN] * depth, DROPOUT_STEPS, dropout=True)
     if dcf != want:
         fail(f"launches {dcf} on the dropout path, expected {want}")
 
@@ -1568,7 +1629,7 @@ def phase_train():
     main_counts = _launch_counts()
     log(f"[train] train() {MAIN_PATH_STEPS} steps in {time.perf_counter() - t0:.2f} s (init "
         f"and saves included): epoch losses {out['loss_list']}; launches {main_counts}")
-    want = _expected_counts(depth, MAIN_PATH_STEPS, route, dropout=False)
+    want = _expected_counts([VIT_ATTN] * depth, MAIN_PATH_STEPS, dropout=False)
     if main_counts != want or not all(np.isfinite(out["loss_list"])):
         fail(f"train() launched {main_counts} (expected {want}), losses {out['loss_list']}")
     saves = _saves(tee.text(), ckpt_dir, ("multi_last_even.ckpt", "multi_last_odd.ckpt"))
@@ -1623,9 +1684,10 @@ def _saves(text: str, ckpt_dir: str, slots) -> list:
 def _kernel_groups(kernels, busy_ms: float) -> str:
     """Device time of a traced window by kind of kernel, from the kernels' names."""
     groups = {"GEMMs (cuBLAS/CUTLASS)": 0.0, "flash_fwd_sm90_kernel": 0.0,
-              "flash_bwd_sm90_kernel": 0.0, "flash_fwd_tf32_kernel": 0.0,
-              "flash_bwd_tf32_kernel": 0.0, "flash_bwd_kv_kernel": 0.0,
-              "AdamW (multi-tensor)": 0.0, "other (LayerNorm, GELU, casts, adds, copies)": 0.0}
+              "flash_bwd_sm90_kernel": 0.0, "flash_bwd_dq_sm90_kernel": 0.0,
+              "flash_fwd_tf32_kernel": 0.0, "flash_bwd_tf32_kernel": 0.0,
+              "flash_bwd_dq_tf32_kernel": 0.0, "AdamW (multi-tensor)": 0.0,
+              "other (LayerNorm, GELU, casts, adds, copies)": 0.0}
     for t_us, _, key in kernels:
         name = key.lower()
         flash = [g for g in groups if g.startswith("flash") and g in name]
@@ -1676,7 +1738,7 @@ def phase_train_bf16():
         f"{BF16_TRAIN_LOSS_TOL:g})")
     if not all(np.isfinite(lf)) or loss_diff > BF16_TRAIN_LOSS_TOL:
         fail("bf16 FLASH training losses disagree with EINSUM's")
-    want = _expected_counts(depth, TRAIN_STEPS, "fused", dropout=False, bf16=True)
+    want = _expected_counts([VIT_ATTN] * depth, TRAIN_STEPS, dropout=False, bf16=True)
     if cf != want or any(ce.values()):
         fail(f"bf16 launches {cf} under FLASH (expected {want}), {ce} under EINSUM")
 
@@ -1694,7 +1756,7 @@ def phase_train_bf16():
         f"launches {main_counts}")
     # under remat each block's forward runs twice per microbatch; every launch is bf16, so
     # every one goes to the tensor-core kernels
-    want = _expected_counts(depth_l, accum * VIT_L_MAIN_STEPS, "fused", dropout=False,
+    want = _expected_counts(_attn_shapes(model), accum * VIT_L_MAIN_STEPS, dropout=False,
                             bf16=True, forwards_per_step=2)
     if main_counts != want or not all(np.isfinite(out["loss_list"])):
         fail(f"ViT-L train launched {main_counts} (expected {want}), losses {out['loss_list']}")
@@ -1726,8 +1788,8 @@ def phase_train_bf16():
     plain = _measure_steps("bf16", f"ViT-L/16 bf16 batch {batch} (4 x 8), remat off", state,
                            step, batches[:w], batches[w:w + VIT_L_NO_REMAT_STEPS])
     counts = _launch_counts()
-    want = _expected_counts(depth_l, accum * (w + VIT_L_NO_REMAT_STEPS), "fused", dropout=False,
-                            bf16=True)
+    want = _expected_counts([VIT_ATTN] * depth_l, accum * (w + VIT_L_NO_REMAT_STEPS),
+                            dropout=False, bf16=True)
     if counts != want:
         fail(f"remat off launched {counts}, expected {want}")
     del state, step
@@ -1786,7 +1848,7 @@ def phase_train_mae():
         fail("the MAE run was not mae_long at full width and depth, bf16 with remat on f32 "
              "parameters")
     # under remat each block's forward runs twice a step, the decoder's as the encoder's
-    want = _expected_counts(enc + dec, MAE_MAIN_STEPS, "fused", dropout=False, bf16=True,
+    want = _expected_counts(_attn_shapes(model), MAE_MAIN_STEPS, dropout=False, bf16=True,
                             forwards_per_step=2)
     if main_counts != want or not all(np.isfinite(out["loss_list"])):
         fail(f"mae_long train launched {main_counts} (expected {want}), losses "
@@ -1843,6 +1905,7 @@ def phase_train_mae():
         runs[impl] = (losses, grads, counts)
         log(f"[mae] depth 1, tile {MAE_CHECK_TILE}^3, {impl}: losses "
             f"{' '.join(f'{x:.6f}' for x in losses)}; launches {counts}")
+        shapes = _attn_shapes(st.model)
         del st
     (lf, gf, cf), (le, ge, ce) = runs["FLASH"], runs["EINSUM"]
     diff = max(abs(a - b) for a, b in zip(lf, le))
@@ -1857,7 +1920,7 @@ def phase_train_mae():
     if not all(ge[n].abs().max() > 0 for n in MAE_ATTN_LEAVES) \
             or not rel[worst] <= MAE_CHECK_GRAD_TOL:
         fail("mae_long FLASH first-step gradients disagree with EINSUM's")
-    want = _expected_counts(2, MAE_CHECK_STEPS, "fused", dropout=False, bf16=True,
+    want = _expected_counts(shapes, MAE_CHECK_STEPS, dropout=False, bf16=True,
                             forwards_per_step=2)
     if cf != want or any(ce.values()):
         fail(f"MAE launches {cf} under FLASH (expected {want}), {ce} under EINSUM")
@@ -2018,7 +2081,7 @@ def _jpeg_path(work: str, vit_ms_step: float):
     with _Tee() as tee:
         out = train_main([path])
     counts = _launch_counts()
-    want = _expected_counts(int(cfg.init_args["depth"]), steps, "fused", dropout=False)
+    want = _expected_counts([VIT_ATTN] * int(cfg.init_args["depth"]), steps, dropout=False)
     ms_it = [float(m) for m in re.findall(r"epoch \d+ it \d+ loss \S+ ([\d.]+) ms/it",
                                           tee.text())]
     if counts != want or len(ms_it) != steps or not all(np.isfinite(out["loss_list"])):
@@ -2103,7 +2166,7 @@ def phase_train_disk(synthetic: dict, vit_ms_step: float):
         model = out["state"].model
         enc, dec = len(model.blocks), len(model.decoder_blocks)
         steps = DISK_EPOCHS * per_epoch
-        want = _expected_counts(enc + dec, steps, "fused", dropout=False, bf16=True,
+        want = _expected_counts(_attn_shapes(model), steps, dropout=False, bf16=True,
                                 forwards_per_step=2)
         per_step = {k: n // steps for k, n in counts.items()}
         synth_per_step = {k: n // MAE_MAIN_STEPS for k, n in synthetic["main"].items()}
@@ -2557,8 +2620,50 @@ def compare_mlp(checkouts, forwards) -> None:
                 f"int8_matmul [{m},{k}]x[{k},{n}] bf16")
 
 
+def compare_split_bwd(checkouts, forwards) -> None:
+    """The split route's kernels of each checkout at ViT-B/16's training shape
+    (SHAPES[0], packed views): dkv and dq in f32 and in bf16, each launched
+    alone on the same inputs into buffers made beforehand (`_bwd_launch`),
+    its device time a call (every kernel of the call) in the order this
+    checkout, the other, the other, this one; each checkout's outputs against
+    the first's."""
+    import torch
+
+    b, h, n, _, dh, packed = SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sm = dh**-0.5
+    launch = [m["ucf_vit_tpu_torch.ops.flash_attention"]._bwd_launch for _, m in forwards]
+    no_dropout = (0, 0, 0, 0, 0, 1.0)  # `_dropout_args` at rate 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_inputs(b, h, n, n, dh, dtype, packed, gen)
+        do = torch.randn(b, n, h, dh, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+        _use(forwards[0][1])
+        o, lse = forwards[0][0](q, k, v, return_lse=True)
+        di = (o.float() * do.float()).sum(-1).reshape(b * h, n)
+        for kind in ("dkv", "dq"):
+            outs = [tuple(torch.zeros(b, n, h, dh, device="cuda", dtype=dtype).transpose(1, 2)
+                          for _ in "qkv") for _ in checkouts]
+
+            def call(i):
+                launch[i](kind, q, k, v, do, lse, di, *outs[i], sm, no_dropout)
+
+            times = [[] for _ in checkouts]
+            for i in (0, 1, 1, 0):
+                _use(forwards[i][1])
+                times[i].append(device_ms(lambda: call(i), iters=20, warmup=2)[0])
+            wrote = slice(0, 1) if kind == "dq" else slice(1, 3)
+            label = f"flash_bwd {kind} [{b},{h},{n},{dh}] {str(dtype).split('.')[-1]}"
+            for i, c in enumerate(checkouts):
+                diff = max((x.float() - y.float()).abs().max().item()
+                           for x, y in zip(outs[i][wrote], outs[0][wrote]))
+                log(f"[compare] {c} {label}: a call {', '.join(f'{t:.4f}' for t in times[i])} "
+                    f"ms (device, all kernels); max |d - this checkout's| {diff:.3e}")
+    _use({})
+
+
 def compare_forward(other: str) -> None:
-    """`fused_mlp` and `int8_matmul` (`compare_mlp`), then the bf16 flash
+    """`fused_mlp` and `int8_matmul` (`compare_mlp`), the split route's
+    backward kernels (`compare_split_bwd`), then the bf16 flash
     forward of this checkout and of `other`, in one process, on the packed qkv
     views of ViT-B/16's and ViT-L/16's shapes and mae_long's encoder
     (`TIMED_SHAPES`): device ms per call of `flash_fwd_sm90_kernel`
@@ -2577,6 +2682,7 @@ def compare_forward(other: str) -> None:
     checkouts = [REPO, other]
     forwards = [_load_forward(c) for c in checkouts]
     compare_mlp(checkouts, forwards)
+    compare_split_bwd(checkouts, forwards)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, h, n, _, dh in TIMED_SHAPES:
         q, k, v = _flash_inputs(b, h, n, n, dh, torch.bfloat16, True, gen)
@@ -2654,11 +2760,15 @@ def main() -> int:
     # ViT-B/16 shape that serving and f32 training give it, with the launches of those
     # paths, and the bf16 instance (*_sm90.cu) at ViT-L/16's microbatch shape, with the
     # launches of the ViT-L training through the CLI entry. The bf16 instances have a
-    # second row on mae_long's path: its numbers at the decoder's shape (MAE_DEC_SHAPE,
-    # most of that path's attention time), its launches those of the mae_long training
-    # through the CLI entry (the encoder's 8192-token calls and the decoder's together;
-    # PERF.md splits them by the traced window). The split route's kernels (dkv, dq) are
-    # on no main path; their rows are the f32 instances (flash_bwd.cu). The hash counts
+    # second row on mae_long's path: their numbers at the decoder's shape (MAE_DEC_SHAPE,
+    # most of that path's attention time), their launches those of the mae_long training
+    # through the CLI entry (the forward's: the encoder's 8192-token calls and the
+    # decoder's together, PERF.md splitting them by the traced window; the fused
+    # backward's: the encoder's, since the decoder's backward takes the split route). The
+    # split route's kernels have an f32 row each at ViT-B/16's shape (flash_bwd_tf32.cu; on
+    # no f32 path: 0 launches), a bf16 dq row there (flash_bwd_sm90.cu; bf16 dkv is the
+    # fused kernel's template) and a row each at the decoder's shape with the decoder's
+    # launches on mae_long's path, which must not be 0. The hash counts
     # the training with attention dropout; fused_mlp and int8_matmul, on no model path in
     # either package, the ops' public API (at the ViT-B MLP shape: fused_mlp and
     # int8_matmul in bf16, fused_mlp_f32 the f32 call of fused_mlp).
@@ -2675,10 +2785,16 @@ def main() -> int:
                                     "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_bf16_mae_long": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
                                           "ucf_vit_tpu/ops/flash_attention.py:249"),
-        "flash_bwd_dkv": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
+        "flash_bwd_dkv": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                           "ucf_vit_tpu/ops/flash_attention.py:162"),
-        "flash_bwd_dq": ("ucf_vit_tpu_torch/csrc/flash_bwd.cu",
+        "flash_bwd_dq": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                          "ucf_vit_tpu/ops/flash_attention.py:362"),
+        "flash_bwd_dq_bf16": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                              "ucf_vit_tpu/ops/flash_attention.py:362"),
+        "flash_bwd_dkv_bf16_mae_long": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                        "ucf_vit_tpu/ops/flash_attention.py:162"),
+        "flash_bwd_dq_bf16_mae_long": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                       "ucf_vit_tpu/ops/flash_attention.py:362"),
         "keep_mask": ("ucf_vit_tpu_torch/csrc/attn_dropout.cuh",
                       "ucf_vit_tpu/ops/attn_dropout.py:70"),
         "fused_mlp": ("ucf_vit_tpu_torch/csrc/fused_mlp_sm90.cu",
@@ -2691,7 +2807,10 @@ def main() -> int:
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
                "flash_bwd_fused_bf16": bwd["vit_l_bfloat16"]["fused"],
                "flash_fwd_bf16_mae_long": mae["decoder"]["fwd"],
-               "flash_bwd_fused_bf16_mae_long": mae["decoder"]["bwd"],
+               "flash_bwd_fused_bf16_mae_long": mae["decoder"]["bwd"]["fused"],
+               "flash_bwd_dq_bf16": bwd["bfloat16"]["dq"],
+               "flash_bwd_dkv_bf16_mae_long": mae["decoder"]["bwd"]["dkv"],
+               "flash_bwd_dq_bf16_mae_long": mae["decoder"]["bwd"]["dq"],
                "fused_mlp": mlp[RECORD_MLP, "bfloat16"],
                "fused_mlp_f32": mlp[RECORD_MLP, "float32"], "int8_matmul": int8[RECORD_INT8]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
@@ -2702,8 +2821,11 @@ def main() -> int:
         "flash_bwd_fused_bf16": vit_l["flash_bwd_fused"],
         "flash_fwd_bf16_mae_long": mae_long["src:flash_fwd_sm90"],
         "flash_bwd_fused_bf16_mae_long": mae_long["flash_bwd_fused"],
-        "flash_bwd_dkv": f32["flash_bwd_dkv"] + vit_l["flash_bwd_dkv"] + mae_long["flash_bwd_dkv"],
-        "flash_bwd_dq": f32["flash_bwd_dq"] + vit_l["flash_bwd_dq"] + mae_long["flash_bwd_dq"],
+        "flash_bwd_dkv": f32["flash_bwd_dkv"],
+        "flash_bwd_dq": f32["flash_bwd_dq"],
+        "flash_bwd_dq_bf16": vit_l["flash_bwd_dq"],
+        "flash_bwd_dkv_bf16_mae_long": mae_long["flash_bwd_dkv"],
+        "flash_bwd_dq_bf16_mae_long": mae_long["flash_bwd_dq"],
         "keep_mask": trained["dropout"]["keep_mask"], **ops,
     }
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
@@ -2714,9 +2836,9 @@ def main() -> int:
         f"busy {100 * disk['busy']:.2f}%, checkpoint saves {disk['save_s']} s, load "
         f"{disk['load_s']} s; catsdogs from JPEG files {disk['jpeg']}")
     for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
-                 "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long", "fused_mlp",
-                 "fused_mlp_f32",
-                 "int8_matmul"):
+                 "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long",
+                 "flash_bwd_dkv_bf16_mae_long", "flash_bwd_dq_bf16_mae_long", "fused_mlp",
+                 "fused_mlp_f32", "int8_matmul"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,7 +1,8 @@
 """The port's flash-attention forward and attention dispatch against the JAX
 package: the plain version (what FLASH runs on a CPU tensor) against the
 Pallas kernel in interpret mode and the einsum oracle, lse against the
-kernel's own, and the dispatch rules. Also the arithmetic of the f32 kernels'
+kernel's own, and the dispatch rules; the split route's plain versions (dkv,
+dq) against the Pallas split route. Also the arithmetic of the f32 kernels'
 3xTF32 split, emulated in torch, against the f32 plain versions. Inputs come
 from numpy seeds.
 
@@ -12,12 +13,15 @@ bf16 forward's TMA loads take (`fwd_layout`) is tested here on CPU tensors."""
 import glob
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import yaml
 
 torch = pytest.importorskip("torch")
+
+import ucf_vit_tpu.ops.flash_attention as jax_fa
 
 from ucf_vit_tpu.ops.attention import SHORT_SEQ_THRESHOLD as JAX_SHORT_SEQ_THRESHOLD
 from ucf_vit_tpu.ops.attention import einsum_attention as jax_einsum_attention
@@ -36,8 +40,11 @@ from ucf_vit_tpu_torch.ops.flash_attention import (
     _padded,
     _tensor_map,
     _tokens_major,
+    bwd_route,
     flash_attention,
     flash_attention_bwd_plain,
+    flash_attention_dkv_plain,
+    flash_attention_dq_plain,
     flash_attention_plain,
     fwd_layout,
 )
@@ -176,6 +183,94 @@ def test_flash_seg_len_length_guard_matches_jax(n_kv):
                                  jnp.asarray(v.numpy()), impl="FLASH", seg_len=seg)
 
 
+# ---------------------------------------------------------------- the split route
+
+# bf16, relative to the largest |entry|: the Pallas kernels round p_v and ds to bf16
+# before their products, the plain versions keep them f32 until the outputs are rounded
+# (tests/test_torch_dropout.py, BF16_TOL)
+BF16_TOL = 1e-2
+# (b, h, n_q, n_kv, dh): whole 128-blocks, and a ragged Nkv with Nq != Nkv
+SPLIT_SHAPES = [(1, 2, 256, 256, 32), (1, 2, 130, 200, 32)]
+
+
+@pytest.fixture
+def jax_split_route(monkeypatch):
+    """The JAX package's backward on its split route (`_bwd_dkv_kernel` +
+    `_bwd_dq_kernel`) at every length: no dq scratch fits the fused kernel."""
+    monkeypatch.setattr(jax_fa, "FUSED_BWD_DQ_SCRATCH_BYTES", 0)
+    jax_fa._flash_len_cache.cache_clear()
+    yield
+    jax_fa._flash_len_cache.cache_clear()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_split_plain_matches_pallas_split_route(jax_split_route, shape, dtype, rate):
+    """`flash_attention_dkv_plain` and `flash_attention_dq_plain` (the split
+    route's kernels on a CPU tensor) against the Pallas split route's dk, dv
+    and dq (interpret mode, the vjp of one output gradient), with dropout at
+    a nonzero offset."""
+    b, h, n_q, n_kv, dh = shape
+    q, k, v = _qkv(*shape, seed=9)
+    do = np.random.default_rng(10).normal(size=(b, h, n_q, dh)).astype(np.float32)
+    seed, row0, col0 = 99, 3, 5
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+
+    def jax_fwd(q, k, v):
+        return jax_flash_attention(q, k, v, dropout_rate=rate, dropout_seed=seed,
+                                   dropout_offset=(row0, col0), interpret=True)
+
+    _, vjp = jax.vjp(jax_fwd, *(jnp.asarray(a, dtype=jdt) for a in (q, k, v)))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, dtype=jdt))]
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    scale = dh**-0.5
+    drop = (rate, seed, row0, col0)
+    o, lse = flash_attention_plain(tq, tk, tv, scale, *drop)
+    dk, dv = flash_attention_dkv_plain(tq, tk, tv, o, lse, tdo, scale, *drop)
+    dq = flash_attention_dq_plain(tq, tk, tv, o, lse, tdo, scale, *drop)
+    for name, got, ref in zip("qkv", (dq, dk, dv), want):
+        assert got.dtype == tdt and got.shape == ref.shape, name
+        err = np.abs(got.float().numpy() - ref).max()
+        if dtype == "float32":
+            assert err <= TOL, (name, err)
+        else:
+            assert err <= BF16_TOL * np.abs(ref).max(), (name, err / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_split_plain_composes_to_bwd_plain(rate):
+    """dkv's plain version and dq's give, together, what the plain backward
+    gives, bit for bit: the split route computes the fused route's function."""
+    b, h, n_q, n_kv, dh = 2, 2, 70, 90, 16
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, h, n_q, n_kv, dh, seed=11))
+    do = torch.from_numpy(np.random.default_rng(12).normal(size=(b, h, n_q, dh))
+                          .astype(np.float32))
+    drop = (rate, 7, 2, 3)
+    o, lse = flash_attention_plain(q, k, v, 0.25, *drop)
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, 0.25, *drop)
+    assert all(torch.equal(a, c) for a, c in zip(
+        flash_attention_dkv_plain(q, k, v, o, lse, do, 0.25, *drop), (dk, dv)))
+    assert torch.equal(flash_attention_dq_plain(q, k, v, o, lse, do, 0.25, *drop), dq)
+
+
+# the backward's route at each model path's attention, as the card's times chose it
+# (ops/flash_attention.py: SPLIT_MIN_QUERIES): (dtype, (Nq, Nkv, dh), route)
+MODEL_ROUTES = {
+    "vit_b_f32": ("float32", (257, 257, 64), "fused"),
+    "vit_l_bf16": ("bfloat16", (257, 257, 64), "fused"),
+    "mae_long_encoder": ("bfloat16", (8192, 8192, 64), "fused"),
+    "mae_long_decoder": ("bfloat16", (32768, 32768, 96), "split"),
+}
+
+
+@pytest.mark.parametrize("path", MODEL_ROUTES)
+def test_bwd_route_at_model_shapes(path):
+    dtype, shape, route = MODEL_ROUTES[path]
+    assert bwd_route(getattr(torch, dtype), *shape) == route
+
+
 # ---------------------------------------------------------------- 3xTF32
 
 # The card's f32 tolerances (tests/test_torch_flash_cuda.py, chip_smoke.py):
@@ -247,6 +342,39 @@ def test_3xtf32_split_keeps_f32_accuracy():
     # the emulated rounding is cvt.rna's: ties go away from zero
     x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3.0], dtype=torch.float32)
     assert _tf32_round(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]
+
+
+def _dq_by_tiles(mm, q, k, v, do, lse, di, scale, block=64):
+    """dq as the f32 dq kernel (csrc/flash_bwd_tf32.cu) computes it: per key
+    tile of `block`, s and dp by `mm`, ds = p (dp - di) scale, the tile's ds . k
+    by `mm` summed from zero, then added to dq by an f32 add."""
+    dq = torch.zeros_like(q)
+    for k0 in range(0, k.shape[-2], block):
+        kt, vt = k[..., k0:k0 + block, :], v[..., k0:k0 + block, :]
+        p = torch.exp(mm(q, kt.transpose(-1, -2)) * scale - lse)
+        ds = p * (mm(do, vt.transpose(-1, -2)) - di) * scale
+        dq = dq + mm(ds, kt)
+    return dq
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_3xtf32_split_dq_by_key_tiles_keeps_f32_accuracy(dh):
+    """Why the f32 dq kernel keeps the card's 1e-4: over 4096 keys, each 64-key
+    tile's three products by the 3-pass split and its part of dq added in f32
+    land within a tenth of it of the f32 plain dq, while one TF32 pass misses
+    it."""
+    b, h, n_q, n_kv = 1, 1, 64, 4096
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, h, n_q, n_kv, dh, seed=13))
+    do = torch.from_numpy(np.random.default_rng(14).normal(size=(b, h, n_q, dh))
+                          .astype(np.float32))
+    scale = dh**-0.5
+    o, lse = flash_attention_plain(q, k, v, scale)
+    want = flash_attention_dq_plain(q, k, v, o, lse, do, scale)
+    lse, di = lse.view(b, h, n_q, 1), (o * do).sum(-1, keepdim=True)
+    err = {name: ((_dq_by_tiles(mm, q, k, v, do, lse, di, scale) - want).abs().max()
+                  / want.abs().max()).item()
+           for name, mm in (("3xtf32", _mm_3xtf32), ("tf32", _mm_tf32))}
+    assert err["3xtf32"] <= BWD_TOL / 10 and err["tf32"] > BWD_TOL, err
 
 
 # ---------------------------------------------------------------- the forward's TMA layouts

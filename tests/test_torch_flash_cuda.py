@@ -1,9 +1,8 @@
 """The port's CUDA kernels (flash attention forward, both backward routes and
-dropout: f32 by the 3xTF32 split and bf16 by wgmma on the tensor cores, the
-split route's f32 dkv and its dq on the CUDA cores; the fused MLP; the W8A8
-int8 GEMM) against their plain versions, on the card. Marked `cuda`; skips
-without a card. This file imports neither JAX nor the JAX package, so it runs
-on a machine without JAX:
+dropout: f32 by the 3xTF32 split and bf16 by wgmma on the tensor cores; the
+fused MLP; the W8A8 int8 GEMM) against their plain versions, on the card.
+Marked `cuda`; skips without a card. This file imports neither JAX nor the
+JAX package, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_flash_cuda.py
 """
@@ -187,7 +186,7 @@ def _sm90_inputs(b, h, n_q, n_kv, dh, packed, seed):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("route", ["fused", "split"])
 def test_sm90_kernels_match_plain_on_card(route, rate):
-    """The bf16 forward and backward (fused, or dkv + the FMA dq) against the f32
+    """The bf16 forward and backward (fused, or dkv + dq) against the f32
     plain versions from the same bf16 inputs, with dropout at a nonzero offset."""
     _card()
     seed, row0, col0 = 77, 3, 5
@@ -200,9 +199,8 @@ def test_sm90_kernels_match_plain_on_card(route, rate):
         got = flash_attention_bwd(q, k, v, o, lse, do, sm, rate, seed, row0, col0, route=route)
         torch.cuda.synchronize()
         assert flash_attention.by_source == {"flash_fwd_tf32": 0, "flash_fwd_sm90": 1}
-        want_src = {"flash_bwd": 0, "flash_bwd_sm90": 1, "flash_bwd_tf32": 0} \
-            if route == "fused" else {"flash_bwd": 1, "flash_bwd_sm90": 1, "flash_bwd_tf32": 0}
-        assert flash_attention_bwd.by_source == want_src
+        assert flash_attention_bwd.by_source == {
+            "flash_bwd_tf32": 0, "flash_bwd_sm90": 1 if route == "fused" else 2}
         ref_o, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), sm, rate, seed,
                                                row0, col0)
         shape = (b, h, n_q, n_kv, dh, packed)
@@ -344,10 +342,9 @@ def test_sm90_fused_bwd_at_mae_shapes_on_card(shape):
     sm = dh**-0.5
     o, lse = flash_attention(q, k, v, return_lse=True)
     reset_launch_counts()
-    got = flash_attention_bwd(q, k, v, o, lse, do, sm)
+    got = flash_attention_bwd(q, k, v, o, lse, do, sm, route="fused")
     torch.cuda.synchronize()
-    assert flash_attention_bwd.by_source == {"flash_bwd": 0, "flash_bwd_sm90": 1,
-                                             "flash_bwd_tf32": 0}
+    assert flash_attention_bwd.by_source == {"flash_bwd_tf32": 0, "flash_bwd_sm90": 1}
     want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                      do.float(), sm)
     for name, g, w in zip("qkv", got, want):
@@ -376,24 +373,48 @@ def test_bf16_launches_go_to_sm90_kernels_on_card():
     _card()
     fwd, bwd, kernels = _launch_sources(torch.bfloat16, "fused")
     assert fwd == {"flash_fwd_tf32": 0, "flash_fwd_sm90": 1}
-    assert bwd == {"flash_bwd": 0, "flash_bwd_sm90": 1, "flash_bwd_tf32": 0}
+    assert bwd == {"flash_bwd_tf32": 0, "flash_bwd_sm90": 1}
     assert kernels == {"fused": 1, "dkv": 0, "dq": 0}
+    fwd, bwd, kernels = _launch_sources(torch.bfloat16, "split")
+    assert fwd == {"flash_fwd_tf32": 0, "flash_fwd_sm90": 1}
+    assert bwd == {"flash_bwd_tf32": 0, "flash_bwd_sm90": 2}
+    assert kernels == {"fused": 0, "dkv": 1, "dq": 1}
 
 
 @pytest.mark.cuda
 def test_f32_launches_go_to_tf32_kernels_on_card():
-    """f32 counts under the 3xTF32 sources: the forward and the fused backward;
-    nothing reaches an FMA fused kernel. The split route's dkv and dq stay in
-    flash_bwd.cu."""
+    """f32 counts under the 3xTF32 sources: the forward and both backward
+    routes (fused; dkv and dq)."""
     _card()
     fwd, bwd, kernels = _launch_sources(torch.float32, "fused")
     assert fwd == {"flash_fwd_tf32": 1, "flash_fwd_sm90": 0}
-    assert bwd == {"flash_bwd": 0, "flash_bwd_sm90": 0, "flash_bwd_tf32": 1}
+    assert bwd == {"flash_bwd_tf32": 1, "flash_bwd_sm90": 0}
     assert kernels == {"fused": 1, "dkv": 0, "dq": 0}
     fwd, bwd, kernels = _launch_sources(torch.float32, "split")
     assert fwd == {"flash_fwd_tf32": 1, "flash_fwd_sm90": 0}
-    assert bwd == {"flash_bwd": 2, "flash_bwd_sm90": 0, "flash_bwd_tf32": 0}
+    assert bwd == {"flash_bwd_tf32": 2, "flash_bwd_sm90": 0}
     assert kernels == {"fused": 0, "dkv": 1, "dq": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_route_is_deterministic_on_card(dtype, rate):
+    """The split route adds nothing by atomics: two calls give the same dq, dk
+    and dv bit for bit (packed views, several query and key tiles, a ragged
+    last tile of each)."""
+    _card()
+    b, h, n, dh = 2, 3, 300, 64
+    q, k, v, do = _sm90_inputs(b, h, n, n, dh, True, seed=21)
+    q, k, v, do = (t.to(getattr(torch, dtype)) for t in (q, k, v, do))
+    drop = (rate, 5, 3, 5)  # rate, seed, row0, col0
+    o, lse = flash_attention(q, k, v, return_lse=True, dropout_rate=rate, dropout_seed=5,
+                             dropout_offset=(3, 5))
+    first = flash_attention_bwd(q, k, v, o, lse, do, dh**-0.5, *drop, route="split")
+    second = flash_attention_bwd(q, k, v, o, lse, do, dh**-0.5, *drop, route="split")
+    torch.cuda.synchronize()
+    for name, a, c in zip("qkv", first, second):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.cuda

@@ -1,27 +1,28 @@
 // Flash-attention backward in bf16 on Hopper's tensor cores (sm_90a: wgmma, cp.async):
-// dq, dk and dv in one sweep (fused), or dk and dv alone (dkv).
+// dq, dk and dv in one sweep (fused), dk and dv alone (dkv), or dq alone (dq).
 //
 // Replaces the Pallas TPU kernels `_bwd_fused_kernel` (ucf_vit_tpu/ops/flash_attention.py
-// :249, call :676) and, without dq, `_bwd_dkv_kernel` (:162, call :719) for bf16 inputs;
-// f32 goes to csrc/flash_bwd_tf32.cu (fused) and csrc/flash_bwd.cu (dkv), and the dq kernel
-// of the split route stays in csrc/flash_bwd.cu for both types. From (q, k, v, do,
-// lse, di = rowsum(do * o)) it computes, for each (key tile, query tile):
+// :249, call :676), without dq `_bwd_dkv_kernel` (:162, call :719), and `_bwd_dq_kernel`
+// (:362, call :758) for bf16 inputs; f32 goes to csrc/flash_bwd_tf32.cu. From (q, k, v,
+// do, lse, di = rowsum(do * o)) it computes, for each (key tile, query tile):
 //   s = (q . k^T) * scale (f32), keys >= nkv masked with -0.7 * FLT_MAX, p = exp(s - lse),
 //   p = 0 for rows >= nq; p_v = keep ? p / (1 - rate) : 0; dp = keep ? (do . v^T) /
 //   (1 - rate) : 0; ds = p * (dp - di) * scale;
 //   dv += bf16(p_v)^T . do,  dk += bf16(ds)^T . q,  dq += bf16(ds) . k
-// with the roundings of the TPU kernel (`p_v.astype(do.dtype)` :321, `ds.astype(q.dtype)`
-// :335, `ds.astype(k.dtype)` :341) and f32 accumulation. The keep mask is the counter hash
-// of attn_dropout.cuh at global coordinates, so it is the forward's mask.
+// with the roundings of the TPU kernels (`p_v.astype(do.dtype)` :224 and :321,
+// `ds.astype(q.dtype)` :239 and :335, `ds.astype(k.dtype)` :341 and :419) and f32
+// accumulation. The keep mask is the counter hash of attn_dropout.cuh at global
+// coordinates, so it is the forward's mask.
 //
 // Bound on the H100 at ViT-L/16's training shape [B*H = 128, N = 257, dh = 64]: the five
 // products are 5.41 GFLOP (5.5 us at 989 TFLOP/s) and q, k, v, do, dq, dk, dv in bf16
-// with lse and di in f32 are 29.74 MB (8.9 us at 3.35 TB/s): bound by bytes.
+// with lse and di in f32 are 29.74 MB (8.9 us at 3.35 TB/s): bound by bytes. dq alone
+// (three products, dq the only output) is bound by bytes too: 6.3 us at [192, 257, 64].
 //
-// Design (FlashAttention-3's shape, one warpgroup): one block of 128 threads per
-// (batch*head, 64-key tile). k and v stay in shared memory (bf16, the 128-byte-swizzled
-// layout of sm90.cuh); the block loops over 64-row query tiles with q, do, lse and di
-// double-buffered by cp.async. Per query tile:
+// Design of flash_bwd_sm90_kernel (FlashAttention-3's shape, one warpgroup): one block of
+// 128 threads per (batch*head, 64-key tile). k and v stay in shared memory (bf16, the
+// 128-byte-swizzled layout of sm90.cuh); the block loops over 64-row query tiles with q,
+// do, lse and di double-buffered by cp.async. Per query tile:
 //   s^T = k . q^T and dp^T = v . do^T: wgmma with both operands in shared memory,
 //     K-major, the next query tile's copies issued while they run; p_v^T and ds^T are
 //     formed in f32 registers in the accumulator layout (this thread: keys rw, rw + 8;
@@ -38,6 +39,22 @@
 //     padded to a multiple of 4 floats (ops/flash_attention.py: _dq_workspace), so every
 //     row takes whole float4s and no scalar path is needed.
 // At most 168 registers a thread (three blocks an SM) at dh 64 without dropout.
+//
+// Design of flash_bwd_dq_sm90_kernel (dq, no atomics and no workspace): one warpgroup per
+// (batch*head, 64-row query tile). q and do stay in shared memory in the swizzled layout,
+// lse and di of this thread's rows in registers; the block loops over 64-key tiles of k
+// and v in a ring of two stages by cp.async, the next tile's copies issued after the
+// barrier that opens a tile, so that they run under its products. Per key tile:
+//   s = q . k^T and dp = do . v^T: wgmma with both operands K-major in shared memory
+//     (this thread: rows rw, rw + 8; keys 8c + cq + {0, 1});
+//   p = ex2(s * scale * log2(e) - lse * log2(e)), keys >= nkv masked; dp dropped by the
+//     hash (the TPU kernel drops only dp, :413-415); ds = p * (dp - di) * scale, all f32
+//     in the accumulator registers;
+//   dq += bf16(ds) . k: ds as the register A operand (acc_to_a), k as an MN-major B,
+//     the product chain of flash_fwd_sm90.cu's o += p . v.
+// dq stays in f32 registers for the whole sweep and is written once as bf16: the same
+// bits from run to run.
+//
 // The head dim pads to DH = 64 or 128 (zeros past dh); keys past nkv and rows past nq
 // read zeros from cp.async's zero fill. Inputs and outputs go through (batch, head, row)
 // strides with the last dim contiguous.
@@ -61,7 +78,7 @@ constexpr int BK = 64;
 constexpr int THREADS = 128;
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 
-enum Kernel { FUSED = 0, DKV = 1 };
+enum Kernel { FUSED = 0, DKV = 1, DQ = 2 };
 
 struct Params {
   const __nv_bfloat16* q;
@@ -70,7 +87,7 @@ struct Params {
   const __nv_bfloat16* dout;
   const float* lse;
   const float* di;
-  float* dq;  // f32 workspace, zeroed by the caller (fused only)
+  void* dq;  // fused: the f32 workspace, zeroed by the caller; dq: the bf16 output
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   int heads, nq, nkv, dh;
@@ -86,7 +103,7 @@ struct Params {
   int row0, col0;
   float inv_keep;
   int copy_bytes;  // cp.async width for q, k, v, do (sm90.cuh: copy_bytes)
-  int pair_store;  // dk and dv may be stored as bf16 pairs
+  int pair_store;  // the bf16 outputs (dk and dv, or dq) may be stored as pairs
 };
 
 template <int DH>
@@ -251,7 +268,7 @@ __global__ void __launch_bounds__(THREADS, DH == 64 && !DROPOUT ? 3 : 1)
     if constexpr (WITH_DQ) {
       wgmma_wait<0>();  // dk and dv first: p_v and ds leave the registers before dq comes
       __syncthreads();  // every warp's ds^T is in shared memory
-      float* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;
+      float* dqg = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
       for (int n = 0; n < NP; ++n) {
         // dq[:, 64n .. 64n + 63] partial = ds . k: ds^T and k both MN-major
@@ -344,36 +361,197 @@ __global__ void __launch_bounds__(THREADS, DH == 64 && !DROPOUT ? 3 : 1)
   }
 }
 
-template <int DH, bool DROPOUT, bool WITH_DQ>
-cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  auto kernel = flash_bwd_sm90_kernel<DH, DROPOUT, WITH_DQ>;
+template <int DH>
+constexpr size_t dq_smem_bytes() {
+  // q, do, two stages of k and v (DH / 64 panels each), alignment
+  return (size_t)6 * (DH / 64) * PANEL_BYTES + 1024;
+}
+
+// Three blocks an SM at DH = 64 (at most 168 registers a thread), two at DH = 128.
+template <int DH, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS, DH == 64 ? 3 : 2)
+    flash_bwd_dq_sm90_kernel(const Params p) {
+  constexpr int NP = DH / 64;
+  constexpr uint32_t TILE = NP * PANEL_BYTES;
+  extern __shared__ uint8_t smem[];
+  const uint32_t sQ = aligned_smem_base(smem);
+  const uint32_t sdO = sQ + TILE;
+  const uint32_t sKV0 = sQ + 2 * TILE;  // stage st: k at + 2 st TILE, v one TILE after it
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int q0 = blockIdx.y * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rw = 16 * warp + (lane >> 2);  // this thread's accumulator rows: rw, rw + 8
+  const int cq = 2 * (lane & 3);           // and columns 8c + cq + {0, 1}
+  const uint32_t slice_key = ucf::dropout_slice_key(p.seed, (uint32_t)bh);
+  const float scale_log2 = p.scale * LOG2E;  // p = exp2(s * scale * log2(e) - lse * log2(e))
+
+  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* dog = p.dout + b * p.do_sb + h * p.do_sh;
+
+  load_tile<NP>(sQ, qg, p.q_sn, q0, p.nq, p.dh, p.copy_bytes);
+  load_tile<NP>(sdO, dog, p.do_sn, q0, p.nq, p.dh, p.copy_bytes);
+  load_tile<NP>(sKV0, kg, p.k_sn, 0, p.nkv, p.dh, p.copy_bytes);
+  load_tile<NP>(sKV0 + TILE, vg, p.v_sn, 0, p.nkv, p.dh, p.copy_bytes);
+  cp_async_commit();
+
+  // lse (times log2(e)) and di of this thread's rows; p = 0 on rows past nq
+  float lse2[2], di[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rw + 8 * i;
+    row_ok[i] = row < p.nq;
+    lse2[i] = row_ok[i] ? p.lse[(long long)bh * p.nq + row] * LOG2E : 0.f;
+    di[i] = row_ok[i] ? p.di[(long long)bh * p.nq + row] : 0.f;
+  }
+
+  float dq[NP][32];
+#pragma unroll
+  for (int n = 0; n < NP; ++n)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dq[n][x] = 0.f;
+
+  const int n_tiles = (p.nkv + BK - 1) / BK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    const uint32_t sK = sKV0 + 2 * (kt & 1) * TILE, sV = sK + TILE;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile kt has landed; every thread's products on tile kt - 1 are done
+    if (kt + 1 < n_tiles) {  // the next key tile under this one's products
+      const uint32_t nK = sKV0 + 2 * ((kt + 1) & 1) * TILE;
+      load_tile<NP>(nK, kg, p.k_sn, k0 + BK, p.nkv, p.dh, p.copy_bytes);
+      load_tile<NP>(nK + TILE, vg, p.v_sn, k0 + BK, p.nkv, p.dh, p.copy_bytes);
+      cp_async_commit();
+    }
+
+    // s = q . k^T and dp = do . v^T: rows are queries, columns keys
+    float s[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] = dp[x] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * PANEL_BYTES + (kk & 3) * 32;
+      wgmma_ss<0, 0>(s, make_desc(sQ + off), make_desc(sK + off));
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * PANEL_BYTES + (kk & 3) * 32;
+      wgmma_ss<0, 0>(dp, make_desc(sdO + off), make_desc(sV + off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dp -> ds, in place
+    const bool keys_ragged = k0 + BK > p.nkv;  // only the last key tile holds keys past nkv
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int key = k0 + 8 * c + cq + jj;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * c + 2 * i + jj;
+          float sv = s[x] * scale_log2;
+          if (keys_ragged && key >= p.nkv) sv = MASK_VALUE;
+          const float pr = row_ok[i] ? exp2_approx(sv - lse2[i]) : 0.f;
+          float dpv = dp[x];
+          if constexpr (DROPOUT) {
+            const bool keep =
+                ucf::dropout_keep(slice_key, p.row0 + q0 + rw + 8 * i, p.col0 + key, p.threshold);
+            dpv = keep ? dpv * p.inv_keep : 0.f;
+          }
+          dp[x] = pr * (dpv - di[i]) * p.scale;
+        }
+      }
+    uint32_t a_ds[4][4];
+    acc_to_a(dp, a_ds);
+
+    // dq += ds . k: A from registers (16 keys a k-step), k MN-major
+#pragma unroll
+    for (int n = 0; n < NP; ++n) fence_regs(dq[n]);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+        wgmma_rs<1>(dq[n], a_ds[t], make_desc(sK + n * PANEL_BYTES + t * 16 * ROW_BYTES));
+    wgmma_commit();
+    wgmma_wait<0>();  // before the next tile's barrier: its copies overwrite this k
+#pragma unroll
+    for (int n = 0; n < NP; ++n) fence_regs(dq[n]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) fence_regs(a_ds[t]);
+  }
+
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok[i]) continue;
+    __nv_bfloat16* dqrow = dqg + (long long)(q0 + rw + 8 * i) * p.dq_sn;
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = 64 * n + 8 * c + cq;
+        const int x = 4 * c + 2 * i;
+        if (p.pair_store && col + 1 < p.dh) {
+          *reinterpret_cast<__nv_bfloat162*>(dqrow + col) =
+              __floats2bfloat162_rn(dq[n][x], dq[n][x + 1]);
+        } else {
+          if (col < p.dh) dqrow[col] = __float2bfloat16(dq[n][x]);
+          if (col + 1 < p.dh) dqrow[col + 1] = __float2bfloat16(dq[n][x + 1]);
+        }
+      }
+  }
+}
+
+template <typename Kernel>
+cudaError_t run(Kernel kernel, size_t smem, dim3 grid, const Params& p, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, (p.nkv + BK - 1) / BK), THREADS, smem, stream>>>(p);
+  kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool DROPOUT, bool WITH_DQ>
-cudaError_t dispatch_dh(const Params& p, int bh, cudaStream_t stream) {
-  if (p.dh <= 64) return launch<64, DROPOUT, WITH_DQ>(p, bh, stream);
-  if (p.dh <= 128) return launch<128, DROPOUT, WITH_DQ>(p, bh, stream);
-  return cudaErrorInvalidValue;
+template <int DH, bool DROPOUT>
+cudaError_t launch(int kind, const Params& p, int bh, cudaStream_t stream) {
+  if (kind == DQ) {
+    return run(flash_bwd_dq_sm90_kernel<DH, DROPOUT>, dq_smem_bytes<DH>(),
+               dim3(bh, (p.nq + BQ - 1) / BQ), p, stream);
+  }
+  const dim3 grid(bh, (p.nkv + BK - 1) / BK);
+  if (kind == DKV) {
+    return run(flash_bwd_sm90_kernel<DH, DROPOUT, false>, smem_bytes<DH>(), grid, p, stream);
+  }
+  return run(flash_bwd_sm90_kernel<DH, DROPOUT, true>, smem_bytes<DH>(), grid, p, stream);
 }
 
-template <bool WITH_DQ>
-cudaError_t dispatch(int dropout, const Params& p, int bh, cudaStream_t stream) {
-  return dropout ? dispatch_dh<true, WITH_DQ>(p, bh, stream)
-                 : dispatch_dh<false, WITH_DQ>(p, bh, stream);
+template <bool DROPOUT>
+cudaError_t dispatch_dh(int kind, const Params& p, int bh, cudaStream_t stream) {
+  if (p.dh <= 64) return launch<64, DROPOUT>(kind, p, bh, stream);
+  if (p.dh <= 128) return launch<128, DROPOUT>(kind, p, bh, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // kind: 0 = fused (dq is an f32 workspace the caller zeroed: 16-byte aligned, strides
-// of 4 floats, rows of at least dh rounded up to 4), 1 = dkv (dq unused). bf16
-// q, k, v, do, dk, dv; lse and di f32 [B*H, Nq]. Strides are in elements, the last dim
-// contiguous. dropout: 0 or 1; with 1 the seed, threshold, (row0, col0) offset and
+// of 4 floats, rows of at least dh rounded up to 4), 1 = dkv (dq unused), 2 = dq (dq
+// the bf16 output; dk and dv unused). bf16 q, k, v, do, dk, dv; lse and di f32 [B*H, Nq].
+// Strides are in elements, the last dim contiguous. dropout: 0 or 1; with 1 the seed, threshold, (row0, col0) offset and
 // inv_keep describe the forward's mask. Returns a cudaError_t.
 extern "C" int ucf_flash_bwd_sm90(int kind, const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* di, void* dq,
@@ -389,8 +567,8 @@ extern "C" int ucf_flash_bwd_sm90(int kind, const void* q, const void* k, const 
                                   unsigned int threshold, int row0, int col0, float inv_keep,
                                   void* stream) {
   if (batch <= 0 || heads <= 0 || nq <= 0 || nkv <= 0 || dh <= 0) return cudaErrorInvalidValue;
-  if (kind != FUSED && kind != DKV) return cudaErrorInvalidValue;
-  if ((nkv + BK - 1) / BK > 65535) return cudaErrorInvalidValue;
+  if (kind != FUSED && kind != DKV && kind != DQ) return cudaErrorInvalidValue;
+  if (((kind == DQ ? nq : nkv) + 63) / 64 > 65535) return cudaErrorInvalidValue;
   // dq is added as float4s: a 16-byte aligned workspace with strides of 4 floats
   if (kind == FUSED &&
       (reinterpret_cast<uintptr_t>(dq) % 16 != 0 || (dq_sb | dq_sh | dq_sn) % 4 != 0))
@@ -402,7 +580,7 @@ extern "C" int ucf_flash_bwd_sm90(int kind, const void* q, const void* k, const 
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.di = static_cast<const float*>(di);
-  p.dq = static_cast<float*>(dq);
+  p.dq = dq;
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.heads = heads;
@@ -426,10 +604,12 @@ extern "C" int ucf_flash_bwd_sm90(int kind, const void* q, const void* k, const 
   const long long in_strides[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                                     v_sb, v_sh, v_sn, do_sb, do_sh, do_sn};
   p.copy_bytes = ucf::sm90::copy_bytes(in_ptrs, 4, in_strides, 12);
-  p.pair_store = dh % 2 == 0 && (dk_sb | dk_sh | dk_sn | dv_sb | dv_sh | dv_sn) % 2 == 0 &&
-                 reinterpret_cast<uintptr_t>(dk) % 4 == 0 &&
-                 reinterpret_cast<uintptr_t>(dv) % 4 == 0;
+  const auto pairs = [dh](const void* t, long long sb, long long sh, long long sn) {
+    return dh % 2 == 0 && (sb | sh | sn) % 2 == 0 && reinterpret_cast<uintptr_t>(t) % 4 == 0;
+  };
+  p.pair_store = kind == DQ ? pairs(dq, dq_sb, dq_sh, dq_sn)
+                            : pairs(dk, dk_sb, dk_sh, dk_sn) && pairs(dv, dv_sb, dv_sh, dv_sn);
   const int bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return kind == FUSED ? dispatch<true>(dropout, p, bh, s) : dispatch<false>(dropout, p, bh, s);
+  return dropout ? dispatch_dh<true>(kind, p, bh, s) : dispatch_dh<false>(kind, p, bh, s);
 }

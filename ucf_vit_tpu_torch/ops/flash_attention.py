@@ -14,25 +14,25 @@ pair `_bwd_dkv_kernel` + `_bwd_dq_kernel` (`:162`, `:362`, the route
 "split"), launched by `_flash_bwd_len` `:651`. `di = rowsum(do * o)` stays a
 plain torch reduction, as it is XLA outside the kernel in JAX (`:662`). The
 fused kernels add dq with f32 atomics into a zeroed f32 workspace, so dq's
-order of sums changes from run to run.
+order of sums changes from run to run; the split route has no atomics, and
+gives the same bits from run to run.
 
-The dtype, and for the backward the kind, picks the source. bf16 runs on the
-tensor cores by `wgmma`: `csrc/flash_fwd_sm90.cu` (forward: TMA loads into
-an mbarrier ring fed by a producer warp, a persistent grid) and
-`csrc/flash_bwd_sm90.cu` (fused and dkv). The bf16 forward's tensor maps come
-from `fwd_layout`, decided from the strides and pointers before each launch:
-q, k, v load as they are, or a tensor TMA cannot address is first copied
-(the route "padded", counted in `flash_attention.by_layout`). f32 runs on the tensor cores too,
-f32-accurate by the 3xTF32 split on `mma.sync` (`csrc/tf32x3.cuh`: each
-operand split into two TF32 parts, three TF32 products summed in f32):
-`csrc/flash_fwd_tf32.cu` and `csrc/flash_bwd_tf32.cu` (fused).
-`csrc/flash_bwd.cu` keeps the split route on the CUDA cores in f32 FMA: dkv
-for f32 and the dq kernel for both types.
+The dtype picks the source, the kind (fused, dkv, dq) its kernel. bf16 runs on
+the tensor cores by `wgmma`: `csrc/flash_fwd_sm90.cu` (forward: TMA loads
+into an mbarrier ring fed by a producer warp, a persistent grid) and
+`csrc/flash_bwd_sm90.cu` (fused, dkv and dq). The bf16 forward's tensor maps
+come from `fwd_layout`, decided from the strides and pointers before each
+launch: q, k, v load as they are, or a tensor TMA cannot address is first
+copied (the route "padded", counted in `flash_attention.by_layout`). f32 runs
+on the tensor cores too, f32-accurate by the 3xTF32 split on `mma.sync`
+(`csrc/tf32x3.cuh`: each operand split into two TF32 parts, three TF32
+products summed in f32): `csrc/flash_fwd_tf32.cu` and `csrc/flash_bwd_tf32.cu`
+(fused, dkv and dq).
 Bounds on an H100 at the training shape `[B*H = 192, N = 257, dh = 64]`:
-forward 3.25 GFLOP, backward 8.12 GFLOP (five products). In f32 an
-f32-accurate product costs three TF32 ones, so both are bound by operations at
-3 x FLOP over the TF32 rate (0.0197 and 0.0492 ms at 495 TFLOP/s); in bf16 by
-bytes (25 and 45 MB: 0.0076 and 0.0133 ms).
+forward 3.25 GFLOP, backward 8.12 GFLOP (five products; dkv four, dq three).
+In f32 an f32-accurate product costs three TF32 ones, so all are bound by
+operations at 3 x FLOP over the TF32 rate (0.0197 and 0.0492 ms at 495
+TFLOP/s); in bf16 by bytes (25 and 45 MB: 0.0076 and 0.0133 ms).
 
 `flash_attention` takes the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA device; anything else raises. On a tensor that
@@ -52,21 +52,26 @@ from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask, keep_mask, keep_
 
 DEFAULT_MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 128
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_KINDS = {"fused": 0, "dkv": 1, "dq": 2}
-# The source (csrc/<name>.cu) of each kernel, by dtype
+# The source (csrc/<name>.cu) of each kernel, by dtype; a backward source holds every kind
 _FWD_SOURCES = {torch.float32: "flash_fwd_tf32", torch.bfloat16: "flash_fwd_sm90"}
-# The backward source of each (dtype, kind) that does not run in flash_bwd.cu
-_BWD_SOURCES_BY_KIND = {(torch.bfloat16, "fused"): "flash_bwd_sm90",
-                        (torch.bfloat16, "dkv"): "flash_bwd_sm90",
-                        (torch.float32, "fused"): "flash_bwd_tf32"}
-# The backward's routes: "fused" unless the caller names "split".
-# chip_smoke.py times both at each of its kernel-phase shapes (Nq from 1 to
-# 32768, dh 36 to 128, f32 and bf16); on an H100 the fused route was faster at
-# every f32 shape and at every bf16 one of 257 tokens or more, and within the
-# host's noise of the split route at the short bf16 ones (PERF.md, "Routes"),
-# so the dkv + dq pair runs only when asked for.
+_BWD_SOURCES = {torch.float32: "flash_bwd_tf32", torch.bfloat16: "flash_bwd_sm90"}
+# The backward's routes: the fused kernel, or the split route's dkv + dq pair
 BWD_ROUTES = ("fused", "split")
+# `bwd_route` takes the split route from this many queries on, by dtype. From the card's
+# device times of both routes, timed in turns (chip_smoke.py's [route] lines; NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md §6, "Routes"), in ms a call:
+# - f32: split faster at 8448 queries x 640 keys (1.92 against 2.28) and at 32768^2 (193.6
+#   against 208.4), level at 4096^2 (3.35 against 3.32), fused faster at 257 and fewer
+#   (ViT-B/16's [192, 257, 64]: 0.382 against 0.479).
+# - bf16: split faster at mae_long's decoder, [2, 6, 32768^2, 96] (66.6 against 76.0);
+#   fused faster at its encoder, [2, 12, 8192^2, 64] (4.02 against 4.81), at 16384^2 (13.8
+#   against 16.7) and at 257 (ViT-L/16's [128, 257, 64]: 0.095 against 0.107). Off the model
+#   paths the threshold misses two shapes: 8448 x 640, where split is faster (0.45 against
+#   0.57), and 32768^2 at one batch entry of 6 heads, where fused is (27.9 against 33.0):
+#   the fused kernel's time per head grows from 6 heads to 12 at that length, the split
+#   route's does not.
+SPLIT_MIN_QUERIES = {torch.float32: 8192, torch.bfloat16: 32768}
 # The bf16 forward's routes into its kernel (`fwd_layout`)
 FWD_LAYOUTS = ("tma", "padded")
 
@@ -104,6 +109,29 @@ def flash_attention_plain(
     return o, lse.reshape(b * h, n_q)
 
 
+def _plain_p_dp(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0):
+    """What every backward kernel forms first, in f32: `p = exp(s - lse)`
+    (pre-dropout), `dp_v - di` with `dp_v = keep ? (do v^T) / (1 - r) : 0` and
+    `di = rowsum(do * o)`, the keep mask (None at rate 0) and do in f32."""
+    b, h, n_q, _ = q.shape
+    dof = do.float()
+    di = (o.float() * dof).sum(-1, keepdim=True)
+    p = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()).mul_(sm_scale)
+    p.sub_(lse.view(b, h, n_q, 1)).exp_()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    keep = None
+    if rate > 0.0:
+        keep = _keep(q, k.shape[2], rate, seed, row0, col0)
+        dp = torch.where(keep, dp * (1.0 / (1.0 - rate)), 0.0)
+    return p, dp.sub_(di), keep, dof
+
+
+def _plain_dv(p, keep, dof, rate):
+    """`dv = p_v^T do`, with `p_v = keep ? p / (1 - r) : 0`."""
+    p_v = p if keep is None else torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+    return torch.einsum("bhqk,bhqd->bhkd", p_v, dof)
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
@@ -113,26 +141,41 @@ def flash_attention_bwd_plain(
     f32: `di = rowsum(do * o)`, `p = exp(s - lse)`, `p_v = keep ? p / (1 - r)
     : 0`, `dv = p_v^T do`, `dp = keep ? (do v^T) / (1 - r) : 0`, `ds = p (dp -
     di) scale`, `dk = ds^T q`, `dq = ds k`. Returns `(dq, dk, dv)` in the
-    inputs' dtype."""
-    b, h, n_q, _ = q.shape
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    di = (o.float() * dof).sum(-1, keepdim=True)
-    p = torch.einsum("bhqd,bhkd->bhqk", qf, kf).mul_(sm_scale)
-    p.sub_(lse.view(b, h, n_q, 1)).exp_()
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    if dropout_rate > 0.0:
-        keep = _keep(q, k.shape[2], dropout_rate, seed, row0, col0)
-        inv_keep = 1.0 / (1.0 - dropout_rate)
-        dv = torch.einsum("bhqk,bhqd->bhkd", torch.where(keep, p * inv_keep, 0.0), dof)
-        dp = torch.where(keep, dp * inv_keep, 0.0)
-        del keep
-    else:
-        dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    ds = p.mul_(dp.sub_(di)).mul_(sm_scale)
-    del dp
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    inputs' dtype: the fused kernel's outputs, and the split route's."""
+    p, dp_di, keep, dof = _plain_p_dp(q, k, v, o, lse, do, sm_scale, dropout_rate, seed,
+                                      row0, col0)
+    dv = _plain_dv(p, keep, dof, dropout_rate)
+    del keep
+    ds = p.mul_(dp_di).mul_(sm_scale)
+    del dp_di
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dkv_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
+    row0: int = 0, col0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dkv kernel's function in plain PyTorch (four products):
+    `(dk, dv)` of `flash_attention_bwd_plain`, in the inputs' dtype."""
+    p, dp_di, keep, dof = _plain_p_dp(q, k, v, o, lse, do, sm_scale, dropout_rate, seed,
+                                      row0, col0)
+    dv = _plain_dv(p, keep, dof, dropout_rate)
+    dk = torch.einsum("bhqk,bhqd->bhkd", p.mul_(dp_di).mul_(sm_scale), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
+    row0: int = 0, col0: int = 0,
+) -> torch.Tensor:
+    """The dq kernel's function in plain PyTorch (three products): dq of
+    `flash_attention_bwd_plain`, in q's dtype."""
+    p, dp_di, _, _ = _plain_p_dp(q, k, v, o, lse, do, sm_scale, dropout_rate, seed, row0, col0)
+    return torch.einsum("bhqk,bhkd->bhqd", p.mul_(dp_di).mul_(sm_scale), k.float()).to(q.dtype)
 
 
 # ---------------------------------------------------------------- kernels
@@ -149,10 +192,9 @@ _FWD_TMA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _MAP_ARGS * 3 + [c
                  + _LONG3 + [ctypes.c_float])
 _BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _LONG3 * 7 + [
     ctypes.c_float]
-_ARGTYPES = {  # each source's C entry `ucf_<name>`; flash_bwd also takes the dtype
+_ARGTYPES = {  # each source's C entry `ucf_<name>`
     "flash_fwd_tf32": _FWD_ARGS + _DROPOUT_ARGS,
     "flash_fwd_sm90": _FWD_TMA_ARGS + _DROPOUT_ARGS,
-    "flash_bwd": _BWD_ARGS + [ctypes.c_int] + _DROPOUT_ARGS,
     "flash_bwd_sm90": _BWD_ARGS + _DROPOUT_ARGS,
     "flash_bwd_tf32": _BWD_ARGS + _DROPOUT_ARGS,
 }
@@ -183,7 +225,7 @@ def _check_shapes(q, k, v) -> None:
 
 
 def _check_kernel_inputs(q, *others) -> None:
-    if q.dtype not in _KERNEL_DTYPES:
+    if q.dtype not in _FWD_SOURCES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
     for t in others:
         if t.dtype != q.dtype or t.device != q.device:
@@ -352,9 +394,8 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
 
 def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args) -> None:
     b, h, n_q, dh = q.shape
-    source = _BWD_SOURCES_BY_KIND.get((q.dtype, kind), "flash_bwd")
+    source = _BWD_SOURCES[q.dtype]
     fn = _library(source)
-    dtype_arg = () if source != "flash_bwd" else (_KERNEL_DTYPES[q.dtype],)
     with torch.cuda.device(q.device):
         err = fn(
             _BWD_KINDS[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -362,7 +403,7 @@ def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args
             b, h, n_q, k.shape[2], dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            float(sm_scale), *dtype_arg, *drop_args, _stream(q),
+            float(sm_scale), *drop_args, _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"{source} {kind} kernel launch failed: CUDA error {err}")
@@ -408,35 +449,43 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route
     return dq, dk, dv
 
 
+def bwd_route(dtype: torch.dtype, n_q: int, n_kv: int, dh: int) -> str:
+    """The backward's route ("fused" or "split") for a call of this dtype,
+    these query and key counts and this head dim: split from
+    `SPLIT_MIN_QUERIES[dtype]` queries on. On the H100 the threshold depends
+    on neither the key count nor the head dim."""
+    return "split" if n_q >= SPLIT_MIN_QUERIES[dtype] else "fused"
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
-    row0: int = 0, col0: int = 0, route: str = "fused",
+    row0: int = 0, col0: int = 0, route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`(dq, dk, dv)` of flash attention from the forward's `(o, lse)` and the
     output gradient `do`, all `[B, H, N, dh]` (lse f32 `[B*H, Nq]`). A CPU
     tensor takes the plain version; a CUDA tensor launches the backward
-    kernel(s) of `route` ("fused", or "split" for the dkv + dq pair) or
-    raises."""
+    kernel(s) of `route` ("fused", or "split" for the dkv + dq pair; None
+    takes `bwd_route`'s) or raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale, dropout_rate, seed,
                                          row0, col0)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd runs on cpu or cuda, not {q.device.type}")
+    _check_shapes(q, k, v)
+    if route is None:
+        route = bwd_route(q.dtype, q.shape[2], k.shape[2], q.shape[3])
     if route not in BWD_ROUTES:
         raise ValueError(f"route must be one of {BWD_ROUTES}, got {route!r}")
-    _check_shapes(q, k, v)
     return _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, dropout_rate, seed, row0, col0,
                            route)
 
-
-_BWD_SOURCES = ("flash_bwd", "flash_bwd_sm90", "flash_bwd_tf32")
 
 # Backward kernel launches since the counts were last reset (CPU calls do not
 # count): the total, the split by kernel and the split by source.
 flash_attention_bwd.launches = 0
 flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
-flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES}
+flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES.values()}
 
 
 def reset_launch_counts() -> None:
@@ -446,7 +495,7 @@ def reset_launch_counts() -> None:
     flash_attention.by_layout = {layout: 0 for layout in FWD_LAYOUTS}
     flash_attention_bwd.launches = 0
     flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
-    flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES}
+    flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES.values()}
     keep_mask.launches = 0
 
 
@@ -462,9 +511,10 @@ def _forward(q, k, v, sm_scale, rate, seed, row0, col0):
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with the backward kernel as its gradient. Saves
-    `(q, k, v, o, lse)` and the dropout meta; the backward regenerates the
-    forward's dropout mask from the same seed and offsets."""
+    """Flash attention with the backward kernels as its gradient, on the route
+    `bwd_route` gives the shapes. Saves `(q, k, v, o, lse)` and the dropout
+    meta; the backward regenerates the forward's dropout mask from the same
+    seed and offsets."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, rate, seed, row0, col0):
