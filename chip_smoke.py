@@ -142,6 +142,30 @@ result):
             alone and one epoch of the shipped config through the CLI entry;
             where either does not, that is printed (the JPEG path is then held
             against the JAX package on the CPU only).
+9. diffusion: configs/imagenet/diffusion and configs/basic_ct/diffusion
+            (DiffusionVIT at full width and depth: ViT-B/16's encoder on 256
+            tokens with no class token, a decoder of 8 blocks 512 wide with 4
+            heads of 128, or 576 wide with 6 heads of 96; f32, 2 microbatches
+            of 16, loss scaling) through the trainer's CLI entry with
+            `--single-device`, the launch counts set to 0 before it and read
+            after, by kernel and by head-dim instance (40 forwards and 40 fused
+            backwards a step, 16 of each at the decoder's DH = 128 or DH = 96
+            instance); a timed and a traced window; FLASH against EINSUM, the
+            steps, the noise and the time embedding's dropout drawn from one
+            seeded generator on both runs. Before it, in the kernel phases
+            (`phase_diffusion_kernels`), the f32 forward and fused backward at
+            the decoders' attention shapes (DIFF_SHAPES) against their plain
+            versions, timed beside them, their bound and SDPA; the build phase
+            prints those instances' registers and spills.
+10. generate: imagenet's DiffusionVIT (seeded weights) generating 8 images by
+            the whole 1,000-step DDPM reverse chain on the card
+            (`generate_diffusion`) for seeds 0 and 1 (other images), each
+            with exactly 20 forwards a step and no backward; device time a
+            denoising step in a traced window; then `make_server` with
+            `--num-generate` 8: its warm-up (one denoising step), one `POST
+            /v1/generate` for seed 0 (latency, shape, launches, and the same
+            images as the direct chain's for seed 0) and `/v1/predict`
+            answering 400.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -234,6 +258,20 @@ RESUME_PARAM_TOL, RESUME_ADAM_TOL, RESUME_LOSS_TOL = 5e-2, 5e-3, 3e-5
 # catsdogs from JPEG files (where PIL and cv2 import): 128 files of 500 x 375, the size
 # of the dataset's photos, so 8 steps of 16 in one epoch of the shipped config
 JPEG_FILES, JPEG_SHAPE = 128, (375, 500)
+# DiffusionVIT + DDPM as shipped (f32, 256 tokens, no class token; 2 microbatches of 16):
+# imagenet's decoder 512 wide with 4 heads of 128, basic_ct's 576 wide with 6 of 96
+DIFF_CONFIGS = {
+    "imagenet": os.path.join(REPO, "configs", "imagenet", "diffusion", "base_config.yaml"),
+    "basic_ct": os.path.join(REPO, "configs", "basic_ct", "diffusion", "base_config.yaml"),
+}
+# their decoders' attention in a training microbatch of 16, as packed qkv views: the f32
+# kernels' DH = 128 and DH = 96 instances (phase_diffusion_kernels)
+DIFF_SHAPES = {"imagenet": (16, 4, 256, 256, 128, True), "basic_ct": (16, 6, 256, 256, 96, True)}
+DIFF_MAIN_STEPS = 3  # each config through the CLI entry
+DIFF_WARMUP_STEPS, DIFF_TIMED_STEPS, DIFF_TRACED_STEPS = 3, 10, 3
+DIFF_CHECK_STEPS = 5  # FLASH against EINSUM, to TRAIN_LOSS_TOL a step
+GEN_SAMPLES = 8  # a generate call's batch (serve's --num-generate)
+GEN_TRACED_STEPS = 20  # denoising steps in the traced window
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
 # and int8 on the tensor cores, and the memory rate. The card is named so; any other
@@ -426,6 +464,12 @@ def phase_build():
             f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
             + (f": {', '.join(spills)}" if spills else ""))
         log(f"[build] {name} registers: {', '.join(by_entry)}")
+        if name in ("flash_fwd_tf32", "flash_bwd_tf32"):
+            # the diffusion decoders' instances: printed, not held
+            wide = ("<Li96E", "<Li128E")
+            log(f"[build] {name} at DH = 96 and 128 (the diffusion decoders'): registers "
+                f"{', '.join(e for e in by_entry if any(w in e for w in wide))}; spills "
+                f"{', '.join(sp for sp in spills if any(w in sp for w in wide)) or 'none'}")
         if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
             fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
         if name in NO_SPILL and any(NO_SPILL[name] in sp for sp in spills):
@@ -1442,9 +1486,10 @@ VIT_ATTN = (257, 257, 64)
 
 
 def _attn_shapes(model) -> list:
-    """(Nq, Nkv, dh) of each attention block's flash call in `model` (a VIT,
-    or an MAE: its encoder on the kept tokens, then its decoder on all)."""
-    from ucf_vit_tpu_torch.models import MAE
+    """(Nq, Nkv, dh) of each attention block's flash call in `model` (a VIT;
+    an MAE: its encoder on the kept tokens, then its decoder on all; a
+    DiffusionVIT: its encoder, then its decoder, both on every token)."""
+    from ucf_vit_tpu_torch.models import MAE, DiffusionVIT
 
     def shapes(blocks, n):
         return [(n, n, blk.attn.head_dim) for blk in blocks]
@@ -1452,6 +1497,9 @@ def _attn_shapes(model) -> list:
     if isinstance(model, MAE):
         return (shapes(model.blocks, model.len_keep)
                 + shapes(model.decoder_blocks, model.num_patches))
+    if isinstance(model, DiffusionVIT):
+        return (shapes(model.blocks, model.num_patches)
+                + shapes(model.decoder_blocks or [], model.num_patches))
     return shapes(model.blocks, model.num_patches + model.num_prefix_tokens)
 
 
@@ -1767,9 +1815,7 @@ def phase_train_bf16():
         fail("the ViT-L run was not ViT-L/16 in bf16 with remat on f32 parameters")
     del out, model
 
-    cfg_l = load_config(VIT_L_CONFIG)
-    cfg_l.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
-                                "seq_par_size": 1}  # what --single-device sets
+    cfg_l = _single_device(VIT_L_CONFIG)
     batch = cfg_l.batch_size
     stream = synthetic_batches(cfg_l, batch, seed=0)
     batches = [next(stream) for _ in range(VIT_L_WARMUP_STEPS + 2 * VIT_L_TIMED_STEPS)]
@@ -1822,7 +1868,7 @@ def phase_train_mae():
     import numpy as np
     import torch
 
-    from ucf_vit_tpu_torch.config import Config, load_config
+    from ucf_vit_tpu_torch.config import Config
     from ucf_vit_tpu_torch.models import MAE
     from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
     from ucf_vit_tpu_torch.train import init_train, main as train_main, synthetic_batches
@@ -1858,9 +1904,7 @@ def phase_train_mae():
     del out, model
 
     # (b) the step's time: a warm-up, an untraced window and a traced one
-    cfg = load_config(MAE_CONFIG)
-    cfg.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
-                              "seq_par_size": 1}  # what --single-device sets
+    cfg = _single_device(MAE_CONFIG)
     batch = cfg.batch_size
     stream = synthetic_batches(cfg, batch, seed=0)
     w, t = MAE_WARMUP_STEPS, MAE_TIMED_STEPS
@@ -2553,6 +2597,350 @@ def _seeded_load(cfg, bodies) -> float:
     return len(res["requests"]) / res["wall_s"]
 
 
+# ---------------------------------------------------------------- diffusion
+
+
+def phase_diffusion_kernels():
+    """The f32 forward and fused backward at the diffusion decoders' attention
+    (DIFF_SHAPES, packed qkv views): the DH = 128 instance at imagenet's dh 128,
+    the DH = 96 one at basic_ct's dh 96. o and lse against the plain forward to
+    FLASH_TOL and LSE_TOL, dq, dk, dv of both routes against the plain backward
+    to BWD_TOL (the path takes the fused one: 256 queries); the forward and the
+    fused kernel timed beside their plain versions, their bound and
+    scaled_dot_product_attention (forward; backward alone). Returns {config:
+    {"fwd": numbers, "bwd": numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        _bwd_launch,
+        _dq_workspace,
+        _dropout_args,
+        flash_attention,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+        kernel_instance,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    timed = {}
+    for name, (b, h, n, _, dh, packed) in DIFF_SHAPES.items():
+        shape = f"[{b},{h},{n}x{n},{dh}] float32 qkv-views ({name} diffusion decoder)"
+        q, k, v = _flash_inputs(b, h, n, n, dh, torch.float32, packed, gen)
+        sm = dh**-0.5
+        o, lse, do, _, rel, ref_max, abs_err = _bwd_case(q, k, v, dh, 0.0, 0, 0, 0, gen)
+        ref, ref_lse = flash_attention_plain(q, k, v, sm)
+        err = (o - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        instances = (kernel_instance("flash_fwd_tf32", dh), kernel_instance("flash_bwd_tf32", dh))
+        log(f"[diffusion] flash_fwd {shape} ({instances[0]}): max|o-plain| {err:.3e} (tol "
+            f"{FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
+        if not (err <= FLASH_TOL["float32"] and lse_err <= LSE_TOL):
+            fail(f"flash_fwd disagrees with its plain version at {shape}")
+        for r in rel:
+            log(f"[diffusion] flash_bwd {r:5s} {shape} ({instances[1]}): max|d-plain|/max|plain| "
+                f"dq {rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} (tol "
+                f"{BWD_TOL['float32']:g})")
+            if max(rel[r]) > BWD_TOL["float32"] or not all(m > 0 for m in ref_max):
+                fail(f"flash_bwd route {r} disagrees with its plain version at {shape}")
+        del ref, ref_lse
+        # the forward: kernel, plain version, SDPA
+        ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm), FWD_KERNEL["float32"])
+        plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, sm))
+        library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm))
+        flops = 4.0 * b * h * n * n * dh
+        nbytes = 4 * b * h * dh * 4 * n + 4 * b * h * n
+        bound_ms, bound_by = _bound(flops, nbytes, "float32")
+        timed[name] = {"fwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}}
+        log(f"[diffusion] flash_fwd {shape} ({instances[0]}), device ms per call (host ms): "
+            f"kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, scaled_dot_product_attention "
+            f"{library_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP)")
+        # the fused backward alone, from buffers made beforehand
+        di = (o * do).sum(-1).reshape(b * h, n)
+        ws = _dq_workspace(b, n, h, dh, q.device)
+        dk, dv = (torch.empty(b, n, h, dh, device="cuda").transpose(1, 2) for _ in "kv")
+        drop = _dropout_args(0.0, 0, 0, 0)
+        ms, host = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
+                                                 drop), _bwd_kernel("float32", "fused"))
+        plain_ms, _ = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, sm))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+        library_ms, _ = device_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+        del out, qg, kg, vg
+        flops, nbytes = _bwd_work("fused", b, h, n, n, dh, 4)
+        bound_ms, bound_by = _bound(flops, nbytes, "float32")
+        timed[name]["bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "max_abs_err": max(abs_err["fused"])}
+        log(f"[diffusion] flash_bwd_fused {shape} ({instances[1]}), device ms per call (host "
+            f"ms): kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, "
+            f"scaled_dot_product_attention backward {library_ms:.4f}; bound {bound_ms:.4f} ms "
+            f"({bound_by}; {flops / 1e9:.3f} GFLOP)")
+        del q, k, v, o, lse, do, di, ws, dk, dv
+    return timed
+
+
+def _instance_counts() -> dict:
+    """The flash kernels' launches by head-dim instance, forward and backward."""
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+
+    return {**{f"fwd:{k}": n for k, n in flash_attention.by_instance.items()},
+            **{f"bwd:{k}": n for k, n in flash_attention_bwd.by_instance.items()}}
+
+
+def _expected_instances(shapes: list, steps: int, backward: bool = True) -> dict:
+    """`_instance_counts` of `steps` f32 train steps (or, without `backward`,
+    forwards) of a model whose attention blocks take these (Nq, Nkv, dh), each
+    backward on the route `bwd_route` gives its shape."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import bwd_route, kernel_instance
+
+    counts = {k: 0 for k in _instance_counts()}
+    for n_q, n_kv, dh in shapes:
+        counts["fwd:" + kernel_instance("flash_fwd_tf32", dh)] += steps
+        if backward:
+            kernels = 1 if bwd_route(torch.float32, n_q, n_kv, dh) == "fused" else 2
+            counts["bwd:" + kernel_instance("flash_bwd_tf32", dh)] += kernels * steps
+    return counts
+
+
+def _single_device(path: str):
+    """The config at `path` as `--single-device` sets it."""
+    from ucf_vit_tpu_torch.config import load_config
+
+    cfg = load_config(path)
+    cfg.raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                              "seq_par_size": 1}
+    return cfg
+
+
+def phase_train_diffusion():
+    """Both diffusion configs at full width and depth on one device: the
+    trainer's CLI entry with `--single-device`, the launch counts set to 0
+    before it and read after (by kernel, source and head-dim instance: 40 f32
+    forwards and 40 fused backwards a step, 16 of each at the decoder's
+    instance, no dkv or dq); a timed and a traced window; FLASH against EINSUM
+    from one init and one batch stream, the steps t, the noise e and the time
+    embedding's dropout drawn from one seeded generator on both runs."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.models import DiffusionVIT
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import init_train, main as train_main, synthetic_batches
+
+    results = {}
+    for name, path in DIFF_CONFIGS.items():
+        torch.cuda.empty_cache()
+        cfg = _single_device(path)
+        ia, accum = cfg.init_args, int(cfg.trainer["accum_steps"])
+        # (a) the main path: the CLI entry as a user runs it
+        argv = [path, "--synthetic", "--single-device", "--max-steps", str(DIFF_MAIN_STEPS)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_main(argv)
+        counts, instances = _launch_counts(), _instance_counts()
+        model = out["state"].model
+        log(f"[diffusion] {name}: python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
+            f"{time.perf_counter() - t0:.2f} s (init included); epoch losses "
+            f"{out['loss_list']}; launches {counts}")
+        if not (isinstance(model, DiffusionVIT) and model.embed_dim == 768
+                and len(model.blocks) == 12 and model.blocks[0].attn.num_heads == 12
+                and model.decoder_embed_dim == int(ia["decoder_embed_dim"])
+                and len(model.decoder_blocks) == 8
+                and model.decoder_blocks[0].attn.num_heads == int(ia["decoder_num_heads"])
+                and model.num_patches == 256 and model.time_steps == 1000
+                and model.dtype is None and not model.remat
+                and all(p.dtype == torch.float32 for p in model.parameters())):
+            fail(f"the {name} diffusion run was not the shipped model in f32")
+        shapes = _attn_shapes(model)
+        steps = accum * DIFF_MAIN_STEPS
+        want = _expected_counts(shapes, steps, dropout=False)
+        want_instances = _expected_instances(shapes, steps)
+        per_step = {k: n // DIFF_MAIN_STEPS for k, n in instances.items() if n}
+        dec = f"flash_fwd_tf32<{128 if model.decoder_blocks[0].attn.head_dim > 96 else 96}>"
+        log(f"[diffusion] {name}: launches a step by instance {per_step}")
+        if counts != want or instances != want_instances or not all(np.isfinite(out["loss_list"])):
+            fail(f"{name} train launched {counts}, {instances} (expected {want}, "
+                 f"{want_instances}); losses {out['loss_list']}")
+        if (counts["flash_fwd"], counts["flash_bwd_fused"], counts["flash_bwd_dkv"],
+                counts["flash_bwd_dq"], instances["fwd:" + dec]) != (
+                40 * DIFF_MAIN_STEPS, 40 * DIFF_MAIN_STEPS, 0, 0, 16 * DIFF_MAIN_STEPS):
+            fail(f"{name}: expected 40 forwards, 40 fused backwards (16 of each at {dec}) and "
+                 f"no dkv or dq a step: {counts}, {instances}")
+        del out, model
+
+        # (b) the step's time: a warm-up, an untraced window and a traced one
+        batch = cfg.batch_size
+        stream = synthetic_batches(cfg, batch, seed=0)
+        w, t = DIFF_WARMUP_STEPS, DIFF_TIMED_STEPS
+        batches = [next(stream) for _ in range(w + t + DIFF_TRACED_STEPS)]
+        state, step = init_train(cfg, "cuda")
+        res = _measure_steps("diffusion", f"{name} f32 batch {batch} ({accum} x "
+                             f"{batch // accum})", state, step, batches[:w],
+                             batches[w:w + t], batches[w + t:], top=14)
+        res["device_step_ms"] = res["busy_ms"] / res["traced_steps"]
+        log(f"[diffusion] {name}: device time a step {res['device_step_ms']:.3f} ms; by kind: "
+            f"{_kernel_groups(res['kernels'], res['busy_ms'])}")
+        log(f"[diffusion] {name}: flash kernels a step: "
+            f"{_flash_per_step(res['kernels'], res['traced_steps'])}")
+        del state, step
+
+        # (c) FLASH (the kernels) against EINSUM (plain autograd)
+        runs = {}
+        for impl in ("FLASH", "EINSUM"):
+            st, _, losses, grads, c = _run_steps(_train_cfg(cfg, impl),
+                                                 batches[:DIFF_CHECK_STEPS])
+            runs[impl] = (losses, grads, c)
+            del st
+        (lf, gf, cf), (le, ge, ce) = runs["FLASH"], runs["EINSUM"]
+        diff = max(abs(a - b) for a, b in zip(lf, le))
+        gmax = max(g.abs().max().item() for g in ge.values())
+        gdiff = max((gf[n] - ge[n]).abs().max().item() for n in ge)
+        log(f"[diffusion] {name} FLASH vs EINSUM, {DIFF_CHECK_STEPS} steps: losses FLASH "
+            f"{' '.join(f'{x:.6f}' for x in lf)}, EINSUM {' '.join(f'{x:.6f}' for x in le)}; "
+            f"max |diff| {diff:.3e} (tol {TRAIN_LOSS_TOL:g}); first-step gradients max |diff| "
+            f"{gdiff / gmax:.3e} of the largest entry (tol {TRAIN_GRAD_TOL:g})")
+        if not all(np.isfinite(lf)) or diff > TRAIN_LOSS_TOL or gdiff > TRAIN_GRAD_TOL * gmax:
+            fail(f"{name}: FLASH training disagrees with EINSUM's")
+        if cf != _expected_counts(shapes, accum * DIFF_CHECK_STEPS, dropout=False) or \
+                any(ce.values()):
+            fail(f"{name}: launches {cf} under FLASH, {ce} under EINSUM")
+        results[name] = {"main": counts, "instances": instances, **res}
+        del runs, gf, ge
+    return results
+
+
+def phase_generate():
+    """DDPM generation with imagenet's DiffusionVIT (seeded weights, a batch of
+    GEN_SAMPLES, 256 x 256 x 3): `generate_diffusion` runs the whole 1,000-step
+    reverse chain on the card for seeds 0 and 1 (other images), each with the
+    launch counts set to 0 before it and read after (20 forwards a step, no
+    backward); a traced window of denoising steps (device ms a step, busy
+    share); then `make_server` with `--num-generate` GEN_SAMPLES: its warm-up
+    (one denoising step), one `/v1/generate` request for seed 0 (its latency,
+    its shape, its launches, and the same images as the direct chain's for
+    seed 0: one seed, one answer) and `/v1/predict` answering 400."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.inference import diffusion_sampler, generate_diffusion, init_eval_model
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.serve import make_server
+    from ucf_vit_tpu_torch.tasks import time_steps
+
+    torch.cuda.empty_cache()
+    cfg = _single_device(DIFF_CONFIGS["imagenet"])
+    steps = time_steps(cfg)
+    model = init_eval_model(cfg, device="cuda")
+    shapes = _attn_shapes(model)
+    # a chain: one forward a block a step, no backward
+    want = _expected_counts(shapes, 0, dropout=False)
+    want["flash_fwd"] = want["src:flash_fwd_tf32"] = len(shapes) * steps
+    want_instances = _expected_instances(shapes, steps, backward=False)
+    img_shape = (GEN_SAMPLES, cfg.max_channels, *cfg.tile_size[:2])
+    chains = []
+    for seed in (0, 1):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sps, imgs = generate_diffusion(cfg, num_samples=GEN_SAMPLES, device="cuda", seed=seed)
+        wall = time.perf_counter() - t0
+        counts, instances = _launch_counts(), _instance_counts()
+        log(f"[generate] generate_diffusion seed {seed}: {sps:.4f} samples/s ({wall:.2f} s with "
+            f"the init); images {imgs.shape}, mean {imgs.mean():.4f}, std {imgs.std():.4f}; "
+            f"launches {counts}")
+        if imgs.shape != img_shape or not np.all(np.isfinite(imgs)):
+            fail(f"generate_diffusion gave {imgs.shape} (expected {img_shape}), finite "
+                 f"{np.all(np.isfinite(imgs))}")
+        if counts != want or instances != want_instances:
+            fail(f"a generate call launched {counts}, {instances}; expected {want}, "
+                 f"{want_instances}")
+        chains.append((sps, imgs, instances))
+    if np.array_equal(chains[0][1], chains[1][1]):
+        fail("generate_diffusion gave seeds 0 and 1 the same images")
+
+    # device time a denoising step at the chain's batch, in a traced window
+    sample = diffusion_sampler(cfg, model, GEN_SAMPLES)
+    x = torch.randn(sample.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    tb = torch.full((GEN_SAMPLES,), steps // 2, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        for _ in range(3):
+            sample.denoise(x, tb)
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        for _ in range(GEN_TRACED_STEPS):
+            sample.denoise(x, tb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.stop()
+    kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                      if e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms <= 0:
+        fail("the traced denoising window saw no work on the card")
+    denoise = {"device_ms": busy_ms / GEN_TRACED_STEPS, "host_ms": wall_ms / GEN_TRACED_STEPS,
+               "busy": busy_ms / wall_ms, "kernels_a_step": sum(k[1] for k in kernels)
+               / GEN_TRACED_STEPS}
+    log(f"[generate] a denoising step at batch {GEN_SAMPLES}: {denoise['device_ms']:.3f} ms of "
+        f"device time in {denoise['host_ms']:.3f} ms ({100 * denoise['busy']:.2f}% busy, "
+        f"{denoise['kernels_a_step']:.0f} kernels a step); by kind: "
+        f"{_kernel_groups(kernels, busy_ms)}")
+    log(f"[generate] flash kernels a step: {_flash_per_step(kernels, GEN_TRACED_STEPS)}")
+    for t_us, count, key in kernels[:8]:
+        log(f"[generate]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy_ms:6.2f}% "
+            f"x{count:<5d} {key[:90]}")
+    del model, sample, x
+
+    # the served path: make_server's warm-up, then one /v1/generate request
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = make_server(cfg, host="127.0.0.1", port=0, device="cuda", num_generate=GEN_SAMPLES)
+    startup_s = time.perf_counter() - t0
+    warm = _launch_counts()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        health = _get_json(port, "/healthz")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        body = _request(port, "POST", "/v1/generate",
+                        json.dumps({"seed": 0, "num": GEN_SAMPLES}).encode())
+        latency_s = time.perf_counter() - t0
+        served_counts, served_instances = _launch_counts(), _instance_counts()
+        served = np.load(io.BytesIO(body))
+        try:
+            _request(port, "POST", "/v1/predict", b"not an image")
+            predict = "200"
+        except RuntimeError as e:
+            predict = str(e)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    same = served.shape == img_shape and np.array_equal(served, chains[0][1])
+    log(f"[generate] make_server --num-generate {GEN_SAMPLES}: startup {startup_s:.2f} s (its "
+        f"warm-up launched {warm['flash_fwd']} forwards); /healthz {health}; POST /v1/generate "
+        f"seed 0: {latency_s:.3f} s, {served.shape} {served.dtype}, launches {served_counts}; "
+        f"the same images as generate_diffusion's for seed 0: {same}; /v1/predict: "
+        f"{predict[:120]}")
+    if health != {"status": "ok", "task": "diffusion"} or warm["flash_fwd"] != len(shapes) \
+            or any(v for k, v in warm.items() if k.startswith("flash_bwd")):
+        fail(f"the diffusion server's start: /healthz {health}, warm-up launches {warm}")
+    if served_counts != want or served_instances != want_instances or not same:
+        fail(f"/v1/generate launched {served_counts} (expected {want}) and answered "
+             f"{served.shape}, the direct chain's images for its seed: {same}")
+    if "HTTP 400" not in predict:
+        fail(f"/v1/predict on a diffusion deployment answered {predict}")
+    return {"instances": chains[0][2], "served_instances": served_instances,
+            "samples_s": [c[0] for c in chains], "denoise": denoise, "latency_s": latency_s}
+
+
 # ---------------------------------------------------------------- two checkouts
 
 COMPARE_CALLS, COMPARE_WINDOWS = 2000, 9
@@ -2741,6 +3129,7 @@ def main() -> int:
     phase_build()
     fwd = phase_kernels()
     bwd = phase_bwd_kernels()
+    diffusion_kernels = phase_diffusion_kernels()
     mae = phase_mae_kernels()
     dropout = phase_dropout(fwd, bwd)
     mlp = phase_mlp_kernels()
@@ -2753,6 +3142,8 @@ def main() -> int:
         trained_bf16 = phase_train_bf16()
         trained_mae = phase_train_mae()
         disk = phase_train_disk(trained_mae, trained["ms_step"])
+        diffusion = phase_train_diffusion()
+        generated = phase_generate()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2802,6 +3193,14 @@ def main() -> int:
         "fused_mlp_f32": ("ucf_vit_tpu_torch/csrc/fused_mlp_tf32.cu",
                           "ucf_vit_tpu/ops/fused_mlp.py:55"),
         "int8_matmul": ("ucf_vit_tpu_torch/csrc/int8_gemm.cu", "ucf_vit_tpu/ops/int8_gemm.py:61"),
+        "flash_fwd_dh128": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                            "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_dh128": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
+                                  "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_dh96": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                           "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_dh96": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
+                                 "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -2812,7 +3211,11 @@ def main() -> int:
                "flash_bwd_dkv_bf16_mae_long": mae["decoder"]["bwd"]["dkv"],
                "flash_bwd_dq_bf16_mae_long": mae["decoder"]["bwd"]["dq"],
                "fused_mlp": mlp[RECORD_MLP, "bfloat16"],
-               "fused_mlp_f32": mlp[RECORD_MLP, "float32"], "int8_matmul": int8[RECORD_INT8]}
+               "fused_mlp_f32": mlp[RECORD_MLP, "float32"], "int8_matmul": int8[RECORD_INT8],
+               "flash_fwd_dh128": diffusion_kernels["imagenet"]["fwd"],
+               "flash_bwd_fused_dh128": diffusion_kernels["imagenet"]["bwd"],
+               "flash_fwd_dh96": diffusion_kernels["basic_ct"]["fwd"],
+               "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"],
@@ -2827,6 +3230,14 @@ def main() -> int:
         "flash_bwd_dkv_bf16_mae_long": mae_long["flash_bwd_dkv"],
         "flash_bwd_dq_bf16_mae_long": mae_long["flash_bwd_dq"],
         "keep_mask": trained["dropout"]["keep_mask"], **ops,
+        # the diffusion paths: imagenet's training through the CLI entry, its first
+        # generate call and its served request (DH = 128); basic_ct's training (DH = 96)
+        "flash_fwd_dh128": sum(c["fwd:flash_fwd_tf32<128>"] for c in (
+            diffusion["imagenet"]["instances"], generated["instances"],
+            generated["served_instances"])),
+        "flash_bwd_fused_dh128": diffusion["imagenet"]["instances"]["bwd:flash_bwd_tf32<128>"],
+        "flash_fwd_dh96": diffusion["basic_ct"]["instances"]["fwd:flash_fwd_tf32<96>"],
+        "flash_bwd_fused_dh96": diffusion["basic_ct"]["instances"]["bwd:flash_bwd_tf32<96>"],
     }
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
@@ -2835,10 +3246,19 @@ def main() -> int:
         f"{trained_mae['ms_step']:.3f}), the loader alone {disk['loader_ms']:.1f} ms a batch, "
         f"busy {100 * disk['busy']:.2f}%, checkpoint saves {disk['save_s']} s, load "
         f"{disk['load_s']} s; catsdogs from JPEG files {disk['jpeg']}")
+    log(f"[record] diffusion: " + "; ".join(
+        f"{n} {r['ms_step']:.3f} ms/step, {r['images_s']:.2f} images/s, busy "
+        f"{100 * r['busy_share']:.2f}%, {r['device_step_ms']:.3f} ms device a step, peak "
+        f"{r['peak_gb']:.2f} GB" for n, r in diffusion.items())
+        + f"; generate {', '.join(f'{x:.4f}' for x in generated['samples_s'])} samples/s, "
+        f"{generated['denoise']['device_ms']:.3f} ms device a denoising step "
+        f"({100 * generated['denoise']['busy']:.2f}% busy), a served request "
+        f"{generated['latency_s']:.3f} s")
     for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
                  "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long",
                  "flash_bwd_dkv_bf16_mae_long", "flash_bwd_dq_bf16_mae_long", "fused_mlp",
-                 "fused_mlp_f32", "int8_matmul"):
+                 "fused_mlp_f32", "int8_matmul", "flash_fwd_dh128", "flash_bwd_fused_dh128",
+                 "flash_fwd_dh96", "flash_bwd_fused_dh96"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,7 +1,8 @@
 """The port's serving path on the CPU: the predictor against the JAX
 package's on the same weights, the micro-batcher's coalesce/pad/pipeline
 semantics (as tests/test_serve.py pins them for the JAX server), an HTTP
-round trip against the direct forward, and the import guard."""
+round trip against the direct forward, a diffusion deployment's
+`/v1/generate` against the direct DDPM chain, and the import guard."""
 
 import ast
 import io
@@ -23,7 +24,12 @@ torch = pytest.importorskip("torch")
 from ucf_vit_tpu.serve import build_predictor as jax_build_predictor
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.convert import load_jax_params
-from ucf_vit_tpu_torch.inference import init_eval_model, load_weights
+from ucf_vit_tpu_torch.inference import (
+    diffusion_sampler,
+    generate_diffusion,
+    init_eval_model,
+    load_weights,
+)
 from ucf_vit_tpu_torch.serve import MicroBatcher, build_predictor, make_server, main
 from ucf_vit_tpu_torch.train import example_batch, train
 
@@ -330,6 +336,131 @@ def test_serve_ema_needs_a_checkpoint_with_ema(tmp_path):
             load_weights(init_eval_model(other, device="cpu"), other, d)
     finally:
         _stop(server)
+
+
+# ---------------------------------------------------------------- diffusion
+
+
+def _diffusion_cfg(steps=5, **extra_trainer):
+    """imagenet/diffusion's model keys at a 16^2 tile, patch 4, depth 2, embed 16,
+    a decoder of 16 and `steps` DDPM steps."""
+    init = {"default_vars": ["red", "green", "blue"], "tile_size": [16, 16], "patch_size": 4,
+            "embed_dim": 16, "depth": 2, "num_heads": 2, "mlp_ratio": 2,
+            "decoder_embed_dim": 16, "decoder_depth": 2, "decoder_num_heads": 2,
+            "mlp_ratio_decoder": 2, "linear_decoder": False, "twoD": True,
+            "adaptive_patching": False, "num_time_steps": steps}
+    raw = {"trainer": {"task": "diffusion", "max_epochs": 1, **extra_trainer},
+           "parallelism": {"fsdp_size": 1, "simple_ddp_size": 1,
+                           "tensor_par_size": 1, "seq_par_size": 1},
+           "model": {"lr": 1e-3, "net": {"init_args": init}},
+           "data": {"dataset": "imagenet", "num_channels_used": {"d": 3}, "batch_size": 4}}
+    return Config(raw=raw, task="diffusion")
+
+
+def _generate(base, **body):
+    return np.load(io.BytesIO(_post(f"{base}/v1/generate", json.dumps(body).encode(),
+                                    "application/json")))
+
+
+def test_serve_generates_by_the_reverse_chain():
+    """A diffusion deployment answers `/v1/generate` with `[num, C, H, W]` images, the
+    same for one seed and the direct chain's on the same seeded weights; other seeds
+    give other images; `/v1/predict` and `/v1/reload` answer 400."""
+    cfg = _diffusion_cfg()
+    server = make_server(cfg, host="127.0.0.1", port=0, device="cpu", num_generate=3, seed=2)
+    assert server.RequestHandlerClass.batcher is None
+    try:
+        base = _serving(server)
+        assert _get_json(f"{base}/healthz") == {"status": "ok", "task": "diffusion"}
+        a = _generate(base, seed=7)
+        assert a.shape == (3, 3, 16, 16) and a.dtype == np.float32 and np.all(np.isfinite(a))
+        two = _generate(base, seed=7, num=2)
+        assert two.shape == (2, 3, 16, 16)
+        np.testing.assert_array_equal(two, a[:2])
+        np.testing.assert_array_equal(_generate(base, seed=7), a)
+        assert not np.array_equal(_generate(base, seed=8), a)
+        assert _generate(base).shape == (3, 3, 16, 16)  # seed 0
+        x = np.zeros((3, 16, 16), np.float32)
+        for path, body in (("/v1/predict", _npy_body(x)),
+                           ("/v1/reload", json.dumps({"checkpoint": "/ckpt"}).encode())):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(f"{base}{path}", body, "application/octet-stream")
+            assert e.value.code == 400, path
+        assert _get_json(f"{base}/v1/stats") == {"task": "diffusion", "requests": 0}
+    finally:
+        server.shutdown()
+        server.server_close()
+    model = init_eval_model(cfg, seed=2, device="cpu")
+    np.testing.assert_array_equal(diffusion_sampler(cfg, model, 3)(7).numpy(), a)
+
+
+def _npy_body(x):
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return buf.getvalue()
+
+
+def test_classification_server_answers_generate_with_400():
+    server = make_server(_cfg(), host="127.0.0.1", port=0, max_batch=4, device="cpu")
+    try:
+        base = _serving(server)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _generate(base, seed=0)
+        assert e.value.code == 400 and "only served for diffusion" in json.loads(
+            e.value.read())["error"]
+    finally:
+        _stop(server)
+
+
+def test_generate_diffusion_on_the_cpu(tmp_path):
+    """`generate_diffusion` runs the whole chain at T = 5 from the seeded init or a
+    checkpoint of the port's trainer (its EMA too), the same images for one seed."""
+    cfg = _diffusion_cfg(checkpoint_path=str(tmp_path / "ck"), checkpoint_filename="last",
+                         checkpoint_filename_for_loading="last_latest", ema_decay=0.5)
+    sps, imgs = generate_diffusion(cfg, num_samples=2, device="cpu", seed=1)
+    assert sps > 0 and imgs.shape == (2, 3, 16, 16) and np.all(np.isfinite(imgs))
+    np.testing.assert_array_equal(generate_diffusion(cfg, num_samples=2, device="cpu",
+                                                     seed=1)[1], imgs)
+    cfg.raw["load_balancing"] = {"batches_per_rank_epoch": {"d": 2}}
+    assert len(train(cfg, synthetic=True, device="cpu")["loss_list"]) == 1
+    d = str(tmp_path / "ck")
+    _, trained = generate_diffusion(cfg, d, num_samples=2, device="cpu", seed=1)
+    _, ema = generate_diffusion(cfg, d, num_samples=2, device="cpu", seed=1, use_ema=True)
+    assert not np.array_equal(trained, imgs) and not np.array_equal(ema, trained)
+    model = init_eval_model(cfg, device="cpu")
+    load_weights(model, cfg, d)
+    np.testing.assert_array_equal(diffusion_sampler(cfg, model, 2)(1).numpy(), trained)
+    with pytest.raises(TypeError, match="DiffusionVIT"):
+        diffusion_sampler(_cfg(), init_eval_model(_cfg(), device="cpu"), 2)
+
+
+@pytest.mark.parametrize("task,item", [("mae", "item 5: MAE predict"),
+                                       ("unetr", "item 7: UNETR"), ("sap", "item 8: SAP")])
+def test_predictor_refuses_the_tasks_still_to_port(task, item):
+    cfg = _cfg()
+    with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
+        build_predictor(Config(raw=cfg.raw, task=task), device="cpu")
+
+
+def test_serve_main_takes_num_generate(monkeypatch):
+    """`--num-generate` reaches the diffusion server; without CUDA the default
+    device raises."""
+    seen = {}
+
+    def fake_make_server(cfg, *args, **kwargs):
+        seen.update(kwargs, task=cfg.task)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(sys.modules["ucf_vit_tpu_torch.serve"], "make_server", fake_make_server)
+    with pytest.raises(SystemExit):
+        main([os.path.join(REPO, "configs/imagenet/diffusion/base_config.yaml"),
+              "--num-generate", "4", "--port", "0"])
+    assert seen["task"] == "diffusion" and seen["num_generate"] == 4
+    assert seen["device"] == "cuda"
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_server(_diffusion_cfg(), host="127.0.0.1", port=0)
 
 
 # ---------------------------------------------------------------- import guard

@@ -27,7 +27,13 @@ balancing, DataModule and catsdogs loader against the JAX package's, batch for
 batch; five train steps from JPEGs through both trainers; the checkpoint slots,
 their resolution and the head-grouping guard; resume equal bit for bit to an
 uninterrupted run; and checkpoints through the JAX package's `convert_checkpoint`
-both ways."""
+both ways.
+
+Then DiffusionVIT and DDPM: the time table, the schedule, `q_sample`, the model, the
+loss and 5 train steps with the steps t and the noise e injected into both sides, the
+reverse chain on the JAX sampler's own draws, the time embedding's dropout drawing
+from the model's generator, and both diffusion configs shrunk through the CLI with a
+save and a resume."""
 
 import ast
 import copy
@@ -1195,3 +1201,386 @@ def test_jax_checkpoint_loads_through_init_params_from_and_load_weights(tmp_path
     with pytest.raises(ValueError, match="no EMA"):
         load_weights(served, Config(raw=raw, task="classification"), str(exported),
                      use_ema=True)
+
+
+# ================================================================ DiffusionVIT + DDPM
+#
+# DiffusionVIT and the DDPM functions against the JAX package's, at depth 2, embed 24,
+# decoder 16 (2-D) or 18 (3-D). Weights are the flax init plus numpy noise, moved across
+# with `load_jax_params`; inputs, steps t and noise e come from numpy seeds and are
+# injected into both sides; the time embedding's dropout is off on both (JAX
+# `deterministic=True`, the port's module in eval mode). Tolerances: the time table
+# exact (numpy on both sides); the schedule within 1e-6 relative (f32 cumprod in another
+# order); `q_sample` and the loss within 1e-6; `pred` within 1e-5; per-step losses of
+# 5 f32 train steps within 1e-4; the reverse chain at T = 10 within 1e-4.
+
+from ucf_vit_tpu.models.ddpm import ddpm_sample as jax_ddpm_sample
+from ucf_vit_tpu.models.ddpm import ddpm_schedule as jax_ddpm_schedule
+from ucf_vit_tpu.models.ddpm import q_sample as jax_q_sample
+from ucf_vit_tpu.models.diffusion import DiffusionVIT as JDiffusionVIT
+from ucf_vit_tpu.ops.pos_embed import (
+    sinusoidal_time_embedding_table as jax_time_table,
+)
+from ucf_vit_tpu.tasks import build_diffusion as jax_build_diffusion
+from ucf_vit_tpu_torch.models import DiffusionVIT, ddpm_sample, ddpm_schedule, q_sample
+from ucf_vit_tpu_torch.ops.pos_embed import sinusoidal_time_embedding_table
+from ucf_vit_tpu_torch.tasks import build_diffusion
+
+DIFF_PRED_TOL = 1e-5  # pred, f32
+DIFF_SAMPLE_TOL = 1e-4  # the reverse chain, T = 10
+DIFF_STEPS = 5
+DIFF_T = 50  # time steps of the models below
+DIFF_TILES = {
+    "2d": dict(img_size=(16, 16), patch_size=4, in_chans=3, twoD=True, decoder_embed_dim=16),
+    "3d": dict(img_size=(16, 16, 16), patch_size=4, in_chans=1, twoD=False),
+}
+DIFF_KW = dict(embed_dim=24, depth=2, num_heads=2, decoder_embed_dim=18, decoder_depth=2,
+               decoder_num_heads=2, mlp_ratio_decoder=2.0, mlp_ratio=2.0, time_steps=DIFF_T)
+
+
+def _diff_shape(tile, b=2):
+    kw = DIFF_TILES[tile]
+    return (b, kw["in_chans"]) + tuple(kw["img_size"])
+
+
+def _diff_t(b, steps=DIFF_T, seed=3):
+    return np.random.default_rng(seed).integers(0, steps, size=b).astype(np.int64)
+
+
+def _diff_pair(tile, impl="FLASH", **kw):
+    """(JAX DiffusionVIT, its params (flax init plus N(0, 0.05) noise), the port's
+    model with them in eval mode, input x, steps t)."""
+    kw = dict(DIFF_KW, **DIFF_TILES[tile], **kw)
+    x = _mae_x(*_diff_shape(tile))
+    t = _diff_t(2, steps=kw["time_steps"])
+    jmod = JDiffusionVIT(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(t))["params"])
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    ours = load_jax_params(DiffusionVIT(attn_impl=impl, **kw), params).eval()
+    return jmod, params, ours, x, t
+
+
+@pytest.mark.parametrize("steps,dim", [(1000, 768), (DIFF_T, 24), (7, 10)])
+def test_time_table_equals_jax(steps, dim):
+    want = jax_time_table(steps, dim)
+    got = sinusoidal_time_embedding_table(steps, dim)
+    assert got.dtype == np.float64 and got.shape == (steps, dim)
+    np.testing.assert_array_equal(got, want)
+    # interleaved: even dims sin, odd dims cos of the same angle (step 1, frequency 1 first)
+    assert got[1, 0] == np.sin(1.0) and got[1, 1] == np.cos(1.0)
+    assert np.all(got[0, 1::2] == 1.0) and np.all(got[0, 0::2] == 0.0)
+
+
+@pytest.mark.parametrize("steps", [10, 1000])
+def test_ddpm_schedule_matches_jax(steps):
+    ours, ref = ddpm_schedule(steps), jax_ddpm_schedule(steps)
+    assert ours.num_time_steps == ref.num_time_steps == steps
+    for got, want in ((ours.beta, ref.beta), (ours.alpha_bar, ref.alpha_bar)):
+        assert got.dtype == torch.float32 and got.shape == (steps,)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("tile", sorted(DIFF_TILES))
+def test_q_sample_matches_jax(tile):
+    x0 = _mae_x(*_diff_shape(tile, b=3), seed=4)
+    e = _mae_x(*_diff_shape(tile, b=3), seed=5)
+    t = np.array([0, 499, 999])
+    got = q_sample(ddpm_schedule(1000), torch.from_numpy(x0), torch.from_numpy(t),
+                   torch.from_numpy(e))
+    want = jax_q_sample(jax_ddpm_schedule(1000), jnp.asarray(x0), jnp.asarray(t), jnp.asarray(e))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["2d", "3d", "2d_linear_decoder"])
+def test_diffusion_vit_matches_jax(case):
+    """`pred` within DIFF_PRED_TOL, through `load_jax_params`; the port's state_dict
+    agrees key for key with the JAX package's `export_torch_state` (the time table is
+    in neither)."""
+    tile, _, linear = case.partition("_")
+    jmod, params, ours, x, t = _diff_pair(tile, linear_decoder=bool(linear))
+    want = jmod.apply({"params": params}, jnp.asarray(x), jnp.asarray(t))
+    pred = ours(torch.from_numpy(x), torch.from_numpy(t))
+    assert pred.shape == want.shape == (2, ours.num_patches, ours.decoder_pred.out_features)
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(want), atol=DIFF_PRED_TOL,
+                               rtol=0)
+    theirs = export_torch_state(params)
+    assert set(ours.state_dict()) == set(theirs) == set(jax_to_torch_state(params))
+    assert "timeEmbeddingMap.linear1.weight" in theirs and "time_table" not in theirs
+    assert (ours.decoder_blocks is None) == bool(linear)
+
+
+def test_diffusion_vit_refuses_what_it_cannot_run():
+    kw = dict(DIFF_KW, **DIFF_TILES["2d"])
+    with pytest.raises(ValueError, match="class_token=False"):
+        DiffusionVIT(class_token=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline"):
+        DiffusionVIT(pipe_par_size=2, scan_layers=True, **kw)
+
+
+def _diff_raw(tile="2d", **trainer):
+    kw = DIFF_TILES[tile]
+    ia = {"default_vars": ["r", "g", "b"][:kw["in_chans"]], "tile_size": list(kw["img_size"]),
+          "patch_size": kw["patch_size"], "twoD": kw["twoD"], "adaptive_patching": False,
+          "use_varemb": False, **{k: v for k, v in DIFF_KW.items() if k != "time_steps"},
+          "decoder_embed_dim": kw.get("decoder_embed_dim", DIFF_KW["decoder_embed_dim"]),
+          "num_time_steps": DIFF_T}
+    m = {"lr": 1e-3, "beta_1": 0.9, "beta_2": 0.95, "weight_decay": 1e-2, "warmup_steps": 2,
+         "max_steps": 20, "warmup_start_lr": 1e-8, "eta_min": 1e-8, "loss_fn": "MSE",
+         "net": {"init_args": ia}}
+    return {"trainer": {"task": "diffusion", "attn_impl": "EINSUM", **trainer},
+            "parallelism": {}, "model": m,
+            "data": {"batch_size": 4, "num_channels_used": {"d": kw["in_chans"]}}}
+
+
+def _diff_batch(cfg, b, i=0):
+    x = next(synthetic_batches(cfg, b, seed=i))["x"]
+    e = np.random.default_rng(20 + i).normal(size=x.shape).astype(np.float32)
+    return {"x": x, "t": _diff_t(b, seed=10 + i), "e": e}
+
+
+@pytest.mark.parametrize("tile", sorted(DIFF_TILES))
+def test_diffusion_loss_matches_build_diffusion(monkeypatch, tile):
+    """The port's `task_loss` with `(t, e)` in the batch against `build_diffusion`'s
+    own loss_fn with its draws of t and e replaced by the same arrays."""
+    raw = _diff_raw(tile)
+    cfg = Config(raw=raw, task="diffusion")
+    jmod, jloss = jax_build_diffusion(JConfig(raw=raw, task="diffusion"))
+    batch = _diff_batch(cfg, 4)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(batch["x"]),
+                                  jnp.zeros(4, jnp.int32))["params"])
+    monkeypatch.setattr(jax.random, "randint", lambda *a, **k: jnp.asarray(batch["t"]))
+    monkeypatch.setattr(jax.random, "normal", lambda *a, **k: jnp.asarray(batch["e"]))
+    want, _ = jloss(params, {"x": jnp.asarray(batch["x"])}, jax.random.key(0),
+                    deterministic=True)
+    model = load_jax_params(build_diffusion(cfg), params).eval()
+    got, aux = task_loss(cfg)(model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert aux == {} and got.dtype == torch.float32
+    assert abs(got.item() - float(want)) <= 1e-6
+
+
+def _jax_diff_loss(jmod, patch, twoD):
+    """`build_diffusion`'s loss with t and e taken from the batch and the time
+    embedding's dropout off: the JAX step is jitted, so they must enter as data."""
+    def loss_fn(params, batch, rng):
+        x0 = batch["x"]
+        xt = jax_q_sample(jax_ddpm_schedule(DIFF_T), x0, batch["t"], batch["e"])
+        pred = jmod.apply({"params": params}, xt, batch["t"], deterministic=True)
+        return jax_metrics.mse(junpatchify(pred, x0.shape, patch, twoD), batch["e"]), {}
+    return loss_fn
+
+
+def _port_diff_loss(cfg):
+    """The port's diffusion loss on the batch's t and e with the time embedding's
+    dropout off (the train step puts every module in training mode first)."""
+    loss = task_loss(cfg)
+
+    def loss_fn(model, batch):
+        model.timeEmbeddingMap.eval()
+        return loss(model, batch)
+    return loss_fn
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_flash_accum2"])
+def test_diffusion_train_steps_match_jax(case):
+    """Five f32 steps from one init on the same batches, steps and noise (split with
+    the batch under accumulation): per-step losses within LOSS_TOL, parameters after
+    them within PARAM_TOL."""
+    impl, accum = ("FLASH", 2) if "flash" in case else ("EINSUM", 1)
+    raw = _diff_raw("2d", accum_steps=accum)
+    cfg = Config(raw=raw, task="diffusion")
+    jmod, _ = jax_build_diffusion(JConfig(raw=raw, task="diffusion"))
+    stream = synthetic_batches(cfg, 4)
+    batches = []
+    for i, b in zip(range(DIFF_STEPS), stream):
+        assert set(b) == {"x", "variables"}  # diffusion's synthetic batches hold x only
+        batches.append({"x": b["x"], "t": _diff_t(4, seed=10 + i),
+                        "e": _mae_x(*b["x"].shape, seed=20 + i)})
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(batches[0]["x"]),
+                                  jnp.zeros(4, jnp.int32))["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(_jax_diff_loss(jmod, 4, True), tx, donate=False,
+                                accum_steps=accum)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = impl
+    cfg = Config(raw=raw, task="diffusion")
+    model = load_jax_params(build_diffusion(cfg), jax.device_get(params))
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(_port_diff_loss(cfg), opt, accum_steps=accum)
+    losses = []
+    for b in batches:
+        state, loss, aux = step(state, to_device(b, torch.device("cpu")))
+        losses.append(loss.item())
+    assert aux == {} and state.step == DIFF_STEPS
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+    final = jax_to_torch_state(jax.device_get(jstate.params))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), final[name], atol=PARAM_TOL, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("tile", sorted(DIFF_TILES))
+def test_ddpm_sample_matches_jax(tile):
+    """The reverse chain at T = 10 on one model: the JAX sampler under its own key,
+    the port's on the arrays of that key chain (a split for x_T, then one split and
+    one normal a step, the last step's included)."""
+    steps = 10
+    jmod, params, ours, x, _ = _diff_pair(tile, time_steps=steps)
+    kw = DIFF_TILES[tile]
+    shape = x.shape
+
+    def jdenoise(x_t, t):
+        return junpatchify(jmod.apply({"params": params}, x_t, t), shape, kw["patch_size"],
+                           kw["twoD"])
+
+    key = jax.random.key(5)
+    want = np.asarray(jax.jit(lambda k: jax_ddpm_sample(jax_ddpm_schedule(steps), jdenoise, k,
+                                                        shape))(key))
+    key, init_key = jax.random.split(key)
+    x_T = np.array(jax.random.normal(init_key, shape))
+    noises = []
+    for _ in range(steps):
+        key, nkey = jax.random.split(key)
+        noises.append(torch.from_numpy(np.array(jax.random.normal(nkey, shape))))
+
+    def denoise(x_t, t):
+        return unpatchify(ours(x_t, t), shape, kw["patch_size"], kw["twoD"])
+
+    state = torch.random.get_rng_state()
+    got = ddpm_sample(ddpm_schedule(steps), denoise, None, shape, "cpu",
+                      x_T=torch.from_numpy(x_T), noises=noises)
+    assert torch.equal(state, torch.random.get_rng_state())
+    assert got.shape == shape and np.all(np.isfinite(want))
+    np.testing.assert_allclose(got.numpy(), want, atol=DIFF_SAMPLE_TOL, rtol=0)
+    with pytest.raises(ValueError, match="explicit generator"):
+        ddpm_sample(ddpm_schedule(steps), denoise, None, shape, "cpu")
+
+
+def test_time_embedding_dropout_draws_from_the_model_generator():
+    """At rate 0.5 the time MLP's dropout draws from the model's generator: a train
+    step without one raises; two steps from one seed are equal bit for bit; torch's
+    global generator is never touched; about half of the entries are kept, each
+    scaled by 2."""
+    from ucf_vit_tpu_torch.train import init_train
+
+    cfg = Config(raw=_diff_raw("2d"), task="diffusion")
+    batch = to_device(next(synthetic_batches(cfg, 4)), torch.device("cpu"))
+    bare = build_diffusion(cfg).train()
+    with pytest.raises(RuntimeError, match="set_generator"):
+        task_loss(cfg)(bare, batch)
+    seen = []
+
+    def hook(module, inputs, output):
+        seen.append((inputs[0].detach().clone(), output.detach().clone()))
+
+    runs = []
+    for _ in range(2):
+        state, step = init_train(cfg, "cpu")  # building modules draws from torch's generator
+        drop = state.model.timeEmbeddingMap.dropout
+        assert drop.rate == 0.5 and drop.generator is state.model.generator
+        handle = drop.register_forward_hook(hook)
+        global_state = torch.random.get_rng_state()
+        state, loss, _ = step(state, batch)
+        assert torch.equal(global_state, torch.random.get_rng_state())  # the step does not
+        handle.remove()
+        runs.append((loss.item(), {n: p.detach().clone()
+                                   for n, p in state.model.named_parameters()}))
+    (la, pa), (lb, pb) = runs
+    assert la == lb and all(torch.equal(pa[n], pb[n]) for n in pa)
+    x_in, x_out = seen[0]
+    assert torch.equal(seen[0][1], seen[1][1])
+    kept = x_out != 0
+    assert torch.equal(x_out[kept], 2 * x_in[kept])
+    live = x_in != 0  # ReLU's zeros stay zero either way
+    share = (kept & live).sum().item() / live.sum().item()
+    assert 0.3 < share < 0.7, share
+
+
+DIFF_CONFIGS = {"imagenet": ("configs/imagenet/diffusion/base_config.yaml", [16, 16], 3),
+                "basic_ct": ("configs/basic_ct/diffusion/base_config.yaml", [16, 16, 16], 1)}
+
+
+@pytest.mark.parametrize("name", sorted(DIFF_CONFIGS))
+def test_cli_trains_diffusion_config_shrunk(tmp_path, capsys, name):
+    """A shipped diffusion config (f32, 2 microbatches, loss scaling, a simple_ddp 8
+    mesh) through the CLI with `--single-device`, shrunk in a copy to a 16^2 tile at
+    patch 4, depth 2, embed 24 and a decoder of 16 (the rest as shipped): two epochs of
+    two steps, each saved to its slot; then a run resumed from the newer slot to a
+    third epoch keeps the first two epochs' losses."""
+    rel, tile, chans = DIFF_CONFIGS[name]
+    raw = yaml.safe_load(open(os.path.join(REPO, rel)))
+    assert raw["trainer"]["task"] == "diffusion" and raw["trainer"]["accum_steps"] == 2
+    assert raw["parallelism"]["simple_ddp_size"] == 8 and raw["model"]["use_grad_scaler"]
+    raw["model"]["net"]["init_args"].update(
+        tile_size=tile, patch_size=4, embed_dim=24, depth=2, num_heads=2, decoder_embed_dim=16,
+        decoder_depth=2, decoder_num_heads=2)
+    ck = tmp_path / "ck"
+    raw["trainer"].update(checkpoint_path=str(ck), max_epochs=2,
+                          checkpoint_filename_for_loading="multi_last_latest",
+                          metrics_path=str(tmp_path / "metrics.jsonl"))
+    raw["data"]["batch_size"] = 4
+    raw["load_balancing"]["batches_per_rank_epoch"] = {
+        k: 2 for k in raw["load_balancing"]["batches_per_rank_epoch"]}
+    small = tmp_path / f"{name}_small.yaml"
+    small.write_text(yaml.safe_dump(raw))
+    with pytest.raises(NotImplementedError, match="single-device"):
+        main([str(small), "--synthetic", "--device", "cpu"])
+    out = main([str(small), "--single-device", "--device", "cpu", "--synthetic"])
+    log = capsys.readouterr().out
+    assert "epoch 1 it 2 loss" in log and "epoch 1 done" in log
+    model = out["state"].model
+    assert isinstance(model, DiffusionVIT) and model.num_patches == 16
+    assert model.token_embeds.proj.in_channels == chans and model.time_steps == 1000
+    assert len(out["loss_list"]) == 2 and all(np.isfinite(out["loss_list"]))
+    assert sorted(os.listdir(ck)) == ["multi_last_even.ckpt", "multi_last_odd.ckpt"]
+    assert ckpt.restore_checkpoint(str(ck), "multi_last_latest")["head_meta"] == [2, 2]
+
+    raw["trainer"].update(max_epochs=3, resume_from_checkpoint=True)
+    small.write_text(yaml.safe_dump(raw))
+    resumed = main([str(small), "--single-device", "--device", "cpu", "--synthetic"])
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    assert resumed["loss_list"][:2] == out["loss_list"] and len(resumed["loss_list"]) == 3
+    assert resumed["state"].optimizer.count == 6 and np.isfinite(resumed["loss_list"][2])
+
+
+@pytest.mark.parametrize("source", ["flash_fwd_tf32", "flash_bwd_tf32", "flash_fwd_sm90",
+                                    "flash_bwd_sm90"])
+def test_kernel_instance_mirrors_the_sources_dispatch(source):
+    """`kernel_instance` (the key of the launch counts by head-dim instance) picks
+    the instance each source's `dispatch_dh` launches: the diffusion decoders' dh
+    128 and 96 go to `DH = 128` and, in f32, `DH = 96`."""
+    import re
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        kernel_instance,
+        reset_launch_counts,
+    )
+
+    text = open(os.path.join(REPO, "ucf_vit_tpu_torch", "csrc", f"{source}.cu")).read()
+    dispatch = text[text.index("dispatch_dh("):]
+    dispatch = dispatch[:dispatch.index("return cudaErrorInvalidValue")]
+    bounds = [int(n) for n in re.findall(r"p\.dh <= (\d+)\) return launch<(?:\1)", dispatch)]
+    assert bounds and bounds == sorted(bounds)
+    for dh in range(1, bounds[-1] + 1):
+        assert kernel_instance(source, dh) == f"{source}<{min(b for b in bounds if dh <= b)}>"
+    with pytest.raises(ValueError, match="head dims up to"):
+        kernel_instance(source, bounds[-1] + 1)
+    assert kernel_instance("flash_fwd_tf32", 96) == "flash_fwd_tf32<96>"
+    reset_launch_counts()
+    q = torch.zeros(1, 1, 4, 8)
+    flash_attention(q, q, q)  # a CPU call takes the plain version and counts nothing
+    counts = flash_attention_bwd.by_instance if "bwd" in source else flash_attention.by_instance
+    assert {k for k in counts if k.startswith(source)} == {f"{source}<{b}>" for b in bounds}
+    assert not any(counts.values())

@@ -12,8 +12,11 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
   token_embed/proj/kernel      token_embeds.proj.weight   [*k,i,o]->[o,i,*k]
   pos_embed, cls_token, gamma  same name                  identity
   mask_token, decoder_pos_embed same name                 identity
+  time_embedding_map/linear1/kernel
+                               timeEmbeddingMap.linear1.weight  transpose
 
-It covers the ported modules (PatchEmbed, Mlp, Attention, Block, VIT, MAE),
+It covers the ported modules (PatchEmbed, Mlp, Attention, Block, VIT, MAE,
+DiffusionVIT; its time table is a constant on both sides, in neither tree),
 from a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
 the JAX side: `blocks/block/<leaves stacked [depth, ...]>`, recognised as
 `ucf_vit_tpu/tools/convert_checkpoint.py:160-185` does) is unstacked into
@@ -36,6 +39,8 @@ def _segment(name: str) -> str:
         return f"{m.group(1)}.{m.group(2)}"
     if name == "token_embed":
         return "token_embeds"
+    if name == "time_embedding_map":
+        return "timeEmbeddingMap"
     return name
 
 

@@ -179,6 +179,21 @@ class Mlp(nn.Module):
         return self.drop2(self.fc2(self.drop1(self.act(self.fc1(x)))))
 
 
+class EmbeddingDenseLayer(nn.Module):
+    """DiffusionVIT's time-embedding MLP (`ucf_vit_tpu/models/blocks.py:347`):
+    linear1 -> ReLU -> Dropout(dropout_prob) -> linear2, both linears in the
+    promoted type of input and parameters (no `dtype`, as in the JAX layer)."""
+
+    def __init__(self, c_in: int, c_out: int, dropout_prob: float = 0.5):
+        super().__init__()
+        self.linear1 = Linear(c_in, c_out)
+        self.dropout = Dropout(dropout_prob)
+        self.linear2 = Linear(c_out, c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(self.dropout(F.relu(self.linear1(x))))
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with impl dispatch.
 

@@ -74,6 +74,23 @@ BWD_ROUTES = ("fused", "split")
 SPLIT_MIN_QUERIES = {torch.float32: 8192, torch.bfloat16: 32768}
 # The bf16 forward's routes into its kernel (`fwd_layout`)
 FWD_LAYOUTS = ("tma", "padded")
+# The head-dim instances (template DH) each source compiles; its C entry launches the
+# smallest that holds the call's dh (`dispatch_dh` in csrc/)
+_INSTANCES = {"flash_fwd_tf32": (48, 64, 96, 128), "flash_bwd_tf32": (48, 64, 96, 128),
+              "flash_fwd_sm90": (64, 128), "flash_bwd_sm90": (64, 128)}
+
+
+def kernel_instance(source: str, dh: int) -> str:
+    """The instance of `source` that a call at head dim `dh` launches, as
+    `"<source><DH>"` (the key of the `by_instance` counts)."""
+    for d in _INSTANCES[source]:
+        if dh <= d:
+            return f"{source}<{d}>"
+    raise ValueError(f"{source} takes head dims up to {_INSTANCES[source][-1]}, got {dh}")
+
+
+def _instance_counts(sources) -> dict:
+    return {f"{s}<{d}>": 0 for s in sources for d in _INSTANCES[s]}
 
 
 # ---------------------------------------------------------------- plain versions
@@ -385,6 +402,7 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.by_source[source] += 1
+    flash_attention.by_instance[kernel_instance(source, dh)] += 1
     if layout is not None:
         flash_attention.by_layout[layout] += 1
     if rate > 0.0:
@@ -410,6 +428,7 @@ def _bwd_launch(kind: str, q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop_args
     flash_attention_bwd.launches += 1
     flash_attention_bwd.by_kernel[kind] += 1
     flash_attention_bwd.by_source[source] += 1
+    flash_attention_bwd.by_instance[kernel_instance(source, dh)] += 1
     if drop_args[0]:
         keep_mask.launches += 1
 
@@ -482,10 +501,11 @@ def flash_attention_bwd(
 
 
 # Backward kernel launches since the counts were last reset (CPU calls do not
-# count): the total, the split by kernel and the split by source.
+# count): the total, the split by kernel, by source and by head-dim instance.
 flash_attention_bwd.launches = 0
 flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
 flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES.values()}
+flash_attention_bwd.by_instance = _instance_counts(_BWD_SOURCES.values())
 
 
 def reset_launch_counts() -> None:
@@ -493,9 +513,11 @@ def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.by_source = {source: 0 for source in _FWD_SOURCES.values()}
     flash_attention.by_layout = {layout: 0 for layout in FWD_LAYOUTS}
+    flash_attention.by_instance = _instance_counts(_FWD_SOURCES.values())
     flash_attention_bwd.launches = 0
     flash_attention_bwd.by_kernel = {kind: 0 for kind in _BWD_KINDS}
     flash_attention_bwd.by_source = {source: 0 for source in _BWD_SOURCES.values()}
+    flash_attention_bwd.by_instance = _instance_counts(_BWD_SOURCES.values())
     keep_mask.launches = 0
 
 
@@ -568,9 +590,11 @@ def flash_attention(
 
 
 # Forward kernel launches since the count was last set to 0 (CPU calls do not
-# count): the total, the split by source, and the bf16 launches split by route
-# (`fwd_layout`): "tma" loaded q, k and v as they were, "padded" first copied
-# one of them to a layout that TMA can load.
+# count): the total, the split by source and by head-dim instance
+# (`kernel_instance`), and the bf16 launches split by route (`fwd_layout`): "tma"
+# loaded q, k and v as they were, "padded" first copied one of them to a layout
+# that TMA can load.
 flash_attention.launches = 0
 flash_attention.by_source = {source: 0 for source in _FWD_SOURCES.values()}
 flash_attention.by_layout = {layout: 0 for layout in FWD_LAYOUTS}
+flash_attention.by_instance = _instance_counts(_FWD_SOURCES.values())

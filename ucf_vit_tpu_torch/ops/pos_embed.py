@@ -2,10 +2,13 @@
 
 The port's own copy of the 1D/2D/3D tables of `ucf_vit_tpu/ops/pos_embed.py`
 (`:16-72`): same layouts (sin block then cos block; 2D splits the dims over
-(h, w), 3D over (h, w, d); token order h-major), same float64 math.
+(h, w), 3D over (h, w, d); token order h-major), same float64 math; and of the
+DDPM time-step table (`:73`), whose layout interleaves sin and cos.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -62,3 +65,16 @@ def get_3d_sincos_pos_embed(
     if cls_token:
         emb = np.concatenate([np.zeros([1, embed_dim]), emb], axis=0)
     return emb
+
+
+def sinusoidal_time_embedding_table(time_steps: int, embed_dim: int) -> np.ndarray:
+    """[time_steps, embed_dim] float64 table for DDPM time steps, interleaved:
+    even dims sin, odd dims cos (not the block layout of the tables above)."""
+    position = np.arange(time_steps, dtype=np.float64)[:, None]
+    div = np.exp(
+        np.arange(0, embed_dim, 2, dtype=np.float64) * -(math.log(10000.0) / embed_dim)
+    )
+    table = np.zeros((time_steps, embed_dim), dtype=np.float64)
+    table[:, 0::2] = np.sin(position * div)
+    table[:, 1::2] = np.cos(position * div)
+    return table

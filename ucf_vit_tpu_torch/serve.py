@@ -19,8 +19,15 @@
   ``trainer.checkpoint_filename_for_loading`` names), or that checkpoint's
   EMA weights (``--ema``); a file that the JAX package's ``convert_checkpoint
   to-torch`` wrote serves too.
+- **Diffusion.** A DiffusionVIT deployment answers ``POST /v1/generate
+  {"seed": s, "num": n}`` with ``[n, C, *tile]`` f32 images as ``.npy``
+  (``n`` at most ``--num-generate``): each answer runs the whole DDPM reverse
+  chain at a batch of ``--num-generate`` on the device, one chain at a time,
+  the same images for the same seed. ``/v1/predict`` and ``/v1/reload``
+  answer 400 there, as in the JAX server.
 
-This slice serves classification with non-adaptive inputs (ROADMAP.md).
+This slice serves classification and diffusion with non-adaptive inputs
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,7 +46,17 @@ import numpy as np
 import torch
 
 from ucf_vit_tpu_torch.config import Config
-from ucf_vit_tpu_torch.inference import Device, init_eval_model, load_weights, resolve_device
+from ucf_vit_tpu_torch.inference import (
+    Device,
+    diffusion_sampler,
+    init_eval_model,
+    load_weights,
+    resolve_device,
+)
+
+# serving tasks still to port -> the ROADMAP.md item that ports each
+_UNPORTED = {"mae": "item 5: MAE predict", "unetr": "item 7: UNETR + evaluation",
+             "sap": "item 8: SAP"}
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +110,14 @@ def build_predictor(
     the only one that runs forwards, picks it up at its next batch, and a
     batch in flight finishes on the old weights."""
     dev = resolve_device(device)
+    if cfg.task == "diffusion":
+        raise ValueError("a diffusion deployment serves /v1/generate (build_generator), "
+                         "not a predictor")
     if cfg.task != "classification":
+        item = _UNPORTED.get(cfg.task)
         raise NotImplementedError(
-            f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port)"
+            f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port"
+            + (f", {item})" if item else ")")
         )
     preprocess = make_preprocessor(cfg)
     model = init_eval_model(cfg, seed=seed, device=dev)
@@ -118,6 +140,23 @@ def build_predictor(
             return holder["model"](x.to(dev, non_blocking=True))
 
     return run_batch, preprocess, max_batch, (model, holder, swap_weights)
+
+
+def build_generator(cfg: Config, model: torch.nn.Module, num_samples: int):
+    """``generate(seed) -> np.ndarray [num_samples, C, *tile]``: the DDPM
+    reverse chain of a DiffusionVIT at a fixed batch (diffusion serving;
+    `inference.diffusion_sampler`), one call at a time, since a chain keeps
+    the device busy. ``generate.denoise(x_t, t)`` is one step of it."""
+    sample = diffusion_sampler(cfg, model, num_samples)
+    lock = threading.Lock()
+
+    def generate(seed: int) -> np.ndarray:
+        with lock:
+            return sample(seed).cpu().numpy()
+
+    generate.denoise = sample.denoise
+    generate.shape = sample.shape
+    return generate
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +303,7 @@ class _Handler(BaseHTTPRequestHandler):
     # set by make_server():
     batcher: Optional[MicroBatcher] = None
     preprocess = None
+    generate = None  # generate(seed) -> images, on a diffusion deployment
     reload_weights = None  # load_weights(ckpt_dir, ema) -> epoch
     weights_holder: Optional[dict] = None
     serve_ema = False  # the server's --ema setting, the reload's default
@@ -287,6 +327,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, {"status": "ok", "task": self.task})
         elif self.path == "/v1/stats":
             b = self.batcher
+            if b is None:
+                self._send_json(200, {"task": self.task, "requests": 0})
+                return
             with b._lock:
                 s = dict(b.stats)
             s["task"] = self.task
@@ -305,10 +348,21 @@ class _Handler(BaseHTTPRequestHandler):
         body = self.rfile.read(n)
         try:
             if self.path == "/v1/predict":
+                if self.batcher is None:
+                    raise ValueError("this deployment serves /v1/generate (diffusion)")
                 arr = np.load(io.BytesIO(body), allow_pickle=False)
                 out = self.batcher.submit(self.preprocess(arr))
                 self._send(200, _npy_bytes(out), "application/x-npy")
+            elif self.path == "/v1/generate":
+                if self.generate is None:
+                    raise ValueError("generate is only served for diffusion")
+                req = json.loads(body or b"{}")
+                imgs = self.generate(int(req.get("seed", 0)))
+                num = int(req.get("num", imgs.shape[0]))
+                self._send(200, _npy_bytes(imgs[:num]), "application/x-npy")
             elif self.path == "/v1/reload":
+                if self.reload_weights is None:
+                    raise ValueError("reload is not available for this task")
                 req = json.loads(body or b"{}")
                 if "checkpoint" not in req:
                     raise KeyError("body must be {'checkpoint': <dir>, ...}")
@@ -334,36 +388,53 @@ def make_server(
     pipeline_depth: int = 0,
     seed: int = 0,
     device: Device = None,
+    num_generate: int = 8,
 ) -> ThreadingHTTPServer:
     """Build the HTTP server (not yet serving: call ``serve_forever()``).
 
     One warm-up batch goes through the micro-batcher before the server is
     returned, so it shows in ``/v1/stats`` as a request and a batch, and
     readiness (``/healthz`` reachable) means ready to serve. Close the
-    batcher (``server.RequestHandlerClass.batcher.close()``) after
-    ``server_close()``."""
+    batcher (``server.RequestHandlerClass.batcher.close()``, None on a
+    diffusion deployment) after ``server_close()``.
 
-    run_batch, preprocess, mb, (_, holder, load_weights) = build_predictor(
-        cfg, checkpoint_dir, use_ema=use_ema, max_batch=max_batch, seed=seed, device=device,
-    )
+    A diffusion config serves ``/v1/generate`` at a batch of
+    ``num_generate``: the warm-up is one denoising step at that batch, which
+    loads the kernels; the chain itself runs on requests."""
 
     class Handler(_Handler):
         task = cfg.task
-        batcher = MicroBatcher(run_batch, mb, max_wait_ms, pipeline_depth=pipeline_depth)
-        weights_holder = holder
-        serve_ema = use_ema
-        reload_weights = staticmethod(load_weights)
 
-    Handler.preprocess = staticmethod(preprocess)
-    nd = 2 if cfg.twoD else 3
-    warm_in = np.random.default_rng(0).random(
-        (cfg.max_channels,) + tuple(cfg.tile_size[:nd])
-    ).astype(np.float32)
-    try:
-        Handler.batcher.submit(preprocess(warm_in), timeout=None)
-    except BaseException:
-        Handler.batcher.close()
-        raise
+    if cfg.task == "diffusion":
+        model = init_eval_model(cfg, seed=seed, device=device)
+        if checkpoint_dir:
+            epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
+            print(f"serving checkpoint from epoch {epoch}", flush=True)
+        generate = build_generator(cfg, model, num_generate)
+        Handler.generate = staticmethod(generate)
+        with torch.inference_mode():
+            x = torch.zeros(generate.shape, device=next(model.parameters()).device)
+            generate.denoise(x, torch.zeros(x.shape[0], dtype=torch.long,
+                                            device=x.device)).cpu()
+    else:
+        run_batch, preprocess, mb, (_, holder, load_weights_into) = build_predictor(
+            cfg, checkpoint_dir, use_ema=use_ema, max_batch=max_batch, seed=seed,
+            device=device,
+        )
+        Handler.batcher = MicroBatcher(run_batch, mb, max_wait_ms, pipeline_depth=pipeline_depth)
+        Handler.weights_holder = holder
+        Handler.serve_ema = use_ema
+        Handler.reload_weights = staticmethod(load_weights_into)
+        Handler.preprocess = staticmethod(preprocess)
+        nd = 2 if cfg.twoD else 3
+        warm_in = np.random.default_rng(0).random(
+            (cfg.max_channels,) + tuple(cfg.tile_size[:nd])
+        ).astype(np.float32)
+        try:
+            Handler.batcher.submit(preprocess(warm_in), timeout=None)
+        except BaseException:
+            Handler.batcher.close()
+            raise
 
     class Server(ThreadingHTTPServer):
         # the default backlog (5) drops connections under many concurrent
@@ -396,6 +467,8 @@ def main(argv=None):
                         help="weight init seed (without --checkpoint)")
     parser.add_argument("--device", default="cuda",
                         help="torch device; cuda (default) or cpu")
+    parser.add_argument("--num-generate", type=int, default=8,
+                        help="diffusion: samples per /v1/generate call")
     args = parser.parse_args(argv)
 
     from ucf_vit_tpu_torch.config import load_config
@@ -405,19 +478,20 @@ def main(argv=None):
         cfg, args.checkpoint, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, use_ema=args.ema,
         pipeline_depth=args.pipeline_depth, seed=args.seed, device=args.device,
+        num_generate=args.num_generate,
     )
-    print(
-        f"serving task={cfg.task} on {args.host}:{server.server_address[1]} "
-        f"(device={args.device}, max_batch={args.max_batch or cfg.batch_size}, "
-        f"window={args.max_wait_ms}ms)", flush=True,
-    )
+    batching = (f"num_generate={args.num_generate}" if cfg.task == "diffusion" else
+                f"max_batch={args.max_batch or cfg.batch_size}, window={args.max_wait_ms}ms")
+    print(f"serving task={cfg.task} on {args.host}:{server.server_address[1]} "
+          f"(device={args.device}, {batching})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
-        server.RequestHandlerClass.batcher.close()
+        if server.RequestHandlerClass.batcher is not None:
+            server.RequestHandlerClass.batcher.close()
 
 
 if __name__ == "__main__":

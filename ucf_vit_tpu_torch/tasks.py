@@ -1,7 +1,7 @@
 """Task registry: model factory and loss per task (port of `ucf_vit_tpu/tasks.py`).
 
-The port has the classification and MAE tasks (model and loss); the other
-tasks come with their own slices (ROADMAP.md).
+The port has the classification, MAE and diffusion tasks (model and loss);
+the other tasks come with their own slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,9 +11,16 @@ from typing import Callable, Dict
 import torch
 
 from ucf_vit_tpu_torch.config import Config
-from ucf_vit_tpu_torch.models import MAE, VIT
+from ucf_vit_tpu_torch.models import (
+    MAE,
+    VIT,
+    DiffusionVIT,
+    ddpm_schedule,
+    q_sample,
+    sample_timesteps,
+)
 from ucf_vit_tpu_torch.ops.attention import AttnImpl
-from ucf_vit_tpu_torch.ops.patchify import patchify
+from ucf_vit_tpu_torch.ops.patchify import patchify, unpatchify
 from ucf_vit_tpu_torch.utils.metrics import accuracy, cross_entropy, masked_mse, mse
 
 
@@ -112,14 +119,72 @@ def mae_loss(cfg: Config) -> Callable:
     return loss_fn
 
 
+def time_steps(cfg: Config) -> int:
+    """The diffusion config's number of DDPM steps (`num_time_steps`, or the
+    older `time_steps`)."""
+    ia = cfg.init_args
+    return int(ia.get("num_time_steps", ia.get("time_steps", 1000)))
+
+
+def build_diffusion(cfg: Config) -> DiffusionVIT:
+    """`build_diffusion`'s model (`ucf_vit_tpu/tasks.py:328-340`)."""
+    ia = cfg.init_args
+    return DiffusionVIT(
+        linear_decoder=bool(ia.get("linear_decoder", False)),
+        decoder_depth=int(ia.get("decoder_depth", 8)),
+        decoder_embed_dim=int(ia.get("decoder_embed_dim", 512)),
+        decoder_num_heads=int(ia.get("decoder_num_heads", 16)),
+        mlp_ratio_decoder=float(ia.get("mlp_ratio_decoder", 4)),
+        time_steps=time_steps(cfg),
+        **_common_kwargs(cfg),
+    )
+
+
+def diffusion_loss(cfg: Config) -> Callable:
+    """`loss_fn` of `build_diffusion` (`ucf_vit_tpu/tasks.py:342-355`): noise x0
+    to step t with noise e (`q_sample`), predict the noise, and take the MSE
+    of the prediction, unpatchified, against e. `t` `[B]` and `e` (x0's
+    shape) come from the batch when it holds them, else from the model's
+    generator on x0's device (t first, then e); the time embedding's dropout
+    draws from it after them. The schedule moves to x0's device once: a copy
+    from pageable host memory waits for the device's queue to drain."""
+    steps, p, twoD = time_steps(cfg), cfg.patch_size, cfg.twoD
+    schedule = ddpm_schedule(steps)
+
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        nonlocal schedule
+        x0 = batch["x"]
+        if schedule.beta.device != x0.device:
+            schedule = schedule.to(x0.device)
+        t, e = batch.get("t"), batch.get("e")
+        if t is None or e is None:
+            gen = model.generator
+            if gen is None:
+                raise RuntimeError(
+                    "the diffusion loss draws t and e from an explicit torch.Generator: "
+                    "call model.set_generator(...) (the train step does) or put them in "
+                    "the batch"
+                )
+            if t is None:
+                t = sample_timesteps(gen, x0.shape[0], steps)
+            if e is None:
+                e = torch.randn(x0.shape, device=x0.device, dtype=x0.dtype, generator=gen)
+        pred = model(q_sample(schedule, x0, t, e), t)
+        return mse(unpatchify(pred, tuple(x0.shape), p, twoD), e), {}
+
+    return loss_fn
+
+
 TASKS: Dict[str, Callable[[Config], torch.nn.Module]] = {
     "classification": build_classification,
     "mae": build_mae,
+    "diffusion": build_diffusion,
 }
 # each task's loss from its config
 LOSSES: Dict[str, Callable[[Config], Callable]] = {
     "classification": lambda cfg: classification_loss,
     "mae": mae_loss,
+    "diffusion": diffusion_loss,
 }
 
 

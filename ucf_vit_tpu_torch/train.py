@@ -4,7 +4,7 @@
         [--max-steps N] [--log-every K] [--single-device] [--device cuda|cpu]
 
 Seeded model init (the names `load_jax_params` fills) of the config's task
-(classification or MAE), AdamW from the config's `model:` keys, and one
+(classification, MAE or diffusion), AdamW from the config's `model:` keys, and one
 train step per batch: from the files the config's `data:` section names
 (`build_dataloader`: the catsdogs folder through its map-style loader,
 every other dataset through the `DataModule` with `auto_load_balancing`),
@@ -30,8 +30,10 @@ TensorBoard, `profile_dir` and sharding. `trainer.data_type: bfloat16`
 trains under the bf16 compute policy (f32 parameters, gradients and
 optimizer state; `models/blocks.py`), `trainer.remat` checkpoints each
 block's activations (MAE's decoder blocks too), and `trainer.scan_layers` is
-accepted (`models/vit.py`). MAE draws its mask noise from the device
-generator that dropout draws from; both are seeded from `trainer.seed`.
+accepted (`models/vit.py`). MAE draws its mask noise, and the diffusion
+loss its steps t and noise e, from the device generator that dropout draws
+from; both are seeded from `trainer.seed`. A diffusion batch holds `x` only,
+as in the JAX stream.
 """
 
 from __future__ import annotations
@@ -223,7 +225,9 @@ def check_config(cfg: Config) -> None:
 
 def init_train(cfg: Config, device: Device = None, init_seed: int = 0):
     """`(state, step)` for training `cfg` on one device: the task's model with
-    weights drawn on the CPU from `torch.Generator().manual_seed(init_seed)`,
+    weights drawn on the CPU from `torch.Generator().manual_seed(init_seed)`
+    (modules know their shapes, so no example batch is traced, where the JAX
+    package inits from one: a diffusion model's at `t = 0`),
     AdamW from the config's `model:` keys (`ucf_vit_tpu/train.py:349-363`),
     and the train step. The model's dropout generators are seeded from
     `trainer.seed`."""
