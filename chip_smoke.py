@@ -166,6 +166,18 @@ result):
             /v1/generate` for seed 0 (latency, shape, launches, and the same
             images as the direct chain's for seed 0) and `/v1/predict`
             answering 400.
+11. trainer parity (`phase_trainer_parity`): catsdogs ViT-B/16 at full width
+            from phase 8's JPEG files through the trainer's CLI entry with
+            validation on the held-out tenth: twice uninterrupted (the first
+            with `profile_dir`, whose trace must name the f32 flash kernels) and
+            once stopped by `preempt_after_steps` mid-epoch and resumed, the
+            resumed run's records and losses against the uninterrupted one's;
+            SIGTERM to the CLI in a process of its own (exit code 0, a
+            checkpoint that a resumed run continues); the inference CLI on that
+            checkpoint under FLASH and EINSUM (the same top-1) and on imagenet's
+            DiffusionVIT; MAE `/v1/predict` at mae_long's full width from phase
+            8's checkpoint (requests/s, a lone request's latency, the busy share,
+            launches by instance, answers against `inference.reconstruct`).
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -272,6 +284,26 @@ DIFF_WARMUP_STEPS, DIFF_TIMED_STEPS, DIFF_TRACED_STEPS = 3, 10, 3
 DIFF_CHECK_STEPS = 5  # FLASH against EINSUM, to TRAIN_LOSS_TOL a step
 GEN_SAMPLES = 8  # a generate call's batch (serve's --num-generate)
 GEN_TRACED_STEPS = 20  # denoising steps in the traced window
+# trainer parity (phase_trainer_parity): the catsdogs ViT-B/16 as shipped (f32, full
+# width and depth) on phase_train_disk's 128 JPEGs, trained on the first 0.9 of the split
+# (115 photos) and validated on the rest (13). A batch of 8, not the shipped 16, so that
+# the held-out tenth holds a batch: 14 steps an epoch, 2 epochs, validation after each
+# over 2 batches; the drill stops a run after step 7, in the middle of epoch 0
+PARITY_BATCH, PARITY_EPOCHS, PARITY_VAL_BATCHES, PARITY_PREEMPT = 8, 2, 2, 7
+# resumed against uninterrupted, each per-step and validation loss. f32, TF32 off: two
+# uninterrupted runs differ only where the fused backward adds dq by f32 atomics in a
+# run-dependent order (a few ulps; mae_long's losses after 3 epochs by 2.3e-6 on an H100), and
+# the shipped warm-up keeps the learning rate under 3e-6, so a skipped or repeated batch
+# shows as a loss difference of 1e-2 or more
+PARITY_LOSS_TOL = 1e-4
+SIGTERM_AFTER, SIGTERM_DEADLINE_S = 3, 300  # the signal follows step 3's log line
+# MAE /v1/predict at mae_long's full width (bf16, 128^3 volumes), max_batch 2, under
+# closed-loop clients; a served answer against `reconstruct` of its sample alone, to the
+# bf16 FLASH-against-EINSUM limit in force (2e-2 of the largest entry): a batch of 2 and
+# a batch of 1 may take other GEMM kernels
+MAE_SERVE_BATCH, MAE_SERVE_CLIENTS = 2, 4
+MAE_SERVE_WINDOWS_S = {"warm-up": 2.0, "load": 6.0, "traced": 3.0}
+MAE_SERVE_TOL = 2e-2
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
 # and int8 on the tensor cores, and the memory rate. The card is named so; any other
@@ -2136,7 +2168,8 @@ def _jpeg_path(work: str, vit_ms_step: float):
         f"mean {sum(ms_it) / steps:.1f} (the first {ms_it[0]:.1f}), median of the rest "
         f"{steady[len(steady) // 2]:.1f}; synthetic {vit_ms_step:.3f} ms/step in phase "
         f"train; launches {counts}")
-    return {"loader_ms": loader_ms, "ms_step": steady[len(steady) // 2]}
+    shutil.rmtree(raw["trainer"]["checkpoint_path"])
+    return {"loader_ms": loader_ms, "ms_step": steady[len(steady) // 2], "root": root}
 
 
 def phase_train_disk(synthetic: dict, vit_ms_step: float):
@@ -2234,6 +2267,9 @@ def phase_train_disk(synthetic: dict, vit_ms_step: float):
             f" median of the steady steps {steady[len(steady) // 2]:.1f}; synthetic "
             f"{synthetic['ms_step']:.3f} ms/step in phase mae; checkpoint saves "
             f"{', '.join(f'epoch {e} {t:.3f} s' for e, t in saves)} ({size / 1e9:.3f} GB each)")
+        # the newer slot outlives this phase: phase_trainer_parity serves it
+        mae_ckpt = os.path.join(WORK, "mae_long_disk.ckpt")
+        shutil.move(os.path.join(cfg.trainer["checkpoint_path"], "multi_last_odd.ckpt"), mae_ckpt)
         shutil.rmtree(cfg.trainer["checkpoint_path"])
 
         # (c) windows on the live loader (its prefetch thread running beside the steps)
@@ -2308,9 +2344,11 @@ def phase_train_disk(synthetic: dict, vit_ms_step: float):
             fail(f"the resumed run's loss list {lr} does not continue {lp}")
         if diff[0] > RESUME_PARAM_TOL or diff[1] > RESUME_ADAM_TOL or loss_diff > RESUME_LOSS_TOL:
             fail("the resumed run differs from the uninterrupted one beyond the limits")
-        jpeg = _jpeg_path(work, vit_ms_step)
+        # the JPEG files outlive this phase too: phase_trainer_parity trains on them
+        jpeg = _jpeg_path(WORK, vit_ms_step)
         return {"main": counts, "ms_step": ms_step, "loader_ms": loader_ms,
-                "save_s": [t for _, t in saves], "load_s": load, "busy": busy, "jpeg": jpeg}
+                "save_s": [t for _, t in saves], "load_s": load, "busy": busy, "jpeg": jpeg,
+                "mae_ckpt": mae_ckpt}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2334,14 +2372,16 @@ def _get_json(port: int, path: str) -> dict:
     return json.loads(_request(port, "GET", path))
 
 
-def _load_client(port: int, bodies: list, pipe) -> None:
+def _load_client(port: int, bodies: list, pipe, first_only: bool = False) -> None:
     """Closed-loop load generator, run in a process of its own so that it
     shares no interpreter with the server. One thread per body posts that
     body, waits for the answer and posts it again. Each window length read
     from `pipe` runs one window: the threads start together, start no request
     once the length has passed, and the window closes with the last answer.
     It sends back the window's wall time, (body index, latency s, answer) per
-    request and any error. None ends the process."""
+    request and any error; with `first_only` the answer of each body's first
+    request of a window only (the others None: an MAE answer is 8 MB). None
+    ends the process."""
     import numpy as np
 
     n = len(bodies)
@@ -2354,10 +2394,13 @@ def _load_client(port: int, bodies: list, pipe) -> None:
             if state["stop"]:
                 return
             try:
+                first = True
                 while time.perf_counter() < state["end"]:
                     t0 = time.perf_counter()
                     answer = _request(port, "POST", "/v1/predict", bodies[i])
-                    state["requests"].append((i, time.perf_counter() - t0, answer))
+                    state["requests"].append((i, time.perf_counter() - t0,
+                                              answer if first or not first_only else None))
+                    first = False
             except Exception as e:  # reported to the parent, which fails
                 state["errors"].append(repr(e))
             done.wait()
@@ -2373,7 +2416,8 @@ def _load_client(port: int, bodies: list, pipe) -> None:
         done.wait()
         wall = time.perf_counter() - t0
         pipe.send({"wall_s": wall, "errors": state["errors"], "requests": [
-            (i, lat, np.load(io.BytesIO(a))) for i, lat, a in state["requests"]]})
+            (i, lat, None if a is None else np.load(io.BytesIO(a)))
+            for i, lat, a in state["requests"]]})
     state["stop"] = True
     go.wait()
     for t in threads:
@@ -2846,7 +2890,8 @@ def phase_generate():
     for seed in (0, 1):
         reset_launch_counts()
         t0 = time.perf_counter()
-        sps, imgs = generate_diffusion(cfg, num_samples=GEN_SAMPLES, device="cuda", seed=seed)
+        sps, imgs = generate_diffusion(cfg, num_samples=GEN_SAMPLES, return_images=True,
+                                       device="cuda", seed=seed)
         wall = time.perf_counter() - t0
         counts, instances = _launch_counts(), _instance_counts()
         log(f"[generate] generate_diffusion seed {seed}: {sps:.4f} samples/s ({wall:.2f} s with "
@@ -2939,6 +2984,389 @@ def phase_generate():
         fail(f"/v1/predict on a diffusion deployment answered {predict}")
     return {"instances": chains[0][2], "served_instances": served_instances,
             "samples_s": [c[0] for c in chains], "denoise": denoise, "latency_s": latency_s}
+
+
+def _parity_config(work: str, jpeg_root: str, name: str, **trainer) -> str:
+    """A copy of configs/catsdogs/classification/base_config.yaml on the JPEG files at
+    `jpeg_root`: the split's first 0.9 to train on and the rest held out, a batch of
+    PARITY_BATCH, PARITY_EPOCHS epochs with validation after each, checkpoints and
+    metrics of `name` under `work` (and the `trainer` keys given here); its path."""
+    import yaml
+
+    raw = yaml.safe_load(open(CONFIG))
+    raw["data"].update(dict_root_dirs={"catsdogs": jpeg_root}, batch_size=PARITY_BATCH,
+                       dict_end_idx={"catsdogs": 0.9}, val_dict_start_idx={"catsdogs": 0.9},
+                       val_dict_end_idx={"catsdogs": 1.0})
+    raw["trainer"].update({"checkpoint_path": os.path.join(work, f"ck_{name}"),
+                           "checkpoint_filename_for_loading": "multi_last_latest",
+                           "metrics_path": os.path.join(work, f"{name}.jsonl"),
+                           "max_epochs": PARITY_EPOCHS, "val_every": 1,
+                           "val_batches": PARITY_VAL_BATCHES, **trainer})
+    path = os.path.join(work, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def _records(work: str, name: str) -> list:
+    return [json.loads(line) for line in open(os.path.join(work, f"{name}.jsonl"))]
+
+
+def _sigterm_run(path: str) -> tuple:
+    """The trainer's CLI on `path` in a process of its own; SIGTERM right after the
+    log line of step SIGTERM_AFTER. Returns (exit code, its output, seconds from the
+    signal to the exit). The process is killed, and the phase fails, if the line or
+    the exit does not come within SIGTERM_DEADLINE_S."""
+    import queue
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-m", "ucf_vit_tpu_torch.train", path], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    seen, deadline, signalled = [], time.monotonic() + SIGTERM_DEADLINE_S, None
+    try:
+        while signalled is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                fail(f"the trainer logged no step {SIGTERM_AFTER} within {SIGTERM_DEADLINE_S} s:"
+                     f"\n{''.join(seen)[-2000:]}")
+            if line is None:
+                fail(f"the trainer exited before step {SIGTERM_AFTER}:\n{''.join(seen)[-2000:]}")
+            seen.append(line)
+            if line.startswith(f"epoch 0 it {SIGTERM_AFTER} "):
+                proc.send_signal(signal.SIGTERM)
+                signalled = time.perf_counter()
+        try:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            fail(f"the trainer did not exit within {SIGTERM_DEADLINE_S} s of its start")
+        exit_s = time.perf_counter() - signalled
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    while not lines.empty():
+        line = lines.get()
+        if line is not None:
+            seen.append(line)
+    return proc.returncode, "".join(seen), exit_s
+
+
+def phase_trainer_parity(jpeg_root: str, mae_ckpt: str) -> dict:
+    """The trainer's and inference's entry points beside training itself.
+    (a) catsdogs ViT-B/16 at full width from JPEG files (`_parity_config`): through the
+    CLI entry twice uninterrupted (the spread of two runs; the first with
+    `profile_dir`, whose trace must name the tf32 flash kernels), and once stopped by
+    `preempt_after_steps` in the middle of epoch 0 and resumed; the resumed run's
+    (epoch, it) records, per-step and validation losses against the uninterrupted
+    one's to PARITY_LOSS_TOL; the launch counts of each run exact, validation's
+    forwards included. (b) SIGTERM to the CLI in a process of its own: exit code 0,
+    the `preempted in epoch` line, a checkpoint at `data_it` that a resumed run
+    continues from the next step. (c) The inference CLI (`--checkpoint`) on (a)'s
+    checkpoint: top-1 under FLASH equal to EINSUM's, logits within FLASH_TOL; the
+    diffusion branch, `--num-samples 2` on imagenet's DiffusionVIT (PNGs where
+    matplotlib imports). (d) MAE `/v1/predict` at mae_long's full width from
+    phase_train_disk's checkpoint, max_batch 2: a lone request's latency, requests/s
+    under MAE_SERVE_CLIENTS closed-loop clients, the busy share of a traced window,
+    launches by kernel instance (exact a batch), and each answer against
+    `inference.reconstruct` of its sample alone."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.checkpoint import restore_checkpoint
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.inference import init_eval_model, load_weights, main as infer_main
+    from ucf_vit_tpu_torch.inference import reconstruct
+    from ucf_vit_tpu_torch.ops.flash_attention import kernel_instance, reset_launch_counts
+    from ucf_vit_tpu_torch.serve import make_server
+    from ucf_vit_tpu_torch.tasks import time_steps
+    from ucf_vit_tpu_torch.train import build_dataloader, main as train_main, synthetic_batches
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="parity_", dir=WORK)
+    try:
+        # (a) uninterrupted twice, then preempted by the drill and resumed
+        cfg = load_config(_parity_config(work, jpeg_root, "probe"))
+        depth = int(cfg.init_args["depth"])
+        per_epoch = build_dataloader(cfg, PARITY_BATCH, False)[2]["catsdogs"]
+        val_per_epoch = build_dataloader(cfg, PARITY_BATCH, False, val_split=True)[2]["catsdogs"]
+        if per_epoch < PARITY_PREEMPT + 2 or val_per_epoch < 1:
+            fail(f"the split holds {per_epoch} batches to train on and {val_per_epoch} held out")
+
+        def want(steps, val_passes):
+            counts = _expected_counts([VIT_ATTN] * depth, steps, dropout=False)
+            extra = depth * PARITY_VAL_BATCHES * val_passes  # forwards only
+            counts["flash_fwd"] += extra
+            counts["src:flash_fwd_tf32"] += extra
+            return counts
+
+        prof_dir = os.path.join(work, "prof")
+        plan = (("whole", {"profile_dir": prof_dir}, PARITY_EPOCHS * per_epoch, PARITY_EPOCHS),
+                ("again", {}, PARITY_EPOCHS * per_epoch, PARITY_EPOCHS),
+                ("part", {"preempt_after_steps": PARITY_PREEMPT}, PARITY_PREEMPT, 0),
+                ("part", {"resume_from_checkpoint": True},
+                 PARITY_EPOCHS * per_epoch - PARITY_PREEMPT, PARITY_EPOCHS))
+        runs = []
+        for name, extra, steps, passes in plan:
+            path = _parity_config(work, jpeg_root, name, **extra)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with _Tee() as tee:
+                train_main([path])
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+            runs.append((name, wall, tee.text(), counts))
+            if counts != want(steps, passes):
+                fail(f"trainer run {name} {extra} launched {counts}, expected "
+                     f"{want(steps, passes)}")
+        texts = {i: r[2] for i, r in enumerate(runs)}
+        whole, again, part = (_records(work, n) for n in ("whole", "again", "part"))
+
+        def steps_of(recs):
+            return [(r["epoch"], r["it"]) for r in recs if "loss" in r]
+
+        def losses_of(recs, key):
+            return np.array([r[key] for r in recs if key in r])
+
+        sequence = [(e, i) for e in range(PARITY_EPOCHS) for i in range(1, per_epoch + 1)]
+        spread, diff = {}, {}
+        for key in ("loss", "val_loss"):
+            w, a, p = (losses_of(r, key) for r in (whole, again, part))
+            if not (len(w) == len(a) == len(p)) or not np.all(np.isfinite(p)):
+                fail(f"{key}: {len(w)}, {len(a)} and {len(p)} records (uninterrupted twice, "
+                     f"resumed), finite {np.all(np.isfinite(p))}")
+            spread[key], diff[key] = float(np.abs(w - a).max()), float(np.abs(w - p).max())
+        stops = re.findall(r"preempted in epoch 0 after (\d+) its: saved", texts[2])
+        resumed = f"resumed mid-epoch: epoch 0, fast-forwarding {PARITY_PREEMPT} batches" in texts[3]
+        read_s = [float(x) for x in re.findall(r"checkpoint read in ([\d.]+) s", texts[3])]
+        val_ms = [1e3 * float(t) / int(n) for n, t in
+                  re.findall(r"val loss \S+ \((\d+) batches in ([\d.]+) s\)", texts[0])]
+        ms_it = [float(m) for m in re.findall(r"epoch \d+ it \d+ loss \S+ ([\d.]+) ms/it",
+                                              texts[0])]
+        log(f"[parity] catsdogs ViT-B/16 f32 from {per_epoch * PARITY_BATCH} JPEGs (batch "
+            f"{PARITY_BATCH}, {per_epoch} steps an epoch, {val_per_epoch} held-out batch(es) a "
+            f"pass): runs {', '.join(f'{r[0]} {r[1]:.2f} s' for r in runs)}; "
+            f"ms/step median {sorted(ms_it)[len(ms_it) // 2]:.1f}; validation "
+            f"{', '.join(f'{v:.1f}' for v in val_ms)} ms a batch; val losses "
+            f"{losses_of(whole, 'val_loss').tolist()}")
+        log(f"[parity] two uninterrupted runs differ by {spread['loss']:.3e} a step and "
+            f"{spread['val_loss']:.3e} a validation; preempted after {stops} its and resumed "
+            f"(checkpoint read in {read_s} s, the resumed run {runs[3][1]:.2f} s): "
+            f"{diff['loss']:.3e} and {diff['val_loss']:.3e} from the first (limit "
+            f"{PARITY_LOSS_TOL:g})")
+        if steps_of(whole) != sequence or steps_of(again) != sequence \
+                or steps_of(part) != sequence:
+            fail(f"(epoch, it) records: {steps_of(part)} resumed, {steps_of(whole)} "
+                 f"uninterrupted, expected {sequence}")
+        if stops != [str(PARITY_PREEMPT)] or not resumed or not read_s:
+            fail(f"the drill stopped after {stops} its; the resume fast-forwarded: {resumed}")
+        if max(spread.values()) > PARITY_LOSS_TOL or max(diff.values()) > PARITY_LOSS_TOL:
+            fail("the resumed run differs from the uninterrupted one beyond PARITY_LOSS_TOL")
+        traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+        trace = open(os.path.join(prof_dir, traces[0])).read() if len(traces) == 1 else ""
+        named = {k: trace.count(k) for k in ("flash_fwd_tf32_kernel", "flash_bwd_tf32_kernel")}
+        log(f"[parity] profile_dir: {traces} ({len(trace) / 1e6:.1f} MB), kernel names {named}")
+        if not all(named.values()):
+            fail(f"the profile_dir trace names the flash kernels {named}")
+
+        # (b) SIGTERM to the CLI in its own process, then a resumed run in this one
+        path = _parity_config(work, jpeg_root, "sigterm", max_epochs=1, val_every=0)
+        rc, text, exit_s = _sigterm_run(path)
+        stop = re.search(r"preempted in epoch 0 after (\d+) its: saved (\S+)", text)
+        n = int(stop.group(1)) if stop else -1
+        payload = restore_checkpoint(os.path.join(work, "ck_sigterm"), "multi_last_latest") \
+            if stop else {}
+        log(f"[parity] SIGTERM after step {SIGTERM_AFTER}'s line: exit code {rc} "
+            f"{exit_s:.2f} s after the signal; {stop.group(0) if stop else 'no preemption line'}"
+            f"; checkpoint epoch {payload.get('epoch')}, data_it {payload.get('data_it')}")
+        if rc != 0 or not stop or not SIGTERM_AFTER <= n < per_epoch \
+                or (payload["epoch"], payload["data_it"], payload["total_steps"]) != (0, n, n):
+            fail(f"SIGTERM: exit code {rc}, output ends {text[-1500:]}")
+        path = _parity_config(work, jpeg_root, "sigterm", max_epochs=1, val_every=0,
+                              resume_from_checkpoint=True)
+        with _Tee() as tee:
+            train_main([path])
+        recs = _records(work, "sigterm")
+        start = max(i for i, r in enumerate(recs) if r.get("run_start"))
+        cont = [(r["epoch"], r["it"]) for r in recs[start + 1:] if "loss" in r]
+        if recs[start]["resume_it"] != n or cont != [(0, i) for i in range(n + 1, per_epoch + 1)] \
+                or f"fast-forwarding {n} batches" not in tee.text():
+            fail(f"the run resumed after SIGTERM logged {recs[start]} then {cont}")
+        log(f"[parity] resumed after SIGTERM: epoch 0 from step {n + 1} to {per_epoch}")
+
+        # (c) the inference CLI on (a)'s checkpoint, FLASH and EINSUM; then diffusion
+        ck = os.path.join(work, "ck_whole")
+        n_eval = per_epoch * PARITY_BATCH
+        top1, evals, logits = {}, {}, {}
+        for impl in ("FLASH", "EINSUM"):
+            path = _parity_config(work, jpeg_root, f"eval_{impl}", attn_impl=impl)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with _Tee() as tee:
+                top1[impl] = infer_main([path, "--checkpoint", ck, "--num-samples", str(n_eval)])
+            evals[impl] = (time.perf_counter() - t0, _launch_counts()["flash_fwd"])
+            ecfg = load_config(path)
+            model = init_eval_model(ecfg, device="cuda")
+            load_weights(model, ecfg, ck)
+            x = next(iter(build_dataloader(ecfg, PARITY_BATCH, False)[0].train_dataloader()))["x"]
+            with torch.inference_mode():
+                logits[impl] = model(torch.from_numpy(x).cuda()).cpu().numpy()
+            del model
+        logit_diff = float(np.abs(logits["FLASH"] - logits["EINSUM"]).max())
+        log(f"[parity] python -m ucf_vit_tpu_torch.inference --checkpoint <(a)'s> --num-samples "
+            f"{n_eval}: top-1 {top1['FLASH']:.4f} (FLASH, {evals['FLASH'][0]:.2f} s, "
+            f"{evals['FLASH'][1]} forwards), {top1['EINSUM']:.4f} (EINSUM, "
+            f"{evals['EINSUM'][0]:.2f} s); logits of a batch differ by {logit_diff:.3e} (limit "
+            f"{FLASH_TOL['float32']:g}); the shipped config has no EMA, so no --ema")
+        if top1["FLASH"] != top1["EINSUM"] or logit_diff > FLASH_TOL["float32"] \
+                or evals["FLASH"][1] != depth * (n_eval // PARITY_BATCH) or evals["EINSUM"][1]:
+            fail("the inference CLI's evaluation under FLASH disagrees with EINSUM's")
+        try:
+            import matplotlib  # noqa: F401
+
+            png_dir = os.path.join(work, "png")
+        except ImportError:
+            png_dir = None
+            log("[parity] matplotlib does not import here: the diffusion evaluation writes "
+                "no PNGs")
+        dcfg = _single_device(DIFF_CONFIGS["imagenet"])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sps = infer_main([DIFF_CONFIGS["imagenet"], "--num-samples", "2"]
+                         + (["--png-dir", png_dir] if png_dir else []))
+        gen_s, gen_instances = time.perf_counter() - t0, _instance_counts()
+        gen_want = _expected_instances(_attn_shapes(init_eval_model(dcfg, device="cuda")),
+                                       time_steps(dcfg), backward=False)
+        pngs = sorted(os.listdir(png_dir)) if png_dir else []
+        log(f"[parity] python -m ucf_vit_tpu_torch.inference <imagenet/diffusion> --num-samples"
+            f" 2: {sps:.4f} samples/s ({gen_s:.2f} s with the init); PNGs {pngs}")
+        if gen_instances != gen_want or (png_dir and pngs != ["generated_0.png",
+                                                              "generated_1.png"]):
+            fail(f"the diffusion evaluation launched {gen_instances} (expected {gen_want}), "
+                 f"wrote {pngs}")
+        shutil.rmtree(work)  # the ViT-B checkpoints; the MAE server needs the room
+
+        # (d) MAE /v1/predict at mae_long's full width from phase_train_disk's checkpoint
+        mcfg = _single_device(MAE_CONFIG)
+        samples = next(synthetic_batches(mcfg, MAE_SERVE_CLIENTS, seed=1))["x"]
+        bodies = []
+        for x in samples:
+            buf = io.BytesIO()
+            np.save(buf, x)
+            bodies.append(buf.getvalue())
+        t0 = time.perf_counter()
+        server = make_server(mcfg, mae_ckpt, host="127.0.0.1", port=0,
+                             max_batch=MAE_SERVE_BATCH, device="cuda")
+        startup_s = time.perf_counter() - t0
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        ctx = multiprocessing.get_context("spawn")
+        pipe, child_pipe = ctx.Pipe()
+        client = ctx.Process(target=_load_client, args=(port, bodies, child_pipe, True),
+                             daemon=True)
+        client.start()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        windows, answers = {}, {}
+        try:
+            lone = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                answers.setdefault(0, []).append(np.load(io.BytesIO(
+                    _request(port, "POST", "/v1/predict", bodies[0]))))
+                lone.append(time.perf_counter() - t1)
+            reset_launch_counts()
+            before_all = _get_json(port, "/v1/stats")
+            for name, seconds in MAE_SERVE_WINDOWS_S.items():
+                before = _get_json(port, "/v1/stats")
+                if name == "traced":
+                    prof.start()
+                pipe.send(seconds)
+                if not pipe.poll(seconds + 300):
+                    fail(f"the MAE load client gave no result for the {name} window")
+                res = pipe.recv()
+                if name == "traced":
+                    prof.stop()
+                if res["errors"] or not res["requests"]:
+                    fail(f"MAE load client, {name} window: {len(res['requests'])} answers, "
+                         f"errors {res['errors'][:3]}")
+                windows[name] = (res, before, _get_json(port, "/v1/stats"))
+                for i, _, a in res["requests"]:
+                    if a is not None:
+                        answers.setdefault(i, []).append(a)
+            instances, counts = _instance_counts(), _launch_counts()
+            after_all = _get_json(port, "/v1/stats")
+            pipe.send(None)
+            client.join(timeout=30)
+            model = server.RequestHandlerClass.weights_holder["model"]
+            worst = 0.0
+            for i, got in answers.items():
+                want_i = reconstruct(model, torch.from_numpy(samples[i:i + 1]).cuda(),
+                                     seed=0)[0].float().cpu().numpy()
+                scale = float(np.abs(want_i).max())
+                for a in got:
+                    if a.shape != want_i.shape or not np.all(np.isfinite(a)):
+                        fail(f"an MAE answer of shape {a.shape}, expected {want_i.shape}")
+                    worst = max(worst, float(np.abs(a - want_i).max()) / scale)
+        finally:
+            if client.is_alive():
+                client.terminate()
+                client.join()
+            server.shutdown()
+            server.server_close()
+            server.RequestHandlerClass.batcher.close()
+            thread.join(timeout=30)
+        batches = after_all["batches"] - before_all["batches"]
+        per_batch = {}
+        for n_q, n_kv, dh in _attn_shapes(model):
+            key = "fwd:" + kernel_instance("flash_fwd_sm90", dh)
+            per_batch[key] = per_batch.get(key, 0) + 1
+        got_instances = {k: v for k, v in instances.items() if v}
+        want_instances = {k: v * batches for k, v in per_batch.items()}
+        kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                          if e.self_device_time_total > 0), reverse=True)
+        busy_ms = sum(k[0] for k in kernels) / 1e3
+        res, before, after = windows["load"]
+        lat = np.array([r[1] for r in res["requests"]]) * 1e3
+        rps = len(res["requests"]) / res["wall_s"]
+        traced_s = windows["traced"][0]["wall_s"]
+        fill = ((after["batch_fill_sum"] - before["batch_fill_sum"])
+                / max(after["batches"] - before["batches"], 1))
+        log(f"[parity] MAE /v1/predict (mae_long, bf16, {samples.shape[1:]} volumes, max_batch "
+            f"{MAE_SERVE_BATCH}) from {os.path.basename(mae_ckpt)}: startup {startup_s:.2f} s; a "
+            f"lone request {', '.join(f'{1e3 * t:.1f}' for t in lone)} ms; "
+            f"{MAE_SERVE_CLIENTS} closed-loop clients: {len(res['requests'])} requests in "
+            f"{res['wall_s']:.3f} s = {rps:.3f} requests/s (mean fill {fill:.2f}); latency p50 "
+            f"{np.percentile(lat, 50):.1f} p90 {np.percentile(lat, 90):.1f} max {lat.max():.1f} "
+            f"ms; traced window busy {busy_ms:.3f} of {1e3 * traced_s:.3f} ms = "
+            f"{100 * busy_ms / (1e3 * traced_s):.2f}%")
+        for t_us, count, key in kernels[:6]:
+            log(f"[parity]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy_ms:6.2f}% "
+                f"x{count:<5d} {key[:90]}")
+        log(f"[parity] MAE predict launches by instance over {batches} batches: {got_instances} "
+            f"(expected {want_instances}); {sum(len(v) for v in answers.values())} answers "
+            f"against reconstruct of the sample alone: {worst:.3e} of the largest entry (limit "
+            f"{MAE_SERVE_TOL:g})")
+        if busy_ms <= 0 or got_instances != want_instances or worst > MAE_SERVE_TOL \
+                or after_all["errors"]:
+            fail("MAE /v1/predict: launches, answers or the traced window are off")
+        log(f"[parity] phase_trainer_parity took {time.perf_counter() - t_phase:.1f} s")
+        return {"f32": runs[0][3], "predict": counts, "generate": gen_instances,
+                "val_ms": val_ms, "read_s": read_s, "rps": rps, "lone_ms":
+                1e3 * min(lone), "busy": busy_ms / (1e3 * traced_s)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- two checkouts
@@ -3144,6 +3572,9 @@ def main() -> int:
         disk = phase_train_disk(trained_mae, trained["ms_step"])
         diffusion = phase_train_diffusion()
         generated = phase_generate()
+        if disk["jpeg"] is None:
+            fail("phase_trainer_parity trains from JPEG files: PIL and cv2 must import")
+        parity = phase_trainer_parity(disk["jpeg"]["root"], disk["mae_ckpt"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3162,7 +3593,10 @@ def main() -> int:
     # launches on mae_long's path, which must not be 0. The hash counts
     # the training with attention dropout; fused_mlp and int8_matmul, on no model path in
     # either package, the ops' public API (at the ViT-B MLP shape: fused_mlp and
-    # int8_matmul in bf16, fused_mlp_f32 the f32 call of fused_mlp).
+    # int8_matmul in bf16, fused_mlp_f32 the f32 call of fused_mlp). phase_trainer_parity's
+    # main paths add theirs: the catsdogs run through the CLI entry with validation (f32
+    # forwards and fused backwards), MAE /v1/predict under load (the sm90 forwards at
+    # mae_long's encoder and decoder) and the inference CLI's diffusion branch (DH = 128).
     sources = {
         "flash_fwd": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
                       "ucf_vit_tpu/ops/flash_attention.py:68"),
@@ -3218,11 +3652,13 @@ def main() -> int:
                "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
-        "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"],
+        "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"]
+        + parity["f32"]["src:flash_fwd_tf32"],
         "flash_fwd_bf16": vit_l["src:flash_fwd_sm90"],
-        "flash_bwd_fused": f32["src:flash_bwd_tf32"],
+        "flash_bwd_fused": f32["src:flash_bwd_tf32"] + parity["f32"]["src:flash_bwd_tf32"],
         "flash_bwd_fused_bf16": vit_l["flash_bwd_fused"],
-        "flash_fwd_bf16_mae_long": mae_long["src:flash_fwd_sm90"],
+        "flash_fwd_bf16_mae_long": mae_long["src:flash_fwd_sm90"]
+        + parity["predict"]["src:flash_fwd_sm90"],
         "flash_bwd_fused_bf16_mae_long": mae_long["flash_bwd_fused"],
         "flash_bwd_dkv": f32["flash_bwd_dkv"],
         "flash_bwd_dq": f32["flash_bwd_dq"],
@@ -3234,7 +3670,7 @@ def main() -> int:
         # generate call and its served request (DH = 128); basic_ct's training (DH = 96)
         "flash_fwd_dh128": sum(c["fwd:flash_fwd_tf32<128>"] for c in (
             diffusion["imagenet"]["instances"], generated["instances"],
-            generated["served_instances"])),
+            generated["served_instances"], parity["generate"])),
         "flash_bwd_fused_dh128": diffusion["imagenet"]["instances"]["bwd:flash_bwd_tf32<128>"],
         "flash_fwd_dh96": diffusion["basic_ct"]["instances"]["fwd:flash_fwd_tf32<96>"],
         "flash_bwd_fused_dh96": diffusion["basic_ct"]["instances"]["bwd:flash_bwd_tf32<96>"],
@@ -3254,6 +3690,10 @@ def main() -> int:
         f"{generated['denoise']['device_ms']:.3f} ms device a denoising step "
         f"({100 * generated['denoise']['busy']:.2f}% busy), a served request "
         f"{generated['latency_s']:.3f} s")
+    log(f"[record] trainer parity: validation {parity['val_ms']} ms a batch, a resume's "
+        f"checkpoint read {parity['read_s']} s; MAE /v1/predict {parity['rps']:.3f} requests/s "
+        f"under {MAE_SERVE_CLIENTS} clients, a lone request {parity['lone_ms']:.1f} ms, busy "
+        f"{100 * parity['busy']:.2f}%")
     for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_fused", "flash_bwd_fused_bf16",
                  "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long",
                  "flash_bwd_dkv_bf16_mae_long", "flash_bwd_dq_bf16_mae_long", "fused_mlp",

@@ -1,8 +1,12 @@
-"""The port's serving path on the CPU: the predictor against the JAX
-package's on the same weights, the micro-batcher's coalesce/pad/pipeline
+"""The port's serving and evaluation paths on the CPU: the predictor against
+the JAX package's on the same weights, the micro-batcher's coalesce/pad/pipeline
 semantics (as tests/test_serve.py pins them for the JAX server), an HTTP
 round trip against the direct forward, a diffusion deployment's
-`/v1/generate` against the direct DDPM chain, and the import guard."""
+`/v1/generate` against the direct DDPM chain, an MAE deployment's
+`/v1/predict` against the JAX server's under the same mask noise,
+`generate_diffusion` and its PNGs against the JAX function's, top-1
+evaluation against the JAX package's on the same checkpoint, the inference
+CLI, and the import guard."""
 
 import ast
 import io
@@ -417,15 +421,18 @@ def test_generate_diffusion_on_the_cpu(tmp_path):
     checkpoint of the port's trainer (its EMA too), the same images for one seed."""
     cfg = _diffusion_cfg(checkpoint_path=str(tmp_path / "ck"), checkpoint_filename="last",
                          checkpoint_filename_for_loading="last_latest", ema_decay=0.5)
-    sps, imgs = generate_diffusion(cfg, num_samples=2, device="cpu", seed=1)
+    sps, imgs = generate_diffusion(cfg, num_samples=2, return_images=True, device="cpu",
+                                   seed=1)
     assert sps > 0 and imgs.shape == (2, 3, 16, 16) and np.all(np.isfinite(imgs))
-    np.testing.assert_array_equal(generate_diffusion(cfg, num_samples=2, device="cpu",
-                                                     seed=1)[1], imgs)
+    np.testing.assert_array_equal(generate_diffusion(cfg, num_samples=2, return_images=True,
+                                                     device="cpu", seed=1)[1], imgs)
     cfg.raw["load_balancing"] = {"batches_per_rank_epoch": {"d": 2}}
     assert len(train(cfg, synthetic=True, device="cpu")["loss_list"]) == 1
     d = str(tmp_path / "ck")
-    _, trained = generate_diffusion(cfg, d, num_samples=2, device="cpu", seed=1)
-    _, ema = generate_diffusion(cfg, d, num_samples=2, device="cpu", seed=1, use_ema=True)
+    _, trained = generate_diffusion(cfg, d, num_samples=2, return_images=True, device="cpu",
+                                    seed=1)
+    _, ema = generate_diffusion(cfg, d, num_samples=2, use_ema=True, return_images=True,
+                                device="cpu", seed=1)
     assert not np.array_equal(trained, imgs) and not np.array_equal(ema, trained)
     model = init_eval_model(cfg, device="cpu")
     load_weights(model, cfg, d)
@@ -434,8 +441,7 @@ def test_generate_diffusion_on_the_cpu(tmp_path):
         diffusion_sampler(_cfg(), init_eval_model(_cfg(), device="cpu"), 2)
 
 
-@pytest.mark.parametrize("task,item", [("mae", "item 5: MAE predict"),
-                                       ("unetr", "item 7: UNETR"), ("sap", "item 8: SAP")])
+@pytest.mark.parametrize("task,item", [("unetr", "item 7: UNETR"), ("sap", "item 8: SAP")])
 def test_predictor_refuses_the_tasks_still_to_port(task, item):
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
@@ -508,3 +514,253 @@ def test_port_imports_nothing_of_jax():
     imported += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert "ucf_vit_tpu_torch.serve" in imported
     assert [m for m in imported if FORBIDDEN.match(m)] == []
+
+
+# ---------------------------------------------------------------- MAE /v1/predict
+#
+# A tiny MAE (a 16^3 tile at patch 4: 64 tokens, 16 kept; depth 2, embed 24, a decoder
+# of 18) served at max_batch 2. Every row of a served batch is masked by the noise row
+# that `reconstruct` draws for a lone sample from the server's seed; the JAX server's
+# draw (`jax.random.uniform` in its MAE's `random_masking`) is replaced by that row,
+# tiled over the batch. Tolerances: 1e-5 of f32 images (the same sums in other orders,
+# as MAE_PRED_TOL in tests/test_torch_train.py).
+
+from ucf_vit_tpu_torch.inference import mask_noise, reconstruct
+
+MAE_SERVE_TOL = 1e-5
+
+
+def _mae_cfg(**extra_trainer):
+    init = {"default_vars": ["ct"], "tile_size": [16, 16, 16], "patch_size": 4,
+            "embed_dim": 24, "depth": 2, "num_heads": 2, "mlp_ratio": 2, "decoder_embed_dim": 18,
+            "decoder_depth": 2, "decoder_num_heads": 3, "mlp_ratio_decoder": 2, "twoD": False,
+            "adaptive_patching": False, "mask_ratio": 0.75}
+    raw = {"trainer": {"task": "mae", "max_epochs": 1, "attn_impl": "EINSUM", **extra_trainer},
+           "parallelism": {"fsdp_size": 1, "simple_ddp_size": 1,
+                           "tensor_par_size": 1, "seq_par_size": 1},
+           "model": {"lr": 1e-3, "net": {"init_args": init}},
+           "data": {"dataset": "basic_ct", "num_channels_used": {"d": 1}, "batch_size": 2,
+                    "single_channel": True}}
+    return Config(raw=raw, task="mae")
+
+
+def test_mae_predict_matches_the_jax_server(monkeypatch):
+    cfg = _mae_cfg()
+    jrun, _, jmb, (_, jholder, _) = jax_build_predictor(cfg, max_batch=2, seed=3)
+    run, pre, mb, (model, _, _) = build_predictor(cfg, max_batch=2, seed=3, device="cpu")
+    assert mb == jmb == 2
+    load_jax_params(model, jax.tree.map(np.asarray, jholder["params"]))
+    row = mask_noise(model, 1, 3, "cpu")
+    import jax.numpy as jnp
+
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda *a, **k: jnp.asarray(np.tile(row.numpy(), (2, 1))))
+    x = np.random.default_rng(5).normal(size=(2, 1, 16, 16, 16)).astype(np.float32)
+    want = np.asarray(jrun({"x": x}))
+    got = run({"x": np.stack([pre(s)["x"] for s in x])})
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=MAE_SERVE_TOL, rtol=0)
+    # each row is the sample's lone reconstruction under the seed's mask
+    for i in range(2):
+        np.testing.assert_allclose(got[i].numpy(), reconstruct(model, torch.from_numpy(
+            x[i:i + 1]), seed=3)[0].numpy(), atol=MAE_SERVE_TOL, rtol=0)
+
+
+def test_mae_server_answers_a_request_alike_alone_and_in_a_batch():
+    """Over HTTP at max_batch 2: a lone request (its batch padded by repeating it)
+    and the same request coalesced with another get the same answer, which is
+    `reconstruct`'s for the sample alone; another seed masks other tokens."""
+    cfg = _mae_cfg()
+    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=2, max_wait_ms=500.0,
+                         seed=4, device="cpu")
+    x, y = np.random.default_rng(6).normal(size=(2, 1, 16, 16, 16)).astype(np.float32)
+    try:
+        base = _serving(server)
+        alone = _predict(base, x)
+        outs = [None, None]
+
+        def ask(i, sample):
+            outs[i] = _predict(base, sample)
+
+        threads = [threading.Thread(target=ask, args=(i, s)) for i, s in enumerate((x, y))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        stats = _get_json(f"{base}/v1/stats")
+    finally:
+        _stop(server)
+    assert stats["batches"] == 3 and stats["batch_fill_sum"] == 4  # warm-up, alone, pair
+    assert alone.shape == x.shape and alone.dtype == np.float32
+    np.testing.assert_allclose(outs[0], alone, atol=MAE_SERVE_TOL, rtol=0)
+    model = init_eval_model(cfg, seed=4, device="cpu")
+    for sample, got in ((x, alone), (y, outs[1])):
+        want = reconstruct(model, torch.from_numpy(sample[None]), seed=4)[0].numpy()
+        np.testing.assert_allclose(got, want, atol=MAE_SERVE_TOL, rtol=0)
+    other = reconstruct(model, torch.from_numpy(x[None]), seed=5)[0].numpy()
+    assert np.abs(other - alone).max() > 1e-3
+
+
+# ---------------------------------------------------------------- generate_diffusion
+#
+# `generate_diffusion` against the JAX function with the same positional arguments
+# `(cfg, None, 2, png_dir)`; the port's chain on the JAX chain's weights and draws at
+# T = 10 within 1e-4 (DIFF_SAMPLE_TOL in tests/test_torch_train.py).
+
+from ucf_vit_tpu.config import Config as JConfig
+from ucf_vit_tpu.inference import _init_eval_params as jax_init_eval_params
+from ucf_vit_tpu.inference import evaluate_classification as jax_evaluate_classification
+from ucf_vit_tpu.inference import generate_diffusion as jax_generate_diffusion
+from ucf_vit_tpu.tasks import build_task as jax_build_task
+from ucf_vit_tpu.tools.convert_checkpoint import export_torch_state
+from ucf_vit_tpu.tools.convert_checkpoint import main as convert_main
+from ucf_vit_tpu.train import example_batch as jax_example_batch
+from ucf_vit_tpu_torch import inference as port_inference
+from ucf_vit_tpu_torch.inference import evaluate, evaluate_classification
+from ucf_vit_tpu_torch.inference import main as inference_main
+
+GENERATE_TOL = 1e-4
+
+
+def _png_diffusion_cfg(tile):
+    cfg = _diffusion_cfg(steps=10)
+    if tile == "3d":
+        cfg.raw["model"]["net"]["init_args"].update(default_vars=["ct"], tile_size=[16, 16, 16],
+                                                    twoD=False, embed_dim=24, decoder_embed_dim=18)
+        cfg.raw["data"]["num_channels_used"] = {"d": 1}
+    return cfg
+
+
+@pytest.mark.parametrize("tile", ["2d", "3d"])
+def test_generate_diffusion_takes_the_jax_arguments_and_writes_pngs(tmp_path, monkeypatch, tile):
+    """Both functions called with `(cfg, None, 2, png_dir)` write generated_0.png and
+    generated_1.png (a volume's middle slice); the port returns samples/s alone, and
+    `(samples/s, images)` with `return_images`, which on the JAX init's weights and the
+    JAX chain's draws (key 0: a split for x_T, one a step) equal the JAX images."""
+    cfg = _png_diffusion_cfg(tile)
+    jcfg = JConfig(raw=cfg.raw, task="diffusion")
+    jsps, jimgs = jax_generate_diffusion(jcfg, None, 2, str(tmp_path / "jax"), False, True)
+    sps = generate_diffusion(cfg, None, 2, str(tmp_path / "port"), device="cpu")
+    assert isinstance(sps, float) and sps > 0 and jsps > 0
+    for side in ("jax", "port"):
+        pngs = sorted(os.listdir(tmp_path / side))
+        assert pngs == ["generated_0.png", "generated_1.png"], side
+        assert all(open(tmp_path / side / p, "rb").read(8) == b"\x89PNG\r\n\x1a\n" for p in pngs)
+
+    jmod, _ = jax_build_task(jcfg)
+    params, _ = jax_init_eval_params(jmod, jcfg, jax_example_batch(jcfg, 2), None, None)
+    init = tmp_path / "jax_init.ckpt"
+    torch.save({"epoch": 0, "loss_list": [], "model_state_dict": {
+        k: torch.from_numpy(np.array(v)) for k, v in export_torch_state(params).items()}}, init)
+    key = jax.random.key(0)
+    key, init_key = jax.random.split(key)
+    x_T = torch.from_numpy(np.array(jax.random.normal(init_key, jimgs.shape)))
+    noises = []
+    for _ in range(10):
+        key, nkey = jax.random.split(key)
+        noises.append(torch.from_numpy(np.array(jax.random.normal(nkey, jimgs.shape))))
+    real = port_inference.ddpm_sample
+    monkeypatch.setattr(port_inference, "ddpm_sample", lambda schedule, denoise, gen, shape,
+                        dev: real(schedule, denoise, None, shape, dev, x_T=x_T, noises=noises))
+    got_sps, imgs = generate_diffusion(cfg, str(init), 2, None, False, True, device="cpu")
+    assert got_sps > 0 and imgs.shape == jimgs.shape
+    np.testing.assert_allclose(imgs, jimgs, atol=GENERATE_TOL, rtol=0)
+
+
+def test_png_writer_names_matplotlib_where_it_is_missing(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ModuleNotFoundError, match="matplotlib") as e:
+        generate_diffusion(_diffusion_cfg(), None, 2, str(tmp_path / "png"), device="cpu")
+    assert e.value.name == "matplotlib" and not os.path.exists(tmp_path / "png")
+    # without png_dir nothing imports it
+    assert generate_diffusion(_diffusion_cfg(), None, 1, device="cpu") > 0
+
+
+# ---------------------------------------------------------------- evaluation, the CLI
+
+
+def _catsdogs_checkpoint(tmp_path):
+    """A catsdogs ViT (16^2 JPEGs, depth 2, embed 32) trained 4 steps by the port's
+    trainer, its yaml and the newest checkpoint file."""
+    from PIL import Image
+
+    root = tmp_path / "cd"
+    root.mkdir()
+    rng = np.random.default_rng(0)
+    for i, k in enumerate(["cat", "dog"] * 3):
+        Image.fromarray(rng.integers(0, 255, size=(40, 36, 3)).astype(np.uint8)).save(
+            root / f"{k}.{i}.jpg")
+    ia = {"default_vars": ["red", "green", "blue"], "tile_size": [16, 16], "patch_size": 8,
+          "embed_dim": 32, "depth": 2, "num_heads": 2, "mlp_ratio": 2, "twoD": True,
+          "adaptive_patching": False, "num_classes": 2}
+    raw = {"trainer": {"task": "classification", "attn_impl": "EINSUM", "max_epochs": 2,
+                       "seed": 0, "checkpoint_path": str(tmp_path / "ck"),
+                       "checkpoint_filename": "last"},
+           "parallelism": {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                           "seq_par_size": 1},
+           "model": {"lr": 1e-3, "warmup_steps": 2, "max_steps": 20,
+                     "net": {"init_args": ia}},
+           "data": {"dataset": "catsdogs", "dict_root_dirs": {"catsdogs": str(root)},
+                    "dict_start_idx": {"catsdogs": 0}, "dict_end_idx": {"catsdogs": 1},
+                    "dict_buffer_sizes": {"catsdogs": 4}, "num_channels_used": {"catsdogs": 3},
+                    "dict_in_variables": {"catsdogs": ["red", "green", "blue"]},
+                    "batch_size": 2, "num_classes": 2, "single_channel": False},
+           "load_balancing": {"auto_load_balancing": False}}
+    train(Config(raw=raw, task="classification"), max_steps=4, device="cpu")
+    path = tmp_path / "catsdogs.yaml"
+    path.write_text(__import__("yaml").safe_dump(raw))
+    return raw, str(path), str(tmp_path / "ck" / "last_odd.ckpt")
+
+
+@pytest.mark.parametrize("synthetic", [False, True], ids=["files", "synthetic"])
+def test_evaluate_classification_matches_jax_on_one_checkpoint(tmp_path, synthetic):
+    """Top-1 of the port's checkpoint against the JAX package's
+    `evaluate_classification` on it after `convert_checkpoint to-jax`: the same, over
+    the same 6 samples (the JPEG files' first epoch, or the synthetic stream)."""
+    raw, cfg_path, ck = _catsdogs_checkpoint(tmp_path)
+    assert convert_main(["to-jax", ck, cfg_path, str(tmp_path / "jax"), "--filename",
+                         "conv"]) == 0
+    jraw = json.loads(json.dumps(raw))
+    jraw["trainer"]["checkpoint_filename_for_loading"] = "conv_latest"
+    want = jax_evaluate_classification(JConfig(raw=jraw, task="classification"),
+                                       str(tmp_path / "jax"), synthetic, 6)
+    cfg = Config(raw=raw, task="classification")
+    got = evaluate_classification(cfg, ck, synthetic, 6, device="cpu")
+    assert got == want
+    # the seeded init scores otherwise on the synthetic stream's random labels, or
+    # on the files; either way the number is a share of 6
+    assert round(got * 6, 6) == int(round(got * 6))
+
+
+def test_inference_cli_evaluates_and_generates(tmp_path, capsys):
+    """`python -m ucf_vit_tpu_torch.inference`: top-1 from a checkpoint, equal to
+    `evaluate_classification`'s, with `--checkpoint` and `--ema` (the trainer's EMA);
+    a diffusion config generates through `evaluate`."""
+    raw, cfg_path, ck = _catsdogs_checkpoint(tmp_path)
+    cfg = Config(raw=raw, task="classification")
+    top1 = inference_main([cfg_path, "--checkpoint", ck, "--num-samples", "6", "--device",
+                           "cpu"])
+    assert top1 == evaluate_classification(cfg, ck, False, 6, device="cpu")
+    assert "top-1 accuracy over 6 samples" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="no EMA state"):
+        inference_main([cfg_path, "--checkpoint", ck, "--ema", "--device", "cpu"])
+    assert evaluate(_diffusion_cfg(steps=3), None, None, False, 2, device="cpu") > 0
+
+
+@pytest.mark.parametrize("case", ["volume", "mae_checkpoint", "unetr", "sap", "no_cuda"])
+def test_inference_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
+    cfg_path = os.path.join(REPO, "configs/catsdogs/classification/base_config.yaml")
+    if case == "volume":
+        with pytest.raises(NotImplementedError, match="modules to port, item 7: UNETR"):
+            inference_main([cfg_path, "--volume", "v.npy", "--device", "cpu"])
+    elif case == "mae_checkpoint":
+        with pytest.raises(NotImplementedError, match="modules to port, item 7: UNETR"):
+            inference_main([cfg_path, "--mae-checkpoint", "ck", "--device", "cpu"])
+    elif case == "no_cuda":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            inference_main([cfg_path, "--synthetic"])
+    else:
+        item = {"unetr": "item 7: UNETR", "sap": "item 8: SAP"}[case]
+        with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
+            evaluate(Config(raw=_cfg().raw, task=case), device="cpu")

@@ -39,6 +39,7 @@ import ast
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -295,10 +296,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
     for key, value, item in (("pretrained_mae_checkpoint", "ck", "item 7: UNETR"),
-                             ("val_every", 1, "item 9: trainer parity"),
-                             ("tensorboard_dir", "tb", "item 9: trainer parity"),
-                             ("preempt_after_steps", 3, "item 9: trainer parity"),
-                             ("profile_dir", "prof", "item 9: trainer parity"),
                              ("sync_check_every", 2, "item 10: data/tensor parallel")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port, {item}"):
             main([_tiny_yaml(tmp_path, **{key: value}), "--synthetic", "--device", "cpu"])
@@ -1584,3 +1581,325 @@ def test_kernel_instance_mirrors_the_sources_dispatch(source):
     counts = flash_attention_bwd.by_instance if "bwd" in source else flash_attention.by_instance
     assert {k for k in counts if k.startswith(source)} == {f"{source}<{b}>" for b in bounds}
     assert not any(counts.values())
+
+
+# ================================================================ trainer parity
+#
+# Validation, preemption with mid-epoch resume, TensorBoard and profile_dir
+# (`ucf_vit_tpu/train.py:95-200,360-420,550-990`). Validation losses against the JAX
+# trainer's within LOSS_TOL: the port warm-started from the JAX trainer's own init,
+# attention EINSUM on both, the same synthetic streams or JPEG files. A run preempted
+# mid-epoch (or on an epoch's last step) and resumed against an uninterrupted one: the
+# per-step losses, the validation losses, the parameters, AdamW's moments and the
+# generators bit for bit.
+
+from ucf_vit_tpu.train import build_dataloader as jax_build_dataloader
+from ucf_vit_tpu_torch.train import _Validation
+
+CATSDOGS_VAL = [f"{k}.{i}.jpg" for i, k in enumerate(["cat", "dog"] * 5)]
+
+
+def _val_raw(tmp_path, source):
+    """The tiny catsdogs ViT with validation every epoch over 3 batches of 2: from 10
+    JPEGs (training on the first 6 of the split, 3 batches an epoch; validating on the
+    other 4, 2 batches a pass, so a pass wraps into the next reshuffle), or from the
+    synthetic streams (3 steps an epoch)."""
+    if source == "catsdogs":
+        raw = _catsdogs_raw(_jpegs(tmp_path / "cd", CATSDOGS_VAL))
+        raw["data"].update(dict_end_idx={"catsdogs": 0.6}, val_dict_start_idx={"catsdogs": 0.6},
+                           val_dict_end_idx={"catsdogs": 1.0})
+    else:
+        raw = _catsdogs_raw(str(tmp_path / "none"))
+        raw["load_balancing"]["batches_per_rank_epoch"] = {"synthetic": 3}
+    raw["trainer"].update(val_every=1, val_batches=3, max_epochs=2)
+    return raw
+
+
+def _records(path):
+    return [json.loads(line) for line in open(path)]
+
+
+@pytest.mark.parametrize("source", ["synthetic", "catsdogs"])
+def test_validation_matches_jax(tmp_path, source):
+    """Two epochs, each followed by validation, through both trainers: the val_loss
+    and val_accuracy records within LOSS_TOL of the JAX trainer's, 3 batches a pass,
+    the train losses beside them."""
+    raw = _val_raw(tmp_path, source)
+    synthetic = source == "synthetic"
+    raw["trainer"]["metrics_path"] = str(tmp_path / "jax.jsonl")
+    jax_train(JConfig(raw=raw, task="classification"), synthetic=synthetic)
+    init = tmp_path / "init.ckpt"
+    _jax_init_as_torch_file(raw, str(init))
+    raw["trainer"].update(metrics_path=str(tmp_path / "port.jsonl"), init_params_from=str(init))
+    train(Config(raw=raw, task="classification"), synthetic=synthetic, device="cpu")
+    got, want = _records(tmp_path / "port.jsonl"), _records(tmp_path / "jax.jsonl")
+    vals = [[r for r in recs if "val_loss" in r] for recs in (got, want)]
+    assert len(vals[0]) == len(vals[1]) == 2
+    for g, w in zip(*vals):
+        assert g["epoch"] == w["epoch"] and g["val_batches"] == w["val_batches"] == 3
+        np.testing.assert_allclose([g["val_loss"], g["val_accuracy"]],
+                                   [w["val_loss"], w["val_accuracy"]], atol=LOSS_TOL, rtol=0)
+    np.testing.assert_allclose(_metrics_losses(tmp_path / "port.jsonl"),
+                               _metrics_losses(tmp_path / "jax.jsonl"), atol=LOSS_TOL, rtol=0)
+
+
+def test_val_split_matches_jax_and_needs_its_range(tmp_path):
+    """`build_dataloader(..., val_split=True)`: the synthetic held-out stream (seed
+    12345) and the catsdogs held-out files batch for batch as the JAX package's; from
+    files without `data.val_dict_*` the JAX assertion."""
+    raw = _val_raw(tmp_path, "catsdogs")
+    cfg, jcfg = Config(raw=raw, task="classification"), JConfig(raw=raw, task="classification")
+    for synthetic in (True, False):
+        dm, synth, _ = build_dataloader(cfg, 2, synthetic, val_split=True)
+        jdm, jsynth, _ = jax_build_dataloader(jcfg, 2, synthetic, val_split=True)
+        if synthetic:
+            got, want = list(itertools.islice(synth, 2)), list(itertools.islice(jsynth, 2))
+            assert not np.array_equal(got[0]["x"], next(synthetic_batches(cfg, 2))["x"])
+        else:
+            got = list(itertools.islice(dm.train_dataloader(loop=True), 3))
+            want = list(itertools.islice(jdm.train_dataloader(loop=True), 3))
+        _assert_batches_equal(got, want)
+    del raw["data"]["val_dict_end_idx"]
+    for build in (build_dataloader, jax_build_dataloader):
+        with pytest.raises(AssertionError, match="val_dict_start_idx / val_dict_end_idx"):
+            build((Config if build is build_dataloader else JConfig)(
+                raw=raw, task="classification"), 2, False, val_split=True)
+
+
+@pytest.mark.parametrize("task", ["classification", "mae"])
+def test_validation_runs_in_eval_mode_on_its_own_generators(task):
+    """A validation pass is deterministic where the task draws nothing in eval mode
+    (a ViT with dropout 0.3 and DropPath 0.2: two seeds, one loss), draws MAE's mask
+    from its own seed (two seeds, two losses), and leaves the trainer's generators,
+    and the training mode, as it found them."""
+    if task == "classification":
+        raw = _raw()
+        raw["model"]["net"]["init_args"].update(drop_rate=0.3, drop_path=0.2)
+    else:
+        raw = _mae_raw()
+    cfg = Config(raw=raw, task=task)
+    state, _ = init_train(cfg, "cpu")
+    model = state.model.train()
+    before = (model.generator.get_state(), model.host_generator.get_state())
+    gens = (model.generator, model.host_generator)
+    losses = [_Validation(cfg, 2, True, torch.device("cpu")).run(model, seed)
+              for seed in (2, 2, 3)]
+    assert all(n == 8 for _, _, n in losses)
+    assert losses[0] == losses[1]
+    assert (losses[0][0] == losses[2][0]) == (task == "classification")
+    assert model.training and (model.generator, model.host_generator) == gens
+    assert torch.equal(before[0], model.generator.get_state())
+    assert torch.equal(before[1], model.host_generator.get_state())
+
+
+def _midepoch_raw(tmp_path, kind):
+    """3 steps an epoch from files: the catsdogs ViT of `_resume_raw` (dropout,
+    DropPath, EMA, loss scaling: 6 JPEGs), the NIfTI MAE of `_resume_raw` on 3 volumes,
+    or a 3-D DiffusionVIT on NIfTI volumes with validation every epoch (3 volumes to
+    train on, 1 held out)."""
+    if kind == "catsdogs":
+        return _resume_raw(tmp_path, "vit")
+    if kind == "mae":
+        raw, task = _resume_raw(tmp_path, "mae")
+        _volumes(tmp_path / "ct3", 3, (32, 16, 16))
+        raw["data"]["dict_root_dirs"] = {"ct": str(tmp_path / "ct3")}
+        return raw, task
+    root = _volumes(tmp_path / "ct4", 4, (32, 16, 16))
+    ia = {"default_vars": ["ct"], "tile_size": [16, 16, 16], "twoD": False, "patch_size": 4,
+          "adaptive_patching": False, "num_time_steps": DIFF_T,
+          **{k: v for k, v in DIFF_KW.items() if k != "time_steps"}}
+    raw = {"trainer": {"task": "diffusion", "attn_impl": "FLASH", "seed": 2, "val_every": 1,
+                       "val_batches": 2},
+           "parallelism": {},
+           "model": {"lr": 1e-3, "warmup_steps": 1, "max_steps": 20, "use_grad_scaler": True,
+                     "net": {"init_args": ia}},
+           "data": {"dataset": "basic_ct", "dict_root_dirs": {"ct": root},
+                    "dict_start_idx": {"ct": 0}, "dict_end_idx": {"ct": 0.75},
+                    "val_dict_start_idx": {"ct": 0.75}, "val_dict_end_idx": {"ct": 1.0},
+                    "dict_buffer_sizes": {"ct": 3}, "num_channels_used": {"ct": 1},
+                    "dict_in_variables": {"ct": ["ct"]}, "batch_size": 2,
+                    "single_channel": True, "num_workers": 2, "tile_overlap": 0.0,
+                    "use_all_data": False},
+           "load_balancing": {"auto_load_balancing": True}}
+    return raw, "diffusion"
+
+
+@pytest.mark.parametrize("kind,drill", [("catsdogs", 2), ("catsdogs", 3), ("mae", 2),
+                                        ("mae", 3), ("diffusion", 2)])
+def test_midepoch_resume_equals_uninterrupted_bit_for_bit(tmp_path, capsys, kind, drill):
+    """Two epochs of 3 steps in one run against a run preempted by the drill
+    (`preempt_after_steps`) after step 2 (mid-epoch) or 3 (the epoch's last step) and
+    then resumed (`tests/test_midepoch_resume.py:209-285`): the (epoch, it) records,
+    every per-step loss and validation loss, the parameters, AdamW's moments and the
+    generators equal bit for bit; the preemption checkpoint holds the interrupted
+    epoch's position in the interrupted epoch's slot."""
+    raw, task = _midepoch_raw(tmp_path, kind)
+
+    def run(name, **trainer):
+        r = copy.deepcopy(raw)
+        r["trainer"].update(max_epochs=2, checkpoint_path=str(tmp_path / f"ck_{name}"),
+                            checkpoint_filename="last",
+                            checkpoint_filename_for_loading="last_latest",
+                            metrics_path=str(tmp_path / f"{name}.jsonl"), **trainer)
+        return train(Config(raw=r, task=task), device="cpu")
+
+    whole = run("whole")
+    part = run("part", preempt_after_steps=drill)
+    mid = drill < 3
+    assert f"preempted in epoch 0 after {drill} its: saved" in capsys.readouterr().out
+    assert len(part["loss_list"]) == (0 if mid else 1)
+    payload = ckpt.restore_checkpoint(str(tmp_path / "ck_part"), "last_latest")
+    assert sorted(os.listdir(tmp_path / "ck_part")) == ["last_even.ckpt"]
+    assert (payload["epoch"], payload["data_it"], payload["total_steps"],
+            payload["num_procs"]) == (0, drill if mid else 0, drill, 1)
+    resumed = run("part", resume_from_checkpoint=True)
+    out = capsys.readouterr().out
+    assert ("resumed mid-epoch: epoch 0, fast-forwarding 2 batches" if mid
+            else "resumed from epoch 0") in out
+
+    a, b = _records(tmp_path / "whole.jsonl"), _records(tmp_path / "part.jsonl")
+    steps = [(r["epoch"], r["it"]) for r in a if "loss" in r]
+    assert steps == [(e, i) for e in (0, 1) for i in (1, 2, 3)]
+    assert [(r["epoch"], r["it"]) for r in b if "loss" in r] == steps
+    assert [r["loss"] for r in b if "loss" in r] == [r["loss"] for r in a if "loss" in r]
+    vals = [[(r["epoch"], r["val_loss"]) for r in recs if "val_loss" in r] for recs in (a, b)]
+    assert vals[0] == vals[1] and len(vals[0]) == (2 if kind == "diffusion" else 0)
+    starts = [r for r in b if r.get("run_start")]
+    assert [(r["resume_epoch"], r["resume_step"], r["resume_it"]) for r in starts] == [
+        (0, 0, 0), (0 if mid else 1, drill, drill if mid else 0)]
+    if not mid:  # the completed epoch's loss, as the uninterrupted run's
+        assert resumed["loss_list"] == whole["loss_list"]
+    sa, sb = whole["state"], resumed["state"]
+    for (n, p), (m, q) in zip(sa.model.state_dict().items(), sb.model.state_dict().items()):
+        assert n == m and torch.equal(p, q), n
+    oa, ob = sa.optimizer.adamw.state_dict()["state"], sb.optimizer.adamw.state_dict()["state"]
+    assert all(torch.equal(oa[i][k], ob[i][k]) for i in oa for k in oa[i])
+    assert sa.optimizer.count == sb.optimizer.count == 6 and sa.loss_scale == sb.loss_scale
+    assert torch.equal(sa.model.generator.get_state(), sb.model.generator.get_state())
+    assert torch.equal(sa.model.host_generator.get_state(), sb.model.host_generator.get_state())
+
+
+def _sigterm_yaml(tmp_path, **trainer):
+    """The tiny synthetic classifier with epochs long enough that a signal lands in
+    epoch 0, a checkpoint directory and a metrics file."""
+    raw = _raw()
+    raw["trainer"].update(checkpoint_path=str(tmp_path / "ck"), checkpoint_filename="last",
+                          checkpoint_filename_for_loading="last_latest",
+                          metrics_path=str(tmp_path / "m.jsonl"), max_epochs=1, **trainer)
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"synthetic": 100000}}
+    path = tmp_path / "sigterm.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path), raw
+
+
+def test_sigterm_checkpoints_exits_and_resumes_in_place(tmp_path):
+    """SIGTERM to the trainer's CLI (a subprocess on the CPU) after its third logged
+    step: exit code 0, the `preempted in epoch 0` line, a checkpoint at the step the
+    signal stopped it (`data_it`); a run resumed from it continues that epoch at the
+    next step, its `run_start` record carrying the position. The JAX counterpart
+    (`tests/test_trainer.py:110-158`) sends its signal 2 s after the first step and
+    asserts epoch 0, while its epochs of 100 steps take well under a second here: it
+    checkpoints in a later epoch and fails. This one signals on a step's line, in an
+    epoch of 100,000 steps, with deadlines of its own."""
+    import queue
+    import signal
+    import threading
+    import time as _time
+
+    cfg, raw = _sigterm_yaml(tmp_path)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ucf_vit_tpu_torch.train", cfg, "--synthetic", "--device", "cpu"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+                              daemon=True)
+    reader.start()
+    seen, deadline = [], _time.monotonic() + 240
+    try:
+        while True:
+            line = lines.get(timeout=max(deadline - _time.monotonic(), 0.01))
+            if line is None:
+                pytest.fail("the trainer exited before its third step:\n" + "".join(seen))
+            seen.append(line)
+            if line.startswith("epoch 0 it 3 "):
+                break
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+    except (queue.Empty, subprocess.TimeoutExpired):
+        pytest.fail("no third step, or no exit after SIGTERM, within the deadline:\n"
+                    + "".join(seen))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    while (line := lines.get_nowait() if not lines.empty() else None) is not None:
+        seen.append(line)
+    text = "".join(seen)
+    assert proc.returncode == 0, text[-2000:]
+    stopped = re.search(r"preempted in epoch 0 after (\d+) its: saved (\S+)", text)
+    assert stopped, text[-2000:]
+    n = int(stopped.group(1))
+    assert n >= 3 and stopped.group(2).endswith("last_even.ckpt")
+    payload = ckpt.restore_checkpoint(str(tmp_path / "ck"), "last_latest")
+    assert (payload["epoch"], payload["data_it"], payload["total_steps"]) == (0, n, n)
+
+    raw["trainer"]["resume_from_checkpoint"] = True
+    out = train(Config(raw=raw, task="classification"), synthetic=True, max_steps=n + 2,
+                device="cpu")
+    assert out["state"].optimizer.count == n + 2
+    recs = _records(tmp_path / "m.jsonl")
+    start = max(i for i, r in enumerate(recs) if r.get("run_start"))
+    assert (recs[start]["resume_epoch"], recs[start]["resume_it"],
+            recs[start]["resume_step"]) == (0, n, n)
+    assert [(r["epoch"], r["it"], r["step"]) for r in recs[start + 1:]] == [
+        (0, n + 1, n + 1), (0, n + 2, n + 2)]
+
+
+def test_tensorboard_dir_writes_the_scalars(tmp_path):
+    """`trainer.tensorboard_dir`: event files holding the train and val scalars of
+    `ucf_vit_tpu/train.py:720-745,972-976`, beside the JSONL."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    raw = _raw()
+    raw["trainer"].update(tensorboard_dir=str(tmp_path / "tb"), val_every=1, val_batches=1)
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"synthetic": 2}}
+    train(Config(raw=raw, task="classification"), synthetic=True, device="cpu")
+    acc = EventAccumulator(str(tmp_path / "tb"))
+    acc.Reload()
+    tags = set(acc.Tags()["scalars"])
+    assert tags == {"train/loss", "train/ms_per_it", "train/samples_per_s", "train/accuracy",
+                    "val/loss", "val/accuracy"}
+    assert [e.step for e in acc.Scalars("train/loss")] == [1, 2]
+    assert [e.step for e in acc.Scalars("val/loss")] == [2]
+
+
+def test_tensorboard_dir_names_why_it_is_ignored(tmp_path, capsys):
+    """Neither writer opens on a path under a file: training goes on, and the line
+    names both writers' real errors."""
+    (tmp_path / "file").write_text("")
+    raw = _raw()
+    raw["trainer"]["tensorboard_dir"] = str(tmp_path / "file" / "tb")
+    out = train(Config(raw=raw, task="classification"), synthetic=True, max_steps=1,
+                device="cpu")
+    assert out["state"].optimizer.count == 1
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("tensorboard_dir ignored ("))
+    assert "tensorboardX: " in line and "torch.utils.tensorboard: " in line
+
+
+def test_profile_dir_writes_a_trace_of_steps_11_to_15(tmp_path, capsys):
+    """`trainer.profile_dir`: a Chrome trace file of the profiler's CPU activity over
+    steps 11-15 (`ucf_vit_tpu/train.py:853-879`), the train step's ops in it."""
+    raw = _raw()
+    raw["trainer"]["profile_dir"] = str(tmp_path / "prof")
+    train(Config(raw=raw, task="classification"), synthetic=True, max_steps=16, device="cpu")
+    files = os.listdir(tmp_path / "prof")
+    assert len(files) == 1 and files[0].endswith(".json")
+    assert f"profile of steps 11-15 written to {tmp_path / 'prof' / files[0]}" in (
+        capsys.readouterr().out)
+    trace = json.load(open(tmp_path / "prof" / files[0]))
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert {"aten::addmm", "aten::softmax"} & names and any("backward" in n.lower()
+                                                             for n in names)

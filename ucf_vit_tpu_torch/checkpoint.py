@@ -18,6 +18,11 @@ moved into place with `os.replace`:
     head_meta             [num_heads, decoder_num_heads]
     generators            {"device", "host"}: the states of the train
                           step's torch.Generators (the port's rng_key)
+    data_it               batches of `epoch` already trained on: 0 after
+                          an epoch's end; a preemption save mid-epoch
+                          records its position, and resume re-enters the
+                          epoch there
+    num_procs             the processes that wrote it (1: the port runs one)
 
 The first three keys are what `python -m
 ucf_vit_tpu.tools.convert_checkpoint to-jax` reads, so a port checkpoint
@@ -59,10 +64,15 @@ def save_checkpoint(
     loss_list: Iterable[float] = (),
     head_meta: Optional[Tuple[int, int]] = None,
     total_steps: int = 0,
+    data_it: int = 0,
+    slot_epoch: Optional[int] = None,
 ) -> str:
     """Write `state` (a `parallel.train_step.TrainState`) to the even/odd slot
-    of `epoch`. Returns the file's path."""
-    path = _ckpt_file(checkpoint_path, filename, epoch)
+    of `epoch`, or of `slot_epoch` when given, while `epoch` stays what resume
+    reads. The preemption save passes the interrupted epoch as both, so that
+    it overwrites the older slot and never the last committed epoch's
+    (`ucf_vit_tpu/checkpoint.py:67-100`). Returns the file's path."""
+    path = _ckpt_file(checkpoint_path, filename, epoch if slot_epoch is None else slot_epoch)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     model = state.model
     gens = None
@@ -83,6 +93,8 @@ def save_checkpoint(
         "total_steps": int(total_steps),
         "head_meta": None if head_meta is None else [int(v) for v in head_meta],
         "generators": gens,
+        "data_it": int(data_it),
+        "num_procs": 1,
     }
     tmp = f"{path}.tmp.{os.getpid()}"
     try:

@@ -19,6 +19,10 @@
   ``trainer.checkpoint_filename_for_loading`` names), or that checkpoint's
   EMA weights (``--ema``); a file that the JAX package's ``convert_checkpoint
   to-torch`` wrote serves too.
+- **MAE.** An MAE deployment's ``/v1/predict`` answers the reconstruction
+  ``[C, *tile]`` of every token, unpatchified, under a mask that the
+  server's ``--seed`` fixes (the JAX server's MAE branch,
+  ``ucf_vit_tpu/serve.py:277-296``).
 - **Diffusion.** A DiffusionVIT deployment answers ``POST /v1/generate
   {"seed": s, "num": n}`` with ``[n, C, *tile]`` f32 images as ``.npy``
   (``n`` at most ``--num-generate``): each answer runs the whole DDPM reverse
@@ -26,8 +30,8 @@
   the same images for the same seed. ``/v1/predict`` and ``/v1/reload``
   answer 400 there, as in the JAX server.
 
-This slice serves classification and diffusion with non-adaptive inputs
-(ROADMAP.md).
+This slice serves classification, MAE and diffusion with non-adaptive
+inputs (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,16 +51,15 @@ import torch
 
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.inference import (
+    UNPORTED_TASKS,
     Device,
     diffusion_sampler,
     init_eval_model,
     load_weights,
+    mask_noise,
     resolve_device,
 )
-
-# serving tasks still to port -> the ROADMAP.md item that ports each
-_UNPORTED = {"mae": "item 5: MAE predict", "unetr": "item 7: UNETR + evaluation",
-             "sap": "item 8: SAP"}
+from ucf_vit_tpu_torch.ops.patchify import unpatchify
 
 
 # ---------------------------------------------------------------------------
@@ -99,11 +102,20 @@ def build_predictor(
 ):
     """Build ``(run_batch, preprocess, max_batch, (model, holder, load_weights))``.
 
-    ``run_batch({"x": [max_batch, C, *tile]})`` returns the logits
-    ``[max_batch, num_classes]`` as a tensor on ``device``, without waiting
-    for the device; f32 under ``trainer.data_type: bfloat16`` too, since the
-    model's final norm and head compute in f32. ``device`` defaults to CUDA
-    and raises when CUDA is absent; tests pass ``device="cpu"``.
+    ``run_batch({"x": [max_batch, C, *tile]})`` returns, as a tensor on
+    ``device`` and without waiting for the device, the logits
+    ``[max_batch, num_classes]`` of a classifier, or an MAE's reconstruction
+    ``[max_batch, C, *tile]``; f32 under ``trainer.data_type: bfloat16`` too,
+    since a classifier's final norm and head and MAE's decoder compute in
+    f32. ``device`` defaults to CUDA and raises when CUDA is absent; tests
+    pass ``device="cpu"``.
+
+    An MAE's mask is fixed by ``seed``: every row of a batch takes the noise
+    row that ``inference.reconstruct`` draws for a lone sample. Noise drawn
+    per row would tie a request's mask to its place in the batch, and a
+    request padded to ``max_batch`` (or coalesced with others) would get
+    another mask than it gets alone; with one row for all, a request's
+    answer does not depend on its batch.
 
     ``load_weights(ckpt_dir, ema=False) -> epoch`` loads a checkpoint into a
     copy of the served model and swaps the copy in: the batcher's thread,
@@ -113,8 +125,8 @@ def build_predictor(
     if cfg.task == "diffusion":
         raise ValueError("a diffusion deployment serves /v1/generate (build_generator), "
                          "not a predictor")
-    if cfg.task != "classification":
-        item = _UNPORTED.get(cfg.task)
+    if cfg.task not in ("classification", "mae"):
+        item = UNPORTED_TASKS.get(cfg.task)
         raise NotImplementedError(
             f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port"
             + (f", {item})" if item else ")")
@@ -134,10 +146,16 @@ def build_predictor(
         holder["epoch"] = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
         print(f"serving checkpoint from epoch {holder['epoch']}", flush=True)
 
+    noise = mask_noise(model, 1, seed, dev) if cfg.task == "mae" else None
+
     def run_batch(batch: Dict[str, np.ndarray]) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(batch["x"], dtype=np.float32))
+        x = x.to(dev, non_blocking=True)
         with torch.inference_mode():
-            return holder["model"](x.to(dev, non_blocking=True))
+            if noise is None:
+                return holder["model"](x)
+            pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1))
+            return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)
 
     return run_batch, preprocess, max_batch, (model, holder, swap_weights)
 

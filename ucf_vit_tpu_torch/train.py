@@ -18,29 +18,42 @@ Runs on CUDA unless `device="cpu"`.
 Checkpoints (`checkpoint.py`): with `trainer.checkpoint_path` set, the full
 training state is saved at each epoch's end to the even/odd slot of the
 epoch; `trainer.resume_from_checkpoint` continues from the slot that
-`checkpoint_filename_for_loading` names at the next epoch (parameters,
-AdamW, loss scale, loss list, step count and the generators' states, EMA
-reconciled with `trainer.ema_decay`); `trainer.init_params_from` warm-starts
-the parameters alone from any port checkpoint or a file that the JAX
-package's `convert_checkpoint to-torch` wrote.
+`checkpoint_filename_for_loading` names (parameters, AdamW, loss scale, loss
+list, step count and the generators' states, EMA reconciled with
+`trainer.ema_decay`): at the next epoch, or inside the epoch a preemption
+interrupted, fast-forwarding the batches it had trained on
+(`skip_batches`); `trainer.init_params_from` warm-starts the parameters alone
+from any port checkpoint or a file that the JAX package's `convert_checkpoint
+to-torch` wrote.
+
+Preemption: SIGTERM (or `trainer.preempt_after_steps`, a drill) stops the
+run at the next step boundary with a checkpoint of the interrupted epoch
+and its position (`data_it`), and `train` returns normally. Validation
+(`trainer.val_every`, `val_batches`): the task loss with no gradient, in eval
+mode, on the held-out split (`data.val_dict_start_idx` / `val_dict_end_idx`,
+or another synthetic stream), through one looping iterator, logged beside
+the train records. `trainer.tensorboard_dir` writes the scalars to
+TensorBoard as well; `trainer.profile_dir` writes a `torch.profiler` trace of
+steps 11-15 as a Chrome trace file.
 
 Not ported yet, and refused with the ROADMAP.md item when the config asks
-for it (`_REFUSED_KEYS`): the MAE-encoder transfer, validation, preemption,
-TensorBoard, `profile_dir` and sharding. `trainer.data_type: bfloat16`
-trains under the bf16 compute policy (f32 parameters, gradients and
-optimizer state; `models/blocks.py`), `trainer.remat` checkpoints each
-block's activations (MAE's decoder blocks too), and `trainer.scan_layers` is
-accepted (`models/vit.py`). MAE draws its mask noise, and the diffusion
-loss its steps t and noise e, from the device generator that dropout draws
-from; both are seeded from `trainer.seed`. A diffusion batch holds `x` only,
-as in the JAX stream.
+for it (`_REFUSED_KEYS`): the MAE-encoder transfer and sharding.
+`trainer.data_type: bfloat16` trains under the bf16 compute policy (f32
+parameters, gradients and optimizer state; `models/blocks.py`),
+`trainer.remat` checkpoints each block's activations (MAE's decoder blocks
+too), and `trainer.scan_layers` is accepted (`models/vit.py`). MAE draws its
+mask noise, and the diffusion loss its steps t and noise e, from the device
+generator that dropout draws from; both are seeded from `trainer.seed`. A
+diffusion batch holds `x` only, as in the JAX stream.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import signal
 import time
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -57,12 +70,11 @@ from ucf_vit_tpu_torch.utils.optim import configure_optimizer
 # trainer keys whose feature is not ported yet -> the ROADMAP.md item that ports it
 _REFUSED_KEYS = {
     "pretrained_mae_checkpoint": "item 7: UNETR + evaluation",
-    "val_every": "item 9: trainer parity",
-    "tensorboard_dir": "item 9: trainer parity",
-    "preempt_after_steps": "item 9: trainer parity",
-    "profile_dir": "item 9: trainer parity",
     "sync_check_every": "item 10: data/tensor parallel",
 }
+# the steps `trainer.profile_dir` traces: from after step PROFILE_STEPS[0] to
+# after step PROFILE_STEPS[1] (`ucf_vit_tpu/train.py:853-879`)
+PROFILE_STEPS = (10, 15)
 
 
 def synthetic_batches(cfg: Config, global_batch: int, seed: int = 0) -> Iterator[dict]:
@@ -111,23 +123,28 @@ def example_batch(cfg: Config, global_batch: int) -> dict:
 class _CatsDogsModule:
     """The catsdogs map-style loader behind the DataModule's interface: an
     epoch ends when the shuffled index list, a pure function of the epoch,
-    does; `loop=True` chains the next epochs' lists after it."""
+    does; `loop=True` chains the next epochs' lists after it (the trainer's
+    mode, and the persistent validation iterator's). `skip_batches=N` starts
+    at batch N of the epoch without decoding the skipped files (mid-epoch
+    resume)."""
 
     def __init__(self, ds, global_batch: int):
         self.ds, self.global_batch = ds, global_batch
         self._epoch = 0
 
-    def train_dataloader(self, loop: bool = False):
+    def train_dataloader(self, loop: bool = False, skip_batches: int = 0):
         from ucf_vit_tpu_torch.data.catsdogs import catsdogs_loader
 
         if not loop:
-            return catsdogs_loader(self.ds, self.global_batch, seed=self._epoch)
+            return catsdogs_loader(self.ds, self.global_batch, seed=self._epoch,
+                                   skip_batches=skip_batches)
 
         def chain():
-            seed = self._epoch
+            seed, skip = self._epoch, skip_batches
             while True:
-                yield from catsdogs_loader(self.ds, self.global_batch, seed=seed)
-                seed += 1
+                yield from catsdogs_loader(self.ds, self.global_batch, seed=seed,
+                                           skip_batches=skip)
+                seed, skip = seed + 1, 0
 
         return chain()
 
@@ -138,14 +155,27 @@ class _CatsDogsModule:
         self._epoch = int(epoch)
 
 
-def build_dataloader(cfg: Config, global_batch: int, synthetic: bool):
+def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split: bool = False):
     """`(datamodule, synthetic_iter, batches_per_rank_epoch)` (port of
     `ucf_vit_tpu/train.py:95-294`, one process: shard 0 of 1). The catsdogs
     folder goes through its map-style loader; every other dataset through
     the `DataModule`, with `load_balancing.auto_load_balancing` computing
-    `batches_per_rank_epoch` and the group list from the files."""
+    `batches_per_rank_epoch` and the group list from the files.
+
+    `val_split`: the held-out validation loader instead. From files it reads
+    the range `data.val_dict_start_idx` / `val_dict_end_idx` (say train 0.0-0.9,
+    validate 0.9-1.0); the synthetic stream comes from another seed."""
     if synthetic:
-        return None, synthetic_batches(cfg, global_batch, seed=0), None
+        return None, synthetic_batches(cfg, global_batch, seed=12345 if val_split else 0), None
+
+    if val_split:
+        if "val_dict_start_idx" not in cfg.data or "val_dict_end_idx" not in cfg.data:
+            raise AssertionError("trainer.val_every needs data.val_dict_start_idx / "
+                                 "val_dict_end_idx (held-out file-range fractions)")
+        cfg = Config(raw={**cfg.raw, "data": {**cfg.data,
+                                              "dict_start_idx": cfg.data["val_dict_start_idx"],
+                                              "dict_end_idx": cfg.data["val_dict_end_idx"]}},
+                     task=cfg.task)
 
     if cfg.dataset == "catsdogs":
         from ucf_vit_tpu_torch.data.catsdogs import CatsDogsDataset, list_file_split
@@ -157,6 +187,9 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool):
         if not files:
             raise FileNotFoundError(
                 f"catsdogs file range [{s}, {e}) of {cfg.data['dict_root_dirs'][key]} is empty")
+        if len(files) < global_batch:  # a looping loader would wait for a batch forever
+            raise ValueError(f"catsdogs file range [{s}, {e}) holds {len(files)} files, "
+                             f"fewer than a batch of {global_batch}")
         nd = 2 if cfg.twoD else 3
         ds = CatsDogsDataset(files, cfg.data["dict_in_variables"][key],
                              tuple(cfg.tile_size[:nd]), adaptive_patching=cfg.adaptive_patching)
@@ -283,29 +316,138 @@ def _warm_start(cfg: Config, state) -> None:
     print(f"initialized params from {trainer['init_params_from']}", flush=True)
 
 
-def _resume(cfg: Config, state) -> Tuple[int, list, int]:
-    """`trainer.resume_from_checkpoint` at epoch granularity: the state in
-    place; returns (first epoch to run, loss list, total steps)."""
+def _resume(cfg: Config, state) -> Tuple[int, list, int, int]:
+    """`trainer.resume_from_checkpoint`: the state in place; returns (first
+    epoch to run, loss list, total steps, batches of that epoch to skip).
+    A checkpoint saved mid-epoch (`data_it` > 0) re-enters its epoch there;
+    one saved at an epoch's end starts the next."""
     trainer = cfg.trainer
     t0 = time.perf_counter()
     payload = ckpt.restore_checkpoint(trainer["checkpoint_path"],
                                       trainer["checkpoint_filename_for_loading"],
                                       expect_head_meta=ckpt.head_meta_from_config(cfg))
     ckpt.restore_train_state(state, payload, _ema_decay(cfg))
-    epoch = int(payload["epoch"])
-    print(f"resumed from epoch {epoch} (checkpoint read in "
-          f"{time.perf_counter() - t0:.3f} s)", flush=True)
-    return epoch + 1, [float(v) for v in payload["loss_list"]], int(payload["total_steps"])
+    epoch, total_steps = int(payload["epoch"]), int(payload["total_steps"])
+    loss_list = [float(v) for v in payload["loss_list"]]
+    data_it, procs = int(payload.get("data_it", 0)), int(payload.get("num_procs", 1))
+    read = f"checkpoint read in {time.perf_counter() - t0:.3f} s"
+    if data_it > 0 and procs != 1:
+        # the position counts batches of other per-process shards: re-run the epoch
+        print(f"mid-epoch checkpoint was written by {procs} processes but this run has "
+              f"1; re-running epoch {epoch} from its start ({read})", flush=True)
+        return epoch, loss_list, total_steps, 0
+    if data_it > 0:
+        print(f"resumed mid-epoch: epoch {epoch}, fast-forwarding {data_it} batches "
+              f"(step {total_steps}; {read})", flush=True)
+        return epoch, loss_list, total_steps, data_it
+    print(f"resumed from epoch {epoch} ({read})", flush=True)
+    return epoch + 1, loss_list, total_steps, 0
 
 
-def _open_metrics(path: str, resume_epoch: int, resume_step: int):
+def _open_metrics(path: str, resume_epoch: int, resume_step: int, resume_it: int):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     f = open(path, "a")
     # run-start marker, one per process launch (as the JAX trainer writes it)
     f.write(json.dumps({"run_start": True, "ts": time.time(), "resume_epoch": resume_epoch,
-                        "resume_step": resume_step, "resume_it": 0, "num_procs": 1}) + "\n")
+                        "resume_step": resume_step, "resume_it": resume_it,
+                        "num_procs": 1}) + "\n")
     f.flush()
     return f
+
+
+def _tensorboard(logdir: str):
+    """A `SummaryWriter` on `logdir` from tensorboardX, else from
+    `torch.utils.tensorboard`; None, with the reason printed, when neither
+    opens. A host-side logger beside the JSONL, which stays the record."""
+    errors = []
+    for mod in ("tensorboardX", "torch.utils.tensorboard"):
+        try:
+            return importlib.import_module(mod).SummaryWriter(logdir)
+        except Exception as e:  # keep the real error: an unwritable dir is no missing package
+            errors.append(f"{mod}: {type(e).__name__}: {e}")
+    print("tensorboard_dir ignored (" + "; ".join(errors) + ") — `pip install tensorboardX` "
+          "enables scalar logging if the module is what's missing (per-step JSONL metrics "
+          "are still written)", flush=True)
+    return None
+
+
+class _Profile:
+    """`trainer.profile_dir`: a `torch.profiler` trace (CPU activity, and
+    CUDA activity on a CUDA device) of the steps after step PROFILE_STEPS[0]
+    up to PROFILE_STEPS[1], written to `profile_dir` as a Chrome trace file."""
+
+    def __init__(self, profile_dir: str, dev: torch.device):
+        self.dir, self.dev, self.prof = profile_dir, dev, None
+
+    def before_step(self, total_steps: int) -> None:
+        if total_steps == PROFILE_STEPS[0] and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def after_step(self, total_steps: int) -> None:
+        if total_steps == PROFILE_STEPS[1]:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)  # the traced steps' kernels, all of them
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"trace_{int(time.time())}_{os.getpid()}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print(f"profile of steps {PROFILE_STEPS[0] + 1}-{PROFILE_STEPS[1]} written to {path}",
+              flush=True)
+
+
+class _Validation:
+    """`trainer.val_every`: the task loss with no gradient, in eval mode
+    (dropout and DropPath off; MAE's mask and the diffusion loss's t and e
+    are the objective and are drawn), over `trainer.val_batches` batches of
+    the held-out split (`ucf_vit_tpu/train.py:617-671`). One looping iterator
+    serves every pass, so successive passes walk the whole split; like the
+    JAX loop, a pass takes one batch more than it uses. A pass draws from
+    generators of its own, seeded from `seed`, so the trainer's stay where
+    the step left them."""
+
+    def __init__(self, cfg: Config, global_batch: int, synthetic: bool, dev: torch.device):
+        self.dm, self.synth, _ = build_dataloader(cfg, global_batch, synthetic, val_split=True)
+        self.batches = int(cfg.trainer.get("val_batches", 8))
+        self.loss_fn, self.dev = task_loss(cfg), dev
+        self.it = None
+
+    def run(self, model: torch.nn.Module, seed: int) -> Tuple[float, Dict[str, float], int]:
+        if self.it is None:
+            self.it = (self.synth if self.synth is not None
+                       else self.dm.train_dataloader(loop=True))
+        gens = (model.generator, model.host_generator)
+        model.set_generator(torch.Generator(self.dev).manual_seed(seed),
+                            torch.Generator().manual_seed(seed))
+        model.eval()
+        total, aux_tot, n = 0.0, {}, 0
+        try:
+            with torch.no_grad():
+                for batch in self.it:
+                    if n >= self.batches:
+                        break
+                    loss, aux = self.loss_fn(model, to_device(batch, self.dev))
+                    total += loss.item()
+                    for k, v in (aux or {}).items():
+                        aux_tot[k] = aux_tot.get(k, 0.0) + float(v)
+                    n += 1
+        finally:
+            model.set_generator(*gens)
+            model.train()
+        return total / max(n, 1), {k: v / max(n, 1) for k, v in aux_tot.items()}, n
+
+    def close(self) -> None:
+        if self.it is not None and self.it is not self.synth:
+            self.it.close()  # stops the loader's prefetch thread
 
 
 def train(
@@ -316,78 +458,111 @@ def train(
     device: Device = None,
 ) -> Dict:
     """Train `cfg` for `max_epochs` epochs or `max_steps` steps; returns
-    `{"state": TrainState, "loss_list": per-epoch mean losses}`."""
+    `{"state": TrainState, "loss_list": per-epoch mean losses}`. A preempted
+    run (SIGTERM, or `trainer.preempt_after_steps`) returns the same, after
+    its checkpoint."""
     dev = resolve_device(device)
     trainer = cfg.trainer
-    state, step = init_train(cfg, dev)
-    head_meta = ckpt.head_meta_from_config(cfg)
-    epoch_start, loss_list, total_steps = 0, [], 0
-    if trainer.get("init_params_from"):
-        _warm_start(cfg, state)
-    if trainer.get("resume_from_checkpoint", False):
-        epoch_start, loss_list, total_steps = _resume(cfg, state)
+    # SIGTERM (a preemptible machine's notice) raises a flag that the loop reads
+    # at the next step boundary: a checkpoint of the interrupted epoch, then return
+    preempted = {"flag": False}
 
-    global_batch = cfg.batch_size * cfg.data_par_size
-    dm, synth, bpre = build_dataloader(cfg, global_batch, synthetic)
-    max_epochs = int(trainer.get("max_epochs", 1))
-    if bpre is None:
-        bpre = cfg.load_balancing.get("batches_per_rank_epoch") or {}
-    # every dataset steps for the longest one; the smaller ones refill
-    if bpre:
-        iterations_per_epoch = max(bpre.values())
-    elif max_steps is not None:
-        iterations_per_epoch = max_steps
-    else:
-        iterations_per_epoch = 100
-        print("WARNING: no batches_per_rank_epoch (load_balancing) and no --max-steps; "
-              "capping each epoch at 100 iterations.", flush=True)
+    def on_sigterm(signum, frame):
+        preempted["flag"] = True
 
-    metrics_file = (_open_metrics(trainer["metrics_path"], epoch_start, total_steps)
-                    if trainer.get("metrics_path") else None)
-    # halt after N consecutive non-finite losses (0 = off)
-    nan_guard = int(trainer.get("nan_guard", 0))
-    epoch_state = {"loss": 0.0, "t_last": 0.0, "nonfinite": 0}
+    prev_handler = None
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:
+        pass  # not the main thread: no handler; the drill below still works
+    preempt_drill = int(trainer.get("preempt_after_steps", 0))
+    val_every = int(trainer.get("val_every", 0))
+    metrics_file = tb_writer = validation = profile = None
+    try:
+        state, step = init_train(cfg, dev)
+        head_meta = ckpt.head_meta_from_config(cfg)
+        epoch_start, loss_list, total_steps, resume_it = 0, [], 0, 0
+        if trainer.get("init_params_from"):
+            _warm_start(cfg, state)
+        if trainer.get("resume_from_checkpoint", False):
+            epoch_start, loss_list, total_steps, resume_it = _resume(cfg, state)
 
-    def resolve(pending: Tuple) -> None:
-        """Read step n's loss after step n+1 was submitted: `.item()` waits for
-        the card, and waiting one step late lets the host queue the next step
-        meanwhile (`ucf_vit_tpu/train.py:757-862`)."""
-        p_epoch, p_it, p_step, loss, aux = pending
-        loss_f = loss.item()
-        if nan_guard:
-            if not np.isfinite(loss_f):
-                epoch_state["nonfinite"] += 1
-                if epoch_state["nonfinite"] >= nan_guard:
-                    raise RuntimeError(
-                        f"loss non-finite for {nan_guard} consecutive steps (last: {loss_f} "
-                        f"at epoch {p_epoch} it {p_it}) — training diverged"
-                    )
-            else:
-                epoch_state["nonfinite"] = 0
-        now = time.perf_counter()
-        dt = now - epoch_state["t_last"]
-        epoch_state["t_last"] = now
-        epoch_state["loss"] += loss_f
-        if p_it % log_every == 0:
-            sps = global_batch / dt
-            aux_f = {k: float(v) for k, v in (aux or {}).items()}
-            print(f"epoch {p_epoch} it {p_it} loss {loss_f:.5f} {dt * 1e3:.1f} ms/it "
-                  f"{sps:.1f} samples/s" + "".join(f" {k} {v:.4f}" for k, v in aux_f.items()),
-                  flush=True)
+        global_batch = cfg.batch_size * cfg.data_par_size
+        if val_every > 0:
+            validation = _Validation(cfg, global_batch, synthetic, dev)
+        dm, synth, bpre = build_dataloader(cfg, global_batch, synthetic)
+        max_epochs = int(trainer.get("max_epochs", 1))
+        if bpre is None:
+            bpre = cfg.load_balancing.get("batches_per_rank_epoch") or {}
+        # every dataset steps for the longest one; the smaller ones refill
+        if bpre:
+            iterations_per_epoch = max(bpre.values())
+        elif max_steps is not None:
+            iterations_per_epoch = max_steps
+        else:
+            iterations_per_epoch = 100
+            print("WARNING: no batches_per_rank_epoch (load_balancing) and no --max-steps; "
+                  "capping each epoch at 100 iterations.", flush=True)
+
+        if trainer.get("metrics_path"):
+            metrics_file = _open_metrics(trainer["metrics_path"], epoch_start, total_steps,
+                                         resume_it)
+        if trainer.get("tensorboard_dir"):
+            tb_writer = _tensorboard(trainer["tensorboard_dir"])
+        if trainer.get("profile_dir"):
+            profile = _Profile(trainer["profile_dir"], dev)
+        # halt after N consecutive non-finite losses (0 = off)
+        nan_guard = int(trainer.get("nan_guard", 0))
+        epoch_state = {"loss": 0.0, "t_last": 0.0, "nonfinite": 0}
+
+        def write(rec: dict) -> None:
             if metrics_file is not None:
-                rec = {"epoch": p_epoch, "it": p_it, "step": p_step, "loss": loss_f,
-                       "ms_per_it": dt * 1e3, "samples_per_s": sps, "ts": time.time()}
-                rec.update(aux_f)
                 metrics_file.write(json.dumps(rec) + "\n")
                 metrics_file.flush()
 
-    try:
+        def resolve(pending: Tuple) -> None:
+            """Read step n's loss after step n+1 was submitted: `.item()` waits for
+            the card, and waiting one step late lets the host queue the next step
+            meanwhile (`ucf_vit_tpu/train.py:757-862`)."""
+            p_epoch, p_it, p_step, loss, aux = pending
+            loss_f = loss.item()
+            if nan_guard:
+                if not np.isfinite(loss_f):
+                    epoch_state["nonfinite"] += 1
+                    if epoch_state["nonfinite"] >= nan_guard:
+                        raise RuntimeError(
+                            f"loss non-finite for {nan_guard} consecutive steps (last: {loss_f} "
+                            f"at epoch {p_epoch} it {p_it}) — training diverged"
+                        )
+                else:
+                    epoch_state["nonfinite"] = 0
+            now = time.perf_counter()
+            dt = now - epoch_state["t_last"]
+            epoch_state["t_last"] = now
+            epoch_state["loss"] += loss_f
+            if p_it % log_every == 0:
+                sps = global_batch / dt
+                aux_f = {k: float(v) for k, v in (aux or {}).items()}
+                print(f"epoch {p_epoch} it {p_it} loss {loss_f:.5f} {dt * 1e3:.1f} ms/it "
+                      f"{sps:.1f} samples/s" + "".join(f" {k} {v:.4f}" for k, v in aux_f.items()),
+                      flush=True)
+                write({"epoch": p_epoch, "it": p_it, "step": p_step, "loss": loss_f,
+                       "ms_per_it": dt * 1e3, "samples_per_s": sps, "ts": time.time(), **aux_f})
+                if tb_writer is not None:
+                    tb_writer.add_scalar("train/loss", loss_f, p_step)
+                    tb_writer.add_scalar("train/ms_per_it", dt * 1e3, p_step)
+                    tb_writer.add_scalar("train/samples_per_s", sps, p_step)
+                    for k, v in aux_f.items():
+                        tb_writer.add_scalar(f"train/{k}", v, p_step)
+
         for epoch in range(epoch_start, max_epochs):
             # pin the shuffle epoch, so that a resumed run reads epoch E's stream
             if dm is not None:
                 dm.set_epoch(epoch)
-            it = synth if synth is not None else dm.train_dataloader(loop=True)
-            count, t_epoch = 0, time.perf_counter()
+            epoch_skip, resume_it = resume_it, 0  # only the re-entered epoch skips
+            it = (synth if synth is not None
+                  else dm.train_dataloader(loop=True, skip_batches=epoch_skip))
+            count, t_epoch = epoch_skip, time.perf_counter()
             epoch_state["loss"] = 0.0
             epoch_state["t_last"] = t_epoch
             pending = None
@@ -396,19 +571,56 @@ def train(
                     break
                 if max_steps is not None and total_steps >= max_steps:
                     break
+                if preempted["flag"]:
+                    break
+                if profile is not None:
+                    profile.before_step(total_steps)
                 state, loss, aux = step(state, to_device(batch, dev))
                 count += 1
                 total_steps += 1
+                if preempt_drill and total_steps == preempt_drill:
+                    preempted["flag"] = True
                 if pending is not None:
                     resolve(pending)  # overlaps with the step just queued
                 pending = (epoch, count, total_steps, loss, aux)
+                if profile is not None:
+                    profile.after_step(total_steps)
             if it is not synth:
                 it.close()  # stops the loader's prefetch thread
             if pending is not None:
                 resolve(pending)
-            loss_list.append(epoch_state["loss"] / max(count, 1))
-            print(f"epoch {epoch} done: mean loss {loss_list[-1]:.5f} ({count} its, "
-                  f"{time.perf_counter() - t_epoch:.1f}s)", flush=True)
+            epoch_mean = epoch_state["loss"] / max(count - epoch_skip, 1)
+            if preempted["flag"]:
+                # the flag on an epoch's last step: the epoch is complete, so it
+                # is saved as one (data_it 0), and resume starts the next
+                epoch_done = count >= iterations_per_epoch
+                if epoch_done:
+                    loss_list.append(epoch_mean)
+                if trainer.get("checkpoint_path"):
+                    # no step of the epoch ran (the signal came first): the state is
+                    # the previous epoch's end, and resume starts this epoch whole
+                    saved = epoch if epoch_done or count else epoch - 1
+                    path = ckpt.save_checkpoint(
+                        trainer["checkpoint_path"], trainer.get("checkpoint_filename", "last"),
+                        saved, state, loss_list, head_meta=head_meta, total_steps=total_steps,
+                        data_it=0 if epoch_done else count, slot_epoch=epoch)
+                    print(f"preempted in epoch {epoch} after {count} its: saved {path}",
+                          flush=True)
+                else:
+                    print(f"preempted in epoch {epoch} after {count} its: no "
+                          "trainer.checkpoint_path, nothing saved", flush=True)
+                break
+            loss_list.append(epoch_mean)
+            print(f"epoch {epoch} done: mean loss {loss_list[-1]:.5f} ({count - epoch_skip} its"
+                  + (f" after {epoch_skip} skipped" if epoch_skip else "")
+                  + f", {time.perf_counter() - t_epoch:.1f}s)", flush=True)
+            # fork validation's seed before the save, so that the saved host
+            # generator is the post-validation one: a resumed run continues draw
+            # for draw (`ucf_vit_tpu/train.py:930-936`)
+            val_seed = None
+            if validation is not None and (epoch + 1) % val_every == 0:
+                val_seed = int(torch.randint(0, 2**62, (1,),
+                                             generator=state.model.host_generator))
             if trainer.get("checkpoint_path"):
                 t0 = time.perf_counter()
                 path = ckpt.save_checkpoint(
@@ -416,13 +628,33 @@ def train(
                     epoch, state, loss_list, head_meta=head_meta, total_steps=total_steps)
                 print(f"epoch {epoch}: saved {path} in {time.perf_counter() - t0:.3f} s",
                       flush=True)
+            if val_seed is not None:
+                t0 = time.perf_counter()
+                vloss, vaux, vn = validation.run(state.model, val_seed)
+                print(f"epoch {epoch} val loss {vloss:.5f} ({vn} batches in "
+                      f"{time.perf_counter() - t0:.3f} s)"
+                      + "".join(f" val_{k} {v:.4f}" for k, v in vaux.items()), flush=True)
+                write({"epoch": epoch, "val_loss": vloss, "val_batches": vn,
+                       **{f"val_{k}": v for k, v in vaux.items()}})
+                if tb_writer is not None:
+                    tb_writer.add_scalar("val/loss", vloss, total_steps)
+                    for k, v in vaux.items():
+                        tb_writer.add_scalar(f"val/{k}", v, total_steps)
             if dm is not None:
                 dm.reset()
             if max_steps is not None and total_steps >= max_steps:
                 break
     finally:
+        if profile is not None:
+            profile.stop()
+        if validation is not None:
+            validation.close()
+        if tb_writer is not None:
+            tb_writer.close()
         if metrics_file is not None:
             metrics_file.close()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
     return {"state": state, "loss_list": loss_list}
 
 
