@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --compare CHECKOUT
+    python3 chip_smoke.py --only adaptive   # the device, build and adaptive phases alone
 
 With `--compare` it runs only the device phase and times the bf16 flash
 forward, the split backward route's kernels (dkv and dq, f32 and bf16),
@@ -112,7 +113,7 @@ result):
             4 microbatches of 8) through the trainer's CLI entry with
             `--single-device`, the launch counts set to 0 before it and read
             after (every bf16 forward on the TMA route); a timed and a traced
-            window of 10 steps; and a short window with remat off, for what
+            window of 6 steps; and a short window with remat off, for what
             remat costs and saves.
             It runs after serving: on an H100 host a server started after it
             in the same process answered 233 requests/s, against 260-300 for
@@ -166,7 +167,24 @@ result):
             /v1/generate` for seed 0 (latency, shape, launches, and the same
             images as the direct chain's for seed 0) and `/v1/predict`
             answering 400.
-11. trainer parity (`phase_trainer_parity`): catsdogs ViT-B/16 at full width
+11. adaptive (`phase_adaptive`): adaptive patching in 2-D, the three configs
+            as shipped (f32, 196 quadtree patches, batch 32). The f32 forward
+            and both backward routes at their attention shapes
+            (ADAPTIVE_SHAPES: 49 kept tokens, one partial tile on both axes;
+            197; 196 at dh 128 and 96) against their plain versions, timed
+            beside SDPA; the patchify's host cost (the native tree against its
+            numpy build); imagenet/classification from 96 seeded JPEGs through
+            the CLI entry and the DataModule (the loader alone, FLASH against
+            EINSUM on its batches, windows on the live loader in line as
+            shipped and with a spawn pool of 4, one traced); imagenet/mae and
+            basic_ct/mae through the CLI entry, FLASH against EINSUM, a timed
+            and a traced window; imagenet/classification served with
+            `--preprocess-workers 4` under load (each answer against the
+            in-process forward of its patchified sample, the pool's trees byte
+            for byte the in-line ones) and basic_ct/mae's `/v1/predict`
+            against `inference.reconstruct`. Every launch at the instance
+            its shape gives, under the tf32 sources.
+12. trainer parity (`phase_trainer_parity`): catsdogs ViT-B/16 at full width
             from phase 8's JPEG files through the trainer's CLI entry with
             validation on the held-out tenth: twice uninterrupted (the first
             with `profile_dir`, whose trace must name the f32 flash kernels) and
@@ -240,7 +258,7 @@ MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # rounding shows
 BF16_TRAIN_LOSS_TOL = 2e-2
 VIT_L_MAIN_STEPS = 3  # the CLI entry itself
-VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 10, 3, 5
+VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 6, 3, 5
 MAE_MAIN_STEPS = 3  # mae_long through the CLI entry
 MAE_WARMUP_STEPS, MAE_TIMED_STEPS = 2, 3  # and the timed and traced windows
 MAE_FALL_STEPS = 5  # on one fixed batch
@@ -255,6 +273,18 @@ MAE_CHECK_GRAD_TOL = 2e-2
 MAE_ATTN_LEAVES = ("blocks.0.attn.qkv.weight", "blocks.0.attn.proj.weight",
                    "decoder_blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.proj.weight")
 PROFILE_TRIES = 3  # profiler windows per device time, if one records nothing
+# A profiler window's first launches can go unrecorded (H100, torch 2.11 + CUDA 12.8):
+# in a fresh process after 20 s idle, a window's first call came back up to 6 ms late
+# and its kernels were missing; late in this script's run, windows of 20 calls, or
+# their first halves, recorded nothing, and with 20 lead-in calls first, up to 35 of
+# 40 launches went unrecorded. So each window opens with lead-in calls, back to back
+# in chunks of 1, 2, 4, ... each waited for, until PROFILE_LEAD_IN_S seconds have
+# passed, and then makes the timed calls; a kernel's mean is over every launch
+# recorded. PROFILE_LOSS counts the
+# windows that recorded fewer launches of the named kernel than they made (each is
+# logged), and those that lost timed calls too.
+PROFILE_LEAD_IN_S = 0.02
+PROFILE_LOSS = {"windows": 0, "short": 0, "timed_lost": 0, "most_lost": 0}
 # mae_long from disk: 2 CT-like volumes of 512 x 512 x 128 (16 tiles of 128^3 each, so
 # 16 batches of 2 an epoch), 2 epochs (both checkpoint slots), then windows on the loader
 DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 2, (512, 512, 128), 2
@@ -302,8 +332,40 @@ SIGTERM_AFTER, SIGTERM_DEADLINE_S = 3, 300  # the signal follows step 3's log li
 # bf16 FLASH-against-EINSUM limit in force (2e-2 of the largest entry): a batch of 2 and
 # a batch of 1 may take other GEMM kernels
 MAE_SERVE_BATCH, MAE_SERVE_CLIENTS = 2, 4
-MAE_SERVE_WINDOWS_S = {"warm-up": 2.0, "load": 6.0, "traced": 3.0}
+MAE_SERVE_WINDOWS_S = {"warm-up": 2.0, "load": 4.0, "traced": 3.0}
 MAE_SERVE_TOL = 2e-2
+
+# adaptive patching (phase_adaptive): the three 2-D adaptive configs as shipped (f32, 196
+# quadtree patches; batch 32), on one device. imagenet/classification from 96 JPEGs of
+# 500 x 375 in 4 class folders (3 batches an epoch), decoded, resized to 256^2 and
+# patchified by the DataModule; imagenet/mae and basic_ct/mae on the synthetic stream
+ADAPTIVE_CLS_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification",
+                                   "base_config.yaml")
+ADAPTIVE_MAE_CONFIGS = {
+    "imagenet/mae": os.path.join(REPO, "configs", "imagenet", "mae", "base_config.yaml"),
+    "basic_ct/mae": os.path.join(REPO, "configs", "basic_ct", "mae", "base_config.yaml"),
+}
+ADAPTIVE_JPEGS, ADAPTIVE_CLASSES = 96, 4
+ADAPTIVE_WARMUP, ADAPTIVE_TIMED, ADAPTIVE_TRACED = 3, 10, 3  # classification from files
+ADAPTIVE_MAE_WARMUP, ADAPTIVE_MAE_TIMED = 3, 5  # each MAE, synthetic; 3 traced steps after
+ADAPTIVE_MAIN_STEPS = 3  # each config through the CLI entry
+# data.num_workers of a second loader window: a spawn pool of 4 patchifies (the shipped
+# 1 patchifies in line, in the prefetch thread)
+ADAPTIVE_POOL = 5
+ADAPTIVE_SERVE_WORKERS = 4  # serve's --preprocess-workers
+ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
+# the f32 kernels' shapes on these paths at batch 32, packed qkv views: basic_ct/mae's
+# encoder on its 49 kept tokens (one partial tile on both axes), imagenet/classification's
+# 196 patches and the class token, the MAE decoders on all 196 (dh 128: the DH = 128
+# instance; dh 96). imagenet/mae's encoder packs two samples' 49 tokens into one sequence
+# (seq_pack 2) and attends by segments through EINSUM, as the JAX package does
+ADAPTIVE_SHAPES = {
+    "basic_ct/mae encoder": (32, 12, 49, 49, 64, True),
+    "imagenet/classification": (32, 12, 197, 197, 64, True),
+    "imagenet/mae decoder": (32, 4, 196, 196, 128, True),
+    "basic_ct/mae decoder": (32, 6, 196, 196, 96, True),
+}
+ADAPTIVE_KERNEL_ITERS = 20
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
 # and int8 on the tensor cores, and the memory rate. The card is named so; any other
@@ -353,9 +415,10 @@ def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5,
     each by its mean time and its launches per call (what a library call, or a
     call of an op that launches more than one kernel, launches). `detail`, if
     given, receives that per-call time of each kernel by name. Host: wall time
-    per call, the loop ending in a synchronize.
-    A window in which the profiler recorded no device activity at all is
-    profiled again, up to PROFILE_TRIES windows in all."""
+    per call of the timed calls, the loop ending in a synchronize.
+    Each window opens with lead-in calls (PROFILE_LEAD_IN_S), recorded with
+    the timed ones. A window in which the profiler recorded no device
+    activity at all is profiled again, up to PROFILE_TRIES windows in all."""
     import torch
 
     for _ in range(warmup):
@@ -364,12 +427,20 @@ def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5,
     for attempt in range(1, PROFILE_TRIES + 1):
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         prof.start()
+        t_lead, calls, chunk = time.perf_counter(), 0, 1
+        while calls == 0 or time.perf_counter() - t_lead < PROFILE_LEAD_IN_S:
+            for _ in range(chunk):
+                fn()
+            torch.cuda.synchronize()
+            calls += chunk
+            chunk *= 2
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / iters
         prof.stop()
+        calls += iters
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         if events:
             break
@@ -380,10 +451,17 @@ def device_ms(fn, kernel: str | None = None, iters: int = 50, warmup: int = 5,
         count = sum(e.count for e in events)
         if count == 0:
             fail(f"the profiler saw no kernel named {kernel!r}")
+        PROFILE_LOSS["windows"] += 1
+        if count < calls:  # a named kernel launches once a call
+            PROFILE_LOSS["short"] += 1
+            PROFILE_LOSS["timed_lost"] += count < iters
+            PROFILE_LOSS["most_lost"] = max(PROFILE_LOSS["most_lost"], calls - count)
+            log(f"[profiler] a window of {calls} calls ({calls - iters} lead-in) recorded "
+                f"{count} launches of {kernel!r}")
         return sum(e.self_device_time_total for e in events) / 1e3 / count, host_ms
     if not events:
         fail("the profiler saw no work on the card")
-    per_call = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
+    per_call = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / calls)) / 1e3
                 for e in events}
     if detail is not None:
         detail.update(per_call)
@@ -1508,7 +1586,9 @@ def _run_steps(cfg, batches):
         state, loss, _ = step(state, to_device(batch, torch.device("cuda")))
         losses.append(loss.item())
         if i == 0:
-            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+            # (an adaptive model's position table has no gradient where its MLP replaces it)
+            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()
+                     if p.grad is not None}
     return state, step, losses, grads, _launch_counts()
 
 
@@ -2644,15 +2724,14 @@ def _seeded_load(cfg, bodies) -> float:
 # ---------------------------------------------------------------- diffusion
 
 
-def phase_diffusion_kernels():
-    """The f32 forward and fused backward at the diffusion decoders' attention
-    (DIFF_SHAPES, packed qkv views): the DH = 128 instance at imagenet's dh 128,
-    the DH = 96 one at basic_ct's dh 96. o and lse against the plain forward to
-    FLASH_TOL and LSE_TOL, dq, dk, dv of both routes against the plain backward
-    to BWD_TOL (the path takes the fused one: 256 queries); the forward and the
-    fused kernel timed beside their plain versions, their bound and
-    scaled_dot_product_attention (forward; backward alone). Returns {config:
-    {"fwd": numbers, "bwd": numbers}}."""
+def _f32_attention_case(tag: str, label: str, shape: tuple, gen, iters: int = 50) -> dict:
+    """The f32 forward and both backward routes at `shape` (b, h, n, n, dh,
+    packed) against their plain versions: o and lse to FLASH_TOL and LSE_TOL,
+    dq, dk, dv of each route to BWD_TOL; both backward routes timed in turns
+    (`_route_ms`, 20 calls a window: which one `bwd_route` should take here);
+    then the forward and the fused kernel timed (`iters` calls) beside their
+    plain versions, their bound and scaled_dot_product_attention (forward;
+    backward alone). Returns {"fwd": numbers, "bwd": numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -2666,64 +2745,81 @@ def phase_diffusion_kernels():
         kernel_instance,
     )
 
+    b, h, n, _, dh, packed = shape
+    shape_s = f"[{b},{h},{n}x{n},{dh}] float32{' qkv-views' if packed else ''} ({label})"
+    q, k, v = _flash_inputs(b, h, n, n, dh, torch.float32, packed, gen)
+    sm = dh**-0.5
+    o, lse, do, _, rel, ref_max, abs_err = _bwd_case(q, k, v, dh, 0.0, 0, 0, 0, gen)
+    ref, ref_lse = flash_attention_plain(q, k, v, sm)
+    err = (o - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    instances = (kernel_instance("flash_fwd_tf32", dh), kernel_instance("flash_bwd_tf32", dh))
+    log(f"[{tag}] flash_fwd {shape_s} ({instances[0]}): max|o-plain| {err:.3e} (tol "
+        f"{FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
+    if not (err <= FLASH_TOL["float32"] and lse_err <= LSE_TOL):
+        fail(f"flash_fwd disagrees with its plain version at {shape_s}")
+    for r in rel:
+        log(f"[{tag}] flash_bwd {r:5s} {shape_s} ({instances[1]}): max|d-plain|/max|plain| "
+            f"dq {rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} (tol "
+            f"{BWD_TOL['float32']:g})")
+        if max(rel[r]) > BWD_TOL["float32"] or not all(m > 0 for m in ref_max):
+            fail(f"flash_bwd route {r} disagrees with its plain version at {shape_s}")
+    del ref, ref_lse
+    _route_ms(shape_s, torch.float32, q, k, v, o, lse, do, iters=20)
+    # the forward: kernel, plain version, SDPA
+    ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm), FWD_KERNEL["float32"],
+                         iters=iters)
+    plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, sm), iters=iters)
+    library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm),
+                              iters=iters)
+    flops = 4.0 * b * h * n * n * dh
+    nbytes = 4 * b * h * dh * 4 * n + 4 * b * h * n
+    bound_ms, bound_by = _bound(flops, nbytes, "float32")
+    out = {"fwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}}
+    log(f"[{tag}] flash_fwd {shape_s} ({instances[0]}), device ms per call (host ms): "
+        f"kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, scaled_dot_product_attention "
+        f"{library_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP)")
+    # the fused backward alone, from buffers made beforehand
+    di = (o * do).sum(-1).reshape(b * h, n)
+    ws = _dq_workspace(b, n, h, dh, q.device)
+    dk, dv = (torch.empty(b, n, h, dh, device="cuda").transpose(1, 2) for _ in "kv")
+    drop = _dropout_args(0.0, 0, 0, 0)
+    ms, host = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
+                                             drop), _bwd_kernel("float32", "fused"), iters=iters)
+    plain_ms, _ = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
+                            iters=iters)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+    library_ms, _ = device_ms(
+        lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do, retain_graph=True), iters=iters)
+    del sdpa, qg, kg, vg
+    flops, nbytes = _bwd_work("fused", b, h, n, n, dh, 4)
+    bound_ms, bound_by = _bound(flops, nbytes, "float32")
+    out["bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "max_abs_err": max(abs_err["fused"])}
+    log(f"[{tag}] flash_bwd_fused {shape_s} ({instances[1]}), device ms per call (host "
+        f"ms): kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, "
+        f"scaled_dot_product_attention backward {library_ms:.4f}; bound {bound_ms:.4f} ms "
+        f"({bound_by}; {flops / 1e9:.3f} GFLOP)")
+    return out
+
+
+def phase_diffusion_kernels():
+    """The f32 forward and fused backward at the diffusion decoders' attention
+    (DIFF_SHAPES, packed qkv views): the DH = 128 instance at imagenet's dh 128,
+    the DH = 96 one at basic_ct's dh 96. o and lse against the plain forward to
+    FLASH_TOL and LSE_TOL, dq, dk, dv of both routes against the plain backward
+    to BWD_TOL (the path takes the fused one: 256 queries); the forward and the
+    fused kernel timed beside their plain versions, their bound and
+    scaled_dot_product_attention (forward; backward alone). Returns {config:
+    {"fwd": numbers, "bwd": numbers}}."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(7)
-    timed = {}
-    for name, (b, h, n, _, dh, packed) in DIFF_SHAPES.items():
-        shape = f"[{b},{h},{n}x{n},{dh}] float32 qkv-views ({name} diffusion decoder)"
-        q, k, v = _flash_inputs(b, h, n, n, dh, torch.float32, packed, gen)
-        sm = dh**-0.5
-        o, lse, do, _, rel, ref_max, abs_err = _bwd_case(q, k, v, dh, 0.0, 0, 0, 0, gen)
-        ref, ref_lse = flash_attention_plain(q, k, v, sm)
-        err = (o - ref).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        instances = (kernel_instance("flash_fwd_tf32", dh), kernel_instance("flash_bwd_tf32", dh))
-        log(f"[diffusion] flash_fwd {shape} ({instances[0]}): max|o-plain| {err:.3e} (tol "
-            f"{FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
-        if not (err <= FLASH_TOL["float32"] and lse_err <= LSE_TOL):
-            fail(f"flash_fwd disagrees with its plain version at {shape}")
-        for r in rel:
-            log(f"[diffusion] flash_bwd {r:5s} {shape} ({instances[1]}): max|d-plain|/max|plain| "
-                f"dq {rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} (tol "
-                f"{BWD_TOL['float32']:g})")
-            if max(rel[r]) > BWD_TOL["float32"] or not all(m > 0 for m in ref_max):
-                fail(f"flash_bwd route {r} disagrees with its plain version at {shape}")
-        del ref, ref_lse
-        # the forward: kernel, plain version, SDPA
-        ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm), FWD_KERNEL["float32"])
-        plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, sm))
-        library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm))
-        flops = 4.0 * b * h * n * n * dh
-        nbytes = 4 * b * h * dh * 4 * n + 4 * b * h * n
-        bound_ms, bound_by = _bound(flops, nbytes, "float32")
-        timed[name] = {"fwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}}
-        log(f"[diffusion] flash_fwd {shape} ({instances[0]}), device ms per call (host ms): "
-            f"kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, scaled_dot_product_attention "
-            f"{library_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP)")
-        # the fused backward alone, from buffers made beforehand
-        di = (o * do).sum(-1).reshape(b * h, n)
-        ws = _dq_workspace(b, n, h, dh, q.device)
-        dk, dv = (torch.empty(b, n, h, dh, device="cuda").transpose(1, 2) for _ in "kv")
-        drop = _dropout_args(0.0, 0, 0, 0)
-        ms, host = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
-                                                 drop), _bwd_kernel("float32", "fused"))
-        plain_ms, _ = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, sm))
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
-        library_ms, _ = device_ms(
-            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
-        del out, qg, kg, vg
-        flops, nbytes = _bwd_work("fused", b, h, n, n, dh, 4)
-        bound_ms, bound_by = _bound(flops, nbytes, "float32")
-        timed[name]["bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by,
-                              "max_abs_err": max(abs_err["fused"])}
-        log(f"[diffusion] flash_bwd_fused {shape} ({instances[1]}), device ms per call (host "
-            f"ms): kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, "
-            f"scaled_dot_product_attention backward {library_ms:.4f}; bound {bound_ms:.4f} ms "
-            f"({bound_by}; {flops / 1e9:.3f} GFLOP)")
-        del q, k, v, o, lse, do, di, ws, dk, dv
-    return timed
+    return {name: _f32_attention_case("diffusion", f"{name} diffusion decoder", shape, gen)
+            for name, shape in DIFF_SHAPES.items()}
 
 
 def _instance_counts() -> dict:
@@ -3374,6 +3470,497 @@ def phase_trainer_parity(jpeg_root: str, mae_ckpt: str) -> dict:
 COMPARE_CALLS, COMPARE_WINDOWS = 2000, 9
 
 
+def _adaptive_attn_shapes(model) -> list:
+    """(Nq, Nkv, dh) of each flash call of an adaptive model: `_attn_shapes`,
+    without an MAE encoder that packs samples (seq_pack > 1 attends by segments
+    through EINSUM, no kernel)."""
+    shapes = _attn_shapes(model)
+    if getattr(model, "seq_pack", 1) > 1:
+        shapes = shapes[len(model.blocks):]
+    return shapes
+
+
+def _adaptive_config(path: str, name: str, **data) -> str:
+    """A copy of the shipped config under WORK, single-device, its checkpoints
+    under WORK, `data` keys set; returns its path."""
+    import yaml
+
+    with open(path) as fh:
+        raw = yaml.safe_load(fh)
+    raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                          "seq_par_size": 1}
+    raw["trainer"]["checkpoint_path"] = os.path.join(WORK, f"ck_{name}")
+    raw["data"].update(data)
+    out = os.path.join(WORK, f"{name}.yaml")
+    with open(out, "w") as fh:
+        yaml.safe_dump(raw, fh)
+    return out
+
+
+def _adaptive_cli(tag: str, argv: list, steps: int, check_model) -> dict:
+    """The trainer's CLI entry with the launch counts set to 0 before it: the
+    model must be the shipped one (`check_model`), every launch under the
+    tf32 sources at the instances its attention shapes give. Returns the
+    counts by instance."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_main(argv)
+    counts, instances = _launch_counts(), _instance_counts()
+    model = out["state"].model
+    check_model(model)
+    shapes = _adaptive_attn_shapes(model)
+    want = _expected_instances(shapes, steps)
+    log(f"[adaptive] {tag}: python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
+        f"{time.perf_counter() - t0:.2f} s (init and save included); epoch losses "
+        f"{out['loss_list']}; launches {counts}; by instance a step "
+        f"{ {k: n // steps for k, n in instances.items() if n} }")
+    if (instances != want or counts["src:flash_fwd_sm90"] or counts["src:flash_bwd_sm90"]
+            or counts["flash_bwd_dkv"] or counts["flash_bwd_dq"]
+            or not all(np.isfinite(out["loss_list"]))):
+        fail(f"{tag} through the CLI launched {instances} (expected {want}), {counts}; "
+             f"losses {out['loss_list']}")
+    del out, model
+    return instances
+
+
+def _flash_against_einsum(tag: str, cfg, batches) -> tuple:
+    """`_run_steps` under FLASH and under EINSUM from one init on `batches`: the
+    per-step losses within TRAIN_LOSS_TOL, the first step's gradients within
+    TRAIN_GRAD_TOL of the largest entry, FLASH's launches at the instances the
+    model's shapes give and none under EINSUM. Returns FLASH's (state, step)."""
+    import numpy as np
+
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        st, sp, losses, grads, counts = _run_steps(_train_cfg(cfg, impl), batches)
+        runs[impl] = (st, sp, losses, grads, counts, _instance_counts())
+    (st, sp, lf, gf, cf, inf), (ste, _, le, ge, ce, _) = runs["FLASH"], runs["EINSUM"]
+    del ste
+    diff = max(abs(a - b) for a, b in zip(lf, le))
+    gmax = max(g.abs().max().item() for g in ge.values())
+    gdiff = max((gf[n] - ge[n]).abs().max().item() for n in ge)
+    want = _expected_instances(_adaptive_attn_shapes(st.model), len(batches))
+    log(f"[adaptive] {tag} FLASH vs EINSUM, {len(batches)} steps: losses FLASH "
+        f"{' '.join(f'{x:.6f}' for x in lf)}, EINSUM {' '.join(f'{x:.6f}' for x in le)}; max "
+        f"|diff| {diff:.3e} (tol {TRAIN_LOSS_TOL:g}); first-step gradients max |diff| "
+        f"{gdiff / gmax:.3e} of the largest entry (tol {TRAIN_GRAD_TOL:g})")
+    if not all(np.isfinite(lf)) or diff > TRAIN_LOSS_TOL or gdiff > TRAIN_GRAD_TOL * gmax:
+        fail(f"{tag}: FLASH training disagrees with EINSUM's")
+    if inf != want or any(ce.values()):
+        fail(f"{tag}: launches {inf} under FLASH (expected {want}), {ce} under EINSUM")
+    return st, sp
+
+
+def _patchify_costs(images) -> dict:
+    """Host ms a sample of the quadtree patchify (`Patchify`, edge map, native
+    tree and serialization) on `images` [N, H, W, 3] uint8, and of the tree's
+    native and numpy builds on their Canny edge maps."""
+    import cv2
+    import numpy as np
+
+    from ucf_vit_tpu_torch import native
+    from ucf_vit_tpu_torch.data.quadtree import quadtree_boxes_plain
+    from ucf_vit_tpu_torch.data.transform import Patchify
+
+    pf = Patchify(fixed_length=196, patch_size=16, num_channels=3, dataset="imagenet",
+                  rng=np.random.default_rng(0))
+    pf(images[0])
+    t0 = time.perf_counter()
+    for img in images:
+        pf(img)
+    patchify_ms = 1e3 * (time.perf_counter() - t0) / len(images)
+    edges = [cv2.Canny(cv2.GaussianBlur(img, (3, 3), 0), 75, 125) for img in images]
+    times = {}
+    for name, build in (("native", native.quadtree_boxes), ("numpy", quadtree_boxes_plain)):
+        t0 = time.perf_counter()
+        trees = [build(e, 196) for e in edges]
+        times[name] = 1e3 * (time.perf_counter() - t0) / len(edges)
+        if name == "native":
+            native_trees = trees
+    for (b1, v1), (b2, v2) in zip(native_trees, trees):
+        if not (np.array_equal(b1, b2) and np.array_equal(v1, v2)):
+            fail("the native quadtree differs from its numpy build")
+    log(f"[adaptive] quadtree patchify of a 256 x 256 x 3 image (edge map, native tree, 196 "
+        f"bicubic patches of 16^2): {patchify_ms:.3f} ms a sample on the host; the tree "
+        f"alone {times['native']:.4f} ms native, {times['numpy']:.4f} ms numpy (the same "
+        f"boxes and values on {len(edges)} Canny maps)")
+    return {"patchify_ms": patchify_ms, "tree_native_ms": times["native"],
+            "tree_numpy_ms": times["numpy"]}
+
+
+def _loader_alone(it, n: int) -> tuple:
+    """(batches, host ms a batch) of `n` batches pulled back to back."""
+    batches, t0 = [], time.perf_counter()
+    for _ in range(n):
+        batches.append(next(it))
+    return batches, 1e3 * (time.perf_counter() - t0) / n
+
+
+def _adaptive_from_files() -> dict:
+    """(a) imagenet/classification from seeded JPEGs through the DataModule."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.data.pipeline import read_imagenet_file
+    from ucf_vit_tpu_torch.models import VIT
+    from ucf_vit_tpu_torch.models.blocks import LinearTokenEmbed
+    from ucf_vit_tpu_torch.train import build_dataloader
+
+    root = os.path.join(WORK, "imagenet_jpegs")
+    rng = np.random.default_rng(5)
+    h, w = JPEG_SHAPE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    t0 = time.perf_counter()
+    for i in range(ADAPTIVE_JPEGS):
+        cls_dir = os.path.join(root, f"n{i % ADAPTIVE_CLASSES:08d}")
+        os.makedirs(cls_dir, exist_ok=True)
+        f = rng.uniform(0.005, 0.05, size=(3, 2))
+        img = np.stack([128 + 90 * np.sin(f[c, 0] * yy) * np.cos(f[c, 1] * xx)
+                        for c in range(3)], axis=-1)
+        img += rng.normal(0, 12, size=img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(cls_dir, f"img_{i}.JPEG"), quality=90)
+    log(f"[adaptive] wrote {ADAPTIVE_JPEGS} JPEGs of {w} x {h} in {ADAPTIVE_CLASSES} class "
+        f"folders in {time.perf_counter() - t0:.2f} s")
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs)
+    images = [np.moveaxis(read_imagenet_file(p), 0, -1) for p in files[:32]]
+    costs = _patchify_costs(np.stack(images))
+
+    path = _adaptive_config(ADAPTIVE_CLS_CONFIG, "imagenet_classification",
+                            dict_root_dirs={"imagenet": root})
+    cfg = load_config(path)
+    batch = cfg.batch_size
+
+    def check_model(model):
+        if not (isinstance(model, VIT) and isinstance(model.token_embeds, LinearTokenEmbed)
+                and model.adaptive_pos_dep_emb is not None and model.num_patches == 196
+                and model.embed_dim == 768 and len(model.blocks) == 12
+                and model.head.out_features == 1000 and model.dtype is None):
+            fail("the imagenet/classification run was not the shipped adaptive ViT-B/16")
+
+    instances = _adaptive_cli("imagenet/classification from JPEG files",
+                              [path, "--single-device", "--max-steps",
+                               str(ADAPTIVE_MAIN_STEPS)], ADAPTIVE_MAIN_STEPS, check_model)
+
+    # the loader alone, as shipped (num_workers 1: in line, in the prefetch thread)
+    n = ADAPTIVE_WARMUP + ADAPTIVE_TIMED
+    dm, _, bpre = build_dataloader(cfg, batch, False)
+    it = dm.train_dataloader(loop=True)
+    batches, loader_ms = _loader_alone(it, n)
+    it.close()
+    b0 = batches[0]
+    if (b0["seq"].shape != (batch, 3, 196, 256) or b0["seq_size"].shape != (batch, 1, 196)
+            or b0["seq_pos"].shape != (batch, 1, 196, 2) or bpre != {"imagenet": 3}):
+        fail(f"the adaptive loader gave seq {b0['seq'].shape}, seq_size "
+             f"{b0['seq_size'].shape}, seq_pos {b0['seq_pos'].shape}; {bpre} batches an epoch")
+    log(f"[adaptive] the loader alone (num_workers 1, in line): {n} batches of {batch} = "
+        f"{loader_ms:.1f} ms a batch ({loader_ms / batch:.2f} ms a sample: JPEG decode, resize, "
+        f"patchify)")
+
+    # FLASH against EINSUM on those batches, then windows on the live loader
+    state, step = _flash_against_einsum("imagenet/classification", cfg, batches)
+    res = {"loader_ms": loader_ms, **costs, "instances": instances}
+    for workers in (1, ADAPTIVE_POOL):
+        wcfg = load_config(_adaptive_config(ADAPTIVE_CLS_CONFIG, f"cls_w{workers}",
+                                            dict_root_dirs={"imagenet": root},
+                                            num_workers=workers))
+        dm, _, _ = build_dataloader(wcfg, batch, False)
+        it = dm.train_dataloader(loop=True)
+        try:
+            if workers > 1:  # the pool's start-up (spawning its processes) left out
+                _loader_alone(it, 1)
+                _, res["pool_loader_ms"] = _loader_alone(it, ADAPTIVE_TIMED)
+            _disk_window(state, step, it, ADAPTIVE_WARMUP)
+            torch.cuda.reset_peak_memory_stats()
+            wall, waited = _disk_window(state, step, it, ADAPTIVE_TIMED)
+            key = "inline" if workers == 1 else "pool"
+            res[key] = {"ms_step": 1e3 * wall / ADAPTIVE_TIMED,
+                        "images_s": batch * ADAPTIVE_TIMED / wall,
+                        "wait_ms": 1e3 * waited / ADAPTIVE_TIMED,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            log(f"[adaptive] imagenet/classification batch {batch} from files, num_workers "
+                f"{workers}{' (a spawn pool of ' + str(workers - 1) + ')' if workers > 1 else ''}"
+                f": {ADAPTIVE_TIMED} steps in {wall:.4f} s = {res[key]['ms_step']:.3f} ms/step, "
+                f"{res[key]['images_s']:.2f} images/s; waiting for batches "
+                f"{res[key]['wait_ms']:.2f} ms a step; peak {res[key]['peak_gb']:.2f} GB")
+            if workers > 1:
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+                traced_s, _ = _disk_window(state, step, it, ADAPTIVE_TRACED)
+                prof.stop()
+                kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                                  for e in prof.key_averages() if e.self_device_time_total > 0),
+                                 reverse=True)
+                busy_ms = sum(k[0] for k in kernels) / 1e3
+                if busy_ms <= 0:
+                    fail("the traced adaptive window saw no work on the card")
+                res.update(busy=busy_ms / (1e3 * traced_s),
+                           device_step_ms=busy_ms / ADAPTIVE_TRACED)
+                log(f"[adaptive] traced window ({ADAPTIVE_TRACED} steps on the pooled "
+                    f"loader): device busy {busy_ms:.3f} ms of {1e3 * traced_s:.3f} ms = "
+                    f"{100 * res['busy']:.2f}%, {res['device_step_ms']:.3f} ms of device time "
+                    f"a step; by kind: {_kernel_groups(kernels, busy_ms)}; flash a step: "
+                    f"{_flash_per_step(kernels, ADAPTIVE_TRACED)}")
+        finally:
+            it.close()
+    log(f"[adaptive] the pooled loader alone: {res['pool_loader_ms']:.1f} ms a batch")
+    del state, step
+    res.update(root=root, path=path)
+    return res
+
+
+def _adaptive_mae(name: str, path: str) -> dict:
+    """(b) an adaptive MAE as shipped on the synthetic stream."""
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.models import MAE
+    from ucf_vit_tpu_torch.train import synthetic_batches
+
+    torch.cuda.empty_cache()
+    tag = name.replace("/", "_")
+    path = _adaptive_config(path, tag)
+    cfg = load_config(path)
+    ia = cfg.init_args
+
+    def check_model(model):
+        if not (isinstance(model, MAE) and model.adaptive_patching and model.num_patches == 196
+                and model.decoder_adaptive_pos_dep_emb is not None and model.embed_dim == 768
+                and len(model.blocks) == 12 and len(model.decoder_blocks) == 8
+                and model.decoder_blocks[0].attn.num_heads == int(ia["decoder_num_heads"])
+                and model.seq_pack == int(ia.get("seq_pack", 1)) and model.dtype is None):
+            fail(f"the {name} run was not the shipped adaptive MAE")
+
+    instances = _adaptive_cli(name, [path, "--synthetic", "--single-device", "--max-steps",
+                                     str(ADAPTIVE_MAIN_STEPS)], ADAPTIVE_MAIN_STEPS,
+                              check_model)
+    stream = synthetic_batches(cfg, cfg.batch_size, seed=0)
+    w, t = ADAPTIVE_MAE_WARMUP, ADAPTIVE_MAE_TIMED
+    batches = [next(stream) for _ in range(w + t + ADAPTIVE_TRACED)]
+    state, step = _flash_against_einsum(name, cfg, batches[:w + t])
+    res = _measure_steps("adaptive", f"{name} f32 batch {cfg.batch_size}, FLASH", state, step,
+                         batches[:w], batches[w:w + t], batches[w + t:], top=8)
+    res["device_step_ms"] = res["busy_ms"] / res["traced_steps"]
+    log(f"[adaptive] {name}: device time a step {res['device_step_ms']:.3f} ms; by kind: "
+        f"{_kernel_groups(res['kernels'], res['busy_ms'])}; flash a step: "
+        f"{_flash_per_step(res['kernels'], res['traced_steps'])}")
+    del state, step
+    return {"instances": instances, **res}
+
+
+def _adaptive_serve(cls_path: str, jpeg_root: str) -> dict:
+    """(c) imagenet/classification served with a preprocessing pool under load,
+    and an adaptive MAE's /v1/predict against `reconstruct`."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.data.pipeline import read_imagenet_file
+    from ucf_vit_tpu_torch.inference import reconstruct
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
+    from ucf_vit_tpu_torch.serve import make_preprocessor, make_server
+    from ucf_vit_tpu_torch.tasks import seq_ps
+
+    cfg = load_config(cls_path)
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(jpeg_root) for f in fs)
+    samples = [read_imagenet_file(p).astype(np.float32)
+               for p in files[:LOAD_CLIENTS + SEQUENTIAL_REQUESTS]]
+    bodies = []
+    for x in samples:
+        buf = io.BytesIO()
+        np.save(buf, x)
+        bodies.append(buf.getvalue())
+    answers = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=MAX_BATCH, device="cuda",
+                         preprocess_workers=ADAPTIVE_SERVE_WORKERS)
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_pipe = ctx.Pipe()
+    client = ctx.Process(target=_load_client, args=(port, bodies[:LOAD_CLIENTS], child_pipe),
+                         daemon=True)
+    client.start()
+    windows = {}
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    pre = make_preprocessor(cfg)  # in line: the pool's trees must equal these
+    try:
+        seq_lat = []
+        for i in range(LOAD_CLIENTS, LOAD_CLIENTS + SEQUENTIAL_REQUESTS):
+            t1 = time.perf_counter()
+            answer = _request(port, "POST", "/v1/predict", bodies[i])
+            seq_lat.append(time.perf_counter() - t1)
+            answers.append((i, np.load(io.BytesIO(answer))))
+        for wname, seconds in ADAPTIVE_SERVE_WINDOWS_S.items():
+            before = _get_json(port, "/v1/stats")
+            if wname == "traced":
+                prof.start()
+            pipe.send(seconds)
+            if not pipe.poll(seconds + 300):
+                fail(f"the load client gave no result for the adaptive {wname} window")
+            res = pipe.recv()
+            if wname == "traced":
+                prof.stop()
+            if res["errors"] or not res["requests"]:
+                fail(f"adaptive load client, {wname} window: {len(res['requests'])} answers, "
+                     f"errors {res['errors'][:3]}")
+            windows[wname] = (res, before, _get_json(port, "/v1/stats"))
+            answers += [(i, a) for i, _, a in res["requests"]]
+        pipe.send(None)
+        client.join(timeout=30)
+        stats = _get_json(port, "/v1/stats")
+        launches = dict(flash_attention.by_instance)
+        pooled = server.RequestHandlerClass.preprocess
+        same_trees = all(
+            all(a[k].tobytes() == b[k].tobytes() == c[k].tobytes() for k in a)
+            for a, b, c in ((pooled(samples[i]), pooled(samples[i].copy()), pre(samples[i]))
+                            for i in range(4)))
+    finally:
+        if client.is_alive():
+            client.terminate()
+            client.join()
+        server.shutdown()
+        server.server_close()
+        server.RequestHandlerClass.batcher.close()
+        thread.join(timeout=30)
+    for wname, (res, before, after) in windows.items():
+        log(_window_line(wname, res, before, after).replace("[serve]", "[adaptive serve]"))
+    traced_s = windows["traced"][0]["wall_s"]
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    busy = busy_ms / (1e3 * traced_s)
+    load_res = windows["load"][0]
+    rps = len(load_res["requests"]) / load_res["wall_s"]
+    lat = np.array([r[1] for r in load_res["requests"]]) * 1e3
+    log(f"[adaptive serve] imagenet/classification, max_batch {MAX_BATCH}, "
+        f"--preprocess-workers {ADAPTIVE_SERVE_WORKERS}: startup {startup_s:.2f} s; a lone "
+        f"request {1e3 * min(seq_lat):.1f}-{1e3 * max(seq_lat):.1f} ms; {rps:.2f} requests/s, "
+        f"p50 {np.percentile(lat, 50):.1f} p99 {np.percentile(lat, 99):.1f} ms; device busy "
+        f"{100 * busy:.2f}% of the traced window; launches by instance "
+        f"{ {k: v for k, v in launches.items() if v} } over {stats['batches']} batches")
+    if stats["errors"] or stats["requests"] != len(answers) + 1:
+        fail(f"adaptive server stats {stats}; expected {len(answers) + 1} requests, no errors")
+    if launches["flash_fwd_tf32<64>"] != 12 * stats["batches"] or \
+            sum(launches.values()) != launches["flash_fwd_tf32<64>"]:
+        fail(f"the adaptive server launched {launches} over {stats['batches']} batches; "
+             f"expected 12 flash_fwd_tf32<64> a batch and nothing else")
+    if not same_trees:
+        fail("the pool's preprocessing differs from the in-line one, or from itself")
+    # each served answer against the in-process forward of the same patchified sample
+    model = server.RequestHandlerClass.weights_holder["model"]
+    want = {}
+    for i0 in range(0, len(samples), MAX_BATCH):
+        b = [pre(x) for x in samples[i0:i0 + MAX_BATCH]]
+        b = {k: torch.from_numpy(np.stack([s[k] for s in b])).cuda() for k in b[0]}
+        with torch.inference_mode():
+            logits = model(b["seq"], seq_ps=seq_ps(b)).cpu().numpy()
+        want.update({i0 + j: logits[j] for j in range(len(logits))})
+    worst = max(float(np.abs(a - want[i]).max()) for i, a in answers)
+    log(f"[adaptive serve] {len(answers)} answers against the in-process forward of their "
+        f"patchified samples: max abs diff {worst:.3e} (tol {SERVE_TOL:g}); the pool's trees "
+        f"byte for byte the in-line ones, twice")
+    if worst > SERVE_TOL:
+        fail("served adaptive answers disagree with the in-process forward")
+    del model
+
+    # an adaptive MAE's /v1/predict (basic_ct/mae: one sample a batch of 2) against
+    # `reconstruct` of the sample alone under the server's seed
+    mcfg = load_config(_adaptive_config(ADAPTIVE_MAE_CONFIGS["basic_ct/mae"], "mae_serve"))
+    reset_launch_counts()
+    mserver = make_server(mcfg, host="127.0.0.1", port=0, max_batch=2, device="cuda", seed=1)
+    mthread = threading.Thread(target=mserver.serve_forever, daemon=True)
+    mthread.start()
+    x = np.random.default_rng(3).random((1, 64, 64)).astype(np.float32)
+    buf = io.BytesIO()
+    np.save(buf, x)
+    try:
+        t1 = time.perf_counter()
+        got = np.load(io.BytesIO(_request(mserver.server_address[1], "POST", "/v1/predict",
+                                          buf.getvalue())))
+        mae_ms = 1e3 * (time.perf_counter() - t1)
+        minst = {k: v for k, v in flash_attention.by_instance.items() if v}
+        mmodel = mserver.RequestHandlerClass.weights_holder["model"]
+    finally:
+        mserver.shutdown()
+        mserver.server_close()
+        mserver.RequestHandlerClass.batcher.close()
+        mthread.join(timeout=30)
+    b = {k: torch.from_numpy(v[None]).cuda() for k, v in make_preprocessor(mcfg)(x).items()}
+    alone = reconstruct(mmodel, b["seq"], seed=1, seq_ps=seq_ps(b))[0].cpu().numpy()
+    mae_diff = float(np.abs(got - alone).max())
+    log(f"[adaptive serve] basic_ct/mae /v1/predict: tokens {got.shape} in {mae_ms:.1f} ms; "
+        f"against reconstruct of the sample alone max abs diff {mae_diff:.3e} (tol "
+        f"{SERVE_TOL:g}); launches {minst} over 2 batches (warm-up included)")
+    if got.shape != (196, 16) or mae_diff > SERVE_TOL or not np.all(np.isfinite(got)):
+        fail("the adaptive MAE's /v1/predict disagrees with reconstruct")
+    if minst != {"flash_fwd_tf32<64>": 24, "flash_fwd_tf32<96>": 16}:
+        fail(f"the adaptive MAE server launched {minst}; expected 12 <64> and 8 <96> a batch")
+    return {"rps": rps, "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)), "lone_ms": 1e3 * min(seq_lat), "busy": busy,
+            "fwd64": launches["flash_fwd_tf32<64>"] + minst.get("flash_fwd_tf32<64>", 0),
+            "fwd96": minst.get("flash_fwd_tf32<96>", 0)}
+
+
+def phase_adaptive() -> dict:
+    """Adaptive patching in 2-D: the quadtree's tokens through LinearTokenEmbed and
+    AdaptivePosMLP into the f32 ViT paths. (d) first: the f32 kernels at the
+    paths' shapes (ADAPTIVE_SHAPES) against their plain versions, timed beside
+    SDPA. (a) imagenet/classification from JPEG files through the DataModule:
+    the patchify's host cost, the CLI entry, the loader alone, FLASH against
+    EINSUM on its batches, windows on the live loader in line (as shipped) and
+    with a spawn pool. (b) imagenet/mae and basic_ct/mae, synthetic: the CLI
+    entry, FLASH against EINSUM, a timed and a traced window. (c) serving with
+    a preprocessing pool under load, and an adaptive MAE's /v1/predict.
+    Returns the launches the records count and the numbers PERF.md keeps."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    kernels = {name: _f32_attention_case("adaptive", name, shape, gen,
+                                         iters=ADAPTIVE_KERNEL_ITERS)
+               for name, shape in ADAPTIVE_SHAPES.items()}
+    torch.cuda.empty_cache()
+    files = _adaptive_from_files()
+    maes = {name: _adaptive_mae(name, path) for name, path in ADAPTIVE_MAE_CONFIGS.items()}
+    served = _adaptive_serve(files["path"], files["root"])
+    cls, ct, im = files["instances"], maes["basic_ct/mae"]["instances"], \
+        maes["imagenet/mae"]["instances"]
+    launches = {
+        "flash_fwd": cls["fwd:flash_fwd_tf32<64>"] + ct["fwd:flash_fwd_tf32<64>"]
+        + served["fwd64"],
+        "flash_bwd_fused": cls["bwd:flash_bwd_tf32<64>"] + ct["bwd:flash_bwd_tf32<64>"],
+        "flash_fwd_dh128": im["fwd:flash_fwd_tf32<128>"],
+        "flash_bwd_fused_dh128": im["bwd:flash_bwd_tf32<128>"],
+        "flash_fwd_dh96": ct["fwd:flash_fwd_tf32<96>"] + served["fwd96"],
+        "flash_bwd_fused_dh96": ct["bwd:flash_bwd_tf32<96>"],
+    }
+    log(f"[record] adaptive: imagenet/classification from files {files['inline']['ms_step']:.3f} "
+        f"ms/step in line, {files['pool']['ms_step']:.3f} with a pool of {ADAPTIVE_POOL - 1} "
+        f"({files['pool']['images_s']:.2f} images/s, busy {100 * files['busy']:.2f}%, "
+        f"{files['device_step_ms']:.3f} ms device a step), the loader {files['loader_ms']:.1f} "
+        f"ms a batch in line, {files['pool_loader_ms']:.1f} pooled, waits "
+        f"{files['inline']['wait_ms']:.2f} / {files['pool']['wait_ms']:.2f} ms a step; patchify "
+        f"{files['patchify_ms']:.3f} ms a sample; "
+        + "; ".join(f"{n} {r['ms_step']:.3f} ms/step, {r['images_s']:.2f} images/s, busy "
+                    f"{100 * r['busy_share']:.2f}%, {r['device_step_ms']:.3f} ms device a step"
+                    for n, r in maes.items())
+        + f"; served {served['rps']:.2f} requests/s, p50 {served['p50']:.1f} p99 "
+        f"{served['p99']:.1f} ms, a lone request {served['lone_ms']:.1f} ms, busy "
+        f"{100 * served['busy']:.2f}%; launches {launches}")
+    log(f"[adaptive] phase_adaptive took {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "launches": launches}
+
+
 def _use(modules: dict) -> None:
     """Make `modules` the process's `ucf_vit_tpu_torch`: the package imports
     some of its modules when called, and must find its own."""
@@ -3534,9 +4121,11 @@ def compare_forward(other: str) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] != "--compare"):
-        fail("usage: chip_smoke.py [--compare CHECKOUT]")
-    if args and not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
+    if args and (len(args) != 2 or args[0] not in ("--compare", "--only")
+                 or (args[0] == "--only" and args[1] != "adaptive")):
+        fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive]")
+    if args and args[0] == "--compare" and \
+            not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
         fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
     if not os.path.isdir(os.path.join(REPO, "ucf_vit_tpu_torch")) or not os.path.isfile(CONFIG):
         fail(f"{REPO} is not a checkout of the repository (no ucf_vit_tpu_torch/ or config)")
@@ -3550,8 +4139,17 @@ def main() -> int:
     if torch.cuda.get_device_name(0) != CARD:
         fail(f"no published peaks for {torch.cuda.get_device_name(0)!r}; this script "
              f"knows the {CARD}")
-    if args:
+    if args and args[0] == "--compare":
         compare_forward(os.path.abspath(args[1]))
+        print(card, flush=True)
+        return 0
+    if args:  # --only adaptive: the build and phase_adaptive alone, no record
+        phase_build()
+        os.makedirs(WORK, exist_ok=True)
+        try:
+            phase_adaptive()
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
         print(card, flush=True)
         return 0
     phase_build()
@@ -3575,8 +4173,13 @@ def main() -> int:
         if disk["jpeg"] is None:
             fail("phase_trainer_parity trains from JPEG files: PIL and cv2 must import")
         parity = phase_trainer_parity(disk["jpeg"]["root"], disk["mae_ckpt"])
+        adaptive = phase_adaptive()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    log(f"[profiler] {PROFILE_LOSS['windows']} windows timed a named kernel: "
+        f"{PROFILE_LOSS['short']} recorded fewer launches than they made (at most "
+        f"{PROFILE_LOSS['most_lost']} fewer), {PROFILE_LOSS['timed_lost']} of them fewer "
+        "than the timed calls")
 
     # Each flash kernel has two rows: the f32 instance (*_tf32.cu) at the
     # ViT-B/16 shape that serving and f32 training give it, with the launches of those
@@ -3675,6 +4278,11 @@ def main() -> int:
         "flash_fwd_dh96": diffusion["basic_ct"]["instances"]["fwd:flash_fwd_tf32<96>"],
         "flash_bwd_fused_dh96": diffusion["basic_ct"]["instances"]["bwd:flash_bwd_tf32<96>"],
     }
+    # the adaptive paths (phase_adaptive): imagenet/classification through the CLI entry from
+    # JPEG files and its server, basic_ct/mae's encoder (<64>) and decoder (<96>) and
+    # imagenet/mae's decoder (<128>) through the CLI entry, basic_ct/mae's /v1/predict
+    for name, n in adaptive["launches"].items():
+        launches[name] += n
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
         f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")

@@ -699,3 +699,62 @@ def test_serve_from_checkpoint_on_card(tmp_path):
     np.testing.assert_allclose(odd, w_odd, atol=1e-4, rtol=0)
     np.testing.assert_allclose(even, w_even, atol=1e-4, rtol=0)
     assert np.abs(w_odd - w_even).max() > 1e-3
+
+
+# The f32 paths of adaptive patching (b, h, n_q, n_kv, dh): basic_ct/mae's encoder on 49
+# kept tokens (one partial tile on both axes), imagenet/classification's 196 patches and
+# the class token, imagenet/mae's decoder (the DH = 128 instance) and basic_ct/mae's
+# (dh 96)
+ADAPTIVE_SHAPES = [(4, 12, 49, 49, 64), (4, 12, 197, 197, 64), (4, 4, 196, 196, 128),
+                   (4, 6, 196, 196, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_f32_kernels_at_the_adaptive_shapes_on_card(route):
+    _card()
+    for b, h, n_q, n_kv, dh in ADAPTIVE_SHAPES:
+        q, k, v, do = _inputs(b, h, n_q, n_kv, dh, torch.float32, seed=3)
+        sm = dh**-0.5
+        reset_launch_counts()
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, sm, route=route)
+        torch.cuda.synchronize()
+        assert flash_attention.by_instance[f"flash_fwd_tf32<{dh}>"] == 1
+        assert flash_attention_bwd.by_instance[f"flash_bwd_tf32<{dh}>"] == (
+            1 if route == "fused" else 2)
+        ref_o, ref_lse = flash_attention_plain(q, k, v, sm)
+        assert (o - ref_o).abs().max().item() <= FWD_TOL[torch.float32], (b, h, n_q, dh)
+        assert (lse - ref_lse).abs().max().item() <= 5e-5
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
+        for name, g, w in zip("qkv", got, want):
+            assert _rel_err(g, w) <= BWD_TOL[torch.float32], (name, (b, h, n_q, dh), route)
+
+
+@pytest.mark.cuda
+def test_adaptive_vit_step_launches_on_card():
+    """One train step of a depth-2 adaptive ViT (196 patches, the class token,
+    dh 64) launches the f32 forward and the fused backward `<64>` twice each."""
+    _card()
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.train import init_train, synthetic_batches, to_device
+
+    ia = {"default_vars": ["r", "g", "b"], "tile_size": [256, 256], "patch_size": 16,
+          "embed_dim": 128, "depth": 2, "num_heads": 2, "mlp_ratio": 2, "twoD": True,
+          "adaptive_patching": True, "fixed_length": 196, "use_adaptive_pos_emb": True}
+    raw = {"trainer": {"task": "classification", "attn_impl": "FLASH"}, "parallelism": {},
+           "model": {"lr": 1e-3, "net": {"init_args": ia}},
+           "data": {"batch_size": 2, "num_classes": 4}}
+    cfg = Config(raw=raw, task="classification")
+    state, step = init_train(cfg, device="cuda")
+    batch = to_device(next(synthetic_batches(cfg, 2)), torch.device("cuda"))
+    reset_launch_counts()
+    state, loss, _ = step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert {k: v for k, v in flash_attention.by_instance.items() if v} == {
+        "flash_fwd_tf32<64>": 2}
+    assert {k: v for k, v in flash_attention_bwd.by_instance.items() if v} == {
+        "flash_bwd_tf32<64>": 2}

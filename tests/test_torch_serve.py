@@ -764,3 +764,184 @@ def test_inference_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
         item = {"unetr": "item 7: UNETR", "sap": "item 8: SAP"}[case]
         with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
             evaluate(Config(raw=_cfg().raw, task=case), device="cpu")
+
+
+# ---------------------------------------------------------------- adaptive patching
+#
+# Serving the adaptive configs shrunk (a 32x32 tile at patch 4, 16 patches, depth 2):
+# the preprocessor (the training pipeline's patchify at the fixed index) against the
+# JAX one, byte for byte, in the request's thread and in a spawn pool; the predictor's
+# logits and an adaptive MAE's tokens against the JAX server's (MAE: the JAX draw
+# replaced by the port's noise row, as above), 1e-5; an HTTP round trip through the
+# pool against the in-process forward; the inference CLI's top-1 on an adaptive config.
+
+import random
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import yaml
+
+from ucf_vit_tpu.serve import make_preprocessor as jax_make_preprocessor
+from ucf_vit_tpu_torch.serve import make_preprocessor
+from ucf_vit_tpu_torch.tasks import seq_ps
+
+ADAPTIVE_SERVE_TOL = 1e-5
+
+
+def _adaptive_cfg(name, **data):
+    with open(os.path.join(REPO, "configs", name, "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    ia = raw["model"]["net"]["init_args"]
+    ia.update(tile_size=[32, 32, 2][:len(ia["tile_size"])], patch_size=4, embed_dim=32,
+              depth=2, num_heads=2, fixed_length=16)
+    if raw["trainer"]["task"] == "mae":
+        ia.update(decoder_embed_dim=24, decoder_depth=2, decoder_num_heads=2)
+    raw["trainer"]["attn_impl"] = "EINSUM"
+    raw["parallelism"] = {}
+    raw["data"].update(batch_size=2, num_classes=4, **data)
+    return Config(raw=raw, task=raw["trainer"]["task"])
+
+
+def _raw_samples(cfg, n, seed=9):
+    rng = np.random.default_rng(seed)
+    shape = (n, cfg.max_channels, 32, 32)
+    if cfg.dataset == "imagenet":  # 8-bit pixels, as the JPEG reader gives them
+        return rng.integers(0, 256, size=shape).astype(np.float32)
+    return rng.random(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+@pytest.mark.parametrize("name", ["imagenet/classification", "basic_ct/mae"])
+def test_adaptive_preprocessor_matches_jax(name, workers):
+    cfg = _adaptive_cfg(name, seed=4)
+    jpre = jax_make_preprocessor(cfg)
+    pre = make_preprocessor(cfg, workers)
+    try:
+        for arr in _raw_samples(cfg, 3):
+            got, want = pre(arr), jpre(arr)
+            assert sorted(got) == ["seq", "seq_pos", "seq_size"]
+            for k in got:
+                assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
+            again = pre(arr.copy())  # the same request, the same tree
+            assert all(again[k].tobytes() == got[k].tobytes() for k in got)
+        with pytest.raises(ValueError, match="expected input shape"):
+            pre(np.zeros((1, 8, 8), np.float32))
+    finally:
+        pre.close()
+
+
+class _YieldingGenerator:
+    """A generator that lets other threads run for a random while around each
+    draw, so that draws from one generator shared between threads would
+    interleave."""
+
+    pauses = random.Random(0)
+
+    def __init__(self, gen):
+        self.gen = gen
+
+    def _draw(self, name, args, kwargs):
+        time.sleep(self.pauses.uniform(0.0, 0.002))
+        out = getattr(self.gen, name)(*args, **kwargs)
+        time.sleep(self.pauses.uniform(0.0, 0.002))
+        return out
+
+    def choice(self, *args, **kwargs):
+        return self._draw("choice", args, kwargs)
+
+    def uniform(self, *args, **kwargs):
+        return self._draw("uniform", args, kwargs)
+
+
+def test_adaptive_preprocessor_in_line_gives_every_thread_the_same_tree(monkeypatch):
+    """The server's handler threads share one in-line preprocessor: identical
+    requests made at once still give byte-identical trees (each call draws
+    from a generator of its own). 31 patches of a 32 x 32 tile: a tree that
+    the Canny threshold drawn shapes (16 would split the tile evenly whatever
+    the draws)."""
+    cfg = _adaptive_cfg("imagenet/classification", seed=4)
+    cfg.raw["model"]["net"]["init_args"]["fixed_length"] = 31
+    pre = make_preprocessor(cfg)
+    arr = _raw_samples(cfg, 1)[0]
+    want = pre(arr)
+    make = np.random.default_rng
+    monkeypatch.setattr(np.random, "default_rng",
+                        lambda *a, **k: _YieldingGenerator(make(*a, **k)))
+    start = threading.Barrier(8)
+
+    def client(_):
+        start.wait()
+        return [pre(arr) for _ in range(6)]
+
+    with ThreadPoolExecutor(8) as ex:
+        got = [a for answers in ex.map(client, range(8)) for a in answers]
+    assert len(got) == 48
+    assert all(a[k].tobytes() == want[k].tobytes() for a in got for k in want)
+
+
+def _adaptive_batch(pre, samples):
+    out = [pre(s) for s in samples]
+    return {k: np.stack([o[k] for o in out]) for k in out[0]}
+
+
+@pytest.mark.parametrize("name", ["imagenet/classification", "imagenet/mae", "basic_ct/mae"])
+def test_adaptive_predictor_matches_the_jax_server(monkeypatch, name):
+    cfg = _adaptive_cfg(name)
+    jrun, jpre, _, (_, jholder, _) = jax_build_predictor(cfg, max_batch=2, seed=3)
+    run, pre, mb, (model, _, _) = build_predictor(cfg, max_batch=2, seed=3, device="cpu")
+    load_jax_params(model, jax.tree.map(np.asarray, jholder["params"]))
+    batch = _adaptive_batch(pre, _raw_samples(cfg, 2))
+    if cfg.task == "mae":
+        import jax.numpy as jnp
+
+        row = mask_noise(model, 1, 3, "cpu")
+        monkeypatch.setattr(jax.random, "uniform",
+                            lambda *a, **k: jnp.asarray(np.tile(row.numpy(), (2, 1))))
+    want = np.asarray(jrun(batch))
+    got = run(batch)
+    width = {"classification": 4, "mae": 16 * cfg.max_channels}[cfg.task]
+    assert got.shape == want.shape == ((2, width) if cfg.task == "classification"
+                                       else (2, 16, width))
+    np.testing.assert_allclose(got.numpy(), want, atol=ADAPTIVE_SERVE_TOL, rtol=0)
+    if cfg.task == "mae" and model.seq_pack == 1:
+        # each row is the sample's lone reconstruction under the seed's mask (a packed
+        # encoder takes samples seq_pack at a time)
+        b = {k: torch.from_numpy(v) for k, v in batch.items()}
+        alone = reconstruct(model, b["seq"][:1], seed=3, seq_ps=seq_ps(b)[:1])
+        np.testing.assert_allclose(got[:1].numpy(), alone.numpy(), atol=ADAPTIVE_SERVE_TOL,
+                                   rtol=0)
+
+
+def test_adaptive_server_patchifies_in_its_pool():
+    """Over HTTP with a pool of 2 preprocessing processes: each answer equals the
+    in-process forward of the sample's patchified request, a repeated request the
+    same bytes; closing the batcher stops the pool."""
+    cfg = _adaptive_cfg("imagenet/classification")
+    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=2, max_wait_ms=20.0,
+                         seed=5, device="cpu", preprocess_workers=2)
+    samples = _raw_samples(cfg, 2, seed=11)
+    try:
+        base = _serving(server)
+        answers = [_predict(base, s) for s in samples] + [_predict(base, samples[0])]
+        pool = server.RequestHandlerClass.preprocess
+    finally:
+        _stop(server)
+    assert answers[0].tobytes() == answers[2].tobytes()
+    model = init_eval_model(cfg, seed=5, device="cpu")
+    pre = make_preprocessor(cfg)
+    for s, got in zip(samples, answers):
+        b = {k: torch.from_numpy(v[None]) for k, v in pre(s).items()}
+        with torch.inference_mode():
+            want = model(b["seq"], seq_ps=seq_ps(b))[0].numpy()
+        np.testing.assert_allclose(got, want, atol=ADAPTIVE_SERVE_TOL, rtol=0)
+    with pytest.raises(RuntimeError, match="shutdown"):
+        pool(samples[0])
+
+
+def test_inference_cli_evaluates_an_adaptive_config(tmp_path):
+    cfg = _adaptive_cfg("imagenet/classification")
+    path = tmp_path / "adaptive.yaml"
+    path.write_text(yaml.safe_dump(cfg.raw))
+    top1 = inference_main([str(path), "--synthetic", "--num-samples", "4", "--device", "cpu"])
+    assert top1 == evaluate_classification(cfg, None, True, 4, device="cpu")
+    assert 0.0 <= top1 <= 1.0

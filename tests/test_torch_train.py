@@ -40,8 +40,11 @@ import copy
 import json
 import os
 import re
+import multiprocessing
 import subprocess
 import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -459,7 +462,10 @@ def test_unported_variants_raise_with_their_roadmap_item(variant):
     kw = dict(MAE_KW, **MAE_TILES["3d"])
     item = {"adaptive_pos_mlp": "VIT input variants", "pipe_par": "pipeline \\+ MoE",
             "varemb": "VIT input variants"}[variant]
-    kw.update({"adaptive_pos_mlp": dict(use_adaptive_pos_emb=True),
+    # the adaptive position MLP is ported; the sqrt-len method that UNETR and SAP
+    # pair it with is not
+    kw.update({"adaptive_pos_mlp": dict(use_adaptive_pos_emb=True, adaptive_patching=True,
+                                        fixed_length=64, sqrt_len_method=True),
                "pipe_par": dict(pipe_par_size=2, scan_layers=True),
                "varemb": dict(use_varemb=True)}[variant])
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port: {item}"):
@@ -935,12 +941,16 @@ def test_jpeg_reading_names_a_missing_module(tmp_path, monkeypatch):
 
 
 def test_adaptive_data_raises_with_item_6(tmp_path):
+    """3-D adaptive patching (the octree) is still to port; the 2-D path is
+    ported (the adaptive section below)."""
     kw = _dm_case(tmp_path, "ct3d_nii")
     dm = DataModule(**kw, adaptive_patching=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         dm.setup()
     with pytest.raises(NotImplementedError, match="item 6"):
-        port_catsdogs.CatsDogsDataset([], ("r",), (16, 16), adaptive_patching=True)
+        port_pipeline.ProcessChannels(None, num_channels=1, single_channel=True,
+                                      return_label=False, dataset="basic_ct",
+                                      adaptive_patching=True, twoD=False)
 
 
 def _jax_init_as_torch_file(raw, path):
@@ -1314,6 +1324,8 @@ def test_diffusion_vit_refuses_what_it_cannot_run():
         DiffusionVIT(class_token=True, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline"):
         DiffusionVIT(pipe_par_size=2, scan_layers=True, **kw)
+    with pytest.raises(NotImplementedError, match="modules to port: VIT input variants"):
+        DiffusionVIT(adaptive_patching=True, fixed_length=16, **kw)
 
 
 def _diff_raw(tile="2d", **trainer):
@@ -1704,6 +1716,13 @@ def _midepoch_raw(tmp_path, kind):
         _volumes(tmp_path / "ct3", 3, (32, 16, 16))
         raw["data"]["dict_root_dirs"] = {"ct": str(tmp_path / "ct3")}
         return raw, task
+    if kind == "adaptive_mae":  # basic_ct/mae shrunk: 2-D slices patchified in a pool
+        raw = _adaptive_raw("basic_ct/mae")
+        raw["trainer"].update(attn_impl="FLASH", seed=1)
+        raw["data"].update(dict_root_dirs={"ct1": _volumes(tmp_path / "ct2d", 3, (32, 32, 2))},
+                           batch_size=2, num_workers=2)
+        raw["load_balancing"] = {"auto_load_balancing": True}
+        return raw, "mae"
     root = _volumes(tmp_path / "ct4", 4, (32, 16, 16))
     ia = {"default_vars": ["ct"], "tile_size": [16, 16, 16], "twoD": False, "patch_size": 4,
           "adaptive_patching": False, "num_time_steps": DIFF_T,
@@ -1725,11 +1744,11 @@ def _midepoch_raw(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind,drill", [("catsdogs", 2), ("catsdogs", 3), ("mae", 2),
-                                        ("mae", 3), ("diffusion", 2)])
+                                        ("mae", 3), ("diffusion", 2), ("adaptive_mae", 2)])
 def test_midepoch_resume_equals_uninterrupted_bit_for_bit(tmp_path, capsys, kind, drill):
     """Two epochs of 3 steps in one run against a run preempted by the drill
     (`preempt_after_steps`) after step 2 (mid-epoch) or 3 (the epoch's last step) and
-    then resumed (`tests/test_midepoch_resume.py:209-285`): the (epoch, it) records,
+    then resumed (the adaptive MAE's loader patchifies in a spawn pool) (`tests/test_midepoch_resume.py:209-285`): the (epoch, it) records,
     every per-step loss and validation loss, the parameters, AdamW's moments and the
     generators equal bit for bit; the preemption checkpoint holds the interrupted
     epoch's position in the interrupted epoch's slot."""
@@ -1903,3 +1922,320 @@ def test_profile_dir_writes_a_trace_of_steps_11_to_15(tmp_path, capsys):
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert {"aten::addmm", "aten::softmax"} & names and any("backward" in n.lower()
                                                              for n in names)
+
+
+# ---------------------------------------------------------------- adaptive patching
+#
+# The three adaptive configs (imagenet/classification, imagenet/mae with seq_pack 2,
+# basic_ct/mae single-channel) shrunk to a 32x32 tile at patch 4, 16 patches, depth 2,
+# embed 32: MAE `pred` with the mask noise injected (1e-5), the adaptive MAE loss
+# against `build_mae`'s, and 5 f32 train steps on the synthetic stream from one JAX
+# init (1e-4 a step; the MAE's mask noise taken from the batch on both sides, the
+# config's loss scaling on both). Then the data: `DataModule` on seeded JPEGs and NIfTI
+# slices against the JAX one, in line and with a spawn pool, array for array; a
+# fast-forward that patchifies no skipped sample; the pool's children importing the
+# data modules alone; the adaptive catsdogs loader.
+
+from ucf_vit_tpu.tasks import _seq_ps as jax_seq_ps
+from ucf_vit_tpu_torch.data import transform as port_transform
+from ucf_vit_tpu_torch.tasks import build_task
+from ucf_vit_tpu_torch.tasks import seq_ps as port_seq_ps
+
+ADAPTIVE_CONFIGS = ("imagenet/classification", "imagenet/mae", "basic_ct/mae")
+
+
+def _adaptive_raw(name):
+    """A shipped adaptive config, shrunk (its task, loss scaling, seq_pack and
+    channels kept)."""
+    with open(os.path.join(REPO, "configs", name, "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    ia = raw["model"]["net"]["init_args"]
+    ia.update(tile_size=[32, 32, 2][:len(ia["tile_size"])], patch_size=4, embed_dim=32, depth=2, num_heads=2, fixed_length=16)
+    if raw["trainer"]["task"] == "mae":
+        ia.update(decoder_embed_dim=24, decoder_depth=2, decoder_num_heads=2)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)  # YAML reads 1e-5 as a string
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=2)
+    raw["parallelism"] = {}
+    raw["data"].update(batch_size=4, num_classes=4)
+    return raw
+
+
+def _adaptive_batches(cfg, n, seed=20):
+    stream = synthetic_batches(cfg, 4)
+    out = []
+    for i, b in zip(range(n), stream):
+        b = {k: v for k, v in b.items() if k != "x" and k != "variables"}
+        if cfg.task == "mae":
+            b["mask_noise"] = _mae_noise(4, 16, seed=seed + i)
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("seq_pack", [1, 2])
+def test_adaptive_mae_matches_jax(seq_pack):
+    kw = dict(img_size=(32, 32), patch_size=4, in_chans=1, embed_dim=24, depth=2,
+              num_heads=2, decoder_embed_dim=18, decoder_depth=2, decoder_num_heads=3,
+              adaptive_patching=True, fixed_length=16, use_adaptive_pos_emb=True,
+              seq_pack=seq_pack)
+    b = _adaptive_batches(Config(raw=_adaptive_raw("basic_ct/mae"), task="mae"), 1)[0]
+    seq, noise = b["seq"][:2], b["mask_noise"][:2]
+    ps = np.asarray(jax_seq_ps({k: jnp.asarray(v[:2]) for k, v in b.items()}))
+    jmod = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(seq), None, jnp.asarray(ps),
+                                  mask_noise=jnp.asarray(noise))["params"])
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    assert sorted(jax_to_torch_state(params)) == sorted(export_torch_state(params))
+    ours = load_jax_params(MAE(attn_impl="FLASH", **kw), params).eval()
+    want, wmask = jmod.apply({"params": params}, jnp.asarray(seq), None, jnp.asarray(ps),
+                             mask_noise=jnp.asarray(noise))
+    np.testing.assert_array_equal(
+        port_seq_ps({k: torch.from_numpy(v[:2]) for k, v in b.items()}).numpy(), ps)
+    with torch.inference_mode():
+        got, mask = ours(torch.from_numpy(seq), mask_noise=torch.from_numpy(noise),
+                         seq_ps=torch.from_numpy(ps))
+        alone = reconstruct(ours, torch.from_numpy(seq), seed=3, seq_ps=torch.from_numpy(ps))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=MAE_PRED_TOL, rtol=0)
+    assert alone.shape == got.shape == (2, 16, 16)  # tokens [B, L, p^2 * C]
+
+
+def test_adaptive_mae_loss_matches_build_mae(monkeypatch):
+    raw = _adaptive_raw("imagenet/mae")
+    jmod, jloss = jax_build_mae(JConfig(raw=raw, task="mae"))
+    cfg = Config(raw=raw, task="mae")
+    b = _adaptive_batches(cfg, 1)[0]
+    noise = torch.rand(4, 16, generator=torch.Generator().manual_seed(5)).numpy()
+    jb = {k: jnp.asarray(v) for k, v in b.items() if k != "mask_noise"}
+    params = meta.unbox(jmod.init(jax.random.key(0), jb["seq"], None, jax_seq_ps(jb),
+                                  mask_noise=jnp.asarray(noise))["params"])
+    monkeypatch.setattr(jax.random, "uniform", lambda key, shape, *a, **k: jnp.asarray(noise))
+    want, _ = jloss(params, jb, jax.random.key(0))
+    model = load_jax_params(build_mae(cfg), jax.device_get(params)).train()
+    model.set_generator(torch.Generator().manual_seed(5), torch.Generator().manual_seed(6))
+    got, aux = task_loss(cfg)(model, {k: torch.from_numpy(v) for k, v in b.items()})
+    assert aux == {} and abs(got.item() - float(want)) <= 1e-6
+
+
+def _adaptive_jax_loss(jmod, cfg, jloss):
+    if cfg.task != "mae":
+        return jloss
+
+    def loss_fn(params, batch, rng):  # build_mae's adaptive loss, the noise from the batch
+        seq = batch["seq"]
+        pred, _ = jmod.apply({"params": params}, seq, None, jax_seq_ps(batch),
+                             deterministic=False, mask_noise=batch["mask_noise"],
+                             rngs={"dropout": rng})
+        b, c, l, p = seq.shape
+        return jax_metrics.mse(pred, seq.transpose(0, 2, 3, 1).reshape(b, l, p * c)), {}
+    return loss_fn
+
+
+def _adaptive_port_loss(cfg):
+    if cfg.task != "mae":
+        return task_loss(cfg)
+
+    def loss_fn(model, batch):
+        seq = batch["seq"]
+        pred, _ = model(seq, mask_noise=batch["mask_noise"], seq_ps=port_seq_ps(batch))
+        b, c, l, p = seq.shape
+        return metrics.mse(pred, seq.permute(0, 2, 3, 1).reshape(b, l, p * c)), {}
+    return loss_fn
+
+
+@pytest.mark.parametrize("name", ADAPTIVE_CONFIGS)
+def test_adaptive_train_steps_match_jax(name):
+    raw = _adaptive_raw(name)
+    task = raw["trainer"]["task"]
+    jcfg, cfg = JConfig(raw=raw, task=task), Config(raw=raw, task=task)
+    batches = _adaptive_batches(cfg, MAE_STEPS)
+    jmod, jloss = (jax_build_mae if task == "mae" else jax_build_classification)(jcfg)
+    first = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    extra = {"mask_noise": first["mask_noise"]} if task == "mae" else {}
+    params = meta.unbox(jmod.init(jax.random.key(0), first["seq"], None, jax_seq_ps(first),
+                                  **extra)["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    scaler = bool(raw["model"].get("use_grad_scaler", False))
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=jax_optim.init_loss_scale() if scaler else None,
+                         ema_params=None)
+    jstep = jax_make_train_step(_adaptive_jax_loss(jmod, jcfg, jloss), tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task=task)
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt, use_grad_scaler=scaler)
+    step = make_train_step(_adaptive_port_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")))[1].item() for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+    final = jax_to_torch_state(jax.device_get(jstate.params))
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), final[n], atol=PARAM_TOL, rtol=0,
+                                   err_msg=n)
+
+
+def _imagenet_jpegs(root, per_class=3):
+    for i, cls in enumerate(("n01", "n02")):
+        _jpegs(os.path.join(root, cls), [f"img{j}.JPEG" for j in range(per_class)],
+               size=(48, 40), seed=i)
+    return str(root)
+
+
+def _adaptive_dm_case(tmp_path, case):
+    kw = dict(tile_size_x=32, tile_size_y=32, twoD=True, adaptive_patching=True,
+              patch_size=4, fixed_length=16, batch_size=2, seed=3)
+    if case == "imagenet":
+        keys, names = ["imagenet"], ["red", "green", "blue"]
+        kw.update(dict_root_dirs={"imagenet": _imagenet_jpegs(tmp_path / "in")},
+                  dataset="imagenet", return_label=True, num_classes=2,
+                  imagenet_resize={"imagenet": (32, 32)})
+    else:
+        keys, names = ["ct"], ["ct"]
+        kw.update(dict_root_dirs={"ct": _volumes(tmp_path / "ct", 3, (32, 32, 2),
+                                                 labels=3 if case == "basic_ct_labels" else 0)},
+                  dataset="basic_ct", tile_size_z=2, single_channel=True)
+        if case == "basic_ct_labels":
+            kw.update(return_label=True, num_classes=3)
+    kw.update(dict_buffer_sizes={k: 4 for k in keys}, dict_in_variables={k: names for k in keys},
+              num_channels_used={k: len(names) for k in keys},
+              dict_start_idx={k: 0.0 for k in keys}, dict_end_idx={k: 1.0 for k in keys})
+    return kw
+
+
+@pytest.mark.parametrize("case,workers", [("imagenet", 0), ("imagenet", 3), ("basic_ct", 0),
+                                          ("basic_ct", 3), ("basic_ct_labels", 0)])
+def test_adaptive_datamodule_matches_jax(tmp_path, case, workers):
+    """Two epochs (past each chain's end) and a fast-forward, against the JAX
+    DataModule in line: `num_workers` 3 patchifies in a spawn pool of 2."""
+    kw = _adaptive_dm_case(tmp_path, case)
+    port = DataModule(**kw, num_workers=workers, prefetch=2)
+    jdm = JDataModule(**kw, prefetch=0)
+    port.setup()
+    jdm.setup()
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jdm.set_epoch(epoch)
+        got = list(itertools.islice(port.train_dataloader(loop=True), 4))
+        want = list(itertools.islice(jdm.train_dataloader(loop=True), 4))
+        _assert_batches_equal(got, want)
+        assert got[0]["seq"].shape == (2, 1 if case != "imagenet" else 3, 16, 16)
+    port.set_epoch(2)  # fresh chains (the prefetch thread read ahead on the old ones)
+    jdm.set_epoch(2)
+    _assert_batches_equal(list(port.train_dataloader(skip_batches=1)),
+                          list(jdm.train_dataloader(skip_batches=1)))
+
+
+def test_adaptive_batches_carry_the_trees_with_return_qdt(tmp_path):
+    kw = _adaptive_dm_case(tmp_path, "basic_ct")
+    port = DataModule(**kw, return_qdt=True, prefetch=0)
+    jdm = JDataModule(**kw, return_qdt=True, prefetch=0)
+    port.setup()
+    jdm.setup()
+    got, want = next(port.train_dataloader()), next(jdm.train_dataloader())
+    # every array reaches the device, the trees and the variable names stay on the host
+    assert sorted(to_device(got, torch.device("cpu"))) == ["seq", "seq_pos", "seq_size", "x"]
+    assert [q.encode_nodes() for q in got.pop("qdt")] == [
+        q.encode_nodes() for q in want.pop("qdt")]
+    _assert_batches_equal([got], [want])
+
+
+def test_adaptive_fast_forward_patchifies_no_skipped_sample(tmp_path, monkeypatch):
+    calls = []
+    call = port_transform.Patchify.__call__
+    monkeypatch.setattr(port_transform.Patchify, "__call__",
+                        lambda self, img, rng=None: calls.append(1) or call(self, img, rng))
+    kw = _adaptive_dm_case(tmp_path, "basic_ct")
+    dm = DataModule(**kw, prefetch=0)
+    dm.setup()
+    whole = list(itertools.islice(dm.train_dataloader(), 3))
+    dm.set_epoch(1)
+    dm.set_epoch(0)
+    calls.clear()
+    rest = list(itertools.islice(dm.train_dataloader(skip_batches=2), 1))
+    assert len(calls) == 2  # one batch of 2 made; the 4 skipped samples never patchified
+    _assert_batches_equal(rest, whole[2:])
+
+
+def test_pool_children_import_the_data_modules_alone(tmp_path):
+    """A trainer's main module imports torch; the spawn pool's children do not
+    run it again: a child holds numpy and the port's data modules, no torch, no
+    JAX, nothing of the JAX package."""
+    script = tmp_path / "main.py"
+    script.write_text(
+        "import json, sys, torch\n"
+        "from ucf_vit_tpu_torch.data.pipeline import make_pool\n"
+        "spec = dict(num_channels=1, single_channel=True, return_label=False,\n"
+        "            dataset='basic_ct', adaptive_patching=True, patch_size=4,\n"
+        "            fixed_length=16, aug_seed=0)\n"
+        "if __name__ == '__main__':\n"
+        "    with make_pool(spec, 1) as pool:\n"
+        "        assert pool._mp_context.get_start_method() == 'spawn'\n"
+        "        print(json.dumps(pool.submit(eval, 'sorted(__import__(\"sys\").modules)')\n"
+        "                         .result(timeout=120)))\n")
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    mods = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "ucf_vit_tpu_torch.data.transform" in mods and "numpy" in mods
+    assert not [m for m in mods if re.match(r"(torch|jax|flax|ucf_vit_tpu(?!_torch))(\.|$)", m)]
+    assert {m for m in mods if m.startswith("ucf_vit_tpu_torch")} <= {
+        "ucf_vit_tpu_torch", "ucf_vit_tpu_torch.data", "ucf_vit_tpu_torch.data.pipeline",
+        "ucf_vit_tpu_torch.data.nifti", "ucf_vit_tpu_torch.data.transform",
+        "ucf_vit_tpu_torch.data.quadtree", "ucf_vit_tpu_torch.native"}
+
+
+def test_pools_started_from_three_threads_leave_the_main_module_whole():
+    """Three loaders' pools started at once, from three threads: `make_pool` starts
+    every worker before it returns, the main module's `__spec__` and `__file__`
+    come back as they were, and an ordinary spawn afterwards still runs."""
+    from ucf_vit_tpu_torch.data.pipeline import make_pool
+
+    main = sys.modules["__main__"]
+    before = {k: main.__dict__.get(k, "absent") for k in ("__spec__", "__file__")}
+    spec = dict(num_channels=1, single_channel=True, return_label=False, dataset="basic_ct",
+                adaptive_patching=True, patch_size=4, fixed_length=16, aug_seed=0)
+    start, pools = threading.Barrier(3), []
+
+    def build():
+        start.wait()
+        pool = make_pool(spec, 2)
+        pools.append((len(pool._processes), pool))
+
+    threads = [threading.Thread(target=build) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    try:
+        assert [n for n, _ in pools] == [2, 2, 2]
+        assert {k: main.__dict__.get(k, "absent") for k in before} == before
+        child = multiprocessing.get_context("spawn").Process(target=time.sleep, args=(0,))
+        child.start()
+        child.join(timeout=120)
+        assert child.exitcode == 0
+        assert [p.submit(abs, -3).result(timeout=120) for _, p in pools] == [3, 3, 3]
+    finally:
+        for _, p in pools:
+            p.shutdown(wait=True)
+
+
+def test_adaptive_catsdogs_matches_jax(tmp_path):
+    root = _jpegs(tmp_path / "cd", CATSDOGS, size=(40, 36))
+    files = port_catsdogs.list_file_split(root, 0.0, 1.0)
+    kw = dict(adaptive_patching=True, fixed_length=16, patch_size=4)
+    ds = port_catsdogs.CatsDogsDataset(files, ("r", "g", "b"), (32, 32),
+                                       rng=np.random.default_rng(8), **kw)
+    jds = jax_catsdogs.CatsDogsDataset(files, ("r", "g", "b"), (32, 32),
+                                       rng=np.random.default_rng(8), **kw)
+    got = list(port_catsdogs.catsdogs_loader(ds, 2, seed=1))
+    _assert_batches_equal(got, list(jax_catsdogs.catsdogs_loader(jds, 2, seed=1)))
+    assert got[0]["seq"].shape == (2, 3, 16, 16) and got[0]["seq_size"].shape == (2, 1, 16)

@@ -5,6 +5,8 @@ with `load_jax_params`; inputs come from numpy seeds."""
 
 import glob
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -224,7 +226,9 @@ def test_seeded_init_is_deterministic_and_uses_sincos_table():
 
 
 @pytest.mark.parametrize("init, parallelism", [
-    ({"adaptive_patching": True, "fixed_length": 16}, None),
+    # adaptive patching is ported; its single-channel variable embedding is not
+    ({"adaptive_patching": True, "fixed_length": 16, "use_varemb": True,
+      "single_channel": True}, None),
     ({"use_varemb": True}, None),
     ({"moe_num_experts": 4}, None),
     # scan_layers alone is accepted now; the scanned stack under a pipeline is not
@@ -233,3 +237,156 @@ def test_seeded_init_is_deterministic_and_uses_sincos_table():
 def test_unported_features_raise(init, parallelism):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_classification(_small_cfg(parallelism=parallelism, **init))
+
+
+# ---------------------------------------------------------------- adaptive patching
+#
+# The 2-D adaptive path at a small size: LinearTokenEmbed and AdaptivePosMLP within
+# 1e-6 of flax (one LayerNorm-Linear-LayerNorm or Linear-GELU on the same weights), the
+# adaptive ViT's logits through `load_jax_params` within 1e-5 (two blocks), its
+# conversion key for key with `export_torch_state`; the quadtree's native build against
+# its numpy build and the JAX tree, and `Patchify` against the JAX one on the same
+# generator state, array for array; concurrent first builds of the native library.
+
+from ucf_vit_tpu.data.quadtree import FixedQuadTree as JFixedQuadTree
+from ucf_vit_tpu.data.transform import Patchify as JPatchify
+from ucf_vit_tpu.models.blocks import AdaptivePosMLP as JAdaptivePosMLP
+from ucf_vit_tpu.models.blocks import LinearTokenEmbed as JLinearTokenEmbed
+from ucf_vit_tpu_torch import native
+from ucf_vit_tpu_torch.data.quadtree import FixedQuadTree, quadtree_boxes_plain
+from ucf_vit_tpu_torch.data.transform import Patchify, Patchify3D
+from ucf_vit_tpu_torch.models.blocks import AdaptivePosMLP, LinearTokenEmbed
+
+ADAPTIVE_MODULE_TOL = 1e-6
+ADAPTIVE_LOGITS_TOL = 1e-5
+
+
+@pytest.mark.parametrize("module", ["token_embed", "pos_mlp"])
+def test_adaptive_embeds_match_flax(module):
+    # each under the name the models give it (the conversion reads the names)
+    holder = torch.nn.Module()
+    if module == "token_embed":
+        x = _x(2, 16, 48)
+        jmod, holder.token_embeds, name = JLinearTokenEmbed(32), LinearTokenEmbed(48, 32), \
+            "token_embed"
+        ours = holder.token_embeds
+    else:
+        x = np.abs(_x(2, 16, 3)) * 8
+        jmod, holder.adaptive_pos_dep_emb, name = JAdaptivePosMLP(32), AdaptivePosMLP(3, 32), \
+            "adaptive_pos_dep_emb"
+        ours = holder.adaptive_pos_dep_emb
+    params = _params(jmod, jnp.asarray(x))
+    load_jax_params(holder, {name: params})
+    _close(ours(torch.from_numpy(x)), jmod.apply({"params": params}, jnp.asarray(x)),
+           ADAPTIVE_MODULE_TOL)
+
+
+def _adaptive_inputs(b, c, length, p, seed=1):
+    rng = np.random.default_rng(seed)
+    seq = rng.normal(size=(b, c, length, p * p)).astype(np.float32)
+    ps = np.concatenate([rng.integers(1, 9, size=(b, length, 1)),
+                         rng.uniform(0, 32, size=(b, length, 2))], -1).astype(np.float32)
+    return seq, ps
+
+
+@pytest.mark.parametrize("pos", ["mlp", "table"])
+def test_adaptive_vit_logits_match_flax(pos):
+    kw = dict(img_size=(32, 32), patch_size=4, in_chans=3, num_classes=5, embed_dim=32,
+              depth=2, num_heads=4, adaptive_patching=True, fixed_length=16,
+              use_adaptive_pos_emb=pos == "mlp")
+    seq, ps = _adaptive_inputs(2, 3, 16, 4)
+    jmod = JVIT(attn_impl=JAttnImpl.EINSUM, **kw)
+    params = _params(jmod, jnp.asarray(seq), None, jnp.asarray(ps))
+    assert sorted(jax_to_torch_state(params)) == sorted(export_torch_state(params))
+    ours = load_jax_params(VIT(attn_impl="FLASH", **kw), params).eval()
+    assert sorted(ours.state_dict()) == sorted(export_torch_state(params))
+    with torch.inference_mode():
+        out = ours(torch.from_numpy(seq), seq_ps=torch.from_numpy(ps))
+    _close(out, jmod.apply({"params": params}, jnp.asarray(seq), None, jnp.asarray(ps)),
+           ADAPTIVE_LOGITS_TOL)
+
+
+def test_adaptive_init_draws_the_position_tables_and_refuses_the_sqrt_len_method():
+    cfg = _small_cfg(adaptive_patching=True, fixed_length=16, use_adaptive_pos_emb=True)
+    model = build_classification(cfg).init_weights(torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    assert sd["pos_embed"].shape == (1, 17, 32)  # kept beside the MLP, as in the JAX tree
+    assert abs(sd["pos_embed"].std().item() - 0.02) < 0.004
+    assert sd["token_embeds.1.weight"].shape == (32, 8 * 8 * 3)
+    assert sd["adaptive_pos_dep_emb.0.weight"].shape == (32, 3)
+    with pytest.raises(NotImplementedError, match="VIT input variants"):
+        VIT(adaptive_patching=True, fixed_length=16, sqrt_len_method=True)
+
+
+def _edge_maps():
+    rng = np.random.default_rng(4)
+    canny = np.zeros((64, 64), np.uint8)
+    canny[rng.integers(0, 64, 300), rng.integers(0, 64, 300)] = 255
+    return {"canny": canny, "uniform": rng.uniform(size=(32, 32)),
+            "ramp": (np.arange(64 * 64).reshape(64, 64) % 256).astype(np.uint8)}
+
+
+@pytest.mark.parametrize("edges", sorted(_edge_maps()))
+@pytest.mark.parametrize("fixed_length", [16, 52])
+def test_quadtree_native_matches_numpy_and_jax(edges, fixed_length):
+    domain = _edge_maps()[edges]
+    boxes, vals = native.quadtree_boxes(domain, fixed_length)
+    plain_boxes, plain_vals = quadtree_boxes_plain(domain, fixed_length)
+    np.testing.assert_array_equal(boxes, plain_boxes)
+    np.testing.assert_array_equal(vals, plain_vals)
+    ref = JFixedQuadTree(domain, fixed_length)
+    ours = FixedQuadTree(domain, fixed_length)
+    assert ours.encode_nodes() == ref.encode_nodes() == boxes.tolist()
+    assert [v for _, v in ours.nodes] == [v for _, v in ref.nodes] == vals.tolist()
+    img = np.random.default_rng(5).random((*domain.shape, 3)).astype(np.float32)
+    for got, want in zip(ours.serialize(img, (4, 4, 3)), ref.serialize(img, (4, 4, 3))):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    seq = np.asarray(ours.serialize(img, (4, 4, 3))[0])
+    np.testing.assert_array_equal(ours.deserialize(seq, 4, 3), ref.deserialize(seq, 4, 3))
+
+
+@pytest.mark.parametrize("dataset", ["imagenet", "basic_ct"])
+def test_patchify_matches_jax(dataset):
+    """Eight samples from one seeded generator each side: every smoothing factor
+    (0 draws a random edge map) and Canny threshold the draws give."""
+    rng = np.random.default_rng(6)
+    if dataset == "imagenet":
+        imgs, c = rng.integers(0, 256, size=(8, 32, 32, 3)).astype(np.uint8), 3
+    else:
+        imgs, c = rng.random((8, 32, 32, 1)).astype(np.float32), 1
+    ours = Patchify(fixed_length=16, patch_size=4, num_channels=c, dataset=dataset,
+                    rng=np.random.default_rng(7))
+    ref = JPatchify(fixed_length=16, patch_size=4, num_channels=c, dataset=dataset,
+                    rng=np.random.default_rng(7))
+    for img in imgs:
+        got, want = ours(img), ref(img)
+        for g, w in zip(got[:3], want[:3]):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+        assert got[3].encode_nodes() == want[3].encode_nodes()
+    with pytest.raises(RuntimeError, match="explicit"):
+        Patchify(fixed_length=16, patch_size=4)(imgs[0])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        Patchify3D(fixed_length=15)
+
+
+def test_native_first_build_from_several_processes_loads_a_whole_library(tmp_path):
+    """Four processes build the library into an empty directory at once: each loads
+    a whole library (its tree equals the numpy build's) and no partial file stays."""
+    code = (
+        "import sys, pathlib, numpy as np\n"
+        "from ucf_vit_tpu_torch import native\n"
+        "native.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+        "d = np.random.default_rng(0).integers(0, 256, (64, 64)).astype(np.uint8)\n"
+        "b, v = native.quadtree_boxes(d, 40)\n"
+        "print(int(b.sum()), int(v.sum()))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 4, [e for _, e in outs]
+    d = np.random.default_rng(0).integers(0, 256, (64, 64)).astype(np.uint8)
+    b, v = quadtree_boxes_plain(d, 40)
+    assert {o for o, _ in outs} == {f"{int(b.sum())} {int(v.sum())}\n"}
+    assert [f.name for f in tmp_path.iterdir()] == [native.library_path().name]

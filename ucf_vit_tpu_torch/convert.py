@@ -10,13 +10,17 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
   decoder_blocks_1/mlp/...     decoder_blocks.1.mlp...    (as blocks_i)
   norm/scale                   norm.weight                identity
   token_embed/proj/kernel      token_embeds.proj.weight   [*k,i,o]->[o,i,*k]
+  token_embed/{norm_in,proj,norm_out}
+                               token_embeds.{0,1,2}       (adaptive LN-Linear-LN)
+  adaptive_pos_dep_emb/linear/kernel, decoder_adaptive_pos_dep_emb/linear/kernel
+                               (decoder_)adaptive_pos_dep_emb.0.weight  transpose
   pos_embed, cls_token, gamma  same name                  identity
   mask_token, decoder_pos_embed same name                 identity
   time_embedding_map/linear1/kernel
                                timeEmbeddingMap.linear1.weight  transpose
 
-It covers the ported modules (PatchEmbed, Mlp, Attention, Block, VIT, MAE,
-DiffusionVIT; its time table is a constant on both sides, in neither tree),
+It covers the ported modules (PatchEmbed, LinearTokenEmbed, AdaptivePosMLP,
+Mlp, Attention, Block, VIT, MAE, DiffusionVIT; its time table is a constant on both sides, in neither tree),
 from a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
 the JAX side: `blocks/block/<leaves stacked [depth, ...]>`, recognised as
 `ucf_vit_tpu/tools/convert_checkpoint.py:160-185` does) is unstacked into
@@ -33,7 +37,19 @@ import numpy as np
 import torch
 
 
-def _segment(name: str) -> str:
+# LinearTokenEmbed's children -> their places in the reference's nn.Sequential
+_LTE_CHILD = {"norm_in": "0", "proj": "1", "norm_out": "2"}
+# the flax modules that are a Sequential of (Linear, GELU) in torch
+_SEQ0_PARENTS = ("adaptive_pos_dep_emb", "decoder_adaptive_pos_dep_emb")
+
+
+def _segment(name: str, parent: str = "", lte: bool = False) -> str:
+    """One flax path segment in torch's spelling; `lte`: the segment is a
+    child of a LinearTokenEmbed (a tree that holds `norm_in`)."""
+    if lte and name in _LTE_CHILD:
+        return _LTE_CHILD[name]
+    if parent in _SEQ0_PARENTS and name == "linear":
+        return "0"
     m = re.fullmatch(r"(decoder_blocks|blocks)_(\d+)", name)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
@@ -51,6 +67,15 @@ def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()) -> Iterator[Tuple[
             yield from _leaves(v, path + (k,))
         else:
             yield path + (k,), v
+
+
+def _torch_segments(params: Dict[str, Any], path: Tuple[str, ...]) -> list:
+    """The torch spelling of a leaf's flax path, its last segment left out."""
+    out, tree, parent = [], params, ""
+    for name in path[:-1]:
+        out.append(_segment(name, parent, lte="norm_in" in tree))
+        tree, parent = tree[name], name
+    return out
 
 
 def _is_scan_blocks(tree: Any) -> bool:
@@ -91,7 +116,7 @@ def jax_to_torch_state(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
                 arr = arr.transpose(nd + 1, nd, *range(nd))
         elif name == "scale":  # LayerNorm
             name = "weight"
-        key = ".".join([_segment(s) for s in path[:-1]] + [name])
+        key = ".".join(_torch_segments(params, path) + [name])
         out[key] = np.ascontiguousarray(arr)
     return out
 

@@ -1,7 +1,7 @@
 """DataModule: multi-source datasets, step-level dataset scheduling, epoch
-reshuffles, and a background-thread prefetcher. The port's own copy of the
-non-adaptive parts of `ucf_vit_tpu/data/datamodule.py`: the same seeds give
-the same batches, array for array.
+reshuffles, and a background-thread prefetcher. The port's own copy of
+`ucf_vit_tpu/data/datamodule.py`: the same seeds give the same batches,
+array for array, adaptive (2-D) ones too.
 
 Each dataset key gets one chain (`FileReader` -> tiles -> `ShuffleBuffer`
 -> `ProcessChannels` -> `BatchIterator`) with a numpy Generator of its own,
@@ -9,6 +9,13 @@ keyed by (seed, epoch, dataset key). Datasets are scheduled across steps:
 each step trains one dataset, chosen by a deterministic weighted
 round-robin over the load-balanced group list (`gx`). Files are sharded per
 process (`proc_rank` of `num_procs`); one process is shard 0 of 1.
+
+Adaptive patching: each chain draws an augmentation seed from its
+generator, and sample i of the chain patchifies from `SeedSequence([seed,
+i])`, so the stream does not depend on `num_workers` (as in the JAX
+package, `num_workers` N > 1 makes samples in a spawn pool of N - 1
+processes, 0 and 1 in line) and a mid-epoch resume skips samples without
+patchifying them.
 """
 
 from __future__ import annotations
@@ -94,6 +101,7 @@ class DataModule:
         dict_in_variables: Dict,
         num_channels_used: Dict,
         batch_size: int = 64,
+        patch_size: int = 16,
         tile_size_x: int = 64,
         tile_size_y: int = 64,
         tile_size_z: Optional[int] = None,
@@ -104,6 +112,8 @@ class DataModule:
         tile_overlap: float = 0.0,
         use_all_data: bool = False,
         adaptive_patching: bool = False,
+        fixed_length: int = 4096,
+        separate_channels: bool = False,
         data_par_size: int = 1,
         dataset: str = "imagenet",
         return_label: bool = False,
@@ -113,6 +123,8 @@ class DataModule:
         num_procs: int = 1,
         seed: int = 0,
         prefetch: int = 2,
+        num_workers: int = 0,
+        return_qdt: bool = False,
     ):
         if len(dict_root_dirs) > data_par_size:
             raise ValueError("need at least one data-parallel rank per dataset")
@@ -135,6 +147,7 @@ class DataModule:
         }
         self.num_channels_used = num_channels_used
         self.batch_size = batch_size
+        self.patch_size = patch_size
         self.tile_size = (tile_size_x, tile_size_y, tile_size_z)
         self.twoD = twoD
         self.single_channel = single_channel
@@ -142,6 +155,8 @@ class DataModule:
         self.tile_overlap = tile_overlap
         self.use_all_data = use_all_data
         self.adaptive_patching = adaptive_patching
+        self.fixed_length = fixed_length
+        self.separate_channels = separate_channels
         self.data_par_size = data_par_size
         self.dataset = dataset
         self.return_label = return_label
@@ -150,6 +165,9 @@ class DataModule:
         self.proc_rank = proc_rank
         self.num_procs = num_procs
         self.prefetch = prefetch
+        # as in the JAX package: 1 is the in-line worker, N > 1 a pool of N - 1
+        self.num_workers = max(int(num_workers) - 1, 0)
+        self.return_qdt = return_qdt
         self._epoch = 0
         self._seed = seed
 
@@ -201,10 +219,9 @@ class DataModule:
                                    tile_overlap=self.tile_overlap,
                                    use_all_data=self.use_all_data)
         shuffled = ShuffleBuffer(tiles, self.dict_buffer_sizes[key], rng=rng)
-        # the JAX package draws each chain's augmentation seed here, before any
-        # shuffle draw; the draw is kept (its value unused without adaptive
-        # patching) so that the shuffle stream is the same
-        rng.integers(0, 2**63)
+        # the chain's augmentation seed, drawn before any shuffle draw, as the
+        # JAX package draws it (and draws it without adaptive patching too)
+        aug_seed = int(rng.integers(0, 2**63))
         processed = ProcessChannels(
             shuffled,
             num_channels=self.num_channels_used[key],
@@ -213,6 +230,15 @@ class DataModule:
             dataset=self.dataset,
             batch_size=self.batch_size,
             adaptive_patching=self.adaptive_patching,
+            separate_channels=self.separate_channels,
+            patch_size=self.patch_size,
+            fixed_length=self.fixed_length,
+            twoD=self.twoD,
+            num_classes=self.num_classes,
+            num_workers=self.num_workers,
+            return_qdt=self.return_qdt,
+            rng=rng,
+            aug_seed=aug_seed,
         )
         return BatchIterator(processed, self.batch_size, self.dataset)
 
@@ -281,6 +307,9 @@ class DataModule:
         if self.dict_data_train is None:
             raise RuntimeError("call setup() first")
         weights = self._schedule_weights()
+        # this epoch's chains: a prefetch thread still running after the epoch
+        # ends must not wrap around into the next epoch's chains (`reset`)
+        chains = dict(self.dict_data_train)
 
         # advance the schedule and hand each chain its skip budget before any
         # iteration starts: the prefetch thread must not race a mutation
@@ -290,10 +319,10 @@ class DataModule:
             pre_emitted[k] += 1
         for k, n in pre_emitted.items():
             if n:
-                self.dict_data_train[k].source.skip_samples += n * self.batch_size
+                chains[k].source.skip_samples += n * self.batch_size
 
         def scheduled():
-            iters = {k: iter(self.dict_data_train[k]) for k in weights}
+            iters = {k: iter(chains[k]) for k in weights}
             emitted = dict(pre_emitted)
             while iters:
                 # the dataset furthest below its share goes next
@@ -307,7 +336,7 @@ class DataModule:
                             del iters[k]
                             exhausted = True
                             break
-                        iters[k] = iter(self.dict_data_train[k])
+                        iters[k] = iter(chains[k])
                         try:
                             batch = next(iters[k])
                         except StopIteration:

@@ -4,18 +4,24 @@ processing -> batching. The port's own copy of the non-adaptive parts of
 draws and batch layout, so that the same files and seeds give the same
 batches, array for array.
 
-Batches are dicts of numpy arrays: `{x [B,C,...], (label), variables}`.
+Batches are dicts of numpy arrays: `{x [B,C,...], (label), variables}`,
+with adaptive patching also `seq`, `seq_size`, `seq_pos` (and `seq_label`,
+`qdt`).
 
-Adaptive patching (the quadtree/octree `Patchify`, label serialisation and
-its spawn pool) is not ported: `ProcessChannels` raises for it
-(`ADAPTIVE_NOT_PORTED`).
+Adaptive patching is ported in 2-D (the quadtree `Patchify`, label
+serialisation, per-sample augmentation seeds and the spawn pool,
+`ProcessChannels`); 3-D (the octree) raises (ROADMAP.md, item 6).
 """
 
 from __future__ import annotations
 
 import collections
 import math
+import multiprocessing.context
 import os
+import sys
+import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterator, List, Optional, Sequence, Tuple
@@ -25,12 +31,6 @@ import numpy as np
 from ucf_vit_tpu_torch.data import nifti
 
 READ_THREADS = 4  # FileReader's read threads; it reads twice as many files ahead
-
-ADAPTIVE_NOT_PORTED = (
-    "adaptive_patching data (the quadtree/octree patchify) is not ported yet "
-    "(ROADMAP.md, modules to port, item 6: VIT input variants)"
-)
-
 
 # ---------------------------------------------------------------------------
 # File reading
@@ -325,39 +325,169 @@ class ProcessChannels:
     variable's stream is buffered and flushed a full batch at a time, so
     every batch is channel-pure) and make sample dicts; see `collate`.
 
+    Adaptive patching (2-D, `data/transform.Patchify`): each sample also
+    carries `seq` `[C', L, p^2]`, `seq_size` `[C', L]` and `seq_pos` `[C',
+    L, 2]` (C' = 1 for one tree across the channels), `seq_label` for a
+    labelled basic_ct sample, and with `return_qdt` the tree objects. With
+    `aug_seed` the patchify draws of the sample with consumption index i come
+    from `SeedSequence([aug_seed, i])`, whatever process makes it.
+    `num_workers > 0` makes samples in a spawn pool of that many processes
+    (`make_pool`: the children import the port's data modules and nothing
+    else, so none touches the card), started at the first iteration and kept
+    until this object is collected; that needs `aug_seed`. 3-D adaptive
+    patching (the octree) raises.
+
     `skip_samples` (mid-epoch fast-forward): the upstream chain (read, tile,
-    shuffle) runs as usual so its state stays exact, and a None placeholder
-    is emitted for each skipped sample, which `BatchIterator` collapses into
-    None batches."""
+    shuffle) runs as usual so its state stays exact, the skipped samples are
+    not patchified, and a None placeholder is emitted for each, which
+    `BatchIterator` collapses into None batches."""
 
     def __init__(self, source, num_channels: int, single_channel: bool,
                  return_label: bool, dataset: str, batch_size: int = 1,
-                 adaptive_patching: bool = False):
-        if adaptive_patching:
-            raise NotImplementedError(ADAPTIVE_NOT_PORTED)
+                 adaptive_patching: bool = False, separate_channels: bool = False,
+                 patch_size: int = 16, fixed_length: int = 196, twoD: bool = True,
+                 num_classes: Optional[int] = None, num_workers: int = 0,
+                 return_qdt: bool = False, rng: Optional[np.random.Generator] = None,
+                 aug_seed: Optional[int] = None):
         self.source = source
         self.num_channels = num_channels
         self.single_channel = single_channel
         self.return_label = return_label
         self.dataset = dataset
         self.batch_size = batch_size
+        self.adaptive_patching = adaptive_patching
+        self.separate_channels = separate_channels
+        self.patch_size = patch_size
+        self.fixed_length = fixed_length
+        self.twoD = twoD
+        self.num_classes = num_classes
+        self.num_workers = int(num_workers)
+        self.return_qdt = return_qdt
+        self.aug_seed = aug_seed
         self.skip_samples = 0
+        # a sample's consumption index, counted on across the re-iterations
+        # of a looping epoch, as in the JAX pipeline
+        self._next_idx = 0
+        self._pool_ex = None
+        self._pool_lock = threading.Lock()
+        if adaptive_patching:
+            from ucf_vit_tpu_torch.data.transform import Patchify, Patchify3D
 
-    @staticmethod
-    def _make_sample(np_image, vars_out, label) -> dict:
+            if self.num_workers > 0 and aug_seed is None:
+                raise ValueError("num_workers > 0 needs aug_seed: each sample's draws must "
+                                 "not depend on the process that makes it")
+            nc = 1 if (single_channel or separate_channels) else num_channels
+            self.patchify = (Patchify if twoD else Patchify3D)(
+                fixed_length=fixed_length, patch_size=patch_size, num_channels=nc,
+                dataset=dataset, rng=rng)
+
+    def _serialize_label(self, qdt, np_label):
+        p = self.patch_size
+        if self.dataset == "basic_ct":
+            seq_label, _, _ = qdt.serialize_labels(np.expand_dims(np_label, axis=-1),
+                                                   size=(p, p, 1))
+            out = np.asarray(seq_label)
+            return out[..., 0] if out.ndim == 4 else out  # [L, p, p]
+        seq_label, _, _ = qdt.serialize(np.expand_dims(np_label, axis=-1), size=(p, p, 1))
+        return np.asarray(seq_label, dtype=np.float32).reshape(self.fixed_length, -1)
+
+    def _patchify_sample(self, np_image, rng=None):
+        """np_image `[C, H, W]` -> (seq, size, pos, tree or trees), drawing
+        from `rng` (default: the patchify's own generator)."""
+        if self.single_channel or self.separate_channels:
+            chans = [self.patchify(np.expand_dims(np_image[j], axis=-1), rng)
+                     for j in range(np_image.shape[0])]
+            if len(chans) == 1:
+                return chans[0]
+            return (np.stack([c[0] for c in chans]), np.stack([c[1] for c in chans]),
+                    np.stack([c[2] for c in chans]), [c[3] for c in chans])
+        return self.patchify(np.moveaxis(np_image, 0, -1), rng)
+
+    def _make_sample(self, np_image, vars_out, label, idx=None) -> dict:
+        """One sample dict. With `aug_seed` and `idx` the patchify draws come
+        from a generator made for this call alone, so concurrent calls (the
+        server's handler threads) never share one."""
+        rng = None
+        if self.adaptive_patching and self.aug_seed is not None and idx is not None:
+            rng = np.random.default_rng(np.random.SeedSequence([self.aug_seed, int(idx)]))
         sample = {"x": np.asarray(np_image, dtype=np.float32), "variables": vars_out}
+        if self.adaptive_patching:
+            seq, size, pos, qdt = self._patchify_sample(np_image, rng)
+            if seq.ndim == 2:  # one channel: [L, p^2]
+                seq = seq[None]
+            size = np.asarray(size, dtype=np.float32)
+            pos = np.asarray(pos, dtype=np.float32)
+            if size.ndim == 1:  # one tree across the channels: add their axis
+                size, pos = size[None], pos[None]
+            sample["seq"] = seq.astype(np.float32)
+            sample["seq_size"] = size
+            sample["seq_pos"] = pos
+            if self.return_qdt:
+                sample["qdt"] = qdt
+            if label is not None and self.dataset != "imagenet":
+                sample["seq_label"] = self._serialize_label(
+                    qdt[0] if isinstance(qdt, list) else qdt, label)
         if label is not None:
             sample["label"] = (np.asarray(label) if np.ndim(label) > 0
                                else np.asarray(label, dtype=np.int64))
         return sample
 
-    def __iter__(self):
+    def _spec(self) -> dict:
+        """What a pool child needs to make samples (`_pool_init`)."""
+        return dict(num_channels=self.num_channels, single_channel=self.single_channel,
+                    return_label=self.return_label, dataset=self.dataset,
+                    batch_size=self.batch_size, adaptive_patching=self.adaptive_patching,
+                    separate_channels=self.separate_channels, patch_size=self.patch_size,
+                    fixed_length=self.fixed_length, twoD=self.twoD,
+                    num_classes=self.num_classes, return_qdt=self.return_qdt,
+                    aug_seed=self.aug_seed)
+
+    def _indexed_raw(self):
+        """Raw samples tagged with their consumption index; the ones
+        `skip_samples` covers come out as None."""
         for item in self._raw_samples():
+            idx = self._next_idx
+            self._next_idx += 1
             if self.skip_samples > 0:
                 self.skip_samples -= 1
                 yield None
             else:
-                yield self._make_sample(*item)
+                yield (*item, idx)
+
+    def __iter__(self):
+        if self.num_workers <= 0 or not self.adaptive_patching:
+            for item in self._indexed_raw():
+                yield None if item is None else self._make_sample(*item)
+            return
+        window = 2 * self.num_workers
+        pool = self._pool()
+        pending = collections.deque()
+        try:
+            for args in self._indexed_raw():
+                if args is None:  # a skipped sample: emit what is in flight first
+                    while pending:
+                        yield pending.popleft().result()
+                    yield None
+                    continue
+                pending.append(pool.submit(_pool_make_sample, args))
+                while len(pending) >= window:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+        finally:  # an epoch that stops early drops the samples in flight
+            for f in pending:
+                f.cancel()
+
+    def _pool(self):
+        """The spawn pool, started at the first iteration and kept for the
+        next ones (a looping epoch iterates its chain again); shut down when
+        this object is collected."""
+        with self._pool_lock:
+            if self._pool_ex is None:
+                self._pool_ex = make_pool(self._spec(), self.num_workers)
+                weakref.finalize(self, self._pool_ex.shutdown, wait=False,
+                                 cancel_futures=True)
+            return self._pool_ex
 
     def _raw_samples(self):
         num_buffers = self.num_channels if self.single_channel else 1
@@ -378,16 +508,91 @@ class ProcessChannels:
                         yield buffers[i].pop()
 
 
+_POOL_PC: Optional[ProcessChannels] = None
+
+
+def make_pool(spec: dict, workers: int):
+    """A spawn pool of `workers` processes, each holding a source-less
+    `ProcessChannels(**spec)` (`_pool_make_sample` makes a sample there).
+    Spawn, never fork: the parent may hold a CUDA context. A spawned child
+    would also run the parent's main module again (say the trainer's, which
+    imports torch); these children do not (`_LeanSpawnProcess`), so one
+    imports this module, numpy, cv2 and the port's data modules, and
+    nothing that could touch the card. Every worker is started here, in
+    the calling thread: with spawn, `ProcessPoolExecutor` would otherwise
+    start them one by one inside later `submit` calls, in whatever thread
+    makes them (a loader's prefetch thread, a server's handler)."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(max_workers=int(workers), mp_context=_LeanSpawnContext(),
+                               initializer=_pool_init, initargs=(spec,))
+    pool._launch_processes()  # all of them now; `submit` then finds the pool full
+    return pool
+
+
+# `_LeanSpawnProcess` edits the process-wide `__main__` while it starts a
+# child: one start at a time, so that two pools started at once cannot leave
+# it edited
+_MAIN_SWAP_LOCK = threading.Lock()
+
+
+class _LeanSpawnProcess(multiprocessing.context.SpawnProcess):
+    @staticmethod
+    def _Popen(process_obj):
+        # a spawned child imports the main module when `__main__` names a
+        # spec or a file (`multiprocessing.spawn.get_preparation_data`):
+        # hide both while the child is prepared
+        with _MAIN_SWAP_LOCK:
+            main = sys.modules["__main__"]
+            saved = {k: main.__dict__[k] for k in ("__spec__", "__file__")
+                     if k in main.__dict__}
+            main.__dict__["__spec__"] = None
+            main.__dict__.pop("__file__", None)
+            try:
+                return multiprocessing.context.SpawnProcess._Popen(process_obj)
+            finally:
+                main.__dict__.pop("__spec__", None)
+                main.__dict__.update(saved)
+
+
+class _LeanSpawnContext(multiprocessing.context.SpawnContext):
+    Process = _LeanSpawnProcess
+
+
+def _pool_init(spec: dict) -> None:
+    global _POOL_PC
+    _POOL_PC = ProcessChannels(source=None, **spec)
+    # one of several parallel workers: OpenCV's own thread pool in each (as many
+    # threads as cores) would oversubscribe the host on calls this small; the
+    # results are the same arrays either way
+    from ucf_vit_tpu_torch.data.quadtree import _cv2
+
+    _cv2().setNumThreads(1)
+
+
+def _pool_make_sample(args) -> dict:
+    img, vars_out, label, idx = args
+    return _POOL_PC._make_sample(img, vars_out, label, idx)
+
+
 def collate(samples: List[dict], dataset: str) -> dict:
-    """Stack sample dicts into a numpy batch: x [B,C,...]; labels stack;
-    basic_ct labels get a leading channel dim."""
+    """Stack sample dicts into a numpy batch: x [B,C,...]; seq, seq_size and
+    seq_pos keep their channel axis; labels stack; basic_ct labels get a
+    leading channel dim; trees (`qdt`) stay a list."""
     batch = {"variables": samples[0]["variables"]}
     batch["x"] = np.stack([s["x"] for s in samples])
+    for key in ("seq", "seq_size", "seq_pos"):
+        if key in samples[0]:
+            batch[key] = np.stack([s[key] for s in samples])
     if "label" in samples[0]:
         labels = [s["label"] for s in samples]
         if dataset == "basic_ct" and labels[0].ndim > 0:
             labels = [np.expand_dims(l, axis=0) for l in labels]
         batch["label"] = np.stack(labels)
+    if "seq_label" in samples[0]:
+        batch["seq_label"] = np.stack([s["seq_label"] for s in samples])
+    if "qdt" in samples[0]:
+        batch["qdt"] = [s["qdt"] for s in samples]
     return batch
 
 

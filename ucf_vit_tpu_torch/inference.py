@@ -29,7 +29,7 @@ from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import MAE, DiffusionVIT, ddpm_sample, ddpm_schedule
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
-from ucf_vit_tpu_torch.tasks import build_task, time_steps
+from ucf_vit_tpu_torch.tasks import build_task, model_inputs, time_steps
 
 Device = Union[str, torch.device, None]
 
@@ -77,17 +77,22 @@ def load_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
 
 
 @torch.no_grad()
-def reconstruct(model: torch.nn.Module, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+def reconstruct(model: torch.nn.Module, x: torch.Tensor, seed: int = 0,
+                seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """An MAE's reconstruction of images `x` `[B, C, *spatial]` in image
     space: the prediction of every token, unpatchified, under the mask that
     noise drawn from `torch.Generator(x.device).manual_seed(seed)` gives, so
     that the same request always gets the same visible-token subset (the
-    JAX server's MAE branch, `ucf_vit_tpu/serve.py:277-297`). Puts the model
-    in eval mode."""
+    JAX server's MAE branch, `ucf_vit_tpu/serve.py:277-297`). An adaptive
+    MAE takes the sequence `[B, C, L, p^nd]` and its descriptors `seq_ps`
+    and returns its predicted tokens `[B, L, p^nd * C]`. Puts the model in
+    eval mode."""
     if not isinstance(model, MAE):
         raise TypeError(f"reconstruct takes an MAE, got {type(model).__name__}")
     noise = mask_noise(model, x.shape[0], seed, x.device)
-    pred, _ = model.eval()(x, mask_noise=noise)
+    pred, _ = model.eval()(x, mask_noise=noise, seq_ps=seq_ps)
+    if model.adaptive_patching:
+        return pred
     return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)
 
 
@@ -223,7 +228,8 @@ def evaluate_classification(cfg: Config, checkpoint_dir: Optional[str] = None,
                 if seen >= num_samples:
                     break
                 b = to_device(batch, dev)
-                logits = model(b["x"])
+                x, ps = model_inputs(cfg, b)
+                logits = model(x, seq_ps=ps)
                 correct += float(accuracy(logits, b["label"])) * logits.shape[0]
                 seen += logits.shape[0]
     finally:

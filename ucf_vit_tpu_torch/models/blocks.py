@@ -162,6 +162,27 @@ class PatchEmbed(nn.Module):
         return x
 
 
+class LinearTokenEmbed(nn.Sequential):
+    """Token embed of adaptively pre-patched input (`ucf_vit_tpu/models/
+    blocks.py:321`): LayerNorm -> Linear -> LayerNorm, `[B, L, F] -> [B, L,
+    D]`, as the reference's `nn.Sequential` (state names `0`, `1`, `2`). It
+    takes no `dtype`, as the JAX module does."""
+
+    def __init__(self, in_features: int, embed_dim: int):
+        super().__init__(layer_norm(in_features), Linear(in_features, embed_dim),
+                         layer_norm(embed_dim))
+
+
+class AdaptivePosMLP(nn.Sequential):
+    """Position embedding from the adaptive patches' `(size, centre...)`
+    descriptors (`ucf_vit_tpu/models/blocks.py:335`): Linear(1 + nd -> D),
+    then the exact erf GELU whatever the blocks use; `[B, L, 1 + nd] -> [B,
+    L, D]`. The Linear is state name `0`, as in the reference."""
+
+    def __init__(self, in_features: int, embed_dim: int):
+        super().__init__(Linear(in_features, embed_dim), nn.GELU(approximate="none"))
+
+
 class Mlp(nn.Module):
     """fc1 -> GELU (tanh approximation unless gelu_approx=False) -> fc2."""
 

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ucf_vit_tpu_torch.models.blocks import Block, EmbeddingDenseLayer, Linear, layer_norm
-from ucf_vit_tpu_torch.models.vit import VIT
+from ucf_vit_tpu_torch.models.vit import VIT, _not_ported
 from ucf_vit_tpu_torch.ops.pos_embed import (
     get_2d_sincos_pos_embed,
     get_3d_sincos_pos_embed,
@@ -58,6 +58,8 @@ class DiffusionVIT(VIT):
             raise ValueError("DiffusionVIT runs with class_token=False")
         if num_classes is not None:
             raise ValueError("DiffusionVIT has no classification head")
+        if vit_kwargs.get("adaptive_patching"):
+            raise _not_ported("adaptive patching in DiffusionVIT", "VIT input variants")
         super().__init__(img_size=img_size, in_chans=in_chans, class_token=False,
                          num_classes=None, **vit_kwargs)
         self.linear_decoder = bool(linear_decoder)

@@ -6,7 +6,12 @@ per sample, so the encoder runs the short sequence; the decoder embeds the
 kept tokens, appends the mask token for the rest, un-shuffles them by
 `ids_restore`, adds its fixed-initialised sincos position embedding and runs
 its own blocks (under the encoder's `remat`), its norm and the prediction
-head; or, with `linear_decoder`, only the prediction head. The mask noise is
+head; or, with `linear_decoder`, only the prediction head. With adaptive
+patching the input is the quadtree's sequence `[B, C, L, p^nd]`, both
+position tables are drawn `0.02 * N(0, 1)`, and with `use_adaptive_pos_emb`
+the encoder and the decoder each embed the descriptors `seq_ps` by their own
+`AdaptivePosMLP` in place of their table (the decoder then has no table, as
+in the JAX model). The mask noise is
 injected by the caller (`mask_noise`) or drawn from the model's generator
 (`VIT.set_generator`), never from torch's global one. `seq_pack` folds
 `seq_pack` samples' kept tokens into one encoder sequence with
@@ -16,9 +21,8 @@ As in the JAX model the decoder adds an f32 position table to the bf16
 embedding, so under the bf16 policy the decoder's residual stream is f32;
 the decoder norm and the prediction head take no dtype, so `pred` is f32.
 
-Not ported, and refused with the ROADMAP.md item: the adaptive decoder
-position MLP and varemb (VIT input variants), `pipe_par_size > 1`
-(pipeline + MoE).
+Not ported, and refused with the ROADMAP.md item: varemb and the sqrt-len
+method (VIT input variants), `pipe_par_size > 1` (pipeline + MoE).
 """
 
 from __future__ import annotations
@@ -29,15 +33,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ucf_vit_tpu_torch.models.blocks import Block, Linear, layer_norm
-from ucf_vit_tpu_torch.models.vit import VIT, _not_ported, _to_tuple
+from ucf_vit_tpu_torch.models.blocks import AdaptivePosMLP, Block, Linear, layer_norm
+from ucf_vit_tpu_torch.models.vit import VIT, _to_tuple
 from ucf_vit_tpu_torch.ops.attention import SHORT_SEQ_THRESHOLD
 from ucf_vit_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed, get_3d_sincos_pos_embed
 
 
 class MAE(VIT):
-    """Masked autoencoder: `forward(x, mask_noise=None) -> (pred [B, L,
-    p^ndim * C], mask [B, L])`, the mask 1 where a token was masked."""
+    """Masked autoencoder: `forward(x, mask_noise=None, seq_ps=None) ->
+    (pred [B, L, p^ndim * C], mask [B, L])`, the mask 1 where a token was
+    masked."""
 
     def __init__(
         self,
@@ -56,16 +61,18 @@ class MAE(VIT):
         twoD: bool = True,
         **vit_kwargs,
     ):
-        if use_adaptive_pos_emb:
-            raise _not_ported("the adaptive decoder position MLP", "VIT input variants")
         if class_token:
             raise ValueError("MAE runs with class_token=False")
         if num_classes is not None:
             raise ValueError("MAE has no classification head")
-        num_patches = int(np.prod([s // patch_size for s in _to_tuple(img_size, twoD)]))
+        if vit_kwargs.get("adaptive_patching"):
+            num_patches = int(vit_kwargs.get("fixed_length") or 0)
+        else:
+            num_patches = int(np.prod([s // patch_size for s in _to_tuple(img_size, twoD)]))
         len_keep = int(num_patches * (1 - float(mask_ratio)))
         super().__init__(img_size=img_size, patch_size=patch_size, twoD=twoD,
                          class_token=False, num_classes=None,
+                         use_adaptive_pos_emb=use_adaptive_pos_emb,
                          block_seg_len=len_keep if seq_pack > 1 else None, **vit_kwargs)
         self.mask_ratio = float(mask_ratio)
         self.seq_pack = int(seq_pack)
@@ -84,17 +91,21 @@ class MAE(VIT):
         self.linear_decoder = bool(linear_decoder)
         self.decoder_embed_dim = int(decoder_embed_dim)
         width = self.embed_dim if self.linear_decoder else self.decoder_embed_dim
-        patch_dim = self.patch_size ** len(self.grid_size) * self.token_embeds.proj.in_channels
         self.mask_token = nn.Parameter(torch.zeros(1, 1, width))
         # the prediction head and the decoder norm take no dtype in the JAX model
-        self.decoder_pred = Linear(width, patch_dim)
+        self.decoder_pred = Linear(width, self.patch_dim)
         self.decoder_blocks = None
+        self.decoder_pos_embed = self.decoder_adaptive_pos_dep_emb = None
         if self.linear_decoder:
             return
         self.decoder_embed = Linear(self.embed_dim, self.decoder_embed_dim, dtype=self.dtype)
         self.decoder_norm = layer_norm(self.decoder_embed_dim)
-        self.decoder_pos_embed = nn.Parameter(
-            torch.zeros(1, self.num_patches, self.decoder_embed_dim))
+        if self.use_adaptive_pos_emb:
+            self.decoder_adaptive_pos_dep_emb = AdaptivePosMLP(1 + len(self.grid_size),
+                                                               self.decoder_embed_dim)
+        else:
+            self.decoder_pos_embed = nn.Parameter(
+                torch.zeros(1, self.num_patches, self.decoder_embed_dim))
         dpr = np.linspace(0.0, self.drop_path_rate, decoder_depth)
         self.decoder_blocks = nn.ModuleList(
             Block(self.decoder_embed_dim, decoder_num_heads, mlp_ratio=mlp_ratio_decoder,
@@ -115,10 +126,13 @@ class MAE(VIT):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "MAE":
         """VIT's initialisers, the mask token at zero and the decoder's position
-        embedding from its sincos table (`_decoder_sincos_init`)."""
+        embedding from its sincos table (`_decoder_sincos_init`; adaptive:
+        0.02 * N(0, 1))."""
         super().init_weights(generator)
         self.mask_token.zero_()
-        if self.decoder_blocks is not None:
+        if self.decoder_pos_embed is not None and self.adaptive_patching:
+            self.decoder_pos_embed.normal_(generator=generator).mul_(0.02)
+        elif self.decoder_pos_embed is not None:
             table = torch.from_numpy(self.decoder_sincos_table())
             self.decoder_pos_embed.copy_(table.reshape(self.decoder_pos_embed.shape))
         return self
@@ -150,8 +164,11 @@ class MAE(VIT):
 
     # --------------------------------------------------------------- decoder
 
-    def mask_head(self, x: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
-        """Append the mask tokens, un-shuffle, decode (`:213`)."""
+    def mask_head(self, x: torch.Tensor, ids_restore: torch.Tensor,
+                  seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Append the mask tokens, un-shuffle, decode (`:213`); with
+        `use_adaptive_pos_emb` the decoder's position embedding is its MLP of
+        `seq_ps`."""
         if not self.linear_decoder:
             x = self.decoder_embed(x)
         b, n_keep, d = x.shape
@@ -160,15 +177,21 @@ class MAE(VIT):
         x = torch.gather(x, 1, ids_restore[:, :, None].expand(-1, -1, d))
         if self.linear_decoder:
             return self.decoder_pred(x)
-        x = x + self.decoder_pos_embed
+        if self.decoder_adaptive_pos_dep_emb is not None:
+            if seq_ps is None:
+                raise ValueError("use_adaptive_pos_emb needs seq_ps")
+            x = x + self.decoder_adaptive_pos_dep_emb(seq_ps)
+        else:
+            x = x + self.decoder_pos_embed
         x = self._run_stack(self.decoder_blocks, x)
         return self.decoder_pred(self.decoder_norm(x))
 
     # --------------------------------------------------------------- forward
 
-    def forward_features(self, x: torch.Tensor, mask_noise: Optional[torch.Tensor] = None
+    def forward_features(self, x: torch.Tensor, mask_noise: Optional[torch.Tensor] = None,
+                         seq_ps: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.apply_pos_embed(self.embed_tokens(x))
+        x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
         x, mask, ids_restore = self.random_masking(x, mask_noise)
         # after masking, as in the JAX model (and the reference)
         x = self.patch_drop(x)
@@ -182,7 +205,7 @@ class MAE(VIT):
             x = x.reshape(b, n, d)
         return self.norm(x), mask, ids_restore
 
-    def forward(self, x: torch.Tensor, mask_noise: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x, mask, ids_restore = self.forward_features(x, mask_noise)
-        return self.mask_head(x, ids_restore), mask
+    def forward(self, x: torch.Tensor, mask_noise: Optional[torch.Tensor] = None,
+                seq_ps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, mask, ids_restore = self.forward_features(x, mask_noise, seq_ps)
+        return self.mask_head(x, ids_restore, seq_ps), mask

@@ -1,12 +1,20 @@
 """VIT encoder + classification head (port of `ucf_vit_tpu/models/vit.py`).
 
-The port has the non-adaptive model, for serving and training: conv patch
-embed, class token, learned position embedding initialised from the sincos
-table, patch dropout, pre-norm blocks (each under activation checkpointing
-with `remat`), final norm, class-token pool and head, in f32 or under the
-bf16 compute policy (`dtype`, see `models/blocks.py`). Adaptive patching,
-variable embeddings, pipelined blocks and MoE raise NotImplementedError
-until their slices (ROADMAP.md).
+The port has the model for serving and training: conv patch embed, class
+token, learned position embedding initialised from the sincos table, patch
+dropout, pre-norm blocks (each under activation checkpointing with
+`remat`), final norm, class-token pool and head, in f32 or under the bf16
+compute policy (`dtype`, see `models/blocks.py`).
+
+Adaptive patching (the quadtree's tokens, `data/transform.py`): the input
+is the serialized sequence `[B, C, L, p^nd]` of `fixed_length` patches,
+embedded by `LinearTokenEmbed` over `[B, L, p^nd * C]` (the channel
+fastest); the learned position table is drawn `0.02 * N(0, 1)`, and with
+`use_adaptive_pos_emb` the patches' `(size, centre...)` descriptors `seq_ps`
+`[B, L, 1 + nd]` go through `AdaptivePosMLP` instead (a zero row for the
+class token). The table stays in the parameters either way, as in the JAX
+model. Variable embeddings, the sqrt-len method, pipelined blocks and MoE
+raise NotImplementedError until their slices (ROADMAP.md).
 
 `scan_layers` names a parameter layout of the JAX package (block leaves
 stacked `[depth, ...]` under `lax.scan`, which keeps XLA's compile time
@@ -26,10 +34,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ucf_vit_tpu_torch.models.blocks import (
+    AdaptivePosMLP,
     Block,
     Dropout,
     LayerScale,
     Linear,
+    LinearTokenEmbed,
     PatchEmbed,
     layer_norm,
     set_generator,
@@ -91,6 +101,9 @@ class VIT(nn.Module):
         attn_impl: AttnImpl = AttnImpl.AUTO,
         gelu_approx: bool = True,
         adaptive_patching: bool = False,
+        fixed_length: Optional[int] = None,
+        use_adaptive_pos_emb: bool = False,
+        sqrt_len_method: bool = False,
         use_varemb: bool = False,
         remat: bool = False,
         scan_layers: bool = False,
@@ -101,10 +114,12 @@ class VIT(nn.Module):
         block_seg_len: Optional[int] = None,
     ):
         super().__init__()
-        if adaptive_patching:
-            raise _not_ported("adaptive patching", "VIT input variants")
         if use_varemb:
             raise _not_ported("use_varemb", "VIT input variants")
+        if sqrt_len_method:
+            raise _not_ported("the sqrt-len adaptive method", "VIT input variants")
+        if adaptive_patching and not fixed_length:
+            raise ValueError("adaptive_patching needs fixed_length")
         if pipe_par_size > 1:
             raise _not_ported("pipe_par_size > 1", "pipeline + MoE")
         if moe_num_experts > 1:
@@ -120,7 +135,12 @@ class VIT(nn.Module):
         self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.grid_size = tuple(s // patch_size for s in _to_tuple(img_size, twoD))
-        self.num_patches = int(np.prod(self.grid_size))
+        self.adaptive_patching = bool(adaptive_patching)
+        self.use_adaptive_pos_emb = bool(use_adaptive_pos_emb)
+        self.num_patches = (int(fixed_length) if adaptive_patching
+                            else int(np.prod(self.grid_size)))
+        # a token's features: p^nd pixels of every channel
+        self.patch_dim = in_chans * patch_size ** len(self.grid_size)
         self.num_prefix_tokens = 1 if class_token else 0
         self.patch_drop_rate = float(patch_drop_rate)
         self.remat = bool(remat)
@@ -133,13 +153,19 @@ class VIT(nn.Module):
         self.generator: Optional[torch.Generator] = None
         self.host_generator: Optional[torch.Generator] = None
 
-        self.token_embeds = PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD, dtype=dtype)
+        self.token_embeds = (
+            LinearTokenEmbed(self.patch_dim, embed_dim) if adaptive_patching
+            else PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD, dtype=dtype))
         self.cls_token = (
             nn.Parameter(torch.zeros(1, 1, embed_dim)) if class_token else None
         )
         self.pos_embed = (
             nn.Parameter(torch.zeros(1, self.num_patches + self.num_prefix_tokens, embed_dim))
             if pos_embed == "learn" else None
+        )
+        self.adaptive_pos_dep_emb = (
+            AdaptivePosMLP(1 + len(self.grid_size), embed_dim) if use_adaptive_pos_emb
+            else None
         )
         self.pos_drop = Dropout(pos_drop_rate)
         self.drop_path_rate = float(drop_path_rate)
@@ -177,8 +203,9 @@ class VIT(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "VIT":
         """The JAX package's initialisers, drawn from `generator`: truncated
         normal (std 0.02) kernels, zero biases, unit LayerNorm scales, class
-        token N(0, 1e-6), position embedding from the sincos table. The
-        numbers differ from flax's for the same seed; the distributions agree."""
+        token N(0, 1e-6), position embedding from the sincos table (adaptive:
+        0.02 * N(0, 1)). The numbers differ from flax's for the same seed; the
+        distributions agree."""
         std = 0.02 / _TRUNC_STD_CORRECTION
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
@@ -193,7 +220,9 @@ class VIT(nn.Module):
                 m.gamma.fill_(m.init_values)
         if self.cls_token is not None:
             nn.init.normal_(self.cls_token, std=1e-6, generator=generator)
-        if self.pos_embed is not None:
+        if self.pos_embed is not None and self.adaptive_patching:
+            self.pos_embed.normal_(generator=generator).mul_(0.02)
+        elif self.pos_embed is not None:
             table = torch.from_numpy(self.sincos_table()).to(self.pos_embed.dtype)
             self.pos_embed.copy_(table.reshape(self.pos_embed.shape))
         return self
@@ -210,17 +239,34 @@ class VIT(nn.Module):
     # --------------------------------------------------------------- forward
 
     def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
-        """Tokenize the input image: `[B, L, D]`."""
+        """Tokenize the input image, or with adaptive patching the sequence
+        `[B, C, L, p^nd]` as `[B, L, p^nd * C]` (the channel fastest):
+        `[B, L, D]`."""
+        if self.adaptive_patching:
+            b, c, s, p = x.shape
+            x = x.permute(0, 2, 3, 1).reshape(b, s, p * c)
         return self.token_embeds(x)
 
-    def apply_pos_embed(self, x: torch.Tensor) -> torch.Tensor:
-        """Prepend the class token and add the position embedding. Without a
-        position embedding the JAX model prepends no class token either."""
+    def apply_pos_embed(self, x: torch.Tensor,
+                        seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prepend the class token and add the position embedding: the table,
+        or with `use_adaptive_pos_emb` the MLP of the descriptors `seq_ps`
+        `[B, L, 1 + nd]`, a zero row first for the class token; either in
+        the stream's dtype. Without a position embedding the JAX model
+        prepends no class token either."""
         if self.pos_embed is None:
             return x
+        if self.adaptive_pos_dep_emb is not None:
+            if seq_ps is None:
+                raise ValueError("use_adaptive_pos_emb needs seq_ps")
+            pos = self.adaptive_pos_dep_emb(seq_ps).to(x.dtype)
+        else:
+            pos = self.pos_embed.to(x.dtype)
         if self.cls_token is not None:
             x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1).to(x.dtype), x], dim=1)
-        return self.pos_drop(x + self.pos_embed.to(x.dtype))
+            if self.adaptive_pos_dep_emb is not None:
+                pos = torch.cat([pos.new_zeros(pos.shape[0], 1, pos.shape[2]), pos], dim=1)
+        return self.pos_drop(x + pos)
 
     def patch_drop(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """timm-semantics PatchDropout (`ucf_vit_tpu/models/vit.py:550`): in
@@ -291,8 +337,9 @@ class VIT(nn.Module):
         return self._run_stack(self.blocks, x)
 
     def forward_features(self, x: torch.Tensor,
-                         patch_drop_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.apply_pos_embed(self.embed_tokens(x))
+                         patch_drop_noise: Optional[torch.Tensor] = None,
+                         seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
         x = self.patch_drop(x, patch_drop_noise)
         return self.norm(self.run_blocks(x))
 
@@ -306,6 +353,6 @@ class VIT(nn.Module):
         x = self.head_drop(self.pool(x))
         return x if self.head is None else self.head(x)
 
-    def forward(self, x: torch.Tensor,
-                patch_drop_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.forward_head(self.forward_features(x, patch_drop_noise))
+    def forward(self, x: torch.Tensor, patch_drop_noise: Optional[torch.Tensor] = None,
+                seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.forward_head(self.forward_features(x, patch_drop_noise, seq_ps))

@@ -22,7 +22,13 @@
 - **MAE.** An MAE deployment's ``/v1/predict`` answers the reconstruction
   ``[C, *tile]`` of every token, unpatchified, under a mask that the
   server's ``--seed`` fixes (the JAX server's MAE branch,
-  ``ucf_vit_tpu/serve.py:277-296``).
+  ``ucf_vit_tpu/serve.py:277-296``); an adaptive one its predicted tokens
+  ``[L, p^nd * C]``.
+- **Adaptive patching.** A request is the raw ``[C, *tile]`` sample; the
+  server patchifies it as training does (``make_preprocessor``, the same
+  tree for the same request), in the handler's thread or in a spawn pool of
+  ``--preprocess-workers`` processes, and ships only ``seq``, ``seq_size``
+  and ``seq_pos`` to the device.
 - **Diffusion.** A DiffusionVIT deployment answers ``POST /v1/generate
   {"seed": s, "num": n}`` with ``[n, C, *tile]`` f32 images as ``.npy``
   (``n`` at most ``--num-generate``): each answer runs the whole DDPM reverse
@@ -30,8 +36,8 @@
   the same images for the same seed. ``/v1/predict`` and ``/v1/reload``
   answer 400 there, as in the JAX server.
 
-This slice serves classification, MAE and diffusion with non-adaptive
-inputs (ROADMAP.md).
+This slice serves classification and MAE, adaptive (2-D) or not, and
+diffusion (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from ucf_vit_tpu_torch.inference import (
     resolve_device,
 )
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
+from ucf_vit_tpu_torch.tasks import model_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -67,24 +74,67 @@ from ucf_vit_tpu_torch.ops.patchify import unpatchify
 # ---------------------------------------------------------------------------
 
 
-def make_preprocessor(cfg: Config) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
-    """Returns ``pre(sample) -> {"x": [C, *tile] float32}`` (no batch dim).
-    Adaptive configs (quadtree/octree patchify) are not ported yet."""
-    if cfg.adaptive_patching:
-        raise NotImplementedError(
-            "adaptive preprocessing is not ported yet (ROADMAP.md, modules to "
-            "port: VIT input variants)"
-        )
+def make_preprocessor(cfg: Config, workers: int = 0
+                      ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+    """Returns ``pre(sample) -> {key: array}`` (no batch dim) for a raw
+    ``[C, *tile]`` sample. A non-adaptive config takes it as the model's
+    input ``x``. An adaptive config runs the training pipeline's patchify
+    (``ProcessChannels._make_sample``), so the served token layout is
+    training's, and keeps ``seq``, ``seq_size`` and ``seq_pos``
+    (`ucf_vit_tpu/serve.py:59-153`). Its draws come from the per-sample
+    generator at the fixed index 0 of the seed ``data.seed`` (default 0), so
+    identical requests give identical trees. ``workers > 0`` patchifies in a
+    spawn pool of that many processes (the same bytes: the fixed index makes
+    the workers interchangeable); ``pre.close()`` shuts it down (a no-op
+    without a pool)."""
     nd = 2 if cfg.twoD else 3
     expect = (cfg.max_channels,) + tuple(cfg.tile_size[:nd])
 
-    def pre(arr: np.ndarray) -> Dict[str, np.ndarray]:
+    def check(arr: np.ndarray) -> np.ndarray:
         arr = np.asarray(arr, dtype=np.float32)
         if arr.shape != expect:
             raise ValueError(f"expected input shape {expect} [C, *tile], got {arr.shape}")
-        return {"x": arr}
+        return arr
 
-    return pre
+    if not cfg.adaptive_patching:
+        def pre(arr: np.ndarray) -> Dict[str, np.ndarray]:
+            return {"x": check(arr)}
+
+        pre.close = lambda: None
+        return pre
+
+    from ucf_vit_tpu_torch.data.pipeline import (
+        ProcessChannels,
+        _pool_make_sample,
+        make_pool,
+    )
+
+    seed = int(cfg.data.get("seed", 0))
+    pc = ProcessChannels(
+        source=None, num_channels=cfg.max_channels, single_channel=cfg.single_channel,
+        return_label=False, dataset=cfg.dataset, adaptive_patching=True,
+        separate_channels=bool(cfg.data.get("separate_channels", False)),
+        patch_size=cfg.patch_size, fixed_length=cfg.fixed_length, twoD=cfg.twoD,
+        num_classes=cfg.data.get("num_classes"), aug_seed=seed)
+    variables = tuple(cfg.default_vars[: cfg.max_channels] or ("v",))
+    keep = ("seq", "seq_size", "seq_pos")
+
+    if workers <= 0:
+        def pre(arr: np.ndarray) -> Dict[str, np.ndarray]:
+            sample = pc._make_sample(check(arr), variables, None, 0)
+            return {k: sample[k] for k in keep}
+
+        pre.close = lambda: None
+        return pre
+
+    pool = make_pool(pc._spec(), int(workers))
+
+    def pre_pooled(arr: np.ndarray) -> Dict[str, np.ndarray]:
+        sample = pool.submit(_pool_make_sample, (check(arr), variables, None, 0)).result()
+        return {k: sample[k] for k in keep}
+
+    pre_pooled.close = lambda: pool.shutdown(wait=True, cancel_futures=True)
+    return pre_pooled
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +149,17 @@ def build_predictor(
     max_batch: Optional[int] = None,
     seed: int = 0,
     device: Device = None,
+    preprocess_workers: int = 0,
 ):
     """Build ``(run_batch, preprocess, max_batch, (model, holder, load_weights))``.
 
-    ``run_batch({"x": [max_batch, C, *tile]})`` returns, as a tensor on
-    ``device`` and without waiting for the device, the logits
-    ``[max_batch, num_classes]`` of a classifier, or an MAE's reconstruction
-    ``[max_batch, C, *tile]``; f32 under ``trainer.data_type: bfloat16`` too,
+    ``run_batch({"x": [max_batch, C, *tile]})`` (adaptive: ``seq``,
+    ``seq_size``, ``seq_pos``, the keys the preprocessor keeps, and only
+    those go to the device) returns, as a tensor on ``device`` and without
+    waiting for the device, the logits ``[max_batch, num_classes]`` of a
+    classifier, or an MAE's reconstruction ``[max_batch, C, *tile]`` (an
+    adaptive MAE: its predicted tokens ``[max_batch, L, p^nd * C]``, token
+    space being its native output); f32 under ``trainer.data_type: bfloat16`` too,
     since a classifier's final norm and head and MAE's decoder compute in
     f32. ``device`` defaults to CUDA and raises when CUDA is absent; tests
     pass ``device="cpu"``.
@@ -131,7 +185,6 @@ def build_predictor(
             f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port"
             + (f", {item})" if item else ")")
         )
-    preprocess = make_preprocessor(cfg)
     model = init_eval_model(cfg, seed=seed, device=dev)
     max_batch = int(max_batch or cfg.batch_size)
     holder = {"model": model, "epoch": None}
@@ -148,15 +201,22 @@ def build_predictor(
 
     noise = mask_noise(model, 1, seed, dev) if cfg.task == "mae" else None
 
+    consumed = ("seq", "seq_size", "seq_pos") if cfg.adaptive_patching else ("x",)
+
     def run_batch(batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(batch["x"], dtype=np.float32))
-        x = x.to(dev, non_blocking=True)
+        b = {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=np.float32)).to(
+            dev, non_blocking=True) for k in consumed}
+        x, ps = model_inputs(cfg, b)
         with torch.inference_mode():
             if noise is None:
-                return holder["model"](x)
-            pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1))
+                return holder["model"](x, seq_ps=ps)
+            pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1), seq_ps=ps)
+            if cfg.adaptive_patching:
+                return pred
             return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)
 
+    # the pool starts last: a failure above leaves no processes behind
+    preprocess = make_preprocessor(cfg, preprocess_workers)
     return run_batch, preprocess, max_batch, (model, holder, swap_weights)
 
 
@@ -200,8 +260,9 @@ class MicroBatcher:
     overlap batch N's compute. Default 0 (serialise)."""
 
     def __init__(self, run_batch, max_batch: int, max_wait_ms: float = 5.0,
-                 pipeline_depth: int = 0):
+                 pipeline_depth: int = 0, on_close: Optional[Callable[[], None]] = None):
         self.run_batch = run_batch
+        self.on_close = on_close
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait_ms) / 1e3
         self.pipeline_depth = int(pipeline_depth)
@@ -234,6 +295,8 @@ class MicroBatcher:
     def close(self):
         self.queue.put(_STOP)
         self._thread.join(timeout=5.0)
+        if self.on_close is not None:
+            self.on_close()
 
     def _flush(self, pending):
         """Read back a dispatched batch and wake its waiters. Device-side
@@ -407,6 +470,7 @@ def make_server(
     seed: int = 0,
     device: Device = None,
     num_generate: int = 8,
+    preprocess_workers: int = 0,
 ) -> ThreadingHTTPServer:
     """Build the HTTP server (not yet serving: call ``serve_forever()``).
 
@@ -414,7 +478,8 @@ def make_server(
     returned, so it shows in ``/v1/stats`` as a request and a batch, and
     readiness (``/healthz`` reachable) means ready to serve. Close the
     batcher (``server.RequestHandlerClass.batcher.close()``, None on a
-    diffusion deployment) after ``server_close()``.
+    diffusion deployment) after ``server_close()``: that also stops the
+    preprocessing pool of an adaptive config (``preprocess_workers``).
 
     A diffusion config serves ``/v1/generate`` at a batch of
     ``num_generate``: the warm-up is one denoising step at that batch, which
@@ -437,9 +502,10 @@ def make_server(
     else:
         run_batch, preprocess, mb, (_, holder, load_weights_into) = build_predictor(
             cfg, checkpoint_dir, use_ema=use_ema, max_batch=max_batch, seed=seed,
-            device=device,
+            device=device, preprocess_workers=preprocess_workers,
         )
-        Handler.batcher = MicroBatcher(run_batch, mb, max_wait_ms, pipeline_depth=pipeline_depth)
+        Handler.batcher = MicroBatcher(run_batch, mb, max_wait_ms, pipeline_depth=pipeline_depth,
+                                       on_close=preprocess.close)
         Handler.weights_holder = holder
         Handler.serve_ema = use_ema
         Handler.reload_weights = staticmethod(load_weights_into)
@@ -487,6 +553,9 @@ def main(argv=None):
                         help="torch device; cuda (default) or cpu")
     parser.add_argument("--num-generate", type=int, default=8,
                         help="diffusion: samples per /v1/generate call")
+    parser.add_argument("--preprocess-workers", type=int, default=0,
+                        help="adaptive configs: the patchify's spawn pool size (0: in "
+                             "the request's thread)")
     args = parser.parse_args(argv)
 
     from ucf_vit_tpu_torch.config import load_config
@@ -496,7 +565,7 @@ def main(argv=None):
         cfg, args.checkpoint, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, use_ema=args.ema,
         pipeline_depth=args.pipeline_depth, seed=args.seed, device=args.device,
-        num_generate=args.num_generate,
+        num_generate=args.num_generate, preprocess_workers=args.preprocess_workers,
     )
     batching = (f"num_generate={args.num_generate}" if cfg.task == "diffusion" else
                 f"max_batch={args.max_batch or cfg.batch_size}, window={args.max_wait_ms}ms")

@@ -1,12 +1,14 @@
 """Task registry: model factory and loss per task (port of `ucf_vit_tpu/tasks.py`).
 
-The port has the classification, MAE and diffusion tasks (model and loss);
-the other tasks come with their own slices (ROADMAP.md).
+The port has the classification, MAE and diffusion tasks (model and loss),
+with adaptive patching's inputs for the first two (`model_inputs`: the
+quadtree's sequence and its descriptors); the other tasks come with their
+own slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -55,6 +57,11 @@ def _common_kwargs(cfg: Config) -> dict:
         twoD=cfg.twoD,
         use_varemb=bool(ia.get("use_varemb", False)),
         adaptive_patching=cfg.adaptive_patching,
+        fixed_length=cfg.fixed_length,
+        # gated on adaptive_patching, as in the JAX package: configs set the
+        # flag for runs that pass no descriptors
+        use_adaptive_pos_emb=bool(ia.get("use_adaptive_pos_emb", False))
+        and cfg.adaptive_patching,
         attn_impl=_attn_impl(cfg),
         gelu_approx=bool(ia.get("gelu_approx", True)),
         remat=bool(cfg.trainer.get("remat", cfg.parallelism.get("fsdp_size", 1) > 1)),
@@ -68,6 +75,25 @@ def _common_kwargs(cfg: Config) -> dict:
     )
 
 
+def seq_ps(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    """The adaptive patches' descriptors `[B, L, 1 + nd]`: channel 0's leaf
+    sizes and centres (`ucf_vit_tpu/tasks.py:155-163`); None for a batch
+    without them."""
+    if "seq_size" not in batch:
+        return None
+    return torch.cat([batch["seq_size"][:, 0, :, None], batch["seq_pos"][:, 0]], dim=-1)
+
+
+def model_inputs(cfg: Config, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`(input, seq_ps)` of a batch: the quadtree's sequence `seq` `[B, C, L,
+    p^nd]` and its descriptors with adaptive patching, else the image `x`
+    and None."""
+    if cfg.adaptive_patching:
+        return batch["seq"], seq_ps(batch)
+    return batch["x"], None
+
+
 def build_classification(cfg: Config) -> VIT:
     ia = cfg.init_args
     return VIT(
@@ -77,12 +103,19 @@ def build_classification(cfg: Config) -> VIT:
     )
 
 
-def classification_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+def classification_loss(cfg: Config) -> Callable:
     """`loss_fn` of `build_classification` (`ucf_vit_tpu/tasks.py:180-187`):
-    cross entropy of the logits, with accuracy as aux. The MoE aux term is 0
-    for the dense model the port has."""
-    logits = model(batch["x"])
-    return cross_entropy(logits, batch["label"]), {"accuracy": accuracy(logits, batch["label"])}
+    cross entropy of the logits of `x` (adaptive: of `seq` and its
+    descriptors), with accuracy as aux. The MoE aux term is 0 for the dense
+    model the port has."""
+
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        x, ps = model_inputs(cfg, batch)
+        logits = model(x, seq_ps=ps)
+        return (cross_entropy(logits, batch["label"]),
+                {"accuracy": accuracy(logits, batch["label"])})
+
+    return loss_fn
 
 
 def build_mae(cfg: Config) -> MAE:
@@ -96,21 +129,25 @@ def build_mae(cfg: Config) -> MAE:
         decoder_num_heads=int(ia.get("decoder_num_heads", 16)),
         mlp_ratio_decoder=float(ia.get("mlp_ratio_decoder", 4)),
         seq_pack=int(ia.get("seq_pack", 1)),
-        use_adaptive_pos_emb=bool(ia.get("use_adaptive_pos_emb", False))
-        and cfg.adaptive_patching,
         **_common_kwargs(cfg),
     )
 
 
 def mae_loss(cfg: Config) -> Callable:
-    """`loss_fn` of `build_mae`, its non-adaptive branch
-    (`ucf_vit_tpu/tasks.py:213-236`): `model.loss_fn: maskMSE` takes the
-    masked MSE of the prediction against the patchified input, any other
-    name the MSE over every token. The mask is drawn from the model's
-    generator."""
+    """`loss_fn` of `build_mae` (`ucf_vit_tpu/tasks.py:213-236`): with
+    adaptive patching the MSE over every token against the sequence `seq`
+    `[B, C, L, p^nd]` as `[B, L, p^nd * C]` (the channel fastest), whatever
+    `model.loss_fn` says; otherwise `model.loss_fn: maskMSE` takes the masked
+    MSE of the prediction against the patchified input, any other name the
+    MSE over every token. The mask is drawn from the model's generator."""
     masked = cfg.model.get("loss_fn", "MSE") == "maskMSE"
 
     def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        if cfg.adaptive_patching:
+            seq = batch["seq"]
+            pred, _ = model(seq, seq_ps=seq_ps(batch))
+            b, c, l, p = seq.shape
+            return mse(pred, seq.permute(0, 2, 3, 1).reshape(b, l, p * c)), {}
         x = batch["x"]
         pred, mask = model(x)
         target = patchify(x, cfg.patch_size, cfg.twoD)
@@ -182,7 +219,7 @@ TASKS: Dict[str, Callable[[Config], torch.nn.Module]] = {
 }
 # each task's loss from its config
 LOSSES: Dict[str, Callable[[Config], Callable]] = {
-    "classification": lambda cfg: classification_loss,
+    "classification": classification_loss,
     "mae": mae_loss,
     "diffusion": diffusion_loss,
 }

@@ -160,7 +160,11 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
     `ucf_vit_tpu/train.py:95-294`, one process: shard 0 of 1). The catsdogs
     folder goes through its map-style loader; every other dataset through
     the `DataModule`, with `load_balancing.auto_load_balancing` computing
-    `batches_per_rank_epoch` and the group list from the files.
+    `batches_per_rank_epoch` and the group list from the files, and with
+    adaptive patching `data.num_workers` (N > 1: a spawn pool of N - 1
+    processes patchifies).
+    Adaptive catsdogs draws its augmentation from one generator seeded by
+    `trainer.seed` (the JAX loader's is unseeded).
 
     `val_split`: the held-out validation loader instead. From files it reads
     the range `data.val_dict_start_idx` / `val_dict_end_idx` (say train 0.0-0.9,
@@ -192,7 +196,10 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
                              f"fewer than a batch of {global_batch}")
         nd = 2 if cfg.twoD else 3
         ds = CatsDogsDataset(files, cfg.data["dict_in_variables"][key],
-                             tuple(cfg.tile_size[:nd]), adaptive_patching=cfg.adaptive_patching)
+                             tuple(cfg.tile_size[:nd]), adaptive_patching=cfg.adaptive_patching,
+                             fixed_length=cfg.fixed_length or 196, patch_size=cfg.patch_size,
+                             num_channels=len(cfg.data["dict_in_variables"][key]),
+                             rng=np.random.default_rng(int(cfg.trainer.get("seed", 0))))
         return _CatsDogsModule(ds, global_batch), None, {"catsdogs": len(ds) // global_batch}
 
     from ucf_vit_tpu_torch.data.datamodule import DataModule
@@ -214,6 +221,7 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
         dict_in_variables=cfg.data["dict_in_variables"],
         num_channels_used=cfg.data["num_channels_used"],
         batch_size=global_batch,
+        patch_size=cfg.patch_size,
         tile_size_x=ts[0],
         tile_size_y=ts[1],
         tile_size_z=ts[2],
@@ -224,19 +232,23 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
         tile_overlap=float(cfg.data.get("tile_overlap", 0.0)),
         use_all_data=bool(cfg.data.get("use_all_data", False)),
         adaptive_patching=cfg.adaptive_patching,
+        fixed_length=cfg.fixed_length or 4096,
+        separate_channels=bool(cfg.init_args.get("separate_channels", False)),
         data_par_size=cfg.data_par_size,
         dataset=cfg.dataset,
         return_label=cfg.task in ("classification", "unetr", "sap"),
         num_classes=cfg.init_args.get("num_classes", cfg.data.get("num_classes")),
         imagenet_resize=cfg.dataset_options.get("imagenet_resize"),
+        num_workers=int(cfg.data.get("num_workers", 1)),
     )
     dm.setup()
     return dm, None, bpre
 
 
 def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's arrays as tensors on `device` (labels as int64). `x` stays
-    f32 whatever the compute dtype: the model casts it at the patch embed."""
+    """The batch's arrays as tensors on `device` (labels as int64): every key
+    but `variables`, `dict_key` and the trees (`qdt`). `x` stays f32 whatever
+    the compute dtype: the model casts it at the patch embed."""
     return {k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
