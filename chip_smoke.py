@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --compare CHECKOUT
     python3 chip_smoke.py --only adaptive   # the device, build and adaptive phases alone
+    python3 chip_smoke.py --only unetr      # the device, build and UNETR phases alone
 
 With `--compare` it runs only the device phase and times the bf16 flash
 forward, the split backward route's kernels (dkv and dq, f32 and bf16),
@@ -14,8 +15,9 @@ say the parent) in one process: see `compare_forward`.
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result):
 
-1. device:  the card's name and power limit (nvidia-smi); TF32 off for
-            matmuls and cuDNN.
+1. device:  the card's name and power limit (nvidia-smi); the f32 policy as
+            the CLIs set it (`inference.resolve_device`: TF32 off for
+            matmuls and cuDNN), failing unless both flags read False.
 2. build:   nvcc builds every kernel from csrc/ (flash_fwd_tf32,
             flash_bwd_tf32: f32 on the tensor cores by the 3xTF32 split on
             mma.sync; flash_fwd_sm90, flash_bwd_sm90: bf16 on the tensor
@@ -197,6 +199,26 @@ result):
             8's checkpoint (requests/s, a lone request's latency, the busy share,
             launches by instance, answers against `inference.reconstruct`).
 
+13. unetr (`phase_unetr`): configs/basic_ct/unetr as shipped (ViT-B over 729
+            octree tokens reassembled into a 36^3 image, the conv decoder, f32,
+            remat, batch 8, 64^3 tiles), --single-device. (a) the f32 forward
+            and fused backward at [96, 729, 64] against their plain versions,
+            timed beside SDPA, and both backward routes timed; (b) synthetic
+            training through the CLI entry (24 forwards and 12 fused
+            backwards a step), a timed and a traced window (device time by
+            kind: GEMMs, convolutions, instance norm and element-wise, flash),
+            FLASH against EINSUM over 5 steps; (c) from 4 seeded labelled
+            NIfTI volumes of 128^3, in line and with a spawn pool of 4 (the
+            loader's host time, a step's wait, Patchify3D's parts); (d) the
+            warm start from an MAE checkpoint (mae_long's: the encoder equal
+            tensor for tensor, pos_embed resampled, the decoder its own); (e)
+            the inference CLI's Dice under FLASH and EINSUM and `--volume`'s
+            27 windows of a 128^3 volume (seconds, the host's share, the
+            stitched probabilities and class maps against EINSUM's); (f)
+            serving with `--preprocess-workers 4`, max_batch 8, 16 clients:
+            requests/s, latency, the busy share, every class map against the
+            in-process forward.
+
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -367,6 +389,27 @@ ADAPTIVE_SHAPES = {
 }
 ADAPTIVE_KERNEL_ITERS = 20
 
+# phase_unetr: configs/basic_ct/unetr as shipped (ViT-B over 729 octree tokens reassembled
+# into a 36^3 image, the skip-connection conv decoder of feature size 16, 4 classes, f32,
+# remat, batch 8, 64^3 tiles), with --single-device
+UNETR_CONFIG = os.path.join(REPO, "configs", "basic_ct", "unetr", "base_config.yaml")
+# its attention: batch 8 x 12 heads over 729 tokens, dh 64, packed qkv views
+UNETR_SHAPE = (8, 12, 729, 729, 64, True)
+UNETR_MAIN_STEPS = 3  # through the CLI entry, synthetic
+UNETR_WARMUP, UNETR_TIMED, UNETR_TRACED = 3, 10, 2
+UNETR_CHECK_STEPS = 5  # FLASH against EINSUM
+# from files: 4 seeded int16 CT-like volumes of 128^3 with label volumes 1-4 (32 tiles of
+# 64^3, 4 batches an epoch); in line as shipped (num_workers 1), then a spawn pool of 4
+UNETR_VOLUMES, UNETR_SIDE, UNETR_POOL = 4, 128, 5
+UNETR_FILE_STEPS = 6
+UNETR_EVAL_SAMPLES = 4
+UNETR_SW_OVERLAP, UNETR_SW_BATCH = 0.5, 4  # 27 windows of a 128^3 volume
+UNETR_MARGIN = 1e-3  # a class map is held where the reference's top-two margin passes it
+UNETR_DICE_TOL = 1e-4
+UNETR_SERVE_WORKERS, UNETR_MAX_BATCH, UNETR_CLIENTS = 4, 8, 16
+UNETR_SEQUENTIAL = 4  # lone requests before the load windows
+UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
+
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
 # and int8 on the tensor cores, and the memory rate. The card is named so; any other
 # card has no peaks here until it is measured.
@@ -481,11 +524,14 @@ def phase_device():
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from ucf_vit_tpu_torch.inference import resolve_device
+
+    resolve_device()  # the f32 policy, as every entry point sets it
     log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("resolve_device() left TF32 on: the f32 policy is TF32 off for matmuls and cuDNN")
     log(f"[device] bounds: f32 work as {F32_PASSES} x its operations at the TF32 rate "
         f"({PEAKS['tf32'] / 1e12:g} TFLOP/s, so {PEAKS['tf32'] / F32_PASSES / 1e12:g} TFLOP/s "
         f"f32-accurate), bf16 at {PEAKS['bfloat16'] / 1e12:g}, int8 at "
@@ -3961,6 +4007,589 @@ def phase_adaptive() -> dict:
     return {"kernels": kernels, "launches": launches}
 
 
+def _unetr_groups(kernels, busy_ms: float) -> str:
+    """Device time of a traced UNETR window by kind of kernel, from their names:
+    convolutions (cuDNN's forward, data- and weight-gradient kernels, transposed
+    ones included), GEMMs, the flash kernels, instance norm, AdamW, and the
+    element-wise rest."""
+    groups = {"convolutions (cuDNN)": 0.0, "GEMMs (cuBLAS/CUTLASS)": 0.0,
+              "flash_fwd_tf32_kernel": 0.0, "flash_bwd_tf32_kernel": 0.0,
+              "instance norm": 0.0, "AdamW (multi-tensor)": 0.0,
+              "element-wise and other (LeakyReLU, GELU, LayerNorm, softmax, copies)": 0.0}
+    for t_us, _, key in kernels:
+        name = key.lower()
+        flash = [g for g in groups if g.startswith("flash") and g in name]
+        if flash:
+            group = flash[0]
+        elif any(w in name for w in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                                     "winograd", "cudnn", "fft")):
+            group = "convolutions (cuDNN)"
+        elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")):
+            group = "GEMMs (cuBLAS/CUTLASS)"
+        elif any(w in name for w in ("batch_norm", "instance_norm", "welford")):
+            group = "instance norm"
+        elif "multi_tensor" in name or "adam" in name:
+            group = "AdamW (multi-tensor)"
+        else:
+            group = "element-wise and other (LeakyReLU, GELU, LayerNorm, softmax, copies)"
+        groups[group] += t_us / 1e3
+    return "; ".join(f"{g} {ms:.3f} ms = {100 * ms / busy_ms:.2f}%" for g, ms in groups.items())
+
+
+def _check_unetr(model) -> None:
+    from ucf_vit_tpu_torch.models import UNETR
+
+    if not (isinstance(model, UNETR) and model.adaptive_patching and model.num_patches == 729
+            and model.feat_size == (9, 9, 9) and model.resize and model.embed_dim == 768
+            and len(model.blocks) == 12 and model.blocks[0].attn.num_heads == 12
+            and model.remat and model.dtype is None and model.skip_indices == [3, 6, 9]
+            and model.decoder2.conv_block.conv1.out_channels == 16
+            and model.out.conv.out_channels == 4
+            and model.adaptive_pos_dep_emb is not None):
+        fail("the run was not the shipped basic_ct/unetr")
+
+
+def _unetr_instances(steps: int, backward: bool = True) -> dict:
+    """The launches by instance of `steps` UNETR train steps (or forwards): under
+    remat each of the 12 blocks runs the `<64>` forward twice a step and the
+    fused backward once (bwd_route's route at 729 f32 queries)."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import bwd_route
+
+    if bwd_route(torch.float32, 729, 729, 64) != "fused":
+        fail("bwd_route no longer takes the fused route at UNETR's 729 f32 queries")
+    want = {k: 0 for k in _instance_counts()}
+    want["fwd:flash_fwd_tf32<64>"] = (24 if backward else 12) * steps
+    if backward:
+        want["bwd:flash_bwd_tf32<64>"] = 12 * steps
+    return want
+
+
+def _unetr_cli(tag: str, argv: list, steps: int) -> dict:
+    """The trainer's CLI entry with the launch counts set to 0 before it; the
+    model must be the shipped UNETR and every launch the `<64>` tf32
+    instances, 24 forwards and 12 fused backwards a step. Returns the launch
+    counts by instance."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_main(argv)
+    counts, instances = _launch_counts(), _instance_counts()
+    _check_unetr(out["state"].model)
+    want = _unetr_instances(steps)
+    log(f"[unetr] {tag}: python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
+        f"{time.perf_counter() - t0:.2f} s (init and save included); epoch losses "
+        f"{out['loss_list']}; launches by instance a step "
+        f"{ {k: n // steps for k, n in instances.items() if n} }")
+    if (instances != want or counts["src:flash_fwd_sm90"] or counts["src:flash_bwd_sm90"]
+            or counts["flash_bwd_dkv"] or counts["flash_bwd_dq"]
+            or not all(np.isfinite(out["loss_list"]))):
+        fail(f"{tag} through the CLI launched {instances} (expected {want}), {counts}; "
+             f"losses {out['loss_list']}")
+    del out
+    return instances
+
+
+def _labelled_volumes(root: str, n: int, side: int, seed: int) -> float:
+    """`n` CT-like int16 volumes of `side`^3 as <root>/imagesTr/image{i}.nii and
+    label volumes 1-4 as <root>/labelsTr/label{i}.nii, from seeded thresholds of
+    a smoothed copy (so the labels have edges the octree sees); the seconds
+    taken."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+
+    from ucf_vit_tpu_torch.data import nifti
+
+    t0 = time.perf_counter()
+    for d in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(root, d))
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        vol = _ct_volume(rng, (side,) * 3)
+        smooth = gaussian_filter(vol.astype(np.float32), 3.0)
+        cuts = np.quantile(smooth, np.sort(rng.uniform([0.35, 0.6, 0.85], [0.45, 0.7, 0.95])))
+        lab = (1 + np.digitize(smooth, cuts)).astype(np.int16)
+        nifti.save(os.path.join(root, "imagesTr", f"image{i}.nii"), vol)
+        nifti.save(os.path.join(root, "labelsTr", f"label{i}.nii"), lab)
+    return time.perf_counter() - t0
+
+
+def _patchify3d_costs(tiles) -> dict:
+    """Host ms a sample of `Patchify3D` on `tiles` [N, 64, 64, 64, 1] f32, split
+    into the Gaussian, the slices' Sobel and Canny, the octree and the
+    serialization; and the octree's native build against its numpy build."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch import native
+    from ucf_vit_tpu_torch.data.octree import FixedOctTree, octree_boxes_plain
+    from ucf_vit_tpu_torch.data.transform import Patchify3D
+
+    pf = Patchify3D(fixed_length=729, patch_size=4, num_channels=1,
+                    rng=np.random.default_rng(0))
+    pf(tiles[0])
+    t0 = time.perf_counter()
+    for t in tiles:
+        pf(t)
+    total = 1e3 * (time.perf_counter() - t0) / len(tiles)
+    # its parts, one after another as __call__ runs them, at smoothing 3 and threshold 75
+    parts = dict.fromkeys(("gaussian", "slices", "tree", "serialize"), 0.0)
+    for t in tiles:
+        t1 = time.perf_counter()
+        grey = pf.smooth(t, 3)
+        t2 = time.perf_counter()
+        edges, norm = pf.edge_volume(grey, 75)
+        t3 = time.perf_counter()
+        tree = FixedOctTree(edges, 729, norm)
+        t4 = time.perf_counter()
+        pf.serialize(tree, t)
+        t5 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t1, t2), (t2, t3), (t3, t4), (t4, t5))):
+            parts[k] += 1e3 * (b - a) / len(tiles)
+    t0 = time.perf_counter()
+    nb = native.octree_boxes(edges, 729, norm)
+    tree_native = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    pb = octree_boxes_plain(edges, 729, norm)
+    tree_numpy = 1e3 * (time.perf_counter() - t0)
+    if not (np.array_equal(nb[0], pb[0]) and np.array_equal(nb[1], pb[1])):
+        fail("the native octree differs from its numpy build")
+    log(f"[unetr] Patchify3D of a 64^3 tile (729 leaves of 4^3): {total:.3f} ms a sample on "
+        f"the host (its draws); its parts at smoothing 3: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f" ms; the tree alone {tree_native:.3f} ms native, {tree_numpy:.3f} ms numpy (the "
+        f"same boxes and values)")
+    return {"patchify_ms": total, **{f"{k}_ms": v for k, v in parts.items()}}
+
+
+def _unetr_flash_against_einsum(cfg, batches) -> tuple:
+    """`_run_steps` under FLASH and under EINSUM from one init on `batches`: the
+    per-step losses within TRAIN_LOSS_TOL, FLASH's launches as `_unetr_instances`
+    gives them and none under EINSUM. Returns FLASH's (state, step)."""
+    import numpy as np
+
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        st, sp, losses, _, counts = _run_steps(_train_cfg(cfg, impl), batches)
+        runs[impl] = (st, sp, losses, counts, _instance_counts())
+        if impl == "EINSUM":
+            del st, sp
+    (st, sp, lf, _, inf), (_, _, le, ce, _) = runs["FLASH"], runs["EINSUM"]
+    del runs
+    diff = max(abs(a - b) for a, b in zip(lf, le))
+    log(f"[unetr] FLASH vs EINSUM, {len(batches)} steps: losses FLASH "
+        f"{' '.join(f'{x:.6f}' for x in lf)}, EINSUM {' '.join(f'{x:.6f}' for x in le)}; max "
+        f"|diff| {diff:.3e} (tol {TRAIN_LOSS_TOL:g})")
+    if not all(np.isfinite(lf)) or diff > TRAIN_LOSS_TOL:
+        fail("basic_ct/unetr: FLASH training disagrees with EINSUM's")
+    if inf != _unetr_instances(len(batches)) or any(ce.values()):
+        fail(f"basic_ct/unetr: launches {inf} under FLASH, {ce} under EINSUM")
+    return st, sp
+
+
+def _unetr_from_files(root: str, path: str) -> dict:
+    """(c) training from the labelled files, in line and with a spawn pool."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.train import build_dataloader, init_train
+
+    cfg = load_config(path)
+    batch = cfg.batch_size
+    instances = _unetr_cli("basic_ct/unetr from NIfTI files",
+                           [path, "--single-device", "--max-steps", str(UNETR_MAIN_STEPS)],
+                           UNETR_MAIN_STEPS)
+    state, step = init_train(cfg, "cuda")
+    res = {"instances": instances}
+    for workers in (1, UNETR_POOL):
+        wcfg = load_config(_adaptive_config(path, f"unetr_w{workers}", num_workers=workers))
+        dm, _, bpre = build_dataloader(wcfg, batch, False)
+        it = dm.train_dataloader(loop=True)
+        try:
+            b0, loader_ms = _loader_alone(it, 1 if workers > 1 else 4)
+            b0 = b0[0]
+            if workers > 1:  # the pool's start-up left out
+                _, loader_ms = _loader_alone(it, 4)
+            if (b0["seq"].shape != (batch, 1, 729, 64) or b0["seq_pos"].shape != (batch, 1, 729, 3)
+                    or b0["label"].shape != (batch, 1, 64, 64, 64)
+                    or b0["seq_label"].shape != (batch, 729, 4, 4, 4)
+                    or bpre != {"ct1": UNETR_VOLUMES * 8 // batch}
+                    or not set(np.unique(b0["label"])) <= {0, 1, 2, 3}):
+                fail(f"the UNETR loader gave seq {b0['seq'].shape}, seq_pos "
+                     f"{b0['seq_pos'].shape}, label {b0['label'].shape} "
+                     f"{np.unique(b0['label'])}, seq_label {b0['seq_label'].shape}; "
+                     f"{bpre} batches an epoch")
+            _disk_window(state, step, it, 2)
+            torch.cuda.reset_peak_memory_stats()
+            wall, waited = _disk_window(state, step, it, UNETR_FILE_STEPS)
+        finally:
+            it.close()
+        key = "inline" if workers == 1 else "pool"
+        res[key] = {"ms_step": 1e3 * wall / UNETR_FILE_STEPS,
+                    "volumes_s": batch * UNETR_FILE_STEPS / wall,
+                    "wait_ms": 1e3 * waited / UNETR_FILE_STEPS, "loader_ms": loader_ms,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[unetr] from files, num_workers {workers}"
+            f"{' (a spawn pool of ' + str(workers - 1) + ')' if workers > 1 else ' (in line)'}:"
+            f" the loader alone {loader_ms:.1f} ms a batch of {batch}; {UNETR_FILE_STEPS} steps "
+            f"= {res[key]['ms_step']:.3f} ms/step, {res[key]['volumes_s']:.2f} volumes/s, "
+            f"waiting for batches {res[key]['wait_ms']:.2f} ms a step; peak "
+            f"{res[key]['peak_gb']:.2f} GB")
+    del state, step
+    return res
+
+
+def _unetr_warm_start(path: str, mae_ckpt: str | None) -> None:
+    """(d) `trainer.pretrained_mae_checkpoint` from mae_long's checkpoint (saved
+    here from a seeded init where no earlier phase wrote one)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ucf_vit_tpu_torch.checkpoint import restore_checkpoint
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
+    from ucf_vit_tpu_torch.tasks import build_task
+    from ucf_vit_tpu_torch.train import init_train, transfer_pretrained_mae
+
+    if mae_ckpt is None:
+        mcfg = load_config(MAE_CONFIG)
+        mae = build_task(mcfg).init_weights(torch.Generator().manual_seed(3))
+        mae_ckpt = os.path.join(WORK, "mae_long_seeded.ckpt")
+        torch.save({"epoch": 0, "model_state_dict": mae.state_dict(), "loss_list": [],
+                    "head_meta": [int(mcfg.init_args["num_heads"]),
+                                  int(mcfg.init_args["decoder_num_heads"])]}, mae_ckpt)
+        del mae
+    mae_sd = restore_checkpoint(mae_ckpt, "")["model_state_dict"]
+    cfg = load_config(path)
+    state, _ = init_train(cfg, "cuda")
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    t0 = time.perf_counter()
+    transfer_pretrained_mae(cfg, state.model, mae_ckpt)
+    took = time.perf_counter() - t0
+    got = state.model.state_dict()
+    from_mae = [k for k in got if k.startswith(("blocks.", "token_embeds.", "norm."))]
+    own = [k for k in got if k.startswith(("encoder", "decoder", "out.", "adaptive_pos"))]
+    same = all(torch.equal(got[k].cpu(), mae_sd[k]) for k in from_mae)
+    kept = all(torch.equal(got[k], before[k]) for k in own)
+    want_pos = interpolate_pos_embed_1d(mae_sd["pos_embed"].numpy(), 729)
+    pos_ok = np.array_equal(got["pos_embed"].cpu().numpy(), want_pos)
+    log(f"[unetr] warm start from {os.path.basename(mae_ckpt)} ({tuple(mae_sd['pos_embed'].shape)}"
+        f" position table) in {took:.2f} s: {len(from_mae)} encoder tensors equal the MAE's: "
+        f"{same}; pos_embed the MAE's resampled to 729 rows: {pos_ok}; {len(own)} decoder "
+        f"tensors kept their init: {kept}")
+    if not (same and kept and pos_ok and len(from_mae) == 12 * 12 + 4):
+        fail("the MAE-encoder transfer did not give the UNETR the MAE's encoder")
+    del state
+    # and through the trainer's CLI, one step
+    raw = yaml.safe_load(open(path))
+    raw["trainer"]["pretrained_mae_checkpoint"] = mae_ckpt
+    wpath = os.path.join(WORK, "unetr_warm.yaml")
+    with open(wpath, "w") as fh:
+        yaml.safe_dump(raw, fh)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _unetr_cli("basic_ct/unetr warm-started", [wpath, "--synthetic", "--single-device",
+                                                   "--max-steps", "1"], 1)
+    if "initialized encoder from MAE checkpoint" not in buf.getvalue():
+        fail("the trainer's CLI did not warm-start from pretrained_mae_checkpoint")
+    log(buf.getvalue().strip().splitlines()[-1])
+
+
+def _margin_mask(probs_or_logits) -> "np.ndarray":
+    """Where the top-two gap over the class axis (1) passes UNETR_MARGIN."""
+    import numpy as np
+
+    top2 = np.sort(probs_or_logits, axis=1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > UNETR_MARGIN
+
+
+def _unetr_evaluate(path: str, ckpt: str, vol_path: str) -> dict:
+    """(e) the inference CLI's Dice under FLASH and EINSUM, and `--volume`."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.inference import VolumePredictor
+    from ucf_vit_tpu_torch.inference import main as inference_main
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+
+    paths, dice = {}, {}
+    for impl in ("FLASH", "EINSUM"):
+        raw = yaml.safe_load(open(path))
+        raw["trainer"]["attn_impl"] = impl
+        paths[impl] = os.path.join(WORK, f"unetr_{impl}.yaml")
+        with open(paths[impl], "w") as fh:
+            yaml.safe_dump(raw, fh)
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mean = inference_main([paths[impl], "--checkpoint", ckpt, "--num-samples",
+                                   str(UNETR_EVAL_SAMPLES), "--device", "cuda"])
+        per = [float(d) for d in re.findall(r"sample \d+: dice ([0-9.]+)", buf.getvalue())]
+        dice[impl] = (mean, per, _instance_counts(), time.perf_counter() - t0)
+    (fm, fp, finst, fs), (em, ep, einst, _) = dice["FLASH"], dice["EINSUM"]
+    log(f"[unetr] python -m ucf_vit_tpu_torch.inference --checkpoint (from files, "
+        f"{UNETR_EVAL_SAMPLES} samples) in {fs:.2f} s: Dice FLASH {fp} mean {fm:.6f}; "
+        f"EINSUM {ep} mean {em:.6f}")
+    if (len(fp) != UNETR_EVAL_SAMPLES or abs(fm - em) > UNETR_DICE_TOL
+            or finst != _unetr_instances(UNETR_EVAL_SAMPLES, backward=False)
+            or any(einst.values())):
+        fail(f"the inference CLI's Dice differs under FLASH and EINSUM, or launched {finst} / "
+             f"{einst}")
+
+    # --volume: 27 windows of a 128^3 volume
+    vol = np.load(vol_path)
+    maps, probs = {}, {}
+    for impl in ("FLASH", "EINSUM"):
+        predictor = VolumePredictor(load_config(paths[impl]), ckpt, sw_batch=UNETR_SW_BATCH,
+                                    device="cuda")
+        predictor(vol[:, :64, :64, :64], overlap=UNETR_SW_OVERLAP)  # warm-up: one window
+        reset_launch_counts()
+        maps[impl] = predictor(vol, overlap=UNETR_SW_OVERLAP)
+        probs[impl] = predictor.last_probs
+        if impl == "FLASH":
+            stats, vinst = dict(predictor.last_stats), _instance_counts()
+        del predictor
+    chunks = -(-stats["windows"] // UNETR_SW_BATCH)
+    perr = float(np.abs(probs["FLASH"] - probs["EINSUM"]).max())
+    keep = _margin_mask(probs["EINSUM"][None])[0]
+    differ = int(((maps["FLASH"] != maps["EINSUM"]) & keep).sum())
+    log(f"[unetr] --volume {tuple(vol.shape[1:])} at overlap {UNETR_SW_OVERLAP}, sw_batch "
+        f"{UNETR_SW_BATCH}: {stats['windows']} windows in {stats['seconds']:.3f} s a volume, "
+        f"{stats['preprocess_s']:.3f} s of it the host's preprocessing "
+        f"({100 * stats['preprocess_s'] / stats['seconds']:.1f}%); stitched probabilities "
+        f"FLASH vs EINSUM max |diff| {perr:.3e} (tol {FLASH_TOL['float32']:g}); class maps "
+        f"differ at {differ} voxels where EINSUM's top-two margin passes {UNETR_MARGIN:g} "
+        f"({int((~keep).sum())} voxels under it left out); classes "
+        f"{np.unique(maps['FLASH'], return_counts=True)[1].tolist()}")
+    if (stats["windows"] != 27 or perr > FLASH_TOL["float32"] or differ
+            or vinst["fwd:flash_fwd_tf32<64>"] != 12 * chunks):
+        fail(f"--volume disagrees with EINSUM's, or launched {vinst}")
+    # the CLI itself on the same volume gives the same map
+    out = os.path.join(WORK, "unetr_pred.npy")
+    with contextlib.redirect_stdout(io.StringIO()):
+        inference_main([paths["FLASH"], "--checkpoint", ckpt, "--volume", vol_path,
+                        "--volume-out", out, "--sw-batch", str(UNETR_SW_BATCH), "--device",
+                        "cuda"])
+    if not np.array_equal(np.load(out), maps["FLASH"]):
+        fail("the inference CLI's --volume map differs from VolumePredictor's")
+    return {"dice": fm, "dice_per": fp, "volume_s": stats["seconds"],
+            "volume_pre_share": stats["preprocess_s"] / stats["seconds"],
+            "eval_fwd": finst["fwd:flash_fwd_tf32<64>"] + vinst["fwd:flash_fwd_tf32<64>"]}
+
+
+def _unetr_serve(path: str, ckpt: str, tiles) -> dict:
+    """(f) serving class maps with a preprocessing pool under load."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
+    from ucf_vit_tpu_torch.serve import make_preprocessor, make_server
+    from ucf_vit_tpu_torch.tasks import unetr_inputs
+
+    cfg = load_config(path)
+    bodies = []
+    for x in tiles:
+        buf = io.BytesIO()
+        np.save(buf, x)
+        bodies.append(buf.getvalue())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = make_server(cfg, ckpt, host="127.0.0.1", port=0, max_batch=UNETR_MAX_BATCH,
+                         device="cuda", preprocess_workers=UNETR_SERVE_WORKERS)
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_pipe = ctx.Pipe()
+    client = ctx.Process(target=_load_client, args=(port, bodies[:UNETR_CLIENTS], child_pipe),
+                         daemon=True)
+    client.start()
+    windows, answers = {}, []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    pre = make_preprocessor(cfg)
+    try:
+        seq_lat = []
+        for i in range(UNETR_CLIENTS, len(bodies)):
+            t1 = time.perf_counter()
+            answers.append((i, np.load(io.BytesIO(_request(port, "POST", "/v1/predict",
+                                                           bodies[i])))))
+            seq_lat.append(time.perf_counter() - t1)
+        for wname, seconds in UNETR_SERVE_WINDOWS_S.items():
+            before = _get_json(port, "/v1/stats")
+            if wname == "traced":
+                prof.start()
+            pipe.send(seconds)
+            if not pipe.poll(seconds + 300):
+                fail(f"the load client gave no result for the UNETR {wname} window")
+            res = pipe.recv()
+            if wname == "traced":
+                prof.stop()
+            if res["errors"] or not res["requests"]:
+                fail(f"UNETR load client, {wname} window: {len(res['requests'])} answers, "
+                     f"errors {res['errors'][:3]}")
+            windows[wname] = (res, before, _get_json(port, "/v1/stats"))
+            answers += [(i, a) for i, _, a in res["requests"]]
+        pipe.send(None)
+        client.join(timeout=30)
+        stats = _get_json(port, "/v1/stats")
+        launches = dict(flash_attention.by_instance)
+        pooled = server.RequestHandlerClass.preprocess
+        same = all(all(a[k].tobytes() == b[k].tobytes() for k in a)
+                   for a, b in ((pooled(tiles[i]), pre(tiles[i])) for i in range(2)))
+    finally:
+        if client.is_alive():
+            client.terminate()
+            client.join()
+        server.shutdown()
+        server.server_close()
+        server.RequestHandlerClass.batcher.close()
+        thread.join(timeout=30)
+    for wname, (res, before, after) in windows.items():
+        log(_window_line(wname, res, before, after).replace("[serve]", "[unetr serve]")
+            .replace(f"from {LOAD_CLIENTS} closed-loop", f"from {UNETR_CLIENTS} closed-loop"))
+    traced_s = windows["traced"][0]["wall_s"]
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / (1e3 * traced_s)
+    load_res = windows["load"][0]
+    rps = len(load_res["requests"]) / load_res["wall_s"]
+    lat = np.array([r[1] for r in load_res["requests"]]) * 1e3
+    if stats["errors"] or stats["requests"] != len(answers) + 1 or not same:
+        fail(f"UNETR server stats {stats} for {len(answers) + 1} requests; the pool's "
+             f"preprocessing the in-line one's: {same}")
+    if launches["flash_fwd_tf32<64>"] != 12 * stats["batches"] or \
+            sum(launches.values()) != launches["flash_fwd_tf32<64>"]:
+        fail(f"the UNETR server launched {launches} over {stats['batches']} batches")
+    # every answer against the in-process forward of its preprocessed sample
+    model = server.RequestHandlerClass.weights_holder["model"]
+    want, masks = {}, {}
+    for i0 in range(0, len(tiles), UNETR_MAX_BATCH):
+        b = [pre(x) for x in tiles[i0:i0 + UNETR_MAX_BATCH]]
+        b = {k: torch.from_numpy(np.stack([s[k] for s in b])).cuda() for k in b[0]}
+        x, ps, x_seq = unetr_inputs(cfg, b)
+        with torch.inference_mode():
+            logits = model(x, seq_ps=ps, x_seq=x_seq).float().cpu().numpy()
+        for j in range(len(logits)):
+            want[i0 + j], masks[i0 + j] = logits[j].argmax(0), _margin_mask(logits[j:j + 1])[0]
+    differ = sum(int(((a != want[i]) & masks[i]).sum()) for i, a in answers)
+    left_out = sum(int((~masks[i]).sum()) for i, _ in answers)
+    log(f"[unetr serve] max_batch {UNETR_MAX_BATCH}, --preprocess-workers "
+        f"{UNETR_SERVE_WORKERS}: startup {startup_s:.2f} s; a lone request "
+        f"{1e3 * min(seq_lat):.1f}-{1e3 * max(seq_lat):.1f} ms; {rps:.2f} requests/s, p50 "
+        f"{np.percentile(lat, 50):.1f} p90 {np.percentile(lat, 90):.1f} p99 "
+        f"{np.percentile(lat, 99):.1f} ms; device busy {100 * busy:.2f}% of the traced "
+        f"window; {len(answers)} class maps against the in-process forward: {differ} voxels "
+        f"differ where its top-two margin passes {UNETR_MARGIN:g} ({left_out} voxels under "
+        f"it left out, of {len(answers) * 64 ** 3})")
+    if differ or any(a.shape != (64, 64, 64) or a.dtype != np.int32 for _, a in answers):
+        fail("served UNETR class maps disagree with the in-process forward")
+    return {"rps": rps, "p50": float(np.percentile(lat, 50)),
+            "p90": float(np.percentile(lat, 90)), "p99": float(np.percentile(lat, 99)),
+            "lone_ms": 1e3 * min(seq_lat), "busy": busy,
+            "fwd64": launches["flash_fwd_tf32<64>"]}
+
+
+def phase_unetr(mae_ckpt: str | None = None) -> dict:
+    """configs/basic_ct/unetr as shipped, --single-device: (a) the f32 kernels at
+    [96, 729, 64]; (b) synthetic training through the CLI entry, timed and traced
+    windows, FLASH against EINSUM; (c) from labelled NIfTI files in line and with
+    a spawn pool; (d) the warm start from an MAE checkpoint (`mae_ckpt`, or one
+    saved here from a seeded mae_long init); (e) the inference CLI's Dice and
+    `--volume`; (f) serving under load. Returns the kernels' numbers and the
+    launches the record counts."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.data.pipeline import read_nifti_file
+    from ucf_vit_tpu_torch.train import synthetic_batches
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    kernels = _f32_attention_case("unetr", "basic_ct/unetr", UNETR_SHAPE, gen,
+                                  iters=ADAPTIVE_KERNEL_ITERS)
+    torch.cuda.empty_cache()
+
+    # (b) synthetic
+    path = _adaptive_config(UNETR_CONFIG, "unetr")
+    cfg = load_config(path)
+    main_inst = _unetr_cli("basic_ct/unetr synthetic", [path, "--synthetic", "--single-device",
+                                                       "--max-steps", str(UNETR_MAIN_STEPS)],
+                           UNETR_MAIN_STEPS)
+    stream = synthetic_batches(cfg, cfg.batch_size, seed=0)
+    w, t, tr = UNETR_WARMUP, UNETR_TIMED, UNETR_TRACED
+    batches = [next(stream) for _ in range(max(w + t + tr, UNETR_CHECK_STEPS))]
+    state, step = _unetr_flash_against_einsum(cfg, batches[:UNETR_CHECK_STEPS])
+    synth = _measure_steps("unetr", f"basic_ct/unetr f32 batch {cfg.batch_size}, remat, FLASH",
+                           state, step, batches[:w], batches[w:w + t], batches[w + t:w + t + tr],
+                           top=10)
+    synth["device_step_ms"] = synth["busy_ms"] / synth["traced_steps"]
+    log(f"[unetr] device time a step {synth['device_step_ms']:.3f} ms; by kind: "
+        f"{_unetr_groups(synth['kernels'], synth['busy_ms'])}; flash a step: "
+        f"{_flash_per_step(synth['kernels'], synth['traced_steps'])}")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+    # (c) from files
+    root = os.path.join(WORK, "unetr_ct")
+    secs = _labelled_volumes(root, UNETR_VOLUMES, UNETR_SIDE, seed=17)
+    log(f"[unetr] wrote {UNETR_VOLUMES} int16 volumes of {UNETR_SIDE}^3 and their label "
+        f"volumes in {secs:.2f} s")
+    vol = read_nifti_file(os.path.join(root, "imagesTr", "image0.nii"))  # [1, 128^3] in [0, 1]
+    vol_path = os.path.join(WORK, "unetr_volume.npy")
+    np.save(vol_path, vol)
+    tiles = [np.ascontiguousarray(read_nifti_file(os.path.join(root, "imagesTr",
+                                                               f"image{i}.nii"))
+                                  [:, a:a + 64, b:b + 64, c:c + 64])
+             for i in range(3) for a in (0, 64) for b in (0, 64) for c in (0, 64)]
+    tiles = tiles[:UNETR_CLIENTS + UNETR_SEQUENTIAL]  # the clients' and the lone requests
+    costs = _patchify3d_costs([np.moveaxis(x, 0, -1) for x in tiles[:8]])
+    fpath = _adaptive_config(UNETR_CONFIG, "unetr_files", dict_root_dirs={"ct1": root})
+    files = _unetr_from_files(root, fpath)
+    ckpt = os.path.join(load_config(fpath).trainer["checkpoint_path"], "multi_last_even.ckpt")
+    if not os.path.isfile(ckpt):
+        fail(f"the UNETR run from files saved no {ckpt}")
+    torch.cuda.empty_cache()
+
+    # (d), (e), (f)
+    _unetr_warm_start(path, mae_ckpt)
+    torch.cuda.empty_cache()
+    evaluated = _unetr_evaluate(fpath, ckpt, vol_path)
+    torch.cuda.empty_cache()
+    served = _unetr_serve(fpath, ckpt, tiles)
+    launches = {
+        "flash_fwd_unetr": main_inst["fwd:flash_fwd_tf32<64>"]
+        + files["instances"]["fwd:flash_fwd_tf32<64>"] + evaluated["eval_fwd"] + served["fwd64"],
+        "flash_bwd_fused_unetr": main_inst["bwd:flash_bwd_tf32<64>"]
+        + files["instances"]["bwd:flash_bwd_tf32<64>"],
+    }
+    log(f"[record] unetr: synthetic {synth['ms_step']:.3f} ms/step, {synth['images_s']:.2f} "
+        f"volumes/s, busy {100 * synth['busy_share']:.2f}%, {synth['device_step_ms']:.3f} ms "
+        f"device a step, peak {synth['peak_gb']:.2f} GB; from files "
+        f"{files['inline']['ms_step']:.3f} ms/step in line ({files['inline']['volumes_s']:.2f} "
+        f"volumes/s, the loader {files['inline']['loader_ms']:.1f} ms a batch, waits "
+        f"{files['inline']['wait_ms']:.2f} ms a step), {files['pool']['ms_step']:.3f} with a "
+        f"pool of {UNETR_POOL - 1} ({files['pool']['volumes_s']:.2f} volumes/s, the loader "
+        f"{files['pool']['loader_ms']:.1f} ms a batch, waits {files['pool']['wait_ms']:.2f} "
+        f"ms a step); Patchify3D {costs['patchify_ms']:.3f} ms a sample; Dice "
+        f"{evaluated['dice']:.6f}; a volume {evaluated['volume_s']:.3f} s "
+        f"({100 * evaluated['volume_pre_share']:.1f}% preprocessing); served "
+        f"{served['rps']:.2f} requests/s, p50 {served['p50']:.1f} p90 {served['p90']:.1f} p99 "
+        f"{served['p99']:.1f} ms, a lone request {served['lone_ms']:.1f} ms, busy "
+        f"{100 * served['busy']:.2f}%; launches {launches}")
+    log(f"[unetr] phase_unetr took {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "launches": launches}
+
+
 def _use(modules: dict) -> None:
     """Make `modules` the process's `ucf_vit_tpu_torch`: the package imports
     some of its modules when called, and must find its own."""
@@ -4122,8 +4751,8 @@ def compare_forward(other: str) -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] not in ("--compare", "--only")
-                 or (args[0] == "--only" and args[1] != "adaptive")):
-        fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive]")
+                 or (args[0] == "--only" and args[1] not in ("adaptive", "unetr"))):
+        fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive | --only unetr]")
     if args and args[0] == "--compare" and \
             not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
         fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
@@ -4143,11 +4772,11 @@ def main() -> int:
         compare_forward(os.path.abspath(args[1]))
         print(card, flush=True)
         return 0
-    if args:  # --only adaptive: the build and phase_adaptive alone, no record
+    if args:  # --only adaptive|unetr: the build and that phase alone, no record
         phase_build()
         os.makedirs(WORK, exist_ok=True)
         try:
-            phase_adaptive()
+            phase_adaptive() if args[1] == "adaptive" else phase_unetr()
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         print(card, flush=True)
@@ -4174,6 +4803,7 @@ def main() -> int:
             fail("phase_trainer_parity trains from JPEG files: PIL and cv2 must import")
         parity = phase_trainer_parity(disk["jpeg"]["root"], disk["mae_ckpt"])
         adaptive = phase_adaptive()
+        unetr = phase_unetr(disk["mae_ckpt"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[profiler] {PROFILE_LOSS['windows']} windows timed a named kernel: "
@@ -4238,6 +4868,10 @@ def main() -> int:
                            "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_dh96": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                                  "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_unetr": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                            "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_unetr": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
+                                  "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -4252,7 +4886,9 @@ def main() -> int:
                "flash_fwd_dh128": diffusion_kernels["imagenet"]["fwd"],
                "flash_bwd_fused_dh128": diffusion_kernels["imagenet"]["bwd"],
                "flash_fwd_dh96": diffusion_kernels["basic_ct"]["fwd"],
-               "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"]}
+               "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"],
+               "flash_fwd_unetr": unetr["kernels"]["fwd"],
+               "flash_bwd_fused_unetr": unetr["kernels"]["bwd"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"]
@@ -4283,6 +4919,10 @@ def main() -> int:
     # imagenet/mae's decoder (<128>) through the CLI entry, basic_ct/mae's /v1/predict
     for name, n in adaptive["launches"].items():
         launches[name] += n
+    # basic_ct/unetr's paths (phase_unetr): training through the CLI entry (synthetic and
+    # from files), the inference CLI's Dice and --volume, the server; the f32 <64>
+    # instances at [96, 729, 64], a row of their own
+    launches.update(unetr["launches"])
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
         f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")
@@ -4306,7 +4946,8 @@ def main() -> int:
                  "flash_fwd_bf16_mae_long", "flash_bwd_fused_bf16_mae_long",
                  "flash_bwd_dkv_bf16_mae_long", "flash_bwd_dq_bf16_mae_long", "fused_mlp",
                  "fused_mlp_f32", "int8_matmul", "flash_fwd_dh128", "flash_bwd_fused_dh128",
-                 "flash_fwd_dh96", "flash_bwd_fused_dh96"):
+                 "flash_fwd_dh96", "flash_bwd_fused_dh96", "flash_fwd_unetr",
+                 "flash_bwd_fused_unetr"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

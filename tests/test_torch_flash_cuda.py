@@ -758,3 +758,61 @@ def test_adaptive_vit_step_launches_on_card():
         "flash_fwd_tf32<64>": 2}
     assert {k: v for k, v in flash_attention_bwd.by_instance.items() if v} == {
         "flash_bwd_tf32<64>": 2}
+
+
+# basic_ct/unetr's attention: batch 8 x 12 heads over 729 octree tokens (12 query tiles,
+# the last holding 25 rows), dh 64; the path takes the fused route (729 f32 queries)
+UNETR_SHAPE = (8, 12, 729, 729, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_f32_kernels_at_the_unetr_shape_on_card(route):
+    _card()
+    b, h, n_q, n_kv, dh = UNETR_SHAPE
+    q, k, v, do = _inputs(b, h, n_q, n_kv, dh, torch.float32, seed=5)
+    sm = dh**-0.5
+    reset_launch_counts()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, sm, route=route)
+    torch.cuda.synchronize()
+    assert flash_attention.by_instance["flash_fwd_tf32<64>"] == 1
+    assert flash_attention_bwd.by_instance["flash_bwd_tf32<64>"] == (1 if route == "fused" else 2)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, sm)
+    assert (o - ref_o).abs().max().item() <= FWD_TOL[torch.float32]
+    assert (lse - ref_lse).abs().max().item() <= 5e-5
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel_err(g, w) <= BWD_TOL[torch.float32], (name, route)
+
+
+@pytest.mark.cuda
+def test_unetr_step_launches_on_card():
+    """One f32 train step of a depth-4 adaptive 3-D UNETR with remat (729 octree
+    tokens at patch 4, reassembled into 36^3; a 32^3 tile, so the decoder resizes)
+    launches the forward `<64>` twice a block (remat runs it again) and the fused
+    backward once a block, and the f32 policy holds on the card."""
+    _card()
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.train import init_train, synthetic_batches, to_device
+
+    ia = {"default_vars": ["ct"], "tile_size": [32, 32, 32], "patch_size": 4, "embed_dim": 192,
+          "depth": 4, "num_heads": 3, "mlp_ratio": 2, "twoD": False, "adaptive_patching": True,
+          "fixed_length": 729, "use_adaptive_pos_emb": True, "feature_size": 4}
+    raw = {"trainer": {"task": "unetr", "attn_impl": "FLASH", "remat": True}, "parallelism": {},
+           "model": {"lr": 1e-3, "net": {"init_args": ia}},
+           "data": {"batch_size": 2, "num_classes": 4}}
+    cfg = Config(raw=raw, task="unetr")
+    state, step = init_train(cfg, device="cuda")
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    batch = to_device(next(synthetic_batches(cfg, 2)), torch.device("cuda"))
+    reset_launch_counts()
+    state, loss, _ = step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert {k: v for k, v in flash_attention.by_instance.items() if v} == {
+        "flash_fwd_tf32<64>": 8}
+    assert {k: v for k, v in flash_attention_bwd.by_instance.items() if v} == {
+        "flash_bwd_tf32<64>": 4}

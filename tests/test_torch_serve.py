@@ -441,7 +441,7 @@ def test_generate_diffusion_on_the_cpu(tmp_path):
         diffusion_sampler(_cfg(), init_eval_model(_cfg(), device="cpu"), 2)
 
 
-@pytest.mark.parametrize("task,item", [("unetr", "item 7: UNETR"), ("sap", "item 8: SAP")])
+@pytest.mark.parametrize("task,item", [("sap", "item 8: SAP")])
 def test_predictor_refuses_the_tasks_still_to_port(task, item):
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
@@ -747,22 +747,15 @@ def test_inference_cli_evaluates_and_generates(tmp_path, capsys):
     assert evaluate(_diffusion_cfg(steps=3), None, None, False, 2, device="cpu") > 0
 
 
-@pytest.mark.parametrize("case", ["volume", "mae_checkpoint", "unetr", "sap", "no_cuda"])
+@pytest.mark.parametrize("case", ["sap", "no_cuda"])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
     cfg_path = os.path.join(REPO, "configs/catsdogs/classification/base_config.yaml")
-    if case == "volume":
-        with pytest.raises(NotImplementedError, match="modules to port, item 7: UNETR"):
-            inference_main([cfg_path, "--volume", "v.npy", "--device", "cpu"])
-    elif case == "mae_checkpoint":
-        with pytest.raises(NotImplementedError, match="modules to port, item 7: UNETR"):
-            inference_main([cfg_path, "--mae-checkpoint", "ck", "--device", "cpu"])
-    elif case == "no_cuda":
+    if case == "no_cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             inference_main([cfg_path, "--synthetic"])
     else:
-        item = {"unetr": "item 7: UNETR", "sap": "item 8: SAP"}[case]
-        with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
+        with pytest.raises(NotImplementedError, match="modules to port, item 8: SAP"):
             evaluate(Config(raw=_cfg().raw, task=case), device="cpu")
 
 
@@ -945,3 +938,211 @@ def test_inference_cli_evaluates_an_adaptive_config(tmp_path):
     top1 = inference_main([str(path), "--synthetic", "--num-samples", "4", "--device", "cpu"])
     assert top1 == evaluate_classification(cfg, None, True, 4, device="cpu")
     assert 0.0 <= top1 <= 1.0
+
+
+
+# ---------------------------------------------------------------- UNETR
+#
+# UNETR's evaluation and serving on the shrunk basic_ct/unetr (tile 16^3, patch 2, 64
+# octree tokens, embed 24, depth 4, feature size 4, 4 classes): the preprocessor (the
+# octree at the fixed index, and the tile `x`) against the JAX one byte for byte, in
+# line and in a spawn pool; the predictor's int32 class map against the JAX server's on
+# the same weights; an HTTP round trip through the pool; `evaluate`'s Dice on a port
+# checkpoint against the JAX `evaluate` on it after `to-jax` (1e-6); `VolumePredictor`
+# on a 24^3 volume against the JAX one (the class map equal); and the inference CLI's
+# Dice, `--mae-checkpoint` and `--volume`.
+
+from ucf_vit_tpu.inference import evaluate as jax_evaluate
+from ucf_vit_tpu.inference import predict_volume as jax_predict_volume
+from ucf_vit_tpu_torch.inference import VolumePredictor, predict_volume
+
+DICE_TOL = 1e-6
+
+
+def _unetr_cfg(adaptive=True, **trainer):
+    with open(os.path.join(REPO, "configs", "basic_ct", "unetr", "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["net"]["init_args"].update(tile_size=[16, 16, 16], patch_size=2,
+                                            fixed_length=64, embed_dim=24, depth=4,
+                                            num_heads=2, feature_size=4,
+                                            adaptive_patching=adaptive)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=1, **trainer)
+    raw["parallelism"] = {}
+    raw["data"]["batch_size"] = 2
+    return Config(raw=raw, task="unetr")
+
+
+def _volumes_f32(n, side=16, seed=9):
+    """CT-like volumes `[n, 1, side^3]` in [0, 1], with a block the octree sees."""
+    rng = np.random.default_rng(seed)
+    v = 0.3 * rng.random((n, 1) + (side,) * 3)
+    v[:, :, side // 4: 3 * side // 4, side // 4:, : side // 2] += 0.6
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("workers", [0, 2], ids=["in_line", "pool"])
+def test_unetr_preprocessor_matches_jax(workers):
+    cfg = _unetr_cfg()
+    cfg.raw["data"]["seed"] = 4
+    jpre, pre = jax_make_preprocessor(cfg), make_preprocessor(cfg, workers)
+    try:
+        for arr in _volumes_f32(2):
+            got, want = pre(arr), jpre(arr)
+            assert sorted(got) == sorted(want) == ["seq", "seq_pos", "seq_size", "x"]
+            for k in got:
+                assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
+        assert got["seq"].shape == (1, 64, 8) and got["seq_pos"].shape == (1, 64, 3)
+    finally:
+        pre.close()
+
+
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "plain"])
+def test_unetr_predictor_matches_the_jax_server(adaptive):
+    """The class maps `int32 [B, *tile]` equal the JAX server's, which serving
+    UNETR was refused before this slice."""
+    cfg = _unetr_cfg(adaptive)
+    jrun, jpre, _, (_, jholder, _) = jax_build_predictor(cfg, max_batch=2, seed=3)
+    run, pre, mb, (model, _, _) = build_predictor(cfg, max_batch=2, seed=3, device="cpu")
+    load_jax_params(model, jax.tree.map(np.asarray, jholder["params"]))
+    batch = _adaptive_batch(pre, _volumes_f32(2))
+    want = np.asarray(jrun(_adaptive_batch(jpre, _volumes_f32(2))))
+    got = run(batch)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (2, 16, 16, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) > 1
+
+
+def test_unetr_server_answers_class_maps_through_its_pool():
+    """Over HTTP with a preprocessing pool of 2: each answer is the int32 class map
+    of the in-process forward of the sample's preprocessed request."""
+    from ucf_vit_tpu_torch.tasks import unetr_inputs
+
+    cfg = _unetr_cfg()
+    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=2, max_wait_ms=20.0,
+                         seed=5, device="cpu", preprocess_workers=2)
+    samples = _volumes_f32(2, seed=12)
+    try:
+        base = _serving(server)
+        answers = [_predict(base, s) for s in samples]
+    finally:
+        _stop(server)
+    model = init_eval_model(cfg, seed=5, device="cpu")
+    pre = make_preprocessor(cfg)
+    for s, got in zip(samples, answers):
+        b = {k: torch.from_numpy(v[None]) for k, v in pre(s).items()}
+        x, ps, x_seq = unetr_inputs(cfg, b)
+        with torch.inference_mode():
+            want = model(x, seq_ps=ps, x_seq=x_seq).argmax(1)[0].numpy()
+        assert got.dtype == np.int32 and got.shape == (16, 16, 16)
+        np.testing.assert_array_equal(got, want)
+
+
+def _unetr_checkpoint(tmp_path):
+    cfg = _unetr_cfg(checkpoint_path=str(tmp_path / "ck"))
+    train(cfg, synthetic=True, max_steps=2, device="cpu")
+    path = tmp_path / "unetr.yaml"
+    path.write_text(yaml.safe_dump(cfg.raw))
+    return cfg, str(path), str(tmp_path / "ck" / "multi_last_even.ckpt")
+
+
+def test_evaluate_unetr_dice_matches_jax_on_one_checkpoint(tmp_path, capsys):
+    """The Dice of each sample and the mean: the port's `evaluate` on its
+    checkpoint against the JAX `evaluate` on it after `to-jax`, the same 3
+    synthetic batches, within DICE_TOL."""
+    cfg, cfg_path, ck = _unetr_checkpoint(tmp_path)
+    assert convert_main(["to-jax", ck, cfg_path, str(tmp_path / "jax"), "--filename",
+                         "conv"]) == 0
+    jraw = json.loads(json.dumps(cfg.raw))
+    jraw["trainer"]["checkpoint_filename_for_loading"] = "conv_latest"
+    want = jax_evaluate(JConfig(raw=jraw, task="unetr"), str(tmp_path / "jax"), None, True, 3)
+    wlines = re.findall(r"sample \d+: dice ([0-9.]+)", capsys.readouterr().out)
+    got = evaluate(cfg, ck, None, True, 3, device="cpu")
+    glines = re.findall(r"sample \d+: dice ([0-9.]+)", capsys.readouterr().out)
+    assert len(glines) == len(wlines) == 3 and glines == wlines
+    assert abs(got - want) <= DICE_TOL and 0.0 < got < 1.0
+
+
+def test_volume_predictor_matches_jax():
+    """A 24^3 volume in 16^3 windows at overlap 0.5 (8 windows, the last ones flush
+    with the far edge; sw_batch 3 pads the last chunk): the class map equal to the
+    JAX `predict_volume`'s on the same weights; a volume shorter than the tile is
+    reflect-padded and cropped back."""
+    cfg = _unetr_cfg()
+    _, _, _, (_, jholder, _) = jax_build_predictor(cfg, max_batch=3, seed=3)
+    params = jax.tree.map(np.asarray, jholder["params"])
+    vol = _volumes_f32(1, side=24, seed=13)[0]
+    want = np.asarray(jax_predict_volume(cfg, vol, params=params, sw_batch=3))
+    model = load_jax_params(init_eval_model(cfg, device="cpu"), params)
+    predictor = VolumePredictor(cfg, model=model, sw_batch=3)
+    got = predictor(vol, overlap=0.5)
+    assert got.dtype == np.int32 and got.shape == (24, 24, 24)
+    np.testing.assert_array_equal(got, want)
+    assert predictor.last_stats["windows"] == 8 and len(np.unique(got)) > 1
+    small = vol[:, :12]
+    np.testing.assert_array_equal(
+        predictor(small), np.asarray(jax_predict_volume(cfg, small, params=params, sw_batch=3)))
+
+
+def test_inference_cli_evaluates_unetr_with_pngs(tmp_path, capsys):
+    """`evaluate` of a UNETR, refused before this slice: the CLI's mean Dice equals
+    `evaluate`'s, one PNG a sample."""
+    cfg, cfg_path, ck = _unetr_checkpoint(tmp_path)
+    dice = inference_main([cfg_path, "--checkpoint", ck, "--synthetic", "--num-samples", "2",
+                           "--png-dir", str(tmp_path / "png"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "mean dice over 2 samples" in out and "loaded checkpoint from epoch 0" in out
+    assert dice == evaluate(cfg, ck, None, True, 2, device="cpu")
+    assert sorted(os.listdir(tmp_path / "png")) == ["sample_0.png", "sample_1.png"]
+
+
+def test_inference_cli_warm_starts_the_encoder_from_an_mae(tmp_path, capsys):
+    """`--mae-checkpoint`, refused before this slice: the encoder's entries come
+    from the MAE checkpoint (the position table resampled), and the Dice equals
+    that of the model so built by hand."""
+    from ucf_vit_tpu_torch.checkpoint import transfer_mae_encoder
+    from ucf_vit_tpu_torch.models import MAE
+
+    cfg, cfg_path, _ = _unetr_checkpoint(tmp_path)
+    mae = MAE(img_size=(16, 16, 16), patch_size=2, in_chans=1, twoD=False, embed_dim=24,
+              depth=4, num_heads=2, decoder_embed_dim=18, decoder_depth=1,
+              decoder_num_heads=3).init_weights(torch.Generator().manual_seed(7))
+    os.makedirs(tmp_path / "mae")
+    torch.save({"epoch": 1, "model_state_dict": mae.state_dict(), "loss_list": [],
+                "head_meta": [2, 3]}, str(tmp_path / "mae" / "multi_last_odd.ckpt"))
+    dice = inference_main([cfg_path, "--mae-checkpoint", str(tmp_path / "mae"), "--synthetic",
+                           "--num-samples", "2", "--device", "cpu"])
+    assert "initialized encoder from MAE checkpoint" in capsys.readouterr().out
+    model = init_eval_model(cfg, device="cpu")
+    sd = transfer_mae_encoder(mae.state_dict(), model.state_dict(), 64)
+    assert torch.equal(sd["blocks.1.attn.qkv.weight"], mae.state_dict()["blocks.1.attn.qkv.weight"])
+    model.load_state_dict(sd)
+    from ucf_vit_tpu_torch.tasks import unetr_inputs
+    from ucf_vit_tpu_torch.train import synthetic_batches as port_synthetic
+    from ucf_vit_tpu_torch.utils.metrics import dice_metric
+
+    dices = []
+    for _, b in zip(range(2), port_synthetic(cfg, 1)):
+        t = {k: torch.from_numpy(v) for k, v in b.items() if isinstance(v, np.ndarray)}
+        x, ps, x_seq = unetr_inputs(cfg, t)
+        with torch.inference_mode():
+            dices.append(float(dice_metric(model(x, seq_ps=ps, x_seq=x_seq).argmax(1),
+                                           t["label"][:, 0], 4)))
+    assert abs(dice - float(np.mean(dices))) <= DICE_TOL
+
+
+def test_inference_cli_stitches_a_volume(tmp_path, capsys):
+    """`--volume`, refused before this slice: the class map the CLI saves equals
+    `predict_volume`'s, and the CLI names the windows and the host's share."""
+    cfg, cfg_path, ck = _unetr_checkpoint(tmp_path)
+    np.save(tmp_path / "vol.npy", _volumes_f32(1, side=20, seed=14)[0])
+    pred = inference_main([cfg_path, "--checkpoint", ck, "--volume", str(tmp_path / "vol.npy"),
+                           "--volume-out", str(tmp_path / "pred.npy"), "--sw-batch", "2",
+                           "--device", "cpu"])
+    saved = np.load(tmp_path / "pred.npy")
+    np.testing.assert_array_equal(saved, pred)
+    np.testing.assert_array_equal(
+        saved, predict_volume(cfg, np.load(tmp_path / "vol.npy"), ck, sw_batch=2, device="cpu"))
+    assert saved.shape == (20, 20, 20) and saved.dtype == np.int32
+    assert "8 windows" in capsys.readouterr().out

@@ -298,8 +298,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
-    for key, value, item in (("pretrained_mae_checkpoint", "ck", "item 7: UNETR"),
-                             ("sync_check_every", 2, "item 10: data/tensor parallel")):
+    for key, value, item in (("sync_check_every", 2, "item 10: data/tensor parallel"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port, {item}"):
             main([_tiny_yaml(tmp_path, **{key: value}), "--synthetic", "--device", "cpu"])
 
@@ -462,10 +461,10 @@ def test_unported_variants_raise_with_their_roadmap_item(variant):
     kw = dict(MAE_KW, **MAE_TILES["3d"])
     item = {"adaptive_pos_mlp": "VIT input variants", "pipe_par": "pipeline \\+ MoE",
             "varemb": "VIT input variants"}[variant]
-    # the adaptive position MLP is ported; the sqrt-len method that UNETR and SAP
-    # pair it with is not
+    # the adaptive position MLP is ported (and the sqrt-len method, UNETR's input);
+    # the variable embedding an adaptive MAE may pair with it is not
     kw.update({"adaptive_pos_mlp": dict(use_adaptive_pos_emb=True, adaptive_patching=True,
-                                        fixed_length=64, sqrt_len_method=True),
+                                        fixed_length=64, use_varemb=True),
                "pipe_par": dict(pipe_par_size=2, scan_layers=True),
                "varemb": dict(use_varemb=True)}[variant])
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port: {item}"):
@@ -938,19 +937,6 @@ def test_jpeg_reading_names_a_missing_module(tmp_path, monkeypatch):
         ds[0]
     with pytest.raises(ImportError, match="cv2"):
         port_pipeline.read_imagenet_file(ds.file_list[0])
-
-
-def test_adaptive_data_raises_with_item_6(tmp_path):
-    """3-D adaptive patching (the octree) is still to port; the 2-D path is
-    ported (the adaptive section below)."""
-    kw = _dm_case(tmp_path, "ct3d_nii")
-    dm = DataModule(**kw, adaptive_patching=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dm.setup()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_pipeline.ProcessChannels(None, num_channels=1, single_channel=True,
-                                      return_label=False, dataset="basic_ct",
-                                      adaptive_patching=True, twoD=False)
 
 
 def _jax_init_as_torch_file(raw, path):
@@ -2190,7 +2176,8 @@ def test_pool_children_import_the_data_modules_alone(tmp_path):
     assert {m for m in mods if m.startswith("ucf_vit_tpu_torch")} <= {
         "ucf_vit_tpu_torch", "ucf_vit_tpu_torch.data", "ucf_vit_tpu_torch.data.pipeline",
         "ucf_vit_tpu_torch.data.nifti", "ucf_vit_tpu_torch.data.transform",
-        "ucf_vit_tpu_torch.data.quadtree", "ucf_vit_tpu_torch.native"}
+        "ucf_vit_tpu_torch.data.quadtree", "ucf_vit_tpu_torch.data.octree",
+        "ucf_vit_tpu_torch.native"}
 
 
 def test_pools_started_from_three_threads_leave_the_main_module_whole():
@@ -2239,3 +2226,302 @@ def test_adaptive_catsdogs_matches_jax(tmp_path):
     got = list(port_catsdogs.catsdogs_loader(ds, 2, seed=1))
     _assert_batches_equal(got, list(jax_catsdogs.catsdogs_loader(jds, 2, seed=1)))
     assert got[0]["seq"].shape == (2, 3, 16, 16) and got[0]["seq_size"].shape == (2, 1, 16)
+
+
+# ================================================================ the octree and UNETR
+#
+# 3-D adaptive patching and UNETR's training at a small size (tile 16^3, patch 2,
+# fixed_length 64 = 1 + 7 * 9 leaves, so sqrt_len 4; embed 24, depth 4, 2 heads,
+# feature size 4, 4 classes, batch 2): the native Gaussian against scipy's
+# `gaussian_filter` (its weights from the port's copy of scipy's formula), the octree's
+# native build against its numpy build and the JAX tree box for box, the native
+# serialization against the per-leaf resample and the JAX one bit for bit, `Patchify3D`
+# on one generator state against the JAX one array for array, the 3-D adaptive
+# `DataModule` with labels (in line and with a spawn pool) against the JAX one, five f32
+# train steps of the shrunk basic_ct/unetr with remat against the JAX step (1e-4 a step),
+# `transfer_mae_encoder` against the JAX one key for key and value for value, and the
+# trainer's CLI from labelled NIfTI volumes warm-started from an MAE checkpoint.
+
+from scipy.ndimage import gaussian_filter
+from scipy.ndimage._filters import _gaussian_kernel1d
+
+from ucf_vit_tpu.checkpoint import transfer_mae_encoder as jax_transfer_mae_encoder
+from ucf_vit_tpu.data.octree import FixedOctTree as JFixedOctTree
+from ucf_vit_tpu.data.transform import Patchify3D as JPatchify3D
+from ucf_vit_tpu.tasks import build_unetr as jax_build_unetr
+from ucf_vit_tpu.tasks import reassemble_sqrt_len as jax_reassemble
+from ucf_vit_tpu_torch import native
+from ucf_vit_tpu_torch.checkpoint import transfer_mae_encoder
+from ucf_vit_tpu_torch.data.octree import FixedOctTree, octree_boxes_plain, resize_3d
+from ucf_vit_tpu_torch.data.transform import Patchify3D
+from ucf_vit_tpu_torch.models import UNETR
+from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
+from ucf_vit_tpu_torch.train import transfer_pretrained_mae
+
+UNETR_STEPS = 5
+
+
+@pytest.mark.parametrize("sigma", [1, 3, 5])
+def test_gaussian3d_matches_scipy(sigma):
+    radius = int(4.0 * sigma + 0.5)
+    np.testing.assert_array_equal(native.gaussian_weights(float(sigma), radius),
+                                  _gaussian_kernel1d(float(sigma), 0, radius))
+    img = np.random.default_rng(sigma).random((12, 10, 9, 2)).astype(np.float32)
+    got = native.gaussian3d(img, float(sigma))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, gaussian_filter(img, sigma=(sigma, sigma, sigma, 0)))
+
+
+def _edge_volume(kind, n=16):
+    rng = np.random.default_rng(4)
+    if kind == "sparse":
+        return ((rng.random((n, n, n)) > 0.8) * 255).astype(np.uint8)
+    v = np.zeros((n, n, n), np.uint8)  # mass in two corners, ties elsewhere
+    v[:n // 4, :n // 4, :n // 2] = 85
+    v[n // 2:, n // 2 + 2:, 3:7] = 170
+    return v
+
+
+@pytest.mark.parametrize("fixed_length", [8, 64, 60])
+@pytest.mark.parametrize("edges", ["sparse", "blocks"])
+def test_octree_native_matches_numpy_and_jax(edges, fixed_length):
+    """60 is not 1 + 7n: the splits overshoot it, the same way in all three."""
+    dom = _edge_volume(edges)
+    boxes, vals = native.octree_boxes(dom, fixed_length, 85)
+    pboxes, pvals = octree_boxes_plain(dom, fixed_length, 85)
+    ref = JFixedOctTree(dom, fixed_length, 85)
+    np.testing.assert_array_equal(boxes, pboxes)
+    np.testing.assert_array_equal(vals, pvals)
+    np.testing.assert_array_equal(boxes, [c.get_coord() for c, _ in ref.nodes])
+    np.testing.assert_array_equal(vals, [v for _, v in ref.nodes])
+    assert boxes.shape[0] == (64 if fixed_length == 60 else fixed_length)
+    tree = FixedOctTree(dom, fixed_length, 85)
+    assert [c.get_coord() for c, _ in tree.nodes] == [c.get_coord() for c, _ in ref.nodes]
+
+
+@pytest.mark.parametrize("nearest", [False, True], ids=["trilinear", "nearest"])
+def test_octree_serialize_matches_the_per_leaf_resample_and_jax(nearest):
+    rng = np.random.default_rng(5)
+    img = rng.random((16, 16, 16, 2)).astype(np.float32)
+    if nearest:
+        img = rng.integers(0, 4, size=(16, 16, 16, 1)).astype(np.float32)
+    dom = _edge_volume("sparse")
+    tree, ref = FixedOctTree(dom, 57, 255), JFixedOctTree(dom, 57, 255)
+    c = img.shape[-1]
+    serialize = tree.serialize_labels if nearest else tree.serialize
+    jserialize = ref.serialize_labels if nearest else ref.serialize
+    seq, size, pos = serialize(img, (2, 2, 2, c))
+    for g, w in zip((seq, size, pos), jserialize(img, (2, 2, 2, c))):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    per_leaf = [resize_3d(cube.get_area(img), (2, 2, 2), nearest=nearest).astype(np.float32)
+                for cube, _ in tree.nodes]
+    n = len(per_leaf)
+    np.testing.assert_array_equal(seq[:n], np.stack(per_leaf))
+    np.testing.assert_array_equal(seq[n:], 0)  # the padding
+    assert (size[n:] == 0).all() and (pos[n:] == -1).all()
+    np.testing.assert_array_equal(native.resize3d(img[:4, :4, :4], 2, nearest),
+                                  per_leaf[0] * 0 + resize_3d(img[:4, :4, :4], (2, 2, 2),
+                                                              nearest).astype(np.float32))
+
+
+def test_octree_deserialize_matches_jax():
+    dom = _edge_volume("blocks")
+    tree, ref = FixedOctTree(dom, 64, 85), JFixedOctTree(dom, 64, 85)
+    seq = np.random.default_rng(6).random((64, 8)).astype(np.float32)
+    np.testing.assert_array_equal(tree.deserialize(seq, 2, 1), ref.deserialize(seq, 2, 1))
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_patchify3d_matches_jax(channels):
+    """Eight volumes from one seeded generator each side: every smoothing factor
+    (0: no smoothing) and Canny threshold the draws give; with two channels the
+    cross-channel rules."""
+    rng = np.random.default_rng(8)
+    vols = rng.random((8, 16, 16, 16, channels)).astype(np.float32)
+    vols[:, 4:12, 4:12, 4:12] += 0.5  # an edge the octree sees
+    ours = Patchify3D(fixed_length=64, patch_size=2, num_channels=channels,
+                      rng=np.random.default_rng(9))
+    ref = JPatchify3D(fixed_length=64, patch_size=2, num_channels=channels,
+                      rng=np.random.default_rng(9))
+    for vol in vols:
+        got, want = ours(vol), ref(vol)
+        for g, w in zip(got[:3], want[:3]):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[3].boxes, [c.get_coord() for c, _ in want[3].nodes])
+    assert got[0].shape == ((64, 8) if channels == 1 else (2, 64, 8))
+    with pytest.raises(RuntimeError, match="explicit"):
+        Patchify3D(fixed_length=64, patch_size=2)(vols[0])
+
+
+def _labelled_volumes(root, n, side, seed=0):
+    """`n` int16 CT-like volumes of `side`^3 under <root>/imagesTr and label
+    volumes 1-4 under <root>/labelsTr: thresholds of a smoothed copy, so that
+    the labels have edges."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "imagesTr"))
+    os.makedirs(os.path.join(root, "labelsTr"))
+    for i in range(n):
+        smooth = gaussian_filter(rng.normal(size=(side,) * 3), 2.0)
+        vol = (smooth * 3000 + 40 * rng.normal(size=smooth.shape)).astype(np.int16)
+        lab = 1 + np.digitize(smooth, np.quantile(smooth, [0.4, 0.7, 0.9])).astype(np.int16)
+        nifti.save(os.path.join(root, "imagesTr", f"image{i}.nii"), vol)
+        nifti.save(os.path.join(root, "labelsTr", f"label{i}.nii"), lab)
+    return str(root)
+
+
+@pytest.mark.parametrize("workers", [0, 3], ids=["in_line", "pool"])
+def test_adaptive_3d_datamodule_with_labels_matches_jax(tmp_path, workers):
+    """The 3-D adaptive chain that 3-D refused before this slice: `x`, `seq`,
+    `seq_size`, `seq_pos`, `label` and `seq_label` array for array with the JAX
+    DataModule, in line and in a spawn pool of 2, over two epochs."""
+    keys = ["ct"]
+    kw = dict(dict_root_dirs={"ct": _labelled_volumes(tmp_path / "ct", 2, 32)},
+              tile_size_x=16, tile_size_y=16, tile_size_z=16, twoD=False, single_channel=True,
+              dataset="basic_ct", batch_size=2, seed=3, adaptive_patching=True, patch_size=2,
+              fixed_length=64, return_label=True, num_classes=4,
+              dict_buffer_sizes={k: 4 for k in keys}, dict_in_variables={k: ["ct"] for k in keys},
+              num_channels_used={k: 1 for k in keys}, dict_start_idx={k: 0.0 for k in keys},
+              dict_end_idx={k: 1.0 for k in keys})
+    port = DataModule(**kw, num_workers=workers, prefetch=2)
+    jdm = JDataModule(**kw, prefetch=0)
+    port.setup()
+    jdm.setup()
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jdm.set_epoch(epoch)
+        got = list(itertools.islice(port.train_dataloader(loop=True), 3))
+        want = list(itertools.islice(jdm.train_dataloader(loop=True), 3))
+        _assert_batches_equal(got, want)
+    b = got[0]
+    assert b["seq"].shape == (2, 1, 64, 8) and b["seq_pos"].shape == (2, 1, 64, 3)
+    assert b["seq_label"].shape == (2, 64, 2, 2, 2) and b["label"].shape == (2, 1, 16, 16, 16)
+    assert set(np.unique(b["label"])) <= {0, 1, 2, 3}
+
+
+def _unetr_raw(**trainer):
+    """basic_ct/unetr as shipped, shrunk (its task, f32, remat, adaptive octree input,
+    the position MLP and the skip decoder kept)."""
+    with open(os.path.join(REPO, "configs", "basic_ct", "unetr", "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["net"]["init_args"].update(tile_size=[16, 16, 16], patch_size=2,
+                                            fixed_length=64, embed_dim=24, depth=4,
+                                            num_heads=2, feature_size=4)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)  # YAML reads 1e-5 as a string
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=1, **trainer)
+    raw["parallelism"] = {}
+    raw["data"]["batch_size"] = 2
+    return raw
+
+
+def test_unetr_train_steps_match_jax():
+    """Five f32 steps with remat from one JAX init on the synthetic stream
+    (`seq`, `seq_size`, `seq_pos` and 4-class label volumes), the port's attention
+    FLASH: the losses within LOSS_TOL a step. (The parameters are not compared:
+    AdamW's first updates are lr x the gradient's sign, and some patch-embed
+    gradients are 7e-7 with f32 convolution noise of 1.5e-7 on either side.)"""
+    raw = _unetr_raw()
+    jcfg, cfg = JConfig(raw=raw, task="unetr"), Config(raw=raw, task="unetr")
+    stream = synthetic_batches(cfg, 2)
+    batches = [{k: v for k, v in b.items() if k != "variables"}
+               for _, b in zip(range(UNETR_STEPS), stream)]
+    jmod, jloss = jax_build_unetr(jcfg)
+    assert jmod.remat
+    first = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    seq = jax_reassemble(first["seq"], 4, 2, False)
+    params = meta.unbox(jmod.init(jax.random.key(0), first["x"], None, jax_seq_ps(first),
+                                  seq)["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(jloss, tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="unetr")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    assert isinstance(model, UNETR) and model.remat and model.num_patches == 64
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")))[1].item() for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+    assert state.step == UNETR_STEPS and losses[-1] < losses[0]
+
+
+def _mae_for_unetr():
+    """A JAX MAE (tile 16^3, patch 2: 512 tokens) with the shrunk UNETR's encoder
+    width and depth, and that UNETR, each flax-initialised."""
+    raw = _unetr_raw()
+    jcfg = JConfig(raw=raw, task="unetr")
+    junetr, _ = jax_build_unetr(jcfg)
+    b = {k: jnp.asarray(v) for k, v in next(synthetic_batches(Config(raw=raw, task="unetr"),
+                                                              2)).items() if k != "variables"}
+    uparams = meta.unbox(junetr.init(jax.random.key(1), b["x"], None, jax_seq_ps(b),
+                                     jax_reassemble(b["seq"], 4, 2, False))["params"])
+    jmae = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, img_size=(16, 16, 16),
+                patch_size=2, in_chans=1, twoD=False, embed_dim=24, depth=4, num_heads=2,
+                decoder_embed_dim=18, decoder_depth=1, decoder_num_heads=3)
+    mparams = meta.unbox(jmae.init(jax.random.key(2), b["x"],
+                                   mask_noise=jnp.asarray(_mae_noise(2, 512)))["params"])
+    return jax.device_get(mparams), jax.device_get(uparams), raw
+
+
+def test_transfer_mae_encoder_matches_jax():
+    mparams, uparams, _ = _mae_for_unetr()
+    want = jax_to_torch_state(jax_transfer_mae_encoder(mparams, uparams, new_pos_embed_len=64))
+    mae_sd = {k: torch.from_numpy(v.copy()) for k, v in jax_to_torch_state(mparams).items()}
+    target = {k: torch.from_numpy(v) for k, v in jax_to_torch_state(uparams).items()}
+    got = transfer_mae_encoder(mae_sd, target, new_pos_embed_len=64)
+    assert sorted(got) == sorted(want) == sorted(target)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    # the blocks and patch embed from the MAE, the table resampled, the decoder the UNETR's own
+    assert torch.equal(got["blocks.3.mlp.fc2.weight"], mae_sd["blocks.3.mlp.fc2.weight"])
+    np.testing.assert_array_equal(got["pos_embed"].numpy(),
+                                  interpolate_pos_embed_1d(mae_sd["pos_embed"].numpy(), 64))
+    assert torch.equal(got["decoder5.transp_conv.weight"], target["decoder5.transp_conv.weight"])
+    assert torch.equal(got["adaptive_pos_dep_emb.0.weight"],
+                       target["adaptive_pos_dep_emb.0.weight"])
+
+
+def test_cli_trains_unetr_from_labelled_nifti_warm_started_from_an_mae(tmp_path, capsys):
+    """`trainer.pretrained_mae_checkpoint` (refused before this slice) reads an MAE
+    checkpoint: the encoder equals the MAE's tensor for tensor, the position table is
+    resampled, the decoder keeps its init; then the shrunk basic_ct/unetr trains
+    from labelled NIfTI volumes through the CLI and saves."""
+    mparams, _, raw = _mae_for_unetr()
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in jax_to_torch_state(mparams).items()}
+    mae_dir = tmp_path / "mae"
+    os.makedirs(mae_dir)
+    torch.save({"epoch": 3, "model_state_dict": sd, "loss_list": [], "head_meta": [2, 3]},
+               str(mae_dir / "mae_odd.ckpt"))
+    raw["trainer"].update(pretrained_mae_checkpoint=str(mae_dir),
+                          checkpoint_path=str(tmp_path / "ck"))
+    raw["data"].update(dict_root_dirs={"ct1": _labelled_volumes(tmp_path / "ct", 2, 32)},
+                       num_workers=1)
+    cfg = Config(raw=raw, task="unetr")
+    state, _ = init_train(cfg, "cpu")
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    transfer_pretrained_mae(cfg, state.model, str(mae_dir))
+    got = state.model.state_dict()
+    assert torch.equal(got["blocks.2.attn.qkv.weight"], sd["blocks.2.attn.qkv.weight"])
+    assert torch.equal(got["token_embeds.proj.weight"], sd["token_embeds.proj.weight"])
+    np.testing.assert_array_equal(got["pos_embed"].numpy(),
+                                  interpolate_pos_embed_1d(sd["pos_embed"].numpy(), 64))
+    for k in ("decoder2.conv_block.conv1.weight", "encoder1.layer.conv1.weight", "out.conv.weight"):
+        assert torch.equal(got[k], init[k])
+    path = tmp_path / "unetr.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    out = main([str(path), "--single-device", "--max-steps", "3", "--device", "cpu"])
+    log = capsys.readouterr().out
+    assert "initialized encoder from MAE checkpoint" in log
+    assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
+    assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")

@@ -254,7 +254,7 @@ from ucf_vit_tpu.models.blocks import AdaptivePosMLP as JAdaptivePosMLP
 from ucf_vit_tpu.models.blocks import LinearTokenEmbed as JLinearTokenEmbed
 from ucf_vit_tpu_torch import native
 from ucf_vit_tpu_torch.data.quadtree import FixedQuadTree, quadtree_boxes_plain
-from ucf_vit_tpu_torch.data.transform import Patchify, Patchify3D
+from ucf_vit_tpu_torch.data.transform import Patchify
 from ucf_vit_tpu_torch.models.blocks import AdaptivePosMLP, LinearTokenEmbed
 
 ADAPTIVE_MODULE_TOL = 1e-6
@@ -307,6 +307,9 @@ def test_adaptive_vit_logits_match_flax(pos):
 
 
 def test_adaptive_init_draws_the_position_tables_and_refuses_the_sqrt_len_method():
+    """The adaptive init draws its position table; the sqrt-len method, once
+    refused, now builds (UNETR's input): a conv patch embed over the
+    reassembled image and the sincos table of the `(sqrt_len,)^nd` grid."""
     cfg = _small_cfg(adaptive_patching=True, fixed_length=16, use_adaptive_pos_emb=True)
     model = build_classification(cfg).init_weights(torch.Generator().manual_seed(0))
     sd = model.state_dict()
@@ -314,8 +317,15 @@ def test_adaptive_init_draws_the_position_tables_and_refuses_the_sqrt_len_method
     assert abs(sd["pos_embed"].std().item() - 0.02) < 0.004
     assert sd["token_embeds.1.weight"].shape == (32, 8 * 8 * 3)
     assert sd["adaptive_pos_dep_emb.0.weight"].shape == (32, 3)
-    with pytest.raises(NotImplementedError, match="VIT input variants"):
-        VIT(adaptive_patching=True, fixed_length=16, sqrt_len_method=True)
+    sq = VIT(img_size=(16, 16, 16), patch_size=2, in_chans=1, embed_dim=24, depth=1,
+             num_heads=2, twoD=False, class_token=False, adaptive_patching=True,
+             fixed_length=64, sqrt_len_method=True, use_adaptive_pos_emb=True)
+    sd = sq.init_weights(torch.Generator().manual_seed(0)).state_dict()
+    assert sq.sqrt_len == 4 and sq.num_patches == 64
+    assert sd["token_embeds.proj.weight"].shape == (24, 1, 2, 2, 2)
+    assert sd["adaptive_pos_dep_emb.0.weight"].shape == (24, 4)
+    np.testing.assert_allclose(sd["pos_embed"][0].numpy(),
+                               jax_pos_embed.get_3d_sincos_pos_embed(24, 4, 4, 4), atol=1e-7)
 
 
 def _edge_maps():
@@ -366,8 +376,6 @@ def test_patchify_matches_jax(dataset):
         assert got[3].encode_nodes() == want[3].encode_nodes()
     with pytest.raises(RuntimeError, match="explicit"):
         Patchify(fixed_length=16, patch_size=4)(imgs[0])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Patchify3D(fixed_length=15)
 
 
 def test_native_first_build_from_several_processes_loads_a_whole_library(tmp_path):
@@ -390,3 +398,268 @@ def test_native_first_build_from_several_processes_loads_a_whole_library(tmp_pat
     b, v = quadtree_boxes_plain(d, 40)
     assert {o for o, _ in outs} == {f"{int(b.sum())} {int(v.sum())}\n"}
     assert [f.name for f in tmp_path.iterdir()] == [native.library_path().name]
+
+
+# ---------------------------------------------------------------- UNETR
+#
+# UNETR's modules against the JAX package at a small size: each conv decoder block
+# (2-D and 3-D; the ConvTranspose kernels mirrored by `load_jax_params`) within 1e-5
+# and the resize within 1e-6 (the shipped 72^3 -> 64^3 too), the
+# UNETR forward in skip, no-skip and linear-decoder modes and by the sqrt-len method
+# (tile 16^3, patch 2, 64 octree tokens: sqrt_len 4, so the decoder resizes 32^3 to
+# 16^3; embed 24, depth 4, the least depth with three distinct skip taps, feature
+# size 4, 4 classes) within 1e-5 on `load_jax_params` weights, its conversion key for
+# key and value for value with `export_torch_state`. The blocks and the UNETR are held
+# against the JAX function evaluated in f64 (`jax.enable_x64`): XLA's CPU convolutions in
+# f32 sit up to 1.1e-5 from the exact result at these sizes (instance norm over maps of
+# 2^3 to 8^3 amplifies rounding), the port's f32 up to 5e-6; each block in f64 agrees
+# with the JAX one within 1e-10 (`EXACT_TOL`).
+# Then gradients with remat equal to
+# those without, the losses and Dice within 1e-6, the sqrt-len reassembly exactly,
+# and the f32 policy that `resolve_device` pins on a card.
+
+from ucf_vit_tpu.models import unet_blocks as jub
+from ucf_vit_tpu.models.unetr import UNETR as JUNETR
+from ucf_vit_tpu.ops.pos_embed import interpolate_pos_embed_1d as jax_interpolate_1d
+from ucf_vit_tpu.tasks import disassemble_sqrt_len as jax_disassemble
+from ucf_vit_tpu.tasks import reassemble_sqrt_len as jax_reassemble
+from ucf_vit_tpu.utils import metrics as jax_metrics
+from ucf_vit_tpu_torch.inference import resolve_device
+from ucf_vit_tpu_torch.models import UNETR
+from ucf_vit_tpu_torch.models import unet_blocks as ub
+from ucf_vit_tpu_torch.tasks import disassemble_sqrt_len, reassemble_sqrt_len
+from ucf_vit_tpu_torch.utils import metrics
+
+UNET_TOL = 1e-5
+EXACT_TOL = 1e-10  # the port in f64 against the JAX function in f64
+RESIZE_TOL = 1e-6
+UNETR_TOL = 1e-5
+DICE_TOL = 1e-6
+REMAT_GRAD_TOL = 1e-6
+
+# name -> (flax module, port module, input channels, spatial, takes a skip)
+UNET_BLOCKS = {
+    "res_block_3d": (lambda: jub.UnetResBlock(out_channels=6, ndim=3),
+                     lambda: ub.UnetResBlock(6, 6, ndim=3), 6, (4, 4, 4), False),
+    "res_block_project_2d": (lambda: jub.UnetResBlock(out_channels=6, ndim=2),
+                             lambda: ub.UnetResBlock(4, 6, ndim=2), 4, (8, 8), False),
+    "basic_block_3d": (lambda: jub.UnetrBasicBlock(out_channels=4, ndim=3),
+                       lambda: ub.UnetrBasicBlock(1, 4, ndim=3), 1, (6, 6, 6), False),
+    "pr_up_block_3d": (lambda: jub.UnetrPrUpBlock(out_channels=4, num_layer=2, ndim=3),
+                       lambda: ub.UnetrPrUpBlock(8, 4, num_layer=2, ndim=3), 8, (2, 2, 2),
+                       False),
+    "pr_up_block_2d": (lambda: jub.UnetrPrUpBlock(out_channels=4, num_layer=1, ndim=2),
+                       lambda: ub.UnetrPrUpBlock(8, 4, num_layer=1, ndim=2), 8, (4, 4), False),
+    "up_block_3d": (lambda: jub.UnetrUpBlock(out_channels=4, ndim=3),
+                    lambda: ub.UnetrUpBlock(8, 4, ndim=3), 8, (3, 3, 3), True),
+    "up_block_upsample_1_2d": (lambda: jub.UnetrUpBlock(out_channels=4, upsample=1, ndim=2),
+                               lambda: ub.UnetrUpBlock(8, 4, upsample=1, ndim=2), 8, (6, 6),
+                               True),
+    "my_unet_block_3d": (lambda: jub.MyUnetBlock(out_channels=3, ndim=3),
+                         lambda: ub.MyUnetBlock(5, 3, ndim=3), 5, (3, 3, 3), False),
+    "out_block_2d": (lambda: jub.UnetOutBlock(num_classes=4, ndim=2),
+                     lambda: ub.UnetOutBlock(5, 4, ndim=2), 5, (6, 6), False),
+}
+
+
+def _cl(x):
+    """channels-first numpy -> channels-last jnp (the JAX blocks' layout)."""
+    return jnp.asarray(np.moveaxis(x, 1, -1))
+
+
+def _jax_f64(fn, params, *args):
+    """`fn(params, *args)` with every array in f64, under `jax.enable_x64`."""
+    with jax.enable_x64(True):
+        f64 = lambda a: None if a is None else jnp.asarray(np.asarray(a, np.float64))
+        return np.asarray(fn(jax.tree.map(f64, params), *[f64(a) for a in args]))
+
+
+def _port_f64(module, *args):
+    """`module` run in f64 (the port's side of the exact comparison)."""
+    with torch.no_grad():
+        return module.double()(*[torch.from_numpy(np.asarray(a, np.float64))
+                                 for a in args]).numpy()
+
+
+@pytest.mark.parametrize("name", sorted(UNET_BLOCKS))
+def test_unet_blocks_match_flax(name):
+    jfn, pfn, cin, spatial, skip = UNET_BLOCKS[name]
+    x = _x(2, cin, *spatial)
+    args = [_cl(x)]
+    if skip:
+        s = _x(2, 4, *(d * (2 if "upsample_1" not in name else 1) for d in spatial), seed=2)
+        args.append(_cl(s))
+    jmod = jfn()
+    params = _params(jmod, *args)
+    holder = torch.nn.Module()
+    holder.blk = pfn()
+    load_jax_params(holder, {"blk": params})
+    assert not [k for k in holder.state_dict() if "norm" in k]  # no affine norm parameters
+    want = np.moveaxis(_jax_f64(lambda p, *a: jmod.apply({"params": p}, *a), params, *args),
+                       -1, 1)
+    ins = [x] + ([s] if skip else [])
+    with torch.no_grad():
+        got = holder.blk(*[torch.from_numpy(a) for a in ins])
+    _close(got, want, UNET_TOL)
+    np.testing.assert_allclose(_port_f64(holder.blk, *ins), want, atol=EXACT_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape,out", [((2, 3, 5, 7), (9, 4)), ((1, 2, 4, 6, 3), (8, 3, 5)),
+                                       ((1, 2, 72, 72, 72), (64, 64, 64))],
+                         ids=["2d", "3d", "72_to_64"])
+def test_resize_linear_align_corners_matches_flax(shape, out):
+    x = _x(*shape)
+    want = np.moveaxis(np.asarray(jub.resize_linear_align_corners(_cl(x), out)), -1, 1)
+    _close(ub.resize_linear_align_corners(torch.from_numpy(x), out), want, RESIZE_TOL)
+
+
+def _unetr_case(case):
+    """(JAX model, port model, x, seq_ps, x_seq) of a shrunk UNETR case."""
+    twoD = case.startswith("2d")
+    nd = 2 if twoD else 3
+    kw = dict(img_size=(16,) * nd, patch_size=2, in_chans=1, embed_dim=24, depth=4,
+              num_heads=2, mlp_ratio=2.0, twoD=twoD)
+    ukw = dict(num_classes=4, feature_size=4, skip_connection="noskip" not in case,
+               linear_decoder="linear" in case)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 1) + (16,) * nd).astype(np.float32)
+    ps = x_seq = None
+    if "adaptive" in case:  # 64 tokens of 2^3: a 4^3 grid reassembled into 8^3
+        kw.update(adaptive_patching=True, fixed_length=64, use_adaptive_pos_emb=True,
+                  sqrt_len_method=True)
+        x_seq = rng.normal(size=(2, 1, 8, 8, 8)).astype(np.float32)
+        ps = np.concatenate([rng.integers(2, 9, size=(2, 64, 1)),
+                             rng.uniform(0, 16, size=(2, 64, 3))], -1).astype(np.float32)
+    return (JUNETR(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw, **ukw),
+            UNETR(attn_impl="FLASH", **kw, **ukw), x, ps, x_seq)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("case", ["3d_adaptive", "3d_adaptive_noskip", "3d", "3d_noskip",
+                                  "2d", "2d_noskip", "2d_linear"])
+def test_unetr_matches_flax(case):
+    jmod, ours, x, ps, x_seq = _unetr_case(case)
+    params = _params(jmod, jnp.asarray(x), None, _j(ps), _j(x_seq))
+    exported, converted = export_torch_state(params), jax_to_torch_state(params)
+    assert sorted(converted) == sorted(exported) == sorted(ours.state_dict())
+    for k in exported:  # value for value: the ConvTranspose kernels mirrored on both sides
+        np.testing.assert_array_equal(converted[k], exported[k], err_msg=k)
+    load_jax_params(ours, params).eval()
+    want = _jax_f64(lambda p, *a: jmod.apply({"params": p}, a[0], None, *a[1:]), params, x,
+                    ps, x_seq)
+    with torch.inference_mode():
+        got = ours(torch.from_numpy(x), seq_ps=_t(ps), x_seq=_t(x_seq))
+    assert got.shape == (2, 4) + x.shape[2:]
+    _close(got, want, UNETR_TOL)
+
+
+def test_unetr_conversion_mirrors_the_transposed_kernels():
+    """A ConvTranspose kernel taken over unmirrored (its [*k, in, out] only
+    transposed) moves the forward past the tolerance: the value test above
+    sees a missing flip."""
+    jmod, ours, x, ps, x_seq = _unetr_case("3d")
+    params = _params(jmod, jnp.asarray(x), None, None, None)
+    load_jax_params(ours, params).eval()
+    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x), None, None, None))
+    k = np.asarray(params["decoder3"]["transp_conv"]["kernel"])
+    with torch.no_grad():
+        ours.decoder3.transp_conv.weight.copy_(torch.from_numpy(k.transpose(3, 4, 0, 1, 2)))
+        got = ours(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() > 100 * UNETR_TOL
+
+
+def test_unetr_remat_gradients_equal_those_without():
+    grads = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        _, model, x, ps, x_seq = _unetr_case("3d_adaptive")
+        model.remat = remat
+        model.init_weights(torch.Generator().manual_seed(4)).train()
+        out = model(torch.from_numpy(x), seq_ps=_t(ps), x_seq=_t(x_seq))
+        (out.square().mean()).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    assert sorted(grads[0]) == sorted(grads[1]) and len(grads[0]) > 50
+    for n in grads[0]:
+        np.testing.assert_allclose(grads[1][n].numpy(), grads[0][n].numpy(),
+                                   atol=REMAT_GRAD_TOL, rtol=0, err_msg=n)
+
+
+def test_unetr_refuses_a_class_token_patch_dropout_and_adaptive_without_sqrt_len():
+    kw = dict(img_size=(16, 16), patch_size=2, in_chans=1, embed_dim=24, depth=4, num_heads=2)
+    with pytest.raises(ValueError, match="class_token"):
+        UNETR(class_token=True, **kw)
+    with pytest.raises(ValueError, match="patch_drop_rate"):
+        UNETR(patch_drop_rate=0.5, **kw)
+    with pytest.raises(ValueError, match="sqrt-len"):
+        UNETR(adaptive_patching=True, fixed_length=64, **kw)
+
+
+@pytest.mark.parametrize("nd", [2, 3], ids=["2d", "3d"])
+def test_sqrt_len_reassembly_matches_jax(nd):
+    tokens = _x(2, 1, 4 ** nd, 3 ** nd)
+    want = np.asarray(jax_reassemble(jnp.asarray(tokens), 4, 3, nd == 2))
+    got = reassemble_sqrt_len(torch.from_numpy(tokens), 4, 3, nd == 2)
+    assert got.shape == (2, 1) + (12,) * nd
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = disassemble_sqrt_len(got, 4, 3, nd == 2)
+    np.testing.assert_array_equal(back.numpy(),
+                                  np.asarray(jax_disassemble(jnp.asarray(want), 4, 3, nd == 2)))
+    np.testing.assert_array_equal(back.numpy(), tokens)
+
+
+@pytest.mark.parametrize("nd,background", [(3, True), (2, True), (3, False)],
+                         ids=["3d", "2d", "3d_no_background"])
+def test_dice_ce_loss_and_dice_metric_match_jax(nd, background):
+    rng = np.random.default_rng(nd)
+    spatial = (6,) * nd
+    logits = (3 * rng.normal(size=(2, 4) + spatial)).astype(np.float32)
+    labels = rng.integers(0, 4, size=(2, 1) + spatial)
+    labels[1][labels[1] == 2] = 0  # a class absent from one sample
+    want = jax_metrics.dice_ce_loss(jnp.asarray(logits), jnp.asarray(labels), 4,
+                                    include_background=background)
+    got = metrics.dice_ce_loss(torch.from_numpy(logits), torch.from_numpy(labels), 4,
+                               include_background=background)
+    assert abs(got.item() - float(want)) <= DICE_TOL
+    pred = logits.argmax(1)
+    pred[0][pred[0] == 3] = 1
+    for p in (pred, labels[:, 0]):  # a prediction, and the labels themselves (Dice 1)
+        want = jax_metrics.dice_metric(jnp.asarray(p), jnp.asarray(labels[:, 0]), 4,
+                                       include_background=not background)
+        got = metrics.dice_metric(torch.from_numpy(p), torch.from_numpy(labels[:, 0]), 4,
+                                  include_background=not background)
+        assert abs(got.item() - float(want)) <= DICE_TOL
+
+
+@pytest.mark.parametrize("shape,new_len", [((1, 32768, 24), 729), ((16, 8), 40)],
+                         ids=["mae_long_to_unetr", "2d_up"])
+def test_interpolate_pos_embed_1d_matches_jax(shape, new_len):
+    table = _x(*shape)
+    got = pos_embed.interpolate_pos_embed_1d(table, new_len)
+    np.testing.assert_array_equal(got, jax_interpolate_1d(table, new_len))
+    assert got.shape == shape[:-2] + (new_len, shape[-1]) and got.dtype == np.float32
+
+
+def test_resolve_device_pins_tf32_off_on_a_card(monkeypatch):
+    """The f32 policy holds wherever a CLI picks the card: TF32 off for cuBLAS
+    and for cuDNN (whose flag is on by default)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        assert resolve_device().type == "cuda"
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        assert resolve_device("cpu").type == "cpu"  # the CPU leaves the flags alone
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

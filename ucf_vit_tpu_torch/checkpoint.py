@@ -29,6 +29,9 @@ ucf_vit_tpu.tools.convert_checkpoint to-jax` reads, so a port checkpoint
 converts unchanged; the file that its `to-torch` writes (those three keys)
 loads here as weights. Orbax directories are not read: convert them with
 `to-torch` first.
+
+`transfer_mae_encoder` starts a UNETR (or SAP) from an MAE checkpoint's
+encoder (`ucf_vit_tpu/checkpoint.py:358`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import os
 from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 SUFFIX = ".ckpt"
@@ -260,3 +264,31 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
         check_state_dict(model, ema, "checkpoint EMA state")
         state.ema_params = {n: ema[n].to(p.device, p.dtype).clone()
                             for n, p in model.named_parameters()}
+
+
+# MAE entries that a transfer never copies: the decoder and the mask token
+_MAE_ONLY = ("decoder_", "mask_token")
+
+
+def transfer_mae_encoder(mae_state: Dict[str, torch.Tensor], target_state: Dict[str, torch.Tensor],
+                         new_pos_embed_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A copy of `target_state` (a UNETR's `state_dict`) with every entry of
+    an MAE's `mae_state` that the target holds at the same shape, the MAE's
+    decoder and mask token left out (`ucf_vit_tpu/checkpoint.py:358-392`).
+    With `new_pos_embed_len`, a `[1, L, D]` position table of another length
+    is first resampled linearly to the target's (`interpolate_pos_embed_1d`).
+    Entries of the target that the MAE lacks keep their values."""
+    from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
+
+    out = {k: v.detach().clone() for k, v in target_state.items()}
+    for k, v in mae_state.items():
+        if any(seg.startswith(_MAE_ONLY) for seg in k.split(".")) or k not in out:
+            continue
+        dst = out[k]
+        if ("pos_embed" in k.split(".")[-1] and new_pos_embed_len is not None
+                and v.ndim == 3 and v.shape[1] != dst.shape[1]):
+            v = torch.from_numpy(np.ascontiguousarray(
+                interpolate_pos_embed_1d(v.detach().cpu().numpy(), dst.shape[1])))
+        if tuple(v.shape) == tuple(dst.shape):
+            out[k] = v.detach().to(dst.device, dst.dtype).clone()
+    return out

@@ -18,9 +18,24 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
   mask_token, decoder_pos_embed same name                 identity
   time_embedding_map/linear1/kernel
                                timeEmbeddingMap.linear1.weight  transpose
+  encoder1/layer/conv1/kernel  encoder1.layer.conv1.weight [*k,i,o]->[o,i,*k]
+  encoder2/up_0/kernel         encoder2.blocks.0.0.weight [*k,i,o]->[i,o,*k] + flip
+  encoder2/res_0/conv1/kernel  encoder2.blocks.0.1.conv1.weight
+  decoder5/transp_conv/kernel  decoder5.transp_conv.weight (ConvTranspose, + flip)
+  decoder5/conv_block/conv1/kernel
+                               decoder5.conv_block.conv1.weight
+  out/conv/kernel, mlp_head/kernel
+                               out.conv.weight, mlp_head.weight
+
+A ConvTranspose kernel (a module named `transp_conv`, `transp_conv_init` or
+`up_<i>`) is mirrored in every spatial axis on the way: flax's transposed
+convolution does not mirror the kernel, torch's does
+(`ucf_vit_tpu/tools/convert_checkpoint.py:29-30`). With kernel = stride
+there is no overlap, so a missing flip would only permute each block.
 
 It covers the ported modules (PatchEmbed, LinearTokenEmbed, AdaptivePosMLP,
-Mlp, Attention, Block, VIT, MAE, DiffusionVIT; its time table is a constant on both sides, in neither tree),
+Mlp, Attention, Block, VIT, MAE, DiffusionVIT, UNETR and its decoder blocks;
+DiffusionVIT's time table is a constant on both sides, in neither tree),
 from a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
 the JAX side: `blocks/block/<leaves stacked [depth, ...]>`, recognised as
 `ucf_vit_tpu/tools/convert_checkpoint.py:160-185` does) is unstacked into
@@ -41,6 +56,8 @@ import torch
 _LTE_CHILD = {"norm_in": "0", "proj": "1", "norm_out": "2"}
 # the flax modules that are a Sequential of (Linear, GELU) in torch
 _SEQ0_PARENTS = ("adaptive_pos_dep_emb", "decoder_adaptive_pos_dep_emb")
+# the flax modules whose kernel is a ConvTranspose's
+_CONVT = re.compile(r"transp_conv|transp_conv_init|up_\d+")
 
 
 def _segment(name: str, parent: str = "", lte: bool = False) -> str:
@@ -57,6 +74,9 @@ def _segment(name: str, parent: str = "", lte: bool = False) -> str:
         return "token_embeds"
     if name == "time_embedding_map":
         return "timeEmbeddingMap"
+    m = re.fullmatch(r"(up|res)_(\d+)", name)  # UnetrPrUpBlock's (upsample, res block) pairs
+    if m:
+        return f"blocks.{m.group(2)}.{0 if m.group(1) == 'up' else 1}"
     return name
 
 
@@ -109,10 +129,13 @@ def jax_to_torch_state(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
         name = path[-1]
         if name == "kernel":
             name = "weight"
+            nd = arr.ndim - 2
             if arr.ndim == 2:  # dense [in, out] -> [out, in]
                 arr = arr.T
+            elif len(path) > 1 and _CONVT.fullmatch(path[-2]):
+                # ConvTranspose [*k, in, out] -> [in, out, *k], mirrored
+                arr = arr[(slice(None, None, -1),) * nd].transpose(nd, nd + 1, *range(nd)).copy()
             else:  # conv [*k, in, out] -> [out, in, *k]
-                nd = arr.ndim - 2
                 arr = arr.transpose(nd + 1, nd, *range(nd))
         elif name == "scale":  # LayerNorm
             name = "weight"

@@ -1,7 +1,7 @@
 """DataModule: multi-source datasets, step-level dataset scheduling, epoch
 reshuffles, and a background-thread prefetcher. The port's own copy of
 `ucf_vit_tpu/data/datamodule.py`: the same seeds give the same batches,
-array for array, adaptive (2-D) ones too.
+array for array, adaptive ones (2-D and 3-D) too.
 
 Each dataset key gets one chain (`FileReader` -> tiles -> `ShuffleBuffer`
 -> `ProcessChannels` -> `BatchIterator`) with a numpy Generator of its own,

@@ -8,9 +8,9 @@ Batches are dicts of numpy arrays: `{x [B,C,...], (label), variables}`,
 with adaptive patching also `seq`, `seq_size`, `seq_pos` (and `seq_label`,
 `qdt`).
 
-Adaptive patching is ported in 2-D (the quadtree `Patchify`, label
-serialisation, per-sample augmentation seeds and the spawn pool,
-`ProcessChannels`); 3-D (the octree) raises (ROADMAP.md, item 6).
+Adaptive patching: the quadtree `Patchify` in 2-D and the octree
+`Patchify3D` in 3-D, label serialisation, per-sample augmentation seeds and
+the spawn pool (`ProcessChannels`).
 """
 
 from __future__ import annotations
@@ -325,17 +325,17 @@ class ProcessChannels:
     variable's stream is buffered and flushed a full batch at a time, so
     every batch is channel-pure) and make sample dicts; see `collate`.
 
-    Adaptive patching (2-D, `data/transform.Patchify`): each sample also
-    carries `seq` `[C', L, p^2]`, `seq_size` `[C', L]` and `seq_pos` `[C',
-    L, 2]` (C' = 1 for one tree across the channels), `seq_label` for a
+    Adaptive patching (`data/transform.Patchify` in 2-D, `Patchify3D` in
+    3-D): each sample also carries `seq` `[C', L, p^nd]`, `seq_size` `[C',
+    L]` and `seq_pos` `[C', L, nd]` (C' = 1 for one tree across the
+    channels), `seq_label` (`[L, p, p(, p)]`) for a
     labelled basic_ct sample, and with `return_qdt` the tree objects. With
     `aug_seed` the patchify draws of the sample with consumption index i come
     from `SeedSequence([aug_seed, i])`, whatever process makes it.
     `num_workers > 0` makes samples in a spawn pool of that many processes
     (`make_pool`: the children import the port's data modules and nothing
     else, so none touches the card), started at the first iteration and kept
-    until this object is collected; that needs `aug_seed`. 3-D adaptive
-    patching (the octree) raises.
+    until this object is collected; that needs `aug_seed`.
 
     `skip_samples` (mid-epoch fast-forward): the upstream chain (read, tile,
     shuffle) runs as usual so its state stays exact, the skipped samples are
@@ -383,16 +383,18 @@ class ProcessChannels:
 
     def _serialize_label(self, qdt, np_label):
         p = self.patch_size
+        size = (p, p, 1) if self.twoD else (p, p, p, 1)
         if self.dataset == "basic_ct":
             seq_label, _, _ = qdt.serialize_labels(np.expand_dims(np_label, axis=-1),
-                                                   size=(p, p, 1))
+                                                   size=size)
             out = np.asarray(seq_label)
-            return out[..., 0] if out.ndim == 4 else out  # [L, p, p]
-        seq_label, _, _ = qdt.serialize(np.expand_dims(np_label, axis=-1), size=(p, p, 1))
+            # the singleton channel: cv2's resize drops it in 2-D, the octree keeps it
+            return out[..., 0] if out.ndim == len(size) + 1 else out  # [L, p, p(, p)]
+        seq_label, _, _ = qdt.serialize(np.expand_dims(np_label, axis=-1), size=size)
         return np.asarray(seq_label, dtype=np.float32).reshape(self.fixed_length, -1)
 
     def _patchify_sample(self, np_image, rng=None):
-        """np_image `[C, H, W]` -> (seq, size, pos, tree or trees), drawing
+        """np_image `[C, *spatial]` -> (seq, size, pos, tree or trees), drawing
         from `rng` (default: the patchify's own generator)."""
         if self.single_channel or self.separate_channels:
             chans = [self.patchify(np.expand_dims(np_image[j], axis=-1), rng)

@@ -2,22 +2,29 @@
 one device):
 
     python -m ucf_vit_tpu_torch.inference <config.yaml> [--checkpoint D]
-        [--synthetic] [--num-samples N] [--png-dir P] [--batch-size B] [--ema]
-        [--device cuda|cpu]
+        [--mae-checkpoint D] [--synthetic] [--num-samples N] [--png-dir P]
+        [--batch-size B] [--ema] [--device cuda|cpu]
+        [--volume vol.npy [--volume-out pred.npy] [--sw-overlap F] [--sw-batch N]]
 
 Device choice, seeded model init and checkpoint weights for evaluation and
 serving (the roles of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`, and
 of the server's `load_weights`, `ucf_vit_tpu/serve.py:216-237`), an MAE's
 reconstruction under a fixed mask, top-1 accuracy of a classifier
 (`evaluate_classification`), and DiffusionVIT's images by the DDPM reverse
-chain (`generate_diffusion`), with a PNG a sample. The PNG writer imports
-matplotlib when it is asked for PNGs, never at import time. `evaluate` sends
-a config to the evaluation of its task; UNETR and SAP are not ported yet.
+chain (`generate_diffusion`), with a PNG a sample, a UNETR's Dice
+(`evaluate`: per sample and the mean, MONAI's DiceMetric without the
+background; `--mae-checkpoint` starts the encoder from an MAE's; PNGs of the
+middle slice), and the sliding-window segmentation of a whole volume
+(`VolumePredictor`, `predict_volume`, the CLI's `--volume`). The PNG writer
+imports matplotlib when it is asked for PNGs, never at import time.
+`evaluate` sends a config to the evaluation of its task; SAP is not ported
+yet (ROADMAP.md, item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 from typing import Callable, Optional, Union
@@ -29,7 +36,7 @@ from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import MAE, DiffusionVIT, ddpm_sample, ddpm_schedule
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
-from ucf_vit_tpu_torch.tasks import build_task, model_inputs, time_steps
+from ucf_vit_tpu_torch.tasks import build_task, model_inputs, num_classes, time_steps, unetr_inputs
 
 Device = Union[str, torch.device, None]
 
@@ -37,12 +44,19 @@ Device = Union[str, torch.device, None]
 def resolve_device(device: Device = None) -> torch.device:
     """The device to run on: CUDA unless the caller names another. Raises
     when CUDA is asked for (or left as the default) and none is present;
-    nothing falls back to the CPU on its own."""
+    nothing falls back to the CPU on its own. On CUDA it pins the port's f32
+    policy: TF32 off for cuBLAS's matmuls and cuDNN's convolutions alike
+    (cuDNN's flag is on by default), so f32 work keeps 23 mantissa bits as in
+    the JAX package. The f32 flash and fused-MLP kernels do their own 3xTF32
+    arithmetic, which these flags do not touch."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev
 
 
@@ -241,8 +255,75 @@ def evaluate_classification(cfg: Config, checkpoint_dir: Optional[str] = None,
 
 # tasks whose evaluation and serving are still to port -> the ROADMAP.md item that
 # ports each
-UNPORTED_TASKS = {"unetr": "item 7: UNETR + evaluation", "sap": "item 8: SAP"}
-_ITEM_7 = "(ROADMAP.md, modules to port, item 7: UNETR + evaluation)"
+UNPORTED_TASKS = {"sap": "item 8: SAP"}
+
+
+def _dump_png(png_dir: str, idx: int, pred: np.ndarray, label: np.ndarray) -> None:
+    """Prediction beside label (the middle slice of a volume), as
+    `sample_<idx>.png` (`ucf_vit_tpu/inference.py:409-419`)."""
+    if pred.ndim == 3:
+        z = pred.shape[-1] // 2
+        pred, label = pred[..., z], label[..., z]
+    _save_panels(png_dir, f"sample_{idx}.png", [("prediction", pred), ("label", label)])
+
+
+def evaluate_unetr(cfg: Config, checkpoint_dir: Optional[str] = None,
+                   mae_checkpoint_dir: Optional[str] = None, synthetic: bool = False,
+                   num_samples: int = 8, png_dir: Optional[str] = None, batch_size: int = 1,
+                   use_ema: bool = False, *, device: Device = None) -> float:
+    """A UNETR's Dice (`ucf_vit_tpu/inference.py:175-314`) over `num_samples`
+    batches of `batch_size` (one Dice a batch; printed, then their mean,
+    which it returns): the seeded init, a checkpoint's weights (with `use_ema`
+    its EMA) and then, with `mae_checkpoint_dir`, the encoder from an MAE
+    checkpoint (its slot: `trainer.checkpoint_filename_for_loading`, as the
+    JAX CLI reads it). The synthetic stream, or the config's files through the
+    `DataModule`. With `png_dir`, one PNG a batch (its first sample)."""
+    from ucf_vit_tpu_torch.train import (
+        build_dataloader,
+        synthetic_batches,
+        to_device,
+        transfer_pretrained_mae,
+    )
+    from ucf_vit_tpu_torch.utils.metrics import dice_metric
+
+    if png_dir:
+        _pyplot()
+    model = init_eval_model(cfg, seed=0, device=device)
+    if checkpoint_dir:
+        epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
+        print(f"loaded checkpoint from epoch {epoch}", flush=True)
+    if mae_checkpoint_dir:
+        transfer_pretrained_mae(cfg, model, mae_checkpoint_dir,
+                                cfg.trainer.get("checkpoint_filename_for_loading", ""))
+    dev = next(model.parameters()).device
+    classes = num_classes(cfg)
+    if synthetic:
+        it = synthetic_batches(cfg, batch_size)
+    else:
+        dm, _, _ = build_dataloader(cfg, batch_size, synthetic=False)
+        it = dm.train_dataloader()
+    dices = []
+    try:
+        with torch.inference_mode():
+            for i, batch in enumerate(it):
+                if i >= num_samples:
+                    break
+                b = to_device(batch, dev)
+                x, ps, x_seq = unetr_inputs(cfg, b)
+                pred = model(x, seq_ps=ps, x_seq=x_seq).argmax(dim=1)
+                label = b["label"]
+                if label.ndim == pred.ndim + 1:
+                    label = label[:, 0]
+                d = float(dice_metric(pred, label, classes))
+                dices.append(d)
+                print(f"sample {i}: dice {d:.4f}", flush=True)
+                if png_dir:
+                    _dump_png(png_dir, i, pred[0].cpu().numpy(), label[0].cpu().numpy())
+    finally:
+        it.close()
+    mean_dice = float(np.mean(dices)) if dices else float("nan")
+    print(f"mean dice over {len(dices)} samples: {mean_dice:.4f}", flush=True)
+    return mean_dice
 
 
 def evaluate(cfg: Config, checkpoint_dir: Optional[str] = None,
@@ -251,10 +332,12 @@ def evaluate(cfg: Config, checkpoint_dir: Optional[str] = None,
              use_ema: bool = False, *, device: Device = None) -> float:
     """The evaluation of `cfg`'s task, with the JAX function's arguments
     (`ucf_vit_tpu/inference.py:175`): top-1 accuracy for classification,
-    samples/s of generation for diffusion (PNGs with `png_dir`). `batch_size`
-    is the segmentation tasks' batch, which are not ported yet."""
-    if mae_checkpoint_dir:
-        raise NotImplementedError(f"the MAE-encoder transfer is not ported yet {_ITEM_7}")
+    samples/s of generation for diffusion (PNGs with `png_dir`), the mean
+    Dice for UNETR (`evaluate_unetr`; `mae_checkpoint_dir` and `batch_size`
+    are its arguments)."""
+    if cfg.task == "unetr":
+        return evaluate_unetr(cfg, checkpoint_dir, mae_checkpoint_dir, synthetic, num_samples,
+                              png_dir, batch_size, use_ema, device=device)
     if cfg.task == "classification":
         return evaluate_classification(cfg, checkpoint_dir, synthetic, num_samples, use_ema,
                                        device=device)
@@ -268,9 +351,152 @@ def evaluate(cfg: Config, checkpoint_dir: Optional[str] = None,
                      f"got task {cfg.task!r}")
 
 
+def gaussian_importance(tile, sigma_scale: float = 0.125) -> np.ndarray:
+    """A window's blend weight a voxel: a separable Gaussian centred on the
+    tile (sigma = `sigma_scale` x the side, MONAI's), its peak 1, floored at
+    1e-3 so that a voxel one window alone covers keeps its prediction
+    (`ucf_vit_tpu/inference.py:461`)."""
+    w = np.ones(tile, np.float32)
+    for d, n in enumerate(tile):
+        x = np.arange(n, dtype=np.float32) - (n - 1) / 2.0
+        g = np.exp(-0.5 * (x / (sigma_scale * n)) ** 2)
+        w *= g.reshape((1,) * d + (-1,) + (1,) * (len(tile) - d - 1))
+    return np.maximum(w / w.max(), 1e-3)
+
+
+def window_starts(dim: int, tile: int, stride: int) -> list:
+    """A window every `stride` voxels, the last one flush with the far edge."""
+    starts = list(range(0, max(dim - tile, 0) + 1, stride))
+    if starts[-1] != dim - tile:
+        starts.append(dim - tile)
+    return starts
+
+
+class VolumePredictor:
+    """Sliding-window segmentation of whole volumes with one model
+    (`ucf_vit_tpu/inference.py:471-603`): build once, call a volume at a time.
+
+    The windows of the tile's size go through the server's preprocessor
+    (`serve.make_preprocessor`: with adaptive patching the octree of each),
+    `sw_batch` at a time through the model; their softmax probabilities are
+    blended with a Gaussian importance map (`blend="gaussian"`, else flat)
+    and the class map is the argmax of the blend. The host works one chunk
+    ahead of the device: chunk i+1 is preprocessed and dispatched before
+    chunk i's probabilities are read, which on a card come back through
+    pinned memory once their own copy is done, while chunk i+1 runs.
+    `last_stats` holds the last call's windows, seconds and seconds of host
+    preprocessing, `last_probs` its blended probabilities `[classes,
+    *spatial]` (padding included)."""
+
+    def __init__(self, cfg: Config, checkpoint_dir: Optional[str] = None,
+                 model: Optional[torch.nn.Module] = None, sw_batch: int = 4,
+                 use_ema: bool = False, blend: str = "gaussian", *, device: Device = None):
+        if cfg.task != "unetr":
+            raise ValueError(f"sliding-window stitching takes a UNETR's image-space logits; "
+                             f"got task {cfg.task!r}")
+        from ucf_vit_tpu_torch.serve import make_preprocessor
+
+        self.cfg = cfg
+        self.sw_batch = int(sw_batch)
+        nd = 2 if cfg.twoD else 3
+        self.tile = tuple(int(t) for t in cfg.tile_size[:nd])
+        if model is None:
+            model = init_eval_model(cfg, seed=0, device=device)
+            if checkpoint_dir:
+                load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
+        self.model = model.eval()
+        self.dev = next(model.parameters()).device
+        self._pre = make_preprocessor(cfg)
+        self._w_map = (gaussian_importance(self.tile) if blend == "gaussian"
+                       else np.ones(self.tile, np.float32))
+        self.num_classes = num_classes(cfg)
+        self.last_stats: dict = {}
+
+    @torch.inference_mode()
+    def _dispatch(self, batch: dict):
+        """The chunk's probabilities `[sw_batch, classes, *tile]`: launched,
+        and on a card copied into pinned memory behind an event."""
+        b = {k: torch.from_numpy(v).to(self.dev, non_blocking=True) for k, v in batch.items()}
+        x, ps, x_seq = unetr_inputs(self.cfg, b)
+        probs = torch.softmax(self.model(x, seq_ps=ps, x_seq=x_seq).float(), dim=1)
+        if self.dev.type != "cuda":
+            return probs, None
+        host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+        host.copy_(probs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def __call__(self, volume: np.ndarray, overlap: float = 0.5) -> np.ndarray:
+        """The int32 class map `[*spatial]` of a `[C, *spatial]` volume. A
+        spatial side shorter than the tile is reflect-padded, and the map
+        cropped back."""
+        if not 0.0 <= overlap < 1.0:
+            raise ValueError(f"overlap must be in [0, 1), got {overlap}")
+        t0 = time.perf_counter()
+        tile, sw_batch, nd = self.tile, self.sw_batch, len(self.tile)
+        volume = np.asarray(volume, np.float32)
+        if volume.ndim != nd + 1:
+            raise ValueError(f"volume must be [C, *{nd}-d spatial], got {volume.shape}")
+        pad = [(0, 0)] + [(0, max(t - s, 0)) for t, s in zip(tile, volume.shape[1:])]
+        vol = np.pad(volume, pad, mode="reflect") if any(p for _, p in pad) else volume
+        spatial = vol.shape[1:]
+        strides = [max(1, int(round(t * (1.0 - overlap)))) for t in tile]
+        corners = list(itertools.product(*(window_starts(s, t, st)
+                                           for s, t, st in zip(spatial, tile, strides))))
+        probs_acc = np.zeros((self.num_classes,) + spatial, np.float32)
+        w_acc = np.zeros(spatial, np.float32)
+        pre_s = 0.0
+
+        def make_batch(i):
+            nonlocal pre_s
+            t1 = time.perf_counter()
+            chunk = corners[i:i + sw_batch]
+            samples = [self._pre(vol[(slice(None),) + tuple(slice(a, a + t)
+                                                           for a, t in zip(c0, tile))])
+                       for c0 in chunk]
+            while len(samples) < sw_batch:  # one shape for every chunk; the extras dropped
+                samples.append(samples[-1])
+            batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+            pre_s += time.perf_counter() - t1
+            return chunk, batch
+
+        def accumulate(chunk, probs, done):
+            if done is not None:
+                done.synchronize()
+            probs = probs.numpy()
+            for j, c0 in enumerate(chunk):
+                sl = tuple(slice(a, a + t) for a, t in zip(c0, tile))
+                probs_acc[(slice(None),) + sl] += probs[j] * self._w_map
+                w_acc[sl] += self._w_map
+
+        in_flight = None
+        for i in range(0, len(corners), sw_batch):
+            chunk, batch = make_batch(i)
+            out = self._dispatch(batch)
+            if in_flight is not None:
+                accumulate(*in_flight)
+            in_flight = (chunk, *out)
+        accumulate(*in_flight)
+        pred = np.argmax(probs_acc / w_acc, axis=0).astype(np.int32)
+        self.last_probs = probs_acc / w_acc
+        self.last_stats = {"windows": len(corners), "seconds": time.perf_counter() - t0,
+                           "preprocess_s": pre_s}
+        return pred[tuple(slice(0, s) for s in volume.shape[1:])]
+
+
+def predict_volume(cfg: Config, volume: np.ndarray, checkpoint_dir: Optional[str] = None,
+                   overlap: float = 0.5, sw_batch: int = 4, use_ema: bool = False,
+                   blend: str = "gaussian", *, device: Device = None) -> np.ndarray:
+    """One volume through a `VolumePredictor` made for it
+    (`ucf_vit_tpu/inference.py:606-618`)."""
+    return VolumePredictor(cfg, checkpoint_dir, sw_batch=sw_batch, use_ema=use_ema,
+                           blend=blend, device=device)(volume, overlap=overlap)
+
+
 def main(argv=None) -> float:
     """The inference CLI (`ucf_vit_tpu/inference.py:633-671`); returns what
-    `evaluate` returns."""
+    `evaluate` returns, or with `--volume` the class map."""
     parser = argparse.ArgumentParser(description="ucf_vit_tpu_torch inference/eval")
     parser.add_argument("config")
     parser.add_argument("launcher", nargs="?", default=None)
@@ -286,8 +512,10 @@ def main(argv=None) -> float:
     parser.add_argument("--ema", action="store_true",
                         help="evaluate the EMA weights (trainer.ema_decay)")
     parser.add_argument("--volume", default=None,
-                        help="sliding-window segmentation of a [C, *spatial] .npy volume")
-    parser.add_argument("--volume-out", default=None)
+                        help="sliding-window segmentation of a [C, *spatial] .npy volume "
+                             "(unetr)")
+    parser.add_argument("--volume-out", default=None,
+                        help="where the int32 class map goes (default <volume>.pred.npy)")
     parser.add_argument("--sw-overlap", type=float, default=0.5)
     parser.add_argument("--sw-batch", type=int, default=4)
     parser.add_argument("--device", default=None,
@@ -298,8 +526,19 @@ def main(argv=None) -> float:
 
     cfg = load_config(args.config, task=args.task)
     if args.volume:
-        raise NotImplementedError(f"--volume (sliding-window segmentation) is not ported yet "
-                                  f"{_ITEM_7}")
+        vol = np.load(args.volume)
+        predictor = VolumePredictor(cfg, args.checkpoint, sw_batch=args.sw_batch,
+                                    use_ema=args.ema, device=args.device)
+        pred = predictor(vol, overlap=args.sw_overlap)
+        out = args.volume_out or (args.volume + ".pred.npy")
+        np.save(out, pred)
+        vals, counts = np.unique(pred, return_counts=True)
+        st = predictor.last_stats
+        print(f"stitched {vol.shape[1:]} -> {out}; class voxels "
+              f"{dict(zip(vals.tolist(), counts.tolist()))}; {st['windows']} windows in "
+              f"{st['seconds']:.3f} s, {st['preprocess_s']:.3f} s of it preprocessing",
+              flush=True)
+        return pred
     return evaluate(cfg, args.checkpoint, args.mae_checkpoint, args.synthetic,
                     args.num_samples, args.png_dir, args.batch_size, use_ema=args.ema,
                     device=args.device)

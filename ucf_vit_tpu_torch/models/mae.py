@@ -65,6 +65,9 @@ class MAE(VIT):
             raise ValueError("MAE runs with class_token=False")
         if num_classes is not None:
             raise ValueError("MAE has no classification head")
+        if vit_kwargs.get("sqrt_len_method"):
+            raise ValueError("an adaptive MAE embeds the sequence itself; the sqrt-len method "
+                             "is UNETR's and SAP's input")
         if vit_kwargs.get("adaptive_patching"):
             num_patches = int(vit_kwargs.get("fixed_length") or 0)
         else:

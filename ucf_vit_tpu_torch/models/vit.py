@@ -13,8 +13,13 @@ fastest); the learned position table is drawn `0.02 * N(0, 1)`, and with
 `use_adaptive_pos_emb` the patches' `(size, centre...)` descriptors `seq_ps`
 `[B, L, 1 + nd]` go through `AdaptivePosMLP` instead (a zero row for the
 class token). The table stays in the parameters either way, as in the JAX
-model. Variable embeddings, the sqrt-len method, pipelined blocks and MoE
-raise NotImplementedError until their slices (ROADMAP.md).
+model. With `sqrt_len_method` (UNETR's adaptive input) the caller reassembles
+the sequence into an image of `(sqrt_len * p)^nd` pixels
+(`tasks.reassemble_sqrt_len`), which the conv patch embed tokenizes into
+`sqrt_len^nd` tokens with the sincos table of that grid. `forward_intermediates`
+also returns the un-normed outputs of chosen blocks (UNETR's skips).
+Variable embeddings, pipelined blocks and MoE raise NotImplementedError until
+their slices (ROADMAP.md).
 
 `scan_layers` names a parameter layout of the JAX package (block leaves
 stacked `[depth, ...]` under `lax.scan`, which keeps XLA's compile time
@@ -68,8 +73,8 @@ def _not_ported(feature: str, item: str) -> NotImplementedError:
     )
 
 
-def _checkpoint(fn, x: torch.Tensor) -> torch.Tensor:
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+def _checkpoint(fn, *xs: torch.Tensor) -> torch.Tensor:
+    return checkpoint(fn, *xs, use_reentrant=False, preserve_rng_state=False,
                       determinism_check="none")
 
 
@@ -116,8 +121,6 @@ class VIT(nn.Module):
         super().__init__()
         if use_varemb:
             raise _not_ported("use_varemb", "VIT input variants")
-        if sqrt_len_method:
-            raise _not_ported("the sqrt-len adaptive method", "VIT input variants")
         if adaptive_patching and not fixed_length:
             raise ValueError("adaptive_patching needs fixed_length")
         if pipe_par_size > 1:
@@ -137,8 +140,17 @@ class VIT(nn.Module):
         self.grid_size = tuple(s // patch_size for s in _to_tuple(img_size, twoD))
         self.adaptive_patching = bool(adaptive_patching)
         self.use_adaptive_pos_emb = bool(use_adaptive_pos_emb)
-        self.num_patches = (int(fixed_length) if adaptive_patching
-                            else int(np.prod(self.grid_size)))
+        nd = len(self.grid_size)
+        # the sqrt-len method: the side of the token grid of the reassembled image
+        self.sqrt_len = (int(round(fixed_length ** (1.0 / nd)))
+                         if adaptive_patching and sqrt_len_method else None)
+        # adaptive tokens embedded by LinearTokenEmbed (else a conv on an image)
+        self.adaptive_linear = self.adaptive_patching and self.sqrt_len is None
+        # the grid the tokens lie on, for the sincos table
+        self.token_grid = (self.grid_size if self.sqrt_len is None
+                           else (self.sqrt_len,) * nd)
+        self.num_patches = (int(fixed_length) if self.adaptive_linear
+                            else int(np.prod(self.token_grid)))
         # a token's features: p^nd pixels of every channel
         self.patch_dim = in_chans * patch_size ** len(self.grid_size)
         self.num_prefix_tokens = 1 if class_token else 0
@@ -154,7 +166,7 @@ class VIT(nn.Module):
         self.host_generator: Optional[torch.Generator] = None
 
         self.token_embeds = (
-            LinearTokenEmbed(self.patch_dim, embed_dim) if adaptive_patching
+            LinearTokenEmbed(self.patch_dim, embed_dim) if self.adaptive_linear
             else PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD, dtype=dtype))
         self.cls_token = (
             nn.Parameter(torch.zeros(1, 1, embed_dim)) if class_token else None
@@ -164,7 +176,7 @@ class VIT(nn.Module):
             if pos_embed == "learn" else None
         )
         self.adaptive_pos_dep_emb = (
-            AdaptivePosMLP(1 + len(self.grid_size), embed_dim) if use_adaptive_pos_emb
+            AdaptivePosMLP(1 + nd, embed_dim) if use_adaptive_pos_emb
             else None
         )
         self.pos_drop = Dropout(pos_drop_rate)
@@ -193,7 +205,7 @@ class VIT(nn.Module):
     # ---------------------------------------------------------------- params
 
     def sincos_table(self) -> np.ndarray:
-        g = self.grid_size
+        g = self.token_grid
         with_cls = self.cls_token is not None
         if self.twoD:
             return get_2d_sincos_pos_embed(self.embed_dim, g[0], g[1], cls_token=with_cls)
@@ -203,12 +215,13 @@ class VIT(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "VIT":
         """The JAX package's initialisers, drawn from `generator`: truncated
         normal (std 0.02) kernels, zero biases, unit LayerNorm scales, class
-        token N(0, 1e-6), position embedding from the sincos table (adaptive:
-        0.02 * N(0, 1)). The numbers differ from flax's for the same seed; the
+        token N(0, 1e-6), position embedding from the sincos table (adaptive
+        tokens embedded by LinearTokenEmbed: 0.02 * N(0, 1)). The numbers differ from flax's for the same seed; the
         distributions agree."""
         std = 0.02 / _TRUNC_STD_CORRECTION
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                              nn.ConvTranspose3d)):
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
                 if m.bias is not None:
@@ -220,7 +233,7 @@ class VIT(nn.Module):
                 m.gamma.fill_(m.init_values)
         if self.cls_token is not None:
             nn.init.normal_(self.cls_token, std=1e-6, generator=generator)
-        if self.pos_embed is not None and self.adaptive_patching:
+        if self.pos_embed is not None and self.adaptive_linear:
             self.pos_embed.normal_(generator=generator).mul_(0.02)
         elif self.pos_embed is not None:
             table = torch.from_numpy(self.sincos_table()).to(self.pos_embed.dtype)
@@ -239,10 +252,10 @@ class VIT(nn.Module):
     # --------------------------------------------------------------- forward
 
     def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
-        """Tokenize the input image, or with adaptive patching the sequence
-        `[B, C, L, p^nd]` as `[B, L, p^nd * C]` (the channel fastest):
-        `[B, L, D]`."""
-        if self.adaptive_patching:
+        """Tokenize the input image (with the sqrt-len method the reassembled
+        one), or with adaptive patching the sequence `[B, C, L, p^nd]` as
+        `[B, L, p^nd * C]` (the channel fastest): `[B, L, D]`."""
+        if self.adaptive_linear:
             b, c, s, p = x.shape
             x = x.permute(0, 2, 3, 1).reshape(b, s, p * c)
         return self.token_embeds(x)
@@ -342,6 +355,21 @@ class VIT(nn.Module):
         x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
         x = self.patch_drop(x, patch_drop_noise)
         return self.norm(self.run_blocks(x))
+
+    def forward_intermediates(self, x: torch.Tensor, indices: Sequence[int] = (),
+                              seq_ps: Optional[torch.Tensor] = None,
+                              patch_drop_noise: Optional[torch.Tensor] = None):
+        """`(normed output, [the un-normed outputs of blocks `indices`, prefix
+        tokens stripped])` (`ucf_vit_tpu/models/vit.py:617-656`)."""
+        x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
+        x = self.patch_drop(x, patch_drop_noise)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        take, intermediates = set(indices), []
+        for i, blk in enumerate(self.blocks):
+            x = self._remat_block(blk, x) if remat else blk(x)
+            if i in take:
+                intermediates.append(x[:, self.num_prefix_tokens:])
+        return self.norm(x), intermediates
 
     def pool(self, x: torch.Tensor) -> torch.Tensor:
         """Class-token pool (or strip the prefix)."""

@@ -3,7 +3,9 @@
 The port's own copy of the 1D/2D/3D tables of `ucf_vit_tpu/ops/pos_embed.py`
 (`:16-72`): same layouts (sin block then cos block; 2D splits the dims over
 (h, w), 3D over (h, w, d); token order h-major), same float64 math; and of the
-DDPM time-step table (`:73`), whose layout interleaves sin and cos.
+DDPM time-step table (`:73`), whose layout interleaves sin and cos; and the
+1-D resample of a table to another length (`:152`), for the MAE-encoder
+transfer.
 """
 
 from __future__ import annotations
@@ -78,3 +80,23 @@ def sinusoidal_time_embedding_table(time_steps: int, embed_dim: int) -> np.ndarr
     table[:, 0::2] = np.sin(position * div)
     table[:, 1::2] = np.cos(position * div)
     return table
+
+
+def interpolate_pos_embed_1d(pos_embed: np.ndarray, new_len: int) -> np.ndarray:
+    """A `[1, L, D]` (or `[L, D]`) table resampled linearly to `new_len` rows
+    (`ucf_vit_tpu/ops/pos_embed.py:152`; torch's `F.interpolate(mode="linear",
+    align_corners=False)` grid: row centres mapped affinely, clamped at the
+    ends), in the table's dtype."""
+    squeeze = pos_embed.ndim == 2
+    if squeeze:
+        pos_embed = pos_embed[None]
+    old_len = pos_embed.shape[1]
+    if old_len == new_len:
+        return pos_embed[0] if squeeze else pos_embed
+    coords = (np.arange(new_len, dtype=np.float64) + 0.5) * (old_len / new_len) - 0.5
+    coords = np.clip(coords, 0, old_len - 1)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.minimum(lo + 1, old_len - 1)
+    frac = (coords - lo)[None, :, None]
+    out = (pos_embed[:, lo] * (1 - frac) + pos_embed[:, hi] * frac).astype(pos_embed.dtype)
+    return out[0] if squeeze else out

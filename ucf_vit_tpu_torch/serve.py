@@ -24,11 +24,15 @@
   server's ``--seed`` fixes (the JAX server's MAE branch,
   ``ucf_vit_tpu/serve.py:277-296``); an adaptive one its predicted tokens
   ``[L, p^nd * C]``.
+- **UNETR.** A segmentation deployment's ``/v1/predict`` answers the int32
+  class map ``[*tile]`` of a ``[C, *tile]`` volume: the argmax of the logits
+  (the JAX server's UNETR branch, ``ucf_vit_tpu/serve.py:255-267``).
 - **Adaptive patching.** A request is the raw ``[C, *tile]`` sample; the
   server patchifies it as training does (``make_preprocessor``, the same
-  tree for the same request), in the handler's thread or in a spawn pool of
-  ``--preprocess-workers`` processes, and ships only ``seq``, ``seq_size``
-  and ``seq_pos`` to the device.
+  tree for the same request; the octree for a volume), in the handler's
+  thread or in a spawn pool of ``--preprocess-workers`` processes, and ships
+  only ``seq``, ``seq_size`` and ``seq_pos`` to the device (and ``x``, which
+  UNETR's skips read).
 - **Diffusion.** A DiffusionVIT deployment answers ``POST /v1/generate
   {"seed": s, "num": n}`` with ``[n, C, *tile]`` f32 images as ``.npy``
   (``n`` at most ``--num-generate``): each answer runs the whole DDPM reverse
@@ -36,8 +40,8 @@
   the same images for the same seed. ``/v1/predict`` and ``/v1/reload``
   answer 400 there, as in the JAX server.
 
-This slice serves classification and MAE, adaptive (2-D) or not, and
-diffusion (ROADMAP.md).
+This slice serves classification, MAE and UNETR, adaptive or not, and
+diffusion; SAP is still to port (ROADMAP.md, item 8).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ from ucf_vit_tpu_torch.inference import (
     resolve_device,
 )
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
-from ucf_vit_tpu_torch.tasks import model_inputs
+from ucf_vit_tpu_torch.tasks import model_inputs, unetr_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +85,8 @@ def make_preprocessor(cfg: Config, workers: int = 0
     input ``x``. An adaptive config runs the training pipeline's patchify
     (``ProcessChannels._make_sample``), so the served token layout is
     training's, and keeps ``seq``, ``seq_size`` and ``seq_pos``
-    (`ucf_vit_tpu/serve.py:59-153`). Its draws come from the per-sample
+    (`ucf_vit_tpu/serve.py:59-153`), and for UNETR the tile ``x`` too. Its
+    draws come from the per-sample
     generator at the fixed index 0 of the seed ``data.seed`` (default 0), so
     identical requests give identical trees. ``workers > 0`` patchifies in a
     spawn pool of that many processes (the same bytes: the fixed index makes
@@ -117,7 +122,7 @@ def make_preprocessor(cfg: Config, workers: int = 0
         patch_size=cfg.patch_size, fixed_length=cfg.fixed_length, twoD=cfg.twoD,
         num_classes=cfg.data.get("num_classes"), aug_seed=seed)
     variables = tuple(cfg.default_vars[: cfg.max_channels] or ("v",))
-    keep = ("seq", "seq_size", "seq_pos")
+    keep = consumed_keys(cfg)
 
     if workers <= 0:
         def pre(arr: np.ndarray) -> Dict[str, np.ndarray]:
@@ -135,6 +140,14 @@ def make_preprocessor(cfg: Config, workers: int = 0
 
     pre_pooled.close = lambda: pool.shutdown(wait=True, cancel_futures=True)
     return pre_pooled
+
+
+def consumed_keys(cfg: Config) -> tuple:
+    """The keys of a preprocessed sample that the task's forward reads (and
+    that alone go to the device, `ucf_vit_tpu/serve.py:306-316`)."""
+    if not cfg.adaptive_patching:
+        return ("x",)
+    return (("x",) if cfg.task == "unetr" else ()) + ("seq", "seq_size", "seq_pos")
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +170,8 @@ def build_predictor(
     ``seq_size``, ``seq_pos``, the keys the preprocessor keeps, and only
     those go to the device) returns, as a tensor on ``device`` and without
     waiting for the device, the logits ``[max_batch, num_classes]`` of a
-    classifier, or an MAE's reconstruction ``[max_batch, C, *tile]`` (an
+    classifier, a UNETR's int32 class map ``[max_batch, *tile]``, or an
+    MAE's reconstruction ``[max_batch, C, *tile]`` (an
     adaptive MAE: its predicted tokens ``[max_batch, L, p^nd * C]``, token
     space being its native output); f32 under ``trainer.data_type: bfloat16`` too,
     since a classifier's final norm and head and MAE's decoder compute in
@@ -179,7 +193,7 @@ def build_predictor(
     if cfg.task == "diffusion":
         raise ValueError("a diffusion deployment serves /v1/generate (build_generator), "
                          "not a predictor")
-    if cfg.task not in ("classification", "mae"):
+    if cfg.task not in ("classification", "mae", "unetr"):
         item = UNPORTED_TASKS.get(cfg.task)
         raise NotImplementedError(
             f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port"
@@ -201,13 +215,17 @@ def build_predictor(
 
     noise = mask_noise(model, 1, seed, dev) if cfg.task == "mae" else None
 
-    consumed = ("seq", "seq_size", "seq_pos") if cfg.adaptive_patching else ("x",)
+    consumed = consumed_keys(cfg)
 
     def run_batch(batch: Dict[str, np.ndarray]) -> torch.Tensor:
         b = {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=np.float32)).to(
             dev, non_blocking=True) for k in consumed}
-        x, ps = model_inputs(cfg, b)
         with torch.inference_mode():
+            if cfg.task == "unetr":
+                x, ps, x_seq = unetr_inputs(cfg, b)
+                logits = holder["model"](x, seq_ps=ps, x_seq=x_seq)
+                return logits.argmax(dim=1).to(torch.int32)
+            x, ps = model_inputs(cfg, b)
             if noise is None:
                 return holder["model"](x, seq_ps=ps)
             pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1), seq_ps=ps)

@@ -1,9 +1,10 @@
 """Task registry: model factory and loss per task (port of `ucf_vit_tpu/tasks.py`).
 
-The port has the classification, MAE and diffusion tasks (model and loss),
-with adaptive patching's inputs for the first two (`model_inputs`: the
-quadtree's sequence and its descriptors); the other tasks come with their
-own slices (ROADMAP.md).
+The port has the classification, MAE, diffusion and UNETR tasks (model and
+loss), with adaptive patching's inputs (`model_inputs`: the patch tree's
+sequence and its descriptors; UNETR's `unetr_inputs`: the sequence
+reassembled into the sqrt-len image beside the tile); SAP comes with its own
+slice (ROADMAP.md, item 8).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import (
     MAE,
+    UNETR,
     VIT,
     DiffusionVIT,
     ddpm_schedule,
@@ -23,7 +25,13 @@ from ucf_vit_tpu_torch.models import (
 )
 from ucf_vit_tpu_torch.ops.attention import AttnImpl
 from ucf_vit_tpu_torch.ops.patchify import patchify, unpatchify
-from ucf_vit_tpu_torch.utils.metrics import accuracy, cross_entropy, masked_mse, mse
+from ucf_vit_tpu_torch.utils.metrics import (
+    accuracy,
+    cross_entropy,
+    dice_ce_loss,
+    masked_mse,
+    mse,
+)
 
 
 def _attn_impl(cfg: Config) -> AttnImpl:
@@ -92,6 +100,46 @@ def model_inputs(cfg: Config, batch: Dict[str, torch.Tensor]
     if cfg.adaptive_patching:
         return batch["seq"], seq_ps(batch)
     return batch["x"], None
+
+
+def reassemble_sqrt_len(tokens: torch.Tensor, sqrt_len: int, p: int, twoD: bool
+                        ) -> torch.Tensor:
+    """`[..., L, p^nd]` -> `[..., (sqrt_len * p)^nd]`: token i becomes the
+    i-th `p^nd` block of the image in row-major order (the sqrt-len method's
+    input, `ucf_vit_tpu/tasks.py:98`)."""
+    lead = tuple(tokens.shape[:-2])
+    n = len(lead)
+    side = sqrt_len * p
+    if twoD:
+        t = tokens.reshape(lead + (sqrt_len, sqrt_len, p, p))
+        return t.movedim(n + 2, n + 1).reshape(lead + (side, side))
+    t = tokens.reshape(lead + (sqrt_len,) * 3 + (p,) * 3)
+    t = t.permute(*range(n), n, n + 3, n + 1, n + 4, n + 2, n + 5)
+    return t.reshape(lead + (side,) * 3)
+
+
+def disassemble_sqrt_len(img: torch.Tensor, sqrt_len: int, p: int, twoD: bool
+                         ) -> torch.Tensor:
+    """The inverse of `reassemble_sqrt_len`: `[..., (sqrt_len * p)^nd]` ->
+    `[..., L, p^nd]` (`ucf_vit_tpu/tasks.py:119`)."""
+    lead = tuple(img.shape[:-2] if twoD else img.shape[:-3])
+    n = len(lead)
+    if twoD:
+        t = img.reshape(lead + (sqrt_len, p, sqrt_len, p))
+        return t.movedim(n + 1, n + 2).reshape(lead + (sqrt_len * sqrt_len, p * p))
+    t = img.reshape(lead + (sqrt_len, p, sqrt_len, p, sqrt_len, p))
+    t = t.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3, n + 5)
+    return t.reshape(lead + (sqrt_len ** 3, p ** 3))
+
+
+def unetr_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
+    """`(x, seq_ps, x_seq)` of a UNETR batch: the tile `x`, and with adaptive
+    patching the descriptors and the sequence reassembled into the sqrt-len
+    image (`ucf_vit_tpu/tasks.py:262-270`); else None for both."""
+    if not cfg.adaptive_patching:
+        return batch["x"], None, None
+    x_seq = reassemble_sqrt_len(batch["seq"], cfg.sqrt_len, cfg.patch_size, cfg.twoD)
+    return batch["x"], seq_ps(batch), x_seq
 
 
 def build_classification(cfg: Config) -> VIT:
@@ -212,20 +260,60 @@ def diffusion_loss(cfg: Config) -> Callable:
     return loss_fn
 
 
+def num_classes(cfg: Config) -> int:
+    """A segmentation config's classes (`init_args`, then `data`)."""
+    return int(cfg.init_args.get("num_classes", cfg.data.get("num_classes", 2)))
+
+
+def build_unetr(cfg: Config) -> UNETR:
+    """`build_unetr`'s model (`ucf_vit_tpu/tasks.py:244-256`): adaptive
+    patching by the sqrt-len method."""
+    ia = cfg.init_args
+    return UNETR(
+        num_classes=num_classes(cfg),
+        linear_decoder=bool(ia.get("linear_decoder", False)),
+        feature_size=int(ia.get("feature_size", 16)),
+        skip_connection=bool(ia.get("skip_connection", True)),
+        sqrt_len_method=cfg.adaptive_patching,
+        **_common_kwargs(cfg),
+    )
+
+
+def unetr_loss(cfg: Config) -> Callable:
+    """`loss_fn` of `build_unetr` (`ucf_vit_tpu/tasks.py:259-279`): MONAI's
+    DiceCE of the logits against the label volume `[B, 1, *spatial]`."""
+    classes = num_classes(cfg)
+
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        x, ps, x_seq = unetr_inputs(cfg, batch)
+        logits = model(x, seq_ps=ps, x_seq=x_seq)
+        label = batch["label"]
+        if label.ndim == logits.ndim - 1:
+            label = label[:, None]
+        return dice_ce_loss(logits, label, classes), {}
+
+    return loss_fn
+
+
 TASKS: Dict[str, Callable[[Config], torch.nn.Module]] = {
     "classification": build_classification,
     "mae": build_mae,
     "diffusion": build_diffusion,
+    "unetr": build_unetr,
 }
 # each task's loss from its config
 LOSSES: Dict[str, Callable[[Config], Callable]] = {
     "classification": classification_loss,
     "mae": mae_loss,
     "diffusion": diffusion_loss,
+    "unetr": unetr_loss,
 }
 
 
 def _check_ported(cfg: Config) -> None:
+    if cfg.task == "sap":
+        raise NotImplementedError(
+            "task 'sap' is not ported yet (ROADMAP.md, modules to port, item 8: SAP)")
     if cfg.task not in TASKS:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port)"

@@ -4,7 +4,7 @@
         [--max-steps N] [--log-every K] [--single-device] [--device cuda|cpu]
 
 Seeded model init (the names `load_jax_params` fills) of the config's task
-(classification, MAE or diffusion), AdamW from the config's `model:` keys, and one
+(classification, MAE, diffusion or UNETR), AdamW from the config's `model:` keys, and one
 train step per batch: from the files the config's `data:` section names
 (`build_dataloader`: the catsdogs folder through its map-style loader,
 every other dataset through the `DataModule` with `auto_load_balancing`),
@@ -24,7 +24,11 @@ list, step count and the generators' states, EMA reconciled with
 interrupted, fast-forwarding the batches it had trained on
 (`skip_batches`); `trainer.init_params_from` warm-starts the parameters alone
 from any port checkpoint or a file that the JAX package's `convert_checkpoint
-to-torch` wrote.
+to-torch` wrote; `trainer.pretrained_mae_checkpoint` (a file, or a directory
+whose slot `pretrained_mae_filename` or `mae_checkpoint_filename` names,
+empty: the newest) starts a UNETR's encoder from an MAE checkpoint
+(`checkpoint.transfer_mae_encoder`: the decoder and mask token left out, the
+position table resampled to the UNETR's tokens).
 
 Preemption: SIGTERM (or `trainer.preempt_after_steps`, a drill) stops the
 run at the next step boundary with a checkpoint of the interrupted epoch
@@ -37,7 +41,7 @@ TensorBoard as well; `trainer.profile_dir` writes a `torch.profiler` trace of
 steps 11-15 as a Chrome trace file.
 
 Not ported yet, and refused with the ROADMAP.md item when the config asks
-for it (`_REFUSED_KEYS`): the MAE-encoder transfer and sharding.
+for it (`_REFUSED_KEYS`, `check_config`): sharding and its sync check.
 `trainer.data_type: bfloat16` trains under the bf16 compute policy (f32
 parameters, gradients and optimizer state; `models/blocks.py`),
 `trainer.remat` checkpoints each block's activations (MAE's decoder blocks
@@ -69,7 +73,6 @@ from ucf_vit_tpu_torch.utils.optim import configure_optimizer
 
 # trainer keys whose feature is not ported yet -> the ROADMAP.md item that ports it
 _REFUSED_KEYS = {
-    "pretrained_mae_checkpoint": "item 7: UNETR + evaluation",
     "sync_check_every": "item 10: data/tensor parallel",
 }
 # the steps `trainer.profile_dir` traces: from after step PROFILE_STEPS[0] to
@@ -328,6 +331,19 @@ def _warm_start(cfg: Config, state) -> None:
     print(f"initialized params from {trainer['init_params_from']}", flush=True)
 
 
+def transfer_pretrained_mae(cfg: Config, model: torch.nn.Module, path: str,
+                            filename: str = "") -> None:
+    """Start `model`'s encoder from the MAE checkpoint at `path`
+    (`checkpoint.transfer_mae_encoder`), in place; the encoders' head counts
+    must agree (`ucf_vit_tpu/train.py:441-472`)."""
+    payload = ckpt.restore_checkpoint(
+        path, filename, expect_head_meta=(ckpt.head_meta_from_config(cfg)[0], None))
+    new = ckpt.transfer_mae_encoder(payload["model_state_dict"], model.state_dict(),
+                                    new_pos_embed_len=model.num_patches)
+    ckpt.load_params(model, new, "pretrained_mae_checkpoint")
+    print("initialized encoder from MAE checkpoint", flush=True)
+
+
 def _resume(cfg: Config, state) -> Tuple[int, list, int, int]:
     """`trainer.resume_from_checkpoint`: the state in place; returns (first
     epoch to run, loss list, total steps, batches of that epoch to skip).
@@ -494,6 +510,15 @@ def train(
         state, step = init_train(cfg, dev)
         head_meta = ckpt.head_meta_from_config(cfg)
         epoch_start, loss_list, total_steps, resume_it = 0, [], 0, 0
+        if trainer.get("pretrained_mae_checkpoint"):
+            # its slot: a key of its own, then the reference's spelling, then the newest
+            # (not checkpoint_filename_for_loading, which names a slot of this run)
+            transfer_pretrained_mae(
+                cfg, state.model, trainer["pretrained_mae_checkpoint"],
+                trainer.get("pretrained_mae_filename", trainer.get("mae_checkpoint_filename", "")))
+            if state.ema_params is not None:
+                state.ema_params = {n: p.detach().clone()
+                                    for n, p in state.model.named_parameters()}
         if trainer.get("init_params_from"):
             _warm_start(cfg, state)
         if trainer.get("resume_from_checkpoint", False):

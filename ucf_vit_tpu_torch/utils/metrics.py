@@ -1,9 +1,11 @@
 """Losses and metrics (port of `ucf_vit_tpu/utils/metrics.py`).
 
 The classification pair (`cross_entropy` `:46`, `accuracy` `:54`), MAE's
-two (`mse` `:29`, `masked_mse` `:35`) and the adaptive token-space MSE
-(`token_masked_mse_adaptive` `:58`); the other losses come with their tasks
-(ROADMAP.md). Predictions are taken as the models give them and the results
+two (`mse` `:29`, `masked_mse` `:35`), the adaptive token-space MSE
+(`token_masked_mse_adaptive` `:58`) and UNETR's two (`dice_ce_loss` `:107`,
+MONAI's DiceCELoss as the reference trains with it, and `dice_metric`
+`:148`, MONAI's DiceMetric without the background); SAP's `dice_b_loss`
+comes with its task (ROADMAP.md). Predictions are taken as the models give them and the results
 are f32 scalars.
 """
 
@@ -46,3 +48,46 @@ def token_masked_mse_adaptive(pred: torch.Tensor, target_tokens: torch.Tensor,
     valid = (seq_size > 0).float()
     loss = (pred.float() - target_tokens.float()).square().mean(dim=-1)
     return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                 smooth_nr: float = 0.0, smooth_dr: float = 1e-6, squared_pred: bool = True,
+                 include_background: bool = True) -> torch.Tensor:
+    """MONAI's `DiceCELoss(to_onehot_y=True, softmax=True, squared_pred=True,
+    smooth_nr=0, smooth_dr=1e-6)`: logits `[B, C, *spatial]`, labels `[B, 1,
+    *spatial]` integer classes. Dice per (sample, class) over the voxels,
+    averaged, plus the softmax cross entropy; in f32."""
+    x = logits.float()
+    b, c = x.shape[0], x.shape[1]
+    lbl = labels.reshape(b, -1).long()
+    probs = torch.softmax(x, dim=1).reshape(b, c, -1)
+    onehot = F.one_hot(lbl, c).transpose(1, 2).float()
+    if not include_background:
+        probs, onehot = probs[:, 1:], onehot[:, 1:]
+    intersection = (onehot * probs).sum(-1)
+    if squared_pred:
+        ground, pred_sum = (onehot * onehot).sum(-1), (probs * probs).sum(-1)
+    else:
+        ground, pred_sum = onehot.sum(-1), probs.sum(-1)
+    dice = (1.0 - (2.0 * intersection + smooth_nr) / (ground + pred_sum + smooth_dr)).mean()
+    logp = F.log_softmax(x, dim=1).reshape(b, c, -1)
+    ce = -logp.gather(1, lbl[:, None, :]).mean()
+    return dice + ce
+
+
+def dice_metric(pred_labels: torch.Tensor, true_labels: torch.Tensor, num_classes: int,
+                include_background: bool = False) -> torch.Tensor:
+    """Mean Dice over the classes present (and the batch): MONAI's
+    `DiceMetric(include_background=False, reduction="mean")`, a class absent
+    from both prediction and label left out of the mean. `[B, *spatial]`
+    integer classes each; an f32 scalar."""
+    b = pred_labels.shape[0]
+    p = F.one_hot(pred_labels.reshape(b, -1).long(), num_classes).float()
+    t = F.one_hot(true_labels.reshape(b, -1).long(), num_classes).float()
+    if not include_background:
+        p, t = p[..., 1:], t[..., 1:]
+    intersection = (p * t).sum(1)
+    denom = p.sum(1) + t.sum(1)
+    dice = 2.0 * intersection / denom.clamp_min(1e-6)
+    present = (denom > 0).float()
+    return (dice * present).sum() / present.sum().clamp_min(1.0)
