@@ -5,6 +5,7 @@
     python3 chip_smoke.py --compare CHECKOUT
     python3 chip_smoke.py --only adaptive   # the device, build and adaptive phases alone
     python3 chip_smoke.py --only unetr      # the device, build and UNETR phases alone
+    python3 chip_smoke.py --only sap        # the device, build and SAP phases alone
 
 With `--compare` it runs only the device phase and times the bf16 flash
 forward, the split backward route's kernels (dkv and dq, f32 and bf16),
@@ -207,7 +208,7 @@ result):
             training through the CLI entry (24 forwards and 12 fused
             backwards a step), a timed and a traced window (device time by
             kind: GEMMs, convolutions, instance norm and element-wise, flash),
-            FLASH against EINSUM over 5 steps; (c) from 4 seeded labelled
+            FLASH against EINSUM over 3 steps; (c) from 4 seeded labelled
             NIfTI volumes of 128^3, in line and with a spawn pool of 4 (the
             loader's host time, a step's wait, Patchify3D's parts); (d) the
             warm start from an MAE checkpoint (mae_long's: the encoder equal
@@ -218,6 +219,29 @@ result):
             serving with `--preprocess-workers 4`, max_batch 8, 16 clients:
             requests/s, latency, the busy share, every class map against the
             in-process forward.
+14. sap (`phase_sap`): configs/basic_ct/sap (f32, batch 2) and sap_bf16 (bf16,
+            batch 16) as shipped (ViT-B over 512 octree tokens reassembled into
+            a 32^3 image, a ConvTranspose3d neck of 256 channels and a 1x1
+            head, 4 classes), --single-device. (a) the f32 kernels at [24, 512,
+            64] and the bf16 ones at [192, 512, 64] against their plain
+            versions, timed beside SDPA, both backward routes timed; (b), (c)
+            each config synthetic through the CLI entry (12 forwards and 12
+            fused backwards a step of its dtype's source), a timed and a traced
+            window (device time by kind; the neck's and head's convolutions
+            one at a time), FLASH against EINSUM over 5 steps (f32 1e-4 a step
+            and first-step gradients; bf16 5e-3 a step); (d) basic_ct/sap from
+            the labelled volumes, warm-started from mae_long's checkpoint (the
+            transfer held tensor for tensor), in line and with a spawn pool of
+            4; (e) the inference CLI's Dice under FLASH and EINSUM, the
+            deserialized maps of `--png-dir`, `--volume` refused; (f) serving
+            with `--preprocess-workers 4` at the config's batch, 16 clients,
+            every class map against the in-process forward; (g)
+            imagenet/classification with `use_varemb: True` through the CLI
+            entry, FLASH against EINSUM, ms a step beside it without varemb and
+            the merge's share of the device time.
+
+Every phase prints its wall seconds on a `[time]` line, and the run all of
+them and the script's on one line before the record.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -230,6 +254,7 @@ import copy
 import http.client
 import io
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -251,7 +276,8 @@ MAE_CONFIG = os.path.join(REPO, "configs", "basic_ct", "mae_long", "base_config.
 MAX_BATCH = 16
 SEQUENTIAL_REQUESTS = 8
 LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
-LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
+# (the load window 6 s and the traced one 3 s until the SAP phase came)
+LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}
 SERVE_TOL = 1e-4  # f32 on both sides, TF32 off: only the order of sums differs
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}  # o, against the f32 plain result
 # bf16 o with LONG_KEYS keys or more: randn inputs give entries of about sqrt(e / Nkv)
@@ -307,9 +333,10 @@ PROFILE_TRIES = 3  # profiler windows per device time, if one records nothing
 # logged), and those that lost timed calls too.
 PROFILE_LEAD_IN_S = 0.02
 PROFILE_LOSS = {"windows": 0, "short": 0, "timed_lost": 0, "most_lost": 0}
-# mae_long from disk: 2 CT-like volumes of 512 x 512 x 128 (16 tiles of 128^3 each, so
-# 16 batches of 2 an epoch), 2 epochs (both checkpoint slots), then windows on the loader
-DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 2, (512, 512, 128), 2
+# mae_long from disk: a CT-like volume of 512 x 512 x 128 (16 tiles of 128^3, so 8
+# batches of 2 an epoch; 2 volumes until the SAP phase came, cut to make room for it),
+# 2 epochs (both checkpoint slots), then windows on the loader
+DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 1, (512, 512, 128), 2
 DISK_SMALL_SHAPE = (128, 128, 128)  # the resume check's 2 volumes: one tile each
 DISK_WARMUP_STEPS, DISK_TIMED_STEPS, DISK_TRACED_STEPS = 2, 6, 3
 # resumed against uninterrupted after 3 epochs (`_rel_diff`, `_adam_rel`): the
@@ -354,7 +381,7 @@ SIGTERM_AFTER, SIGTERM_DEADLINE_S = 3, 300  # the signal follows step 3's log li
 # bf16 FLASH-against-EINSUM limit in force (2e-2 of the largest entry): a batch of 2 and
 # a batch of 1 may take other GEMM kernels
 MAE_SERVE_BATCH, MAE_SERVE_CLIENTS = 2, 4
-MAE_SERVE_WINDOWS_S = {"warm-up": 2.0, "load": 4.0, "traced": 3.0}
+MAE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}  # 2, 4, 3 s before SAP
 MAE_SERVE_TOL = 2e-2
 
 # adaptive patching (phase_adaptive): the three 2-D adaptive configs as shipped (f32, 196
@@ -368,14 +395,15 @@ ADAPTIVE_MAE_CONFIGS = {
     "basic_ct/mae": os.path.join(REPO, "configs", "basic_ct", "mae", "base_config.yaml"),
 }
 ADAPTIVE_JPEGS, ADAPTIVE_CLASSES = 96, 4
-ADAPTIVE_WARMUP, ADAPTIVE_TIMED, ADAPTIVE_TRACED = 3, 10, 3  # classification from files
+# classification from files (10 timed steps until the SAP phase came)
+ADAPTIVE_WARMUP, ADAPTIVE_TIMED, ADAPTIVE_TRACED = 3, 6, 3
 ADAPTIVE_MAE_WARMUP, ADAPTIVE_MAE_TIMED = 3, 5  # each MAE, synthetic; 3 traced steps after
 ADAPTIVE_MAIN_STEPS = 3  # each config through the CLI entry
 # data.num_workers of a second loader window: a spawn pool of 4 patchifies (the shipped
 # 1 patchifies in line, in the prefetch thread)
 ADAPTIVE_POOL = 5
 ADAPTIVE_SERVE_WORKERS = 4  # serve's --preprocess-workers
-ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
+ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}  # 1, 6, 3 s before SAP
 # the f32 kernels' shapes on these paths at batch 32, packed qkv views: basic_ct/mae's
 # encoder on its 49 kept tokens (one partial tile on both axes), imagenet/classification's
 # 196 patches and the class token, the MAE decoders on all 196 (dh 128: the DH = 128
@@ -396,19 +424,40 @@ UNETR_CONFIG = os.path.join(REPO, "configs", "basic_ct", "unetr", "base_config.y
 # its attention: batch 8 x 12 heads over 729 tokens, dh 64, packed qkv views
 UNETR_SHAPE = (8, 12, 729, 729, 64, True)
 UNETR_MAIN_STEPS = 3  # through the CLI entry, synthetic
-UNETR_WARMUP, UNETR_TIMED, UNETR_TRACED = 3, 10, 2
-UNETR_CHECK_STEPS = 5  # FLASH against EINSUM
+# (10 timed steps, 5 checked and 6 from files until the SAP phase came)
+UNETR_WARMUP, UNETR_TIMED, UNETR_TRACED = 3, 5, 2
+UNETR_CHECK_STEPS = 3  # FLASH against EINSUM
 # from files: 4 seeded int16 CT-like volumes of 128^3 with label volumes 1-4 (32 tiles of
 # 64^3, 4 batches an epoch); in line as shipped (num_workers 1), then a spawn pool of 4
 UNETR_VOLUMES, UNETR_SIDE, UNETR_POOL = 4, 128, 5
-UNETR_FILE_STEPS = 6
+UNETR_FILE_STEPS = 3
 UNETR_EVAL_SAMPLES = 4
 UNETR_SW_OVERLAP, UNETR_SW_BATCH = 0.5, 4  # 27 windows of a 128^3 volume
 UNETR_MARGIN = 1e-3  # a class map is held where the reference's top-two margin passes it
 UNETR_DICE_TOL = 1e-4
 UNETR_SERVE_WORKERS, UNETR_MAX_BATCH, UNETR_CLIENTS = 4, 8, 16
 UNETR_SEQUENTIAL = 4  # lone requests before the load windows
-UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 6.0, "traced": 3.0}
+UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}  # 1, 6, 3 s before SAP
+
+# phase_sap: configs/basic_ct/sap (f32, batch 2) and sap_bf16 (bf16, batch 16) as shipped
+# (ViT-B over 512 octree tokens of 4^3 reassembled into a 32^3 image, the neck of 256
+# channels and the 1x1 head, 4 classes, 64^3 tiles), with --single-device
+SAP_CONFIGS = {name: os.path.join(REPO, "configs", "basic_ct", name, "base_config.yaml")
+               for name in ("sap", "sap_bf16")}
+# their attention: 12 heads over the 512 tokens at batch 2 (f32) and 16 (bf16), dh 64
+SAP_SHAPES = {"float32": (2, 12, 512, 512, 64, True), "bfloat16": (16, 12, 512, 512, 64, True)}
+SAP_MAIN_STEPS = 3  # through the CLI entry
+SAP_WARMUP, SAP_TIMED, SAP_TRACED = 3, 10, 2
+SAP_CHECK_STEPS = 5  # FLASH against EINSUM
+SAP_BF16_LOSS_TOL = 5e-3  # per-step loss, bf16
+SAP_POOL = 5  # num_workers: a spawn pool of 4
+SAP_FILE_STEPS = 6
+SAP_EVAL_SAMPLES = 4
+SAP_SERVE_WORKERS, SAP_CLIENTS, SAP_SEQUENTIAL = 4, 16, 4
+SAP_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}
+# (g): imagenet/classification with use_varemb: True (red, green, blue), synthetic
+VAREMB_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification", "base_config.yaml")
+VAREMB_MAIN_STEPS, VAREMB_CHECK_STEPS, VAREMB_TIMED = 3, 5, 5
 
 # Published dense peaks of the H100 SXM part at 700 W (NVIDIA data sheet): TF32, bf16
 # and int8 on the tensor cores, and the memory rate. The card is named so; any other
@@ -567,9 +616,8 @@ KERNEL_NAME = re.compile(r"(flash_(?:bwd_dq_sm90|bwd_dq_tf32|fwd_sm90|bwd_sm90|f
                          r"int8_gemm_kernel|int8_prepare)(?:I(\w+?)EEv)?")
 
 
-def _sass_counts(path, pattern: str) -> dict:
-    """Instructions matching `pattern` per entry function of a built library,
-    from cuobjdump's SASS."""
+def _sass(path) -> str:
+    """cuobjdump's SASS of a built library."""
     import shutil
 
     from ucf_vit_tpu_torch.ops import build
@@ -580,8 +628,13 @@ def _sass_counts(path, pattern: str) -> dict:
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump -sass {path.name}: {sass.stderr.strip()[:500]}")
+    return sass.stdout
+
+
+def _sass_counts(sass: str, pattern: str) -> dict:
+    """Instructions matching `pattern` per entry function of a library's SASS."""
     counts, fn = {}, None
-    for line in sass.stdout.splitlines():
+    for line in sass.splitlines():
         if m := re.search(r"Function : (\S+)", line):
             fn = m.group(1)
             counts[fn] = 0
@@ -597,14 +650,17 @@ def phase_build():
 
     def one(name):
         t0 = time.perf_counter()
-        return name, build.build(name), time.perf_counter() - t0
+        path = build.build(name)
+        seconds = time.perf_counter() - t0
+        return name, path, seconds, _sass(path)  # each library's SASS read in its thread too
 
     t0 = time.perf_counter()
     sources = (*TF32_SOURCES, *SM90_SOURCES, "int8_gemm")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         built = list(pool.map(one, sources))
-    log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
-    for name, path, seconds in built:
+    log(f"[build] {len(sources)} sources built and their SASS read in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, path, seconds, sass in built:
         # ptxas reports each template instance: summarise registers and spills
         entry, regs, spills, by_entry = "", [], [], []
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -634,7 +690,7 @@ def phase_build():
         for pattern in (TENSOR_CORE_SASS.get(name), TMA_SASS.get(name)):
             if pattern is None:
                 continue
-            counts = _sass_counts(path, pattern)
+            counts = _sass_counts(sass, pattern)
             for fn, n in sorted(counts.items()):
                 m = KERNEL_NAME.search(fn)
                 instance = fn if m is None else (
@@ -1616,10 +1672,10 @@ def _train_cfg(cfg, impl: str, **init_args):
     return Config(raw=raw, task=cfg.task)
 
 
-def _run_steps(cfg, batches):
+def _run_steps(cfg, batches, var_ids=None):
     """One train step per batch on the card from the seeded init (seed 0):
     (state, step, per-step losses, first-step gradients by name, the launch
-    counts of these steps)."""
+    counts of these steps). `var_ids`: the batches' variables (`use_varemb`)."""
     import torch
 
     from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
@@ -1629,7 +1685,7 @@ def _run_steps(cfg, batches):
     reset_launch_counts()
     losses, grads = [], None
     for i, batch in enumerate(batches):
-        state, loss, _ = step(state, to_device(batch, torch.device("cuda")))
+        state, loss, _ = step(state, to_device(batch, torch.device("cuda")), var_ids)
         losses.append(loss.item())
         if i == 0:
             # (an adaptive model's position table has no gradient where its MLP replaces it)
@@ -1692,7 +1748,7 @@ def _expected_counts(shapes: list, steps: int, dropout: bool, bf16: bool = False
     return counts
 
 
-def _window(state, step, batches) -> float:
+def _window(state, step, batches, var_ids=None) -> float:
     """Wall seconds of one train step per batch, with the host->device copy of
     each batch and the trainer's one-step-lagged loss read inside."""
     import torch
@@ -1704,7 +1760,7 @@ def _window(state, step, batches) -> float:
     t0 = time.perf_counter()
     pending = None
     for b in batches:
-        state, loss, _ = step(state, to_device(b, dev))
+        state, loss, _ = step(state, to_device(b, dev), var_ids)
         if pending is not None:
             pending.item()  # the trainer's one-step-lagged loss read
         pending = loss
@@ -1713,15 +1769,16 @@ def _window(state, step, batches) -> float:
     return time.perf_counter() - t0
 
 
-def _measure_steps(tag, label, state, step, warmup, timed, traced=None, top=12) -> dict:
+def _measure_steps(tag, label, state, step, warmup, timed, traced=None, top=12,
+                   var_ids=None) -> dict:
     """A warm-up, an untraced window (ms/step, images/s, peak memory) and, with
     `traced`, a window traced on the card (device activity only): the busy
     share and the device time by kernel. Each argument is a list of batches."""
     import torch
 
-    _window(state, step, warmup)
+    _window(state, step, warmup, var_ids)
     torch.cuda.reset_peak_memory_stats()
-    wall = _window(state, step, timed)
+    wall = _window(state, step, timed, var_ids)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n, batch = len(timed), len(timed[0]["x"])
     out = {"ms_step": 1e3 * wall / n, "images_s": batch * n / wall, "peak_gb": peak_gb}
@@ -1731,7 +1788,7 @@ def _measure_steps(tag, label, state, step, warmup, timed, traced=None, top=12) 
         return out
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     prof.start()
-    traced_s = _window(state, step, traced)
+    traced_s = _window(state, step, traced, var_ids)
     prof.stop()
     kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                       if e.self_device_time_total > 0), reverse=True)
@@ -2770,14 +2827,17 @@ def _seeded_load(cfg, bodies) -> float:
 # ---------------------------------------------------------------- diffusion
 
 
-def _f32_attention_case(tag: str, label: str, shape: tuple, gen, iters: int = 50) -> dict:
-    """The f32 forward and both backward routes at `shape` (b, h, n, n, dh,
-    packed) against their plain versions: o and lse to FLASH_TOL and LSE_TOL,
-    dq, dk, dv of each route to BWD_TOL; both backward routes timed in turns
-    (`_route_ms`, 20 calls a window: which one `bwd_route` should take here);
-    then the forward and the fused kernel timed (`iters` calls) beside their
-    plain versions, their bound and scaled_dot_product_attention (forward;
-    backward alone). Returns {"fwd": numbers, "bwd": numbers}."""
+def _attention_case(tag: str, label: str, shape: tuple, gen, iters: int = 50,
+                    dtype_name: str = "float32") -> dict:
+    """The forward and both backward routes of `dtype_name` (f32 by the tf32
+    sources, bf16 by the sm90 ones) at `shape` (b, h, n, n, dh, packed) against
+    their plain versions on the same inputs in f32: o and lse to FLASH_TOL and
+    LSE_TOL, dq, dk, dv of each route to BWD_TOL; both backward routes timed in
+    turns (`_route_ms`, 20 calls a window: which one `bwd_route` should take
+    here); then the forward and the fused kernel timed (`iters` calls) beside
+    their plain versions on the same inputs, their bound and
+    scaled_dot_product_attention (forward; backward alone). Returns {"fwd":
+    numbers, "bwd": numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -2792,47 +2852,50 @@ def _f32_attention_case(tag: str, label: str, shape: tuple, gen, iters: int = 50
     )
 
     b, h, n, _, dh, packed = shape
-    shape_s = f"[{b},{h},{n}x{n},{dh}] float32{' qkv-views' if packed else ''} ({label})"
-    q, k, v = _flash_inputs(b, h, n, n, dh, torch.float32, packed, gen)
+    dtype = getattr(torch, dtype_name)
+    src = "tf32" if dtype_name == "float32" else "sm90"
+    shape_s = f"[{b},{h},{n}x{n},{dh}] {dtype_name}{' qkv-views' if packed else ''} ({label})"
+    q, k, v = _flash_inputs(b, h, n, n, dh, dtype, packed, gen)
     sm = dh**-0.5
     o, lse, do, _, rel, ref_max, abs_err = _bwd_case(q, k, v, dh, 0.0, 0, 0, 0, gen)
-    ref, ref_lse = flash_attention_plain(q, k, v, sm)
-    err = (o - ref).abs().max().item()
+    ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), sm)
+    err = (o.float() - ref).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    instances = (kernel_instance("flash_fwd_tf32", dh), kernel_instance("flash_bwd_tf32", dh))
+    instances = (kernel_instance(f"flash_fwd_{src}", dh), kernel_instance(f"flash_bwd_{src}", dh))
+    fwd_tol, bwd_tol = _fwd_tol(dtype_name, n), BWD_TOL[dtype_name]
     log(f"[{tag}] flash_fwd {shape_s} ({instances[0]}): max|o-plain| {err:.3e} (tol "
-        f"{FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
-    if not (err <= FLASH_TOL["float32"] and lse_err <= LSE_TOL):
+        f"{fwd_tol:g}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL:g})")
+    if not (err <= fwd_tol and lse_err <= LSE_TOL):
         fail(f"flash_fwd disagrees with its plain version at {shape_s}")
     for r in rel:
         log(f"[{tag}] flash_bwd {r:5s} {shape_s} ({instances[1]}): max|d-plain|/max|plain| "
-            f"dq {rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} (tol "
-            f"{BWD_TOL['float32']:g})")
-        if max(rel[r]) > BWD_TOL["float32"] or not all(m > 0 for m in ref_max):
+            f"dq {rel[r][0]:.3e} dk {rel[r][1]:.3e} dv {rel[r][2]:.3e} (tol {bwd_tol:g})")
+        if max(rel[r]) > bwd_tol or not all(m > 0 for m in ref_max):
             fail(f"flash_bwd route {r} disagrees with its plain version at {shape_s}")
     del ref, ref_lse
-    _route_ms(shape_s, torch.float32, q, k, v, o, lse, do, iters=20)
+    _route_ms(shape_s, dtype, q, k, v, o, lse, do, iters=20)
     # the forward: kernel, plain version, SDPA
-    ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm), FWD_KERNEL["float32"],
+    ms, host = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm), FWD_KERNEL[dtype_name],
                          iters=iters)
     plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, sm), iters=iters)
     library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm),
                               iters=iters)
     flops = 4.0 * b * h * n * n * dh
-    nbytes = 4 * b * h * dh * 4 * n + 4 * b * h * n
-    bound_ms, bound_by = _bound(flops, nbytes, "float32")
+    nbytes = q.element_size() * b * h * dh * 4 * n + 4 * b * h * n
+    bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
     out = {"fwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}}
     log(f"[{tag}] flash_fwd {shape_s} ({instances[0]}), device ms per call (host ms): "
         f"kernel {ms:.4f} ({host:.4f}), plain {plain_ms:.4f}, scaled_dot_product_attention "
         f"{library_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP)")
     # the fused backward alone, from buffers made beforehand
-    di = (o * do).sum(-1).reshape(b * h, n)
+    di = (o.float() * do.float()).sum(-1).reshape(b * h, n)
     ws = _dq_workspace(b, n, h, dh, q.device)
-    dk, dv = (torch.empty(b, n, h, dh, device="cuda").transpose(1, 2) for _ in "kv")
+    dk, dv = (torch.empty(b, n, h, dh, device="cuda", dtype=dtype).transpose(1, 2)
+              for _ in "kv")
     drop = _dropout_args(0.0, 0, 0, 0)
     ms, host = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk, dv, sm,
-                                             drop), _bwd_kernel("float32", "fused"), iters=iters)
+                                             drop), _bwd_kernel(dtype_name, "fused"), iters=iters)
     plain_ms, _ = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
                             iters=iters)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -2840,8 +2903,8 @@ def _f32_attention_case(tag: str, label: str, shape: tuple, gen, iters: int = 50
     library_ms, _ = device_ms(
         lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do, retain_graph=True), iters=iters)
     del sdpa, qg, kg, vg
-    flops, nbytes = _bwd_work("fused", b, h, n, n, dh, 4)
-    bound_ms, bound_by = _bound(flops, nbytes, "float32")
+    flops, nbytes = _bwd_work("fused", b, h, n, n, dh, q.element_size())
+    bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
     out["bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "max_abs_err": max(abs_err["fused"])}
@@ -2864,7 +2927,7 @@ def phase_diffusion_kernels():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    return {name: _f32_attention_case("diffusion", f"{name} diffusion decoder", shape, gen)
+    return {name: _attention_case("diffusion", f"{name} diffusion decoder", shape, gen)
             for name, shape in DIFF_SHAPES.items()}
 
 
@@ -3972,7 +4035,7 @@ def phase_adaptive() -> dict:
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(11)
-    kernels = {name: _f32_attention_case("adaptive", name, shape, gen,
+    kernels = {name: _attention_case("adaptive", name, shape, gen,
                                          iters=ADAPTIVE_KERNEL_ITERS)
                for name, shape in ADAPTIVE_SHAPES.items()}
     torch.cuda.empty_cache()
@@ -4254,17 +4317,9 @@ def _unetr_warm_start(path: str, mae_ckpt: str | None) -> None:
     from ucf_vit_tpu_torch.checkpoint import restore_checkpoint
     from ucf_vit_tpu_torch.config import load_config
     from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
-    from ucf_vit_tpu_torch.tasks import build_task
     from ucf_vit_tpu_torch.train import init_train, transfer_pretrained_mae
 
-    if mae_ckpt is None:
-        mcfg = load_config(MAE_CONFIG)
-        mae = build_task(mcfg).init_weights(torch.Generator().manual_seed(3))
-        mae_ckpt = os.path.join(WORK, "mae_long_seeded.ckpt")
-        torch.save({"epoch": 0, "model_state_dict": mae.state_dict(), "loss_list": [],
-                    "head_meta": [int(mcfg.init_args["num_heads"]),
-                                  int(mcfg.init_args["decoder_num_heads"])]}, mae_ckpt)
-        del mae
+    mae_ckpt = _mae_checkpoint(mae_ckpt)
     mae_sd = restore_checkpoint(mae_ckpt, "")["model_state_dict"]
     cfg = load_config(path)
     state, _ = init_train(cfg, "cuda")
@@ -4515,7 +4570,7 @@ def phase_unetr(mae_ckpt: str | None = None) -> dict:
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(13)
-    kernels = _f32_attention_case("unetr", "basic_ct/unetr", UNETR_SHAPE, gen,
+    kernels = _attention_case("unetr", "basic_ct/unetr", UNETR_SHAPE, gen,
                                   iters=ADAPTIVE_KERNEL_ITERS)
     torch.cuda.empty_cache()
 
@@ -4588,6 +4643,655 @@ def phase_unetr(mae_ckpt: str | None = None) -> dict:
         f"{100 * served['busy']:.2f}%; launches {launches}")
     log(f"[unetr] phase_unetr took {time.perf_counter() - t0:.1f} s")
     return {"kernels": kernels, "launches": launches}
+
+
+# ---------------------------------------------------------------- SAP and varemb
+
+
+def _sap_groups(kernels, busy_ms: float, steps: int) -> str:
+    """Device ms a step of a traced SAP window by kind of kernel, from their names,
+    and each kind's share of the window:
+    the convolutions (cuDNN's: the patch embed, the neck's ConvTranspose3d and
+    the 1x1 head, forward, data and weight gradients), GEMMs, the flash
+    kernels, AdamW and the element-wise rest."""
+    groups = {"convolutions (cuDNN: patch embed, neck, head)": 0.0,
+              "GEMMs (cuBLAS/CUTLASS)": 0.0, "flash forward": 0.0, "flash backward": 0.0,
+              "AdamW (multi-tensor)": 0.0,
+              "element-wise and other (GELU, LayerNorm, sigmoid, losses, copies)": 0.0}
+    for t_us, _, key in kernels:
+        name = key.lower()
+        if "flash_fwd" in name:
+            group = "flash forward"
+        elif "flash_bwd" in name:
+            group = "flash backward"
+        elif any(w in name for w in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                                     "winograd", "cudnn", "fft")):
+            group = "convolutions (cuDNN: patch embed, neck, head)"
+        elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")):
+            group = "GEMMs (cuBLAS/CUTLASS)"
+        elif "multi_tensor" in name or "adam" in name:
+            group = "AdamW (multi-tensor)"
+        else:
+            group = "element-wise and other (GELU, LayerNorm, sigmoid, losses, copies)"
+        groups[group] += t_us / 1e3
+    return "; ".join(f"{g} {ms / steps:.3f} ms = {100 * ms / busy_ms:.2f}%"
+                     for g, ms in groups.items())
+
+
+def _sap_conv_parts(model, batch: int) -> dict:
+    """Device ms of each convolution of SAP's neck and head at a step's shapes,
+    one at a time: the neck's ConvTranspose3d (768 -> 256, kernel = stride =
+    4) forward, data gradient and weight gradient, and the same three of the
+    1x1 head, in f32 as the path runs them; with the weight gradient's
+    operations (one [B*512, 768] x [B*512, 256*64] product)."""
+    import torch
+    import torch.nn.functional as F
+
+    neck, head = model.neck[0], model.mask_header[0]
+    g = torch.Generator(device="cuda").manual_seed(19)
+    grid = model.token_grid
+    x = torch.randn(batch, model.embed_dim, *grid, device="cuda", generator=g)
+    y = neck(x).detach()
+    gy = torch.randn(y.shape, device="cuda", generator=g)
+    gz = torch.randn((batch, head.out_channels) + tuple(y.shape[2:]), device="cuda",
+                     generator=g)
+    p, nd = neck.stride, len(grid)
+    bwd = torch.ops.aten.convolution_backward
+    zeros, ones = [0] * nd, [1] * nd
+    parts = {
+        "neck forward": lambda: F.conv_transpose3d(x, neck.weight, None, stride=p),
+        "neck data gradient": lambda: bwd(gy, x, neck.weight, None, list(p), zeros, ones, True,
+                                          zeros, 1, [True, False, False]),
+        "neck weight gradient": lambda: bwd(gy, x, neck.weight, None, list(p), zeros, ones,
+                                            True, zeros, 1, [False, True, False]),
+        "head forward": lambda: F.conv3d(y, head.weight, head.bias),
+        "head data gradient": lambda: bwd(gz, y, head.weight, None, ones, zeros, ones, False,
+                                          zeros, 1, [True, False, False]),
+        "head weight gradient": lambda: bwd(gz, y, head.weight, [head.out_channels], ones, zeros,
+                                            ones, False, zeros, 1, [False, True, True]),
+    }
+    out = {name: device_ms(fn, iters=10, warmup=2)[0] for name, fn in parts.items()}
+    flops = 2.0 * batch * math.prod(grid) * model.embed_dim * neck.out_channels * math.prod(p)
+    log(f"[sap] batch {batch}: the neck and head one at a time, device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+        + f"; together {sum(out.values()):.3f} ms; the neck's weight gradient "
+        f"{flops / 1e9:.1f} GFLOP = {flops / out['neck weight gradient'] / 1e9:.1f} TFLOP/s "
+        "(f32, TF32 off)")
+    return out
+
+
+def _check_sap(model, bf16: bool) -> None:
+    import torch
+
+    from ucf_vit_tpu_torch.models import SAP
+
+    if not (isinstance(model, SAP) and model.adaptive_patching and model.num_patches == 512
+            and model.token_grid == (8, 8, 8) and model.embed_dim == 768
+            and len(model.blocks) == 12 and model.blocks[0].attn.num_heads == 12
+            and not model.remat and model.dtype == (torch.bfloat16 if bf16 else None)
+            and model.neck[0].out_channels == 256 and model.neck[0].stride == (4, 4, 4)
+            and model.mask_header[0].out_channels == 4
+            and model.adaptive_pos_dep_emb is not None):
+        fail(f"the run was not the shipped basic_ct/{'sap_bf16' if bf16 else 'sap'}")
+
+
+def _sap_instances(steps: int, bf16: bool, backward: bool = True) -> dict:
+    """The launches by instance of `steps` SAP train steps (or forwards): each of
+    the 12 blocks runs the `<64>` forward and the fused backward of its dtype's
+    source once a step (bwd_route's route at 512 queries)."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import bwd_route
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if bwd_route(dtype, 512, 512, 64) != "fused":
+        fail(f"bwd_route no longer takes the fused route at SAP's 512 {dtype} queries")
+    src = "sm90" if bf16 else "tf32"
+    want = {k: 0 for k in _instance_counts()}
+    want[f"fwd:flash_fwd_{src}<64>"] = 12 * steps
+    if backward:
+        want[f"bwd:flash_bwd_{src}<64>"] = 12 * steps
+    return want
+
+
+def _sap_cli(tag: str, argv: list, steps: int, bf16: bool) -> dict:
+    """The trainer's CLI entry with the launch counts set to 0 before it; the
+    model must be the shipped SAP and every launch the `<64>` instances of its
+    dtype's source (12 forwards and 12 fused backwards a step, every bf16
+    forward on the TMA route). Returns the launch counts by instance."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_main(argv)
+    counts, instances = _launch_counts(), _instance_counts()
+    _check_sap(out["state"].model, bf16)
+    want = _sap_instances(steps, bf16)
+    log(f"[sap] {tag}: python -m ucf_vit_tpu_torch.train {' '.join(argv[1:])}: "
+        f"{time.perf_counter() - t0:.2f} s (init and save included); epoch losses "
+        f"{out['loss_list']}; launches by instance a step "
+        f"{ {k: n // steps for k, n in instances.items() if n} }")
+    if (instances != want or counts["flash_bwd_dkv"] or counts["flash_bwd_dq"]
+            or counts["route:padded"] or counts["route:tma"] != (12 * steps if bf16 else 0)
+            or not all(np.isfinite(out["loss_list"]))):
+        fail(f"{tag} through the CLI launched {instances} (expected {want}), {counts}; "
+             f"losses {out['loss_list']}")
+    del out
+    return instances
+
+
+def _sap_flash_against_einsum(name: str, cfg, batches, bf16: bool) -> tuple:
+    """`_run_steps` under FLASH and under EINSUM from one init on `batches`: the
+    per-step losses within TRAIN_LOSS_TOL (f32; bf16: SAP_BF16_LOSS_TOL), in f32
+    the first step's gradients within TRAIN_GRAD_TOL of the largest entry;
+    FLASH's launches as `_sap_instances` gives them, none under EINSUM. Returns
+    FLASH's (state, step)."""
+    import numpy as np
+
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        st, sp, losses, grads, counts = _run_steps(_train_cfg(cfg, impl), batches)
+        runs[impl] = (st, sp, losses, grads, counts, _instance_counts())
+        if impl == "EINSUM":
+            del st, sp
+    (st, sp, lf, gf, _, inf), (_, _, le, ge, ce, _) = runs["FLASH"], runs["EINSUM"]
+    del runs
+    tol = SAP_BF16_LOSS_TOL if bf16 else TRAIN_LOSS_TOL
+    diff = max(abs(a - b) for a, b in zip(lf, le))
+    gmax = max(g.abs().max().item() for g in ge.values())
+    gdiff = max((gf[n] - ge[n]).abs().max().item() for n in ge)
+    log(f"[sap] {name} FLASH vs EINSUM, {len(batches)} steps: losses FLASH "
+        f"{' '.join(f'{x:.6f}' for x in lf)}, EINSUM {' '.join(f'{x:.6f}' for x in le)}; max "
+        f"|diff| {diff:.3e} (tol {tol:g}); first-step gradients max |diff| {gdiff / gmax:.3e} "
+        f"of the largest entry" + ("" if bf16 else f" (tol {TRAIN_GRAD_TOL:g})"))
+    if not all(np.isfinite(lf)) or diff > tol or (not bf16 and gdiff > TRAIN_GRAD_TOL * gmax):
+        fail(f"{name}: FLASH training disagrees with EINSUM's")
+    if inf != _sap_instances(len(batches), bf16) or any(ce.values()):
+        fail(f"{name}: launches {inf} under FLASH, {ce} under EINSUM")
+    del gf, ge
+    return st, sp
+
+
+def _sap_synthetic(name: str, bf16: bool) -> dict:
+    """(b), (c): the CLI entry, a timed and a traced window (device time by kind,
+    the neck's and head's convolutions one at a time), FLASH against EINSUM."""
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.train import synthetic_batches
+
+    path = _adaptive_config(SAP_CONFIGS[name], name)
+    cfg = load_config(path)
+    inst = _sap_cli(f"basic_ct/{name} synthetic", [path, "--synthetic", "--single-device",
+                                                   "--max-steps", str(SAP_MAIN_STEPS)],
+                    SAP_MAIN_STEPS, bf16)
+    stream = synthetic_batches(cfg, cfg.batch_size, seed=0)
+    w, t, tr = SAP_WARMUP, SAP_TIMED, SAP_TRACED
+    batches = [next(stream) for _ in range(w + t + tr)]
+    state, step = _sap_flash_against_einsum(name, cfg, batches[:SAP_CHECK_STEPS], bf16)
+    res = _measure_steps("sap", f"basic_ct/{name} batch {cfg.batch_size}, FLASH", state, step,
+                         batches[:w], batches[w:w + t], batches[w + t:], top=10)
+    res["device_step_ms"] = res["busy_ms"] / res["traced_steps"]
+    log(f"[sap] {name}: device time a step {res['device_step_ms']:.3f} ms; by kind: "
+        f"{_sap_groups(res['kernels'], res['busy_ms'], res['traced_steps'])}; flash a step: "
+        f"{_flash_per_step(res['kernels'], res['traced_steps'])}")
+    parts = _sap_conv_parts(state.model, cfg.batch_size)
+    res["neck_head_ms"] = sum(parts.values())
+    res["neck_head_share"] = res["neck_head_ms"] / res["device_step_ms"]
+    log(f"[sap] {name}: the f32 neck and head take {res['neck_head_ms']:.3f} ms a step, "
+        f"{100 * res['neck_head_share']:.2f}% of the device time a step")
+    res.update(instances=inst, parts=parts)
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mae_checkpoint(mae_ckpt: str | None) -> str:
+    """`mae_ckpt` (phase_train_disk's mae_long checkpoint), or where no earlier
+    phase wrote one, a seeded mae_long init saved under WORK."""
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.tasks import build_task
+
+    if mae_ckpt is not None:
+        return mae_ckpt
+    path = os.path.join(WORK, "mae_long_seeded.ckpt")
+    if not os.path.isfile(path):
+        mcfg = load_config(MAE_CONFIG)
+        mae = build_task(mcfg).init_weights(torch.Generator().manual_seed(3))
+        torch.save({"epoch": 0, "model_state_dict": mae.state_dict(), "loss_list": [],
+                    "head_meta": [int(mcfg.init_args["num_heads"]),
+                                  int(mcfg.init_args["decoder_num_heads"])]}, path)
+        del mae
+    return path
+
+
+def _sap_from_files(root: str, mae_ckpt: str) -> dict:
+    """(d) basic_ct/sap from labelled NIfTI volumes: the MAE-encoder transfer
+    held tensor for tensor, the CLI entry warm-started from `mae_ckpt` (its
+    checkpoint serves (e) and (f)), then windows on the live loader in line (as
+    shipped) and with a spawn pool of 4."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.checkpoint import restore_checkpoint
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
+    from ucf_vit_tpu_torch.train import build_dataloader, init_train, transfer_pretrained_mae
+
+    path = _adaptive_config(SAP_CONFIGS["sap"], "sap_files", dict_root_dirs={"ct1": root})
+    cfg = load_config(path)
+    # the transfer itself, held before the CLI runs it
+    mae_sd = restore_checkpoint(mae_ckpt, "")["model_state_dict"]
+    state, _ = init_train(cfg, "cuda")
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    transfer_pretrained_mae(cfg, state.model, mae_ckpt)
+    got = state.model.state_dict()
+    from_mae = [k for k in got if k.startswith(("blocks.", "token_embeds.", "norm."))]
+    own = [k for k in got if k.startswith(("neck.", "mask_header.", "adaptive_pos"))]
+    same = all(torch.equal(got[k].cpu(), mae_sd[k]) for k in from_mae)
+    kept = all(torch.equal(got[k], before[k]) for k in own)
+    pos_ok = np.array_equal(got["pos_embed"].cpu().numpy(),
+                            interpolate_pos_embed_1d(mae_sd["pos_embed"].numpy(), 512))
+    log(f"[sap] warm start from {os.path.basename(mae_ckpt)}: {len(from_mae)} encoder tensors "
+        f"equal the MAE's: {same}; pos_embed the MAE's {tuple(mae_sd['pos_embed'].shape)} "
+        f"resampled to 512 rows: {pos_ok}; {len(own)} tensors of SAP's own (the position "
+        f"MLP, the neck and the head) kept their init: {kept}")
+    if not (same and kept and pos_ok and len(from_mae) == 12 * 12 + 4):
+        fail("the MAE-encoder transfer did not give SAP the MAE's encoder")
+    del state, before, got, mae_sd
+    # the CLI entry from the files, warm-started
+    import yaml
+
+    raw = yaml.safe_load(open(path))
+    raw["trainer"]["pretrained_mae_checkpoint"] = mae_ckpt
+    with open(path, "w") as fh:
+        yaml.safe_dump(raw, fh)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        inst = _sap_cli("basic_ct/sap from NIfTI files, warm-started",
+                        [path, "--single-device", "--max-steps", str(SAP_MAIN_STEPS)],
+                        SAP_MAIN_STEPS, False)
+    if "initialized encoder from MAE checkpoint" not in buf.getvalue():
+        fail("the trainer's CLI did not warm-start SAP from pretrained_mae_checkpoint")
+    log("\n".join(line for line in buf.getvalue().splitlines() if line.startswith("[sap]")))
+    ckpt = os.path.join(cfg.trainer["checkpoint_path"], "multi_last_even.ckpt")
+    if not os.path.isfile(ckpt):
+        fail(f"the SAP run from files saved no {ckpt}")
+    # windows on the live loader
+    batch = cfg.batch_size
+    state, step = init_train(cfg, "cuda")
+    res = {"instances": inst, "ckpt": ckpt, "path": path}
+    for workers in (1, SAP_POOL):
+        wcfg = load_config(_adaptive_config(path, f"sap_w{workers}", num_workers=workers))
+        dm, _, bpre = build_dataloader(wcfg, batch, False)
+        it = dm.train_dataloader(loop=True)
+        try:
+            b0, loader_ms = _loader_alone(it, 1 if workers > 1 else 4)
+            b0 = b0[0]
+            if workers > 1:  # the pool's start-up left out
+                _, loader_ms = _loader_alone(it, 4)
+            if (b0["seq"].shape != (batch, 1, 512, 64) or b0["seq_label"].shape
+                    != (batch, 512, 4, 4, 4) or bpre != {"ct1": UNETR_VOLUMES * 8 // batch}
+                    or not set(np.unique(b0["seq_label"])) <= {0, 1, 2, 3}):
+                fail(f"the SAP loader gave seq {b0['seq'].shape}, seq_label "
+                     f"{b0['seq_label'].shape} {np.unique(b0['seq_label'])}; {bpre} batches "
+                     "an epoch")
+            _disk_window(state, step, it, 2)
+            wall, waited = _disk_window(state, step, it, SAP_FILE_STEPS)
+        finally:
+            it.close()
+        key = "inline" if workers == 1 else "pool"
+        res[key] = {"ms_step": 1e3 * wall / SAP_FILE_STEPS,
+                    "volumes_s": batch * SAP_FILE_STEPS / wall,
+                    "wait_ms": 1e3 * waited / SAP_FILE_STEPS, "loader_ms": loader_ms}
+        log(f"[sap] from files, num_workers {workers}"
+            f"{' (a spawn pool of ' + str(workers - 1) + ')' if workers > 1 else ' (in line)'}:"
+            f" the loader alone {loader_ms:.1f} ms a batch of {batch}; {SAP_FILE_STEPS} steps "
+            f"= {res[key]['ms_step']:.3f} ms/step, {res[key]['volumes_s']:.2f} volumes/s, "
+            f"waiting for batches {res[key]['wait_ms']:.2f} ms a step")
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sap_evaluate(path: str, ckpt: str, vol_path: str) -> dict:
+    """(e) the inference CLI's Dice under FLASH and EINSUM from the files, the
+    PNG path's deserialized class maps, and `--volume` refused."""
+    import numpy as np
+    import yaml
+
+    from ucf_vit_tpu_torch import inference
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+
+    paths, dice = {}, {}
+    for impl in ("FLASH", "EINSUM"):
+        raw = yaml.safe_load(open(path))
+        raw["trainer"]["attn_impl"] = impl
+        paths[impl] = os.path.join(WORK, f"sap_{impl}.yaml")
+        with open(paths[impl], "w") as fh:
+            yaml.safe_dump(raw, fh)
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mean = inference.main([paths[impl], "--checkpoint", ckpt, "--num-samples",
+                                   str(SAP_EVAL_SAMPLES), "--device", "cuda"])
+        per = [float(d) for d in re.findall(r"sample \d+: dice ([0-9.]+)", buf.getvalue())]
+        dice[impl] = (mean, per, _instance_counts(), time.perf_counter() - t0)
+    (fm, fp, finst, fs), (em, ep, einst, _) = dice["FLASH"], dice["EINSUM"]
+    log(f"[sap] python -m ucf_vit_tpu_torch.inference --checkpoint (from files, "
+        f"{SAP_EVAL_SAMPLES} samples) in {fs:.2f} s: Dice FLASH {fp} mean {fm:.6f}; EINSUM "
+        f"{ep} mean {em:.6f}")
+    if (len(fp) != SAP_EVAL_SAMPLES or abs(fm - em) > UNETR_DICE_TOL
+            or finst != _sap_instances(SAP_EVAL_SAMPLES, False, backward=False)
+            or any(einst.values())):
+        fail(f"the inference CLI's SAP Dice differs under FLASH and EINSUM, or launched {finst} "
+             f"/ {einst}")
+    # --png-dir: matplotlib may not import here, so the arrays the PNGs would draw are
+    # taken where the writer is called: the prediction deserialized to image space
+    drawn, real = [], (inference._pyplot, inference._dump_png)
+    inference._pyplot = lambda: None
+    inference._dump_png = lambda d, i, pred, label: drawn.append((pred, label))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            inference.evaluate(load_config(paths["FLASH"]), ckpt, None, False, 2,
+                               png_dir=os.path.join(WORK, "sap_png"), device="cuda")
+    finally:
+        inference._pyplot, inference._dump_png = real
+    shapes = [(p.shape, p.dtype.name, lab.shape) for p, lab in drawn]
+    log(f"[sap] --png-dir: {len(drawn)} panels drawn from the deserialized predictions "
+        f"(prediction, label): {shapes}; classes {np.unique(drawn[0][0]).tolist()}")
+    if len(drawn) != 2 or any(s != ((64, 64, 64), "int64", (64, 64, 64)) for s in shapes):
+        fail(f"SAP's PNG panels are not image-space class maps: {shapes}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            inference.main([paths["FLASH"], "--volume", vol_path, "--device", "cuda"])
+    except AssertionError as e:
+        log(f"[sap] --volume on basic_ct/sap: AssertionError: {e}")
+        if "SAP predicts in the sqrt-len pseudo-image space" not in str(e):
+            fail(f"--volume on SAP raised another message: {e}")
+    else:
+        fail("--volume on a SAP config did not raise")
+    return {"dice": fm, "dice_per": fp, "eval_fwd": finst["fwd:flash_fwd_tf32<64>"]}
+
+
+def _sap_serve(path: str, ckpt: str, tiles) -> dict:
+    """(f) serving class maps with a preprocessing pool of 4 under load, at the
+    config's batch."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
+    from ucf_vit_tpu_torch.serve import make_preprocessor, make_server
+    from ucf_vit_tpu_torch.tasks import sap_inputs
+
+    cfg = load_config(path)
+    bodies = []
+    for x in tiles:
+        buf = io.BytesIO()
+        np.save(buf, x)
+        bodies.append(buf.getvalue())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = make_server(cfg, ckpt, host="127.0.0.1", port=0, device="cuda",
+                         preprocess_workers=SAP_SERVE_WORKERS)
+    startup_s = time.perf_counter() - t0
+    mb = server.RequestHandlerClass.batcher.max_batch
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_pipe = ctx.Pipe()
+    client = ctx.Process(target=_load_client, args=(port, bodies[:SAP_CLIENTS], child_pipe),
+                         daemon=True)
+    client.start()
+    windows, answers = {}, []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    pre = make_preprocessor(cfg)
+    try:
+        seq_lat = []
+        for i in range(SAP_CLIENTS, len(bodies)):
+            t1 = time.perf_counter()
+            answers.append((i, np.load(io.BytesIO(_request(port, "POST", "/v1/predict",
+                                                           bodies[i])))))
+            seq_lat.append(time.perf_counter() - t1)
+        for wname, seconds in SAP_SERVE_WINDOWS_S.items():
+            before = _get_json(port, "/v1/stats")
+            if wname == "traced":
+                prof.start()
+            pipe.send(seconds)
+            if not pipe.poll(seconds + 300):
+                fail(f"the load client gave no result for the SAP {wname} window")
+            res = pipe.recv()
+            if wname == "traced":
+                prof.stop()
+            if res["errors"] or not res["requests"]:
+                fail(f"SAP load client, {wname} window: {len(res['requests'])} answers, "
+                     f"errors {res['errors'][:3]}")
+            windows[wname] = (res, before, _get_json(port, "/v1/stats"))
+            answers += [(i, a) for i, _, a in res["requests"]]
+        pipe.send(None)
+        client.join(timeout=30)
+        stats = _get_json(port, "/v1/stats")
+        launches = dict(flash_attention.by_instance)
+    finally:
+        if client.is_alive():
+            client.terminate()
+            client.join()
+        server.shutdown()
+        server.server_close()
+        server.RequestHandlerClass.batcher.close()
+        thread.join(timeout=30)
+    for wname, (res, before, after) in windows.items():
+        log(_window_line(wname, res, before, after).replace("[serve]", "[sap serve]")
+            .replace(f"from {LOAD_CLIENTS} closed-loop", f"from {SAP_CLIENTS} closed-loop"))
+    traced_s = windows["traced"][0]["wall_s"]
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / (1e3 * traced_s)
+    load_res = windows["load"][0]
+    rps = len(load_res["requests"]) / load_res["wall_s"]
+    lat = np.array([r[1] for r in load_res["requests"]]) * 1e3
+    if stats["errors"] or stats["requests"] != len(answers) + 1 or mb != cfg.batch_size:
+        fail(f"SAP server stats {stats} for {len(answers) + 1} requests, max_batch {mb}")
+    if launches["flash_fwd_tf32<64>"] != 12 * stats["batches"] or \
+            sum(launches.values()) != launches["flash_fwd_tf32<64>"]:
+        fail(f"the SAP server launched {launches} over {stats['batches']} batches")
+    # every answer against the in-process forward of its preprocessed sample
+    model = server.RequestHandlerClass.weights_holder["model"]
+    want, masks = {}, {}
+    for i0 in range(0, len(tiles), mb):
+        b = [pre(x) for x in tiles[i0:i0 + mb]]
+        b = {k: torch.from_numpy(np.stack([s[k] for s in b])).cuda() for k in b[0]}
+        with torch.inference_mode():
+            logits = model(*sap_inputs(cfg, b)).float().cpu().numpy()
+        for j in range(len(logits)):
+            want[i0 + j], masks[i0 + j] = logits[j].argmax(0), _margin_mask(logits[j:j + 1])[0]
+    differ = sum(int(((a != want[i]) & masks[i]).sum()) for i, a in answers)
+    left_out = sum(int((~masks[i]).sum()) for i, _ in answers)
+    log(f"[sap serve] max_batch {mb} (the config's), --preprocess-workers {SAP_SERVE_WORKERS}: "
+        f"startup {startup_s:.2f} s; a lone request {1e3 * min(seq_lat):.1f}-"
+        f"{1e3 * max(seq_lat):.1f} ms; {rps:.2f} requests/s, p50 {np.percentile(lat, 50):.1f} "
+        f"p90 {np.percentile(lat, 90):.1f} p99 {np.percentile(lat, 99):.1f} ms; device busy "
+        f"{100 * busy:.2f}% of the traced window; {len(answers)} class maps against the "
+        f"in-process forward: {differ} voxels differ where its top-two margin passes "
+        f"{UNETR_MARGIN:g} ({left_out} voxels under it left out, of {len(answers) * 32 ** 3})")
+    if differ or any(a.shape != (32, 32, 32) or a.dtype != np.int32 for _, a in answers):
+        fail("served SAP class maps disagree with the in-process forward")
+    return {"rps": rps, "p50": float(np.percentile(lat, 50)),
+            "p90": float(np.percentile(lat, 90)), "p99": float(np.percentile(lat, 99)),
+            "lone_ms": 1e3 * min(seq_lat), "busy": busy, "left_out": left_out,
+            "fwd64": launches["flash_fwd_tf32<64>"]}
+
+
+def _varemb_phase() -> dict:
+    """(g) imagenet/classification with `use_varemb: True` (three variables, red,
+    green and blue, each by its own LinearTokenEmbed, merged token by token by
+    the variable attention), synthetic: the CLI entry (12 forwards and 12 fused
+    backwards a step, the merge none), FLASH against EINSUM, ms a step beside the
+    same config without varemb, and the merge's share of the device time."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import init_train, synthetic_batches
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    paths = {}
+    for name, on in (("varemb", True), ("plain", False)):
+        path = _adaptive_config(VAREMB_CONFIG, f"imagenet_{name}")
+        raw = yaml.safe_load(open(path))
+        raw["model"]["net"]["init_args"]["use_varemb"] = on
+        with open(path, "w") as fh:
+            yaml.safe_dump(raw, fh)
+        paths[name] = path
+    cfg = load_config(paths["varemb"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_main([paths["varemb"], "--synthetic", "--single-device", "--max-steps",
+                      str(VAREMB_MAIN_STEPS)])
+    instances, model = _instance_counts(), out["state"].model
+    want = _expected_instances([(197, 197, 64)] * 12, VAREMB_MAIN_STEPS)
+    log(f"[varemb] imagenet/classification use_varemb: python -m ucf_vit_tpu_torch.train "
+        f"{paths['varemb']} --synthetic --single-device --max-steps {VAREMB_MAIN_STEPS}: "
+        f"{time.perf_counter() - t0:.2f} s; epoch losses {out['loss_list']}; launches by "
+        f"instance a step { {k: n // VAREMB_MAIN_STEPS for k, n in instances.items() if n} }")
+    if (instances != want or model.var_agg is None or len(model.token_embeds) != 3
+            or model.embed_dim != 768 or model.num_patches != 196
+            or not all(np.isfinite(out["loss_list"]))):
+        fail(f"imagenet/classification with varemb launched {instances} (expected {want}); "
+             f"losses {out['loss_list']}")
+    del out, model
+    var_ids = (0, 1, 2)
+    stream = synthetic_batches(cfg, cfg.batch_size, seed=0)
+    batches = [next(stream) for _ in range(VAREMB_CHECK_STEPS)]
+    runs = {}
+    for impl in ("FLASH", "EINSUM"):
+        st, _, losses, _, counts = _run_steps(_train_cfg(cfg, impl), batches, var_ids)
+        runs[impl] = (losses, counts)
+        del st
+    (lf, cf), (le, ce) = runs["FLASH"], runs["EINSUM"]
+    diff = max(abs(a - b) for a, b in zip(lf, le))
+    log(f"[varemb] FLASH vs EINSUM, {len(batches)} steps: losses FLASH "
+        f"{' '.join(f'{x:.6f}' for x in lf)}, EINSUM {' '.join(f'{x:.6f}' for x in le)}; max "
+        f"|diff| {diff:.3e} (tol {TRAIN_LOSS_TOL:g})")
+    if not all(np.isfinite(lf)) or diff > TRAIN_LOSS_TOL or cf["flash_fwd"] != 12 * len(batches) \
+            or ce["flash_fwd"]:
+        fail("imagenet/classification with varemb: FLASH training disagrees with EINSUM's")
+    # ms a step with and without varemb, on the same batches; the merge alone
+    res = {}
+    for name in ("varemb", "plain"):
+        state, step = init_train(load_config(paths[name]), "cuda")
+        res[name] = _measure_steps("varemb", f"imagenet/classification f32 batch "
+                                   f"{cfg.batch_size}, {name}", state, step, batches[:2],
+                                   batches[:VAREMB_TIMED], batches[:2], top=4,
+                                   var_ids=var_ids if name == "varemb" else None)
+        res[name]["device_step_ms"] = res[name]["busy_ms"] / res[name]["traced_steps"]
+        if name == "varemb":
+            model = state.model
+            x = torch.randn(cfg.batch_size, 3, model.num_patches, model.embed_dim,
+                            device="cuda", requires_grad=True,
+                            generator=torch.Generator(device="cuda").manual_seed(23))
+
+            def merge():
+                y = model.aggregate_variables(x)
+                y.backward(torch.ones_like(y))
+
+            res["agg_ms"] = device_ms(merge, iters=10, warmup=2)[0]
+        del state, step
+        torch.cuda.empty_cache()
+    share = res["agg_ms"] / res["varemb"]["device_step_ms"]
+    log(f"[varemb] ms a step with varemb {res['varemb']['ms_step']:.3f} "
+        f"({res['varemb']['device_step_ms']:.3f} device), without {res['plain']['ms_step']:.3f} "
+        f"({res['plain']['device_step_ms']:.3f} device); the merge (EINSUM over "
+        f"{cfg.batch_size * 196} rows of 3 keys, forward and backward, its projections "
+        f"included) {res['agg_ms']:.3f} ms = {100 * share:.2f}% of the device time a step")
+    return {"ms_step": res["varemb"]["ms_step"], "plain_ms_step": res["plain"]["ms_step"],
+            "agg_share": share, "fwd": instances["fwd:flash_fwd_tf32<64>"],
+            "bwd": instances["bwd:flash_bwd_tf32<64>"]}
+
+
+def phase_sap(mae_ckpt: str | None = None) -> dict:
+    """configs/basic_ct/sap (f32, batch 2) and sap_bf16 (bf16, batch 16) as shipped,
+    --single-device, and the variable embedding: (a) the f32 kernels at [24, 512,
+    64] and the bf16 ones at [192, 512, 64] against their plain versions, timed
+    beside SDPA and their bound, both backward routes in turns; (b) basic_ct/sap
+    synthetic through the CLI entry, timed and traced windows (device time by
+    kind, the neck's and head's convolutions one at a time), FLASH against EINSUM
+    over 5 steps; (c) sap_bf16 the same; (d) from the labelled NIfTI volumes
+    (phase_unetr's, or written here) in line and with a spawn pool of 4,
+    warm-started from an MAE checkpoint (`mae_ckpt`, or a seeded mae_long); (e)
+    the inference CLI's Dice under FLASH and EINSUM, the PNG path's deserialized
+    maps and `--volume` refused; (f) serving with `--preprocess-workers 4` and 16
+    clients; (g) imagenet/classification with `use_varemb: True`. Returns the
+    kernels' numbers and the launches the record counts."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.data.pipeline import read_nifti_file
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    kernels = {dt: _attention_case("sap", f"basic_ct/{name}", SAP_SHAPES[dt], gen,
+                                   iters=ADAPTIVE_KERNEL_ITERS, dtype_name=dt)
+               for dt, name in (("float32", "sap"), ("bfloat16", "sap_bf16"))}
+    torch.cuda.empty_cache()
+    synth = {name: _sap_synthetic(name, name == "sap_bf16") for name in SAP_CONFIGS}
+
+    root = os.path.join(WORK, "unetr_ct")  # phase_unetr's volumes, where it ran
+    if not os.path.isdir(root):
+        secs = _labelled_volumes(root, UNETR_VOLUMES, UNETR_SIDE, seed=17)
+        log(f"[sap] wrote {UNETR_VOLUMES} int16 volumes of {UNETR_SIDE}^3 and their label "
+            f"volumes in {secs:.2f} s")
+    files = _sap_from_files(root, _mae_checkpoint(mae_ckpt))
+    vol_path = os.path.join(WORK, "sap_volume.npy")
+    np.save(vol_path, read_nifti_file(os.path.join(root, "imagesTr", "image0.nii")))
+    evaluated = _sap_evaluate(files["path"], files["ckpt"], vol_path)
+    torch.cuda.empty_cache()
+    tiles = [np.ascontiguousarray(read_nifti_file(os.path.join(root, "imagesTr",
+                                                               f"image{i}.nii"))
+                                  [:, a:a + 64, b:b + 64, c:c + 64])
+             for i in range(3) for a in (0, 64) for b in (0, 64) for c in (0, 64)]
+    served = _sap_serve(files["path"], files["ckpt"], tiles[:SAP_CLIENTS + SAP_SEQUENTIAL])
+    torch.cuda.empty_cache()
+    varemb = _varemb_phase()
+    f32, bf16 = synth["sap"], synth["sap_bf16"]
+    launches = {
+        "flash_fwd_sap": f32["instances"]["fwd:flash_fwd_tf32<64>"]
+        + files["instances"]["fwd:flash_fwd_tf32<64>"] + evaluated["eval_fwd"] + served["fwd64"],
+        "flash_bwd_fused_sap": f32["instances"]["bwd:flash_bwd_tf32<64>"]
+        + files["instances"]["bwd:flash_bwd_tf32<64>"],
+        "flash_fwd_bf16_sap": bf16["instances"]["fwd:flash_fwd_sm90<64>"],
+        "flash_bwd_fused_bf16_sap": bf16["instances"]["bwd:flash_bwd_sm90<64>"],
+    }
+    log(f"[record] sap: " + "; ".join(
+        f"{n} synthetic {r['ms_step']:.3f} ms/step, {r['images_s']:.2f} volumes/s, busy "
+        f"{100 * r['busy_share']:.2f}%, {r['device_step_ms']:.3f} ms device a step, the f32 "
+        f"neck and head {100 * r['neck_head_share']:.2f}% of it, peak {r['peak_gb']:.2f} GB"
+        for n, r in synth.items())
+        + f"; from files {files['inline']['ms_step']:.3f} ms/step in line (the loader "
+        f"{files['inline']['loader_ms']:.1f} ms a batch, waits {files['inline']['wait_ms']:.2f} "
+        f"ms a step), {files['pool']['ms_step']:.3f} with a pool of {SAP_POOL - 1} (the loader "
+        f"{files['pool']['loader_ms']:.1f} ms a batch, waits {files['pool']['wait_ms']:.2f} ms a "
+        f"step); Dice {evaluated['dice']:.6f}; served {served['rps']:.2f} requests/s, p50 "
+        f"{served['p50']:.1f} p90 {served['p90']:.1f} p99 {served['p99']:.1f} ms, a lone "
+        f"request {served['lone_ms']:.1f} ms, busy {100 * served['busy']:.2f}%, "
+        f"{served['left_out']} voxels under the margin left out; varemb {varemb['ms_step']:.3f} "
+        f"ms/step against {varemb['plain_ms_step']:.3f} without, the merge "
+        f"{100 * varemb['agg_share']:.2f}% of the device time; launches {launches}")
+    log(f"[sap] phase_sap took {time.perf_counter() - t0:.1f} s")
+    numbers = {"flash_fwd_sap": kernels["float32"]["fwd"],
+               "flash_bwd_fused_sap": kernels["float32"]["bwd"],
+               "flash_fwd_bf16_sap": kernels["bfloat16"]["fwd"],
+               "flash_bwd_fused_bf16_sap": kernels["bfloat16"]["bwd"]}
+    return {"numbers": numbers, "launches": launches, "varemb": varemb}
 
 
 def _use(modules: dict) -> None:
@@ -4748,11 +5452,28 @@ def compare_forward(other: str) -> None:
     _use({})
 
 
+# each phase's wall seconds, in the order they ran (`_timed`)
+PHASE_SECONDS: dict = {}
+
+
+def _timed(name: str, fn, *args):
+    """`fn(*args)`, its wall seconds kept under `name` and printed as a `[time]`
+    line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"[time] {name} {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     args = sys.argv[1:]
+    only = ("adaptive", "unetr", "sap")
     if args and (len(args) != 2 or args[0] not in ("--compare", "--only")
-                 or (args[0] == "--only" and args[1] not in ("adaptive", "unetr"))):
-        fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive | --only unetr]")
+                 or (args[0] == "--only" and args[1] not in only)):
+        fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive | --only unetr | "
+             "--only sap]")
     if args and args[0] == "--compare" and \
             not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
         fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
@@ -4772,40 +5493,47 @@ def main() -> int:
         compare_forward(os.path.abspath(args[1]))
         print(card, flush=True)
         return 0
-    if args:  # --only adaptive|unetr: the build and that phase alone, no record
-        phase_build()
+    if args:  # --only adaptive|unetr|sap: the build and that phase alone, no record
+        _timed("phase_build", phase_build)
         os.makedirs(WORK, exist_ok=True)
         try:
-            phase_adaptive() if args[1] == "adaptive" else phase_unetr()
+            phase = {"adaptive": phase_adaptive, "unetr": phase_unetr, "sap": phase_sap}
+            _timed(f"phase_{args[1]}", phase[args[1]])
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+        log(f"[time] the script {time.perf_counter() - t_start:.1f} s")
         print(card, flush=True)
         return 0
-    phase_build()
-    fwd = phase_kernels()
-    bwd = phase_bwd_kernels()
-    diffusion_kernels = phase_diffusion_kernels()
-    mae = phase_mae_kernels()
-    dropout = phase_dropout(fwd, bwd)
-    mlp = phase_mlp_kernels()
-    int8 = phase_int8_kernels()
-    ops = phase_ops_path()
+    _timed("phase_build", phase_build)
+    fwd = _timed("phase_kernels", phase_kernels)
+    bwd = _timed("phase_bwd_kernels", phase_bwd_kernels)
+    diffusion_kernels = _timed("phase_diffusion_kernels", phase_diffusion_kernels)
+    mae = _timed("phase_mae_kernels", phase_mae_kernels)
+    dropout = _timed("phase_dropout", phase_dropout, fwd, bwd)
+    mlp = _timed("phase_mlp_kernels", phase_mlp_kernels)
+    int8 = _timed("phase_int8_kernels", phase_int8_kernels)
+    ops = _timed("phase_ops_path", phase_ops_path)
     os.makedirs(WORK, exist_ok=True)
     try:
-        trained = phase_train()
-        served = phase_serve(trained["ckpt_dir"])
-        trained_bf16 = phase_train_bf16()
-        trained_mae = phase_train_mae()
-        disk = phase_train_disk(trained_mae, trained["ms_step"])
-        diffusion = phase_train_diffusion()
-        generated = phase_generate()
+        trained = _timed("phase_train", phase_train)
+        served = _timed("phase_serve", phase_serve, trained["ckpt_dir"])
+        trained_bf16 = _timed("phase_train_bf16", phase_train_bf16)
+        trained_mae = _timed("phase_train_mae", phase_train_mae)
+        disk = _timed("phase_train_disk", phase_train_disk, trained_mae, trained["ms_step"])
+        diffusion = _timed("phase_train_diffusion", phase_train_diffusion)
+        generated = _timed("phase_generate", phase_generate)
         if disk["jpeg"] is None:
             fail("phase_trainer_parity trains from JPEG files: PIL and cv2 must import")
-        parity = phase_trainer_parity(disk["jpeg"]["root"], disk["mae_ckpt"])
-        adaptive = phase_adaptive()
-        unetr = phase_unetr(disk["mae_ckpt"])
+        parity = _timed("phase_trainer_parity", phase_trainer_parity, disk["jpeg"]["root"],
+                        disk["mae_ckpt"])
+        adaptive = _timed("phase_adaptive", phase_adaptive)
+        unetr = _timed("phase_unetr", phase_unetr, disk["mae_ckpt"])
+        sap = _timed("phase_sap", phase_sap, disk["mae_ckpt"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    log("[time] " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f" s; the phases {sum(PHASE_SECONDS.values()):.1f} s, the script "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"[profiler] {PROFILE_LOSS['windows']} windows timed a named kernel: "
         f"{PROFILE_LOSS['short']} recorded fewer launches than they made (at most "
         f"{PROFILE_LOSS['most_lost']} fewer), {PROFILE_LOSS['timed_lost']} of them fewer "
@@ -4872,6 +5600,14 @@ def main() -> int:
                             "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_unetr": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                                   "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_sap": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                          "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_sap": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
+                                "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_bf16_sap": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
+                               "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_bf16_sap": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                     "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -4888,7 +5624,7 @@ def main() -> int:
                "flash_fwd_dh96": diffusion_kernels["basic_ct"]["fwd"],
                "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"],
                "flash_fwd_unetr": unetr["kernels"]["fwd"],
-               "flash_bwd_fused_unetr": unetr["kernels"]["bwd"]}
+               "flash_bwd_fused_unetr": unetr["kernels"]["bwd"], **sap["numbers"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"]
@@ -4923,6 +5659,10 @@ def main() -> int:
     # from files), the inference CLI's Dice and --volume, the server; the f32 <64>
     # instances at [96, 729, 64], a row of their own
     launches.update(unetr["launches"])
+    # SAP's paths (phase_sap): basic_ct/sap through the CLI entry (synthetic and from
+    # files), the inference CLI's Dice and its server (f32 <64> at [24, 512, 64]);
+    # sap_bf16 through the CLI entry (sm90 <64> at [192, 512, 64]): rows of their own
+    launches.update(sap["launches"])
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
         f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")
@@ -4947,7 +5687,7 @@ def main() -> int:
                  "flash_bwd_dkv_bf16_mae_long", "flash_bwd_dq_bf16_mae_long", "fused_mlp",
                  "fused_mlp_f32", "int8_matmul", "flash_fwd_dh128", "flash_bwd_fused_dh128",
                  "flash_fwd_dh96", "flash_bwd_fused_dh96", "flash_fwd_unetr",
-                 "flash_bwd_fused_unetr"):
+                 "flash_bwd_fused_unetr", *sap["launches"]):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

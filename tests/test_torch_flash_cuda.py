@@ -816,3 +816,95 @@ def test_unetr_step_launches_on_card():
         "flash_fwd_tf32<64>": 8}
     assert {k: v for k, v in flash_attention_bwd.by_instance.items() if v} == {
         "flash_bwd_tf32<64>": 4}
+
+
+# SAP's attention: basic_ct/sap at batch 2 and sap_bf16 at batch 16, 12 heads over the
+# 512 tokens of the reassembled 8^3 grid, dh 64; both paths take the fused route
+SAP_SHAPES = {"float32": (2, 12, 512, 512, 64), "bfloat16": (16, 12, 512, 512, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_the_sap_shapes_on_card(dtype, route):
+    _card()
+    dt = getattr(torch, dtype)
+    b, h, n_q, n_kv, dh = SAP_SHAPES[dtype]
+    q, k, v, do = _inputs(b, h, n_q, n_kv, dh, dt, seed=6)
+    sm = dh**-0.5
+    src = "tf32" if dtype == "float32" else "sm90"
+    reset_launch_counts()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, sm, route=route)
+    torch.cuda.synchronize()
+    assert flash_attention.by_instance[f"flash_fwd_{src}<64>"] == 1
+    ref_o, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), sm)
+    assert (o.float() - ref_o).abs().max().item() <= FWD_TOL[dt]
+    assert (lse - ref_lse).abs().max().item() <= 5e-5
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), sm)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dt and _rel_err(g, w) <= BWD_TOL[dt], (name, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sap", "sap_bf16"])
+def test_sap_step_launches_on_card(name):
+    """One train step of a depth-2 SAP at full token count (512 octree tokens of 4^3
+    reassembled into 32^3, a 64^3 tile) in f32 and in bf16: each block launches the
+    forward and the fused backward of its dtype's source once, the neck and the head
+    compute in f32, and the loss is finite."""
+    _card()
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.train import init_train, synthetic_batches, to_device
+
+    ia = {"default_vars": ["ct"], "tile_size": [64, 64, 64], "patch_size": 4, "embed_dim": 192,
+          "depth": 2, "num_heads": 3, "mlp_ratio": 2, "twoD": False, "adaptive_patching": True,
+          "fixed_length": 512, "use_adaptive_pos_emb": True}
+    raw = {"trainer": {"task": "sap", "attn_impl": "FLASH",
+                       "data_type": "bfloat16" if name == "sap_bf16" else "float32"},
+           "parallelism": {}, "model": {"lr": 1e-3, "net": {"init_args": ia}},
+           "data": {"batch_size": 2, "num_classes": 4, "single_channel": True}}
+    cfg = Config(raw=raw, task="sap")
+    state, step = init_train(cfg, device="cuda")
+    batch = to_device(next(synthetic_batches(cfg, 2)), torch.device("cuda"))
+    reset_launch_counts()
+    state, loss, _ = step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    src = "sm90" if name == "sap_bf16" else "tf32"
+    assert {k: v for k, v in flash_attention.by_instance.items() if v} == {
+        f"flash_fwd_{src}<64>": 2}
+    assert {k: v for k, v in flash_attention_bwd.by_instance.items() if v} == {
+        f"flash_bwd_{src}<64>": 2}
+    assert state.model.neck[0].weight.grad.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_varemb_vit_step_launches_on_card():
+    """One f32 train step of a depth-2 ViT with the variable embedding (three
+    variables merged by EINSUM attention, one query over three keys): the blocks
+    launch the flash kernels, the merge none."""
+    _card()
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.train import init_train, synthetic_batches, to_device
+
+    ia = {"default_vars": ["red", "green", "blue"], "tile_size": [64, 64], "patch_size": 16,
+          "embed_dim": 192, "depth": 2, "num_heads": 3, "mlp_ratio": 2, "twoD": True,
+          "adaptive_patching": False, "use_varemb": True}
+    raw = {"trainer": {"task": "classification", "attn_impl": "FLASH"}, "parallelism": {},
+           "model": {"lr": 1e-3, "net": {"init_args": ia}},
+           "data": {"batch_size": 4, "num_classes": 4, "num_channels_used": {"d": 3}}}
+    cfg = Config(raw=raw, task="classification")
+    state, step = init_train(cfg, device="cuda")
+    batch = to_device(next(synthetic_batches(cfg, 4)), torch.device("cuda"))
+    reset_launch_counts()
+    state, loss, _ = step(state, batch, (0, 1, 2))
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert flash_attention.launches == 2 and flash_attention_bwd.launches == 2
+    assert state.model.var_agg.kv.weight.grad is not None

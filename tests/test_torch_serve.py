@@ -441,13 +441,6 @@ def test_generate_diffusion_on_the_cpu(tmp_path):
         diffusion_sampler(_cfg(), init_eval_model(_cfg(), device="cpu"), 2)
 
 
-@pytest.mark.parametrize("task,item", [("sap", "item 8: SAP")])
-def test_predictor_refuses_the_tasks_still_to_port(task, item):
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match=f"modules to port, {item}"):
-        build_predictor(Config(raw=cfg.raw, task=task), device="cpu")
-
-
 def test_serve_main_takes_num_generate(monkeypatch):
     """`--num-generate` reaches the diffusion server; without CUDA the default
     device raises."""
@@ -747,16 +740,12 @@ def test_inference_cli_evaluates_and_generates(tmp_path, capsys):
     assert evaluate(_diffusion_cfg(steps=3), None, None, False, 2, device="cpu") > 0
 
 
-@pytest.mark.parametrize("case", ["sap", "no_cuda"])
+@pytest.mark.parametrize("case", ["no_cuda"])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
     cfg_path = os.path.join(REPO, "configs/catsdogs/classification/base_config.yaml")
-    if case == "no_cuda":
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            inference_main([cfg_path, "--synthetic"])
-    else:
-        with pytest.raises(NotImplementedError, match="modules to port, item 8: SAP"):
-            evaluate(Config(raw=_cfg().raw, task=case), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference_main([cfg_path, "--synthetic"])
 
 
 # ---------------------------------------------------------------- adaptive patching
@@ -1146,3 +1135,201 @@ def test_inference_cli_stitches_a_volume(tmp_path, capsys):
         saved, predict_volume(cfg, np.load(tmp_path / "vol.npy"), ck, sw_batch=2, device="cpu"))
     assert saved.shape == (20, 20, 20) and saved.dtype == np.int32
     assert "8 windows" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------- SAP
+#
+# basic_ct/sap shrunk (tile 16^3 at patch 2, 64 octree tokens in an 8^3 pseudo-image,
+# two blocks of 24 wide, batch 2): the served class maps `int32 [B, 8^3]` against the
+# JAX server's, equal; an HTTP round trip through a preprocessing pool against the
+# in-process forward; `evaluate`'s Dice on a `to-jax` checkpoint against the JAX one;
+# `_deserialize_pred` against the JAX function on the same trees; the CLI from labelled
+# files with PNGs; `--volume` refused as the JAX assertion refuses it.
+
+import jax.numpy as jnp
+
+from ucf_vit_tpu.data.transform import Patchify as JPatchify
+from ucf_vit_tpu.data.transform import Patchify3D as JPatchify3D
+from ucf_vit_tpu.inference import _deserialize_pred as jax_deserialize_pred
+from ucf_vit_tpu_torch.data.transform import Patchify, Patchify3D
+from ucf_vit_tpu_torch.inference import _deserialize_pred
+from ucf_vit_tpu_torch.tasks import sap_inputs
+
+
+def _sap_cfg(name="sap", **trainer):
+    with open(os.path.join(REPO, "configs", "basic_ct", name, "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["net"]["init_args"].update(tile_size=[16, 16, 16], patch_size=2,
+                                            fixed_length=64, embed_dim=24, depth=2,
+                                            num_heads=2)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=1, **trainer)
+    raw["parallelism"] = {}
+    raw["data"]["batch_size"] = 2
+    return Config(raw=raw, task="sap")
+
+
+def test_sap_predictor_matches_the_jax_server():
+    """The class maps `int32 [B, (sqrt_len * p)^3]` equal the JAX server's, which
+    serving SAP was refused before this slice; only `seq`, `seq_size` and `seq_pos`
+    are consumed, and the batch defaults to the config's."""
+    cfg = _sap_cfg()
+    jrun, jpre, _, (_, jholder, _) = jax_build_predictor(cfg, max_batch=2, seed=3)
+    run, pre, mb, (model, _, _) = build_predictor(cfg, seed=3, device="cpu")
+    assert mb == cfg.batch_size == 2
+    load_jax_params(model, jax.tree.map(np.asarray, jholder["params"]))
+    batch = _adaptive_batch(pre, _volumes_f32(2))
+    assert sorted(batch) == ["seq", "seq_pos", "seq_size"]
+    want = np.asarray(jrun(_adaptive_batch(jpre, _volumes_f32(2))))
+    got = run(batch)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (2, 8, 8, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) > 1
+
+
+def test_sap_bf16_predictor_serves_its_config_batch():
+    """sap_bf16 serves batches of its config's 16 by default: the class maps are
+    the argmax of the in-process forward's f32 logits (the bf16 encoder, the f32
+    neck and head) of the same batch."""
+    cfg = _sap_cfg("sap_bf16")
+    cfg.raw["data"]["batch_size"] = 16
+    run, pre, mb, (model, _, _) = build_predictor(cfg, seed=3, device="cpu")
+    assert mb == 16 and model.dtype == torch.bfloat16
+    batch = _adaptive_batch(pre, _volumes_f32(16, seed=21))
+    got = run(batch)
+    assert got.dtype == torch.int32 and got.shape == (16, 8, 8, 8)
+    with torch.inference_mode():
+        logits = model(*sap_inputs(cfg, {k: torch.from_numpy(v) for k, v in batch.items()}))
+    assert logits.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), logits.argmax(1).numpy())
+
+
+def test_sap_server_answers_class_maps_through_its_pool():
+    """Over HTTP with a preprocessing pool of 2: each answer is the int32 class map of
+    the in-process forward of the sample's preprocessed request; `/v1/reload` swaps
+    in a checkpoint of the port's trainer."""
+    cfg = _sap_cfg()
+    server = make_server(cfg, host="127.0.0.1", port=0, max_wait_ms=20.0, seed=5,
+                         device="cpu", preprocess_workers=2)
+    samples = _volumes_f32(3, seed=12)
+    try:
+        base = _serving(server)
+        answers = [_predict(base, s) for s in samples]
+    finally:
+        _stop(server)
+    model = init_eval_model(cfg, seed=5, device="cpu")
+    pre = make_preprocessor(cfg)
+    for s, got in zip(samples, answers):
+        b = {k: torch.from_numpy(v[None]) for k, v in pre(s).items()}
+        with torch.inference_mode():
+            want = model(*sap_inputs(cfg, b)).argmax(1)[0].numpy()
+        assert got.dtype == np.int32 and got.shape == (8, 8, 8)
+        np.testing.assert_array_equal(got, want)
+
+
+def _sap_checkpoint(tmp_path, **data):
+    cfg = _sap_cfg(checkpoint_path=str(tmp_path / "ck"))
+    cfg.raw["data"].update(data)
+    train(cfg, synthetic=not data, max_steps=2, device="cpu")
+    path = tmp_path / "sap.yaml"
+    path.write_text(yaml.safe_dump(cfg.raw))
+    return cfg, str(path), str(tmp_path / "ck" / "multi_last_even.ckpt")
+
+
+def test_evaluate_sap_dice_matches_jax_on_one_checkpoint(tmp_path, capsys):
+    """The Dice of each batch (argmax against the reassembled serialized labels, in
+    the pseudo-image space) and the mean: the port's `evaluate` on its checkpoint
+    against the JAX `evaluate` on it after `to-jax`, the same 3 synthetic batches,
+    within DICE_TOL."""
+    cfg, cfg_path, ck = _sap_checkpoint(tmp_path)
+    assert convert_main(["to-jax", ck, cfg_path, str(tmp_path / "jax"), "--filename",
+                         "conv"]) == 0
+    jraw = json.loads(json.dumps(cfg.raw))
+    jraw["trainer"]["checkpoint_filename_for_loading"] = "conv_latest"
+    want = jax_evaluate(JConfig(raw=jraw, task="sap"), str(tmp_path / "jax"), None, True, 3)
+    wlines = re.findall(r"sample \d+: dice ([0-9.]+)", capsys.readouterr().out)
+    got = evaluate(cfg, ck, None, True, 3, device="cpu")
+    glines = re.findall(r"sample \d+: dice ([0-9.]+)", capsys.readouterr().out)
+    assert len(glines) == len(wlines) == 3 and glines == wlines
+    assert abs(got - want) <= DICE_TOL and 0.0 < got < 1.0
+
+
+@pytest.mark.parametrize("nd", [3, 2], ids=["octree", "quadtree"])
+def test_deserialize_pred_matches_jax(nd):
+    """A pseudo-image class map written back to image space through the sample's
+    tree, array for array with the JAX function on the same tile's tree (a list of
+    trees takes the first)."""
+    rng = np.random.default_rng(nd)
+    if nd == 3:
+        tile = rng.random((16, 16, 16, 1)).astype(np.float32)
+        tile[4:12, 4:12, :8] += 0.6
+        ours, ref = (cls(fixed_length=64, patch_size=2, num_channels=1,
+                         rng=np.random.default_rng(2)) for cls in (Patchify3D, JPatchify3D))
+        side = 8
+    else:
+        tile = rng.random((32, 32, 1)).astype(np.float32)
+        tile[8:24, 4:20] += 0.6
+        ours, ref = (cls(fixed_length=16, patch_size=2, num_channels=1, dataset="basic_ct",
+                         rng=np.random.default_rng(2)) for cls in (Patchify, JPatchify))
+        side = 8
+    tree, jtree = ours(tile)[3], ref(tile)[3]
+    pred = rng.integers(0, 4, size=(side,) * nd)
+    got = _deserialize_pred(torch.from_numpy(pred), [tree], 4, 2, nd == 2)
+    want = jax_deserialize_pred(jnp.asarray(pred), [jtree], 4, 2, nd == 2)
+    assert got.dtype == want.dtype == np.int64 and got.shape == tile.shape[:-1]
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 1
+
+
+def _labelled_nifti(root, n, side, seed=0):
+    """`n` int16 volumes of `side`^3 under <root>/imagesTr and label volumes 1-4 under
+    <root>/labelsTr (thresholds of the volume, so that the labels have edges)."""
+    from ucf_vit_tpu_torch.data import nifti
+
+    rng = np.random.default_rng(seed)
+    for d in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(root, d))
+    for i in range(n):
+        vol = _volumes_f32(1, side=side, seed=seed + i)[0, 0]
+        nifti.save(os.path.join(root, "imagesTr", f"image{i}.nii"),
+                   (vol * 3000 + 40 * rng.normal(size=vol.shape)).astype(np.int16))
+        lab = 1 + np.digitize(vol, np.quantile(vol, [0.4, 0.7, 0.9]))
+        nifti.save(os.path.join(root, "labelsTr", f"label{i}.nii"), lab.astype(np.int16))
+    return str(root)
+
+
+def test_inference_cli_evaluates_sap_from_files_with_pngs(tmp_path, capsys):
+    """From labelled NIfTI volumes, batch size 1 (the default): the CLI's mean Dice
+    equals `evaluate`'s; with `--png-dir` the loader keeps the trees and each PNG
+    holds the prediction written back to image space beside the image-space label."""
+    pytest.importorskip("matplotlib")
+    root = _labelled_nifti(tmp_path / "ct", 2, 32)
+    cfg, cfg_path, ck = _sap_checkpoint(tmp_path, dict_root_dirs={"ct1": root})
+    seen = []
+    real = port_inference._dump_png
+    port_inference._dump_png = lambda d, i, p, l: (seen.append((p, l)), real(d, i, p, l))
+    try:
+        dice = inference_main([cfg_path, "--checkpoint", ck, "--num-samples", "2",
+                               "--png-dir", str(tmp_path / "png"), "--device", "cpu"])
+    finally:
+        port_inference._dump_png = real
+    out = capsys.readouterr().out
+    assert "mean dice over 2 samples" in out and "loaded checkpoint from epoch 0" in out
+    assert dice == evaluate(cfg, ck, None, False, 2, device="cpu")
+    assert sorted(os.listdir(tmp_path / "png")) == ["sample_0.png", "sample_1.png"]
+    for pred, label in seen:  # image space: the 16^3 tile, not the 8^3 pseudo-image
+        assert pred.shape == label.shape == (16, 16, 16) and pred.dtype == np.int64
+
+
+def test_volume_stitching_refuses_sap(tmp_path):
+    """`--volume` takes a UNETR's image-space logits; on a SAP config it raises the
+    JAX assertion."""
+    cfg = _sap_cfg()
+    with pytest.raises(AssertionError, match="SAP predicts in the sqrt-len pseudo-image"):
+        VolumePredictor(cfg, device="cpu")
+    path = tmp_path / "sap.yaml"
+    path.write_text(yaml.safe_dump(cfg.raw))
+    np.save(tmp_path / "vol.npy", _volumes_f32(1, side=20)[0])
+    with pytest.raises(AssertionError, match="use evaluate"):
+        inference_main([str(path), "--volume", str(tmp_path / "vol.npy"), "--device", "cpu"])

@@ -456,19 +456,46 @@ def test_masking_draws_from_the_model_generator():
     assert not torch.equal(masks[0], ours(torch.from_numpy(x))[1])  # the next draw differs
 
 
-@pytest.mark.parametrize("variant", ["adaptive_pos_mlp", "pipe_par", "varemb"])
+@pytest.mark.parametrize("variant", ["pipe_par"])
 def test_unported_variants_raise_with_their_roadmap_item(variant):
-    kw = dict(MAE_KW, **MAE_TILES["3d"])
-    item = {"adaptive_pos_mlp": "VIT input variants", "pipe_par": "pipeline \\+ MoE",
-            "varemb": "VIT input variants"}[variant]
-    # the adaptive position MLP is ported (and the sqrt-len method, UNETR's input);
-    # the variable embedding an adaptive MAE may pair with it is not
-    kw.update({"adaptive_pos_mlp": dict(use_adaptive_pos_emb=True, adaptive_patching=True,
-                                        fixed_length=64, use_varemb=True),
-               "pipe_par": dict(pipe_par_size=2, scan_layers=True),
-               "varemb": dict(use_varemb=True)}[variant])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port: {item}"):
+    kw = dict(MAE_KW, **MAE_TILES["3d"], pipe_par_size=2, scan_layers=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline \\+ MoE"):
         MAE(**kw)
+
+
+@pytest.mark.parametrize("case", ["2d", "adaptive_pos_mlp"])
+def test_mae_pred_with_varemb_matches_jax(case):
+    """MAE with the variable embedding (three variables merged), the mask noise
+    injected on both sides: `pred` within MAE_PRED_TOL and the mask equal; with
+    adaptive patching the sequence's per-variable LinearTokenEmbeds and the
+    position MLPs of both the encoder and the decoder."""
+    kw = dict(MAE_KW, **MAE_TILES["2d"], use_varemb=True, default_vars=("red", "green", "blue"))
+    rng = np.random.default_rng(6)
+    ps = None
+    if case == "adaptive_pos_mlp":
+        kw.update(adaptive_patching=True, fixed_length=16, use_adaptive_pos_emb=True)
+        x = _mae_x(2, 3, 16, 16)
+        ps = np.concatenate([rng.integers(2, 9, size=(2, 16, 1)),
+                             rng.uniform(0, 16, size=(2, 16, 2))], -1).astype(np.float32)
+    else:
+        x = _mae_x(2, 3, 16, 16)
+    noise = _mae_noise(2, 16)
+    var_ids = (0, 1, 2)
+    jmod = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw)
+    jps = None if ps is None else jnp.asarray(ps)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(x), var_ids, jps,
+                                  mask_noise=jnp.asarray(noise))["params"])
+    params = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    assert sorted(jax_to_torch_state(params)) == sorted(export_torch_state(params))
+    ours = load_jax_params(MAE(attn_impl="FLASH", **kw), params).eval()
+    want, wmask = jmod.apply({"params": params}, jnp.asarray(x), var_ids, jps,
+                             mask_noise=jnp.asarray(noise))
+    with torch.inference_mode():
+        got, mask = ours(torch.from_numpy(x), mask_noise=torch.from_numpy(noise),
+                         seq_ps=None if ps is None else torch.from_numpy(ps), var_ids=var_ids)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=MAE_PRED_TOL, rtol=0)
 
 
 def test_remat_replays_the_decoder_exactly():
@@ -2525,3 +2552,326 @@ def test_cli_trains_unetr_from_labelled_nifti_warm_started_from_an_mae(tmp_path,
     assert "initialized encoder from MAE checkpoint" in log
     assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
     assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")
+
+
+# ---------------------------------------------------------------- SAP
+#
+# basic_ct/sap and sap_bf16 shrunk (tile 16^3 at patch 2, 64 octree tokens reassembled
+# into an 8^3 image, two blocks of 24 wide, batch 2): the loss on injected batches
+# within 1e-6 of the JAX one, five train steps within 1e-4 (f32) and 5e-3 (bf16) a
+# step, sap_bf16's dtypes from the token embed to the loss against `jax.eval_shape` of
+# the JAX model, the MAE-encoder transfer into SAP, and the CLI: synthetic, and from
+# labelled NIfTI volumes warm-started from an MAE checkpoint.
+
+from ucf_vit_tpu.tasks import build_sap as jax_build_sap
+from ucf_vit_tpu_torch.models import SAP
+
+SAP_STEPS = 5
+SAP_LOSS_TOL = 1e-6  # one loss on the same weights, f32
+SAP_BF16_LOSS_TOL = 5e-3  # per-step loss, bf16
+
+
+def _sap_raw(name="sap", twoD=False, **trainer):
+    """basic_ct/<name> as shipped, shrunk (its task, dtype, adaptive octree input and the
+    position MLP kept); `twoD` a 2-D copy (16 quadtree tokens of 2^2 into an 8^2 image)."""
+    with open(os.path.join(REPO, "configs", "basic_ct", name, "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["net"]["init_args"].update(
+        tile_size=[16, 16] if twoD else [16, 16, 16], patch_size=2,
+        fixed_length=16 if twoD else 64, embed_dim=24, depth=2, num_heads=2, twoD=twoD)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)  # YAML reads 1e-5 as a string
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=1, **trainer)
+    raw["parallelism"] = {}
+    raw["data"]["batch_size"] = 2
+    return raw
+
+
+def _sap_jax(raw, batch, seed=0):
+    """The JAX SAP of `raw`, its loss and its params initialised on `batch`."""
+    jmod, jloss = jax_build_sap(JConfig(raw=raw, task="sap"))
+    b = {k: jnp.asarray(v) for k, v in batch.items()}
+    twoD = raw["model"]["net"]["init_args"]["twoD"]
+    img = jax_reassemble(b["seq"], 4, 2, twoD)
+    params = meta.unbox(jmod.init(jax.random.key(seed), img, None, jax_seq_ps(b))["params"])
+    return jmod, jloss, jax.tree.map(jnp.asarray, params)
+
+
+def _sap_batches(cfg, n):
+    return [{k: v for k, v in b.items() if k != "variables"}
+            for _, b in zip(range(n), synthetic_batches(cfg, 2))]
+
+
+@pytest.mark.parametrize("twoD", [False, True], ids=["3d", "2d"])
+def test_sap_loss_matches_jax(twoD):
+    """`dice_b_loss` of the logits of the reassembled image against the reassembled,
+    one-hot serialized labels, on the same weights and batch."""
+    raw = _sap_raw(twoD=twoD)
+    cfg = Config(raw=raw, task="sap")
+    b = _sap_batches(cfg, 1)[0]
+    assert b["seq_label"].shape == (2, 16 if twoD else 64) + (2,) * (2 if twoD else 3)
+    jmod, jloss, params = _sap_jax(raw, b)
+    want, _ = jloss(params, {k: jnp.asarray(v) for k, v in b.items()}, jax.random.key(0),
+                    deterministic=True)
+    model = load_jax_params(build_task(cfg), jax.device_get(params)).eval()
+    assert isinstance(model, SAP) and model.token_grid == (4,) * (2 if twoD else 3)
+    got, aux = task_loss(cfg)(model, to_device(b, torch.device("cpu")))
+    assert aux == {} and got.dtype == torch.float32
+    assert abs(got.item() - float(want)) <= SAP_LOSS_TOL
+
+
+@pytest.mark.parametrize("name, tol", [("sap", LOSS_TOL), ("sap_bf16", SAP_BF16_LOSS_TOL)])
+def test_sap_train_steps_match_jax(name, tol):
+    """Five steps from one JAX init on the synthetic stream (`seq`, `seq_size`,
+    `seq_pos`, `seq_label`), the port's attention FLASH: the losses within `tol` a
+    step, and falling."""
+    raw = _sap_raw(name)
+    cfg = Config(raw=raw, task="sap")
+    batches = _sap_batches(cfg, SAP_STEPS)
+    jmod, jloss, params = _sap_jax(raw, batches[0])
+    assert jmod.dtype == (jnp.bfloat16 if name == "sap_bf16" else None)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(jloss, tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="sap")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")))[1].item() for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=tol, rtol=0)
+    assert state.step == SAP_STEPS and losses[-1] < losses[0]
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def test_sap_bf16_dtypes_match_jax_eval_shape():
+    """Under the bf16 policy, the output type of each stage from the token embed to
+    the loss against `jax.eval_shape` of the JAX model's captured intermediates: the
+    embed and the blocks bf16, the position MLP f32 (cast to the stream after it), and
+    from the final norm on f32, since the norm, the neck and the head take no dtype."""
+    raw = _sap_raw("sap_bf16")
+    cfg = Config(raw=raw, task="sap")
+    b = _sap_batches(cfg, 1)[0]
+    jmod, jloss, params = _sap_jax(raw, b)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    img = jax_reassemble(jb["seq"], 4, 2, False)
+
+    def fwd(p):
+        return jmod.apply({"params": p}, img, None, jax_seq_ps(jb), capture_intermediates=True,
+                          mutable=["intermediates"])
+
+    logits, inter = jax.eval_shape(fwd, params)
+    inter = inter["intermediates"]
+    stages = {"token_embed": "token_embeds", "adaptive_pos_dep_emb": "adaptive_pos_dep_emb",
+              "blocks_1": "blocks.1", "norm": "norm", "neck": "neck",
+              "mask_header": "mask_header"}
+    want = {n: _dtype_name(inter[j]["__call__"][0].dtype) for j, n in stages.items()}
+    want["logits"] = _dtype_name(logits.dtype)
+    want["loss"] = _dtype_name(jax.eval_shape(
+        lambda p: jloss(p, jb, jax.random.key(0))[0], params).dtype)
+
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    got = {}
+    for name in stages.values():
+        model.get_submodule(name).register_forward_hook(
+            lambda m, i, o, name=name: got.__setitem__(name, _dtype_name(o.dtype)))
+    tb = to_device(b, torch.device("cpu"))
+    loss, _ = task_loss(cfg)(model, tb)
+    got["loss"] = _dtype_name(loss.dtype)
+    from ucf_vit_tpu_torch.tasks import sap_inputs
+
+    got["logits"] = _dtype_name(model(*sap_inputs(cfg, tb)).dtype)
+    assert got == want
+    assert want["blocks.1"] == "bfloat16" and want["neck"] == "float32"
+
+
+def _mae_for_sap():
+    """A JAX MAE (tile 16^3, patch 2: 512 tokens) with the shrunk SAP's encoder width
+    and depth, and that SAP, each flax-initialised."""
+    raw = _sap_raw()
+    b = _sap_batches(Config(raw=raw, task="sap"), 1)[0]
+    _, _, sparams = _sap_jax(raw, b, seed=1)
+    jmae = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, img_size=(16, 16, 16),
+                patch_size=2, in_chans=1, twoD=False, embed_dim=24, depth=2, num_heads=2,
+                decoder_embed_dim=18, decoder_depth=1, decoder_num_heads=3)
+    mparams = meta.unbox(jmae.init(jax.random.key(2), jnp.asarray(b["x"]),
+                                   mask_noise=jnp.asarray(_mae_noise(2, 512)))["params"])
+    return jax.device_get(mparams), jax.device_get(sparams), raw
+
+
+def test_transfer_mae_encoder_into_sap_matches_jax():
+    """The encoder's entries from the MAE (the position table resampled from 512 rows
+    to SAP's 64), the neck, the head and the position MLP SAP's own."""
+    mparams, sparams, _ = _mae_for_sap()
+    want = jax_to_torch_state(jax_transfer_mae_encoder(mparams, sparams, new_pos_embed_len=64))
+    mae_sd = {k: torch.from_numpy(v.copy()) for k, v in jax_to_torch_state(mparams).items()}
+    target = {k: torch.from_numpy(v) for k, v in jax_to_torch_state(sparams).items()}
+    got = transfer_mae_encoder(mae_sd, target, new_pos_embed_len=64)
+    assert sorted(got) == sorted(want) == sorted(target)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    assert torch.equal(got["blocks.1.mlp.fc2.weight"], mae_sd["blocks.1.mlp.fc2.weight"])
+    np.testing.assert_array_equal(got["pos_embed"].numpy(),
+                                  interpolate_pos_embed_1d(mae_sd["pos_embed"].numpy(), 64))
+    for k in ("neck.0.weight", "mask_header.0.weight", "adaptive_pos_dep_emb.0.weight"):
+        assert torch.equal(got[k], target[k])
+
+
+@pytest.mark.parametrize("name", ["sap", "sap_bf16"])
+def test_cli_trains_sap_synthetic(tmp_path, monkeypatch, name):
+    """`python -m ucf_vit_tpu_torch.train configs/basic_ct/<name>/base_config.yaml
+    --single-device --synthetic --max-steps 2 --device cpu` on the config shrunk;
+    without `--device cpu` and with no CUDA it raises."""
+    raw = _sap_raw(name, checkpoint_path=str(tmp_path / "ck"))
+    raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 8, "tensor_par_size": 1,
+                          "seq_par_size": 1}
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    out = main([str(path), "--single-device", "--synthetic", "--max-steps", "2", "--device",
+                "cpu"])
+    model = out["state"].model
+    assert isinstance(model, SAP) and model.dtype == (torch.bfloat16 if name == "sap_bf16"
+                                                      else None)
+    assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
+    assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")
+    assert ckpt.restore_checkpoint(str(tmp_path / "ck"), "")["head_meta"] == [2, 0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([str(path), "--single-device", "--synthetic", "--max-steps", "2"])
+
+
+def test_cli_trains_sap_from_labelled_nifti_warm_started_from_an_mae(tmp_path, capsys):
+    """`trainer.pretrained_mae_checkpoint` into SAP: the encoder equals the MAE's, the
+    neck and head keep their init; then the shrunk basic_ct/sap trains from labelled
+    NIfTI volumes through the CLI, in line and with a pool of 2, and saves."""
+    mparams, _, raw = _mae_for_sap()
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in jax_to_torch_state(mparams).items()}
+    mae_dir = tmp_path / "mae"
+    os.makedirs(mae_dir)
+    torch.save({"epoch": 3, "model_state_dict": sd, "loss_list": [], "head_meta": [2, 3]},
+               str(mae_dir / "mae_odd.ckpt"))
+    raw["trainer"].update(pretrained_mae_checkpoint=str(mae_dir),
+                          checkpoint_path=str(tmp_path / "ck"))
+    raw["data"].update(dict_root_dirs={"ct1": _labelled_volumes(tmp_path / "ct", 2, 32)},
+                       num_workers=1)
+    cfg = Config(raw=raw, task="sap")
+    state, _ = init_train(cfg, "cpu")
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    transfer_pretrained_mae(cfg, state.model, str(mae_dir))
+    got = state.model.state_dict()
+    assert torch.equal(got["blocks.1.attn.qkv.weight"], sd["blocks.1.attn.qkv.weight"])
+    assert torch.equal(got["token_embeds.proj.weight"], sd["token_embeds.proj.weight"])
+    for k in ("neck.0.weight", "mask_header.0.weight", "mask_header.0.bias"):
+        assert torch.equal(got[k], init[k])
+    for workers in (1, 3):
+        raw["data"]["num_workers"] = workers
+        path = tmp_path / f"sap_{workers}.yaml"
+        path.write_text(yaml.safe_dump(raw))
+        out = main([str(path), "--single-device", "--max-steps", "2", "--device", "cpu"])
+        assert "initialized encoder from MAE checkpoint" in capsys.readouterr().out
+        assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
+    assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")
+
+
+# ---------------------------------------------------------------- varemb in training
+#
+# imagenet/classification with `use_varemb` (three variables merged by the variable
+# attention over the quadtree's tokens) shrunk: five f32 steps within LOSS_TOL of the
+# JAX trainer's step; a single-channel run whose batches alternate variables hands
+# each batch's var_ids to its step, as the JAX trainer keys its step by them.
+
+VAREMB_STEPS = 5
+
+
+def _varemb_raw(**data):
+    raw = _adaptive_raw("imagenet/classification")
+    raw["model"]["net"]["init_args"].update(use_varemb=True, num_heads=4)
+    raw["data"].update(data)
+    return raw
+
+
+def test_varemb_train_steps_match_jax():
+    raw = _varemb_raw()
+    cfg = Config(raw=raw, task="classification")
+    batches = _adaptive_batches(cfg, VAREMB_STEPS)
+    jmod, jloss = jax_build_classification(JConfig(raw=raw, task="classification"))
+    var_ids = jmod.get_var_ids(("red", "green", "blue"))
+    b0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    params = meta.unbox(jmod.init(jax.random.key(0), b0["seq"], var_ids,
+                                  jax_seq_ps(b0))["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    assert "var_agg" in params and "token_embed_2" in params
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(lambda p, b, r: jloss(p, b, r, var_ids=var_ids), tx,
+                                donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="classification")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    assert model.get_var_ids(("red", "green", "blue")) == var_ids
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")), var_ids)[1].item()
+              for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+
+
+def test_trainer_hands_alternating_variables_their_var_ids(monkeypatch):
+    """Single-channel batches whose `variables` alternate (as two datasets of other
+    variables give them): each step and each validation batch gets the var_ids the
+    JAX model's `get_var_ids` gives for its batch, and the two variables' embeds
+    both train."""
+    from ucf_vit_tpu_torch import train as port_train
+
+    raw = _varemb_raw(single_channel=True, num_channels_used={"d": 1})
+    raw["trainer"].update(val_every=1, val_batches=2)
+    cfg = Config(raw=raw, task="classification")
+    jmod, _ = jax_build_classification(JConfig(raw=raw, task="classification"))
+    order = [("green",), ("red",), ("blue",), ("green",)]
+
+    def alternating(cfg, global_batch, seed=0):
+        for i, b in enumerate(synthetic_batches(cfg, global_batch, seed)):
+            b["variables"] = order[i % len(order)]
+            yield b
+
+    seen = []
+    loss_of = port_train.task_loss
+
+    def spying(cfg):
+        inner = loss_of(cfg)
+
+        def loss_fn(model, batch, var_ids=None):
+            seen.append(var_ids)
+            return inner(model, batch, var_ids=var_ids)
+
+        return loss_fn
+
+    monkeypatch.setattr(port_train, "synthetic_batches", alternating)
+    monkeypatch.setattr(port_train, "task_loss", spying)
+    out = train(cfg, max_steps=4, synthetic=True, device="cpu")
+    want = [jmod.get_var_ids(v) for v in order]
+    assert seen == want + want[:2]  # four steps, then the two validation batches
+    init = init_train(cfg, "cpu")[0].model
+    trained = out["state"].model
+    assert all(not torch.equal(trained.token_embeds[i][1].weight, init.token_embeds[i][1].weight)
+               for i in range(3))

@@ -226,14 +226,10 @@ def test_seeded_init_is_deterministic_and_uses_sincos_table():
 
 
 @pytest.mark.parametrize("init, parallelism", [
-    # adaptive patching is ported; its single-channel variable embedding is not
-    ({"adaptive_patching": True, "fixed_length": 16, "use_varemb": True,
-      "single_channel": True}, None),
-    ({"use_varemb": True}, None),
     ({"moe_num_experts": 4}, None),
     # scan_layers alone is accepted now; the scanned stack under a pipeline is not
     ({"scan_layers": True}, {"pipe_par_size": 2}),
-], ids=["adaptive", "varemb", "moe", "scan"])
+], ids=["moe", "scan"])
 def test_unported_features_raise(init, parallelism):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_classification(_small_cfg(parallelism=parallelism, **init))
@@ -663,3 +659,234 @@ def test_resolve_device_pins_tf32_off_on_a_card(monkeypatch):
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+# ---------------------------------------------------------------- SAP and varemb
+#
+# SAP (a shrunk ViT, the neck and the mask head) on `load_jax_params` weights against
+# the JAX model in f64, 3-D and 2-D, adaptive by the sqrt-len method or not, its
+# conversion value for value with `export_torch_state` (the neck mirrored on both
+# sides); `dice_b_loss` and its gradient; the variable embedding:
+# `VariableMappingAttention` against flax, the ViT with `use_varemb` (several
+# variables merged, out of order, adaptive, single-channel, one variable) through
+# `load_jax_params`, and its build from the config that the port refused before.
+
+from ucf_vit_tpu.models.blocks import VariableMappingAttention as JVariableMappingAttention
+from ucf_vit_tpu.models.sap import SAP as JSAP
+from ucf_vit_tpu_torch.models import SAP
+from ucf_vit_tpu_torch.models.blocks import VariableMappingAttention
+
+SAP_TOL = 1e-5
+DICE_B_TOL = 1e-6
+VARMAP_TOL = 1e-6
+VAREMB_TOL = 1e-5
+
+
+def _sap_case(case):
+    """(JAX SAP, port SAP, input image, seq_ps) of a shrunk SAP case: adaptive
+    cases take the sqrt-len image (64 tokens of 2^3 reassembled into 8^3; 16
+    tokens of 2^2 into 8^2), the others the tile."""
+    twoD = case.startswith("2d")
+    nd = 2 if twoD else 3
+    kw = dict(patch_size=2, in_chans=1, embed_dim=24, depth=2, num_heads=2, mlp_ratio=2.0,
+              twoD=twoD, num_classes=4)
+    rng = np.random.default_rng(5)
+    ps = None
+    if "adaptive" in case:
+        length = 64 if nd == 3 else 16
+        kw.update(img_size=(16,) * nd, adaptive_patching=True, fixed_length=length,
+                  use_adaptive_pos_emb=True, sqrt_len_method=True)
+        x = rng.normal(size=(2, 1) + (8,) * nd).astype(np.float32)
+        ps = np.concatenate([rng.integers(2, 9, size=(2, length, 1)),
+                             rng.uniform(0, 16, size=(2, length, nd))], -1).astype(np.float32)
+    else:
+        kw.update(img_size=(8,) * nd if nd == 3 else (12, 16), patch_size=4 if twoD else 2)
+        x = rng.normal(size=(2, 1) + tuple(kw["img_size"])).astype(np.float32)
+    return (JSAP(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw),
+            SAP(attn_impl="FLASH", **kw), x, ps)
+
+
+@pytest.mark.parametrize("case", ["3d_adaptive", "2d_adaptive", "3d", "2d"])
+def test_sap_matches_flax(case):
+    jmod, ours, x, ps = _sap_case(case)
+    params = _params(jmod, jnp.asarray(x), None, _j(ps))
+    exported, converted = export_torch_state(params), jax_to_torch_state(params)
+    assert sorted(converted) == sorted(exported) == sorted(ours.state_dict())
+    for k in exported:  # value for value: the neck's kernel mirrored on both sides
+        np.testing.assert_array_equal(converted[k], exported[k], err_msg=k)
+    assert "neck.0.weight" in exported and "mask_header.0.bias" in exported
+    load_jax_params(ours, params).eval()
+    want = _jax_f64(lambda p, *a: jmod.apply({"params": p}, a[0], None, *a[1:]), params, x, ps)
+    with torch.inference_mode():
+        got = ours(torch.from_numpy(x), seq_ps=_t(ps))
+    assert got.shape == want.shape == (2, 4) + x.shape[2:]
+    _close(got, want, SAP_TOL)
+
+
+def test_sap_conversion_mirrors_the_neck():
+    """The neck's kernel taken over unmirrored moves the logits far past the
+    tolerance: with kernel = stride = p the blocks do not overlap, so the
+    missing flip permutes each p^3 block of the output, which only a value
+    comparison sees."""
+    jmod, ours, x, ps = _sap_case("3d_adaptive")
+    params = _params(jmod, jnp.asarray(x), None, jnp.asarray(ps))
+    load_jax_params(ours, params).eval()
+    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x), None, jnp.asarray(ps)))
+    k = np.asarray(params["neck"]["kernel"])
+    with torch.no_grad():
+        ours.neck[0].weight.copy_(torch.from_numpy(k.transpose(3, 4, 0, 1, 2)))
+        got = ours(torch.from_numpy(x), seq_ps=torch.from_numpy(ps)).numpy()
+    assert np.abs(got - want).max() > 100 * SAP_TOL
+
+
+@pytest.mark.parametrize("bad, match", [
+    ({"class_token": True}, "class_token=False"),
+    ({"patch_drop_rate": 0.5}, "set patch_drop_rate: 0"),
+], ids=["class_token", "patch_drop"])
+def test_sap_refuses_what_the_jax_model_asserts(bad, match):
+    kw = dict(img_size=(16, 16), patch_size=4, in_chans=1, embed_dim=24, depth=1, num_heads=2)
+    with pytest.raises(AssertionError, match=match):
+        SAP(**kw, **bad)
+    with pytest.raises(ValueError, match="sqrt-len"):
+        SAP(adaptive_patching=True, fixed_length=16, **kw)
+
+
+@pytest.mark.parametrize("nd", [3, 2], ids=["3d", "2d"])
+@pytest.mark.parametrize("apply_sigmoid", [True, False], ids=["logits", "probabilities"])
+def test_dice_b_loss_matches_jax(nd, apply_sigmoid):
+    """At batch 2 with a class absent from the whole batch and another from one
+    sample, so that a per-sample or per-class Dice would differ: the loss and
+    its gradient within DICE_B_TOL."""
+    rng = np.random.default_rng(nd)
+    spatial = (5,) * nd
+    logits = (2 * rng.normal(size=(2, 4) + spatial)).astype(np.float32)
+    if not apply_sigmoid:  # probabilities, some at the clip's edges
+        logits = np.clip(rng.uniform(-0.05, 1.05, size=logits.shape), 0, 1).astype(np.float32)
+    labels = rng.integers(0, 3, size=(2,) + spatial)  # class 3 absent
+    labels[1][labels[1] == 2] = 0  # class 2 absent from sample 1
+    onehot = np.moveaxis(np.eye(4, dtype=np.float32)[labels], -1, 1)
+
+    def jloss(z):
+        return jax_metrics.dice_b_loss(z, jnp.asarray(onehot), apply_sigmoid=apply_sigmoid)
+
+    want, wgrad = jax.value_and_grad(jloss)(jnp.asarray(logits))
+    z = torch.from_numpy(logits).requires_grad_()
+    got = metrics.dice_b_loss(z, torch.from_numpy(onehot), apply_sigmoid=apply_sigmoid)
+    got.backward()
+    assert got.dtype == torch.float32 and abs(got.item() - float(want)) <= DICE_B_TOL
+    np.testing.assert_allclose(z.grad.numpy(), np.asarray(wgrad), atol=DICE_B_TOL, rtol=0)
+    # a per-sample Dice would be another number here
+    per = metrics.dice_b_loss(z[:1], torch.from_numpy(onehot[:1]), apply_sigmoid=apply_sigmoid)
+    assert abs(per.item() - got.item()) > 10 * DICE_B_TOL
+
+
+@pytest.mark.parametrize("n_a, n_i, heads", [(1, 3, 4), (2, 5, 2)], ids=["1x3", "2x5"])
+def test_variable_mapping_attention_matches_flax(n_a, n_i, heads):
+    q, x = _x(6, n_a, 32), _x(6, n_i, 32, seed=2)
+    jmod = JVariableMappingAttention(dim=32, num_heads=heads)
+    params = _params(jmod, jnp.asarray(q), jnp.asarray(x))
+    holder = torch.nn.Module()
+    holder.var_agg = VariableMappingAttention(32, heads)
+    load_jax_params(holder, {"var_agg": params})
+    assert sorted(holder.state_dict()) == ["var_agg.kv.weight", "var_agg.proj.bias",
+                                           "var_agg.proj.weight", "var_agg.q.weight"]
+    with torch.no_grad():
+        got = holder.var_agg(torch.from_numpy(q), torch.from_numpy(x))
+    _close(got, jmod.apply({"params": params}, jnp.asarray(q), jnp.asarray(x)), VARMAP_TOL)
+
+
+VAREMB_CASES = {  # VIT keywords, input channels, var_ids
+    "multi": (dict(), 3, (0, 1, 2)),
+    "multi_out_of_order": (dict(), 2, (2, 0)),
+    "adaptive_multi": (dict(adaptive_patching=True, fixed_length=16,
+                            use_adaptive_pos_emb=True), 3, (0, 1, 2)),
+    "single_channel": (dict(single_channel=True), 1, (1,)),
+    "single_channel_adaptive": (dict(single_channel=True, adaptive_patching=True,
+                                     fixed_length=16), 1, (2,)),
+    "one_variable": (dict(default_vars=("ct",)), 1, (0,)),
+}
+
+
+def _varemb_inputs(kw, channels, seed=1):
+    """(x, seq_ps): the image `[2, C, 32, 32]`, or adaptive the sequence `[2, C,
+    16, 64]` and its descriptors."""
+    rng = np.random.default_rng(seed)
+    if not kw.get("adaptive_patching"):
+        return rng.normal(size=(2, channels, 32, 32)).astype(np.float32), None
+    x = rng.normal(size=(2, channels, 16, 64)).astype(np.float32)
+    ps = np.concatenate([rng.integers(2, 9, size=(2, 16, 1)),
+                         rng.uniform(0, 32, size=(2, 16, 2))], -1).astype(np.float32)
+    return x, (ps if kw.get("use_adaptive_pos_emb") else None)
+
+
+def _merge(a, b):
+    """The union of two flax trees, `a`'s leaf where both hold one."""
+    out = dict(b)
+    for k, v in a.items():
+        out[k] = _merge(v, b[k]) if isinstance(v, dict) and k in b else v
+    return out
+
+
+def _varemb_params(jmod, kw, ps):
+    """The flax tree of every variable's embed: flax creates a submodule's
+    parameters only where init calls it, so init runs on every variable (at
+    once, or one at a time for a single-channel model) and the trees merge."""
+    n = len(kw["default_vars"])
+    sets = [(v,) for v in range(n)] if kw.get("single_channel") else [tuple(range(n))]
+    params = {}
+    for ids in sets:
+        x, _ = _varemb_inputs(kw, len(ids))
+        params = _merge(params, _params(jmod, jnp.asarray(x), ids, _j(ps)))
+    return params
+
+
+@pytest.mark.parametrize("case", sorted(VAREMB_CASES))
+def test_varemb_vit_logits_match_flax(case):
+    extra, channels, var_ids = VAREMB_CASES[case]
+    kw = dict(img_size=(32, 32), patch_size=8, in_chans=channels, num_classes=5, embed_dim=32,
+              depth=2, num_heads=4, use_varemb=True, default_vars=("red", "green", "blue"))
+    kw.update(extra)
+    x, ps = _varemb_inputs(kw, channels)
+    jmod = JVIT(attn_impl=JAttnImpl.EINSUM, **kw)
+    params = _varemb_params(jmod, kw, ps)
+    ours = VIT(attn_impl="FLASH", **kw)
+    exported, converted = export_torch_state(params), jax_to_torch_state(params)
+    assert sorted(converted) == sorted(exported) == sorted(ours.state_dict())
+    for k in exported:
+        np.testing.assert_array_equal(converted[k], exported[k], err_msg=k)
+    merged = len(kw["default_vars"]) > 1 and not kw.get("single_channel")
+    assert ("var_agg.kv.weight" in exported) == merged == ("var_query" in exported)
+    load_jax_params(ours, params).eval()
+    with torch.inference_mode():
+        got = ours(torch.from_numpy(x), seq_ps=_t(ps), var_ids=var_ids)
+    _close(got, jmod.apply({"params": params}, jnp.asarray(x), var_ids, _j(ps)), VAREMB_TOL)
+
+
+def _jax_example_variables(cfg):
+    """The variables of the JAX package's example batch for `cfg`."""
+    return next(jax_synthetic_batches(cfg, 1))["variables"]
+
+
+@pytest.mark.parametrize("init", [
+    {"adaptive_patching": True, "fixed_length": 16, "use_varemb": True, "single_channel": True},
+    {"use_varemb": True},
+], ids=["adaptive_single_channel", "multi"])
+def test_build_classification_with_varemb_matches_jax(init):
+    """The configs the port refused before: built from the config, their
+    state names the JAX model's and their logits the JAX ones on the example
+    batch's variables, `var_embed` initialised from the 1-D sincos table."""
+    cfg = _small_cfg(**init)
+    if init.get("single_channel"):
+        cfg.raw["data"].update(single_channel=True, num_channels_used={"d": 1})
+    jmod, _ = jax_build_classification(cfg)
+    model = build_classification(cfg)
+    var_ids = model.get_var_ids(_jax_example_variables(cfg))
+    x, ps = _varemb_inputs(init, cfg.max_channels)
+    params = _varemb_params(jmod, dict(init, default_vars=cfg.default_vars), ps)
+    load_jax_params(model, params).eval()
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x), seq_ps=_t(ps), var_ids=var_ids)
+    _close(got, jmod.apply({"params": params}, jnp.asarray(x), var_ids, _j(ps)), VAREMB_TOL)
+    fresh = build_classification(cfg).init_weights(torch.Generator().manual_seed(0))
+    table = jax_pos_embed.get_1d_sincos_pos_embed_from_grid(32, np.arange(3))
+    np.testing.assert_allclose(fresh.var_embed[0].detach().numpy(), table, atol=1e-7)

@@ -272,9 +272,9 @@ _MAE_ONLY = ("decoder_", "mask_token")
 
 def transfer_mae_encoder(mae_state: Dict[str, torch.Tensor], target_state: Dict[str, torch.Tensor],
                          new_pos_embed_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """A copy of `target_state` (a UNETR's `state_dict`) with every entry of
-    an MAE's `mae_state` that the target holds at the same shape, the MAE's
-    decoder and mask token left out (`ucf_vit_tpu/checkpoint.py:358-392`).
+    """A copy of `target_state` (a UNETR's or SAP's `state_dict`) with every
+    entry of an MAE's `mae_state` that the target holds at the same shape, the
+    MAE's decoder and mask token left out (`ucf_vit_tpu/checkpoint.py:358-392`).
     With `new_pos_embed_len`, a `[1, L, D]` position table of another length
     is first resampled linearly to the target's (`interpolate_pos_embed_1d`).
     Entries of the target that the MAE lacks keep their values."""

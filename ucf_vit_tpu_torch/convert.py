@@ -12,6 +12,9 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
   token_embed/proj/kernel      token_embeds.proj.weight   [*k,i,o]->[o,i,*k]
   token_embed/{norm_in,proj,norm_out}
                                token_embeds.{0,1,2}       (adaptive LN-Linear-LN)
+  token_embed_2/proj/kernel    token_embeds.2.proj.weight (varemb: one a variable)
+  var_agg/{q,kv,proj}/kernel   var_agg.{q,kv,proj}.weight transpose
+  var_embed, var_query         same name                  identity
   adaptive_pos_dep_emb/linear/kernel, decoder_adaptive_pos_dep_emb/linear/kernel
                                (decoder_)adaptive_pos_dep_emb.0.weight  transpose
   pos_embed, cls_token, gamma  same name                  identity
@@ -26,15 +29,18 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
                                decoder5.conv_block.conv1.weight
   out/conv/kernel, mlp_head/kernel
                                out.conv.weight, mlp_head.weight
+  neck/kernel                  neck.0.weight              (SAP's ConvTranspose, + flip)
+  mask_header/kernel           mask_header.0.weight       [*k,i,o]->[o,i,*k]
 
-A ConvTranspose kernel (a module named `transp_conv`, `transp_conv_init` or
-`up_<i>`) is mirrored in every spatial axis on the way: flax's transposed
+A ConvTranspose kernel (a module named `neck`, `transp_conv`,
+`transp_conv_init` or `up_<i>`) is mirrored in every spatial axis on the way: flax's transposed
 convolution does not mirror the kernel, torch's does
 (`ucf_vit_tpu/tools/convert_checkpoint.py:29-30`). With kernel = stride
 there is no overlap, so a missing flip would only permute each block.
 
 It covers the ported modules (PatchEmbed, LinearTokenEmbed, AdaptivePosMLP,
-Mlp, Attention, Block, VIT, MAE, DiffusionVIT, UNETR and its decoder blocks;
+Mlp, Attention, VariableMappingAttention, Block, VIT with or without the
+variable embedding, MAE, DiffusionVIT, UNETR and its decoder blocks, SAP;
 DiffusionVIT's time table is a constant on both sides, in neither tree),
 from a whole model or from one of them. A scan-layers tree (`scan_layers=True` on
 the JAX side: `blocks/block/<leaves stacked [depth, ...]>`, recognised as
@@ -57,7 +63,9 @@ _LTE_CHILD = {"norm_in": "0", "proj": "1", "norm_out": "2"}
 # the flax modules that are a Sequential of (Linear, GELU) in torch
 _SEQ0_PARENTS = ("adaptive_pos_dep_emb", "decoder_adaptive_pos_dep_emb")
 # the flax modules whose kernel is a ConvTranspose's
-_CONVT = re.compile(r"transp_conv|transp_conv_init|up_\d+")
+_CONVT = re.compile(r"neck|transp_conv|transp_conv_init|up_\d+")
+# the flax modules that are a Sequential of one conv in torch (SAP's)
+_SEQ_OF_ONE = ("neck", "mask_header")
 
 
 def _segment(name: str, parent: str = "", lte: bool = False) -> str:
@@ -70,8 +78,11 @@ def _segment(name: str, parent: str = "", lte: bool = False) -> str:
     m = re.fullmatch(r"(decoder_blocks|blocks)_(\d+)", name)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
-    if name == "token_embed":
-        return "token_embeds"
+    m = re.fullmatch(r"token_embed(?:_(\d+))?", name)  # varemb: one embed a variable
+    if m:
+        return "token_embeds" + (f".{m.group(1)}" if m.group(1) else "")
+    if name in _SEQ_OF_ONE:
+        return f"{name}.0"
     if name == "time_embedding_map":
         return "timeEmbeddingMap"
     m = re.fullmatch(r"(up|res)_(\d+)", name)  # UnetrPrUpBlock's (upsample, res block) pairs

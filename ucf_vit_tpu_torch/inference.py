@@ -11,14 +11,16 @@ serving (the roles of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`, and
 of the server's `load_weights`, `ucf_vit_tpu/serve.py:216-237`), an MAE's
 reconstruction under a fixed mask, top-1 accuracy of a classifier
 (`evaluate_classification`), and DiffusionVIT's images by the DDPM reverse
-chain (`generate_diffusion`), with a PNG a sample, a UNETR's Dice
-(`evaluate`: per sample and the mean, MONAI's DiceMetric without the
-background; `--mae-checkpoint` starts the encoder from an MAE's; PNGs of the
-middle slice), and the sliding-window segmentation of a whole volume
-(`VolumePredictor`, `predict_volume`, the CLI's `--volume`). The PNG writer
-imports matplotlib when it is asked for PNGs, never at import time.
-`evaluate` sends a config to the evaluation of its task; SAP is not ported
-yet (ROADMAP.md, item 8).
+chain (`generate_diffusion`), with a PNG a sample, a UNETR's or a SAP's
+Dice (`evaluate_segmentation`: per batch and the mean, MONAI's DiceMetric
+without the background; SAP's in the sqrt-len pseudo-image space against
+the reassembled serialized labels; `--mae-checkpoint` starts the encoder
+from an MAE's; PNGs of the middle slice, SAP's prediction written back to
+image space through the sample's tree), and the sliding-window segmentation
+of a whole UNETR volume (`VolumePredictor`, `predict_volume`, the CLI's
+`--volume`). The PNG writer imports matplotlib when it is asked for PNGs,
+never at import time. `evaluate` sends a config to the evaluation of its
+task.
 """
 
 from __future__ import annotations
@@ -36,7 +38,17 @@ from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import MAE, DiffusionVIT, ddpm_sample, ddpm_schedule
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
-from ucf_vit_tpu_torch.tasks import build_task, model_inputs, num_classes, time_steps, unetr_inputs
+from ucf_vit_tpu_torch.tasks import (
+    build_task,
+    disassemble_sqrt_len,
+    model_inputs,
+    num_classes,
+    sap_inputs,
+    sap_labels,
+    time_steps,
+    unetr_inputs,
+    var_ids_of,
+)
 
 Device = Union[str, torch.device, None]
 
@@ -92,7 +104,7 @@ def load_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
 
 @torch.no_grad()
 def reconstruct(model: torch.nn.Module, x: torch.Tensor, seed: int = 0,
-                seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_ps: Optional[torch.Tensor] = None, var_ids=None) -> torch.Tensor:
     """An MAE's reconstruction of images `x` `[B, C, *spatial]` in image
     space: the prediction of every token, unpatchified, under the mask that
     noise drawn from `torch.Generator(x.device).manual_seed(seed)` gives, so
@@ -104,7 +116,7 @@ def reconstruct(model: torch.nn.Module, x: torch.Tensor, seed: int = 0,
     if not isinstance(model, MAE):
         raise TypeError(f"reconstruct takes an MAE, got {type(model).__name__}")
     noise = mask_noise(model, x.shape[0], seed, x.device)
-    pred, _ = model.eval()(x, mask_noise=noise, seq_ps=seq_ps)
+    pred, _ = model.eval()(x, mask_noise=noise, seq_ps=seq_ps, var_ids=var_ids)
     if model.adaptive_patching:
         return pred
     return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)
@@ -132,9 +144,10 @@ def diffusion_sampler(cfg: Config, model: torch.nn.Module, num_samples: int
     nd = 2 if cfg.twoD else 3
     shape = (int(num_samples), cfg.max_channels) + tuple(cfg.tile_size[:nd])
     schedule = ddpm_schedule(time_steps(cfg)).to(dev)
+    var_ids = var_ids_of(cfg, model)
 
     def denoise(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return unpatchify(model(x_t, t), shape, model.patch_size, model.twoD)
+        return unpatchify(model(x_t, t, var_ids=var_ids), shape, model.patch_size, model.twoD)
 
     @torch.inference_mode()
     def generate(seed: int) -> torch.Tensor:
@@ -230,6 +243,7 @@ def evaluate_classification(cfg: Config, checkpoint_dir: Optional[str] = None,
         epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
         print(f"loaded checkpoint from epoch {epoch}", flush=True)
     dev = next(model.parameters()).device
+    var_ids = var_ids_of(cfg, model)
     if synthetic:
         it = synthetic_batches(cfg, cfg.batch_size)
     else:
@@ -243,7 +257,7 @@ def evaluate_classification(cfg: Config, checkpoint_dir: Optional[str] = None,
                     break
                 b = to_device(batch, dev)
                 x, ps = model_inputs(cfg, b)
-                logits = model(x, seq_ps=ps)
+                logits = model(x, seq_ps=ps, var_ids=var_ids)
                 correct += float(accuracy(logits, b["label"])) * logits.shape[0]
                 seen += logits.shape[0]
     finally:
@@ -251,11 +265,6 @@ def evaluate_classification(cfg: Config, checkpoint_dir: Optional[str] = None,
     top1 = correct / max(seen, 1)
     print(f"top-1 accuracy over {seen} samples: {top1:.4f}", flush=True)
     return top1
-
-
-# tasks whose evaluation and serving are still to port -> the ROADMAP.md item that
-# ports each
-UNPORTED_TASKS = {"sap": "item 8: SAP"}
 
 
 def _dump_png(png_dir: str, idx: int, pred: np.ndarray, label: np.ndarray) -> None:
@@ -267,17 +276,35 @@ def _dump_png(png_dir: str, idx: int, pred: np.ndarray, label: np.ndarray) -> No
     _save_panels(png_dir, f"sample_{idx}.png", [("prediction", pred), ("label", label)])
 
 
-def evaluate_unetr(cfg: Config, checkpoint_dir: Optional[str] = None,
-                   mae_checkpoint_dir: Optional[str] = None, synthetic: bool = False,
-                   num_samples: int = 8, png_dir: Optional[str] = None, batch_size: int = 1,
-                   use_ema: bool = False, *, device: Device = None) -> float:
-    """A UNETR's Dice (`ucf_vit_tpu/inference.py:175-314`) over `num_samples`
-    batches of `batch_size` (one Dice a batch; printed, then their mean,
-    which it returns): the seeded init, a checkpoint's weights (with `use_ema`
-    its EMA) and then, with `mae_checkpoint_dir`, the encoder from an MAE
-    checkpoint (its slot: `trainer.checkpoint_filename_for_loading`, as the
-    JAX CLI reads it). The synthetic stream, or the config's files through the
-    `DataModule`. With `png_dir`, one PNG a batch (its first sample)."""
+def _deserialize_pred(pred, qdt, sqrt_len: int, p: int, twoD: bool) -> np.ndarray:
+    """A SAP class map in the sqrt-len pseudo-image space -> image space
+    through the sample's quadtree or octree (`ucf_vit_tpu/inference.py:397-408`):
+    its tokens `[L, p^nd]` as f32, each written over its leaf, rounded to
+    int64; of a list of trees (one a channel) the first."""
+    tokens = disassemble_sqrt_len(torch.as_tensor(pred).float().cpu(), sqrt_len, p, twoD)
+    if isinstance(qdt, list):
+        qdt = qdt[0]
+    out = qdt.deserialize(tokens.numpy(), p, 1)
+    return np.rint(out[..., 0]).astype(np.int64)
+
+
+def evaluate_segmentation(cfg: Config, checkpoint_dir: Optional[str] = None,
+                          mae_checkpoint_dir: Optional[str] = None, synthetic: bool = False,
+                          num_samples: int = 8, png_dir: Optional[str] = None,
+                          batch_size: int = 1, use_ema: bool = False, *,
+                          device: Device = None) -> float:
+    """A UNETR's or a SAP's Dice (`ucf_vit_tpu/inference.py:175-314`) over
+    `num_samples` batches of `batch_size` (one Dice a batch; printed, then
+    their mean, which it returns): the seeded init, a checkpoint's weights
+    (with `use_ema` its EMA) and then, with `mae_checkpoint_dir`, the encoder
+    from an MAE checkpoint (its slot: `trainer.checkpoint_filename_for_loading`,
+    as the JAX CLI reads it). The synthetic stream, or the config's files
+    through the `DataModule`. A SAP is scored in the pseudo-image space its
+    logits live in, against the serialized labels reassembled the same way
+    (`tasks.sap_labels`). With `png_dir`, one PNG a batch (its first sample);
+    a SAP's prediction is first written back to image space through the
+    sample's tree (`_deserialize_pred`; the loader keeps the trees then) and
+    drawn beside the image-space label."""
     from ucf_vit_tpu_torch.train import (
         build_dataloader,
         synthetic_batches,
@@ -297,10 +324,13 @@ def evaluate_unetr(cfg: Config, checkpoint_dir: Optional[str] = None,
                                 cfg.trainer.get("checkpoint_filename_for_loading", ""))
     dev = next(model.parameters()).device
     classes = num_classes(cfg)
+    var_ids = var_ids_of(cfg, model)
+    sap = cfg.task == "sap"
     if synthetic:
         it = synthetic_batches(cfg, batch_size)
     else:
-        dm, _, _ = build_dataloader(cfg, batch_size, synthetic=False)
+        dm, _, _ = build_dataloader(cfg, batch_size, synthetic=False,
+                                    return_qdt=bool(png_dir) and cfg.adaptive_patching)
         it = dm.train_dataloader()
     dices = []
     try:
@@ -309,16 +339,28 @@ def evaluate_unetr(cfg: Config, checkpoint_dir: Optional[str] = None,
                 if i >= num_samples:
                     break
                 b = to_device(batch, dev)
-                x, ps, x_seq = unetr_inputs(cfg, b)
-                pred = model(x, seq_ps=ps, x_seq=x_seq).argmax(dim=1)
-                label = b["label"]
-                if label.ndim == pred.ndim + 1:
-                    label = label[:, 0]
+                if sap:
+                    img, ps = sap_inputs(cfg, b)
+                    pred = model(img, seq_ps=ps, var_ids=var_ids).argmax(dim=1)
+                    label = sap_labels(cfg, b)
+                else:
+                    x, ps, x_seq = unetr_inputs(cfg, b)
+                    pred = model(x, seq_ps=ps, x_seq=x_seq, var_ids=var_ids).argmax(dim=1)
+                    label = b["label"]
+                    if label.ndim == pred.ndim + 1:
+                        label = label[:, 0]
                 d = float(dice_metric(pred, label, classes))
                 dices.append(d)
                 print(f"sample {i}: dice {d:.4f}", flush=True)
                 if png_dir:
-                    _dump_png(png_dir, i, pred[0].cpu().numpy(), label[0].cpu().numpy())
+                    png_pred, png_label = pred[0].cpu().numpy(), label[0].cpu().numpy()
+                    if sap and "qdt" in batch:
+                        png_pred = _deserialize_pred(pred[0], batch["qdt"][0], cfg.sqrt_len,
+                                                     cfg.patch_size, cfg.twoD)
+                        png_label = np.asarray(batch["label"][0])
+                        if png_label.ndim == png_pred.ndim + 1:
+                            png_label = png_label[0]
+                    _dump_png(png_dir, i, png_pred, png_label)
     finally:
         it.close()
     mean_dice = float(np.mean(dices)) if dices else float("nan")
@@ -333,20 +375,17 @@ def evaluate(cfg: Config, checkpoint_dir: Optional[str] = None,
     """The evaluation of `cfg`'s task, with the JAX function's arguments
     (`ucf_vit_tpu/inference.py:175`): top-1 accuracy for classification,
     samples/s of generation for diffusion (PNGs with `png_dir`), the mean
-    Dice for UNETR (`evaluate_unetr`; `mae_checkpoint_dir` and `batch_size`
-    are its arguments)."""
-    if cfg.task == "unetr":
-        return evaluate_unetr(cfg, checkpoint_dir, mae_checkpoint_dir, synthetic, num_samples,
-                              png_dir, batch_size, use_ema, device=device)
+    Dice for UNETR and SAP (`evaluate_segmentation`; `mae_checkpoint_dir` and
+    `batch_size` are its arguments)."""
+    if cfg.task in ("unetr", "sap"):
+        return evaluate_segmentation(cfg, checkpoint_dir, mae_checkpoint_dir, synthetic,
+                                     num_samples, png_dir, batch_size, use_ema, device=device)
     if cfg.task == "classification":
         return evaluate_classification(cfg, checkpoint_dir, synthetic, num_samples, use_ema,
                                        device=device)
     if cfg.task == "diffusion":
         return generate_diffusion(cfg, checkpoint_dir, num_samples, png_dir, use_ema=use_ema,
                                   device=device)
-    if cfg.task in UNPORTED_TASKS:
-        raise NotImplementedError(f"evaluating task {cfg.task!r} is not ported yet "
-                                  f"(ROADMAP.md, modules to port, {UNPORTED_TASKS[cfg.task]})")
     raise ValueError(f"the inference CLI evaluates classification, diffusion, unetr and sap; "
                      f"got task {cfg.task!r}")
 
@@ -392,8 +431,11 @@ class VolumePredictor:
                  model: Optional[torch.nn.Module] = None, sw_batch: int = 4,
                  use_ema: bool = False, blend: str = "gaussian", *, device: Device = None):
         if cfg.task != "unetr":
-            raise ValueError(f"sliding-window stitching takes a UNETR's image-space logits; "
-                             f"got task {cfg.task!r}")
+            # the JAX package's assertion (`ucf_vit_tpu/inference.py:484-487`), raised
+            # explicitly so that it holds under -O
+            raise AssertionError(
+                "sliding-window stitching needs image-space tile logits; SAP predicts in "
+                "the sqrt-len pseudo-image space (use evaluate())")
         from ucf_vit_tpu_torch.serve import make_preprocessor
 
         self.cfg = cfg
@@ -405,6 +447,7 @@ class VolumePredictor:
             if checkpoint_dir:
                 load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
         self.model = model.eval()
+        self.var_ids = var_ids_of(cfg, model)
         self.dev = next(model.parameters()).device
         self._pre = make_preprocessor(cfg)
         self._w_map = (gaussian_importance(self.tile) if blend == "gaussian"
@@ -418,7 +461,8 @@ class VolumePredictor:
         and on a card copied into pinned memory behind an event."""
         b = {k: torch.from_numpy(v).to(self.dev, non_blocking=True) for k, v in batch.items()}
         x, ps, x_seq = unetr_inputs(self.cfg, b)
-        probs = torch.softmax(self.model(x, seq_ps=ps, x_seq=x_seq).float(), dim=1)
+        probs = torch.softmax(self.model(x, seq_ps=ps, x_seq=x_seq, var_ids=self.var_ids).float(),
+                              dim=1)
         if self.dev.type != "cuda":
             return probs, None
         host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)

@@ -259,6 +259,35 @@ class Attention(nn.Module):
         return self.proj_drop(self.proj(out))
 
 
+class VariableMappingAttention(nn.Module):
+    """Cross attention of a few queries over a few keys, the variable
+    embedding's merge (`ucf_vit_tpu/models/blocks.py:362-409`): `q` of the
+    queries and the fused `kv` of the inputs without bias, heads of `dim //
+    num_heads`, then `proj` with a bias; `[B', Na, D]` queries over `[B', Ni,
+    D]` inputs -> `[B', Na, D]`, each Linear in `dtype`. With one query over
+    as many keys as variables it runs EINSUM attention, as the JAX module
+    does on purpose: a flash kernel's tile would be almost all padding."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
+                 proj_bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.q = Linear(dim, dim, bias=qkv_bias, dtype=dtype)
+        self.kv = Linear(dim, 2 * dim, bias=qkv_bias, dtype=dtype)
+        self.proj = Linear(dim, dim, bias=proj_bias, dtype=dtype)
+
+    def forward(self, var_query: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        bq, n_a, c = var_query.shape
+        n_i = x.shape[1]
+        h, dh = self.num_heads, self.head_dim
+        q = self.q(var_query).view(bq, n_a, h, dh).transpose(1, 2)
+        k, v = self.kv(x).view(bq, n_i, 2, h, dh).unbind(2)
+        out = multi_head_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   impl=AttnImpl.EINSUM, sm_scale=dh**-0.5)
+        return self.proj(out.transpose(1, 2).reshape(bq, n_a, c))
+
+
 class Block(nn.Module):
     """Pre-norm transformer block."""
 

@@ -22,7 +22,7 @@ variants), both refused by `VIT`.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -105,10 +105,11 @@ class DiffusionVIT(VIT):
 
     # --------------------------------------------------------------- forward
 
-    def forward_features(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor, t: torch.Tensor,
+                         var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Embed, position embedding, patch dropout, + the time embedding of
         each sample's step, blocks, norm (`:146`)."""
-        x = self.patch_drop(self.apply_pos_embed(self.embed_tokens(x)))
+        x = self.patch_drop(self.apply_pos_embed(self.embed_tokens(x, var_ids)))
         time_emb = self.timeEmbeddingMap(self.time_table[t.to(x.device)].to(x.dtype))
         x = x + time_emb[:, None, :]
         return self.norm(self.run_blocks(x))
@@ -121,5 +122,6 @@ class DiffusionVIT(VIT):
             x = self.decoder_norm(self._run_stack(self.decoder_blocks, x))
         return self.decoder_pred(x)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return self.forward_head(self.forward_features(x, t))
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
+        return self.forward_head(self.forward_features(x, t, var_ids))

@@ -21,8 +21,10 @@ As in the JAX model the decoder adds an f32 position table to the bf16
 embedding, so under the bf16 policy the decoder's residual stream is f32;
 the decoder norm and the prediction head take no dtype, so `pred` is f32.
 
-Not ported, and refused with the ROADMAP.md item: varemb and the sqrt-len
-method (VIT input variants), `pipe_par_size > 1` (pipeline + MoE).
+With `use_varemb` the encoder embeds each variable by its own embed and
+merges them (`VIT.embed_tokens`, `var_ids`). Not ported, and refused with the
+ROADMAP.md item: `pipe_par_size > 1` (pipeline + MoE); the sqrt-len method is
+UNETR's and SAP's input, not MAE's.
 """
 
 from __future__ import annotations
@@ -192,9 +194,10 @@ class MAE(VIT):
     # --------------------------------------------------------------- forward
 
     def forward_features(self, x: torch.Tensor, mask_noise: Optional[torch.Tensor] = None,
-                         seq_ps: Optional[torch.Tensor] = None
+                         seq_ps: Optional[torch.Tensor] = None,
+                         var_ids: Optional[Sequence[int]] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
+        x = self.apply_pos_embed(self.embed_tokens(x, var_ids), seq_ps)
         x, mask, ids_restore = self.random_masking(x, mask_noise)
         # after masking, as in the JAX model (and the reference)
         x = self.patch_drop(x)
@@ -209,6 +212,7 @@ class MAE(VIT):
         return self.norm(x), mask, ids_restore
 
     def forward(self, x: torch.Tensor, mask_noise: Optional[torch.Tensor] = None,
-                seq_ps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        x, mask, ids_restore = self.forward_features(x, mask_noise, seq_ps)
+                seq_ps: Optional[torch.Tensor] = None,
+                var_ids: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, mask, ids_restore = self.forward_features(x, mask_noise, seq_ps, var_ids)
         return self.mask_head(x, ids_restore, seq_ps), mask

@@ -123,7 +123,8 @@ class UNETR(VIT):
         return self.out(blk(self.decoder2, dec1, enc1))
 
     def forward(self, x: torch.Tensor, seq_ps: Optional[torch.Tensor] = None,
-                x_seq: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_seq: Optional[torch.Tensor] = None,
+                var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
         """`x` `[B, C, *spatial]`; with adaptive patching `x_seq`, the sequence
         reassembled into the `[B, C, (sqrt_len * p)^nd]` image, and its
         descriptors `seq_ps`. Returns the logits `[B, num_classes, *spatial]`."""
@@ -133,8 +134,8 @@ class UNETR(VIT):
         if self.skip_connection and not self.linear_decoder:
             enc1 = self._block(self.encoder1, x)
             tokens, intermediates = self.forward_intermediates(
-                enc_input, self.skip_indices, seq_ps=seq_ps)
+                enc_input, self.skip_indices, seq_ps=seq_ps, var_ids=var_ids)
         else:
             enc1, intermediates = None, None
-            tokens = self.forward_features(enc_input, seq_ps=seq_ps)
+            tokens = self.forward_features(enc_input, seq_ps=seq_ps, var_ids=var_ids)
         return self.unetr_head(self.pool(tokens), intermediates, enc1)

@@ -18,8 +18,17 @@ the sequence into an image of `(sqrt_len * p)^nd` pixels
 (`tasks.reassemble_sqrt_len`), which the conv patch embed tokenizes into
 `sqrt_len^nd` tokens with the sincos table of that grid. `forward_intermediates`
 also returns the un-normed outputs of chosen blocks (UNETR's skips).
-Variable embeddings, pipelined blocks and MoE raise NotImplementedError until
-their slices (ROADMAP.md).
+
+The variable embedding (`use_varemb`, `ucf_vit_tpu/models/vit.py:230-518`):
+one token embed per variable of `default_vars` (a conv patch embed of one
+channel, or a `LinearTokenEmbed` of `p^nd` features), each variable's tokens
+plus its row of `var_embed` (the 1-D sincos table over the variables), and
+the variables of a sample merged token by token by `VariableMappingAttention`
+(one learned query, `var_query`, over the variables' tokens). `var_ids`, the
+indices of the batch's `variables` in `default_vars` (`get_var_ids`), says
+which embed each input channel takes; a `single_channel` batch is one
+variable's and is not merged. Pipelined blocks and MoE raise
+NotImplementedError until their slices (ROADMAP.md).
 
 `scan_layers` names a parameter layout of the JAX package (block leaves
 stacked `[depth, ...]` under `lax.scan`, which keeps XLA's compile time
@@ -46,11 +55,16 @@ from ucf_vit_tpu_torch.models.blocks import (
     Linear,
     LinearTokenEmbed,
     PatchEmbed,
+    VariableMappingAttention,
     layer_norm,
     set_generator,
 )
 from ucf_vit_tpu_torch.ops.attention import AttnImpl
-from ucf_vit_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed, get_3d_sincos_pos_embed
+from ucf_vit_tpu_torch.ops.pos_embed import (
+    get_1d_sincos_pos_embed_from_grid,
+    get_2d_sincos_pos_embed,
+    get_3d_sincos_pos_embed,
+)
 
 # flax's truncated_normal(stddev) draws from N(0, 1) cut at +-2 and rescales
 # by this constant so that the result has the requested stddev
@@ -110,6 +124,8 @@ class VIT(nn.Module):
         use_adaptive_pos_emb: bool = False,
         sqrt_len_method: bool = False,
         use_varemb: bool = False,
+        default_vars: Optional[Sequence[str]] = None,
+        single_channel: bool = False,
         remat: bool = False,
         scan_layers: bool = False,
         pipe_par_size: int = 1,
@@ -119,8 +135,8 @@ class VIT(nn.Module):
         block_seg_len: Optional[int] = None,
     ):
         super().__init__()
-        if use_varemb:
-            raise _not_ported("use_varemb", "VIT input variants")
+        if use_varemb and not default_vars:
+            raise ValueError("use_varemb needs default_vars (the variables' names)")
         if adaptive_patching and not fixed_length:
             raise ValueError("adaptive_patching needs fixed_length")
         if pipe_par_size > 1:
@@ -165,9 +181,20 @@ class VIT(nn.Module):
         self.generator: Optional[torch.Generator] = None
         self.host_generator: Optional[torch.Generator] = None
 
-        self.token_embeds = (
-            LinearTokenEmbed(self.patch_dim, embed_dim) if self.adaptive_linear
-            else PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD, dtype=dtype))
+        self.use_varemb = bool(use_varemb)
+        self.default_vars = tuple(default_vars or ())
+        self.single_channel = bool(single_channel)
+        if self.use_varemb:
+            # one embed a variable, each of one channel
+            p_nd = patch_size ** nd
+            self.token_embeds = nn.ModuleList(
+                LinearTokenEmbed(p_nd, embed_dim) if self.adaptive_linear
+                else PatchEmbed(patch_size, embed_dim, 1, twoD=twoD, dtype=dtype)
+                for _ in self.default_vars)
+        else:
+            self.token_embeds = (
+                LinearTokenEmbed(self.patch_dim, embed_dim) if self.adaptive_linear
+                else PatchEmbed(patch_size, embed_dim, in_chans, twoD=twoD, dtype=dtype))
         self.cls_token = (
             nn.Parameter(torch.zeros(1, 1, embed_dim)) if class_token else None
         )
@@ -179,6 +206,14 @@ class VIT(nn.Module):
             AdaptivePosMLP(1 + nd, embed_dim) if use_adaptive_pos_emb
             else None
         )
+        n_vars = len(self.default_vars)
+        self.var_embed = (nn.Parameter(torch.zeros(1, n_vars, embed_dim)) if self.use_varemb
+                          else None)
+        # the variables are merged only where a sample holds more than one
+        merge = self.use_varemb and not self.single_channel and n_vars > 1
+        self.var_query = nn.Parameter(torch.zeros(1, 1, embed_dim)) if merge else None
+        self.var_agg = (VariableMappingAttention(embed_dim, num_heads, dtype=dtype) if merge
+                        else None)
         self.pos_drop = Dropout(pos_drop_rate)
         self.drop_path_rate = float(drop_path_rate)
         # what every block of the model shares (MAE's decoder blocks too)
@@ -204,6 +239,15 @@ class VIT(nn.Module):
 
     # ---------------------------------------------------------------- params
 
+    def var_map(self) -> dict:
+        return {v: i for i, v in enumerate(self.default_vars)}
+
+    def get_var_ids(self, variables: Sequence[str]) -> Tuple[int, ...]:
+        """The indices of `variables` in `default_vars`: which token embed
+        and `var_embed` row each input channel takes."""
+        m = self.var_map()
+        return tuple(m[v] for v in variables)
+
     def sincos_table(self) -> np.ndarray:
         g = self.token_grid
         with_cls = self.cls_token is not None
@@ -216,8 +260,9 @@ class VIT(nn.Module):
         """The JAX package's initialisers, drawn from `generator`: truncated
         normal (std 0.02) kernels, zero biases, unit LayerNorm scales, class
         token N(0, 1e-6), position embedding from the sincos table (adaptive
-        tokens embedded by LinearTokenEmbed: 0.02 * N(0, 1)). The numbers differ from flax's for the same seed; the
-        distributions agree."""
+        tokens embedded by LinearTokenEmbed: 0.02 * N(0, 1)), `var_embed` from
+        the 1-D sincos table over the variables, `var_query` zero. The numbers
+        differ from flax's for the same seed; the distributions agree."""
         std = 0.02 / _TRUNC_STD_CORRECTION
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
@@ -238,6 +283,12 @@ class VIT(nn.Module):
         elif self.pos_embed is not None:
             table = torch.from_numpy(self.sincos_table()).to(self.pos_embed.dtype)
             self.pos_embed.copy_(table.reshape(self.pos_embed.shape))
+        if self.var_embed is not None:
+            table = get_1d_sincos_pos_embed_from_grid(self.embed_dim,
+                                                      np.arange(len(self.default_vars)))
+            self.var_embed.copy_(torch.from_numpy(table).reshape(self.var_embed.shape))
+        if self.var_query is not None:
+            self.var_query.zero_()
         return self
 
     def set_generator(self, generator: torch.Generator,
@@ -251,14 +302,47 @@ class VIT(nn.Module):
 
     # --------------------------------------------------------------- forward
 
-    def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, x: torch.Tensor,
+                     var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Tokenize the input image (with the sqrt-len method the reassembled
         one), or with adaptive patching the sequence `[B, C, L, p^nd]` as
-        `[B, L, p^nd * C]` (the channel fastest): `[B, L, D]`."""
+        `[B, L, p^nd * C]` (the channel fastest): `[B, L, D]`. With
+        `use_varemb`, channel i by the embed of variable `var_ids[i]`."""
+        if self.use_varemb:
+            return self._embed_variables(x, var_ids)
         if self.adaptive_linear:
             b, c, s, p = x.shape
             x = x.permute(0, 2, 3, 1).reshape(b, s, p * c)
         return self.token_embeds(x)
+
+    def _embed_variables(self, x: torch.Tensor, var_ids: Optional[Sequence[int]]
+                         ) -> torch.Tensor:
+        """`embed_tokens` with `use_varemb` (`ucf_vit_tpu/models/vit.py:463-501`):
+        a `single_channel` input is variable `var_ids[0]`'s tokens plus its
+        `var_embed` row; otherwise each channel's tokens plus its variable's
+        row, merged by `aggregate_variables` where there is more than one.
+        The f32 rows promote a bf16 embedding to f32, as in the JAX model."""
+        if var_ids is None:
+            raise ValueError("use_varemb needs var_ids (model.get_var_ids(batch['variables']))")
+        if self.single_channel:
+            vid = var_ids[0]
+            x = self.token_embeds[vid](x[:, 0] if self.adaptive_linear else x)
+            return x + self.var_embed[:, vid:vid + 1]
+        embeds = [self.token_embeds[vid](x[:, i] if self.adaptive_linear else x[:, i:i + 1])
+                  for i, vid in enumerate(var_ids)]
+        var_embed = self.var_embed[:, list(var_ids)]  # [1, V, D]
+        if len(var_ids) > 1:
+            x = torch.stack(embeds, dim=1) + var_embed[:, :, None, :]  # [B, V, L, D]
+            return self.aggregate_variables(x)
+        return embeds[0] + var_embed
+
+    def aggregate_variables(self, x: torch.Tensor) -> torch.Tensor:
+        """`[B, V, L, D]` -> `[B, L, D]`: at every token, `var_query` attends
+        over the V variables' tokens (`ucf_vit_tpu/models/vit.py:503-518`)."""
+        b, v, l, d = x.shape
+        x = x.transpose(1, 2).reshape(b * l, v, d)
+        out = self.var_agg(self.var_query.expand(b * l, -1, -1), x)  # [B * L, 1, D]
+        return out.reshape(b, l, d)
 
     def apply_pos_embed(self, x: torch.Tensor,
                         seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -351,17 +435,19 @@ class VIT(nn.Module):
 
     def forward_features(self, x: torch.Tensor,
                          patch_drop_noise: Optional[torch.Tensor] = None,
-                         seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
+                         seq_ps: Optional[torch.Tensor] = None,
+                         var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
+        x = self.apply_pos_embed(self.embed_tokens(x, var_ids), seq_ps)
         x = self.patch_drop(x, patch_drop_noise)
         return self.norm(self.run_blocks(x))
 
     def forward_intermediates(self, x: torch.Tensor, indices: Sequence[int] = (),
                               seq_ps: Optional[torch.Tensor] = None,
-                              patch_drop_noise: Optional[torch.Tensor] = None):
+                              patch_drop_noise: Optional[torch.Tensor] = None,
+                              var_ids: Optional[Sequence[int]] = None):
         """`(normed output, [the un-normed outputs of blocks `indices`, prefix
         tokens stripped])` (`ucf_vit_tpu/models/vit.py:617-656`)."""
-        x = self.apply_pos_embed(self.embed_tokens(x), seq_ps)
+        x = self.apply_pos_embed(self.embed_tokens(x, var_ids), seq_ps)
         x = self.patch_drop(x, patch_drop_noise)
         remat = self.remat and self.training and torch.is_grad_enabled()
         take, intermediates = set(indices), []
@@ -382,5 +468,6 @@ class VIT(nn.Module):
         return x if self.head is None else self.head(x)
 
     def forward(self, x: torch.Tensor, patch_drop_noise: Optional[torch.Tensor] = None,
-                seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.forward_head(self.forward_features(x, patch_drop_noise, seq_ps))
+                seq_ps: Optional[torch.Tensor] = None,
+                var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
+        return self.forward_head(self.forward_features(x, patch_drop_noise, seq_ps, var_ids))

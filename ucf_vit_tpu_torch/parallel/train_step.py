@@ -73,17 +73,19 @@ def _split(batch: Dict[str, torch.Tensor], n: int):
 
 def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
                     ema_decay: Optional[float] = None):
-    """Build `step(state, batch) -> (state, loss, aux)` for a state made with
-    this `optimizer`.
+    """Build `step(state, batch, var_ids=None) -> (state, loss, aux)` for a
+    state made with this `optimizer`.
 
-    `loss_fn(model, batch) -> (loss, aux)`. The step leaves this step's
+    `loss_fn(model, batch) -> (loss, aux)`; given `var_ids` (the batch's
+    variables for a model with `use_varemb`), `loss_fn(model, batch,
+    var_ids=var_ids)`. The step leaves this step's
     (unscaled, clipped) gradients in each parameter's `.grad` until the next
     step starts, and returns the loss and aux as device tensors, so the
     caller decides when to synchronise."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], var_ids=None):
         model = state.model
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
@@ -93,7 +95,8 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
         micro = _split(batch, accum_steps) if accum_steps > 1 else [batch]
         loss_sum, aux_sum = 0.0, None
         for mb in micro:
-            loss, aux = loss_fn(model, mb)
+            loss, aux = (loss_fn(model, mb) if var_ids is None
+                         else loss_fn(model, mb, var_ids=var_ids))
             (loss * scale if scale is not None else loss).backward()
             loss_sum = loss_sum + loss.detach()
             aux = {k: v.detach() for k, v in (aux or {}).items()}

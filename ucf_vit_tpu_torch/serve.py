@@ -27,12 +27,17 @@
 - **UNETR.** A segmentation deployment's ``/v1/predict`` answers the int32
   class map ``[*tile]`` of a ``[C, *tile]`` volume: the argmax of the logits
   (the JAX server's UNETR branch, ``ucf_vit_tpu/serve.py:255-267``).
+- **SAP.** A SAP deployment answers the int32 class map ``[(sqrt_len *
+  p)^nd]`` in the sqrt-len pseudo-image space its logits live in: the argmax
+  of the logits of the reassembled sequence (``ucf_vit_tpu/serve.py:268-276``).
 - **Adaptive patching.** A request is the raw ``[C, *tile]`` sample; the
   server patchifies it as training does (``make_preprocessor``, the same
   tree for the same request; the octree for a volume), in the handler's
   thread or in a spawn pool of ``--preprocess-workers`` processes, and ships
   only ``seq``, ``seq_size`` and ``seq_pos`` to the device (and ``x``, which
   UNETR's skips read).
+- **Variables.** A model with ``use_varemb`` takes the ``var_ids`` of the
+  example batch's ``variables`` (``ucf_vit_tpu/serve.py:184-188``).
 - **Diffusion.** A DiffusionVIT deployment answers ``POST /v1/generate
   {"seed": s, "num": n}`` with ``[n, C, *tile]`` f32 images as ``.npy``
   (``n`` at most ``--num-generate``): each answer runs the whole DDPM reverse
@@ -40,8 +45,8 @@
   the same images for the same seed. ``/v1/predict`` and ``/v1/reload``
   answer 400 there, as in the JAX server.
 
-This slice serves classification, MAE and UNETR, adaptive or not, and
-diffusion; SAP is still to port (ROADMAP.md, item 8).
+It serves classification, MAE, UNETR and SAP, adaptive or not, and
+diffusion.
 """
 
 from __future__ import annotations
@@ -61,7 +66,6 @@ import torch
 
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.inference import (
-    UNPORTED_TASKS,
     Device,
     diffusion_sampler,
     init_eval_model,
@@ -70,7 +74,7 @@ from ucf_vit_tpu_torch.inference import (
     resolve_device,
 )
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
-from ucf_vit_tpu_torch.tasks import model_inputs, unetr_inputs
+from ucf_vit_tpu_torch.tasks import model_inputs, sap_inputs, unetr_inputs, var_ids_of
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +174,8 @@ def build_predictor(
     ``seq_size``, ``seq_pos``, the keys the preprocessor keeps, and only
     those go to the device) returns, as a tensor on ``device`` and without
     waiting for the device, the logits ``[max_batch, num_classes]`` of a
-    classifier, a UNETR's int32 class map ``[max_batch, *tile]``, or an
+    classifier, a UNETR's int32 class map ``[max_batch, *tile]``, a SAP's
+    ``[max_batch, (sqrt_len * p)^nd]``, or an
     MAE's reconstruction ``[max_batch, C, *tile]`` (an
     adaptive MAE: its predicted tokens ``[max_batch, L, p^nd * C]``, token
     space being its native output); f32 under ``trainer.data_type: bfloat16`` too,
@@ -193,12 +198,9 @@ def build_predictor(
     if cfg.task == "diffusion":
         raise ValueError("a diffusion deployment serves /v1/generate (build_generator), "
                          "not a predictor")
-    if cfg.task not in ("classification", "mae", "unetr"):
-        item = UNPORTED_TASKS.get(cfg.task)
-        raise NotImplementedError(
-            f"serving task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port"
-            + (f", {item})" if item else ")")
-        )
+    if cfg.task not in ("classification", "mae", "unetr", "sap"):
+        raise ValueError(f"serving supports classification/unetr/sap/mae predict and "
+                         f"diffusion generate; got task={cfg.task!r}")
     model = init_eval_model(cfg, seed=seed, device=dev)
     max_batch = int(max_batch or cfg.batch_size)
     holder = {"model": model, "epoch": None}
@@ -216,6 +218,7 @@ def build_predictor(
     noise = mask_noise(model, 1, seed, dev) if cfg.task == "mae" else None
 
     consumed = consumed_keys(cfg)
+    var_ids = var_ids_of(cfg, model)
 
     def run_batch(batch: Dict[str, np.ndarray]) -> torch.Tensor:
         b = {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=np.float32)).to(
@@ -223,12 +226,17 @@ def build_predictor(
         with torch.inference_mode():
             if cfg.task == "unetr":
                 x, ps, x_seq = unetr_inputs(cfg, b)
-                logits = holder["model"](x, seq_ps=ps, x_seq=x_seq)
+                logits = holder["model"](x, seq_ps=ps, x_seq=x_seq, var_ids=var_ids)
+                return logits.argmax(dim=1).to(torch.int32)
+            if cfg.task == "sap":
+                img, ps = sap_inputs(cfg, b)
+                logits = holder["model"](img, seq_ps=ps, var_ids=var_ids)
                 return logits.argmax(dim=1).to(torch.int32)
             x, ps = model_inputs(cfg, b)
             if noise is None:
-                return holder["model"](x, seq_ps=ps)
-            pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1), seq_ps=ps)
+                return holder["model"](x, seq_ps=ps, var_ids=var_ids)
+            pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1), seq_ps=ps,
+                                      var_ids=var_ids)
             if cfg.adaptive_patching:
                 return pred
             return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)

@@ -1,10 +1,12 @@
 """Task registry: model factory and loss per task (port of `ucf_vit_tpu/tasks.py`).
 
-The port has the classification, MAE, diffusion and UNETR tasks (model and
-loss), with adaptive patching's inputs (`model_inputs`: the patch tree's
+The port has the classification, MAE, diffusion, UNETR and SAP tasks (model
+and loss), with adaptive patching's inputs (`model_inputs`: the patch tree's
 sequence and its descriptors; UNETR's `unetr_inputs`: the sequence
-reassembled into the sqrt-len image beside the tile); SAP comes with its own
-slice (ROADMAP.md, item 8).
+reassembled into the sqrt-len image beside the tile; SAP's `sap_inputs`: that
+image alone). Every loss takes the batch's `var_ids` (`VIT.get_var_ids` of its
+`variables`), which a model with `use_varemb` reads and any other ignores, as
+the JAX losses take them.
 """
 
 from __future__ import annotations
@@ -12,10 +14,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import (
     MAE,
+    SAP,
     UNETR,
     VIT,
     DiffusionVIT,
@@ -28,6 +32,7 @@ from ucf_vit_tpu_torch.ops.patchify import patchify, unpatchify
 from ucf_vit_tpu_torch.utils.metrics import (
     accuracy,
     cross_entropy,
+    dice_b_loss,
     dice_ce_loss,
     masked_mse,
     mse,
@@ -63,6 +68,8 @@ def _common_kwargs(cfg: Config) -> dict:
         proj_drop_rate=float(ia.get("proj_drop_rate", 0.0)),
         attn_drop_rate=float(ia.get("attn_drop_rate", 0.0)),
         twoD=cfg.twoD,
+        default_vars=tuple(cfg.default_vars),
+        single_channel=cfg.single_channel,
         use_varemb=bool(ia.get("use_varemb", False)),
         adaptive_patching=cfg.adaptive_patching,
         fixed_length=cfg.fixed_length,
@@ -90,6 +97,23 @@ def seq_ps(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
     if "seq_size" not in batch:
         return None
     return torch.cat([batch["seq_size"][:, 0, :, None], batch["seq_pos"][:, 0]], dim=-1)
+
+
+def example_variables(cfg: Config) -> Tuple[str, ...]:
+    """The variables of the config's example batch (and of its synthetic
+    stream): the first `max_channels` of `default_vars`."""
+    return tuple(cfg.default_vars[:cfg.max_channels] or ("v",))
+
+
+def var_ids_of(cfg: Config, model: torch.nn.Module,
+               variables: Optional[Tuple[str, ...]] = None) -> Optional[Tuple[int, ...]]:
+    """The `var_ids` a loss or forward takes: with `use_varemb` the indices of
+    `variables` (default: the example batch's) in the model's `default_vars`,
+    else None (`ucf_vit_tpu/train.py:604-606`)."""
+    if not bool(cfg.init_args.get("use_varemb", False)):
+        return None
+    return model.get_var_ids(tuple(variables) if variables is not None
+                             else example_variables(cfg))
 
 
 def model_inputs(cfg: Config, batch: Dict[str, torch.Tensor]
@@ -157,9 +181,9 @@ def classification_loss(cfg: Config) -> Callable:
     descriptors), with accuracy as aux. The MoE aux term is 0 for the dense
     model the port has."""
 
-    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
         x, ps = model_inputs(cfg, batch)
-        logits = model(x, seq_ps=ps)
+        logits = model(x, seq_ps=ps, var_ids=var_ids)
         return (cross_entropy(logits, batch["label"]),
                 {"accuracy": accuracy(logits, batch["label"])})
 
@@ -190,14 +214,14 @@ def mae_loss(cfg: Config) -> Callable:
     MSE over every token. The mask is drawn from the model's generator."""
     masked = cfg.model.get("loss_fn", "MSE") == "maskMSE"
 
-    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
         if cfg.adaptive_patching:
             seq = batch["seq"]
-            pred, _ = model(seq, seq_ps=seq_ps(batch))
+            pred, _ = model(seq, seq_ps=seq_ps(batch), var_ids=var_ids)
             b, c, l, p = seq.shape
             return mse(pred, seq.permute(0, 2, 3, 1).reshape(b, l, p * c)), {}
         x = batch["x"]
-        pred, mask = model(x)
+        pred, mask = model(x, var_ids=var_ids)
         target = patchify(x, cfg.patch_size, cfg.twoD)
         return (masked_mse(pred, target, mask) if masked else mse(pred, target)), {}
 
@@ -236,7 +260,7 @@ def diffusion_loss(cfg: Config) -> Callable:
     steps, p, twoD = time_steps(cfg), cfg.patch_size, cfg.twoD
     schedule = ddpm_schedule(steps)
 
-    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
         nonlocal schedule
         x0 = batch["x"]
         if schedule.beta.device != x0.device:
@@ -254,7 +278,7 @@ def diffusion_loss(cfg: Config) -> Callable:
                 t = sample_timesteps(gen, x0.shape[0], steps)
             if e is None:
                 e = torch.randn(x0.shape, device=x0.device, dtype=x0.dtype, generator=gen)
-        pred = model(q_sample(schedule, x0, t, e), t)
+        pred = model(q_sample(schedule, x0, t, e), t, var_ids=var_ids)
         return mse(unpatchify(pred, tuple(x0.shape), p, twoD), e), {}
 
     return loss_fn
@@ -284,13 +308,52 @@ def unetr_loss(cfg: Config) -> Callable:
     DiceCE of the logits against the label volume `[B, 1, *spatial]`."""
     classes = num_classes(cfg)
 
-    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
         x, ps, x_seq = unetr_inputs(cfg, batch)
-        logits = model(x, seq_ps=ps, x_seq=x_seq)
+        logits = model(x, seq_ps=ps, x_seq=x_seq, var_ids=var_ids)
         label = batch["label"]
         if label.ndim == logits.ndim - 1:
             label = label[:, None]
         return dice_ce_loss(logits, label, classes), {}
+
+    return loss_fn
+
+
+def sap_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
+    """`(image, seq_ps)` of a SAP batch: the sequence reassembled into the
+    sqrt-len image, the model's only input, and its descriptors
+    (`ucf_vit_tpu/tasks.py:306-312`). SAP always runs the adaptive path."""
+    return (reassemble_sqrt_len(batch["seq"], cfg.sqrt_len, cfg.patch_size, cfg.twoD),
+            seq_ps(batch))
+
+
+def sap_labels(cfg: Config, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The serialized labels `seq_label` `[B, L, p, ...]` reassembled the same
+    way, `[B, (sqrt_len * p)^nd]` integer classes: SAP's target, in the
+    pseudo-image space its logits live in (`ucf_vit_tpu/tasks.py:314-317`)."""
+    lab = batch["seq_label"]
+    flat = lab.reshape(lab.shape[0], lab.shape[1], -1).long()
+    return reassemble_sqrt_len(flat, cfg.sqrt_len, cfg.patch_size, cfg.twoD)
+
+
+def build_sap(cfg: Config) -> SAP:
+    """`build_sap`'s model (`ucf_vit_tpu/tasks.py:290-298`): adaptive patching
+    by the sqrt-len method."""
+    return SAP(num_classes=num_classes(cfg), sqrt_len_method=cfg.adaptive_patching,
+               **_common_kwargs(cfg))
+
+
+def sap_loss(cfg: Config) -> Callable:
+    """`loss_fn` of `build_sap` (`ucf_vit_tpu/tasks.py:303-320`): `dice_b_loss`
+    of the logits of the reassembled image against the reassembled labels,
+    one-hot on the class axis."""
+    classes = num_classes(cfg)
+
+    def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
+        img, ps = sap_inputs(cfg, batch)
+        logits = model(img, seq_ps=ps, var_ids=var_ids)
+        onehot = F.one_hot(sap_labels(cfg, batch), classes).movedim(-1, 1).float()
+        return dice_b_loss(logits, onehot), {}
 
     return loss_fn
 
@@ -300,6 +363,7 @@ TASKS: Dict[str, Callable[[Config], torch.nn.Module]] = {
     "mae": build_mae,
     "diffusion": build_diffusion,
     "unetr": build_unetr,
+    "sap": build_sap,
 }
 # each task's loss from its config
 LOSSES: Dict[str, Callable[[Config], Callable]] = {
@@ -307,13 +371,11 @@ LOSSES: Dict[str, Callable[[Config], Callable]] = {
     "mae": mae_loss,
     "diffusion": diffusion_loss,
     "unetr": unetr_loss,
+    "sap": sap_loss,
 }
 
 
 def _check_ported(cfg: Config) -> None:
-    if cfg.task == "sap":
-        raise NotImplementedError(
-            "task 'sap' is not ported yet (ROADMAP.md, modules to port, item 8: SAP)")
     if cfg.task not in TASKS:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP.md, modules to port)"
@@ -328,6 +390,6 @@ def build_task(cfg: Config) -> torch.nn.Module:
 
 
 def task_loss(cfg: Config) -> Callable:
-    """The task's `loss_fn(model, batch) -> (loss, aux)`."""
+    """The task's `loss_fn(model, batch, var_ids=None) -> (loss, aux)`."""
     _check_ported(cfg)
     return LOSSES[cfg.task](cfg)

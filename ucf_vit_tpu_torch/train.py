@@ -4,10 +4,11 @@
         [--max-steps N] [--log-every K] [--single-device] [--device cuda|cpu]
 
 Seeded model init (the names `load_jax_params` fills) of the config's task
-(classification, MAE, diffusion or UNETR), AdamW from the config's `model:` keys, and one
-train step per batch: from the files the config's `data:` section names
-(`build_dataloader`: the catsdogs folder through its map-style loader,
-every other dataset through the `DataModule` with `auto_load_balancing`),
+(classification, MAE, diffusion, UNETR or SAP), AdamW from the config's
+`model:` keys, and one train step per batch: from the files the config's
+`data:` section names (`build_dataloader`: the catsdogs folder through its
+map-style loader, every other dataset through the `DataModule` with
+`auto_load_balancing`),
 or with `--synthetic` from the JAX package's `synthetic_batches` stream,
 draw for draw. Epochs as the JAX trainer counts them (`max_epochs`;
 `iterations_per_epoch` the largest of `batches_per_rank_epoch`; the data's
@@ -26,9 +27,9 @@ interrupted, fast-forwarding the batches it had trained on
 from any port checkpoint or a file that the JAX package's `convert_checkpoint
 to-torch` wrote; `trainer.pretrained_mae_checkpoint` (a file, or a directory
 whose slot `pretrained_mae_filename` or `mae_checkpoint_filename` names,
-empty: the newest) starts a UNETR's encoder from an MAE checkpoint
+empty: the newest) starts a UNETR's or a SAP's encoder from an MAE checkpoint
 (`checkpoint.transfer_mae_encoder`: the decoder and mask token left out, the
-position table resampled to the UNETR's tokens).
+position table resampled to the model's tokens).
 
 Preemption: SIGTERM (or `trainer.preempt_after_steps`, a drill) stops the
 run at the next step boundary with a checkpoint of the interrupted epoch
@@ -48,7 +49,8 @@ parameters, gradients and optimizer state; `models/blocks.py`),
 too), and `trainer.scan_layers` is accepted (`models/vit.py`). MAE draws its
 mask noise, and the diffusion loss its steps t and noise e, from the device
 generator that dropout draws from; both are seeded from `trainer.seed`. A
-diffusion batch holds `x` only, as in the JAX stream.
+diffusion batch holds `x` only, as in the JAX stream. With `use_varemb`
+each batch's `variables` give its `var_ids` (`tasks.var_ids_of`).
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config, load_config
 from ucf_vit_tpu_torch.inference import Device, resolve_device
 from ucf_vit_tpu_torch.parallel.train_step import create_train_state, make_train_step
-from ucf_vit_tpu_torch.tasks import build_task, task_loss
+from ucf_vit_tpu_torch.tasks import build_task, example_variables, task_loss, var_ids_of
 from ucf_vit_tpu_torch.utils.optim import configure_optimizer
 
 # trainer keys whose feature is not ported yet -> the ROADMAP.md item that ports it
@@ -111,7 +113,7 @@ def synthetic_batches(cfg: Config, global_batch: int, seed: int = 0) -> Iterator
             s["label"] = rng.integers(0, num_classes, size=(1,) + tile).astype(np.int64)
         return s
 
-    variables = tuple(cfg.default_vars[:c] or ("v",))
+    variables = example_variables(cfg)
     while True:
         samples = [one_sample() for _ in range(global_batch)]
         batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
@@ -158,7 +160,8 @@ class _CatsDogsModule:
         self._epoch = int(epoch)
 
 
-def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split: bool = False):
+def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split: bool = False,
+                     return_qdt: bool = False):
     """`(datamodule, synthetic_iter, batches_per_rank_epoch)` (port of
     `ucf_vit_tpu/train.py:95-294`, one process: shard 0 of 1). The catsdogs
     folder goes through its map-style loader; every other dataset through
@@ -169,7 +172,9 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
     Adaptive catsdogs draws its augmentation from one generator seeded by
     `trainer.seed` (the JAX loader's is unseeded).
 
-    `val_split`: the held-out validation loader instead. From files it reads
+    `return_qdt`: adaptive batches also carry their trees (`qdt`), to write
+    a prediction back to image space. `val_split`: the held-out validation
+    loader instead. From files it reads
     the range `data.val_dict_start_idx` / `val_dict_end_idx` (say train 0.0-0.9,
     validate 0.9-1.0); the synthetic stream comes from another seed."""
     if synthetic:
@@ -243,6 +248,7 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
         num_classes=cfg.init_args.get("num_classes", cfg.data.get("num_classes")),
         imagenet_resize=cfg.dataset_options.get("imagenet_resize"),
         num_workers=int(cfg.data.get("num_workers", 1)),
+        return_qdt=return_qdt,
     )
     dm.setup()
     return dm, None, bpre
@@ -446,7 +452,7 @@ class _Validation:
     def __init__(self, cfg: Config, global_batch: int, synthetic: bool, dev: torch.device):
         self.dm, self.synth, _ = build_dataloader(cfg, global_batch, synthetic, val_split=True)
         self.batches = int(cfg.trainer.get("val_batches", 8))
-        self.loss_fn, self.dev = task_loss(cfg), dev
+        self.loss_fn, self.dev, self.cfg = task_loss(cfg), dev, cfg
         self.it = None
 
     def run(self, model: torch.nn.Module, seed: int) -> Tuple[float, Dict[str, float], int]:
@@ -463,7 +469,8 @@ class _Validation:
                 for batch in self.it:
                     if n >= self.batches:
                         break
-                    loss, aux = self.loss_fn(model, to_device(batch, self.dev))
+                    var_ids = var_ids_of(self.cfg, model, batch.get("variables"))
+                    loss, aux = self.loss_fn(model, to_device(batch, self.dev), var_ids=var_ids)
                     total += loss.item()
                     for k, v in (aux or {}).items():
                         aux_tot[k] = aux_tot.get(k, 0.0) + float(v)
@@ -612,7 +619,11 @@ def train(
                     break
                 if profile is not None:
                     profile.before_step(total_steps)
-                state, loss, aux = step(state, to_device(batch, dev))
+                # each batch's own variables: single-channel batches that alternate
+                # variables each take their variable's embed (the JAX trainer keys a
+                # step by them, `ucf_vit_tpu/train.py:598-636`)
+                state, loss, aux = step(state, to_device(batch, dev),
+                                        var_ids_of(cfg, state.model, batch.get("variables")))
                 count += 1
                 total_steps += 1
                 if preempt_drill and total_steps == preempt_drill:

@@ -4,9 +4,9 @@ The classification pair (`cross_entropy` `:46`, `accuracy` `:54`), MAE's
 two (`mse` `:29`, `masked_mse` `:35`), the adaptive token-space MSE
 (`token_masked_mse_adaptive` `:58`) and UNETR's two (`dice_ce_loss` `:107`,
 MONAI's DiceCELoss as the reference trains with it, and `dice_metric`
-`:148`, MONAI's DiceMetric without the background); SAP's `dice_b_loss`
-comes with its task (ROADMAP.md). Predictions are taken as the models give them and the results
-are f32 scalars.
+`:148`, MONAI's DiceMetric without the background) and SAP's `dice_b_loss` (`:74`).
+Predictions are taken as the models give them and the results are f32
+scalars.
 """
 
 from __future__ import annotations
@@ -48,6 +48,30 @@ def token_masked_mse_adaptive(pred: torch.Tensor, target_tokens: torch.Tensor,
     valid = (seq_size > 0).float()
     loss = (pred.float() - target_tokens.float()).square().mean(dim=-1)
     return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def dice_b_loss(logits: torch.Tensor, targets: torch.Tensor, weight: float = 0.5,
+                smooth: float = 1.0, apply_sigmoid: bool = True) -> torch.Tensor:
+    """Dice plus binary cross entropy over the channels past the background
+    (`ucf_vit_tpu/utils/metrics.py:74-104`): logits and one-hot targets
+    `[B, C, *spatial]`. A sigmoid of channels `1:`, the BCE taken from the
+    logits as `max(z, 0) - z t + log1p(exp(-|z|))` (or, with
+    `apply_sigmoid=False`, from the inputs taken as probabilities, clipped to
+    `[1e-7, 1 - 1e-7]`), averaged over every element; the Dice from sums over
+    the whole batch, not per sample; the two mixed by `weight`. In f32."""
+    x = logits.float()
+    t = targets[:, 1:].float()
+    if apply_sigmoid:
+        z = x[:, 1:]
+        p = torch.sigmoid(z)
+        bce = (z.clamp_min(0) - z * t + torch.log1p(torch.exp(-z.abs()))).mean()
+    else:
+        p = x[:, 1:]
+        pc = p.clamp(1e-7, 1 - 1e-7)
+        bce = -(t * torch.log(pc) + (1 - t) * torch.log(1 - pc)).mean()
+    intersection = (p * t).sum()
+    dice = 1.0 - (2.0 * intersection + smooth) / (p.sum() + t.sum() + smooth)
+    return weight * bce + (1 - weight) * dice
 
 
 def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
