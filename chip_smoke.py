@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only adaptive   # the device, build and adaptive phases alone
     python3 chip_smoke.py --only unetr      # the device, build and UNETR phases alone
     python3 chip_smoke.py --only sap        # the device, build and SAP phases alone
+    python3 chip_smoke.py --only parallel   # the device, build and parallel phases alone
 
 With `--compare` it runs only the device phase and times the bf16 flash
 forward, the split backward route's kernels (dkv and dq, f32 and bf16),
@@ -239,6 +240,23 @@ result):
             imagenet/classification with `use_varemb: True` through the CLI
             entry, FLASH against EINSUM, ms a step beside it without varemb and
             the merge's share of the device time.
+15. parallel (`phase_parallel`): data and tensor parallelism, two ranks
+            sharing the card over gloo (NCCL refuses two ranks on one
+            device; NCCL stays the CLI's backend on CUDA), spawned once in
+            one gloo group: the gloo probe's six collectives on CUDA tensors,
+            printed, failing if a mode needs one that is missing;
+            catsdogs/classification (ViT-B/16, f32) in tp 2 and
+            imagenet/classification_vit_l (bf16, remat, accum 4) in ddp 2
+            and fsdp 2 with the sync check every step, each through the CLI
+            entry for 5 steps (fsdp 3), the launch counts set to 0 before it and read
+            after on each rank (12 f32 forwards and 12 fused backwards a step
+            at a rank's [96, 257, 64]; ViT-L's under the sm90 sources, every
+            bf16 forward on the TMA route), the per-step losses against one
+            device at the same global batch (1e-4; 5e-3); SIGTERM to rank 0
+            alone of a ddp-2 run (both exit 0, one checkpoint); each rank's
+            ms a step beside one device's (no scaling number: the ranks share
+            the card); the f32 kernels at tp 2's per-rank shape against their
+            plain versions, timed beside SDPA.
 
 Every phase prints its wall seconds on a `[time]` line, and the run all of
 them and the script's on one line before the record.
@@ -277,7 +295,7 @@ MAX_BATCH = 16
 SEQUENTIAL_REQUESTS = 8
 LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
 # (the load window 6 s and the traced one 3 s until the SAP phase came)
-LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}
+LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
 SERVE_TOL = 1e-4  # f32 on both sides, TF32 off: only the order of sums differs
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}  # o, against the f32 plain result
 # bf16 o with LONG_KEYS keys or more: randn inputs give entries of about sqrt(e / Nkv)
@@ -306,7 +324,7 @@ MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # rounding shows
 BF16_TRAIN_LOSS_TOL = 2e-2
 VIT_L_MAIN_STEPS = 3  # the CLI entry itself
-VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 6, 3, 5
+VIT_L_TIMED_STEPS, VIT_L_WARMUP_STEPS, VIT_L_NO_REMAT_STEPS = 4, 3, 3
 MAE_MAIN_STEPS = 3  # mae_long through the CLI entry
 MAE_WARMUP_STEPS, MAE_TIMED_STEPS = 2, 3  # and the timed and traced windows
 MAE_FALL_STEPS = 5  # on one fixed batch
@@ -338,7 +356,7 @@ PROFILE_LOSS = {"windows": 0, "short": 0, "timed_lost": 0, "most_lost": 0}
 # 2 epochs (both checkpoint slots), then windows on the loader
 DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 1, (512, 512, 128), 2
 DISK_SMALL_SHAPE = (128, 128, 128)  # the resume check's 2 volumes: one tile each
-DISK_WARMUP_STEPS, DISK_TIMED_STEPS, DISK_TRACED_STEPS = 2, 6, 3
+DISK_WARMUP_STEPS, DISK_TIMED_STEPS, DISK_TRACED_STEPS = 2, 3, 3
 # resumed against uninterrupted after 3 epochs (`_rel_diff`, `_adam_rel`): the
 # parameters relative to the last epoch's update, AdamW's moments relative to their size,
 # and the last epoch's loss. The fused backward adds dq by f32 atomics in a run-dependent
@@ -359,7 +377,7 @@ DIFF_CONFIGS = {
 # kernels' DH = 128 and DH = 96 instances (phase_diffusion_kernels)
 DIFF_SHAPES = {"imagenet": (16, 4, 256, 256, 128, True), "basic_ct": (16, 6, 256, 256, 96, True)}
 DIFF_MAIN_STEPS = 3  # each config through the CLI entry
-DIFF_WARMUP_STEPS, DIFF_TIMED_STEPS, DIFF_TRACED_STEPS = 3, 10, 3
+DIFF_WARMUP_STEPS, DIFF_TIMED_STEPS, DIFF_TRACED_STEPS = 3, 5, 3
 DIFF_CHECK_STEPS = 5  # FLASH against EINSUM, to TRAIN_LOSS_TOL a step
 GEN_SAMPLES = 8  # a generate call's batch (serve's --num-generate)
 GEN_TRACED_STEPS = 20  # denoising steps in the traced window
@@ -403,7 +421,7 @@ ADAPTIVE_MAIN_STEPS = 3  # each config through the CLI entry
 # 1 patchifies in line, in the prefetch thread)
 ADAPTIVE_POOL = 5
 ADAPTIVE_SERVE_WORKERS = 4  # serve's --preprocess-workers
-ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}  # 1, 6, 3 s before SAP
+ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
 # the f32 kernels' shapes on these paths at batch 32, packed qkv views: basic_ct/mae's
 # encoder on its 49 kept tokens (one partial tile on both axes), imagenet/classification's
 # 196 patches and the class token, the MAE decoders on all 196 (dh 128: the DH = 128
@@ -425,7 +443,7 @@ UNETR_CONFIG = os.path.join(REPO, "configs", "basic_ct", "unetr", "base_config.y
 UNETR_SHAPE = (8, 12, 729, 729, 64, True)
 UNETR_MAIN_STEPS = 3  # through the CLI entry, synthetic
 # (10 timed steps, 5 checked and 6 from files until the SAP phase came)
-UNETR_WARMUP, UNETR_TIMED, UNETR_TRACED = 3, 5, 2
+UNETR_WARMUP, UNETR_TIMED, UNETR_TRACED = 3, 3, 2
 UNETR_CHECK_STEPS = 3  # FLASH against EINSUM
 # from files: 4 seeded int16 CT-like volumes of 128^3 with label volumes 1-4 (32 tiles of
 # 64^3, 4 batches an epoch); in line as shipped (num_workers 1), then a spawn pool of 4
@@ -437,7 +455,7 @@ UNETR_MARGIN = 1e-3  # a class map is held where the reference's top-two margin 
 UNETR_DICE_TOL = 1e-4
 UNETR_SERVE_WORKERS, UNETR_MAX_BATCH, UNETR_CLIENTS = 4, 8, 16
 UNETR_SEQUENTIAL = 4  # lone requests before the load windows
-UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}  # 1, 6, 3 s before SAP
+UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
 
 # phase_sap: configs/basic_ct/sap (f32, batch 2) and sap_bf16 (bf16, batch 16) as shipped
 # (ViT-B over 512 octree tokens of 4^3 reassembled into a 32^3 image, the neck of 256
@@ -454,7 +472,7 @@ SAP_POOL = 5  # num_workers: a spawn pool of 4
 SAP_FILE_STEPS = 6
 SAP_EVAL_SAMPLES = 4
 SAP_SERVE_WORKERS, SAP_CLIENTS, SAP_SEQUENTIAL = 4, 16, 4
-SAP_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 4.0, "traced": 2.0}
+SAP_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
 # (g): imagenet/classification with use_varemb: True (red, green, blue), synthetic
 VAREMB_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification", "base_config.yaml")
 VAREMB_MAIN_STEPS, VAREMB_CHECK_STEPS, VAREMB_TIMED = 3, 5, 5
@@ -5397,6 +5415,339 @@ def compare_split_bwd(checkouts, forwards) -> None:
     _use({})
 
 
+# ---------------------------------------------------------------- data and tensor parallel
+
+PARALLEL_STEPS = 5  # each mode through the CLI entry, and its single-device run
+# ViT-L in fsdp 2 takes about 14 s a step here, gloo moving 9.7 GB of parameters through
+# host memory a step: 3 steps of it, against the single-device run's first 3
+PARALLEL_FSDP_STEPS = 3
+PARALLEL_TP_LOSS_TOL = 1e-4  # ViT-B f32, tp 2 against one device: each step's loss
+PARALLEL_DDP_LOSS_TOL = 5e-3  # ViT-L bf16, ddp 2 against one device at the same global batch
+PARALLEL_SIGTERM_AFTER = 1  # rank 0 of the preemption run is signalled after this step
+PARALLEL_DEADLINE_S = 300  # for every job of the two ranks together
+PARALLEL_KERNEL_ITERS = 20  # timed calls of each kernel at tp 2's per-rank shape
+# What `python -m ucf_vit_tpu_torch.tools.gloo_probe` found gloo carries on CUDA tensors
+# in the card's torch (2.11.0+cu128; PERF.md): all six collectives it tries, and
+# the port's ddp 2, tp 2 and fsdp 2 steps; its bare `fully_shard` step with
+# `DTensor.full_tensor` hung, so the port's checkpoint joins FSDP's shards with
+# `all_gather_into_tensor` itself. The modes below are fixed by that run; the phase
+# repeats the probe's six collectives and fails if one a mode needs is missing. NCCL
+# refuses two ranks on one device, so two ranks share the card over gloo here; NCCL stays
+# the CLI's backend on CUDA (`parallel.mesh.init_distributed`).
+GLOO_PROBED = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single")
+PARALLEL_MODES = {  # name: (config, parallelism, the collectives it needs)
+    "vit_b_tp2": (CONFIG, {"tensor_par_size": 2}, ("all_reduce",)),
+    "vit_l_ddp2": (VIT_L_CONFIG, {"simple_ddp_size": 2}, ("all_reduce",)),
+    "vit_l_fsdp2": (VIT_L_CONFIG, {"fsdp_size": 2},
+                    ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")),
+}
+
+
+def _parallel_config(name: str, path: str, par: dict, batch: int | None = None,
+                     **trainer) -> str:
+    """A copy of the shipped config at `path` under WORK/parallel with `par` as its
+    parallelism (empty: one device), its per-step metrics in <name>.jsonl."""
+    import yaml
+
+    raw = yaml.safe_load(open(path))
+    raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 1, "tensor_par_size": 1,
+                          "seq_par_size": 1, **par}
+    if batch is not None:
+        raw["data"]["batch_size"] = batch
+    root = os.path.join(WORK, "parallel")
+    os.makedirs(root, exist_ok=True)
+    raw["trainer"].pop("checkpoint_path", None)  # no save but where `trainer` asks
+    raw["trainer"].update(metrics_path=os.path.join(root, f"{name}.jsonl"),
+                          resume_from_checkpoint=False, **trainer)
+    out = os.path.join(root, f"{name}.yaml")
+    with open(out, "w") as f:
+        yaml.safe_dump(raw, f)
+    return out
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _logged_step(path: str) -> int:
+    """The last step rank 0 has written to the metrics file at `path` (0 before
+    any; a line still being written does not count)."""
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        lines = f.read().split("\n")[:-1]  # complete lines only
+    return max((json.loads(line).get("step", 0) for line in lines), default=0)
+
+
+def _step_losses(path: str) -> list:
+    return [r["loss"] for r in _jsonl(path) if "loss" in r and "step" in r]
+
+
+@contextlib.contextmanager
+def _timed_steps(times: list):
+    """The trainer's train step timed a call at a time (the card synchronised
+    around it) while the block runs: `train.make_train_step` wrapped."""
+    import torch
+
+    from ucf_vit_tpu_torch import train
+
+    made = train.make_train_step
+
+    def make(*args, **kwargs):
+        step = made(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    train.make_train_step = make
+    try:
+        yield
+    finally:
+        train.make_train_step = made
+
+
+def _parallel_rank(rank: int, store: str, jobs: list, results) -> None:
+    """One of two ranks on the card: a gloo group through a FileStore, then each
+    job in turn: the gloo probe, or the trainer's CLI entry on a sharded config
+    with the launch counts set to 0 before it and read after. Puts each job's
+    counts, local shapes and step times on `results`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.tools.gloo_probe import _collectives
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    try:
+        for job in jobs:
+            if job["kind"] == "probe":
+                results.put((rank, job["name"],
+                             {"collectives": _collectives(rank, 2, only=GLOO_PROBED)}))
+                continue
+            times: list = []
+            reset_launch_counts()
+            with _timed_steps(times):
+                out = train_main(job["argv"])
+            counts = _launch_counts()
+            model = out["state"].model
+            attn = model.blocks[0].attn
+            results.put((rank, job["name"], {
+                "counts": counts, "ms": times, "steps": out["state"].step,
+                "shapes": _attn_shapes(model), "depth": len(model.blocks),
+                "heads": attn.qkv.weight.shape[0] // (3 * attn.head_dim),
+                "embed": model.embed_dim, "remat": model.remat,
+                "dtype": str(model.dtype), "tp": sorted(model.tp_layout)[:2]}))
+            del out, model, attn
+            torch.cuda.empty_cache()
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _single_run(name: str, path: str) -> dict:
+    """`path` through the CLI entry on this process's device: per-step losses and ms."""
+    import torch
+
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    times: list = []
+    with _timed_steps(times):
+        train_main([path, "--synthetic", "--max-steps", str(PARALLEL_STEPS)])
+    torch.cuda.empty_cache()
+    return {"losses": _step_losses(os.path.join(WORK, "parallel", f"{name}.jsonl")), "ms": times}
+
+
+def _config_batch(path: str) -> int:
+    """The shipped config's `data.batch_size` (a data rank's batch)."""
+    import yaml
+
+    return int(yaml.safe_load(open(path))["data"]["batch_size"])
+
+
+def _median(xs: list) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_parallel() -> dict:
+    """Data and tensor parallelism with two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device; NCCL stays the CLI's backend on CUDA).
+    Two spawned ranks in one gloo group run, in turn: (a) the gloo probe
+    (`tools/gloo_probe.py`: which collectives gloo carries on CUDA tensors),
+    printed, failing if a mode of PARALLEL_MODES needs one it lacks; (b)
+    catsdogs/classification (ViT-B/16, f32, full width and depth) in tp 2
+    through the trainer's CLI entry for PARALLEL_STEPS steps: per rank and step
+    12 f32 forwards at [16·6, 257, 64] and 12 fused backwards under the tf32
+    sources, the per-step losses within PARALLEL_TP_LOSS_TOL of the same
+    config on one device; (c) imagenet/classification_vit_l (bf16, remat,
+    accum 4) in ddp 2 and, for PARALLEL_FSDP_STEPS steps, in fsdp 2 (ZeRO-3
+    by `fully_shard`), each with the sync check every step: every launch
+    under the sm90 sources and every bf16 forward on the TMA route, the
+    losses within PARALLEL_DDP_LOSS_TOL of one device at the same global
+    batch (2 x 32); (d) SIGTERM to rank 0 alone of a ddp-2 ViT-B run after step
+    PARALLEL_SIGTERM_AFTER: both ranks exit 0 and one checkpoint is written.
+    Each rank's ms a step (the card synchronised around it) beside the
+    single-device step: two ranks share one card, so it is no scaling number.
+    Returns {"numbers": record rows at tp 2's per-rank shape, "launches":
+    theirs and the ViT-L runs' bf16 launches}."""
+    import queue
+    import signal
+
+    import numpy as np
+    import torch
+
+    vit_b = _parallel_config("vit_b_tp2", CONFIG, PARALLEL_MODES["vit_b_tp2"][1])
+    vit_b_one = _parallel_config("vit_b_one", CONFIG, {})
+    vit_l = {name: _parallel_config(name, VIT_L_CONFIG, PARALLEL_MODES[name][1],
+                                    sync_check_every=1)
+             for name in ("vit_l_ddp2", "vit_l_fsdp2")}
+    vit_l_one = _parallel_config("vit_l_one", VIT_L_CONFIG, {},
+                                 batch=2 * _config_batch(VIT_L_CONFIG))
+    ck = os.path.join(WORK, "parallel", "ck")
+    sigterm = _parallel_config("sigterm", CONFIG, {"simple_ddp_size": 2},
+                               checkpoint_path=ck, checkpoint_filename="sig",
+                               preempt_sync_every=1, max_epochs=1)
+    n_steps = {"vit_b_tp2": PARALLEL_STEPS, "vit_l_ddp2": PARALLEL_STEPS,
+               "vit_l_fsdp2": PARALLEL_FSDP_STEPS}
+    steps = {name: ["--synthetic", "--max-steps", str(n)] for name, n in n_steps.items()}
+    jobs = [{"kind": "probe", "name": "probe"},
+            {"kind": "cli", "name": "vit_b_tp2", "argv": [vit_b, *steps["vit_b_tp2"]]},
+            {"kind": "cli", "name": "vit_l_ddp2",
+             "argv": [vit_l["vit_l_ddp2"], *steps["vit_l_ddp2"]]},
+            {"kind": "cli", "name": "vit_l_fsdp2",
+             "argv": [vit_l["vit_l_fsdp2"], *steps["vit_l_fsdp2"]]},
+            {"kind": "cli", "name": "sigterm", "argv": [sigterm, "--synthetic"]}]
+    log("[parallel] two ranks on one card over gloo: NCCL refuses two ranks on one "
+        "device; NCCL stays the CLI's backend on CUDA")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(WORK, "parallel", "store")
+    procs = [ctx.Process(target=_parallel_rank, args=(r, store, jobs, results), daemon=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got: dict = {}
+    sig_metrics = os.path.join(WORK, "parallel", "sigterm.jsonl")
+    signalled = None
+    try:
+        while len(got) < 2 * len(jobs):
+            if time.perf_counter() - t0 > PARALLEL_DEADLINE_S:
+                fail(f"the two ranks did not finish within {PARALLEL_DEADLINE_S} s: {sorted(got)}")
+            if signalled is None and _logged_step(sig_metrics) >= PARALLEL_SIGTERM_AFTER:
+                os.kill(procs[0].pid, signal.SIGTERM)
+                signalled = time.perf_counter()
+            try:
+                rank, name, out = results.get(timeout=0.2)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    fail(f"a rank died: exit codes {[p.exitcode for p in procs]}")
+                continue
+            if name == "error":
+                fail(f"rank {rank} failed:\n{out[-3000:]}")
+            got[rank, name] = out
+            if name == "probe" and rank == 0:
+                carried = [k for k, v in out["collectives"].items() if v == "ok"]
+                log(f"[parallel] gloo probe on CUDA tensors (torch {torch.__version__}): "
+                    + ", ".join(f"{k} {v}" for k, v in out["collectives"].items()))
+                log(f"[parallel] gloo carries on CUDA tensors: {', '.join(carried)}")
+                for mode, (_, _, needs) in PARALLEL_MODES.items():
+                    if any(c not in carried for c in needs):
+                        fail(f"{mode} needs {needs}; gloo carries {carried}")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"the ranks exited {[p.exitcode for p in procs]}")
+    log(f"[parallel] two ranks: {time.perf_counter() - t0:.1f} s for every job")
+    # (d) preemption: one checkpoint, both ranks at the same step
+    files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    sig = [got[r, "sigterm"] for r in range(2)]
+    if signalled is None or files != ["sig_even.ckpt"] or sig[0]["steps"] != sig[1]["steps"]:
+        fail(f"SIGTERM to rank 0: files {files}, steps {[s['steps'] for s in sig]}")
+    payload = torch.load(os.path.join(ck, files[0]), map_location="cpu", weights_only=True,
+                         mmap=True)
+    log(f"[parallel] SIGTERM to rank 0 after step {PARALLEL_SIGTERM_AFTER}: both ranks "
+        f"stopped after step {sig[0]['steps']} and exited 0; one checkpoint {files} "
+        f"(num_procs {payload['num_procs']}, data_it {payload['data_it']})")
+    del payload
+
+    # (b), (c): the single-device runs at the same global batch, then the checks
+    one = {"vit_b_tp2": _single_run("vit_b_one", vit_b_one),
+           "vit_l_ddp2": _single_run("vit_l_one", vit_l_one)}
+    one["vit_l_fsdp2"] = one["vit_l_ddp2"]  # the same global batch, 2 x 32
+    tols = {"vit_b_tp2": PARALLEL_TP_LOSS_TOL, "vit_l_ddp2": PARALLEL_DDP_LOSS_TOL,
+            "vit_l_fsdp2": PARALLEL_DDP_LOSS_TOL}
+    for name in ("vit_b_tp2", "vit_l_ddp2", "vit_l_fsdp2"):
+        ranks = [got[r, name] for r in range(2)]
+        losses = _step_losses(os.path.join(WORK, "parallel", f"{name}.jsonl"))
+        diff = max(abs(a - b) for a, b in zip(losses, one[name]["losses"]))
+        log(f"[parallel] {name}: losses {' '.join(f'{x:.6f}' for x in losses)}; one device "
+            f"{' '.join(f'{x:.6f}' for x in one[name]['losses'])}; max |diff| {diff:.3e} "
+            f"(tol {tols[name]:g})")
+        if len(losses) != n_steps[name] or not np.all(np.isfinite(losses)) or diff > tols[name]:
+            fail(f"{name}'s losses disagree with one device's")
+        for r, res in enumerate(ranks):
+            log(f"[parallel] {name} rank {r}: {_median(res['ms'][1:]):.3f} ms a step "
+                f"(median of steps 2-{n_steps[name]}; one device "
+                f"{_median(one[name]['ms'][1:]):.3f}; two ranks share one card: no scaling "
+                f"number); heads a rank {res['heads']}, launches {res['counts']}")
+    tp = [got[r, "vit_b_tp2"] for r in range(2)]
+    want = _expected_counts(tp[0]["shapes"], PARALLEL_STEPS, dropout=False)
+    for r, res in enumerate(tp):
+        if res["counts"] != want or res["heads"] != 6 or res["embed"] != 768 or \
+                res["depth"] != 12 or res["dtype"] != "None" or not res["tp"]:
+            fail(f"vit_b_tp2 rank {r}: launches {res['counts']} (expected {want}), "
+                 f"{res['heads']} heads, embed {res['embed']}, depth {res['depth']}, "
+                 f"dtype {res['dtype']}, tp split {res['tp']}")
+    ddp = [got[r, name] for name in ("vit_l_ddp2", "vit_l_fsdp2") for r in range(2)]
+    for name in ("vit_l_ddp2", "vit_l_fsdp2"):
+        want_l = _expected_counts(got[0, name]["shapes"], 4 * n_steps[name], dropout=False,
+                                  bf16=True, forwards_per_step=2)
+        for r in range(2):
+            res = got[r, name]
+            if res["counts"] != want_l or res["embed"] != 1024 or res["depth"] != 24 or \
+                    not res["remat"] or res["dtype"] != "torch.bfloat16":
+                fail(f"{name} rank {r}: launches {res['counts']} (expected {want_l}), embed "
+                     f"{res['embed']}, depth {res['depth']}, remat {res['remat']}")
+        checks = [r for r in _jsonl(os.path.join(WORK, "parallel", f"{name}.jsonl"))
+                  if "sync_check" in r]
+        if len(checks) != n_steps[name] or not all("OK" in r["sync_check"] for r in checks):
+            fail(f"{name}'s sync checks: {checks}")
+        log(f"[parallel] {name} sync check every step: {checks[-1]['sync_check']}")
+
+    # the kernels at tp 2's per-rank shape: [16, 6, 257, 257, 64], qkv views
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b = _config_batch(CONFIG)
+    case = _attention_case("parallel", "ViT-B/16 tp 2, a rank's heads", (b, 6) + VIT_ATTN[:2]
+                           + (VIT_ATTN[2], True), gen, iters=PARALLEL_KERNEL_ITERS)
+    launches = {"flash_fwd_tp2": sum(res["counts"]["src:flash_fwd_tf32"] for res in tp),
+                "flash_bwd_fused_tp2": sum(res["counts"]["flash_bwd_fused"] for res in tp),
+                "flash_fwd_bf16": sum(res["counts"]["src:flash_fwd_sm90"] for res in ddp),
+                "flash_bwd_fused_bf16": sum(res["counts"]["flash_bwd_fused"] for res in ddp)}
+    return {"numbers": {"flash_fwd_tp2": case["fwd"], "flash_bwd_fused_tp2": case["bwd"]},
+            "launches": launches}
+
+
 def compare_forward(other: str) -> None:
     """`fused_mlp` and `int8_matmul` (`compare_mlp`), the split route's
     backward kernels (`compare_split_bwd`), then the bf16 flash
@@ -5469,11 +5820,11 @@ def _timed(name: str, fn, *args):
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
-    only = ("adaptive", "unetr", "sap")
+    only = ("adaptive", "unetr", "sap", "parallel")
     if args and (len(args) != 2 or args[0] not in ("--compare", "--only")
                  or (args[0] == "--only" and args[1] not in only)):
         fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive | --only unetr | "
-             "--only sap]")
+             "--only sap | --only parallel]")
     if args and args[0] == "--compare" and \
             not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
         fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
@@ -5493,11 +5844,12 @@ def main() -> int:
         compare_forward(os.path.abspath(args[1]))
         print(card, flush=True)
         return 0
-    if args:  # --only adaptive|unetr|sap: the build and that phase alone, no record
+    if args:  # --only adaptive|unetr|sap|parallel: the build and that phase alone, no record
         _timed("phase_build", phase_build)
         os.makedirs(WORK, exist_ok=True)
         try:
-            phase = {"adaptive": phase_adaptive, "unetr": phase_unetr, "sap": phase_sap}
+            phase = {"adaptive": phase_adaptive, "unetr": phase_unetr, "sap": phase_sap,
+                     "parallel": phase_parallel}
             _timed(f"phase_{args[1]}", phase[args[1]])
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
@@ -5529,6 +5881,7 @@ def main() -> int:
         adaptive = _timed("phase_adaptive", phase_adaptive)
         unetr = _timed("phase_unetr", phase_unetr, disk["mae_ckpt"])
         sap = _timed("phase_sap", phase_sap, disk["mae_ckpt"])
+        parallel = _timed("phase_parallel", phase_parallel)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log("[time] " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
@@ -5608,6 +5961,10 @@ def main() -> int:
                                "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_bf16_sap": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
                                      "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_tp2": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                          "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_tp2": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
+                                "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -5624,7 +5981,8 @@ def main() -> int:
                "flash_fwd_dh96": diffusion_kernels["basic_ct"]["fwd"],
                "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"],
                "flash_fwd_unetr": unetr["kernels"]["fwd"],
-               "flash_bwd_fused_unetr": unetr["kernels"]["bwd"], **sap["numbers"]}
+               "flash_bwd_fused_unetr": unetr["kernels"]["bwd"], **sap["numbers"],
+               **parallel["numbers"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"]
@@ -5663,6 +6021,10 @@ def main() -> int:
     # files), the inference CLI's Dice and its server (f32 <64> at [24, 512, 64]);
     # sap_bf16 through the CLI entry (sm90 <64> at [192, 512, 64]): rows of their own
     launches.update(sap["launches"])
+    # the sharded paths (phase_parallel): ViT-B/16 f32 in tp 2, a row of its own at a rank's
+    # [96, 257, 64]; ViT-L/16 bf16 in ddp 2 at the single-device row's [128, 257, 64]
+    for name, n in parallel["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
         f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")
@@ -5687,7 +6049,8 @@ def main() -> int:
                  "flash_bwd_dkv_bf16_mae_long", "flash_bwd_dq_bf16_mae_long", "fused_mlp",
                  "fused_mlp_f32", "int8_matmul", "flash_fwd_dh128", "flash_bwd_fused_dh128",
                  "flash_fwd_dh96", "flash_bwd_fused_dh96", "flash_fwd_unetr",
-                 "flash_bwd_fused_unetr", *sap["launches"]):
+                 "flash_bwd_fused_unetr", *sap["launches"], "flash_fwd_tp2",
+                 "flash_bwd_fused_tp2"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

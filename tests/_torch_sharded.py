@@ -1,0 +1,243 @@
+"""The rank side of the port's sharded CPU tests (`tests/test_torch_parity.py`,
+its sharded section): `run_group` starts a gloo group of `world` processes
+through a FileStore (no TCP port, so parallel test workers cannot collide),
+and every rank runs the same list of jobs in order; rank 0 hands back each
+job's result. The jobs import torch and the port only, never JAX.
+
+Run as a script, one process is one rank of a trainer launched by hand:
+
+    python tests/_torch_sharded.py <store file> <rank> <world> <trainer argv...>
+"""
+
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import sys
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+
+def join_group(store_path: str, rank: int, world: int) -> None:
+    torch.set_num_threads(1)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+
+
+def _worker(rank: int, world: int, store_path: str, jobs: list, queue) -> None:
+    join_group(store_path, rank, world)
+    try:
+        for job in jobs:
+            out = JOBS[job["kind"]](job)
+            if rank == 0:
+                queue.put((job["name"], out))
+    except BaseException:
+        queue.put(("error", f"rank {rank}:\n{traceback.format_exc()}"))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_group(world: int, jobs: list, tmp_dir: str, timeout: float = 900.0) -> dict:
+    """{job name: rank 0's result} of `jobs` run on a gloo group of `world`
+    processes; raises with the failing rank's traceback."""
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(str(tmp_dir), f"store_{world}_{os.getpid()}")
+    procs = [ctx.Process(target=_worker, args=(r, world, store, jobs, queue), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < len(jobs):
+            try:
+                name, out = queue.get(timeout=1.0)
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    raise RuntimeError(f"the group of {world} stopped after {sorted(results)}: "
+                                       f"exit codes {[p.exitcode for p in procs]}")
+                continue
+            if name == "error":
+                raise RuntimeError(out)
+            results[name] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return results
+
+
+# ---------------------------------------------------------------- jobs
+
+
+def _losses(kind: str, cfg):
+    """The train step's loss: the task's, or one that takes injected draws."""
+    from ucf_vit_tpu_torch.ops.patchify import patchify
+    from ucf_vit_tpu_torch.tasks import task_loss
+    from ucf_vit_tpu_torch.utils import metrics
+
+    if kind == "mae_noise":
+        def loss_fn(model, batch):
+            pred, mask = model(batch["x"], mask_noise=batch["mask_noise"])
+            return metrics.masked_mse(pred, patchify(batch["x"], cfg.patch_size, cfg.twoD),
+                                      mask), {}
+        return loss_fn
+    loss = task_loss(cfg)
+    if kind == "diffusion_te":  # t and e from the batch, the time embedding's dropout off
+        def diff_loss(model, batch):
+            model.timeEmbeddingMap.eval()
+            return loss(model, batch)
+        return diff_loss
+    return loss
+
+
+def train_job(job: dict) -> dict:
+    """Train `job["raw"]` on the group's mesh from the whole weights
+    `job["init"]` on the global batches `job["batches"]`; the per-step losses
+    and the parameters gathered whole."""
+    from ucf_vit_tpu_torch import checkpoint as ckpt
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.parallel.mesh import shard_batch
+    from ucf_vit_tpu_torch.parallel.train_step import make_train_step
+    from ucf_vit_tpu_torch.tasks import var_ids_of
+    from ucf_vit_tpu_torch.train import _ema_decay, init_train, to_device
+
+    raw = job["raw"]
+    cfg = Config(raw=raw, task=raw["trainer"]["task"])
+    state, step = init_train(cfg, "cpu")
+    ckpt.load_params(state.model, {k: torch.from_numpy(v) for k, v in job["init"].items()},
+                     "init")
+    if state.ema_params is not None:
+        state.ema_params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    if job.get("loss", "task") != "task":
+        step = make_train_step(_losses(job["loss"], cfg), state.optimizer,
+                               accum_steps=int(cfg.trainer.get("accum_steps", 1)),
+                               ema_decay=_ema_decay(cfg))
+    var_ids = var_ids_of(cfg, state.model)  # None without use_varemb
+    losses = []
+    for b in job["batches"]:
+        state, loss, _ = step(state, to_device(shard_batch(b, state.mesh), torch.device("cpu")),
+                              var_ids)
+        losses.append(loss.item())
+    params = {k: v.numpy() for k, v in ckpt.full_state_dict(state.model).items()}
+    return {"losses": losses, "params": params,
+            "sharded": sorted(getattr(state.model, "tp_layout", {})),
+            "updates": state.optimizer.count,
+            "scale": None if state.loss_scale is None else state.loss_scale.scale}
+
+
+def _gather_world(t: torch.Tensor) -> list:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return [p.numpy() for p in parts]
+
+
+def attn_dropout_job(job: dict) -> dict:
+    """EINSUM attention with dropout on each rank's batch and head slice of
+    the global q, k, v under a (ddp, fsdp, tp) mesh; every rank's output."""
+    from ucf_vit_tpu_torch.ops.attention import multi_head_attention
+    from ucf_vit_tpu_torch.parallel.mesh import make_mesh, mesh_context
+
+    ddp, fsdp, tp = job["shape"]
+    mesh = make_mesh(simple_ddp_size=ddp, fsdp_size=fsdp, tensor_par_size=tp)
+    q, k, v = (torch.from_numpy(job[n]) for n in "qkv")
+    b, h = q.shape[0] // mesh.data_size, q.shape[1] // tp
+    r, t = mesh.data_rank, mesh.index("tp")
+    ql, kl, vl = (x[r * b:(r + 1) * b, t * h:(t + 1) * h] for x in (q, k, v))
+    with mesh_context(mesh):
+        o = multi_head_attention(ql, kl, vl, impl="EINSUM", dropout_rate=job["rate"],
+                                 dropout_seed=job["seed"])
+    return {"outs": _gather_world(o), "coords": _gather_world(
+        torch.tensor([r, t]))}
+
+
+def collectives_job(job: dict) -> dict:
+    """Each conjugate pair on the world group: every rank's forward output
+    and its input's gradient for the cotangent `w_r`."""
+    from ucf_vit_tpu_torch.parallel import collectives as C
+
+    g, r = dist.group.WORLD, dist.get_rank()
+    x = torch.from_numpy(job["x"][r]).clone().requires_grad_(True)
+    pairs = {
+        "f_broadcast_b_identity": lambda t: C.f_broadcast_b_identity(t, g, 1),
+        "f_identity_b_allreduce": lambda t: C.f_identity_b_allreduce(t, g),
+        "f_allreduce_b_identity": lambda t: C.f_allreduce_b_identity(t, g),
+        "f_identity_b_broadcast": lambda t: C.f_identity_b_broadcast(t, g, 1),
+        "all_reduce": lambda t: C.all_reduce(t, g),
+        "all_gather": lambda t: C.all_gather(t, g, axis=0),
+        "reduce_scatter": lambda t: C.reduce_scatter(t, g, axis=0),
+        "all_to_all": lambda t: C.all_to_all(t, g, split_axis=0, concat_axis=1),
+    }
+    out = {}
+    for name, fn in pairs.items():
+        x.grad = None
+        y = fn(x)
+        w = torch.from_numpy(job["w"][name][r])
+        (y * w).sum().backward()
+        out[name] = (_gather_world(y.detach()), _gather_world(x.grad))
+    # the Ulysses pair is its own inverse
+    q = torch.from_numpy(job["q"][r])
+    mid = C.ulysses_heads_to_seq(q, g)
+    out["ulysses"] = (_gather_world(mid), _gather_world(C.ulysses_seq_to_heads(mid, g)))
+    return out
+
+
+def sync_check_job(job: dict) -> dict:
+    """The replica check on a small sharded ViT: healthy, then with one rank's
+    copy of a replicated parameter changed."""
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.parallel.sync_check import ReplicaDesyncError, check_replica_consistency
+    from ucf_vit_tpu_torch.train import init_train
+
+    raw = job["raw"]
+    state, _ = init_train(Config(raw=raw, task="classification"), "cpu")
+    model, mesh = state.model, state.mesh
+    report = check_replica_consistency(model, mesh)
+    out = {"ok": report.ok, "redundancy": report.redundancy_axes, "groups": report.n_groups,
+           "describe": report.describe()}
+    if job.get("corrupt") is not None:
+        if dist.get_rank() == job["corrupt"]:
+            with torch.no_grad():
+                p = model.norm.bias
+                (p.to_local() if hasattr(p, "to_local") else p)[...] += 1e-3
+        try:
+            check_replica_consistency(model, mesh)
+            out["caught"] = None
+        except ReplicaDesyncError as e:
+            out["caught"] = str(e)
+        bad = check_replica_consistency(model, mesh, raise_on_mismatch=False)
+        out["mismatches"] = [[rk for rk, _ in ranks] for _, ranks in bad.mismatches]
+    return out
+
+
+def cli_job(job: dict) -> dict:
+    """`python -m ucf_vit_tpu_torch.train <argv>` on this rank."""
+    from ucf_vit_tpu_torch.train import main
+
+    out = main(job["argv"])
+    return {"loss_list": out["loss_list"], "step": out["state"].step}
+
+
+JOBS = {"train": train_job, "attn_dropout": attn_dropout_job, "collectives": collectives_job,
+        "sync_check": sync_check_job, "cli": cli_job}
+
+
+if __name__ == "__main__":
+    store_path, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    join_group(store_path, rank, world)
+    from ucf_vit_tpu_torch.train import main
+
+    try:
+        main(sys.argv[4:])
+    finally:
+        dist.destroy_process_group()

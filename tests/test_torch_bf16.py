@@ -427,7 +427,7 @@ def test_cli_runs_vit_l_config_shrunk(tmp_path, capsys):
     raw["dataset_options"]["imagenet_resize"] = {"imagenet": [32, 32]}
     small = tmp_path / "vit_l_small.yaml"
     small.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match="single-device"):
+    with pytest.raises(RuntimeError, match="single-device"):  # 32 processes, 1 launched
         main([str(small), "--synthetic", "--device", "cpu", "--max-steps", "2"])
     main([str(small), "--single-device", "--device", "cpu", "--synthetic", "--max-steps", "2"])
     out = capsys.readouterr().out

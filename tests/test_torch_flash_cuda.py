@@ -908,3 +908,78 @@ def test_varemb_vit_step_launches_on_card():
     assert np.isfinite(loss.item())
     assert flash_attention.launches == 2 and flash_attention_bwd.launches == 2
     assert state.model.var_agg.kv.weight.grad is not None
+
+
+# ---------------------------------------------------------------- tensor parallel on the card
+
+TP_LOSS_TOL = 1e-4  # f32 (3xTF32 kernels, TF32 off elsewhere) on both sides: each step's loss
+TP_STEPS = 3
+
+
+def _tp_raw(tp: int) -> dict:
+    ia = {"default_vars": ["red", "green", "blue"], "tile_size": [32, 32], "patch_size": 8,
+          "embed_dim": 256, "depth": 2, "num_heads": 4, "mlp_ratio": 2, "twoD": True,
+          "adaptive_patching": False}
+    return {"trainer": {"task": "classification", "attn_impl": "FLASH", "seed": 0},
+            "parallelism": {"tensor_par_size": tp},
+            "model": {"lr": 1e-3, "warmup_steps": 1, "max_steps": 10, "net": {"init_args": ia}},
+            "data": {"batch_size": 4, "num_classes": 4, "num_channels_used": {"d": 3}}}
+
+
+def _tp_steps(raw: dict) -> dict:
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.parallel.mesh import shard_batch
+    from ucf_vit_tpu_torch.train import init_train, synthetic_batches, to_device
+
+    cfg = Config(raw=raw, task="classification")
+    state, step = init_train(cfg, "cuda")
+    reset_launch_counts()
+    losses = []
+    for _, b in zip(range(TP_STEPS), synthetic_batches(cfg, 4)):
+        state, loss, _ = step(state, to_device(shard_batch(b, state.mesh), torch.device("cuda")))
+        losses.append(loss.item())
+    return {"losses": losses, "src": {**flash_attention.by_source,
+                                      **flash_attention_bwd.by_source},
+            "heads": state.model.blocks[0].attn.qkv.weight.shape[0] // (3 * 64)}
+
+
+def _tp_rank(rank: int, store: str, queue) -> None:
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        queue.put((rank, _tp_steps(_tp_raw(2))))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_step_on_two_ranks_matches_one_device_on_card(tmp_path):
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one device),
+    tp 2: each rank runs the tf32 flash kernels on its 2 of the 4 heads, and every
+    step's loss equals the single-device step's within TP_LOSS_TOL."""
+    _card()
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, args=(r, str(tmp_path / "store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = dict(queue.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    one = _tp_steps(_tp_raw(1))
+    assert one["heads"] == 4
+    for r in range(2):
+        assert ranks[r]["heads"] == 2
+        assert ranks[r]["src"]["flash_fwd_tf32"] == 2 * TP_STEPS  # 2 blocks a step
+        assert ranks[r]["src"]["flash_bwd_tf32"] == 2 * TP_STEPS
+        assert max(abs(a - b) for a, b in zip(ranks[r]["losses"], one["losses"])) <= TP_LOSS_TOL

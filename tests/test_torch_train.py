@@ -298,9 +298,24 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
-    for key, value, item in (("sync_check_every", 2, "item 10: data/tensor parallel"),):
+    for key, item in (("seq_par_size", "item 11: sequence parallelism"),
+                      ("pipe_par_size", "item 12: pipeline"),
+                      ("expert_par_size", "item 12: pipeline")):
+        raw = _raw()
+        raw["parallelism"] = {key: 2}
+        if key == "expert_par_size":  # the config's own check wants experts to shard
+            raw["model"]["net"]["init_args"]["moe_num_experts"] = 2
+        path = tmp_path / f"{key}.yaml"
+        path.write_text(yaml.safe_dump(raw))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port, {item}"):
-            main([_tiny_yaml(tmp_path, **{key: value}), "--synthetic", "--device", "cpu"])
+            main([str(path), "--synthetic", "--device", "cpu"])
+    # a mesh of more processes than were launched
+    raw = _raw()
+    raw["parallelism"] = {"fsdp_size": 2}
+    path = tmp_path / "fsdp2.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    with pytest.raises(RuntimeError, match="asks for 2 processes but 1 was launched"):
+        main([str(path), "--synthetic", "--device", "cpu"])
 
 
 def test_chip_smoke_drives_the_trainer():
@@ -1555,7 +1570,7 @@ def test_cli_trains_diffusion_config_shrunk(tmp_path, capsys, name):
         k: 2 for k in raw["load_balancing"]["batches_per_rank_epoch"]}
     small = tmp_path / f"{name}_small.yaml"
     small.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match="single-device"):
+    with pytest.raises(RuntimeError, match="single-device"):  # 8 processes, 1 launched
         main([str(small), "--synthetic", "--device", "cpu"])
     out = main([str(small), "--single-device", "--device", "cpu", "--synthetic"])
     log = capsys.readouterr().out

@@ -22,7 +22,7 @@ moved into place with `os.replace`:
                           an epoch's end; a preemption save mid-epoch
                           records its position, and resume re-enters the
                           epoch there
-    num_procs             the processes that wrote it (1: the port runs one)
+    num_procs             the processes that wrote it (the world size)
 
 The first three keys are what `python -m
 ucf_vit_tpu.tools.convert_checkpoint to-jax` reads, so a port checkpoint
@@ -32,6 +32,15 @@ loads here as weights. Orbax directories are not read: convert them with
 
 `transfer_mae_encoder` starts a UNETR (or SAP) from an MAE checkpoint's
 encoder (`ucf_vit_tpu/checkpoint.py:358`).
+
+A model sharded on a mesh (`parallel.train_step.shard_model`) saves the same
+file: every rank takes part in gathering each tensor whole (FSDP's shards by
+`DTensor.full_tensor`, the tensor-parallel pieces put back in the
+reference's layout by `models.blocks.tp_merge`), and rank 0 writes it. AdamW's
+moments and the EMA are gathered like their parameters. The device
+generators' states of every rank go in `generators["device_by_rank"]`. A load
+takes each rank's part of the whole tensors, onto whatever layout the
+loading run has (`load_params`, `restore_train_state`).
 """
 
 from __future__ import annotations
@@ -41,8 +50,102 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SUFFIX = ".ckpt"
+
+
+def _mesh(model: torch.nn.Module):
+    return getattr(model, "mesh", None)
+
+
+def _layout(model: torch.nn.Module) -> dict:
+    return getattr(model, "tp_layout", None) or {}
+
+
+def gather_full(t: torch.Tensor, kind: Optional[str], mesh) -> torch.Tensor:
+    """The whole tensor, on every rank (all must call): a DTensor's shards
+    joined, and a tensor-parallel parameter's pieces (split `kind`) merged
+    over tp, each rank's piece placed among zeros and summed, which is exact."""
+    if hasattr(t, "to_local"):
+        t = _join_shards(t)
+    if kind is None or mesh is None or mesh.size("tp") == 1:
+        return t
+    from ucf_vit_tpu_torch.models.blocks import tp_merge
+
+    r = mesh.index("tp")
+    full = tp_merge([t if i == r else torch.zeros_like(t) for i in range(mesh.size("tp"))],
+                    kind)
+    dist.all_reduce(full, group=mesh.group("tp"))
+    return full
+
+
+def _join_shards(t) -> torch.Tensor:
+    """A DTensor whole: along each mesh dim it is `Shard(d)` on, the ranks'
+    pieces of torch.chunk's split (FSDP's layout: equal pieces but the last,
+    some maybe empty), padded to one size, joined by `all_gather_into_tensor`
+    and cut back; replicated dims as they are."""
+    from torch.distributed.tensor import Shard
+
+    dm, out = t.device_mesh, t.to_local()
+    for mdim, pl in enumerate(t.placements):
+        if not isinstance(pl, Shard):
+            continue
+        n, d, size = dm.size(mdim), pl.dim, t.shape[pl.dim]
+        piece = -(-size // n)  # torch.chunk's piece
+        padded = out.new_zeros((piece,) + tuple(out.shape[:d]) + tuple(out.shape[d + 1:]))
+        padded[:out.shape[d]] = out.movedim(d, 0)
+        joined = out.new_empty((n * piece,) + tuple(padded.shape[1:]))
+        dist.all_gather_into_tensor(joined, padded.contiguous(), group=dm.get_group(mdim))
+        out = joined[:size].movedim(0, d)
+    return out.contiguous()
+
+
+def local_piece(full: torch.Tensor, like: torch.Tensor, kind: Optional[str], mesh):
+    """This rank's part of the whole tensor `full`, laid out as `like` (a
+    parameter of the sharded model, or one of its DTensors): the tp slice,
+    then a DTensor's shard, returned as a DTensor like `like`."""
+    t = full
+    if kind is not None and mesh is not None and mesh.size("tp") > 1:
+        from ucf_vit_tpu_torch.models.blocks import tp_slice
+
+        t = tp_slice(t, kind, mesh.index("tp"), mesh.size("tp"))
+    t = t.to(like.device, like.dtype)
+    if not hasattr(like, "to_local"):
+        return t.clone()
+    from torch.distributed.tensor import DTensor, Shard
+
+    dm, coord = like.device_mesh, like.device_mesh.get_coordinate()
+    for dim, pl in enumerate(like.placements):
+        if isinstance(pl, Shard):  # torch.chunk's split, as FSDP shards
+            chunks = t.chunk(dm.size(dim), dim=pl.dim)
+            t = chunks[coord[dim]] if coord[dim] < len(chunks) else t.narrow(pl.dim, 0, 0)
+    return DTensor.from_local(t.contiguous().clone(), dm, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """`model.state_dict()` with every tensor whole, on every rank (a sharded
+    model's ranks must all call it)."""
+    mesh, layout = _mesh(model), _layout(model)
+    return {k: gather_full(v, layout.get(k), mesh) for k, v in model.state_dict().items()}
+
+
+def _full_shapes(model: torch.nn.Module) -> Dict[str, tuple]:
+    """The whole shape of each `state_dict` entry of a (sharded) model."""
+    mesh, layout = _mesh(model), _layout(model)
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = list(v.shape)  # a DTensor's is the whole one over the data axes
+        kind = layout.get(k)
+        if kind is not None and mesh is not None:
+            shape[1 if kind == "cols" else 0] *= mesh.size("tp")
+        out[k] = tuple(shape)
+    return out
 
 
 def _ckpt_file(checkpoint_path: str, filename: str, epoch: int) -> str:
@@ -77,28 +180,40 @@ def save_checkpoint(
     it overwrites the older slot and never the last committed epoch's
     (`ucf_vit_tpu/checkpoint.py:67-100`). Returns the file's path."""
     path = _ckpt_file(checkpoint_path, filename, epoch if slot_epoch is None else slot_epoch)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    model = state.model
+    model, mesh = state.model, _mesh(state.model)
     gens = None
     if getattr(model, "generator", None) is not None:
         gens = {"device": model.generator.get_state(),
                 "host": model.host_generator.get_state()}
+        if mesh is not None:
+            by_rank = [None] * mesh.world
+            dist.all_gather_object(by_rank, gens["device"])
+            gens["device_by_rank"] = by_rank
+    if mesh is None:
+        model_sd, opt_sd = model.state_dict(), state.optimizer.adamw.state_dict()
+        ema = state.ema_params
+    else:
+        model_sd, opt_sd, ema = _gathered_state(state)
+    if mesh is not None and dist.get_rank() != 0:
+        dist.barrier()  # rank 0 writes; the others wait for the file
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "epoch": int(epoch),
-        "model_state_dict": _cpu(model.state_dict()),
+        "model_state_dict": _cpu(model_sd),
         "loss_list": [float(v) for v in loss_list],
-        "optimizer_state_dict": _optimizer_state_cpu(state.optimizer.adamw.state_dict()),
+        "optimizer_state_dict": _optimizer_state_cpu(opt_sd),
         "optimizer_count": int(state.optimizer.count),
         "step": int(state.step),
         "loss_scale": (None if state.loss_scale is None else
                        {"scale": float(state.loss_scale.scale),
                         "growth_counter": int(state.loss_scale.growth_counter)}),
-        "ema_state_dict": None if state.ema_params is None else _cpu(state.ema_params),
+        "ema_state_dict": None if ema is None else _cpu(ema),
         "total_steps": int(total_steps),
         "head_meta": None if head_meta is None else [int(v) for v in head_meta],
         "generators": gens,
         "data_it": int(data_it),
-        "num_procs": 1,
+        "num_procs": 1 if mesh is None else mesh.world,
     }
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
@@ -107,7 +222,33 @@ def save_checkpoint(
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+        if mesh is not None:
+            dist.barrier()
     return path
+
+
+def _param_names(state) -> list:
+    """The names of AdamW's parameters in its `state_dict` index order."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.adamw.param_groups for p in g["params"]]
+
+
+def _gathered_state(state):
+    """(model, AdamW and EMA state dicts) of a sharded state, every tensor
+    whole on every rank."""
+    model, mesh, layout = state.model, _mesh(state.model), _layout(state.model)
+    model_sd = full_state_dict(model)
+    sd = state.optimizer.adamw.state_dict()
+    names = _param_names(state)
+    opt_state = {}
+    for i, st in sd["state"].items():
+        kind = layout.get(names[i])
+        opt_state[i] = {k: (gather_full(v, kind if v.ndim else None, mesh)
+                            if torch.is_tensor(v) else v) for k, v in st.items()}
+    ema = None
+    if state.ema_params is not None:
+        ema = {n: gather_full(v, layout.get(n), mesh) for n, v in state.ema_params.items()}
+    return model_sd, {"state": opt_state, "param_groups": sd["param_groups"]}, ema
 
 
 def _load(path: str) -> dict:
@@ -209,25 +350,30 @@ def restore_checkpoint(checkpoint_path: str, filename_for_loading: str,
 
 
 def check_state_dict(model: torch.nn.Module, sd: Dict[str, torch.Tensor], what: str) -> None:
-    """Raise unless `sd` has exactly the model's names and shapes."""
-    own = model.state_dict()
+    """Raise unless `sd` has exactly the model's names and (whole) shapes."""
+    own = _full_shapes(model)
     missing, unused = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
     if missing or unused:
         raise ValueError(f"{what} does not match the model: missing {missing[:5]}, "
                          f"unused {unused[:5]}")
-    for k, v in own.items():
-        if tuple(sd[k].shape) != tuple(v.shape):
+    for k, shape in own.items():
+        if tuple(sd[k].shape) != shape:
             raise ValueError(f"{what}: {k} has shape {tuple(sd[k].shape)}, the model "
-                             f"{tuple(v.shape)}")
+                             f"{shape}")
 
 
 @torch.no_grad()
 def load_params(model: torch.nn.Module, sd: Dict[str, torch.Tensor], what: str) -> None:
-    """Copy `sd` into the model's parameters in place (checked first), cast
-    to each parameter's dtype."""
+    """Copy the whole tensors `sd` into the model's parameters in place
+    (checked first), cast to each parameter's dtype; a sharded model takes
+    each rank's part."""
     check_state_dict(model, sd, what)
+    mesh, layout = _mesh(model), _layout(model)
     for k, v in model.state_dict().items():
-        v.copy_(sd[k])
+        if mesh is None:
+            v.copy_(sd[k])
+        else:
+            _local(v).copy_(_local(local_piece(sd[k], v, layout.get(k), mesh)))
 
 
 def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> None:
@@ -239,9 +385,17 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
     if "optimizer_state_dict" not in payload:
         raise ValueError("the checkpoint holds weights only (no optimizer state): warm "
                          "start from it with trainer.init_params_from instead")
-    model = state.model
+    model, mesh, layout = state.model, _mesh(state.model), _layout(state.model)
     load_params(model, payload["model_state_dict"], "checkpoint")
-    state.optimizer.adamw.load_state_dict(payload["optimizer_state_dict"])
+    opt_sd = payload["optimizer_state_dict"]
+    if mesh is not None:  # each moment as its parameter is sharded here
+        params = dict(model.named_parameters())
+        names = _param_names(state)
+        opt_sd = {"param_groups": opt_sd["param_groups"], "state": {
+            i: {k: (local_piece(v, params[names[int(i)]], layout.get(names[int(i)]), mesh)
+                    if torch.is_tensor(v) and v.ndim else v) for k, v in st.items()}
+            for i, st in opt_sd["state"].items()}}
+    state.optimizer.adamw.load_state_dict(opt_sd)
     state.optimizer.count = int(payload["optimizer_count"])
     state.step = int(payload["step"])
     ls = payload["loss_scale"]
@@ -250,7 +404,15 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
                                                   growth_counter=int(ls["growth_counter"]))
     gens = payload.get("generators")
     if gens is not None and getattr(model, "generator", None) is not None:
-        model.generator.set_state(gens["device"])
+        by_rank = gens.get("device_by_rank")
+        world = 1 if mesh is None else mesh.world
+        if by_rank is None and world == 1:
+            model.generator.set_state(gens["device"])
+        elif by_rank is not None and len(by_rank) == world:
+            model.generator.set_state(by_rank[0 if mesh is None else dist.get_rank()])
+        else:  # another layout: the device generators stay as seeded for this one
+            print(f"device generators written by {1 if by_rank is None else len(by_rank)} "
+                  f"processes, this run has {world}: kept as seeded", flush=True)
         model.host_generator.set_state(gens["host"])
     ema = payload.get("ema_state_dict")
     if ema_decay is None:
@@ -262,7 +424,7 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
         print("seeded EMA from restored params (checkpoint predates ema_decay)", flush=True)
     else:
         check_state_dict(model, ema, "checkpoint EMA state")
-        state.ema_params = {n: ema[n].to(p.device, p.dtype).clone()
+        state.ema_params = {n: local_piece(ema[n], p.detach(), layout.get(n), mesh)
                             for n, p in model.named_parameters()}
 
 

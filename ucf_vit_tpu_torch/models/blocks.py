@@ -9,6 +9,22 @@ step hands to the model (`set_generator`), never from torch's global one:
 `Dropout` and `DropPath` from a generator on the activations' device,
 `Attention` its per-call dropout seed from a CPU generator.
 
+Tensor parallelism (`shard_tensor_parallel`) follows the JAX `kernel_axes`
+(`ucf_vit_tpu/models/blocks.py:157,166,203,240,386-406`), Megatron-style on
+the port's own collectives over the mesh's tp group: `qkv` and `fc1` are
+column-parallel (each tp rank keeps the output rows of its heads, or of its
+slice of the hidden units), `proj` and `fc2` row-parallel (the matching input
+columns; the partial products are summed over tp and the bias is added once,
+after the sum). The fused `qkv` keeps q, k and v of a rank's heads, so its
+output still views as `[B, N, 3, H/tp, dh]`; `VariableMappingAttention`'s `q`,
+`kv` and `proj` split the same way. A column-parallel input passes through
+`f_identity_b_allreduce`, so the gradient of the replicated activation is
+summed over tp. A module whose heads (or hidden units) do not divide by tp
+stays replicated, the JAX package's divisibility rule (`fit_spec_to_shape`),
+and so does an `Attention` with `qk_norm`.
+Everything else (norms, embeddings, heads, decoders, convolutions) is
+replicated over tp.
+
 The bf16 compute policy is flax's `dtype=` argument, module by module
 (`ucf_vit_tpu/models/blocks.py`): parameters stay f32; `Linear` and the
 patch-embed conv cast their input, weight and bias to `dtype` and return it;
@@ -27,6 +43,66 @@ from torch import nn
 
 from ucf_vit_tpu_torch.ops.attention import AttnImpl, multi_head_attention
 from ucf_vit_tpu_torch.ops.attn_dropout import draw_seed
+from ucf_vit_tpu_torch.parallel.collectives import f_allreduce_b_identity, f_identity_b_allreduce
+
+# how a tensor-parallel parameter splits over tp, by the torch layout
+# ([out, in] weights): "rows" the output rows of a column-parallel layer (and its
+# bias), "cols" the input columns of a row-parallel one, "qkv" / "kv" the rows
+# of a fused projection of 3 / 2 parts, each part split alike (by heads)
+TP_PARTS = {"rows": 1, "qkv": 3, "kv": 2}
+
+
+def tp_slice(t: torch.Tensor, kind: str, rank: int, size: int) -> torch.Tensor:
+    """Tensor-parallel rank `rank`'s piece of the full parameter `t`."""
+    if kind == "cols":
+        return t.chunk(size, dim=1)[rank]
+    parts = t.chunk(TP_PARTS[kind], dim=0)
+    return torch.cat([p.chunk(size, dim=0)[rank] for p in parts], dim=0)
+
+
+def tp_merge(pieces, kind: str) -> torch.Tensor:
+    """The full parameter from the tp ranks' pieces, in rank order (the
+    inverse of `tp_slice`)."""
+    if kind == "cols":
+        return torch.cat(list(pieces), dim=1)
+    n = TP_PARTS[kind]
+    split = [p.chunk(n, dim=0) for p in pieces]
+    return torch.cat([torch.cat([s[i] for s in split], dim=0) for i in range(n)], dim=0)
+
+
+def _row_parallel(linear: "Linear", x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel Linear: the local product, summed over tp, then the
+    bias once."""
+    dt = linear.dtype or torch.promote_types(x.dtype, linear.weight.dtype)
+    y = f_allreduce_b_identity(F.linear(x.to(dt), linear.weight.to(dt)), group)
+    return y if linear.bias is None else y + linear.bias.to(dt)
+
+
+class TensorParallel:
+    """What a tensor-parallel module keeps: its parameters' split (`tp_layout`,
+    by name under the module) and the tp group once split."""
+
+    tp_group = None
+
+    def tp_layout(self) -> dict:
+        raise NotImplementedError
+
+    def tp_divides(self, size: int) -> bool:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def shard_tensor_parallel(self, group, rank: int, size: int) -> bool:
+        """Keep rank `rank`'s piece of each split parameter, in place; returns
+        False (and changes nothing) where the module stays replicated."""
+        if size <= 1 or not self.tp_divides(size):
+            return False
+        params = dict(self.named_parameters())
+        for name, kind in self.tp_layout().items():
+            if name in params:
+                p = params[name]
+                p.data = tp_slice(p.data, kind, rank, size).contiguous()
+        self.tp_group = group
+        return True
 
 
 class LayerNorm(nn.LayerNorm):
@@ -64,6 +140,20 @@ class Linear(nn.Linear):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def shard_tensor_parallel(model: nn.Module, group, rank: int, size: int) -> dict:
+    """Split every tensor-parallel module of `model` over the tp group, in
+    place; returns `{parameter name: split kind}` of what was split (the
+    checkpoint's gather and the sync check read it)."""
+    names, layout = {n for n, _ in model.named_parameters()}, {}
+    for prefix, m in model.named_modules():
+        if isinstance(m, TensorParallel) and m.shard_tensor_parallel(group, rank, size):
+            for name, kind in m.tp_layout().items():
+                full = f"{prefix}.{name}" if prefix else name
+                if full in names:
+                    layout[full] = kind
+    return layout
 
 
 def set_generator(module: nn.Module, generator: torch.Generator,
@@ -183,8 +273,9 @@ class AdaptivePosMLP(nn.Sequential):
         super().__init__(Linear(in_features, embed_dim), nn.GELU(approximate="none"))
 
 
-class Mlp(nn.Module):
-    """fc1 -> GELU (tanh approximation unless gelu_approx=False) -> fc2."""
+class Mlp(nn.Module, TensorParallel):
+    """fc1 -> GELU (tanh approximation unless gelu_approx=False) -> fc2; under
+    tensor parallelism fc1 column-parallel and fc2 row-parallel."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  drop: float = 0.0, gelu_approx: bool = True,
@@ -196,8 +287,17 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_features, out_features, dtype=dtype)
         self.drop2 = Dropout(drop)
 
+    def tp_layout(self) -> dict:
+        return {"fc1.weight": "rows", "fc1.bias": "rows", "fc2.weight": "cols"}
+
+    def tp_divides(self, size: int) -> bool:
+        return self.fc1.out_features % size == 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop2(self.fc2(self.drop1(self.act(self.fc1(x)))))
+        if self.tp_group is None:
+            return self.drop2(self.fc2(self.drop1(self.act(self.fc1(x)))))
+        h = self.drop1(self.act(self.fc1(f_identity_b_allreduce(x, self.tp_group))))
+        return self.drop2(_row_parallel(self.fc2, h, self.tp_group))
 
 
 class EmbeddingDenseLayer(nn.Module):
@@ -215,11 +315,12 @@ class EmbeddingDenseLayer(nn.Module):
         return self.linear2(self.dropout(F.relu(self.linear1(x))))
 
 
-class Attention(nn.Module):
+class Attention(nn.Module, TensorParallel):
     """Multi-head self-attention with impl dispatch.
 
     The fused qkv output splits into q, k, v on its last dim, then into
-    heads; q, k and v go to the attention as strided views of it. In training
+    heads (under tensor parallelism the rank's own, as many as its qkv width
+    holds); q, k and v go to the attention as strided views of it. In training
     with `attn_drop > 0` each call draws an int32 dropout seed from
     `host_generator` (the role of `seed_from_key` on the JAX side)."""
 
@@ -242,10 +343,21 @@ class Attention(nn.Module):
         self.proj_drop = Dropout(proj_drop)
         self.host_generator: Optional[torch.Generator] = None
 
+    def tp_layout(self) -> dict:
+        return {"qkv.weight": "qkv", "qkv.bias": "qkv", "proj.weight": "cols"}
+
+    def tp_divides(self, size: int) -> bool:
+        # with qk_norm the norms' parameters, shared by every head, would see a
+        # rank's heads only; no config sets it, so such a block stays replicated
+        return self.num_heads % size == 0 and self.q_norm is None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
-        qkv = self.qkv(x).view(b, n, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv.unbind(2)  # [B, N, H, dh] each
+        tp = self.tp_group
+        if tp is not None:
+            x = f_identity_b_allreduce(x, tp)
+        qkv = self.qkv(x).view(b, n, 3, -1, self.head_dim)
+        q, k, v = qkv.unbind(2)  # [B, N, H (local), dh] each
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         rate = self.attn_drop if self.training else 0.0
@@ -255,11 +367,11 @@ class Attention(nn.Module):
             dropout_rate=rate,
             dropout_seed=draw_seed(self.host_generator) if rate > 0.0 else None,
         )
-        out = out.transpose(1, 2).reshape(b, n, c)
-        return self.proj_drop(self.proj(out))
+        out = out.transpose(1, 2).reshape(b, n, -1)
+        return self.proj_drop(self.proj(out) if tp is None else _row_parallel(self.proj, out, tp))
 
 
-class VariableMappingAttention(nn.Module):
+class VariableMappingAttention(nn.Module, TensorParallel):
     """Cross attention of a few queries over a few keys, the variable
     embedding's merge (`ucf_vit_tpu/models/blocks.py:362-409`): `q` of the
     queries and the fused `kv` of the inputs without bias, heads of `dim //
@@ -277,15 +389,26 @@ class VariableMappingAttention(nn.Module):
         self.kv = Linear(dim, 2 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = Linear(dim, dim, bias=proj_bias, dtype=dtype)
 
+    def tp_layout(self) -> dict:
+        return {"q.weight": "rows", "q.bias": "rows", "kv.weight": "kv", "kv.bias": "kv",
+                "proj.weight": "cols"}
+
+    def tp_divides(self, size: int) -> bool:
+        return self.num_heads % size == 0
+
     def forward(self, var_query: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         bq, n_a, c = var_query.shape
         n_i = x.shape[1]
-        h, dh = self.num_heads, self.head_dim
-        q = self.q(var_query).view(bq, n_a, h, dh).transpose(1, 2)
-        k, v = self.kv(x).view(bq, n_i, 2, h, dh).unbind(2)
+        dh = self.head_dim
+        tp = self.tp_group
+        if tp is not None:
+            var_query, x = f_identity_b_allreduce(var_query, tp), f_identity_b_allreduce(x, tp)
+        q = self.q(var_query).view(bq, n_a, -1, dh).transpose(1, 2)
+        k, v = self.kv(x).view(bq, n_i, 2, -1, dh).unbind(2)
         out = multi_head_attention(q, k.transpose(1, 2), v.transpose(1, 2),
                                    impl=AttnImpl.EINSUM, sm_scale=dh**-0.5)
-        return self.proj(out.transpose(1, 2).reshape(bq, n_a, c))
+        out = out.transpose(1, 2).reshape(bq, n_a, -1)
+        return self.proj(out) if tp is None else _row_parallel(self.proj, out, tp)
 
 
 class Block(nn.Module):

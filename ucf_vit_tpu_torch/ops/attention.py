@@ -19,6 +19,15 @@ Attention dropout on EINSUM uses the same hash mask as the flash kernels
 drop the same elements inside the port. The JAX package's EINSUM draws
 `jax.random.bernoulli` instead (`ucf_vit_tpu/ops/attention.py:129-134`): a
 difference kept on purpose (ROADMAP.md, faults).
+
+Under a mesh of more than one rank (`parallel.mesh.mesh_context`) each rank
+runs its own batch slice and, under tensor parallelism, its own heads: the
+local `[B_local, H_local, N, dh]` that the JAX package's `_sharded_flash`
+hands each device (`ucf_vit_tpu/ops/attention.py:193-290`). With dropout the
+seed is folded with the rank's (ddp, fsdp, tp) indices in that order, as
+there (`:233-243`), so that the local coordinates of different shards do not
+draw one mask; both impls fold it, so they still drop the same elements.
+Sequence parallelism (sp > 1) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -28,8 +37,9 @@ from typing import Optional
 
 import torch
 
-from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask
+from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask, fold_seed
 from ucf_vit_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention
+from ucf_vit_tpu_torch.parallel.mesh import active_mesh
 
 # The most keys that segment-masked attention under FLASH may take (routed to
 # EINSUM, which holds the whole [Nq, Nkv] score matrix).
@@ -92,6 +102,16 @@ def einsum_attention(
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
+def sharded_seed(seed: int) -> int:
+    """`seed` folded with the active mesh's (ddp, fsdp, tp) indices when the
+    mesh has more than one rank (`ucf_vit_tpu/ops/attention.py:366-375`);
+    `seed` itself on one device."""
+    mesh = active_mesh()
+    if mesh is None or mesh.world == 1:
+        return seed
+    return fold_seed(seed, mesh.index("ddp"), mesh.index("fsdp"), mesh.index("tp"))
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -109,15 +129,16 @@ def multi_head_attention(
     raises AssertionError past SHORT_SEQ_THRESHOLD keys there; EINSUM asked
     for by name takes any length.
     dropout_rate > 0 needs an int32 `dropout_seed`; FLASH drops inside the
-    kernels and EINSUM with the same hash mask. The XLA impl and attention
-    sharded over several processes are not ported and raise
-    NotImplementedError."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
+    kernels and EINSUM with the same hash mask, both with the seed folded by
+    the active mesh's coordinates (`sharded_seed`). The XLA impl and
+    sequence parallelism are not ported and raise NotImplementedError."""
+    mesh = active_mesh()
+    if mesh is not None and mesh.size("sp") > 1:
         raise NotImplementedError(
-            "sharded attention is not ported yet (ROADMAP.md, modules to port: "
-            "data/tensor parallel and sequence parallel)"
-        )
+            "sequence-parallel attention (seq_par_size > 1) is not ported yet "
+            "(ROADMAP.md, modules to port, item 11: sequence parallelism)")
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        dropout_seed = sharded_seed(dropout_seed)
     impl = resolve_impl(impl, q.device)
     if impl == AttnImpl.XLA:
         raise NotImplementedError(

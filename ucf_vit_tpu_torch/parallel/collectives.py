@@ -1,0 +1,224 @@
+"""Collectives with a chosen forward and backward (port of
+`ucf_vit_tpu/parallel/collectives.py`).
+
+The conjugate pairs that Megatron-style tensor parallelism is built from
+(the reference's `utils/dist_functions.py`). The JAX package runs them
+inside `shard_map` on a named axis; here each is a `torch.autograd.Function`
+over the process group of one mesh axis (`Mesh.group(axis)`), and a rank's
+index is its rank in that group.
+
+| here                       | forward        | backward       |
+|----------------------------|----------------|----------------|
+| f_broadcast_b_identity     | broadcast(src) | identity       |
+| f_identity_b_allreduce     | identity       | all-reduce     |
+| f_allreduce_b_identity     | all-reduce     | identity       |
+| f_identity_b_broadcast     | identity       | broadcast(src) |
+| all_reduce                 | all-reduce     | all-reduce     |
+| all_gather                 | all-gather     | reduce-scatter |
+| reduce_scatter             | reduce-scatter | all-gather     |
+| all_to_all                 | all-to-all     | all-to-all     |
+
+All reductions are sums. The forward and backward of one pair run the same
+collectives on every rank of the group, so every rank must call them
+together. With `tiled=False` the JAX package stacks the gathered pieces on a
+new axis (and `reduce_scatter` drops it); the same here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    x = x.contiguous().clone()
+    dist.broadcast(x, group=group, group_src=src)
+    return x
+
+
+def _gather(x: torch.Tensor, group, axis: int, tiled: bool) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
+
+
+def _scatter(x: torch.Tensor, group, axis: int, tiled: bool) -> torch.Tensor:
+    """Sum over the group, then this rank's part of `axis` (tiled: a chunk;
+    else the index along it). An all-reduce and a slice: the same result as a
+    reduce-scatter on every backend."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    total = _all_reduce(x, group)
+    if not tiled:
+        if total.shape[axis] != n:
+            raise ValueError(f"untiled reduce_scatter needs dim {axis} of size {n}")
+        return total.select(axis, r).contiguous()
+    if total.shape[axis] % n:
+        raise ValueError(f"dim {axis} of size {total.shape[axis]} does not split over {n}")
+    return total.chunk(n, dim=axis)[r].contiguous()
+
+
+def _a2a(x: torch.Tensor, group, split_axis: int, concat_axis: int, tiled: bool) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if tiled:
+        if x.shape[split_axis] % n:
+            raise ValueError(f"dim {split_axis} of size {x.shape[split_axis]} does not split "
+                             f"over {n}")
+        pieces = [p.contiguous() for p in x.chunk(n, dim=split_axis)]
+    else:
+        pieces = [p.contiguous() for p in x.unbind(split_axis)]
+    sent = torch.stack(pieces)  # piece i goes to rank i
+    got = torch.empty_like(sent)
+    dist.all_to_all_single(got, sent, group=group)
+    outs = got.unbind(0)
+    return torch.cat(outs, dim=concat_axis) if tiled else torch.stack(outs, dim=concat_axis)
+
+
+class _BroadcastIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        return _broadcast(x, group, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _IdentityAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllReduceIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IdentityBroadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.group, ctx.src = group, src
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _broadcast(g, ctx.group, ctx.src), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis, tiled):
+        ctx.args = (group, axis, tiled)
+        return _gather(x, group, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis, tiled):
+        ctx.args = (group, axis, tiled)
+        return _scatter(x, group, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, tiled):
+        ctx.args = (group, split_axis, concat_axis, tiled)
+        return _a2a(x, group, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis, tiled = ctx.args
+        return _a2a(g, group, concat_axis, split_axis, tiled), None, None, None, None
+
+
+def f_broadcast_b_identity(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Every rank gets rank `src`'s value; the gradient passes unchanged."""
+    return _BroadcastIdentity.apply(x, group, src)
+
+
+def f_identity_b_allreduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity; the gradient is summed over the group (the input of a
+    column-parallel layer)."""
+    return _IdentityAllReduce.apply(x, group)
+
+
+def f_allreduce_b_identity(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group; the gradient passes unchanged (the output of a
+    row-parallel layer)."""
+    return _AllReduceIdentity.apply(x, group)
+
+
+def f_identity_b_broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Identity; every rank gets rank `src`'s gradient."""
+    return _IdentityBroadcast.apply(x, group, src)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group, forward and backward."""
+    return _AllReduce.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, axis: int = 0, tiled: bool = True) -> torch.Tensor:
+    """The group's pieces joined on `axis` in rank order; reduce-scatter
+    backward."""
+    return _AllGather.apply(x, group, axis, tiled)
+
+
+def reduce_scatter(x: torch.Tensor, group, axis: int = 0, tiled: bool = True) -> torch.Tensor:
+    """The sum over the group, this rank's part of `axis`; all-gather
+    backward."""
+    return _ReduceScatter.apply(x, group, axis, tiled)
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int,
+               tiled: bool = True) -> torch.Tensor:
+    """Piece i of `split_axis` goes to rank i; the pieces received are joined
+    on `concat_axis` in rank order. Its own transpose backward."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis, tiled)
+
+
+def ulysses_heads_to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """[B, H/sp, N, dh] -> [B, H, N/sp, dh]: the Ulysses head <-> sequence
+    swap."""
+    return all_to_all(x, group, split_axis=2, concat_axis=1)
+
+
+def ulysses_seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
+    """[B, H, N/sp, dh] -> [B, H/sp, N, dh]: the inverse of
+    `ulysses_heads_to_seq`."""
+    return all_to_all(x, group, split_axis=1, concat_axis=2)

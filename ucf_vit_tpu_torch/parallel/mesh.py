@@ -1,0 +1,211 @@
+"""The device mesh (port of `ucf_vit_tpu/parallel/mesh.py`).
+
+The JAX package lays every device on one named mesh, and GSPMD inserts the
+collectives that logical axis names on the parameters ask for. The port
+builds the same 6-axis mesh as a `torch.distributed.device_mesh.DeviceMesh`
+over the processes of the job, one device each, and makes the collectives
+explicit: tensor parallelism on the `tp` groups (`models/blocks.py`,
+`parallel/collectives.py`), ZeRO-3 sharding on the `(ddp, fsdp)` submesh
+(`parallel/train_step.py`).
+
+Axes, outermost first (`:41-47`): pp (`pipe_par_size`), ddp
+(`simple_ddp_size`), ep (`expert_par_size`), fsdp (`fsdp_size`), sp
+(`seq_par_size`), tp (`tensor_par_size`). Rank r sits at the row-major
+coordinates of r in that shape, as the JAX package lays CPU devices out, so
+tp ranks are neighbours. The batch is split over the data axes ddp, ep and
+fsdp (`DATA_AXES`): the data rank is the row-major index over them, and the
+tp (and sp, pp) ranks of one data rank see the same slice.
+
+`init_distributed` joins the job from torchrun's variables (`RANK`,
+`WORLD_SIZE`, `LOCAL_RANK`) or SLURM's (`SLURM_PROCID`, `SLURM_NTASKS`,
+`SLURM_LOCALID`), as the JAX trainer's `init_distributed` reads SLURM's
+(`ucf_vit_tpu/train.py:287-306`); it does nothing when a process group
+exists already (a test or `chip_smoke.py` makes its own).
+
+The JAX package's divisibility rule (`fit_spec_to_shape`, `:229-245`: a
+dim that does not divide by its axes stays replicated) holds for tp module
+by module: a block whose heads (or hidden units) do not divide by tp stays
+replicated (`models/blocks.py`). Over fsdp, FSDP shards every parameter by
+torch.chunk's split instead, a short or empty last shard where a dim does
+not divide (UNETR's 3-class bias over fsdp 2 as [2, 1]), and the checkpoint
+joins the shards back by the same split.
+
+`mesh_context` makes a mesh the active one: the attention reads its
+coordinates to fold dropout seeds, and the losses its data group.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import datetime
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+AXIS_PP = "pp"
+AXIS_DDP = "ddp"
+AXIS_EP = "ep"
+AXIS_FSDP = "fsdp"
+AXIS_SP = "sp"
+AXIS_TP = "tp"
+MESH_AXES = (AXIS_PP, AXIS_DDP, AXIS_EP, AXIS_FSDP, AXIS_SP, AXIS_TP)
+# the axes the batch is split over (`:53`)
+DATA_AXES = (AXIS_DDP, AXIS_EP, AXIS_FSDP)
+# the axes FSDP runs on: replicated over ddp, sharded over fsdp
+FSDP_AXES = (AXIS_DDP, AXIS_FSDP)
+
+_ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch_mesh",
+                                                              default=None)
+
+
+class Mesh:
+    """The job's DeviceMesh with the groups the port's collectives run on:
+    one group per axis, and `data_group` over the data axes (the ranks that
+    share every other coordinate)."""
+
+    def __init__(self, device_mesh, data_group):
+        self.device_mesh = device_mesh
+        self.shape: Dict[str, int] = dict(zip(MESH_AXES, device_mesh.mesh.shape))
+        self.coords: Dict[str, int] = dict(zip(MESH_AXES, device_mesh.get_coordinate()))
+        self.data_group = data_group
+
+    @property
+    def world(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    @property
+    def data_size(self) -> int:
+        return int(np.prod([self.shape[a] for a in DATA_AXES]))
+
+    @property
+    def data_rank(self) -> int:
+        r = 0
+        for a in DATA_AXES:
+            r = r * self.shape[a] + self.coords[a]
+        return r
+
+    def fsdp_mesh(self):
+        """The 2-D (ddp, fsdp) submesh this rank belongs to."""
+        return self.device_mesh[FSDP_AXES]
+
+
+def init_distributed(device: Optional[torch.device] = None) -> bool:
+    """Join the job's process group from the launcher's environment: torchrun
+    (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`/`MASTER_PORT`) or SLURM
+    (`SLURM_PROCID`, `SLURM_NTASKS`, with `MASTER_ADDR`/`MASTER_PORT` set by
+    the batch script). NCCL on CUDA, gloo on the CPU. On CUDA the process
+    takes the card of its `LOCAL_RANK` (`SLURM_LOCALID`). Does nothing when
+    a group exists already, or for one process; returns whether a group of
+    more than one rank is up."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size() > 1
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:
+        rank, world, local = int(env["RANK"]), int(env["WORLD_SIZE"]), env.get("LOCAL_RANK")
+    elif int(env.get("SLURM_NTASKS", "1")) > 1 and "SLURM_PROCID" in env:
+        rank, world, local = int(env["SLURM_PROCID"]), int(env["SLURM_NTASKS"]), \
+            env.get("SLURM_LOCALID")
+    else:
+        return False
+    if world <= 1:
+        return False
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and local is not None:
+        torch.cuda.set_device(int(local))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(minutes=30))
+    return True
+
+
+def make_mesh(simple_ddp_size: int = 1, fsdp_size: int = 1, seq_par_size: int = 1,
+              tensor_par_size: int = 1, pipe_par_size: int = 1, expert_par_size: int = 1,
+              device_type: str = "cpu") -> Mesh:
+    """The 6-axis mesh over the job's processes (`:88-127`). Raises, as the
+    JAX assertion does, when the product of the axes is not the world
+    size."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (pipe_par_size, simple_ddp_size, expert_par_size, fsdp_size, seq_par_size,
+             tensor_par_size)
+    world = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if world != have:
+        raise AssertionError(
+            f"world size {world} (= pp {pipe_par_size} x ddp {simple_ddp_size} x "
+            f"ep {expert_par_size} x fsdp {fsdp_size} x sp {seq_par_size} x "
+            f"tp {tensor_par_size}) != #processes {have}")
+    device_mesh = init_device_mesh(device_type, shape, mesh_dim_names=MESH_AXES)
+    # the data group of every slice of the other axes, made in the same order on
+    # every rank (new_group is collective over the whole job)
+    ranks = np.arange(world).reshape(shape)
+    data_dims = [MESH_AXES.index(a) for a in DATA_AXES]
+    other = [d for d in range(len(shape)) if d not in data_dims]
+    n_data = int(np.prod([shape[d] for d in data_dims]))
+    rows = ranks.transpose(other + data_dims).reshape(-1, n_data)
+    me, mine = dist.get_rank(), None
+    for row in rows:
+        g = dist.new_group(row.tolist())
+        if me in row:
+            mine = g
+    return Mesh(device_mesh, mine)
+
+
+def mesh_from_config(parallelism: dict, device_type: str = "cpu") -> Mesh:
+    """The config's `parallelism:` section -> Mesh (`:184-195`)."""
+    return make_mesh(
+        simple_ddp_size=int(parallelism.get("simple_ddp_size", 1)),
+        fsdp_size=int(parallelism.get("fsdp_size", 1)),
+        seq_par_size=int(parallelism.get("seq_par_size", 1)),
+        tensor_par_size=int(parallelism.get("tensor_par_size", 1)),
+        pipe_par_size=int(parallelism.get("pipe_par_size", 1)),
+        expert_par_size=int(parallelism.get("expert_par_size", 1)),
+        device_type=device_type,
+    )
+
+
+def active_mesh() -> Optional[Mesh]:
+    return _ACTIVE_MESH.get()
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: Optional[Mesh]):
+    """Make `mesh` the active mesh (None: single device) inside the block."""
+    token = _ACTIVE_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE_MESH.reset(token)
+
+
+def shard_batch(batch: dict, mesh: Optional[Mesh]) -> dict:
+    """This rank's slice of a global host batch (`shard_batch`, `:314-332`):
+    every array's leading dim split in `data_size` equal parts, part
+    `data_rank` kept; the tp ranks of one data rank keep the same part.
+    Entries that are not arrays (`variables`, trees) pass unchanged."""
+    if mesh is None or mesh.data_size == 1:
+        return batch
+    n, r = mesh.data_size, mesh.data_rank
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim > 0:
+            if v.shape[0] % n:
+                raise ValueError(f"batch dim {v.shape[0]} of {k!r} does not split over "
+                                 f"{n} data ranks")
+            m = v.shape[0] // n
+            out[k] = v[r * m:(r + 1) * m]
+        else:
+            out[k] = v
+    return out

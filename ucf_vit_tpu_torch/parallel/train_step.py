@@ -1,5 +1,5 @@
-"""Train state and the generic train step (port of
-`ucf_vit_tpu/parallel/train_step.py`, on one device).
+"""Train state, sharding and the generic train step (port of
+`ucf_vit_tpu/parallel/train_step.py`).
 
 `make_train_step` covers what the JAX step does (`:229-350`): gradient
 accumulation over microbatches, dynamic loss scaling that skips the whole
@@ -9,28 +9,52 @@ and the EMA of the parameters. PyTorch runs eagerly, so the step is a plain
 function; it updates the model and optimizer in place where JAX returns a
 new state.
 
-Sharded state creation (`create_sharded_train_state`,
-`logical_state_sharding`) is single-device here: sharding is ROADMAP.md's
-data/tensor-parallel item. `offload_opt` is not ported: the JAX package keeps
-it as a measured-and-rejected study artifact that no config reaches
-(`:125-137`).
+Sharding (`shard_model`, the counterpart of `create_sharded_train_state` /
+`logical_state_sharding`, `:62-228`) puts a model on a mesh
+(`parallel/mesh.py`): tensor parallelism first (`models.blocks.
+shard_tensor_parallel` over the tp group, by the JAX `kernel_axes`), then the
+data axes. With fsdp > 1 every transformer block and then the model are
+wrapped by `torch.distributed.fsdp.fully_shard` on the `(ddp, fsdp)` submesh:
+ZeRO-3 over fsdp, replicated over ddp (HSDP), the parameters DTensors whose
+local shard is all a rank keeps between steps; AdamW's moments and the EMA,
+made from those parameters, are sharded alike (the JAX `_rebox_opt_state`,
+`:94-123`). FSDP gathers a block's parameters before its forward, and again
+before the recompute that `remat` runs in the backward, and frees them after;
+the gradients are reduce-scattered, averaged over the data ranks. With fsdp 1
+and ddp > 1 the parameters stay whole and the step averages the gradients
+over the data group itself, one all-reduce per bucket after the last
+microbatch: plain DDP, on nothing but all-reduce. Under FSDP the
+microbatches but the last skip the gradient reduction
+(`set_requires_gradient_sync`). The loss and aux the step returns are their
+means over the data ranks, the global batch's; a loss scale's overflow flag
+is agreed by every rank, so that no rank skips a step another takes.
+
+`offload_opt` is not ported: the JAX package keeps it as a
+measured-and-rejected study artifact that no config reaches (`:125-137`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ucf_vit_tpu_torch.parallel.mesh import Mesh, mesh_context
 from ucf_vit_tpu_torch.utils.optim import (
     LossScaleState,
     Optimizer,
     Schedule,
     all_finite,
     init_loss_scale,
+    local,
     update_loss_scale,
 )
+
+# gradients averaged over the data ranks in buckets of at most this many bytes
+# (plain DDP): bounds the flat copy that one all-reduce takes
+DDP_BUCKET_BYTES = 64 << 20
 
 LossFn = Callable[[torch.nn.Module, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict]]
 
@@ -48,11 +72,58 @@ class TrainState:
     def schedule(self) -> Schedule:
         return self.optimizer.schedule
 
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The mesh the model is sharded on (`shard_model`); None on one device."""
+        return getattr(self.model, "mesh", None)
+
+
+def is_fsdp(model: torch.nn.Module) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
+def shard_model(model: torch.nn.Module, mesh: Optional[Mesh]) -> torch.nn.Module:
+    """Put `model` (whole, the same weights on every rank) on `mesh` in
+    place: tensor parallelism over tp, then FSDP over (ddp, fsdp) when fsdp >
+    1. Sets `model.mesh` and `model.tp_layout` ({name: split} of the
+    tensor-parallel parameters; empty without tp), which the checkpoint reads.
+    Build the optimizer after this."""
+    from ucf_vit_tpu_torch.models.blocks import Block, shard_tensor_parallel
+
+    model.mesh, model.tp_layout = mesh, {}
+    if mesh is None:
+        return model
+    for axis, item in (("sp", "item 11: sequence parallelism"),
+                       ("pp", "item 12: pipeline + MoE"), ("ep", "item 12: pipeline + MoE")):
+        if mesh.size(axis) > 1:
+            raise NotImplementedError(f"{axis} > 1 is not ported yet (ROADMAP.md, modules to "
+                                      f"port, {item})")
+    if mesh.size("tp") > 1:
+        model.tp_layout = shard_tensor_parallel(model, mesh.group("tp"), mesh.index("tp"),
+                                                mesh.size("tp"))
+    if mesh.size("fsdp") > 1:
+        from torch.distributed.fsdp import fully_shard
+
+        dp = mesh.fsdp_mesh()
+        for m in model.modules():
+            if isinstance(m, Block):
+                fully_shard(m, mesh=dp)
+        fully_shard(model, mesh=dp)
+    return model
+
 
 def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                        use_grad_scaler: bool = False, init_scale: float = 8192.0,
                        ema: bool = False) -> TrainState:
-    """The state at step 0 (the single-device `create_sharded_train_state`)."""
+    """The state at step 0 (`create_sharded_train_state`): for a model that
+    `shard_model` put on a mesh, the optimizer learns which parameters are
+    tensor-parallel, for the clip's norm."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        names = getattr(model, "tp_layout", {})
+        optimizer.sharding = (mesh, {id(p) for n, p in model.named_parameters() if n in names})
     return TrainState(
         step=0,
         model=model,
@@ -71,6 +142,45 @@ def _split(batch: Dict[str, torch.Tensor], n: int):
     return [{k: x.chunk(n)[i] for k, x in batch.items()} for i in range(n)]
 
 
+def average_gradients(params: List[torch.Tensor], group, n: int,
+                      bucket_bytes: int = DDP_BUCKET_BYTES) -> None:
+    """Each `.grad` replaced by its mean over `group` (of `n` ranks), in
+    buckets of one dtype and at most `bucket_bytes`: plain DDP's reduction."""
+    grads = [p.grad for p in params if p.grad is not None]
+    bucket: list = []
+
+    def flush():
+        if not bucket:
+            return
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        off = 0
+        for g in bucket:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        bucket.clear()
+
+    size = 0
+    for g in grads:
+        if bucket and (g.dtype != bucket[0].dtype
+                       or size + g.numel() * g.element_size() > bucket_bytes):
+            flush()
+            size = 0
+        bucket.append(g)
+        size += g.numel() * g.element_size()
+    flush()
+
+
+def _data_mean(loss: torch.Tensor, aux: Dict[str, torch.Tensor], mesh: Mesh):
+    """The loss and aux averaged over the data ranks, in one all-reduce."""
+    keys = sorted(aux)
+    v = torch.stack([loss.float()] + [aux[k].float() for k in keys])
+    dist.all_reduce(v, group=mesh.data_group)
+    v = v / mesh.data_size
+    return v[0], {k: v[i + 1] for i, k in enumerate(keys)}
+
+
 def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
                     ema_decay: Optional[float] = None):
     """Build `step(state, batch, var_ids=None) -> (state, loss, aux)` for a
@@ -81,12 +191,15 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
     var_ids=var_ids)`. The step leaves this step's
     (unscaled, clipped) gradients in each parameter's `.grad` until the next
     step starts, and returns the loss and aux as device tensors, so the
-    caller decides when to synchronise."""
+    caller decides when to synchronise. On a sharded state (`state.mesh`)
+    the batch is this rank's slice (`parallel.mesh.shard_batch`), and the
+    loss and aux are the global batch's."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], var_ids=None):
-        model = state.model
+        model, mesh = state.model, state.mesh
+        fsdp = mesh is not None and is_fsdp(model)
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
@@ -94,33 +207,46 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
         scale = state.loss_scale.scale if state.loss_scale is not None else None
         micro = _split(batch, accum_steps) if accum_steps > 1 else [batch]
         loss_sum, aux_sum = 0.0, None
-        for mb in micro:
-            loss, aux = (loss_fn(model, mb) if var_ids is None
-                         else loss_fn(model, mb, var_ids=var_ids))
-            (loss * scale if scale is not None else loss).backward()
-            loss_sum = loss_sum + loss.detach()
-            aux = {k: v.detach() for k, v in (aux or {}).items()}
-            aux_sum = aux if aux_sum is None else {k: aux_sum[k] + aux[k] for k in aux}
+        with mesh_context(mesh):
+            for i, mb in enumerate(micro):
+                if fsdp:  # one gradient reduction, after the last microbatch
+                    model.set_requires_gradient_sync(i == len(micro) - 1)
+                loss, aux = (loss_fn(model, mb) if var_ids is None
+                             else loss_fn(model, mb, var_ids=var_ids))
+                (loss * scale if scale is not None else loss).backward()
+                loss_sum = loss_sum + loss.detach()
+                aux = {k: v.detach() for k, v in (aux or {}).items()}
+                aux_sum = aux if aux_sum is None else {k: aux_sum[k] + aux[k] for k in aux}
         loss = loss_sum / accum_steps if accum_steps > 1 else loss_sum
         aux = {k: v / accum_steps for k, v in aux_sum.items()} if accum_steps > 1 else aux_sum
 
         with torch.no_grad():
+            if mesh is not None and mesh.data_size > 1 and not fsdp:
+                average_gradients(params, mesh.data_group, mesh.data_size)
             grads = [p.grad for p in params if p.grad is not None]
             if accum_steps > 1:
                 for g in grads:
-                    g.div_(accum_steps)
+                    local(g).div_(accum_steps)
             apply = True
             if state.loss_scale is not None:
                 for g in grads:
-                    g.mul_(1.0 / scale)
-                finite = bool(all_finite(grads))  # one host sync per step
+                    local(g).mul_(1.0 / scale)
+                finite = all_finite(grads)
+                if mesh is not None:  # every rank takes or skips the step together
+                    bad = (~finite).float().reshape(1)
+                    dist.all_reduce(bad)
+                    finite = bad[0] == 0
+                finite = bool(finite)  # one host sync per step
                 state.loss_scale = update_loss_scale(state.loss_scale, finite)
                 apply = finite  # overflow: skip params, optimizer count and EMA
             if apply:
                 optimizer.step()
                 if ema_decay is not None and state.ema_params is not None:
                     for name, p in model.named_parameters():
-                        state.ema_params[name].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+                        local(state.ema_params[name]).mul_(ema_decay).add_(
+                            local(p), alpha=1.0 - ema_decay)
+            if mesh is not None and mesh.data_size > 1:
+                loss, aux = _data_mean(loss, aux, mesh)
         state.step += 1
         return state, loss, aux
 

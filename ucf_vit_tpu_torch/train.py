@@ -1,7 +1,8 @@
-"""Trainer (port of `ucf_vit_tpu/train.py`, on one device):
+"""Trainer (port of `ucf_vit_tpu/train.py`):
 
     python -m ucf_vit_tpu_torch.train <config.yaml> [--synthetic]
         [--max-steps N] [--log-every K] [--single-device] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m ucf_vit_tpu_torch.train <config.yaml> ...
 
 Seeded model init (the names `load_jax_params` fills) of the config's task
 (classification, MAE, diffusion, UNETR or SAP), AdamW from the config's
@@ -41,8 +42,25 @@ the train records. `trainer.tensorboard_dir` writes the scalars to
 TensorBoard as well; `trainer.profile_dir` writes a `torch.profiler` trace of
 steps 11-15 as a Chrome trace file.
 
-Not ported yet, and refused with the ROADMAP.md item when the config asks
-for it (`_REFUSED_KEYS`, `check_config`): sharding and its sync check.
+Sharding: a config whose `parallelism:` asks for N = ddp x fsdp x tp > 1
+processes trains on that many, launched by torchrun (or srun: `SLURM_PROCID`
+/ `SLURM_NTASKS`), one device each (`parallel.mesh.init_distributed`;
+`check_config` raises unless the launched world size is N). The model is
+sharded by `parallel.train_step.shard_model`; the global batch is
+`batch_size x data_par_size`, and each data rank reads its part: the
+DataModule's `proc_rank`/`num_procs`, the catsdogs loader's shard, or the
+synthetic stream's global batch sliced, so that a sharded synthetic run sees
+the single-device run's data. Rank 0 alone prints the log lines and writes
+`metrics_path`, TensorBoard and `profile_dir`; the loss it logs is the
+global batch's. SIGTERM is agreed every `trainer.preempt_sync_every` steps
+(25), so that every rank stops at the same step and saves together; the
+dropout generators are seeded by the data rank (the tp ranks of one data
+rank draw the same masks) and the attention-seed generator is the same on
+every rank. `trainer.sync_check_every: N` checks the replicas every N steps
+(`parallel.sync_check`). Sequence, pipeline and expert parallelism (sp, pp,
+ep > 1) are not ported and are refused with their ROADMAP.md items.
+`--single-device` trains any config on one device.
+
 `trainer.data_type: bfloat16` trains under the bf16 compute policy (f32
 parameters, gradients and optimizer state; `models/blocks.py`),
 `trainer.remat` checkpoints each block's activations (MAE's decoder blocks
@@ -65,17 +83,31 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config, load_config
 from ucf_vit_tpu_torch.inference import Device, resolve_device
-from ucf_vit_tpu_torch.parallel.train_step import create_train_state, make_train_step
+from ucf_vit_tpu_torch.parallel.mesh import (
+    Mesh,
+    init_distributed,
+    mesh_context,
+    mesh_from_config,
+    shard_batch,
+)
+from ucf_vit_tpu_torch.parallel.train_step import (
+    create_train_state,
+    make_train_step,
+    shard_model,
+)
 from ucf_vit_tpu_torch.tasks import build_task, example_variables, task_loss, var_ids_of
 from ucf_vit_tpu_torch.utils.optim import configure_optimizer
 
-# trainer keys whose feature is not ported yet -> the ROADMAP.md item that ports it
-_REFUSED_KEYS = {
-    "sync_check_every": "item 10: data/tensor parallel",
+# parallelism axes that are not ported yet -> the ROADMAP.md item that ports them
+_REFUSED_AXES = {
+    "seq_par_size": "item 11: sequence parallelism",
+    "pipe_par_size": "item 12: pipeline + MoE",
+    "expert_par_size": "item 12: pipeline + MoE",
 }
 # the steps `trainer.profile_dir` traces: from after step PROFILE_STEPS[0] to
 # after step PROFILE_STEPS[1] (`ucf_vit_tpu/train.py:853-879`)
@@ -133,22 +165,23 @@ class _CatsDogsModule:
     at batch N of the epoch without decoding the skipped files (mid-epoch
     resume)."""
 
-    def __init__(self, ds, global_batch: int):
-        self.ds, self.global_batch = ds, global_batch
+    def __init__(self, ds, batch: int, shard_rank: int = 0, num_shards: int = 1):
+        self.ds, self.batch = ds, batch
+        self.shard = dict(shard_rank=shard_rank, num_shards=num_shards)
         self._epoch = 0
 
     def train_dataloader(self, loop: bool = False, skip_batches: int = 0):
         from ucf_vit_tpu_torch.data.catsdogs import catsdogs_loader
 
         if not loop:
-            return catsdogs_loader(self.ds, self.global_batch, seed=self._epoch,
-                                   skip_batches=skip_batches)
+            return catsdogs_loader(self.ds, self.batch, seed=self._epoch,
+                                   skip_batches=skip_batches, **self.shard)
 
         def chain():
             seed, skip = self._epoch, skip_batches
             while True:
-                yield from catsdogs_loader(self.ds, self.global_batch, seed=seed,
-                                           skip_batches=skip)
+                yield from catsdogs_loader(self.ds, self.batch, seed=seed,
+                                           skip_batches=skip, **self.shard)
                 seed, skip = seed + 1, 0
 
         return chain()
@@ -160,10 +193,16 @@ class _CatsDogsModule:
         self._epoch = int(epoch)
 
 
+def _sliced(stream: Iterator[dict], mesh: Optional[Mesh]) -> Iterator[dict]:
+    for batch in stream:
+        yield shard_batch(batch, mesh)
+
+
 def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split: bool = False,
-                     return_qdt: bool = False):
+                     return_qdt: bool = False, mesh: Optional[Mesh] = None):
     """`(datamodule, synthetic_iter, batches_per_rank_epoch)` (port of
-    `ucf_vit_tpu/train.py:95-294`, one process: shard 0 of 1). The catsdogs
+    `ucf_vit_tpu/train.py:95-294`): this data rank's part of the global batch
+    (`mesh`; None: the whole of it). The catsdogs
     folder goes through its map-style loader; every other dataset through
     the `DataModule`, with `load_balancing.auto_load_balancing` computing
     `batches_per_rank_epoch` and the group list from the files, and with
@@ -177,8 +216,11 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
     loader instead. From files it reads
     the range `data.val_dict_start_idx` / `val_dict_end_idx` (say train 0.0-0.9,
     validate 0.9-1.0); the synthetic stream comes from another seed."""
+    data_rank, data_size = (0, 1) if mesh is None else (mesh.data_rank, mesh.data_size)
+    local_batch = global_batch // data_size
     if synthetic:
-        return None, synthetic_batches(cfg, global_batch, seed=12345 if val_split else 0), None
+        stream = synthetic_batches(cfg, global_batch, seed=12345 if val_split else 0)
+        return None, (stream if mesh is None else _sliced(stream, mesh)), None
 
     if val_split:
         if "val_dict_start_idx" not in cfg.data or "val_dict_end_idx" not in cfg.data:
@@ -208,7 +250,8 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
                              fixed_length=cfg.fixed_length or 196, patch_size=cfg.patch_size,
                              num_channels=len(cfg.data["dict_in_variables"][key]),
                              rng=np.random.default_rng(int(cfg.trainer.get("seed", 0))))
-        return _CatsDogsModule(ds, global_batch), None, {"catsdogs": len(ds) // global_batch}
+        return (_CatsDogsModule(ds, local_batch, data_rank, data_size), None,
+                {"catsdogs": len(ds) // global_batch})
 
     from ucf_vit_tpu_torch.data.datamodule import DataModule
 
@@ -228,7 +271,7 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
         dict_buffer_sizes=cfg.data["dict_buffer_sizes"],
         dict_in_variables=cfg.data["dict_in_variables"],
         num_channels_used=cfg.data["num_channels_used"],
-        batch_size=global_batch,
+        batch_size=local_batch,
         patch_size=cfg.patch_size,
         tile_size_x=ts[0],
         tile_size_y=ts[1],
@@ -249,6 +292,8 @@ def build_dataloader(cfg: Config, global_batch: int, synthetic: bool, val_split:
         imagenet_resize=cfg.dataset_options.get("imagenet_resize"),
         num_workers=int(cfg.data.get("num_workers", 1)),
         return_qdt=return_qdt,
+        proc_rank=data_rank,
+        num_procs=data_size,
     )
     dm.setup()
     return dm, None, bpre
@@ -263,36 +308,57 @@ def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def check_config(cfg: Config) -> None:
-    """Raise on what the config asks for and the port cannot do yet."""
-    for key, item in _REFUSED_KEYS.items():
-        if cfg.trainer.get(key):
+    """Raise on what the config asks for and the port cannot do yet, and on a
+    parallelism whose world size is not the launched one."""
+    for key, item in _REFUSED_AXES.items():
+        if int(cfg.parallelism.get(key, 1)) > 1:
             raise NotImplementedError(
-                f"trainer.{key} is not ported yet (ROADMAP.md, modules to port, {item})"
-            )
-    if cfg.world_size > 1 or cfg.parallelism.get("fsdp_size", 1) > 1:
-        raise NotImplementedError(
-            f"parallelism {cfg.parallelism} needs sharding, which is not ported yet "
-            "(ROADMAP.md, modules to port, item 10: data/tensor parallel); pass "
-            "--single-device"
-        )
+                f"parallelism.{key} > 1 is not ported yet (ROADMAP.md, modules to port, "
+                f"{item}); pass --single-device")
+    launched = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if cfg.world_size != launched:
+        raise RuntimeError(
+            f"parallelism {cfg.parallelism} asks for {cfg.world_size} processes but "
+            f"{launched} {'was' if launched == 1 else 'were'} launched: run it under "
+            f"`torchrun --nproc_per_node {cfg.world_size} -m ucf_vit_tpu_torch.train` (or "
+            "srun), or pass --single-device")
+
+
+def setup_mesh(cfg: Config, dev: torch.device) -> Optional[Mesh]:
+    """Join the launched job (`init_distributed`), check the config against it
+    and build its mesh; None for a config of one process."""
+    if cfg.world_size > 1:
+        init_distributed(dev)
+    check_config(cfg)
+    return mesh_from_config(cfg.parallelism, dev.type) if cfg.world_size > 1 else None
+
+
+def is_main(mesh: Optional[Mesh]) -> bool:
+    """Rank 0, which alone logs and writes (every rank on one device)."""
+    return mesh is None or dist.get_rank() == 0
 
 
 def init_train(cfg: Config, device: Device = None, init_seed: int = 0):
-    """`(state, step)` for training `cfg` on one device: the task's model with
-    weights drawn on the CPU from `torch.Generator().manual_seed(init_seed)`
-    (modules know their shapes, so no example batch is traced, where the JAX
-    package inits from one: a diffusion model's at `t = 0`),
+    """`(state, step)` for training `cfg`: the task's model with weights drawn
+    on the CPU from `torch.Generator().manual_seed(init_seed)` (the same on
+    every rank; modules know their shapes, so no example batch is traced,
+    where the JAX package inits from one: a diffusion model's at `t = 0`),
+    sharded on the config's mesh when it asks for more than one process,
     AdamW from the config's `model:` keys (`ucf_vit_tpu/train.py:349-363`),
-    and the train step. The model's dropout generators are seeded from
-    `trainer.seed`."""
+    and the train step. The model's generators are seeded from
+    `trainer.seed`: the device one (dropout, DropPath, MAE's mask, the
+    diffusion loss's draws) differently for each data rank, the host one
+    (attention-dropout seeds) the same on every rank."""
     dev = resolve_device(device)
-    check_config(cfg)
+    mesh = setup_mesh(cfg, dev)
     trainer, mcfg = cfg.trainer, cfg.model
     model = build_task(cfg)
     model.init_weights(torch.Generator().manual_seed(int(init_seed)))
     model.to(dev)
+    shard_model(model, mesh)
     seed = int(trainer.get("seed", 0))
-    model.set_generator(torch.Generator(dev).manual_seed(seed),
+    data_rank = 0 if mesh is None else mesh.data_rank
+    model.set_generator(torch.Generator(dev).manual_seed(seed + (data_rank << 32)),
                         torch.Generator().manual_seed(seed))
     optimizer = configure_optimizer(
         model,
@@ -334,7 +400,8 @@ def _warm_start(cfg: Config, state) -> None:
     ckpt.load_params(state.model, payload["model_state_dict"], "init_params_from")
     if state.ema_params is not None:
         state.ema_params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-    print(f"initialized params from {trainer['init_params_from']}", flush=True)
+    if is_main(state.mesh):
+        print(f"initialized params from {trainer['init_params_from']}", flush=True)
 
 
 def transfer_pretrained_mae(cfg: Config, model: torch.nn.Module, path: str,
@@ -344,10 +411,11 @@ def transfer_pretrained_mae(cfg: Config, model: torch.nn.Module, path: str,
     must agree (`ucf_vit_tpu/train.py:441-472`)."""
     payload = ckpt.restore_checkpoint(
         path, filename, expect_head_meta=(ckpt.head_meta_from_config(cfg)[0], None))
-    new = ckpt.transfer_mae_encoder(payload["model_state_dict"], model.state_dict(),
+    new = ckpt.transfer_mae_encoder(payload["model_state_dict"], ckpt.full_state_dict(model),
                                     new_pos_embed_len=model.num_patches)
     ckpt.load_params(model, new, "pretrained_mae_checkpoint")
-    print("initialized encoder from MAE checkpoint", flush=True)
+    if is_main(getattr(model, "mesh", None)):
+        print("initialized encoder from MAE checkpoint", flush=True)
 
 
 def _resume(cfg: Config, state) -> Tuple[int, list, int, int]:
@@ -364,27 +432,30 @@ def _resume(cfg: Config, state) -> Tuple[int, list, int, int]:
     epoch, total_steps = int(payload["epoch"]), int(payload["total_steps"])
     loss_list = [float(v) for v in payload["loss_list"]]
     data_it, procs = int(payload.get("data_it", 0)), int(payload.get("num_procs", 1))
+    world = 1 if state.mesh is None else state.mesh.world
     read = f"checkpoint read in {time.perf_counter() - t0:.3f} s"
-    if data_it > 0 and procs != 1:
+    say = print if is_main(state.mesh) else (lambda *a, **k: None)
+    if data_it > 0 and procs != world:
         # the position counts batches of other per-process shards: re-run the epoch
-        print(f"mid-epoch checkpoint was written by {procs} processes but this run has "
-              f"1; re-running epoch {epoch} from its start ({read})", flush=True)
+        say(f"mid-epoch checkpoint was written by {procs} processes but this run has "
+            f"{world}; re-running epoch {epoch} from its start ({read})", flush=True)
         return epoch, loss_list, total_steps, 0
     if data_it > 0:
-        print(f"resumed mid-epoch: epoch {epoch}, fast-forwarding {data_it} batches "
-              f"(step {total_steps}; {read})", flush=True)
+        say(f"resumed mid-epoch: epoch {epoch}, fast-forwarding {data_it} batches "
+            f"(step {total_steps}; {read})", flush=True)
         return epoch, loss_list, total_steps, data_it
-    print(f"resumed from epoch {epoch} ({read})", flush=True)
+    say(f"resumed from epoch {epoch} ({read})", flush=True)
     return epoch + 1, loss_list, total_steps, 0
 
 
-def _open_metrics(path: str, resume_epoch: int, resume_step: int, resume_it: int):
+def _open_metrics(path: str, resume_epoch: int, resume_step: int, resume_it: int,
+                  num_procs: int = 1):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     f = open(path, "a")
     # run-start marker, one per process launch (as the JAX trainer writes it)
     f.write(json.dumps({"run_start": True, "ts": time.time(), "resume_epoch": resume_epoch,
                         "resume_step": resume_step, "resume_it": resume_it,
-                        "num_procs": 1}) + "\n")
+                        "num_procs": num_procs}) + "\n")
     f.flush()
     return f
 
@@ -447,12 +518,15 @@ class _Validation:
     serves every pass, so successive passes walk the whole split; like the
     JAX loop, a pass takes one batch more than it uses. A pass draws from
     generators of its own, seeded from `seed`, so the trainer's stay where
-    the step left them."""
+    the step left them. Under a mesh each data rank takes its part of every
+    batch and the pass returns the means over the data ranks."""
 
-    def __init__(self, cfg: Config, global_batch: int, synthetic: bool, dev: torch.device):
-        self.dm, self.synth, _ = build_dataloader(cfg, global_batch, synthetic, val_split=True)
+    def __init__(self, cfg: Config, global_batch: int, synthetic: bool, dev: torch.device,
+                 mesh: Optional[Mesh] = None):
+        self.dm, self.synth, _ = build_dataloader(cfg, global_batch, synthetic, val_split=True,
+                                                  mesh=mesh)
         self.batches = int(cfg.trainer.get("val_batches", 8))
-        self.loss_fn, self.dev, self.cfg = task_loss(cfg), dev, cfg
+        self.loss_fn, self.dev, self.cfg, self.mesh = task_loss(cfg), dev, cfg, mesh
         self.it = None
 
     def run(self, model: torch.nn.Module, seed: int) -> Tuple[float, Dict[str, float], int]:
@@ -465,7 +539,7 @@ class _Validation:
         model.eval()
         total, aux_tot, n = 0.0, {}, 0
         try:
-            with torch.no_grad():
+            with torch.no_grad(), mesh_context(self.mesh):
                 for batch in self.it:
                     if n >= self.batches:
                         break
@@ -478,6 +552,13 @@ class _Validation:
         finally:
             model.set_generator(*gens)
             model.train()
+        if self.mesh is not None and self.mesh.data_size > 1:
+            keys = sorted(aux_tot)
+            v = torch.tensor([total] + [aux_tot[k] for k in keys], dtype=torch.float64,
+                             device=self.dev)
+            dist.all_reduce(v, group=self.mesh.data_group)
+            v = (v / self.mesh.data_size).tolist()
+            total, aux_tot = v[0], dict(zip(keys, v[1:]))
         return total / max(n, 1), {k: v / max(n, 1) for k, v in aux_tot.items()}, n
 
     def close(self) -> None:
@@ -511,10 +592,31 @@ def train(
     except ValueError:
         pass  # not the main thread: no handler; the drill below still works
     preempt_drill = int(trainer.get("preempt_after_steps", 0))
+    # under a mesh the ranks agree on the flag every N steps and at each epoch's
+    # end (`ucf_vit_tpu/train.py:396-416`): one rank's signal stops them all at
+    # the same step, and they save together
+    preempt_sync_every = max(1, int(trainer.get("preempt_sync_every", 25)))
+    sync_check_every = int(trainer.get("sync_check_every", 0))
     val_every = int(trainer.get("val_every", 0))
     metrics_file = tb_writer = validation = profile = None
     try:
         state, step = init_train(cfg, dev)
+        mesh = state.mesh
+        main = is_main(mesh)
+        say = print if main else (lambda *a, **k: None)
+
+        def agree_preempt() -> bool:
+            """Whether any rank has been signalled. The local flag is only read:
+            a signal handled while the all-reduce waits stays for the next."""
+            flag = torch.tensor([float(preempted["flag"])], device=dev)
+            dist.all_reduce(flag)
+            return bool(flag.item() > 0)
+
+        def preempt_now(step_idx: int) -> bool:
+            if mesh is None:
+                return preempted["flag"]
+            return step_idx % preempt_sync_every == 0 and agree_preempt()
+
         head_meta = ckpt.head_meta_from_config(cfg)
         epoch_start, loss_list, total_steps, resume_it = 0, [], 0, 0
         if trainer.get("pretrained_mae_checkpoint"):
@@ -533,8 +635,8 @@ def train(
 
         global_batch = cfg.batch_size * cfg.data_par_size
         if val_every > 0:
-            validation = _Validation(cfg, global_batch, synthetic, dev)
-        dm, synth, bpre = build_dataloader(cfg, global_batch, synthetic)
+            validation = _Validation(cfg, global_batch, synthetic, dev, mesh)
+        dm, synth, bpre = build_dataloader(cfg, global_batch, synthetic, mesh=mesh)
         max_epochs = int(trainer.get("max_epochs", 1))
         if bpre is None:
             bpre = cfg.load_balancing.get("batches_per_rank_epoch") or {}
@@ -545,15 +647,15 @@ def train(
             iterations_per_epoch = max_steps
         else:
             iterations_per_epoch = 100
-            print("WARNING: no batches_per_rank_epoch (load_balancing) and no --max-steps; "
+            say("WARNING: no batches_per_rank_epoch (load_balancing) and no --max-steps; "
                   "capping each epoch at 100 iterations.", flush=True)
 
-        if trainer.get("metrics_path"):
+        if trainer.get("metrics_path") and main:
             metrics_file = _open_metrics(trainer["metrics_path"], epoch_start, total_steps,
-                                         resume_it)
-        if trainer.get("tensorboard_dir"):
+                                         resume_it, 1 if mesh is None else mesh.world)
+        if trainer.get("tensorboard_dir") and main:
             tb_writer = _tensorboard(trainer["tensorboard_dir"])
-        if trainer.get("profile_dir"):
+        if trainer.get("profile_dir") and main:
             profile = _Profile(trainer["profile_dir"], dev)
         # halt after N consecutive non-finite losses (0 = off)
         nan_guard = int(trainer.get("nan_guard", 0))
@@ -584,7 +686,7 @@ def train(
             dt = now - epoch_state["t_last"]
             epoch_state["t_last"] = now
             epoch_state["loss"] += loss_f
-            if p_it % log_every == 0:
+            if p_it % log_every == 0 and main:
                 sps = global_batch / dt
                 aux_f = {k: float(v) for k, v in (aux or {}).items()}
                 print(f"epoch {p_epoch} it {p_it} loss {loss_f:.5f} {dt * 1e3:.1f} ms/it "
@@ -615,7 +717,7 @@ def train(
                     break
                 if max_steps is not None and total_steps >= max_steps:
                     break
-                if preempted["flag"]:
+                if preempt_now(total_steps):
                     break
                 if profile is not None:
                     profile.before_step(total_steps)
@@ -631,6 +733,12 @@ def train(
                 if pending is not None:
                     resolve(pending)  # overlaps with the step just queued
                 pending = (epoch, count, total_steps, loss, aux)
+                if sync_check_every and mesh is not None and total_steps % sync_check_every == 0:
+                    # raises ReplicaDesyncError naming the divergent ranks
+                    from ucf_vit_tpu_torch.parallel.sync_check import check_replica_consistency
+
+                    report = check_replica_consistency(state.model, mesh)
+                    write({"sync_check": report.describe(), "step": total_steps})
                 if profile is not None:
                     profile.after_step(total_steps)
             if it is not synth:
@@ -638,7 +746,8 @@ def train(
             if pending is not None:
                 resolve(pending)
             epoch_mean = epoch_state["loss"] / max(count - epoch_skip, 1)
-            if preempted["flag"]:
+            # a signal since the last agreement stops every rank here
+            if preempted["flag"] if mesh is None else agree_preempt():
                 # the flag on an epoch's last step: the epoch is complete, so it
                 # is saved as one (data_it 0), and resume starts the next
                 epoch_done = count >= iterations_per_epoch
@@ -652,16 +761,16 @@ def train(
                         trainer["checkpoint_path"], trainer.get("checkpoint_filename", "last"),
                         saved, state, loss_list, head_meta=head_meta, total_steps=total_steps,
                         data_it=0 if epoch_done else count, slot_epoch=epoch)
-                    print(f"preempted in epoch {epoch} after {count} its: saved {path}",
-                          flush=True)
+                    say(f"preempted in epoch {epoch} after {count} its: saved {path}",
+                        flush=True)
                 else:
-                    print(f"preempted in epoch {epoch} after {count} its: no "
-                          "trainer.checkpoint_path, nothing saved", flush=True)
+                    say(f"preempted in epoch {epoch} after {count} its: no "
+                        "trainer.checkpoint_path, nothing saved", flush=True)
                 break
             loss_list.append(epoch_mean)
-            print(f"epoch {epoch} done: mean loss {loss_list[-1]:.5f} ({count - epoch_skip} its"
-                  + (f" after {epoch_skip} skipped" if epoch_skip else "")
-                  + f", {time.perf_counter() - t_epoch:.1f}s)", flush=True)
+            say(f"epoch {epoch} done: mean loss {loss_list[-1]:.5f} ({count - epoch_skip} its"
+                + (f" after {epoch_skip} skipped" if epoch_skip else "")
+                + f", {time.perf_counter() - t_epoch:.1f}s)", flush=True)
             # fork validation's seed before the save, so that the saved host
             # generator is the post-validation one: a resumed run continues draw
             # for draw (`ucf_vit_tpu/train.py:930-936`)
@@ -674,12 +783,12 @@ def train(
                 path = ckpt.save_checkpoint(
                     trainer["checkpoint_path"], trainer.get("checkpoint_filename", "last"),
                     epoch, state, loss_list, head_meta=head_meta, total_steps=total_steps)
-                print(f"epoch {epoch}: saved {path} in {time.perf_counter() - t0:.3f} s",
-                      flush=True)
+                say(f"epoch {epoch}: saved {path} in {time.perf_counter() - t0:.3f} s",
+                    flush=True)
             if val_seed is not None:
                 t0 = time.perf_counter()
                 vloss, vaux, vn = validation.run(state.model, val_seed)
-                print(f"epoch {epoch} val loss {vloss:.5f} ({vn} batches in "
+                say(f"epoch {epoch} val loss {vloss:.5f} ({vn} batches in "
                       f"{time.perf_counter() - t0:.3f} s)"
                       + "".join(f" val_{k} {v:.4f}" for k, v in vaux.items()), flush=True)
                 write({"epoch": epoch, "val_loss": vloss, "val_batches": vn,
@@ -718,7 +827,7 @@ def main(argv=None) -> Dict:
                         help="random data (no dataset on disk needed)")
     parser.add_argument("--log-every", type=int, default=1)
     parser.add_argument("--single-device", action="store_true",
-                        help="override parallelism to 1:1:1:1 (the port runs on one device)")
+                        help="override parallelism to 1:1:1:1 (train on one device)")
     parser.add_argument("--device", default=None,
                         help="cuda (the default; raises without a card) or cpu")
     args = parser.parse_args(argv)

@@ -7,12 +7,53 @@ MONAI's DiceCELoss as the reference trains with it, and `dice_metric`
 `:148`, MONAI's DiceMetric without the background) and SAP's `dice_b_loss` (`:74`).
 Predictions are taken as the models give them and the results are f32
 scalars.
+
+Under data parallelism (an active mesh with more than one data rank) each
+rank holds a slice of the batch. A loss that is a mean of equal per-sample
+terms needs nothing: the mean over the data ranks of the local means is the
+global mean, and the train step averages the gradients over them. The
+losses that are not (`masked_mse` and `token_masked_mse_adaptive` divide by
+a mask count that differs between ranks; `dice_b_loss` takes its Dice from
+sums over the whole batch) sum their numerators and denominators over the
+data ranks (`_global_sum`: all-reduce forward, identity backward, so each
+rank's gradient is that of the global loss with respect to its own samples)
+and return the global value on every rank, its gradient scaled by the data
+size (`_ScaleGrad`) so that the step's average over the ranks is the global
+loss's gradient: the single-device step's on the global batch.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ucf_vit_tpu_torch.parallel.collectives import f_allreduce_b_identity
+from ucf_vit_tpu_torch.parallel.mesh import active_mesh
+
+
+def _data_parallel():
+    """The active mesh's data group and size, or (None, 1)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.data_size == 1:
+        return None, 1
+    return mesh.data_group, mesh.data_size
+
+
+def _global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return f_allreduce_b_identity(x, group)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times `n` backward."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -24,8 +65,17 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> 
     """MSE over the masked tokens only: pred and target `[B, L, F]`, mask
     `[B, L]` with 1 where a token is masked (and counted), in f32."""
     loss = (pred.float() - target.float()).square().mean(dim=-1)
-    mask = mask.float()
-    return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    return _masked_mean(loss, mask.float())
+
+
+def _masked_mean(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sum(loss * mask) / max(sum(mask), 1), over the data ranks' samples."""
+    group, n = _data_parallel()
+    if group is None:
+        return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    num = _global_sum((loss * mask).sum(), group)
+    den = _global_sum(mask.sum().detach(), group)
+    return _ScaleGrad.apply(num / den.clamp_min(1.0), n)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -47,7 +97,7 @@ def token_masked_mse_adaptive(pred: torch.Tensor, target_tokens: torch.Tensor,
     loss."""
     valid = (seq_size > 0).float()
     loss = (pred.float() - target_tokens.float()).square().mean(dim=-1)
-    return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+    return _masked_mean(loss, valid)
 
 
 def dice_b_loss(logits: torch.Tensor, targets: torch.Tensor, weight: float = 0.5,
@@ -69,9 +119,15 @@ def dice_b_loss(logits: torch.Tensor, targets: torch.Tensor, weight: float = 0.5
         p = x[:, 1:]
         pc = p.clamp(1e-7, 1 - 1e-7)
         bce = -(t * torch.log(pc) + (1 - t) * torch.log(1 - pc)).mean()
-    intersection = (p * t).sum()
-    dice = 1.0 - (2.0 * intersection + smooth) / (p.sum() + t.sum() + smooth)
-    return weight * bce + (1 - weight) * dice
+    intersection, p_sum, t_sum = (p * t).sum(), p.sum(), t.sum()
+    group, n = _data_parallel()
+    if group is not None:  # the BCE's mean and the Dice's sums over the whole batch
+        bce = _global_sum(bce, group) / n
+        intersection, p_sum = _global_sum(intersection, group), _global_sum(p_sum, group)
+        t_sum = _global_sum(t_sum, group)
+    dice = 1.0 - (2.0 * intersection + smooth) / (p_sum + t_sum + smooth)
+    loss = weight * bce + (1 - weight) * dice
+    return loss if group is None else _ScaleGrad.apply(loss, n)
 
 
 def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,

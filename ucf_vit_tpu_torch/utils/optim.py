@@ -12,12 +12,19 @@ to the norm and would differ).
 
 The loss-scale state (`:111-153`) is host-side Python: the train step reads
 whether the gradients are finite once per step when it is on.
+
+Under a mesh (`sharding`, set by `parallel.train_step.shard_model`) a
+gradient may be a piece: FSDP's shard of its parameter over fsdp (a
+DTensor), and a tensor-parallel parameter's slice over tp. The clip's norm
+then sums each rank's local squares over fsdp, and those of the
+tensor-parallel leaves over tp as well, so that every element of the whole
+gradient counts once (`clip_by_global_norm_`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +77,8 @@ class Optimizer:
 
     def __init__(self, model: torch.nn.Module, beta_1: float, beta_2: float,
                  weight_decay: float, schedule: Schedule, max_grad_norm: Optional[float]):
+        # (mesh, ids of the tensor-parallel parameters), from parallel.train_step
+        self.sharding: Optional[Tuple] = None
         mask = _no_decay_mask(model)
         params = dict(model.named_parameters())
         groups = [
@@ -84,10 +93,14 @@ class Optimizer:
         self.count = 0
 
     def step(self) -> None:
-        grads = [p.grad for g in self.adamw.param_groups for p in g["params"]
-                 if p.grad is not None]
+        params = [p for g in self.adamw.param_groups for p in g["params"] if p.grad is not None]
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            if self.sharding is None:
+                clip_by_global_norm_([p.grad for p in params], self.max_grad_norm)
+            else:
+                mesh, tp_ids = self.sharding
+                clip_by_global_norm_([p.grad for p in params], self.max_grad_norm, mesh=mesh,
+                                     tp_sharded=[id(p) in tp_ids for p in params])
         lr = self.schedule(self.count)
         for g in self.adamw.param_groups:
             g["lr"] = lr
@@ -95,16 +108,40 @@ class Optimizer:
         self.count += 1
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of `t`: a DTensor's local shard, else `t` itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, mesh=None,
+                         tp_sharded: Optional[List[bool]] = None) -> None:
     """optax's clip_by_global_norm in place: g * min(1, max_norm / ||g||), with
-    no host synchronisation."""
+    no host synchronisation. Under `mesh` the norm is that of the whole
+    sharded gradient: the local squares summed over fsdp (FSDP's shards), and
+    over tp too for the leaves `tp_sharded` marks; a leaf replicated over tp
+    counts once."""
     if not grads:
         return
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    if mesh is None:
+        norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    else:
+        import torch.distributed as dist
+
+        flags = tp_sharded or [False] * len(grads)
+        sq = [local(g).float().pow(2).sum() for g in grads]
+        zero = sq[0].new_zeros(())
+        parts = torch.stack([sum((s for s, f in zip(sq, flags) if not f), zero),
+                             sum((s for s, f in zip(sq, flags) if f), zero)])
+        if mesh.size("fsdp") > 1 and any(hasattr(g, "to_local") for g in grads):
+            dist.all_reduce(parts, group=mesh.group("fsdp"))
+        tp_part = parts[1:].clone()
+        if mesh.size("tp") > 1:
+            dist.all_reduce(tp_part, group=mesh.group("tp"))
+        norm = torch.sqrt(parts[0] + tp_part[0])
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
-        g.mul_(factor.to(g.dtype))
+        local(g).mul_(factor.to(g.dtype))
 
 
 def configure_optimizer(
@@ -155,8 +192,9 @@ def update_loss_scale(
 
 
 def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """A bool tensor: every element of every tensor is finite."""
-    flags = [torch.isfinite(t).all() for t in tensors]
+    """A bool tensor: every element of every tensor (of a DTensor, its local
+    shard: the train step agrees the flag over the ranks) is finite."""
+    flags = [torch.isfinite(local(t)).all() for t in tensors]
     if not flags:
         return torch.tensor(True)
     return torch.stack(flags).all()
