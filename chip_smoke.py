@@ -248,15 +248,24 @@ result):
             catsdogs/classification (ViT-B/16, f32) in tp 2 and
             imagenet/classification_vit_l (bf16, remat, accum 4) in ddp 2
             and fsdp 2 with the sync check every step, each through the CLI
-            entry for 5 steps (fsdp 3), the launch counts set to 0 before it and read
+            entry for 3 steps (fsdp 2), the launch counts set to 0 before it and read
             after on each rank (12 f32 forwards and 12 fused backwards a step
             at a rank's [96, 257, 64]; ViT-L's under the sm90 sources, every
             bf16 forward on the TMA route), the per-step losses against one
             device at the same global batch (1e-4; 5e-3); SIGTERM to rank 0
             alone of a ddp-2 run (both exit 0, one checkpoint); each rank's
             ms a step beside one device's (no scaling number: the ranks share
-            the card); the f32 kernels at tp 2's per-rank shape against their
-            plain versions, timed beside SDPA.
+            the card); then, on the same two ranks, sharded evaluation,
+            generation and serving: the inference CLI's top-1 in tp 2 on the
+            tp-2 run's checkpoint (top-1 equal, logits within FLASH_TOL of one
+            device's evaluation), imagenet/diffusion's reverse chain (cut to
+            PARALLEL_CHAIN_STEPS steps) in ddp 2 (within 1e-4 of the largest
+            entry of one device's chain), a tp-2 server (rank 0 answers HTTP,
+            rank 1 follows; lone, padded and coalesced requests and a
+            `/v1/reload` within SERVE_TOL of the in-process forward; SIGTERM
+            to rank 0, both exit 0), each sub-step timed and its f32 forwards
+            counted per rank; the f32 kernels at tp 2's and the chain's
+            per-rank shapes against their plain versions, timed beside SDPA.
 
 Every phase prints its wall seconds on a `[time]` line, and the run all of
 them and the script's on one line before the record.
@@ -294,8 +303,9 @@ MAE_CONFIG = os.path.join(REPO, "configs", "basic_ct", "mae_long", "base_config.
 MAX_BATCH = 16
 SEQUENTIAL_REQUESTS = 8
 LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
-# (the load window 6 s and the traced one 3 s until the SAP phase came)
-LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
+# (the load window 6 s and the traced one 3 s until the SAP phase came; the load window 3 s
+# until the sharded evaluation came)
+LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
 SERVE_TOL = 1e-4  # f32 on both sides, TF32 off: only the order of sums differs
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}  # o, against the f32 plain result
 # bf16 o with LONG_KEYS keys or more: randn inputs give entries of about sqrt(e / Nkv)
@@ -399,7 +409,7 @@ SIGTERM_AFTER, SIGTERM_DEADLINE_S = 3, 300  # the signal follows step 3's log li
 # bf16 FLASH-against-EINSUM limit in force (2e-2 of the largest entry): a batch of 2 and
 # a batch of 1 may take other GEMM kernels
 MAE_SERVE_BATCH, MAE_SERVE_CLIENTS = 2, 4
-MAE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}  # 2, 4, 3 s before SAP
+MAE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}  # 2, 4, 3 s before SAP
 MAE_SERVE_TOL = 2e-2
 
 # adaptive patching (phase_adaptive): the three 2-D adaptive configs as shipped (f32, 196
@@ -421,7 +431,7 @@ ADAPTIVE_MAIN_STEPS = 3  # each config through the CLI entry
 # 1 patchifies in line, in the prefetch thread)
 ADAPTIVE_POOL = 5
 ADAPTIVE_SERVE_WORKERS = 4  # serve's --preprocess-workers
-ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
+ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
 # the f32 kernels' shapes on these paths at batch 32, packed qkv views: basic_ct/mae's
 # encoder on its 49 kept tokens (one partial tile on both axes), imagenet/classification's
 # 196 patches and the class token, the MAE decoders on all 196 (dh 128: the DH = 128
@@ -455,7 +465,7 @@ UNETR_MARGIN = 1e-3  # a class map is held where the reference's top-two margin 
 UNETR_DICE_TOL = 1e-4
 UNETR_SERVE_WORKERS, UNETR_MAX_BATCH, UNETR_CLIENTS = 4, 8, 16
 UNETR_SEQUENTIAL = 4  # lone requests before the load windows
-UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
+UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
 
 # phase_sap: configs/basic_ct/sap (f32, batch 2) and sap_bf16 (bf16, batch 16) as shipped
 # (ViT-B over 512 octree tokens of 4^3 reassembled into a 32^3 image, the neck of 256
@@ -472,7 +482,7 @@ SAP_POOL = 5  # num_workers: a spawn pool of 4
 SAP_FILE_STEPS = 6
 SAP_EVAL_SAMPLES = 4
 SAP_SERVE_WORKERS, SAP_CLIENTS, SAP_SEQUENTIAL = 4, 16, 4
-SAP_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 3.0, "traced": 2.0}
+SAP_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
 # (g): imagenet/classification with use_varemb: True (red, green, blue), synthetic
 VAREMB_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification", "base_config.yaml")
 VAREMB_MAIN_STEPS, VAREMB_CHECK_STEPS, VAREMB_TIMED = 3, 5, 5
@@ -5417,15 +5427,23 @@ def compare_split_bwd(checkouts, forwards) -> None:
 
 # ---------------------------------------------------------------- data and tensor parallel
 
-PARALLEL_STEPS = 5  # each mode through the CLI entry, and its single-device run
+PARALLEL_STEPS = 3  # each mode through the CLI entry, and its single-device run (5 until PR 21)
 # ViT-L in fsdp 2 takes about 14 s a step here, gloo moving 9.7 GB of parameters through
-# host memory a step: 3 steps of it, against the single-device run's first 3
-PARALLEL_FSDP_STEPS = 3
+# host memory a step: 2 steps of it (3 until the sharded evaluation came), against the
+# single-device run's first 2
+PARALLEL_FSDP_STEPS = 2
 PARALLEL_TP_LOSS_TOL = 1e-4  # ViT-B f32, tp 2 against one device: each step's loss
 PARALLEL_DDP_LOSS_TOL = 5e-3  # ViT-L bf16, ddp 2 against one device at the same global batch
 PARALLEL_SIGTERM_AFTER = 1  # rank 0 of the preemption run is signalled after this step
 PARALLEL_DEADLINE_S = 300  # for every job of the two ranks together
 PARALLEL_KERNEL_ITERS = 20  # timed calls of each kernel at tp 2's per-rank shape
+# sharded evaluation, generation and serving on the same two ranks
+PARALLEL_EVAL_SAMPLES = 32  # (d): two global batches of catsdogs' 16, synthetic
+PARALLEL_CHAIN_STEPS = 50  # (e): imagenet/diffusion's 1,000-step chain cut to this many
+PARALLEL_CHAIN_SAMPLES = 4  # (e): two rows a rank
+PARALLEL_CHAIN_TOL = 1e-4  # (e): images against one device's, times its largest entry
+PARALLEL_SERVE_LONE, PARALLEL_SERVE_COALESCED = 6, 6  # (f): requests before the reload
+PARALLEL_SERVE_AFTER = 2  # (f): lone requests after it
 # What `python -m ucf_vit_tpu_torch.tools.gloo_probe` found gloo carries on CUDA tensors
 # in the card's torch (2.11.0+cu128; PERF.md): all six collectives it tries, and
 # the port's ddp 2, tp 2 and fsdp 2 steps; its bare `fully_shard` step with
@@ -5445,7 +5463,7 @@ PARALLEL_MODES = {  # name: (config, parallelism, the collectives it needs)
 
 
 def _parallel_config(name: str, path: str, par: dict, batch: int | None = None,
-                     **trainer) -> str:
+                     init_args: dict | None = None, **trainer) -> str:
     """A copy of the shipped config at `path` under WORK/parallel with `par` as its
     parallelism (empty: one device), its per-step metrics in <name>.jsonl."""
     import yaml
@@ -5455,6 +5473,7 @@ def _parallel_config(name: str, path: str, par: dict, batch: int | None = None,
                           "seq_par_size": 1, **par}
     if batch is not None:
         raw["data"]["batch_size"] = batch
+    raw["model"]["net"]["init_args"].update(init_args or {})
     root = os.path.join(WORK, "parallel")
     os.makedirs(root, exist_ok=True)
     raw["trainer"].pop("checkpoint_path", None)  # no save but where `trainer` asks
@@ -5516,9 +5535,10 @@ def _timed_steps(times: list):
 
 def _parallel_rank(rank: int, store: str, jobs: list, results) -> None:
     """One of two ranks on the card: a gloo group through a FileStore, then each
-    job in turn: the gloo probe, or the trainer's CLI entry on a sharded config
-    with the launch counts set to 0 before it and read after. Puts each job's
-    counts, local shapes and step times on `results`."""
+    job in turn: the gloo probe, the trainer's CLI entry on a sharded config, or
+    a step of sharded evaluation (`_SHARDED_EVAL`), with the launch counts set
+    to 0 before it and read after. Puts each job's counts and its results
+    (local shapes and step times; top-1, images, seconds) on `results`."""
     import torch
     import torch.distributed as dist
 
@@ -5534,6 +5554,16 @@ def _parallel_rank(rank: int, store: str, jobs: list, results) -> None:
             if job["kind"] == "probe":
                 results.put((rank, job["name"],
                              {"collectives": _collectives(rank, 2, only=GLOO_PROBED)}))
+                continue
+            if job["kind"] in _SHARDED_EVAL:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = _SHARDED_EVAL[job["kind"]](job)
+                torch.cuda.synchronize()
+                results.put((rank, job["name"], {
+                    **out, "s": time.perf_counter() - t0, "counts": _launch_counts(),
+                    "instances": _instance_counts()}))
+                torch.cuda.empty_cache()
                 continue
             times: list = []
             reset_launch_counts()
@@ -5559,6 +5589,121 @@ def _parallel_rank(rank: int, store: str, jobs: list, results) -> None:
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def _logits_of(into: list):
+    """The outputs of every model that `inference.init_eval_model` builds while
+    the block runs (a classifier's logits), appended to `into` on the CPU."""
+    from ucf_vit_tpu_torch import inference
+
+    made = inference.init_eval_model
+
+    def init(*args, **kwargs):
+        model = made(*args, **kwargs)
+        model.register_forward_hook(lambda m, i, out: into.append(out.detach().float().cpu()))
+        return model
+
+    inference.init_eval_model = init
+    try:
+        yield
+    finally:
+        inference.init_eval_model = made
+
+
+def _eval_top1(job: dict) -> dict:
+    """(d) The inference CLI on this rank: top-1 and the logits of every batch."""
+    from ucf_vit_tpu_torch.inference import main as inference_main
+
+    logits: list = []
+    with _logits_of(logits):
+        top1 = inference_main(job["argv"])
+    return {"top1": top1, "logits": logits}
+
+
+def _eval_chain(job: dict) -> dict:
+    """(e) `generate_diffusion` on this rank: the images every rank returns."""
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.inference import generate_diffusion
+
+    sps, imgs = generate_diffusion(load_config(job["config"]), None, job["num_samples"], None,
+                                   False, True)
+    return {"images": imgs, "samples_s": sps}
+
+
+def _eval_serve(job: dict) -> dict:
+    """(f) `python -m ucf_vit_tpu_torch.serve` on this rank: rank 0 serves HTTP
+    until SIGTERM, rank 1 follows; both return."""
+    from ucf_vit_tpu_torch.serve import main as serve_main
+
+    serve_main(job["argv"])
+    return {"returned": True}
+
+
+_SHARDED_EVAL = {"eval": _eval_top1, "chain": _eval_chain, "serve": _eval_serve}
+
+
+def _serve_client(port: int, bodies: list, ckpt: str, out: dict, stop) -> None:
+    """(f)'s HTTP client, in a thread of the parent: PARALLEL_SERVE_LONE lone
+    requests, PARALLEL_SERVE_COALESCED at once (one batch, padded), a
+    `/v1/reload` of `ckpt`, PARALLEL_SERVE_AFTER lone requests; then `stop()`
+    (SIGTERM to rank 0). Answers by body index in `out["answers"]`."""
+    import numpy as np
+
+    try:
+        deadline = time.perf_counter() + PARALLEL_DEADLINE_S
+        while True:
+            try:
+                _get_json(port, "/healthz")
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.2)
+        answers, t0 = {}, time.perf_counter()
+
+        def ask(i):
+            answers[i] = np.load(io.BytesIO(_request(port, "POST", "/v1/predict",
+                                                     _npy(bodies[i]))))
+
+        n = PARALLEL_SERVE_LONE
+        for i in range(n):
+            ask(i)
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(n, n + PARALLEL_SERVE_COALESCED)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=PARALLEL_DEADLINE_S)
+        out["before_reload_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out["reload"] = json.loads(_request(port, "POST", "/v1/reload",
+                                            json.dumps({"checkpoint": ckpt}).encode()))
+        out["reload_s"] = time.perf_counter() - t1
+        for i in range(n + PARALLEL_SERVE_COALESCED, len(bodies)):
+            ask(i)
+        out["stats"] = _get_json(port, "/v1/stats")
+        out["answers"] = answers
+    except BaseException as e:
+        out["error"] = repr(e)
+    finally:
+        stop()
+
+
+def _npy(arr) -> bytes:
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _single_run(name: str, path: str) -> dict:
     """`path` through the CLI entry on this process's device: per-step losses and ms."""
     import torch
@@ -5577,6 +5722,13 @@ def _config_batch(path: str) -> int:
     import yaml
 
     return int(yaml.safe_load(open(path))["data"]["batch_size"])
+
+
+def _config_tile(path: str) -> tuple:
+    """The shipped config's 2-D `tile_size`."""
+    import yaml
+
+    return tuple(yaml.safe_load(open(path))["model"]["net"]["init_args"]["tile_size"][:2])
 
 
 def _median(xs: list) -> float:
@@ -5599,20 +5751,32 @@ def phase_parallel() -> dict:
     by `fully_shard`), each with the sync check every step: every launch
     under the sm90 sources and every bf16 forward on the TMA route, the
     losses within PARALLEL_DDP_LOSS_TOL of one device at the same global
-    batch (2 x 32); (d) SIGTERM to rank 0 alone of a ddp-2 ViT-B run after step
+    batch (2 x 32); SIGTERM to rank 0 alone of a ddp-2 ViT-B run after step
     PARALLEL_SIGTERM_AFTER: both ranks exit 0 and one checkpoint is written.
     Each rank's ms a step (the card synchronised around it) beside the
     single-device step: two ranks share one card, so it is no scaling number.
-    Returns {"numbers": record rows at tp 2's per-rank shape, "launches":
-    theirs and the ViT-L runs' bf16 launches}."""
+    Then sharded evaluation, generation and serving (`_parallel_eval_checks`):
+    (d) the inference CLI in tp 2 on the checkpoint (b) saved; (e)
+    imagenet/diffusion's reverse chain in ddp 2, cut to PARALLEL_CHAIN_STEPS;
+    (f) a tp-2 server, this process its HTTP client. Returns {"numbers":
+    record rows at tp 2's and the chain's per-rank shapes, "launches": theirs
+    and the ViT-L runs' bf16 launches}."""
     import queue
     import signal
 
     import numpy as np
     import torch
 
-    vit_b = _parallel_config("vit_b_tp2", CONFIG, PARALLEL_MODES["vit_b_tp2"][1])
+    ck_dir = os.path.join(WORK, "parallel", "ck_tp2")
+    ck_tp2 = os.path.join(ck_dir, "tp2_even.ckpt")  # epoch 0, which its steps end
+    vit_b = _parallel_config("vit_b_tp2", CONFIG, PARALLEL_MODES["vit_b_tp2"][1],
+                             checkpoint_path=ck_dir, checkpoint_filename="tp2")
     vit_b_one = _parallel_config("vit_b_one", CONFIG, {})
+    cut = {"num_time_steps": PARALLEL_CHAIN_STEPS}
+    chain = _parallel_config("chain_ddp2", DIFF_CONFIGS["imagenet"], {"simple_ddp_size": 2},
+                             init_args=cut)
+    chain_one = _parallel_config("chain_one", DIFF_CONFIGS["imagenet"], {}, init_args=cut)
+    port = _free_port()
     vit_l = {name: _parallel_config(name, VIT_L_CONFIG, PARALLEL_MODES[name][1],
                                     sync_check_every=1)
              for name in ("vit_l_ddp2", "vit_l_fsdp2")}
@@ -5631,7 +5795,20 @@ def phase_parallel() -> dict:
              "argv": [vit_l["vit_l_ddp2"], *steps["vit_l_ddp2"]]},
             {"kind": "cli", "name": "vit_l_fsdp2",
              "argv": [vit_l["vit_l_fsdp2"], *steps["vit_l_fsdp2"]]},
-            {"kind": "cli", "name": "sigterm", "argv": [sigterm, "--synthetic"]}]
+            {"kind": "cli", "name": "sigterm", "argv": [sigterm, "--synthetic"]},
+            # (d)-(f): sharded evaluation, generation and serving
+            {"kind": "eval", "name": "eval_tp2",
+             "argv": [vit_b, "--checkpoint", ck_tp2, "--synthetic", "--num-samples",
+                      str(PARALLEL_EVAL_SAMPLES)]},
+            {"kind": "chain", "name": "chain_ddp2", "config": chain,
+             "num_samples": PARALLEL_CHAIN_SAMPLES},
+            {"kind": "serve", "name": "serve_tp2",
+             "argv": [vit_b, "--port", str(port), "--host", "127.0.0.1", "--max-batch",
+                      str(_config_batch(CONFIG)), "--max-wait-ms", "50"]}]
+    rng = np.random.default_rng(11)
+    bodies = [rng.random((3,) + _config_tile(CONFIG)).astype(np.float32) for _ in range(
+        PARALLEL_SERVE_LONE + PARALLEL_SERVE_COALESCED + PARALLEL_SERVE_AFTER)]
+    client, served = None, {}
     log("[parallel] two ranks on one card over gloo: NCCL refuses two ranks on one "
         "device; NCCL stays the CLI's backend on CUDA")
     torch.cuda.empty_cache()
@@ -5653,6 +5830,12 @@ def phase_parallel() -> dict:
             if signalled is None and _logged_step(sig_metrics) >= PARALLEL_SIGTERM_AFTER:
                 os.kill(procs[0].pid, signal.SIGTERM)
                 signalled = time.perf_counter()
+            if client is None and all((r, "chain_ddp2") in got for r in range(2)):
+                # (f): the ranks are building the server; the client waits for it
+                client = threading.Thread(target=_serve_client, args=(
+                    port, bodies, ck_tp2, served,
+                    lambda: os.kill(procs[0].pid, signal.SIGTERM)), daemon=True)
+                client.start()
             try:
                 rank, name, out = results.get(timeout=0.2)
             except queue.Empty:
@@ -5672,6 +5855,8 @@ def phase_parallel() -> dict:
                         fail(f"{mode} needs {needs}; gloo carries {carried}")
         for p in procs:
             p.join(timeout=60)
+        if client is not None:
+            client.join(timeout=60)
     finally:
         for p in procs:
             if p.is_alive():
@@ -5679,7 +5864,7 @@ def phase_parallel() -> dict:
     if [p.exitcode for p in procs] != [0, 0]:
         fail(f"the ranks exited {[p.exitcode for p in procs]}")
     log(f"[parallel] two ranks: {time.perf_counter() - t0:.1f} s for every job")
-    # (d) preemption: one checkpoint, both ranks at the same step
+    # preemption: one checkpoint, both ranks at the same step
     files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
     sig = [got[r, "sigterm"] for r in range(2)]
     if signalled is None or files != ["sig_even.ckpt"] or sig[0]["steps"] != sig[1]["steps"]:
@@ -5740,12 +5925,120 @@ def phase_parallel() -> dict:
     b = _config_batch(CONFIG)
     case = _attention_case("parallel", "ViT-B/16 tp 2, a rank's heads", (b, 6) + VIT_ATTN[:2]
                            + (VIT_ATTN[2], True), gen, iters=PARALLEL_KERNEL_ITERS)
-    launches = {"flash_fwd_tp2": sum(res["counts"]["src:flash_fwd_tf32"] for res in tp),
+    evals = _parallel_eval_checks(got, vit_b_one, ck_tp2, chain_one, bodies, served, gen)
+    launches = {"flash_fwd_tp2": sum(res["counts"]["src:flash_fwd_tf32"] for res in tp)
+                + evals["launches"]["tp2"],
                 "flash_bwd_fused_tp2": sum(res["counts"]["flash_bwd_fused"] for res in tp),
                 "flash_fwd_bf16": sum(res["counts"]["src:flash_fwd_sm90"] for res in ddp),
-                "flash_bwd_fused_bf16": sum(res["counts"]["flash_bwd_fused"] for res in ddp)}
-    return {"numbers": {"flash_fwd_tp2": case["fwd"], "flash_bwd_fused_tp2": case["bwd"]},
+                "flash_bwd_fused_bf16": sum(res["counts"]["flash_bwd_fused"] for res in ddp),
+                "flash_fwd_chain_enc_ddp2": evals["launches"]["enc"],
+                "flash_fwd_chain_dec_ddp2": evals["launches"]["dec"]}
+    return {"numbers": {"flash_fwd_tp2": case["fwd"], "flash_bwd_fused_tp2": case["bwd"],
+                        **evals["numbers"]},
             "launches": launches}
+
+
+def _parallel_eval_checks(got: dict, vit_b_one: str, ck_tp2: str, chain_one: str, bodies: list,
+                          served: dict, gen) -> dict:
+    """(d)-(f) of `phase_parallel` against one device on this process's card:
+    the sharded top-1 and logits, the sharded chain's images and the sharded
+    server's answers; each sub-step's seconds and each rank's f32 forwards
+    printed; the f32 kernels at the chain's per-rank shapes against their plain
+    versions. Returns {"numbers": record rows, "launches": {"tp2": (d)'s and
+    (f)'s forwards, "enc"/"dec": the chain's <64> and <128> forwards}}."""
+    import numpy as np
+
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.serve import build_predictor
+
+    ranks = {name: [got[r, name] for r in range(2)]
+             for name in ("eval_tp2", "chain_ddp2", "serve_tp2")}
+    for name, res in ranks.items():
+        for r, out in enumerate(res):
+            bad = {k: n for k, n in out["counts"].items()
+                   if n and k not in ("flash_fwd", "src:flash_fwd_tf32")}
+            log(f"[parallel] {name} rank {r}: {out['s']:.1f} s; f32 forwards "
+                f"{out['counts']['src:flash_fwd_tf32']} ({', '.join(f'{k} {n}' for k, n in out['instances'].items() if n)})")
+            if out["counts"]["src:flash_fwd_tf32"] <= 0 or bad:
+                fail(f"{name} rank {r}: every launch must be an f32 forward (tf32 sources): "
+                     f"{out['counts']}")
+    # (d) the inference CLI in tp 2 against one device on the same checkpoint and samples
+    t0 = time.perf_counter()
+    one = _eval_top1({"argv": [vit_b_one, "--checkpoint", ck_tp2, "--synthetic",
+                               "--num-samples", str(PARALLEL_EVAL_SAMPLES)]})
+    sharded = ranks["eval_tp2"][0]
+    diff = max((a - b).abs().max().item() for a, b in zip(sharded["logits"], one["logits"]))
+    batches = PARALLEL_EVAL_SAMPLES // _config_batch(CONFIG)
+    log(f"[parallel] (d) inference CLI, ViT-B/16 tp 2 on the tp-2 run's checkpoint: top-1 "
+        f"{sharded['top1']:.4f} over {PARALLEL_EVAL_SAMPLES} samples, one device "
+        f"{one['top1']:.4f}; max |logits - one device's| {diff:.3e} (tol {FLASH_TOL['float32']:g}); "
+        f"{max(r['s'] for r in ranks['eval_tp2']):.1f} s on two ranks, one device "
+        f"{time.perf_counter() - t0:.1f} s")
+    if sharded["top1"] != one["top1"] or len(sharded["logits"]) != batches or \
+            len(one["logits"]) != batches or diff > FLASH_TOL["float32"]:
+        fail("(d) the sharded evaluation disagrees with one device's")
+    if any(r["counts"]["src:flash_fwd_tf32"] != 12 * batches for r in ranks["eval_tp2"]):
+        fail(f"(d) expected {12 * batches} f32 forwards a rank")
+    # (e) the reverse chain in ddp 2 against one device's at the same seed
+    from ucf_vit_tpu_torch.inference import generate_diffusion
+
+    one_sps, want = generate_diffusion(load_config(chain_one), None, PARALLEL_CHAIN_SAMPLES,
+                                       None, False, True)
+    scale = float(np.abs(want).max())
+    for r, out in enumerate(ranks["chain_ddp2"]):
+        d = float(np.abs(out["images"] - want).max())
+        log(f"[parallel] (e) imagenet/diffusion ddp 2, {PARALLEL_CHAIN_STEPS} of 1,000 steps, "
+            f"{PARALLEL_CHAIN_SAMPLES} samples: rank {r} max |images - one device's| {d:.3e} "
+            f"(tol {PARALLEL_CHAIN_TOL:g} x {scale:.3f}); the chain {out['samples_s']:.3f} "
+            f"samples/s on two ranks sharing the card, one device {one_sps:.3f}")
+        if out["images"].shape != want.shape or not np.isfinite(out["images"]).all() or \
+                d > PARALLEL_CHAIN_TOL * scale:
+            fail("(e) the sharded chain disagrees with one device's")
+        inst = out["instances"]
+        if inst.get("fwd:flash_fwd_tf32<64>") != 12 * PARALLEL_CHAIN_STEPS or \
+                inst.get("fwd:flash_fwd_tf32<128>") != 8 * PARALLEL_CHAIN_STEPS:
+            fail(f"(e) rank {r}: expected 12 <64> and 8 <128> forwards a step, got {inst}")
+    # (f) the tp-2 server's answers against the in-process forward
+    if "error" in served or len(served.get("answers", {})) != len(bodies):
+        fail(f"(f) the sharded server: {served.get('error')}, "
+             f"{len(served.get('answers', {}))} of {len(bodies)} answers")
+    run_batch, _, mb, (_, _, reload) = build_predictor(load_config(vit_b_one), device="cuda")
+    before = PARALLEL_SERVE_LONE + PARALLEL_SERVE_COALESCED
+    worst = 0.0
+    for i, body in enumerate(bodies):
+        if i == before:
+            reload(ck_tp2)
+        want_i = run_batch({"x": np.repeat(body[None], mb, 0)}).cpu().numpy()[0]
+        worst = max(worst, float(np.abs(served["answers"][i] - want_i).max()))
+    stats = served["stats"]
+    log(f"[parallel] (f) ViT-B/16 tp 2 served by rank 0, rank 1 following: {len(bodies)} "
+        f"requests ({PARALLEL_SERVE_LONE} lone, {PARALLEL_SERVE_COALESCED} at once, "
+        f"{PARALLEL_SERVE_AFTER} after /v1/reload {served['reload']}) in {stats['batches']} "
+        f"batches (the warm-up's among them), max |answer - in-process forward| {worst:.3e} "
+        f"(tol {SERVE_TOL:g}); {served['before_reload_s']:.2f} s before the reload, the reload "
+        f"{served['reload_s']:.2f} s; the server on two ranks "
+        f"{max(r['s'] for r in ranks['serve_tp2']):.1f} s from start to exit")
+    if worst > SERVE_TOL or stats["errors"] or stats["batches"] >= stats["requests"] or \
+            served["reload"].get("status") != "reloaded":
+        fail("(f) the sharded server's answers disagree with the in-process forward")
+    if any(r["counts"]["src:flash_fwd_tf32"] != 12 * stats["batches"]
+           for r in ranks["serve_tp2"]):
+        fail(f"(f) expected 12 f32 forwards a batch a rank over {stats['batches']} batches")
+    del run_batch, reload
+    # the kernels at the chain's per-rank shapes: the encoder's and the decoder's
+    rows = PARALLEL_CHAIN_SAMPLES // 2
+    numbers = {
+        "flash_fwd_chain_enc_ddp2": _attention_case(
+            "parallel", "imagenet/diffusion encoder, ddp 2, a rank's rows",
+            (rows, 12, 256, 256, 64, True), gen, iters=PARALLEL_KERNEL_ITERS)["fwd"],
+        "flash_fwd_chain_dec_ddp2": _attention_case(
+            "parallel", "imagenet/diffusion decoder, ddp 2, a rank's rows",
+            (rows,) + DIFF_SHAPES["imagenet"][1:], gen, iters=PARALLEL_KERNEL_ITERS)["fwd"]}
+    return {"numbers": numbers, "launches": {
+        "tp2": sum(r["counts"]["src:flash_fwd_tf32"] for n in ("eval_tp2", "serve_tp2")
+                   for r in ranks[n]),
+        "enc": sum(r["instances"]["fwd:flash_fwd_tf32<64>"] for r in ranks["chain_ddp2"]),
+        "dec": sum(r["instances"]["fwd:flash_fwd_tf32<128>"] for r in ranks["chain_ddp2"])}}
 
 
 def compare_forward(other: str) -> None:
@@ -5965,6 +6258,10 @@ def main() -> int:
                           "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_tp2": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                                 "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_chain_enc_ddp2": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                                     "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_fwd_chain_dec_ddp2": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                                     "ucf_vit_tpu/ops/flash_attention.py:68"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -6022,7 +6319,10 @@ def main() -> int:
     # sap_bf16 through the CLI entry (sm90 <64> at [192, 512, 64]): rows of their own
     launches.update(sap["launches"])
     # the sharded paths (phase_parallel): ViT-B/16 f32 in tp 2, a row of its own at a rank's
-    # [96, 257, 64]; ViT-L/16 bf16 in ddp 2 at the single-device row's [128, 257, 64]
+    # [96, 257, 64] (training, the inference CLI and the server); ViT-L/16 bf16 in ddp 2 at
+    # the single-device row's [128, 257, 64]; imagenet/diffusion's chain in ddp 2, a row for
+    # its encoder's <64> at a rank's [24, 256, 64] and one for its decoder's <128> at [8,
+    # 256, 128]
     for name, n in parallel["launches"].items():
         launches[name] = launches.get(name, 0) + n
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
@@ -6050,7 +6350,7 @@ def main() -> int:
                  "fused_mlp_f32", "int8_matmul", "flash_fwd_dh128", "flash_bwd_fused_dh128",
                  "flash_fwd_dh96", "flash_bwd_fused_dh96", "flash_fwd_unetr",
                  "flash_bwd_fused_unetr", *sap["launches"], "flash_fwd_tp2",
-                 "flash_bwd_fused_tp2"):
+                 "flash_bwd_fused_tp2", "flash_fwd_chain_enc_ddp2", "flash_fwd_chain_dec_ddp2"):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

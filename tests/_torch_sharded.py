@@ -1,4 +1,4 @@
-"""The rank side of the port's sharded CPU tests (`tests/test_torch_parity.py`,
+"""The rank side of the port's sharded CPU tests (`tests/test_torch_dropout.py`,
 its sharded section): `run_group` starts a gloo group of `world` processes
 through a FileStore (no TCP port, so parallel test workers cannot collide),
 and every rank runs the same list of jobs in order; rank 0 hands back each
@@ -228,8 +228,23 @@ def cli_job(job: dict) -> dict:
     return {"loss_list": out["loss_list"], "step": out["state"].step}
 
 
+def cli_ranks_job(job: dict) -> dict:
+    """`cli_job`, and every rank's device generator state and the parameters
+    `job["leaves"]` (this rank's local tensors) after the run."""
+    from ucf_vit_tpu_torch.train import main
+
+    out = main(job["argv"])
+    model = out["state"].model
+    sd = model.state_dict()
+    mine = {"generator": model.generator.get_state().numpy(),
+            **{k: sd[k].detach().numpy().copy() for k in job["leaves"]}}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {"loss_list": out["loss_list"], "step": out["state"].step, "ranks": ranks}
+
+
 JOBS = {"train": train_job, "attn_dropout": attn_dropout_job, "collectives": collectives_job,
-        "sync_check": sync_check_job, "cli": cli_job}
+        "sync_check": sync_check_job, "cli": cli_job, "cli_ranks": cli_ranks_job}
 
 
 if __name__ == "__main__":
@@ -241,3 +256,141 @@ if __name__ == "__main__":
         main(sys.argv[4:])
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- evaluation and serving
+
+
+def _cfg(job: dict):
+    from ucf_vit_tpu_torch.config import Config
+
+    return Config(raw=job["raw"], task=job["raw"]["trainer"]["task"])
+
+
+def eval_job(job: dict):
+    """`ucf_vit_tpu_torch.inference.<fn>(cfg, *args, device="cpu", **kwargs)` on
+    every rank (the function joins the config's mesh); rank 0's result, with
+    `return_images` the images."""
+    from ucf_vit_tpu_torch import inference
+
+    out = getattr(inference, job["fn"])(_cfg(job), *job.get("args", ()), device="cpu",
+                                        **job.get("kwargs", {}))
+    return out[1] if job.get("kwargs", {}).get("return_images") else out
+
+
+def predictor_job(job: dict):
+    """`serve.build_predictor` on the config's mesh: rank 0 runs `job["batch"]`
+    and stops the others, which follow."""
+    from ucf_vit_tpu_torch.serve import build_predictor
+
+    run_batch, _, _, _ = build_predictor(_cfg(job), max_batch=job["max_batch"], device="cpu")
+    if dist.get_rank() != 0:
+        return run_batch.replicas.follow()
+    try:
+        return run_batch(job["batch"]).numpy()
+    finally:
+        run_batch.replicas.stop()
+
+
+def generator_job(job: dict):
+    """`serve.build_generator` of a model on the config's mesh: rank 0 generates
+    for `job["seed"]` and stops the others, which follow."""
+    from ucf_vit_tpu_torch.inference import init_eval_model
+    from ucf_vit_tpu_torch.parallel.mesh import eval_mesh
+    from ucf_vit_tpu_torch.serve import build_generator
+
+    cfg = _cfg(job)
+    model = init_eval_model(cfg, device="cpu", mesh=eval_mesh(cfg, torch.device("cpu")))
+    generate = build_generator(cfg, model, job["num_samples"])
+    if dist.get_rank() != 0:
+        return generate.replicas.follow()
+    try:
+        return generate(job["seed"])
+    finally:
+        generate.replicas.stop()
+
+
+def _http(port: int, path: str, body: bytes = b"", timeout: float = 60.0) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body or None,
+                                 method="POST" if body else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _client(port: int, job: dict, out: dict) -> None:
+    """Rank 0's HTTP client: the requests of `job["phases"]` in turn (a list of
+    lone requests, or of concurrent ones, or a reload), then SIGTERM to this
+    process, which stops the server."""
+    import io
+    import json
+    import signal
+    import threading
+
+    import numpy as np
+
+    def npy(a):
+        buf = io.BytesIO()
+        np.save(buf, a)
+        return buf.getvalue()
+
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                _http(port, "/healthz")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.1)
+        answers = {}
+
+        def ask(i):
+            answers[i] = np.load(io.BytesIO(_http(port, "/v1/predict", npy(job["inputs"][i]))))
+
+        for kind, what in job["phases"]:
+            if kind == "reload":
+                out["reload"] = json.loads(_http(port, "/v1/reload", json.dumps(
+                    {"checkpoint": what}).encode()))
+            elif kind == "lone":
+                for i in what:
+                    ask(i)
+            else:  # concurrent: they share batches
+                threads = [threading.Thread(target=ask, args=(i,)) for i in what]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+        out["stats"] = json.loads(_http(port, "/v1/stats"))
+        out["answers"] = answers
+    except BaseException as e:  # reported by the job
+        out["error"] = repr(e)
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def serve_job(job: dict) -> dict:
+    """`python -m ucf_vit_tpu_torch.serve <config> --port P --device cpu` on every
+    rank; rank 0 also runs the HTTP client (`_client`) in a thread. Every rank's
+    `main` must return; each rank's outcome is gathered."""
+    import threading
+
+    from ucf_vit_tpu_torch.serve import main
+
+    out: dict = {}
+    client = None
+    if dist.get_rank() == 0:
+        client = threading.Thread(target=_client, args=(job["port"], job, out), daemon=True)
+        client.start()
+    main([job["path"], "--port", str(job["port"]), "--host", "127.0.0.1", "--device", "cpu",
+          "--max-batch", str(job["max_batch"]), "--max-wait-ms", "200"])
+    if client is not None:
+        client.join(timeout=60)
+    returned = [None] * dist.get_world_size()
+    dist.all_gather_object(returned, "returned")
+    return {**out, "returned": returned}
+
+
+JOBS.update(eval=eval_job, predictor=predictor_job, generator=generator_job, serve=serve_job)

@@ -1352,8 +1352,6 @@ def test_diffusion_vit_refuses_what_it_cannot_run():
         DiffusionVIT(class_token=True, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline"):
         DiffusionVIT(pipe_par_size=2, scan_layers=True, **kw)
-    with pytest.raises(NotImplementedError, match="modules to port: VIT input variants"):
-        DiffusionVIT(adaptive_patching=True, fixed_length=16, **kw)
 
 
 def _diff_raw(tile="2d", **trainer):

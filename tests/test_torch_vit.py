@@ -890,3 +890,58 @@ def test_build_classification_with_varemb_matches_jax(init):
     fresh = build_classification(cfg).init_weights(torch.Generator().manual_seed(0))
     table = jax_pos_embed.get_1d_sincos_pos_embed_from_grid(32, np.arange(3))
     np.testing.assert_allclose(fresh.var_embed[0].detach().numpy(), table, atol=1e-7)
+
+
+# ---------------------------------------------------------------- adaptive DiffusionVIT
+#
+# The JAX DiffusionVIT with adaptive patching (the model alone: no config or JAX task
+# runs it), in both forms: the serialized sequence through LinearTokenEmbed with the
+# decoder's position table drawn, and the sqrt-len method's reassembled image with the
+# decoder's sincos table; the noise prediction through `load_jax_params` within 1e-5 of
+# flax, and the conversion key for key and value for value with `export_torch_state`.
+
+from ucf_vit_tpu.models.diffusion import DiffusionVIT as JDiffusionVIT
+from ucf_vit_tpu_torch.models.diffusion import DiffusionVIT
+
+ADAPTIVE_DIFF_TOL = 1e-5
+ADAPTIVE_DIFF_KW = dict(in_chans=3, patch_size=4, fixed_length=16, embed_dim=24, depth=2,
+                        num_heads=2, decoder_embed_dim=16, decoder_depth=2,
+                        decoder_num_heads=2, mlp_ratio_decoder=2.0, mlp_ratio=2.0,
+                        time_steps=20, class_token=False, adaptive_patching=True,
+                        use_adaptive_pos_emb=True)
+
+
+@pytest.mark.parametrize("form", ["tokens", "sqrt_len"])
+def test_adaptive_diffusion_vit_matches_flax(form):
+    """The prediction `[B, L, p^2 * C]` of 16 adaptive tokens at two time steps
+    against flax; the port's own init: the decoder's table drawn 0.02 * N(0, 1)
+    for tokens, the sincos table of the 4 x 4 patch grid for the sqrt-len image."""
+    seq, ps = _adaptive_inputs(2, 3, 16, 4)
+    if form == "tokens":
+        kw, x = dict(img_size=(32, 32)), seq
+    else:  # 16 tokens of 4^2 reassembled into a 16^2 image: a 4 x 4 grid, as sqrt_len 4
+        kw, x = dict(img_size=(16, 16), sqrt_len_method=True), _x(2, 3, 16, 16)
+    t = np.array([3, 17], np.int32)
+    jmod = JDiffusionVIT(attn_impl=JAttnImpl.EINSUM, **ADAPTIVE_DIFF_KW, **kw)
+    params = _params(jmod, jnp.asarray(x), jnp.asarray(t), None, jnp.asarray(ps))
+    want = export_torch_state(params)
+    assert sorted(jax_to_torch_state(params)) == sorted(want)
+    ours = load_jax_params(DiffusionVIT(attn_impl="FLASH", **ADAPTIVE_DIFF_KW, **kw),
+                           params).eval()
+    got = ours.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+    with torch.inference_mode():
+        out = ours(torch.from_numpy(x), torch.from_numpy(t).long(), seq_ps=torch.from_numpy(ps))
+    assert out.shape == (2, 16, 4 * 4 * 3)
+    _close(out, jmod.apply({"params": params}, jnp.asarray(x), jnp.asarray(t), None,
+                           jnp.asarray(ps)), ADAPTIVE_DIFF_TOL)
+
+    fresh = DiffusionVIT(**ADAPTIVE_DIFF_KW, **kw).init_weights(torch.Generator().manual_seed(0))
+    table = fresh.decoder_pos_embed[0].detach().numpy()
+    if form == "tokens":
+        assert table.shape == (16, 16) and abs(table.std() - 0.02) < 0.005
+    else:
+        np.testing.assert_allclose(table, jax_pos_embed.get_2d_sincos_pos_embed(16, 4, 4),
+                                   atol=1e-7)

@@ -17,12 +17,18 @@ moved into place with `os.replace`:
     total_steps           int
     head_meta             [num_heads, decoder_num_heads]
     generators            {"device", "host"}: the states of the train
-                          step's torch.Generators (the port's rng_key)
+                          step's torch.Generators (the port's rng_key);
+                          "device_by_data_rank": each data rank's device
+                          generator; a sharded run's "device_by_rank":
+                          each process's
     data_it               batches of `epoch` already trained on: 0 after
                           an epoch's end; a preemption save mid-epoch
                           records its position, and resume re-enters the
-                          epoch there
+                          epoch there when the data layout is the same
     num_procs             the processes that wrote it (the world size)
+    data_size             the data ranks that wrote it (`Mesh.data_size`):
+                          each reads its own share of the files and draws
+                          from its own device generator
 
 The first three keys are what `python -m
 ucf_vit_tpu.tools.convert_checkpoint to-jax` reads, so a port checkpoint
@@ -35,12 +41,15 @@ encoder (`ucf_vit_tpu/checkpoint.py:358`).
 
 A model sharded on a mesh (`parallel.train_step.shard_model`) saves the same
 file: every rank takes part in gathering each tensor whole (FSDP's shards by
-`DTensor.full_tensor`, the tensor-parallel pieces put back in the
-reference's layout by `models.blocks.tp_merge`), and rank 0 writes it. AdamW's
-moments and the EMA are gathered like their parameters. The device
-generators' states of every rank go in `generators["device_by_rank"]`. A load
-takes each rank's part of the whole tensors, onto whatever layout the
-loading run has (`load_params`, `restore_train_state`).
+`all_gather_into_tensor`, `_join_shards`, the tensor-parallel pieces put back
+in the reference's layout by `models.blocks.tp_merge`), and rank 0 writes it.
+AdamW's moments and the EMA are gathered like their parameters. The device
+generators follow the data layout, as the data does: the tp ranks of one data
+rank draw the same masks, so the file keeps one state a data rank
+(`generators["device_by_data_rank"]`), and a run with the same number of data
+ranks takes its data rank's (`restore_train_state`); a run with another keeps
+its own seeded ones. A load takes each rank's part of the whole tensors, onto
+whatever layout the loading run has (`load_params`, `restore_train_state`).
 """
 
 from __future__ import annotations
@@ -124,6 +133,20 @@ def local_piece(full: torch.Tensor, like: torch.Tensor, kind: Optional[str], mes
                               shape=like.shape, stride=like.stride())
 
 
+def data_layout(mesh) -> Tuple[int, int]:
+    """(data rank, data size) of this process: (0, 1) on one device."""
+    return (0, 1) if mesh is None else (mesh.data_rank, mesh.data_size)
+
+
+def saved_data_size(payload: dict) -> Optional[int]:
+    """The number of data ranks that wrote a checkpoint; None for a sharded file
+    written before the data layout was recorded (its `num_procs` counts the
+    tp ranks too)."""
+    if "data_size" in payload:
+        return int(payload["data_size"])
+    return 1 if int(payload.get("num_procs", 1)) == 1 else None
+
+
 def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -184,11 +207,17 @@ def save_checkpoint(
     gens = None
     if getattr(model, "generator", None) is not None:
         gens = {"device": model.generator.get_state(),
-                "host": model.host_generator.get_state()}
+                "host": model.host_generator.get_state(),
+                "device_by_data_rank": [model.generator.get_state()]}
         if mesh is not None:
             by_rank = [None] * mesh.world
-            dist.all_gather_object(by_rank, gens["device"])
-            gens["device_by_rank"] = by_rank
+            dist.all_gather_object(by_rank, (mesh.data_rank, gens["device"]))
+            gens["device_by_rank"] = [g for _, g in by_rank]
+            by_data = [None] * mesh.data_size
+            for data_rank, g in by_rank:  # a data rank's tp ranks hold the same
+                if by_data[data_rank] is None:
+                    by_data[data_rank] = g
+            gens["device_by_data_rank"] = by_data
     if mesh is None:
         model_sd, opt_sd = model.state_dict(), state.optimizer.adamw.state_dict()
         ema = state.ema_params
@@ -214,6 +243,7 @@ def save_checkpoint(
         "generators": gens,
         "data_it": int(data_it),
         "num_procs": 1 if mesh is None else mesh.world,
+        "data_size": data_layout(mesh)[1],
     }
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
@@ -404,15 +434,14 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
                                                   growth_counter=int(ls["growth_counter"]))
     gens = payload.get("generators")
     if gens is not None and getattr(model, "generator", None) is not None:
-        by_rank = gens.get("device_by_rank")
-        world = 1 if mesh is None else mesh.world
-        if by_rank is None and world == 1:
-            model.generator.set_state(gens["device"])
-        elif by_rank is not None and len(by_rank) == world:
-            model.generator.set_state(by_rank[0 if mesh is None else dist.get_rank()])
-        else:  # another layout: the device generators stay as seeded for this one
-            print(f"device generators written by {1 if by_rank is None else len(by_rank)} "
-                  f"processes, this run has {world}: kept as seeded", flush=True)
+        data_rank, data_size = data_layout(mesh)
+        saved = saved_data_size(payload)
+        if saved == data_size:
+            by_data = gens.get("device_by_data_rank") or [gens["device"]]
+            model.generator.set_state(by_data[data_rank])
+        else:  # another data layout: the device generators stay as seeded for this one
+            print(f"device generators written by {saved or 'an unrecorded number of'} data "
+                  f"ranks, this run has {data_size}: kept as seeded", flush=True)
         model.host_generator.set_state(gens["host"])
     ema = payload.get("ema_state_dict")
     if ema_decay is None:

@@ -1,10 +1,10 @@
-"""Evaluation and the inference CLI (port of `ucf_vit_tpu/inference.py`, on
-one device):
+"""Evaluation and the inference CLI (port of `ucf_vit_tpu/inference.py`):
 
     python -m ucf_vit_tpu_torch.inference <config.yaml> [--checkpoint D]
         [--mae-checkpoint D] [--synthetic] [--num-samples N] [--png-dir P]
         [--batch-size B] [--ema] [--device cuda|cpu]
         [--volume vol.npy [--volume-out pred.npy] [--sw-overlap F] [--sw-batch N]]
+    torchrun --nproc_per_node N -m ucf_vit_tpu_torch.inference <config.yaml> ...
 
 Device choice, seeded model init and checkpoint weights for evaluation and
 serving (the roles of `_init_eval_params`, `ucf_vit_tpu/inference.py:78`, and
@@ -21,6 +21,17 @@ of a whole UNETR volume (`VolumePredictor`, `predict_volume`, the CLI's
 `--volume`). The PNG writer imports matplotlib when it is asked for PNGs,
 never at import time. `evaluate` sends a config to the evaluation of its
 task.
+
+Sharded (`ucf_vit_tpu/inference.py:49-100`): launched by torchrun or srun
+with the processes the config's `parallelism:` asks for, evaluation and
+generation run on its mesh (`parallel.mesh.eval_mesh`): the weights by
+`parallel.train_step.shard_model` (tp by the JAX `kernel_axes`, FSDP by
+`fully_shard`), each data rank on its share of the same global batches that
+one device reads, top-1 from correct and sample counts summed over the data
+ranks, Dice on the gathered predictions, the reverse chain split by rows,
+rank 0 alone printing and writing PNGs. One process evaluates the whole
+model on one device, whatever the config asks for. `--volume` runs in one
+process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,15 +40,24 @@ import argparse
 import itertools
 import os
 import time
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.models import MAE, DiffusionVIT, ddpm_sample, ddpm_schedule
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
+from ucf_vit_tpu_torch.parallel.mesh import (
+    Mesh,
+    eval_mesh,
+    gather_data,
+    is_main,
+    mesh_context,
+)
+from ucf_vit_tpu_torch.parallel.train_step import shard_model
 from ucf_vit_tpu_torch.tasks import (
     build_task,
     disassemble_sqrt_len,
@@ -72,23 +92,53 @@ def resolve_device(device: Device = None) -> torch.device:
     return dev
 
 
-def init_eval_model(cfg: Config, seed: int = 0, device: Device = None) -> torch.nn.Module:
+def init_eval_model(cfg: Config, seed: int = 0, device: Device = None,
+                    mesh: Optional[Mesh] = None) -> torch.nn.Module:
     """The task's model with weights drawn on the CPU from
     `torch.Generator().manual_seed(seed)` (so every device gets the same
-    weights), moved to `device` and put in eval mode."""
+    weights), moved to `device`, put on `mesh` (`shard_model`; the roles of
+    `_init_eval_params`, `ucf_vit_tpu/inference.py:78-100`) and in eval
+    mode."""
     dev = resolve_device(device)
     model = build_task(cfg)
     model.init_weights(torch.Generator().manual_seed(int(seed)))
-    return model.to(dev).eval()
+    return shard_model(model.to(dev), mesh).eval()
 
 
-def load_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
-                 use_ema: bool = False) -> int:
-    """Copy a checkpoint's parameters (or, with `use_ema`, its EMA of them)
-    into `model` in place; returns the checkpoint's epoch. `ckpt_dir` is a
-    checkpoint file, or a directory whose slot
-    `trainer.checkpoint_filename_for_loading` names (empty: the newest).
-    The head grouping, every name and every shape are checked first."""
+def _say(mesh: Optional[Mesh], msg: str) -> None:
+    if is_main(mesh):
+        print(msg, flush=True)
+
+
+def _on_every_rank(it, mesh: Optional[Mesh], device: torch.device):
+    """The batches of `it` while every rank of the mesh still has one: a data
+    rank's share of the files may end before another's, and the ranks of a
+    sharded model must run the same forwards."""
+    if mesh is None:
+        yield from it
+        return
+    for batch in it:
+        have = torch.ones(1, device=device)
+        dist.all_reduce(have, op=dist.ReduceOp.MIN)
+        if not bool(have):
+            return
+        yield batch
+    dist.all_reduce(torch.zeros(1, device=device), op=dist.ReduceOp.MIN)
+
+
+def _check_split(what: str, n: int, mesh: Optional[Mesh]) -> None:
+    if mesh is not None and n % mesh.data_size:
+        raise ValueError(f"{what} {n} does not split over the mesh's {mesh.data_size} data "
+                         "ranks (ddp x ep x fsdp)")
+
+
+def checkpoint_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
+                       use_ema: bool = False) -> Tuple[dict, int]:
+    """(the whole tensors of a checkpoint's parameters, or with `use_ema` of
+    its EMA, its epoch), checked against `model`'s names and shapes and the
+    config's head grouping first. `ckpt_dir` is a checkpoint file, or a
+    directory whose slot `trainer.checkpoint_filename_for_loading` names
+    (empty: the newest)."""
     payload = ckpt.restore_checkpoint(
         ckpt_dir, cfg.trainer.get("checkpoint_filename_for_loading", ""),
         expect_head_meta=ckpt.head_meta_from_config(cfg))
@@ -98,8 +148,20 @@ def load_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
         if sd is None:
             raise ValueError("--ema requested but this checkpoint has no EMA state; train "
                              "with trainer.ema_decay set")
+    ckpt.check_state_dict(model, sd, f"checkpoint {ckpt_dir}")
+    return sd, int(payload["epoch"])
+
+
+def load_weights(model: torch.nn.Module, cfg: Config, ckpt_dir: str,
+                 use_ema: bool = False) -> int:
+    """Copy a checkpoint's parameters (or, with `use_ema`, its EMA of them)
+    into `model` in place (`checkpoint_weights`); returns the checkpoint's
+    epoch. A model on a mesh takes each rank's part of the whole tensors,
+    whatever layout wrote them (`checkpoint.load_params`); every rank must
+    call."""
+    sd, epoch = checkpoint_weights(model, cfg, ckpt_dir, use_ema)
     ckpt.load_params(model, sd, f"checkpoint {ckpt_dir}")
-    return int(payload["epoch"])
+    return epoch
 
 
 @torch.no_grad()
@@ -136,26 +198,45 @@ def diffusion_sampler(cfg: Config, model: torch.nn.Module, num_samples: int
     device: the whole DDPM reverse chain of `cfg`'s `num_time_steps`, its
     draws from `torch.Generator(device).manual_seed(seed)`, so one seed
     always gives the same images. `generate.denoise(x_t, t)` is one step's
-    noise prediction in image space. Puts the model in eval mode."""
+    noise prediction in image space (at `generate.shape`). Puts the model in
+    eval mode.
+
+    A model on a mesh (`shard_model`) runs the chain split by rows over the
+    data ranks (`ucf_vit_tpu/inference.py:357-376`): every rank draws each
+    step's noise for the whole batch from the one seeded generator and keeps
+    its data rank's rows, so the images do not depend on the split; every
+    rank returns the whole batch (`gather_data`). `num_samples` must divide
+    over the data ranks. Every rank must call."""
     if not isinstance(model, DiffusionVIT):
         raise TypeError(f"the DDPM sampler takes a DiffusionVIT, got {type(model).__name__}")
     model.eval()
+    mesh = getattr(model, "mesh", None)
+    _check_split("num_samples", int(num_samples), mesh)
     dev = next(model.parameters()).device
     nd = 2 if cfg.twoD else 3
     shape = (int(num_samples), cfg.max_channels) + tuple(cfg.tile_size[:nd])
+    rows = None
+    if mesh is not None and mesh.data_size > 1:
+        n = shape[0] // mesh.data_size
+        rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
+    local = shape if rows is None else (rows.stop - rows.start,) + shape[1:]
     schedule = ddpm_schedule(time_steps(cfg)).to(dev)
     var_ids = var_ids_of(cfg, model)
 
     def denoise(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return unpatchify(model(x_t, t, var_ids=var_ids), shape, model.patch_size, model.twoD)
+        with mesh_context(mesh):
+            pred = model(x_t, t, var_ids=var_ids)
+        return unpatchify(pred, tuple(x_t.shape), model.patch_size, model.twoD)
 
     @torch.inference_mode()
     def generate(seed: int) -> torch.Tensor:
         gen = torch.Generator(dev).manual_seed(int(seed))
-        return ddpm_sample(schedule, denoise, gen, shape, dev)
+        if rows is None:
+            return ddpm_sample(schedule, denoise, gen, shape, dev)
+        return gather_data(ddpm_sample(schedule, denoise, gen, shape, dev, rows=rows), mesh)
 
     generate.denoise = denoise
-    generate.shape = shape
+    generate.shape = local
     return generate
 
 
@@ -170,21 +251,24 @@ def generate_diffusion(cfg: Config, checkpoint_dir: Optional[str] = None,
     `num_samples`, drawn from `seed`. With `png_dir`, one gray PNG a sample
     (`generated_<i>.png`: its first channel, the middle slice of a volume).
     Returns samples/s, or `(samples/s, images [num_samples, C, *tile])` with
-    `return_images`."""
-    if png_dir:
+    `return_images`. On the config's mesh (`eval_mesh`) the chain is split by
+    rows (`diffusion_sampler`), every rank returns the images and rank 0
+    alone writes the PNGs."""
+    mesh = eval_mesh(cfg, resolve_device(device))
+    if png_dir and is_main(mesh):
         _pyplot()  # a missing matplotlib shows before the chain runs, not after
-    model = init_eval_model(cfg, seed=0, device=device)
+    model = init_eval_model(cfg, seed=0, device=device, mesh=mesh)
     if checkpoint_dir:
         epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
-        print(f"loaded checkpoint from epoch {epoch}", flush=True)
+        _say(mesh, f"loaded checkpoint from epoch {epoch}")
     generate = diffusion_sampler(cfg, model, max(int(num_samples), 1))
     t0 = time.perf_counter()
     imgs = generate(seed).cpu().numpy()
     dt = time.perf_counter() - t0
     sps = imgs.shape[0] / dt
-    print(f"generated {imgs.shape[0]} samples in {dt:.1f}s ({sps:.2f} samples/s, "
-          f"{time_steps(cfg)} DDPM steps)", flush=True)
-    if png_dir:
+    _say(mesh, f"generated {imgs.shape[0]} samples in {dt:.1f}s ({sps:.2f} samples/s, "
+         f"{time_steps(cfg)} DDPM steps)")
+    if png_dir and is_main(mesh):
         for i, img in enumerate(imgs[:, 0]):  # the first channel
             if img.ndim == 3:  # a volume: its middle slice
                 img = img[..., img.shape[-1] // 2]
@@ -232,38 +316,45 @@ def evaluate_classification(cfg: Config, checkpoint_dir: Optional[str] = None,
                             synthetic: bool = False, num_samples: int = 64,
                             use_ema: bool = False, *, device: Device = None) -> float:
     """Top-1 accuracy of the seeded init or a checkpoint's weights (with
-    `use_ema` its EMA) over at least `num_samples` samples, in batches of
-    `data.batch_size`: the synthetic stream, or one epoch of the config's
-    file range (`ucf_vit_tpu/inference.py:111-172`)."""
-    from ucf_vit_tpu_torch.train import build_dataloader, synthetic_batches, to_device
-    from ucf_vit_tpu_torch.utils.metrics import accuracy
+    `use_ema` its EMA) over at least `num_samples` samples, in global batches
+    of `data.batch_size`: the synthetic stream, or one epoch of the config's
+    file range (`ucf_vit_tpu/inference.py:111-172`). On the config's mesh
+    each data rank takes its share of every batch, and a batch's accuracy
+    comes from its correct and sample counts summed over the data ranks,
+    the number one device computes."""
+    from ucf_vit_tpu_torch.train import build_dataloader, to_device
 
-    model = init_eval_model(cfg, seed=0, device=device)
+    mesh = eval_mesh(cfg, resolve_device(device))
+    _check_split("data.batch_size", cfg.batch_size, mesh)
+    model = init_eval_model(cfg, seed=0, device=device, mesh=mesh)
     if checkpoint_dir:
         epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
-        print(f"loaded checkpoint from epoch {epoch}", flush=True)
+        _say(mesh, f"loaded checkpoint from epoch {epoch}")
     dev = next(model.parameters()).device
     var_ids = var_ids_of(cfg, model)
-    if synthetic:
-        it = synthetic_batches(cfg, cfg.batch_size)
-    else:
-        dm, _, _ = build_dataloader(cfg, cfg.batch_size, synthetic=False)
-        it = dm.train_dataloader()
+    dm, synth, _ = build_dataloader(cfg, cfg.batch_size, synthetic, mesh=mesh)
+    it = synth if synthetic else dm.train_dataloader()
     correct, seen = 0.0, 0
     try:
-        with torch.inference_mode():
-            for batch in it:
+        with torch.inference_mode(), mesh_context(mesh):
+            for batch in _on_every_rank(it, mesh, dev):
                 if seen >= num_samples:
                     break
                 b = to_device(batch, dev)
                 x, ps = model_inputs(cfg, b)
                 logits = model(x, seq_ps=ps, var_ids=var_ids)
-                correct += float(accuracy(logits, b["label"])) * logits.shape[0]
-                seen += logits.shape[0]
+                counts = torch.stack([(logits.argmax(dim=-1) == b["label"]).sum(),
+                                      torch.tensor(logits.shape[0], device=dev)])
+                if mesh is not None:
+                    dist.all_reduce(counts, group=mesh.data_group)
+                n = int(counts[1])
+                # the batch's accuracy in f32, as the JAX package's `accuracy` gives it
+                correct += float(counts[0].float() / counts[1].float()) * n
+                seen += n
     finally:
         it.close()
     top1 = correct / max(seen, 1)
-    print(f"top-1 accuracy over {seen} samples: {top1:.4f}", flush=True)
+    _say(mesh, f"top-1 accuracy over {seen} samples: {top1:.4f}")
     return top1
 
 
@@ -304,21 +395,23 @@ def evaluate_segmentation(cfg: Config, checkpoint_dir: Optional[str] = None,
     (`tasks.sap_labels`). With `png_dir`, one PNG a batch (its first sample);
     a SAP's prediction is first written back to image space through the
     sample's tree (`_deserialize_pred`; the loader keeps the trees then) and
-    drawn beside the image-space label."""
-    from ucf_vit_tpu_torch.train import (
-        build_dataloader,
-        synthetic_batches,
-        to_device,
-        transfer_pretrained_mae,
-    )
+    drawn beside the image-space label. On the config's mesh each data rank
+    takes its share of every batch (`batch_size` must divide over the data
+    ranks), and a batch's Dice is that of the predictions and labels gathered
+    over the data ranks: the number one device computes
+    (`ucf_vit_tpu/inference.py:199-271`)."""
+    from ucf_vit_tpu_torch.train import build_dataloader, to_device, transfer_pretrained_mae
     from ucf_vit_tpu_torch.utils.metrics import dice_metric
 
+    mesh = eval_mesh(cfg, resolve_device(device))
+    _check_split("batch_size", batch_size, mesh)
+    png_dir = png_dir if is_main(mesh) else None
     if png_dir:
         _pyplot()
-    model = init_eval_model(cfg, seed=0, device=device)
+    model = init_eval_model(cfg, seed=0, device=device, mesh=mesh)
     if checkpoint_dir:
         epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
-        print(f"loaded checkpoint from epoch {epoch}", flush=True)
+        _say(mesh, f"loaded checkpoint from epoch {epoch}")
     if mae_checkpoint_dir:
         transfer_pretrained_mae(cfg, model, mae_checkpoint_dir,
                                 cfg.trainer.get("checkpoint_filename_for_loading", ""))
@@ -326,16 +419,13 @@ def evaluate_segmentation(cfg: Config, checkpoint_dir: Optional[str] = None,
     classes = num_classes(cfg)
     var_ids = var_ids_of(cfg, model)
     sap = cfg.task == "sap"
-    if synthetic:
-        it = synthetic_batches(cfg, batch_size)
-    else:
-        dm, _, _ = build_dataloader(cfg, batch_size, synthetic=False,
+    dm, synth, _ = build_dataloader(cfg, batch_size, synthetic, mesh=mesh,
                                     return_qdt=bool(png_dir) and cfg.adaptive_patching)
-        it = dm.train_dataloader()
+    it = synth if synthetic else dm.train_dataloader()
     dices = []
     try:
-        with torch.inference_mode():
-            for i, batch in enumerate(it):
+        with torch.inference_mode(), mesh_context(mesh):
+            for i, batch in enumerate(_on_every_rank(it, mesh, dev)):
                 if i >= num_samples:
                     break
                 b = to_device(batch, dev)
@@ -349,9 +439,10 @@ def evaluate_segmentation(cfg: Config, checkpoint_dir: Optional[str] = None,
                     label = b["label"]
                     if label.ndim == pred.ndim + 1:
                         label = label[:, 0]
+                pred, label = gather_data(pred, mesh), gather_data(label, mesh)
                 d = float(dice_metric(pred, label, classes))
                 dices.append(d)
-                print(f"sample {i}: dice {d:.4f}", flush=True)
+                _say(mesh, f"sample {i}: dice {d:.4f}")
                 if png_dir:
                     png_pred, png_label = pred[0].cpu().numpy(), label[0].cpu().numpy()
                     if sap and "qdt" in batch:
@@ -364,7 +455,7 @@ def evaluate_segmentation(cfg: Config, checkpoint_dir: Optional[str] = None,
     finally:
         it.close()
     mean_dice = float(np.mean(dices)) if dices else float("nan")
-    print(f"mean dice over {len(dices)} samples: {mean_dice:.4f}", flush=True)
+    _say(mesh, f"mean dice over {len(dices)} samples: {mean_dice:.4f}")
     return mean_dice
 
 

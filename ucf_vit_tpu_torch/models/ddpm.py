@@ -71,12 +71,16 @@ def ddpm_sample(
     device,
     x_T: Optional[torch.Tensor] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """Ancestral DDPM sampling. `denoise_fn(x_t, t[B])` predicts the noise with
     x_t's shape. The chain runs on `device`; x_T and each step's noise are
     drawn from `generator` there, unless `x_T` and `noises` (T tensors, for
     t = T-1 ... 0) are given. As in the JAX sampler a noise is drawn at every
-    step, t = 0 included, where it is not used."""
+    step, t = 0 included, where it is not used. With `rows`, every draw is of
+    the whole `shape` and the chain runs on those rows of it alone (a data
+    rank's share of a sharded chain): the rows come out as in the whole
+    chain."""
     shape = tuple(int(s) for s in shape)
     T = schedule.num_time_steps
     if (x_T is None or noises is None) and generator is None:
@@ -85,13 +89,14 @@ def ddpm_sample(
     if noises is not None and len(noises) != T:
         raise ValueError(f"noises holds {len(noises)} steps, the schedule {T}")
     coef, sqrt_alpha, sigma = _reverse_coefficients(schedule)
+    rows = slice(None) if rows is None else rows
     x = (torch.randn(shape, device=device, generator=generator) if x_T is None
-         else x_T.to(device, torch.float32))
+         else x_T.to(device, torch.float32))[rows]
     for i in range(T):
         t = T - 1 - i
-        eps = denoise_fn(x, torch.full((shape[0],), t, dtype=torch.long, device=device))
+        eps = denoise_fn(x, torch.full((x.shape[0],), t, dtype=torch.long, device=device))
         mean = (x - float(coef[t]) * eps) / float(sqrt_alpha[t])
         noise = (torch.randn(shape, device=device, generator=generator) if noises is None
-                 else noises[i].to(device, torch.float32))
+                 else noises[i].to(device, torch.float32))[rows]
         x = mean + float(sigma[t]) * noise if t > 0 else mean
     return x

@@ -11,13 +11,20 @@ tokens, adds its sincos-initialised position embedding and runs its blocks
 `linear_decoder` only the head. `forward(x_t, t)` returns the predicted noise
 in patch space, `[B, L, p^ndim * C]`.
 
+With adaptive patching (the JAX model's, no config or JAX task runs it) the
+encoder takes what `VIT` takes: the serialized sequence `[B, C, L, p^nd]`
+with its descriptors `seq_ps`, or with the sqrt-len method the reassembled
+image; the decoder's position table is then drawn `0.02 * N(0, 1)`, and
+with the sqrt-len method filled from the sincos table of the image's patch
+grid, as in the JAX model (`ucf_vit_tpu/models/diffusion.py:43-54`, which
+holds only where that grid has `sqrt_len^nd` patches).
+
 As in the JAX model the time MLP, the decoder embedding, its norm and the head
 take no dtype, so under the bf16 policy they compute in f32 and promote the
 residual streams they join to f32.
 
 Not ported, and refused with the ROADMAP.md item: the pipelined decoder stack
-(`pipe_par_size > 1`, pipeline + MoE) and adaptive inputs (VIT input
-variants), both refused by `VIT`.
+(`pipe_par_size > 1`, pipeline + MoE), refused by `VIT`.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from torch import nn
 
 from ucf_vit_tpu_torch.models.blocks import Block, EmbeddingDenseLayer, Linear, layer_norm
-from ucf_vit_tpu_torch.models.vit import VIT, _not_ported
+from ucf_vit_tpu_torch.models.vit import VIT
 from ucf_vit_tpu_torch.ops.pos_embed import (
     get_2d_sincos_pos_embed,
     get_3d_sincos_pos_embed,
@@ -58,8 +65,6 @@ class DiffusionVIT(VIT):
             raise ValueError("DiffusionVIT runs with class_token=False")
         if num_classes is not None:
             raise ValueError("DiffusionVIT has no classification head")
-        if vit_kwargs.get("adaptive_patching"):
-            raise _not_ported("adaptive patching in DiffusionVIT", "VIT input variants")
         super().__init__(img_size=img_size, in_chans=in_chans, class_token=False,
                          num_classes=None, **vit_kwargs)
         self.linear_decoder = bool(linear_decoder)
@@ -95,10 +100,15 @@ class DiffusionVIT(VIT):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "DiffusionVIT":
         """VIT's initialisers (the time MLP's linears among them) and the
-        decoder's position embedding from its sincos table
-        (`_decoder_sincos_init`)."""
+        decoder's position embedding (`_decoder_sincos_init`): its sincos
+        table, or for adaptive tokens embedded by LinearTokenEmbed
+        0.02 * N(0, 1)."""
         super().init_weights(generator)
-        if self.decoder_blocks is not None:
+        if self.decoder_blocks is None:
+            return self
+        if self.adaptive_linear:
+            self.decoder_pos_embed.normal_(generator=generator).mul_(0.02)
+        else:
             table = torch.from_numpy(self.decoder_sincos_table())
             self.decoder_pos_embed.copy_(table.reshape(self.decoder_pos_embed.shape))
         return self
@@ -106,10 +116,12 @@ class DiffusionVIT(VIT):
     # --------------------------------------------------------------- forward
 
     def forward_features(self, x: torch.Tensor, t: torch.Tensor,
-                         var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """Embed, position embedding, patch dropout, + the time embedding of
-        each sample's step, blocks, norm (`:146`)."""
-        x = self.patch_drop(self.apply_pos_embed(self.embed_tokens(x, var_ids)))
+                         var_ids: Optional[Sequence[int]] = None,
+                         seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Embed, position embedding (`seq_ps`: the adaptive descriptors),
+        patch dropout, + the time embedding of each sample's step, blocks,
+        norm (`:146`)."""
+        x = self.patch_drop(self.apply_pos_embed(self.embed_tokens(x, var_ids), seq_ps))
         time_emb = self.timeEmbeddingMap(self.time_table[t.to(x.device)].to(x.dtype))
         x = x + time_emb[:, None, :]
         return self.norm(self.run_blocks(x))
@@ -123,5 +135,6 @@ class DiffusionVIT(VIT):
         return self.decoder_pred(x)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
-        return self.forward_head(self.forward_features(x, t, var_ids))
+                var_ids: Optional[Sequence[int]] = None,
+                seq_ps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.forward_head(self.forward_features(x, t, var_ids, seq_ps))

@@ -32,6 +32,12 @@ joins the shards back by the same split.
 
 `mesh_context` makes a mesh the active one: the attention reads its
 coordinates to fold dropout seeds, and the losses its data group.
+
+`eval_mesh` is the mesh that evaluation, generation and serving run on
+(`ucf_vit_tpu/inference.py:49-75`): the config's, when the launch has its
+processes, else None (one process evaluates the whole model, as the JAX
+package falls back to one device). `gather_data` joins the data ranks'
+slices of a batch's result in data-rank order.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import contextlib
 import contextvars
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +63,12 @@ MESH_AXES = (AXIS_PP, AXIS_DDP, AXIS_EP, AXIS_FSDP, AXIS_SP, AXIS_TP)
 DATA_AXES = (AXIS_DDP, AXIS_EP, AXIS_FSDP)
 # the axes FSDP runs on: replicated over ddp, sharded over fsdp
 FSDP_AXES = (AXIS_DDP, AXIS_FSDP)
+# the `parallelism:` axes not ported yet, with their ROADMAP.md items
+REFUSED_AXES = {
+    "seq_par_size": "item 11: sequence parallelism",
+    "pipe_par_size": "item 12: pipeline + MoE",
+    "expert_par_size": "item 12: pipeline + MoE",
+}
 
 _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch_mesh",
                                                               default=None)
@@ -102,6 +114,21 @@ class Mesh:
         return self.device_mesh[FSDP_AXES]
 
 
+def launched() -> Tuple[int, int, Optional[str]]:
+    """(rank, world size, local rank or None) of this process: the process
+    group's where one is up, else the launcher's environment, torchrun's
+    (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`) or SLURM's (`SLURM_PROCID`,
+    `SLURM_NTASKS`, `SLURM_LOCALID`); (0, 1, None) for a lone process."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), None
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return int(env["RANK"]), int(env["WORLD_SIZE"]), env.get("LOCAL_RANK")
+    if int(env.get("SLURM_NTASKS", "1")) > 1 and "SLURM_PROCID" in env:
+        return int(env["SLURM_PROCID"]), int(env["SLURM_NTASKS"]), env.get("SLURM_LOCALID")
+    return 0, 1, None
+
+
 def init_distributed(device: Optional[torch.device] = None) -> bool:
     """Join the job's process group from the launcher's environment: torchrun
     (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`/`MASTER_PORT`) or SLURM
@@ -112,14 +139,7 @@ def init_distributed(device: Optional[torch.device] = None) -> bool:
     more than one rank is up."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size() > 1
-    env = os.environ
-    if "RANK" in env and "WORLD_SIZE" in env:
-        rank, world, local = int(env["RANK"]), int(env["WORLD_SIZE"]), env.get("LOCAL_RANK")
-    elif int(env.get("SLURM_NTASKS", "1")) > 1 and "SLURM_PROCID" in env:
-        rank, world, local = int(env["SLURM_PROCID"]), int(env["SLURM_NTASKS"]), \
-            env.get("SLURM_LOCALID")
-    else:
-        return False
+    rank, world, local = launched()
     if world <= 1:
         return False
     dev = torch.device("cuda" if device is None else device)
@@ -174,6 +194,55 @@ def mesh_from_config(parallelism: dict, device_type: str = "cpu") -> Mesh:
         expert_par_size=int(parallelism.get("expert_par_size", 1)),
         device_type=device_type,
     )
+
+
+def eval_mesh(cfg, device: Optional[torch.device] = None) -> Optional[Mesh]:
+    """The mesh of `cfg`'s `parallelism:` for evaluation, generation and
+    serving (`_eval_mesh`, `ucf_vit_tpu/inference.py:49-75`): None for a
+    config of one device, and None, with the JAX package's line, for a
+    launch of one process (a config trained on many devices evaluates on
+    one). A launch of more (torchrun or srun) joins the job
+    (`init_distributed`) and builds the config's mesh; it raises where the
+    config asks for sp, pp or ep (not ported) or for another number of
+    processes than were launched."""
+    size = int(cfg.world_size)
+    if size <= 1:
+        return None
+    _, world, _ = launched()
+    if world <= 1:
+        print(f"eval: parallelism wants {size} devices, 1 available -> single-device eval",
+              flush=True)
+        return None
+    for key, item in REFUSED_AXES.items():
+        if int(cfg.parallelism.get(key, 1)) > 1:
+            raise NotImplementedError(f"parallelism.{key} > 1 is not ported yet (ROADMAP.md, "
+                                      f"modules to port, {item}); launch one process to "
+                                      "evaluate on one device")
+    if world != size:
+        raise RuntimeError(
+            f"parallelism {cfg.parallelism} asks for {size} processes but {world} were "
+            f"launched: run it under `torchrun --nproc_per_node {size}` (or srun), or as one "
+            "process to evaluate on one device")
+    dev = torch.device("cuda" if device is None else device)
+    init_distributed(dev)
+    return mesh_from_config(cfg.parallelism, dev.type)
+
+
+def gather_data(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The data ranks' slices `t` (the leading dim, equal on every data rank)
+    joined in data-rank order, on every rank of the data group: the global
+    batch's result (all must call). `t` itself without a mesh."""
+    if mesh is None or mesh.data_size == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
+    return torch.cat(parts)
+
+
+def is_main(mesh: Optional[Mesh]) -> bool:
+    """Rank 0, which alone logs and writes files (every process without a
+    mesh)."""
+    return mesh is None or dist.get_rank() == 0
 
 
 def active_mesh() -> Optional[Mesh]:

@@ -1,6 +1,7 @@
 """Batched online inference serving (port of `ucf_vit_tpu/serve.py`).
 
     python -m ucf_vit_tpu_torch.serve <config.yaml> --device cuda
+    torchrun --nproc_per_node N -m ucf_vit_tpu_torch.serve <config.yaml>
 
 - **Fixed batch.** The micro-batcher pads every departing batch to
   ``max_batch`` rows, so every forward has one shape.
@@ -47,6 +48,18 @@
 
 It serves classification, MAE, UNETR and SAP, adaptive or not, and
 diffusion.
+
+- **Sharded.** Launched by torchrun or srun with the processes the config's
+  ``parallelism:`` asks for, the model serves on its mesh
+  (``parallel.mesh.eval_mesh``; ``ucf_vit_tpu/serve.py:189-210, 316-376,
+  646-667``): the weights by ``shard_model``, each batch split over the data
+  ranks (``max_batch`` must divide over them) and the result gathered, the
+  reverse chain split by rows. Rank 0 alone binds the port and runs the
+  micro-batcher; the other ranks wait in ``serve_follower`` and run each
+  operation rank 0 broadcasts to them (``Replicas``: predict, generate,
+  reload, stop). SIGTERM (or Ctrl-C) to rank 0 stops the server and sends
+  the stop, and every rank returns; an error on any rank is raised there.
+  One process serves the whole model, whatever the config asks for.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ import argparse
 import copy
 import io
 import json
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -63,10 +77,12 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ucf_vit_tpu_torch.config import Config
 from ucf_vit_tpu_torch.inference import (
     Device,
+    checkpoint_weights,
     diffusion_sampler,
     init_eval_model,
     load_weights,
@@ -74,6 +90,15 @@ from ucf_vit_tpu_torch.inference import (
     resolve_device,
 )
 from ucf_vit_tpu_torch.ops.patchify import unpatchify
+from ucf_vit_tpu_torch.parallel.mesh import (
+    Mesh,
+    eval_mesh,
+    gather_data,
+    is_main,
+    launched,
+    mesh_context,
+    shard_batch,
+)
 from ucf_vit_tpu_torch.tasks import model_inputs, sap_inputs, unetr_inputs, var_ids_of
 
 
@@ -155,6 +180,66 @@ def consumed_keys(cfg: Config) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the ranks of a sharded server
+# ---------------------------------------------------------------------------
+
+
+class Replicas:
+    """The operations that every rank of a sharded server runs together.
+
+    Rank 0 calls ``run(op, arrays, **args)``: it broadcasts a header (the
+    operation, its arguments and its arrays' shapes), then the f32 arrays on
+    the model's device (NCCL carries no CPU tensors), then runs
+    ``ops[op](arrays, **args)`` itself. Every other rank waits in ``follow``
+    and runs the same operation on what it received, so that all issue the
+    same forwards, all-reduces and gathers in the same order. One lock keeps
+    rank 0's threads (the batcher's, a reload's, a generate's) from
+    interleaving their broadcasts. ``stop`` ends the others' ``follow``.
+    Without a mesh ``run`` only runs the operation."""
+
+    def __init__(self, mesh: Optional[Mesh], device: torch.device):
+        self.mesh, self.device = mesh, device
+        self.ops: Dict[str, Callable] = {}
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def run(self, op: str, arrays: Optional[Dict[str, torch.Tensor]] = None, **args):
+        arrays = arrays or {}
+        with self._lock:
+            if self.mesh is not None:
+                if self._stopped:
+                    raise RuntimeError("the other ranks of this server have stopped")
+                header = [(op, args, {k: tuple(v.shape) for k, v in arrays.items()})]
+                dist.broadcast_object_list(header, src=0, device=self.device)
+                for k in sorted(arrays):
+                    dist.broadcast(arrays[k], src=0)
+            return self.ops[op](arrays, **args)
+
+    def follow(self) -> None:
+        """Every rank but 0: run what rank 0 broadcasts until its stop. An
+        operation that raises ends the loop with its exception."""
+        while True:
+            header = [None]
+            dist.broadcast_object_list(header, src=0, device=self.device)
+            op, args, shapes = header[0]
+            if op == "stop":
+                return
+            arrays = {}
+            for k in sorted(shapes):
+                arrays[k] = torch.empty(shapes[k], dtype=torch.float32, device=self.device)
+                dist.broadcast(arrays[k], src=0)
+            self.ops[op](arrays, **args)
+
+    def stop(self) -> None:
+        """Rank 0: end the other ranks' `follow` (once; nothing without a mesh)."""
+        with self._lock:
+            if self.mesh is None or self._stopped:
+                return
+            self._stopped = True
+            dist.broadcast_object_list([("stop", {}, {})], src=0, device=self.device)
+
+
+# ---------------------------------------------------------------------------
 # the fixed-shape forward
 # ---------------------------------------------------------------------------
 
@@ -193,7 +278,14 @@ def build_predictor(
     ``load_weights(ckpt_dir, ema=False) -> epoch`` loads a checkpoint into a
     copy of the served model and swaps the copy in: the batcher's thread,
     the only one that runs forwards, picks it up at its next batch, and a
-    batch in flight finishes on the old weights."""
+    batch in flight finishes on the old weights.
+
+    On the config's mesh (``eval_mesh``; every rank builds the predictor):
+    the model is sharded, ``run_batch`` on rank 0 hands the batch to the
+    other ranks (``run_batch.replicas``, a ``Replicas``; they wait in its
+    ``follow``), each rank runs its data rank's rows and rank 0 returns the
+    whole batch's result; ``load_weights`` loads on every rank, in place,
+    between batches. ``max_batch`` must divide over the data ranks."""
     dev = resolve_device(device)
     if cfg.task == "diffusion":
         raise ValueError("a diffusion deployment serves /v1/generate (build_generator), "
@@ -201,46 +293,72 @@ def build_predictor(
     if cfg.task not in ("classification", "mae", "unetr", "sap"):
         raise ValueError(f"serving supports classification/unetr/sap/mae predict and "
                          f"diffusion generate; got task={cfg.task!r}")
-    model = init_eval_model(cfg, seed=seed, device=dev)
     max_batch = int(max_batch or cfg.batch_size)
+    mesh = eval_mesh(cfg, dev)
+    if mesh is not None and max_batch % mesh.data_size:
+        # the JAX assertion (`ucf_vit_tpu/serve.py:200-209`), raised so that it holds
+        # under -O
+        raise AssertionError(
+            f"--max-batch {max_batch} must be divisible by the mesh's data-parallel extent "
+            f"{mesh.data_size} (ddp x ep x fsdp) for sharded serving")
+    model = init_eval_model(cfg, seed=seed, device=dev, mesh=mesh)
     holder = {"model": model, "epoch": None}
+    replicas = Replicas(mesh, dev)
 
     def swap_weights(ckpt_dir: str, ema: bool = False) -> int:
-        new = copy.deepcopy(holder["model"])
-        epoch = load_weights(new, cfg, ckpt_dir, use_ema=ema)
-        holder["model"], holder["epoch"] = new, epoch
-        return epoch
+        if mesh is None:  # loaded beside the batches, swapped in between two
+            new = copy.deepcopy(holder["model"])
+            epoch = load_weights(new, cfg, ckpt_dir, use_ema=ema)
+            holder["model"], holder["epoch"] = new, epoch
+            return epoch
+        checkpoint_weights(holder["model"], cfg, ckpt_dir, use_ema=ema)  # fails on rank 0 alone
+        return replicas.run("reload", ckpt_dir=str(ckpt_dir), ema=bool(ema))
+
+    def reload(_, ckpt_dir: str, ema: bool) -> int:
+        # every rank, in place: the lock keeps every batch out meanwhile
+        holder["epoch"] = load_weights(holder["model"], cfg, ckpt_dir, use_ema=ema)
+        return holder["epoch"]
 
     if checkpoint_dir:
         holder["epoch"] = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
-        print(f"serving checkpoint from epoch {holder['epoch']}", flush=True)
+        if is_main(mesh):
+            print(f"serving checkpoint from epoch {holder['epoch']}", flush=True)
 
     noise = mask_noise(model, 1, seed, dev) if cfg.task == "mae" else None
 
     consumed = consumed_keys(cfg)
     var_ids = var_ids_of(cfg, model)
 
+    def forward(b: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if cfg.task == "unetr":
+            x, ps, x_seq = unetr_inputs(cfg, b)
+            logits = holder["model"](x, seq_ps=ps, x_seq=x_seq, var_ids=var_ids)
+            return logits.argmax(dim=1).to(torch.int32)
+        if cfg.task == "sap":
+            img, ps = sap_inputs(cfg, b)
+            logits = holder["model"](img, seq_ps=ps, var_ids=var_ids)
+            return logits.argmax(dim=1).to(torch.int32)
+        x, ps = model_inputs(cfg, b)
+        if noise is None:
+            return holder["model"](x, seq_ps=ps, var_ids=var_ids)
+        pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1), seq_ps=ps,
+                                  var_ids=var_ids)
+        if cfg.adaptive_patching:
+            return pred
+        return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)
+
+    def predict(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with torch.inference_mode(), mesh_context(mesh):
+            return gather_data(forward(shard_batch(batch, mesh)), mesh)
+
+    replicas.ops.update(predict=predict, reload=reload)
+
     def run_batch(batch: Dict[str, np.ndarray]) -> torch.Tensor:
         b = {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=np.float32)).to(
             dev, non_blocking=True) for k in consumed}
-        with torch.inference_mode():
-            if cfg.task == "unetr":
-                x, ps, x_seq = unetr_inputs(cfg, b)
-                logits = holder["model"](x, seq_ps=ps, x_seq=x_seq, var_ids=var_ids)
-                return logits.argmax(dim=1).to(torch.int32)
-            if cfg.task == "sap":
-                img, ps = sap_inputs(cfg, b)
-                logits = holder["model"](img, seq_ps=ps, var_ids=var_ids)
-                return logits.argmax(dim=1).to(torch.int32)
-            x, ps = model_inputs(cfg, b)
-            if noise is None:
-                return holder["model"](x, seq_ps=ps, var_ids=var_ids)
-            pred, _ = holder["model"](x, mask_noise=noise.expand(x.shape[0], -1), seq_ps=ps,
-                                      var_ids=var_ids)
-            if cfg.adaptive_patching:
-                return pred
-            return unpatchify(pred, tuple(x.shape), model.patch_size, model.twoD)
+        return replicas.run("predict", b)
 
+    run_batch.replicas = replicas
     # the pool starts last: a failure above leaves no processes behind
     preprocess = make_preprocessor(cfg, preprocess_workers)
     return run_batch, preprocess, max_batch, (model, holder, swap_weights)
@@ -250,17 +368,60 @@ def build_generator(cfg: Config, model: torch.nn.Module, num_samples: int):
     """``generate(seed) -> np.ndarray [num_samples, C, *tile]``: the DDPM
     reverse chain of a DiffusionVIT at a fixed batch (diffusion serving;
     `inference.diffusion_sampler`), one call at a time, since a chain keeps
-    the device busy. ``generate.denoise(x_t, t)`` is one step of it."""
+    the device busy. ``generate.denoise(x_t, t)`` is one step of it. A
+    model on a mesh (``shard_model``) runs the chain split by rows
+    (``ucf_vit_tpu/serve.py:341-376``) on every rank: rank 0 calls
+    ``generate``, the others wait in ``generate.replicas.follow()``; the
+    ``warm`` operation runs one denoising step on every rank."""
     sample = diffusion_sampler(cfg, model, num_samples)
-    lock = threading.Lock()
+    dev = next(model.parameters()).device
+    replicas = Replicas(getattr(model, "mesh", None), dev)
+
+    def warm(_) -> None:
+        with torch.inference_mode():
+            x = torch.zeros(sample.shape, device=dev)
+            sample.denoise(x, torch.zeros(x.shape[0], dtype=torch.long, device=dev)).cpu()
+
+    replicas.ops.update(generate=lambda _, seed: sample(seed).cpu().numpy(), warm=warm)
 
     def generate(seed: int) -> np.ndarray:
-        with lock:
-            return sample(seed).cpu().numpy()
+        return replicas.run("generate", seed=int(seed))
 
     generate.denoise = sample.denoise
     generate.shape = sample.shape
+    generate.replicas = replicas
     return generate
+
+
+def _diffusion_generator(cfg: Config, checkpoint_dir: Optional[str], use_ema: bool, seed: int,
+                         device: Device, num_generate: int):
+    """A diffusion deployment's `build_generator`, on the config's mesh: the
+    seeded weights, or a checkpoint's."""
+    dev = resolve_device(device)
+    mesh = eval_mesh(cfg, dev)
+    model = init_eval_model(cfg, seed=seed, device=dev, mesh=mesh)
+    if checkpoint_dir:
+        epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
+        if is_main(mesh):
+            print(f"serving checkpoint from epoch {epoch}", flush=True)
+    return build_generator(cfg, model, num_generate)
+
+
+def serve_follower(cfg: Config, checkpoint_dir: Optional[str] = None, use_ema: bool = False,
+                   max_batch: Optional[int] = None, seed: int = 0, device: Device = None,
+                   num_generate: int = 8) -> None:
+    """A rank other than 0 of a sharded server: build what `make_server` builds
+    on rank 0 (with the same arguments), then run each operation rank 0
+    broadcasts until its stop (`Replicas.follow`). Raises what an operation
+    raises."""
+    if cfg.task == "diffusion":
+        replicas = _diffusion_generator(cfg, checkpoint_dir, use_ema, seed, device,
+                                        num_generate).replicas
+    else:
+        run_batch, _, _, _ = build_predictor(cfg, checkpoint_dir, use_ema=use_ema,
+                                             max_batch=max_batch, seed=seed, device=device)
+        replicas = run_batch.replicas
+    replicas.follow()
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +573,7 @@ class _Handler(BaseHTTPRequestHandler):
     preprocess = None
     generate = None  # generate(seed) -> images, on a diffusion deployment
     reload_weights = None  # load_weights(ckpt_dir, ema) -> epoch
+    replicas: Optional[Replicas] = None  # the operations every rank runs (close_server)
     weights_holder: Optional[dict] = None
     serve_ema = False  # the server's --ema setting, the reload's default
     task = ""
@@ -509,22 +671,25 @@ def make_server(
 
     A diffusion config serves ``/v1/generate`` at a batch of
     ``num_generate``: the warm-up is one denoising step at that batch, which
-    loads the kernels; the chain itself runs on requests."""
+    loads the kernels; the chain itself runs on requests.
+
+    On the config's mesh this is rank 0's part: the other ranks run
+    ``serve_follower`` with the same arguments, and ``close_server`` stops
+    them."""
 
     class Handler(_Handler):
         task = cfg.task
 
     if cfg.task == "diffusion":
-        model = init_eval_model(cfg, seed=seed, device=device)
-        if checkpoint_dir:
-            epoch = load_weights(model, cfg, checkpoint_dir, use_ema=use_ema)
-            print(f"serving checkpoint from epoch {epoch}", flush=True)
-        generate = build_generator(cfg, model, num_generate)
+        generate = _diffusion_generator(cfg, checkpoint_dir, use_ema, seed, device,
+                                        num_generate)
         Handler.generate = staticmethod(generate)
-        with torch.inference_mode():
-            x = torch.zeros(generate.shape, device=next(model.parameters()).device)
-            generate.denoise(x, torch.zeros(x.shape[0], dtype=torch.long,
-                                            device=x.device)).cpu()
+        Handler.replicas = generate.replicas
+        try:
+            generate.replicas.run("warm")
+        except BaseException:
+            generate.replicas.stop()
+            raise
     else:
         run_batch, preprocess, mb, (_, holder, load_weights_into) = build_predictor(
             cfg, checkpoint_dir, use_ema=use_ema, max_batch=max_batch, seed=seed,
@@ -532,6 +697,7 @@ def make_server(
         )
         Handler.batcher = MicroBatcher(run_batch, mb, max_wait_ms, pipeline_depth=pipeline_depth,
                                        on_close=preprocess.close)
+        Handler.replicas = run_batch.replicas
         Handler.weights_holder = holder
         Handler.serve_ema = use_ema
         Handler.reload_weights = staticmethod(load_weights_into)
@@ -544,6 +710,7 @@ def make_server(
             Handler.batcher.submit(preprocess(warm_in), timeout=None)
         except BaseException:
             Handler.batcher.close()
+            Handler.replicas.stop()
             raise
 
     class Server(ThreadingHTTPServer):
@@ -553,6 +720,16 @@ def make_server(
         daemon_threads = True
 
     return Server((host, port), Handler)
+
+
+def close_server(server: ThreadingHTTPServer) -> None:
+    """Stop what `make_server` built: the socket, the micro-batcher (and its
+    preprocessing pool), and on a mesh the other ranks (the stop operation)."""
+    server.server_close()
+    handler = server.RequestHandlerClass
+    if handler.batcher is not None:
+        handler.batcher.close()
+    handler.replicas.stop()
 
 
 def main(argv=None):
@@ -587,6 +764,11 @@ def main(argv=None):
     from ucf_vit_tpu_torch.config import load_config
 
     cfg = load_config(args.config, task=args.task)
+    rank, world, _ = launched()
+    if cfg.world_size > 1 and world > 1 and rank != 0:
+        serve_follower(cfg, args.checkpoint, use_ema=args.ema, max_batch=args.max_batch,
+                       seed=args.seed, device=args.device, num_generate=args.num_generate)
+        return
     server = make_server(
         cfg, args.checkpoint, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, use_ema=args.ema,
@@ -597,14 +779,17 @@ def main(argv=None):
                 f"max_batch={args.max_batch or cfg.batch_size}, window={args.max_wait_ms}ms")
     print(f"serving task={cfg.task} on {args.host}:{server.server_address[1]} "
           f"(device={args.device}, {batching})", flush=True)
+    if threading.current_thread() is threading.main_thread():
+        # SIGTERM stops the server as Ctrl-C does (serve_forever returns); shutdown
+        # waits for serve_forever, so it runs in a thread of its own
+        signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+            target=server.shutdown, daemon=True).start())
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
-        server.server_close()
-        if server.RequestHandlerClass.batcher is not None:
-            server.RequestHandlerClass.batcher.close()
+        close_server(server)
 
 
 if __name__ == "__main__":

@@ -89,8 +89,10 @@ from ucf_vit_tpu_torch import checkpoint as ckpt
 from ucf_vit_tpu_torch.config import Config, load_config
 from ucf_vit_tpu_torch.inference import Device, resolve_device
 from ucf_vit_tpu_torch.parallel.mesh import (
+    REFUSED_AXES,
     Mesh,
     init_distributed,
+    is_main,
     mesh_context,
     mesh_from_config,
     shard_batch,
@@ -104,11 +106,6 @@ from ucf_vit_tpu_torch.tasks import build_task, example_variables, task_loss, va
 from ucf_vit_tpu_torch.utils.optim import configure_optimizer
 
 # parallelism axes that are not ported yet -> the ROADMAP.md item that ports them
-_REFUSED_AXES = {
-    "seq_par_size": "item 11: sequence parallelism",
-    "pipe_par_size": "item 12: pipeline + MoE",
-    "expert_par_size": "item 12: pipeline + MoE",
-}
 # the steps `trainer.profile_dir` traces: from after step PROFILE_STEPS[0] to
 # after step PROFILE_STEPS[1] (`ucf_vit_tpu/train.py:853-879`)
 PROFILE_STEPS = (10, 15)
@@ -310,7 +307,7 @@ def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
 def check_config(cfg: Config) -> None:
     """Raise on what the config asks for and the port cannot do yet, and on a
     parallelism whose world size is not the launched one."""
-    for key, item in _REFUSED_AXES.items():
+    for key, item in REFUSED_AXES.items():
         if int(cfg.parallelism.get(key, 1)) > 1:
             raise NotImplementedError(
                 f"parallelism.{key} > 1 is not ported yet (ROADMAP.md, modules to port, "
@@ -331,11 +328,6 @@ def setup_mesh(cfg: Config, dev: torch.device) -> Optional[Mesh]:
         init_distributed(dev)
     check_config(cfg)
     return mesh_from_config(cfg.parallelism, dev.type) if cfg.world_size > 1 else None
-
-
-def is_main(mesh: Optional[Mesh]) -> bool:
-    """Rank 0, which alone logs and writes (every rank on one device)."""
-    return mesh is None or dist.get_rank() == 0
 
 
 def init_train(cfg: Config, device: Device = None, init_seed: int = 0):
@@ -421,8 +413,11 @@ def transfer_pretrained_mae(cfg: Config, model: torch.nn.Module, path: str,
 def _resume(cfg: Config, state) -> Tuple[int, list, int, int]:
     """`trainer.resume_from_checkpoint`: the state in place; returns (first
     epoch to run, loss list, total steps, batches of that epoch to skip).
-    A checkpoint saved mid-epoch (`data_it` > 0) re-enters its epoch there;
-    one saved at an epoch's end starts the next."""
+    A checkpoint saved mid-epoch (`data_it` > 0) re-enters its epoch there
+    when this run has as many data ranks as the one that wrote it (each data
+    rank reads its own share of the files), and re-runs the epoch from its
+    start otherwise (`ucf_vit_tpu/train.py:568-584`, where the share follows
+    the process count); one saved at an epoch's end starts the next."""
     trainer = cfg.trainer
     t0 = time.perf_counter()
     payload = ckpt.restore_checkpoint(trainer["checkpoint_path"],
@@ -431,14 +426,16 @@ def _resume(cfg: Config, state) -> Tuple[int, list, int, int]:
     ckpt.restore_train_state(state, payload, _ema_decay(cfg))
     epoch, total_steps = int(payload["epoch"]), int(payload["total_steps"])
     loss_list = [float(v) for v in payload["loss_list"]]
-    data_it, procs = int(payload.get("data_it", 0)), int(payload.get("num_procs", 1))
-    world = 1 if state.mesh is None else state.mesh.world
+    data_it, saved = int(payload.get("data_it", 0)), ckpt.saved_data_size(payload)
+    data_size = ckpt.data_layout(state.mesh)[1]
     read = f"checkpoint read in {time.perf_counter() - t0:.3f} s"
     say = print if is_main(state.mesh) else (lambda *a, **k: None)
-    if data_it > 0 and procs != world:
-        # the position counts batches of other per-process shards: re-run the epoch
-        say(f"mid-epoch checkpoint was written by {procs} processes but this run has "
-            f"{world}; re-running epoch {epoch} from its start ({read})", flush=True)
+    if data_it > 0 and saved != data_size:
+        # the position counts batches of other data ranks' file shares (the data
+        # follows the data layout, not the world size): re-run the epoch
+        say(f"mid-epoch checkpoint was written by {saved or 'an unrecorded number of'} data "
+            f"ranks but this run has {data_size}; re-running epoch {epoch} from its start "
+            f"({read})", flush=True)
         return epoch, loss_list, total_steps, 0
     if data_it > 0:
         say(f"resumed mid-epoch: epoch {epoch}, fast-forwarding {data_it} batches "
