@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only unetr      # the device, build and UNETR phases alone
     python3 chip_smoke.py --only sap        # the device, build and SAP phases alone
     python3 chip_smoke.py --only parallel   # the device, build and parallel phases alone
+    python3 chip_smoke.py --only sp         # the device, build and sequence-parallel phases alone
 
 With `--compare` it runs only the device phase and times the bf16 flash
 forward, the split backward route's kernels (dkv and dq, f32 and bf16),
@@ -248,7 +249,7 @@ result):
             catsdogs/classification (ViT-B/16, f32) in tp 2 and
             imagenet/classification_vit_l (bf16, remat, accum 4) in ddp 2
             and fsdp 2 with the sync check every step, each through the CLI
-            entry for 3 steps (fsdp 2), the launch counts set to 0 before it and read
+            entry for 2 steps (fsdp 2 too), the launch counts set to 0 before it and read
             after on each rank (12 f32 forwards and 12 fused backwards a step
             at a rank's [96, 257, 64]; ViT-L's under the sm90 sources, every
             bf16 forward on the TMA route), the per-step losses against one
@@ -266,6 +267,18 @@ result):
             to rank 0, both exit 0), each sub-step timed and its f32 forwards
             counted per rank; the f32 kernels at tp 2's and the chain's
             per-rank shapes against their plain versions, timed beside SDPA.
+16. sp (`phase_sp`): sequence parallelism, two ranks sharing the card over
+            gloo as in 15: the ring's hop (`all_to_all_single` to the next
+            rank) timed at the ring's chunk sizes; `ring`, `ulysses` and
+            `gather` as ops at mae_long's full-width per-rank shapes (bf16,
+            forward and backward) against the single-device kernel on the
+            whole sequence and the plain version on a head; `ring` and
+            `gather` with dropout in f32 against the single-device kernel at
+            the same seed; basic_ct/mae_long at sp 2 `ring` through the CLI
+            entry against one device (the launches a step exact, each rank's
+            ms a step, peak memory and gloo's bytes); `reconstruct` on the
+            sp-2 eval mesh against one device; the kernels at the modes'
+            chunk shapes timed beside SDPA, both backward routes in turns.
 
 Every phase prints its wall seconds on a `[time]` line, and the run all of
 them and the script's on one line before the record.
@@ -305,7 +318,7 @@ SEQUENTIAL_REQUESTS = 8
 LOAD_CLIENTS = 32  # closed-loop clients: two full batches in flight
 # (the load window 6 s and the traced one 3 s until the SAP phase came; the load window 3 s
 # until the sharded evaluation came)
-LOAD_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
+LOAD_WINDOWS_S = {"warm-up": 0.5, "load": 2.0, "traced": 1.0}  # 1, 2, 2 s before phase_sp
 SERVE_TOL = 1e-4  # f32 on both sides, TF32 off: only the order of sums differs
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}  # o, against the f32 plain result
 # bf16 o with LONG_KEYS keys or more: randn inputs give entries of about sqrt(e / Nkv)
@@ -364,7 +377,7 @@ PROFILE_LOSS = {"windows": 0, "short": 0, "timed_lost": 0, "most_lost": 0}
 # mae_long from disk: a CT-like volume of 512 x 512 x 128 (16 tiles of 128^3, so 8
 # batches of 2 an epoch; 2 volumes until the SAP phase came, cut to make room for it),
 # 2 epochs (both checkpoint slots), then windows on the loader
-DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 1, (512, 512, 128), 2
+DISK_VOLUMES, DISK_SHAPE, DISK_EPOCHS = 1, (256, 512, 128), 2  # (512, 512, 128) before phase_sp
 DISK_SMALL_SHAPE = (128, 128, 128)  # the resume check's 2 volumes: one tile each
 DISK_WARMUP_STEPS, DISK_TIMED_STEPS, DISK_TRACED_STEPS = 2, 3, 3
 # resumed against uninterrupted after 3 epochs (`_rel_diff`, `_adam_rel`): the
@@ -391,6 +404,7 @@ DIFF_WARMUP_STEPS, DIFF_TIMED_STEPS, DIFF_TRACED_STEPS = 3, 5, 3
 DIFF_CHECK_STEPS = 5  # FLASH against EINSUM, to TRAIN_LOSS_TOL a step
 GEN_SAMPLES = 8  # a generate call's batch (serve's --num-generate)
 GEN_TRACED_STEPS = 20  # denoising steps in the traced window
+GEN_SEED_STEPS = 50  # seeds 0 and 1 give other images: the chain cut to this many steps
 # trainer parity (phase_trainer_parity): the catsdogs ViT-B/16 as shipped (f32, full
 # width and depth) on phase_train_disk's 128 JPEGs, trained on the first 0.9 of the split
 # (115 photos) and validated on the rest (13). A batch of 8, not the shipped 16, so that
@@ -409,7 +423,7 @@ SIGTERM_AFTER, SIGTERM_DEADLINE_S = 3, 300  # the signal follows step 3's log li
 # bf16 FLASH-against-EINSUM limit in force (2e-2 of the largest entry): a batch of 2 and
 # a batch of 1 may take other GEMM kernels
 MAE_SERVE_BATCH, MAE_SERVE_CLIENTS = 2, 4
-MAE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}  # 2, 4, 3 s before SAP
+MAE_SERVE_WINDOWS_S = {"warm-up": 0.5, "load": 2.0, "traced": 1.0}  # 1, 2, 2 s before phase_sp
 MAE_SERVE_TOL = 2e-2
 
 # adaptive patching (phase_adaptive): the three 2-D adaptive configs as shipped (f32, 196
@@ -431,7 +445,7 @@ ADAPTIVE_MAIN_STEPS = 3  # each config through the CLI entry
 # 1 patchifies in line, in the prefetch thread)
 ADAPTIVE_POOL = 5
 ADAPTIVE_SERVE_WORKERS = 4  # serve's --preprocess-workers
-ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
+ADAPTIVE_SERVE_WINDOWS_S = {"warm-up": 0.5, "load": 2.0, "traced": 1.0}
 # the f32 kernels' shapes on these paths at batch 32, packed qkv views: basic_ct/mae's
 # encoder on its 49 kept tokens (one partial tile on both axes), imagenet/classification's
 # 196 patches and the class token, the MAE decoders on all 196 (dh 128: the DH = 128
@@ -465,7 +479,7 @@ UNETR_MARGIN = 1e-3  # a class map is held where the reference's top-two margin 
 UNETR_DICE_TOL = 1e-4
 UNETR_SERVE_WORKERS, UNETR_MAX_BATCH, UNETR_CLIENTS = 4, 8, 16
 UNETR_SEQUENTIAL = 4  # lone requests before the load windows
-UNETR_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
+UNETR_SERVE_WINDOWS_S = {"warm-up": 0.5, "load": 2.0, "traced": 1.0}
 
 # phase_sap: configs/basic_ct/sap (f32, batch 2) and sap_bf16 (bf16, batch 16) as shipped
 # (ViT-B over 512 octree tokens of 4^3 reassembled into a 32^3 image, the neck of 256
@@ -482,7 +496,7 @@ SAP_POOL = 5  # num_workers: a spawn pool of 4
 SAP_FILE_STEPS = 6
 SAP_EVAL_SAMPLES = 4
 SAP_SERVE_WORKERS, SAP_CLIENTS, SAP_SEQUENTIAL = 4, 16, 4
-SAP_SERVE_WINDOWS_S = {"warm-up": 1.0, "load": 2.0, "traced": 2.0}
+SAP_SERVE_WINDOWS_S = {"warm-up": 0.5, "load": 2.0, "traced": 1.0}
 # (g): imagenet/classification with use_varemb: True (red, green, blue), synthetic
 VAREMB_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification", "base_config.yaml")
 VAREMB_MAIN_STEPS, VAREMB_CHECK_STEPS, VAREMB_TIMED = 3, 5, 5
@@ -2424,9 +2438,10 @@ def phase_train_disk(synthetic: dict, vit_ms_step: float):
         # (a) the loader alone, in line (no prefetch thread): its host time per batch
         dm, _, bpre = build_dataloader(cfg, batch, False)
         per_epoch = max(bpre.values())
-        if per_epoch != DISK_VOLUMES * 16 // batch:
-            fail(f"auto_load_balancing gave {bpre}, expected {DISK_VOLUMES * 16 // batch} "
-                 f"batches an epoch (16 tiles of 128^3 a volume)")
+        tiles = int(np.prod([s // t for s, t in zip(DISK_SHAPE, cfg.tile_size)]))
+        if per_epoch != DISK_VOLUMES * tiles // batch:
+            fail(f"auto_load_balancing gave {bpre}, expected {DISK_VOLUMES * tiles // batch} "
+                 f"batches an epoch ({tiles} tiles of 128^3 a volume)")
         dm.prefetch = 0
         it = dm.train_dataloader(loop=True)
         times = []
@@ -3094,9 +3109,10 @@ def phase_train_diffusion():
 def phase_generate():
     """DDPM generation with imagenet's DiffusionVIT (seeded weights, a batch of
     GEN_SAMPLES, 256 x 256 x 3): `generate_diffusion` runs the whole 1,000-step
-    reverse chain on the card for seeds 0 and 1 (other images), each with the
-    launch counts set to 0 before it and read after (20 forwards a step, no
-    backward); a traced window of denoising steps (device ms a step, busy
+    reverse chain on the card for seed 0, and the chain cut to GEN_SEED_STEPS
+    steps for seeds 0 and 1 (other images), each with the launch counts set to
+    0 before it and read after (20 forwards a step, no backward); the server
+    below serves the cut chain; a traced window of denoising steps (device ms a step, busy
     share); then `make_server` with `--num-generate` GEN_SAMPLES: its warm-up
     (one denoising step), one `/v1/generate` request for seed 0 (its latency,
     its shape, its launches, and the same images as the direct chain's for
@@ -3104,6 +3120,7 @@ def phase_generate():
     import numpy as np
     import torch
 
+    from ucf_vit_tpu_torch.config import load_config
     from ucf_vit_tpu_torch.inference import diffusion_sampler, generate_diffusion, init_eval_model
     from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
     from ucf_vit_tpu_torch.serve import make_server
@@ -3120,24 +3137,29 @@ def phase_generate():
     want_instances = _expected_instances(shapes, steps, backward=False)
     img_shape = (GEN_SAMPLES, cfg.max_channels, *cfg.tile_size[:2])
     chains = []
-    for seed in (0, 1):
+    # seed 0 runs the whole chain; seed 1 (other images) the chain cut to GEN_SEED_STEPS
+    # steps, beside seed 0 cut alike
+    short = load_config(_parallel_config("gen_short", DIFF_CONFIGS["imagenet"], {},
+                                         init_args={"num_time_steps": GEN_SEED_STEPS}))
+    for seed, run_cfg in ((0, cfg), (0, short), (1, short)):
+        n = time_steps(run_cfg)
         reset_launch_counts()
         t0 = time.perf_counter()
-        sps, imgs = generate_diffusion(cfg, num_samples=GEN_SAMPLES, return_images=True,
+        sps, imgs = generate_diffusion(run_cfg, num_samples=GEN_SAMPLES, return_images=True,
                                        device="cuda", seed=seed)
         wall = time.perf_counter() - t0
         counts, instances = _launch_counts(), _instance_counts()
-        log(f"[generate] generate_diffusion seed {seed}: {sps:.4f} samples/s ({wall:.2f} s with "
-            f"the init); images {imgs.shape}, mean {imgs.mean():.4f}, std {imgs.std():.4f}; "
-            f"launches {counts}")
+        log(f"[generate] generate_diffusion seed {seed}, {n} steps: {sps:.4f} samples/s "
+            f"({wall:.2f} s with the init); images {imgs.shape}, mean {imgs.mean():.4f}, std "
+            f"{imgs.std():.4f}; launches {counts}")
         if imgs.shape != img_shape or not np.all(np.isfinite(imgs)):
             fail(f"generate_diffusion gave {imgs.shape} (expected {img_shape}), finite "
                  f"{np.all(np.isfinite(imgs))}")
-        if counts != want or instances != want_instances:
-            fail(f"a generate call launched {counts}, {instances}; expected {want}, "
-                 f"{want_instances}")
+        want_n = {**want, "flash_fwd": len(shapes) * n, "src:flash_fwd_tf32": len(shapes) * n}
+        if counts != want_n or instances != _expected_instances(shapes, n, backward=False):
+            fail(f"a generate call launched {counts}, {instances}; expected {want_n}")
         chains.append((sps, imgs, instances))
-    if np.array_equal(chains[0][1], chains[1][1]):
+    if np.array_equal(chains[1][1], chains[2][1]):
         fail("generate_diffusion gave seeds 0 and 1 the same images")
 
     # device time a denoising step at the chain's batch, in a traced window
@@ -3174,10 +3196,15 @@ def phase_generate():
             f"x{count:<5d} {key[:90]}")
     del model, sample, x
 
-    # the served path: make_server's warm-up, then one /v1/generate request
+    # the served path, on the chain cut to GEN_SEED_STEPS steps: make_server's warm-up, then
+    # one /v1/generate request
+    n_short = time_steps(short)
+    want = {**want, "flash_fwd": len(shapes) * n_short, "src:flash_fwd_tf32": len(shapes) * n_short}
+    want_instances = _expected_instances(shapes, n_short, backward=False)
     reset_launch_counts()
     t0 = time.perf_counter()
-    server = make_server(cfg, host="127.0.0.1", port=0, device="cuda", num_generate=GEN_SAMPLES)
+    server = make_server(short, host="127.0.0.1", port=0, device="cuda",
+                         num_generate=GEN_SAMPLES)
     startup_s = time.perf_counter() - t0
     warm = _launch_counts()
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3201,8 +3228,9 @@ def phase_generate():
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    same = served.shape == img_shape and np.array_equal(served, chains[0][1])
-    log(f"[generate] make_server --num-generate {GEN_SAMPLES}: startup {startup_s:.2f} s (its "
+    same = served.shape == img_shape and np.array_equal(served, chains[1][1])
+    log(f"[generate] make_server --num-generate {GEN_SAMPLES} ({n_short} steps): startup "
+        f"{startup_s:.2f} s (its "
         f"warm-up launched {warm['flash_fwd']} forwards); /healthz {health}; POST /v1/generate "
         f"seed 0: {latency_s:.3f} s, {served.shape} {served.dtype}, launches {served_counts}; "
         f"the same images as generate_diffusion's for seed 0: {same}; /v1/predict: "
@@ -3216,7 +3244,7 @@ def phase_generate():
     if "HTTP 400" not in predict:
         fail(f"/v1/predict on a diffusion deployment answered {predict}")
     return {"instances": chains[0][2], "served_instances": served_instances,
-            "samples_s": [c[0] for c in chains], "denoise": denoise, "latency_s": latency_s}
+            "samples_s": [chains[0][0]], "denoise": denoise, "latency_s": latency_s}
 
 
 def _parity_config(work: str, jpeg_root: str, name: str, **trainer) -> str:
@@ -3307,8 +3335,8 @@ def phase_trainer_parity(jpeg_root: str, mae_ckpt: str) -> dict:
     the `preempted in epoch` line, a checkpoint at `data_it` that a resumed run
     continues from the next step. (c) The inference CLI (`--checkpoint`) on (a)'s
     checkpoint: top-1 under FLASH equal to EINSUM's, logits within FLASH_TOL; the
-    diffusion branch, `--num-samples 2` on imagenet's DiffusionVIT (PNGs where
-    matplotlib imports). (d) MAE `/v1/predict` at mae_long's full width from
+    diffusion branch, `--num-samples 2` on imagenet's DiffusionVIT, its chain cut
+    to PARALLEL_CHAIN_STEPS steps (PNGs where matplotlib imports). (d) MAE `/v1/predict` at mae_long's full width from
     phase_train_disk's checkpoint, max_batch 2: a lone request's latency, requests/s
     under MAE_SERVE_CLIENTS closed-loop clients, the busy share of a traced window,
     launches by kernel instance (exact a batch), and each answer against
@@ -3473,17 +3501,22 @@ def phase_trainer_parity(jpeg_root: str, mae_ckpt: str) -> dict:
             png_dir = None
             log("[parity] matplotlib does not import here: the diffusion evaluation writes "
                 "no PNGs")
-        dcfg = _single_device(DIFF_CONFIGS["imagenet"])
+        # imagenet/diffusion's chain cut to PARALLEL_CHAIN_STEPS steps (the whole chain runs
+        # in phase_generate)
+        dpath = _parallel_config("parity_chain", DIFF_CONFIGS["imagenet"], {},
+                                 init_args={"num_time_steps": PARALLEL_CHAIN_STEPS})
+        dcfg = load_config(dpath)
         reset_launch_counts()
         t0 = time.perf_counter()
-        sps = infer_main([DIFF_CONFIGS["imagenet"], "--num-samples", "2"]
+        sps = infer_main([dpath, "--num-samples", "2"]
                          + (["--png-dir", png_dir] if png_dir else []))
         gen_s, gen_instances = time.perf_counter() - t0, _instance_counts()
         gen_want = _expected_instances(_attn_shapes(init_eval_model(dcfg, device="cuda")),
                                        time_steps(dcfg), backward=False)
         pngs = sorted(os.listdir(png_dir)) if png_dir else []
-        log(f"[parity] python -m ucf_vit_tpu_torch.inference <imagenet/diffusion> --num-samples"
-            f" 2: {sps:.4f} samples/s ({gen_s:.2f} s with the init); PNGs {pngs}")
+        log(f"[parity] python -m ucf_vit_tpu_torch.inference <imagenet/diffusion, "
+            f"{PARALLEL_CHAIN_STEPS} steps> --num-samples 2: {sps:.4f} samples/s ({gen_s:.2f} s "
+            f"with the init); PNGs {pngs}")
         if gen_instances != gen_want or (png_dir and pngs != ["generated_0.png",
                                                               "generated_1.png"]):
             fail(f"the diffusion evaluation launched {gen_instances} (expected {gen_want}), "
@@ -5427,7 +5460,8 @@ def compare_split_bwd(checkouts, forwards) -> None:
 
 # ---------------------------------------------------------------- data and tensor parallel
 
-PARALLEL_STEPS = 3  # each mode through the CLI entry, and its single-device run (5 until PR 21)
+PARALLEL_STEPS = 2  # each mode through the CLI entry, and its single-device run (5, then 3
+# before phase_sp)
 # ViT-L in fsdp 2 takes about 14 s a step here, gloo moving 9.7 GB of parameters through
 # host memory a step: 2 steps of it (3 until the sharded evaluation came), against the
 # single-device run's first 2
@@ -5505,9 +5539,11 @@ def _step_losses(path: str) -> list:
 
 
 @contextlib.contextmanager
-def _timed_steps(times: list):
+def _timed_steps(times: list, tally: dict | None = None):
     """The trainer's train step timed a call at a time (the card synchronised
-    around it) while the block runs: `train.make_train_step` wrapped."""
+    around it) while the block runs: `train.make_train_step` wrapped. With
+    `tally` (`_counting_collectives`'), each step's bytes are appended to
+    `tally["steps"]`."""
     import torch
 
     from ucf_vit_tpu_torch import train
@@ -5520,9 +5556,12 @@ def _timed_steps(times: list):
         def timed(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            before = tally["bytes"] if tally is not None else 0
             out = step(*a, **k)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
+            if tally is not None:
+                tally["steps"].append(tally["bytes"] - before)
             return out
         return timed
 
@@ -5704,15 +5743,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _single_run(name: str, path: str) -> dict:
-    """`path` through the CLI entry on this process's device: per-step losses and ms."""
+def _single_run(name: str, path: str, steps: int = PARALLEL_STEPS) -> dict:
+    """`path` through the CLI entry on this process's device for `steps` steps:
+    per-step losses and ms."""
     import torch
 
     from ucf_vit_tpu_torch.train import main as train_main
 
     times: list = []
     with _timed_steps(times):
-        train_main([path, "--synthetic", "--max-steps", str(PARALLEL_STEPS)])
+        train_main([path, "--synthetic", "--max-steps", str(steps)])
     torch.cuda.empty_cache()
     return {"losses": _step_losses(os.path.join(WORK, "parallel", f"{name}.jsonl")), "ms": times}
 
@@ -5892,9 +5932,10 @@ def phase_parallel() -> dict:
         if len(losses) != n_steps[name] or not np.all(np.isfinite(losses)) or diff > tols[name]:
             fail(f"{name}'s losses disagree with one device's")
         for r, res in enumerate(ranks):
-            log(f"[parallel] {name} rank {r}: {_median(res['ms'][1:]):.3f} ms a step "
-                f"(median of steps 2-{n_steps[name]}; one device "
-                f"{_median(one[name]['ms'][1:]):.3f}; two ranks share one card: no scaling "
+            log(f"[parallel] {name} rank {r}: {_median(res['ms'][1:] or res['ms']):.3f} ms a "
+                f"step ({'median of steps 2-' if n_steps[name] > 1 else 'step '}"
+                f"{n_steps[name]}; one device {_median(one[name]['ms'][1:]):.3f}; two ranks "
+                f"share one card: no scaling "
                 f"number); heads a rank {res['heads']}, launches {res['counts']}")
     tp = [got[r, "vit_b_tp2"] for r in range(2)]
     want = _expected_counts(tp[0]["shapes"], PARALLEL_STEPS, dropout=False)
@@ -6041,6 +6082,586 @@ def _parallel_eval_checks(got: dict, vit_b_one: str, ck_tp2: str, chain_one: str
         "dec": sum(r["instances"]["fwd:flash_fwd_tf32<128>"] for r in ranks["chain_ddp2"])}}
 
 
+# ---------------------------------------------------------------- sequence parallelism
+
+# Sequence parallelism with two ranks on the card over gloo (`phase_sp`). mae_long's
+# attention at its full width: the encoder's [2, 12, 8192, 64] and the decoder's
+# [2, 6, 32768, 96] (global; a rank holds half the tokens), bf16
+SP_SHAPES = {"encoder": (2, 12, 8192, 64), "decoder": (2, 6, 32768, 96)}
+SP_MODES_RUN = ("ring", "ulysses", "gather")
+SP_OP_TOL = 1e-2  # bf16: each rank's o, dq, dk, dv, times the reference's largest entry
+SP_OP_ITERS = 1  # timed calls of each mode (forward and backward) a shape, and profiled
+SP_DROP_SHAPE = (2, 12, 256, 64)  # (c): ViT-B's heads, 128 tokens a rank, f32
+SP_DROP_RATE = 0.1
+SP_STEPS = 2  # (d): mae_long at sp 2 through the CLI entry, and one device
+SP_LOSS_TOL = 5e-3  # (d): each step's loss against one device's (bf16)
+SP_RECON_TOL = 1e-2  # (e): reconstruct against one device's, times its largest entry
+SP_RECON_INPUTS = ((29, 3), (31, 5), (37, 7))  # (e): each input's numpy seed and mask seed
+SP_DEADLINE_S = 240  # every job of the two ranks together
+# The ring's hop is one `all_to_all_single` that sends the chunk to the next rank: gloo
+# on CUDA tensors does not carry `send`/`recv` or `batch_isend_irecv` (PERF.md, the
+# probe of `python -m ucf_vit_tpu_torch.tools.gloo_probe`); (a) times the hop.
+SP_CHUNK_ROWS = {  # the kernels' shapes inside each mode: (b, h, n_q, n_kv, dh)
+    "ring": lambda b, h, n, dh: (b, h, n // 2, n // 2, dh),
+    "ulysses": lambda b, h, n, dh: (b, h // 2, n, n, dh),
+    "gather": lambda b, h, n, dh: (b, h, n // 2, n, dh),
+}
+# the (part, mode) pairs timed by `_sp_kernel_rows`: the ring's chunks on mae_long's path,
+# and the decoder's (most of the attention's time) in the other two modes
+SP_ROWS = (("encoder", "ring"), ("decoder", "ring"), ("decoder", "ulysses"),
+           ("decoder", "gather"))
+SP_ROW_ITERS = 3
+
+
+def _sp_counts() -> dict:
+    from ucf_vit_tpu_torch.ops.ring_attention import ring_attention
+
+    return {**_launch_counts(), **_instance_counts(), "ring_hops": ring_attention.hops}
+
+
+def _sp_reset() -> None:
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.ops.ring_attention import reset_launch_counts as reset_ring
+
+    reset_launch_counts()
+    reset_ring()
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _sp_ops(rank: int, mesh) -> dict:
+    """(b): each mode on this rank's half of mae_long's encoder and decoder
+    attention, forward and backward, against the single-device kernel on the
+    whole sequence and against the plain version on its first head; each
+    mode's launches (one call) and its ms a call (host clock, the card
+    synchronised) and device ms a call (the profiler, every kernel)."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.attention import multi_head_attention
+    from ucf_vit_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       flash_attention_bwd_plain,
+                                                       flash_attention_plain)
+    from ucf_vit_tpu_torch.parallel.mesh import mesh_context, seq_shard_of, sequence_context
+
+    out = {}
+    for name, (b, h, n, dh) in SP_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        q, k, v, do = (torch.randn(b, h, n, dh, device="cuda", generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        sm = dh**-0.5
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        o_ref = flash_attention(qr, kr, vr, sm_scale=sm)
+        ref = [o_ref.detach()] + list(torch.autograd.grad(o_ref, (qr, kr, vr), do))
+        del o_ref, qr, kr, vr
+        # the plain version on head (0, 0) over the whole sequence, in f32
+        h0 = [t[:1, :1].float() for t in (q, k, v)]
+        o_p, lse_p = flash_attention_plain(*h0, sm)
+        plain = [o_p] + list(flash_attention_bwd_plain(*h0, o_p, lse_p, do[:1, :1].float(), sm))
+        del o_p, lse_p, h0
+        torch.cuda.empty_cache()
+        half = slice(rank * n // 2, (rank + 1) * n // 2)
+        for mode in SP_MODES_RUN:
+            ql, kl, vl = (t[:, :, half].clone().requires_grad_() for t in (q, k, v))
+            dol = do[:, :, half]
+
+            def call():
+                with mesh_context(mesh), sequence_context(seq_shard_of(mesh)):
+                    o = multi_head_attention(ql, kl, vl, impl="FLASH", sm_scale=sm, sp_mode=mode)
+                return [o.detach()] + list(torch.autograd.grad(o, (ql, kl, vl), dol))
+
+            _sp_reset()
+            got = call()
+            torch.cuda.synchronize()
+            counts = _sp_counts()
+            err = max(_rel(g, r[:, :, half]) for g, r in zip(got, ref))
+            err_abs = max((g.float() - r[:, :, half].float()).abs().max().item()
+                          for g, r in zip(got, ref))
+            err_plain = max(_rel(g[:1, :1], p[:, :, half]) for g, p in zip(got, plain))
+            del got
+            times = []
+            for _ in range(SP_OP_ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                for _ in range(SP_OP_ITERS):
+                    call()
+                torch.cuda.synchronize()
+            dev = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / SP_OP_ITERS
+            out[name, mode] = {"err": err, "err_abs": err_abs, "err_plain": err_plain,
+                               "counts": counts, "ms": _median(times), "device_ms": dev}
+            del ql, kl, vl
+            torch.cuda.empty_cache()
+        del q, k, v, do, ref, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_dropout(rank: int, mesh) -> dict:
+    """(c): ring and gather in f32 with dropout at ViT-B's heads, each rank on
+    its 128 tokens, against the single-device kernel on the whole 256 with
+    the seed the mesh folds (one global draw): o's max |diff| and the
+    gradients' relative max |diff|."""
+    import torch
+
+    from ucf_vit_tpu_torch.ops.attention import multi_head_attention, sharded_seed
+    from ucf_vit_tpu_torch.ops.flash_attention import flash_attention
+    from ucf_vit_tpu_torch.parallel.mesh import mesh_context, seq_shard_of, sequence_context
+
+    b, h, n, dh = SP_DROP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, do = (torch.randn(b, h, n, dh, device="cuda", generator=gen) for _ in range(4))
+    seed = 12345
+    with mesh_context(mesh):
+        folded = sharded_seed(seed)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attention(qr, kr, vr, dropout_rate=SP_DROP_RATE, dropout_seed=folded)
+    ref = [o.detach()] + list(torch.autograd.grad(o, (qr, kr, vr), do))
+    half = slice(rank * n // 2, (rank + 1) * n // 2)
+    out = {}
+    for mode in ("ring", "gather"):
+        ql, kl, vl = (t[:, :, half].clone().requires_grad_() for t in (q, k, v))
+        _sp_reset()
+        with mesh_context(mesh), sequence_context(seq_shard_of(mesh)):
+            o = multi_head_attention(ql, kl, vl, impl="FLASH", dropout_rate=SP_DROP_RATE,
+                                     dropout_seed=seed, sp_mode=mode)
+        got = [o.detach()] + list(torch.autograd.grad(o, (ql, kl, vl), do[:, :, half]))
+        out[mode] = {"o": (got[0] - ref[0][:, :, half]).abs().max().item(),
+                     "grads": max(_rel(g, r[:, :, half]) for g, r in zip(got[1:], ref[1:])),
+                     "keep_mask": _sp_counts()["keep_mask"]}
+    return out
+
+
+def _counting_collectives(tally: dict) -> dict:
+    """Wrap torch.distributed's collectives so that each call adds the bytes of
+    the tensor it hands gloo to `tally["bytes"]`; returns the originals."""
+    import torch.distributed as dist
+
+    made = {}
+    for name, arg in (("all_reduce", 0), ("all_gather", 1), ("all_gather_into_tensor", 1),
+                      ("reduce_scatter_tensor", 1), ("all_to_all_single", 1), ("broadcast", 0)):
+        fn = made[name] = getattr(dist, name)
+
+        def counted(*args, fn=fn, arg=arg, **kwargs):
+            tally["bytes"] += args[arg].numel() * args[arg].element_size()
+            return fn(*args, **kwargs)
+        setattr(dist, name, counted)
+    return made
+
+
+def _sp_rank(rank: int, store: str, jobs: list, results) -> None:
+    """One of two ranks on the card in a gloo group through a FileStore: the
+    jobs of `phase_sp` in turn, each result put on `results`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    from ucf_vit_tpu_torch.parallel.mesh import make_mesh
+    from ucf_vit_tpu_torch.tools.gloo_probe import _p2p
+
+    try:
+        mesh = make_mesh(seq_par_size=2, device_type="cuda")
+        for job in jobs:
+            t0 = time.perf_counter()
+            if job["kind"] == "hop":
+                out = {"a2a_hop": _p2p("a2a_hop", rank, 2)}
+            elif job["kind"] == "ops":
+                out = _sp_ops(rank, mesh)
+            elif job["kind"] == "dropout":
+                out = _sp_dropout(rank, mesh)
+            elif job["kind"] == "train":
+                from ucf_vit_tpu_torch.train import main as train_main
+
+                times, tally = [], {"bytes": 0, "steps": []}
+                made = _counting_collectives(tally)
+                _sp_reset()
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    with _timed_steps(times, tally):
+                        res = train_main(job["argv"])
+                finally:
+                    for n, fn in made.items():
+                        setattr(dist, n, fn)
+                model = res["state"].model
+                out = {"ms": times, "counts": _sp_counts(), "steps": res["state"].step,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "gloo_bytes": tally["steps"], "depth": len(model.blocks),
+                       "decoder_depth": len(model.decoder_blocks), "embed": model.embed_dim,
+                       "remat": model.remat, "dtype": str(model.dtype),
+                       "sp_mode": model.blocks[0].attn.sp_mode}
+                del res, model
+            else:  # reconstruct on the eval mesh from (d)'s checkpoint
+                from ucf_vit_tpu_torch.config import load_config
+                from ucf_vit_tpu_torch.inference import init_eval_model, load_weights, reconstruct
+                from ucf_vit_tpu_torch.parallel.mesh import eval_mesh
+
+                cfg = load_config(job["config"])
+                emesh = eval_mesh(cfg)
+                model = init_eval_model(cfg, seed=0, mesh=emesh)
+                load_weights(model, cfg, job["ckpt"])
+                _sp_reset()
+                out = {"recon": [reconstruct(model, torch.from_numpy(x).cuda(), seed=seed)
+                                 .cpu().numpy() for x, seed in job["xs"]],
+                       "counts": _sp_counts(), "mesh_sp": emesh.size("sp")}
+                del model
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            results.put((rank, job["name"], {**out, "s": time.perf_counter() - t0}))
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_kernel_rows() -> dict:
+    """The kernels at the shapes the modes give them (SP_ROWS, SP_CHUNK_ROWS),
+    one process: the forward and the backward on the route `bwd_route`
+    takes, their device ms a call, their bound, and SDPA's forward and
+    backward at the same shape; both backward routes timed in turns at the
+    decoder's (`_route_ms`). At the ring's chunks, which mae_long's path
+    runs, also the record's rows: the forward as the ring calls it (o in f32,
+    `f32_o`) and the fused backward, each held a head at a time against its
+    plain version (o to SP_OP_TOL, dq, dk, dv to LONG_BWD_TOL of the plain
+    version's largest entry) and timed alone beside it (a head at a time)
+    and SDPA. Returns {"log": {(part, mode): numbers}, "record": {row name:
+    record numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        _bwd_launch,
+        _dq_workspace,
+        _dropout_args,
+        bwd_route,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    rows, record = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for part, mode in SP_ROWS:
+        b, h, nq, nk, dh = SP_CHUNK_ROWS[mode](*SP_SHAPES[part])
+        q = torch.randn(b, h, nq, dh, device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(b, h, nk, dh, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in "kv")
+        sm = dh**-0.5
+        o, lse = flash_attention(q, k, v, sm_scale=sm, return_lse=True)
+        do = torch.randn_like(o)
+        route = bwd_route(torch.bfloat16, nq, nk, dh)
+        it = dict(iters=SP_ROW_ITERS, warmup=1)
+        f32_o = mode == "ring"
+        fwd_ms, _ = device_ms(lambda: flash_attention(q, k, v, sm_scale=sm, f32_o=f32_o),
+                              "flash_fwd_sm90", **it)
+        bwd_ms, _ = device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, sm), **it)
+        lib_fwd, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm), **it)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+        lib_bwd, _ = device_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
+                                                           retain_graph=True), **it)
+        del sdpa, qg, kg, vg
+        fwd_bound = _bound(4.0 * b * h * nq * nk * dh,
+                           2 * b * h * dh * (2 * nq + 2 * nk) + 4 * b * h * nq, "bfloat16")
+        works = [_bwd_work(kind, b, h, nq, nk, dh, 2)
+                 for kind in (("fused",) if route == "fused" else ("dkv", "dq"))]
+        bwd_bound = _bound(sum(w[0] for w in works), sum(w[1] for w in works), "bfloat16")
+        shape_s = f"[{b},{h},{nq}x{nk},{dh}]"
+        rows[part, mode] = {"shape": shape_s, "route": route, "fwd_ms": fwd_ms,
+                            "bwd_ms": bwd_ms, "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                            "fwd_bound": fwd_bound, "bwd_bound": bwd_bound}
+        log(f"[sp] kernels at mae_long's {part}, {mode}'s chunk {shape_s} bf16: forward "
+            f"{fwd_ms:.4f} ms{' (o in f32)' if f32_o else ''} (bound {fwd_bound[0]:.4f}, "
+            f"{fwd_bound[1]}; SDPA {lib_fwd:.4f}), backward on route {route} {bwd_ms:.4f} ms "
+            f"(bound {bwd_bound[0]:.4f}, {bwd_bound[1]}; SDPA backward {lib_bwd:.4f})")
+        if part == "decoder":
+            _route_ms(f"{shape_s} bf16 (mae_long decoder, {mode} at sp 2)", torch.bfloat16,
+                      q, k, v, o, lse, do, iters=2)
+        if mode == "ring":
+            if route != "fused":
+                fail(f"the ring's chunk {shape_s} left the fused route: {route}")
+            heads = [slice(i, i + 1) for i in range(h)]
+            # the forward as the ring calls it, o in f32, against the plain version
+            o32 = flash_attention(q, k, v, sm_scale=sm, f32_o=True)
+            err = ref_max = 0.0
+            for ref, hs in zip(_by_head(lambda *t: flash_attention_plain(
+                    *(x.float() for x in t), sm)[0], q, k, v), heads):
+                err = max(err, (o32[:, hs] - ref).abs().max().item())
+                ref_max = max(ref_max, ref.abs().max().item())
+            del o32
+            # the fused backward against the plain backward
+            dq32, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, sm, route="fused",
+                                               f32_dq=True)
+            errs, bmax = [0.0] * 3, [0.0] * 3
+            for ref, hs in zip(_by_head(lambda *t: flash_attention_bwd_plain(
+                    *(x.float() for x in t[:4]), t[4], t[5].float(), sm), q, k, v, o, lse, do),
+                    heads):
+                for i, (g, want) in enumerate(zip((dq32, dk, dv), ref)):
+                    bmax[i] = max(bmax[i], want.abs().max().item())
+                    errs[i] = max(errs[i], (g[:, hs].float() - want).abs().max().item())
+            del dq32, dk, dv
+            rel = [e / m for e, m in zip(errs, bmax)]
+            # each kernel alone, from buffers made beforehand, and its plain version
+            di = (o.float() * do.float()).sum(-1).reshape(b * h, nq)
+            ws = _dq_workspace(b, nq, h, dh, q.device)
+            dk, dv = (torch.empty(b, nk, h, dh, device="cuda", dtype=q.dtype).transpose(1, 2)
+                      for _ in "kv")
+            drop = _dropout_args(0.0, 0, 0, 0)
+            fused_ms, _ = device_ms(lambda: _bwd_launch("fused", q, k, v, do, lse, di, ws, dk,
+                                                        dv, sm, drop),
+                                    _bwd_kernel("bfloat16", "fused"), **it)
+            plain_fwd, _ = device_ms(lambda: _by_head(
+                lambda *t: flash_attention_plain(*t, sm, f32_o=True), q, k, v), iters=1,
+                warmup=1)
+            plain_bwd, _ = device_ms(lambda: _by_head(
+                lambda *t: flash_attention_bwd_plain(*t, sm), q, k, v, o, lse, do), iters=1,
+                warmup=1)
+            fused_bound = _bound(*_bwd_work("fused", b, h, nq, nk, dh, 2), "bfloat16")
+            del di, ws, dk, dv
+            log(f"[sp] ring's chunk {shape_s} bf16 against the plain versions, a head at a "
+                f"time: forward (o in f32) max|o-plain|/max|plain| {err / ref_max:.3e} (tol "
+                f"{SP_OP_TOL:g}; max|o-plain| {err:.3e}), device {fwd_ms:.4f} ms, plain "
+                f"{plain_fwd:.4f}; fused backward max|d-plain|/max|plain| dq {rel[0]:.3e} dk "
+                f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {LONG_BWD_TOL:g}), the kernel alone "
+                f"{fused_ms:.4f} ms (bound {fused_bound[0]:.4f}, {fused_bound[1]}), plain "
+                f"{plain_bwd:.4f}, SDPA backward {lib_bwd:.4f}")
+            if err > SP_OP_TOL * ref_max or max(rel) > LONG_BWD_TOL or min(bmax) <= 0:
+                fail(f"the ring's chunk kernels disagree with their plain versions at {shape_s}")
+            tag = {"encoder": "enc", "decoder": "dec"}[part]
+            record[f"flash_fwd_bf16_ring_{tag}"] = {
+                "ms": fwd_ms, "plain_ms": plain_fwd, "library_ms": lib_fwd,
+                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "max_abs_err": err}
+            record[f"flash_bwd_fused_bf16_ring_{tag}"] = {
+                "ms": fused_ms, "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "max_abs_err": max(errs)}
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    return {"log": rows, "record": record}
+
+
+def phase_sp() -> dict:
+    """Sequence parallelism with two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device). Two spawned ranks in one gloo group run,
+    in turn: (a) the ring's hop (`all_to_all_single` to the next rank) at the
+    ring's chunk sizes, checked and timed; (b) `ring`, `ulysses` and `gather`
+    as ops at mae_long's full-width per-rank shapes in bf16 (SP_SHAPES),
+    forward and backward, each rank's o, dq, dk and dv within SP_OP_TOL of the
+    single-device kernel on the whole sequence and of the plain version on
+    the first head, each mode's launches, ms and device ms a call; (c) `ring`
+    and `gather` in f32 with dropout at ViT-B's heads against the
+    single-device kernel on the whole sequence with the same seed, to
+    FLASH_TOL and BWD_TOL; (d) basic_ct/mae_long through the CLI entry at
+    `seq_par_size: 2`, `sp_mode: ring`, `fsdp_size: 1` (cut from the shipped
+    fsdp 2 x sp 4: 8 ranks), full width and depth, bf16, remat, batch 2,
+    synthetic, SP_STEPS steps: every launch as a ring of two chunks a block
+    (two sm90 forwards a block a run, remat's recompute among them, two fused
+    backwards a block), the losses within SP_LOSS_TOL of one device at the
+    same batch, each rank's ms a step, peak memory beside one device's, the
+    bytes gloo moves a step; (e) `inference.reconstruct` on the sp-2 eval
+    mesh from (d)'s checkpoint against one device within SP_RECON_TOL, on
+    each of SP_RECON_INPUTS. Then the kernels at the modes' chunk shapes
+    (`_sp_kernel_rows`). Returns {"numbers": the record's rows at the ring's
+    chunks, "launches": (d)'s and (e)'s launches of those rows}."""
+    import queue
+
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import bwd_route
+
+    root = os.path.join(WORK, "sp")
+    os.makedirs(root, exist_ok=True)
+    ck_dir = os.path.join(root, "ck")
+    sp2 = _parallel_config("mae_sp2", MAE_CONFIG, {"seq_par_size": 2, "sp_mode": "ring"},
+                           checkpoint_path=ck_dir, checkpoint_filename="sp2")
+    one_path = _parallel_config("mae_one", MAE_CONFIG, {})
+    ck = os.path.join(ck_dir, "sp2_even.ckpt")
+    import yaml
+
+    tile = yaml.safe_load(open(MAE_CONFIG))["model"]["net"]["init_args"]["tile_size"]
+    # (e)'s inputs, each with its mask seed
+    xs = [(np.random.default_rng(s).normal(size=(1, 1, *tile)).astype(np.float32), seed)
+          for s, seed in SP_RECON_INPUTS]
+    jobs = [{"kind": "hop", "name": "hop"}, {"kind": "ops", "name": "ops"},
+            {"kind": "dropout", "name": "dropout"},
+            {"kind": "train", "name": "train",
+             "argv": [sp2, "--synthetic", "--max-steps", str(SP_STEPS)]},
+            {"kind": "reconstruct", "name": "reconstruct", "config": sp2, "ckpt": ck,
+             "xs": xs}]
+    log("[sp] two ranks on one card over gloo: NCCL refuses two ranks on one device")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(root, "store")
+    procs = [ctx.Process(target=_sp_rank, args=(r, store, jobs, results), daemon=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got: dict = {}
+    try:
+        while len(got) < 2 * len(jobs):
+            if time.perf_counter() - t0 > SP_DEADLINE_S:
+                fail(f"the two ranks did not finish within {SP_DEADLINE_S} s: {sorted(got)}")
+            try:
+                rank, name, out = results.get(timeout=0.2)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    fail(f"a rank died: exit codes {[p.exitcode for p in procs]}")
+                continue
+            if name == "error":
+                fail(f"rank {rank} failed:\n{out[-3000:]}")
+            got[rank, name] = out
+            log(f"[sp] rank {rank}: {name} done in {out['s']:.1f} s")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"the ranks exited {[p.exitcode for p in procs]}")
+    log(f"[sp] two ranks: {time.perf_counter() - t0:.1f} s for every job")
+    # (a) the hop
+    for r in range(2):
+        hop = got[r, "hop"]["a2a_hop"]
+        log(f"[sp] (a) rank {r}: the ring's hop (all_to_all_single to rank + 1) on CUDA tensors "
+            f"over gloo: {hop}")
+        if not hop.startswith("ok"):
+            fail("(a) gloo does not carry the ring's hop")
+    # (b) the three modes as ops
+    for part in SP_SHAPES:
+        for mode, r in ((m, r) for m in SP_MODES_RUN for r in range(2)):
+            res = got[r, "ops"][part, mode]
+            c = res["counts"]
+            log(f"[sp] (b) {part} {SP_SHAPES[part]} {mode} rank {r}: max rel |diff| against one "
+                f"device {res['err']:.3e} (abs {res['err_abs']:.3e}), against the plain head "
+                f"{res['err_plain']:.3e} (tol {SP_OP_TOL:g}); {res['ms']:.1f} ms a call, device "
+                f"{res['device_ms']:.3f} ms; launches fwd {c['flash_fwd']} (tma "
+                f"{c['route:tma']}), bwd fused {c['flash_bwd_fused']} dkv {c['flash_bwd_dkv']} "
+                f"dq {c['flash_bwd_dq']}, sm90 {c['src:flash_fwd_sm90']}+{c['src:flash_bwd_sm90']}"
+                f", instances {', '.join(f'{k} {n}' for k, n in c.items() if ':flash' in k and '<' in k and n)}, "
+                f"ring hops {c['ring_hops']}")
+            # a ring call runs the kernels on two chunks, the other modes on one, and each
+            # backward on the route bwd_route gives the chunk's shape
+            n_fwd = 2 if mode == "ring" else 1
+            _, _, nq, nk, dh = SP_CHUNK_ROWS[mode](*SP_SHAPES[part])
+            fused = bwd_route(torch.bfloat16, nq, nk, dh) == "fused"
+            want_bwd = {"flash_bwd_fused": n_fwd if fused else 0,
+                        "flash_bwd_dkv": 0 if fused else n_fwd,
+                        "flash_bwd_dq": 0 if fused else n_fwd,
+                        "src:flash_bwd_sm90": n_fwd if fused else 2 * n_fwd}
+            if res["err"] > SP_OP_TOL or res["err_plain"] > SP_OP_TOL or \
+                    c["flash_fwd"] != n_fwd or c["src:flash_fwd_sm90"] != n_fwd or \
+                    {key: c[key] for key in want_bwd} != want_bwd or \
+                    c["ring_hops"] != (3 if mode == "ring" else 0):
+                fail(f"(b) {part} {mode} rank {r} disagrees or launched the wrong kernels "
+                     f"(backward: {want_bwd} expected)")
+    # (c) dropout at global coordinates
+    for r in range(2):
+        for mode in ("ring", "gather"):
+            res = got[r, "dropout"][mode]
+            log(f"[sp] (c) {mode} f32 dropout {SP_DROP_RATE} at {SP_DROP_SHAPE} (rank {r}'s half) "
+                f"against one device: max |o diff| {res['o']:.3e} (tol "
+                f"{FLASH_TOL['float32']:g}), gradients' rel {res['grads']:.3e} (tol "
+                f"{BWD_TOL['float32']:g}); keep_mask launches {res['keep_mask']}")
+            if res["o"] > FLASH_TOL["float32"] or res["grads"] > BWD_TOL["float32"] or \
+                    res["keep_mask"] <= 0:
+                fail(f"(c) {mode} with dropout disagrees with one device's")
+    # (d) mae_long at sp 2 against one device at the same batch
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    one = _single_run("mae_one", one_path, SP_STEPS)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = _step_losses(os.path.join(WORK, "parallel", "mae_sp2.jsonl"))
+    diff = max(abs(a - b) for a, b in zip(losses, one["losses"]))
+    log(f"[sp] (d) basic_ct/mae_long sp 2 ring (cut from fsdp 2 x sp 4): losses "
+        f"{' '.join(f'{v:.6f}' for v in losses)}; one device "
+        f"{' '.join(f'{v:.6f}' for v in one['losses'])}; max |diff| {diff:.3e} (tol "
+        f"{SP_LOSS_TOL:g})")
+    if len(losses) != SP_STEPS or not np.all(np.isfinite(losses)) or diff > SP_LOSS_TOL:
+        fail("(d) mae_long at sp 2 disagrees with one device")
+    # a step: the encoder's 12 blocks (<64>) and the decoder's 8 (<96>, the <128> instance)
+    # each a ring of two chunks, their forwards twice (remat's recompute)
+    per_step = {"flash_fwd": 80, "src:flash_fwd_sm90": 80, "route:tma": 80,
+                "flash_bwd_fused": 40, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                "src:flash_bwd_sm90": 40, "ring_hops": 80, "fwd:flash_fwd_sm90<64>": 48,
+                "fwd:flash_fwd_sm90<128>": 32, "bwd:flash_bwd_sm90<64>": 24,
+                "bwd:flash_bwd_sm90<128>": 16}
+    for r in range(2):
+        res = got[r, "train"]
+        c = res["counts"]
+        log(f"[sp] (d) rank {r}: {_median(res['ms'][1:]):.3f} ms a step (median of steps "
+            f"2-{SP_STEPS}; one device {_median(one['ms'][1:]):.3f}; two ranks share one card), "
+            f"peak {res['peak_gb']:.2f} GB (one device {one_peak:.2f}), gloo moves "
+            f"{_median(res['gloo_bytes']) / 1e9:.3f} GB a step from this rank; a step: "
+            + ", ".join(f"{k} {c[k] / SP_STEPS:g}" for k in per_step))
+        want = {k: n * SP_STEPS for k, n in per_step.items()}
+        if {k: c[k] for k in want} != want or res["depth"] != 12 or \
+                res["decoder_depth"] != 8 or res["embed"] != 768 or not res["remat"] or \
+                res["dtype"] != "torch.bfloat16" or res["sp_mode"] != "ring":
+            fail(f"(d) rank {r}: launches {c} (expected {want} over {SP_STEPS} steps), "
+                 f"depth {res['depth']}+{res['decoder_depth']}, embed {res['embed']}")
+    log(f"[sp] (d) one device's run {time.perf_counter() - t1:.1f} s")
+    # (e) reconstruct on the sp-2 eval mesh against one device; both beside the same
+    # checkpoint's model in f32 (what bf16 costs either way)
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.inference import init_eval_model, load_weights, reconstruct
+
+    t1 = time.perf_counter()
+    outs = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = load_config(one_path)
+        cfg.raw["trainer"]["data_type"] = dtype
+        model = init_eval_model(cfg, seed=0)
+        load_weights(model, cfg, ck)
+        outs[dtype] = [reconstruct(model, torch.from_numpy(x).cuda(), seed=seed).cpu().numpy()
+                       for x, seed in xs]
+        del model
+    wants, f32s = outs["bfloat16"], outs["float32"]
+    log(f"[sp] (e) one device's reconstructs, bf16 and f32: {time.perf_counter() - t1:.1f} s")
+    n_fwd = 40 * len(xs)  # a ring of two chunks in each of the 20 blocks, an input
+    for r in range(2):
+        res = got[r, "reconstruct"]
+        for (_, seed), got_r, want_r, f32_r in zip(xs, res["recon"], wants, f32s):
+            scale = float(np.abs(want_r).max())
+            d = float(np.abs(got_r - want_r).max())
+            log(f"[sp] (e) reconstruct on the sp-2 eval mesh (rank {r}, mesh sp "
+                f"{res['mesh_sp']}, mask seed {seed}): max |diff| against one device {d:.3e} "
+                f"(tol {SP_RECON_TOL:g} x {scale:.3f} = {SP_RECON_TOL * scale:.4f}, "
+                f"{d / (SP_RECON_TOL * scale):.0%} of it); against the model in f32: sp 2 "
+                f"{float(np.abs(got_r - f32_r).max()):.3e}, one device "
+                f"{float(np.abs(want_r - f32_r).max()):.3e}")
+            if got_r.shape != want_r.shape or not np.isfinite(got_r).all() or \
+                    d > SP_RECON_TOL * scale:
+                fail("(e) reconstruct on the sp mesh disagrees with one device's")
+        log(f"[sp] (e) rank {r}: {res['s']:.1f} s for {len(xs)} inputs; sm90 forwards "
+            f"{res['counts']['src:flash_fwd_sm90']}, ring hops {res['counts']['ring_hops']}")
+        if res["counts"]["src:flash_fwd_sm90"] != n_fwd or res["mesh_sp"] != 2:
+            fail(f"(e) rank {r}: expected {n_fwd} sm90 forwards on a mesh of sp 2")
+    t1 = time.perf_counter()
+    rows = _sp_kernel_rows()
+    torch.cuda.empty_cache()
+    log(f"[sp] the kernels at the chunk shapes: {time.perf_counter() - t1:.1f} s")
+    # the ring's chunks on mae_long's path: (d)'s and (e)'s launches by head-dim instance
+    runs = [got[r, n]["counts"] for r in range(2) for n in ("train", "reconstruct")]
+    return {"numbers": rows["record"], "launches": {
+        "flash_fwd_bf16_ring_enc": sum(c["fwd:flash_fwd_sm90<64>"] for c in runs),
+        "flash_fwd_bf16_ring_dec": sum(c["fwd:flash_fwd_sm90<128>"] for c in runs),
+        "flash_bwd_fused_bf16_ring_enc": sum(c["bwd:flash_bwd_sm90<64>"] for c in runs),
+        "flash_bwd_fused_bf16_ring_dec": sum(c["bwd:flash_bwd_sm90<128>"] for c in runs)}}
+
+
 def compare_forward(other: str) -> None:
     """`fused_mlp` and `int8_matmul` (`compare_mlp`), the split route's
     backward kernels (`compare_split_bwd`), then the bf16 flash
@@ -6113,11 +6734,11 @@ def _timed(name: str, fn, *args):
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
-    only = ("adaptive", "unetr", "sap", "parallel")
+    only = ("adaptive", "unetr", "sap", "parallel", "sp")
     if args and (len(args) != 2 or args[0] not in ("--compare", "--only")
                  or (args[0] == "--only" and args[1] not in only)):
         fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive | --only unetr | "
-             "--only sap | --only parallel]")
+             "--only sap | --only parallel | --only sp]")
     if args and args[0] == "--compare" and \
             not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
         fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
@@ -6137,12 +6758,12 @@ def main() -> int:
         compare_forward(os.path.abspath(args[1]))
         print(card, flush=True)
         return 0
-    if args:  # --only adaptive|unetr|sap|parallel: the build and that phase alone, no record
+    if args:  # --only adaptive|unetr|sap|parallel|sp: the build and that phase alone, no record
         _timed("phase_build", phase_build)
         os.makedirs(WORK, exist_ok=True)
         try:
             phase = {"adaptive": phase_adaptive, "unetr": phase_unetr, "sap": phase_sap,
-                     "parallel": phase_parallel}
+                     "parallel": phase_parallel, "sp": phase_sp}
             _timed(f"phase_{args[1]}", phase[args[1]])
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
@@ -6175,6 +6796,7 @@ def main() -> int:
         unetr = _timed("phase_unetr", phase_unetr, disk["mae_ckpt"])
         sap = _timed("phase_sap", phase_sap, disk["mae_ckpt"])
         parallel = _timed("phase_parallel", phase_parallel)
+        sp = _timed("phase_sp", phase_sp)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log("[time] " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
@@ -6262,6 +6884,14 @@ def main() -> int:
                                      "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_fwd_chain_dec_ddp2": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
                                      "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_fwd_bf16_ring_enc": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
+                                    "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_bf16_ring_enc": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                          "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_bf16_ring_dec": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
+                                    "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_bf16_ring_dec": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                          "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -6279,7 +6909,7 @@ def main() -> int:
                "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"],
                "flash_fwd_unetr": unetr["kernels"]["fwd"],
                "flash_bwd_fused_unetr": unetr["kernels"]["bwd"], **sap["numbers"],
-               **parallel["numbers"]}
+               **parallel["numbers"], **sp["numbers"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"]
@@ -6325,6 +6955,12 @@ def main() -> int:
     # 256, 128]
     for name, n in parallel["launches"].items():
         launches[name] = launches.get(name, 0) + n
+    # the sequence-parallel paths (phase_sp): mae_long at sp 2 (ring) through the CLI entry and
+    # reconstruct on the sp-2 eval mesh: the sm90 forward (o in f32) and fused backward on the
+    # ring's chunks, rows of their own at the training's [2, 12, 4096 x 4096, 64] (the encoder's
+    # <64>) and [2, 6, 16384 x 16384, 96] (the decoder's <128>); reconstruct's calls are at
+    # batch 1
+    launches.update(sp["launches"])
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
         f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")
@@ -6338,7 +6974,7 @@ def main() -> int:
         f"{r['peak_gb']:.2f} GB" for n, r in diffusion.items())
         + f"; generate {', '.join(f'{x:.4f}' for x in generated['samples_s'])} samples/s, "
         f"{generated['denoise']['device_ms']:.3f} ms device a denoising step "
-        f"({100 * generated['denoise']['busy']:.2f}% busy), a served request "
+        f"({100 * generated['denoise']['busy']:.2f}% busy), a served {GEN_SEED_STEPS}-step request "
         f"{generated['latency_s']:.3f} s")
     log(f"[record] trainer parity: validation {parity['val_ms']} ms a batch, a resume's "
         f"checkpoint read {parity['read_s']} s; MAE /v1/predict {parity['rps']:.3f} requests/s "
@@ -6350,7 +6986,8 @@ def main() -> int:
                  "fused_mlp_f32", "int8_matmul", "flash_fwd_dh128", "flash_bwd_fused_dh128",
                  "flash_fwd_dh96", "flash_bwd_fused_dh96", "flash_fwd_unetr",
                  "flash_bwd_fused_unetr", *sap["launches"], "flash_fwd_tp2",
-                 "flash_bwd_fused_tp2", "flash_fwd_chain_enc_ddp2", "flash_fwd_chain_dec_ddp2"):
+                 "flash_bwd_fused_tp2", "flash_fwd_chain_enc_ddp2", "flash_fwd_chain_dec_ddp2",
+                 *sp["launches"]):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -243,8 +243,91 @@ def cli_ranks_job(job: dict) -> dict:
     return {"loss_list": out["loss_list"], "step": out["state"].step, "ranks": ranks}
 
 
+def sp_attention_job(job: dict) -> dict:
+    """Sequence-parallel attention on each case's mesh `(ddp, fsdp, sp, tp)`:
+    each rank's slice of the global q, k, v (batch by data rank, heads by tp,
+    tokens by sp) through `ops.ring_attention.ring_attention` (`"ring_op"`)
+    or `multi_head_attention` under FLASH in the case's `sp_mode`, and the
+    gradient of `sum(o * w)`; {case: (every rank's o, dq, dk, dv, its
+    coordinates)}."""
+    from ucf_vit_tpu_torch.ops.attention import multi_head_attention
+    from ucf_vit_tpu_torch.ops.ring_attention import ring_attention
+    from ucf_vit_tpu_torch.parallel.mesh import (make_mesh, mesh_context, seq_shard_of,
+                                                 sequence_context)
+
+    out = {}
+    for name, (shape, mode, rate) in job["cases"].items():
+        ddp, fsdp, sp, tp = shape
+        mesh = make_mesh(simple_ddp_size=ddp, fsdp_size=fsdp, seq_par_size=sp,
+                         tensor_par_size=tp)
+        b = job["q"].shape[0] // mesh.data_size
+        h = job["q"].shape[1] // tp
+        n = job["q"].shape[2] // sp
+        r, t, s = mesh.data_rank, mesh.index("tp"), mesh.index("sp")
+        sl = (slice(r * b, (r + 1) * b), slice(t * h, (t + 1) * h), slice(s * n, (s + 1) * n))
+        q, k, v = (torch.from_numpy(job[x][sl]).clone().requires_grad_(True) for x in "qkv")
+        seed = job["seed"] if rate > 0.0 else None
+        with mesh_context(mesh), sequence_context(seq_shard_of(mesh)):
+            if mode == "ring_op":
+                o = ring_attention(q, k, v, mesh.group("sp"), dropout_rate=rate,
+                                   dropout_seed=seed)
+            else:
+                o = multi_head_attention(q, k, v, impl="FLASH", dropout_rate=rate,
+                                         dropout_seed=seed, sp_mode=mode)
+        (o * torch.from_numpy(job["w"][sl])).sum().backward()
+        out[name] = tuple(_gather_world(x) for x in (o.detach(), q.grad, k.grad, v.grad)) + (
+            _gather_world(torch.tensor([r, t, s])),)
+    return out
+
+
+def sp_odd_job(job: dict) -> dict:
+    """A ViT whose 17 tokens sp 2 does not divide, on a (sp 2) mesh: EINSUM's
+    logits (the stream runs whole on both ranks), and what FLASH raises."""
+    from ucf_vit_tpu_torch import checkpoint as ckpt
+    from ucf_vit_tpu_torch.config import Config
+    from ucf_vit_tpu_torch.train import init_train
+
+    out = {}
+    for impl in ("EINSUM", "FLASH"):
+        raw = {**job["raw"], "trainer": {**job["raw"]["trainer"], "attn_impl": impl}}
+        state, _ = init_train(Config(raw=raw, task="classification"), "cpu")
+        ckpt.load_params(state.model, {k: torch.from_numpy(v) for k, v in job["init"].items()},
+                         "init")
+        try:
+            with torch.no_grad():
+                out[impl] = state.model.eval()(torch.from_numpy(job["x"])).numpy()
+        except ValueError as e:
+            out[impl] = f"ValueError: {e}"
+    return out
+
+
+def reconstruct_job(job: dict) -> dict:
+    """`inference.reconstruct` of an MAE on the config's eval mesh."""
+    from ucf_vit_tpu_torch.inference import init_eval_model, reconstruct
+    from ucf_vit_tpu_torch.parallel.mesh import eval_mesh
+
+    cfg = _cfg(job)
+    model = init_eval_model(cfg, seed=0, device="cpu", mesh=eval_mesh(cfg, torch.device("cpu")))
+    return reconstruct(model, torch.from_numpy(job["x"]), seed=job["seed"]).numpy()
+
+
+def cli_state_job(job: dict) -> dict:
+    """`cli_job`, and after it the parameters gathered whole and every rank's
+    device generator state."""
+    from ucf_vit_tpu_torch.checkpoint import full_state_dict
+    from ucf_vit_tpu_torch.train import main
+
+    out = main(job["argv"])
+    model = out["state"].model
+    gens = [None] * dist.get_world_size()
+    dist.all_gather_object(gens, model.generator.get_state().numpy())
+    params = {k: v.numpy() for k, v in full_state_dict(model).items()}
+    return {"step": out["state"].step, "params": params, "generators": gens}
+
+
 JOBS = {"train": train_job, "attn_dropout": attn_dropout_job, "collectives": collectives_job,
-        "sync_check": sync_check_job, "cli": cli_job, "cli_ranks": cli_ranks_job}
+        "sync_check": sync_check_job, "cli": cli_job, "cli_ranks": cli_ranks_job,
+        "sp_attention": sp_attention_job, "sp_odd": sp_odd_job, "cli_state": cli_state_job}
 
 
 if __name__ == "__main__":
@@ -393,4 +476,5 @@ def serve_job(job: dict) -> dict:
     return {**out, "returned": returned}
 
 
-JOBS.update(eval=eval_job, predictor=predictor_job, generator=generator_job, serve=serve_job)
+JOBS.update(eval=eval_job, predictor=predictor_job, generator=generator_job, serve=serve_job,
+            reconstruct=reconstruct_job)

@@ -254,6 +254,23 @@ def test_dropout_modules_draw_from_their_generator_only():
         assert torch.equal(module.eval()(x), x)
 
 
+@pytest.mark.parametrize("rank", [0, 1, 2])
+def test_dropout_under_a_sequence_split_keeps_its_slice_of_the_whole_draw(rank):
+    """Inside a block stack split over sp ranks (`sequence_context`), Dropout
+    draws the mask of the whole sequence from its generator and keeps this
+    rank's tokens: what one device drops there, from the same generator state."""
+    from ucf_vit_tpu_torch.parallel.mesh import SeqShard, sequence_context
+
+    x = torch.randn(2, 12, 5, generator=torch.Generator().manual_seed(0))
+    drop = Dropout(0.5).train()
+    drop.generator = torch.Generator().manual_seed(3)
+    whole = drop(x)
+    drop.generator = torch.Generator().manual_seed(3)
+    with sequence_context(SeqShard(group=None, size=3, rank=rank)):
+        part = drop(x[:, 4 * rank:4 * (rank + 1)])
+    assert torch.equal(part, whole[:, 4 * rank:4 * (rank + 1)])
+
+
 # ================================================================ sharding
 #
 # The port's data and tensor parallelism on the CPU over gloo: the sharded
@@ -403,9 +420,17 @@ def _jax_sharded_run(name):
     torch-layout weights, the per-step losses, the config, the batches)."""
     task, (ddp, fsdp, tp) = SHARD_CASES[name]
     raw = _shard_model_raw(task, ddp, fsdp, tp)
+    init, losses, batches = _jax_steps(task, raw, (ddp, fsdp, 1, tp))
+    return init, losses, raw, batches
+
+
+def _jax_steps(task, raw, shape):
+    """The JAX package's three steps of `raw` on the mesh (ddp, fsdp, sp, tp):
+    (its init as whole torch-layout weights, the per-step losses, the
+    batches)."""
     batches = _shard_batches(task, raw)
     jmod, jloss = jax_build_task(JConfig(raw=raw, task=task))
-    mesh = jax_make_mesh(ddp, fsdp, 1, tp)
+    mesh = jax_make_mesh(*shape)
     init_fn = _jax_init_fn(task, jmod, batches[0])
     tx = _jax_tx(raw, jax.eval_shape(init_fn)["params"])
     with jax_mesh_context(mesh):
@@ -419,7 +444,7 @@ def _jax_sharded_run(name):
                                                                 for k, v in b.items()}),
                                   jax.random.key(0))
             losses.append(float(loss))
-    return init, losses, raw, batches
+    return init, losses, batches
 
 
 def _single_raw(raw):
@@ -453,9 +478,11 @@ def sharded_runs(tmp_path_factory):
     cli_jobs, single_runs = _cli_jobs(tmp)
     jobs[2] += cli_jobs
     eval_jobs, eval_single = _eval_jobs(tmp)
+    sp_jobs, sp_single = _sp_jobs(tmp)
     for world in (4, 2):
-        jobs[world] += eval_jobs[world]
+        jobs[world] += eval_jobs[world] + sp_jobs[world]
     single.update(eval_single)
+    single.update(sp_single)
     out = {}
     for world in (4, 2):
         out.update(_torch_sharded.run_group(world, jobs[world], tmp))
@@ -1179,3 +1206,285 @@ def test_two_rank_server_answers_reloads_and_stops(sharded_runs):
     assert got["stats"]["batches"] < HTTP_INPUTS + 1  # some requests shared a batch
     answers = np.stack([got["answers"][i] for i in range(HTTP_INPUTS)])
     np.testing.assert_allclose(answers, single["eval_http"], atol=EVAL_SERVE_TOL, rtol=0)
+
+
+# ---------------------------------------------------------------- sequence parallelism
+#
+# seq_par_size > 1 on the CPU over gloo, in the groups of 4 and 2 above: the train
+# step of MAE, DiffusionVIT and classification on meshes with an sp axis against the
+# JAX package's sharded step on the same mesh shape (its EINSUM under GSPMD, which
+# attends globally whatever `sp_mode` says) and against the port's single device;
+# the ring, Ulysses and KV-gather attention with dropout against the JAX package's
+# `ring_attention` under `shard_map` and its `_sharded_flash` (Pallas interpret); a
+# sequence that sp does not divide; a mid-epoch resume from (fsdp 2, sp 2) onto
+# (fsdp 2); evaluation, the chain and the predictor on an sp mesh against one device.
+
+SP_CASES = {  # name: (task, (ddp, fsdp, sp, tp), sp_mode)
+    "mae_fsdp2_sp2_ring": ("mae", (1, 2, 2, 1), "ring"),
+    "mae_fsdp2_sp2_ulysses": ("mae", (1, 2, 2, 1), "ulysses"),
+    "mae_fsdp2_sp2_gather": ("mae", (1, 2, 2, 1), "gather"),
+    "mae_sp4_ring": ("mae", (1, 1, 4, 1), "ring"),
+    "diffusion_ddp2_sp2_auto": ("diffusion", (2, 1, 2, 1), "auto"),
+    "classification_tp2_sp2_ring": ("classification", (1, 1, 2, 2), "ring"),
+}
+SP_ATTN_SHAPE = (2, 4, 16, 8)  # [B, H, N, dh]
+SP_ATTN_RATE = 0.1
+SP_ATTN_TOL = 1e-5  # outputs and gradients against the JAX package's, f32
+SP_ATTN_CASES = {  # name: ((ddp, fsdp, sp, tp), sp_mode or "ring_op", rate)
+    # `ring_attention` alone at mae_long's sp 4
+    "ring_op_nodrop": ((1, 1, 4, 1), "ring_op", 0.0),
+    "ring_op_drop": ((1, 1, 4, 1), "ring_op", SP_ATTN_RATE),
+    **{f"{mode}_{mesh}": (shape, mode, SP_ATTN_RATE)
+       for mesh, shape in (("ddp2_sp2", (2, 1, 2, 1)), ("tp2_sp2", (1, 1, 2, 2)))
+       for mode in ("ring", "ulysses", "gather")},
+}
+
+
+def _sp_raw(task, shape, mode, impl="FLASH"):
+    """`_shard_model_raw` on a mesh with sp: MAE's decoder in 2 heads (so that
+    Ulysses divides them), DiffusionVIT's decoder in 1 (so that `auto` gathers
+    there), classification at a 24^2 tile (9 patches and the class token: 10
+    tokens, which sp 2 divides)."""
+    ddp, fsdp, sp, tp = shape
+    raw = _shard_model_raw(task, ddp, fsdp, tp)
+    raw["parallelism"].update(seq_par_size=sp, sp_mode=mode)
+    ia = raw["model"]["net"]["init_args"]
+    if task == "mae":
+        ia["decoder_num_heads"] = 2
+    elif task == "diffusion":
+        ia["decoder_num_heads"] = 1
+    else:
+        ia["tile_size"] = [24, 24]
+    raw["trainer"]["attn_impl"] = impl
+    return raw
+
+
+def _sp_attn_inputs():
+    rng = np.random.default_rng(13)
+    q, k, v, w = (rng.normal(size=SP_ATTN_SHAPE).astype(np.float32) for _ in range(4))
+    return q, k, v, w, int(seed_from_key(jax.random.key(5)))
+
+
+def _sp_eval_raw(task, sp, mode):
+    raw = _eval_raw(task)
+    raw["parallelism"] = {"seq_par_size": sp, "sp_mode": mode}
+    raw["trainer"]["attn_impl"] = "FLASH"
+    if task == "mae":
+        raw["data"]["batch_size"] = 2
+    elif task == "classification":
+        raw["model"]["net"]["init_args"]["tile_size"] = [24, 24]
+    return raw
+
+
+def _sp_jobs(tmp):
+    """The sequence-parallel jobs of the two groups, and what they are held
+    against (run here)."""
+    from ucf_vit_tpu_torch.inference import evaluate_classification, generate_diffusion
+    from ucf_vit_tpu_torch.inference import init_eval_model, reconstruct
+    from ucf_vit_tpu_torch.serve import build_predictor
+    from ucf_vit_tpu_torch.tasks import build_task as port_build_task
+
+    jobs, single, jax_runs = {4: [], 2: []}, {}, {}
+    for name, (task, shape, mode) in SP_CASES.items():
+        if (task, shape) not in jax_runs:
+            # the JAX package's EINSUM attends globally whatever sp_mode says
+            jax_runs[task, shape] = _jax_steps(task, _sp_raw(task, shape, "auto", "EINSUM"),
+                                               shape)
+        init, jax_losses, batches = jax_runs[task, shape]
+        raw = _sp_raw(task, shape, mode)
+        job = {"kind": "train", "name": name, "raw": raw, "batches": batches, "init": init,
+               "loss": _PORT_LOSS.get(task, "task")}
+        jobs[int(np.prod(shape))].append(job)
+        single[name] = _torch_sharded.train_job({**job, "raw": _single_raw(raw)})
+        single[name]["jax_losses"] = jax_losses
+    q, k, v, w, seed = _sp_attn_inputs()
+    jobs[4].append({"kind": "sp_attention", "name": "sp_attention", "q": q, "k": k, "v": v,
+                    "w": w, "seed": seed, "cases": SP_ATTN_CASES})
+    # 17 tokens on sp 2
+    odd = _sp_raw("classification", (1, 1, 2, 1), "ring")
+    odd["model"]["net"]["init_args"]["tile_size"] = [32, 32]
+    model = port_build_task(Config(raw=_single_raw(odd), task="classification"))
+    model.init_weights(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(3).normal(size=(2, 3, 32, 32)).astype(np.float32)
+    with torch.no_grad():
+        single["sp_odd"] = model.eval()(torch.from_numpy(x)).numpy()
+    jobs[2].append({"kind": "sp_odd", "name": "sp_odd", "raw": odd, "x": x,
+                    "init": {k: t.detach().numpy() for k, t in model.state_dict().items()}})
+    # a mid-epoch resume from (fsdp 2, sp 2) onto (fsdp 2): the state it starts from,
+    # and the rest of the epoch
+    sp_par, fsdp2 = {"fsdp_size": 2, "seq_par_size": 2, "sp_mode": "ring"}, {"fsdp_size": 2}
+    jobs[4].append(_cli("spa", _f6_yaml(tmp, "spa", sp_par, attn_impl="FLASH",
+                                        preempt_after_steps=2)))
+    resume = dict(attn_impl="FLASH", resume_from_checkpoint=True,
+                  checkpoint_filename_for_loading="spa_latest")
+    jobs[2] += [{**_cli("spb0", _f6_yaml(tmp, "spb0", fsdp2, **resume), "--max-steps", "2"),
+                 "kind": "cli_state"},
+                _cli("spb", _f6_yaml(tmp, "spb", fsdp2, **resume))]
+    # evaluation on sp 2 against one device
+    mae_ring, mae_auto = _sp_eval_raw("mae", 2, "ring"), _sp_eval_raw("mae", 2, "auto")
+    vol = np.random.default_rng(4).normal(size=(2, 1, 16, 16, 16)).astype(np.float32)
+    cls_sp, chain_sp = _sp_eval_raw("classification", 2, "ring"), _sp_eval_raw("diffusion", 2,
+                                                                                "gather")
+    jobs[2] += [
+        {"kind": "reconstruct", "name": "sp_reconstruct", "raw": mae_ring, "x": vol, "seed": 4},
+        {"kind": "predictor", "name": "sp_predictor", "raw": mae_auto, "max_batch": 2,
+         "batch": {"x": vol}},
+        {"kind": "eval", "name": "sp_top1", "raw": cls_sp, "fn": "evaluate_classification",
+         "args": (None, True, 8)},
+        {"kind": "eval", "name": "sp_chain", "raw": chain_sp, "fn": "generate_diffusion",
+         "args": (None, 4), "kwargs": {"return_images": True}}]
+
+    def one(raw):
+        raw = copy.deepcopy(raw)
+        raw["parallelism"] = {}
+        return Config(raw=raw, task=raw["trainer"]["task"])
+
+    single["sp_reconstruct"] = reconstruct(init_eval_model(one(mae_ring), seed=0, device="cpu"),
+                                           torch.from_numpy(vol), seed=4).numpy()
+    single["sp_predictor"] = build_predictor(one(mae_auto), max_batch=2,
+                                             device="cpu")[0]({"x": vol}).numpy()
+    single["sp_top1"] = evaluate_classification(one(cls_sp), None, True, 8, device="cpu")
+    single["sp_chain"] = generate_diffusion(one(chain_sp), None, 4, return_images=True,
+                                            device="cpu")[1]
+    return jobs, single
+
+
+@pytest.mark.parametrize("name", sorted(SP_CASES))
+def test_sequence_parallel_train_step_matches_jax_and_single_device(sharded_runs, name):
+    """Three steps of the port on a mesh with sp (FLASH in the case's `sp_mode`,
+    the kernels' plain versions here) against the JAX package's sharded step on
+    the same mesh shape and against the port's single device (the per-step
+    losses within SHARD_LOSS_TOL), and the gathered parameters against the
+    single device's (`_assert_params_match`)."""
+    runs, single, _ = sharded_runs
+    got = runs[name]
+    np.testing.assert_allclose(got["losses"], single[name]["jax_losses"], atol=SHARD_LOSS_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(got["losses"], single[name]["losses"], atol=SHARD_LOSS_TOL,
+                               rtol=0)
+    if SP_CASES[name][1][3] > 1:
+        assert any(n.endswith("attn.qkv.weight") for n in got["sharded"])
+    _assert_params_match(got["params"], single[name]["params"], name)
+
+
+def _jax_sp_attention(name):
+    """The JAX package's output and gradients of `sum(o * w)` for a case of
+    SP_ATTN_CASES: its `ring_attention` under `shard_map` over sp, or
+    `multi_head_attention` (FLASH, Pallas interpret) under the mesh."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from ucf_vit_tpu.ops.ring_attention import ring_attention as jax_ring_attention
+
+    shape, mode, rate = SP_ATTN_CASES[name]
+    q, k, v, w, seed = _sp_attn_inputs()
+    mesh = jax_make_mesh(*shape)
+    if mode == "ring_op":
+        spec = P(None, None, "sp", None)
+        fn = shard_map(lambda q, k, v: jax_ring_attention(
+            q, k, v, "sp", dropout_rate=rate, dropout_seed=seed if rate else None),
+            mesh=mesh, in_specs=(spec,) * 3, out_specs=spec, check_vma=False)
+    else:
+        def fn(q, k, v):
+            return jax_mha(q, k, v, impl="FLASH", dropout_rate=rate,
+                           dropout_rng=jax.random.key(5), sp_mode=mode)
+    def fwd_bwd(q, k, v, w):
+        o, vjp = jax.vjp(fn, q, k, v)
+        return (o,) + vjp(w)
+
+    with jax_mesh_context(mesh):
+        out = jax.jit(fwd_bwd)(*(jnp.asarray(t) for t in (q, k, v, w)))
+    return [np.asarray(t) for t in out]
+
+
+@pytest.mark.parametrize("name", sorted(SP_ATTN_CASES))
+def test_sequence_parallel_attention_matches_jax(sharded_runs, name):
+    """The port's ring (`ring_attention` alone on sp 4, with and without dropout)
+    and its three modes under `multi_head_attention` (dropout 0.1) on (ddp 2, sp 2) and
+    (tp 2, sp 2), each rank on its slice, against the JAX package's ring under
+    `shard_map` and its `_sharded_flash` in interpret mode on the same mesh: the
+    output and the gradients of q, k and v within SP_ATTN_TOL."""
+    runs, _, _ = sharded_runs
+    (ddp, fsdp, sp, tp), _, _ = SP_ATTN_CASES[name]
+    want = _jax_sp_attention(name)
+    *parts, coords = runs["sp_attention"][name]
+    b, h, n = (SP_ATTN_SHAPE[0] // (ddp * fsdp), SP_ATTN_SHAPE[1] // tp,
+               SP_ATTN_SHAPE[2] // sp)
+    for got_ranks, w in zip(parts, want):
+        got = np.full_like(w, np.nan)
+        for piece, (r, t, s) in zip(got_ranks, coords):
+            got[r * b:(r + 1) * b, t * h:(t + 1) * h, s * n:(s + 1) * n] = piece
+        np.testing.assert_allclose(got, w, atol=SP_ATTN_TOL, rtol=0)
+
+
+def test_a_sequence_sp_does_not_divide_runs_whole_or_raises_as_jax(sharded_runs):
+    """A ViT of 17 tokens on sp 2: the JAX package's flash attention refuses it
+    (`shard_map` wants the dim to divide) and so does the port's, with a
+    ValueError; under EINSUM the stream runs whole on both ranks and the logits
+    equal one device's within SHARD_PARAM_TOL."""
+    runs, single, _ = sharded_runs
+    got = runs["sp_odd"]
+    assert got["FLASH"].startswith("ValueError") and "17 tokens" in got["FLASH"]
+    np.testing.assert_allclose(got["EINSUM"], single["sp_odd"], atol=SHARD_PARAM_TOL, rtol=0)
+    x = jnp.zeros((2, 2, 17, 8))
+    with jax_mesh_context(jax_make_mesh(1, 1, 2, 1)):
+        with pytest.raises(ValueError, match="not evenly divisible"):
+            jax_mha(x, x, x, impl="FLASH", sp_mode="ring")
+
+
+def test_midepoch_resume_from_sequence_parallel_onto_fsdp_is_bit_for_bit(sharded_runs):
+    """A NIfTI MAE with DropPath in (fsdp 2, sp 2 ring, FLASH) preempted after step
+    2, the sync check every step (it compares the sp replicas); resumed onto
+    (fsdp 2), which has as many data ranks: the resumed state equals what the
+    sp run saved bit for bit (every parameter, each data rank's device
+    generator), and the resume re-enters the epoch at its third batch."""
+    runs, _, tmp = sharded_runs
+    first = _step_losses(tmp / "spa.jsonl")
+    payload = torch.load(tmp / "ck" / "spa_even.ckpt", weights_only=True)
+    assert sorted(first) == [1, 2] and payload["data_it"] == 2 and payload["data_size"] == 2
+    checks = [json.loads(line) for line in open(tmp / "spa.jsonl")]
+    checks = [r for r in checks if "sync_check" in r]
+    assert len(checks) == 2 and all("'sp'" in r["sync_check"] for r in checks)
+    state = runs["spb0"]
+    for k, v in payload["model_state_dict"].items():
+        np.testing.assert_array_equal(state["params"][k], v.numpy(), err_msg=k)
+    saved = payload["generators"]["device_by_data_rank"]
+    for r in range(2):
+        np.testing.assert_array_equal(state["generators"][r], saved[r].numpy())
+    recs = [json.loads(line) for line in open(tmp / "spb.jsonl")]
+    assert recs[0]["resume_it"] == 2
+    assert [(r["epoch"], r["it"], r["step"]) for r in recs if "loss" in r and "step" in r] == [
+        (0, 3, 3), (0, 4, 4)]
+
+
+@pytest.mark.parametrize("name", ["sp_reconstruct", "sp_predictor", "sp_top1", "sp_chain"])
+def test_sequence_parallel_evaluation_matches_single_device(sharded_runs, name):
+    """On two ranks of sp 2 against one device: an MAE's `reconstruct` (ring)
+    and the server's predictor (`auto`) within EVAL_CHAIN_TOL, the
+    classification top-1 equal, the reverse chain (gather) within
+    EVAL_CHAIN_TOL."""
+    runs, single, _ = sharded_runs
+    if name == "sp_top1":
+        assert runs[name] == single[name]
+        return
+    np.testing.assert_allclose(runs[name], single[name], atol=EVAL_CHAIN_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["bad_mode", "ulysses_heads", "ulysses_decoder_heads"])
+def test_sp_mode_config_errors_match_jax(case):
+    """`parallelism.sp_mode` is checked as the JAX package checks it, with its
+    messages: the mode's name, and under `ulysses` the heads (per tp rank) and,
+    for MAE, the decoder's heads divisible by sp."""
+    task = "classification" if case == "ulysses_heads" else "mae"
+    raw = _shard_model_raw(task)
+    raw["parallelism"] = {"seq_par_size": 2, "sp_mode": "ulysses"}
+    ia = raw["model"]["net"]["init_args"]
+    if case == "bad_mode":
+        raw["parallelism"]["sp_mode"] = "spiral"
+    elif case == "ulysses_heads":
+        ia["num_heads"] = 1
+    with pytest.raises(AssertionError) as want:
+        JConfig(raw=copy.deepcopy(raw), task=task).validate()
+    with pytest.raises(AssertionError) as got:
+        Config(raw=raw, task=task).validate()
+    assert str(got.value) == str(want.value)

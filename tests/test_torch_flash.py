@@ -118,6 +118,21 @@ def test_flash_plain_bf16_returns_input_dtype():
     np.testing.assert_array_equal(lse.numpy(), ref_lse.numpy())
 
 
+def test_flash_f32_o_is_the_unrounded_output():
+    """`f32_o` (the ring attention's chunk call): o in f32, the same sums that
+    round to the default o, and no backward."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 2, 65, 65, 64))
+    o32, lse32 = flash_attention(q, k, v, return_lse=True, f32_o=True)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    assert o32.dtype == torch.float32
+    np.testing.assert_array_equal(o32.to(torch.bfloat16).float().numpy(), o.float().numpy())
+    np.testing.assert_array_equal(lse32.numpy(), lse.numpy())
+    ref, _ = flash_attention_plain(q.float(), k.float(), v.float(), 64**-0.5)
+    np.testing.assert_array_equal(o32.numpy(), ref.numpy())
+    with pytest.raises(ValueError, match="f32_o has no backward"):
+        flash_attention(q.requires_grad_(), k, v, f32_o=True)
+
+
 def test_flash_cpu_does_not_count_launches_and_rejects_other_devices():
     before = flash_attention.launches
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 8, 16))

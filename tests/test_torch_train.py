@@ -286,6 +286,8 @@ def test_cli_trains_and_writes_metrics(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    from ucf_vit_tpu_torch.config import load_config
+
     cfg = _tiny_yaml(tmp_path)
     # without --synthetic the trainer reads the files the config names: none here
     with pytest.raises(KeyError, match="dict_root_dirs"):
@@ -298,8 +300,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
-    for key, item in (("seq_par_size", "item 11: sequence parallelism"),
-                      ("pipe_par_size", "item 12: pipeline"),
+    for key, item in (("pipe_par_size", "item 12: pipeline"),
                       ("expert_par_size", "item 12: pipeline")):
         raw = _raw()
         raw["parallelism"] = {key: 2}
@@ -309,6 +310,20 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
         path.write_text(yaml.safe_dump(raw))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port, {item}"):
             main([str(path), "--synthetic", "--device", "cpu"])
+    # sequence parallelism passes the trainer's check for every task (one process launched,
+    # so the world size is what stops them here); UNETR and SAP refuse it when built
+    for task in ("classification", "mae", "diffusion", "unetr", "sap"):
+        raw = _raw()
+        raw["trainer"]["task"] = task
+        raw["parallelism"] = {"seq_par_size": 2}
+        path = tmp_path / f"sp_{task}.yaml"
+        path.write_text(yaml.safe_dump(raw))
+        with pytest.raises(RuntimeError, match="asks for 2 processes but 1 was launched"):
+            main([str(path), "--synthetic", "--device", "cpu"])
+        if task in ("unetr", "sap"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: "
+                               "item 11: the UNETR spatial partition"):
+                build_task(load_config(str(path)))
     # a mesh of more processes than were launched
     raw = _raw()
     raw["parallelism"] = {"fsdp_size": 2}
@@ -699,7 +714,8 @@ def test_cli_runs_mae_long_config_shrunk(tmp_path, capsys):
     """`configs/basic_ct/mae_long` (bf16, remat, scan_layers, maskMSE, a
     fsdp 2 x sp 4 ring mesh) through the CLI with `--single-device`, shrunk
     in memory to depth 1 and a 16^3 tile at CPU widths; every other key is
-    the shipped one."""
+    the shipped one. Without `--single-device` its mesh of 8 processes is
+    refused in a launch of one."""
     path = os.path.join(REPO, "configs", "basic_ct", "mae_long", "base_config.yaml")
     raw = yaml.safe_load(open(path))
     assert raw["trainer"]["data_type"] == "bfloat16" and raw["trainer"]["remat"] is True
@@ -712,7 +728,8 @@ def test_cli_runs_mae_long_config_shrunk(tmp_path, capsys):
     raw["trainer"]["nan_guard"] = 2
     small = tmp_path / "mae_long_small.yaml"
     small.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match="single-device"):
+    with pytest.raises(RuntimeError, match="asks for 8 processes but 1 was launched.*"
+                       "single-device"):
         main([str(small), "--synthetic", "--device", "cpu", "--max-steps", "2"])
     out = main([str(small), "--single-device", "--device", "cpu", "--synthetic",
                 "--max-steps", "3"])

@@ -50,6 +50,9 @@ rank draw the same masks, so the file keeps one state a data rank
 ranks takes its data rank's (`restore_train_state`); a run with another keeps
 its own seeded ones. A load takes each rank's part of the whole tensors, onto
 whatever layout the loading run has (`load_params`, `restore_train_state`).
+Under sequence parallelism the parameters are whole on every sp rank and the
+sp ranks of one data rank share its generators, so the file is the same,
+written once, and loads with or without sp.
 """
 
 from __future__ import annotations

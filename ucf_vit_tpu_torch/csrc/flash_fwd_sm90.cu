@@ -10,6 +10,9 @@
 //   the running max m, normaliser l and output accumulator in f32, p rounded to bf16 for
 //   p . v (as `p.astype(v.dtype)`, :140), o = acc / l (l == 0 guarded) in bf16,
 //   lse = m + log(max(l, 1e-37)) as f32 [B*H, Nq].
+// With o_f32 the kernel stores o = acc / l in f32, unrounded: the ring attention
+// (ops/ring_attention.py) merges the chunks' outputs in f32, as the JAX ring keeps its
+// accumulator.
 // With dropout (a template flag) the probabilities are dropped after the l update, by
 // the counter hash of attn_dropout.cuh at global (bh, row0 + row, col0 + col).
 //
@@ -80,7 +83,7 @@ constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // and the producer warp
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 
 struct Params {
-  __nv_bfloat16* o;
+  void* o;  // bf16, or f32 with o_f32
   float* lse;
   int heads, nq, nkv, dh;
   int n_qt;     // query tiles per (batch, head)
@@ -93,6 +96,7 @@ struct Params {
   float inv_keep;
   int merged;  // q or k has its heads merged into dim 0 (then both at the same offset)
   int pair_store;  // o may be stored as bf16 pairs
+  int o_f32;       // o is f32
 };
 
 template <int DH>
@@ -466,14 +470,17 @@ __global__ void __launch_bounds__(THREADS, (DH == 64 && !DROPOUT) ? 3 : 2)
     fence_state(st, a);
     if (lane == 0) mbar_arrive(kv_empty + 8 * prev);
 
-    __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh - v_off;  // column c of acc: c - v_off
+    // o's row `row` starts at obase + row * o_sn; column c of acc is o's c - v_off
+    const long long obase = b * p.o_sb + h * p.o_sh - v_off;
     const bool pairs = p.pair_store && (v_off & 1) == 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = q0 + rq + 8 * i;
       if (row >= p.nq) continue;
       const float l_inv = (st.l[i] == 0.f) ? 1.f : 1.f / st.l[i];
-      __nv_bfloat16* orow = og + (long long)row * p.o_sn;
+      const long long orow = obase + (long long)row * p.o_sn;
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + orow;
+      float* of = static_cast<float*>(p.o) + orow;
 #pragma unroll
       for (int n = 0; n < NP; ++n)
 #pragma unroll
@@ -481,11 +488,14 @@ __global__ void __launch_bounds__(THREADS, (DH == 64 && !DROPOUT) ? 3 : 2)
           const int col = 64 * n + 8 * c + w.cq;  // of acc; v_off <= col < v_off + dh is o's
           const float v0 = st.acc[n][4 * c + 2 * i] * l_inv;
           const float v1 = st.acc[n][4 * c + 2 * i + 1] * l_inv;
-          if (pairs && col >= v_off && col + 1 < v_off + p.dh) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+          if (p.o_f32) {
+            if (col >= v_off && col < v_off + p.dh) of[col] = v0;
+            if (col + 1 >= v_off && col + 1 < v_off + p.dh) of[col + 1] = v1;
+          } else if (pairs && col >= v_off && col + 1 < v_off + p.dh) {
+            *reinterpret_cast<__nv_bfloat162*>(ob + col) = __floats2bfloat162_rn(v0, v1);
           } else {
-            if (col >= v_off && col < v_off + p.dh) orow[col] = __float2bfloat16(v0);
-            if (col + 1 >= v_off && col + 1 < v_off + p.dh) orow[col + 1] = __float2bfloat16(v1);
+            if (col >= v_off && col < v_off + p.dh) ob[col] = __float2bfloat16(v0);
+            if (col + 1 >= v_off && col + 1 < v_off + p.dh) ob[col + 1] = __float2bfloat16(v1);
           }
         }
       if ((lane & 3) == 0)
@@ -539,14 +549,14 @@ cudaError_t dispatch_dh(const Params& p, const CUtensorMap& tq, const CUtensorMa
 
 }  // namespace
 
-// bf16 q, k, v, o; lse f32 [B*H, Nq]. Each of q, k, v comes with the tensor map that
-// ops/flash_attention.py (`fwd_layout`) chose for it: dims (d0, d1, d2, d3), byte strides
-// (s1, s2, s3) and hcol, the column step of a head when the heads are merged into dim 0
-// (then d2 = 1), else 0 (then d2 is the head dim of the map); d1 is always the rows.
-// box_cols x box_rows must be the kernel's 64 x 64 tile. o's strides are in elements, its
-// last dim contiguous. dropout: 0 or 1; with 1 the seed, threshold, (row0, col0) offset
-// and inv_keep describe the mask. Returns a cudaError_t, or ENCODE_FAILED (+ CUresult)
-// when a tensor map cannot be encoded.
+// bf16 q, k, v; o bf16, or f32 with o_f32; lse f32 [B*H, Nq]. Each of q, k, v comes with
+// the tensor map that ops/flash_attention.py (`fwd_layout`) chose for it: dims (d0, d1,
+// d2, d3), byte strides (s1, s2, s3) and hcol, the column step of a head when the heads
+// are merged into dim 0 (then d2 = 1), else 0 (then d2 is the head dim of the map); d1 is
+// always the rows. box_cols x box_rows must be the kernel's 64 x 64 tile. o's strides are
+// in elements, its last dim contiguous. dropout: 0 or 1; with 1 the seed, threshold,
+// (row0, col0) offset and inv_keep describe the mask. Returns a cudaError_t, or
+// ENCODE_FAILED (+ CUresult) when a tensor map cannot be encoded.
 extern "C" int ucf_flash_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads,
     int nq, int nkv, int dh, long long q_d0, long long q_d1, long long q_d2, long long q_d3,
@@ -554,7 +564,7 @@ extern "C" int ucf_flash_fwd_sm90(
     long long k_d2, long long k_d3, long long k_s1, long long k_s2, long long k_s3, int k_hcol,
     long long v_d0, long long v_d1, long long v_d2, long long v_d3, long long v_s1,
     long long v_s2, long long v_s3, int v_hcol, int box_cols, int box_rows, long long o_sb,
-    long long o_sh, long long o_sn, float scale, int dropout, unsigned int seed,
+    long long o_sh, long long o_sn, int o_f32, float scale, int dropout, unsigned int seed,
     unsigned int threshold, int row0, int col0, float inv_keep, void* stream) {
   if (batch <= 0 || heads <= 0 || nq <= 0 || nkv <= 0 || dh <= 0 || dh > 128)
     return cudaErrorInvalidValue;
@@ -575,7 +585,7 @@ extern "C" int ucf_flash_fwd_sm90(
   if (err == 0) err = encode(&tv, v, gv, BK);
   if (err != 0) return err;
   Params p;
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = o;
   p.lse = static_cast<float*>(lse);
   p.heads = heads;
   p.nq = nq;
@@ -600,6 +610,7 @@ extern "C" int ucf_flash_fwd_sm90(
   p.merged = q_hcol != 0 || k_hcol != 0;
   p.pair_store = dh % 2 == 0 && (o_sb | o_sh | o_sn) % 2 == 0 &&
                  reinterpret_cast<uintptr_t>(o) % 4 == 0;
+  p.o_f32 = o_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dropout ? dispatch_dh<true>(p, tq, tk, tv, s) : dispatch_dh<false>(p, tq, tk, tv, s);
 }

@@ -29,7 +29,9 @@ generation run on its mesh (`parallel.mesh.eval_mesh`): the weights by
 `fully_shard`), each data rank on its share of the same global batches that
 one device reads, top-1 from correct and sample counts summed over the data
 ranks, Dice on the gathered predictions, the reverse chain split by rows,
-rank 0 alone printing and writing PNGs. One process evaluates the whole
+rank 0 alone printing and writing PNGs. Under sequence parallelism the sp
+ranks of a data rank run its batch together, each block stack split over
+their tokens (`models/vit.py`; not UNETR and SAP). One process evaluates the whole
 model on one device, whatever the config asks for. `--volume` runs in one
 process, as in the JAX package.
 """

@@ -25,6 +25,12 @@ and so does an `Attention` with `qk_norm`.
 Everything else (norms, embeddings, heads, decoders, convolutions) is
 replicated over tp.
 
+Under sequence parallelism a block sees this rank's `N/sp` tokens
+(`parallel.mesh.sequence_context`): `Attention` runs its `sp_mode`
+(`ops/attention.py`), and `Dropout` draws its mask for the whole sequence
+and keeps this rank's slice, so that the sp ranks, whose generators are
+seeded alike, drop what one device would.
+
 The bf16 compute policy is flax's `dtype=` argument, module by module
 (`ucf_vit_tpu/models/blocks.py`): parameters stay f32; `Linear` and the
 patch-embed conv cast their input, weight and bias to `dtype` and return it;
@@ -44,6 +50,7 @@ from torch import nn
 from ucf_vit_tpu_torch.ops.attention import AttnImpl, multi_head_attention
 from ucf_vit_tpu_torch.ops.attn_dropout import draw_seed
 from ucf_vit_tpu_torch.parallel.collectives import f_allreduce_b_identity, f_identity_b_allreduce
+from ucf_vit_tpu_torch.parallel.mesh import seq_shard
 
 # how a tensor-parallel parameter splits over tp, by the torch layout
 # ([out, in] weights): "rows" the output rows of a column-parallel layer (and its
@@ -193,7 +200,14 @@ class Dropout(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = _bernoulli_keep(x.shape, keep, x, self.generator)
+        shard = seq_shard()
+        if shard is not None:  # x: [B, N/sp, ...]
+            n = x.shape[1]
+            shape = (x.shape[0], n * shard.size) + tuple(x.shape[2:])
+            mask = _bernoulli_keep(shape, keep, x, self.generator)[:, shard.rank * n:
+                                                                     (shard.rank + 1) * n]
+        else:
+            mask = _bernoulli_keep(x.shape, keep, x, self.generator)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -322,12 +336,13 @@ class Attention(nn.Module, TensorParallel):
     heads (under tensor parallelism the rank's own, as many as its qkv width
     holds); q, k and v go to the attention as strided views of it. In training
     with `attn_drop > 0` each call draws an int32 dropout seed from
-    `host_generator` (the role of `seed_from_key` on the JAX side)."""
+    `host_generator` (the role of `seed_from_key` on the JAX side).
+    `sp_mode` is the sequence-parallel strategy under sp > 1."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: AttnImpl = AttnImpl.AUTO,
                  qkv_bias: bool = False, qk_norm: bool = False, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, seg_len: Optional[int] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 sp_mode: str = "auto", dtype: Optional[torch.dtype] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} must divide by num_heads {num_heads}")
@@ -336,6 +351,7 @@ class Attention(nn.Module, TensorParallel):
         self.attn_impl = attn_impl
         self.attn_drop = float(attn_drop)
         self.seg_len = seg_len
+        self.sp_mode = sp_mode
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.q_norm = layer_norm(self.head_dim, dtype) if qk_norm else None
         self.k_norm = layer_norm(self.head_dim, dtype) if qk_norm else None
@@ -366,6 +382,7 @@ class Attention(nn.Module, TensorParallel):
             impl=self.attn_impl, sm_scale=self.head_dim**-0.5, seg_len=self.seg_len,
             dropout_rate=rate,
             dropout_seed=draw_seed(self.host_generator) if rate > 0.0 else None,
+            sp_mode=self.sp_mode,
         )
         out = out.transpose(1, 2).reshape(b, n, -1)
         return self.proj_drop(self.proj(out) if tp is None else _row_parallel(self.proj, out, tp))
@@ -419,12 +436,12 @@ class Block(nn.Module):
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
                  init_values: Optional[float] = None, drop_path: float = 0.0,
                  gelu_approx: bool = True, seg_len: Optional[int] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 sp_mode: str = "auto", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm1 = layer_norm(dim, dtype)
         self.attn = Attention(dim, num_heads, attn_impl=attn_impl, qkv_bias=qkv_bias,
                               qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop,
-                              seg_len=seg_len, dtype=dtype)
+                              seg_len=seg_len, sp_mode=sp_mode, dtype=dtype)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = layer_norm(dim, dtype)

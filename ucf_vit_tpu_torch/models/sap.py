@@ -8,7 +8,8 @@ sequence reassembled into the `[B, C, (sqrt_len * p)^nd]` image,
 them by the patch size into 256 channels (kernel = stride = p, no bias) and
 the head maps those to the class logits `[B, num_classes, (side * p)^nd]`.
 The neck and the head take no dtype, as in the JAX model: under the bf16
-policy they compute in f32 on the final norm's f32 output.
+policy they compute in f32 on the final norm's f32 output. `seq_par_size > 1`
+raises NotImplementedError, as UNETR's does (`models/unetr.py`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from ucf_vit_tpu_torch.models.unet_blocks import conv, transp_conv
-from ucf_vit_tpu_torch.models.vit import VIT
+from ucf_vit_tpu_torch.models.vit import SP_PARTITION_ITEM, VIT, _not_ported
 
 NECK_CHANNELS = 256  # the reference's, hard-coded
 
@@ -29,7 +30,9 @@ class SAP(VIT):
     number of segmentation classes."""
 
     def __init__(self, num_classes: int = 2, class_token: bool = False,
-                 patch_drop_rate: float = 0.0, **vit_kwargs) -> None:
+                 patch_drop_rate: float = 0.0, seq_par_size: int = 1, **vit_kwargs) -> None:
+        if seq_par_size > 1:
+            raise _not_ported("seq_par_size > 1 for SAP", SP_PARTITION_ITEM)
         if class_token:
             raise AssertionError("SAP runs with class_token=False")
         if float(patch_drop_rate) != 0.0:

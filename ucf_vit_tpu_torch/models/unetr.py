@@ -15,7 +15,8 @@ Under `remat` each encoder block and each decoder block run under activation
 checkpointing in training (the JAX model's `nn.remat` of both); the decoder
 draws nothing, so its recompute needs no generator replay. The JAX model's
 `_spatial` sharding constraints name a layout for a mesh and are nothing on
-one device.
+one device; `seq_par_size > 1`, which the JAX model spends on that spatial
+partition, raises NotImplementedError until its slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +35,13 @@ from ucf_vit_tpu_torch.models.unet_blocks import (
     UnetrUpBlock,
     resize_linear_align_corners,
 )
-from ucf_vit_tpu_torch.models.vit import VIT, _checkpoint, _to_tuple
+from ucf_vit_tpu_torch.models.vit import (
+    SP_PARTITION_ITEM,
+    VIT,
+    _checkpoint,
+    _not_ported,
+    _to_tuple,
+)
 
 
 class UNETR(VIT):
@@ -44,7 +51,9 @@ class UNETR(VIT):
     def __init__(self, num_classes: int = 2, linear_decoder: bool = False,
                  feature_size: int = 16, skip_connection: bool = True,
                  img_size: Sequence[int] = (224, 224), in_chans: int = 3,
-                 class_token: bool = False, **vit_kwargs) -> None:
+                 class_token: bool = False, seq_par_size: int = 1, **vit_kwargs) -> None:
+        if seq_par_size > 1:
+            raise _not_ported("seq_par_size > 1 for UNETR", SP_PARTITION_ITEM)
         if class_token:
             raise ValueError("UNETR runs with class_token=False")
         if float(vit_kwargs.get("patch_drop_rate", 0.0)) != 0.0:

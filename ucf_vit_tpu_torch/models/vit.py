@@ -30,6 +30,20 @@ which embed each input channel takes; a `single_channel` batch is one
 variable's and is not merged. Pipelined blocks and MoE raise
 NotImplementedError until their slices (ROADMAP.md).
 
+Sequence parallelism (a model on a mesh with sp > 1, `shard_model`): each
+block stack (`_run_stack`: the encoder's blocks, and MAE's and
+DiffusionVIT's decoder blocks) splits its token stream over the sp group
+(`parallel.collectives.split`), runs its blocks on this rank's `N/sp`
+tokens inside `parallel.mesh.sequence_context` (the attention's `sp_mode`,
+the element dropout's slice) and joins the stream after them
+(`all_gather`); embeddings, masking, norms and heads run on the whole
+sequence on every sp rank. A stack whose blocks attend within segments
+(`seq_pack`) runs whole; so does one whose tokens sp does not divide, under
+EINSUM, and under FLASH it raises ValueError, as the JAX package's
+`shard_map` does. Under `remat` the recompute runs the block inside the
+same context, so it makes the same collectives in the same order on every
+rank.
+
 `scan_layers` names a parameter layout of the JAX package (block leaves
 stacked `[depth, ...]` under `lax.scan`, which keeps XLA's compile time
 constant in depth). PyTorch runs eagerly and has no compile time in depth,
@@ -59,7 +73,9 @@ from ucf_vit_tpu_torch.models.blocks import (
     layer_norm,
     set_generator,
 )
-from ucf_vit_tpu_torch.ops.attention import AttnImpl
+from ucf_vit_tpu_torch.ops.attention import AttnImpl, resolve_impl
+from ucf_vit_tpu_torch.parallel.collectives import all_gather, split
+from ucf_vit_tpu_torch.parallel.mesh import seq_shard_of, sequence_context
 from ucf_vit_tpu_torch.ops.pos_embed import (
     get_1d_sincos_pos_embed_from_grid,
     get_2d_sincos_pos_embed,
@@ -79,6 +95,11 @@ def _to_tuple(img_size, twoD: bool) -> Tuple[int, ...]:
     if len(t) != n:
         raise ValueError(f"img_size {img_size} does not match twoD={twoD}")
     return t
+
+
+# what UNETR and SAP raise under seq_par_size > 1: their sequence parallelism is the conv
+# decoder's spatial partition
+SP_PARTITION_ITEM = "item 11: the UNETR spatial partition"
 
 
 def _not_ported(feature: str, item: str) -> NotImplementedError:
@@ -130,6 +151,7 @@ class VIT(nn.Module):
         scan_layers: bool = False,
         pipe_par_size: int = 1,
         moe_num_experts: int = 0,
+        sp_mode: str = "auto",
         dtype: Optional[torch.dtype] = None,
         # the encoder blocks attend within segments of this length (MAE's seq_pack)
         block_seg_len: Optional[int] = None,
@@ -220,7 +242,7 @@ class VIT(nn.Module):
         self.block_kwargs = dict(attn_impl=attn_impl, qkv_bias=qkv_bias, qk_norm=qk_norm,
                                  proj_drop=proj_drop_rate, attn_drop=attn_drop_rate,
                                  init_values=init_values, gelu_approx=gelu_approx,
-                                 dtype=dtype)
+                                 sp_mode=sp_mode, dtype=dtype)
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio=mlp_ratio, drop_path=float(dpr[i]),
@@ -388,7 +410,7 @@ class VIT(nn.Module):
         tokens = torch.gather(tokens, 1, keep[:, :, None].expand(-1, -1, d))
         return torch.cat([prefix, tokens], dim=1) if npt else tokens
 
-    def _remat_block(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+    def _remat_block(self, blk, x: torch.Tensor) -> torch.Tensor:
         """`blk(x)` under activation checkpointing (flax `nn.remat(Block)`,
         `ucf_vit_tpu/models/vit.py:359`): the backward runs the block's
         forward again instead of keeping its activations. `checkpoint`
@@ -423,11 +445,28 @@ class VIT(nn.Module):
         return _checkpoint(run, x)
 
     def _run_stack(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-        """`blocks` in order, each under `remat` in training."""
+        """`blocks` in order, each under `remat` in training; under sp > 1 on
+        this rank's slice of the tokens (see the module's docstring)."""
         remat = self.remat and self.training and torch.is_grad_enabled()
+        shard = seq_shard_of(getattr(self, "mesh", None))
+        if shard is not None and any(b.attn.seg_len is not None for b in blocks):
+            shard = None  # segments attend within themselves: the stack runs whole
+        if shard is not None and x.shape[1] % shard.size:
+            if any(resolve_impl(b.attn.attn_impl, x.device) == AttnImpl.FLASH for b in blocks):
+                # what the JAX package's shard_map says of a sequence sp does not divide
+                raise ValueError(
+                    f"flash attention under seq_par_size {shard.size} needs the sequence "
+                    f"({x.shape[1]} tokens) to divide by it; use attn_impl EINSUM or a "
+                    "sequence that divides")
+            shard = None  # EINSUM attends over the whole stream, as on one device
+        if shard is not None:
+            x = split(x, shard.group, axis=1)
         for blk in blocks:
-            x = self._remat_block(blk, x) if remat else blk(x)
-        return x
+            def fn(x, blk=blk):
+                with sequence_context(shard):
+                    return blk(x)
+            x = self._remat_block(fn, x) if remat else fn(x)
+        return x if shard is None else all_gather(x, shard.group, axis=1)
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """The encoder's blocks."""

@@ -27,7 +27,24 @@ hands each device (`ucf_vit_tpu/ops/attention.py:193-290`). With dropout the
 seed is folded with the rank's (ddp, fsdp, tp) indices in that order, as
 there (`:233-243`), so that the local coordinates of different shards do not
 draw one mask; both impls fold it, so they still drop the same elements.
-Sequence parallelism (sp > 1) is not ported and raises.
+
+Under sequence parallelism (a block stack run inside
+`parallel.mesh.sequence_context`) each rank holds `N/sp` tokens of q, k and
+v, and FLASH runs the JAX package's `_sharded_flash` modes (`:181-289`,
+`SP_MODES`, the model's `sp_mode`):
+- `ring`: `ops.ring_attention`, the seed kept across sp, every chunk at its
+  global coordinates;
+- `ulysses`: an all-to-all swaps the sequence split for a head split, the
+  flash kernel runs the whole sequence on `H/sp` of the rank's heads (the
+  seed folded by the sp index too), and a second one swaps back;
+- `gather`: K and V gathered over sp, the rank's queries at their global
+  row `sp_index * N/sp` (`dropout_offset`);
+- `auto`: `ulysses` where the rank's heads divide by sp, else `gather`.
+EINSUM computes the same global attention: K and V gathered, the hash mask
+at the queries' global rows. A stack whose tokens sp does not divide runs
+whole on every sp rank, outside the context (`models/vit.py`), where EINSUM
+attends as on one device and FLASH raises, as the JAX package's `shard_map`
+does.
 """
 
 from __future__ import annotations
@@ -39,11 +56,19 @@ import torch
 
 from ucf_vit_tpu_torch.ops.attn_dropout import dense_keep_mask, fold_seed
 from ucf_vit_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention
-from ucf_vit_tpu_torch.parallel.mesh import active_mesh
+from ucf_vit_tpu_torch.ops.ring_attention import ring_attention
+from ucf_vit_tpu_torch.parallel.collectives import (
+    all_gather,
+    ulysses_heads_to_seq,
+    ulysses_seq_to_heads,
+)
+from ucf_vit_tpu_torch.parallel.mesh import SeqShard, active_mesh, seq_shard
 
 # The most keys that segment-masked attention under FLASH may take (routed to
 # EINSUM, which holds the whole [Nq, Nkv] score matrix).
 SHORT_SEQ_THRESHOLD = 1024
+# sequence-parallel strategies (`parallelism.sp_mode`)
+SP_MODES = ("auto", "ulysses", "ring", "gather")
 
 
 class AttnImpl(str, enum.Enum):
@@ -77,13 +102,15 @@ def einsum_attention(
     seg_len: Optional[int] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Reference attention: full score matrix, f32 softmax. [B, H, N, dh].
 
     seg_len: block-diagonal masking for sequence-packed batches (tokens only
     attend within their own seg_len-sized segment).
     dropout_rate/dropout_seed: drop post-softmax probabilities where the hash
-    mask of `dropout_seed` says so and rescale survivors by 1/(1 - rate)."""
+    mask of `dropout_seed` says so and rescale survivors by 1/(1 - rate);
+    the queries are the mask's rows from `row0` on."""
     s = torch.einsum("bhqd,bhkd->bhqk", q * sm_scale, k).float()
     if seg_len is not None:
         n_q, n_kv = s.shape[-2], s.shape[-1]
@@ -96,7 +123,7 @@ def einsum_attention(
         if dropout_seed is None:
             raise ValueError("attention dropout_rate > 0 needs a dropout_seed")
         b, h, n_q, n_kv = p.shape
-        keep = dense_keep_mask(dropout_seed, b * h, n_q, n_kv, dropout_rate,
+        keep = dense_keep_mask(dropout_seed, b * h, n_q, n_kv, dropout_rate, row0=row0,
                                device=p.device).view(p.shape)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
@@ -112,6 +139,36 @@ def sharded_seed(seed: int) -> int:
     return fold_seed(seed, mesh.index("ddp"), mesh.index("fsdp"), mesh.index("tp"))
 
 
+def _sequence_parallel(q, k, v, shard: SeqShard, impl: AttnImpl, sm_scale: float,
+                       sp_mode: str, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Attention of this rank's `N/sp` queries over the whole sequence, whose
+    keys and values the sp ranks hold in rank order (`_sharded_flash`'s
+    sequence-parallel branches); `seed` already folded over (ddp, fsdp,
+    tp)."""
+    group, sp, idx = shard.group, shard.size, shard.rank
+    if impl == AttnImpl.EINSUM:
+        k, v = all_gather(k, group, axis=2), all_gather(v, group, axis=2)
+        return einsum_attention(q, k, v, sm_scale=sm_scale, dropout_rate=rate,
+                                dropout_seed=seed, row0=idx * q.shape[2])
+    if sp_mode == "ring":
+        return ring_attention(q, k, v, group, sm_scale, dropout_rate=rate, dropout_seed=seed)
+    divisible = q.shape[1] % sp == 0
+    if sp_mode == "ulysses" and not divisible:
+        # the JAX package's assertion, raised explicitly so that it holds under -O
+        raise AssertionError(
+            f"sp_mode=ulysses needs local heads ({q.shape[1]}) divisible by seq_par_size "
+            f"({sp}); use sp_mode=ring or auto")
+    if divisible and sp_mode != "gather":  # ulysses, or auto
+        if rate > 0.0:  # after the swap each sp rank holds its own heads
+            seed = fold_seed(seed, idx)
+        q, k, v = (ulysses_seq_to_heads(t, group) for t in (q, k, v))
+        o = flash_attention(q, k, v, sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
+        return ulysses_heads_to_seq(o, group)
+    k, v = all_gather(k, group, axis=2), all_gather(v, group, axis=2)
+    return flash_attention(q, k, v, sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
+                           dropout_offset=(idx * q.shape[2] if rate > 0.0 else 0, 0))
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -122,6 +179,7 @@ def multi_head_attention(
     seg_len: Optional[int] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    sp_mode: str = "auto",
 ) -> torch.Tensor:
     """Dispatch scaled-dot-product attention over [B, H, N, dh] inputs.
 
@@ -130,13 +188,12 @@ def multi_head_attention(
     for by name takes any length.
     dropout_rate > 0 needs an int32 `dropout_seed`; FLASH drops inside the
     kernels and EINSUM with the same hash mask, both with the seed folded by
-    the active mesh's coordinates (`sharded_seed`). The XLA impl and
-    sequence parallelism are not ported and raise NotImplementedError."""
-    mesh = active_mesh()
-    if mesh is not None and mesh.size("sp") > 1:
-        raise NotImplementedError(
-            "sequence-parallel attention (seq_par_size > 1) is not ported yet "
-            "(ROADMAP.md, modules to port, item 11: sequence parallelism)")
+    the active mesh's coordinates (`sharded_seed`). Inside a sequence-split
+    block stack (`parallel.mesh.sequence_context`) q, k and v are this
+    rank's tokens and `sp_mode` picks the strategy (see the module's
+    docstring). The XLA impl is not ported and raises NotImplementedError."""
+    if sp_mode not in SP_MODES:
+        raise AssertionError(f"sp_mode {sp_mode!r} not in {SP_MODES}")
     if dropout_rate > 0.0 and dropout_seed is not None:
         dropout_seed = sharded_seed(dropout_seed)
     impl = resolve_impl(impl, q.device)
@@ -147,6 +204,10 @@ def multi_head_attention(
         )
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    shard = seq_shard()
+    if shard is not None:
+        return _sequence_parallel(q, k, v, shard, impl, sm_scale, sp_mode, dropout_rate,
+                                  dropout_seed)
     if impl == AttnImpl.FLASH and seg_len is None:
         return flash_attention(q, k, v, sm_scale=sm_scale, dropout_rate=dropout_rate,
                                dropout_seed=dropout_seed)

@@ -105,10 +105,11 @@ def _keep(q: torch.Tensor, n_kv: int, rate: float, seed: int, row0: int, col0: i
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
     dropout_rate: float = 0.0, seed: int = 0, row0: int = 0, col0: int = 0,
+    f32_o: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain PyTorch: `(o, lse)` for q
     `[B, H, Nq, dh]` and k, v `[B, H, Nkv, dh]`, computed in f32. o has q's
-    dtype, lse is f32 `[B*H, Nq]` (pre-dropout).
+    dtype (f32 with `f32_o`), lse is f32 `[B*H, Nq]` (pre-dropout).
 
     It stays apart from `ops.attention.einsum_attention` on purpose: that one
     is the port of the JAX package's EINSUM impl and keeps its dtype rules
@@ -122,8 +123,8 @@ def flash_attention_plain(
     if dropout_rate > 0.0:
         keep = _keep(q, k.shape[2], dropout_rate, seed, row0, col0)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
-    return o, lse.reshape(b * h, n_q)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return (o if f32_o else o.to(q.dtype)), lse.reshape(b * h, n_q)
 
 
 def _plain_p_dp(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0):
@@ -152,13 +153,14 @@ def _plain_dv(p, keep, dof, rate):
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
-    row0: int = 0, col0: int = 0,
+    row0: int = 0, col0: int = 0, f32_dq: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch, by their formula, in
     f32: `di = rowsum(do * o)`, `p = exp(s - lse)`, `p_v = keep ? p / (1 - r)
     : 0`, `dv = p_v^T do`, `dp = keep ? (do v^T) / (1 - r) : 0`, `ds = p (dp -
     di) scale`, `dk = ds^T q`, `dq = ds k`. Returns `(dq, dk, dv)` in the
-    inputs' dtype: the fused kernel's outputs, and the split route's."""
+    inputs' dtype (dq in f32 with `f32_dq`): the fused kernel's outputs, and
+    the split route's."""
     p, dp_di, keep, dof = _plain_p_dp(q, k, v, o, lse, do, sm_scale, dropout_rate, seed,
                                       row0, col0)
     dv = _plain_dv(p, keep, dof, dropout_rate)
@@ -167,7 +169,7 @@ def flash_attention_bwd_plain(
     del dp_di
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq if f32_dq else dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_dkv_plain(
@@ -206,7 +208,7 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _LONG3 * 4 + [ctypes.c_
 # per tensor map: dims d0..d3, byte strides s1..s3, the head's column step
 _MAP_ARGS = [ctypes.c_longlong] * 7 + [ctypes.c_int]
 _FWD_TMA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _MAP_ARGS * 3 + [ctypes.c_int] * 2
-                 + _LONG3 + [ctypes.c_float])
+                 + _LONG3 + [ctypes.c_int, ctypes.c_float])
 _BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _LONG3 * 7 + [
     ctypes.c_float]
 _ARGTYPES = {  # each source's C entry `ucf_<name>`
@@ -364,11 +366,12 @@ def _padded(t: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, -dh % 8))
 
 
-def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int, col0: int):
+def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int, col0: int,
+                    f32_o: bool = False):
     _check_kernel_inputs(q, k, v)
     b, h, n_q, dh = q.shape
     n_kv = k.shape[2]
-    o = _tokens_major(b, n_q, h, dh, q.dtype, q.device)
+    o = _tokens_major(b, n_q, h, dh, torch.float32 if f32_o else q.dtype, q.device)
     lse = torch.empty((b * h, n_q), dtype=torch.float32, device=q.device)
     source = _FWD_SOURCES[q.dtype]
     fn = _library(source)
@@ -386,7 +389,8 @@ def _flash_fwd_cuda(q, k, v, sm_scale: float, rate: float, seed: int, row0: int,
             err = fn(
                 *ptrs, o.data_ptr(), lse.data_ptr(),
                 b, h, n_q, n_kv, dh, *maps[0], *maps[1], *maps[2],
-                TMA_BOX[0], TMA_BOX[1], *o.stride()[:3], float(sm_scale), *drop, _stream(q),
+                TMA_BOX[0], TMA_BOX[1], *o.stride()[:3], int(f32_o), float(sm_scale), *drop,
+                _stream(q),
             )
         else:
             err = fn(
@@ -442,7 +446,8 @@ def _dq_workspace(b, n_q, h, dh, device) -> torch.Tensor:
     return ws.transpose(1, 2)[..., :dh]
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route):
+def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route,
+                    f32_dq=False):
     if do.stride(-1) != 1:
         do = do.contiguous()
     _check_kernel_inputs(q, k, v, do)
@@ -460,7 +465,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, rate, seed, row0, col0, route
     if route == "fused":
         dq = _dq_workspace(b, n_q, h, dh, q.device)
         _bwd_launch("fused", q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop)
-        dq = dq.to(q.dtype)
+        if not f32_dq:
+            dq = dq.to(q.dtype)
     else:
         dq = _tokens_major(b, n_q, h, dh, q.dtype, q.device)
         _bwd_launch("dkv", q, k, v, do, lse, di, dq, dk, dv, sm_scale, drop)
@@ -479,16 +485,18 @@ def bwd_route(dtype: torch.dtype, n_q: int, n_kv: int, dh: int) -> str:
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0,
-    row0: int = 0, col0: int = 0, route: Optional[str] = None,
+    row0: int = 0, col0: int = 0, route: Optional[str] = None, f32_dq: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`(dq, dk, dv)` of flash attention from the forward's `(o, lse)` and the
     output gradient `do`, all `[B, H, N, dh]` (lse f32 `[B*H, Nq]`). A CPU
     tensor takes the plain version; a CUDA tensor launches the backward
     kernel(s) of `route` ("fused", or "split" for the dkv + dq pair; None
-    takes `bwd_route`'s) or raises."""
+    takes `bwd_route`'s) or raises. With `f32_dq` the fused route returns
+    its f32 dq workspace as it is (a caller that sums partial dq's keeps
+    them in f32); the split route's dq kernel writes q's dtype either way."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale, dropout_rate, seed,
-                                         row0, col0)
+                                         row0, col0, f32_dq)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd runs on cpu or cuda, not {q.device.type}")
     _check_shapes(q, k, v)
@@ -497,7 +505,7 @@ def flash_attention_bwd(
     if route not in BWD_ROUTES:
         raise ValueError(f"route must be one of {BWD_ROUTES}, got {route!r}")
     return _flash_bwd_cuda(q, k, v, o, lse, do, sm_scale, dropout_rate, seed, row0, col0,
-                           route)
+                           route, f32_dq)
 
 
 # Backward kernel launches since the counts were last reset (CPU calls do not
@@ -524,11 +532,11 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------- autograd + entry
 
 
-def _forward(q, k, v, sm_scale, rate, seed, row0, col0):
+def _forward(q, k, v, sm_scale, rate, seed, row0, col0, f32_o=False):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, sm_scale, rate, seed, row0, col0)
+        return flash_attention_plain(q, k, v, sm_scale, rate, seed, row0, col0, f32_o)
     if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, sm_scale, rate, seed, row0, col0)
+        return _flash_fwd_cuda(q, k, v, sm_scale, rate, seed, row0, col0, f32_o)
     raise RuntimeError(f"flash_attention runs on cpu or cuda, not {q.device.type}")
 
 
@@ -563,11 +571,14 @@ def flash_attention(
     dropout_seed: Optional[int] = None,
     dropout_offset: Tuple[int, int] = (0, 0),
     return_lse: bool = False,
+    f32_o: bool = False,
 ):
     """Flash attention over q `[B, H, Nq, dh]`, k and v `[B, H, Nkv, dh]`.
 
-    Returns o `[B, H, Nq, dh]` in q's dtype, and with `return_lse` also the
-    f32 log-sum-exp `[B*H, Nq]` that the backward needs. `dropout_rate` drops
+    Returns o `[B, H, Nq, dh]` in q's dtype (with `f32_o` in f32, as the
+    kernel holds it before rounding; not differentiable), and with
+    `return_lse` also the f32 log-sum-exp `[B*H, Nq]` that the backward
+    needs. `dropout_rate` drops
     attention probabilities inside the kernel by the hash mask of
     `dropout_seed` (an int32) at global coordinates offset by
     `dropout_offset` = (row0, col0). A CPU tensor goes through the plain
@@ -583,9 +594,11 @@ def flash_attention(
     seed = int(dropout_seed) if rate > 0.0 else 0
     row0, col0 = (int(x) for x in dropout_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if f32_o:
+            raise ValueError("f32_o has no backward: call it without grad")
         o, lse = FlashAttentionFn.apply(q, k, v, float(sm_scale), rate, seed, row0, col0)
     else:
-        o, lse = _forward(q, k, v, sm_scale, rate, seed, row0, col0)
+        o, lse = _forward(q, k, v, sm_scale, rate, seed, row0, col0, f32_o)
     return (o, lse) if return_lse else o
 
 

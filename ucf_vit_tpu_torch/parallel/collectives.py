@@ -17,11 +17,25 @@ index is its rank in that group.
 | all_gather                 | all-gather     | reduce-scatter |
 | reduce_scatter             | reduce-scatter | all-gather     |
 | all_to_all                 | all-to-all     | all-to-all     |
+| split                      | this rank's chunk | zero-padded |
 
 All reductions are sums. The forward and backward of one pair run the same
 collectives on every rank of the group, so every rank must call them
 together. With `tiled=False` the JAX package stacks the gathered pieces on a
 new axis (and `reduce_scatter` drops it); the same here.
+
+Sequence parallelism splits the token stream with `split` and joins it with
+`all_gather` (`models/vit.py`). Between the two, each rank holds its chunk
+of the sequence and that chunk's true gradient; outside them the stream is
+whole on every sp rank and its gradient is held as partial sums over the
+group: `split` hands back its chunk's gradient zero-padded, and the train
+step backpropagates `loss / sp` on each rank (whose sum over the group is
+the loss's gradient) and sums every parameter's gradient over sp
+(`parallel/train_step.py`). So `all_gather`'s reduce-scatter backward is
+the right one there: it sums the partials and keeps this rank's chunk.
+
+`ring_hop` moves tensors one step round the sp ring, to rank + 1 from
+rank - 1 (`ops/ring_attention.py`).
 """
 
 from __future__ import annotations
@@ -77,6 +91,24 @@ def _a2a(x: torch.Tensor, group, split_axis: int, concat_axis: int, tiled: bool)
     dist.all_to_all_single(got, sent, group=group)
     outs = got.unbind(0)
     return torch.cat(outs, dim=concat_axis) if tiled else torch.stack(outs, dim=concat_axis)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        if x.shape[axis] % n:
+            raise ValueError(f"dim {axis} of size {x.shape[axis]} does not split over {n}")
+        ctx.args = (axis, r, x.shape)
+        return x.chunk(n, dim=axis)[r].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, r, shape = ctx.args
+        full = g.new_zeros(shape)
+        m = g.shape[axis]
+        full.narrow(axis, r * m, m).copy_(g)
+        return full, None, None
 
 
 class _BroadcastIdentity(torch.autograd.Function):
@@ -222,3 +254,43 @@ def ulysses_seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
     """[B, H, N/sp, dh] -> [B, H/sp, N, dh]: the inverse of
     `ulysses_heads_to_seq`."""
     return all_to_all(x, group, split_axis=1, concat_axis=2)
+
+
+def split(x: torch.Tensor, group, axis: int = 1) -> torch.Tensor:
+    """This rank's chunk of `axis` (equal chunks in rank order); the
+    gradient comes back zero-padded to `x`'s shape: this rank's share of a
+    gradient held as partial sums over the group."""
+    return _Split.apply(x, group, axis)
+
+
+def ring_hop(tensors, group, async_op: bool = False):
+    """Send `tensors` (of one dtype) to the next rank of `group` and receive
+    the previous rank's in their place: the new tensors, or with `async_op`
+    `(tensors, wait)` where `wait()` must run before they are read.
+
+    The hop is one `all_to_all_single` whose split sizes send the tensors,
+    as one flat buffer, to rank + 1 and take rank - 1's. Over gloo on CUDA
+    tensors (two ranks sharing one card, where NCCL refuses), `send`/`recv`
+    and `batch_isend_irecv` fail ("writev ... Bad address": gloo reads the
+    device pointer as a host address) and `all_to_all_single` carries the
+    hop (`tools/gloo_probe.py`, PERF.md); the same call runs over NCCL and
+    over gloo on the CPU."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    nxt, prv = (r + 1) % n, (r - 1) % n
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    got = torch.empty_like(flat)
+    m = flat.numel()
+    work = dist.all_to_all_single(got, flat, [m if j == prv else 0 for j in range(n)],
+                                  [m if j == nxt else 0 for j in range(n)], group=group,
+                                  async_op=True)
+    out = [p.view(t.shape) for p, t in zip(got.split([t.numel() for t in tensors]), tensors)]
+
+    def wait():
+        nonlocal flat
+        work.wait()
+        flat = None  # the send buffer may go
+
+    if async_op:
+        return out, wait
+    wait()
+    return out

@@ -33,6 +33,17 @@ joins the shards back by the same split.
 `mesh_context` makes a mesh the active one: the attention reads its
 coordinates to fold dropout seeds, and the losses its data group.
 
+Sequence parallelism (sp > 1) splits the token stream of each block stack
+over the sp group (`models/vit.py`, `VIT._run_stack`): the stack runs
+inside `sequence_context(SeqShard(...))`, which tells the attention
+(`ops/attention.py`) and the element dropout (`models/blocks.py`) that the
+tokens in hand are this rank's `1/sp` of the sequence. The JAX package
+shards the residual stream's `seq` dim over sp where sp divides it and
+leaves it replicated where it does not (`fit_spec_to_shape`); a stack whose
+tokens sp does not divide runs whole on every sp rank, outside any
+`sequence_context`, where its attention is EINSUM (it attends globally),
+and raises where it is FLASH, as the JAX package's `shard_map` does.
+
 `eval_mesh` is the mesh that evaluation, generation and serving run on
 (`ucf_vit_tpu/inference.py:49-75`): the config's, when the launch has its
 processes, else None (one process evaluates the whole model, as the JAX
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import datetime
 import os
 from typing import Dict, Optional, Tuple
@@ -65,13 +77,14 @@ DATA_AXES = (AXIS_DDP, AXIS_EP, AXIS_FSDP)
 FSDP_AXES = (AXIS_DDP, AXIS_FSDP)
 # the `parallelism:` axes not ported yet, with their ROADMAP.md items
 REFUSED_AXES = {
-    "seq_par_size": "item 11: sequence parallelism",
     "pipe_par_size": "item 12: pipeline + MoE",
     "expert_par_size": "item 12: pipeline + MoE",
 }
 
 _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch_mesh",
                                                               default=None)
+_SEQ_SHARD: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch_seq_shard",
+                                                            default=None)
 
 
 class Mesh:
@@ -112,6 +125,39 @@ class Mesh:
     def fsdp_mesh(self):
         """The 2-D (ddp, fsdp) submesh this rank belongs to."""
         return self.device_mesh[FSDP_AXES]
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """The sp group a block stack's tokens are split over: its size and this
+    rank's index in it."""
+
+    group: object
+    size: int
+    rank: int
+
+
+def seq_shard_of(mesh: Optional[Mesh]) -> Optional[SeqShard]:
+    """The mesh's sp group as a SeqShard; None without a mesh or with sp 1."""
+    if mesh is None or mesh.size(AXIS_SP) == 1:
+        return None
+    return SeqShard(mesh.group(AXIS_SP), mesh.size(AXIS_SP), mesh.index(AXIS_SP))
+
+
+def seq_shard() -> Optional[SeqShard]:
+    """The SeqShard of the block stack running now (None outside one, or
+    without sp)."""
+    return _SEQ_SHARD.get()
+
+
+@contextlib.contextmanager
+def sequence_context(shard: Optional[SeqShard]):
+    """Run the block inside with `shard` as its sequence split."""
+    token = _SEQ_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _SEQ_SHARD.reset(token)
 
 
 def launched() -> Tuple[int, int, Optional[str]]:
@@ -203,8 +249,8 @@ def eval_mesh(cfg, device: Optional[torch.device] = None) -> Optional[Mesh]:
     launch of one process (a config trained on many devices evaluates on
     one). A launch of more (torchrun or srun) joins the job
     (`init_distributed`) and builds the config's mesh; it raises where the
-    config asks for sp, pp or ep (not ported) or for another number of
-    processes than were launched."""
+    config asks for pp or ep (not ported) or for another number of processes
+    than were launched."""
     size = int(cfg.world_size)
     if size <= 1:
         return None

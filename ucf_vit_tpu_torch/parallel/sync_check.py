@@ -10,7 +10,9 @@ ranks meet in one all-reduce of a `[world, 2]` tensor. Ranks whose
 coordinates agree on every mesh axis a parameter is sharded over (tp for the
 tensor-parallel leaves, fsdp under FSDP) hold the same bytes when healthy:
 they run the same arithmetic on the same inputs, so their fingerprints are
-bit-equal, and any difference is a real divergence. `trainer.sync_check_every:
+bit-equal, and any difference is a real divergence. The sp ranks of a
+sequence-parallel run are such replicas: every one of them sums the same
+partial gradients over the sp group and applies the same update. `trainer.sync_check_every:
 N` runs the check every N steps and raises `ReplicaDesyncError` naming the
 divergent ranks.
 """

@@ -29,6 +29,15 @@ microbatches but the last skip the gradient reduction
 means over the data ranks, the global batch's; a loss scale's overflow flag
 is agreed by every rank, so that no rank skips a step another takes.
 
+Sequence parallelism (sp > 1): the parameters are replicated over sp, and
+the sp ranks of one data rank run the same batch, each its own slice of
+every block stack's tokens (`models/vit.py`). Each rank backpropagates
+`loss / sp`, so that every gradient it holds is a partial sum over the sp
+group (its tokens' share inside the split stream, `1/sp` of the rest,
+`parallel/collectives.py`), and the step sums the gradients over sp
+(`sum_over_sp`) before the clip and the update; the data-axis mean, the
+clip's norm (over fsdp and tp) and the overflow agreement are unchanged.
+
 `offload_opt` is not ported: the JAX package keeps it as a
 measured-and-rejected study artifact that no config reaches (`:125-137`).
 """
@@ -95,8 +104,7 @@ def shard_model(model: torch.nn.Module, mesh: Optional[Mesh]) -> torch.nn.Module
     model.mesh, model.tp_layout = mesh, {}
     if mesh is None:
         return model
-    for axis, item in (("sp", "item 11: sequence parallelism"),
-                       ("pp", "item 12: pipeline + MoE"), ("ep", "item 12: pipeline + MoE")):
+    for axis, item in (("pp", "item 12: pipeline + MoE"), ("ep", "item 12: pipeline + MoE")):
         if mesh.size(axis) > 1:
             raise NotImplementedError(f"{axis} > 1 is not ported yet (ROADMAP.md, modules to "
                                       f"port, {item})")
@@ -146,7 +154,12 @@ def average_gradients(params: List[torch.Tensor], group, n: int,
                       bucket_bytes: int = DDP_BUCKET_BYTES) -> None:
     """Each `.grad` replaced by its mean over `group` (of `n` ranks), in
     buckets of one dtype and at most `bucket_bytes`: plain DDP's reduction."""
-    grads = [p.grad for p in params if p.grad is not None]
+    _reduce_in_buckets([p.grad for p in params if p.grad is not None], group, n,
+                       bucket_bytes)
+
+
+def _reduce_in_buckets(grads: List[torch.Tensor], group, n: int, bucket_bytes: int) -> None:
+    """Each of `grads` replaced, in place, by its sum over `group` over `n`."""
     bucket: list = []
 
     def flush():
@@ -170,6 +183,13 @@ def average_gradients(params: List[torch.Tensor], group, n: int,
         bucket.append(g)
         size += g.numel() * g.element_size()
     flush()
+
+
+def sum_over_sp(params: List[torch.Tensor], mesh: Mesh) -> None:
+    """Each `.grad` (its local shard under FSDP) replaced by its sum over
+    the sp group, in buckets as plain DDP's mean."""
+    _reduce_in_buckets([local(p.grad) for p in params if p.grad is not None],
+                       mesh.group("sp"), 1, DDP_BUCKET_BYTES)
 
 
 def _data_mean(loss: torch.Tensor, aux: Dict[str, torch.Tensor], mesh: Mesh):
@@ -205,6 +225,7 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
         for p in params:
             p.grad = None
         scale = state.loss_scale.scale if state.loss_scale is not None else None
+        sp = mesh.size("sp") if mesh is not None else 1
         micro = _split(batch, accum_steps) if accum_steps > 1 else [batch]
         loss_sum, aux_sum = 0.0, None
         with mesh_context(mesh):
@@ -213,7 +234,8 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
                     model.set_requires_gradient_sync(i == len(micro) - 1)
                 loss, aux = (loss_fn(model, mb) if var_ids is None
                              else loss_fn(model, mb, var_ids=var_ids))
-                (loss * scale if scale is not None else loss).backward()
+                seed = loss * scale if scale is not None else loss
+                (seed / sp if sp > 1 else seed).backward()
                 loss_sum = loss_sum + loss.detach()
                 aux = {k: v.detach() for k, v in (aux or {}).items()}
                 aux_sum = aux if aux_sum is None else {k: aux_sum[k] + aux[k] for k in aux}
@@ -223,6 +245,8 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
         with torch.no_grad():
             if mesh is not None and mesh.data_size > 1 and not fsdp:
                 average_gradients(params, mesh.data_group, mesh.data_size)
+            if sp > 1:
+                sum_over_sp(params, mesh)
             grads = [p.grad for p in params if p.grad is not None]
             if accum_steps > 1:
                 for g in grads:

@@ -54,7 +54,9 @@ diffusion.
   (``parallel.mesh.eval_mesh``; ``ucf_vit_tpu/serve.py:189-210, 316-376,
   646-667``): the weights by ``shard_model``, each batch split over the data
   ranks (``max_batch`` must divide over them) and the result gathered, the
-  reverse chain split by rows. Rank 0 alone binds the port and runs the
+  reverse chain split by rows; under sequence parallelism the sp ranks of a
+  data rank run its rows together, the blocks split over their tokens. Rank
+  0 alone binds the port and runs the
   micro-batcher; the other ranks wait in ``serve_follower`` and run each
   operation rank 0 broadcasts to them (``Replicas``: predict, generate,
   reload, stop). SIGTERM (or Ctrl-C) to rank 0 stops the server and sends

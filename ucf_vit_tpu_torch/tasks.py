@@ -50,7 +50,8 @@ def _attn_impl(cfg: Config) -> AttnImpl:
 def _common_kwargs(cfg: Config) -> dict:
     """VIT keyword arguments from the config, read as the JAX package reads
     them (`ucf_vit_tpu/tasks.py:40-95`). `remat` defaults to `fsdp_size > 1`
-    as there; the sharding knobs (microbatches, sp_mode) are not read."""
+    as there; `sp_mode` rides the model (`:76-78`), not a global; the
+    microbatches knob is not read."""
     ia = cfg.init_args
     nd = 2 if cfg.twoD else 3
     return dict(
@@ -86,6 +87,7 @@ def _common_kwargs(cfg: Config) -> dict:
         ),
         pipe_par_size=int(cfg.parallelism.get("pipe_par_size", 1)),
         moe_num_experts=int(ia.get("moe_num_experts", 0)),
+        sp_mode=str(cfg.parallelism.get("sp_mode", "auto")).lower(),
         dtype=torch.bfloat16 if cfg.trainer.get("data_type") == "bfloat16" else None,
     )
 
@@ -299,6 +301,7 @@ def build_unetr(cfg: Config) -> UNETR:
         feature_size=int(ia.get("feature_size", 16)),
         skip_connection=bool(ia.get("skip_connection", True)),
         sqrt_len_method=cfg.adaptive_patching,
+        seq_par_size=int(cfg.parallelism.get("seq_par_size", 1)),
         **_common_kwargs(cfg),
     )
 
@@ -340,7 +343,7 @@ def build_sap(cfg: Config) -> SAP:
     """`build_sap`'s model (`ucf_vit_tpu/tasks.py:290-298`): adaptive patching
     by the sqrt-len method."""
     return SAP(num_classes=num_classes(cfg), sqrt_len_method=cfg.adaptive_patching,
-               **_common_kwargs(cfg))
+               seq_par_size=int(cfg.parallelism.get("seq_par_size", 1)), **_common_kwargs(cfg))
 
 
 def sap_loss(cfg: Config) -> Callable:

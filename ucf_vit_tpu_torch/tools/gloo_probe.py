@@ -1,6 +1,6 @@
 """Which collectives gloo carries on CUDA tensors, with two ranks on one card:
 
-    python -m ucf_vit_tpu_torch.tools.gloo_probe
+    python -m ucf_vit_tpu_torch.tools.gloo_probe [--only NAME ...]
 
 NCCL refuses two ranks on one device, so a sharded run of the port on one
 card goes over gloo; this finds out, once, what gloo's CUDA path does in the
@@ -12,8 +12,14 @@ CUDA mesh, a small MLP), the same with `DTensor.full_tensor` of a gradient
 after it, and two train steps of a small ViT through the port's trainer in
 each mode (ddp 2, tp 2, fsdp 2; f32, EINSUM attention, so that nothing is
 built), then their parameters gathered whole as the checkpoint gathers them,
-beside the same steps on one rank. A test whose ranks have not both
-answered within PER_TEST_S hung (a rank waits in a collective the other
+beside the same steps on one rank. The point-to-point tests (`P2P`) carry
+the sequence-parallel ring's hop: `dist.send`/`recv` and
+`dist.batch_isend_irecv` of a pair of `P2POp`s, and the same hop as an
+`all_to_all_single` whose split sizes send the whole chunk to the next rank,
+each at the ring's chunk sizes (`P2P_BYTES`: mae_long's K/V chunk of the
+encoder and of the decoder at sp 2 in bf16, and the f32 dk/dv beside them),
+checked and timed (the median of `P2P_REPS` hops, ms on the host clock).
+A test whose ranks have not both answered within PER_TEST_S hung (a rank waits in a collective the other
 left) and its pair is killed. Prints a line a test as it ends and a summary
 line.
 """
@@ -98,6 +104,69 @@ def _collectives(rank: int, world: int, only=None) -> dict:
     return {name: _check(fn) for name, fn in tests.items() if only is None or name in only}
 
 
+# the ring's chunks at mae_long's sp 2 shapes: a rank's K (or V) of the encoder,
+# [2, 12, 4096, 64], and of the decoder, [2, 6, 16384, 96], in bf16; the f32 dk/dv
+# that ride with them are twice as large
+P2P_BYTES = (2 * 12 * 4096 * 64 * 2, 2 * 6 * 16384 * 96 * 2, 2 * 12 * 4096 * 64 * 4,
+             2 * 6 * 16384 * 96 * 4)
+P2P_REPS = 5
+
+
+def _hop(kind: str, x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """One ring hop: `x` to rank + 1, the result from rank - 1."""
+    got = torch.empty_like(x)
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    if kind == "send_recv":  # blocking: the even ranks send first
+        if rank % 2 == 0:
+            dist.send(x, nxt)
+            dist.recv(got, prv)
+        else:
+            dist.recv(got, prv)
+            dist.send(x, nxt)
+    elif kind == "batch_isend_irecv":
+        ops = [dist.P2POp(dist.isend, x, nxt), dist.P2POp(dist.irecv, got, prv)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    else:  # all_to_all_single: every split empty but the one to rank + 1
+        n = x.numel()
+        out_splits = [n if r == nxt else 0 for r in range(world)]
+        in_splits = [n if r == prv else 0 for r in range(world)]
+        dist.all_to_all_single(got.view(-1), x.reshape(-1), in_splits, out_splits)
+    return got
+
+
+def _p2p(kind: str, rank: int, world: int) -> str:
+    """"ok (ms a hop at each of P2P_BYTES)" or what went wrong, for `kind` on
+    CUDA tensors."""
+    def run():
+        times = []
+        for nbytes in P2P_BYTES:
+            x = torch.arange(nbytes // 4, device="cuda", dtype=torch.float32) + 1e6 * rank
+            want = torch.arange(nbytes // 4, device="cuda", dtype=torch.float32) + 1e6 * (
+                (rank - 1) % world)
+            hops = []
+            for _ in range(P2P_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = _hop(kind, x, rank, world)
+                torch.cuda.synchronize()
+                hops.append((time.perf_counter() - t0) * 1e3)
+                if not torch.equal(got, want):
+                    return None
+            times.append(sorted(hops)[len(hops) // 2])
+        return times
+
+    try:
+        times = run()
+    except Exception as e:  # a probe: every failure is the finding
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    if times is None:
+        return "wrong result"
+    return "ok (" + ", ".join(f"{b / 1e6:.1f} MB {t:.1f} ms" for b, t in
+                              zip(P2P_BYTES, times)) + ")"
+
+
+P2P = ("send_recv", "batch_isend_irecv", "a2a_hop")
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
                "reduce_scatter_tensor", "all_to_all_single", "fsdp_step", "full_tensor")
 
@@ -141,7 +210,9 @@ def _rank(rank: int, store: str, name: str, queue) -> None:
     sys.path.insert(0, REPO)
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
-    if name in MODES:
+    if name in P2P:
+        out = _p2p(name, rank, 2)
+    elif name in MODES:
         try:
             out = _train(_vit_raw(MODES[name]))
         except Exception as e:  # a probe: every failure is the finding
@@ -182,14 +253,19 @@ def main() -> int:
         print("no CUDA card", flush=True)
         return 1
     print(f"torch {torch.__version__}, {torch.cuda.get_device_name(0)}", flush=True)
+    names = COLLECTIVES + P2P + tuple(MODES)
+    if "--only" in sys.argv:
+        names = tuple(sys.argv[sys.argv.index("--only") + 1:])
     results = {}
-    for name in COLLECTIVES + tuple(MODES):
+    for name in names:
         t0 = time.perf_counter()
         results[name] = _probe(name)
         print(f"{name}: {json.dumps(results[name])} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
-    print(f"one rank: {json.dumps(_train(_vit_raw({})))}", flush=True)
-    carried = [k for k in COLLECTIVES if results[k] == ["ok", "ok"]]
+    if set(MODES) & set(names):
+        print(f"one rank: {json.dumps(_train(_vit_raw({})))}", flush=True)
+    carried = [k for k in COLLECTIVES + P2P
+               if k in results and all(r.startswith("ok") for r in results[k])]
     print(f"gloo on CUDA tensors carries: {', '.join(carried) or 'nothing'}", flush=True)
     return 0
 
