@@ -685,66 +685,103 @@ def _sass_counts(sass: str, pattern: str) -> dict:
     return counts
 
 
+# the source nvcc takes longest over (24 instances: minutes, where the others take
+# seconds); it goes on building while the phases that need none of it run
+SLOW_SOURCE = "flash_bwd_tf32"
+_SLOW_BUILD: dict = {}
+
+
 def phase_build():
+    """Every kernel source built by nvcc, one process each, started together,
+    and each build's report and SASS checked (`_check_build`). SLOW_SOURCE
+    goes on building in the background: until `phase_build_rest` has joined
+    it, `build.build` of that source waits for it (it starts no second
+    nvcc), and the phases run before that launch none of its kernels."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ucf_vit_tpu_torch.ops import build
 
     def one(name):
         t0 = time.perf_counter()
-        path = build.build(name)
+        path = made(name)
         seconds = time.perf_counter() - t0
         return name, path, seconds, _sass(path)  # each library's SASS read in its thread too
 
+    def waiting(name):
+        if name == SLOW_SOURCE:
+            _SLOW_BUILD["future"].result()
+        return made(name)
+
+    made = build.build
     t0 = time.perf_counter()
     sources = (*TF32_SOURCES, *SM90_SOURCES, "int8_gemm")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
-        built = list(pool.map(one, sources))
-    log(f"[build] {len(sources)} sources built and their SASS read in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for name, path, seconds, sass in built:
-        # ptxas reports each template instance: summarise registers and spills
-        entry, regs, spills, by_entry = "", [], [], []
-        for line in path.with_suffix(".log").read_text().splitlines():
-            m = KERNEL_NAME.search(line)
-            if "Compiling entry function" in line and m:
-                entry = f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
-            if m := re.search(r"Used (\d+) registers", line):
-                regs.append(int(m.group(1)))
-                by_entry.append(f"{entry} {m.group(1)}")
-            if (m := re.search(r"(\d+) bytes spill stores", line)) and int(m.group(1)):
-                spills.append(f"{entry} ({m.group(1)} bytes)")
-        log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
-            f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
-            + (f": {', '.join(spills)}" if spills else ""))
-        log(f"[build] {name} registers: {', '.join(by_entry)}")
-        if name in ("flash_fwd_tf32", "flash_bwd_tf32"):
-            # the diffusion decoders' instances: printed, not held
-            wide = ("<Li96E", "<Li128E")
-            log(f"[build] {name} at DH = 96 and 128 (the diffusion decoders'): registers "
-                f"{', '.join(e for e in by_entry if any(w in e for w in wide))}; spills "
-                f"{', '.join(sp for sp in spills if any(w in sp for w in wide)) or 'none'}")
-        if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
-            fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
-        if name in NO_SPILL and any(NO_SPILL[name] in sp for sp in spills):
-            fail(f"{name}: {NO_SPILL[name]} spills: {spills}")
-        # every instance must run on the tensor cores (and the TMA forward load by TMA)
-        for pattern in (TENSOR_CORE_SASS.get(name), TMA_SASS.get(name)):
-            if pattern is None:
-                continue
-            counts = _sass_counts(sass, pattern)
-            for fn, n in sorted(counts.items()):
-                m = KERNEL_NAME.search(fn)
-                instance = fn if m is None else (
-                    f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1))
-                log(f"[build] {name}: {n:4d} {pattern} in {instance}")
-            if len(counts) != len(regs):
-                fail(f"{name}: {len(counts)} entry functions in the SASS for {len(regs)} compiled")
-            held = {fn: n for fn, n in counts.items()
-                    if name not in SASS_EXEMPT or SASS_EXEMPT[name] not in fn}
-            if not held or not all(held.values()):
-                fail(f"{name}: every entry (but {SASS_EXEMPT.get(name)}) must hold {pattern}: "
-                     f"{counts}")
+    pool = ThreadPoolExecutor(len(sources))  # one nvcc per source, started together
+    futures = {name: pool.submit(one, name) for name in sources}
+    pool.shutdown(wait=False)
+    _SLOW_BUILD.update(future=futures[SLOW_SOURCE], t0=t0, made=made)
+    build.build = waiting
+    for name in sources:
+        if name != SLOW_SOURCE:
+            _check_build(*futures[name].result())
+    log(f"[build] {len(sources) - 1} sources built and their SASS read in "
+        f"{time.perf_counter() - t0:.2f} s; {SLOW_SOURCE} goes on building")
+
+
+def phase_build_rest():
+    """Wait for SLOW_SOURCE's build and check it (`_check_build`)."""
+    from ucf_vit_tpu_torch.ops import build
+
+    built = _SLOW_BUILD["future"].result()
+    build.build = _SLOW_BUILD["made"]
+    log(f"[build] {SLOW_SOURCE} ready {time.perf_counter() - _SLOW_BUILD['t0']:.2f} s after "
+        "the builds started")
+    _check_build(*built)
+
+
+def _check_build(name: str, path, seconds: float, sass: str) -> None:
+    """A library's ptxas report (registers, spills) and SASS held to the gates."""
+    # ptxas reports each template instance: summarise registers and spills
+    entry, regs, spills, by_entry = "", [], [], []
+    for line in path.with_suffix(".log").read_text().splitlines():
+        m = KERNEL_NAME.search(line)
+        if "Compiling entry function" in line and m:
+            entry = f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+        if m := re.search(r"Used (\d+) registers", line):
+            regs.append(int(m.group(1)))
+            by_entry.append(f"{entry} {m.group(1)}")
+        if (m := re.search(r"(\d+) bytes spill stores", line)) and int(m.group(1)):
+            spills.append(f"{entry} ({m.group(1)} bytes)")
+    log(f"[build] {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
+        f"{min(regs)}-{max(regs)} registers; spills in {len(spills)}"
+        + (f": {', '.join(spills)}" if spills else ""))
+    log(f"[build] {name} registers: {', '.join(by_entry)}")
+    if name in ("flash_fwd_tf32", "flash_bwd_tf32"):
+        # the diffusion decoders' instances: printed, not held
+        wide = ("<Li96E", "<Li128E")
+        log(f"[build] {name} at DH = 96 and 128 (the diffusion decoders'): registers "
+            f"{', '.join(e for e in by_entry if any(w in e for w in wide))}; spills "
+            f"{', '.join(sp for sp in spills if any(w in sp for w in wide)) or 'none'}")
+    if name in NO_SPILL_AT_64 and any("<Li64E" in sp for sp in spills):
+        fail(f"{name}: a DH = 64 instance (the main path's) spills: {spills}")
+    if name in NO_SPILL and any(NO_SPILL[name] in sp for sp in spills):
+        fail(f"{name}: {NO_SPILL[name]} spills: {spills}")
+    # every instance must run on the tensor cores (and the TMA forward load by TMA)
+    for pattern in (TENSOR_CORE_SASS.get(name), TMA_SASS.get(name)):
+        if pattern is None:
+            continue
+        counts = _sass_counts(sass, pattern)
+        for fn, n in sorted(counts.items()):
+            m = KERNEL_NAME.search(fn)
+            instance = fn if m is None else (
+                f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1))
+            log(f"[build] {name}: {n:4d} {pattern} in {instance}")
+        if len(counts) != len(regs):
+            fail(f"{name}: {len(counts)} entry functions in the SASS for {len(regs)} compiled")
+        held = {fn: n for fn, n in counts.items()
+                if name not in SASS_EXEMPT or SASS_EXEMPT[name] not in fn}
+        if not held or not all(held.values()):
+            fail(f"{name}: every entry (but {SASS_EXEMPT.get(name)}) must hold {pattern}: "
+                 f"{counts}")
 
 
 def _bound(flops: float, nbytes: float, dtype_name: str):
@@ -5538,12 +5575,16 @@ def _step_losses(path: str) -> list:
     return [r["loss"] for r in _jsonl(path) if "loss" in r and "step" in r]
 
 
+TALLY_KEYS = ("bytes", "steps", "kind_steps")
+
+
 @contextlib.contextmanager
 def _timed_steps(times: list, tally: dict | None = None):
     """The trainer's train step timed a call at a time (the card synchronised
     around it) while the block runs: `train.make_train_step` wrapped. With
     `tally` (`_counting_collectives`'), each step's bytes are appended to
-    `tally["steps"]`."""
+    `tally["steps"]`, and by kind to `tally["kind_steps"]` where it has that
+    list."""
     import torch
 
     from ucf_vit_tpu_torch import train
@@ -5557,11 +5598,15 @@ def _timed_steps(times: list, tally: dict | None = None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             before = tally["bytes"] if tally is not None else 0
+            kinds = dict(tally) if tally is not None else {}
             out = step(*a, **k)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             if tally is not None:
                 tally["steps"].append(tally["bytes"] - before)
+                if "kind_steps" in tally:  # and by kind (`_counting_collectives`' `kind`)
+                    tally["kind_steps"].append({k: v - kinds.get(k, 0) for k, v in tally.items()
+                                                if k not in TALLY_KEYS})
             return out
         return timed
 
@@ -6097,7 +6142,7 @@ SP_STEPS = 2  # (d): mae_long at sp 2 through the CLI entry, and one device
 SP_LOSS_TOL = 5e-3  # (d): each step's loss against one device's (bf16)
 SP_RECON_TOL = 1e-2  # (e): reconstruct against one device's, times its largest entry
 SP_RECON_INPUTS = ((29, 3), (31, 5), (37, 7))  # (e): each input's numpy seed and mask seed
-SP_DEADLINE_S = 240  # every job of the two ranks together
+SP_DEADLINE_S = 420  # every job of the two ranks together
 # The ring's hop is one `all_to_all_single` that sends the chunk to the next rank: gloo
 # on CUDA tensors does not carry `send`/`recv` or `batch_isend_irecv` (PERF.md, the
 # probe of `python -m ucf_vit_tpu_torch.tools.gloo_probe`); (a) times the hop.
@@ -6111,6 +6156,21 @@ SP_CHUNK_ROWS = {  # the kernels' shapes inside each mode: (b, h, n_q, n_kv, dh)
 SP_ROWS = (("encoder", "ring"), ("decoder", "ring"), ("decoder", "ulysses"),
            ("decoder", "gather"))
 SP_ROW_ITERS = 3
+# (f)-(h): basic_ct/unetr_sp, UNETR's spatial partition, at sp 2 on the two ranks
+UNETR_SP_CONFIG = os.path.join(REPO, "configs", "basic_ct", "unetr_sp", "base_config.yaml")
+SPU_BATCH = 2  # (g): the shipped global batch of 8 over its 4 data ranks
+SPU_STEPS = 2  # (g): through the CLI entry, and one device
+SPU_LOSS_TOL = 1e-4  # (g): each step's loss against one device's (f32, TF32 off)
+# (f): split against whole, times the largest entry, in f64. In f32 (TF32 off) cuDNN's
+# 3-D convolutions pick algorithms by shape: at decoder3's block the input gradient of a
+# rank's slab and of the whole map sat 5.0e-2 apart, each 1.15e-1 from f64 (this phase's
+# f32 lines on an H100 80GB HBM3 at 700.00 W), so f32 is logged beside f64, the gate
+SPU_BLOCK_TOL = 1e-5
+SPU_DICE_TOL = 1e-4  # (h): the mean Dice on the sp-2 eval mesh against one device's
+SPU_EVAL_SAMPLES = 4  # (h): synthetic
+SPU_SHAPE = (2, 12, 729, 729, 64, True)  # (g): the f32 kernels at a rank's [24, 729, 64]
+SPU_KERNEL_ITERS = 20
+SPU_SIDES = (72, 64)  # (f): decoder3's and decoder2's maps, the resize between them
 
 
 def _sp_counts() -> dict:
@@ -6237,9 +6297,10 @@ def _sp_dropout(rank: int, mesh) -> dict:
     return out
 
 
-def _counting_collectives(tally: dict) -> dict:
+def _counting_collectives(tally: dict, kind=None) -> dict:
     """Wrap torch.distributed's collectives so that each call adds the bytes of
-    the tensor it hands gloo to `tally["bytes"]`; returns the originals."""
+    the tensor it hands gloo to `tally["bytes"]`, and with `kind(name, tensor)`
+    to `tally[kind(...)]` too; returns the originals."""
     import torch.distributed as dist
 
     made = {}
@@ -6247,11 +6308,121 @@ def _counting_collectives(tally: dict) -> dict:
                       ("reduce_scatter_tensor", 1), ("all_to_all_single", 1), ("broadcast", 0)):
         fn = made[name] = getattr(dist, name)
 
-        def counted(*args, fn=fn, arg=arg, **kwargs):
-            tally["bytes"] += args[arg].numel() * args[arg].element_size()
+        def counted(*args, fn=fn, arg=arg, name=name, **kwargs):
+            t = args[arg]
+            n = t.numel() * t.element_size()
+            tally["bytes"] += n
+            if kind is not None:
+                key = kind(name, t)
+                tally[key] = tally.get(key, 0) + n
             return fn(*args, **kwargs)
         setattr(dist, name, counted)
     return made
+
+
+def _spu_kind(name: str, t) -> str:
+    """What a collective of UNETR's spatial partition carries: the halos
+    (all_to_all_single), the instance norms' statistics (an all-reduce of a
+    map whose spatial dims are 1), the gradient sum over sp (the flat
+    buckets), and the gather of a split map (the logits) with its backward
+    (the all-reduce of that map's gradient)."""
+    if name == "all_to_all_single":
+        return "halo"
+    if name == "all_reduce" and t.ndim == 1:
+        return "grad_sum"
+    if name == "all_reduce" and t.ndim >= 4 and all(d == 1 for d in t.shape[2:]):
+        return "norm"
+    return "gather" if name in ("all_gather", "all_reduce") else name
+
+
+def _spu_blocks(rank: int, mesh) -> dict:
+    """(f): unetr_sp's decoder blocks at full width and batch 2 on the two ranks
+    as sp, dim 2 split (a rank's 36 or 32 rows): decoder3's UnetResBlock (64 ->
+    32 channels on the 72^3 map), decoder2's (32 -> 16 on 64^3), the 72^3 ->
+    64^3 resize and an instance norm on the 72^3 x 32 map, forward and the
+    backward of `sum(y * w) / 2` (the train step's `loss / sp`), the output
+    gathered whole and the gradients summed over the ranks, in f64 and in f32
+    (TF32 off). Rank 0 then runs each whole and returns the largest
+    differences, the output's and the input gradient's times their largest
+    entry, the parameters' times the largest entry of the module's parameter
+    gradients (the biases ahead of a norm have none in exact arithmetic): the
+    split f64 run against the whole f64 run (the gate), and the split and the
+    whole f32 runs against that f64 run (cuDNN's f32 algorithms differ with
+    the map's shape). Also the f32 call's ms and the bytes gloo moves a call
+    by kind (`_spu_kind`)."""
+    import torch
+    import torch.distributed as dist
+
+    from ucf_vit_tpu_torch.inference import resolve_device
+    from ucf_vit_tpu_torch.models import unet_blocks as ub
+    from ucf_vit_tpu_torch.parallel.mesh import (seq_shard_of, spatial, spatial_context,
+                                                 spatial_gather)
+
+    resolve_device("cuda")  # TF32 off for cuBLAS and cuDNN (F4)
+    shard = seq_shard_of(mesh)
+    a, b = SPU_SIDES
+    cases = {f"res_block {a}^3 64->32": (lambda: ub.UnetResBlock(64, 32, ndim=3),
+                                         (2, 64, a, a, a), None),
+             f"res_block {b}^3 32->16": (lambda: ub.UnetResBlock(32, 16, ndim=3),
+                                         (2, 32, b, b, b), None),
+             f"resize {a}^3->{b}^3 x32": (None, (2, 32, a, a, a), (b, b, b)),
+             f"instance_norm {a}^3 x32": (ub.InstanceNorm, (2, 32, a, a, a), None)}
+    out = {}
+    for name, (make, shape, target) in cases.items():
+        x = torch.randn(shape, device="cuda", generator=torch.Generator("cuda").manual_seed(7))
+        torch.manual_seed(3)
+        mod = make().cuda() if make is not None else None
+        side = shape[2] if target is None else target[0]
+
+        def run(shard, dtype, tally):
+            m = None if mod is None else mod.to(dtype)
+            params = [] if m is None else list(m.parameters())
+            for p in params:
+                p.grad = None
+            leaf = x.to(dtype, copy=True).requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            made = _counting_collectives(tally, _spu_kind)
+            try:
+                xs, split = spatial(leaf, False, shard)
+                with spatial_context(shard):
+                    y = (ub.resize_linear_align_corners(xs, target, split=split) if m is None
+                         else m(xs, split=split))
+                y = spatial_gather(y, shard is not None and side % shard.size == 0, shard)
+                w = torch.randn(y.shape, device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(11)).to(dtype)
+                ((y * w).sum() / (1 if shard is None else shard.size)).backward()
+                torch.cuda.synchronize()
+            finally:
+                for n, fn in made.items():
+                    setattr(dist, n, fn)
+            ms = 1e3 * (time.perf_counter() - t0)
+            grads = [leaf.grad] + [p.grad for p in params]
+            if shard is not None:
+                for g in grads:
+                    dist.all_reduce(g, group=shard.group)
+            return [y.detach().double()] + [g.double() for g in grads], ms
+
+        def diffs(got, want):
+            pmax = max([g.abs().max().item() for g in want[2:]], default=0.0)
+            rel = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got[:2], want)]
+            return rel + [max([(g - w).abs().max().item() / pmax
+                               for g, w in zip(got[2:], want[2:])], default=0.0)]
+
+        tally = {"bytes": 0}
+        split32, ms = run(shard, torch.float32, tally)
+        split64, _ = run(shard, torch.float64, {"bytes": 0})
+        res = {"ms": ms, "bytes": {k: v for k, v in tally.items() if k != "bytes"}}
+        if rank == 0:
+            whole64, _ = run(None, torch.float64, {"bytes": 0})
+            whole32, ms1 = run(None, torch.float32, {"bytes": 0})
+            res.update(whole_ms=ms1, f64=diffs(split64, whole64), split32=diffs(split32, whole64),
+                       whole32=diffs(whole32, whole64))
+            del whole64, whole32
+        out[name] = res
+        del x, mod, split32, split64
+        torch.cuda.empty_cache()
+    return out
 
 
 def _sp_rank(rank: int, store: str, jobs: list, results) -> None:
@@ -6276,6 +6447,40 @@ def _sp_rank(rank: int, store: str, jobs: list, results) -> None:
                 out = _sp_ops(rank, mesh)
             elif job["kind"] == "dropout":
                 out = _sp_dropout(rank, mesh)
+            elif job["kind"] == "spatial_blocks":
+                out = _spu_blocks(rank, mesh)
+            elif job["kind"] == "unetr_train":
+                from ucf_vit_tpu_torch.train import main as train_main
+
+                times, tally = [], {"bytes": 0, "steps": [], "kind_steps": []}
+                made = _counting_collectives(tally, _spu_kind)
+                _sp_reset()
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    with _timed_steps(times, tally):
+                        res = train_main(job["argv"])
+                finally:
+                    for n, fn in made.items():
+                        setattr(dist, n, fn)
+                model = res["state"].model
+                _check_unetr(model)
+                out = {"ms": times, "counts": _sp_counts(), "instances": _instance_counts(),
+                       "steps": res["state"].step, "losses": res["loss_list"],
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "gloo_bytes": tally["steps"], "by_kind": tally["kind_steps"],
+                       "sp": model.mesh.size("sp")}
+                del res, model
+            elif job["kind"] == "unetr_dice":
+                from ucf_vit_tpu_torch.inference import main as inference_main
+
+                _sp_reset()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    mean = inference_main([job["config"], "--checkpoint", job["ckpt"],
+                                           "--synthetic", "--num-samples",
+                                           str(SPU_EVAL_SAMPLES), "--device", "cuda"])
+                out = {"dice": mean, "instances": _instance_counts(), "per": [
+                    float(d) for d in re.findall(r"sample \d+: dice ([0-9.]+)", buf.getvalue())]}
             elif job["kind"] == "train":
                 from ucf_vit_tpu_torch.train import main as train_main
 
@@ -6469,9 +6674,18 @@ def phase_sp() -> dict:
     same batch, each rank's ms a step, peak memory beside one device's, the
     bytes gloo moves a step; (e) `inference.reconstruct` on the sp-2 eval
     mesh from (d)'s checkpoint against one device within SP_RECON_TOL, on
-    each of SP_RECON_INPUTS. Then the kernels at the modes' chunk shapes
-    (`_sp_kernel_rows`). Returns {"numbers": the record's rows at the ring's
-    chunks, "launches": (d)'s and (e)'s launches of those rows}."""
+    each of SP_RECON_INPUTS; (f) unetr_sp's decoder blocks at full width with
+    dim 2 split over the two ranks against the same blocks whole, and the
+    halo bytes a call; (g) basic_ct/unetr_sp through the CLI entry at (ddp 1,
+    sp 2), cut from the shipped (ddp 4, sp 2), full width and depth, f32,
+    remat, batch 2, synthetic, SPU_STEPS steps, against one device, with each
+    rank's launches of the f32 forward and fused backward; (h) the inference
+    CLI's Dice on the sp-2 eval mesh from (g)'s checkpoint against one device
+    (`_spu_checks`, which also holds those two kernels at a rank's shape).
+    Then the kernels at the modes' chunk shapes (`_sp_kernel_rows`). Returns
+    {"numbers": the record's rows at the ring's chunks and unetr_sp's,
+    "launches": (d)'s and (e)'s launches of the ring's rows, (g)'s and (h)'s
+    of unetr_sp's}."""
     import queue
 
     import numpy as np
@@ -6498,6 +6712,15 @@ def phase_sp() -> dict:
              "argv": [sp2, "--synthetic", "--max-steps", str(SP_STEPS)]},
             {"kind": "reconstruct", "name": "reconstruct", "config": sp2, "ckpt": ck,
              "xs": xs}]
+    # (f)-(h): basic_ct/unetr_sp cut from (ddp 4, sp 2) = 8 ranks to (ddp 1, sp 2), batch 2
+    usp2 = _parallel_config("unetr_sp2", UNETR_SP_CONFIG, {"seq_par_size": 2}, batch=SPU_BATCH,
+                            checkpoint_path=ck_dir, checkpoint_filename="usp2")
+    uone = _parallel_config("unetr_one", UNETR_SP_CONFIG, {}, batch=SPU_BATCH)
+    uck = os.path.join(ck_dir, "usp2_even.ckpt")
+    jobs += [{"kind": "spatial_blocks", "name": "spatial_blocks"},
+             {"kind": "unetr_train", "name": "unetr_train",
+              "argv": [usp2, "--synthetic", "--max-steps", str(SPU_STEPS)]},
+             {"kind": "unetr_dice", "name": "unetr_dice", "config": usp2, "ckpt": uck}]
     log("[sp] two ranks on one card over gloo: NCCL refuses two ranks on one device")
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
@@ -6649,17 +6872,109 @@ def phase_sp() -> dict:
             f"{res['counts']['src:flash_fwd_sm90']}, ring hops {res['counts']['ring_hops']}")
         if res["counts"]["src:flash_fwd_sm90"] != n_fwd or res["mesh_sp"] != 2:
             fail(f"(e) rank {r}: expected {n_fwd} sm90 forwards on a mesh of sp 2")
+    unetr = _spu_checks(got, uone, uck)
     t1 = time.perf_counter()
     rows = _sp_kernel_rows()
     torch.cuda.empty_cache()
     log(f"[sp] the kernels at the chunk shapes: {time.perf_counter() - t1:.1f} s")
     # the ring's chunks on mae_long's path: (d)'s and (e)'s launches by head-dim instance
     runs = [got[r, n]["counts"] for r in range(2) for n in ("train", "reconstruct")]
-    return {"numbers": rows["record"], "launches": {
+    return {"numbers": {**rows["record"], **unetr["numbers"]}, "launches": {
         "flash_fwd_bf16_ring_enc": sum(c["fwd:flash_fwd_sm90<64>"] for c in runs),
         "flash_fwd_bf16_ring_dec": sum(c["fwd:flash_fwd_sm90<128>"] for c in runs),
         "flash_bwd_fused_bf16_ring_enc": sum(c["bwd:flash_bwd_sm90<64>"] for c in runs),
-        "flash_bwd_fused_bf16_ring_dec": sum(c["bwd:flash_bwd_sm90<128>"] for c in runs)}}
+        "flash_bwd_fused_bf16_ring_dec": sum(c["bwd:flash_bwd_sm90<128>"] for c in runs),
+        **unetr["launches"]}}
+
+
+def _spu_checks(got: dict, uone: str, uck: str) -> dict:
+    """phase_sp's (f)-(h) from the two ranks' results `got`, against one device
+    here: (f) the blocks split against whole to SPU_BLOCK_TOL; (g) unetr_sp's
+    losses against one device's at the same batch to SPU_LOSS_TOL, each rank's
+    ms a step, peak memory and gloo bytes a step by kind, and its launches of
+    the f32 forward and fused backward (24 and 12 a step under remat); (h) the
+    inference CLI's mean Dice on the sp-2 eval mesh against one device's to
+    SPU_DICE_TOL. Then the two kernels at a rank's shape (SPU_SHAPE) against
+    their plain versions and timed. Returns {"numbers": the record's two rows,
+    "launches": theirs on (g) and (h)}."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.inference import main as inference_main
+
+    # (f)
+    for name, res in got[0, "spatial_blocks"].items():
+        if name == "s":  # the job's seconds
+            continue
+        other = got[1, "spatial_blocks"][name]
+        kb = {k: f"{v / 1e6:.3f}" for k, v in sorted(res["bytes"].items())}
+        e = {k: " / ".join(f"{v:.3e}" for v in res[k]) for k in ("f64", "split32", "whole32")}
+        log(f"[sp] (f) {name}, batch 2, dim 2 split over the two ranks: max |diff| / max "
+            f"|whole f64| of the output / input gradient / parameter gradients (of the "
+            f"module's largest): split f64 {e['f64']} (tol {SPU_BLOCK_TOL:g}); f32, TF32 off: "
+            f"split {e['split32']}, whole {e['whole32']}; f32 forward and backward "
+            f"{res['ms']:.1f} / {other['ms']:.1f} ms on ranks 0 / 1, whole {res['whole_ms']:.1f}"
+            f" ms; gloo MB a call by kind from rank 0 {kb}")
+        if max(res["f64"]) > SPU_BLOCK_TOL:
+            fail(f"(f) {name} split over sp disagrees with the block whole")
+        if name.startswith("res_block") and not res["bytes"].get("halo"):
+            fail(f"(f) {name} moved no halo")
+    # (g)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    one = _single_run("unetr_one", uone, SPU_STEPS)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = _step_losses(os.path.join(WORK, "parallel", "unetr_sp2.jsonl"))
+    diff = max(abs(a - b) for a, b in zip(losses, one["losses"]))
+    log(f"[sp] (g) basic_ct/unetr_sp through the CLI entry at (ddp 1, sp 2), cut from the "
+        f"shipped (ddp 4, sp 2) = 8 ranks, batch {SPU_BATCH} (the shipped 8 over 4 data "
+        f"ranks), f32, remat, synthetic: losses {' '.join(f'{v:.6f}' for v in losses)}; one "
+        f"device {' '.join(f'{v:.6f}' for v in one['losses'])}; max |diff| {diff:.3e} (tol "
+        f"{SPU_LOSS_TOL:g})")
+    if len(losses) != SPU_STEPS or not np.all(np.isfinite(losses)) or diff > SPU_LOSS_TOL:
+        fail("(g) unetr_sp at sp 2 disagrees with one device")
+    want = _unetr_instances(SPU_STEPS)
+    for r in range(2):
+        res = got[r, "unetr_train"]
+        kinds = res["by_kind"][-1] if res["by_kind"] else {}
+        log(f"[sp] (g) rank {r}: {_median(res['ms'][1:]):.3f} ms a step (median of steps "
+            f"2-{SPU_STEPS}; one device {_median(one['ms'][1:]):.3f}; two ranks share one "
+            f"card), peak {res['peak_gb']:.2f} GB (one device {one_peak:.2f}), gloo moves "
+            f"{_median(res['gloo_bytes']) / 1e9:.4f} GB a step from this rank, the last step "
+            f"by kind (MB) {({k: round(v / 1e6, 3) for k, v in sorted(kinds.items())})}; "
+            f"launches a step "
+            f"{ {k: n // SPU_STEPS for k, n in res['instances'].items() if n} }")
+        if res["instances"] != want or res["sp"] != 2 or res["steps"] != SPU_STEPS or \
+                not kinds.get("halo") or not kinds.get("norm") or not kinds.get("grad_sum"):
+            fail(f"(g) rank {r}: launches {res['instances']} (expected {want}), sp "
+                 f"{res['sp']}, steps {res['steps']}, gloo by kind {kinds}")
+    log(f"[sp] (g) one device's run {time.perf_counter() - t1:.1f} s")
+    # (h)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        one_dice = inference_main([uone, "--checkpoint", uck, "--synthetic", "--num-samples",
+                                   str(SPU_EVAL_SAMPLES), "--device", "cuda"])
+    want_eval = _unetr_instances(SPU_EVAL_SAMPLES, backward=False)
+    for r in range(2):
+        res = got[r, "unetr_dice"]
+        d = abs(res["dice"] - one_dice)
+        log(f"[sp] (h) the inference CLI's Dice on the sp-2 eval mesh from (g)'s checkpoint "
+            f"(rank {r}, {SPU_EVAL_SAMPLES} synthetic samples; rank 0 prints each): {res['per']} mean "
+            f"{res['dice']:.6f}; one device {one_dice:.6f}; |diff| {d:.3e} (tol "
+            f"{SPU_DICE_TOL:g})")
+        if d > SPU_DICE_TOL or (r == 0 and len(res["per"]) != SPU_EVAL_SAMPLES) or \
+                res["instances"] != want_eval:
+            fail(f"(h) rank {r}: the Dice on sp 2 disagrees with one device's, or launched "
+                 f"{res['instances']} (expected {want_eval})")
+    # the kernels at a rank's shape
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    k = _attention_case("sp", "unetr_sp's rank at sp 2", SPU_SHAPE, gen, iters=SPU_KERNEL_ITERS)
+    torch.cuda.empty_cache()
+    runs = [got[r, n]["instances"] for r in range(2) for n in ("unetr_train", "unetr_dice")]
+    return {"numbers": {"flash_fwd_unetr_sp": k["fwd"], "flash_bwd_fused_unetr_sp": k["bwd"]},
+            "launches": {
+                "flash_fwd_unetr_sp": sum(c["fwd:flash_fwd_tf32<64>"] for c in runs),
+                "flash_bwd_fused_unetr_sp": sum(c["bwd:flash_bwd_tf32<64>"] for c in runs)}}
 
 
 def compare_forward(other: str) -> None:
@@ -6760,6 +7075,7 @@ def main() -> int:
         return 0
     if args:  # --only adaptive|unetr|sap|parallel|sp: the build and that phase alone, no record
         _timed("phase_build", phase_build)
+        _timed("phase_build_rest", phase_build_rest)
         os.makedirs(WORK, exist_ok=True)
         try:
             phase = {"adaptive": phase_adaptive, "unetr": phase_unetr, "sap": phase_sap,
@@ -6771,20 +7087,23 @@ def main() -> int:
         print(card, flush=True)
         return 0
     _timed("phase_build", phase_build)
-    fwd = _timed("phase_kernels", phase_kernels)
-    bwd = _timed("phase_bwd_kernels", phase_bwd_kernels)
-    diffusion_kernels = _timed("phase_diffusion_kernels", phase_diffusion_kernels)
-    mae = _timed("phase_mae_kernels", phase_mae_kernels)
-    dropout = _timed("phase_dropout", phase_dropout, fwd, bwd)
-    mlp = _timed("phase_mlp_kernels", phase_mlp_kernels)
-    int8 = _timed("phase_int8_kernels", phase_int8_kernels)
-    ops = _timed("phase_ops_path", phase_ops_path)
     os.makedirs(WORK, exist_ok=True)
     try:
-        trained = _timed("phase_train", phase_train)
-        served = _timed("phase_serve", phase_serve, trained["ckpt_dir"])
+        # while SLOW_SOURCE builds: the phases that launch none of its kernels (the f32
+        # forward, the bf16 sources, fused_mlp and int8_gemm)
+        fwd = _timed("phase_kernels", phase_kernels)
+        mae = _timed("phase_mae_kernels", phase_mae_kernels)
+        mlp = _timed("phase_mlp_kernels", phase_mlp_kernels)
+        int8 = _timed("phase_int8_kernels", phase_int8_kernels)
         trained_bf16 = _timed("phase_train_bf16", phase_train_bf16)
         trained_mae = _timed("phase_train_mae", phase_train_mae)
+        _timed("phase_build_rest", phase_build_rest)
+        bwd = _timed("phase_bwd_kernels", phase_bwd_kernels)
+        diffusion_kernels = _timed("phase_diffusion_kernels", phase_diffusion_kernels)
+        dropout = _timed("phase_dropout", phase_dropout, fwd, bwd)
+        ops = _timed("phase_ops_path", phase_ops_path)
+        trained = _timed("phase_train", phase_train)
+        served = _timed("phase_serve", phase_serve, trained["ckpt_dir"])
         disk = _timed("phase_train_disk", phase_train_disk, trained_mae, trained["ms_step"])
         diffusion = _timed("phase_train_diffusion", phase_train_diffusion)
         generated = _timed("phase_generate", phase_generate)
@@ -6892,6 +7211,10 @@ def main() -> int:
                                     "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_bf16_ring_dec": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
                                           "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_unetr_sp": ("ucf_vit_tpu_torch/csrc/flash_fwd_tf32.cu",
+                               "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_unetr_sp": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
+                                     "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -6959,7 +7282,8 @@ def main() -> int:
     # reconstruct on the sp-2 eval mesh: the sm90 forward (o in f32) and fused backward on the
     # ring's chunks, rows of their own at the training's [2, 12, 4096 x 4096, 64] (the encoder's
     # <64>) and [2, 6, 16384 x 16384, 96] (the decoder's <128>); reconstruct's calls are at
-    # batch 1
+    # batch 1; basic_ct/unetr_sp at sp 2 through the CLI entry and the inference CLI's Dice on
+    # the sp-2 eval mesh: the f32 <64> instances at a rank's [24, 729, 64], rows of their own
     launches.update(sp["launches"])
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "

@@ -17,6 +17,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -101,10 +102,23 @@ def _losses(kind: str, cfg):
     return loss
 
 
+def _segment(cfg, model, batch: dict) -> torch.Tensor:
+    """A UNETR's or SAP's logits of a numpy batch, through the task's inputs."""
+    from ucf_vit_tpu_torch.tasks import sap_inputs, unetr_inputs
+
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if cfg.task == "sap":
+        img, ps = sap_inputs(cfg, b)
+        return model(img, seq_ps=ps)
+    x, ps, x_seq = unetr_inputs(cfg, b)
+    return model(x, seq_ps=ps, x_seq=x_seq)
+
+
 def train_job(job: dict) -> dict:
     """Train `job["raw"]` on the group's mesh from the whole weights
     `job["init"]` on the global batches `job["batches"]`; the per-step losses
-    and the parameters gathered whole."""
+    and the parameters gathered whole. With `job["forward"]` (a segmentation
+    batch), the model's logits of it before the first step."""
     from ucf_vit_tpu_torch import checkpoint as ckpt
     from ucf_vit_tpu_torch.config import Config
     from ucf_vit_tpu_torch.parallel.mesh import shard_batch
@@ -124,13 +138,17 @@ def train_job(job: dict) -> dict:
                                accum_steps=int(cfg.trainer.get("accum_steps", 1)),
                                ema_decay=_ema_decay(cfg))
     var_ids = var_ids_of(cfg, state.model)  # None without use_varemb
+    logits = None
+    if "forward" in job:  # the logits of the whole batch `job["forward"]` first
+        with torch.no_grad():
+            logits = _segment(cfg, state.model.eval(), job["forward"]).numpy()
     losses = []
     for b in job["batches"]:
         state, loss, _ = step(state, to_device(shard_batch(b, state.mesh), torch.device("cpu")),
                               var_ids)
         losses.append(loss.item())
     params = {k: v.numpy() for k, v in ckpt.full_state_dict(state.model).items()}
-    return {"losses": losses, "params": params,
+    return {"losses": losses, "params": params, "logits": logits,
             "sharded": sorted(getattr(state.model, "tp_layout", {})),
             "updates": state.optimizer.count,
             "scale": None if state.loss_scale is None else state.loss_scale.scale}
@@ -325,9 +343,92 @@ def cli_state_job(job: dict) -> dict:
     return {"step": out["state"].step, "params": params, "generators": gens}
 
 
+def halo_job(job: dict) -> dict:
+    """`collectives.halo_exchange` on the world group along dim 2 of each rank's
+    slab of the global `x`, for each width: every rank's output and its slab's
+    gradient for the cotangent `w[width][rank]`."""
+    from ucf_vit_tpu_torch.parallel.collectives import halo_exchange
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    out = {}
+    for width, w in job["w"].items():
+        x = torch.from_numpy(np.split(job["x"], n, axis=2)[r]).requires_grad_(True)
+        y = halo_exchange(x, dist.group.WORLD, 2, width)
+        (y * torch.from_numpy(w[r])).sum().backward()
+        out[width] = (_gather_world(y.detach()), _gather_world(x.grad))
+    return out
+
+
+SPATIAL_MODULES = {  # the cases of `spatial_blocks_job` that run a module
+    "res_block": lambda ub: ub.UnetResBlock(4, 6, ndim=3),
+    "res_block_2d": lambda ub: ub.UnetResBlock(4, 6, ndim=2),
+    "up_block": lambda ub: ub.UnetrUpBlock(6, 4, ndim=3),
+    "up_block_whole_in": lambda ub: ub.UnetrUpBlock(6, 4, ndim=3),
+    "pr_up_block_whole_in": lambda ub: ub.UnetrPrUpBlock(6, 4, num_layer=1, ndim=3),
+    "instance_norm": lambda ub: ub.InstanceNorm(),
+}
+
+
+def spatial_module(name: str):
+    """The module of a spatial-partition case (`spatial_blocks_job`), its
+    weights from a seed, in f64: the same on every rank and in the test; None
+    for a resize."""
+    from ucf_vit_tpu_torch.models import unet_blocks
+
+    if name not in SPATIAL_MODULES:
+        return None
+    torch.manual_seed(3)
+    return SPATIAL_MODULES[name](unet_blocks).double()
+
+
+def spatial_case(name: str, case: dict, shard=None):
+    """`(output whole, whole inputs as leaves, module)` of one case of
+    `spatial_blocks_job` on `shard` (None: one device). Under a shard every
+    input is split on dim 2 where sp divides its side, the module runs inside
+    `spatial_context`, and the output is gathered whole."""
+    from ucf_vit_tpu_torch.models.unet_blocks import resize_linear_align_corners
+    from ucf_vit_tpu_torch.parallel.mesh import spatial, spatial_context, spatial_gather
+
+    leaves = [torch.from_numpy(a).clone().requires_grad_(True) for a in case["inputs"]]
+    xs = [spatial(t, False, shard) for t in leaves]
+    mod = spatial_module(name)
+    with spatial_context(shard):
+        if mod is None:
+            y = resize_linear_align_corners(xs[0][0], case["target"], split=xs[0][1])
+        else:
+            y = mod(*(x for x, _ in xs), split=xs[0][1])
+    y_split = shard is not None and case["out_side"] % shard.size == 0
+    return spatial_gather(y, y_split, shard), leaves, mod
+
+
+def spatial_blocks_job(job: dict) -> dict:
+    """Each case of `job["cases"]` ({name: {"inputs": [arrays], "out_side": the
+    output's first side, "target": a resize's size or None}}) on the world
+    group as sp (`spatial_case`); each rank backpropagates `sum(y * w) / sp`
+    (partial sums, as the train step's `loss / sp`), and the gradients of the
+    inputs and the parameters are summed over the group. {name: (output,
+    input gradients, parameter gradients)}."""
+    from ucf_vit_tpu_torch.parallel.mesh import SeqShard
+
+    n = dist.get_world_size()
+    shard = SeqShard(dist.group.WORLD, n, dist.get_rank())
+    out = {}
+    for name, case in job["cases"].items():
+        y, leaves, mod = spatial_case(name, case, shard)
+        ((y * torch.from_numpy(case["w"])).sum() / n).backward()
+        params = [] if mod is None else list(mod.named_parameters())
+        grads = [t.grad for t in leaves] + [p.grad for _, p in params]
+        for g in grads:
+            dist.all_reduce(g)
+        out[name] = (y.detach().numpy(), [g.numpy() for g in grads[:len(leaves)]],
+                     {k: p.grad.numpy() for k, p in params})
+    return out
+
+
 JOBS = {"train": train_job, "attn_dropout": attn_dropout_job, "collectives": collectives_job,
         "sync_check": sync_check_job, "cli": cli_job, "cli_ranks": cli_ranks_job,
-        "sp_attention": sp_attention_job, "sp_odd": sp_odd_job, "cli_state": cli_state_job}
+        "sp_attention": sp_attention_job, "sp_odd": sp_odd_job, "cli_state": cli_state_job,
+        "halo": halo_job, "spatial_blocks": spatial_blocks_job}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,10 @@ was the largest difference seen for a module and for a Block, and the
 tolerance is 2 ulps for both. The logits are f32 on both sides but computed
 from a bf16 residual stream two blocks deep; they agree within 2 bf16 ulps
 of 1.0, the scale of the normed stream (seen: half an ulp).
+
+The last section is UNETR's spatial partition over gloo ranks against the JAX
+package's sharded step, with its own module fixture and the config helpers of
+tests/test_torch_dropout.py's sharded section.
 """
 
 import os
@@ -27,6 +31,8 @@ import yaml
 from flax.core import meta
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # xdist's workers share the cores: one torch
+    torch.set_num_threads(1)  # thread each keeps them from oversubscribing the machine
 
 from ucf_vit_tpu.config import Config as JConfig
 from ucf_vit_tpu.models.blocks import Attention as JAttention
@@ -435,3 +441,281 @@ def test_cli_runs_vit_l_config_shrunk(tmp_path, capsys):
     cfg = Config(raw=raw, task="classification")
     model = build_classification(cfg)
     assert model.dtype == BF16 and model.remat and model.scan_layers
+
+
+# ================================================================ UNETR's spatial partition
+# sp > 1 splits dim 2 of the conv decoder's maps over sp (`parallel.mesh.spatial`), with
+# halos (`collectives.halo_exchange`) and cross-shard instance norms. A module fixture
+# builds every reference here (the JAX package's sharded steps on the virtual mesh, the
+# single-device runs), then starts one gloo group of 4 and one of 2
+# (`tests/_torch_sharded.py`) that run every job in turn; the tests only compare: against
+# the definition, the blocks whole, the JAX package's sharded step (the five cases of
+# tests/test_parallel_unetr_sp.py, and SAP) and one device. The config helpers are the
+# sharded section's of tests/test_torch_dropout.py.
+
+import copy
+
+import _torch_sharded
+import yaml
+from test_torch_dropout import (
+    SHARD_LOSS_TOL,
+    SHARD_STEPS,
+    _cli,
+    _eval_raw,
+    _jax_steps,
+    _shard_model_raw,
+    _single_raw,
+)
+from ucf_vit_tpu_torch.config import Config
+from ucf_vit_tpu_torch.train import main as train_main
+from ucf_vit_tpu_torch.train import synthetic_batches
+
+HALO_SHAPE = (2, 3, 16, 5, 4)  # dim 2 cut into 8 (2 ranks) or 4 (4 ranks)
+HALO_WIDTHS = (1, 2)
+# a split block against the same block whole, of the largest entry, both in f64: in f32
+# the bias gradients (sums over every position, which the norms behind them nearly
+# cancel) differ by their summation order alone up to 3.3e-6 of the largest entry
+SPATIAL_TOL = 1e-6
+LOGITS_TOL = 1e-5  # a sharded UNETR's or SAP's logits against one device's
+DICE_TOL = 1e-6  # the mean Dice on sp 2 against one device's
+UNETR_SP_STEPS = 2
+SPATIAL_CASES = {  # name: (input shapes, the output's first side, a resize's target)
+    "res_block": ([(2, 4, 8, 6, 5)], 8, None),
+    "res_block_2d": ([(2, 4, 8, 6)], 8, None),
+    "up_block": ([(2, 6, 4, 3, 3), (2, 4, 8, 6, 6)], 8, None),
+    "up_block_whole_in": ([(2, 6, 3, 3, 3), (2, 4, 6, 6, 6)], 6, None),
+    "pr_up_block_whole_in": ([(2, 6, 3, 3, 3)], 12, None),
+    "instance_norm": ([(2, 3, 8, 5, 4)], 8, None),
+    "resize_local": ([(1, 2, 36, 3, 4)], 32, (32, 5, 3)),  # the rows it reads lie on the rank
+    "resize_gathered": ([(1, 2, 8, 3, 3)], 12, (12, 4, 4)),  # they do not
+}
+UNETR_SP_CASES = {  # name: (task, (ddp, fsdp, sp, tp), init_args changed)
+    "unetr3d_ddp2_sp2": ("unetr", (2, 1, 2, 1), {}),
+    "unetr3d_sp2_tp2": ("unetr", (1, 1, 2, 2), {}),
+    "unetr2d_ddp2_sp2": ("unetr", (2, 1, 2, 1), {"twoD": True, "tile_size": [16, 16]}),
+    "unetr3d_noskip_ddp2_sp2": ("unetr", (2, 1, 2, 1), {"skip_connection": False}),
+    # the sqrt-len grid of 3: its 3^3 and 6^3 levels stay whole at sp 4
+    "unetr3d_adaptive_sp4": ("unetr", (1, 1, 4, 1), {"patch_size": 2, "adaptive_patching": True,
+                                                     "fixed_length": 27}),
+    "sap_ddp2_sp2": ("sap", (2, 1, 2, 1), None),
+}
+
+
+def _spatial_inputs(world):
+    """{case: {"inputs", "out_side", "target", "w"}}: f64 inputs from a numpy
+    seed (instance norm's off centre), the cotangent of the whole output."""
+    from _torch_sharded import spatial_case
+
+    rng = np.random.default_rng(21)
+    cases = {}
+    for name, (shapes, side, target) in SPATIAL_CASES.items():
+        xs = [rng.normal(size=s) for s in shapes]
+        if name == "instance_norm":
+            xs[0] = xs[0] * 2.0 + 3.0
+        case = {"inputs": xs, "out_side": side, "target": target}
+        y, _, _ = spatial_case(name, case)
+        case["w"] = rng.normal(size=y.shape)
+        cases[name] = case
+    return cases
+
+
+def _unetr_sp_raw(name):
+    """`_shard_model_raw`'s UNETR (the JAX file's sizes: tile 16, patch 4, embed 24,
+    depth 4, feature size 4, not adaptive, EINSUM) or SAP on the case's mesh."""
+    task, (ddp, fsdp, sp, tp), ia = UNETR_SP_CASES[name]
+    raw = _shard_model_raw(task, ddp, fsdp, tp)
+    raw["parallelism"]["seq_par_size"] = sp
+    if task == "unetr":
+        raw["model"]["net"]["init_args"].update(
+            {"patch_size": 4, "adaptive_patching": False, **ia})
+    return raw
+
+
+def _unetr_sp_eval_raw(task):
+    raw = _eval_raw(task)
+    raw["parallelism"] = {"seq_par_size": 2}
+    return raw
+
+
+def _unetr_sp_jobs(tmp):
+    """The spatial-partition jobs of the two groups, and what they are held
+    against (run here)."""
+    from ucf_vit_tpu_torch.inference import evaluate
+    from ucf_vit_tpu_torch.serve import build_predictor
+
+    jobs, single = {4: [], 2: []}, {}
+    for world in (4, 2):
+        rng = np.random.default_rng(world)
+        x = rng.normal(size=HALO_SHAPE).astype(np.float32)
+        w = {h: rng.normal(size=(world,) + HALO_SHAPE[:2] + (HALO_SHAPE[2] // world + 2 * h,)
+                           + HALO_SHAPE[3:]).astype(np.float32) for h in HALO_WIDTHS}
+        single[f"halo_{world}"] = (x, w)
+        jobs[world].append({"kind": "halo", "name": f"halo_{world}", "x": x, "w": w})
+        jobs[world].append({"kind": "spatial_blocks", "name": f"spatial_{world}",
+                            "cases": _spatial_inputs(world)})
+    for name, (task, shape, _) in UNETR_SP_CASES.items():
+        raw = _unetr_sp_raw(name)
+        steps = SHARD_STEPS if task == "sap" else UNETR_SP_STEPS
+        init, jax_losses, batches = _jax_steps(task, raw, shape, steps)
+        job = {"kind": "train", "name": name, "raw": raw, "batches": batches, "init": init,
+               "forward": batches[0]}
+        jobs[int(np.prod(shape))].append(job)
+        single[name] = _torch_sharded.train_job({**job, "raw": _single_raw(raw)})
+        single[name]["jax_losses"] = jax_losses
+    # evaluation and serving on sp 2
+    dice = {t: _unetr_sp_eval_raw(t) for t in ("unetr", "sap")}
+    serve_raw = _unetr_sp_eval_raw("unetr")
+    vol = {k: v for k, v in next(synthetic_batches(Config(raw=serve_raw, task="unetr"),
+                                                   2)).items() if k != "variables"}
+    jobs[2] += [{"kind": "eval", "name": f"sp_dice_{t}", "raw": r, "fn": "evaluate",
+                 "args": (None, None, True, 2), "kwargs": {"batch_size": 2}}
+                for t, r in dice.items()]
+    jobs[2].append({"kind": "predictor", "name": "sp_unetr_predictor", "raw": serve_raw,
+                    "max_batch": 2, "batch": vol})
+
+    def one(raw):
+        raw = copy.deepcopy(raw)
+        raw["parallelism"] = {}
+        return Config(raw=raw, task=raw["trainer"]["task"])
+
+    for t, r in dice.items():
+        single[f"sp_dice_{t}"] = evaluate(one(r), None, None, True, 2, batch_size=2,
+                                          device="cpu")
+    single["sp_unetr_predictor"] = build_predictor(one(serve_raw), max_batch=2,
+                                                   device="cpu")[0](vol).numpy()
+    # a UNETR trained 2 steps on (ddp 1, sp 2) and preempted; resumed on one device
+    jobs[2].append(_cli("unetr_spa", _unetr_sp_cli_yaml(tmp, "unetr_spa", {"seq_par_size": 2},
+                                                        preempt_after_steps=2), "--synthetic"))
+    return jobs, single
+
+
+@pytest.fixture(scope="module")
+def spatial_runs(tmp_path_factory):
+    """Every spatial-partition job's result (rank 0's), the references it is held
+    against, and the fixture's tmp dir."""
+    tmp = tmp_path_factory.mktemp("spatial")
+    jobs, single = _unetr_sp_jobs(tmp)
+    out = {}
+    for world in (4, 2):
+        out.update(_torch_sharded.run_group(world, jobs[world], tmp))
+    return out, single, tmp
+
+
+def _unetr_sp_cli_yaml(tmp, name, par, **trainer):
+    raw = _shard_model_raw("unetr")
+    raw["trainer"].update(seed=0, checkpoint_path=str(tmp / "ck"), checkpoint_filename=name,
+                          metrics_path=str(tmp / f"{name}.jsonl"), preempt_sync_every=1,
+                          **trainer)
+    raw["parallelism"] = par
+    raw["data"]["batch_size"] = 2
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"ct1": 4}}
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_halo_exchange_matches_its_definition(spatial_runs, world):
+    """`halo_exchange` along dim 2 on 2 and 4 ranks, widths 1 and 2: each rank's
+    slab with its neighbours' edge slices (zeros past the ends), and its
+    gradient the sum of every rank's cotangent over the slices it gave, exactly."""
+    runs, single, _ = spatial_runs
+    x, w = single[f"halo_{world}"]
+    k = x.shape[2] // world
+    for h in HALO_WIDTHS:
+        ys, grads = runs[f"halo_{world}"][h]
+        pad = [(0, 0)] * x.ndim
+        pad[2] = (h, h)
+        padded = np.pad(x, pad)
+        acc = np.zeros_like(padded)
+        for r in range(world):
+            np.testing.assert_array_equal(ys[r], padded[:, :, r * k:r * k + k + 2 * h])
+            acc[:, :, r * k:r * k + k + 2 * h] += w[h][r]
+        np.testing.assert_array_equal(np.concatenate(grads, 2), acc[:, :, h:-h])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", sorted(SPATIAL_CASES))
+def test_a_decoder_block_on_a_split_map_matches_it_whole(spatial_runs, name, world):
+    """UNETR's decoder blocks, instance norm and the resize with dim 2 split over
+    2 and 4 ranks where the side divides (whole where it does not, split after an
+    upsample that divides), against the same module on one device: the output,
+    the inputs' and the parameters' gradients within SPATIAL_TOL of their largest
+    entry, in f64."""
+    from _torch_sharded import spatial_case
+
+    runs, _, _ = spatial_runs
+    case = _spatial_inputs(world)[name]
+    y, leaves, mod = spatial_case(name, case)
+    (y * torch.from_numpy(case["w"])).sum().backward()
+    got_y, got_in, got_p = runs[f"spatial_{world}"][name]
+
+    def close(got, want, what):
+        np.testing.assert_allclose(got, want, atol=SPATIAL_TOL * np.abs(want).max(), rtol=0,
+                                   err_msg=what)
+    close(got_y, y.detach().numpy(), "output")
+    for i, t in enumerate(leaves):
+        close(got_in[i], t.grad.numpy(), f"input {i}")
+    want_p = {} if mod is None else {k: p.grad.numpy() for k, p in mod.named_parameters()}
+    assert set(got_p) == set(want_p)
+    scale = max([np.abs(g).max() for g in want_p.values()], default=0.0)
+    for k, g in want_p.items():
+        if k.endswith("bias") and k.split(".")[-2] in ("conv1", "conv2", "conv3"):
+            # ahead of an instance norm: no gradient in exact arithmetic, noise here
+            np.testing.assert_allclose(got_p[k], g, atol=SPATIAL_TOL * scale, rtol=0,
+                                       err_msg=k)
+        else:
+            close(got_p[k], g, k)
+
+
+@pytest.mark.parametrize("name", sorted(UNETR_SP_CASES))
+def test_spatially_partitioned_train_step_matches_jax_and_single_device(spatial_runs, name):
+    """tests/test_parallel_unetr_sp.py's five cases on the port's ranks (3-D at
+    (ddp 2, sp 2) and (sp 2, tp 2), 2-D, no-skip, the adaptive grid of 3 at sp
+    4), two steps each, and SAP at (ddp 2, sp 2), three: the per-step losses within
+    SHARD_LOSS_TOL of the JAX package's sharded step on the same mesh shape and
+    weights and of the port's single device; the logits of the first batch
+    before the first step within LOGITS_TOL of the single device's."""
+    runs, single, _ = spatial_runs
+    got, want = runs[name], single[name]
+    np.testing.assert_allclose(got["losses"], want["jax_losses"], atol=SHARD_LOSS_TOL, rtol=0)
+    np.testing.assert_allclose(got["losses"], want["losses"], atol=SHARD_LOSS_TOL, rtol=0)
+    np.testing.assert_allclose(got["logits"], want["logits"], atol=LOGITS_TOL, rtol=0)
+    assert np.isfinite(got["logits"]).all()
+
+
+@pytest.mark.parametrize("task", ["unetr", "sap"])
+def test_segmentation_dice_on_sp2_matches_single_device(spatial_runs, task):
+    """`evaluate` (the mean Dice of `evaluate_segmentation`, 2 batches of 2) of
+    UNETR and SAP on the sp-2 eval mesh against one device."""
+    runs, single, _ = spatial_runs
+    got, want = runs[f"sp_dice_{task}"], single[f"sp_dice_{task}"]
+    assert np.isfinite(got) and abs(got - want) <= DICE_TOL, (got, want)
+
+
+def test_served_unetr_class_map_on_sp2_equals_single_device(spatial_runs):
+    """The UNETR predictor of `serve.build_predictor` on sp 2 (rank 0 runs the
+    batch, rank 1 follows): the int32 class map equal to one device's."""
+    runs, single, _ = spatial_runs
+    got, want = runs["sp_unetr_predictor"], single["sp_unetr_predictor"]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unetr_resume_from_sp2_onto_one_device_is_bit_for_bit(spatial_runs):
+    """A UNETR trained on (ddp 1, sp 2) through the CLI and preempted after step
+    2, resumed on one device: every parameter and the step equal what the sp run
+    saved, bit for bit."""
+    runs, _, tmp = spatial_runs
+    assert runs["unetr_spa"]["step"] == 2
+    payload = torch.load(tmp / "ck" / "unetr_spa_even.ckpt", weights_only=True)
+    out = train_main([_unetr_sp_cli_yaml(
+        tmp, "unetr_spb", {}, resume_from_checkpoint=True,
+        checkpoint_filename_for_loading="unetr_spa_latest"), "--synthetic", "--device", "cpu",
+        "--max-steps", "2"])
+    from ucf_vit_tpu_torch.checkpoint import full_state_dict
+
+    got = full_state_dict(out["state"].model)
+    assert out["state"].step == 2 and set(got) == set(payload["model_state_dict"])
+    for k, v in payload["model_state_dict"].items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)

@@ -24,6 +24,8 @@ import pytest
 import yaml
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # xdist's workers share the cores: one torch
+    torch.set_num_threads(1)  # thread each keeps them from oversubscribing the machine
 
 import _torch_sharded
 from ucf_vit_tpu.config import Config as JConfig
@@ -353,12 +355,12 @@ SHARD_CASES = {  # name: (task, (ddp, fsdp, tp))
 _PORT_LOSS = {"mae": "mae_noise", "diffusion": "diffusion_te"}
 
 
-def _shard_batches(task, raw):
+def _shard_batches(task, raw, steps=SHARD_STEPS):
     """The global batches (numpy), with MAE's mask noise and diffusion's (t, e)."""
     cfg = Config(raw=raw, task=task)
     b = raw["data"]["batch_size"] * cfg.data_par_size
     out = []
-    for i, batch in zip(range(SHARD_STEPS), synthetic_batches(cfg, b)):
+    for i, batch in zip(range(steps), synthetic_batches(cfg, b)):
         batch = {k: v for k, v in batch.items() if k != "variables"}
         if task == "mae":
             batch["mask_noise"] = np.random.default_rng(10 + i).uniform(
@@ -371,7 +373,7 @@ def _shard_batches(task, raw):
     return out
 
 
-def _jax_init_fn(task, jmod, batch):
+def _jax_init_fn(task, jmod, batch, sqrt_len=4):
     b = {k: jnp.asarray(v) for k, v in batch.items()}
     key = jax.random.key(0)
     if task == "classification":
@@ -380,7 +382,9 @@ def _jax_init_fn(task, jmod, batch):
         return lambda: jmod.init(key, b["x"], mask_noise=b["mask_noise"])
     if task == "diffusion":
         return lambda: jmod.init(key, b["x"], jnp.zeros(b["x"].shape[0], jnp.int32))
-    img = jax_reassemble(b["seq"], 4, 2, False)
+    if task == "unetr" and "seq" not in b:
+        return lambda: jmod.init(key, b["x"])
+    img = jax_reassemble(b["seq"], sqrt_len, 2, False)
     if task == "unetr":
         return lambda: jmod.init(key, b["x"], None, jax_seq_ps(b), img)
     return lambda: jmod.init(key, img, None, jax_seq_ps(b))
@@ -424,14 +428,14 @@ def _jax_sharded_run(name):
     return init, losses, raw, batches
 
 
-def _jax_steps(task, raw, shape):
-    """The JAX package's three steps of `raw` on the mesh (ddp, fsdp, sp, tp):
+def _jax_steps(task, raw, shape, steps=SHARD_STEPS):
+    """The JAX package's `steps` steps of `raw` on the mesh (ddp, fsdp, sp, tp):
     (its init as whole torch-layout weights, the per-step losses, the
     batches)."""
-    batches = _shard_batches(task, raw)
+    batches = _shard_batches(task, raw, steps)
     jmod, jloss = jax_build_task(JConfig(raw=raw, task=task))
     mesh = jax_make_mesh(*shape)
-    init_fn = _jax_init_fn(task, jmod, batches[0])
+    init_fn = _jax_init_fn(task, jmod, batches[0], Config(raw=raw, task=task).sqrt_len)
     tx = _jax_tx(raw, jax.eval_shape(init_fn)["params"])
     with jax_mesh_context(mesh):
         state, _ = create_sharded_train_state(init_fn, tx, mesh)

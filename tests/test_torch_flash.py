@@ -8,7 +8,14 @@ from numpy seeds.
 
 The CUDA kernel itself runs only on the card: see
 tests/test_torch_flash_cuda.py. What decides, on the host, which layouts the
-bf16 forward's TMA loads take (`fwd_layout`) is tested here on CPU tensors."""
+bf16 forward's TMA loads take (`fwd_layout`) is tested here on CPU tensors.
+
+Three sections of tests/test_torch_train.py follow, moved here whole (names,
+bodies and tolerances unchanged) so that no file holds the tier-1 run's workers
+back: its octree and UNETR section (the 3-D Gaussian, the octree, `Patchify3D`,
+the labelled 3-D DataModule, UNETR's train steps against the JAX step, the MAE
+encoder's transfer, the CLI from labelled NIfTI volumes), then its DiffusionVIT
+and DDPM and its adaptive-patching sections. They share that file's helpers."""
 
 import glob
 import os
@@ -20,6 +27,8 @@ import pytest
 import yaml
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # xdist's workers share the cores: one torch
+    torch.set_num_threads(1)  # thread each keeps them from oversubscribing the machine
 
 import ucf_vit_tpu.ops.flash_attention as jax_fa
 
@@ -507,3 +516,1077 @@ def test_fwd_layout_every_bf16_config_takes_tma(name, embed, heads):
     qn, kn = (torch.zeros(2, 65, heads, dh, dtype=torch.bfloat16).transpose(1, 2)
               for _ in "qk")
     assert fwd_layout(qn, kn, v, _o(q))[0] == "tma", (name, dh, heads)
+
+
+# ================================================================ moved from test_torch_train.py
+# Its octree and UNETR section, moved whole (names, bodies and tolerances unchanged)
+# to spread the tier-1 run's files over its workers.
+
+import itertools
+
+from flax.core import meta
+from ucf_vit_tpu.config import Config as JConfig
+from ucf_vit_tpu.data.datamodule import DataModule as JDataModule
+from ucf_vit_tpu.models.mae import MAE as JMAE
+from ucf_vit_tpu.ops.attention import AttnImpl as JAttnImpl
+from ucf_vit_tpu.parallel.train_step import TrainState as JTrainState
+from ucf_vit_tpu.parallel.train_step import make_train_step as jax_make_train_step
+from ucf_vit_tpu.tasks import _seq_ps as jax_seq_ps
+from ucf_vit_tpu.utils import optim as jax_optim
+from ucf_vit_tpu_torch.config import Config
+from ucf_vit_tpu_torch.convert import jax_to_torch_state
+from ucf_vit_tpu_torch.convert import load_jax_params
+from ucf_vit_tpu_torch.data import nifti
+from ucf_vit_tpu_torch.data.datamodule import DataModule
+from ucf_vit_tpu_torch.parallel.train_step import create_train_state
+from ucf_vit_tpu_torch.parallel.train_step import make_train_step
+from ucf_vit_tpu_torch.tasks import build_task
+from ucf_vit_tpu_torch.tasks import task_loss
+from ucf_vit_tpu_torch.train import init_train
+from ucf_vit_tpu_torch.train import main
+from ucf_vit_tpu_torch.train import synthetic_batches
+from ucf_vit_tpu_torch.train import to_device
+from ucf_vit_tpu_torch.utils import optim
+from test_torch_train import (  # shared with that file
+    LOSS_TOL,
+    _assert_batches_equal,
+    _mae_noise,
+    _mae_optimizer,
+)
+
+# ================================================================ the octree and UNETR
+#
+# 3-D adaptive patching and UNETR's training at a small size (tile 16^3, patch 2,
+# fixed_length 64 = 1 + 7 * 9 leaves, so sqrt_len 4; embed 24, depth 4, 2 heads,
+# feature size 4, 4 classes, batch 2): the native Gaussian against scipy's
+# `gaussian_filter` (its weights from the port's copy of scipy's formula), the octree's
+# native build against its numpy build and the JAX tree box for box, the native
+# serialization against the per-leaf resample and the JAX one bit for bit, `Patchify3D`
+# on one generator state against the JAX one array for array, the 3-D adaptive
+# `DataModule` with labels (in line and with a spawn pool) against the JAX one, five f32
+# train steps of the shrunk basic_ct/unetr with remat against the JAX step (1e-4 a step),
+# `transfer_mae_encoder` against the JAX one key for key and value for value, and the
+# trainer's CLI from labelled NIfTI volumes warm-started from an MAE checkpoint.
+
+from scipy.ndimage import gaussian_filter
+from scipy.ndimage._filters import _gaussian_kernel1d
+
+from ucf_vit_tpu.checkpoint import transfer_mae_encoder as jax_transfer_mae_encoder
+from ucf_vit_tpu.data.octree import FixedOctTree as JFixedOctTree
+from ucf_vit_tpu.data.transform import Patchify3D as JPatchify3D
+from ucf_vit_tpu.tasks import build_unetr as jax_build_unetr
+from ucf_vit_tpu.tasks import reassemble_sqrt_len as jax_reassemble
+from ucf_vit_tpu_torch import native
+from ucf_vit_tpu_torch.checkpoint import transfer_mae_encoder
+from ucf_vit_tpu_torch.data.octree import FixedOctTree, octree_boxes_plain, resize_3d
+from ucf_vit_tpu_torch.data.transform import Patchify3D
+from ucf_vit_tpu_torch.models import UNETR
+from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
+from ucf_vit_tpu_torch.train import transfer_pretrained_mae
+
+UNETR_STEPS = 5
+
+
+@pytest.mark.parametrize("sigma", [1, 3, 5])
+def test_gaussian3d_matches_scipy(sigma):
+    radius = int(4.0 * sigma + 0.5)
+    np.testing.assert_array_equal(native.gaussian_weights(float(sigma), radius),
+                                  _gaussian_kernel1d(float(sigma), 0, radius))
+    img = np.random.default_rng(sigma).random((12, 10, 9, 2)).astype(np.float32)
+    got = native.gaussian3d(img, float(sigma))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, gaussian_filter(img, sigma=(sigma, sigma, sigma, 0)))
+
+
+def _edge_volume(kind, n=16):
+    rng = np.random.default_rng(4)
+    if kind == "sparse":
+        return ((rng.random((n, n, n)) > 0.8) * 255).astype(np.uint8)
+    v = np.zeros((n, n, n), np.uint8)  # mass in two corners, ties elsewhere
+    v[:n // 4, :n // 4, :n // 2] = 85
+    v[n // 2:, n // 2 + 2:, 3:7] = 170
+    return v
+
+
+@pytest.mark.parametrize("fixed_length", [8, 64, 60])
+@pytest.mark.parametrize("edges", ["sparse", "blocks"])
+def test_octree_native_matches_numpy_and_jax(edges, fixed_length):
+    """60 is not 1 + 7n: the splits overshoot it, the same way in all three."""
+    dom = _edge_volume(edges)
+    boxes, vals = native.octree_boxes(dom, fixed_length, 85)
+    pboxes, pvals = octree_boxes_plain(dom, fixed_length, 85)
+    ref = JFixedOctTree(dom, fixed_length, 85)
+    np.testing.assert_array_equal(boxes, pboxes)
+    np.testing.assert_array_equal(vals, pvals)
+    np.testing.assert_array_equal(boxes, [c.get_coord() for c, _ in ref.nodes])
+    np.testing.assert_array_equal(vals, [v for _, v in ref.nodes])
+    assert boxes.shape[0] == (64 if fixed_length == 60 else fixed_length)
+    tree = FixedOctTree(dom, fixed_length, 85)
+    assert [c.get_coord() for c, _ in tree.nodes] == [c.get_coord() for c, _ in ref.nodes]
+
+
+@pytest.mark.parametrize("nearest", [False, True], ids=["trilinear", "nearest"])
+def test_octree_serialize_matches_the_per_leaf_resample_and_jax(nearest):
+    rng = np.random.default_rng(5)
+    img = rng.random((16, 16, 16, 2)).astype(np.float32)
+    if nearest:
+        img = rng.integers(0, 4, size=(16, 16, 16, 1)).astype(np.float32)
+    dom = _edge_volume("sparse")
+    tree, ref = FixedOctTree(dom, 57, 255), JFixedOctTree(dom, 57, 255)
+    c = img.shape[-1]
+    serialize = tree.serialize_labels if nearest else tree.serialize
+    jserialize = ref.serialize_labels if nearest else ref.serialize
+    seq, size, pos = serialize(img, (2, 2, 2, c))
+    for g, w in zip((seq, size, pos), jserialize(img, (2, 2, 2, c))):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    per_leaf = [resize_3d(cube.get_area(img), (2, 2, 2), nearest=nearest).astype(np.float32)
+                for cube, _ in tree.nodes]
+    n = len(per_leaf)
+    np.testing.assert_array_equal(seq[:n], np.stack(per_leaf))
+    np.testing.assert_array_equal(seq[n:], 0)  # the padding
+    assert (size[n:] == 0).all() and (pos[n:] == -1).all()
+    np.testing.assert_array_equal(native.resize3d(img[:4, :4, :4], 2, nearest),
+                                  per_leaf[0] * 0 + resize_3d(img[:4, :4, :4], (2, 2, 2),
+                                                              nearest).astype(np.float32))
+
+
+def test_octree_deserialize_matches_jax():
+    dom = _edge_volume("blocks")
+    tree, ref = FixedOctTree(dom, 64, 85), JFixedOctTree(dom, 64, 85)
+    seq = np.random.default_rng(6).random((64, 8)).astype(np.float32)
+    np.testing.assert_array_equal(tree.deserialize(seq, 2, 1), ref.deserialize(seq, 2, 1))
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_patchify3d_matches_jax(channels):
+    """Eight volumes from one seeded generator each side: every smoothing factor
+    (0: no smoothing) and Canny threshold the draws give; with two channels the
+    cross-channel rules."""
+    rng = np.random.default_rng(8)
+    vols = rng.random((8, 16, 16, 16, channels)).astype(np.float32)
+    vols[:, 4:12, 4:12, 4:12] += 0.5  # an edge the octree sees
+    ours = Patchify3D(fixed_length=64, patch_size=2, num_channels=channels,
+                      rng=np.random.default_rng(9))
+    ref = JPatchify3D(fixed_length=64, patch_size=2, num_channels=channels,
+                      rng=np.random.default_rng(9))
+    for vol in vols:
+        got, want = ours(vol), ref(vol)
+        for g, w in zip(got[:3], want[:3]):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[3].boxes, [c.get_coord() for c, _ in want[3].nodes])
+    assert got[0].shape == ((64, 8) if channels == 1 else (2, 64, 8))
+    with pytest.raises(RuntimeError, match="explicit"):
+        Patchify3D(fixed_length=64, patch_size=2)(vols[0])
+
+
+def _labelled_volumes(root, n, side, seed=0):
+    """`n` int16 CT-like volumes of `side`^3 under <root>/imagesTr and label
+    volumes 1-4 under <root>/labelsTr: thresholds of a smoothed copy, so that
+    the labels have edges."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "imagesTr"))
+    os.makedirs(os.path.join(root, "labelsTr"))
+    for i in range(n):
+        smooth = gaussian_filter(rng.normal(size=(side,) * 3), 2.0)
+        vol = (smooth * 3000 + 40 * rng.normal(size=smooth.shape)).astype(np.int16)
+        lab = 1 + np.digitize(smooth, np.quantile(smooth, [0.4, 0.7, 0.9])).astype(np.int16)
+        nifti.save(os.path.join(root, "imagesTr", f"image{i}.nii"), vol)
+        nifti.save(os.path.join(root, "labelsTr", f"label{i}.nii"), lab)
+    return str(root)
+
+
+@pytest.mark.parametrize("workers", [0, 3], ids=["in_line", "pool"])
+def test_adaptive_3d_datamodule_with_labels_matches_jax(tmp_path, workers):
+    """The 3-D adaptive chain that 3-D refused before this slice: `x`, `seq`,
+    `seq_size`, `seq_pos`, `label` and `seq_label` array for array with the JAX
+    DataModule, in line and in a spawn pool of 2, over two epochs."""
+    keys = ["ct"]
+    kw = dict(dict_root_dirs={"ct": _labelled_volumes(tmp_path / "ct", 2, 32)},
+              tile_size_x=16, tile_size_y=16, tile_size_z=16, twoD=False, single_channel=True,
+              dataset="basic_ct", batch_size=2, seed=3, adaptive_patching=True, patch_size=2,
+              fixed_length=64, return_label=True, num_classes=4,
+              dict_buffer_sizes={k: 4 for k in keys}, dict_in_variables={k: ["ct"] for k in keys},
+              num_channels_used={k: 1 for k in keys}, dict_start_idx={k: 0.0 for k in keys},
+              dict_end_idx={k: 1.0 for k in keys})
+    port = DataModule(**kw, num_workers=workers, prefetch=2)
+    jdm = JDataModule(**kw, prefetch=0)
+    port.setup()
+    jdm.setup()
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jdm.set_epoch(epoch)
+        got = list(itertools.islice(port.train_dataloader(loop=True), 3))
+        want = list(itertools.islice(jdm.train_dataloader(loop=True), 3))
+        _assert_batches_equal(got, want)
+    b = got[0]
+    assert b["seq"].shape == (2, 1, 64, 8) and b["seq_pos"].shape == (2, 1, 64, 3)
+    assert b["seq_label"].shape == (2, 64, 2, 2, 2) and b["label"].shape == (2, 1, 16, 16, 16)
+    assert set(np.unique(b["label"])) <= {0, 1, 2, 3}
+
+
+def _unetr_raw(**trainer):
+    """basic_ct/unetr as shipped, shrunk (its task, f32, remat, adaptive octree input,
+    the position MLP and the skip decoder kept)."""
+    with open(os.path.join(REPO, "configs", "basic_ct", "unetr", "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["net"]["init_args"].update(tile_size=[16, 16, 16], patch_size=2,
+                                            fixed_length=64, embed_dim=24, depth=4,
+                                            num_heads=2, feature_size=4)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)  # YAML reads 1e-5 as a string
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=1, **trainer)
+    raw["parallelism"] = {}
+    raw["data"]["batch_size"] = 2
+    return raw
+
+
+def test_unetr_train_steps_match_jax():
+    """Five f32 steps with remat from one JAX init on the synthetic stream
+    (`seq`, `seq_size`, `seq_pos` and 4-class label volumes), the port's attention
+    FLASH: the losses within LOSS_TOL a step. (The parameters are not compared:
+    AdamW's first updates are lr x the gradient's sign, and some patch-embed
+    gradients are 7e-7 with f32 convolution noise of 1.5e-7 on either side.)"""
+    raw = _unetr_raw()
+    jcfg, cfg = JConfig(raw=raw, task="unetr"), Config(raw=raw, task="unetr")
+    stream = synthetic_batches(cfg, 2)
+    batches = [{k: v for k, v in b.items() if k != "variables"}
+               for _, b in zip(range(UNETR_STEPS), stream)]
+    jmod, jloss = jax_build_unetr(jcfg)
+    assert jmod.remat
+    first = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    seq = jax_reassemble(first["seq"], 4, 2, False)
+    params = meta.unbox(jmod.init(jax.random.key(0), first["x"], None, jax_seq_ps(first),
+                                  seq)["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(jloss, tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="unetr")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    assert isinstance(model, UNETR) and model.remat and model.num_patches == 64
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")))[1].item() for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+    assert state.step == UNETR_STEPS and losses[-1] < losses[0]
+
+
+def _mae_for_unetr():
+    """A JAX MAE (tile 16^3, patch 2: 512 tokens) with the shrunk UNETR's encoder
+    width and depth, and that UNETR, each flax-initialised."""
+    raw = _unetr_raw()
+    jcfg = JConfig(raw=raw, task="unetr")
+    junetr, _ = jax_build_unetr(jcfg)
+    b = {k: jnp.asarray(v) for k, v in next(synthetic_batches(Config(raw=raw, task="unetr"),
+                                                              2)).items() if k != "variables"}
+    uparams = meta.unbox(junetr.init(jax.random.key(1), b["x"], None, jax_seq_ps(b),
+                                     jax_reassemble(b["seq"], 4, 2, False))["params"])
+    jmae = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, img_size=(16, 16, 16),
+                patch_size=2, in_chans=1, twoD=False, embed_dim=24, depth=4, num_heads=2,
+                decoder_embed_dim=18, decoder_depth=1, decoder_num_heads=3)
+    mparams = meta.unbox(jmae.init(jax.random.key(2), b["x"],
+                                   mask_noise=jnp.asarray(_mae_noise(2, 512)))["params"])
+    return jax.device_get(mparams), jax.device_get(uparams), raw
+
+
+def test_transfer_mae_encoder_matches_jax():
+    mparams, uparams, _ = _mae_for_unetr()
+    want = jax_to_torch_state(jax_transfer_mae_encoder(mparams, uparams, new_pos_embed_len=64))
+    mae_sd = {k: torch.from_numpy(v.copy()) for k, v in jax_to_torch_state(mparams).items()}
+    target = {k: torch.from_numpy(v) for k, v in jax_to_torch_state(uparams).items()}
+    got = transfer_mae_encoder(mae_sd, target, new_pos_embed_len=64)
+    assert sorted(got) == sorted(want) == sorted(target)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    # the blocks and patch embed from the MAE, the table resampled, the decoder the UNETR's own
+    assert torch.equal(got["blocks.3.mlp.fc2.weight"], mae_sd["blocks.3.mlp.fc2.weight"])
+    np.testing.assert_array_equal(got["pos_embed"].numpy(),
+                                  interpolate_pos_embed_1d(mae_sd["pos_embed"].numpy(), 64))
+    assert torch.equal(got["decoder5.transp_conv.weight"], target["decoder5.transp_conv.weight"])
+    assert torch.equal(got["adaptive_pos_dep_emb.0.weight"],
+                       target["adaptive_pos_dep_emb.0.weight"])
+
+
+def test_cli_trains_unetr_from_labelled_nifti_warm_started_from_an_mae(tmp_path, capsys):
+    """`trainer.pretrained_mae_checkpoint` (refused before this slice) reads an MAE
+    checkpoint: the encoder equals the MAE's tensor for tensor, the position table is
+    resampled, the decoder keeps its init; then the shrunk basic_ct/unetr trains
+    from labelled NIfTI volumes through the CLI and saves."""
+    mparams, _, raw = _mae_for_unetr()
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in jax_to_torch_state(mparams).items()}
+    mae_dir = tmp_path / "mae"
+    os.makedirs(mae_dir)
+    torch.save({"epoch": 3, "model_state_dict": sd, "loss_list": [], "head_meta": [2, 3]},
+               str(mae_dir / "mae_odd.ckpt"))
+    raw["trainer"].update(pretrained_mae_checkpoint=str(mae_dir),
+                          checkpoint_path=str(tmp_path / "ck"))
+    raw["data"].update(dict_root_dirs={"ct1": _labelled_volumes(tmp_path / "ct", 2, 32)},
+                       num_workers=1)
+    cfg = Config(raw=raw, task="unetr")
+    state, _ = init_train(cfg, "cpu")
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    transfer_pretrained_mae(cfg, state.model, str(mae_dir))
+    got = state.model.state_dict()
+    assert torch.equal(got["blocks.2.attn.qkv.weight"], sd["blocks.2.attn.qkv.weight"])
+    assert torch.equal(got["token_embeds.proj.weight"], sd["token_embeds.proj.weight"])
+    np.testing.assert_array_equal(got["pos_embed"].numpy(),
+                                  interpolate_pos_embed_1d(sd["pos_embed"].numpy(), 64))
+    for k in ("decoder2.conv_block.conv1.weight", "encoder1.layer.conv1.weight", "out.conv.weight"):
+        assert torch.equal(got[k], init[k])
+    path = tmp_path / "unetr.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    out = main([str(path), "--single-device", "--max-steps", "3", "--device", "cpu"])
+    log = capsys.readouterr().out
+    assert "initialized encoder from MAE checkpoint" in log
+    assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
+    assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")
+
+
+# ================================================================ moved from test_torch_train.py
+# Its DiffusionVIT and adaptive-patching sections, moved whole (names, bodies and tolerances unchanged) to spread the tier-1
+# run's files over its workers.
+
+from ucf_vit_tpu_torch.models import MAE
+from ucf_vit_tpu_torch.tasks import build_mae
+from ucf_vit_tpu_torch import checkpoint as ckpt
+import copy
+from ucf_vit_tpu.tools.convert_checkpoint import export_torch_state
+from ucf_vit_tpu.tasks import build_classification as jax_build_classification
+from ucf_vit_tpu.tasks import build_mae as jax_build_mae
+from ucf_vit_tpu.data import catsdogs as jax_catsdogs
+from ucf_vit_tpu.utils import metrics as jax_metrics
+import json
+from ucf_vit_tpu.ops.patchify import unpatchify as junpatchify
+from ucf_vit_tpu_torch.utils import metrics
+import multiprocessing
+from ucf_vit_tpu_torch.data import catsdogs as port_catsdogs
+import re
+from ucf_vit_tpu_torch.inference import reconstruct
+import subprocess
+import sys
+import threading
+import time
+from ucf_vit_tpu_torch.train import train
+from ucf_vit_tpu_torch.ops.patchify import unpatchify
+from test_torch_train import (  # shared with that file
+    CATSDOGS,
+    MAE_PRED_TOL,
+    MAE_STEPS,
+    PARAM_TOL,
+    _jpegs,
+    _mae_x,
+    _volumes,
+)
+
+# ================================================================ DiffusionVIT + DDPM
+#
+# DiffusionVIT and the DDPM functions against the JAX package's, at depth 2, embed 24,
+# decoder 16 (2-D) or 18 (3-D). Weights are the flax init plus numpy noise, moved across
+# with `load_jax_params`; inputs, steps t and noise e come from numpy seeds and are
+# injected into both sides; the time embedding's dropout is off on both (JAX
+# `deterministic=True`, the port's module in eval mode). Tolerances: the time table
+# exact (numpy on both sides); the schedule within 1e-6 relative (f32 cumprod in another
+# order); `q_sample` and the loss within 1e-6; `pred` within 1e-5; per-step losses of
+# 5 f32 train steps within 1e-4; the reverse chain at T = 10 within 1e-4.
+
+from ucf_vit_tpu.models.ddpm import ddpm_sample as jax_ddpm_sample
+from ucf_vit_tpu.models.ddpm import ddpm_schedule as jax_ddpm_schedule
+from ucf_vit_tpu.models.ddpm import q_sample as jax_q_sample
+from ucf_vit_tpu.models.diffusion import DiffusionVIT as JDiffusionVIT
+from ucf_vit_tpu.ops.pos_embed import (
+    sinusoidal_time_embedding_table as jax_time_table,
+)
+from ucf_vit_tpu.tasks import build_diffusion as jax_build_diffusion
+from ucf_vit_tpu_torch.models import DiffusionVIT, ddpm_sample, ddpm_schedule, q_sample
+from ucf_vit_tpu_torch.ops.pos_embed import sinusoidal_time_embedding_table
+from ucf_vit_tpu_torch.tasks import build_diffusion
+
+DIFF_PRED_TOL = 1e-5  # pred, f32
+DIFF_SAMPLE_TOL = 1e-4  # the reverse chain, T = 10
+DIFF_STEPS = 5
+DIFF_T = 50  # time steps of the models below
+DIFF_TILES = {
+    "2d": dict(img_size=(16, 16), patch_size=4, in_chans=3, twoD=True, decoder_embed_dim=16),
+    "3d": dict(img_size=(16, 16, 16), patch_size=4, in_chans=1, twoD=False),
+}
+DIFF_KW = dict(embed_dim=24, depth=2, num_heads=2, decoder_embed_dim=18, decoder_depth=2,
+               decoder_num_heads=2, mlp_ratio_decoder=2.0, mlp_ratio=2.0, time_steps=DIFF_T)
+
+
+def _diff_shape(tile, b=2):
+    kw = DIFF_TILES[tile]
+    return (b, kw["in_chans"]) + tuple(kw["img_size"])
+
+
+def _diff_t(b, steps=DIFF_T, seed=3):
+    return np.random.default_rng(seed).integers(0, steps, size=b).astype(np.int64)
+
+
+def _diff_pair(tile, impl="FLASH", **kw):
+    """(JAX DiffusionVIT, its params (flax init plus N(0, 0.05) noise), the port's
+    model with them in eval mode, input x, steps t)."""
+    kw = dict(DIFF_KW, **DIFF_TILES[tile], **kw)
+    x = _mae_x(*_diff_shape(tile))
+    t = _diff_t(2, steps=kw["time_steps"])
+    jmod = JDiffusionVIT(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(t))["params"])
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    ours = load_jax_params(DiffusionVIT(attn_impl=impl, **kw), params).eval()
+    return jmod, params, ours, x, t
+
+
+@pytest.mark.parametrize("steps,dim", [(1000, 768), (DIFF_T, 24), (7, 10)])
+def test_time_table_equals_jax(steps, dim):
+    want = jax_time_table(steps, dim)
+    got = sinusoidal_time_embedding_table(steps, dim)
+    assert got.dtype == np.float64 and got.shape == (steps, dim)
+    np.testing.assert_array_equal(got, want)
+    # interleaved: even dims sin, odd dims cos of the same angle (step 1, frequency 1 first)
+    assert got[1, 0] == np.sin(1.0) and got[1, 1] == np.cos(1.0)
+    assert np.all(got[0, 1::2] == 1.0) and np.all(got[0, 0::2] == 0.0)
+
+
+@pytest.mark.parametrize("steps", [10, 1000])
+def test_ddpm_schedule_matches_jax(steps):
+    ours, ref = ddpm_schedule(steps), jax_ddpm_schedule(steps)
+    assert ours.num_time_steps == ref.num_time_steps == steps
+    for got, want in ((ours.beta, ref.beta), (ours.alpha_bar, ref.alpha_bar)):
+        assert got.dtype == torch.float32 and got.shape == (steps,)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("tile", sorted(DIFF_TILES))
+def test_q_sample_matches_jax(tile):
+    x0 = _mae_x(*_diff_shape(tile, b=3), seed=4)
+    e = _mae_x(*_diff_shape(tile, b=3), seed=5)
+    t = np.array([0, 499, 999])
+    got = q_sample(ddpm_schedule(1000), torch.from_numpy(x0), torch.from_numpy(t),
+                   torch.from_numpy(e))
+    want = jax_q_sample(jax_ddpm_schedule(1000), jnp.asarray(x0), jnp.asarray(t), jnp.asarray(e))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["2d", "3d", "2d_linear_decoder"])
+def test_diffusion_vit_matches_jax(case):
+    """`pred` within DIFF_PRED_TOL, through `load_jax_params`; the port's state_dict
+    agrees key for key with the JAX package's `export_torch_state` (the time table is
+    in neither)."""
+    tile, _, linear = case.partition("_")
+    jmod, params, ours, x, t = _diff_pair(tile, linear_decoder=bool(linear))
+    want = jmod.apply({"params": params}, jnp.asarray(x), jnp.asarray(t))
+    pred = ours(torch.from_numpy(x), torch.from_numpy(t))
+    assert pred.shape == want.shape == (2, ours.num_patches, ours.decoder_pred.out_features)
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(want), atol=DIFF_PRED_TOL,
+                               rtol=0)
+    theirs = export_torch_state(params)
+    assert set(ours.state_dict()) == set(theirs) == set(jax_to_torch_state(params))
+    assert "timeEmbeddingMap.linear1.weight" in theirs and "time_table" not in theirs
+    assert (ours.decoder_blocks is None) == bool(linear)
+
+
+def test_diffusion_vit_refuses_what_it_cannot_run():
+    kw = dict(DIFF_KW, **DIFF_TILES["2d"])
+    with pytest.raises(ValueError, match="class_token=False"):
+        DiffusionVIT(class_token=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline"):
+        DiffusionVIT(pipe_par_size=2, scan_layers=True, **kw)
+
+
+def _diff_raw(tile="2d", **trainer):
+    kw = DIFF_TILES[tile]
+    ia = {"default_vars": ["r", "g", "b"][:kw["in_chans"]], "tile_size": list(kw["img_size"]),
+          "patch_size": kw["patch_size"], "twoD": kw["twoD"], "adaptive_patching": False,
+          "use_varemb": False, **{k: v for k, v in DIFF_KW.items() if k != "time_steps"},
+          "decoder_embed_dim": kw.get("decoder_embed_dim", DIFF_KW["decoder_embed_dim"]),
+          "num_time_steps": DIFF_T}
+    m = {"lr": 1e-3, "beta_1": 0.9, "beta_2": 0.95, "weight_decay": 1e-2, "warmup_steps": 2,
+         "max_steps": 20, "warmup_start_lr": 1e-8, "eta_min": 1e-8, "loss_fn": "MSE",
+         "net": {"init_args": ia}}
+    return {"trainer": {"task": "diffusion", "attn_impl": "EINSUM", **trainer},
+            "parallelism": {}, "model": m,
+            "data": {"batch_size": 4, "num_channels_used": {"d": kw["in_chans"]}}}
+
+
+def _diff_batch(cfg, b, i=0):
+    x = next(synthetic_batches(cfg, b, seed=i))["x"]
+    e = np.random.default_rng(20 + i).normal(size=x.shape).astype(np.float32)
+    return {"x": x, "t": _diff_t(b, seed=10 + i), "e": e}
+
+
+@pytest.mark.parametrize("tile", sorted(DIFF_TILES))
+def test_diffusion_loss_matches_build_diffusion(monkeypatch, tile):
+    """The port's `task_loss` with `(t, e)` in the batch against `build_diffusion`'s
+    own loss_fn with its draws of t and e replaced by the same arrays."""
+    raw = _diff_raw(tile)
+    cfg = Config(raw=raw, task="diffusion")
+    jmod, jloss = jax_build_diffusion(JConfig(raw=raw, task="diffusion"))
+    batch = _diff_batch(cfg, 4)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(batch["x"]),
+                                  jnp.zeros(4, jnp.int32))["params"])
+    monkeypatch.setattr(jax.random, "randint", lambda *a, **k: jnp.asarray(batch["t"]))
+    monkeypatch.setattr(jax.random, "normal", lambda *a, **k: jnp.asarray(batch["e"]))
+    want, _ = jloss(params, {"x": jnp.asarray(batch["x"])}, jax.random.key(0),
+                    deterministic=True)
+    model = load_jax_params(build_diffusion(cfg), params).eval()
+    got, aux = task_loss(cfg)(model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert aux == {} and got.dtype == torch.float32
+    assert abs(got.item() - float(want)) <= 1e-6
+
+
+def _jax_diff_loss(jmod, patch, twoD):
+    """`build_diffusion`'s loss with t and e taken from the batch and the time
+    embedding's dropout off: the JAX step is jitted, so they must enter as data."""
+    def loss_fn(params, batch, rng):
+        x0 = batch["x"]
+        xt = jax_q_sample(jax_ddpm_schedule(DIFF_T), x0, batch["t"], batch["e"])
+        pred = jmod.apply({"params": params}, xt, batch["t"], deterministic=True)
+        return jax_metrics.mse(junpatchify(pred, x0.shape, patch, twoD), batch["e"]), {}
+    return loss_fn
+
+
+def _port_diff_loss(cfg):
+    """The port's diffusion loss on the batch's t and e with the time embedding's
+    dropout off (the train step puts every module in training mode first)."""
+    loss = task_loss(cfg)
+
+    def loss_fn(model, batch):
+        model.timeEmbeddingMap.eval()
+        return loss(model, batch)
+    return loss_fn
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_flash_accum2"])
+def test_diffusion_train_steps_match_jax(case):
+    """Five f32 steps from one init on the same batches, steps and noise (split with
+    the batch under accumulation): per-step losses within LOSS_TOL, parameters after
+    them within PARAM_TOL."""
+    impl, accum = ("FLASH", 2) if "flash" in case else ("EINSUM", 1)
+    raw = _diff_raw("2d", accum_steps=accum)
+    cfg = Config(raw=raw, task="diffusion")
+    jmod, _ = jax_build_diffusion(JConfig(raw=raw, task="diffusion"))
+    stream = synthetic_batches(cfg, 4)
+    batches = []
+    for i, b in zip(range(DIFF_STEPS), stream):
+        assert set(b) == {"x", "variables"}  # diffusion's synthetic batches hold x only
+        batches.append({"x": b["x"], "t": _diff_t(4, seed=10 + i),
+                        "e": _mae_x(*b["x"].shape, seed=20 + i)})
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(batches[0]["x"]),
+                                  jnp.zeros(4, jnp.int32))["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(_jax_diff_loss(jmod, 4, True), tx, donate=False,
+                                accum_steps=accum)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = impl
+    cfg = Config(raw=raw, task="diffusion")
+    model = load_jax_params(build_diffusion(cfg), jax.device_get(params))
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(_port_diff_loss(cfg), opt, accum_steps=accum)
+    losses = []
+    for b in batches:
+        state, loss, aux = step(state, to_device(b, torch.device("cpu")))
+        losses.append(loss.item())
+    assert aux == {} and state.step == DIFF_STEPS
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+    final = jax_to_torch_state(jax.device_get(jstate.params))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), final[name], atol=PARAM_TOL, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("tile", sorted(DIFF_TILES))
+def test_ddpm_sample_matches_jax(tile):
+    """The reverse chain at T = 10 on one model: the JAX sampler under its own key,
+    the port's on the arrays of that key chain (a split for x_T, then one split and
+    one normal a step, the last step's included)."""
+    steps = 10
+    jmod, params, ours, x, _ = _diff_pair(tile, time_steps=steps)
+    kw = DIFF_TILES[tile]
+    shape = x.shape
+
+    def jdenoise(x_t, t):
+        return junpatchify(jmod.apply({"params": params}, x_t, t), shape, kw["patch_size"],
+                           kw["twoD"])
+
+    key = jax.random.key(5)
+    want = np.asarray(jax.jit(lambda k: jax_ddpm_sample(jax_ddpm_schedule(steps), jdenoise, k,
+                                                        shape))(key))
+    key, init_key = jax.random.split(key)
+    x_T = np.array(jax.random.normal(init_key, shape))
+    noises = []
+    for _ in range(steps):
+        key, nkey = jax.random.split(key)
+        noises.append(torch.from_numpy(np.array(jax.random.normal(nkey, shape))))
+
+    def denoise(x_t, t):
+        return unpatchify(ours(x_t, t), shape, kw["patch_size"], kw["twoD"])
+
+    state = torch.random.get_rng_state()
+    got = ddpm_sample(ddpm_schedule(steps), denoise, None, shape, "cpu",
+                      x_T=torch.from_numpy(x_T), noises=noises)
+    assert torch.equal(state, torch.random.get_rng_state())
+    assert got.shape == shape and np.all(np.isfinite(want))
+    np.testing.assert_allclose(got.numpy(), want, atol=DIFF_SAMPLE_TOL, rtol=0)
+    with pytest.raises(ValueError, match="explicit generator"):
+        ddpm_sample(ddpm_schedule(steps), denoise, None, shape, "cpu")
+
+
+def test_time_embedding_dropout_draws_from_the_model_generator():
+    """At rate 0.5 the time MLP's dropout draws from the model's generator: a train
+    step without one raises; two steps from one seed are equal bit for bit; torch's
+    global generator is never touched; about half of the entries are kept, each
+    scaled by 2."""
+    from ucf_vit_tpu_torch.train import init_train
+
+    cfg = Config(raw=_diff_raw("2d"), task="diffusion")
+    batch = to_device(next(synthetic_batches(cfg, 4)), torch.device("cpu"))
+    bare = build_diffusion(cfg).train()
+    with pytest.raises(RuntimeError, match="set_generator"):
+        task_loss(cfg)(bare, batch)
+    seen = []
+
+    def hook(module, inputs, output):
+        seen.append((inputs[0].detach().clone(), output.detach().clone()))
+
+    runs = []
+    for _ in range(2):
+        state, step = init_train(cfg, "cpu")  # building modules draws from torch's generator
+        drop = state.model.timeEmbeddingMap.dropout
+        assert drop.rate == 0.5 and drop.generator is state.model.generator
+        handle = drop.register_forward_hook(hook)
+        global_state = torch.random.get_rng_state()
+        state, loss, _ = step(state, batch)
+        assert torch.equal(global_state, torch.random.get_rng_state())  # the step does not
+        handle.remove()
+        runs.append((loss.item(), {n: p.detach().clone()
+                                   for n, p in state.model.named_parameters()}))
+    (la, pa), (lb, pb) = runs
+    assert la == lb and all(torch.equal(pa[n], pb[n]) for n in pa)
+    x_in, x_out = seen[0]
+    assert torch.equal(seen[0][1], seen[1][1])
+    kept = x_out != 0
+    assert torch.equal(x_out[kept], 2 * x_in[kept])
+    live = x_in != 0  # ReLU's zeros stay zero either way
+    share = (kept & live).sum().item() / live.sum().item()
+    assert 0.3 < share < 0.7, share
+
+
+DIFF_CONFIGS = {"imagenet": ("configs/imagenet/diffusion/base_config.yaml", [16, 16], 3),
+                "basic_ct": ("configs/basic_ct/diffusion/base_config.yaml", [16, 16, 16], 1)}
+
+
+@pytest.mark.parametrize("name", sorted(DIFF_CONFIGS))
+def test_cli_trains_diffusion_config_shrunk(tmp_path, capsys, name):
+    """A shipped diffusion config (f32, 2 microbatches, loss scaling, a simple_ddp 8
+    mesh) through the CLI with `--single-device`, shrunk in a copy to a 16^2 tile at
+    patch 4, depth 2, embed 24 and a decoder of 16 (the rest as shipped): two epochs of
+    two steps, each saved to its slot; then a run resumed from the newer slot to a
+    third epoch keeps the first two epochs' losses."""
+    rel, tile, chans = DIFF_CONFIGS[name]
+    raw = yaml.safe_load(open(os.path.join(REPO, rel)))
+    assert raw["trainer"]["task"] == "diffusion" and raw["trainer"]["accum_steps"] == 2
+    assert raw["parallelism"]["simple_ddp_size"] == 8 and raw["model"]["use_grad_scaler"]
+    raw["model"]["net"]["init_args"].update(
+        tile_size=tile, patch_size=4, embed_dim=24, depth=2, num_heads=2, decoder_embed_dim=16,
+        decoder_depth=2, decoder_num_heads=2)
+    ck = tmp_path / "ck"
+    raw["trainer"].update(checkpoint_path=str(ck), max_epochs=2,
+                          checkpoint_filename_for_loading="multi_last_latest",
+                          metrics_path=str(tmp_path / "metrics.jsonl"))
+    raw["data"]["batch_size"] = 4
+    raw["load_balancing"]["batches_per_rank_epoch"] = {
+        k: 2 for k in raw["load_balancing"]["batches_per_rank_epoch"]}
+    small = tmp_path / f"{name}_small.yaml"
+    small.write_text(yaml.safe_dump(raw))
+    with pytest.raises(RuntimeError, match="single-device"):  # 8 processes, 1 launched
+        main([str(small), "--synthetic", "--device", "cpu"])
+    out = main([str(small), "--single-device", "--device", "cpu", "--synthetic"])
+    log = capsys.readouterr().out
+    assert "epoch 1 it 2 loss" in log and "epoch 1 done" in log
+    model = out["state"].model
+    assert isinstance(model, DiffusionVIT) and model.num_patches == 16
+    assert model.token_embeds.proj.in_channels == chans and model.time_steps == 1000
+    assert len(out["loss_list"]) == 2 and all(np.isfinite(out["loss_list"]))
+    assert sorted(os.listdir(ck)) == ["multi_last_even.ckpt", "multi_last_odd.ckpt"]
+    assert ckpt.restore_checkpoint(str(ck), "multi_last_latest")["head_meta"] == [2, 2]
+
+    raw["trainer"].update(max_epochs=3, resume_from_checkpoint=True)
+    small.write_text(yaml.safe_dump(raw))
+    resumed = main([str(small), "--single-device", "--device", "cpu", "--synthetic"])
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    assert resumed["loss_list"][:2] == out["loss_list"] and len(resumed["loss_list"]) == 3
+    assert resumed["state"].optimizer.count == 6 and np.isfinite(resumed["loss_list"][2])
+
+
+@pytest.mark.parametrize("source", ["flash_fwd_tf32", "flash_bwd_tf32", "flash_fwd_sm90",
+                                    "flash_bwd_sm90"])
+def test_kernel_instance_mirrors_the_sources_dispatch(source):
+    """`kernel_instance` (the key of the launch counts by head-dim instance) picks
+    the instance each source's `dispatch_dh` launches: the diffusion decoders' dh
+    128 and 96 go to `DH = 128` and, in f32, `DH = 96`."""
+    import re
+
+    from ucf_vit_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        kernel_instance,
+        reset_launch_counts,
+    )
+
+    text = open(os.path.join(REPO, "ucf_vit_tpu_torch", "csrc", f"{source}.cu")).read()
+    dispatch = text[text.index("dispatch_dh("):]
+    dispatch = dispatch[:dispatch.index("return cudaErrorInvalidValue")]
+    bounds = [int(n) for n in re.findall(r"p\.dh <= (\d+)\) return launch<(?:\1)", dispatch)]
+    assert bounds and bounds == sorted(bounds)
+    for dh in range(1, bounds[-1] + 1):
+        assert kernel_instance(source, dh) == f"{source}<{min(b for b in bounds if dh <= b)}>"
+    with pytest.raises(ValueError, match="head dims up to"):
+        kernel_instance(source, bounds[-1] + 1)
+    assert kernel_instance("flash_fwd_tf32", 96) == "flash_fwd_tf32<96>"
+    reset_launch_counts()
+    q = torch.zeros(1, 1, 4, 8)
+    flash_attention(q, q, q)  # a CPU call takes the plain version and counts nothing
+    counts = flash_attention_bwd.by_instance if "bwd" in source else flash_attention.by_instance
+    assert {k for k in counts if k.startswith(source)} == {f"{source}<{b}>" for b in bounds}
+    assert not any(counts.values())
+
+
+# ---------------------------------------------------------------- adaptive patching
+#
+# The three adaptive configs (imagenet/classification, imagenet/mae with seq_pack 2,
+# basic_ct/mae single-channel) shrunk to a 32x32 tile at patch 4, 16 patches, depth 2,
+# embed 32: MAE `pred` with the mask noise injected (1e-5), the adaptive MAE loss
+# against `build_mae`'s, and 5 f32 train steps on the synthetic stream from one JAX
+# init (1e-4 a step; the MAE's mask noise taken from the batch on both sides, the
+# config's loss scaling on both). Then the data: `DataModule` on seeded JPEGs and NIfTI
+# slices against the JAX one, in line and with a spawn pool, array for array; a
+# fast-forward that patchifies no skipped sample; the pool's children importing the
+# data modules alone; the adaptive catsdogs loader.
+
+from ucf_vit_tpu.tasks import _seq_ps as jax_seq_ps
+from ucf_vit_tpu_torch.data import transform as port_transform
+from ucf_vit_tpu_torch.tasks import build_task
+from ucf_vit_tpu_torch.tasks import seq_ps as port_seq_ps
+
+ADAPTIVE_CONFIGS = ("imagenet/classification", "imagenet/mae", "basic_ct/mae")
+
+
+def _adaptive_raw(name):
+    """A shipped adaptive config, shrunk (its task, loss scaling, seq_pack and
+    channels kept)."""
+    with open(os.path.join(REPO, "configs", name, "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    ia = raw["model"]["net"]["init_args"]
+    ia.update(tile_size=[32, 32, 2][:len(ia["tile_size"])], patch_size=4, embed_dim=32, depth=2, num_heads=2, fixed_length=16)
+    if raw["trainer"]["task"] == "mae":
+        ia.update(decoder_embed_dim=24, decoder_depth=2, decoder_num_heads=2)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)  # YAML reads 1e-5 as a string
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=2)
+    raw["parallelism"] = {}
+    raw["data"].update(batch_size=4, num_classes=4)
+    return raw
+
+
+def _adaptive_batches(cfg, n, seed=20):
+    stream = synthetic_batches(cfg, 4)
+    out = []
+    for i, b in zip(range(n), stream):
+        b = {k: v for k, v in b.items() if k != "x" and k != "variables"}
+        if cfg.task == "mae":
+            b["mask_noise"] = _mae_noise(4, 16, seed=seed + i)
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("seq_pack", [1, 2])
+def test_adaptive_mae_matches_jax(seq_pack):
+    kw = dict(img_size=(32, 32), patch_size=4, in_chans=1, embed_dim=24, depth=2,
+              num_heads=2, decoder_embed_dim=18, decoder_depth=2, decoder_num_heads=3,
+              adaptive_patching=True, fixed_length=16, use_adaptive_pos_emb=True,
+              seq_pack=seq_pack)
+    b = _adaptive_batches(Config(raw=_adaptive_raw("basic_ct/mae"), task="mae"), 1)[0]
+    seq, noise = b["seq"][:2], b["mask_noise"][:2]
+    ps = np.asarray(jax_seq_ps({k: jnp.asarray(v[:2]) for k, v in b.items()}))
+    jmod = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, **kw)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(seq), None, jnp.asarray(ps),
+                                  mask_noise=jnp.asarray(noise))["params"])
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    assert sorted(jax_to_torch_state(params)) == sorted(export_torch_state(params))
+    ours = load_jax_params(MAE(attn_impl="FLASH", **kw), params).eval()
+    want, wmask = jmod.apply({"params": params}, jnp.asarray(seq), None, jnp.asarray(ps),
+                             mask_noise=jnp.asarray(noise))
+    np.testing.assert_array_equal(
+        port_seq_ps({k: torch.from_numpy(v[:2]) for k, v in b.items()}).numpy(), ps)
+    with torch.inference_mode():
+        got, mask = ours(torch.from_numpy(seq), mask_noise=torch.from_numpy(noise),
+                         seq_ps=torch.from_numpy(ps))
+        alone = reconstruct(ours, torch.from_numpy(seq), seed=3, seq_ps=torch.from_numpy(ps))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=MAE_PRED_TOL, rtol=0)
+    assert alone.shape == got.shape == (2, 16, 16)  # tokens [B, L, p^2 * C]
+
+
+def test_adaptive_mae_loss_matches_build_mae(monkeypatch):
+    raw = _adaptive_raw("imagenet/mae")
+    jmod, jloss = jax_build_mae(JConfig(raw=raw, task="mae"))
+    cfg = Config(raw=raw, task="mae")
+    b = _adaptive_batches(cfg, 1)[0]
+    noise = torch.rand(4, 16, generator=torch.Generator().manual_seed(5)).numpy()
+    jb = {k: jnp.asarray(v) for k, v in b.items() if k != "mask_noise"}
+    params = meta.unbox(jmod.init(jax.random.key(0), jb["seq"], None, jax_seq_ps(jb),
+                                  mask_noise=jnp.asarray(noise))["params"])
+    monkeypatch.setattr(jax.random, "uniform", lambda key, shape, *a, **k: jnp.asarray(noise))
+    want, _ = jloss(params, jb, jax.random.key(0))
+    model = load_jax_params(build_mae(cfg), jax.device_get(params)).train()
+    model.set_generator(torch.Generator().manual_seed(5), torch.Generator().manual_seed(6))
+    got, aux = task_loss(cfg)(model, {k: torch.from_numpy(v) for k, v in b.items()})
+    assert aux == {} and abs(got.item() - float(want)) <= 1e-6
+
+
+def _adaptive_jax_loss(jmod, cfg, jloss):
+    if cfg.task != "mae":
+        return jloss
+
+    def loss_fn(params, batch, rng):  # build_mae's adaptive loss, the noise from the batch
+        seq = batch["seq"]
+        pred, _ = jmod.apply({"params": params}, seq, None, jax_seq_ps(batch),
+                             deterministic=False, mask_noise=batch["mask_noise"],
+                             rngs={"dropout": rng})
+        b, c, l, p = seq.shape
+        return jax_metrics.mse(pred, seq.transpose(0, 2, 3, 1).reshape(b, l, p * c)), {}
+    return loss_fn
+
+
+def _adaptive_port_loss(cfg):
+    if cfg.task != "mae":
+        return task_loss(cfg)
+
+    def loss_fn(model, batch):
+        seq = batch["seq"]
+        pred, _ = model(seq, mask_noise=batch["mask_noise"], seq_ps=port_seq_ps(batch))
+        b, c, l, p = seq.shape
+        return metrics.mse(pred, seq.permute(0, 2, 3, 1).reshape(b, l, p * c)), {}
+    return loss_fn
+
+
+@pytest.mark.parametrize("name", ADAPTIVE_CONFIGS)
+def test_adaptive_train_steps_match_jax(name):
+    raw = _adaptive_raw(name)
+    task = raw["trainer"]["task"]
+    jcfg, cfg = JConfig(raw=raw, task=task), Config(raw=raw, task=task)
+    batches = _adaptive_batches(cfg, MAE_STEPS)
+    jmod, jloss = (jax_build_mae if task == "mae" else jax_build_classification)(jcfg)
+    first = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    extra = {"mask_noise": first["mask_noise"]} if task == "mae" else {}
+    params = meta.unbox(jmod.init(jax.random.key(0), first["seq"], None, jax_seq_ps(first),
+                                  **extra)["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    scaler = bool(raw["model"].get("use_grad_scaler", False))
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=jax_optim.init_loss_scale() if scaler else None,
+                         ema_params=None)
+    jstep = jax_make_train_step(_adaptive_jax_loss(jmod, jcfg, jloss), tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task=task)
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt, use_grad_scaler=scaler)
+    step = make_train_step(_adaptive_port_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")))[1].item() for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+    final = jax_to_torch_state(jax.device_get(jstate.params))
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), final[n], atol=PARAM_TOL, rtol=0,
+                                   err_msg=n)
+
+
+def _imagenet_jpegs(root, per_class=3):
+    for i, cls in enumerate(("n01", "n02")):
+        _jpegs(os.path.join(root, cls), [f"img{j}.JPEG" for j in range(per_class)],
+               size=(48, 40), seed=i)
+    return str(root)
+
+
+def _adaptive_dm_case(tmp_path, case):
+    kw = dict(tile_size_x=32, tile_size_y=32, twoD=True, adaptive_patching=True,
+              patch_size=4, fixed_length=16, batch_size=2, seed=3)
+    if case == "imagenet":
+        keys, names = ["imagenet"], ["red", "green", "blue"]
+        kw.update(dict_root_dirs={"imagenet": _imagenet_jpegs(tmp_path / "in")},
+                  dataset="imagenet", return_label=True, num_classes=2,
+                  imagenet_resize={"imagenet": (32, 32)})
+    else:
+        keys, names = ["ct"], ["ct"]
+        kw.update(dict_root_dirs={"ct": _volumes(tmp_path / "ct", 3, (32, 32, 2),
+                                                 labels=3 if case == "basic_ct_labels" else 0)},
+                  dataset="basic_ct", tile_size_z=2, single_channel=True)
+        if case == "basic_ct_labels":
+            kw.update(return_label=True, num_classes=3)
+    kw.update(dict_buffer_sizes={k: 4 for k in keys}, dict_in_variables={k: names for k in keys},
+              num_channels_used={k: len(names) for k in keys},
+              dict_start_idx={k: 0.0 for k in keys}, dict_end_idx={k: 1.0 for k in keys})
+    return kw
+
+
+@pytest.mark.parametrize("case,workers", [("imagenet", 0), ("imagenet", 3), ("basic_ct", 0),
+                                          ("basic_ct", 3), ("basic_ct_labels", 0)])
+def test_adaptive_datamodule_matches_jax(tmp_path, case, workers):
+    """Two epochs (past each chain's end) and a fast-forward, against the JAX
+    DataModule in line: `num_workers` 3 patchifies in a spawn pool of 2."""
+    kw = _adaptive_dm_case(tmp_path, case)
+    port = DataModule(**kw, num_workers=workers, prefetch=2)
+    jdm = JDataModule(**kw, prefetch=0)
+    port.setup()
+    jdm.setup()
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jdm.set_epoch(epoch)
+        got = list(itertools.islice(port.train_dataloader(loop=True), 4))
+        want = list(itertools.islice(jdm.train_dataloader(loop=True), 4))
+        _assert_batches_equal(got, want)
+        assert got[0]["seq"].shape == (2, 1 if case != "imagenet" else 3, 16, 16)
+    port.set_epoch(2)  # fresh chains (the prefetch thread read ahead on the old ones)
+    jdm.set_epoch(2)
+    _assert_batches_equal(list(port.train_dataloader(skip_batches=1)),
+                          list(jdm.train_dataloader(skip_batches=1)))
+
+
+def test_adaptive_batches_carry_the_trees_with_return_qdt(tmp_path):
+    kw = _adaptive_dm_case(tmp_path, "basic_ct")
+    port = DataModule(**kw, return_qdt=True, prefetch=0)
+    jdm = JDataModule(**kw, return_qdt=True, prefetch=0)
+    port.setup()
+    jdm.setup()
+    got, want = next(port.train_dataloader()), next(jdm.train_dataloader())
+    # every array reaches the device, the trees and the variable names stay on the host
+    assert sorted(to_device(got, torch.device("cpu"))) == ["seq", "seq_pos", "seq_size", "x"]
+    assert [q.encode_nodes() for q in got.pop("qdt")] == [
+        q.encode_nodes() for q in want.pop("qdt")]
+    _assert_batches_equal([got], [want])
+
+
+def test_adaptive_fast_forward_patchifies_no_skipped_sample(tmp_path, monkeypatch):
+    calls = []
+    call = port_transform.Patchify.__call__
+    monkeypatch.setattr(port_transform.Patchify, "__call__",
+                        lambda self, img, rng=None: calls.append(1) or call(self, img, rng))
+    kw = _adaptive_dm_case(tmp_path, "basic_ct")
+    dm = DataModule(**kw, prefetch=0)
+    dm.setup()
+    whole = list(itertools.islice(dm.train_dataloader(), 3))
+    dm.set_epoch(1)
+    dm.set_epoch(0)
+    calls.clear()
+    rest = list(itertools.islice(dm.train_dataloader(skip_batches=2), 1))
+    assert len(calls) == 2  # one batch of 2 made; the 4 skipped samples never patchified
+    _assert_batches_equal(rest, whole[2:])
+
+
+def test_pool_children_import_the_data_modules_alone(tmp_path):
+    """A trainer's main module imports torch; the spawn pool's children do not
+    run it again: a child holds numpy and the port's data modules, no torch, no
+    JAX, nothing of the JAX package."""
+    script = tmp_path / "main.py"
+    script.write_text(
+        "import json, sys, torch\n"
+        "from ucf_vit_tpu_torch.data.pipeline import make_pool\n"
+        "spec = dict(num_channels=1, single_channel=True, return_label=False,\n"
+        "            dataset='basic_ct', adaptive_patching=True, patch_size=4,\n"
+        "            fixed_length=16, aug_seed=0)\n"
+        "if __name__ == '__main__':\n"
+        "    with make_pool(spec, 1) as pool:\n"
+        "        assert pool._mp_context.get_start_method() == 'spawn'\n"
+        "        print(json.dumps(pool.submit(eval, 'sorted(__import__(\"sys\").modules)')\n"
+        "                         .result(timeout=120)))\n")
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    mods = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "ucf_vit_tpu_torch.data.transform" in mods and "numpy" in mods
+    assert not [m for m in mods if re.match(r"(torch|jax|flax|ucf_vit_tpu(?!_torch))(\.|$)", m)]
+    assert {m for m in mods if m.startswith("ucf_vit_tpu_torch")} <= {
+        "ucf_vit_tpu_torch", "ucf_vit_tpu_torch.data", "ucf_vit_tpu_torch.data.pipeline",
+        "ucf_vit_tpu_torch.data.nifti", "ucf_vit_tpu_torch.data.transform",
+        "ucf_vit_tpu_torch.data.quadtree", "ucf_vit_tpu_torch.data.octree",
+        "ucf_vit_tpu_torch.native"}
+
+
+def test_pools_started_from_three_threads_leave_the_main_module_whole():
+    """Three loaders' pools started at once, from three threads: `make_pool` starts
+    every worker before it returns, the main module's `__spec__` and `__file__`
+    come back as they were, and an ordinary spawn afterwards still runs."""
+    from ucf_vit_tpu_torch.data.pipeline import make_pool
+
+    main = sys.modules["__main__"]
+    before = {k: main.__dict__.get(k, "absent") for k in ("__spec__", "__file__")}
+    spec = dict(num_channels=1, single_channel=True, return_label=False, dataset="basic_ct",
+                adaptive_patching=True, patch_size=4, fixed_length=16, aug_seed=0)
+    start, pools = threading.Barrier(3), []
+
+    def build():
+        start.wait()
+        pool = make_pool(spec, 2)
+        pools.append((len(pool._processes), pool))
+
+    threads = [threading.Thread(target=build) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    try:
+        assert [n for n, _ in pools] == [2, 2, 2]
+        assert {k: main.__dict__.get(k, "absent") for k in before} == before
+        child = multiprocessing.get_context("spawn").Process(target=time.sleep, args=(0,))
+        child.start()
+        child.join(timeout=120)
+        assert child.exitcode == 0
+        assert [p.submit(abs, -3).result(timeout=120) for _, p in pools] == [3, 3, 3]
+    finally:
+        for _, p in pools:
+            p.shutdown(wait=True)
+
+
+def test_adaptive_catsdogs_matches_jax(tmp_path):
+    root = _jpegs(tmp_path / "cd", CATSDOGS, size=(40, 36))
+    files = port_catsdogs.list_file_split(root, 0.0, 1.0)
+    kw = dict(adaptive_patching=True, fixed_length=16, patch_size=4)
+    ds = port_catsdogs.CatsDogsDataset(files, ("r", "g", "b"), (32, 32),
+                                       rng=np.random.default_rng(8), **kw)
+    jds = jax_catsdogs.CatsDogsDataset(files, ("r", "g", "b"), (32, 32),
+                                       rng=np.random.default_rng(8), **kw)
+    got = list(port_catsdogs.catsdogs_loader(ds, 2, seed=1))
+    _assert_batches_equal(got, list(jax_catsdogs.catsdogs_loader(jds, 2, seed=1)))
+    assert got[0]["seq"].shape == (2, 3, 16, 16) and got[0]["seq_size"].shape == (2, 1, 16)
+
+

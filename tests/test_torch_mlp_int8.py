@@ -2,13 +2,25 @@
 CPU: the plain versions (which the wrappers take for CPU tensors) against the
 Pallas kernels in interpret mode and against their plain-XLA references, on
 inputs from numpy seeds. The CUDA kernels are held against the same plain
-versions on the card (`tests/test_torch_flash_cuda.py`, `chip_smoke.py`)."""
+versions on the card (`tests/test_torch_flash_cuda.py`, `chip_smoke.py`).
+
+Three sections of tests/test_torch_train.py follow, moved here whole (names,
+bodies and tolerances unchanged) so that no file holds the tier-1 run's workers
+back: SAP (its loss, train steps, bf16 dtypes, MAE transfer and CLI), varemb in
+training, and trainer parity (validation, the mid-epoch resume, SIGTERM,
+TensorBoard and the profiler, against the JAX trainer). They share that file's
+helpers and tests/test_torch_flash.py's (where its UNETR and adaptive sections
+went)."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # xdist's workers share the cores: one torch
+    torch.set_num_threads(1)  # thread each keeps them from oversubscribing the machine
 
 from ucf_vit_tpu.ops import fused_mlp as jax_mlp
 from ucf_vit_tpu.ops import int8_gemm as jax_int8
@@ -460,3 +472,728 @@ def test_int8_matmul_limits():
         int8_matmul(x[:0], w_i8, ws)
     assert int8_matmul(x, w_i8, ws).abs().max() == 0  # an all-zero row: scale 1e-8 / 127
     assert int8_matmul.launches == 0  # CPU calls launch no kernel
+
+
+# ================================================================ moved from test_torch_train.py
+# Its SAP and varemb-in-training sections, moved whole (names, bodies and tolerances
+# unchanged) to spread the tier-1 run's files over its workers.
+
+import jax
+
+from flax.core import meta
+from ucf_vit_tpu.checkpoint import transfer_mae_encoder as jax_transfer_mae_encoder
+from ucf_vit_tpu.models.mae import MAE as JMAE
+from ucf_vit_tpu.ops.attention import AttnImpl as JAttnImpl
+from ucf_vit_tpu.parallel.train_step import TrainState as JTrainState
+from ucf_vit_tpu.parallel.train_step import make_train_step as jax_make_train_step
+from ucf_vit_tpu.tasks import _seq_ps as jax_seq_ps
+from ucf_vit_tpu.tasks import build_classification as jax_build_classification
+from ucf_vit_tpu.tasks import reassemble_sqrt_len as jax_reassemble
+from ucf_vit_tpu.utils import optim as jax_optim
+from ucf_vit_tpu_torch import checkpoint as ckpt
+from ucf_vit_tpu_torch.checkpoint import transfer_mae_encoder
+from ucf_vit_tpu_torch.convert import jax_to_torch_state, load_jax_params
+from ucf_vit_tpu_torch.ops.pos_embed import interpolate_pos_embed_1d
+from ucf_vit_tpu_torch.parallel.train_step import create_train_state, make_train_step
+from ucf_vit_tpu_torch.tasks import build_task
+from ucf_vit_tpu_torch.tasks import task_loss
+from ucf_vit_tpu_torch.train import init_train
+from ucf_vit_tpu_torch.train import main, to_device
+from ucf_vit_tpu_torch.train import train
+from ucf_vit_tpu_torch.train import transfer_pretrained_mae
+from ucf_vit_tpu_torch.utils import optim
+from test_torch_flash import _labelled_volumes  # its octree and UNETR section
+from test_torch_flash import _adaptive_batches, _adaptive_raw  # its adaptive section
+from test_torch_train import (  # shared with that file
+    LOSS_TOL,
+    _mae_noise,
+    _mae_optimizer,
+)
+
+# ---------------------------------------------------------------- SAP
+#
+# basic_ct/sap and sap_bf16 shrunk (tile 16^3 at patch 2, 64 octree tokens reassembled
+# into an 8^3 image, two blocks of 24 wide, batch 2): the loss on injected batches
+# within 1e-6 of the JAX one, five train steps within 1e-4 (f32) and 5e-3 (bf16) a
+# step, sap_bf16's dtypes from the token embed to the loss against `jax.eval_shape` of
+# the JAX model, the MAE-encoder transfer into SAP, and the CLI: synthetic, and from
+# labelled NIfTI volumes warm-started from an MAE checkpoint.
+
+from ucf_vit_tpu.tasks import build_sap as jax_build_sap
+from ucf_vit_tpu_torch.models import SAP
+
+SAP_STEPS = 5
+SAP_LOSS_TOL = 1e-6  # one loss on the same weights, f32
+SAP_BF16_LOSS_TOL = 5e-3  # per-step loss, bf16
+
+
+def _sap_raw(name="sap", twoD=False, **trainer):
+    """basic_ct/<name> as shipped, shrunk (its task, dtype, adaptive octree input and the
+    position MLP kept); `twoD` a 2-D copy (16 quadtree tokens of 2^2 into an 8^2 image)."""
+    with open(os.path.join(REPO, "configs", "basic_ct", name, "base_config.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["net"]["init_args"].update(
+        tile_size=[16, 16] if twoD else [16, 16, 16], patch_size=2,
+        fixed_length=16 if twoD else 64, embed_dim=24, depth=2, num_heads=2, twoD=twoD)
+    raw["model"].update(lr=1e-3, warmup_steps=2, max_steps=20, weight_decay=1e-5,
+                        warmup_start_lr=1e-8, eta_min=1e-8)  # YAML reads 1e-5 as a string
+    raw["trainer"].update(attn_impl="EINSUM", max_epochs=1, **trainer)
+    raw["parallelism"] = {}
+    raw["data"]["batch_size"] = 2
+    return raw
+
+
+def _sap_jax(raw, batch, seed=0):
+    """The JAX SAP of `raw`, its loss and its params initialised on `batch`."""
+    jmod, jloss = jax_build_sap(JConfig(raw=raw, task="sap"))
+    b = {k: jnp.asarray(v) for k, v in batch.items()}
+    twoD = raw["model"]["net"]["init_args"]["twoD"]
+    img = jax_reassemble(b["seq"], 4, 2, twoD)
+    params = meta.unbox(jmod.init(jax.random.key(seed), img, None, jax_seq_ps(b))["params"])
+    return jmod, jloss, jax.tree.map(jnp.asarray, params)
+
+
+def _sap_batches(cfg, n):
+    return [{k: v for k, v in b.items() if k != "variables"}
+            for _, b in zip(range(n), synthetic_batches(cfg, 2))]
+
+
+@pytest.mark.parametrize("twoD", [False, True], ids=["3d", "2d"])
+def test_sap_loss_matches_jax(twoD):
+    """`dice_b_loss` of the logits of the reassembled image against the reassembled,
+    one-hot serialized labels, on the same weights and batch."""
+    raw = _sap_raw(twoD=twoD)
+    cfg = Config(raw=raw, task="sap")
+    b = _sap_batches(cfg, 1)[0]
+    assert b["seq_label"].shape == (2, 16 if twoD else 64) + (2,) * (2 if twoD else 3)
+    jmod, jloss, params = _sap_jax(raw, b)
+    want, _ = jloss(params, {k: jnp.asarray(v) for k, v in b.items()}, jax.random.key(0),
+                    deterministic=True)
+    model = load_jax_params(build_task(cfg), jax.device_get(params)).eval()
+    assert isinstance(model, SAP) and model.token_grid == (4,) * (2 if twoD else 3)
+    got, aux = task_loss(cfg)(model, to_device(b, torch.device("cpu")))
+    assert aux == {} and got.dtype == torch.float32
+    assert abs(got.item() - float(want)) <= SAP_LOSS_TOL
+
+
+@pytest.mark.parametrize("name, tol", [("sap", LOSS_TOL), ("sap_bf16", SAP_BF16_LOSS_TOL)])
+def test_sap_train_steps_match_jax(name, tol):
+    """Five steps from one JAX init on the synthetic stream (`seq`, `seq_size`,
+    `seq_pos`, `seq_label`), the port's attention FLASH: the losses within `tol` a
+    step, and falling."""
+    raw = _sap_raw(name)
+    cfg = Config(raw=raw, task="sap")
+    batches = _sap_batches(cfg, SAP_STEPS)
+    jmod, jloss, params = _sap_jax(raw, batches[0])
+    assert jmod.dtype == (jnp.bfloat16 if name == "sap_bf16" else None)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(jloss, tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="sap")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")))[1].item() for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=tol, rtol=0)
+    assert state.step == SAP_STEPS and losses[-1] < losses[0]
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def test_sap_bf16_dtypes_match_jax_eval_shape():
+    """Under the bf16 policy, the output type of each stage from the token embed to
+    the loss against `jax.eval_shape` of the JAX model's captured intermediates: the
+    embed and the blocks bf16, the position MLP f32 (cast to the stream after it), and
+    from the final norm on f32, since the norm, the neck and the head take no dtype."""
+    raw = _sap_raw("sap_bf16")
+    cfg = Config(raw=raw, task="sap")
+    b = _sap_batches(cfg, 1)[0]
+    jmod, jloss, params = _sap_jax(raw, b)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    img = jax_reassemble(jb["seq"], 4, 2, False)
+
+    def fwd(p):
+        return jmod.apply({"params": p}, img, None, jax_seq_ps(jb), capture_intermediates=True,
+                          mutable=["intermediates"])
+
+    logits, inter = jax.eval_shape(fwd, params)
+    inter = inter["intermediates"]
+    stages = {"token_embed": "token_embeds", "adaptive_pos_dep_emb": "adaptive_pos_dep_emb",
+              "blocks_1": "blocks.1", "norm": "norm", "neck": "neck",
+              "mask_header": "mask_header"}
+    want = {n: _dtype_name(inter[j]["__call__"][0].dtype) for j, n in stages.items()}
+    want["logits"] = _dtype_name(logits.dtype)
+    want["loss"] = _dtype_name(jax.eval_shape(
+        lambda p: jloss(p, jb, jax.random.key(0))[0], params).dtype)
+
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    got = {}
+    for name in stages.values():
+        model.get_submodule(name).register_forward_hook(
+            lambda m, i, o, name=name: got.__setitem__(name, _dtype_name(o.dtype)))
+    tb = to_device(b, torch.device("cpu"))
+    loss, _ = task_loss(cfg)(model, tb)
+    got["loss"] = _dtype_name(loss.dtype)
+    from ucf_vit_tpu_torch.tasks import sap_inputs
+
+    got["logits"] = _dtype_name(model(*sap_inputs(cfg, tb)).dtype)
+    assert got == want
+    assert want["blocks.1"] == "bfloat16" and want["neck"] == "float32"
+
+
+def _mae_for_sap():
+    """A JAX MAE (tile 16^3, patch 2: 512 tokens) with the shrunk SAP's encoder width
+    and depth, and that SAP, each flax-initialised."""
+    raw = _sap_raw()
+    b = _sap_batches(Config(raw=raw, task="sap"), 1)[0]
+    _, _, sparams = _sap_jax(raw, b, seed=1)
+    jmae = JMAE(attn_impl=JAttnImpl.EINSUM, class_token=False, img_size=(16, 16, 16),
+                patch_size=2, in_chans=1, twoD=False, embed_dim=24, depth=2, num_heads=2,
+                decoder_embed_dim=18, decoder_depth=1, decoder_num_heads=3)
+    mparams = meta.unbox(jmae.init(jax.random.key(2), jnp.asarray(b["x"]),
+                                   mask_noise=jnp.asarray(_mae_noise(2, 512)))["params"])
+    return jax.device_get(mparams), jax.device_get(sparams), raw
+
+
+def test_transfer_mae_encoder_into_sap_matches_jax():
+    """The encoder's entries from the MAE (the position table resampled from 512 rows
+    to SAP's 64), the neck, the head and the position MLP SAP's own."""
+    mparams, sparams, _ = _mae_for_sap()
+    want = jax_to_torch_state(jax_transfer_mae_encoder(mparams, sparams, new_pos_embed_len=64))
+    mae_sd = {k: torch.from_numpy(v.copy()) for k, v in jax_to_torch_state(mparams).items()}
+    target = {k: torch.from_numpy(v) for k, v in jax_to_torch_state(sparams).items()}
+    got = transfer_mae_encoder(mae_sd, target, new_pos_embed_len=64)
+    assert sorted(got) == sorted(want) == sorted(target)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    assert torch.equal(got["blocks.1.mlp.fc2.weight"], mae_sd["blocks.1.mlp.fc2.weight"])
+    np.testing.assert_array_equal(got["pos_embed"].numpy(),
+                                  interpolate_pos_embed_1d(mae_sd["pos_embed"].numpy(), 64))
+    for k in ("neck.0.weight", "mask_header.0.weight", "adaptive_pos_dep_emb.0.weight"):
+        assert torch.equal(got[k], target[k])
+
+
+@pytest.mark.parametrize("name", ["sap", "sap_bf16"])
+def test_cli_trains_sap_synthetic(tmp_path, monkeypatch, name):
+    """`python -m ucf_vit_tpu_torch.train configs/basic_ct/<name>/base_config.yaml
+    --single-device --synthetic --max-steps 2 --device cpu` on the config shrunk;
+    without `--device cpu` and with no CUDA it raises."""
+    raw = _sap_raw(name, checkpoint_path=str(tmp_path / "ck"))
+    raw["parallelism"] = {"fsdp_size": 1, "simple_ddp_size": 8, "tensor_par_size": 1,
+                          "seq_par_size": 1}
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    out = main([str(path), "--single-device", "--synthetic", "--max-steps", "2", "--device",
+                "cpu"])
+    model = out["state"].model
+    assert isinstance(model, SAP) and model.dtype == (torch.bfloat16 if name == "sap_bf16"
+                                                      else None)
+    assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
+    assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")
+    assert ckpt.restore_checkpoint(str(tmp_path / "ck"), "")["head_meta"] == [2, 0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([str(path), "--single-device", "--synthetic", "--max-steps", "2"])
+
+
+def test_cli_trains_sap_from_labelled_nifti_warm_started_from_an_mae(tmp_path, capsys):
+    """`trainer.pretrained_mae_checkpoint` into SAP: the encoder equals the MAE's, the
+    neck and head keep their init; then the shrunk basic_ct/sap trains from labelled
+    NIfTI volumes through the CLI, in line and with a pool of 2, and saves."""
+    mparams, _, raw = _mae_for_sap()
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in jax_to_torch_state(mparams).items()}
+    mae_dir = tmp_path / "mae"
+    os.makedirs(mae_dir)
+    torch.save({"epoch": 3, "model_state_dict": sd, "loss_list": [], "head_meta": [2, 3]},
+               str(mae_dir / "mae_odd.ckpt"))
+    raw["trainer"].update(pretrained_mae_checkpoint=str(mae_dir),
+                          checkpoint_path=str(tmp_path / "ck"))
+    raw["data"].update(dict_root_dirs={"ct1": _labelled_volumes(tmp_path / "ct", 2, 32)},
+                       num_workers=1)
+    cfg = Config(raw=raw, task="sap")
+    state, _ = init_train(cfg, "cpu")
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    transfer_pretrained_mae(cfg, state.model, str(mae_dir))
+    got = state.model.state_dict()
+    assert torch.equal(got["blocks.1.attn.qkv.weight"], sd["blocks.1.attn.qkv.weight"])
+    assert torch.equal(got["token_embeds.proj.weight"], sd["token_embeds.proj.weight"])
+    for k in ("neck.0.weight", "mask_header.0.weight", "mask_header.0.bias"):
+        assert torch.equal(got[k], init[k])
+    for workers in (1, 3):
+        raw["data"]["num_workers"] = workers
+        path = tmp_path / f"sap_{workers}.yaml"
+        path.write_text(yaml.safe_dump(raw))
+        out = main([str(path), "--single-device", "--max-steps", "2", "--device", "cpu"])
+        assert "initialized encoder from MAE checkpoint" in capsys.readouterr().out
+        assert len(out["loss_list"]) == 1 and np.isfinite(out["loss_list"][0])
+    assert os.path.isfile(tmp_path / "ck" / "multi_last_even.ckpt")
+
+
+# ---------------------------------------------------------------- varemb in training
+#
+# imagenet/classification with `use_varemb` (three variables merged by the variable
+# attention over the quadtree's tokens) shrunk: five f32 steps within LOSS_TOL of the
+# JAX trainer's step; a single-channel run whose batches alternate variables hands
+# each batch's var_ids to its step, as the JAX trainer keys its step by them.
+
+VAREMB_STEPS = 5
+
+
+def _varemb_raw(**data):
+    raw = _adaptive_raw("imagenet/classification")
+    raw["model"]["net"]["init_args"].update(use_varemb=True, num_heads=4)
+    raw["data"].update(data)
+    return raw
+
+
+def test_varemb_train_steps_match_jax():
+    raw = _varemb_raw()
+    cfg = Config(raw=raw, task="classification")
+    batches = _adaptive_batches(cfg, VAREMB_STEPS)
+    jmod, jloss = jax_build_classification(JConfig(raw=raw, task="classification"))
+    var_ids = jmod.get_var_ids(("red", "green", "blue"))
+    b0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    params = meta.unbox(jmod.init(jax.random.key(0), b0["seq"], var_ids,
+                                  jax_seq_ps(b0))["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    assert "var_agg" in params and "token_embed_2" in params
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(lambda p, b, r: jloss(p, b, r, var_ids=var_ids), tx,
+                                donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="classification")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    assert model.get_var_ids(("red", "green", "blue")) == var_ids
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    losses = [step(state, to_device(b, torch.device("cpu")), var_ids)[1].item()
+              for b in batches]
+    np.testing.assert_allclose(losses, jax_losses, atol=LOSS_TOL, rtol=0)
+
+
+def test_trainer_hands_alternating_variables_their_var_ids(monkeypatch):
+    """Single-channel batches whose `variables` alternate (as two datasets of other
+    variables give them): each step and each validation batch gets the var_ids the
+    JAX model's `get_var_ids` gives for its batch, and the two variables' embeds
+    both train."""
+    from ucf_vit_tpu_torch import train as port_train
+
+    raw = _varemb_raw(single_channel=True, num_channels_used={"d": 1})
+    raw["trainer"].update(val_every=1, val_batches=2)
+    cfg = Config(raw=raw, task="classification")
+    jmod, _ = jax_build_classification(JConfig(raw=raw, task="classification"))
+    order = [("green",), ("red",), ("blue",), ("green",)]
+
+    def alternating(cfg, global_batch, seed=0):
+        for i, b in enumerate(synthetic_batches(cfg, global_batch, seed)):
+            b["variables"] = order[i % len(order)]
+            yield b
+
+    seen = []
+    loss_of = port_train.task_loss
+
+    def spying(cfg):
+        inner = loss_of(cfg)
+
+        def loss_fn(model, batch, var_ids=None):
+            seen.append(var_ids)
+            return inner(model, batch, var_ids=var_ids)
+
+        return loss_fn
+
+    monkeypatch.setattr(port_train, "synthetic_batches", alternating)
+    monkeypatch.setattr(port_train, "task_loss", spying)
+    out = train(cfg, max_steps=4, synthetic=True, device="cpu")
+    want = [jmod.get_var_ids(v) for v in order]
+    assert seen == want + want[:2]  # four steps, then the two validation batches
+    init = init_train(cfg, "cpu")[0].model
+    trained = out["state"].model
+    assert all(not torch.equal(trained.token_embeds[i][1].weight, init.token_embeds[i][1].weight)
+               for i in range(3))
+
+
+# ================================================================ moved from test_torch_train.py
+# Its trainer-parity section, moved whole (names, bodies and tolerances unchanged) to
+# spread the tier-1 run's files over its workers.
+
+import copy
+import itertools
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+import yaml
+
+from ucf_vit_tpu.config import Config as JConfig
+from ucf_vit_tpu.train import train as jax_train
+from ucf_vit_tpu_torch import checkpoint as ckpt
+from ucf_vit_tpu_torch.config import Config
+from ucf_vit_tpu_torch.train import build_dataloader
+from ucf_vit_tpu_torch.train import init_train
+from ucf_vit_tpu_torch.train import synthetic_batches
+from ucf_vit_tpu_torch.train import train
+from test_torch_flash import DIFF_KW, DIFF_T, _adaptive_raw  # its DiffusionVIT and adaptive sections
+from test_torch_train import (  # shared with that file
+    LOSS_TOL,
+    REPO,
+    _assert_batches_equal,
+    _catsdogs_raw,
+    _jax_init_as_torch_file,
+    _jpegs,
+    _mae_raw,
+    _metrics_losses,
+    _raw,
+    _resume_raw,
+    _volumes,
+)
+
+# ================================================================ trainer parity
+#
+# Validation, preemption with mid-epoch resume, TensorBoard and profile_dir
+# (`ucf_vit_tpu/train.py:95-200,360-420,550-990`). Validation losses against the JAX
+# trainer's within LOSS_TOL: the port warm-started from the JAX trainer's own init,
+# attention EINSUM on both, the same synthetic streams or JPEG files. A run preempted
+# mid-epoch (or on an epoch's last step) and resumed against an uninterrupted one: the
+# per-step losses, the validation losses, the parameters, AdamW's moments and the
+# generators bit for bit.
+
+from ucf_vit_tpu.train import build_dataloader as jax_build_dataloader
+from ucf_vit_tpu_torch.train import _Validation
+
+CATSDOGS_VAL = [f"{k}.{i}.jpg" for i, k in enumerate(["cat", "dog"] * 5)]
+
+
+def _val_raw(tmp_path, source):
+    """The tiny catsdogs ViT with validation every epoch over 3 batches of 2: from 10
+    JPEGs (training on the first 6 of the split, 3 batches an epoch; validating on the
+    other 4, 2 batches a pass, so a pass wraps into the next reshuffle), or from the
+    synthetic streams (3 steps an epoch)."""
+    if source == "catsdogs":
+        raw = _catsdogs_raw(_jpegs(tmp_path / "cd", CATSDOGS_VAL))
+        raw["data"].update(dict_end_idx={"catsdogs": 0.6}, val_dict_start_idx={"catsdogs": 0.6},
+                           val_dict_end_idx={"catsdogs": 1.0})
+    else:
+        raw = _catsdogs_raw(str(tmp_path / "none"))
+        raw["load_balancing"]["batches_per_rank_epoch"] = {"synthetic": 3}
+    raw["trainer"].update(val_every=1, val_batches=3, max_epochs=2)
+    return raw
+
+
+def _records(path):
+    return [json.loads(line) for line in open(path)]
+
+
+@pytest.mark.parametrize("source", ["synthetic", "catsdogs"])
+def test_validation_matches_jax(tmp_path, source):
+    """Two epochs, each followed by validation, through both trainers: the val_loss
+    and val_accuracy records within LOSS_TOL of the JAX trainer's, 3 batches a pass,
+    the train losses beside them."""
+    raw = _val_raw(tmp_path, source)
+    synthetic = source == "synthetic"
+    raw["trainer"]["metrics_path"] = str(tmp_path / "jax.jsonl")
+    jax_train(JConfig(raw=raw, task="classification"), synthetic=synthetic)
+    init = tmp_path / "init.ckpt"
+    _jax_init_as_torch_file(raw, str(init))
+    raw["trainer"].update(metrics_path=str(tmp_path / "port.jsonl"), init_params_from=str(init))
+    train(Config(raw=raw, task="classification"), synthetic=synthetic, device="cpu")
+    got, want = _records(tmp_path / "port.jsonl"), _records(tmp_path / "jax.jsonl")
+    vals = [[r for r in recs if "val_loss" in r] for recs in (got, want)]
+    assert len(vals[0]) == len(vals[1]) == 2
+    for g, w in zip(*vals):
+        assert g["epoch"] == w["epoch"] and g["val_batches"] == w["val_batches"] == 3
+        np.testing.assert_allclose([g["val_loss"], g["val_accuracy"]],
+                                   [w["val_loss"], w["val_accuracy"]], atol=LOSS_TOL, rtol=0)
+    np.testing.assert_allclose(_metrics_losses(tmp_path / "port.jsonl"),
+                               _metrics_losses(tmp_path / "jax.jsonl"), atol=LOSS_TOL, rtol=0)
+
+
+def test_val_split_matches_jax_and_needs_its_range(tmp_path):
+    """`build_dataloader(..., val_split=True)`: the synthetic held-out stream (seed
+    12345) and the catsdogs held-out files batch for batch as the JAX package's; from
+    files without `data.val_dict_*` the JAX assertion."""
+    raw = _val_raw(tmp_path, "catsdogs")
+    cfg, jcfg = Config(raw=raw, task="classification"), JConfig(raw=raw, task="classification")
+    for synthetic in (True, False):
+        dm, synth, _ = build_dataloader(cfg, 2, synthetic, val_split=True)
+        jdm, jsynth, _ = jax_build_dataloader(jcfg, 2, synthetic, val_split=True)
+        if synthetic:
+            got, want = list(itertools.islice(synth, 2)), list(itertools.islice(jsynth, 2))
+            assert not np.array_equal(got[0]["x"], next(synthetic_batches(cfg, 2))["x"])
+        else:
+            got = list(itertools.islice(dm.train_dataloader(loop=True), 3))
+            want = list(itertools.islice(jdm.train_dataloader(loop=True), 3))
+        _assert_batches_equal(got, want)
+    del raw["data"]["val_dict_end_idx"]
+    for build in (build_dataloader, jax_build_dataloader):
+        with pytest.raises(AssertionError, match="val_dict_start_idx / val_dict_end_idx"):
+            build((Config if build is build_dataloader else JConfig)(
+                raw=raw, task="classification"), 2, False, val_split=True)
+
+
+@pytest.mark.parametrize("task", ["classification", "mae"])
+def test_validation_runs_in_eval_mode_on_its_own_generators(task):
+    """A validation pass is deterministic where the task draws nothing in eval mode
+    (a ViT with dropout 0.3 and DropPath 0.2: two seeds, one loss), draws MAE's mask
+    from its own seed (two seeds, two losses), and leaves the trainer's generators,
+    and the training mode, as it found them."""
+    if task == "classification":
+        raw = _raw()
+        raw["model"]["net"]["init_args"].update(drop_rate=0.3, drop_path=0.2)
+    else:
+        raw = _mae_raw()
+    cfg = Config(raw=raw, task=task)
+    state, _ = init_train(cfg, "cpu")
+    model = state.model.train()
+    before = (model.generator.get_state(), model.host_generator.get_state())
+    gens = (model.generator, model.host_generator)
+    losses = [_Validation(cfg, 2, True, torch.device("cpu")).run(model, seed)
+              for seed in (2, 2, 3)]
+    assert all(n == 8 for _, _, n in losses)
+    assert losses[0] == losses[1]
+    assert (losses[0][0] == losses[2][0]) == (task == "classification")
+    assert model.training and (model.generator, model.host_generator) == gens
+    assert torch.equal(before[0], model.generator.get_state())
+    assert torch.equal(before[1], model.host_generator.get_state())
+
+
+def _midepoch_raw(tmp_path, kind):
+    """3 steps an epoch from files: the catsdogs ViT of `_resume_raw` (dropout,
+    DropPath, EMA, loss scaling: 6 JPEGs), the NIfTI MAE of `_resume_raw` on 3 volumes,
+    or a 3-D DiffusionVIT on NIfTI volumes with validation every epoch (3 volumes to
+    train on, 1 held out)."""
+    if kind == "catsdogs":
+        return _resume_raw(tmp_path, "vit")
+    if kind == "mae":
+        raw, task = _resume_raw(tmp_path, "mae")
+        _volumes(tmp_path / "ct3", 3, (32, 16, 16))
+        raw["data"]["dict_root_dirs"] = {"ct": str(tmp_path / "ct3")}
+        return raw, task
+    if kind == "adaptive_mae":  # basic_ct/mae shrunk: 2-D slices patchified in a pool
+        raw = _adaptive_raw("basic_ct/mae")
+        raw["trainer"].update(attn_impl="FLASH", seed=1)
+        raw["data"].update(dict_root_dirs={"ct1": _volumes(tmp_path / "ct2d", 3, (32, 32, 2))},
+                           batch_size=2, num_workers=2)
+        raw["load_balancing"] = {"auto_load_balancing": True}
+        return raw, "mae"
+    root = _volumes(tmp_path / "ct4", 4, (32, 16, 16))
+    ia = {"default_vars": ["ct"], "tile_size": [16, 16, 16], "twoD": False, "patch_size": 4,
+          "adaptive_patching": False, "num_time_steps": DIFF_T,
+          **{k: v for k, v in DIFF_KW.items() if k != "time_steps"}}
+    raw = {"trainer": {"task": "diffusion", "attn_impl": "FLASH", "seed": 2, "val_every": 1,
+                       "val_batches": 2},
+           "parallelism": {},
+           "model": {"lr": 1e-3, "warmup_steps": 1, "max_steps": 20, "use_grad_scaler": True,
+                     "net": {"init_args": ia}},
+           "data": {"dataset": "basic_ct", "dict_root_dirs": {"ct": root},
+                    "dict_start_idx": {"ct": 0}, "dict_end_idx": {"ct": 0.75},
+                    "val_dict_start_idx": {"ct": 0.75}, "val_dict_end_idx": {"ct": 1.0},
+                    "dict_buffer_sizes": {"ct": 3}, "num_channels_used": {"ct": 1},
+                    "dict_in_variables": {"ct": ["ct"]}, "batch_size": 2,
+                    "single_channel": True, "num_workers": 2, "tile_overlap": 0.0,
+                    "use_all_data": False},
+           "load_balancing": {"auto_load_balancing": True}}
+    return raw, "diffusion"
+
+
+@pytest.mark.parametrize("kind,drill", [("catsdogs", 2), ("catsdogs", 3), ("mae", 2),
+                                        ("mae", 3), ("diffusion", 2), ("adaptive_mae", 2)])
+def test_midepoch_resume_equals_uninterrupted_bit_for_bit(tmp_path, capsys, kind, drill):
+    """Two epochs of 3 steps in one run against a run preempted by the drill
+    (`preempt_after_steps`) after step 2 (mid-epoch) or 3 (the epoch's last step) and
+    then resumed (the adaptive MAE's loader patchifies in a spawn pool) (`tests/test_midepoch_resume.py:209-285`): the (epoch, it) records,
+    every per-step loss and validation loss, the parameters, AdamW's moments and the
+    generators equal bit for bit; the preemption checkpoint holds the interrupted
+    epoch's position in the interrupted epoch's slot."""
+    raw, task = _midepoch_raw(tmp_path, kind)
+
+    def run(name, **trainer):
+        r = copy.deepcopy(raw)
+        r["trainer"].update(max_epochs=2, checkpoint_path=str(tmp_path / f"ck_{name}"),
+                            checkpoint_filename="last",
+                            checkpoint_filename_for_loading="last_latest",
+                            metrics_path=str(tmp_path / f"{name}.jsonl"), **trainer)
+        return train(Config(raw=r, task=task), device="cpu")
+
+    whole = run("whole")
+    part = run("part", preempt_after_steps=drill)
+    mid = drill < 3
+    assert f"preempted in epoch 0 after {drill} its: saved" in capsys.readouterr().out
+    assert len(part["loss_list"]) == (0 if mid else 1)
+    payload = ckpt.restore_checkpoint(str(tmp_path / "ck_part"), "last_latest")
+    assert sorted(os.listdir(tmp_path / "ck_part")) == ["last_even.ckpt"]
+    assert (payload["epoch"], payload["data_it"], payload["total_steps"],
+            payload["num_procs"]) == (0, drill if mid else 0, drill, 1)
+    resumed = run("part", resume_from_checkpoint=True)
+    out = capsys.readouterr().out
+    assert ("resumed mid-epoch: epoch 0, fast-forwarding 2 batches" if mid
+            else "resumed from epoch 0") in out
+
+    a, b = _records(tmp_path / "whole.jsonl"), _records(tmp_path / "part.jsonl")
+    steps = [(r["epoch"], r["it"]) for r in a if "loss" in r]
+    assert steps == [(e, i) for e in (0, 1) for i in (1, 2, 3)]
+    assert [(r["epoch"], r["it"]) for r in b if "loss" in r] == steps
+    assert [r["loss"] for r in b if "loss" in r] == [r["loss"] for r in a if "loss" in r]
+    vals = [[(r["epoch"], r["val_loss"]) for r in recs if "val_loss" in r] for recs in (a, b)]
+    assert vals[0] == vals[1] and len(vals[0]) == (2 if kind == "diffusion" else 0)
+    starts = [r for r in b if r.get("run_start")]
+    assert [(r["resume_epoch"], r["resume_step"], r["resume_it"]) for r in starts] == [
+        (0, 0, 0), (0 if mid else 1, drill, drill if mid else 0)]
+    if not mid:  # the completed epoch's loss, as the uninterrupted run's
+        assert resumed["loss_list"] == whole["loss_list"]
+    sa, sb = whole["state"], resumed["state"]
+    for (n, p), (m, q) in zip(sa.model.state_dict().items(), sb.model.state_dict().items()):
+        assert n == m and torch.equal(p, q), n
+    oa, ob = sa.optimizer.adamw.state_dict()["state"], sb.optimizer.adamw.state_dict()["state"]
+    assert all(torch.equal(oa[i][k], ob[i][k]) for i in oa for k in oa[i])
+    assert sa.optimizer.count == sb.optimizer.count == 6 and sa.loss_scale == sb.loss_scale
+    assert torch.equal(sa.model.generator.get_state(), sb.model.generator.get_state())
+    assert torch.equal(sa.model.host_generator.get_state(), sb.model.host_generator.get_state())
+
+
+def _sigterm_yaml(tmp_path, **trainer):
+    """The tiny synthetic classifier with epochs long enough that a signal lands in
+    epoch 0, a checkpoint directory and a metrics file."""
+    raw = _raw()
+    raw["trainer"].update(checkpoint_path=str(tmp_path / "ck"), checkpoint_filename="last",
+                          checkpoint_filename_for_loading="last_latest",
+                          metrics_path=str(tmp_path / "m.jsonl"), max_epochs=1, **trainer)
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"synthetic": 100000}}
+    path = tmp_path / "sigterm.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path), raw
+
+
+def test_sigterm_checkpoints_exits_and_resumes_in_place(tmp_path):
+    """SIGTERM to the trainer's CLI (a subprocess on the CPU) after its third logged
+    step: exit code 0, the `preempted in epoch 0` line, a checkpoint at the step the
+    signal stopped it (`data_it`); a run resumed from it continues that epoch at the
+    next step, its `run_start` record carrying the position. The JAX counterpart
+    (`tests/test_trainer.py:110-158`) sends its signal 2 s after the first step and
+    asserts epoch 0, while its epochs of 100 steps take well under a second here: it
+    checkpoints in a later epoch and fails. This one signals on a step's line, in an
+    epoch of 100,000 steps, with deadlines of its own."""
+    import queue
+    import signal
+    import threading
+    import time as _time
+
+    cfg, raw = _sigterm_yaml(tmp_path)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ucf_vit_tpu_torch.train", cfg, "--synthetic", "--device", "cpu"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+                              daemon=True)
+    reader.start()
+    seen, deadline = [], _time.monotonic() + 240
+    try:
+        while True:
+            line = lines.get(timeout=max(deadline - _time.monotonic(), 0.01))
+            if line is None:
+                pytest.fail("the trainer exited before its third step:\n" + "".join(seen))
+            seen.append(line)
+            if line.startswith("epoch 0 it 3 "):
+                break
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+    except (queue.Empty, subprocess.TimeoutExpired):
+        pytest.fail("no third step, or no exit after SIGTERM, within the deadline:\n"
+                    + "".join(seen))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    while (line := lines.get_nowait() if not lines.empty() else None) is not None:
+        seen.append(line)
+    text = "".join(seen)
+    assert proc.returncode == 0, text[-2000:]
+    stopped = re.search(r"preempted in epoch 0 after (\d+) its: saved (\S+)", text)
+    assert stopped, text[-2000:]
+    n = int(stopped.group(1))
+    assert n >= 3 and stopped.group(2).endswith("last_even.ckpt")
+    payload = ckpt.restore_checkpoint(str(tmp_path / "ck"), "last_latest")
+    assert (payload["epoch"], payload["data_it"], payload["total_steps"]) == (0, n, n)
+
+    raw["trainer"]["resume_from_checkpoint"] = True
+    out = train(Config(raw=raw, task="classification"), synthetic=True, max_steps=n + 2,
+                device="cpu")
+    assert out["state"].optimizer.count == n + 2
+    recs = _records(tmp_path / "m.jsonl")
+    start = max(i for i, r in enumerate(recs) if r.get("run_start"))
+    assert (recs[start]["resume_epoch"], recs[start]["resume_it"],
+            recs[start]["resume_step"]) == (0, n, n)
+    assert [(r["epoch"], r["it"], r["step"]) for r in recs[start + 1:]] == [
+        (0, n + 1, n + 1), (0, n + 2, n + 2)]
+
+
+def test_tensorboard_dir_writes_the_scalars(tmp_path):
+    """`trainer.tensorboard_dir`: event files holding the train and val scalars of
+    `ucf_vit_tpu/train.py:720-745,972-976`, beside the JSONL."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    raw = _raw()
+    raw["trainer"].update(tensorboard_dir=str(tmp_path / "tb"), val_every=1, val_batches=1)
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"synthetic": 2}}
+    train(Config(raw=raw, task="classification"), synthetic=True, device="cpu")
+    acc = EventAccumulator(str(tmp_path / "tb"))
+    acc.Reload()
+    tags = set(acc.Tags()["scalars"])
+    assert tags == {"train/loss", "train/ms_per_it", "train/samples_per_s", "train/accuracy",
+                    "val/loss", "val/accuracy"}
+    assert [e.step for e in acc.Scalars("train/loss")] == [1, 2]
+    assert [e.step for e in acc.Scalars("val/loss")] == [2]
+
+
+def test_tensorboard_dir_names_why_it_is_ignored(tmp_path, capsys):
+    """Neither writer opens on a path under a file: training goes on, and the line
+    names both writers' real errors."""
+    (tmp_path / "file").write_text("")
+    raw = _raw()
+    raw["trainer"]["tensorboard_dir"] = str(tmp_path / "file" / "tb")
+    out = train(Config(raw=raw, task="classification"), synthetic=True, max_steps=1,
+                device="cpu")
+    assert out["state"].optimizer.count == 1
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("tensorboard_dir ignored ("))
+    assert "tensorboardX: " in line and "torch.utils.tensorboard: " in line
+
+
+def test_profile_dir_writes_a_trace_of_steps_11_to_15(tmp_path, capsys):
+    """`trainer.profile_dir`: a Chrome trace file of the profiler's CPU activity over
+    steps 11-15 (`ucf_vit_tpu/train.py:853-879`), the train step's ops in it."""
+    raw = _raw()
+    raw["trainer"]["profile_dir"] = str(tmp_path / "prof")
+    train(Config(raw=raw, task="classification"), synthetic=True, max_steps=16, device="cpu")
+    files = os.listdir(tmp_path / "prof")
+    assert len(files) == 1 and files[0].endswith(".json")
+    assert f"profile of steps 11-15 written to {tmp_path / 'prof' / files[0]}" in (
+        capsys.readouterr().out)
+    trace = json.load(open(tmp_path / "prof" / files[0]))
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert {"aten::addmm", "aten::softmax"} & names and any("backward" in n.lower()
+                                                             for n in names)

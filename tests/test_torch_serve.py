@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # xdist's workers share the cores: one torch
+    torch.set_num_threads(1)  # thread each keeps them from oversubscribing the machine
 
 from ucf_vit_tpu.serve import build_predictor as jax_build_predictor
 from ucf_vit_tpu_torch.config import Config

@@ -15,6 +15,8 @@ import pytest
 from flax.core import meta
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # xdist's workers share the cores: one torch
+    torch.set_num_threads(1)  # thread each keeps them from oversubscribing the machine
 
 from ucf_vit_tpu.config import load_config as jax_load_config
 from ucf_vit_tpu.models.blocks import Attention as JAttention

@@ -518,7 +518,8 @@ class VolumePredictor:
     pinned memory once their own copy is done, while chunk i+1 runs.
     `last_stats` holds the last call's windows, seconds and seconds of host
     preprocessing, `last_probs` its blended probabilities `[classes,
-    *spatial]` (padding included)."""
+    *spatial]` (padding included). It runs on one device: a model it builds
+    is put on no mesh, whatever the config's `parallelism:` (sp too)."""
 
     def __init__(self, cfg: Config, checkpoint_dir: Optional[str] = None,
                  model: Optional[torch.nn.Module] = None, sw_batch: int = 4,

@@ -8,8 +8,13 @@ sequence reassembled into the `[B, C, (sqrt_len * p)^nd]` image,
 them by the patch size into 256 channels (kernel = stride = p, no bias) and
 the head maps those to the class logits `[B, num_classes, (side * p)^nd]`.
 The neck and the head take no dtype, as in the JAX model: under the bf16
-policy they compute in f32 on the final norm's f32 output. `seq_par_size > 1`
-raises NotImplementedError, as UNETR's does (`models/unetr.py`).
+policy they compute in f32 on the final norm's f32 output.
+
+Under sp > 1 the encoder splits its tokens over sp (`VIT._run_stack`), and
+the neck and head run split on the first spatial dim where sp divides the
+token grid's first side, whole where it does not (`parallel.mesh.spatial`:
+both are local on a split map), the logits gathered whole after them. The
+JAX model constrains neither and leaves their layout to GSPMD.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import torch
 from torch import nn
 
 from ucf_vit_tpu_torch.models.unet_blocks import conv, transp_conv
-from ucf_vit_tpu_torch.models.vit import SP_PARTITION_ITEM, VIT, _not_ported
+from ucf_vit_tpu_torch.models.vit import VIT
+from ucf_vit_tpu_torch.parallel.mesh import seq_shard_of, spatial, spatial_gather
 
 NECK_CHANNELS = 256  # the reference's, hard-coded
 
@@ -30,9 +36,7 @@ class SAP(VIT):
     number of segmentation classes."""
 
     def __init__(self, num_classes: int = 2, class_token: bool = False,
-                 patch_drop_rate: float = 0.0, seq_par_size: int = 1, **vit_kwargs) -> None:
-        if seq_par_size > 1:
-            raise _not_ported("seq_par_size > 1 for SAP", SP_PARTITION_ITEM)
+                 patch_drop_rate: float = 0.0, **vit_kwargs) -> None:
         if class_token:
             raise AssertionError("SAP runs with class_token=False")
         if float(patch_drop_rate) != 0.0:
@@ -56,7 +60,9 @@ class SAP(VIT):
         b = x.shape[0]
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         x = x.transpose(1, 2).reshape(b, self.embed_dim, *self.token_grid)
-        return self.mask_header(self.neck(x))
+        shard = seq_shard_of(getattr(self, "mesh", None))
+        x, split = spatial(x, False, shard)
+        return spatial_gather(self.mask_header(self.neck(x)), split, shard)
 
     def forward(self, x: torch.Tensor, seq_ps: Optional[torch.Tensor] = None,
                 var_ids: Optional[Sequence[int]] = None) -> torch.Tensor:

@@ -13,10 +13,19 @@ map is resized to the tile before `decoder2`. Channels-first throughout.
 
 Under `remat` each encoder block and each decoder block run under activation
 checkpointing in training (the JAX model's `nn.remat` of both); the decoder
-draws nothing, so its recompute needs no generator replay. The JAX model's
-`_spatial` sharding constraints name a layout for a mesh and are nothing on
-one device; `seq_par_size > 1`, which the JAX model spends on that spatial
-partition, raises NotImplementedError until its slice (ROADMAP.md).
+draws nothing, so its recompute needs no generator replay.
+
+Under sp > 1 (a model on a mesh, `shard_model`) sp is a spatial partition,
+as the JAX model's `_spatial` constraints make it: at each of their points
+(the image into `encoder1`, each `proj_feat`, each encoder and decoder
+output, the resize, `decoder2`) dim 2 of the map is split over sp where sp
+divides its side and whole where it does not (`parallel.mesh.spatial`); the
+blocks run inside `spatial_context` with halos and cross-shard norms
+(`models/unet_blocks.py`), and the logits are gathered whole at the end. The
+encoder splits its tokens where sp divides them and runs whole where it
+does not (`VIT.forward_intermediates`). basic_ct/unetr_sp's 729 tokens stay
+whole and its 9^3 level too; the 18^3 to 72^3 levels, the resize to 64^3
+and `encoder1` are split.
 """
 
 from __future__ import annotations
@@ -35,12 +44,12 @@ from ucf_vit_tpu_torch.models.unet_blocks import (
     UnetrUpBlock,
     resize_linear_align_corners,
 )
-from ucf_vit_tpu_torch.models.vit import (
-    SP_PARTITION_ITEM,
-    VIT,
-    _checkpoint,
-    _not_ported,
-    _to_tuple,
+from ucf_vit_tpu_torch.models.vit import VIT, _checkpoint, _to_tuple
+from ucf_vit_tpu_torch.parallel.mesh import (
+    seq_shard_of,
+    spatial,
+    spatial_context,
+    spatial_gather,
 )
 
 
@@ -51,9 +60,7 @@ class UNETR(VIT):
     def __init__(self, num_classes: int = 2, linear_decoder: bool = False,
                  feature_size: int = 16, skip_connection: bool = True,
                  img_size: Sequence[int] = (224, 224), in_chans: int = 3,
-                 class_token: bool = False, seq_par_size: int = 1, **vit_kwargs) -> None:
-        if seq_par_size > 1:
-            raise _not_ported("seq_par_size > 1 for UNETR", SP_PARTITION_ITEM)
+                 class_token: bool = False, **vit_kwargs) -> None:
         if class_token:
             raise ValueError("UNETR runs with class_token=False")
         if float(vit_kwargs.get("patch_drop_rate", 0.0)) != 0.0:
@@ -90,12 +97,26 @@ class UNETR(VIT):
             self.decoder2 = MyUnetBlock(fs * 2, fs, ndim=nd)
         self.out = UnetOutBlock(fs, self.num_classes, nd)
 
-    def _block(self, blk: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
-        """A decoder block, under activation checkpointing with `remat` in
-        training."""
+    def _block(self, blk: nn.Module, *xs: torch.Tensor, split: bool = False) -> torch.Tensor:
+        """A decoder block (inside the spatial context, told whether its input
+        is split), under activation checkpointing with `remat` in training."""
+        shard = self._shard
+
+        def fn(*xs):
+            with spatial_context(shard):
+                return blk(*xs, split=split)
         if self.remat and self.training and torch.is_grad_enabled():
-            return _checkpoint(blk, *xs)
-        return blk(*xs)
+            return _checkpoint(fn, *xs)
+        return fn(*xs)
+
+    @property
+    def _shard(self):
+        return seq_shard_of(getattr(self, "mesh", None))
+
+    def _split(self, side: int) -> bool:
+        """Whether a decoder map of first side `side` lies split over sp."""
+        shard = self._shard
+        return shard is not None and side % shard.size == 0
 
     def proj_feat(self, x: torch.Tensor) -> torch.Tensor:
         """Tokens `[B, L, D]` -> the map `[B, D, *feat_size]`, in f32 (the JAX
@@ -113,23 +134,31 @@ class UNETR(VIT):
             x = x.transpose(1, 2).reshape(b, self.num_classes, *self.grid_size)
             return resize_linear_align_corners(
                 x, tuple(s * self.patch_size for s in self.grid_size))
-        blk = self._block
+        blk, shard, f = self._block, self._shard, self.feat_size[0]
+
+        def feat(t):  # the token map, split where sp divides the grid
+            return spatial(self.proj_feat(t), False, shard)[0]
         if not self.skip_connection:
-            x = self.proj_feat(x)
-            for dec in (self.decoder5, self.decoder4, self.decoder3, self.decoder2):
-                x = blk(dec, x)
-            if self.resize:
-                x = resize_linear_align_corners(x, self.spatial_size)
-            return self.out(x)
-        enc4 = blk(self.encoder4, self.proj_feat(intermediates[-1]))
-        dec3 = blk(self.decoder5, self.proj_feat(x), enc4)
-        enc3 = blk(self.encoder3, self.proj_feat(intermediates[-2]))
-        dec2 = blk(self.decoder4, dec3, enc3)
-        enc2 = blk(self.encoder2, self.proj_feat(intermediates[-3]))
-        dec1 = blk(self.decoder3, dec2, enc2)
+            x = feat(x)
+            for i, dec in enumerate((self.decoder5, self.decoder4, self.decoder3,
+                                     self.decoder2)):
+                x = blk(dec, x, split=self._split(f << i))
+            side = f << 4
+        else:
+            enc4 = blk(self.encoder4, feat(intermediates[-1]), split=self._split(f))
+            dec3 = blk(self.decoder5, feat(x), enc4, split=self._split(f))
+            enc3 = blk(self.encoder3, feat(intermediates[-2]), split=self._split(f))
+            dec2 = blk(self.decoder4, dec3, enc3, split=self._split(2 * f))
+            enc2 = blk(self.encoder2, feat(intermediates[-3]), split=self._split(f))
+            x = blk(self.decoder3, dec2, enc2, split=self._split(4 * f))
+            side = 8 * f
         if self.resize:
-            dec1 = resize_linear_align_corners(dec1, self.spatial_size)
-        return self.out(blk(self.decoder2, dec1, enc1))
+            with spatial_context(shard):
+                x = resize_linear_align_corners(x, self.spatial_size, split=self._split(side))
+            side = self.spatial_size[0]
+        if self.skip_connection:
+            x = blk(self.decoder2, x, enc1, split=self._split(side))
+        return spatial_gather(self.out(x), self._split(self.spatial_size[0]), shard)
 
     def forward(self, x: torch.Tensor, seq_ps: Optional[torch.Tensor] = None,
                 x_seq: Optional[torch.Tensor] = None,
@@ -141,7 +170,8 @@ class UNETR(VIT):
         if enc_input is None:
             raise ValueError("an adaptive UNETR takes the reassembled sequence as x_seq")
         if self.skip_connection and not self.linear_decoder:
-            enc1 = self._block(self.encoder1, x)
+            img, split = spatial(x, False, self._shard)
+            enc1 = self._block(self.encoder1, img, split=split)
             tokens, intermediates = self.forward_intermediates(
                 enc_input, self.skip_indices, seq_ps=seq_ps, var_ids=var_ids)
         else:

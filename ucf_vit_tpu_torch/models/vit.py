@@ -40,7 +40,10 @@ the element dropout's slice) and joins the stream after them
 sequence on every sp rank. A stack whose blocks attend within segments
 (`seq_pack`) runs whole; so does one whose tokens sp does not divide, under
 EINSUM, and under FLASH it raises ValueError, as the JAX package's
-`shard_map` does. Under `remat` the recompute runs the block inside the
+`shard_map` does. `forward_intermediates` (UNETR's encoder) runs the same
+split and gathers each tap; where sp does not divide its tokens it runs
+whole under any attention, FLASH too (the JAX package leaves that dim
+whole, where its f32 `AUTO` attends by EINSUM). Under `remat` the recompute runs the block inside the
 same context, so it makes the same collectives in the same order on every
 rank.
 
@@ -95,11 +98,6 @@ def _to_tuple(img_size, twoD: bool) -> Tuple[int, ...]:
     if len(t) != n:
         raise ValueError(f"img_size {img_size} does not match twoD={twoD}")
     return t
-
-
-# what UNETR and SAP raise under seq_par_size > 1: their sequence parallelism is the conv
-# decoder's spatial partition
-SP_PARTITION_ITEM = "item 11: the UNETR spatial partition"
 
 
 def _not_ported(feature: str, item: str) -> NotImplementedError:
@@ -444,29 +442,39 @@ class VIT(nn.Module):
 
         return _checkpoint(run, x)
 
-    def _run_stack(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    def _run_stack(self, blocks: nn.ModuleList, x: torch.Tensor,
+                   taps: Optional[Sequence[int]] = None, whole_any_impl: bool = False):
         """`blocks` in order, each under `remat` in training; under sp > 1 on
-        this rank's slice of the tokens (see the module's docstring)."""
+        this rank's slice of the tokens (see the module's docstring). With
+        `taps`, `(output, [the outputs of blocks taps, whole])`. Where sp does
+        not divide the tokens, `whole_any_impl` runs the stack whole under any
+        attention (UNETR's encoder) where FLASH would raise."""
         remat = self.remat and self.training and torch.is_grad_enabled()
         shard = seq_shard_of(getattr(self, "mesh", None))
         if shard is not None and any(b.attn.seg_len is not None for b in blocks):
             shard = None  # segments attend within themselves: the stack runs whole
         if shard is not None and x.shape[1] % shard.size:
-            if any(resolve_impl(b.attn.attn_impl, x.device) == AttnImpl.FLASH for b in blocks):
+            if not whole_any_impl and any(resolve_impl(b.attn.attn_impl, x.device)
+                                          == AttnImpl.FLASH for b in blocks):
                 # what the JAX package's shard_map says of a sequence sp does not divide
                 raise ValueError(
                     f"flash attention under seq_par_size {shard.size} needs the sequence "
                     f"({x.shape[1]} tokens) to divide by it; use attn_impl EINSUM or a "
                     "sequence that divides")
-            shard = None  # EINSUM attends over the whole stream, as on one device
+            shard = None  # the attention runs over the whole stream, as on one device
+        join = (lambda t: t) if shard is None else (
+            lambda t: all_gather(t, shard.group, axis=1))
         if shard is not None:
             x = split(x, shard.group, axis=1)
-        for blk in blocks:
+        take, outs = set(taps or ()), []
+        for i, blk in enumerate(blocks):
             def fn(x, blk=blk):
                 with sequence_context(shard):
                     return blk(x)
             x = self._remat_block(fn, x) if remat else fn(x)
-        return x if shard is None else all_gather(x, shard.group, axis=1)
+            if i in take:
+                outs.append(join(x))
+        return join(x) if taps is None else (join(x), outs)
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """The encoder's blocks."""
@@ -488,13 +496,8 @@ class VIT(nn.Module):
         tokens stripped])` (`ucf_vit_tpu/models/vit.py:617-656`)."""
         x = self.apply_pos_embed(self.embed_tokens(x, var_ids), seq_ps)
         x = self.patch_drop(x, patch_drop_noise)
-        remat = self.remat and self.training and torch.is_grad_enabled()
-        take, intermediates = set(indices), []
-        for i, blk in enumerate(self.blocks):
-            x = self._remat_block(blk, x) if remat else blk(x)
-            if i in take:
-                intermediates.append(x[:, self.num_prefix_tokens:])
-        return self.norm(x), intermediates
+        x, taps = self._run_stack(self.blocks, x, taps=indices, whole_any_impl=True)
+        return self.norm(x), [t[:, self.num_prefix_tokens:] for t in taps]
 
     def pool(self, x: torch.Tensor) -> torch.Tensor:
         """Class-token pool (or strip the prefix)."""

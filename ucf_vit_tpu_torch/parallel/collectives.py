@@ -18,6 +18,7 @@ index is its rank in that group.
 | reduce_scatter             | reduce-scatter | all-gather     |
 | all_to_all                 | all-to-all     | all-to-all     |
 | split                      | this rank's chunk | zero-padded |
+| halo_exchange              | neighbours' edges | edges' gradients home, added |
 
 All reductions are sums. The forward and backward of one pair run the same
 collectives on every rank of the group, so every rank must call them
@@ -36,6 +37,11 @@ the right one there: it sums the partials and keeps this rank's chunk.
 
 `ring_hop` moves tensors one step round the sp ring, to rank + 1 from
 rank - 1 (`ops/ring_attention.py`).
+
+`halo_exchange` gives a slab of a map split over the group on one axis the
+edge slices of its neighbours, which a 'same' convolution reads across the
+cut (UNETR's spatial partition, `models/unet_blocks.py`); inside the split
+region the gradients it sends home are true ones, added into the owner's.
 """
 
 from __future__ import annotations
@@ -261,6 +267,59 @@ def split(x: torch.Tensor, group, axis: int = 1) -> torch.Tensor:
     gradient comes back zero-padded to `x`'s shape: this rank's share of a
     gradient held as partial sums over the group."""
     return _Split.apply(x, group, axis)
+
+
+def _neighbour_swap(lo: torch.Tensor, hi: torch.Tensor, group):
+    """Send `lo` to rank - 1 and `hi` to rank + 1 of `group` (none past either
+    end): `(rank - 1's hi, rank + 1's lo)`, None where there is no neighbour.
+    One `all_to_all_single`, as `ring_hop` (gloo carries no send/recv on CUDA
+    tensors)."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    m = lo.numel()
+    sizes = [m if j in (r - 1, r + 1) else 0 for j in range(n)]
+    sent = torch.cat([t.reshape(-1) for t, j in ((lo, r - 1), (hi, r + 1)) if 0 <= j < n])
+    got = torch.empty_like(sent)
+    dist.all_to_all_single(got, sent, sizes, sizes, group=group)
+    pieces = iter(got.split(m))
+    prev = next(pieces).view(lo.shape) if r > 0 else None
+    nxt = next(pieces).view(hi.shape) if r < n - 1 else None
+    return prev, nxt
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis, width):
+        k = x.shape[axis]
+        if k < width:
+            raise ValueError(f"a slab of {k} along dim {axis} has no halo of {width}")
+        ctx.args = (group, axis, width)
+        lo, hi = x.narrow(axis, 0, width), x.narrow(axis, k - width, width)
+        prev, nxt = _neighbour_swap(lo.contiguous(), hi.contiguous(), group)
+        zeros = x.new_zeros(lo.shape)
+        return torch.cat([zeros if prev is None else prev, x,
+                          zeros if nxt is None else nxt], dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis, width = ctx.args
+        k = g.shape[axis] - 2 * width
+        g_prev, g_next = _neighbour_swap(g.narrow(axis, 0, width).contiguous(),
+                                         g.narrow(axis, k + width, width).contiguous(), group)
+        gx = g.narrow(axis, width, k).clone()
+        if g_prev is not None:  # rank - 1's halo was my first slices
+            gx.narrow(axis, 0, width).add_(g_prev)
+        if g_next is not None:
+            gx.narrow(axis, k - width, width).add_(g_next)
+        return gx, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, group, axis: int, width: int) -> torch.Tensor:
+    """This rank's slab of a map split over `group` along `axis`, with `width`
+    slices of rank - 1's slab before it and `width` of rank + 1's after it;
+    zeros past the group's first and last rank (a 'same' convolution's zero
+    padding). Backward: each halo's gradient goes back to its owner and is
+    added into the edge slices it came from."""
+    return _HaloExchange.apply(x, group, axis, width)
 
 
 def ring_hop(tensors, group, async_op: bool = False):

@@ -44,6 +44,16 @@ tokens sp does not divide runs whole on every sp rank, outside any
 `sequence_context`, where its attention is EINSUM (it attends globally),
 and raises where it is FLASH, as the JAX package's `shard_map` does.
 
+UNETR's and SAP's convolutional decoders take sp as a spatial partition
+(the JAX package's `_spatial`, `ucf_vit_tpu/models/unetr.py:34-46`, whose
+"spatial" axis is sp's): `spatial` splits dim 2 of a channels-first map
+`[B, C, s1, ...]` over sp where sp divides `s1` and leaves it whole where it
+does not (`fit_spec_to_shape`), and `spatial_gather` joins a split map. The
+decoder's blocks run inside `spatial_context(shard)` and are told whether
+the map in hand is split (`models/unet_blocks.py`). The gradient convention
+is the token stream's: a split map's gradient is its slab's true one, a
+whole map's a partial sum over sp.
+
 `eval_mesh` is the mesh that evaluation, generation and serving run on
 (`ucf_vit_tpu/inference.py:49-75`): the config's, when the launch has its
 processes, else None (one process evaluates the whole model, as the JAX
@@ -63,6 +73,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ucf_vit_tpu_torch.parallel import collectives
 
 AXIS_PP = "pp"
 AXIS_DDP = "ddp"
@@ -85,6 +97,8 @@ _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch
                                                               default=None)
 _SEQ_SHARD: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch_seq_shard",
                                                             default=None)
+_SPATIAL_SHARD: contextvars.ContextVar = contextvars.ContextVar(
+    "ucf_vit_tpu_torch_spatial_shard", default=None)
 
 
 class Mesh:
@@ -158,6 +172,44 @@ def sequence_context(shard: Optional[SeqShard]):
         yield
     finally:
         _SEQ_SHARD.reset(token)
+
+
+def spatial_shard() -> Optional[SeqShard]:
+    """The sp group of the convolutional decoder running now (None on one
+    device, or outside `spatial_context`)."""
+    return _SPATIAL_SHARD.get()
+
+
+@contextlib.contextmanager
+def spatial_context(shard: Optional[SeqShard]):
+    """Run the decoder blocks inside with `shard` as the group their maps'
+    first spatial dim may be split over."""
+    token = _SPATIAL_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _SPATIAL_SHARD.reset(token)
+
+
+def spatial(x: torch.Tensor, split: bool,
+            shard: Optional[SeqShard]) -> Tuple[torch.Tensor, bool]:
+    """The JAX `_spatial` rule for a channels-first map `[B, C, s1, ...]`:
+    `(map, whether dim 2 is split over sp)`. `split` says whether `x` is split
+    now. A whole map whose `s1` sp divides is cut into this rank's slab by
+    `collectives.split` (its gradient comes back zero-padded); one that sp does
+    not divide stays whole, and a split map stays split (sp divides its whole
+    side by construction). Without a shard the map stays as it is."""
+    if split or shard is None or x.shape[2] % shard.size:
+        return x, split
+    return collectives.split(x, shard.group, axis=2), True
+
+
+def spatial_gather(x: torch.Tensor, split: bool, shard: Optional[SeqShard]) -> torch.Tensor:
+    """The whole map of `x`: a split map's slabs joined on dim 2 in rank order
+    (`all_gather`; reduce-scatter backward), a whole one as it is."""
+    if not split:
+        return x
+    return collectives.all_gather(x, shard.group, axis=2)
 
 
 def launched() -> Tuple[int, int, Optional[str]]:

@@ -301,7 +301,6 @@ def build_unetr(cfg: Config) -> UNETR:
         feature_size=int(ia.get("feature_size", 16)),
         skip_connection=bool(ia.get("skip_connection", True)),
         sqrt_len_method=cfg.adaptive_patching,
-        seq_par_size=int(cfg.parallelism.get("seq_par_size", 1)),
         **_common_kwargs(cfg),
     )
 
@@ -343,7 +342,7 @@ def build_sap(cfg: Config) -> SAP:
     """`build_sap`'s model (`ucf_vit_tpu/tasks.py:290-298`): adaptive patching
     by the sqrt-len method."""
     return SAP(num_classes=num_classes(cfg), sqrt_len_method=cfg.adaptive_patching,
-               seq_par_size=int(cfg.parallelism.get("seq_par_size", 1)), **_common_kwargs(cfg))
+               **_common_kwargs(cfg))
 
 
 def sap_loss(cfg: Config) -> Callable:
