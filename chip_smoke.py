@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only sap        # the device, build and SAP phases alone
     python3 chip_smoke.py --only parallel   # the device, build and parallel phases alone
     python3 chip_smoke.py --only sp         # the device, build and sequence-parallel phases alone
+    python3 chip_smoke.py --only moe        # the device, build and MoE phases alone
 
 With `--compare` it runs only the device phase and times the bf16 flash
 forward, the split backward route's kernels (dkv and dq, f32 and bf16),
@@ -279,6 +280,24 @@ result):
             ms a step, peak memory and gloo's bytes); `reconstruct` on the
             sp-2 eval mesh against one device; the kernels at the modes'
             chunk shapes timed beside SDPA, both backward routes in turns.
+17. moe (`phase_moe`): imagenet/classification_moe (adaptive ViT-B/16,
+            bf16, batch 32, 8 experts top-2 in every second block). The
+            `MoeMlp` layer at full width on the card against the CPU (f32,
+            TF32 off: the routing, the output and the five leaves'
+            gradients) and its bf16 time; the config through the CLI entry
+            with --single-device and --synthetic (full width and depth:
+            each step's ms, the peak memory, 12 sm90 forwards and 12 fused
+            backwards a step at [384, 197, 64], the aux loss), FLASH
+            against EINSUM on FLASH's routing decisions (5e-3 a step; the
+            choices that differ on EINSUM's own routing and its losses
+            logged beside), a timed and a traced window, a server's
+            answers against the in-process forward; the config at
+            (ddp 1, ep 2) on two ranks sharing the card over gloo as in 15,
+            replaying one device's routing decisions, against one device's
+            losses (5e-3 a step), with each rank's ms
+            a step, peak memory and gloo's bytes by kind; the bf16 kernels
+            at [384, 197, 64] against their plain versions, timed beside
+            SDPA. It runs while flash_bwd_tf32.cu builds (bf16 alone).
 
 Every phase prints its wall seconds on a `[time]` line, and the run all of
 them and the script's on one line before the record.
@@ -2086,7 +2105,9 @@ def phase_train_bf16():
 
     # (b) ViT-L/16 as shipped (bf16, remat, scan_layers, accum_steps 4, batch 32) on one
     # device: the CLI's entry, with every launch count set to 0 before it and read after
-    argv = [VIT_L_CONFIG, "--synthetic", "--single-device", "--max-steps", str(VIT_L_MAIN_STEPS)]
+    # (a copy that saves nothing: its 1.2 GB checkpoint took 8.5 s and nothing read it)
+    argv = [_parallel_config("vit_l_main", VIT_L_CONFIG, {}), "--synthetic", "--single-device",
+            "--max-steps", str(VIT_L_MAIN_STEPS)]
     reset_launch_counts()
     t0 = time.perf_counter()
     out = train_main(argv)
@@ -6977,6 +6998,450 @@ def _spu_checks(got: dict, uone: str, uck: str) -> dict:
                 "flash_bwd_fused_unetr_sp": sum(c["bwd:flash_bwd_tf32<64>"] for c in runs)}}
 
 
+MOE_CONFIG = os.path.join(REPO, "configs", "imagenet", "classification_moe", "base_config.yaml")
+MOE_LAYER = (32, 197, 768, 3072, 8, 2)  # (a): batch, tokens, D, H, experts, k: the config's
+MOE_LAYER_TOL = 1e-5  # (a): card against CPU, f32 and TF32 off, times each one's largest entry
+MOE_MARGIN = 1e-6  # (a): routing compared where the k-th and (k+1)-th probabilities differ by more
+MOE_LAYER_ITERS = 10  # (a): bf16 forward + backward calls timed
+MOE_STEPS = 3  # (b): through the CLI entry (--single-device)
+MOE_CHECK_STEPS = 2  # (b): FLASH against EINSUM, the same batches
+MOE_LOSS_TOL = 5e-3  # (b), (c): each step's loss (bf16)
+MOE_SERVE_REQUESTS = 6  # (b): four lone, then two at once
+MOE_SERVE_TOL = 2e-2  # (b): served logits against the in-process forward, of its largest entry
+MOE_EP_STEPS = 2  # (c): at (ddp 1, ep 2) through the CLI entry, against (b)'s first steps
+MOE_EP_FIRST_TOL = 1e-4  # (c): the first step's loss on free routing (the weights still equal)
+MOE_DEADLINE_S = 300  # (c): both ranks' jobs
+MOE_SHAPE = (32, 12, 197, 197, 64, True)  # the bf16 kernels at [384, 197, 64]
+MOE_KERNEL_ITERS = 20
+
+
+def _moe_layer() -> dict:
+    """(a) `MoeMlp` at classification_moe's width (MOE_LAYER, capacity factor 1.25: C =
+    62), weights and input from a CPU generator, on the card and on the CPU in f32 (TF32
+    off): the routing (expert, slot, kept) equal in every sample whose tokens' k-th and
+    (k+1)-th probabilities differ by more than MOE_MARGIN on both devices; the output and
+    the gradients of `sum(y * w) + 0.3 * aux` for the five leaves within MOE_LAYER_TOL of
+    their largest entries; then the bf16 layer's forward and backward timed."""
+    import torch
+
+    from ucf_vit_tpu_torch.models.moe import MoeMlp, expert_capacity
+    from ucf_vit_tpu_torch.models.vit import _TRUNC_STD_CORRECTION
+
+    b, n, d, h, e, k = MOE_LAYER
+    gen = torch.Generator().manual_seed(31)
+    layer = MoeMlp(d, h, e, top_k=k, capacity_factor=1.25)
+    layer.init_weights(gen, 0.02 / _TRUNC_STD_CORRECTION)
+    x = torch.randn(b, n, d, generator=gen)  # a LayerNorm's output
+    w = torch.randn(b, n, d, generator=gen)
+    leaves = ("router_kernel", "wi", "bi", "wo", "bo")
+
+    def run(dev):
+        m = copy.deepcopy(layer).to(dev)
+        xx = x.to(dev)
+        y = m(xx)
+        ((y * w.to(dev)).sum() + 0.3 * m.aux_loss).backward()
+        with torch.no_grad():
+            probs, _, idx, slots, kept = m.route(xx)
+        top = probs.sort(-1, descending=True).values
+        return {"y": y.detach().cpu(), "aux": m.aux_loss.item(),
+                "gap": (top[..., k - 1] - top[..., k]).cpu(), "idx": idx.cpu(),
+                "slots": slots.cpu(), "kept": kept.cpu(),
+                **{f"g:{leaf}": getattr(m, leaf).grad.cpu() for leaf in leaves}}
+
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    card = run("cuda")
+    clear = ((cpu["gap"] > MOE_MARGIN) & (card["gap"] > MOE_MARGIN)).all(1)  # [B]
+    same = all(torch.equal(card[key][clear], cpu[key][clear]) for key in ("idx", "slots", "kept"))
+    errs = {key: ((card[key] - cpu[key]).abs().max() / cpu[key].abs().max()).item()
+            for key in ("y", *(f"g:{leaf}" for leaf in leaves))}
+    kept = cpu["kept"].float().mean().item()
+    log(f"[moe] (a) MoeMlp [{b}, {n}, {d}] H {h}, {e} experts, top-{k}, C "
+        f"{expert_capacity(n, e, k, 1.25)}, f32 (TF32 off), card against CPU ({cpu_s:.1f} s): "
+        f"routing equal {same} in {int(clear.sum())} of {b} samples (the smallest k-th gap "
+        f"{min(cpu['gap'].min().item(), card['gap'].min().item()):.3e}, margin {MOE_MARGIN:g}); "
+        f"{100 * kept:.2f}% of the choices kept; aux {card['aux']:.6f} / {cpu['aux']:.6f}; max "
+        f"|diff| / max |CPU|: " + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+        + f" (tol {MOE_LAYER_TOL:g})")
+    if not same or not clear.any() or max(errs.values()) > MOE_LAYER_TOL or \
+            abs(card["aux"] - cpu["aux"]) > MOE_LAYER_TOL:
+        fail("(a) MoeMlp on the card disagrees with the CPU")
+    # the bf16 layer's forward and backward, as the model runs it (a bf16 input)
+    mb = copy.deepcopy(layer).cuda()
+    mb.dtype = torch.bfloat16
+    xb = x.cuda().bfloat16().requires_grad_()
+    wb = w.cuda()
+
+    def fwd_bwd():
+        ((mb(xb).float() * wb).sum() + 0.3 * mb.aux_loss).backward()
+
+    dev, host = device_ms(fwd_bwd, iters=MOE_LAYER_ITERS, warmup=2)
+    with torch.no_grad():
+        fwd_dev, fwd_host = device_ms(lambda: mb(xb), iters=MOE_LAYER_ITERS, warmup=2)
+    c = expert_capacity(n, e, k, 1.25)
+    flops = 2 * 2 * e * b * c * d * h  # the experts' two GEMMs on every slot
+    log(f"[moe] (a) the bf16 layer: forward {fwd_dev:.3f} ms device ({fwd_host:.3f} host); "
+        f"forward + backward {dev:.3f} ms device ({host:.3f} host); the experts' forward "
+        f"{flops / 1e9:.1f} GFLOP on {e} x {b * c} slots (a dense MLP's x "
+        f"{flops / (4 * b * n * d * h):.2f})")
+    del mb, xb
+    torch.cuda.empty_cache()
+    return {"fwd_ms": fwd_dev, "fwd_bwd_ms": dev, "host_ms": host}
+
+
+@contextlib.contextmanager
+def _routing(record: list, replay: list | None = None):
+    """`MoeMlp.route` wrapped while the block runs: each call's decisions
+    (experts, slots, kept) appended to `record`; with `replay`, each call's
+    decisions replaced by the next of those (its gates this call's
+    probabilities at those experts, renormalised as the layer does), a call
+    whose entry is None left to route freely."""
+    from ucf_vit_tpu_torch.models.moe import MoeMlp
+
+    made = MoeMlp.route
+
+    def route(self, x):
+        probs, gates, idx, slots, kept = made(self, x)
+        taken = replay.pop(0) if replay is not None else None
+        if taken is not None:
+            idx, slots, kept = taken
+            gates = probs.gather(-1, idx)
+            if self.top_k > 1:
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        record.append((idx, slots, kept))
+        return probs, gates, idx, slots, kept
+
+    MoeMlp.route = route
+    try:
+        yield
+    finally:
+        MoeMlp.route = made
+
+
+def _moe_kind(name: str, t) -> str:
+    """What a collective of the ep-2 step carries: the experts' dispatch and
+    return (all_to_all_single, forward and backward), the dense gradients'
+    mean over the data group (the flat buckets), and small ones (the aux's
+    means, the loss, the clip's norm, the overflow flag)."""
+    if name == "all_to_all_single":
+        return "dispatch_return"
+    if name == "all_reduce" and t.ndim == 1 and t.numel() > 4096:
+        return "grad_mean"
+    return "small"
+
+
+def _moe_rank(rank: int, store: str, jobs: list, results) -> None:
+    """(c) One of two ranks on the card in a gloo group through a FileStore: the
+    trainer's CLI entry on the ep-2 config with gloo's bytes counted by kind,
+    each step timed, the launch counts set to 0 before it, the routing
+    decisions of this rank's rows replayed from `job["replay"]` (one device's,
+    `_routing`; a None entry, or a None list, routes freely)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import main as train_main
+
+    try:
+        for job in jobs:
+            t0 = time.perf_counter()
+            times, tally = [], {"bytes": 0, "steps": [], "kind_steps": []}
+            rows = slice(rank * 16, (rank + 1) * 16)  # this data rank's of the global 32
+            replay = None if job["replay"] is None else [
+                None if call is None else tuple(torch.from_numpy(a[rows]).cuda() for a in call)
+                for call in job["replay"]]
+            made = _counting_collectives(tally, _moe_kind)
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with _timed_steps(times, tally), _routing([], replay):
+                    res = train_main(job["argv"])
+            finally:
+                for name, fn in made.items():
+                    setattr(dist, name, fn)
+            model = res["state"].model
+            wi = model.blocks[1].moe_mlp.wi
+            out = {"ms": times, "instances": _instance_counts(), "steps": res["state"].step,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "gloo_bytes": tally["steps"], "by_kind": tally["kind_steps"],
+                   "ep": model.mesh.size("ep"), "experts": int(wi.shape[0]),
+                   "expert_leaves": len(model.ep_layout)}
+            del res, model, wi
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            results.put((rank, job["name"], {**out, "s": time.perf_counter() - t0}))
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_ranks(jobs: list) -> dict:
+    """Run `jobs` on two spawned ranks (`_moe_rank`): {(rank, name): result}."""
+    import queue
+
+    root = os.path.join(WORK, "moe")
+    os.makedirs(root, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_moe_rank, args=(r, os.path.join(root, "store"), jobs, results),
+                         daemon=True) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got: dict = {}
+    try:
+        while len(got) < 2 * len(jobs):
+            if time.perf_counter() - t0 > MOE_DEADLINE_S:
+                fail(f"the two ranks did not finish within {MOE_DEADLINE_S} s: {sorted(got)}")
+            try:
+                rank, name, out = results.get(timeout=0.2)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    fail(f"a rank died: exit codes {[p.exitcode for p in procs]}")
+                continue
+            if name == "error":
+                fail(f"rank {rank} failed:\n{out[-3000:]}")
+            got[rank, name] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"the ranks exited {[p.exitcode for p in procs]}")
+    log(f"[moe] (c) two ranks: {time.perf_counter() - t0:.1f} s for every job")
+    return got
+
+
+def _moe_serve(path: str) -> dict:
+    """(b)'s server: `serve.make_server` of the config on the card, MOE_SERVE_REQUESTS
+    seeded 256 x 256 images through `/v1/predict` (four alone, two at once), each answer
+    against the in-process forward of its patchified sample."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.serve import make_preprocessor, make_server
+    from ucf_vit_tpu_torch.tasks import seq_ps
+
+    cfg = _single_device(path)
+    rng = np.random.default_rng(17)
+    samples = [rng.uniform(0, 255, size=(3, 256, 256)).astype(np.float32)
+               for _ in range(MOE_SERVE_REQUESTS)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = make_server(cfg, host="127.0.0.1", port=0, max_batch=4, device="cuda")
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port, answers, lat = server.server_address[1], {}, []
+
+    def ask(i):
+        t1 = time.perf_counter()
+        answers[i] = np.load(io.BytesIO(_request(port, "POST", "/v1/predict", _npy(samples[i]))))
+        lat.append(time.perf_counter() - t1)
+
+    try:
+        for i in range(4):
+            ask(i)
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(4, MOE_SERVE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        stats = _get_json(port, "/v1/stats")
+        instances = {key: v for key, v in _instance_counts().items() if v}
+        model = server.RequestHandlerClass.weights_holder["model"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.RequestHandlerClass.batcher.close()
+        thread.join(timeout=30)
+    pre = make_preprocessor(cfg)
+    batch = [pre(x) for x in samples]
+    batch = {key: torch.from_numpy(np.stack([s[key] for s in batch])).cuda() for key in batch[0]}
+    with torch.inference_mode():
+        want = model(batch["seq"], seq_ps=seq_ps(batch)).float().cpu().numpy()
+    del model
+    scale = float(np.abs(want).max())
+    worst = max(float(np.abs(answers[i] - want[i]).max()) for i in range(MOE_SERVE_REQUESTS))
+    log(f"[moe] (b) served (max_batch 4): startup {startup_s:.1f} s, lone requests "
+        f"{1e3 * min(lat):.1f}-{1e3 * max(lat):.1f} ms; {stats['requests']} requests in "
+        f"{stats['batches']} batches, launches {instances}; {len(answers)} answers against the "
+        f"in-process forward: max |diff| {worst:.3e} (tol {MOE_SERVE_TOL:g} x {scale:.3f})")
+    if len(answers) != MOE_SERVE_REQUESTS or stats["errors"] or worst > MOE_SERVE_TOL * scale:
+        fail("(b) the served MoE answers disagree with the in-process forward")
+    return {"instances": instances, "lone_ms": 1e3 * min(lat)}
+
+
+def phase_moe() -> dict:
+    """imagenet/classification_moe (adaptive ViT-B/16 over 196 quadtree tokens and the
+    class token, bf16, batch 32; every second block's MLP 8 experts, top-2, capacity
+    1.25). (a) `_moe_layer`: the layer at full width on the card against the CPU, and
+    its bf16 time; (b) the config through the CLI entry with --single-device,
+    --synthetic, MOE_STEPS steps (full width and depth): each step's ms, the peak
+    memory, the launches by instance (12 sm90 forwards and 12 fused backwards a step at
+    [384, 197, 64]), the aux loss the trainer logs; FLASH against EINSUM over
+    MOE_CHECK_STEPS steps, EINSUM's routing decisions replaced by FLASH's (`_routing`:
+    the routing is discrete, and bf16's rounding of the two attentions flips some
+    tokens' experts), within MOE_LOSS_TOL a step, EINSUM on its own routing and the
+    choices that differ logged beside; a timed and a traced window (the busy share, the
+    device time by kernel); a server's answers (`_moe_serve`); (c) the config
+    at (ddp 1, ep 2), cut from the shipped (ddp 2, ep 4), the same global batch of 32,
+    on two ranks sharing the card over gloo through the CLI entry: the first step on
+    free routing, its loss within MOE_EP_FIRST_TOL of (b)'s (the weights are still
+    equal), then each rank replaying its rows of (b)'s routing decisions (the two
+    layouts' bf16 gradients round differently, and a flipped choice moved a step's loss
+    by 8.2e-3), each step's loss within MOE_LOSS_TOL of (b)'s; a run on free routing
+    throughout logged beside; each rank's ms a step and peak memory, gloo's
+    bytes a step by kind, each rank holding 4 of the 8 experts. Then the bf16 kernels
+    at [384, 197, 64] against their plain versions, timed beside SDPA. Returns {"numbers":
+    the record's two rows, "launches": theirs on (b)'s CLI run}."""
+    import numpy as np
+    import torch
+
+    from ucf_vit_tpu_torch.ops.flash_attention import reset_launch_counts
+    from ucf_vit_tpu_torch.train import main as train_main
+    from ucf_vit_tpu_torch.train import synthetic_batches
+
+    layer = _moe_layer()
+    # (b) through the CLI entry, the shipped parallelism overridden by --single-device
+    one = _parallel_config("moe_one", MOE_CONFIG, {"simple_ddp_size": 2, "expert_par_size": 4})
+    times, cli_routes = [], []
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _timed_steps(times), _routing(cli_routes):
+        out = train_main([one, "--single-device", "--synthetic", "--max-steps", str(MOE_STEPS)])
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    instances = {key: v for key, v in _instance_counts().items() if v}
+    counts = _launch_counts()
+    model = out["state"].model
+    shape = (sum(b.is_moe for b in model.blocks), len(model.blocks), model.embed_dim,
+             str(model.dtype), model.blocks[1].moe_mlp.num_experts, model.mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    del out, model
+    torch.cuda.empty_cache()
+    recs = [r for r in _jsonl(os.path.join(WORK, "parallel", "moe_one.jsonl"))
+            if "loss" in r and "step" in r]
+    losses = [r["loss"] for r in recs]
+    auxes = [r.get("moe_aux") for r in recs]
+    want = {"fwd:flash_fwd_sm90<64>": 12 * MOE_STEPS, "bwd:flash_bwd_sm90<64>": 12 * MOE_STEPS}
+    log(f"[moe] (b) python -m ucf_vit_tpu_torch.train classification_moe --single-device "
+        f"--synthetic --max-steps {MOE_STEPS}: {cli_s:.1f} s (init included); {n_params / 1e6:.1f}M "
+        f"parameters, {shape[0]} of {shape[1]} blocks MoE, width {shape[2]}, {shape[3]}; ms a "
+        f"step {' '.join(f'{t:.1f}' for t in times)}; peak {peak:.2f} GB; losses "
+        f"{' '.join(f'{v:.6f}' for v in losses)}; moe_aux {auxes}; launches {instances}, "
+        f"bwd fused {counts['flash_bwd_fused']} dkv {counts['flash_bwd_dkv']} dq "
+        f"{counts['flash_bwd_dq']}")
+    if shape != (6, 12, 768, "torch.bfloat16", 8, None) or len(losses) != MOE_STEPS or \
+            not np.all(np.isfinite(losses)) or instances != want or \
+            not all(a is not None and np.isfinite(a) and a > 0 for a in auxes):
+        fail(f"(b) classification_moe through the CLI: model {shape}, launches {instances} "
+             f"(expected {want}), losses {losses}, aux {auxes}")
+    # FLASH against EINSUM: the routing is discrete, so bf16's rounding of the two
+    # attentions flips some tokens' experts; EINSUM is run twice, on its own routing and
+    # on FLASH's decisions (the gate), then a timed and a traced window of FLASH's state
+    cfg = _single_device(one)
+    batches = [b for _, b in zip(range(MOE_CHECK_STEPS), synthetic_batches(cfg, 32))]
+    runs, routes = {}, {}
+    for impl, replay in (("FLASH", None), ("EINSUM", None), ("EINSUM_routed", "FLASH")):
+        routes[impl] = []
+        with _routing(routes[impl], None if replay is None else list(routes[replay])):
+            st, sp, runs[impl], _, _ = _run_steps(
+                _train_cfg(cfg, impl.split("_")[0]), batches)
+        if impl != "FLASH":
+            del st, sp
+            torch.cuda.empty_cache()
+        else:
+            keep = (st, sp)
+    st, sp = keep
+    del keep
+    flips = [(a[0] != b[0]).float().mean().item()
+             for a, b in zip(routes["FLASH"], routes["EINSUM"])]
+    diff = max(abs(a - b) for a, b in zip(runs["FLASH"], runs["EINSUM_routed"]))
+    free = max(abs(a - b) for a, b in zip(runs["FLASH"], runs["EINSUM"]))
+    log(f"[moe] (b) FLASH against EINSUM, {MOE_CHECK_STEPS} steps: FLASH "
+        f"{' '.join(f'{v:.6f}' for v in runs['FLASH'])}; EINSUM on FLASH's routing "
+        f"{' '.join(f'{v:.6f}' for v in runs['EINSUM_routed'])}: max |diff| {diff:.3e} (tol "
+        f"{MOE_LOSS_TOL:g}); EINSUM on its own routing "
+        f"{' '.join(f'{v:.6f}' for v in runs['EINSUM'])}: max |diff| {free:.3e}, the "
+        f"choices that differ from FLASH's, a layer of the first step: "
+        f"{' '.join(f'{100 * f:.2f}%' for f in flips[:6])}; FLASH against the CLI's first "
+        f"steps {max(abs(a - b) for a, b in zip(runs['FLASH'], losses)):.3e}")
+    if diff > MOE_LOSS_TOL or len(routes["EINSUM_routed"]) != len(routes["FLASH"]):
+        fail("(b) classification_moe under FLASH disagrees with EINSUM on the same routing")
+    meas = _measure_steps("moe", "classification_moe bf16, batch 32", st, sp, [batches[0]],
+                          batches, traced=batches)
+    del st, sp
+    torch.cuda.empty_cache()
+    served = _moe_serve(one)
+    # (c) ep 2 on two ranks, the same global batch: the first step on free routing (the
+    # weights still equal one device's), then one device's decisions replayed on each
+    # rank's rows; beside it a run on free routing throughout, logged
+    moe_layers = shape[0]  # MoE blocks: routing calls a step
+    ep2 = _parallel_config("moe_ep2", MOE_CONFIG, {"expert_par_size": 2}, batch=16)
+    ep2_free = _parallel_config("moe_ep2_free", MOE_CONFIG, {"expert_par_size": 2}, batch=16)
+    replay = [None if i < moe_layers else tuple(t.cpu().numpy() for t in call)
+              for i, call in enumerate(cli_routes[:moe_layers * MOE_EP_STEPS])]
+    argv = ["--synthetic", "--max-steps", str(MOE_EP_STEPS)]
+    got = _moe_ranks([{"name": "train", "replay": replay, "argv": [ep2, *argv]},
+                      {"name": "free", "replay": None, "argv": [ep2_free, *argv]}])
+    ep_losses = _step_losses(os.path.join(WORK, "parallel", "moe_ep2.jsonl"))
+    free_losses = _step_losses(os.path.join(WORK, "parallel", "moe_ep2_free.jsonl"))
+    diffs = [abs(a - b) for a, b in zip(ep_losses, losses)]
+    free_diffs = [abs(a - b) for a, b in zip(free_losses, losses)]
+    log(f"[moe] (c) classification_moe at (ddp 1, ep 2), cut from the shipped (ddp 2, ep 4) "
+        f"= 8 ranks, batch 16 a rank (the global 32), step 1 on free routing, then each rank "
+        f"replaying its rows of (b)'s routing decisions: losses "
+        f"{' '.join(f'{v:.6f}' for v in ep_losses)}; one device "
+        f"{' '.join(f'{v:.6f}' for v in losses[:MOE_EP_STEPS])}; |diff| "
+        f"{' '.join(f'{v:.3e}' for v in diffs)} (tol {MOE_EP_FIRST_TOL:g} at step 1, "
+        f"{MOE_LOSS_TOL:g} after); free routing throughout "
+        f"{' '.join(f'{v:.6f}' for v in free_losses)}: |diff| "
+        f"{' '.join(f'{v:.3e}' for v in free_diffs)}")
+    if len(ep_losses) != MOE_EP_STEPS or not np.all(np.isfinite(ep_losses)) or \
+            len(free_losses) != MOE_EP_STEPS or not np.all(np.isfinite(free_losses)) or \
+            diffs[0] > MOE_EP_FIRST_TOL or max(diffs) > MOE_LOSS_TOL:
+        fail("(c) classification_moe at ep 2 disagrees with one device")
+    for r in range(2):
+        res = got[r, "train"]
+        kinds = res["by_kind"][-1] if res["by_kind"] else {}
+        log(f"[moe] (c) rank {r}: {' '.join(f'{t:.1f}' for t in res['ms'])} ms a step (two "
+            f"ranks share one card; one device {_median(times[1:]):.1f}), peak "
+            f"{res['peak_gb']:.2f} GB (one device {peak:.2f}), gloo moves "
+            f"{_median(res['gloo_bytes']) / 1e9:.4f} GB a step from this rank, the last step by "
+            f"kind (MB) {({k: round(v / 1e6, 3) for k, v in sorted(kinds.items())})}; "
+            f"{res['experts']} experts a leaf here ({res['expert_leaves']} expert leaves); "
+            f"launches {({k: v for k, v in res['instances'].items() if v})}")
+        if res["ep"] != 2 or res["experts"] != 4 or res["expert_leaves"] != 24 or \
+                not kinds.get("dispatch_return") or not kinds.get("grad_mean") or \
+                res["instances"]["fwd:flash_fwd_sm90<64>"] != 12 * MOE_EP_STEPS:
+            fail(f"(c) rank {r}: ep {res['ep']}, {res['experts']} experts, gloo by kind "
+                 f"{kinds}, launches {res['instances']}")
+    # the bf16 kernels at the config's attention
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    k = _attention_case("moe", "classification_moe's attention", MOE_SHAPE, gen,
+                        iters=MOE_KERNEL_ITERS, dtype_name="bfloat16")
+    torch.cuda.empty_cache()
+    log(f"[moe] record: layer {layer}; step {meas['ms_step']:.3f} ms, busy "
+        f"{100 * meas['busy_share']:.2f}%, peak {peak:.2f} GB; served lone "
+        f"{served['lone_ms']:.1f} ms")
+    return {"numbers": {"flash_fwd_bf16_moe": k["fwd"], "flash_bwd_fused_bf16_moe": k["bwd"]},
+            "launches": {"flash_fwd_bf16_moe": instances["fwd:flash_fwd_sm90<64>"],
+                         "flash_bwd_fused_bf16_moe": instances["bwd:flash_bwd_sm90<64>"]}}
+
+
 def compare_forward(other: str) -> None:
     """`fused_mlp` and `int8_matmul` (`compare_mlp`), the split route's
     backward kernels (`compare_split_bwd`), then the bf16 flash
@@ -7049,11 +7514,11 @@ def _timed(name: str, fn, *args):
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
-    only = ("adaptive", "unetr", "sap", "parallel", "sp")
+    only = ("adaptive", "unetr", "sap", "parallel", "sp", "moe")
     if args and (len(args) != 2 or args[0] not in ("--compare", "--only")
                  or (args[0] == "--only" and args[1] not in only)):
         fail("usage: chip_smoke.py [--compare CHECKOUT | --only adaptive | --only unetr | "
-             "--only sap | --only parallel | --only sp]")
+             "--only sap | --only parallel | --only sp | --only moe]")
     if args and args[0] == "--compare" and \
             not os.path.isdir(os.path.join(args[1], "ucf_vit_tpu_torch")):
         fail(f"{args[1]} holds no ucf_vit_tpu_torch/")
@@ -7073,13 +7538,13 @@ def main() -> int:
         compare_forward(os.path.abspath(args[1]))
         print(card, flush=True)
         return 0
-    if args:  # --only adaptive|unetr|sap|parallel|sp: the build and that phase alone, no record
+    if args:  # --only adaptive|unetr|sap|parallel|sp|moe: the build and that phase alone, no record
         _timed("phase_build", phase_build)
         _timed("phase_build_rest", phase_build_rest)
         os.makedirs(WORK, exist_ok=True)
         try:
             phase = {"adaptive": phase_adaptive, "unetr": phase_unetr, "sap": phase_sap,
-                     "parallel": phase_parallel, "sp": phase_sp}
+                     "parallel": phase_parallel, "sp": phase_sp, "moe": phase_moe}
             _timed(f"phase_{args[1]}", phase[args[1]])
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
@@ -7090,13 +7555,14 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     try:
         # while SLOW_SOURCE builds: the phases that launch none of its kernels (the f32
-        # forward, the bf16 sources, fused_mlp and int8_gemm)
+        # forward, the bf16 sources, fused_mlp and int8_gemm, bf16 MoE)
         fwd = _timed("phase_kernels", phase_kernels)
         mae = _timed("phase_mae_kernels", phase_mae_kernels)
         mlp = _timed("phase_mlp_kernels", phase_mlp_kernels)
         int8 = _timed("phase_int8_kernels", phase_int8_kernels)
         trained_bf16 = _timed("phase_train_bf16", phase_train_bf16)
         trained_mae = _timed("phase_train_mae", phase_train_mae)
+        moe = _timed("phase_moe", phase_moe)  # bf16 alone: no tf32 kernel
         _timed("phase_build_rest", phase_build_rest)
         bwd = _timed("phase_bwd_kernels", phase_bwd_kernels)
         diffusion_kernels = _timed("phase_diffusion_kernels", phase_diffusion_kernels)
@@ -7215,6 +7681,10 @@ def main() -> int:
                                "ucf_vit_tpu/ops/flash_attention.py:68"),
         "flash_bwd_fused_unetr_sp": ("ucf_vit_tpu_torch/csrc/flash_bwd_tf32.cu",
                                      "ucf_vit_tpu/ops/flash_attention.py:249"),
+        "flash_fwd_bf16_moe": ("ucf_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
+                               "ucf_vit_tpu/ops/flash_attention.py:68"),
+        "flash_bwd_fused_bf16_moe": ("ucf_vit_tpu_torch/csrc/flash_bwd_sm90.cu",
+                                     "ucf_vit_tpu/ops/flash_attention.py:249"),
     }
     numbers = {"flash_fwd": fwd["float32"], "flash_fwd_bf16": fwd["vit_l_bfloat16"],
                "keep_mask": dropout, **{f"flash_bwd_{k}": v for k, v in bwd["float32"].items()},
@@ -7232,7 +7702,7 @@ def main() -> int:
                "flash_bwd_fused_dh96": diffusion_kernels["basic_ct"]["bwd"],
                "flash_fwd_unetr": unetr["kernels"]["fwd"],
                "flash_bwd_fused_unetr": unetr["kernels"]["bwd"], **sap["numbers"],
-               **parallel["numbers"], **sp["numbers"]}
+               **parallel["numbers"], **sp["numbers"], **moe["numbers"]}
     f32, vit_l, mae_long = trained["main"], trained_bf16["main"], trained_mae["main"]
     launches = {
         "flash_fwd": served["launches"] + f32["src:flash_fwd_tf32"]
@@ -7285,6 +7755,9 @@ def main() -> int:
     # batch 1; basic_ct/unetr_sp at sp 2 through the CLI entry and the inference CLI's Dice on
     # the sp-2 eval mesh: the f32 <64> instances at a rank's [24, 729, 64], rows of their own
     launches.update(sp["launches"])
+    # classification_moe's path (phase_moe): its CLI run at --single-device, the sm90
+    # forward and fused backward at [384, 197, 64], rows of their own
+    launches.update(moe["launches"])
     log(f"[record] launches: serve {served['launches']} flash_fwd; f32 train() {f32}; bf16 "
         f"ViT-L train {vit_l}; mae_long train {mae_long}; mae_long from disk {disk['main']}; "
         f"train with attention dropout {trained['dropout']}; the ops' public API {ops}")
@@ -7311,7 +7784,7 @@ def main() -> int:
                  "flash_fwd_dh96", "flash_bwd_fused_dh96", "flash_fwd_unetr",
                  "flash_bwd_fused_unetr", *sap["launches"], "flash_fwd_tp2",
                  "flash_bwd_fused_tp2", "flash_fwd_chain_enc_ddp2", "flash_fwd_chain_dec_ddp2",
-                 *sp["launches"]):
+                 *sp["launches"], *moe["launches"]):
         if launches[name] <= 0:
             fail(f"{name} was launched no time on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

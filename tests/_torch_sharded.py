@@ -148,8 +148,12 @@ def train_job(job: dict) -> dict:
                               var_ids)
         losses.append(loss.item())
     params = {k: v.numpy() for k, v in ckpt.full_state_dict(state.model).items()}
+    named = dict(state.model.named_parameters())
     return {"losses": losses, "params": params, "logits": logits,
             "sharded": sorted(getattr(state.model, "tp_layout", {})),
+            # each expert leaf's experts on this rank (a DTensor's whole dim 0)
+            "experts": {n: int(named[n].shape[0])
+                        for n in sorted(getattr(state.model, "ep_layout", set()))},
             "updates": state.optimizer.count,
             "scale": None if state.loss_scale is None else state.loss_scale.scale}
 
@@ -226,7 +230,7 @@ def sync_check_job(job: dict) -> dict:
     if job.get("corrupt") is not None:
         if dist.get_rank() == job["corrupt"]:
             with torch.no_grad():
-                p = model.norm.bias
+                p = dict(model.named_parameters())[job.get("leaf", "norm.bias")]
                 (p.to_local() if hasattr(p, "to_local") else p)[...] += 1e-3
         try:
             check_replica_consistency(model, mesh)

@@ -1197,3 +1197,742 @@ def test_profile_dir_writes_a_trace_of_steps_11_to_15(tmp_path, capsys):
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert {"aten::addmm", "aten::softmax"} & names and any("backward" in n.lower()
                                                              for n in names)
+
+
+# ================================================================ MoE and expert parallelism
+#
+# The port's `models/moe.py` against the JAX package's on seeded numpy inputs and
+# `load_jax_params` weights, on the CPU: `expert_capacity` on a grid; the four
+# properties of tests/test_moe.py with their tolerances; `MoeMlp`'s output, aux loss and
+# gradients against `jax.grad` (f32, and the bf16 policy within 1e-2 of the largest
+# entry); the MoE ViT (moe_every 2, and 1 under scan_layers) against flax; the five
+# task losses with MoE; five train steps of imagenet/classification_moe shrunk. Then, in
+# a fixture of its own, the sharded runs on gloo (see the comment there).
+
+from ucf_vit_tpu.models import VIT as JVIT
+from ucf_vit_tpu.models.blocks import Mlp as JMlp
+from ucf_vit_tpu.models.moe import MoeMlp as JMoeMlp
+from ucf_vit_tpu.models.moe import collect_moe_aux as jax_collect_moe_aux
+from ucf_vit_tpu.models.moe import expert_capacity as jax_expert_capacity
+from ucf_vit_tpu.tools.convert_checkpoint import export_torch_state
+from ucf_vit_tpu_torch import tasks as port_tasks
+from ucf_vit_tpu_torch.models import VIT
+from ucf_vit_tpu_torch.models.blocks import Mlp
+from ucf_vit_tpu_torch.models.moe import MoeMlp, expert_capacity, top_k_lower_first
+
+MOE_F32_TOL = 1e-6  # output and aux, f32: the same products summed in another order
+MOE_GRAD_TOL = 1e-5  # gradients, f32, times each one's largest entry
+MOE_BF16_TOL = 1e-2  # bf16 policy, times each tensor's largest entry
+MOE_LOGITS_TOL = 1e-5
+MOE_BF16_LOSS_TOL = 5e-3  # per-step loss, bf16
+
+
+def _moe_x(b=2, n=16, d=8, seed=0):
+    return np.random.default_rng(seed).normal(size=(b, n, d)).astype(np.float32)
+
+
+def _jax_moe(x, seed=0, **kw):
+    """The JAX MoeMlp of `kw` and its params initialised on `x`."""
+    jm = JMoeMlp(**kw)
+    return jm, meta.unbox(jm.init(jax.random.key(seed), jnp.asarray(x))["params"])
+
+
+def _port_moe(params, dtype=None, **kw):
+    """The port's MoeMlp of the same `kw` (JAX keyword names) on `params`."""
+    m = MoeMlp(kw["dim"], kw["hidden_features"], kw["num_experts"], top_k=kw.get("top_k", 2),
+               capacity_factor=kw.get("capacity_factor", 1.25), dtype=dtype)
+    return load_jax_params(m, jax.device_get(params))
+
+
+def test_expert_capacity_matches_jax():
+    grid = itertools.product([1, 16, 17, 197, 257], [1, 2, 4, 8, 64], [1, 2, 3],
+                             [0.5, 1.0, 1.25, 2.0, 8.0])
+    got = [(expert_capacity(n, e, k, cf), jax_expert_capacity(n, e, k, cf))
+           for n, e, k, cf in grid]
+    assert all(a == b for a, b in got)
+    assert expert_capacity(197, 8, 2, 1.25) == 62  # classification_moe's 197 tokens
+
+
+def test_top_k_breaks_ties_to_the_lower_expert_as_lax_top_k():
+    rng = np.random.default_rng(3)
+    probs = rng.integers(0, 3, size=(4, 9, 8)).astype(np.float32) / 4  # many ties
+    for k in (1, 2, 3, 8):
+        v, i = top_k_lower_first(torch.from_numpy(probs), k)
+        jv, ji = jax.lax.top_k(jnp.asarray(probs), k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+
+
+def _prop_single_expert():
+    """E = 1, k = 1, capacity N: the dense Mlp (tests/test_moe.py:36-56)."""
+    d, h = 8, 16
+    x = _moe_x(d=d)
+    dense = JMlp(hidden_features=h, out_features=d, gelu_approx=True)
+    pd = dense.init(jax.random.key(0), jnp.asarray(x))
+    want = np.asarray(dense.apply(pd, jnp.asarray(x)))
+    k = meta.unbox(pd)["params"]
+    params = {"router_kernel": np.zeros((d, 1), np.float32), "wi": k["fc1"]["kernel"][None],
+              "bi": k["fc1"]["bias"][None], "wo": k["fc2"]["kernel"][None],
+              "bo": k["fc2"]["bias"][None]}
+    m = _port_moe(params, dim=d, hidden_features=h, num_experts=1, top_k=1, capacity_factor=1.0)
+    port_dense = load_jax_params(Mlp(d, h, d), jax.device_get(k))
+    x_t = torch.from_numpy(x)
+    np.testing.assert_allclose(m(x_t).detach().numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(m(x_t).detach().numpy(), port_dense(x_t).detach().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _prop_top2():
+    """Capacity >= N: the routed output equals the per-token dense sum (`:59-89`), and the
+    JAX module's output."""
+    d, h, e = 8, 16, 4
+    x = _moe_x(b=2, n=8, d=d, seed=3)
+    kw = dict(dim=d, hidden_features=h, num_experts=e, top_k=2, capacity_factor=float(e))
+    jm, p = _jax_moe(x, **kw)
+    out = _port_moe(p, **kw)(torch.from_numpy(x)).detach().numpy()
+    logits = np.einsum("bnd,de->bne", x, np.asarray(p["router_kernel"]))
+    probs = jax.nn.softmax(jnp.asarray(logits), axis=-1)
+    gates, idx = jax.lax.top_k(probs, 2)
+    gates, idx = np.asarray(gates / gates.sum(-1, keepdims=True)), np.asarray(idx)
+
+    def expert(eid, tok):
+        hdn = tok @ np.asarray(p["wi"])[eid] + np.asarray(p["bi"])[eid]
+        hdn = np.asarray(jax.nn.gelu(jnp.asarray(hdn), approximate=True))
+        return hdn @ np.asarray(p["wo"])[eid] + np.asarray(p["bo"])[eid]
+
+    want = np.zeros_like(out)
+    for b in range(x.shape[0]):
+        for n in range(x.shape[1]):
+            for kk in range(2):
+                want[b, n] += gates[b, n, kk] * expert(idx[b, n, kk], x[b, n])
+    np.testing.assert_allclose(out, want, rtol=1e-4, atol=1e-5)
+    jout, _ = jm.apply({"params": p}, jnp.asarray(x), mutable="moe")
+    np.testing.assert_allclose(out, np.asarray(jout), rtol=0, atol=MOE_F32_TOL)
+
+
+def _prop_overflow():
+    """Every token on expert 0 with C < N: the first C tokens get output, the rest zero
+    (`:92-108`)."""
+    d, h, e, n = 8, 16, 2, 8
+    x = _moe_x(b=1, n=n, d=d, seed=5)
+    kw = dict(dim=d, hidden_features=h, num_experts=e, top_k=1, capacity_factor=0.5)
+    _, p = _jax_moe(x, **kw)
+    p["router_kernel"] = np.zeros((d, e), np.float32)
+    c = expert_capacity(n, e, 1, 0.5)
+    assert c == 2
+    out = _port_moe(p, **kw)(torch.from_numpy(x)).detach().numpy()
+    assert np.abs(out[0, :c]).max() > 0
+    np.testing.assert_allclose(out[0, c:], 0.0, atol=1e-7)
+
+
+def _prop_zero_router():
+    """Equal logits: expert 0 wins every tie, so the Switch aux is E * (1 * 1/E) = 1
+    (`:111-121`)."""
+    d = 8
+    x = _moe_x(d=d, seed=7)
+    kw = dict(dim=d, hidden_features=16, num_experts=4, top_k=1)
+    _, p = _jax_moe(x, **kw)
+    p["router_kernel"] = np.zeros((d, 4), np.float32)
+    m = _port_moe(p, **kw)
+    m(torch.from_numpy(x))
+    np.testing.assert_allclose(float(m.aux_loss), 1.0, rtol=1e-6)
+    _, _, idx, _, _ = m.route(torch.from_numpy(x))
+    assert (idx == 0).all()
+
+
+@pytest.mark.parametrize("prop", ["single_expert_is_dense", "top2_dense_oracle",
+                                  "overflow_drops_in_sequence_order", "zero_router_aux_one"])
+def test_moe_properties_of_the_jax_tests(prop):
+    {"single_expert_is_dense": _prop_single_expert, "top2_dense_oracle": _prop_top2,
+     "overflow_drops_in_sequence_order": _prop_overflow,
+     "zero_router_aux_one": _prop_zero_router}[prop]()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_mlp_output_aux_and_gradients_match_jax_grad(dtype):
+    """`MoeMlp` (D 16, H 32, 4 experts, top-2, capacity 1.25 of 24 tokens: some drop) on
+    the same params: the output and the aux loss against the JAX module's under the same
+    policy, and the gradients of `sum(y * w) + 0.3 * aux` for the input and the five
+    leaves against `jax.grad`'s. Under the bf16 policy the gradients are held to the JAX
+    module's f32 ones: its own bf16 bias gradient `bo` sums 45 rows in bf16 and sits
+    1.3e-2 of the largest entry from f32 (the port's 2.6e-3), so the two bf16 results
+    are compared through the f32 they both approximate."""
+    d, h, e = 16, 32, 4
+    x = _moe_x(b=3, n=24, d=d, seed=11)
+    w = np.random.default_rng(12).normal(size=x.shape).astype(np.float32)
+    bf16 = dtype == "bfloat16"
+    kw = dict(dim=d, hidden_features=h, num_experts=e, top_k=2, capacity_factor=1.25)
+
+    def jax_run(jdt):
+        jm = JMoeMlp(dtype=jdt, **kw)
+        p = meta.unbox(jm.init(jax.random.key(0), jnp.asarray(x))["params"])
+
+        def loss(params, xx):
+            y, mut = jm.apply({"params": params}, xx, mutable="moe")
+            aux = jax_collect_moe_aux(mut)
+            return (y.astype(jnp.float32) * w).sum() + 0.3 * aux, (y, aux)
+
+        (_, (y, aux)), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+            p, jnp.asarray(x))
+        return p, y, aux, grads
+
+    p, jy, jaux, _ = jax_run(jnp.bfloat16 if bf16 else None)
+    gp, gx = jax_run(None)[3]
+    m = _port_moe(p, dtype=torch.bfloat16 if bf16 else None, **kw)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = m(xt)
+    ((y.float() * torch.from_numpy(w)).sum() + 0.3 * m.aux_loss).backward()
+    assert y.dtype == torch.float32  # the input's, as the JAX module returns
+    assert abs(m.aux_loss.item() - float(jaux)) <= MOE_F32_TOL  # the router is f32 in both
+    jy = np.asarray(jy, np.float32)
+    np.testing.assert_allclose(y.detach().float().numpy(), jy, rtol=0,
+                               atol=MOE_BF16_TOL * np.abs(jy).max() if bf16 else MOE_F32_TOL)
+    got = {"x": xt.grad, **{k: getattr(m, k).grad for k in ("router_kernel", "wi", "bi", "wo",
+                                                            "bo")}}
+    for k, v in {"x": gx, **gp}.items():
+        v = np.asarray(v, np.float32)
+        tol = (MOE_BF16_TOL if bf16 else MOE_GRAD_TOL) * np.abs(v).max()
+        np.testing.assert_allclose(got[k].numpy(), v, atol=tol, rtol=0, err_msg=k)
+
+
+MOE_VIT_KW = dict(img_size=(16, 16), patch_size=8, in_chans=3, num_classes=4, embed_dim=16,
+                  depth=2, num_heads=2, moe_num_experts=4, moe_top_k=2)
+
+
+@pytest.mark.parametrize("every,scan", [(2, False), (1, True)], ids=["every2", "scan_every1"])
+def test_moe_vit_logits_aux_and_conversion_match_flax(every, scan):
+    x = np.random.default_rng(0).normal(size=(3, 3, 16, 16)).astype(np.float32)
+    jmod = JVIT(default_vars=("v",), attn_impl=JAttnImpl.EINSUM, moe_every=every,
+                scan_layers=scan, **MOE_VIT_KW)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(x))["params"])
+    jlogits, mut = jmod.apply({"params": params}, jnp.asarray(x), mutable="moe")
+    ours = VIT(attn_impl="EINSUM", moe_every=every, scan_layers=scan, **MOE_VIT_KW)
+    assert [b.is_moe for b in ours.blocks] == ([False, True] if every == 2 else [True, True])
+    load_jax_params(ours, jax.device_get(params))
+    theirs = export_torch_state(jax.device_get(params))
+    assert set(ours.state_dict()) == set(theirs)
+    for k, v in ours.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(theirs[k]), err_msg=k)
+    assert "blocks.1.moe_mlp.router_kernel" in theirs
+    with torch.no_grad():
+        logits = ours.eval()(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=MOE_LOGITS_TOL, rtol=0)
+    assert abs(float(ours.moe_aux) - float(jax_collect_moe_aux(mut))) <= MOE_LOGITS_TOL
+
+
+@pytest.mark.parametrize("every", [1, 2])
+def test_moe_vit_under_remat_matches_jax_grad(every):
+    """The MoE ViT under `remat` in training, each block's forward (the routing, the
+    aux's side output) run again in the backward, against flax's `nn.remat` model on
+    the same weights: the loss `sum(logits * w) + 0.1 * aux` within MOE_LOGITS_TOL and
+    the gradient of every leaf, the routers' among them, within MOE_GRAD_TOL of each
+    one's largest entry."""
+    x = np.random.default_rng(1).normal(size=(3, 3, 16, 16)).astype(np.float32)
+    w = np.random.default_rng(2).normal(size=(3, MOE_VIT_KW["num_classes"])).astype(np.float32)
+    jmod = JVIT(default_vars=("v",), attn_impl=JAttnImpl.EINSUM, moe_every=every, remat=True,
+                **MOE_VIT_KW)
+    params = meta.unbox(jmod.init(jax.random.key(0), jnp.asarray(x))["params"])
+
+    def jloss(p):
+        logits, mut = jmod.apply({"params": p}, jnp.asarray(x), deterministic=False,
+                                 mutable="moe")
+        return (logits * w).sum() + 0.1 * jax_collect_moe_aux(mut)
+
+    want, grads = jax.jit(jax.value_and_grad(jloss))(params)
+    ours = VIT(attn_impl="EINSUM", moe_every=every, remat=True, **MOE_VIT_KW)
+    load_jax_params(ours, jax.device_get(params)).train()
+    moe = [b.moe_mlp for b in ours.blocks if b.is_moe]
+    calls = []
+    for m in moe:
+        m.register_forward_pre_hook(lambda *_: calls.append(1))
+    got = (ours(torch.from_numpy(x)) * torch.from_numpy(w)).sum() + 0.1 * ours.moe_aux
+    got.backward()
+    assert len(calls) == 2 * len(moe)  # each MoE layer began again in the backward
+    assert abs(got.item() - float(want)) <= MOE_LOGITS_TOL
+    theirs = export_torch_state(jax.device_get(grads))
+    assert {n for n, _ in ours.named_parameters()} == set(theirs)
+    for n, p in ours.named_parameters():
+        v = np.asarray(theirs[n], np.float32)
+        np.testing.assert_allclose(p.grad.numpy(), v, atol=MOE_GRAD_TOL * np.abs(v).max(),
+                                   rtol=0, err_msg=n)
+
+
+def test_moe_under_scan_layers_needs_moe_every_1_as_jax():
+    with pytest.raises(AssertionError, match="requires moe_every == 1") as ours:
+        VIT(scan_layers=True, moe_every=2, **MOE_VIT_KW)
+    jmod = JVIT(default_vars=("v",), scan_layers=True, moe_every=2, **MOE_VIT_KW)
+    with pytest.raises(AssertionError) as theirs:
+        jmod.init(jax.random.key(0), jnp.zeros((1, 3, 16, 16)))
+    assert str(ours.value) == str(theirs.value)
+
+
+from test_torch_dropout import (  # its sharded section's configs, batches and JAX runs
+    _jax_init_fn,
+    _jax_tx,
+    _shard_batches,
+    _shard_model_raw,
+)
+from ucf_vit_tpu.models.ddpm import ddpm_schedule as jax_ddpm_schedule
+from ucf_vit_tpu.models.ddpm import q_sample as jax_q_sample
+from ucf_vit_tpu.ops.patchify import patchify as jpatchify
+from ucf_vit_tpu.ops.patchify import unpatchify as junpatchify
+from ucf_vit_tpu.tasks import build_task as jax_build_task
+from ucf_vit_tpu.utils import metrics as jax_metrics
+from ucf_vit_tpu_torch.ops.patchify import patchify as port_patchify
+from ucf_vit_tpu_torch.utils import metrics as port_metrics
+
+MOE_ARGS = dict(moe_num_experts=4, moe_top_k=2, moe_every=1, moe_aux_weight=0.1)
+MOE_TASK_LOSS_TOL = 1e-5
+
+
+def _moe_raw(task, **par):
+    """`_shard_model_raw(task)` (depth 2; UNETR 4) with every block MoE."""
+    raw = _shard_model_raw(task, **par)
+    raw["model"]["net"]["init_args"].update(MOE_ARGS)
+    return raw
+
+
+def _jax_moe_loss(task, jmod, jloss, raw):
+    """The JAX task loss, with MAE's noise and diffusion's (t, e) from the batch (the
+    task's own draws them), the MoE term as `_apply` adds it."""
+    w = raw["model"]["net"]["init_args"]["moe_aux_weight"]
+    if task == "mae":
+        def mae_loss(params, batch, rng):
+            (pred, mask), mut = jmod.apply({"params": params}, batch["x"], deterministic=False,
+                                           mask_noise=batch["mask_noise"], mutable="moe",
+                                           rngs={"dropout": rng})
+            return jax_metrics.masked_mse(pred, jpatchify(batch["x"], 4, False), mask) + (
+                w * jax_collect_moe_aux(mut)), {}
+        return mae_loss
+    if task == "diffusion":
+        def diff_loss(params, batch, rng):
+            x0 = batch["x"]
+            xt = jax_q_sample(jax_ddpm_schedule(raw["model"]["net"]["init_args"]["num_time_steps"]),
+                              x0, batch["t"], batch["e"])
+            pred, mut = jmod.apply({"params": params}, xt, batch["t"], deterministic=True,
+                                   mutable="moe")
+            return jax_metrics.mse(junpatchify(pred, x0.shape, 4, True), batch["e"]) + (
+                w * jax_collect_moe_aux(mut)), {}
+        return diff_loss
+    return lambda params, batch, rng: jloss(params, batch, rng, deterministic=True)
+
+
+def _port_moe_loss(task, cfg):
+    """The port's task loss; MAE's with the batch's noise (`tasks.with_moe_aux` adds the
+    MoE term as the task loss does)."""
+    if task != "mae":
+        return port_tasks.task_loss(cfg)
+
+    def mae_loss(model, batch):
+        pred, mask = model(batch["x"], mask_noise=batch["mask_noise"])
+        loss = port_metrics.masked_mse(pred, port_patchify(batch["x"], 4, False), mask)
+        return port_tasks.with_moe_aux(cfg, model, loss, {})
+    return mae_loss
+
+
+@pytest.mark.parametrize("task", ["classification", "mae", "diffusion", "unetr", "sap"])
+def test_moe_task_losses_match_jax(task):
+    """Each task's loss of a model whose blocks are all MoE (4 experts, top-2) on the same
+    weights and batch: the JAX task's loss plus its weighted aux, within 1e-5; the aux
+    reported beside it."""
+    raw = _moe_raw(task)
+    cfg = Config(raw=raw, task=task)
+    batch = _shard_batches(task, raw, 1)[0]
+    jmod, jloss = jax_build_task(JConfig(raw=raw, task=task))
+    params = meta.unbox(_jax_init_fn(task, jmod, batch, cfg.sqrt_len)()["params"])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    want, _ = _jax_moe_loss(task, jmod, jloss, raw)(params, jb, jax.random.key(0))
+    model = load_jax_params(port_tasks.build_task(cfg), jax.device_get(params))
+    assert sum(b.is_moe for b in model.blocks) == len(model.blocks)
+    (model.train() if task == "mae" else model.eval())
+    with torch.no_grad():
+        got, aux = _port_moe_loss(task, cfg)(model, to_device(batch, torch.device("cpu")))
+    assert abs(got.item() - float(want)) <= MOE_TASK_LOSS_TOL
+    assert aux["moe_aux"].item() > 0.5 and model.moe_aux is not None
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", LOSS_TOL), ("bfloat16", MOE_BF16_LOSS_TOL)])
+def test_classification_moe_train_steps_match_jax(dtype, tol):
+    """imagenet/classification_moe shrunk (adaptive, 16 quadtree tokens and the class
+    token, width 32, depth 2: block 1 MoE with 8 experts, top-2, capacity 1.25), five
+    steps from one JAX init; the port's attention FLASH: each step's loss within `tol`."""
+    raw = _adaptive_raw("imagenet/classification_moe")
+    raw["trainer"]["data_type"] = dtype
+    jcfg, cfg = JConfig(raw=raw, task="classification"), Config(raw=raw, task="classification")
+    batches = _adaptive_batches(cfg, 5)
+    jmod, jloss = jax_build_classification(jcfg)
+    first = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    params = meta.unbox(jmod.init(jax.random.key(0), first["seq"], None,
+                                  jax_seq_ps(first))["params"])
+    params = jax.tree.map(jnp.asarray, params)
+    tx = _mae_optimizer(params, raw, jax_optim.configure_optimizer)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                         loss_scale=None, ema_params=None)
+    jstep = jax_make_train_step(jloss, tx, donate=False)
+    jax_losses = []
+    for b in batches:
+        jstate, loss, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.key(0))
+        jax_losses.append(float(loss))
+    raw["trainer"]["attn_impl"] = "FLASH"
+    cfg = Config(raw=raw, task="classification")
+    model = load_jax_params(build_task(cfg), jax.device_get(params))
+    assert [b.is_moe for b in model.blocks] == [False, True]
+    opt = _mae_optimizer(model, raw, optim.configure_optimizer)
+    state = create_train_state(model, opt)
+    step = make_train_step(task_loss(cfg), opt)
+    out = [step(state, to_device(b, torch.device("cpu"))) for b in batches]
+    losses = [o[1].item() for o in out]
+    np.testing.assert_allclose(losses, jax_losses, atol=tol, rtol=0)
+    assert all(0.5 < o[2]["moe_aux"].item() < 8 for o in out)
+
+
+# ---------------------------------------------------------------- expert parallelism
+#
+# ep > 1 on the CPU over gloo, in a fixture of its own that starts one group of 4 and
+# one of 2 (`tests/_torch_sharded.py`): three train steps of the MoE classifier (every
+# block MoE, 4 experts, top-2, the clip and two microbatches) on (ep 2), (ddp 2, ep 2),
+# (ep 2, fsdp 2), (ep 2, tp 2), (ep 4), (ep 2, sp 2) and (ep 2) under remat against the
+# JAX package's
+# sharded step on the same mesh shape and weights (`tests/test_moe.py:150-205`), the
+# gathered parameters against the port's one device and each rank's experts; the
+# replica check on (ddp 2, ep 2); an ep-2 checkpoint resumed on one device, on ep 2 and
+# on ddp 2 and converted by `to-jax`; a mid-epoch resume on ep 2 from catsdogs files;
+# top-1 on an ep-2 eval mesh against one device and the JAX package's sharded
+# `evaluate_classification`; a two-rank ep server's answers.
+
+import _torch_sharded
+from test_torch_dropout import (  # its sharded section's checks and configs
+    EVAL_SERVE_TOL,
+    LAYOUT_LOSS_TOL,
+    SHARD_LOSS_TOL,
+    _assert_params_match,
+    _catsdogs_yaml,
+    _free_port,
+    _jax_loss,
+    _step_losses,
+)
+from ucf_vit_tpu.parallel import make_mesh as jax_make_mesh
+from ucf_vit_tpu.parallel.mesh import mesh_context as jax_mesh_context
+from ucf_vit_tpu.parallel.mesh import shard_batch as jax_shard_batch
+from ucf_vit_tpu.parallel.train_step import create_sharded_train_state
+from ucf_vit_tpu.tools.convert_checkpoint import main as convert_main
+
+EP_CASES = {  # name: (ddp, ep, fsdp, sp, tp)
+    "ep2": (1, 2, 1, 1, 1),
+    "ddp2_ep2": (2, 2, 1, 1, 1),
+    "ep2_fsdp2": (1, 2, 2, 1, 1),
+    "ep2_tp2": (1, 2, 1, 1, 2),
+    "ep4": (1, 4, 1, 1, 1),
+    "ep2_sp2": (1, 2, 1, 2, 1),
+    "ep2_remat": (1, 2, 1, 1, 1),  # each block's forward, all-to-alls too, run again
+}
+EP_GLOBAL_BATCH = 8
+EP_CLI_ITS = 3
+
+
+def _ep_raw(shape, remat=False):
+    """The MoE classifier (`_moe_raw`) on the mesh `shape` (ddp, ep, fsdp, sp, tp),
+    `data.batch_size` a data rank's share of EP_GLOBAL_BATCH, each block under `remat`
+    if asked (under fsdp it is by default). Under sp the tile is 24 (nine tokens and
+    the class token: sp divides them, so the stack splits)."""
+    ddp, ep, fsdp, sp, tp = shape
+    raw = _moe_raw("classification")
+    if remat:
+        raw["trainer"]["remat"] = True
+    raw["parallelism"] = {"simple_ddp_size": ddp, "expert_par_size": ep, "fsdp_size": fsdp,
+                          "seq_par_size": sp, "tensor_par_size": tp}
+    raw["data"]["batch_size"] = EP_GLOBAL_BATCH // (ddp * ep * fsdp)
+    if sp > 1:
+        raw["model"]["net"]["init_args"]["tile_size"] = [24, 24]
+    return raw
+
+
+def _jax_ep_steps(raw, shape):
+    """The JAX package's steps of `raw` on the mesh `shape` (ddp, ep, fsdp, sp, tp):
+    (its init as whole torch-layout weights, the per-step losses, the batches)."""
+    ddp, ep, fsdp, sp, tp = shape
+    batches = _shard_batches("classification", raw)
+    jmod, jloss = jax_build_task(JConfig(raw=raw, task="classification"))
+    mesh = jax_make_mesh(simple_ddp_size=ddp, fsdp_size=fsdp, seq_par_size=sp,
+                         tensor_par_size=tp, expert_par_size=ep)
+    init_fn = _jax_init_fn("classification", jmod, batches[0])
+    tx = _jax_tx(raw, jax.eval_shape(init_fn)["params"])
+    with jax_mesh_context(mesh):
+        state, _ = create_sharded_train_state(init_fn, tx, mesh)
+        init = jax_to_torch_state(jax.device_get(state.params))
+        step = jax_make_train_step(_jax_loss("classification", jmod, jloss, raw), tx,
+                                   donate=False, accum_steps=raw["trainer"]["accum_steps"])
+        losses = []
+        for b in batches:
+            state, loss, _ = step(state, jax_shard_batch(mesh, {k: jnp.asarray(v)
+                                                                for k, v in b.items()}),
+                                  jax.random.key(0))
+            losses.append(float(loss))
+    return init, losses, batches
+
+
+def _ep_cli_yaml(tmp, name, par, **trainer):
+    """The MoE classifier through the CLI on `par`, synthetic, EP_CLI_ITS steps an
+    epoch, with a loss scale, EMA and a save."""
+    raw = _moe_raw("classification")
+    raw["model"].update(use_grad_scaler=True)
+    raw["trainer"] = {"task": "classification", "attn_impl": "EINSUM", "seed": 0,
+                      "ema_decay": 0.99, "max_epochs": 1, "checkpoint_path": str(tmp / "ck"),
+                      "checkpoint_filename": name, "metrics_path": str(tmp / f"{name}.jsonl"),
+                      **trainer}
+    raw["parallelism"] = par
+    raw["data"]["batch_size"] = EP_GLOBAL_BATCH // int(np.prod(
+        [par.get(k, 1) for k in ("simple_ddp_size", "expert_par_size", "fsdp_size")]))
+    raw["load_balancing"] = {"batches_per_rank_epoch": {"d": EP_CLI_ITS}}
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def _ep_catsdogs_yaml(tmp, name, **trainer):
+    """`_catsdogs_yaml` (16 JPEGs, two epochs) with MoE blocks on (ep 2)."""
+    path = _catsdogs_yaml(tmp, name, **trainer)
+    raw = yaml.safe_load(open(path))
+    raw["parallelism"] = {"expert_par_size": 2}
+    raw["model"]["net"]["init_args"].update(MOE_ARGS)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def _ep_eval_raw(par):
+    raw = _moe_raw("classification")
+    raw["data"].update(batch_size=4, num_classes=3)
+    raw["parallelism"] = par
+    return raw
+
+
+def _ep_eval_checkpoint(tmp):
+    """The MoE classifier's seeded init plus N(0, 0.05) noise (so that no logits tie),
+    as a weights-only checkpoint file, and its `to-jax` conversion."""
+    raw = _ep_eval_raw({})
+    model = port_tasks.build_task(Config(raw=raw, task="classification"))
+    model.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    sd = {k: v + torch.from_numpy(0.05 * rng.normal(size=tuple(v.shape)).astype(np.float32))
+          for k, v in model.state_dict().items()}
+    path = tmp / "ep_eval.ckpt"
+    torch.save({"epoch": 3, "model_state_dict": sd, "loss_list": []}, path)
+    cfg_path = tmp / "ep_eval.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    assert convert_main(["to-jax", str(path), str(cfg_path), str(tmp / "ep_eval_jax"),
+                         "--filename", "conv"]) == 0
+    return str(path)
+
+
+EP_HTTP_INPUTS = 6
+
+
+@pytest.fixture(scope="module")
+def ep_runs(tmp_path_factory):
+    """Every expert-parallel case's JAX run, port run (on its group) and single-device
+    run (here), and the checkpoint, resume, evaluation and serving runs."""
+    from ucf_vit_tpu_torch.inference import evaluate_classification
+    from ucf_vit_tpu_torch.serve import build_predictor
+
+    tmp = tmp_path_factory.mktemp("ep")
+    jobs, single = {4: [], 2: []}, {}
+    for name, shape in EP_CASES.items():
+        raw = _ep_raw(shape, remat=name.endswith("_remat"))
+        init, jax_losses, batches = _jax_ep_steps(raw, shape)
+        job = {"kind": "train", "name": name, "raw": raw, "batches": batches, "init": init}
+        jobs[int(np.prod(shape))].append(job)
+        one = copy.deepcopy(raw)
+        one["parallelism"], one["data"]["batch_size"] = {}, EP_GLOBAL_BATCH
+        single[name] = {**_torch_sharded.train_job({**job, "raw": one}),
+                        "jax_losses": jax_losses}
+    sync_raw = _ep_raw(EP_CASES["ddp2_ep2"])
+    jobs[4] += [{"kind": "sync_check", "name": "ep_sync", "raw": sync_raw, "corrupt": 1,
+                 "leaf": "blocks.0.moe_mlp.wi"}]
+    # the CLI: an epoch on ep 2 with the sync check every step and a save; that epoch's
+    # checkpoint resumed for one more on ep 2, ddp 2 and one device; mid-epoch on ep 2
+    ep2, resume = {"expert_par_size": 2}, dict(resume_from_checkpoint=True, max_epochs=2,
+                                               checkpoint_filename_for_loading="mp_even")
+    jobs[2] += [
+        {"kind": "cli", "name": "mp", "argv": [_ep_cli_yaml(tmp, "mp", ep2, sync_check_every=1),
+                                               "--synthetic", "--device", "cpu"]},
+        {"kind": "cli", "name": "mq_ep2", "argv": [
+            _ep_cli_yaml(tmp, "mq_ep2", ep2, **resume), "--synthetic", "--device", "cpu"]},
+        {"kind": "cli", "name": "mq_ddp2", "argv": [
+            _ep_cli_yaml(tmp, "mq_ddp2", {"simple_ddp_size": 2}, **resume), "--synthetic",
+            "--device", "cpu"]},
+        {"kind": "cli", "name": "mu", "argv": [_ep_catsdogs_yaml(tmp, "mu"), "--device", "cpu"]},
+        {"kind": "cli", "name": "mv", "argv": [
+            _ep_catsdogs_yaml(tmp, "mv", preempt_after_steps=2), "--device", "cpu"]},
+        {"kind": "cli", "name": "mw", "argv": [
+            _ep_catsdogs_yaml(tmp, "mw", checkpoint_filename="mv", resume_from_checkpoint=True,
+                              checkpoint_filename_for_loading="mv_latest"), "--device", "cpu"]},
+    ]
+    # evaluation and serving on an ep-2 eval mesh
+    ck = _ep_eval_checkpoint(tmp)
+    inputs = np.random.default_rng(9).normal(size=(EP_HTTP_INPUTS, 3, 32, 32)).astype(
+        np.float32)
+    http_path = tmp / "ep_http.yaml"
+    http_path.write_text(yaml.safe_dump(_ep_eval_raw(ep2)))
+    jobs[2] += [
+        {"kind": "eval", "name": "ep_top1", "raw": _ep_eval_raw(ep2),
+         "fn": "evaluate_classification", "args": (ck, True, 12)},
+        {"kind": "serve", "name": "ep_http", "path": str(http_path), "port": _free_port(),
+         "max_batch": 4, "inputs": inputs, "phases": [("lone", [0, 1]),
+                                                       ("concurrent", [2, 3, 4, 5])]},
+    ]
+    out = {}
+    for world in (4, 2):
+        out.update(_torch_sharded.run_group(world, jobs[world], tmp))
+    one = Config(raw=_ep_eval_raw({}), task="classification")
+    single["ep_top1"] = evaluate_classification(one, ck, True, 12, device="cpu")
+    run_batch = build_predictor(one, max_batch=4, device="cpu")[0]
+    single["ep_http"] = np.stack([run_batch({"x": np.repeat(inputs[i:i + 1], 4, 0)}).numpy()[0]
+                                  for i in range(EP_HTTP_INPUTS)])
+    single["mq_one"] = main([_ep_cli_yaml(tmp, "mq_one", {}, **resume), "--synthetic",
+                                   "--device", "cpu"])
+    return out, single, tmp
+
+
+@pytest.mark.parametrize("name", sorted(EP_CASES))
+def test_expert_parallel_train_step_matches_jax_and_single_device(ep_runs, name):
+    """Three steps on the case's mesh against the JAX package's sharded step on the
+    same mesh shape (each step's loss within SHARD_LOSS_TOL) and the port's single
+    device (the same; the gathered parameters within SHARD_PARAM_TOL of each leaf's
+    largest entry); each rank holds E/ep experts of each expert leaf."""
+    runs, single, _ = ep_runs
+    got = runs[name]
+    ddp, ep, fsdp, sp, tp = EP_CASES[name]
+    np.testing.assert_allclose(got["losses"], single[name]["jax_losses"], atol=SHARD_LOSS_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(got["losses"], single[name]["losses"], atol=SHARD_LOSS_TOL,
+                               rtol=0)
+    _assert_params_match(got["params"], single[name]["params"], name)
+    experts = MOE_ARGS["moe_num_experts"]
+    assert set(got["experts"]) == {f"blocks.{i}.moe_mlp.{leaf}" for i in range(2)
+                                   for leaf in ("wi", "bi", "wo", "bo")}
+    assert set(got["experts"].values()) == {experts // ep}
+    if tp > 1:  # the experts' hidden dim split too
+        assert "blocks.0.moe_mlp.wi" in got["sharded"]
+
+
+def test_replica_check_compares_expert_leaves_within_an_ep_index(ep_runs):
+    """On (ddp 2, ep 2) the check passes; with one rank's copy of an expert leaf
+    changed it names that rank's ep index's group alone (ranks 1 and 3)."""
+    runs, _, _ = ep_runs
+    got = runs["ep_sync"]
+    assert got["ok"] and got["redundancy"] == ("ddp", "ep")
+    assert got["caught"] is not None and got["mismatches"] == [[1, 3]]
+
+
+def test_ep_checkpoint_resumes_on_one_device_ep2_and_ddp2(ep_runs):
+    """An epoch on ep 2 saved (the sync check passing every step) and resumed for one
+    more on one device, on ep 2 and on ddp 2: the same losses within LAYOUT_LOSS_TOL;
+    the file holds the experts whole."""
+    runs, single, tmp = ep_runs
+    assert runs["mp"]["step"] == EP_CLI_ITS
+    recs = [json.loads(line) for line in open(tmp / "mp.jsonl")]
+    assert all("OK" in r["sync_check"] for r in recs if "sync_check" in r)
+    assert all("moe_aux" in r for r in recs if "loss" in r and "step" in r)
+    sd = torch.load(tmp / "ck" / "mp_even.ckpt", weights_only=True)["model_state_dict"]
+    assert sd["blocks.0.moe_mlp.wi"].shape[0] == MOE_ARGS["moe_num_experts"]
+    want = _step_losses(tmp / "mq_ep2.jsonl")
+    assert sorted(want) == [EP_CLI_ITS + i for i in (1, 2, 3)]
+    for other in ("mq_one", "mq_ddp2"):
+        got = _step_losses(tmp / f"{other}.jsonl")
+        assert sorted(got) == sorted(want)
+        np.testing.assert_allclose([got[k] for k in sorted(got)], [want[k] for k in sorted(want)],
+                                   atol=LAYOUT_LOSS_TOL, rtol=0, err_msg=other)
+
+
+def test_ep_checkpoint_converts_with_to_jax_key_for_key(ep_runs, tmp_path):
+    _, _, tmp = ep_runs
+    src = tmp / "ck" / "mp_even.ckpt"
+    assert convert_main(["to-jax", str(src), str(tmp / "mp.yaml"), str(tmp_path / "jax"),
+                         "--filename", "conv"]) == 0
+    from ucf_vit_tpu import checkpoint as jax_ckpt
+
+    payload = jax_ckpt.restore_checkpoint(str(tmp_path / "jax"), "conv_latest")
+    back = export_torch_state(payload["state"]["params"])
+    sd = torch.load(src, weights_only=True)["model_state_dict"]
+    assert set(back) == set(sd) and "blocks.1.moe_mlp.wo" in sd
+    for k, v in sd.items():
+        np.testing.assert_array_equal(np.asarray(back[k]), v.numpy(), err_msg=k)
+
+
+def test_midepoch_resume_on_ep2_is_bit_for_bit(ep_runs):
+    """The MoE classifier on (ep 2) from catsdogs files: preempted after step 2 and
+    resumed in place, against the run that was not interrupted: every step's loss
+    equal."""
+    _, _, tmp = ep_runs
+    full, resumed = _step_losses(tmp / "mu.jsonl"), _step_losses(tmp / "mw.jsonl")
+    first = _step_losses(tmp / "mv.jsonl")
+    assert sorted(first) == [1, 2] and len(full) == 8
+    assert sorted(resumed) == list(range(3, 9))
+    assert {**first, **resumed} == full
+
+
+def test_top1_on_an_ep2_eval_mesh_matches_one_device_and_jax(ep_runs):
+    """`evaluate_classification` of a checkpoint on the ep-2 eval mesh (every rank runs
+    every forward) against one device's and the JAX package's on the `to-jax`
+    conversion on the same mesh shape: the same top-1 over 12 synthetic samples."""
+    from ucf_vit_tpu.inference import evaluate_classification as jax_evaluate_classification
+
+    runs, single, tmp = ep_runs
+    jraw = _ep_eval_raw({"expert_par_size": 2})
+    jraw["trainer"]["checkpoint_filename_for_loading"] = "conv_latest"
+    want = jax_evaluate_classification(JConfig(raw=jraw, task="classification"),
+                                       str(tmp / "ep_eval_jax"), True, 12)
+    assert runs["ep_top1"] == single["ep_top1"] == want
+
+
+def test_two_rank_ep_server_answers_as_one_device(ep_runs):
+    """`python -m ucf_vit_tpu_torch.serve` on (ep 2): rank 0 answers HTTP (two lone
+    requests, four at once) while rank 1 follows every batch through the experts'
+    all-to-all; the answers against `run_batch` on one device."""
+    runs, single, _ = ep_runs
+    got = runs["ep_http"]
+    assert "error" not in got, got.get("error")
+    assert got["returned"] == ["returned", "returned"]
+    assert got["stats"]["errors"] == 0
+    answers = np.stack([got["answers"][i] for i in range(EP_HTTP_INPUTS)])
+    np.testing.assert_allclose(answers, single["ep_http"], atol=EVAL_SERVE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("n, m, a", [(4, 2, 2), (2, 4, 2), (2, 6, 3), (8, 4, 4), (3, 4, 2)],
+                         ids=str)
+def test_global_microbatches_plan_gives_each_rank_its_share(n, m, a):
+    """`global_microbatches`' rows, on the global batch of `n` data ranks of `m` rows
+    each as its all-gather makes it: every rank's i-th chunk of `a` is its share, in
+    rank order, of rows `[i M, (i + 1) M)` of the global batch, as the JAX step and one
+    device split it."""
+    from ucf_vit_tpu_torch.parallel.train_step import _shares
+
+    whole = torch.arange(n * m)
+    q, big = m // a, n * m // a
+    for r in range(n):
+        local = _shares(whole, n, r, a).tolist()
+        assert len(local) == m
+        for i in range(a):
+            assert local[i * q:(i + 1) * q] == list(range(i * big + r * q, i * big + (r + 1) * q))
+
+
+def test_shipped_classification_moe_passes_the_trainers_check():
+    """imagenet/classification_moe at its shipped (ddp 2, ep 4): the trainer's check
+    passes the axes and stops at the world size of a one-process launch; shrunk to two
+    blocks it builds with its MoE block second (`moe_every: 2`)."""
+    from ucf_vit_tpu_torch.config import load_config
+    from ucf_vit_tpu_torch.train import check_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "imagenet", "classification_moe",
+                                   "base_config.yaml"))
+    assert cfg.world_size == 8
+    with pytest.raises(RuntimeError, match="asks for 8 processes but 1 was launched"):
+        check_config(cfg)
+    cfg.raw["model"]["net"]["init_args"].update(depth=2, embed_dim=32, num_heads=2)
+    model = build_task(cfg)
+    assert [b.is_moe for b in model.blocks] == [False, True]
+    moe = model.blocks[1].moe_mlp
+    assert (moe.num_experts, moe.top_k, moe.capacity_factor) == (8, 2, 1.25)
+    assert port_tasks.moe_weight(cfg) == 0.01

@@ -306,13 +306,17 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([cfg, "--synthetic", "--max-steps", "1"])
     for key, item in (("pipe_par_size", "item 12: pipeline"),
-                      ("expert_par_size", "item 12: pipeline")):
+                      ("expert_par_size", None)):
         raw = _raw()
         raw["parallelism"] = {key: 2}
         if key == "expert_par_size":  # the config's own check wants experts to shard
             raw["model"]["net"]["init_args"]["moe_num_experts"] = 2
         path = tmp_path / f"{key}.yaml"
         path.write_text(yaml.safe_dump(raw))
+        if item is None:  # expert parallelism passes the check: the world size stops it
+            with pytest.raises(RuntimeError, match="asks for 2 processes but 1 was launched"):
+                main([str(path), "--synthetic", "--device", "cpu"])
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, modules to port, {item}"):
             main([str(path), "--synthetic", "--device", "cpu"])
     # sequence parallelism passes the trainer's check for every task (one process launched,
@@ -499,7 +503,7 @@ def test_masking_draws_from_the_model_generator():
 @pytest.mark.parametrize("variant", ["pipe_par"])
 def test_unported_variants_raise_with_their_roadmap_item(variant):
     kw = dict(MAE_KW, **MAE_TILES["3d"], pipe_par_size=2, scan_layers=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline \\+ MoE"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: pipeline, item 12"):
         MAE(**kw)
 
 

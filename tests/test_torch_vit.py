@@ -228,7 +228,8 @@ def test_seeded_init_is_deterministic_and_uses_sincos_table():
 
 
 @pytest.mark.parametrize("init, parallelism", [
-    ({"moe_num_experts": 4}, None),
+    # MoE blocks build now (tests/test_torch_mlp_int8.py); MoE under a pipeline does not
+    ({"moe_num_experts": 4, "moe_every": 1}, {"pipe_par_size": 2}),
     # scan_layers alone is accepted now; the scanned stack under a pipeline is not
     ({"scan_layers": True}, {"pipe_par_size": 2}),
 ], ids=["moe", "scan"])

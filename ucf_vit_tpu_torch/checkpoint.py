@@ -52,7 +52,11 @@ its own seeded ones. A load takes each rank's part of the whole tensors, onto
 whatever layout the loading run has (`load_params`, `restore_train_state`).
 Under sequence parallelism the parameters are whole on every sp rank and the
 sp ranks of one data rank share its generators, so the file is the same,
-written once, and loads with or without sp.
+written once, and loads with or without sp. Under expert parallelism an
+expert leaf (`model.ep_layout`) holds its rank's `E/ep` experts: the save
+joins the ep ranks' pieces on dim 0 (after FSDP's shards and the tp pieces),
+and a load slices them again, so an ep checkpoint loads onto one device or
+any other layout and converts with `to-jax` as any other.
 """
 
 from __future__ import annotations
@@ -75,21 +79,29 @@ def _layout(model: torch.nn.Module) -> dict:
     return getattr(model, "tp_layout", None) or {}
 
 
-def gather_full(t: torch.Tensor, kind: Optional[str], mesh) -> torch.Tensor:
+def _ep(model: torch.nn.Module) -> set:
+    return getattr(model, "ep_layout", None) or set()
+
+
+def gather_full(t: torch.Tensor, kind: Optional[str], mesh, ep: bool = False) -> torch.Tensor:
     """The whole tensor, on every rank (all must call): a DTensor's shards
-    joined, and a tensor-parallel parameter's pieces (split `kind`) merged
-    over tp, each rank's piece placed among zeros and summed, which is exact."""
+    joined, a tensor-parallel parameter's pieces (split `kind`) merged over
+    tp, each rank's piece placed among zeros and summed, which is exact, and
+    with `ep` (an expert leaf) the ep ranks' experts joined on dim 0."""
     if hasattr(t, "to_local"):
         t = _join_shards(t)
-    if kind is None or mesh is None or mesh.size("tp") == 1:
-        return t
-    from ucf_vit_tpu_torch.models.blocks import tp_merge
+    if kind is not None and mesh is not None and mesh.size("tp") > 1:
+        from ucf_vit_tpu_torch.models.blocks import tp_merge
 
-    r = mesh.index("tp")
-    full = tp_merge([t if i == r else torch.zeros_like(t) for i in range(mesh.size("tp"))],
-                    kind)
-    dist.all_reduce(full, group=mesh.group("tp"))
-    return full
+        r = mesh.index("tp")
+        t = tp_merge([t if i == r else torch.zeros_like(t) for i in range(mesh.size("tp"))],
+                     kind)
+        dist.all_reduce(t, group=mesh.group("tp"))
+    if ep and mesh is not None and mesh.size("ep") > 1:
+        parts = [torch.empty_like(t) for _ in range(mesh.size("ep"))]
+        dist.all_gather(parts, t.contiguous(), group=mesh.group("ep"))
+        t = torch.cat(parts)
+    return t
 
 
 def _join_shards(t) -> torch.Tensor:
@@ -113,11 +125,15 @@ def _join_shards(t) -> torch.Tensor:
     return out.contiguous()
 
 
-def local_piece(full: torch.Tensor, like: torch.Tensor, kind: Optional[str], mesh):
+def local_piece(full: torch.Tensor, like: torch.Tensor, kind: Optional[str], mesh,
+                ep: bool = False):
     """This rank's part of the whole tensor `full`, laid out as `like` (a
-    parameter of the sharded model, or one of its DTensors): the tp slice,
-    then a DTensor's shard, returned as a DTensor like `like`."""
+    parameter of the sharded model, or one of its DTensors): with `ep` this
+    ep rank's experts, the tp slice, then a DTensor's shard, returned as a
+    DTensor like `like`."""
     t = full
+    if ep and mesh is not None and mesh.size("ep") > 1:
+        t = t.chunk(mesh.size("ep"))[mesh.index("ep")]
     if kind is not None and mesh is not None and mesh.size("tp") > 1:
         from ucf_vit_tpu_torch.models.blocks import tp_slice
 
@@ -157,19 +173,24 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """`model.state_dict()` with every tensor whole, on every rank (a sharded
     model's ranks must all call it)."""
-    mesh, layout = _mesh(model), _layout(model)
-    return {k: gather_full(v, layout.get(k), mesh) for k, v in model.state_dict().items()}
+    mesh, layout, ep = _mesh(model), _layout(model), _ep(model)
+    return {k: gather_full(v, layout.get(k), mesh, k in ep)
+            for k, v in model.state_dict().items()}
 
 
 def _full_shapes(model: torch.nn.Module) -> Dict[str, tuple]:
     """The whole shape of each `state_dict` entry of a (sharded) model."""
-    mesh, layout = _mesh(model), _layout(model)
+    from ucf_vit_tpu_torch.models.blocks import TP_DIM
+
+    mesh, layout, ep = _mesh(model), _layout(model), _ep(model)
     out = {}
     for k, v in model.state_dict().items():
         shape = list(v.shape)  # a DTensor's is the whole one over the data axes
         kind = layout.get(k)
         if kind is not None and mesh is not None:
-            shape[1 if kind == "cols" else 0] *= mesh.size("tp")
+            shape[TP_DIM.get(kind, 0)] *= mesh.size("tp")
+        if k in ep and mesh is not None:
+            shape[0] *= mesh.size("ep")
         out[k] = tuple(shape)
     return out
 
@@ -269,18 +290,21 @@ def _param_names(state) -> list:
 def _gathered_state(state):
     """(model, AdamW and EMA state dicts) of a sharded state, every tensor
     whole on every rank."""
-    model, mesh, layout = state.model, _mesh(state.model), _layout(state.model)
+    model, mesh, layout, ep = (state.model, _mesh(state.model), _layout(state.model),
+                               _ep(state.model))
     model_sd = full_state_dict(model)
     sd = state.optimizer.adamw.state_dict()
     names = _param_names(state)
     opt_state = {}
     for i, st in sd["state"].items():
         kind = layout.get(names[i])
-        opt_state[i] = {k: (gather_full(v, kind if v.ndim else None, mesh)
-                            if torch.is_tensor(v) else v) for k, v in st.items()}
+        opt_state[i] = {k: (gather_full(v, kind, mesh, names[i] in ep) if v.ndim
+                            else gather_full(v, None, mesh)) if torch.is_tensor(v) else v
+                        for k, v in st.items()}
     ema = None
     if state.ema_params is not None:
-        ema = {n: gather_full(v, layout.get(n), mesh) for n, v in state.ema_params.items()}
+        ema = {n: gather_full(v, layout.get(n), mesh, n in ep)
+               for n, v in state.ema_params.items()}
     return model_sd, {"state": opt_state, "param_groups": sd["param_groups"]}, ema
 
 
@@ -401,12 +425,12 @@ def load_params(model: torch.nn.Module, sd: Dict[str, torch.Tensor], what: str) 
     (checked first), cast to each parameter's dtype; a sharded model takes
     each rank's part."""
     check_state_dict(model, sd, what)
-    mesh, layout = _mesh(model), _layout(model)
+    mesh, layout, ep = _mesh(model), _layout(model), _ep(model)
     for k, v in model.state_dict().items():
         if mesh is None:
             v.copy_(sd[k])
         else:
-            _local(v).copy_(_local(local_piece(sd[k], v, layout.get(k), mesh)))
+            _local(v).copy_(_local(local_piece(sd[k], v, layout.get(k), mesh, k in ep)))
 
 
 def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> None:
@@ -418,14 +442,16 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
     if "optimizer_state_dict" not in payload:
         raise ValueError("the checkpoint holds weights only (no optimizer state): warm "
                          "start from it with trainer.init_params_from instead")
-    model, mesh, layout = state.model, _mesh(state.model), _layout(state.model)
+    model, mesh, layout, ep = (state.model, _mesh(state.model), _layout(state.model),
+                               _ep(state.model))
     load_params(model, payload["model_state_dict"], "checkpoint")
     opt_sd = payload["optimizer_state_dict"]
     if mesh is not None:  # each moment as its parameter is sharded here
         params = dict(model.named_parameters())
         names = _param_names(state)
         opt_sd = {"param_groups": opt_sd["param_groups"], "state": {
-            i: {k: (local_piece(v, params[names[int(i)]], layout.get(names[int(i)]), mesh)
+            i: {k: (local_piece(v, params[names[int(i)]], layout.get(names[int(i)]), mesh,
+                                names[int(i)] in ep)
                     if torch.is_tensor(v) and v.ndim else v) for k, v in st.items()}
             for i, st in opt_sd["state"].items()}}
     state.optimizer.adamw.load_state_dict(opt_sd)
@@ -456,7 +482,7 @@ def restore_train_state(state, payload: dict, ema_decay: Optional[float]) -> Non
         print("seeded EMA from restored params (checkpoint predates ema_decay)", flush=True)
     else:
         check_state_dict(model, ema, "checkpoint EMA state")
-        state.ema_params = {n: local_piece(ema[n], p.detach(), layout.get(n), mesh)
+        state.ema_params = {n: local_piece(ema[n], p.detach(), layout.get(n), mesh, n in ep)
                             for n, p in model.named_parameters()}
 
 

@@ -31,6 +31,8 @@ correspondence as `ucf_vit_tpu/tools/convert_checkpoint.py:12-30`:
                                out.conv.weight, mlp_head.weight
   neck/kernel                  neck.0.weight              (SAP's ConvTranspose, + flip)
   mask_header/kernel           mask_header.0.weight       [*k,i,o]->[o,i,*k]
+  blocks_1/moe_mlp/wi          blocks.1.moe_mlp.wi        identity (router_kernel, wi,
+                                                          bi, wo, bo: the JAX layouts)
 
 A ConvTranspose kernel (a module named `neck`, `transp_conv`,
 `transp_conv_init` or `up_<i>`) is mirrored in every spatial axis on the way: flax's transposed
@@ -39,7 +41,7 @@ convolution does not mirror the kernel, torch's does
 there is no overlap, so a missing flip would only permute each block.
 
 It covers the ported modules (PatchEmbed, LinearTokenEmbed, AdaptivePosMLP,
-Mlp, Attention, VariableMappingAttention, Block, VIT with or without the
+Mlp, MoeMlp, Attention, VariableMappingAttention, Block, VIT with or without the
 variable embedding, MAE, DiffusionVIT, UNETR and its decoder blocks, SAP;
 DiffusionVIT's time table is a constant on both sides, in neither tree),
 from a whole model or from one of them. A scan-layers tree (`scan_layers=True` on

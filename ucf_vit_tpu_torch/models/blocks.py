@@ -55,14 +55,17 @@ from ucf_vit_tpu_torch.parallel.mesh import seq_shard
 # how a tensor-parallel parameter splits over tp, by the torch layout
 # ([out, in] weights): "rows" the output rows of a column-parallel layer (and its
 # bias), "cols" the input columns of a row-parallel one, "qkv" / "kv" the rows
-# of a fused projection of 3 / 2 parts, each part split alike (by heads)
+# of a fused projection of 3 / 2 parts, each part split alike (by heads); the MoE
+# experts' leaves (`models/moe.py`) split their hidden dim: "cols" (dim 1) and
+# "dim2"
 TP_PARTS = {"rows": 1, "qkv": 3, "kv": 2}
+TP_DIM = {"cols": 1, "dim2": 2}  # the kinds that split one dim whole
 
 
 def tp_slice(t: torch.Tensor, kind: str, rank: int, size: int) -> torch.Tensor:
     """Tensor-parallel rank `rank`'s piece of the full parameter `t`."""
-    if kind == "cols":
-        return t.chunk(size, dim=1)[rank]
+    if kind in TP_DIM:
+        return t.chunk(size, dim=TP_DIM[kind])[rank]
     parts = t.chunk(TP_PARTS[kind], dim=0)
     return torch.cat([p.chunk(size, dim=0)[rank] for p in parts], dim=0)
 
@@ -70,8 +73,8 @@ def tp_slice(t: torch.Tensor, kind: str, rank: int, size: int) -> torch.Tensor:
 def tp_merge(pieces, kind: str) -> torch.Tensor:
     """The full parameter from the tp ranks' pieces, in rank order (the
     inverse of `tp_slice`)."""
-    if kind == "cols":
-        return torch.cat(list(pieces), dim=1)
+    if kind in TP_DIM:
+        return torch.cat(list(pieces), dim=TP_DIM[kind])
     n = TP_PARTS[kind]
     split = [p.chunk(n, dim=0) for p in pieces]
     return torch.cat([torch.cat([s[i] for s in split], dim=0) for i in range(n)], dim=0)
@@ -429,14 +432,18 @@ class VariableMappingAttention(nn.Module, TensorParallel):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block; with `moe_num_experts > 1` its MLP is a
+    routed mixture of experts, `moe_mlp` in place of `mlp`
+    (`ucf_vit_tpu/models/blocks.py:291-302`)."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: AttnImpl = AttnImpl.AUTO,
                  mlp_ratio: float = 4.0, qkv_bias: bool = False, qk_norm: bool = False,
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
                  init_values: Optional[float] = None, drop_path: float = 0.0,
                  gelu_approx: bool = True, seg_len: Optional[int] = None,
-                 sp_mode: str = "auto", dtype: Optional[torch.dtype] = None):
+                 sp_mode: str = "auto", dtype: Optional[torch.dtype] = None,
+                 moe_num_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.norm1 = layer_norm(dim, dtype)
         self.attn = Attention(dim, num_heads, attn_impl=attn_impl, qkv_bias=qkv_bias,
@@ -445,11 +452,20 @@ class Block(nn.Module):
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = layer_norm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=proj_drop,
-                       gelu_approx=gelu_approx, dtype=dtype)
+        self.is_moe = moe_num_experts > 1
+        if self.is_moe:
+            from ucf_vit_tpu_torch.models.moe import MoeMlp
+
+            self.moe_mlp = MoeMlp(dim, int(dim * mlp_ratio), moe_num_experts, top_k=moe_top_k,
+                                  capacity_factor=moe_capacity_factor,
+                                  gelu_approx=gelu_approx, dtype=dtype)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=proj_drop,
+                           gelu_approx=gelu_approx, dtype=dtype)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.drop_path1(self.ls1(self.attn(self.norm1(x))))
-        return x + self.drop_path2(self.ls2(self.mlp(self.norm2(x))))
+        mlp = self.moe_mlp if self.is_moe else self.mlp
+        return x + self.drop_path2(self.ls2(mlp(self.norm2(x))))

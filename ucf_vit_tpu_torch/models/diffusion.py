@@ -24,7 +24,8 @@ take no dtype, so under the bf16 policy they compute in f32 and promote the
 residual streams they join to f32.
 
 Not ported, and refused with the ROADMAP.md item: the pipelined decoder stack
-(`pipe_par_size > 1`, pipeline + MoE), refused by `VIT`.
+(`pipe_par_size > 1`, item 12, pipeline), refused by `VIT`. With MoE the
+encoder's blocks route (`models/moe.py`); the decoder's stay dense.
 """
 
 from __future__ import annotations

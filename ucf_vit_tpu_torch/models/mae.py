@@ -23,8 +23,9 @@ the decoder norm and the prediction head take no dtype, so `pred` is f32.
 
 With `use_varemb` the encoder embeds each variable by its own embed and
 merges them (`VIT.embed_tokens`, `var_ids`). Not ported, and refused with the
-ROADMAP.md item: `pipe_par_size > 1` (pipeline + MoE); the sqrt-len method is
-UNETR's and SAP's input, not MAE's.
+ROADMAP.md item: `pipe_par_size > 1` (item 12, pipeline); the sqrt-len method is
+UNETR's and SAP's input, not MAE's. With MoE the encoder's blocks route
+(`models/moe.py`); the decoder's stay dense, as in the JAX model.
 """
 
 from __future__ import annotations

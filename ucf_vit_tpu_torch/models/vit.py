@@ -27,8 +27,18 @@ the variables of a sample merged token by token by `VariableMappingAttention`
 (one learned query, `var_query`, over the variables' tokens). `var_ids`, the
 indices of the batch's `variables` in `default_vars` (`get_var_ids`), says
 which embed each input channel takes; a `single_channel` batch is one
-variable's and is not merged. Pipelined blocks and MoE raise
-NotImplementedError until their slices (ROADMAP.md).
+variable's and is not merged. Pipelined blocks raise NotImplementedError
+until their slice (ROADMAP.md, item 12).
+
+Mixture of experts (`moe_num_experts > 1`, `models/moe.py`): block i's MLP
+is a `MoeMlp` where `i % moe_every == moe_every - 1` (the V-MoE placement,
+`ucf_vit_tpu/models/vit.py:376-388,428-437`); under `scan_layers` every
+block must be one (`moe_every: 1`). MAE's and DiffusionVIT's decoder blocks
+stay dense, as in the JAX package. After each run of the encoder's blocks
+(`forward_features`, `forward_intermediates`) `moe_aux` holds the mean of
+their load-balance losses, which the task losses add (`tasks.moe_aux`); a
+dense model's is None. A MoE model sets `couples_samples` (its loss is not a
+mean over samples), which the train step reads under accumulation.
 
 Sequence parallelism (a model on a mesh with sp > 1, `shard_model`): each
 block stack (`_run_stack`: the encoder's blocks, and MAE's and
@@ -76,6 +86,7 @@ from ucf_vit_tpu_torch.models.blocks import (
     layer_norm,
     set_generator,
 )
+from ucf_vit_tpu_torch.models.moe import MoeMlp, collect_moe_aux
 from ucf_vit_tpu_torch.ops.attention import AttnImpl, resolve_impl
 from ucf_vit_tpu_torch.parallel.collectives import all_gather, split
 from ucf_vit_tpu_torch.parallel.mesh import seq_shard_of, sequence_context
@@ -149,6 +160,9 @@ class VIT(nn.Module):
         scan_layers: bool = False,
         pipe_par_size: int = 1,
         moe_num_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
+        moe_every: int = 2,
         sp_mode: str = "auto",
         dtype: Optional[torch.dtype] = None,
         # the encoder blocks attend within segments of this length (MAE's seq_pack)
@@ -160,9 +174,15 @@ class VIT(nn.Module):
         if adaptive_patching and not fixed_length:
             raise ValueError("adaptive_patching needs fixed_length")
         if pipe_par_size > 1:
-            raise _not_ported("pipe_par_size > 1", "pipeline + MoE")
-        if moe_num_experts > 1:
-            raise _not_ported("MoE blocks", "pipeline + MoE")
+            raise _not_ported("pipe_par_size > 1", "pipeline, item 12")
+        moe_on = moe_num_experts > 1
+        if moe_on and scan_layers and moe_every != 1:
+            # the JAX model's assertion (`ucf_vit_tpu/models/vit.py:377-383`)
+            raise AssertionError(
+                "scan_layers stacks identical blocks; MoE under scan "
+                "requires moe_every == 1 (or use scan_layers=False for "
+                "the V-MoE every-2 placement)"
+            )
         if scan_layers and drop_path_rate != 0.0:
             raise ValueError("scan_layers requires drop_path_rate == 0")
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -242,11 +262,18 @@ class VIT(nn.Module):
                                  init_values=init_values, gelu_approx=gelu_approx,
                                  sp_mode=sp_mode, dtype=dtype)
         dpr = np.linspace(0.0, drop_path_rate, depth)
+        # the loss is no mean of per-sample terms where the MoE aux takes batch means:
+        # the train step then splits the global batch into microbatches as one device
+        self.couples_samples = moe_on
+        moe = dict(moe_num_experts=moe_num_experts, moe_top_k=moe_top_k,
+                   moe_capacity_factor=moe_capacity_factor)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio=mlp_ratio, drop_path=float(dpr[i]),
-                  seg_len=block_seg_len, **self.block_kwargs)
+                  seg_len=block_seg_len, **self.block_kwargs,
+                  **(moe if moe_on and i % moe_every == moe_every - 1 else {}))
             for i in range(depth)
         )
+        self.moe_aux: Optional[torch.Tensor] = None
         # the final norm and the head take no dtype in the JAX model
         # (`ucf_vit_tpu/models/vit.py:441,454`): they compute in the promoted
         # type, so the logits are f32 under the bf16 policy too
@@ -296,6 +323,8 @@ class VIT(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, LayerScale):
                 m.gamma.fill_(m.init_values)
+            elif isinstance(m, MoeMlp):
+                m.init_weights(generator, std)
         if self.cls_token is not None:
             nn.init.normal_(self.cls_token, std=1e-6, generator=generator)
         if self.pos_embed is not None and self.adaptive_linear:
@@ -474,6 +503,9 @@ class VIT(nn.Module):
             x = self._remat_block(fn, x) if remat else fn(x)
             if i in take:
                 outs.append(join(x))
+        moe = [b.moe_mlp for b in blocks if b.is_moe]
+        if moe:  # the encoder's: the decoders' blocks are dense
+            self.moe_aux = collect_moe_aux(moe)
         return join(x) if taps is None else (join(x), outs)
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,13 @@ tp ranks are neighbours. The batch is split over the data axes ddp, ep and
 fsdp (`DATA_AXES`): the data rank is the row-major index over them, and the
 tp (and sp, pp) ranks of one data rank see the same slice.
 
+Expert parallelism (ep > 1, `models/moe.py`): the ep ranks of one (ddp,
+fsdp) coordinate hold different experts and exchange their tokens over the
+ep group (`group("ep")`); everything outside the experts is data-parallel
+over ep, as the JAX package lays it out (`:51-54, 76-81`). The expert leaves
+are replicated over the non-ep data axes (`EXPERT_DATA_AXES`), whose group
+is `expert_data_group`.
+
 `init_distributed` joins the job from torchrun's variables (`RANK`,
 `WORLD_SIZE`, `LOCAL_RANK`) or SLURM's (`SLURM_PROCID`, `SLURM_NTASKS`,
 `SLURM_LOCALID`), as the JAX trainer's `init_distributed` reads SLURM's
@@ -87,10 +94,11 @@ MESH_AXES = (AXIS_PP, AXIS_DDP, AXIS_EP, AXIS_FSDP, AXIS_SP, AXIS_TP)
 DATA_AXES = (AXIS_DDP, AXIS_EP, AXIS_FSDP)
 # the axes FSDP runs on: replicated over ddp, sharded over fsdp
 FSDP_AXES = (AXIS_DDP, AXIS_FSDP)
+# the data axes an expert leaf is replicated over (ep splits the experts)
+EXPERT_DATA_AXES = (AXIS_DDP, AXIS_FSDP)
 # the `parallelism:` axes not ported yet, with their ROADMAP.md items
 REFUSED_AXES = {
-    "pipe_par_size": "item 12: pipeline + MoE",
-    "expert_par_size": "item 12: pipeline + MoE",
+    "pipe_par_size": "item 12: pipeline",
 }
 
 _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("ucf_vit_tpu_torch_mesh",
@@ -103,14 +111,16 @@ _SPATIAL_SHARD: contextvars.ContextVar = contextvars.ContextVar(
 
 class Mesh:
     """The job's DeviceMesh with the groups the port's collectives run on:
-    one group per axis, and `data_group` over the data axes (the ranks that
-    share every other coordinate)."""
+    one group per axis, `data_group` over the data axes (the ranks that
+    share every other coordinate) and `expert_data_group` over the non-ep
+    data axes."""
 
-    def __init__(self, device_mesh, data_group):
+    def __init__(self, device_mesh, data_group, expert_data_group=None):
         self.device_mesh = device_mesh
         self.shape: Dict[str, int] = dict(zip(MESH_AXES, device_mesh.mesh.shape))
         self.coords: Dict[str, int] = dict(zip(MESH_AXES, device_mesh.get_coordinate()))
         self.data_group = data_group
+        self.expert_data_group = expert_data_group
 
     @property
     def world(self) -> int:
@@ -128,6 +138,10 @@ class Mesh:
     @property
     def data_size(self) -> int:
         return int(np.prod([self.shape[a] for a in DATA_AXES]))
+
+    @property
+    def expert_data_size(self) -> int:
+        return int(np.prod([self.shape[a] for a in EXPERT_DATA_AXES]))
 
     @property
     def data_rank(self) -> int:
@@ -266,19 +280,24 @@ def make_mesh(simple_ddp_size: int = 1, fsdp_size: int = 1, seq_par_size: int = 
             f"ep {expert_par_size} x fsdp {fsdp_size} x sp {seq_par_size} x "
             f"tp {tensor_par_size}) != #processes {have}")
     device_mesh = init_device_mesh(device_type, shape, mesh_dim_names=MESH_AXES)
-    # the data group of every slice of the other axes, made in the same order on
-    # every rank (new_group is collective over the whole job)
-    ranks = np.arange(world).reshape(shape)
-    data_dims = [MESH_AXES.index(a) for a in DATA_AXES]
-    other = [d for d in range(len(shape)) if d not in data_dims]
-    n_data = int(np.prod([shape[d] for d in data_dims]))
-    rows = ranks.transpose(other + data_dims).reshape(-1, n_data)
+    return Mesh(device_mesh, _group_over(shape, DATA_AXES),
+                _group_over(shape, EXPERT_DATA_AXES) if expert_par_size > 1 else None)
+
+
+def _group_over(shape: tuple, axes: tuple):
+    """This rank's group of the ranks that differ only on `axes`: one group
+    for every slice of the other axes, made in the same order on every rank
+    (new_group is collective over the whole job)."""
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    dims = [MESH_AXES.index(a) for a in axes]
+    other = [d for d in range(len(shape)) if d not in dims]
+    n = int(np.prod([shape[d] for d in dims]))
     me, mine = dist.get_rank(), None
-    for row in rows:
+    for row in ranks.transpose(other + dims).reshape(-1, n):
         g = dist.new_group(row.tolist())
         if me in row:
             mine = g
-    return Mesh(device_mesh, mine)
+    return mine
 
 
 def mesh_from_config(parallelism: dict, device_type: str = "cpu") -> Mesh:
@@ -301,8 +320,9 @@ def eval_mesh(cfg, device: Optional[torch.device] = None) -> Optional[Mesh]:
     launch of one process (a config trained on many devices evaluates on
     one). A launch of more (torchrun or srun) joins the job
     (`init_distributed`) and builds the config's mesh; it raises where the
-    config asks for pp or ep (not ported) or for another number of processes
-    than were launched."""
+    config asks for pp (not ported) or for another number of processes than
+    were launched. On an ep mesh every rank runs every forward: the experts'
+    all-to-all takes all of them."""
     size = int(cfg.world_size)
     if size <= 1:
         return None

@@ -12,7 +12,10 @@ tensor-parallel leaves, fsdp under FSDP) hold the same bytes when healthy:
 they run the same arithmetic on the same inputs, so their fingerprints are
 bit-equal, and any difference is a real divergence. The sp ranks of a
 sequence-parallel run are such replicas: every one of them sums the same
-partial gradients over the sp group and applies the same update. `trainer.sync_check_every:
+partial gradients over the sp group and applies the same update. The expert
+leaves of an ep mesh (`model.ep_layout`) hold different experts on each ep
+rank: they are fingerprinted apart and compared within each ep index, the
+other leaves across ep too. `trainer.sync_check_every:
 N` runs the check every N steps and raises `ReplicaDesyncError` naming the
 divergent ranks.
 """
@@ -26,7 +29,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.distributed as dist
 
-from ucf_vit_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_TP, MESH_AXES, Mesh
+from ucf_vit_tpu_torch.parallel.mesh import AXIS_EP, AXIS_FSDP, AXIS_TP, MESH_AXES, Mesh
 
 _POS_FREQ = 0.7310586
 
@@ -87,9 +90,12 @@ def used_axes(model: torch.nn.Module, mesh: Mesh) -> set:
     return axes
 
 
-def device_fingerprints(model: torch.nn.Module, mesh: Mesh) -> torch.Tensor:
-    """Every rank's fingerprint, `[world, 2]` f32 on the CPU, on every rank."""
-    fp = local_fingerprint(model.parameters())
+def device_fingerprints(model: torch.nn.Module, mesh: Mesh, expert: bool = False
+                        ) -> torch.Tensor:
+    """Every rank's fingerprint, `[world, 2]` f32 on the CPU, on every rank: of
+    the leaves other than the expert leaves, or with `expert` of those."""
+    ep = getattr(model, "ep_layout", set())
+    fp = local_fingerprint(p for n, p in model.named_parameters() if (n in ep) == expert)
     dev = next(model.parameters()).device
     table = torch.zeros(mesh.world, 2, dtype=torch.float32, device=dev)
     table[dist.get_rank()] = fp.to(dev)
@@ -97,26 +103,35 @@ def device_fingerprints(model: torch.nn.Module, mesh: Mesh) -> torch.Tensor:
     return table.cpu()
 
 
-def check_replica_consistency(model: torch.nn.Module, mesh: Mesh,
-                              raise_on_mismatch: bool = True) -> SyncReport:
-    """Compare the fingerprints of ranks that must be byte-identical; every
-    rank must call it together."""
-    fps = device_fingerprints(model, mesh)
-    used = used_axes(model, mesh)
-    shape = [mesh.size(a) for a in MESH_AXES]
-    redundancy = tuple(a for a, n in zip(MESH_AXES, shape) if n > 1 and a not in used)
+def _compare(fps: torch.Tensor, used: set, shape: list, mismatches: list) -> int:
+    """Group the ranks by their coordinates on `used` and append each group
+    whose fingerprints differ to `mismatches`; returns the number of groups."""
     groups: Dict[Tuple[int, ...], List[int]] = {}
     for rank, coords in enumerate(itertools.product(*[range(n) for n in shape])):
         key = tuple(c for c, a in zip(coords, MESH_AXES) if a in used)
         groups.setdefault(key, []).append(rank)
-    mismatches = []
     for key, ranks in groups.items():
         ref = fps[ranks[0]]
         if all(torch.equal(fps[r], ref) for r in ranks[1:]):
             continue
         coords = dict(zip([a for a in MESH_AXES if a in used], key))
         mismatches.append((coords, [(r, tuple(float(v) for v in fps[r])) for r in ranks]))
-    report = SyncReport(ok=not mismatches, redundancy_axes=redundancy, n_groups=len(groups),
+    return len(groups)
+
+
+def check_replica_consistency(model: torch.nn.Module, mesh: Mesh,
+                              raise_on_mismatch: bool = True) -> SyncReport:
+    """Compare the fingerprints of ranks that must be byte-identical; every
+    rank must call it together."""
+    used = used_axes(model, mesh)
+    shape = [mesh.size(a) for a in MESH_AXES]
+    redundancy = tuple(a for a, n in zip(MESH_AXES, shape) if n > 1 and a not in used)
+    mismatches: list = []
+    n_groups = _compare(device_fingerprints(model, mesh), used, shape, mismatches)
+    if getattr(model, "ep_layout", None) and mesh.size(AXIS_EP) > 1:
+        n_groups += _compare(device_fingerprints(model, mesh, expert=True), used | {AXIS_EP},
+                             shape, mismatches)
+    report = SyncReport(ok=not mismatches, redundancy_axes=redundancy, n_groups=n_groups,
                         mismatches=mismatches)
     if mismatches and raise_on_mismatch:
         raise ReplicaDesyncError(report.describe())

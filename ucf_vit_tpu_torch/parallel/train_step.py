@@ -38,6 +38,29 @@ group (its tokens' share inside the split stream, `1/sp` of the rest,
 (`sum_over_sp`) before the clip and the update; the data-axis mean, the
 clip's norm (over fsdp and tp) and the overflow agreement are unchanged.
 
+Expert parallelism (ep > 1): `models.moe.shard_expert_parallel` keeps each
+ep rank's `E/ep` experts (`model.ep_layout`, the names of the expert leaves)
+before tensor parallelism splits their hidden dim. The batch is split over
+ddp x ep x fsdp as before, so the dense leaves' gradients are averaged over
+all the data ranks. An expert leaf's gradient already sums the tokens of
+every ep rank (the all-to-all's backward brings them to the expert's rank),
+so it is summed over the non-ep data ranks (ddp x fsdp, over which its rank's
+experts are replicated) and divided by the whole data size: the extra `1/ep`
+makes it a mean over the global batch, as the dense leaves'. Under FSDP the
+Blocks are sharded on the (ddp, fsdp) submesh, whose reduction averages over
+those ranks alone: the step then averages the dense leaves' shards over ep
+and divides the expert leaves' by ep (`_reduce_over_ep`). The clip's norm
+sums the expert leaves' squares over ep, and the sync check compares them
+within an ep index.
+
+With gradient accumulation the JAX step splits the global batch into
+microbatches (`:260-291`); a data rank's local chunks make other microbatches
+of the same rows, which is the same step wherever the loss is a mean over
+samples. A model whose loss is not (`couples_samples`: the MoE aux is a
+product of batch means) has the global batch gathered over the data group
+first (`global_microbatches`), so that each rank's chunks are its shares of
+the global microbatches, those of the JAX step and of one device.
+
 `offload_opt` is not ported: the JAX package keeps it as a
 measured-and-rejected study artifact that no config reaches (`:125-137`).
 """
@@ -95,19 +118,22 @@ def is_fsdp(model: torch.nn.Module) -> bool:
 
 def shard_model(model: torch.nn.Module, mesh: Optional[Mesh]) -> torch.nn.Module:
     """Put `model` (whole, the same weights on every rank) on `mesh` in
-    place: tensor parallelism over tp, then FSDP over (ddp, fsdp) when fsdp >
-    1. Sets `model.mesh` and `model.tp_layout` ({name: split} of the
-    tensor-parallel parameters; empty without tp), which the checkpoint reads.
-    Build the optimizer after this."""
+    place: the experts over ep, tensor parallelism over tp, then FSDP over
+    (ddp, fsdp) when fsdp > 1. Sets `model.mesh`, `model.ep_layout` (the
+    names of the expert leaves split over ep; empty without ep) and
+    `model.tp_layout` ({name: split} of the tensor-parallel parameters; empty
+    without tp), which the checkpoint reads. Build the optimizer after
+    this."""
     from ucf_vit_tpu_torch.models.blocks import Block, shard_tensor_parallel
+    from ucf_vit_tpu_torch.models.moe import shard_expert_parallel
 
-    model.mesh, model.tp_layout = mesh, {}
+    model.mesh, model.tp_layout, model.ep_layout = mesh, {}, set()
     if mesh is None:
         return model
-    for axis, item in (("pp", "item 12: pipeline + MoE"), ("ep", "item 12: pipeline + MoE")):
-        if mesh.size(axis) > 1:
-            raise NotImplementedError(f"{axis} > 1 is not ported yet (ROADMAP.md, modules to "
-                                      f"port, {item})")
+    if mesh.size("pp") > 1:
+        raise NotImplementedError("pp > 1 is not ported yet (ROADMAP.md, modules to port, "
+                                  "item 12: pipeline)")
+    model.ep_layout = shard_expert_parallel(model, mesh)
     if mesh.size("tp") > 1:
         model.tp_layout = shard_tensor_parallel(model, mesh.group("tp"), mesh.index("tp"),
                                                 mesh.size("tp"))
@@ -127,11 +153,10 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                        ema: bool = False) -> TrainState:
     """The state at step 0 (`create_sharded_train_state`): for a model that
     `shard_model` put on a mesh, the optimizer learns which parameters are
-    tensor-parallel, for the clip's norm."""
+    split over tp and over ep, for the clip's norm."""
     mesh = getattr(model, "mesh", None)
     if mesh is not None:
-        names = getattr(model, "tp_layout", {})
-        optimizer.sharding = (mesh, {id(p) for n, p in model.named_parameters() if n in names})
+        optimizer.sharding = (mesh, split_axes(model))
     return TrainState(
         step=0,
         model=model,
@@ -142,12 +167,51 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
     )
 
 
-def _split(batch: Dict[str, torch.Tensor], n: int):
+def split_axes(model: torch.nn.Module) -> Dict[int, Tuple[str, ...]]:
+    """{id(parameter): the axes of tp and ep it is split over} of a sharded
+    model's parameters that are split over either."""
+    tp, ep = getattr(model, "tp_layout", {}), getattr(model, "ep_layout", set())
+    out = {}
+    for n, p in model.named_parameters():
+        axes = tuple(a for a, names in (("tp", tp), ("ep", ep)) if n in names)
+        if axes:
+            out[id(p)] = axes
+    return out
+
+
+def _check_divides(batch: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
     for key, x in batch.items():
         if x.shape[0] % n:
             raise ValueError(f"batch dim {x.shape[0]} of {key!r} not divisible by accum_steps "
                              f"{n}: samples would be silently dropped")
+    return batch
+
+
+def _split(batch: Dict[str, torch.Tensor], n: int):
+    _check_divides(batch, n)
     return [{k: x.chunk(n)[i] for k, x in batch.items()} for i in range(n)]
+
+
+def global_microbatches(batch: Dict[str, torch.Tensor], mesh: Mesh, a: int):
+    """This data rank's slice of the global batch replaced by its shares of
+    the global batch's `a` microbatches, in order (`_split` then gives
+    microbatch i's share as chunk i): the microbatches of the JAX step
+    (`ucf_vit_tpu/parallel/train_step.py:260-291`) and of one device. Every
+    rank gathers the whole global batch, a copy of the inputs alone."""
+    n, r = mesh.data_size, mesh.data_rank
+    out = {}
+    for k, x in _check_divides(batch, a).items():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
+        out[k] = _shares(torch.cat(parts), n, r, a)
+    return out
+
+
+def _shares(whole: torch.Tensor, n: int, r: int, a: int) -> torch.Tensor:
+    """Data rank `r`'s shares, in order, of the `a` microbatches of `whole`
+    (the global batch of `n` data ranks in rank order): global row
+    `(i n + r) q + j` is row j of its share of microbatch i."""
+    return whole.view(a, n, -1, *whole.shape[1:])[:, r].flatten(0, 1)
 
 
 def average_gradients(params: List[torch.Tensor], group, n: int,
@@ -183,6 +247,41 @@ def _reduce_in_buckets(grads: List[torch.Tensor], group, n: int, bucket_bytes: i
         bucket.append(g)
         size += g.numel() * g.element_size()
     flush()
+
+
+def reduce_over_data(model: torch.nn.Module, params: List[torch.Tensor], mesh: Mesh,
+                     fsdp: bool) -> None:
+    """The gradients' mean over the global batch: plain DDP averages each
+    dense leaf over the data group and sums each expert leaf over the non-ep
+    data group, divided by the data size; FSDP has averaged over (ddp, fsdp)
+    and `_reduce_over_ep` adds ep."""
+    if fsdp:
+        _reduce_over_ep(model, params, mesh)
+        return
+    ep = getattr(model, "ep_layout", set())
+    names = {id(p): n for n, p in model.named_parameters()}
+    expert = [p.grad for p in params if p.grad is not None and names[id(p)] in ep]
+    dense = [p for p in params if p.grad is not None and names[id(p)] not in ep]
+    average_gradients(dense, mesh.data_group, mesh.data_size)
+    if mesh.expert_data_size > 1:
+        _reduce_in_buckets(expert, mesh.expert_data_group, mesh.data_size, DDP_BUCKET_BYTES)
+    else:  # the experts' ranks hold no replicas: the whole data size divides alone
+        for g in expert:
+            g.div_(mesh.data_size)
+
+
+def _reduce_over_ep(model: torch.nn.Module, params: List[torch.Tensor], mesh: Mesh) -> None:
+    """Under FSDP on the (ddp, fsdp) submesh, with ep > 1: each dense leaf's
+    local shard averaged over ep, each expert leaf's divided by ep."""
+    ep = getattr(model, "ep_layout", set())
+    if not ep:
+        return
+    names = {id(p): n for n, p in model.named_parameters()}
+    dense = [local(p.grad) for p in params if p.grad is not None and names[id(p)] not in ep]
+    _reduce_in_buckets(dense, mesh.group("ep"), mesh.size("ep"), DDP_BUCKET_BYTES)
+    for p in params:
+        if p.grad is not None and names[id(p)] in ep:
+            local(p.grad).div_(mesh.size("ep"))
 
 
 def sum_over_sp(params: List[torch.Tensor], mesh: Mesh) -> None:
@@ -226,6 +325,9 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
             p.grad = None
         scale = state.loss_scale.scale if state.loss_scale is not None else None
         sp = mesh.size("sp") if mesh is not None else 1
+        if accum_steps > 1 and mesh is not None and mesh.data_size > 1 and \
+                getattr(model, "couples_samples", False):
+            batch = global_microbatches(batch, mesh, accum_steps)
         micro = _split(batch, accum_steps) if accum_steps > 1 else [batch]
         loss_sum, aux_sum = 0.0, None
         with mesh_context(mesh):
@@ -243,8 +345,8 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer, accum_steps: int = 1,
         aux = {k: v / accum_steps for k, v in aux_sum.items()} if accum_steps > 1 else aux_sum
 
         with torch.no_grad():
-            if mesh is not None and mesh.data_size > 1 and not fsdp:
-                average_gradients(params, mesh.data_group, mesh.data_size)
+            if mesh is not None and mesh.data_size > 1:
+                reduce_over_data(model, params, mesh, fsdp)
             if sp > 1:
                 sum_over_sp(params, mesh)
             grads = [p.grad for p in params if p.grad is not None]

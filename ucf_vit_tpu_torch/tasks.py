@@ -7,6 +7,11 @@ reassembled into the sqrt-len image beside the tile; SAP's `sap_inputs`: that
 image alone). Every loss takes the batch's `var_ids` (`VIT.get_var_ids` of its
 `variables`), which a model with `use_varemb` reads and any other ignores, as
 the JAX losses take them.
+
+A model with MoE blocks (`moe_num_experts > 1`) adds `moe_aux_weight` (0.01
+by default) times the mean of its layers' load-balance losses to every loss
+(`ucf_vit_tpu/tasks.py:135-151`), and reports that mean as `moe_aux` beside
+the task's own aux; a dense model's loss is unchanged.
 """
 
 from __future__ import annotations
@@ -87,9 +92,29 @@ def _common_kwargs(cfg: Config) -> dict:
         ),
         pipe_par_size=int(cfg.parallelism.get("pipe_par_size", 1)),
         moe_num_experts=int(ia.get("moe_num_experts", 0)),
+        moe_top_k=int(ia.get("moe_top_k", 2)),
+        moe_capacity_factor=float(ia.get("moe_capacity_factor", 1.25)),
+        moe_every=int(ia.get("moe_every", 2)),
         sp_mode=str(cfg.parallelism.get("sp_mode", "auto")).lower(),
         dtype=torch.bfloat16 if cfg.trainer.get("data_type") == "bfloat16" else None,
     )
+
+
+def moe_weight(cfg: Config) -> float:
+    """`init_args.moe_aux_weight` for a config with MoE blocks, else 0
+    (`_moe_args`, `ucf_vit_tpu/tasks.py:135-141`)."""
+    ia = cfg.init_args
+    return float(ia.get("moe_aux_weight", 0.01)) if int(ia.get("moe_num_experts", 0)) > 1 else 0.0
+
+
+def with_moe_aux(cfg: Config, model: torch.nn.Module, loss: torch.Tensor, aux: dict):
+    """`(loss + moe_aux_weight * the model's MoE aux, aux with it as
+    "moe_aux")` after a forward of a model with MoE blocks; `(loss, aux)` of a
+    dense one."""
+    w = moe_weight(cfg)
+    if w == 0.0 or getattr(model, "moe_aux", None) is None:
+        return loss, aux
+    return loss + w * model.moe_aux, {**aux, "moe_aux": model.moe_aux.detach()}
 
 
 def seq_ps(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
@@ -180,14 +205,13 @@ def build_classification(cfg: Config) -> VIT:
 def classification_loss(cfg: Config) -> Callable:
     """`loss_fn` of `build_classification` (`ucf_vit_tpu/tasks.py:180-187`):
     cross entropy of the logits of `x` (adaptive: of `seq` and its
-    descriptors), with accuracy as aux. The MoE aux term is 0 for the dense
-    model the port has."""
+    descriptors), with accuracy as aux, plus the MoE term."""
 
     def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
         x, ps = model_inputs(cfg, batch)
         logits = model(x, seq_ps=ps, var_ids=var_ids)
-        return (cross_entropy(logits, batch["label"]),
-                {"accuracy": accuracy(logits, batch["label"])})
+        return with_moe_aux(cfg, model, cross_entropy(logits, batch["label"]),
+                            {"accuracy": accuracy(logits, batch["label"])})
 
     return loss_fn
 
@@ -213,7 +237,8 @@ def mae_loss(cfg: Config) -> Callable:
     `[B, C, L, p^nd]` as `[B, L, p^nd * C]` (the channel fastest), whatever
     `model.loss_fn` says; otherwise `model.loss_fn: maskMSE` takes the masked
     MSE of the prediction against the patchified input, any other name the
-    MSE over every token. The mask is drawn from the model's generator."""
+    MSE over every token. The mask is drawn from the model's generator. Plus
+    the MoE term."""
     masked = cfg.model.get("loss_fn", "MSE") == "maskMSE"
 
     def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor], var_ids=None):
@@ -221,11 +246,13 @@ def mae_loss(cfg: Config) -> Callable:
             seq = batch["seq"]
             pred, _ = model(seq, seq_ps=seq_ps(batch), var_ids=var_ids)
             b, c, l, p = seq.shape
-            return mse(pred, seq.permute(0, 2, 3, 1).reshape(b, l, p * c)), {}
-        x = batch["x"]
-        pred, mask = model(x, var_ids=var_ids)
-        target = patchify(x, cfg.patch_size, cfg.twoD)
-        return (masked_mse(pred, target, mask) if masked else mse(pred, target)), {}
+            loss = mse(pred, seq.permute(0, 2, 3, 1).reshape(b, l, p * c))
+        else:
+            x = batch["x"]
+            pred, mask = model(x, var_ids=var_ids)
+            target = patchify(x, cfg.patch_size, cfg.twoD)
+            loss = masked_mse(pred, target, mask) if masked else mse(pred, target)
+        return with_moe_aux(cfg, model, loss, {})
 
     return loss_fn
 
@@ -281,7 +308,7 @@ def diffusion_loss(cfg: Config) -> Callable:
             if e is None:
                 e = torch.randn(x0.shape, device=x0.device, dtype=x0.dtype, generator=gen)
         pred = model(q_sample(schedule, x0, t, e), t, var_ids=var_ids)
-        return mse(unpatchify(pred, tuple(x0.shape), p, twoD), e), {}
+        return with_moe_aux(cfg, model, mse(unpatchify(pred, tuple(x0.shape), p, twoD), e), {})
 
     return loss_fn
 
@@ -316,7 +343,7 @@ def unetr_loss(cfg: Config) -> Callable:
         label = batch["label"]
         if label.ndim == logits.ndim - 1:
             label = label[:, None]
-        return dice_ce_loss(logits, label, classes), {}
+        return with_moe_aux(cfg, model, dice_ce_loss(logits, label, classes), {})
 
     return loss_fn
 
@@ -355,7 +382,7 @@ def sap_loss(cfg: Config) -> Callable:
         img, ps = sap_inputs(cfg, batch)
         logits = model(img, seq_ps=ps, var_ids=var_ids)
         onehot = F.one_hot(sap_labels(cfg, batch), classes).movedim(-1, 1).float()
-        return dice_b_loss(logits, onehot), {}
+        return with_moe_aux(cfg, model, dice_b_loss(logits, onehot), {})
 
     return loss_fn
 

@@ -13,12 +13,13 @@ to the norm and would differ).
 The loss-scale state (`:111-153`) is host-side Python: the train step reads
 whether the gradients are finite once per step when it is on.
 
-Under a mesh (`sharding`, set by `parallel.train_step.shard_model`) a
-gradient may be a piece: FSDP's shard of its parameter over fsdp (a
-DTensor), and a tensor-parallel parameter's slice over tp. The clip's norm
-then sums each rank's local squares over fsdp, and those of the
-tensor-parallel leaves over tp as well, so that every element of the whole
-gradient counts once (`clip_by_global_norm_`).
+Under a mesh (`sharding`, set by `parallel.train_step.create_train_state`)
+a gradient may be a piece: FSDP's shard of its parameter over fsdp (a
+DTensor), a tensor-parallel parameter's slice over tp, an expert leaf's
+experts over ep. The clip's norm then sums each rank's local squares over
+fsdp, and those of the leaves split over tp or ep over that axis as well, so
+that every element of the whole gradient counts once
+(`clip_by_global_norm_`).
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ class Optimizer:
 
     def __init__(self, model: torch.nn.Module, beta_1: float, beta_2: float,
                  weight_decay: float, schedule: Schedule, max_grad_norm: Optional[float]):
-        # (mesh, ids of the tensor-parallel parameters), from parallel.train_step
+        # (mesh, {id(parameter): the axes of tp and ep it is split over}), from
+        # parallel.train_step
         self.sharding: Optional[Tuple] = None
         mask = _no_decay_mask(model)
         params = dict(model.named_parameters())
@@ -98,9 +100,9 @@ class Optimizer:
             if self.sharding is None:
                 clip_by_global_norm_([p.grad for p in params], self.max_grad_norm)
             else:
-                mesh, tp_ids = self.sharding
+                mesh, axes = self.sharding
                 clip_by_global_norm_([p.grad for p in params], self.max_grad_norm, mesh=mesh,
-                                     tp_sharded=[id(p) in tp_ids for p in params])
+                                     split=[axes.get(id(p), ()) for p in params])
         lr = self.schedule(self.count)
         for g in self.adamw.param_groups:
             g["lr"] = lr
@@ -113,14 +115,19 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+# the splits a leaf's gradient can have over (tp, ep), in the order of the
+# clip's partial sums
+_SPLITS = ((), ("tp",), ("ep",), ("tp", "ep"))
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, mesh=None,
-                         tp_sharded: Optional[List[bool]] = None) -> None:
+                         split: Optional[List[Tuple[str, ...]]] = None) -> None:
     """optax's clip_by_global_norm in place: g * min(1, max_norm / ||g||), with
     no host synchronisation. Under `mesh` the norm is that of the whole
     sharded gradient: the local squares summed over fsdp (FSDP's shards), and
-    over tp too for the leaves `tp_sharded` marks; a leaf replicated over tp
-    counts once."""
+    over tp and ep too for the leaves `split` marks so (each leaf's axes of
+    the two); a leaf replicated over an axis counts once."""
     if not grads:
         return
     if mesh is None:
@@ -128,17 +135,20 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, mesh=None,
     else:
         import torch.distributed as dist
 
-        flags = tp_sharded or [False] * len(grads)
+        split = [tuple(a for a in ("tp", "ep") if a in s) for s in (split or [()] * len(grads))]
         sq = [local(g).float().pow(2).sum() for g in grads]
         zero = sq[0].new_zeros(())
-        parts = torch.stack([sum((s for s, f in zip(sq, flags) if not f), zero),
-                             sum((s for s, f in zip(sq, flags) if f), zero)])
+        parts = torch.stack([sum((q for q, s in zip(sq, split) if s == kind), zero)
+                             for kind in _SPLITS])
         if mesh.size("fsdp") > 1 and any(hasattr(g, "to_local") for g in grads):
             dist.all_reduce(parts, group=mesh.group("fsdp"))
-        tp_part = parts[1:].clone()
-        if mesh.size("tp") > 1:
-            dist.all_reduce(tp_part, group=mesh.group("tp"))
-        norm = torch.sqrt(parts[0] + tp_part[0])
+        for axis in ("tp", "ep"):
+            if mesh.size(axis) > 1 and any(axis in s for s in split):
+                rows = [i for i, kind in enumerate(_SPLITS) if axis in kind]
+                part = parts[rows].clone()
+                dist.all_reduce(part, group=mesh.group(axis))
+                parts = parts.index_copy(0, torch.tensor(rows, device=parts.device), part)
+        norm = torch.sqrt(parts.sum())
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         local(g).mul_(factor.to(g.dtype))
